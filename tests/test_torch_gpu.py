@@ -1,0 +1,186 @@
+"""The port's CUDA kernels on the card (``-m gpu``).
+
+Run on a machine with an NVIDIA H100:
+
+    python -m pytest tests/test_torch_*.py -m gpu
+
+Each test decides inside the ``cuda`` fixture whether a card is
+present, and skips with a reason where there is none. The kernels are
+built from tpu_hpc_torch/csrc at the first launch and held against
+their plain PyTorch versions at small shapes (head_dim 128, 16-token
+pages, GQA group 4); dead table entries point at NaN pages, so a read
+of a dead page poisons the output. This file imports no JAX: the card
+machine need not have it.
+
+Tolerance ``2e-2``: bf16 outputs of O(1) attention values against the
+plain version's fp32 arithmetic on the same inputs -- the output's bf16
+rounding (2^-8 relative) dominates. Float32 engines must agree on every
+greedy token.
+"""
+import numpy as np
+import pytest
+import torch
+
+from tpu_hpc_torch.kernels import paged_attention as pa
+from tpu_hpc_torch.models import llama2
+from tpu_hpc_torch.serve import (
+    ContinuousBatcher,
+    PagedConfig,
+    PagedEngine,
+    Request,
+    ServeConfig,
+)
+
+TOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest "
+                    "tests/test_torch_*.py -m gpu on the card)")
+    return torch.device("cuda")
+
+
+def _case(rng, slots=5, hkv=2, g=4, d=128, bs=16, mb=5, num_blocks=20):
+    """Pool, tables, positions; the last page is NaN and every dead
+    entry points at it; slot ``slots-1`` is inactive."""
+    shape = (num_blocks, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    kp[-1] = vp[-1] = np.nan
+    q = rng.standard_normal((slots, hkv, g, d)).astype(np.float32)
+    pos = rng.integers(0, mb * bs, size=slots).astype(np.int32)
+    active = np.ones(slots, np.int32)
+    active[-1] = 0
+    tables = np.full((slots, mb + 2), num_blocks - 1, np.int32)
+    for s in range(slots - 1):
+        n_live = int(pos[s]) // bs + 1
+        tables[s, :n_live] = rng.choice(
+            np.arange(1, num_blocks - 1), size=n_live, replace=False
+        )
+    return q, kp, vp, tables, pos, active
+
+
+def _pool(dev, kp, vp, pool):
+    k = torch.from_numpy(kp).to(dev)
+    v = torch.from_numpy(vp).to(dev)
+    if pool == "int8":
+        k, ksc = pa.quantize_pages_int8(k)
+        v, vsc = pa.quantize_pages_int8(v)
+        return k, v, dict(k_scale=ksc, v_scale=vsc)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_decode_kernel_matches_plain(cuda, pool):
+    rng = np.random.default_rng(70)
+    q, kp, vp, tables, pos, active = _case(rng)
+    k, v, scales = _pool(cuda, kp, vp, pool)
+    args = (torch.from_numpy(q).to(cuda, torch.bfloat16), k, v,
+            *(torch.from_numpy(a).to(cuda) for a in (tables, pos, active)))
+    kw = dict(block_size=16, max_blocks=5, **scales)
+    n0 = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 1
+    want = pa.paged_decode_attention_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    assert not got[args[5] == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("start", [0, 40])
+def test_prefill_kernel_matches_plain(cuda, pool, start):
+    rng = np.random.default_rng(71 + start)
+    hkv, bucket, g, d, bs, mb = 2, 32, 4, 128, 16, 6
+    _, kp, vp, _, _, _ = _case(rng, hkv=hkv, g=g, d=d, bs=bs, mb=mb)
+    ctx_pages = (start + bucket - 1) // bs + 1
+    table = np.full(mb + 2, kp.shape[0] - 1, np.int32)
+    table[:ctx_pages] = rng.choice(
+        np.arange(1, kp.shape[0] - 1), size=ctx_pages, replace=False
+    )
+    k, v, scales = _pool(cuda, kp, vp, pool)
+    q = torch.from_numpy(
+        rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
+    ).to(cuda, torch.bfloat16)
+    args = (q, k, v, torch.from_numpy(table).to(cuda), start)
+    kw = dict(block_size=bs, max_blocks=mb, **scales)
+    n0 = pa.paged_prefill_attention.launches
+    got = pa.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_prefill_attention.launches == n0 + 1
+    want = pa.paged_prefill_attention_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+def test_float32_kernels_match_plain_tightly(cuda):
+    """Float32 in and out: only the summation order differs."""
+    rng = np.random.default_rng(72)
+    q, kp, vp, tables, pos, active = _case(rng, g=1)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (q, kp, vp, tables, pos, active)]
+    kw = dict(block_size=16, max_blocks=5)
+    got = pa.paged_decode_attention(*args, **kw)
+    want = pa.paged_decode_attention_ref(*args, **kw)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    rng = np.random.default_rng(73)
+    q, kp, vp, tables, pos, active = _case(rng)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (q, kp, vp, tables, pos, active)]
+    with pytest.raises(ValueError, match="tables is on cpu"):
+        pa.paged_decode_attention(
+            *args[:3], args[3].cpu(), *args[4:], block_size=16, max_blocks=5
+        )
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_decode_attention(
+            args[0].transpose(2, 3).contiguous().transpose(2, 3), *args[1:],
+            block_size=16, max_blocks=5,
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_engine_kernels_match_gather_on_card(cuda, kv_quant):
+    """A small float32 model on the card: the engine's kernel path
+    launches both kernels and its greedy tokens equal the gather
+    path's."""
+    cfg = llama2.LlamaConfig(
+        dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
+        multiple_of=64, max_seq_len=128, dtype=torch.float32,
+    )
+    params = llama2.init_llama(
+        torch.Generator(device=cuda).manual_seed(0), cfg, cuda
+    )
+    rng = np.random.default_rng(74)
+    reqs = [(f"r{i}", rng.integers(0, 512, size=n).tolist(), 8)
+            for i, n in enumerate((5, 37, 64, 20, 90, 12))]
+    results = {}
+    for kernel in ("cuda", "gather"):
+        eng = PagedEngine(
+            params, cfg, ServeConfig(slots=4, max_seq_len=128,
+                                     prefill_buckets=(32, 64)), cuda,
+            PagedConfig(block_size=16, num_blocks=40, prefill_chunk=32,
+                        kernel=kernel, kv_quant=kv_quant),
+        )
+        n0 = eng.warmup()
+        dec0 = pa.paged_decode_attention.launches
+        pre0 = pa.paged_prefill_attention.launches
+        batcher = ContinuousBatcher(eng)
+        results[kernel] = batcher.run(
+            [Request(rid=r, prompt=p, max_new_tokens=n) for r, p, n in reqs]
+        )
+        assert eng.compile_count == n0
+        if kernel == "cuda":
+            assert pa.paged_decode_attention.launches > dec0
+            assert pa.paged_prefill_attention.launches > pre0
+    assert results["cuda"] == results["gather"]

@@ -1,0 +1,307 @@
+"""The port's paged-attention functions against the JAX package's
+Pallas kernels (tpu_hpc_torch/kernels/paged_attention.py vs
+tpu_hpc/kernels/paged_attention.py).
+
+On the CPU the port's wrappers run their plain PyTorch versions; the
+JAX kernels run under ``interpret=True``, as tests/test_paged_kernels.py
+runs them. Same inputs, made from a numpy seed: random block tables
+with ragged lengths, pages recycled across slots, an inactive slot, and
+dead table entries pointing at a NaN page -- a read of a dead page
+would poison the output.
+
+Tolerance: float32 pools at ``atol 2e-5 / rtol 1e-5`` -- the two sides
+sum in different orders (an online softmax page by page against one
+softmax over the whole view), nothing else differs.
+
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_gpu.py. JAX is imported through
+``importorskip`` so that ``pytest tests/test_torch_*.py -m gpu`` also
+collects cleanly on a card machine without JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax", reason="the JAX reference package")
+jnp = jax.numpy
+
+from tpu_hpc.kernels import attention as jax_attention
+from tpu_hpc.kernels import paged_attention as jax_pa
+from tpu_hpc.serve.paging import SCRATCH_BLOCK as JAX_SCRATCH_BLOCK
+from tpu_hpc_torch.kernels import attention as pt_attention
+from tpu_hpc_torch.kernels import paged_attention as pt_pa
+from tpu_hpc_torch.serve.paging import SCRATCH_BLOCK
+
+ATOL, RTOL = 2e-5, 1e-5
+
+
+def _random_case(rng, *, slots=4, hkv=2, g=2, d=16, block_size=4,
+                 max_blocks=6, num_blocks=24, poison=True):
+    """Random pool + tables. Page 0 is scratch (zeros); the LAST page is
+    NaN-poisoned and never allocated -- every dead table entry points at
+    it."""
+    shape = (num_blocks, block_size, hkv, d)
+    k_pages = rng.standard_normal(shape).astype(np.float32)
+    v_pages = rng.standard_normal(shape).astype(np.float32)
+    k_pages[0] = v_pages[0] = 0.0
+    poison_page = num_blocks - 1
+    if poison:
+        k_pages[poison_page] = v_pages[poison_page] = np.nan
+    q = rng.standard_normal((slots, hkv, g, d)).astype(np.float32)
+    pos = rng.integers(0, max_blocks * block_size, size=slots).astype(np.int32)
+    active = (rng.random(slots) < 0.75).astype(np.int32)
+    active[0], active[-1] = 1, 0  # one live, one dead slot at least
+    tables = np.zeros((slots, max_blocks), np.int32)
+    for s in range(slots):
+        # drawn per slot from one small pool: pages recur across slots
+        tables[s] = rng.choice(
+            np.arange(1, poison_page), size=max_blocks, replace=False
+        )
+        n_live = -(-(int(pos[s]) + 1) // block_size)
+        tables[s, n_live:] = poison_page
+        if not active[s]:
+            tables[s] = poison_page
+    return q, k_pages, v_pages, tables, pos, active
+
+
+def _table_row(rng, num_blocks, max_blocks, ctx_pages):
+    poison_page = num_blocks - 1
+    row = rng.choice(
+        np.arange(1, poison_page), size=max_blocks, replace=False
+    ).astype(np.int32)
+    row[ctx_pages:] = poison_page
+    return row
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _quantized(kp, vp):
+    """int8 pools through the port's quantizer, as numpy for both."""
+    kq, ksc = pt_pa.quantize_pages_int8(_t(kp))
+    vq, vsc = pt_pa.quantize_pages_int8(_t(vp))
+    return kq.numpy(), ksc.numpy(), vq.numpy(), vsc.numpy()
+
+
+# ---------------------------------------------------------------------
+# Constants
+# ---------------------------------------------------------------------
+
+
+def test_constants_match_the_reference():
+    assert pt_pa.SCRATCH_PAGE == jax_pa.SCRATCH_PAGE == SCRATCH_BLOCK \
+        == JAX_SCRATCH_BLOCK == 0
+    assert pt_pa.INT8_SCALE_FLOOR == jax_pa.INT8_SCALE_FLOOR
+    assert pt_attention.MASK_VALUE == jax_attention.MASK_VALUE
+
+
+# ---------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_decode_matches_pallas_kernel(g):
+    rng = np.random.default_rng(10 + g)
+    for trial in range(3):
+        q, kp, vp, tables, pos, active = _random_case(rng, g=g)
+        want = np.asarray(jax_pa.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active),
+            block_size=4, max_blocks=6, interpret=True,
+        ))
+        got = pt_pa.paged_decode_attention(
+            _t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active),
+            block_size=4, max_blocks=6,
+        ).numpy()
+        assert np.isfinite(got).all(), trial  # the NaN page stayed out
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL,
+                                   err_msg=f"trial {trial}")
+        assert not got[active == 0].any()  # inactive slots: exact zeros
+
+
+def test_decode_int8_pool_matches_pallas_kernel():
+    rng = np.random.default_rng(21)
+    q, kp, vp, tables, pos, active = _random_case(rng, poison=False)
+    kq, ksc, vq, vsc = _quantized(kp, vp)
+    want = np.asarray(jax_pa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active),
+        block_size=4, max_blocks=6,
+        k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc), interpret=True,
+    ))
+    got = pt_pa.paged_decode_attention(
+        _t(q), _t(kq), _t(vq), _t(tables), _t(pos), _t(active),
+        block_size=4, max_blocks=6, k_scale=_t(ksc), v_scale=_t(vsc),
+    ).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_decode_wider_table_reads_only_max_blocks():
+    """The engine's table rows are wider than the view (scratch
+    padding past capacity); only the first ``max_blocks`` entries are
+    the view."""
+    rng = np.random.default_rng(22)
+    q, kp, vp, tables, pos, active = _random_case(rng)
+    wide = np.concatenate(
+        [tables, np.full((tables.shape[0], 3), kp.shape[0] - 1, np.int32)],
+        axis=1,
+    )
+    narrow = pt_pa.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active),
+        block_size=4, max_blocks=6,
+    )
+    got = pt_pa.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(wide), _t(pos), _t(active),
+        block_size=4, max_blocks=6,
+    )
+    torch.testing.assert_close(got, narrow, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("start", [0, 8, 16])
+def test_prefill_matches_pallas_kernel(start, g):
+    """``start`` is data: chunk 0 and continuation chunks whose rows
+    attend across earlier pages."""
+    rng = np.random.default_rng(30 + start + g)
+    hkv, bucket, d, bs, mb = 2, 8, 16, 4, 6
+    _, kp, vp, _, _, _ = _random_case(rng, g=g)
+    table = _table_row(rng, kp.shape[0], mb, -(-(start + bucket) // bs))
+    q = rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
+    want = np.asarray(jax_pa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(start, jnp.int32),
+        block_size=bs, max_blocks=mb, interpret=True,
+    ))
+    got = pt_pa.paged_prefill_attention(
+        _t(q), _t(kp), _t(vp), _t(table), start,
+        block_size=bs, max_blocks=mb,
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_prefill_int8_pool_matches_pallas_kernel():
+    rng = np.random.default_rng(41)
+    hkv, bucket, g, d, bs, mb = 2, 8, 2, 16, 4, 6
+    _, kp, vp, _, _, _ = _random_case(rng, poison=False)
+    table = _table_row(rng, kp.shape[0], mb, -(-(8 + bucket) // bs))
+    kq, ksc, vq, vsc = _quantized(kp, vp)
+    q = rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
+    want = np.asarray(jax_pa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(table), jnp.asarray(8, jnp.int32),
+        block_size=bs, max_blocks=mb,
+        k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc), interpret=True,
+    ))
+    got = pt_pa.paged_prefill_attention(
+        _t(q), _t(kq), _t(vq), _t(table), 8, block_size=bs, max_blocks=mb,
+        k_scale=_t(ksc), v_scale=_t(vsc),
+    ).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------
+# int8 quantization
+# ---------------------------------------------------------------------
+
+
+def test_quantize_matches_reference():
+    """Scales within rtol 1e-6; payloads equal except where x / scale
+    sits on an exact .5 tie, where the two frameworks' divisions may
+    round to either side (they then differ by exactly 1)."""
+    rng = np.random.default_rng(50)
+    pages = rng.standard_normal((12, 4, 2, 16)).astype(np.float32)
+    pages[3] = 0.0  # the all-zero page hits the scale floor
+    pages[5, 0, 0, :4] = [0.5, -0.5, 1.5, 2.5]  # crafted near-ties
+    jq, jsc = jax_pa.quantize_pages_int8(jnp.asarray(pages))
+    pq, psc = pt_pa.quantize_pages_int8(_t(pages))
+    np.testing.assert_allclose(psc.numpy(), np.asarray(jsc), rtol=1e-6)
+    assert psc.dtype == torch.float32 and pq.dtype == torch.int8
+    diff = np.abs(pq.numpy().astype(np.int32) - np.asarray(jq, np.int32))
+    assert diff.max() <= 1
+    ratio = pages / np.asarray(jsc)[:, None, None, None]
+    ties = np.isclose(np.abs(ratio) % 1.0, 0.5, atol=1e-4)
+    assert not (diff.astype(bool) & ~ties).any()
+    assert np.all(psc.numpy()[3] == pt_pa.INT8_SCALE_FLOOR)
+    np.testing.assert_allclose(
+        pt_pa.dequantize_pages_int8(pq, psc).numpy(),
+        np.asarray(jax_pa.dequantize_pages_int8(jq, jsc)),
+        atol=float(np.asarray(jsc).max()) + 1e-7, rtol=0,
+    )
+    np.testing.assert_allclose(
+        pt_pa.page_scales_int8(_t(pages)).numpy(),
+        np.asarray(jax_pa.page_scales_int8(jnp.asarray(pages))), rtol=1e-6,
+    )
+
+
+def test_round_half_even_and_clip():
+    """torch.round rounds half to even like jnp.round; the clip keeps
+    -128 unused."""
+    pages = np.zeros((1, 4, 1, 4), np.float32)
+    pages[0, 0, 0] = [127.0, -127.0, 0.5 * 127 / 127, 2.5]
+    q, sc = pt_pa.quantize_pages_int8(_t(pages))
+    assert float(sc[0]) == pytest.approx(1.0)
+    assert q[0, 0, 0].tolist() == [127, -127, 0, 2]
+    assert int(q.min()) >= -127
+
+
+# ---------------------------------------------------------------------
+# The wrappers' contract on the CPU
+# ---------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    rng = np.random.default_rng(60)
+    q, kp, vp, tables, pos, active = _random_case(rng)
+    n_dec = pt_pa.paged_decode_attention.launches
+    n_pre = pt_pa.paged_prefill_attention.launches
+    got = pt_pa.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active),
+        block_size=4, max_blocks=6,
+    )
+    ref = pt_pa.paged_decode_attention_ref(
+        _t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active),
+        block_size=4, max_blocks=6,
+    )
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    table = _table_row(rng, kp.shape[0], 6, 4)
+    qp = _t(rng.standard_normal((2, 8, 2, 16)).astype(np.float32))
+    got = pt_pa.paged_prefill_attention(
+        qp, _t(kp), _t(vp), _t(table), 4, block_size=4, max_blocks=6,
+    )
+    ref = pt_pa.paged_prefill_attention_ref(
+        qp, _t(kp), _t(vp), _t(table), 4, block_size=4, max_blocks=6,
+    )
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    assert pt_pa.paged_decode_attention.launches == n_dec
+    assert pt_pa.paged_prefill_attention.launches == n_pre
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(61)
+    q, kp, vp, tables, pos, active = _random_case(rng)
+    args = [_t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active)]
+    kw = dict(block_size=4, max_blocks=6)
+    with pytest.raises(TypeError, match="int32"):
+        pt_pa.paged_decode_attention(*args[:3], args[3].long(), *args[4:], **kw)
+    with pytest.raises(ValueError, match="block_size"):
+        pt_pa.paged_decode_attention(*args, block_size=8, max_blocks=3)
+    with pytest.raises(ValueError, match="together"):
+        pt_pa.paged_decode_attention(*args, k_scale=torch.ones(24), **kw)
+    with pytest.raises(ValueError, match="int8"):
+        pt_pa.paged_decode_attention(
+            *args, k_scale=torch.ones(24), v_scale=torch.ones(24), **kw
+        )
+    with pytest.raises(TypeError, match="q dtype"):
+        pt_pa.paged_decode_attention(args[0].to(torch.int8), *args[1:], **kw)
+    with pytest.raises(ValueError, match="outside"):
+        pt_pa.paged_prefill_attention(
+            _t(q[:2]), _t(kp), _t(vp), _t(tables[0]), 24, **kw
+        )

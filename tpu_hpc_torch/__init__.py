@@ -1,0 +1,13 @@
+"""tpu_hpc_torch: the PyTorch/CUDA port of ``tpu_hpc``, for one NVIDIA
+H100.
+
+The JAX package beside it stays the reference. The port keeps its
+module layout and public names so each module's counterpart is easy to
+find; every Pallas kernel on a ported path becomes a hand-written
+Hopper kernel (``csrc/``), with a plain PyTorch version beside it.
+
+This first slice serves Llama-2 through the paged KV cache
+(``python -m tpu_hpc_torch.serve --paged --kv-kernel cuda``). ROADMAP
+lists what comes next. Nothing here imports jax or ``tpu_hpc``.
+Importing this package does not import its subpackages.
+"""

@@ -1,0 +1,390 @@
+"""Paged attention over the serving engine's KV pool.
+
+Port of the JAX package's ``kernels/paged_attention.py``. The paged
+engine (serve/paging.py) stores the KV cache as a pool of fixed-size
+pages addressed through per-slot block tables; these two functions
+read a slot's logical sequence straight through its table row, with no
+gathered copy of the view:
+
+  * :func:`paged_decode_attention` -- one query token per slot;
+  * :func:`paged_prefill_attention` -- a chunked-prefill pass over one
+    slot's table row, causal mask from the chunk ``start`` (data, not a
+    build-time constant: one kernel serves every chunk).
+
+On a CUDA tensor each launches a hand-written Hopper kernel
+(``csrc/paged_attention.cu``, built at first launch by ``_build``) or
+raises; it never falls back. On a CPU tensor it runs the plain PyTorch
+version beside it (``*_ref``), which is also what ``chip_smoke.py``
+holds the kernels against on the card. Each wrapper counts its kernel
+launches in a plain integer attribute (``.launches``), so a run can
+show that the main path went through the kernel.
+
+Layouts are the JAX package's: q ``(slots, kv_heads, group, d)`` for
+decode and ``(kv_heads, bucket, group, d)`` for prefill, pages
+``(num_blocks, block_size, kv_heads, d)``. Pools may be f32, f16, bf16
+or int8; int8 pages carry one f32 scale per page
+(:func:`quantize_pages_int8` is the single write-side definition) and
+are dequantized as they are read.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from tpu_hpc_torch.kernels.attention import MASK_VALUE
+
+# Page 0 of the pool is the scratch page: never allocated, absorbs
+# writes from inactive slots and padded chunk tails. Equals
+# serve.paging.SCRATCH_BLOCK (asserted in the tests).
+SCRATCH_PAGE = 0
+
+# Per-page int8 scale floor: an all-zero page (fresh pool) would
+# otherwise produce scale 0 and NaNs on dequantize-divide round trips.
+INT8_SCALE_FLOOR = 1e-8
+
+# dtype codes of the C interface (csrc/paged_attention.cu DType).
+_DTYPE_CODES = {
+    torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3,
+}
+_Q_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Per-page int8 quantization (single write-side definition)
+# ---------------------------------------------------------------------------
+
+def page_scales_int8(pages: torch.Tensor) -> torch.Tensor:
+    """Per-page symmetric int8 scale: amax over the page's
+    (block_size, kv_heads, head_dim) trailing dims / 127, floored."""
+    amax = pages.to(torch.float32).abs().amax(dim=(-3, -2, -1))
+    return torch.clamp_min(amax / 127.0, INT8_SCALE_FLOOR)
+
+
+def quantize_pages_int8(
+    pages: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``[..., block_size, kv_heads, head_dim]`` pages to int8
+    with one f32 scale per page. Round-half-even (``torch.round``,
+    like ``jnp.round``), clipped to +-127 (symmetric; -128 unused so
+    dequant is sign-symmetric)."""
+    sc = page_scales_int8(pages)
+    q = torch.clamp(
+        torch.round(pages.to(torch.float32) / sc[..., None, None, None]),
+        -127.0, 127.0,
+    ).to(torch.int8)
+    return q, sc
+
+
+def dequantize_pages_int8(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_pages_int8` (f32 out)."""
+    return q.to(torch.float32) * sc[..., None, None, None]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _softmax_rows(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked softmax with the kernels' rules: scores at MASK_VALUE get
+    probability 0, a fully masked row keeps m_safe = 0 and l_safe = 1
+    (so it outputs exact zeros). Returns (p, l_safe)."""
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m <= MASK_VALUE * 0.5, torch.zeros_like(m), m)
+    p = torch.where(
+        s > MASK_VALUE * 0.5, torch.exp(s - m_safe), torch.zeros_like(s)
+    )
+    l = p.sum(dim=-1, keepdim=True)
+    return p, torch.where(l == 0.0, torch.ones_like(l), l)
+
+
+def _gather_view(pages, scale, ids):
+    """f32 pages ``ids`` of the pool, dequantized when ``scale`` is
+    given: ``ids.shape + (block_size, kv_heads, d)``."""
+    view = pages[ids].to(torch.float32)
+    if scale is not None:
+        view = view * scale[ids].to(torch.float32)[..., None, None, None]
+    return view
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    block_size: int,
+    max_blocks: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch decode attention: gather each slot's first
+    ``max_blocks`` pages, zero every key past ``pos`` (dead table
+    entries may point at anything, NaN included), fp32 masked softmax.
+    Same contract as :func:`paged_decode_attention`."""
+    slots, hkv, g, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    ids = tables[:, :max_blocks].long()
+    n_keys = max_blocks * block_size
+    k = _gather_view(k_pages, k_scale, ids).reshape(slots, n_keys, hkv, d)
+    v = _gather_view(v_pages, v_scale, ids).reshape(slots, n_keys, hkv, d)
+    cols = torch.arange(n_keys, device=q.device)
+    valid = (cols[None, :] <= pos.long()[:, None]) & (active[:, None] > 0)
+    live = valid[:, :, None, None]
+    k = torch.where(live, k, torch.zeros_like(k))
+    v = torch.where(live, v, torch.zeros_like(v))
+    s = torch.einsum("shgd,slhd->shgl", q.to(torch.float32), k) * sm_scale
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
+    p, l_safe = _softmax_rows(s)
+    out = torch.einsum("shgl,slhd->shgd", p, v) / l_safe
+    return out.to(q.dtype)
+
+
+def paged_prefill_attention_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table: torch.Tensor,
+    start: Union[int, torch.Tensor],
+    *,
+    block_size: int,
+    max_blocks: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch chunked-prefill attention over one table row:
+    query row b of the chunk sits at position ``start + b`` and sees
+    keys ``<= start + b``; keys past the chunk's last row are zeroed
+    before any arithmetic. Same contract as
+    :func:`paged_prefill_attention`."""
+    hkv, bucket, g, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    start = int(start)
+    ids = table[:max_blocks].long()
+    n_keys = max_blocks * block_size
+    k = _gather_view(k_pages, k_scale, ids).reshape(n_keys, hkv, d)
+    v = _gather_view(v_pages, v_scale, ids).reshape(n_keys, hkv, d)
+    cols = torch.arange(n_keys, device=q.device)
+    qpos = start + torch.arange(bucket, device=q.device)
+    valid = cols[None, :] <= qpos[:, None]                  # (bucket, keys)
+    live = (cols <= start + bucket - 1)[:, None, None]
+    k = torch.where(live, k, torch.zeros_like(k))
+    v = torch.where(live, v, torch.zeros_like(v))
+    s = torch.einsum("hbgd,lhd->hbgl", q.to(torch.float32), k) * sm_scale
+    s = torch.where(valid[None, :, None, :], s, torch.full_like(s, MASK_VALUE))
+    p, l_safe = _softmax_rows(s)
+    out = torch.einsum("hbgl,lhd->hbgd", p, v) / l_safe
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the kernel on the card, the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+def _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d):
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not one of {_Q_DTYPES}")
+    if k_pages.dtype not in _DTYPE_CODES:
+        raise TypeError(f"page dtype {k_pages.dtype} not supported")
+    if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
+        raise ValueError("k_pages and v_pages must match in shape and dtype")
+    if k_pages.dim() != 4 or tuple(k_pages.shape[1:]) != (block_size, hkv, d):
+        raise ValueError(
+            f"pages {tuple(k_pages.shape)} are not (num_blocks, "
+            f"block_size={block_size}, kv_heads={hkv}, head_dim={d})"
+        )
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if quant != (k_pages.dtype == torch.int8):
+        raise ValueError("int8 pages need k_scale/v_scale, and only they do")
+    if quant:
+        for sc in (k_scale, v_scale):
+            if sc.dtype != torch.float32 or tuple(sc.shape) != (
+                k_pages.shape[0],
+            ):
+                raise ValueError(
+                    f"scales must be float32 ({k_pages.shape[0]},), got "
+                    f"{sc.dtype} {tuple(sc.shape)}"
+                )
+
+
+def _check_cuda(tensors, device):
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def paged_decode_attention(
+    q: torch.Tensor,        # (slots, kv_heads, group, head_dim)
+    k_pages: torch.Tensor,  # (num_blocks, block_size, kv_heads, head_dim)
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,   # (slots, table_width) int32
+    pos: torch.Tensor,      # (slots,) int32 position written this tick
+    active: torch.Tensor,   # (slots,) int32
+    *,
+    block_size: int,
+    max_blocks: int,
+    k_scale: Optional[torch.Tensor] = None,  # (num_blocks,) f32 (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token paged attention: returns (slots, kv_heads, group,
+    head_dim) context in q.dtype. Slot s attends to its table row's
+    keys at positions ``<= pos[s]`` (first ``max_blocks`` entries);
+    inactive slots output zeros. CUDA tensors launch the decode kernel
+    of ``csrc/paged_attention.cu``; CPU tensors run
+    :func:`paged_decode_attention_ref`."""
+    slots, hkv, g, d = q.shape
+    _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d)
+    if tables.dim() != 2 or tables.shape[0] != slots \
+            or tables.shape[1] < max_blocks:
+        raise ValueError(
+            f"tables {tuple(tables.shape)} must be ({slots}, >= "
+            f"max_blocks={max_blocks})"
+        )
+    for name, t in (("tables", tables), ("pos", pos), ("active", active)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if pos.shape != (slots,) or active.shape != (slots,):
+        raise ValueError(f"pos and active must be ({slots},)")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pages, v_pages, tables, pos, active,
+            block_size=block_size, max_blocks=max_blocks,
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(
+        dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables, pos=pos,
+             active=active, k_scale=k_scale, v_scale=v_scale),
+        q.device,
+    )
+    from tpu_hpc_torch.kernels import _build
+
+    lib = _build.load_library()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.tpuhpc_paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), active.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
+            slots, hkv, g, d, block_size, tables.shape[1], max_blocks,
+            float(sm_scale), _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pages.dtype], stream,
+        )
+    _build.check(lib, code, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,        # (kv_heads, bucket, group, head_dim)
+    k_pages: torch.Tensor,  # (num_blocks, block_size, kv_heads, head_dim)
+    v_pages: torch.Tensor,
+    table: torch.Tensor,    # (table_width,) int32: one slot's table row
+    start: Union[int, torch.Tensor],  # chunk's first global position
+    *,
+    block_size: int,
+    max_blocks: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention over the block-table view: returns
+    (kv_heads, bucket, group, head_dim) context in q.dtype. Query row b
+    of the chunk sits at position ``start + b`` and attends to the
+    table row's keys ``<= start + b``; pages past the chunk's last row
+    are never read. ``start`` is a host integer (or a CPU scalar
+    tensor) passed to the kernel as an argument, so one kernel serves
+    every chunk of every slot. CUDA tensors launch the prefill kernel
+    of ``csrc/paged_attention.cu``; CPU tensors run
+    :func:`paged_prefill_attention_ref`."""
+    hkv, bucket, g, d = q.shape
+    _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d)
+    if table.dim() != 1 or table.shape[0] < max_blocks:
+        raise ValueError(
+            f"table {tuple(table.shape)} must be (>= max_blocks="
+            f"{max_blocks},)"
+        )
+    if table.dtype != torch.int32:
+        raise TypeError(f"table must be int32, got {table.dtype}")
+    if isinstance(start, torch.Tensor):
+        if start.device.type != "cpu":
+            raise ValueError(
+                "start must be a host int or CPU tensor (reading a "
+                "device scalar would synchronize the stream)"
+            )
+        start = int(start)
+    if not 0 <= start < max_blocks * block_size:
+        raise ValueError(
+            f"start {start} outside the {max_blocks * block_size}-token view"
+        )
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(
+            q, k_pages, v_pages, table, start,
+            block_size=block_size, max_blocks=max_blocks,
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(
+        dict(q=q, k_pages=k_pages, v_pages=v_pages, table=table,
+             k_scale=k_scale, v_scale=v_scale),
+        q.device,
+    )
+    from tpu_hpc_torch.kernels import _build
+
+    lib = _build.load_library()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.tpuhpc_paged_prefill(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
+            hkv, bucket, g, d, block_size, max_blocks, start,
+            float(sm_scale), _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pages.dtype], stream,
+        )
+    _build.check(lib, code, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
+__all__ = [
+    "INT8_SCALE_FLOOR",
+    "SCRATCH_PAGE",
+    "dequantize_pages_int8",
+    "page_scales_int8",
+    "paged_decode_attention",
+    "paged_decode_attention_ref",
+    "paged_prefill_attention",
+    "paged_prefill_attention_ref",
+    "quantize_pages_int8",
+]

@@ -1,0 +1,333 @@
+"""Llama-2 in PyTorch: config, init, RoPE and a no-cache forward.
+
+Ported from the JAX package's ``models/llama2.py``. What this serving
+slice needs, with the same numerics:
+
+  * :class:`LlamaConfig` with the same fields and :data:`PRESETS`
+    (dtypes are ``torch.dtype``);
+  * :func:`count_params` from shapes (the JAX version runs
+    ``eval_shape`` over the real init -- here the tree's shapes are
+    written out, and the tests hold the two counts equal);
+  * :func:`rope_cos_sin` / :func:`apply_rope`: real (cos, sin) pairs,
+    adjacent-pair rotation in fp32;
+  * :func:`init_llama`: the same distributions and the same param-tree
+    keys as the flax init (``tok_embeddings/embedding``,
+    ``layers_i/attention/wq/kernel`` ...), Dense kernels kept in flax's
+    ``[in, out]`` layout so ``x @ W`` is the projection;
+  * :func:`apply_llama`: the no-cache forward, the greedy oracle the
+    serving tests hold the KV-cache engines against.
+
+The training pieces (``make_forward``, per-block remat, the
+``iota_embed`` matmul-backward lookup) come with the training slice
+(ROADMAP); ``remat`` and ``iota_embed`` stay as config fields so the
+two configs compare field for field.
+
+Params are a plain nested dict of tensors -- the flax tree's shape --
+rather than ``nn.Module``s: the serving engine replays the model as
+functions over the tree, exactly as the JAX engine does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Same fields as the JAX ``LlamaConfig``; defaults are the 7B
+    configuration."""
+
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: Optional[int] = None  # None -> MHA; < n_heads -> GQA
+    vocab_size: int = 32000
+    multiple_of: int = 256
+    ffn_dim_multiplier: Optional[float] = None
+    norm_eps: float = 1e-5
+    max_seq_len: int = 32768
+    depth_init: bool = True
+    dtype: Any = torch.bfloat16       # compute dtype
+    param_dtype: Any = torch.float32  # storage dtype of the init
+    remat: bool = False               # training slice
+    iota_embed: bool = True           # training slice
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def ffn_hidden(self) -> int:
+        """SwiGLU 2/3 rule + multiple_of rounding."""
+        hidden = int(2 * (4 * self.dim) / 3)
+        if self.ffn_dim_multiplier is not None:
+            hidden = int(self.ffn_dim_multiplier * hidden)
+        return self.multiple_of * (
+            (hidden + self.multiple_of - 1) // self.multiple_of
+        )
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> int:
+        """Training FLOPs/token (forward matmul count x 3, the 6ND
+        convention) including the causal attention term at
+        ``seq_len`` (defaults to max_seq_len)."""
+        s = seq_len if seq_len is not None else self.max_seq_len
+        d, h = self.dim, self.ffn_hidden
+        per_layer = (
+            2 * d * (self.n_heads + 2 * self.kv_heads) * self.head_dim
+            + 2 * d * d
+            + 3 * 2 * d * h
+            + 2 * s * d
+        )
+        embed = 2 * d * self.vocab_size
+        return 3 * (self.n_layers * per_layer + embed)
+
+
+# Llama-2 family shapes (public architecture constants), identical to
+# the JAX package's table. 70B is GQA (8 KV heads) with the
+# 1.3x/4096-rounded SwiGLU -> ffn_hidden 28672.
+PRESETS: Dict[str, LlamaConfig] = {
+    "7b": LlamaConfig(max_seq_len=4096, remat=True),
+    "13b": LlamaConfig(
+        dim=5120, n_layers=40, n_heads=40, max_seq_len=4096, remat=True
+    ),
+    "70b": LlamaConfig(
+        dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+        ffn_dim_multiplier=1.3, multiple_of=4096,
+        max_seq_len=4096, remat=True,
+    ),
+}
+
+
+def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The param tree's leaf shapes, keyed like the flax tree."""
+    d, hd = cfg.dim, cfg.head_dim
+    layer = {
+        "attention_norm": {"scale": (d,)},
+        "attention": {
+            "wq": {"kernel": (d, cfg.n_heads * hd)},
+            "wk": {"kernel": (d, cfg.kv_heads * hd)},
+            "wv": {"kernel": (d, cfg.kv_heads * hd)},
+            "wo": {"kernel": (cfg.n_heads * hd, d)},
+        },
+        "ffn_norm": {"scale": (d,)},
+        "feed_forward": {
+            "w1": {"kernel": (d, cfg.ffn_hidden)},
+            "w2": {"kernel": (cfg.ffn_hidden, d)},
+            "w3": {"kernel": (d, cfg.ffn_hidden)},
+        },
+    }
+    tree: Dict[str, Any] = {
+        "tok_embeddings": {"embedding": (cfg.vocab_size, d)},
+    }
+    for i in range(cfg.n_layers):
+        tree[f"layers_{i}"] = layer
+    tree["norm"] = {"scale": (d,)}
+    tree["output"] = {"kernel": (d, cfg.vocab_size)}
+    return tree
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def count_params(cfg: LlamaConfig) -> int:
+    """Total trainable parameters for ``cfg``, from the tree's shapes."""
+    total = 0
+    for shape in _leaves(param_shapes(cfg)):
+        n = 1
+        for s in shape:
+            n *= s
+        total += n
+    return total
+
+
+def rope_cos_sin(
+    seq_len: int,
+    head_dim: int,
+    theta: float = 10000.0,
+    positions: Optional[torch.Tensor] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE tables as fp32 (cos, sin) of shape [seq, head_dim//2].
+    ``positions`` overrides the default 0..seq_len-1 ramp (and sets
+    the device); slot p gets the rotation of global position
+    positions[p]."""
+    if positions is not None:
+        device = positions.device
+    inv_freq = 1.0 / (
+        theta ** (
+            torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+            / head_dim
+        )
+    )
+    if positions is None:
+        t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    else:
+        t = positions.to(torch.float32)
+    freqs = torch.outer(t.reshape(-1), inv_freq).reshape(
+        *t.shape, inv_freq.shape[0]
+    )
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> torch.Tensor:
+    """Rotate [B, S, H, D] by position: adjacent-pair convention, fp32
+    rotation, result cast back. ``cos``/``sin`` are [S, D//2] tables
+    shared across the batch, or [B, S, D//2] per-row tables (the
+    serving decode step, where each slot sits at its own position)."""
+    orig_dtype = x.dtype
+    xf = x.to(torch.float32).reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
+    x1 = xf[..., 0]
+    x2 = xf[..., 1]
+    # [.., S, D/2] -> [.., S, 1, D/2]: broadcasts over heads.
+    c = cos.unsqueeze(-2)
+    s = sin.unsqueeze(-2)
+    r1 = x1 * c - x2 * s
+    r2 = x1 * s + x2 * c
+    out = torch.stack([r1, r2], dim=-1).reshape(x.shape)
+    return out.to(orig_dtype)
+
+
+def init_llama(
+    generator: torch.Generator,
+    cfg: LlamaConfig,
+    device: Any = None,
+) -> Dict[str, Any]:
+    """Random params with the flax init's distributions, in
+    ``cfg.param_dtype`` on ``device`` (default: the generator's
+    device):
+
+      * token embedding: normal(std 1.0);
+      * wq/wk/wv/w1/w3: normal(std 0.02);
+      * residual-path wo/w2: normal(std 0.02/sqrt(2*depth)), depth =
+        layer_id + 1 when ``depth_init`` else n_layers;
+      * output head: normal(std 0.02) truncated to +-2 std;
+      * norm scales: ones.
+
+    The same seed gives other numbers than ``jax.random``; parity
+    tests carry the JAX params across (serve/weights.py) instead.
+    """
+    device = torch.device(device) if device is not None else generator.device
+    dt = cfg.param_dtype
+
+    def normal(shape, std):
+        t = torch.empty(shape, dtype=dt, device=device)
+        return t.normal_(0.0, std, generator=generator)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    shapes = param_shapes(cfg)
+    params: Dict[str, Any] = {
+        "tok_embeddings": {
+            "embedding": normal(shapes["tok_embeddings"]["embedding"], 1.0)
+        },
+    }
+    for i in range(cfg.n_layers):
+        sh = shapes[f"layers_{i}"]
+        depth = i + 1 if cfg.depth_init else cfg.n_layers
+        out_std = 0.02 / (2 * depth) ** 0.5
+        params[f"layers_{i}"] = {
+            "attention_norm": {"scale": ones(sh["attention_norm"]["scale"])},
+            "attention": {
+                "wq": {"kernel": normal(sh["attention"]["wq"]["kernel"], 0.02)},
+                "wk": {"kernel": normal(sh["attention"]["wk"]["kernel"], 0.02)},
+                "wv": {"kernel": normal(sh["attention"]["wv"]["kernel"], 0.02)},
+                "wo": {
+                    "kernel": normal(sh["attention"]["wo"]["kernel"], out_std)
+                },
+            },
+            "ffn_norm": {"scale": ones(sh["ffn_norm"]["scale"])},
+            "feed_forward": {
+                "w1": {
+                    "kernel": normal(sh["feed_forward"]["w1"]["kernel"], 0.02)
+                },
+                "w2": {
+                    "kernel": normal(
+                        sh["feed_forward"]["w2"]["kernel"], out_std
+                    )
+                },
+                "w3": {
+                    "kernel": normal(sh["feed_forward"]["w3"]["kernel"], 0.02)
+                },
+            },
+        }
+    params["norm"] = {"scale": ones(shapes["norm"]["scale"])}
+    head = torch.empty(shapes["output"]["kernel"], dtype=dt, device=device)
+    torch.nn.init.trunc_normal_(
+        head, mean=0.0, std=0.02, a=-0.04, b=0.04, generator=generator
+    )
+    params["output"] = {"kernel": head}
+    return params
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in fp32 with a learned scale, cast back to x.dtype."""
+    xf = x.to(torch.float32)
+    normed = xf * torch.rsqrt(
+        torch.mean(xf * xf, dim=-1, keepdim=True) + eps
+    )
+    return (normed * scale.to(torch.float32)).to(x.dtype)
+
+
+def _proj(x: torch.Tensor, kernel: torch.Tensor, dtype) -> torch.Tensor:
+    """Bias-free Dense in the compute dtype, flax [in, out] kernel."""
+    return torch.matmul(x.to(dtype), kernel.to(dtype))
+
+
+def apply_llama(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+) -> torch.Tensor:
+    """[B, S] int tokens -> [B, S, vocab] logits in cfg.dtype: the
+    no-cache causal forward (scores in the compute dtype, fp32 masked
+    softmax with -inf, GQA through a grouped query view with no
+    repeated K/V)."""
+    dt = cfg.dtype
+    b, s = tokens.shape
+    hd, n_kv = cfg.head_dim, cfg.kv_heads
+    groups = cfg.n_heads // n_kv
+    x = params["tok_embeddings"]["embedding"].to(dt)[tokens]
+    cos, sin = rope_cos_sin(s, hd, device=tokens.device)
+    causal = torch.tril(
+        torch.ones((s, s), dtype=torch.bool, device=tokens.device)
+    )
+    scale = hd ** -0.5
+    for i in range(cfg.n_layers):
+        lp = params[f"layers_{i}"]
+        ap = lp["attention"]
+        h = _rmsnorm(x, lp["attention_norm"]["scale"], cfg.norm_eps)
+        q = _proj(h, ap["wq"]["kernel"], dt).reshape(b, s, cfg.n_heads, hd)
+        k = _proj(h, ap["wk"]["kernel"], dt).reshape(b, s, n_kv, hd)
+        v = _proj(h, ap["wv"]["kernel"], dt).reshape(b, s, n_kv, hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        qg = q.reshape(b, s, n_kv, groups, hd)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
+        scores = scores.to(torch.float32).masked_fill(~causal, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        out = out.reshape(b, s, cfg.n_heads * hd)
+        x = x + _proj(out, ap["wo"]["kernel"], dt)
+        h = _rmsnorm(x, lp["ffn_norm"]["scale"], cfg.norm_eps)
+        ff = lp["feed_forward"]
+        gate = _proj(h, ff["w1"]["kernel"], dt)
+        up = _proj(h, ff["w3"]["kernel"], dt)
+        x = x + _proj(
+            torch.nn.functional.silu(gate) * up, ff["w2"]["kernel"], dt
+        )
+    x = _rmsnorm(x, params["norm"]["scale"], cfg.norm_eps)
+    return _proj(x, params["output"]["kernel"], dt)
