@@ -9,24 +9,54 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device      -- the card's name and count, and nvidia-smi's name and
                     power limit.
-  2. build       -- nvcc builds csrc/paged_attention.cu (seconds, and the
-                    -Xptxas -v registers / spills per kernel).
+  2. build       -- nvcc builds every csrc/*.cu into one library, the
+                    sources in parallel (seconds, and the -Xptxas -v
+                    registers / spills per kernel).
   3. kernels     -- each paged-attention kernel against its plain PyTorch
-                    version at the main path's shapes (Llama-2-7B: 32 KV
-                    heads, group 1, head_dim 128, 16-token pages, 8 slots,
-                    64-page views, ragged positions, one inactive slot)
-                    and at a GQA shape (8 KV heads, group 8: the 70B
-                    attention dims), with bf16 and int8 pools whose dead
-                    and scratch pages are NaN. Times from CUDA events.
-  4. serve       -- run_replay on Llama-2-7B at full width and depth
+                    version at the serving path's shapes (Llama-2-7B: 32
+                    KV heads, group 1, head_dim 128, 16-token pages, 8
+                    slots, 64-page views, ragged positions, one inactive
+                    slot) and at a GQA shape (8 KV heads, group 8: the
+                    70B attention dims), with bf16 and int8 pools whose
+                    dead and scratch pages are NaN. Times from CUDA
+                    events.
+  4. flash       -- the flash-attention forward, dq and dk/dv kernels
+                    against their plain versions under the per-element,
+                    per-row-scaled rule of checks/tolerance.py: the
+                    training path's shape (B 4, S 2048, 8 heads,
+                    head_dim 128, causal, bf16, timed beside
+                    scaled_dot_product_attention; and in fp16), the 70B
+                    attention dims (64 query heads over 8 KV heads), S
+                    1000 with q_offset 512, S 1000 with rows that see no
+                    key, non-causal cross attention, and a float32 case.
+                    Controls at the training shape: outputs with their
+                    last rows or keys zeroed must be rejected; two
+                    forwards that round at the wrong place must be
+                    rejected too.
+  5. serve       -- run_replay on Llama-2-7B at full width and depth
                     (seeded random weights, bf16, paged pool, the CUDA
                     kernels): 16 requests of 100-500 prompt tokens, 32
-                    new tokens each. The kernels' launch counts are set
-                    to 0 just before and read just after.
-  5. crosscheck  -- the same request mix at 7B width with 2 layers in
+                    new tokens each. The paged kernels' launch counts are
+                    set to 0 just before and read just after.
+  6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
                     tokens identical.
+  7. train       -- python -m tpu_hpc_torch.train's run_train on the
+                    bench Llama at full width and depth (dim 1024, 8
+                    layers, seq 2048, vocab 32000, bf16 compute, fp32
+                    params, AdamW), microbatch 4 x accum 8, two epochs of
+                    3 updates (the first is warm-up). The flash kernels'
+                    launch counts are set to 0 just before and read just
+                    after; each must equal layers x accum x updates.
+  8. train_profile -- one more bench-Llama update under torch.profiler:
+                    device time by kernel family, the top kernels, the
+                    card's idle share. Reports; gates nothing.
+  9. train_crosscheck -- bench width in float32, 2 layers, seq 512,
+                    batch 4 with accum 2: 3 updates from the same params
+                    and batches through the flash kernels and through
+                    the reference attention; the first update's
+                    gradients, the losses and the params agree.
 
 Then the per-kernel summary line, nvidia-smi's line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -42,15 +72,29 @@ import subprocess
 import sys
 import time
 
-PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = 2e-2  # bf16 output rounding (2^-8 relative) on O(1) values
-SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
+# Flash kernels: tpu_hpc_torch/checks/tolerance.py's rule, per element
+# and scaled by each row's own magnitude (see there).
+PAGED_SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
+SOURCES = {
+    "paged_decode_attention": PAGED_SOURCE,
+    "paged_prefill_attention": PAGED_SOURCE,
+    "flash_attention_fwd": FLASH_SOURCE,
+    "flash_attention_dq": FLASH_SOURCE,
+    "flash_attention_dkv": FLASH_SOURCE,
+}
 REPLACES = {
     "paged_decode_attention":
         "tpu_hpc/kernels/paged_attention.py:101",   # _decode_kernel
     "paged_prefill_attention":
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
+    "flash_attention_fwd":
+        "tpu_hpc/kernels/attention.py:148",         # _flash_kernel
+    "flash_attention_dq":
+        "tpu_hpc/kernels/attention.py:402",         # _flash_dq_kernel
+    "flash_attention_dkv":
+        "tpu_hpc/kernels/attention.py:455",         # _flash_dkv_kernel
 }
 
 
@@ -74,7 +118,8 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(paged_\w+?_kernel)I(\w+?)EEv", m.group(1))
+            k = re.search(r"((?:paged|flash)_\w+?_kernel)I(\w+?)EEv",
+                          m.group(1))
             cur = {"kernel": f"{k.group(1)}<{k.group(2)}>" if k
                    else m.group(1)}
             rows.append(cur)
@@ -110,10 +155,14 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+CHIP = None  # the card's row of tpu_hpc_torch/checks/roofline.py
+
+
 def bound(bytes_: int, flops: int, dtype) -> tuple:
-    """Least time (ms) for the work on an H100 and which bound sets it."""
-    t_bytes = bytes_ / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    """Least time (ms) for the work on this card, from its published
+    peaks in the roofline table, and which bound sets it."""
+    t_bytes = bytes_ / CHIP.hbm_bytes_per_s
+    t_flops = flops / CHIP.peak_flops(dtype)
     return 1e3 * max(t_bytes, t_flops), (
         "bytes" if t_bytes >= t_flops else "operations"
     )
@@ -318,6 +367,433 @@ def kernel_phase(torch, dev, lib) -> dict:
     return main_rows
 
 
+# ---------------------------------------------------------------------
+# Phase 4: flash-attention kernels
+# ---------------------------------------------------------------------
+
+# (name, b, sq, sk, hq, hkv, d, causal, q_offset, kv_offset, dtype, timed)
+FLASH_CASES = (
+    ("train_main", 4, 2048, 2048, 8, 8, 128, True, 0, 0, "bfloat16", True),
+    ("train_main_fp16", 4, 2048, 2048, 8, 8, 128, True, 0, 0, "float16",
+     False),
+    ("gqa_70b_dims", 1, 2048, 2048, 64, 8, 128, True, 0, 0, "bfloat16",
+     False),
+    ("ragged_q_offset", 2, 1000, 1000, 8, 8, 128, True, 512, 0, "bfloat16",
+     False),
+    ("fully_masked_rows", 2, 1000, 1000, 8, 8, 128, True, 0, 512,
+     "bfloat16", False),
+    ("non_causal_cross", 2, 1000, 1500, 8, 8, 128, False, 0, 0, "bfloat16",
+     False),
+    ("float32", 1, 1000, 1000, 8, 8, 128, True, 0, 0, "float32", False),
+)
+
+
+def visible_pairs(sq, sk, causal, q_offset, kv_offset) -> int:
+    """(row, key) pairs the mask leaves visible, per (batch, q head)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, q_offset + i - kv_offset + 1))
+               for i in range(sq))
+
+
+def flash_work(case) -> dict:
+    """(bytes, flops) per kernel: each input read once and each output
+    written once; 4, 6 and 8 x head_dim FLOPs per visible (row, key)
+    pair for the forward (QK^T, PV), dq (QK^T, dO V^T, dS K) and dk/dv
+    (those and P^T dO, dS^T Q)."""
+    _, b, sq, sk, hq, hkv, d, causal, qo, ko, dtype, _ = case
+    e = 4 if dtype == "float32" else 2
+    pairs = b * hq * visible_pairs(sq, sk, causal, qo, ko)
+    qb, kvb, rb = b * sq * hq * d * e, b * sk * hkv * d * e, b * sq * hq * 4
+    return {
+        "flash_attention_fwd": (2 * qb + 2 * kvb + rb, 4 * d * pairs),
+        "flash_attention_dq": (3 * qb + 2 * kvb + 2 * rb, 6 * d * pairs),
+        "flash_attention_dkv": (2 * qb + 4 * kvb + 2 * rb, 8 * d * pairs),
+    }
+
+
+# Rows (forward, dq) and keys (dk/dv) from which the controls below
+# make a kernel's output wrong: the last 148 of the training shape's
+# 2048, where causal attention's values are the smallest.
+CONTROL_FROM = 1900
+
+
+def out_with_rounded_scores(torch, q, k, v):
+    """The causal forward with the scores rounded to the input dtype
+    before the softmax (the kernels round only P, after exp). Equal q
+    and KV heads, no offsets."""
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+    s = s.to(q.dtype).float()
+    n = s.shape[-1]
+    causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+
+
+def out_with_narrow_accumulator(torch, q, k, v, tile=64):
+    """The causal forward walked over 64-key tiles as the kernel walks
+    them, but with the running output kept in the input dtype between
+    tiles (the kernels keep it in fp32). Equal heads, no offsets."""
+    b, n, h, d = q.shape
+    qf = q.float() * d ** -0.5
+    rows = torch.arange(n, device=q.device)[:, None]
+    m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, n, 1), device=q.device)
+    acc = torch.zeros((b, h, n, d), dtype=q.dtype, device=q.device)
+    for j0 in range(0, n, tile):
+        kt, vt = k[:, j0:j0 + tile].float(), v[:, j0:j0 + tile]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
+        cols = j0 + torch.arange(kt.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                          vt.float())
+        acc = (acc.float() * alpha + pv).to(q.dtype)
+        m = m_new
+    return (acc.float() / l).permute(0, 2, 1, 3)
+
+
+def flash_controls(torch, q, k, v, got, want) -> None:
+    """Deliberately wrong outputs at the training shape, held to the
+    same rule as the kernels', every one of which must be rejected: each
+    kernel's output with its last rows (forward, dq) or keys (dk/dv) set
+    to zero -- a kernel that misses the end of the causal walk -- and two
+    forwards that round to bf16 at the wrong place (the scores before
+    the softmax; the running output between KV tiles)."""
+    from tpu_hpc_torch.checks.tolerance import compare
+
+    controls = {}
+    for name in ("out", "dq", "dk", "dv"):
+        bad = got[name].clone()
+        bad[:, CONTROL_FROM:] = 0
+        controls[f"{name}_from_{CONTROL_FROM}_zeroed"] = (bad, want[name])
+    controls["out_scores_rounded"] = (
+        out_with_rounded_scores(torch, q, k, v), want["out"])
+    controls["out_narrow_accumulator"] = (
+        out_with_narrow_accumulator(torch, q, k, v), want["out"])
+    for name, (bad, ref) in controls.items():
+        r = compare(bad, ref, q.dtype)
+        emit("flash_control", control=name, dtype=str(q.dtype)[6:],
+             rejected=not r["ok"],
+             **{k: v for k, v in r.items() if k != "ok"})
+        if r["ok"]:
+            raise SystemExit(f"flash control {name}: the tolerance "
+                             f"accepts a wrong output ({r})")
+
+
+def library_flash(torch, q, k, v, dout, causal):
+    """scaled_dot_product_attention forward, and its autograd backward
+    (dq, dk, dv together), on the same inputs in its [B, H, S, D]
+    layout -- the yardstick; the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    do = dout.transpose(1, 2).contiguous()
+    out = sdpa(qq, kk, vv, is_causal=causal)
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(qq, kk, vv, is_causal=causal)
+
+    def bwd():
+        torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
+
+    return fwd, bwd
+
+
+def flash_phase(torch, dev) -> dict:
+    from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
+    from tpu_hpc_torch.kernels import attention as fa
+
+    main_rows = {}
+    for case in FLASH_CASES:
+        name, b, sq, sk, hq, hkv, d, causal, qo, ko, dtype_name, timed = case
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        q, k, v = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+        dout = rnd(b, sq, hq, d)
+        dlse = torch.randn((b, sq, hq), generator=gen, device=dev)
+        kw = dict(causal=causal)
+        out, lse = fa.flash_attention_fwd(q, k, v, qo, ko, **kw)
+        torch.cuda.synchronize()
+        want_o, want_l = fa.flash_attention_fwd_ref(q, k, v, qo, ko, **kw)
+        dm = (dout.float() * want_o.float()).sum(-1) - dlse
+        bargs = (q, k, v, dout, want_l, dm, qo, ko)
+        dq = fa.flash_attention_dq(*bargs, **kw)
+        dk, dv = fa.flash_attention_dkv(*bargs, **kw)
+        torch.cuda.synchronize()
+        want_dq = fa.flash_attention_dq_ref(*bargs, **kw)
+        want_dk, want_dv = fa.flash_attention_dkv_ref(*bargs, **kw)
+        live = want_l > fa.MASK_VALUE * 0.5
+        lse_err = float((lse[live] - want_l[live]).abs().max())
+        if lse_err > 1e-3 or not (lse[~live] == fa.MASK_VALUE).all():
+            raise SystemExit(f"flash {name}: lse off by {lse_err}")
+        if (~live).any() and (out[~live].any() or dq[~live].any()):
+            raise SystemExit(f"flash {name}: a fully masked row is not zero")
+        got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+        want = {"out": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv}
+        if name == "train_main":
+            flash_controls(torch, q, k, v, got, want)
+        work = flash_work(case)
+        outputs = {
+            "flash_attention_fwd": (
+                fa.flash_attention_fwd, fa.flash_attention_fwd_ref,
+                (q, k, v, qo, ko), ("out",)),
+            "flash_attention_dq": (
+                fa.flash_attention_dq, fa.flash_attention_dq_ref, bargs,
+                ("dq",)),
+            "flash_attention_dkv": (
+                fa.flash_attention_dkv, fa.flash_attention_dkv_ref, bargs,
+                ("dk", "dv")),
+        }
+        lib = library_flash(torch, q, k, v, dout, causal) if timed else None
+        for kname, (fn, ref, args, names) in outputs.items():
+            readings = {n: compare(got[n], want[n], dtype) for n in names}
+            row = {
+                "kernel": kname, "case": name, "dtype": dtype_name,
+                "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq,
+                          "hkv": hkv, "d": d},
+                "causal": causal, "q_offset": qo, "kv_offset": ko,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in readings.values()),
+                "tolerance": dataclasses.asdict(TOLERANCES[dtype]),
+                "readings": readings,
+                "fully_masked_rows": int((~live).sum()),
+            }
+            if kname == "flash_attention_fwd":
+                row["lse_max_abs_err"] = lse_err
+            if timed:
+                nb, fl = work[kname]
+                bound_ms, bound_by = bound(nb, fl, dtype)
+                row.update(
+                    ms=time_ms(lambda: fn(*args, **kw), iters=20),
+                    plain_ms=time_ms(lambda: ref(*args, **kw), iters=3,
+                                     warmup=1),
+                    library_ms=time_ms(
+                        lib[0] if kname == "flash_attention_fwd" else lib[1],
+                        iters=20),
+                    library="sdpa forward" if kname == "flash_attention_fwd"
+                    else "sdpa autograd backward (dq, dk, dv together)",
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    bytes=nb, flops=fl,
+                    tile_rows=fa.flash_tile_rows(dtype),
+                )
+                main_rows[kname] = row
+            emit("flash", **row)
+            if not all(r["ok"] for r in readings.values()):
+                raise SystemExit(
+                    f"flash {name} {kname}: outside the tolerance "
+                    f"{TOLERANCES[dtype]}: {readings}"
+                )
+        del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
+        del lib, outputs, bargs, got, want
+        torch.cuda.empty_cache()
+    return main_rows
+
+
+# ---------------------------------------------------------------------
+# Phases 7-8: training
+# ---------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_ACCUM = 3, 2, 32, 8
+
+
+def train_phase(torch, dev) -> dict:
+    """The training path: the bench Llama through run_train, the flash
+    kernels' launch counts set to 0 just before and read just after."""
+    import math
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, run_train
+
+    cfg = bench_model_cfg()
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
+        fn.launches = 0
+    summary = run_train(cfg, steps=TRAIN_STEPS, epochs=TRAIN_EPOCHS,
+                        batch=TRAIN_BATCH, grad_accum_steps=TRAIN_ACCUM,
+                        device=dev)
+    launches = fa.kernel_launches()
+    expected = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS * TRAIN_EPOCHS
+    emit("train", model="bench", dim=cfg.dim, n_layers=cfg.n_layers,
+         n_heads=cfg.n_heads, seq_len=cfg.max_seq_len,
+         vocab_size=cfg.vocab_size, dtype="bfloat16", param_dtype="float32",
+         microbatch=TRAIN_BATCH // TRAIN_ACCUM, grad_accum=TRAIN_ACCUM,
+         updates=summary["updates"], measured_updates=TRAIN_STEPS,
+         launches=launches, expected_launches=expected,
+         **{k: summary[k] for k in (
+             "tokens_per_s", "mfu", "update_s", "peak_memory_bytes",
+             "losses", "final_loss", "n_params", "flops_per_token",
+             "peak_flops", "flash_tile_rows", "goodput")})
+    if not all(math.isfinite(x) for x in summary["losses"]):
+        raise SystemExit(f"train: non-finite loss {summary['losses']}")
+    if len(summary["losses"]) != TRAIN_STEPS * TRAIN_EPOCHS:
+        raise SystemExit("train: an update's loss is missing")
+    if any(n != expected for n in launches.values()) \
+            or launches != summary["kernel_launches"]:
+        raise SystemExit(
+            f"train: flash launches {launches}, expected {expected} each"
+        )
+    return launches
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    if "flash_" in low:
+        return "flash_attention"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "wgmma",
+                              "nvjet")):
+        return "matmul"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    if "reduce" in low or "softmax" in low or "norm" in low:
+        return "reduction"
+    return "other"
+
+
+def train_profile_phase(torch, dev) -> None:
+    """One bench-Llama update under torch.profiler, after one warm-up
+    update: device time by kernel family, the top kernels, and the
+    share of the profiled update's wall time the card sat idle (the
+    profiler's own overhead counts as idle, so that share is an upper
+    bound). A measurement, not a gate: if the profiler records no device
+    time it says so and the run goes on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    trainer, ds = build_trainer(bench_model_cfg(), batch=TRAIN_BATCH,
+                                grad_accum_steps=TRAIN_ACCUM, device=dev)
+    trainer.train_step(ds.batch_at(0, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(ds.batch_at(1, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    families: dict = {}
+    for name, ms, count in kernels:
+        fam = families.setdefault(kernel_family(name),
+                                  {"ms": 0.0, "launches": 0})
+        fam["ms"] += ms
+        fam["launches"] += count
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    emit("train_profile", model="bench", updates=1,
+         microbatches=TRAIN_ACCUM, wall_ms=wall_ms,
+         device_time_available=busy_ms > 0, device_busy_ms=busy_ms,
+         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
+         families=families,
+         top=[{"kernel": n[:100], "ms": ms, "launches": c}
+              for n, ms, c in top])
+    del trainer
+    torch.cuda.empty_cache()
+
+
+class FirstGradients:
+    """An optimizer that keeps a copy of the first update's gradients --
+    the mean over the microbatches, before any optimizer math -- and
+    then defers to ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def apply(self, params, grads, state):
+        if self.grads is None:
+            self.grads = [g.detach().clone() for g in grads]
+        return self.inner.apply(params, grads, state)
+
+
+# train_crosscheck limits: about 10x what the flash kernels measured
+# against the reference attention on an NVIDIA H100 80GB HBM3 (700 W;
+# they differ in float32 summation order only): losses 9.1e-8 relative,
+# the first gradients at 0.106 of the CROSS_GRAD_RTOL bound and 1.06e-6
+# relative in norm, params 2.8e-6 apart after 3 updates.
+CROSS_LOSS_RTOL = 1e-6
+CROSS_GRAD_RTOL = 5e-5
+CROSS_GRAD_REL_NORM = 1e-5
+CROSS_PARAM_ATOL = 3e-5
+
+
+def train_crosscheck_phase(torch, dev) -> None:
+    """Bench width in float32, 2 layers, seq 512: 3 updates through the
+    flash kernels and through the reference attention, from the same
+    params and batches. The first update's gradients (taken before the
+    optimizer, whose per-weight normalisation would hide a gradient off
+    by a factor) agree per element to CROSS_GRAD_RTOL of the element
+    plus CROSS_GRAD_RTOL of its tensor's RMS, and per tensor to
+    CROSS_GRAD_REL_NORM in norm; losses to CROSS_LOSS_RTOL; every
+    parameter after 3 updates to CROSS_PARAM_ATOL."""
+    from tpu_hpc_torch.config import TrainingConfig
+    from tpu_hpc_torch.models import datasets, llama2
+    from tpu_hpc_torch.parallel import tp
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+    from tpu_hpc_torch.train.trainer import Trainer, make_optimizer, tree_leaves
+
+    cfg = bench_model_cfg(seq_len=512, n_layers=2, dtype=torch.float32)
+    tcfg = TrainingConfig(epochs=1, steps_per_epoch=3, global_batch_size=4,
+                          grad_accum_steps=2, learning_rate=3e-4,
+                          weight_decay=0.1, seed=0)
+    params = llama2.init_llama(torch.Generator(device=dev).manual_seed(3),
+                               cfg, dev)
+    ds = datasets.TokenStream(vocab_size=cfg.vocab_size, seq_len=512, seed=1)
+    results = {}
+    for impl in ("cuda", "reference"):
+        opt = FirstGradients(make_optimizer(tcfg))
+        trainer = Trainer(tcfg, None, llama2.make_forward(
+            cfg, attn_fn=tp.make_tp_flash_attn_fn(None, impl=impl)),
+            params, optimizer=opt, device=dev)
+        res = trainer.fit(ds)
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in tree_leaves(trainer.state.params)])
+        results[impl] = (res["epochs"][0]["losses"], flat, opt.grads)
+        del trainer
+    (l_cuda, p_cuda, g_cuda), (l_ref, p_ref, g_ref) = (
+        results["cuda"], results["reference"])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_cuda, l_ref))
+    grad_used, grad_rel = 0.0, 0.0
+    for gc, gr in zip(g_cuda, g_ref):
+        rms = float(gr.square().mean().sqrt())
+        bound = (CROSS_GRAD_RTOL * (gr.abs() + rms)).clamp_min(1e-30)
+        grad_used = max(grad_used, float(((gc - gr).abs() / bound).max()))
+        grad_rel = max(grad_rel, float(torch.linalg.vector_norm(gc - gr))
+                       / float(torch.linalg.vector_norm(gr)))
+    max_diff = float((p_cuda - p_ref).abs().max())
+    emit("train_crosscheck", model="bench-width-2-layers", dtype="float32",
+         seq_len=512, updates=3, losses_cuda=l_cuda, losses_reference=l_ref,
+         loss_max_rel_err=loss_err, grad_tol_used=grad_used,
+         grad_max_rel_norm_err=grad_rel, grad_tensors=len(g_ref),
+         param_max_abs_diff=max_diff, params=int(p_ref.numel()),
+         limits={"loss_rtol": CROSS_LOSS_RTOL, "grad_rtol": CROSS_GRAD_RTOL,
+                 "grad_rel_norm": CROSS_GRAD_REL_NORM,
+                 "param_atol": CROSS_PARAM_ATOL})
+    if (loss_err > CROSS_LOSS_RTOL or grad_used > 1.0
+            or grad_rel > CROSS_GRAD_REL_NORM or max_diff > CROSS_PARAM_ATOL):
+        raise SystemExit(
+            f"train_crosscheck: losses {loss_err}, gradients {grad_used} of "
+            f"their bound and {grad_rel} in norm, params {max_diff} -- "
+            "over the limits"
+        )
+    del params, results
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -325,6 +801,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
         return 1
+    global CHIP
+    from tpu_hpc_torch.checks.roofline import chip_for_kind
     from tpu_hpc_torch.kernels import _build
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.models import llama2
@@ -341,8 +819,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    CHIP = chip_for_kind(kind)
     emit("device", name=kind, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         peaks=None if CHIP is None else dataclasses.asdict(CHIP))
+    if CHIP is None:
+        raise SystemExit(f"{kind}: no row in tpu_hpc_torch/checks/roofline.py"
+                         " -- no peak rates to bound the kernels with")
 
     build_s = _build.build()
     lib = _build.load_library()
@@ -350,8 +833,9 @@ def main() -> int:
          ptxas=ptxas_summary(_build.PTXAS_LOG.read_text()))
 
     main_rows = kernel_phase(torch, dev, lib)
+    main_rows.update(flash_phase(torch, dev))
 
-    # -- 4. the main path: Llama-2-7B paged replay through the kernels
+    # -- 5. the serving path: Llama-2-7B paged replay through the kernels
     prompt_lens = (100, 180, 260, 340, 420, 500)
     n_req, max_new = 16, 32
     serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
@@ -384,7 +868,7 @@ def main() -> int:
         raise SystemExit(f"serve: kernels not on the main path: {launches}")
     torch.cuda.empty_cache()
 
-    # -- 5. cross-check: f32, cuda vs gather vs the no-cache forward
+    # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
     small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
     params = llama2.init_llama(
         torch.Generator(device=dev).manual_seed(1), small, dev
@@ -419,10 +903,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # -- 7. the training path: the bench Llama through the flash kernels
+    launches.update(train_phase(torch, dev))
+    torch.cuda.empty_cache()
+    # -- 8. where an update's device time goes (reports, never gates)
+    train_profile_phase(torch, dev)
+    # -- 9. training cross-check: flash kernels vs reference attention
+    train_crosscheck_phase(torch, dev)
+
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

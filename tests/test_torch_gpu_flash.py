@@ -1,0 +1,145 @@
+"""The flash-attention kernels on the card (``-m gpu``).
+
+Run on a machine with an NVIDIA H100:
+
+    python -m pytest tests/test_torch_*.py -m gpu
+
+Each test decides inside the ``cuda`` fixture whether a card is present
+and skips with a reason where there is none. The forward, dq and dk/dv
+kernels (csrc/flash_attention.cu) are held against their plain PyTorch
+versions on the same inputs: ragged lengths that cross tiles, q/kv
+offsets, GQA, rows with no visible key, non-causal cross attention;
+bf16, fp16 and float32. This file imports no JAX.
+
+Tolerances: ``tpu_hpc_torch/checks/tolerance.py``, the rule
+``chip_smoke.py`` holds the kernels to. Every element is bounded by a
+share of its own value and of its row's RMS (the kernels round P and dS
+to a 16-bit input dtype before their products, as the JAX kernels do, so
+the error scales with each row's terms), and 16-bit outputs also bound
+the relative RMS error of the whole tensor. Float32: ``atol = rtol =
+1e-4`` -- the kernels' scalar fp32 sums run in another order than the
+plain versions' matrix products.
+"""
+import pytest
+import torch
+
+from tpu_hpc_torch.checks.tolerance import compare
+from tpu_hpc_torch.kernels import attention as ta
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest "
+                    "tests/test_torch_*.py -m gpu on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (name, b, sq, sk, hq, hkv, d, causal, q_offset, kv_offset)
+CASES = [
+    ("ragged_causal", 2, 200, 200, 4, 4, 128, True, 0, 0),
+    ("offsets", 1, 130, 190, 4, 2, 128, True, 64, 0),
+    ("gqa_group4", 2, 96, 96, 8, 2, 64, True, 0, 0),
+    ("fully_masked_rows", 1, 100, 100, 2, 2, 128, True, 0, 40),
+    ("non_causal_cross", 2, 70, 150, 4, 4, 128, False, 0, 0),
+]
+
+
+def _inputs(dev, dtype, case, seed=0):
+    _, b, sq, sk, hq, hkv, d, causal, qo, ko = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d),
+            rnd(b, sq, hq, d), torch.randn((b, sq, hq), generator=g,
+                                           device=dev))
+
+
+def _close(got, want, dtype, what):
+    readings = compare(got, want, dtype)
+    assert readings["ok"], f"{what}: {readings}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    causal, qo, ko = case[7:]
+    q, k, v, dout, dlse = _inputs(cuda, dtype, case)
+    kw = dict(causal=causal)
+    n0 = ta.kernel_launches()
+    out, lse = ta.flash_attention_fwd(q, k, v, qo, ko, **kw)
+    torch.cuda.synchronize()
+    want_o, want_l = ta.flash_attention_fwd_ref(q, k, v, qo, ko, **kw)
+    _close(out, want_o, dtype, "out")
+    live = want_l > ta.MASK_VALUE * 0.5
+    torch.testing.assert_close(lse[live], want_l[live], atol=2e-3, rtol=1e-4)
+    assert (lse[~live] == ta.MASK_VALUE).all()
+    if case[0] == "fully_masked_rows":
+        assert (~live).any() and not out[~live].any()
+    # The backward kernels on the plain forward's lse and D.
+    dm = (dout.float() * want_o.float()).sum(-1) - dlse
+    args = (q, k, v, dout, want_l, dm, qo, ko)
+    dq = ta.flash_attention_dq(*args, **kw)
+    dk, dv = ta.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    _close(dq, ta.flash_attention_dq_ref(*args, **kw), dtype, "dq")
+    want_dk, want_dv = ta.flash_attention_dkv_ref(*args, **kw)
+    _close(dk, want_dk, dtype, "dk")
+    _close(dv, want_dv, dtype, "dv")
+    if case[0] == "fully_masked_rows":
+        assert not dq[~live].any()
+    n1 = ta.kernel_launches()
+    assert all(n1[name] == n0[name] + 1 for name in n1), (n0, n1)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_matches_reference_on_card(cuda):
+    """flash_attention's autograd (three kernels) against autograd through
+    attention_reference, float32, GQA, offsets, nonzero dlse."""
+    case = ("gqa", 2, 150, 150, 8, 2, 128, True, 20, 0)
+    q, k, v, dout, dlse = _inputs(cuda, torch.float32, case, seed=1)
+    grads = {}
+    for impl in ("cuda", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = ta.blockwise_attention(*leaves, q_offset=20, impl=impl)
+        torch.autograd.backward((out, lse), (dout, dlse))
+        grads[impl] = (out.detach(), lse.detach(),
+                       *(t.grad for t in leaves))
+    for got, want in zip(grads["cuda"], grads["reference"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    case = ("small", 1, 40, 40, 2, 2, 64, True, 0, 0)
+    q, k, v, dout, dlse = _inputs(cuda, torch.bfloat16, case)
+    n0 = ta.kernel_launches()
+    with pytest.raises(ValueError, match="k is on cpu"):
+        ta.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="k must be"):
+        ta.flash_attention_fwd(q, k.float(), v)
+    with pytest.raises(TypeError, match="flash kernels take"):
+        ta.flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ta.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.flash_attention_fwd(q[..., :24].contiguous(),
+                               k[..., :24].contiguous(),
+                               v[..., :24].contiguous())
+    out, lse = ta.flash_attention_fwd(q, k, v)
+    dm = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="dm is on cpu"):
+        ta.flash_attention_dq(q, k, v, dout, lse, dm.cpu())
+    with pytest.raises(TypeError, match="lse must be"):
+        ta.flash_attention_dkv(q, k, v, dout, lse.double(), dm)
+    n1 = ta.kernel_launches()
+    assert n1["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
+    assert n1["flash_attention_dq"] == n0["flash_attention_dq"]
+    assert n1["flash_attention_dkv"] == n0["flash_attention_dkv"]

@@ -6,8 +6,10 @@ module layout and public names so each module's counterpart is easy to
 find; every Pallas kernel on a ported path becomes a hand-written
 Hopper kernel (``csrc/``), with a plain PyTorch version beside it.
 
-This first slice serves Llama-2 through the paged KV cache
-(``python -m tpu_hpc_torch.serve --paged --kv-kernel cuda``). ROADMAP
-lists what comes next. Nothing here imports jax or ``tpu_hpc``.
+Two slices so far: serving Llama-2 through the paged KV cache
+(``python -m tpu_hpc_torch.serve --paged --kv-kernel cuda``) and
+training the bench Llama on one card through the flash-attention
+kernels (``python -m tpu_hpc_torch.train``). ROADMAP lists what comes
+next. Nothing here imports jax or ``tpu_hpc``.
 Importing this package does not import its subpackages.
 """

@@ -61,7 +61,7 @@ namespace {
 // m = MASK_VALUE and the m_safe rule below zeroes its probabilities.
 constexpr float kMaskValue = -1e30f;
 
-// dtype codes shared with kernels/paged_attention.py::_DTYPE_CODES.
+// dtype codes shared with kernels/attention.py::DTYPE_CODES.
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2, kI8 = 3 };
 
 constexpr int kDecodeThreads = 128;

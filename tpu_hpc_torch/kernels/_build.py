@@ -1,11 +1,13 @@
 """Build-on-first-use loader for the port's CUDA kernels.
 
-``tpu_hpc_torch/csrc/paged_attention.cu`` has a plain C interface, so
-it is compiled with ``nvcc`` straight into a shared library and loaded
-with ``ctypes`` -- no PyTorch headers, so a build takes seconds, not
-minutes. The library lands in ``build/tpu_hpc_torch/`` at the root of
+Every source in ``tpu_hpc_torch/csrc/*.cu`` has a plain C interface,
+so each is compiled with ``nvcc`` (no PyTorch headers: a build takes
+seconds, not minutes) and all of them are linked into ONE shared
+library, loaded with ``ctypes``. The sources compile in parallel, one
+``nvcc -c`` each, all started together; one more ``nvcc`` links the
+objects. The library lands in ``build/tpu_hpc_torch/`` at the root of
 the checkout (listed in ``.gitignore``) the first time a kernel
-launches, and is rebuilt whenever the source is newer than it.
+launches, and is rebuilt whenever any source is newer than it.
 
 Unlike the JAX package's native loader (``native/dataloader.py``),
 a failed build raises: a CUDA tensor must reach its kernel or fail
@@ -21,24 +23,29 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "paged_attention.cu"
+SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu_hpc_torch"
-LIBRARY = BUILD_DIR / "libpaged_attention.so"
+LIBRARY = BUILD_DIR / "libtpuhpc_kernels.so"
 # nvcc's -Xptxas -v report (registers, shared memory, spills per
-# kernel), kept beside the library for chip_smoke.py to print.
-PTXAS_LOG = BUILD_DIR / "paged_attention.ptxas.txt"
+# kernel) of every source, kept beside the library for chip_smoke.py.
+PTXAS_LOG = BUILD_DIR / "kernels.ptxas.txt"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    """The CUDA sources linked into the library, in a fixed order."""
+    return sorted(SOURCE_DIR.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -50,42 +57,64 @@ def _nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError(
         "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
-        "/usr/local/cuda/bin): the paged-attention kernels are built "
-        "from tpu_hpc_torch/csrc at first launch"
+        "/usr/local/cuda/bin): the kernels are built from "
+        "tpu_hpc_torch/csrc at first launch"
     )
 
 
 def _stale() -> bool:
-    return (
-        not LIBRARY.exists()
-        or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime
+    if not LIBRARY.exists():
+        return True
+    built = LIBRARY.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
+
+
+def _fail(cmd, proc) -> RuntimeError:
+    return RuntimeError(
+        f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+        f"{proc.stdout}{proc.stderr}"
     )
 
 
 def build() -> float:
-    """Compile the library if it is missing or older than its source;
-    returns the seconds spent compiling. The output is written under a
-    temporary name and renamed, so a concurrent loader never maps a
-    half-written file. Raises ``RuntimeError`` with nvcc's output on
-    failure."""
+    """Compile the library if it is missing or older than a source;
+    returns the seconds spent. The objects and the library are written
+    under temporary names and the library renamed into place, so a
+    concurrent loader never maps a half-written file. Raises
+    ``RuntimeError`` with nvcc's output on failure."""
     if not _stale():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    took = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    PTXAS_LOG.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, LIBRARY)
-    return took
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )
+            jobs.append((cmd, proc, obj))
+        logs, failed = [], None
+        for cmd, proc, _ in jobs:
+            out, err = proc.communicate()
+            logs.append(out + err)
+            if proc.returncode != 0 and failed is None:
+                failed = _fail(cmd, subprocess.CompletedProcess(
+                    cmd, proc.returncode, out, err))
+        if failed is not None:
+            raise failed
+        lib_tmp = os.path.join(tmp, LIBRARY.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
+               *(obj for _, _, obj in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise _fail(cmd, proc)
+        PTXAS_LOG.write_text("".join(logs))
+        os.replace(lib_tmp, LIBRARY)
+    return time.perf_counter() - t0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -100,6 +129,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_paged_prefill.restype = i
     lib.tpuhpc_prefill_tile_rows.argtypes = [i] * 5
     lib.tpuhpc_prefill_tile_rows.restype = i
+    # flash_attention.cu: pointers, then (b, sq, sk, hq, hkv, d,
+    # q_offset, kv_offset, causal), scale, dtype code, stream.
+    lib.tpuhpc_flash_fwd.argtypes = [p] * 5 + [i] * 9 + [f, i, p]
+    lib.tpuhpc_flash_fwd.restype = i
+    lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 9 + [f, i, p]
+    lib.tpuhpc_flash_dq.restype = i
+    lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 9 + [f, i, p]
+    lib.tpuhpc_flash_dkv.restype = i
+    lib.tpuhpc_flash_tile_rows.argtypes = [i]
+    lib.tpuhpc_flash_tile_rows.restype = i
     lib.tpuhpc_error_string.argtypes = [i]
     lib.tpuhpc_error_string.restype = ctypes.c_char_p
 

@@ -1,14 +1,503 @@
-"""Attention constants shared by the port's kernels.
+"""Blockwise (flash) attention with log-sum-exp output.
 
-Only ``MASK_VALUE`` is ported in the serving slice. The flash-attention
-forward and its two backward kernels (the JAX package's
-``kernels/attention.py``: ``_flash_kernel``, ``_flash_dq_kernel``,
-``_flash_dkv_kernel``) come with the training slice; ROADMAP lists
-them. The JAX package's ``pick_block_sizes`` is deliberately not
-ported: its 128-lane rule is the TPU's, and the Hopper kernels pick
-their own tiles (``csrc/paged_attention.cu``).
+Port of the JAX package's ``kernels/attention.py``. Layout
+``[B, S, H, D]`` (model order); the LSE is ``[B, S, H]`` fp32. Masking
+uses the large finite ``MASK_VALUE`` instead of -inf, so a fully masked
+row gives out = 0, lse = MASK_VALUE and zero, NaN-free gradients.
+
+  * :func:`attention_reference` and :func:`lse_merge` -- plain torch,
+    differentiable by autograd, the JAX package's reference path.
+  * :func:`flash_attention` -- a ``torch.autograd.Function`` with the
+    JAX ``flash_attention`` contract: ``(out, lse)``, a backward that
+    takes ``dlse`` and folds it into the per-row ``D = rowsum(dO * O) -
+    dlse``. Its three steps are the wrappers :func:`flash_attention_fwd`,
+    :func:`flash_attention_dq` and :func:`flash_attention_dkv`: on a
+    CUDA tensor each launches its hand-written Hopper kernel
+    (``csrc/flash_attention.cu``, built at first launch by ``_build``)
+    or raises -- never a fallback; on a CPU tensor each runs its plain
+    PyTorch version beside it (``*_ref``: the gradient identities
+    written out in fp32 with the kernels' masking rules), which is also
+    what ``chip_smoke.py`` holds the kernels against on the card. Each
+    wrapper counts its launches in ``.launches``.
+  * :func:`blockwise_attention` -- the dispatcher: ``impl="auto"``
+    takes the kernels for CUDA tensors and the reference path for CPU
+    tensors.
+
+``q_offset`` / ``kv_offset`` are runtime integers handed to the
+kernels, so one build serves every ring step. The TPU's ``block_q`` /
+``block_k`` arguments and ``pick_block_sizes``' 128-lane rule are not
+ported: the Hopper kernels pick their own tiles (:func:`flash_tile_rows`
+reads them from the built library).
 """
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
 
 # Finite mask value (not -inf): a fully masked row keeps a defined
 # result -- zero output -- instead of NaN from exp(-inf - -inf).
 MASK_VALUE = -1e30
+
+# Input dtypes the flash kernels take.
+FLASH_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+# dtype codes of the C interface of every csrc/*.cu (the DType enums).
+DTYPE_CODES = {
+    torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3,
+}
+MAX_HEAD_DIM = 128
+
+Offset = Union[int, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch: the reference path and the kernels' plain versions
+# ---------------------------------------------------------------------------
+
+def _offset(x: Offset) -> int:
+    """A host integer offset (a 0-d CPU tensor is read; a device scalar
+    would synchronize the stream, so it is refused)."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise ValueError(
+            "offsets must be host ints or CPU tensors (reading a device "
+            "scalar would synchronize the stream)"
+        )
+    return int(x)
+
+
+def _check_gqa(q: torch.Tensor, k: torch.Tensor) -> None:
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"GQA needs Hq % Hkv == 0, got {q.shape[2]} % {k.shape[2]}"
+        )
+
+
+def _scores(q, k, q_offset, kv_offset, causal, sm_scale):
+    """fp32 scores [B, Hkv, G, Sq, Sk] through a grouped query view (no
+    repeated K), masked to MASK_VALUE where causal hides a key."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32)) * sm_scale
+    if causal:
+        rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+        cols = kv_offset + torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, torch.full_like(s, MASK_VALUE))
+    return s
+
+
+def _row_view(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """Per-row [B, Sq, Hq] -> [B, Hkv, G, Sq, 1], the scores' layout."""
+    b, sq, hq = x.shape
+    return x.to(torch.float32).reshape(b, sq, hkv, hq // hkv) \
+        .permute(0, 2, 3, 1)[..., None]
+
+
+def _to_rows(x: torch.Tensor) -> torch.Tensor:
+    """[B, Hkv, G, Sq] -> contiguous [B, Sq, Hq]."""
+    b, hkv, g, sq = x.shape
+    return x.permute(0, 3, 1, 2).reshape(b, sq, hkv * g).contiguous()
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: Offset = 0,
+    kv_offset: Offset = 0,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax attention of a Q chunk against a KV chunk, plain torch.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] with Hq a multiple of Hkv
+    (GQA through a grouped query view). Returns (out [B, Sq, Hq, D] in
+    q.dtype, lse [B, Sq, Hq] fp32). ``causal`` masks with global
+    positions ``q_offset + i >= kv_offset + j``; a fully masked row
+    yields out = 0, lse = MASK_VALUE (so it merges as a no-op).
+    Probabilities are cast to v's dtype before P.V, as in the JAX
+    reference.
+    """
+    _check_gqa(q, k)
+    b, sq, hq, d = q.shape
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s = _scores(q, k, _offset(q_offset), _offset(kv_offset), causal, scale)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= MASK_VALUE * 0.5, torch.zeros_like(m), m)
+    p = torch.where(
+        s > MASK_VALUE * 0.5, torch.exp(s - m_safe[..., None]),
+        torch.zeros_like(s),
+    )
+    l = p.sum(dim=-1)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    out = out.reshape(b, sq, hq, d)
+    out = out / _to_rows(l_safe)[..., None].to(out.dtype)
+    lse = m + torch.log(l_safe)  # fully masked: MASK_VALUE + 0
+    return out.to(q.dtype), _to_rows(lse)
+
+
+def lse_merge(
+    o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor, lse2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exactly merge two attention partials over disjoint KV sets
+    (o: [B, S, H, D], lse: [B, S, H]); a MASK_VALUE (empty) side is an
+    exact no-op and gradients stay NaN-free."""
+    m = torch.maximum(lse1, lse2)
+    m_safe = torch.where(m <= MASK_VALUE * 0.5, torch.zeros_like(m), m)
+    w1 = torch.exp(lse1 - m_safe)
+    w2 = torch.exp(lse2 - m_safe)
+    denom = w1 + w2
+    denom_safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    lse = m + torch.log(denom_safe)
+    wo1 = (w1 / denom_safe)[..., None].to(o1.dtype)
+    wo2 = (w2 / denom_safe)[..., None].to(o2.dtype)
+    return o1 * wo1 + o2 * wo2, lse
+
+
+def flash_attention_fwd_ref(
+    q, k, v, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (out in q.dtype, lse fp32),
+    every step in fp32 -- :func:`attention_reference` on fp32 copies of
+    the inputs. (The kernel rounds P to v's dtype before P.V; this
+    version does not, so it is the exact value the kernel
+    approximates.)"""
+    f32 = [t.to(torch.float32) for t in (q, k, v)]
+    out, lse = attention_reference(*f32, causal=causal, q_offset=q_offset,
+                                   kv_offset=kv_offset, sm_scale=sm_scale)
+    return out.to(q.dtype), lse
+
+
+def _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset, causal, scale):
+    """P = exp(S - lse) and dS = P * (dO.V^T - D), fp32, [B,Hkv,G,Sq,Sk]."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    s = _scores(q, k, _offset(q_offset), _offset(kv_offset), causal, scale)
+    p = torch.where(
+        s > MASK_VALUE * 0.5, torch.exp(s - _row_view(lse, hkv)),
+        torch.zeros_like(s),
+    )
+    dof = dout.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.to(torch.float32))
+    return p, p * (dp - _row_view(dm, hkv)), dof
+
+
+def flash_attention_dq_ref(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the dq kernel: ``dq = scale * dS . K`` with
+    P = exp(S - lse), dS = P * (dO.V^T - dm), in fp32; dq in q.dtype.
+    ``dm`` is the per-row ``rowsum(dO * O) - dlse`` [B, Sq, Hq]."""
+    b, sq, hq, d = q.shape
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    _, ds, _ = _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset,
+                          causal, scale)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(torch.float32)) * scale
+    return dq.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_attention_dkv_ref(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dk/dv kernel: ``dV = P^T . dO`` and
+    ``dK = scale * dS^T . Q`` in fp32, summed over each KV head's group
+    of query heads; dk/dv in k/v's dtype."""
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    p, ds, dof = _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset,
+                            causal, scale)
+    qf = q.to(torch.float32).reshape(dof.shape)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the kernel on the card, the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+def _check_inputs(q, k, v, extra=()):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, S, H, D]")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree in "
+            "batch or head_dim"
+        )
+    _check_gqa(q, k)
+    if q.shape[1] < 1 or k.shape[1] < 1:
+        raise ValueError("sequence lengths must be >= 1")
+    for name, t in extra:
+        if t.shape[:3] != q.shape[:3]:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q")
+
+
+def _check_cuda(named, dtypes):
+    """Raise unless every tensor is on the first one's CUDA device,
+    contiguous, 16-byte aligned and of its expected dtype."""
+    device = named[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    for (name, t), dt in zip(named, dtypes):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _kernel_dtype(q: torch.Tensor) -> int:
+    if q.dtype not in FLASH_DTYPES:
+        raise TypeError(
+            f"flash kernels take {sorted(map(str, FLASH_DTYPES))}, got "
+            f"{q.dtype}"
+        )
+    d = q.shape[-1]
+    if d % 16 or d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash kernels take head_dim a multiple of 16 up to "
+            f"{MAX_HEAD_DIM}, got {d}"
+        )
+    return DTYPE_CODES[q.dtype]
+
+
+def _dims(q, k):
+    b, sq, hq, d = q.shape
+    return b, sq, k.shape[1], hq, k.shape[2], d
+
+
+def _launch(name, fn, *args):
+    """Call C entry point ``fn`` on the current stream and raise on a
+    refused launch."""
+    from tpu_hpc_torch.kernels import _build
+
+    lib = _build.load_library()
+    device = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, fn)(*ptrs, stream)
+    _build.check(lib, code, name)
+
+
+def flash_attention_fwd(
+    q, k, v, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward: (out [B, Sq, Hq, D] in q.dtype, lse [B, Sq, Hq] fp32).
+    CUDA tensors launch ``flash_fwd_kernel``; CPU tensors run
+    :func:`flash_attention_fwd_ref`."""
+    _check_inputs(q, k, v)
+    qo, ko = _offset(q_offset), _offset(kv_offset)
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, qo, ko, causal=causal,
+                                       sm_scale=scale)
+    code = _kernel_dtype(q)
+    _check_cuda([("q", q), ("k", k), ("v", v)], [q.dtype] * 3)
+    b, sq, sk, hq, hkv, d = _dims(q, k)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd", "tpuhpc_flash_fwd", q, k, v, out, lse,
+            b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)), float(scale),
+            code)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_dq(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """dq in q.dtype from the saved lse and ``dm = rowsum(dO*O) - dlse``
+    (both [B, Sq, Hq] fp32). CUDA tensors launch ``flash_dq_kernel``;
+    CPU tensors run :func:`flash_attention_dq_ref`."""
+    _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
+    qo, ko = _offset(q_offset), _offset(kv_offset)
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_dq_ref(q, k, v, dout, lse, dm, qo, ko,
+                                      causal=causal, sm_scale=scale)
+    code = _kernel_dtype(q)
+    _check_cuda(
+        [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
+         ("dm", dm)],
+        [q.dtype] * 4 + [torch.float32] * 2,
+    )
+    b, sq, sk, hq, hkv, d = _dims(q, k)
+    dq = torch.empty_like(q)
+    _launch("flash_attention_dq", "tpuhpc_flash_dq", q, k, v, dout, lse, dm,
+            dq, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
+            float(scale), code)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in k/v's dtype, summed over each KV head's query-head
+    group. CUDA tensors launch ``flash_dkv_kernel``; CPU tensors run
+    :func:`flash_attention_dkv_ref`."""
+    _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
+    qo, ko = _offset(q_offset), _offset(kv_offset)
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_dkv_ref(q, k, v, dout, lse, dm, qo, ko,
+                                       causal=causal, sm_scale=scale)
+    code = _kernel_dtype(q)
+    _check_cuda(
+        [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
+         ("dm", dm)],
+        [q.dtype] * 4 + [torch.float32] * 2,
+    )
+    b, sq, sk, hq, hkv, d = _dims(q, k)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attention_dkv", "tpuhpc_flash_dkv", q, k, v, dout, lse,
+            dm, dk, dv, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
+            float(scale), code)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) forward through the forward kernel; backward from
+    the saved (out, lse) through the dq and dk/dv kernels -- no forward
+    recompute, no [S, S] buffer:
+
+      P  = exp(S - lse)             (S rebuilt tile by tile from q, k)
+      dS = P * (dO.V^T - (rowsum(dO*O) - dlse))
+      dq = scale * dS.K;  dk = scale * dS^T.Q;  dv = P^T.dO
+
+    The per-row D = rowsum(dO*O) - dlse is a torch op before the
+    kernels, as the JAX package leaves it to XLA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_offset, causal, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, q_offset, kv_offset,
+                                       causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_offset, kv_offset, causal, sm_scale)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_offset, kv_offset, causal, sm_scale = ctx.args
+        dout = dout.contiguous()
+        dm = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+        dm = (dm - dlse).contiguous()
+        kw = dict(causal=causal, sm_scale=sm_scale)
+        dq = flash_attention_dq(q, k, v, dout, lse, dm, q_offset, kv_offset,
+                                **kw)
+        dk, dv = flash_attention_dkv(q, k, v, dout, lse, dm, q_offset,
+                                     kv_offset, **kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: Offset = 0,
+    kv_offset: Offset = 0,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention: (out, lse), the contract of
+    :func:`attention_reference`, differentiable in q, k, v (and through
+    lse). CUDA tensors run the three Hopper kernels; CPU tensors their
+    plain versions."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(
+        q, k, v, _offset(q_offset), _offset(kv_offset), bool(causal),
+        float(scale),
+    )
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: Offset = 0,
+    kv_offset: Offset = 0,
+    sm_scale: Optional[float] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk attention with LSE; ``impl`` in {auto, reference, cuda}.
+    ``auto`` takes the kernels (``cuda``) for CUDA tensors and the
+    reference path for CPU tensors; ``cuda`` on CPU tensors runs the
+    kernels' plain versions through the same autograd function."""
+    _check_gqa(q, k)  # for BOTH impls, as in the JAX dispatcher
+    if impl == "auto":
+        impl = "cuda" if q.device.type == "cuda" else "reference"
+    if impl == "reference":
+        return attention_reference(
+            q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+            sm_scale=sm_scale,
+        )
+    if impl == "cuda":
+        return flash_attention(q, k, v, q_offset, kv_offset, causal, sm_scale)
+    raise ValueError(f"unknown attention impl: {impl!r}")
+
+
+def flash_tile_rows(dtype: torch.dtype) -> int:
+    """Rows of the q and k tiles the built kernels use for ``dtype``
+    (``Tile<T>::kRows`` of csrc/flash_attention.cu), read from the
+    library; builds it when needed, so call it only with a card."""
+    from tpu_hpc_torch.kernels import _build
+
+    if dtype not in FLASH_DTYPES:
+        raise TypeError(f"flash kernels take no {dtype}")
+    return _build.load_library().tpuhpc_flash_tile_rows(DTYPE_CODES[dtype])
+
+
+def kernel_launches() -> dict:
+    """The three flash kernels' launch counts, by wrapper name."""
+    return {
+        "flash_attention_fwd": flash_attention_fwd.launches,
+        "flash_attention_dq": flash_attention_dq.launches,
+        "flash_attention_dkv": flash_attention_dkv.launches,
+    }
+
+
+__all__ = [
+    "FLASH_DTYPES",
+    "MASK_VALUE",
+    "attention_reference",
+    "blockwise_attention",
+    "flash_attention",
+    "flash_attention_dkv",
+    "flash_attention_dkv_ref",
+    "flash_attention_dq",
+    "flash_attention_dq_ref",
+    "flash_attention_fwd",
+    "flash_attention_fwd_ref",
+    "flash_tile_rows",
+    "kernel_launches",
+    "lse_merge",
+]

@@ -32,7 +32,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from tpu_hpc_torch.kernels.attention import MASK_VALUE
+from tpu_hpc_torch.kernels.attention import DTYPE_CODES, MASK_VALUE
 
 # Page 0 of the pool is the scratch page: never allocated, absorbs
 # writes from inactive slots and padded chunk tails. Equals
@@ -43,10 +43,6 @@ SCRATCH_PAGE = 0
 # otherwise produce scale 0 and NaNs on dequantize-divide round trips.
 INT8_SCALE_FLOOR = 1e-8
 
-# dtype codes of the C interface (csrc/paged_attention.cu DType).
-_DTYPE_CODES = {
-    torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3,
-}
 _Q_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
@@ -190,7 +186,7 @@ def paged_prefill_attention_ref(
 def _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d):
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not one of {_Q_DTYPES}")
-    if k_pages.dtype not in _DTYPE_CODES:
+    if k_pages.dtype not in DTYPE_CODES:
         raise TypeError(f"page dtype {k_pages.dtype} not supported")
     if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
         raise ValueError("k_pages and v_pages must match in shape and dtype")
@@ -288,8 +284,8 @@ def paged_decode_attention(
             tables.data_ptr(), pos.data_ptr(), active.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
             slots, hkv, g, d, block_size, tables.shape[1], max_blocks,
-            float(sm_scale), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_pages.dtype], stream,
+            float(sm_scale), DTYPE_CODES[q.dtype],
+            DTYPE_CODES[k_pages.dtype], stream,
         )
     _build.check(lib, code, "paged_decode_attention")
     paged_decode_attention.launches += 1
@@ -366,8 +362,8 @@ def paged_prefill_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
             hkv, bucket, g, d, block_size, max_blocks, start,
-            float(sm_scale), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_pages.dtype], stream,
+            float(sm_scale), DTYPE_CODES[q.dtype],
+            DTYPE_CODES[k_pages.dtype], stream,
         )
     _build.check(lib, code, "paged_prefill_attention")
     paged_prefill_attention.launches += 1

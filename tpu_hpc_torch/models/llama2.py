@@ -1,7 +1,8 @@
-"""Llama-2 in PyTorch: config, init, RoPE and a no-cache forward.
+"""Llama-2 in PyTorch: config, init, RoPE, the forward and the
+training forward.
 
-Ported from the JAX package's ``models/llama2.py``. What this serving
-slice needs, with the same numerics:
+Ported from the JAX package's ``models/llama2.py``, with the same
+numerics:
 
   * :class:`LlamaConfig` with the same fields and :data:`PRESETS`
     (dtypes are ``torch.dtype``);
@@ -14,24 +15,40 @@ slice needs, with the same numerics:
     keys as the flax init (``tok_embeddings/embedding``,
     ``layers_i/attention/wq/kernel`` ...), Dense kernels kept in flax's
     ``[in, out]`` layout so ``x @ W`` is the projection;
-  * :func:`apply_llama`: the no-cache forward, the greedy oracle the
-    serving tests hold the KV-cache engines against.
-
-The training pieces (``make_forward``, per-block remat, the
-``iota_embed`` matmul-backward lookup) come with the training slice
-(ROADMAP); ``remat`` and ``iota_embed`` stay as config fields so the
-two configs compare field for field.
+  * :func:`apply_llama`: the forward, differentiable. ``attn_fn`` plugs
+    in the attention op (``parallel.tp.make_tp_flash_attn_fn`` -> the
+    flash kernels); None keeps the einsum path with the -inf causal
+    mask. ``cfg.remat`` checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant), so its forward --
+    attention kernel included -- runs again in the backward.
+    ``cfg.iota_embed`` gives the embedding lookup the JAX package's
+    backward: the table gradient summed over positions in fp32 and
+    rounded once to the compute dtype;
+  * :func:`make_forward`: the trainer's forward, next-token
+    cross-entropy, ``(loss, model_state, aux)``.
 
 Params are a plain nested dict of tensors -- the flax tree's shape --
-rather than ``nn.Module``s: the serving engine replays the model as
-functions over the tree, exactly as the JAX engine does.
+rather than ``nn.Module``s. Training keeps them in ``cfg.param_dtype``
+(fp32) with ``requires_grad``; each matrix is cast to ``cfg.dtype`` at
+use, as flax's ``Dense(dtype=...)`` does, so its gradient flows back to
+the fp32 master copy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+Constrain = Callable[[torch.Tensor], torch.Tensor]
+# (q [B,S,Hq,D], k [B,S,Hkv,D], v) -> [B,S,Hq,D]; None -> the einsum path.
+AttnFn = Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                           torch.Tensor]]
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +68,8 @@ class LlamaConfig:
     depth_init: bool = True
     dtype: Any = torch.bfloat16       # compute dtype
     param_dtype: Any = torch.float32  # storage dtype of the init
-    remat: bool = False               # training slice
-    iota_embed: bool = True           # training slice
+    remat: bool = False               # checkpoint each block
+    iota_embed: bool = True           # fp32-summed embedding backward
 
     @property
     def kv_heads(self) -> int:
@@ -287,47 +304,123 @@ def _proj(x: torch.Tensor, kernel: torch.Tensor, dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), kernel.to(dtype))
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward is the JAX package's iota_embed
+    one (llama2.py:62-98): the table gradient is the sum over positions
+    with each token, accumulated in fp32 and rounded once to the
+    table's dtype (the JAX version contracts a one-hot against the
+    cotangent with an fp32 accumulator; the values are the same)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        ctx.table_dtype = table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        dtable = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                             device=g.device)
+        dtable.index_add_(0, tokens.reshape(-1),
+                          g.reshape(-1, g.shape[-1]).to(torch.float32))
+        return dtable.to(ctx.table_dtype), None
+
+
+def _attention(lp, x, cfg, cos, sin, attn_fn):
+    dt = cfg.dtype
+    b, s, _ = x.shape
+    hd, n_kv = cfg.head_dim, cfg.kv_heads
+    groups = cfg.n_heads // n_kv
+    ap = lp["attention"]
+    q = _proj(x, ap["wq"]["kernel"], dt).reshape(b, s, cfg.n_heads, hd)
+    k = _proj(x, ap["wk"]["kernel"], dt).reshape(b, s, n_kv, hd)
+    v = _proj(x, ap["wv"]["kernel"], dt).reshape(b, s, n_kv, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if attn_fn is not None:
+        out = attn_fn(q, k, v)
+    else:
+        # scores [B, Hkv, G, S, S] in the compute dtype, fp32 softmax
+        # under a -inf causal mask; GQA through a grouped query view.
+        qg = q.reshape(b, s, n_kv, groups, hd)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * hd ** -0.5
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                       device=x.device))
+        scores = scores.to(torch.float32).masked_fill(~causal, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return _proj(out, ap["wo"]["kernel"], dt)
+
+
+def _block(lp, x, cfg, cos, sin, constrain, attn_fn):
+    """Pre-norm residual block: attention then SwiGLU feed-forward."""
+    dt = cfg.dtype
+    h = x + constrain(_attention(
+        lp, _rmsnorm(x, lp["attention_norm"]["scale"], cfg.norm_eps),
+        cfg, cos, sin, attn_fn,
+    ))
+    ff = lp["feed_forward"]
+    y = _rmsnorm(h, lp["ffn_norm"]["scale"], cfg.norm_eps)
+    gate = _proj(y, ff["w1"]["kernel"], dt)
+    up = _proj(y, ff["w3"]["kernel"], dt)
+    return h + constrain(_proj(
+        torch.nn.functional.silu(gate) * up, ff["w2"]["kernel"], dt
+    ))
+
+
 def apply_llama(
     params: Dict[str, Any],
     tokens: torch.Tensor,
     cfg: LlamaConfig,
+    constrain: Constrain = _identity,
+    attn_fn: AttnFn = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """[B, S] int tokens -> [B, S, vocab] logits in cfg.dtype: the
-    no-cache causal forward (scores in the compute dtype, fp32 masked
-    softmax with -inf, GQA through a grouped query view with no
-    repeated K/V)."""
+    """[B, S] int tokens -> [B, S, vocab] logits in cfg.dtype (the loss
+    upcasts inside its reductions). ``positions`` [S]: global RoPE
+    position of each slot; None = 0..S-1. ``attn_fn`` None: the einsum
+    attention (scores in the compute dtype, fp32 softmax under a -inf
+    mask, GQA through a grouped query view with no repeated K/V)."""
     dt = cfg.dtype
-    b, s = tokens.shape
-    hd, n_kv = cfg.head_dim, cfg.kv_heads
-    groups = cfg.n_heads // n_kv
-    x = params["tok_embeddings"]["embedding"].to(dt)[tokens]
-    cos, sin = rope_cos_sin(s, hd, device=tokens.device)
-    causal = torch.tril(
-        torch.ones((s, s), dtype=torch.bool, device=tokens.device)
-    )
-    scale = hd ** -0.5
+    s = tokens.shape[1]
+    table = params["tok_embeddings"]["embedding"].to(dt)
+    if cfg.iota_embed:
+        x = _EmbedLookup.apply(table, tokens)
+    else:
+        x = table[tokens]
+    x = constrain(x)
+    cos, sin = rope_cos_sin(s, cfg.head_dim, positions=positions,
+                            device=tokens.device)
     for i in range(cfg.n_layers):
         lp = params[f"layers_{i}"]
-        ap = lp["attention"]
-        h = _rmsnorm(x, lp["attention_norm"]["scale"], cfg.norm_eps)
-        q = _proj(h, ap["wq"]["kernel"], dt).reshape(b, s, cfg.n_heads, hd)
-        k = _proj(h, ap["wk"]["kernel"], dt).reshape(b, s, n_kv, hd)
-        v = _proj(h, ap["wv"]["kernel"], dt).reshape(b, s, n_kv, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        qg = q.reshape(b, s, n_kv, groups, hd)
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
-        scores = scores.to(torch.float32).masked_fill(~causal, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-        out = out.reshape(b, s, cfg.n_heads * hd)
-        x = x + _proj(out, ap["wo"]["kernel"], dt)
-        h = _rmsnorm(x, lp["ffn_norm"]["scale"], cfg.norm_eps)
-        ff = lp["feed_forward"]
-        gate = _proj(h, ff["w1"]["kernel"], dt)
-        up = _proj(h, ff["w3"]["kernel"], dt)
-        x = x + _proj(
-            torch.nn.functional.silu(gate) * up, ff["w2"]["kernel"], dt
-        )
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_block, lp, x, cfg, cos, sin, constrain, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = _block(lp, x, cfg, cos, sin, constrain, attn_fn)
     x = _rmsnorm(x, params["norm"]["scale"], cfg.norm_eps)
     return _proj(x, params["output"]["kernel"], dt)
+
+
+def make_forward(
+    cfg: LlamaConfig,
+    constrain: Constrain = _identity,
+    attn_fn: AttnFn = None,
+    positions: Optional[torch.Tensor] = None,
+):
+    """Trainer-contract forward: next-token cross-entropy on (inputs,
+    targets) token batches (datasets.TokenStream);
+    ``forward(params, model_state, batch, step_rng) -> (loss,
+    model_state, aux)``."""
+    from tpu_hpc_torch.models.losses import cross_entropy
+
+    def forward(params, model_state, batch, step_rng):
+        inputs, targets = batch
+        logits = apply_llama(params, inputs, cfg, constrain, attn_fn,
+                             positions)
+        return cross_entropy(logits, targets), model_state, {}
+
+    return forward

@@ -21,20 +21,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from tpu_hpc_torch.checks.roofline import peak_flops_for_device
 from tpu_hpc_torch.models import llama2
-
-# Published dense bf16 peak of one H100 SXM (NVIDIA data sheet).
-H100_PEAK_BF16_FLOPS = 989e12
-
-
-def peak_flops_per_chip(device: torch.device) -> Optional[float]:
-    """Peak dense bf16 FLOP/s of ``device``: the H100's published peak
-    when the card names itself an H100, else None -- a serving "MFU"
-    against an unknown peak (or the CPU) would be noise, so the summary
-    omits it instead."""
-    if device.type == "cuda" and "H100" in torch.cuda.get_device_name(device):
-        return H100_PEAK_BF16_FLOPS
-    return None
 
 
 def tiny_config(vocab_size: int = 512) -> llama2.LlamaConfig:
@@ -116,7 +104,7 @@ def run_replay(
     summary = meter.summary(
         n_devices=1,
         n_params=llama2.count_params(cfg),
-        peak_flops_per_device=peak_flops_per_chip(device),
+        peak_flops_per_device=peak_flops_for_device(device),
     )
     summary.update(
         device={

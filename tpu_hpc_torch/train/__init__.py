@@ -1,3 +1,6 @@
-"""tpu_hpc_torch.train: only ``metrics.mfu`` so far (the serving meter
-divides by it). The training step, loop and optimizer are the next
-slice (ROADMAP)."""
+"""tpu_hpc_torch.train: the single-device training step and loop
+(``trainer``), its meters and MFU (``metrics``), and the bench-Llama
+entry point (``python -m tpu_hpc_torch.train``). Importing
+``tpu_hpc_torch.train.trainer`` sets
+``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False."""

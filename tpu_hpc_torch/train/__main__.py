@@ -1,0 +1,231 @@
+"""`python -m tpu_hpc_torch.train` -- the bench Llama's training run.
+
+Port of the single-device branch of the JAX package's
+``bench.py --workload llama`` (``bench_llama``): the bench architecture
+(``bench_model_cfg``: dim 1024, 8 layers, 8 heads, head_dim 128, vocab
+32000, seq 2048, ~168M params, bf16 compute, fp32 params) trained with
+AdamW (lr 3e-4, weight decay 0.1) on the synthetic ``TokenStream``, with
+bench.py's CLI defaults: microbatch 4 accumulated 8 times (a global
+batch of 32 sequences, 65,536 tokens per update), attention through
+``parallel.tp.make_tp_flash_attn_fn`` -> the flash kernels. Epoch 0
+absorbs the kernel build and warm-up; the last epoch is measured.
+
+Prints one JSON line: the device's name and count, tokens/s, MFU
+against the card's peak from ``checks/roofline.py`` (bench.py's
+formula: tokens/s x ``flops_per_token(seq)`` / peak), the loss of every
+update, the three flash kernels' launch counts and tile rows (null on
+the CPU, where no kernel runs), and the peak device memory. ``--device cpu`` with the model-size flags rehearses
+the run at a tiny size (the kernels' plain versions; no launches).
+Without ``--device cpu`` on a machine with no card it is an argparse
+error naming the missing device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional, Sequence
+
+import torch
+
+from tpu_hpc_torch.models import llama2
+
+
+def bench_model_cfg(seq_len: int = 2048, remat: bool = False,
+                    **overrides) -> llama2.LlamaConfig:
+    """THE bench architecture (bench.py:93-103); ``overrides`` shrink it
+    for a CPU rehearsal."""
+    fields = dict(dim=1024, n_layers=8, n_heads=8, vocab_size=32000,
+                  multiple_of=256, max_seq_len=seq_len, remat=remat)
+    fields.update({k: v for k, v in overrides.items() if v is not None})
+    return llama2.LlamaConfig(**fields)
+
+
+def resolve_batch_accum(batch, accum, microbatch: int = 4):
+    """bench.py's policy: with no --batch, the measured-best microbatch
+    accumulated 8x; with an explicit --batch and no --grad-accum-steps,
+    unaccumulated."""
+    if batch is None:
+        accum = 8 if accum is None else accum
+        return microbatch * max(accum, 1), accum
+    return batch, 1 if accum is None else accum
+
+
+# bench.py:278-292: the bench's optimizer; seed 0 for init and data.
+LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
+
+
+def build_trainer(
+    model_cfg: llama2.LlamaConfig,
+    *,
+    steps: int = 20,
+    epochs: int = 2,
+    batch: int = 32,
+    grad_accum_steps: int = 8,
+    attn: str = "flash",
+    moments_dtype: str = "float32",
+    device="cuda",
+):
+    """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
+    seeded random init, bench.py's AdamW, attention through
+    ``make_tp_flash_attn_fn`` (``attn="flash"``) or the model's einsum
+    path (``"reference"``). :func:`run_train` fits it; ``chip_smoke.py``
+    profiles one of its updates."""
+    from tpu_hpc_torch.config import TrainingConfig
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.parallel import tp
+    from tpu_hpc_torch.runtime import resolve_device
+    from tpu_hpc_torch.train.trainer import Trainer
+
+    device = resolve_device(device)
+    params = llama2.init_llama(
+        torch.Generator(device=device).manual_seed(SEED), model_cfg, device
+    )
+    attn_fn = tp.make_tp_flash_attn_fn(None) if attn == "flash" else None
+    cfg = TrainingConfig(
+        epochs=epochs, steps_per_epoch=steps, global_batch_size=batch,
+        learning_rate=LEARNING_RATE, weight_decay=WEIGHT_DECAY,
+        grad_accum_steps=grad_accum_steps, adam_moments_dtype=moments_dtype,
+        seed=SEED,
+    )
+    ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
+                              seq_len=model_cfg.max_seq_len, seed=SEED)
+    # The trainer keeps its own copy of the params.
+    return Trainer(cfg, None, llama2.make_forward(model_cfg, attn_fn=attn_fn),
+                   params, device=device), ds
+
+
+def run_train(
+    model_cfg: llama2.LlamaConfig,
+    *,
+    steps: int = 20,
+    epochs: int = 2,
+    batch: int = 32,
+    grad_accum_steps: int = 8,
+    attn: str = "flash",
+    moments_dtype: str = "float32",
+    device="cuda",
+) -> dict:
+    """Train ``model_cfg`` from a seeded random init for ``epochs`` x
+    ``steps`` updates and return the summary dict (the CLI prints it)."""
+    from tpu_hpc_torch.checks.roofline import peak_flops_for_device
+    from tpu_hpc_torch.kernels import attention
+
+    trainer, ds = build_trainer(
+        model_cfg, steps=steps, epochs=epochs, batch=batch,
+        grad_accum_steps=grad_accum_steps, attn=attn,
+        moments_dtype=moments_dtype, device=device,
+    )
+    device = trainer.device
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    launches0 = attention.kernel_launches()
+    result = trainer.fit(ds)
+    launches = {k: v - launches0[k]
+                for k, v in attention.kernel_launches().items()}
+    summary = result["epochs"][-1]
+    seq = model_cfg.max_seq_len
+    tokens_per_s = summary["items_per_s"] * seq
+    flops_per_token = model_cfg.flops_per_token(seq)
+    peak = peak_flops_for_device(device)
+    out = {
+        "metric": "llama2_train_tokens_per_s_per_chip",
+        "value": tokens_per_s,
+        "unit": "tokens/s/chip",
+        "device": {
+            "type": device.type,
+            "name": (torch.cuda.get_device_name(device)
+                     if device.type == "cuda" else "cpu"),
+            "count": 1,
+        },
+        "tokens_per_s": tokens_per_s,
+        "mfu": (tokens_per_s * flops_per_token / peak
+                if peak is not None else None),
+        "peak_flops": peak,
+        "flops_per_token": flops_per_token,
+        "update_s": summary["total_s"] / steps,
+        "final_loss": result["final_loss"],
+        "losses": [loss for e in result["epochs"] for loss in e["losses"]],
+        "updates": epochs * steps,
+        "global_batch": batch,
+        "grad_accum_steps": grad_accum_steps,
+        "seq_len": seq,
+        "n_params": llama2.count_params(model_cfg),
+        "model": {"dim": model_cfg.dim, "n_layers": model_cfg.n_layers,
+                  "n_heads": model_cfg.n_heads,
+                  "kv_heads": model_cfg.kv_heads,
+                  "vocab_size": model_cfg.vocab_size,
+                  "dtype": str(model_cfg.dtype).replace("torch.", ""),
+                  "remat": model_cfg.remat},
+        "attn": attn,
+        "kernel_launches": launches,
+        "flash_tile_rows": (attention.flash_tile_rows(model_cfg.dtype)
+                            if attn == "flash" and device.type == "cuda"
+                            else None),
+        "goodput": result["goodput"],
+    }
+    if device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="tpu_hpc_torch.train",
+        description=__doc__.split("\n")[0],
+        allow_abbrev=False,
+    )
+    ap.add_argument("--steps", type=int, default=20,
+                    help="optimizer updates per epoch")
+    ap.add_argument("--epochs", type=int, default=2,
+                    help="epochs; the first absorbs build and warm-up, "
+                    "the last is measured")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default: microbatch 4 x accum)")
+    ap.add_argument("--grad-accum-steps", type=int, default=None,
+                    help="microbatches per update (default 8 with no "
+                    "--batch, else 1)")
+    ap.add_argument("--seq-len", type=int, default=2048)
+    ap.add_argument("--attn", choices=("flash", "reference"),
+                    default="flash",
+                    help="flash: the Hopper kernels through "
+                    "make_tp_flash_attn_fn; reference: the model's einsum "
+                    "attention")
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--moments-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where to train (default cuda; a missing card is "
+                    "an error, never a silent CPU run)")
+    for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
+        ap.add_argument(f"--{flag}", type=int, default=None,
+                        help="model-size override (CPU rehearsals)")
+    args = ap.parse_args(argv)
+
+    from tpu_hpc_torch.runtime import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    batch, accum = resolve_batch_accum(args.batch, args.grad_accum_steps)
+    model_cfg = bench_model_cfg(
+        args.seq_len, args.remat, dim=args.dim, n_layers=args.n_layers,
+        n_heads=args.n_heads, vocab_size=args.vocab,
+        multiple_of=args.multiple_of,
+    )
+    if batch % max(accum, 1):
+        ap.error(f"--batch {batch} is not divisible by the accumulation "
+                 f"{accum}")
+    summary = run_train(
+        model_cfg, steps=args.steps, epochs=args.epochs, batch=batch,
+        grad_accum_steps=accum, attn=args.attn,
+        moments_dtype=args.moments_dtype, device=device,
+    )
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
