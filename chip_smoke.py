@@ -28,11 +28,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     scaled_dot_product_attention; and in fp16), the 70B
                     attention dims (64 query heads over 8 KV heads), S
                     1000 with q_offset 512, S 1000 with rows that see no
-                    key, non-causal cross attention, and a float32 case.
-                    Controls at the training shape: outputs with their
-                    last rows or keys zeroed must be rejected; two
-                    forwards that round at the wrong place must be
-                    rejected too.
+                    key, non-causal cross attention, a ragged GQA case
+                    that crosses the backward kernels' 128-row tiles
+                    (S 1100, 16 query heads over 2 KV heads, q_offset
+                    300), and a float32 case. Controls at the training
+                    shape: outputs with their last rows or keys zeroed
+                    must be rejected; two forwards that round at the
+                    wrong place must be rejected too. dq, dk and dv must
+                    come out bit-identical from a second launch on the
+                    same inputs (no atomics).
   5. serve       -- run_replay on Llama-2-7B at full width and depth
                     (seeded random weights, bf16, paged pool, the CUDA
                     kernels): 16 requests of 100-500 prompt tokens, 32
@@ -111,6 +115,32 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Mangled template arguments the kernels take, and their short names.
+MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("6__half", "f16"),
+                 ("f", "f32"), ("a", "int8"))
+
+
+def template_args(mangled: str) -> str:
+    """A kernel's mangled template arguments, readable: element types and
+    integers (``13__nv_bfloat16Li128E`` -> ``bf16, 128``); anything else
+    is kept as it stands."""
+    out = []
+    while mangled:
+        for code, name in MANGLED_TYPES:
+            if mangled.startswith(code):
+                out.append(name)
+                mangled = mangled[len(code):]
+                break
+        else:
+            n = re.match(r"Li(\d+)E", mangled)
+            if not n:
+                out.append(mangled)
+                break
+            out.append(n.group(1))
+            mangled = mangled[n.end():]
+    return ", ".join(out)
+
+
 def ptxas_summary(log: str) -> list:
     """Registers, spills and static shared memory per compiled kernel,
     from nvcc's -Xptxas -v report."""
@@ -118,10 +148,10 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:paged|flash)_\w+?_kernel)I(\w+?)EEv",
+            k = re.search(r"(?<=\d)((?:paged|flash)_\w+?_kernel)I(\w+?)EEv",
                           m.group(1))
-            cur = {"kernel": f"{k.group(1)}<{k.group(2)}>" if k
-                   else m.group(1)}
+            cur = {"kernel": f"{k.group(1)}<{template_args(k.group(2))}>"
+                   if k else m.group(1)}
             rows.append(cur)
             continue
         if cur is None:
@@ -384,6 +414,8 @@ FLASH_CASES = (
      "bfloat16", False),
     ("non_causal_cross", 2, 1000, 1500, 8, 8, 128, False, 0, 0, "bfloat16",
      False),
+    ("ragged_gqa_tiles", 2, 1100, 1100, 16, 2, 128, True, 300, 0, "bfloat16",
+     False),
     ("float32", 1, 1000, 1000, 8, 8, 128, True, 0, 0, "float32", False),
 )
 
@@ -485,6 +517,21 @@ def flash_controls(torch, q, k, v, got, want) -> None:
                              f"accepts a wrong output ({r})")
 
 
+def flash_determinism(torch, fa, bargs, kw, got) -> None:
+    """dq, dk and dv from a second launch on the same inputs must equal
+    the first bit for bit: the backward kernels sum in a fixed order,
+    with no atomics."""
+    dq = fa.flash_attention_dq(*bargs, **kw)
+    dk, dv = fa.flash_attention_dkv(*bargs, **kw)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(a, got[name]))
+            for name, a in (("dq", dq), ("dk", dk), ("dv", dv))}
+    emit("flash_determinism", dtype=str(got["dq"].dtype)[6:], **same)
+    if not all(same.values()):
+        raise SystemExit(f"flash backward not bit-identical across "
+                         f"launches: {same}")
+
+
 def library_flash(torch, q, k, v, dout, causal):
     """scaled_dot_product_attention forward, and its autograd backward
     (dq, dk, dv together), on the same inputs in its [B, H, S, D]
@@ -542,6 +589,7 @@ def flash_phase(torch, dev) -> dict:
         want = {"out": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv}
         if name == "train_main":
             flash_controls(torch, q, k, v, got, want)
+            flash_determinism(torch, fa, bargs, kw, got)
         work = flash_work(case)
         outputs = {
             "flash_attention_fwd": (
@@ -584,7 +632,7 @@ def flash_phase(torch, dev) -> dict:
                     else "sdpa autograd backward (dq, dk, dv together)",
                     bound_ms=bound_ms, bound_by=bound_by,
                     bytes=nb, flops=fl,
-                    tile_rows=fa.flash_tile_rows(dtype),
+                    tile_rows=fa.flash_tile_rows(kname, dtype),
                 )
                 main_rows[kname] = row
             emit("flash", **row)

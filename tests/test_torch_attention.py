@@ -153,3 +153,14 @@ def test_dispatch_rules():
             ta.blockwise_attention(*_t(q6, k4, v4), impl=impl)
     with pytest.raises(ValueError, match="host ints"):
         ta.flash_attention_fwd(tq, tk, tv, torch.tensor(0, device="meta"))
+
+
+def test_flash_tile_rows_checks_its_arguments_before_the_library():
+    """The per-kernel tile-rows query names one of the three wrappers
+    (in the C interface's kernel order) and a flash dtype; both are
+    checked before the library is built, so a bad call fails on CPU."""
+    assert ta.FLASH_KERNELS == tuple(ta.kernel_launches())
+    with pytest.raises(ValueError, match="no flash kernel"):
+        ta.flash_tile_rows("flash_attention_bwd", torch.bfloat16)
+    with pytest.raises(TypeError, match="flash kernels take no"):
+        ta.flash_tile_rows("flash_attention_dq", torch.float64)

@@ -8,8 +8,10 @@ Each test decides inside the ``cuda`` fixture whether a card is present
 and skips with a reason where there is none. The forward, dq and dk/dv
 kernels (csrc/flash_attention.cu) are held against their plain PyTorch
 versions on the same inputs: ragged lengths that cross tiles, q/kv
-offsets, GQA, rows with no visible key, non-causal cross attention;
-bf16, fp16 and float32. This file imports no JAX.
+offsets, GQA, rows with no visible key, non-causal cross attention,
+sequences just under and over the backward kernels' 128-row tiles, head
+dims 32, 64, 80 and 128; bf16, fp16 and float32. This file imports no
+JAX.
 
 Tolerances: ``tpu_hpc_torch/checks/tolerance.py``, the rule
 ``chip_smoke.py`` holds the kernels to. Every element is bounded by a
@@ -44,6 +46,16 @@ CASES = [
     ("gqa_group4", 2, 96, 96, 8, 2, 64, True, 0, 0),
     ("fully_masked_rows", 1, 100, 100, 2, 2, 128, True, 0, 40),
     ("non_causal_cross", 2, 70, 150, 4, 4, 128, False, 0, 0),
+    # Around the backward kernels' 128-row / 128-key blocks and 64-row
+    # streamed tiles, and their two head-dim variants (64, 128).
+    ("tiles_127", 1, 127, 127, 2, 2, 64, True, 0, 0),
+    ("tiles_129", 1, 129, 129, 2, 2, 64, True, 0, 0),
+    ("tiles_257", 2, 257, 257, 2, 2, 128, True, 0, 0),
+    ("keys_shorter_than_a_tile", 2, 150, 40, 4, 4, 64, True, 0, 0),
+    ("head_dim_80", 1, 200, 200, 4, 2, 80, True, 0, 0),
+    ("head_dim_32", 1, 200, 200, 4, 4, 32, True, 0, 0),
+    ("gqa_group8", 1, 300, 300, 16, 2, 64, True, 0, 0),
+    ("odd_offsets", 1, 150, 260, 4, 2, 64, True, 100, 37),
 ]
 
 
@@ -96,6 +108,23 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
         assert not dq[~live].any()
     n1 = ta.kernel_launches()
     assert all(n1[name] == n0[name] + 1 for name in n1), (n0, n1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
+    """No atomics: dq, dk and dv from two launches on the same inputs are
+    equal bit for bit (GQA, ragged, offsets)."""
+    case = ("repeat", 2, 300, 300, 8, 2, 128, True, 37, 0)
+    q, k, v, dout, dlse = _inputs(cuda, dtype, case, seed=2)
+    out, lse = ta.flash_attention_fwd_ref(q, k, v, 37, 0)
+    dm = (dout.float() * out.float()).sum(-1) - dlse
+    args = (q, k, v, dout, lse, dm, 37, 0)
+    first = (ta.flash_attention_dq(*args), *ta.flash_attention_dkv(*args))
+    second = (ta.flash_attention_dq(*args), *ta.flash_attention_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -137,7 +137,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_flash_dq.restype = i
     lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 9 + [f, i, p]
     lib.tpuhpc_flash_dkv.restype = i
-    lib.tpuhpc_flash_tile_rows.argtypes = [i]
+    lib.tpuhpc_flash_tile_rows.argtypes = [i, i]  # (kernel, dtype code)
     lib.tpuhpc_flash_tile_rows.restype = i
     lib.tpuhpc_error_string.argtypes = [i]
     lib.tpuhpc_error_string.restype = ctypes.c_char_p

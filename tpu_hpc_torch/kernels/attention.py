@@ -26,8 +26,8 @@ row gives out = 0, lse = MASK_VALUE and zero, NaN-free gradients.
 ``q_offset`` / ``kv_offset`` are runtime integers handed to the
 kernels, so one build serves every ring step. The TPU's ``block_q`` /
 ``block_k`` arguments and ``pick_block_sizes``' 128-lane rule are not
-ported: the Hopper kernels pick their own tiles (:func:`flash_tile_rows`
-reads them from the built library).
+ported: the Hopper kernels pick their own tiles, per kernel and dtype
+(:func:`flash_tile_rows` reads them from the built library).
 """
 from __future__ import annotations
 
@@ -465,15 +465,26 @@ def blockwise_attention(
     raise ValueError(f"unknown attention impl: {impl!r}")
 
 
-def flash_tile_rows(dtype: torch.dtype) -> int:
-    """Rows of the q and k tiles the built kernels use for ``dtype``
-    (``Tile<T>::kRows`` of csrc/flash_attention.cu), read from the
-    library; builds it when needed, so call it only with a card."""
+# The three flash kernels' wrappers, in the order of the C interface's
+# kernel codes (tpuhpc_flash_tile_rows).
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv")
+
+
+def flash_tile_rows(kernel: str, dtype: torch.dtype) -> int:
+    """Rows a block of ``kernel`` (a name of :data:`FLASH_KERNELS`) owns
+    for ``dtype`` -- q rows for the forward and dq, keys for dk/dv -- read
+    from the library (csrc/flash_attention.cu); builds it when needed, so
+    call it only with a card."""
     from tpu_hpc_torch.kernels import _build
 
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(
+            f"no flash kernel {kernel!r}; one of {FLASH_KERNELS}")
     if dtype not in FLASH_DTYPES:
         raise TypeError(f"flash kernels take no {dtype}")
-    return _build.load_library().tpuhpc_flash_tile_rows(DTYPE_CODES[dtype])
+    return _build.load_library().tpuhpc_flash_tile_rows(
+        FLASH_KERNELS.index(kernel), DTYPE_CODES[dtype])
 
 
 def kernel_launches() -> dict:
@@ -487,6 +498,7 @@ def kernel_launches() -> dict:
 
 __all__ = [
     "FLASH_DTYPES",
+    "FLASH_KERNELS",
     "MASK_VALUE",
     "attention_reference",
     "blockwise_attention",

@@ -160,7 +160,8 @@ def run_train(
                   "remat": model_cfg.remat},
         "attn": attn,
         "kernel_launches": launches,
-        "flash_tile_rows": (attention.flash_tile_rows(model_cfg.dtype)
+        "flash_tile_rows": ({k: attention.flash_tile_rows(k, model_cfg.dtype)
+                             for k in attention.FLASH_KERNELS}
                             if attn == "flash" and device.type == "cuda"
                             else None),
         "goodput": result["goodput"],
