@@ -18,8 +18,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     slots, 64-page views, ragged positions, one inactive
                     slot) and at a GQA shape (8 KV heads, group 8: the
                     70B attention dims), with bf16 and int8 pools whose
-                    dead and scratch pages are NaN. Times from CUDA
-                    events.
+                    dead and scratch pages are NaN. Every row names the
+                    kernel the library routed it to (the prefill has a
+                    wgmma route for 16-bit pools and a scalar one for
+                    the rest); prefill outputs must also pass
+                    checks/tolerance.py's bf16 rule, and at the 7B shape
+                    the output computed without the chunk's last live
+                    page must fail it. Times from CUDA events over
+                    back-to-back calls (``ms``, which a short kernel's
+                    Python wrapper can set) and the kernel's own device
+                    time from torch.profiler (``device_ms``).
   4. flash       -- the flash-attention forward, dq and dk/dv kernels
                     against their plain versions under the per-element,
                     per-row-scaled rule of checks/tolerance.py: the
@@ -77,8 +85,8 @@ import sys
 import time
 
 TOL = 2e-2  # bf16 output rounding (2^-8 relative) on O(1) values
-# Flash kernels: tpu_hpc_torch/checks/tolerance.py's rule, per element
-# and scaled by each row's own magnitude (see there).
+# Flash kernels and the paged prefill: tpu_hpc_torch/checks/tolerance.py's
+# rule, per element and scaled by each row's own magnitude (see there).
 PAGED_SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
 SOURCES = {
@@ -183,6 +191,29 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time (ms) per call of the kernels whose names contain
+    ``kernel``, from torch.profiler over ``iters`` calls after a warm-up
+    call: the kernel's own time, without its wrapper's host time. None
+    if the profiler recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    if not events:
+        return None
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 CHIP = None  # the card's row of tpu_hpc_torch/checks/roofline.py
@@ -335,8 +366,30 @@ def library_prefill(torch, args, kw):
     return lambda: sdpa(qq, kv[0], kv[1], attn_mask=mask)
 
 
-def kernel_phase(torch, dev, lib) -> dict:
+def prefill_control(torch, args, kw, want) -> None:
+    """The 7B chunk's output computed without the chunk's last live page
+    (a kernel that stops one page short), held to the rule the kernel is
+    held to: it must be rejected."""
+    from tpu_hpc_torch.checks.tolerance import compare
     from tpu_hpc_torch.kernels import paged_attention as pa
+
+    q, _, _, _, start = args
+    ctx_pages = (start + q.shape[1] - 1) // kw["block_size"] + 1
+    short = dict(kw, max_blocks=ctx_pages - 1)
+    bad = pa.paged_prefill_attention_ref(*args, **short)
+    r = compare(bad, want, torch.bfloat16)
+    emit("kernels_control", control="prefill_without_last_live_page",
+         start=start, rejected=not r["ok"],
+         **{k: v for k, v in r.items() if k != "ok"})
+    if r["ok"]:
+        raise SystemExit(f"prefill control: the tolerance accepts an "
+                         f"output without the last live page ({r})")
+
+
+def kernel_phase(torch, dev, lib) -> dict:
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.kernels.attention import DTYPE_CODES
 
     main_rows = {}
     cases = []
@@ -351,11 +404,14 @@ def kernel_phase(torch, dev, lib) -> dict:
         if kname == "paged_decode_attention":
             args, kw, (nb, fl) = decode_case(torch, dev, hkv, g, quant)
             fn, ref = pa.paged_decode_attention, pa.paged_decode_attention_ref
-            library = library_decode
+            library, kernel_name = library_decode, "paged_decode"
+            route = "scalar"
         else:
             args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, quant, start)
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
-            library = library_prefill
+            library, kernel_name = library_prefill, "paged_prefill"
+            route = pa.paged_prefill_route(args[0].dtype, args[1].dtype,
+                                           args[0].shape[3], kw["block_size"])
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         want = ref(*args, **kw)
@@ -371,19 +427,27 @@ def kernel_phase(torch, dev, lib) -> dict:
             raise SystemExit(f"{kname}: inactive slot not exact zeros")
         row = {
             "kernel": kname, "shape": shape_name,
-            "pool": "int8" if quant else "bfloat16",
+            "pool": "int8" if quant else "bfloat16", "route": route,
             "max_abs_err": err, "tolerance": TOL,
         }
         if start is not None:
-            row["start"] = start
-            row["tile_rows"] = lib.tpuhpc_prefill_tile_rows(
-                hkv, args[0].shape[1], g, args[0].shape[3], kw["block_size"]
-            )
+            readings = compare(out, want, torch.bfloat16)
+            row.update(start=start, readings=readings, tile_rows=(
+                lib.tpuhpc_prefill_tile_rows(
+                    hkv, args[0].shape[1], g, args[0].shape[3],
+                    kw["block_size"], DTYPE_CODES[args[0].dtype],
+                    DTYPE_CODES[args[1].dtype])))
+            if not readings["ok"]:
+                raise SystemExit(f"{kname} {shape_name} quant={quant} start="
+                                 f"{start}: outside the bf16 rule {readings}")
+            if shape_name == "7b" and not quant and start == 256:
+                prefill_control(torch, args, kw, want)
         timed = start in (None, 256)
         if timed:
             bound_ms, bound_by = bound(nb, fl, args[0].dtype)
             row.update(
                 ms=time_ms(lambda: fn(*args, **kw), iters=50),
+                device_ms=device_ms(lambda: fn(*args, **kw), kernel_name),
                 plain_ms=time_ms(lambda: ref(*args, **kw), iters=5, warmup=1),
                 library_ms=time_ms(library(torch, args, kw), iters=50),
                 bound_ms=bound_ms, bound_by=bound_by,

@@ -7,20 +7,25 @@ Run on a machine with an NVIDIA H100:
 Each test decides inside the ``cuda`` fixture whether a card is
 present, and skips with a reason where there is none. The kernels are
 built from tpu_hpc_torch/csrc at the first launch and held against
-their plain PyTorch versions at small shapes (head_dim 128, 16-token
-pages, GQA group 4); dead table entries point at NaN pages, so a read
-of a dead page poisons the output. This file imports no JAX: the card
-machine need not have it.
+their plain PyTorch versions at small shapes (head_dim 64 and 128, pages
+of 8 to 128 tokens, GQA groups 1 to 8); dead table entries point at NaN
+pages, so a read of a dead page poisons the output. The prefill tests
+also assert which kernel the library routes each launch to. This file
+imports no JAX: the card machine need not have it.
 
 Tolerance ``2e-2``: bf16 outputs of O(1) attention values against the
 plain version's fp32 arithmetic on the same inputs -- the output's bf16
-rounding (2^-8 relative) dominates. Float32 engines must agree on every
-greedy token.
+rounding (2^-8 relative) dominates. Prefill outputs whose q and pool
+share a 16-bit dtype must also pass tpu_hpc_torch/checks/tolerance.py's
+rule for that dtype (the flash kernels' rule: the wgmma kernel rounds P
+to the pool's dtype before P.V, as the Pallas kernel does). Float32
+engines must agree on every greedy token.
 """
 import numpy as np
 import pytest
 import torch
 
+from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
 from tpu_hpc_torch.kernels import paged_attention as pa
 from tpu_hpc_torch.models import llama2
 from tpu_hpc_torch.serve import (
@@ -69,7 +74,8 @@ def _pool(dev, kp, vp, pool):
         k, ksc = pa.quantize_pages_int8(k)
         v, vsc = pa.quantize_pages_int8(v)
         return k, v, dict(k_scale=ksc, v_scale=vsc)
-    return k.to(torch.bfloat16), v.to(torch.bfloat16), {}
+    dtype = getattr(torch, pool)
+    return k.to(dtype), v.to(dtype), {}
 
 
 @pytest.mark.gpu
@@ -91,24 +97,49 @@ def test_decode_kernel_matches_plain(cuda, pool):
     assert not got[args[5] == 0].any()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
-@pytest.mark.parametrize("start", [0, 40])
-def test_prefill_kernel_matches_plain(cuda, pool, start):
-    rng = np.random.default_rng(71 + start)
-    hkv, bucket, g, d, bs, mb = 2, 32, 4, 128, 16, 6
-    _, kp, vp, _, _, _ = _case(rng, hkv=hkv, g=g, d=d, bs=bs, mb=mb)
+# Pool kinds of the prefill tests: (pool dtype, q dtype, the kernel the
+# library must route the launch to).
+PREFILL_POOLS = {
+    "bfloat16": ("bfloat16", torch.bfloat16, "wgmma"),
+    "float16": ("float16", torch.float16, "wgmma"),
+    "int8": ("int8", torch.bfloat16, "scalar"),
+    "float32": ("float32", torch.float32, "scalar"),
+    "bf16_q_over_f16_pool": ("float16", torch.bfloat16, "scalar"),
+}
+
+
+def _prefill(dev, kind, *, hkv=2, bucket=32, g=4, d=128, bs=16, start=0,
+             seed=0):
+    """A chunk of ``bucket`` positions at ``start`` over one table row:
+    live pages up to the chunk's last row, then dead entries that point
+    at a NaN page -- as does every row of the last 64-key tile past the
+    live pages, so a kernel that reads a page past the limit, or feeds
+    an unloaded row into P.V, poisons its output."""
+    rng = np.random.default_rng(seed)
+    pool, q_dtype, route = PREFILL_POOLS[kind]
     ctx_pages = (start + bucket - 1) // bs + 1
-    table = np.full(mb + 2, kp.shape[0] - 1, np.int32)
+    mb = ctx_pages + 2
+    num_blocks = mb + 8
+    shape = (num_blocks, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    kp[-1] = vp[-1] = np.nan
+    table = np.full(mb + 2, num_blocks - 1, np.int32)
     table[:ctx_pages] = rng.choice(
-        np.arange(1, kp.shape[0] - 1), size=ctx_pages, replace=False
+        np.arange(1, num_blocks - 1), size=ctx_pages, replace=False
     )
-    k, v, scales = _pool(cuda, kp, vp, pool)
+    k, v, scales = _pool(dev, kp, vp, pool)
     q = torch.from_numpy(
         rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
-    ).to(cuda, torch.bfloat16)
-    args = (q, k, v, torch.from_numpy(table).to(cuda), start)
-    kw = dict(block_size=bs, max_blocks=mb, **scales)
+    ).to(dev, q_dtype)
+    args = (q, k, v, torch.from_numpy(table).to(dev), start)
+    return args, dict(block_size=bs, max_blocks=mb, **scales), route
+
+
+def _check_prefill(args, kw, route):
+    q, k = args[0], args[1]
+    assert pa.paged_prefill_route(q.dtype, k.dtype, q.shape[-1],
+                                  kw["block_size"]) == route
     n0 = pa.paged_prefill_attention.launches
     got = pa.paged_prefill_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -116,6 +147,42 @@ def test_prefill_kernel_matches_plain(cuda, pool, start):
     want = pa.paged_prefill_attention_ref(*args, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    if q.dtype == k.dtype and q.dtype in TOLERANCES:
+        readings = compare(got, want, q.dtype)
+        assert readings["ok"], readings
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", list(PREFILL_POOLS))
+@pytest.mark.parametrize("start", [0, 40])
+def test_prefill_kernel_matches_plain(cuda, pool, start):
+    """Every pool kind, on the route the library reports: 16-bit q and
+    pool of one dtype take the wgmma kernel; float32, int8 pools and
+    mixed dtypes keep the scalar kernel."""
+    _check_prefill(*_prefill(cuda, pool, start=start, seed=71 + start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_prefill_wgmma_kernel_shapes(cuda, bs, g, d, pool):
+    """The wgmma prefill over page sizes that stack 8, 4, 2 or 1 pages
+    into a 64-key tile, query groups, both head-dim variants, at a start
+    that is not page-aligned."""
+    _check_prefill(*_prefill(cuda, pool, g=g, d=d, bs=bs, start=40,
+                             seed=bs + g + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 40])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_prefill_wgmma_kernel_ragged_rows(cuda, bs, start):
+    """bucket * g = 40 rows: one 64-row tile, partly past the end; pages
+    of 128 keys are read as two 64-key tiles."""
+    _check_prefill(*_prefill(cuda, "bfloat16", bucket=40, g=1, bs=bs,
+                             start=start, seed=90 + bs))
 
 
 @pytest.mark.gpu

@@ -7,7 +7,7 @@ Run on a machine with an NVIDIA H100:
 Each test decides inside the ``cuda`` fixture whether a card is present
 and skips with a reason where there is none. The forward, dq and dk/dv
 kernels (csrc/flash_attention.cu) are held against their plain PyTorch
-versions on the same inputs: ragged lengths that cross tiles, q/kv
+versions on the same inputs, every case through all three: ragged lengths that cross tiles, q/kv
 offsets, GQA, rows with no visible key, non-causal cross attention,
 sequences just under and over the backward kernels' 128-row tiles, head
 dims 32, 64, 80 and 128; bf16, fp16 and float32. This file imports no
@@ -125,6 +125,25 @@ def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_forward_fully_masked_rows_exact_and_repeatable(cuda, dtype):
+    """Rows that see no key (kv_offset past them) give out exactly 0 and
+    lse exactly MASK_VALUE, and two forward launches agree bit for bit
+    (GQA, a ragged end, rows on both sides of the limit in one tile)."""
+    case = ("masked", 2, 300, 200, 8, 2, 128, True, 0, 150)
+    q, k, v, _, _ = _inputs(cuda, dtype, case, seed=3)
+    first = ta.flash_attention_fwd(q, k, v, 0, 150)
+    second = ta.flash_attention_fwd(q, k, v, 0, 150)
+    torch.cuda.synchronize()
+    out, lse = first
+    assert (lse[:, :150] == ta.MASK_VALUE).all()
+    assert not out[:, :150].any()
+    assert (lse[:, 150:] > ta.MASK_VALUE * 0.5).all()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -11,7 +11,12 @@ would poison the output.
 
 Tolerance: float32 pools at ``atol 2e-5 / rtol 1e-5`` -- the two sides
 sum in different orders (an online softmax page by page against one
-softmax over the whole view), nothing else differs.
+softmax over the whole view), nothing else differs. bf16 pools (the
+serving path's working dtype): ``tpu_hpc_torch/checks/tolerance.py``'s
+bf16 rule, the one the card holds the kernels to -- the Pallas kernel
+rounds P to the pool's bf16 before P.V (paged_attention.py:297-301)
+while the plain version keeps P in fp32, and both round the output to
+bf16.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_gpu.py. JAX is imported through
@@ -28,6 +33,7 @@ jnp = jax.numpy
 from tpu_hpc.kernels import attention as jax_attention
 from tpu_hpc.kernels import paged_attention as jax_pa
 from tpu_hpc.serve.paging import SCRATCH_BLOCK as JAX_SCRATCH_BLOCK
+from tpu_hpc_torch.checks.tolerance import compare
 from tpu_hpc_torch.kernels import attention as pt_attention
 from tpu_hpc_torch.kernels import paged_attention as pt_pa
 from tpu_hpc_torch.serve.paging import SCRATCH_BLOCK
@@ -185,6 +191,32 @@ def test_prefill_matches_pallas_kernel(start, g):
     ).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("start", [0, 5])
+def test_prefill_bf16_pool_matches_pallas_kernel(start, g):
+    """q and pool in bf16: the Pallas kernel's bf16 matmuls against the
+    port's plain version on the same bf16 values."""
+    rng = np.random.default_rng(80 + start + g)
+    hkv, bucket, d, bs, mb = 2, 8, 16, 4, 6
+    _, kp, vp, _, _, _ = _random_case(rng, g=g)
+    table = _table_row(rng, kp.shape[0], mb, -(-(start + bucket) // bs))
+    q = rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
+    qb, kb, vb = (_t(a).to(torch.bfloat16) for a in (q, kp, vp))
+    want = jax_pa.paged_prefill_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (qb, kb, vb)),
+        jnp.asarray(table), jnp.asarray(start, jnp.int32),
+        block_size=bs, max_blocks=mb, interpret=True,
+    )
+    assert want.dtype == jnp.bfloat16
+    got = pt_pa.paged_prefill_attention(
+        qb, kb, vb, _t(table), start, block_size=bs, max_blocks=mb,
+    )
+    assert got.dtype == torch.bfloat16
+    readings = compare(got, _t(np.asarray(want, np.float32)), torch.bfloat16)
+    assert readings["ok"], readings
 
 
 def test_prefill_int8_pool_matches_pallas_kernel():

@@ -3,8 +3,10 @@
 // Three kernels, each replacing one Pallas kernel of the JAX package's
 // tpu_hpc/kernels/attention.py:
 //
-//   flash_fwd_kernel  replaces _flash_kernel (launched by _flash_forward):
+//   forward           replaces _flash_kernel (launched by _flash_forward):
 //                     out and the per-row log-sum-exp, online softmax.
+//                     flash_fwd_wgmma_kernel for bf16 / fp16,
+//                     flash_fwd_kernel for float32.
 //   dq                replaces _flash_dq_kernel (launched by
 //                     _flash_backward): dq = scale * dS . K.
 //                     flash_dq_wgmma_kernel for bf16 / fp16,
@@ -44,92 +46,52 @@
 // the tensor cores' rate, and how much of the time they are fed, set
 // the time.
 //
-// The 16-bit backward kernels are built for that (PERF.md): every
-// product is a warpgroup wgmma (sm_90a) whose fp32 accumulator stays in
-// registers -- S and dP for one tile, dQ (or dK and dV) for the whole
-// walk -- and P and dS are built in those registers and fed straight
-// back as the A operand of the next product, so no score, probability
-// or gradient tile touches shared memory. Two warpgroups of 64 rows
-// share a block of 128 rows (keys in dk/dv); the streamed tiles (K and
-// V in dq; Q, dO in dk/dv) come by TMA, 128-byte swizzled as wgmma's
-// descriptors read them, through a two-stage ring: the next tile's copy
-// is in flight while this tile's products run, and one barrier per tile
-// frees its stage. The head dim is a compile-time 64 or 128; a smaller
-// d reads TMA's zero fill past its columns. What still holds them back:
-// no producer warp and no overlap of one warpgroup's softmax with its
-// own products (the other warpgroup's products fill that gap only in
-// part), and 64-row streamed tiles.
+// The 16-bit kernels are built for that (PERF.md): every product is a
+// warpgroup wgmma (sm_90a) whose fp32 accumulator stays in registers --
+// S (and dP) for one tile, O (or dQ, or dK and dV) for the whole walk --
+// and P and dS are built in those registers and fed straight back as the
+// A operand of the next product, so no score, probability or gradient
+// tile touches shared memory. Two warpgroups of 64 rows share a block of
+// 128 rows (keys in dk/dv); the streamed tiles (K and V in the forward
+// and dq; Q, dO in dk/dv) come by TMA, 128-byte swizzled as wgmma's
+// descriptors read them, through a ring of stages; the helpers and the
+// forward's online-softmax walk live in hopper.cuh, shared with the
+// paged prefill. The head dim is a compile-time 64 or 128; a smaller d
+// reads TMA's zero fill past its columns.
 //
-// The forward (WMMA 16x16x16 fragments, running accumulators in shared
-// memory between products, cp.async copies not overlapped with compute)
-// and every float32 kernel (the same walk on scalar fp32 FMAs, half-size
-// tiles: wgmma has no fp32 operand) keep the first, simple design; the
-// forward's redesign is queued (ROADMAP queue 2).
+// The forward goes furthest: a producer warp keeps a four-stage K/V
+// ring in flight behind per-stage full / empty mbarriers, so the two
+// consumer warpgroups never meet at a block barrier, and each issues
+// the next tile's Q . K^T before this tile's P . V, so its softmax runs
+// while its own products do. The backward kernels still load from a
+// thread of the consumers through a two-stage ring with one block
+// barrier per tile, and wait for their own products (wgmma.wait_group 0)
+// before each softmax; dk/dv's 240 registers leave no room for a second
+// S / dP pair.
+//
+// Float32 inputs keep the first, simple design (the same walks on
+// scalar fp32 FMAs over shared memory, 32-row tiles: wgmma has no fp32
+// operand).
 //
 // Plain C interface, loaded with ctypes by tpu_hpc_torch/kernels/_build.py
 // (tpuhpc_error_string lives in paged_attention.cu, in the same
 // library). Every entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
-// kernels/attention.py MASK_VALUE.
-constexpr float kMaskValue = -1e30f;
-
-// dtype codes shared with kernels/attention.py::DTYPE_CODES.
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
-
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // float32 kernels
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSmem = 232448;  // 227 KB a block may opt in to
 constexpr int kMaxHeadDim = 128;
-constexpr int kFPad = 4;  // fp32 rows: WMMA accumulator ldm % 4 == 0
+constexpr int kFPad = 4;  // fp32 accumulator rows padded to d + 4
 
-// Tile rows (q rows and k rows alike) and the shared-memory row padding
-// of the input-typed tiles, for the forward and the float32 backward
-// (the 16-bit backward's tiles are kBwdRows / kBwdStep below). 16-bit
-// inputs: 64-row tiles, rows padded by 8 elements (WMMA wants ldm % 8
-// == 0; the pad spreads rows over banks). Float32: 32-row tiles, rows
-// padded by one element so the scalar products' column walks hit
-// distinct banks.
-template <typename T>
-struct Tile {
-  static constexpr int kRows = 64;
-  static constexpr int kPad = 8;
-};
-template <>
-struct Tile<float> {
-  static constexpr int kRows = 32;
-  static constexpr int kPad = 1;
-};
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// Float32 kernels: tile rows (q rows and k rows alike) and the row
+// padding of the input tiles, one element so the scalar products'
+// column walks hit distinct banks.
+constexpr int kF32Rows = 32;
+constexpr int kF32Pad = 1;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -146,46 +108,16 @@ __device__ __forceinline__ bool visible(int row, int col, int sk,
   return col < sk && (!causal || row >= kv_offset + col);
 }
 
-// Copies 16 bytes global -> shared without staging them in registers
-// (cp.async, sm_80+); many stay in flight at once. async_wait() waits
-// for this thread's copies; a barrier then publishes them to the block.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // dst[r][0:d] = src[r * stride + 0:d] for r < valid; zeros for the
 // rows valid <= r < rows, so a ragged tail never feeds garbage (or a
-// NaN times a zero probability) into a product. 16-bit tiles are
-// issued as cp.async copies: call async_wait() and a barrier before
-// reading them. Float32 tiles (rows padded to d + 1, so not 16-byte
-// aligned) are plain loads.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+// NaN times a zero probability) into a product.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                                           size_t stride, int rows, int valid,
                                           int d) {
-  if constexpr (sizeof(T) == 2) {
-    const int vpr = d / 8;  // 16-byte vectors per row
-    for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-      const int r = i / vpr;
-      const int c = (i - r * vpr) * 8;
-      if (r < valid) {
-        cp_async16(dst + r * ld + c, src + r * stride + c);
-      } else {
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * d; i += kThreads) {
-      const int r = i / d;
-      const int c = i - r * d;
-      dst[r * ld + c] = r < valid ? src[r * stride + c] : 0.f;
-    }
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
+    const int r = i / d;
+    const int c = i - r * d;
+    dst[r * ld + c] = r < valid ? src[r * stride + c] : 0.f;
   }
 }
 
@@ -199,76 +131,23 @@ __device__ __forceinline__ void load_row_scalars(float* dst, const float* src,
 
 // C[m][n] (fp32, row-major, ldc) = (accumulate ? C : 0) + A . B over kdim,
 // all in shared memory, where A(i, x) = a[i * lda + x] (kARow) or
-// a[x * lda + i], and B(x, j) = b[x * ldb + j] (kBRow) or b[j * ldb + x].
-// 16-bit inputs: on the tensor cores. The (m / 16) 16-row strips of C
-// are split into column groups so every warp has work (a 64-row tile:
-// 4 strips x 2 groups for 8 warps); a warp keeps its group's
-// accumulator fragments in registers, so each A fragment is loaded once
-// per k step (m, n, kdim multiples of 16, n <= 128). Float32: one
-// output element per thread.
-template <typename T, bool kARow, bool kBRow>
-__device__ __forceinline__ void block_gemm(const T* a, int lda, const T* b,
-                                           int ldb, float* c, int ldc, int m,
-                                           int n, int kdim, bool accumulate) {
-  if constexpr (sizeof(T) == 2) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<kARow, wmma::row_major,
-                                         wmma::col_major>::type;
-    using LB = typename std::conditional<kBRow, wmma::row_major,
-                                         wmma::col_major>::type;
-    constexpr int kMaxTn = kMaxHeadDim / 16;
-    const int warp = threadIdx.x >> 5;
-    const int strips = m / 16;
-    const int tn = n / 16;
-    const int groups = strips >= kWarps ? 1 : kWarps / strips;
-    const int per_group = (tn + groups - 1) / groups;
-    for (int unit = warp; unit < strips * groups; unit += kWarps) {
-      const int ti = unit % strips;
-      const int j0 = (unit / strips) * per_group;
-      const int nj = min(per_group, tn - j0);
-      float* cp = c + ti * 16 * ldc + j0 * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[kMaxTn];
-#pragma unroll
-      for (int j = 0; j < kMaxTn; ++j) {
-        if (j >= nj) break;
-        if (accumulate) {
-          wmma::load_matrix_sync(fc[j], cp + j * 16, ldc, wmma::mem_row_major);
-        } else {
-          wmma::fill_fragment(fc[j], 0.f);
-        }
-      }
-      for (int x = 0; x < kdim; x += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> fa;
-        wmma::load_matrix_sync(
-            fa, kARow ? a + ti * 16 * lda + x : a + x * lda + ti * 16, lda);
-#pragma unroll
-        for (int j = 0; j < kMaxTn; ++j) {
-          if (j >= nj) break;
-          const int col = (j0 + j) * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> fb;
-          wmma::load_matrix_sync(
-              fb, kBRow ? b + x * ldb + col : b + col * ldb + x, ldb);
-          wmma::mma_sync(fc[j], fa, fb, fc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kMaxTn; ++j) {
-        if (j >= nj) break;
-        wmma::store_matrix_sync(cp + j * 16, fc[j], ldc, wmma::mem_row_major);
-      }
+// a[x * lda + i], and B(x, j) = b[x * ldb + j] (kBRow) or b[j * ldb + x];
+// one output element per thread.
+template <bool kARow, bool kBRow>
+__device__ __forceinline__ void block_gemm(const float* a, int lda,
+                                           const float* b, int ldb, float* c,
+                                           int ldc, int m, int n, int kdim,
+                                           bool accumulate) {
+  for (int idx = threadIdx.x; idx < m * n; idx += kThreads) {
+    const int i = idx / n;
+    const int j = idx - i * n;
+    float s = accumulate ? c[i * ldc + j] : 0.f;
+    for (int x = 0; x < kdim; ++x) {
+      const float av = kARow ? a[i * lda + x] : a[x * lda + i];
+      const float bv = kBRow ? b[x * ldb + j] : b[j * ldb + x];
+      s = fmaf(av, bv, s);
     }
-  } else {
-    for (int idx = threadIdx.x; idx < m * n; idx += kThreads) {
-      const int i = idx / n;
-      const int j = idx - i * n;
-      float s = accumulate ? c[i * ldc + j] : 0.f;
-      for (int x = 0; x < kdim; ++x) {
-        const float av = kARow ? a[i * lda + x] : a[x * lda + i];
-        const float bv = kBRow ? b[x * ldb + j] : b[j * ldb + x];
-        s = fmaf(av, bv, s);
-      }
-      c[i * ldc + j] = s;
-    }
+    c[i * ldc + j] = s;
   }
 }
 
@@ -284,7 +163,8 @@ __device__ __forceinline__ int kv_tiles(int sk, int br, int last_row,
 }
 
 // ---------------------------------------------------------------------
-// Forward. Grid (q tiles, hq, b); the heaviest causal tiles launch first.
+// Forward, float32 inputs. Grid (q tiles, hq, b); the heaviest causal
+// tiles launch first. (16-bit inputs: flash_fwd_wgmma_kernel below.)
 // ---------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
@@ -295,10 +175,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float* __restrict__ lse,   // (b, sq, hq)
     int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
     int causal, float scale) {
-  constexpr int BR = Tile<T>::kRows;
-  constexpr int ldp = BR + Tile<T>::kPad;
+  static_assert(std::is_same<T, float>::value,
+                "16-bit forward runs flash_fwd_wgmma_kernel");
+  constexpr int BR = kF32Rows;
+  constexpr int ldp = BR + kF32Pad;
   constexpr int lds = BR + kFPad;
-  const int ld = d + Tile<T>::kPad;
+  const int ld = d + kF32Pad;
   const int lda = d + kFPad;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -332,7 +214,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     m[r] = kMaskValue;
     l[r] = 0.f;
   }
-  async_wait();
 
   const int n_kt = kv_tiles(sk, BR, q_offset + q0 + q_rows - 1, kv_offset, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -341,9 +222,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     __syncthreads();  // the previous tile's K, V and P are no longer read
     load_rows(ks, ld, k + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
     load_rows(vs, ld, v + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    async_wait();
     __syncthreads();
-    block_gemm<T, true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
+    block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
     __syncthreads();
     // Online softmax, one warp per row; the warp also rescales its
     // row of the accumulator, so no barrier separates the two.
@@ -381,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       }
     }
     __syncthreads();
-    block_gemm<T, true, true>(ps, ldp, vs, ld, acc, lda, BR, d, BR, true);
+    block_gemm<true, true>(ps, ldp, vs, ld, acc, lda, BR, d, BR, true);
   }
   __syncthreads();
   for (int r = warp; r < q_rows; r += kWarps) {
@@ -409,10 +289,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     int causal, float scale) {
   static_assert(std::is_same<T, float>::value,
                 "16-bit dq runs flash_dq_wgmma_kernel");
-  constexpr int BR = Tile<T>::kRows;
-  constexpr int ldp = BR + Tile<T>::kPad;
+  constexpr int BR = kF32Rows;
+  constexpr int ldp = BR + kF32Pad;
   constexpr int lds = BR + kFPad;
-  const int ld = d + Tile<T>::kPad;
+  const int ld = d + kF32Pad;
   const int lda = d + kFPad;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -446,7 +326,6 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   load_row_scalars(lse_s, lse + r_base, hq, BR, q_rows);
   load_row_scalars(dm_s, dm + r_base, hq, BR, q_rows);
   for (int i = threadIdx.x; i < BR * lda; i += kThreads) acc[i] = 0.f;
-  async_wait();
 
   const int n_kt = kv_tiles(sk, BR, q_offset + q0 + q_rows - 1, kv_offset, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -455,10 +334,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     __syncthreads();
     load_rows(ks, ld, k + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
     load_rows(vs, ld, v + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    async_wait();
     __syncthreads();
-    block_gemm<T, true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
-    block_gemm<T, true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
+    block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
+    block_gemm<true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
     __syncthreads();
     for (int i = threadIdx.x; i < BR * BR; i += kThreads) {
       const int r = i / BR;
@@ -470,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
       dss[r * ldp + c] = from_f<T>(p * (dps[r * lds + c] - dm_s[r]));
     }
     __syncthreads();
-    block_gemm<T, true, true>(dss, ldp, ks, ld, acc, lda, BR, d, BR, true);
+    block_gemm<true, true>(dss, ldp, ks, ld, acc, lda, BR, d, BR, true);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < q_rows * d; i += kThreads) {
@@ -497,10 +375,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     int causal, float scale) {
   static_assert(std::is_same<T, float>::value,
                 "16-bit dk/dv runs flash_dkv_wgmma_kernel");
-  constexpr int BR = Tile<T>::kRows;
-  constexpr int ldp = BR + Tile<T>::kPad;
+  constexpr int BR = kF32Rows;
+  constexpr int ldp = BR + kF32Pad;
   constexpr int lds = BR + kFPad;
-  const int ld = d + Tile<T>::kPad;
+  const int ld = d + kF32Pad;
   const int lda = d + kFPad;
   const int kt = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -534,7 +412,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
-  async_wait();
 
   // First q tile whose last row can see this tile's first key.
   const int n_qt = (sq + BR - 1) / BR;
@@ -556,11 +433,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       load_rows(dos, ld, dout + q_base, q_stride, BR, q_rows, d);
       load_row_scalars(lse_s, lse + r_base, hq, BR, q_rows);
       load_row_scalars(dm_s, dm + r_base, hq, BR, q_rows);
-      async_wait();
       __syncthreads();
       // S [q rows][k cols] and dP = dO . V^T, as in dq.
-      block_gemm<T, true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
-      block_gemm<T, true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
+      block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
+      block_gemm<true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
       __syncthreads();
       for (int i = threadIdx.x; i < BR * BR; i += kThreads) {
         const int r = i / BR;
@@ -575,8 +451,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       __syncthreads();
       // dV += P^T . dO and dK += dS^T . Q: P and dS are read transposed
       // (column-major A operands), so no transposed copy is made.
-      block_gemm<T, false, true>(ps, ldp, dos, ld, dv_acc, lda, BR, d, BR, true);
-      block_gemm<T, false, true>(dss, ldp, qs, ld, dk_acc, lda, BR, d, BR, true);
+      block_gemm<false, true>(ps, ldp, dos, ld, dv_acc, lda, BR, d, BR, true);
+      block_gemm<false, true>(dss, ldp, qs, ld, dk_acc, lda, BR, d, BR, true);
     }
   }
   __syncthreads();
@@ -589,97 +465,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 }
 
 // =====================================================================
-// Backward for 16-bit inputs on Hopper: wgmma products with their
-// accumulators in registers, TMA tile loads in a two-stage ring.
-//
-// Shared-memory tiles hold 16-bit [rows][kD] operands as kD / 64
-// "panels" of 64 columns (128 bytes a row), each panel laid out as TMA's
-// 128-byte swizzle writes it and as wgmma's 128-byte-swizzle
-// descriptors read it: row r at r * 128 bytes, its 16-byte chunk c at
-// chunk c ^ (r % 8). A tile of R rows keeps panel p at p * R * 128.
+// 16-bit kernels on Hopper: wgmma products with their accumulators in
+// registers, TMA tile loads (hopper.cuh).
 // =====================================================================
 
 constexpr int kBwdThreads = 256;  // two warpgroups
 constexpr int kBwdRows = 128;     // q rows (dq) or keys (dk/dv) a block owns
 constexpr int kBwdStep = 64;      // keys (dq) or q rows (dk/dv) per streamed tile
-constexpr int kPanelRowBytes = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand in shared memory
-// (start address, leading and stride byte offsets, layout type 1).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// Rows [r0, r0 + 64) of a tile of `rows` rows, k-step kk (columns
-// 16 kk .. 16 kk + 15) read K-major: the operand's k dimension is the
-// tile's column. 8-row groups 1024 bytes apart; the k-step moves 32
-// bytes inside the swizzled row (or to the next panel).
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int r0, int kk) {
-  return gmma_desc(tile + (kk >> 2) * rows * kPanelRowBytes +
-                       r0 * kPanelRowBytes + (kk & 3) * 32,
-                   16, 1024);
-}
-
-// Rows 16 kk .. 16 kk + 15 of a tile of `rows` rows as the k dimension
-// and all its columns as n, read MN-major (the columns contiguous):
-// the next 64 columns one panel (rows * 128 bytes) on, the next 8 rows
-// 1024 bytes on.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows,
-                                                 int kk) {
-  return gmma_desc(tile + kk * 16 * kPanelRowBytes, rows * kPanelRowBytes,
-                   1024);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of TMA traffic to come.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n"
-      :: "r"(bar), "r"(parity)
-      : "memory");
-}
-
-// Loads rows [s0, s0 + rows) of head h of batch b, all kD columns, from
-// a [B, S, H, D] tensor map into `tile`, one TMA box per panel; rows
-// past S and columns past D arrive as zeros. Completion is counted on
-// `bar` (rows * kD * 2 bytes).
-template <int kD>
-__device__ __forceinline__ void tma_tile(uint32_t tile, const CUtensorMap* map,
-                                         uint32_t bar, int h, int s0, int b,
-                                         int rows) {
-#pragma unroll
-  for (int p = 0; p < kD / 64; ++p) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-        :: "r"(tile + p * rows * kPanelRowBytes),
-           "l"(reinterpret_cast<uint64_t>(map)), "r"(64 * p), "r"(h), "r"(s0),
-           "r"(b), "r"(bar)
-        : "memory");
-  }
-}
 
 // 4-byte cp.async; `valid` false writes a zero instead of reading.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
@@ -695,182 +487,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Tells the compiler the registers change here, so no read of an
-// accumulator (or of an A fragment's register) moves across a wgmma wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Two floats rounded to T and packed low-first, as one 32-bit register
-// of a wgmma A fragment.
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  uint32_t out;
-  if constexpr (std::is_same<T, __half>::value) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    out = *reinterpret_cast<const uint32_t*>(&v);
-  } else {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    out = *reinterpret_cast<const uint32_t*>(&v);
-  }
-  return out;
-}
-
-// The wgmma instructions the kernels issue. Accumulator layout of
-// m64nNk16 (fp32): warp w of the warpgroup holds rows 16 w .. 16 w + 15;
-// lane l holds, for each 8-column group j, d[4j] and d[4j + 1] at row
-// l / 4, columns 8j + 2 (l % 4) + {0, 1}, and d[4j + 2], d[4j + 3] at row
-// l / 4 + 8. The A fragment of a register-sourced product (k-step of 16
-// columns) is that layout for two groups, packed in pairs: so the
-// packed accumulator of one product is the A operand of the next with
-// no data movement. SS: A and B from shared memory, both K-major. RS: A
-// from registers, B MN-major (imm-trans-b 1).
-
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                               const uint32_t (&a)[4], uint64_t db,
-                                               int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                               const uint32_t (&a)[4], uint64_t db,
-                                               int scale_d) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
-  }
-}
-
-// dQ / dK / dV += A . B with N = kD (the head-dim variant).
-template <typename T, int kD>
-__device__ __forceinline__ void wgmma_rs_nd(float (&d)[kD / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  if constexpr (kD == 64) {
-    wgmma_rs_n64<T>(d, a, db, 1);
-  } else {
-    wgmma_rs_n128<T>(d, a, db, 1);
-  }
-}
-
-// 16-bit tensor-map element type of T.
-template <typename T>
-constexpr CUtensorMapDataType tma_type() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // Shared memory of a 16-bit backward kernel: two tiles of the block's
@@ -930,7 +546,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
     mbar_init(bar_own);
     mbar_init(bar_ring);
     mbar_init(bar_ring + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -1131,7 +747,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     mbar_init(bar_own);
     mbar_init(bar_ring);
     mbar_init(bar_ring + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -1252,14 +868,146 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
   }
 }
 
-// Dynamic shared memory of each kernel, in bytes: input-typed tiles
-// first, then the fp32 buffers (both regions are multiples of 128 bytes
-// for every supported d, so each buffer stays aligned for WMMA).
-template <typename T>
-size_t smem_bytes(int which, int d) {
-  constexpr int BR = Tile<T>::kRows;
-  const size_t ld = d + Tile<T>::kPad;
-  const size_t ldp = BR + Tile<T>::kPad;
+// ---------------------------------------------------------------------
+// Forward, 16-bit inputs. Grid (q tiles of kFwdRows, hq, b), heaviest
+// causal tiles first. Two consumer warpgroups own rows [64 w, 64 w + 64)
+// of the tile; a producer warp loads the Q tile once and streams K and
+// V tiles of kWalkKeys keys through a kFwdStages-stage ring, refilling
+// a stage as soon as both warpgroups have freed it. Each warpgroup walks
+// the tiles its own last row can see (hopper.cuh, walk) and frees the
+// rest (walk_skip): the one below the diagonal walks one tile fewer and
+// never waits for the other. The epilogue writes out and lse straight
+// from registers.
+// ---------------------------------------------------------------------
+constexpr int kFwdRows = 128;
+constexpr int kFwdThreads = 288;  // two consumer warpgroups + a producer warp
+constexpr int kFwdStages = 4;
+
+template <int kD>
+constexpr size_t fwd_smem_bytes() {
+  return kFwdRows * kD * 2 + 2 * kFwdStages * walk_tile_bytes<kD>() +
+         (1 + 3 * kFwdStages) * 8 + 1024;
+}
+
+// The forward's mask for one thread: its two rows at global positions
+// row[0], row[1]; the warpgroup's first row at `first`.
+struct FwdMask {
+  int row[2];
+  int first;
+  int sk, kv_offset, causal;
+  __device__ __forceinline__ bool edge(int kt) const {
+    const int k_last = kt * kWalkKeys + kWalkKeys - 1;
+    return k_last >= sk || (causal && kv_offset + k_last > first);
+  }
+  __device__ __forceinline__ bool sees(int r, int key) const {
+    return visible(row[r], key, sk, kv_offset, causal);
+  }
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // boxes of kFwdRows rows
+    const __grid_constant__ CUtensorMap tm_k,  // boxes of kWalkKeys rows
+    const __grid_constant__ CUtensorMap tm_v,
+    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int hq,
+    int hkv, int d, int q_offset, int kv_offset, int causal, float scale) {
+  constexpr int kQ = kFwdRows * kD * 2;  // bytes of the Q tile
+  constexpr int kTile = walk_tile_bytes<kD>();
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * kFwdRows;
+  const int q_rows = min(kFwdRows, sq - q0);
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  WalkRing ring;
+  ring.k = s_q + kQ;
+  ring.v = ring.k + kFwdStages * kTile;
+  const uint32_t bar_q = ring.v + kFwdStages * kTile;
+  ring.full_k = bar_q + 8;
+  ring.full_v = ring.full_k + 8 * kFwdStages;
+  ring.empty = ring.full_v + 8 * kFwdStages;
+  ring.stages = kFwdStages;
+
+  const int n_kt = kv_tiles(sk, kWalkKeys, q_offset + q0 + q_rows - 1,
+                            kv_offset, causal);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q);
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(ring.full_k + 8 * st);
+      mbar_init(ring.full_v + 8 * st);
+      mbar_init(ring.empty + 8 * st, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, kQ);
+      tma_tile<kD>(s_q, &tm_q, bar_q, h, q0, b, kFwdRows);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kFwdStages;
+        if (kt >= kFwdStages)
+          mbar_wait(ring.empty + 8 * st, (kt / kFwdStages - 1) & 1);
+        mbar_expect_tx(ring.full_k + 8 * st, kTile);
+        tma_tile<kD>(ring.k + st * kTile, &tm_k, ring.full_k + 8 * st, kvh,
+                     kt * kWalkKeys, b, kWalkKeys);
+        mbar_expect_tx(ring.full_v + 8 * st, kTile);
+        tma_tile<kD>(ring.v + st * kTile, &tm_v, ring.full_v + 8 * st, kvh,
+                     kt * kWalkKeys, b, kWalkKeys);
+      }
+    }
+    return;
+  }
+
+  // This thread's two q rows (index into sq): row0 and row0 + 8.
+  const int wq0 = q0 + 64 * wg;  // the warpgroup's first row
+  const int row0 = wq0 + 16 * warp + (lane >> 2);
+  const int n_wg = wq0 < sq ? kv_tiles(sk, kWalkKeys,
+                                       q_offset + min(wq0 + 63, sq - 1),
+                                       kv_offset, causal)
+                            : 0;
+  const FwdMask mask{{q_offset + row0, q_offset + row0 + 8}, q_offset + wq0,
+                     sk, kv_offset, causal};
+  WalkRows<kD> rows;
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  rows.m[0] = rows.m[1] = kMaskValue;
+  rows.l[0] = rows.l[1] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  walk<T, kD>(rows, s_q, kFwdRows, 64 * wg, ring, n_wg, scale * kLog2e, mask);
+
+  T* row_ptr[2];
+  float row_lse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    row_ptr[r] = row < sq ? out + ((static_cast<size_t>(b) * sq + row) * hq + h) * d
+                          : nullptr;
+  }
+  walk_finish<T, kD>(rows, row_ptr, d, row_lse);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if ((lane & 3) == 0 && row < sq)
+      lse[(static_cast<size_t>(b) * sq + row) * hq + h] = row_lse[r];
+  }
+  walk_skip(ring, n_wg, n_kt);
+}
+
+// Dynamic shared memory of each float32 kernel, in bytes: the input
+// tiles first, then the fp32 buffers.
+size_t f32_smem_bytes(int which, int d) {
+  constexpr int BR = kF32Rows;
+  const size_t ld = d + kF32Pad;
+  const size_t ldp = BR + kF32Pad;
   const size_t lds = BR + kFPad;
   const size_t lda = d + kFPad;
   size_t t_elems = 0, f_elems = 0;
@@ -1277,68 +1025,12 @@ size_t smem_bytes(int which, int d) {
       f_elems = BR * (2 * lds + 2 * lda + 2);
       break;
   }
-  return t_elems * sizeof(T) + f_elems * sizeof(float);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return (t_elems + f_elems) * sizeof(float);
 }
 
 bool shapes_ok(int b, int sq, int sk, int hq, int hkv, int d) {
   return b > 0 && sq > 0 && sk > 0 && hkv > 0 && hq % hkv == 0 && d > 0 &&
          d % 16 == 0 && d <= kMaxHeadDim && b <= 65535 && hq <= 65535;
-}
-
-// cuTensorMapEncodeTiled, found through the runtime so the library needs
-// no link against libcuda; null where the installed CUDA lacks it.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                   void*, const cuuint64_t*, const cuuint64_t*,
-                                   const cuuint32_t*, const cuuint32_t*,
-                                   CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// A tensor map over a 16-bit [B, S, H, D] array whose boxes are 64
-// columns by `rows` rows of one (batch, head), 128-byte swizzled;
-// rows past S and columns past D read as zeros.
-template <typename T>
-cudaError_t bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
-                     int d, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {2ull * d, 2ull * d * h, 2ull * d * h * s};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, tma_type<T>(), 4, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The four maps of a backward launch: q and dO in boxes of `q_rows`
@@ -1396,24 +1088,54 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-               int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
-               int kv_offset, int causal, float scale, cudaStream_t stream) {
-  constexpr int BR = Tile<T>::kRows;
-  const size_t smem = smem_bytes<T>(0, d);
-  auto kernel = flash_fwd_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
+template <typename T, int kD>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int b, int sq, int sk, int hq, int hkv, int d,
+                     int q_offset, int kv_offset, int causal, float scale,
+                     cudaStream_t stream) {
+  CUtensorMap m[3];
+  cudaError_t err = bshd_map<T>(&m[0], q, b, sq, hq, d, kFwdRows);
+  if (err == cudaSuccess) err = bshd_map<T>(&m[1], k, b, sk, hkv, d, kWalkKeys);
+  if (err == cudaSuccess) err = bshd_map<T>(&m[2], v, b, sk, hkv, d, kWalkKeys);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sq + BR - 1) / BR, hq, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), sq, sk, hq, hkv, d,
-      q_offset, kv_offset, causal, scale);
+  const size_t smem = fwd_smem_bytes<kD>();
+  auto kernel = flash_fwd_wgmma_kernel<T, kD>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((sq + kFwdRows - 1) / kFwdRows, hq, b), kFwdThreads, smem,
+           stream>>>(m[0], m[1], m[2], static_cast<T*>(out),
+                     static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset,
+                     kv_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 16-bit inputs take the wgmma kernels (kD 64 for d <= 64, else 128);
 // float32 inputs the scalar-FMA walk.
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+               int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
+               int kv_offset, int causal, float scale, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    return d <= 64 ? launch_fwd_wgmma<T, 64>(q, k, v, out, lse, b, sq, sk, hq,
+                                             hkv, d, q_offset, kv_offset,
+                                             causal, scale, stream)
+                   : launch_fwd_wgmma<T, 128>(q, k, v, out, lse, b, sq, sk, hq,
+                                              hkv, d, q_offset, kv_offset,
+                                              causal, scale, stream);
+  } else {
+    constexpr int BR = kF32Rows;
+    const size_t smem = f32_smem_bytes(0, d);
+    auto kernel = flash_fwd_kernel<T>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((sq + BR - 1) / BR, hq, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
+        sq, sk, hq, hkv, d, q_offset, kv_offset, causal, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dm, void* dq, int b, int sq, int sk,
@@ -1427,8 +1149,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                              sk, hq, hkv, d, q_offset,
                                              kv_offset, causal, scale, stream);
   } else {
-    constexpr int BR = Tile<T>::kRows;
-    const size_t smem = smem_bytes<T>(1, d);
+    constexpr int BR = kF32Rows;
+    const size_t smem = f32_smem_bytes(1, d);
     auto kernel = flash_dq_kernel<T>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1455,8 +1177,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                                               sq, sk, hq, hkv, d, q_offset,
                                               kv_offset, causal, scale, stream);
   } else {
-    constexpr int BR = Tile<T>::kRows;
-    const size_t smem = smem_bytes<T>(2, d);
+    constexpr int BR = kF32Rows;
+    const size_t smem = f32_smem_bytes(2, d);
     auto kernel = flash_dkv_kernel<T>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1523,9 +1245,9 @@ int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
 int tpuhpc_flash_tile_rows(int kernel, int dtype) {
   if (kernel < 0 || kernel > 2) return 0;
   switch (dtype) {
-    case kF32: return Tile<float>::kRows;
-    case kF16: return kernel == 0 ? Tile<__half>::kRows : kBwdRows;
-    case kBF16: return kernel == 0 ? Tile<__nv_bfloat16>::kRows : kBwdRows;
+    case kF32: return kF32Rows;
+    case kF16:
+    case kBF16: return kernel == 0 ? kFwdRows : kBwdRows;
     default: return 0;
   }
 }

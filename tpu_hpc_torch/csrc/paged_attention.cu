@@ -1,23 +1,31 @@
 // Paged attention over the serving engine's KV pool, for Hopper (sm_90a).
 //
-// Two kernels, each replacing one Pallas kernel of the JAX package:
+// Kernels replacing the two Pallas kernels of the JAX package's
+// tpu_hpc/kernels/paged_attention.py:
 //
-//   paged_decode_kernel   replaces tpu_hpc/kernels/paged_attention.py
-//                         ::_decode_kernel (launched by
-//                         paged_decode_attention).
-//   paged_prefill_kernel  replaces tpu_hpc/kernels/paged_attention.py
-//                         ::_prefill_kernel (launched by
-//                         paged_prefill_attention).
+//   paged_decode_kernel          replaces _decode_kernel (launched by
+//                                paged_decode_attention).
+//   paged_prefill_wgmma_kernel   replace _prefill_kernel (launched by
+//   paged_prefill_kernel         paged_prefill_attention): the first for
+//                                16-bit q and pool of one dtype, the
+//                                second for every other pair (float32,
+//                                int8 pools, mixed dtypes) and page
+//                                sizes outside the first one's rule
+//                                (prefill_route below).
 //
 // They compute what the Pallas kernels compute -- online softmax in
 // fp32 with the MASK_VALUE / m_safe / l_safe rules, the causal limit
 // taken from data (pos per slot, start per chunk), inactive slots
 // written as zeros, optional int8 pages dequantized with one f32 scale
 // per page -- but are laid out for the card, not carried over block by
-// block:
+// block. (The wgmma prefill rounds P to the pool's dtype before P . V,
+// as the Pallas kernel does; the scalar kernels keep P in fp32, which
+// is the Pallas kernel's arithmetic for float32 and int8 pools, and
+// differs from it only by that rounding for a 16-bit pool under a q of
+// another dtype.)
 //
 //   * the TPU grid's sequential page axis becomes a loop inside one
-//     thread block, with the online-softmax state in shared memory;
+//     thread block;
 //   * scalar prefetch becomes each block reading its own table row,
 //     pos and active flag;
 //   * a block issues no read of a page past its causal limit, of a
@@ -37,36 +45,30 @@
 //            (~1.6 GFLOP) and the bytes (~10 MB) give bounds of
 //            ~1.6 us and ~3 us: bytes again, by a small margin.
 //
-// What this simple design leaves for later: the dot products and the
-// P.V update are scalar fp32 FMAs over shared memory (no mma.sync, no
-// wgmma), K/V pages are staged with plain loads (no cp.async or TMA
-// pipeline), and decode runs one block per (slot, kv_head) with no
-// split over pages (flash-decoding), so a long context is walked by
-// one SM. Each of these is a later PR's work; PERF.md carries the
-// measured times against the bounds.
+// The 16-bit prefill is built for the tensor cores and the copy engine:
+// one block per (KV head, 64 grouped q rows), whose Q tile arrives by
+// TMA and whose 64-key K and V tiles are assembled from one TMA box per
+// page into a ring that a producer warp keeps ahead of the consumer
+// warpgroup; scores, probabilities and the output accumulate in
+// registers through the online-softmax walk the training forward uses
+// (hopper.cuh). The decode kernel and the other prefill routes keep the
+// first, simple design: scalar fp32 FMAs over shared memory, K/V pages
+// staged with plain loads, four barriers per page, and (decode) one
+// block per (slot, kv_head) with no split over pages, so a long context
+// is walked by one SM. PERF.md carries the measured times against the
+// bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
 // stream it is given, allocates nothing, and returns
 // cudaGetLastError() so the caller raises on a refused launch.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-// kernels/attention.py MASK_VALUE: finite, so a fully masked row keeps
-// m = MASK_VALUE and the m_safe rule below zeroes its probabilities.
-constexpr float kMaskValue = -1e30f;
-
-// dtype codes shared with kernels/attention.py::DTYPE_CODES.
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2, kI8 = 3 };
-
 constexpr int kDecodeThreads = 128;
 constexpr int kPrefillThreads = 256;
-constexpr int kMaxSmem = 232448;  // 227 KB a block may opt in to
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
@@ -75,25 +77,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // One online-softmax step for row r over the bs scores in s[0:bs]:
@@ -218,11 +201,11 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill: grid (kv_heads, row tiles). Grouped query row r of
-// head h sits at position start + r / g; a block owns tq consecutive
-// rows and walks the pages up to its last row's causal limit.
-// Shared-memory rows are padded to d + 1 floats so the per-key dot
-// products hit distinct banks.
+// Chunked prefill, every pair of dtypes the wgmma route below does not
+// take: grid (kv_heads, row tiles). Grouped query row r of head h sits
+// at position start + r / g; a block owns tq consecutive rows and walks
+// the pages up to its last row's causal limit. Shared-memory rows are
+// padded to d + 1 floats so the per-key dot products hit distinct banks.
 // ---------------------------------------------------------------------
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
@@ -321,6 +304,170 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// Chunked prefill, 16-bit q and pool of one dtype (prefill_route). Grid
+// (kv_heads, row tiles of kPrefillRows), the last (heaviest) row tiles
+// first. One consumer warpgroup owns the tile's 64 grouped q rows; a
+// producer warp loads the Q tile by TMA and assembles each 64-key K or V
+// tile of the ring from 64 / bs pages -- one TMA box per page (64
+// columns x bs rows of one head) at row j * bs of the tile, or one
+// 64-row box of a page of 64 or more keys -- reading the block's own
+// table row. A page past the tile's last row (or past max_blocks) is
+// never read; the rows it would have filled in the last tile are written
+// as zeros instead, so a masked P of 0 never meets stale or
+// uninitialised bytes (0 x NaN is NaN in P . V). The walk is the
+// training forward's (hopper.cuh), with qpos = start + r / g.
+// ---------------------------------------------------------------------
+constexpr int kPrefillRows = 64;
+constexpr int kPrefillWgmmaThreads = 160;  // a consumer warpgroup + a producer warp
+constexpr int kPrefillStages = 3;
+// The page extent of the pool's tensor map: the table names the pages
+// (as in the other kernels, its entries are trusted), so the map need
+// not know the pool's length.
+constexpr int kPoolPages = 1 << 30;
+
+template <int kD>
+constexpr size_t prefill_wgmma_smem_bytes() {
+  return kPrefillRows * kD * 2 + 2 * kPrefillStages * walk_tile_bytes<kD>() +
+         (1 + 3 * kPrefillStages) * 8 + 1024;
+}
+
+// The prefill's mask for one thread: its two rows at positions qpos[0],
+// qpos[1], the tile's first row at `first`; keys past the view
+// (max_blocks * bs) do not exist.
+struct PrefillMask {
+  int qpos[2];
+  int first;
+  int n_keys;
+  __device__ __forceinline__ bool edge(int kt) const {
+    const int k_last = kt * kWalkKeys + kWalkKeys - 1;
+    return k_last > first || k_last >= n_keys;
+  }
+  __device__ __forceinline__ bool sees(int r, int key) const {
+    return key <= qpos[r] && key < n_keys;
+  }
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // q as [hkv, bucket g, 1, d]
+    const __grid_constant__ CUtensorMap tm_k,  // pool as [pages, bs, hkv, d]
+    const __grid_constant__ CUtensorMap tm_v,
+    const int* __restrict__ table,  // (table_width,)
+    T* __restrict__ out,            // (hkv, bucket, g, d)
+    int bucket, int g, int d, int bs, int max_blocks, int start,
+    float sm_scale) {
+  constexpr int kQ = kPrefillRows * kD * 2;
+  constexpr int kTile = walk_tile_bytes<kD>();
+  const int h = blockIdx.x;
+  const int n_rows = bucket * g;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kPrefillRows;
+  const int nrows = min(kPrefillRows, n_rows - row0);
+  const int warp = threadIdx.x >> 5;  // 0-3 consumers, 4 the producer
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  WalkRing ring;
+  ring.k = s_q + kQ;
+  ring.v = ring.k + kPrefillStages * kTile;
+  const uint32_t bar_q = ring.v + kPrefillStages * kTile;
+  ring.full_k = bar_q + 8;
+  ring.full_v = ring.full_k + 8 * kPrefillStages;
+  ring.empty = ring.full_v + 8 * kPrefillStages;
+  ring.stages = kPrefillStages;
+
+  // Keys the tile's last row can see, the tiles and pages they span.
+  const int n_keys = max_blocks * bs;
+  const int last_pos = start + (row0 + nrows - 1) / g;
+  const int live_keys = min(last_pos + 1, n_keys);
+  const int n_tiles = (live_keys + kWalkKeys - 1) / kWalkKeys;
+  const int n_pages = (live_keys + bs - 1) / bs;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q);
+    for (int st = 0; st < kPrefillStages; ++st) {
+      mbar_init(ring.full_k + 8 * st);
+      mbar_init(ring.full_v + 8 * st);
+      mbar_init(ring.empty + 8 * st, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, kQ);
+      tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows);
+    }
+    const int box = min(bs, kWalkKeys);  // rows of one box
+    const int per = kWalkKeys / box;     // boxes (pages) per tile
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kPrefillStages;
+      if (kt >= kPrefillStages)
+        mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
+      const int first_page = kt * kWalkKeys / bs;
+      const int n_live = min(per, n_pages - first_page);
+      const uint32_t k_tile = ring.k + st * kTile;
+      const uint32_t v_tile = ring.v + st * kTile;
+      if (n_live < per) {  // the last tile: zero the rows no page fills
+        const int z0 = n_live * box * kPanelRowBytes;
+        const int z_bytes = kWalkKeys * kPanelRowBytes - z0;
+        for (int p = 0; p < kD / 64; ++p) {
+          for (int i = 16 * lane; i < z_bytes; i += 16 * 32) {
+            const uint32_t off = p * kWalkKeys * kPanelRowBytes + z0 + i;
+            asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n"
+                         :: "r"(k_tile + off), "r"(0u) : "memory");
+            asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n"
+                         :: "r"(v_tile + off), "r"(0u) : "memory");
+          }
+        }
+        fence_proxy_async();
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bytes = n_live * box * kD * 2;
+        const int t0 = bs > kWalkKeys ? kt * kWalkKeys % bs : 0;
+        mbar_expect_tx(ring.full_k + 8 * st, bytes);
+        for (int i = 0; i < n_live; ++i)
+          tma_tile<kD>(k_tile + i * box * kPanelRowBytes, &tm_k,
+                       ring.full_k + 8 * st, h, t0, table[first_page + i],
+                       kWalkKeys);
+        mbar_expect_tx(ring.full_v + 8 * st, bytes);
+        for (int i = 0; i < n_live; ++i)
+          tma_tile<kD>(v_tile + i * box * kPanelRowBytes, &tm_v,
+                       ring.full_v + 8 * st, h, t0, table[first_page + i],
+                       kWalkKeys);
+      }
+    }
+    return;
+  }
+
+  // This thread's two grouped rows: r0 and r0 + 8.
+  const int r0 = row0 + 16 * warp + (lane >> 2);
+  const PrefillMask mask{{start + r0 / g, start + (r0 + 8) / g},
+                         start + row0 / g, n_keys};
+  WalkRows<kD> rows;
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  rows.m[0] = rows.m[1] = kMaskValue;
+  rows.l[0] = rows.l[1] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  walk<T, kD>(rows, s_q, kPrefillRows, 0, ring, n_tiles, sm_scale * kLog2e,
+              mask);
+  T* row_ptr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    row_ptr[r] = row < n_rows
+                     ? out + (static_cast<size_t>(h) * n_rows + row) * d
+                     : nullptr;
+  }
+  float row_lse[2];  // not an output of the prefill
+  walk_finish<T, kD>(rows, row_ptr, d, row_lse);
+}
+
 size_t decode_smem_bytes(int g, int d, int bs) {
   return sizeof(float) * (2 * static_cast<size_t>(g) * d + g * bs + 3 * g);
 }
@@ -331,22 +478,31 @@ size_t prefill_smem_bytes(int tq, int d, int bs) {
          (2 * tq * dp + 2 * bs * dp + static_cast<size_t>(tq) * bs + 3 * tq);
 }
 
-// Rows per prefill block: 64, halved while the grid would leave SMs of
-// the 132 idle or the tile would not fit shared memory.
-int prefill_tile_rows(int hkv, int bucket, int g, int d, int bs) {
+// Which prefill kernel takes a launch: the wgmma kernel for 16-bit q and
+// pool of one dtype, d a multiple of 16 up to 128, and pages that stack
+// into 64-key tiles on 8-row boundaries (bs 8, 16, 32 or 64) or split
+// into them (bs a multiple of 64); paged_prefill_kernel for every other
+// launch (float32, int8 pools dequantized in f32, mixed dtypes, other
+// page sizes).
+enum PrefillRoute { kRouteScalar = 0, kRouteWgmma = 1 };
+
+int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
+  const bool same16 = q_dtype == kv_dtype && (q_dtype == kF16 || q_dtype == kBF16);
+  const bool pages = (bs >= 8 && kWalkKeys % bs == 0) || (bs > 0 && bs % kWalkKeys == 0);
+  return same16 && pages && d >= 16 && d % 16 == 0 && d <= 128 ? kRouteWgmma
+                                                               : kRouteScalar;
+}
+
+// Rows per prefill block. The wgmma route: kPrefillRows. The scalar
+// route: 64, halved while the grid would leave SMs of the 132 idle or
+// the tile would not fit shared memory.
+int prefill_tile_rows(int hkv, int bucket, int g, int d, int bs, int route) {
+  if (route == kRouteWgmma) return kPrefillRows;
   const int n_rows = bucket * g;
   int tq = 64;
   while (tq > 16 && hkv * ((n_rows + tq - 1) / tq) < 132) tq >>= 1;
   while (tq > 1 && prefill_smem_bytes(tq, d, bs) > static_cast<size_t>(kMaxSmem)) tq >>= 1;
   return tq;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 template <typename QT, typename KT>
@@ -368,12 +524,46 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kD>
+int launch_prefill_wgmma(const void* q, const void* k_pages, const void* v_pages,
+                         const void* table, void* out, int hkv, int bucket, int g,
+                         int d, int bs, int max_blocks, int start, float sm_scale,
+                         cudaStream_t stream) {
+  CUtensorMap m[3];
+  const int box = bs < kWalkKeys ? bs : kWalkKeys;
+  cudaError_t err = bshd_map<T>(&m[0], q, hkv, bucket * g, 1, d, kPrefillRows);
+  if (err == cudaSuccess) err = bshd_map<T>(&m[1], k_pages, kPoolPages, bs, hkv, d, box);
+  if (err == cudaSuccess) err = bshd_map<T>(&m[2], v_pages, kPoolPages, bs, hkv, d, box);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = prefill_wgmma_smem_bytes<kD>();
+  auto kernel = paged_prefill_wgmma_kernel<T, kD>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (bucket * g + kPrefillRows - 1) / kPrefillRows;
+  kernel<<<dim3(hkv, tiles), kPrefillWgmmaThreads, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<const int*>(table), static_cast<T*>(out),
+      bucket, g, d, bs, max_blocks, start, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename QT, typename KT>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    const void* table, const void* k_scale, const void* v_scale,
                    void* out, int hkv, int bucket, int g, int d, int bs,
-                   int max_blocks, int start, float sm_scale, cudaStream_t stream) {
-  const int tq = prefill_tile_rows(hkv, bucket, g, d, bs);
+                   int max_blocks, int start, float sm_scale, int route,
+                   cudaStream_t stream) {
+  if constexpr (std::is_same<QT, KT>::value && sizeof(QT) == 2) {
+    if (route == kRouteWgmma)
+      return d <= 64 ? launch_prefill_wgmma<QT, 64>(q, k_pages, v_pages, table,
+                                                    out, hkv, bucket, g, d, bs,
+                                                    max_blocks, start, sm_scale,
+                                                    stream)
+                     : launch_prefill_wgmma<QT, 128>(q, k_pages, v_pages, table,
+                                                     out, hkv, bucket, g, d, bs,
+                                                     max_blocks, start, sm_scale,
+                                                     stream);
+  }
+  const int tq = prefill_tile_rows(hkv, bucket, g, d, bs, kRouteScalar);
   const size_t smem = prefill_smem_bytes(tq, d, bs);
   auto kernel = paged_prefill_kernel<QT, KT>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -433,17 +623,26 @@ int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages
                          float sm_scale, int q_dtype, int kv_dtype, void* stream) {
   if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int route = prefill_route(q_dtype, kv_dtype, d, bs);
   TPUHPC_DISPATCH(q_dtype, kv_dtype,
                   return (launch_prefill<QT, KT>(
                       q, k_pages, v_pages, table, k_scale, v_scale, out, hkv,
-                      bucket, g, d, bs, max_blocks, start, sm_scale,
+                      bucket, g, d, bs, max_blocks, start, sm_scale, route,
                       static_cast<cudaStream_t>(stream))))
 }
 
-// The prefill tile the launcher picks for these shapes (reported by
-// chip_smoke.py beside the kernel's time).
-int tpuhpc_prefill_tile_rows(int hkv, int bucket, int g, int d, int bs) {
-  return prefill_tile_rows(hkv, bucket, g, d, bs);
+// The route a prefill launch takes (1 the wgmma kernel, 0 the scalar
+// one; -1 for a dtype code no kernel takes) and the rows of a block on
+// that route: chip_smoke.py reports both beside the kernel's time.
+int tpuhpc_prefill_route(int d, int bs, int q_dtype, int kv_dtype) {
+  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8) return -1;
+  return prefill_route(q_dtype, kv_dtype, d, bs);
+}
+
+int tpuhpc_prefill_tile_rows(int hkv, int bucket, int g, int d, int bs,
+                             int q_dtype, int kv_dtype) {
+  return prefill_tile_rows(hkv, bucket, g, d, bs,
+                           prefill_route(q_dtype, kv_dtype, d, bs));
 }
 
 const char* tpuhpc_error_string(int code) {

@@ -7,7 +7,8 @@ library, loaded with ``ctypes``. The sources compile in parallel, one
 ``nvcc -c`` each, all started together; one more ``nvcc`` links the
 objects. The library lands in ``build/tpu_hpc_torch/`` at the root of
 the checkout (listed in ``.gitignore``) the first time a kernel
-launches, and is rebuilt whenever any source is newer than it.
+launches, and is rebuilt whenever any source or header it includes
+(``csrc/*.cuh``) is newer than it.
 
 Unlike the JAX package's native loader (``native/dataloader.py``),
 a failed build raises: a CUDA tensor must reach its kernel or fail
@@ -63,10 +64,14 @@ def _nvcc() -> str:
 
 
 def _stale() -> bool:
+    """Whether the library is missing or older than a source or a shared
+    header (headers are not compiled on their own, but every source may
+    include them)."""
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    inputs = [*sources(), *SOURCE_DIR.glob("*.cuh")]
+    return any(src.stat().st_mtime > built for src in inputs)
 
 
 def _fail(cmd, proc) -> RuntimeError:
@@ -127,8 +132,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         [p] * 7 + [i] * 7 + [f, i, i, p]
     )
     lib.tpuhpc_paged_prefill.restype = i
-    lib.tpuhpc_prefill_tile_rows.argtypes = [i] * 5
+    # (hkv, bucket, g, d, bs, q dtype code, pool dtype code)
+    lib.tpuhpc_prefill_tile_rows.argtypes = [i] * 7
     lib.tpuhpc_prefill_tile_rows.restype = i
+    lib.tpuhpc_prefill_route.argtypes = [i] * 4  # (d, bs, q code, pool code)
+    lib.tpuhpc_prefill_route.restype = i
     # flash_attention.cu: pointers, then (b, sq, sk, hq, hkv, d,
     # q_offset, kv_offset, causal), scale, dtype code, stream.
     lib.tpuhpc_flash_fwd.argtypes = [p] * 5 + [i] * 9 + [f, i, p]

@@ -296,7 +296,8 @@ def flash_attention_fwd(
     causal: bool = True, sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: (out [B, Sq, Hq, D] in q.dtype, lse [B, Sq, Hq] fp32).
-    CUDA tensors launch ``flash_fwd_kernel``; CPU tensors run
+    CUDA tensors launch ``flash_fwd_wgmma_kernel`` (bf16, fp16) or
+    ``flash_fwd_kernel`` (float32); CPU tensors run
     :func:`flash_attention_fwd_ref`."""
     _check_inputs(q, k, v)
     qo, ko = _offset(q_offset), _offset(kv_offset)
@@ -324,8 +325,9 @@ def flash_attention_dq(
     causal: bool = True, sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """dq in q.dtype from the saved lse and ``dm = rowsum(dO*O) - dlse``
-    (both [B, Sq, Hq] fp32). CUDA tensors launch ``flash_dq_kernel``;
-    CPU tensors run :func:`flash_attention_dq_ref`."""
+    (both [B, Sq, Hq] fp32). CUDA tensors launch ``flash_dq_wgmma_kernel``
+    (bf16, fp16) or ``flash_dq_kernel`` (float32); CPU tensors run
+    :func:`flash_attention_dq_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -355,7 +357,8 @@ def flash_attention_dkv(
     causal: bool = True, sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) in k/v's dtype, summed over each KV head's query-head
-    group. CUDA tensors launch ``flash_dkv_kernel``; CPU tensors run
+    group. CUDA tensors launch ``flash_dkv_wgmma_kernel`` (bf16, fp16) or
+    ``flash_dkv_kernel`` (float32); CPU tensors run
     :func:`flash_attention_dkv_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)

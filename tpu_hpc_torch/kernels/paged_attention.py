@@ -13,7 +13,11 @@ gathered copy of the view:
 
 On a CUDA tensor each launches a hand-written Hopper kernel
 (``csrc/paged_attention.cu``, built at first launch by ``_build``) or
-raises; it never falls back. On a CPU tensor it runs the plain PyTorch
+raises; it never falls back. The prefill has two kernels, chosen by a
+rule of dtypes and shapes written in the C launcher
+(:func:`paged_prefill_route` reports which one a launch takes): the
+wgmma kernel for 16-bit q and pool of one dtype, the scalar kernel for
+float32, int8 pools and mixed dtypes. On a CPU tensor it runs the plain PyTorch
 version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
@@ -372,9 +376,31 @@ def paged_prefill_attention(
 
 paged_prefill_attention.launches = 0
 
+# The prefill kernels, by the C interface's route code.
+PREFILL_ROUTES = ("scalar", "wgmma")
+
+
+def paged_prefill_route(
+    q_dtype: torch.dtype, pool_dtype: torch.dtype, head_dim: int,
+    block_size: int,
+) -> str:
+    """The kernel a prefill launch with these dtypes and shapes takes on
+    the card (a name of :data:`PREFILL_ROUTES`), as the C launcher
+    decides it; builds the library when needed, so call it only with a
+    card."""
+    from tpu_hpc_torch.kernels import _build
+
+    code = _build.load_library().tpuhpc_prefill_route(
+        head_dim, block_size, DTYPE_CODES[q_dtype], DTYPE_CODES[pool_dtype])
+    if code < 0:
+        raise TypeError(f"no prefill kernel takes q {q_dtype} over a "
+                        f"{pool_dtype} pool")
+    return PREFILL_ROUTES[code]
+
 
 __all__ = [
     "INT8_SCALE_FLOOR",
+    "PREFILL_ROUTES",
     "SCRATCH_PAGE",
     "dequantize_pages_int8",
     "page_scales_int8",
@@ -382,5 +408,6 @@ __all__ = [
     "paged_decode_attention_ref",
     "paged_prefill_attention",
     "paged_prefill_attention_ref",
+    "paged_prefill_route",
     "quantize_pages_int8",
 ]
