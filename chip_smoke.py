@@ -19,15 +19,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     slot) and at a GQA shape (8 KV heads, group 8: the
                     70B attention dims), with bf16 and int8 pools whose
                     dead and scratch pages are NaN. Every row names the
-                    kernel the library routed it to (the prefill has a
-                    wgmma route for 16-bit pools and a scalar one for
-                    the rest); prefill outputs must also pass
-                    checks/tolerance.py's bf16 rule, and at the 7B shape
-                    the output computed without the chunk's last live
-                    page must fail it. Times from CUDA events over
-                    back-to-back calls (``ms``, which a short kernel's
-                    Python wrapper can set) and the kernel's own device
-                    time from torch.profiler (``device_ms``).
+                    kernel the library routed it to (the decode splits
+                    each slot's pages into ``n_split`` runs and merges
+                    them; the prefill has a wgmma route for 16-bit pools
+                    and a scalar one for the rest) and must pass
+                    checks/tolerance.py's bf16 rule; at the 7B shape the
+                    decode output computed without the longest slot's
+                    last live page, and the prefill output computed
+                    without the chunk's last live page, must fail it.
+                    Times from CUDA events over back-to-back calls
+                    (``ms``, which a short kernel's Python wrapper can
+                    set) and the kernels' own device time from
+                    torch.profiler (``device_ms``; the decode's split
+                    and combine kernels together).
   4. flash       -- the flash-attention forward, dq and dk/dv kernels
                     against their plain versions under the per-element,
                     per-row-scaled rule of checks/tolerance.py: the
@@ -84,9 +88,9 @@ import subprocess
 import sys
 import time
 
-TOL = 2e-2  # bf16 output rounding (2^-8 relative) on O(1) values
-# Flash kernels and the paged prefill: tpu_hpc_torch/checks/tolerance.py's
-# rule, per element and scaled by each row's own magnitude (see there).
+# Every kernel output is held to tpu_hpc_torch/checks/tolerance.py's
+# rule for its dtype, per element and scaled by each row's own magnitude
+# (see there).
 PAGED_SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
 SOURCES = {
@@ -156,10 +160,14 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(?<=\d)((?:paged|flash)_\w+?_kernel)I(\w+?)EEv",
-                          m.group(1))
-            cur = {"kernel": f"{k.group(1)}<{template_args(k.group(2))}>"
-                   if k else m.group(1)}
+            k = re.search(
+                r"(?<=\d)((?:paged|flash)_\w+?_kernel)(?:I(\w+?)EEv|E)",
+                m.group(1))
+            name = m.group(1)
+            if k:
+                name = k.group(1) + (f"<{template_args(k.group(2))}>"
+                                     if k.group(2) else "")
+            cur = {"kernel": name}
             rows.append(cur)
             continue
         if cur is None:
@@ -196,7 +204,7 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time (ms) per call of the kernels whose names contain
     ``kernel``, from torch.profiler over ``iters`` calls after a warm-up
-    call: the kernel's own time, without its wrapper's host time. None
+    call: the kernels' own time, without their wrapper's host time. None
     if the profiler recorded no such kernel."""
     import torch
     from torch.autograd import DeviceType
@@ -386,8 +394,32 @@ def prefill_control(torch, args, kw, want) -> None:
                          f"output without the last live page ({r})")
 
 
-def kernel_phase(torch, dev, lib) -> dict:
+def decode_control(torch, args, kw, want) -> None:
+    """The 7B decode output computed without the longest slot's last
+    live page (a kernel that stops a run one page short), held to the
+    rule the kernel is held to: it must be rejected."""
     from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    q, k_pages, v_pages, tables, pos, active = args
+    bs = kw["block_size"]
+    live = torch.where(active > 0, pos, torch.full_like(pos, -1))
+    slot = int(live.argmax())
+    short = pos.clone()
+    short[slot] = int(pos[slot]) // bs * bs - 1
+    bad = pa.paged_decode_attention_ref(q, k_pages, v_pages, tables, short,
+                                        active, **kw)
+    r = compare(bad, want, torch.bfloat16)
+    emit("kernels_control", control="decode_without_last_live_page",
+         slot=slot, pos=int(pos[slot]), rejected=not r["ok"],
+         **{k: v for k, v in r.items() if k != "ok"})
+    if r["ok"]:
+        raise SystemExit(f"decode control: the tolerance accepts an "
+                         f"output without the last live page ({r})")
+
+
+def kernel_phase(torch, dev, lib) -> dict:
+    from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
 
@@ -405,7 +437,7 @@ def kernel_phase(torch, dev, lib) -> dict:
             args, kw, (nb, fl) = decode_case(torch, dev, hkv, g, quant)
             fn, ref = pa.paged_decode_attention, pa.paged_decode_attention_ref
             library, kernel_name = library_decode, "paged_decode"
-            route = "scalar"
+            route = "split"
         else:
             args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, quant, start)
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
@@ -417,31 +449,33 @@ def kernel_phase(torch, dev, lib) -> dict:
         want = ref(*args, **kw)
         if not torch.isfinite(out).all():
             raise SystemExit(f"{kname} {shape_name}: non-finite output")
-        err = float((out.float() - want.float()).abs().max())
-        if not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL):
-            raise SystemExit(
-                f"{kname} {shape_name} quant={quant}: max abs err {err} "
-                f"over tolerance {TOL}"
-            )
-        if kname == "paged_decode_attention" and out[args[5] == 0].any():
-            raise SystemExit(f"{kname}: inactive slot not exact zeros")
+        readings = compare(out, want, torch.bfloat16)
         row = {
             "kernel": kname, "shape": shape_name,
             "pool": "int8" if quant else "bfloat16", "route": route,
-            "max_abs_err": err, "tolerance": TOL,
+            "max_abs_err": readings["max_abs_err"],
+            "tolerance": dataclasses.asdict(TOLERANCES[torch.bfloat16]),
+            "readings": readings,
         }
-        if start is not None:
-            readings = compare(out, want, torch.bfloat16)
-            row.update(start=start, readings=readings, tile_rows=(
+        if start is None:
+            q = args[0]
+            row["n_split"] = pa.paged_decode_splits(
+                q.shape[0], q.shape[1], q.shape[2], kw["max_blocks"])
+        else:
+            row.update(start=start, tile_rows=(
                 lib.tpuhpc_prefill_tile_rows(
                     hkv, args[0].shape[1], g, args[0].shape[3],
                     kw["block_size"], DTYPE_CODES[args[0].dtype],
                     DTYPE_CODES[args[1].dtype])))
-            if not readings["ok"]:
-                raise SystemExit(f"{kname} {shape_name} quant={quant} start="
-                                 f"{start}: outside the bf16 rule {readings}")
-            if shape_name == "7b" and not quant and start == 256:
-                prefill_control(torch, args, kw, want)
+        if not readings["ok"]:
+            emit("kernels", **row)
+            raise SystemExit(f"{kname} {shape_name} quant={quant} start="
+                             f"{start}: outside the bf16 rule {readings}")
+        if kname == "paged_decode_attention" and out[args[5] == 0].any():
+            raise SystemExit(f"{kname}: inactive slot not exact zeros")
+        if shape_name == "7b" and not quant and start in (None, 256):
+            control = prefill_control if start else decode_control
+            control(torch, args, kw, want)
         timed = start in (None, 256)
         if timed:
             bound_ms, bound_by = bound(nb, fl, args[0].dtype)

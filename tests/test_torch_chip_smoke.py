@@ -13,9 +13,12 @@ ptxas info    : Used 240 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__9ef67e69_18_flash_attention_cu_2a72bd0a15flash_dq_kernelIfEEvPKT_S3_S3_S3_PKfS5_PS1_iiiiiiiif' for 'sm_90a'
 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__c2d5e0ab_18_paged_attention_cu_1a2b3c4d19paged_decode_kernelI13__nv_bfloat16aEEvPKT_S3_' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__c2d5e0ab_18_paged_attention_cu_1a2b3c4d25paged_decode_split_kernelI13__nv_bfloat16Li128ELi1EEEvPKvPKT_S6_PKiS8_S8_PKfSA_PvPfSC_iiiiiiiiif' for 'sm_90a'
 16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 32 registers, used 1 barriers, 64 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__c2d5e0ab_18_paged_attention_cu_1a2b3c4d27paged_decode_combine_kernelEPKfS1_PKiPviiiii' for 'sm_90a'
+0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers
 """
 
 
@@ -26,8 +29,11 @@ def test_ptxas_summary_names_each_kernel_and_its_spills():
          "spill_loads": 0, "registers": 240, "smem_static": 0},
         {"kernel": "flash_dq_kernel<f32>", "spill_stores": 0,
          "spill_loads": 0, "registers": 40, "smem_static": 0},
-        {"kernel": "paged_decode_kernel<bf16, int8>", "spill_stores": 16,
-         "spill_loads": 16, "registers": 32, "smem_static": 64},
+        {"kernel": "paged_decode_split_kernel<bf16, 128, 1>",
+         "spill_stores": 16, "spill_loads": 16, "registers": 32,
+         "smem_static": 64},
+        {"kernel": "paged_decode_combine_kernel", "spill_stores": 0,
+         "spill_loads": 0, "registers": 30, "smem_static": 0},
     ]
 
 
@@ -57,3 +63,4 @@ def test_flash_work_counts_visible_pairs():
         2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
     assert chip_smoke.visible_pairs(4, 6, True, 2, 0) == 3 + 4 + 5 + 6
     assert chip_smoke.visible_pairs(4, 6, False, 2, 0) == 24
+

@@ -18,8 +18,11 @@ plain version's fp32 arithmetic on the same inputs -- the output's bf16
 rounding (2^-8 relative) dominates. Prefill outputs whose q and pool
 share a 16-bit dtype must also pass tpu_hpc_torch/checks/tolerance.py's
 rule for that dtype (the flash kernels' rule: the wgmma kernel rounds P
-to the pool's dtype before P.V, as the Pallas kernel does). Float32
-engines must agree on every greedy token.
+to the pool's dtype before P.V, as the Pallas kernel does). Decode
+outputs are held by that rule for the output's dtype (the decode and
+its plain version both round P to a 16-bit pool's dtype, each relative
+to its own running max). Float32 engines must agree on every greedy
+token.
 """
 import numpy as np
 import pytest
@@ -78,23 +81,101 @@ def _pool(dev, kp, vp, pool):
     return k.to(dtype), v.to(dtype), {}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
-def test_decode_kernel_matches_plain(cuda, pool):
-    rng = np.random.default_rng(70)
-    q, kp, vp, tables, pos, active = _case(rng)
-    k, v, scales = _pool(cuda, kp, vp, pool)
-    args = (torch.from_numpy(q).to(cuda, torch.bfloat16), k, v,
-            *(torch.from_numpy(a).to(cuda) for a in (tables, pos, active)))
-    kw = dict(block_size=16, max_blocks=5, **scales)
+# Pool kinds of the decode tests: (pool dtype, q dtype).
+DECODE_POOLS = {
+    "float32": ("float32", torch.float32),
+    "float16": ("float16", torch.float16),
+    "bfloat16": ("bfloat16", torch.bfloat16),
+    "int8": ("int8", torch.bfloat16),
+    "bf16_q_over_f16_pool": ("float16", torch.bfloat16),
+}
+
+
+def _decode_long(dev, kind, *, g, d, bs, slots=6, hkv=2, mb=64, seed=0):
+    """Contexts that cross several of the kernel's runs: a full 64-page
+    view, the last key of run 0 and the first key of run 1 (``pos`` on
+    a run boundary), ``pos`` 0, a random ``pos``, and an inactive slot.
+    Dead table entries (inside a run too) point at a NaN page; in float
+    pools the keys past ``pos`` of a slot's last live page are NaN as
+    well (int8 pools: the dead page's scale is NaN)."""
+    rng = np.random.default_rng(seed)
+    pool, q_dtype = DECODE_POOLS[kind]
+    pps = -(-mb // pa.paged_decode_splits(slots, hkv, g, mb))
+    pos = np.array([mb * bs - 1, pps * bs - 1, pps * bs, 0,
+                    rng.integers(0, mb * bs), 5 * bs + 3], np.int32)
+    active = np.ones(slots, np.int32)
+    active[-1] = 0
+    n_live = [int(p) // bs + 1 for p in pos]
+    num_blocks = sum(n_live) + 2
+    shape = (num_blocks, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    kp[-1] = vp[-1] = np.nan
+    tables = np.full((slots, mb + 3), num_blocks - 1, np.int32)
+    pages = rng.permutation(np.arange(1, num_blocks - 1)).astype(np.int32)
+    nxt = 0
+    for s in range(slots):
+        tables[s, :n_live[s]] = pages[nxt:nxt + n_live[s]]
+        nxt += n_live[s]
+        if pool != "int8" and active[s]:
+            last, tail = tables[s, n_live[s] - 1], int(pos[s]) % bs + 1
+            kp[last, tail:] = vp[last, tail:] = np.nan
+    k, v, scales = _pool(dev, kp, vp, pool)
+    q = torch.from_numpy(
+        rng.standard_normal((slots, hkv, g, d)).astype(np.float32)
+    ).to(dev, q_dtype)
+    args = (q, k, v, *(torch.from_numpy(a).to(dev)
+                       for a in (tables, pos, active)))
+    return args, dict(block_size=bs, max_blocks=mb, **scales)
+
+
+def _check_decode(args, kw):
     n0 = pa.paged_decode_attention.launches
     got = pa.paged_decode_attention(*args, **kw)
     torch.cuda.synchronize()
     assert pa.paged_decode_attention.launches == n0 + 1
     want = pa.paged_decode_attention_ref(*args, **kw)
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
-    assert not got[args[5] == 0].any()
+    assert not got[args[5] == 0].any()  # inactive slot: exact zeros
+    readings = compare(got, want, got.dtype)
+    assert readings["ok"], readings
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", list(DECODE_POOLS))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_decode_kernel_matches_plain(cuda, bs, g, d, pool):
+    """Every pool kind over page sizes 8-64, groups 1-8 and both
+    head-dim variants, on contexts that cross several runs, held by
+    checks/tolerance.py's rule for the output's dtype."""
+    _check_decode(*_decode_long(cuda, pool, g=g, d=d, bs=bs,
+                                seed=bs + 3 * g + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 8])
+def test_decode_kernel_is_bit_identical_across_launches(cuda, g):
+    """The runs are merged in a fixed order, with no atomics."""
+    args, kw = _decode_long(cuda, "bfloat16", g=g, d=128, bs=16, seed=g)
+    first = _check_decode(args, kw)
+    again = pa.paged_decode_attention(*args, **kw)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_short_views(cuda):
+    """A view of fewer than eight pages takes one run, whose block
+    writes the output itself (no combine)."""
+    rng = np.random.default_rng(70)
+    q, kp, vp, tables, pos, active = _case(rng)
+    assert pa.paged_decode_splits(5, 2, 4, 5) == 1
+    k, v, scales = _pool(cuda, kp, vp, "bfloat16")
+    args = (torch.from_numpy(q).to(cuda, torch.bfloat16), k, v,
+            *(torch.from_numpy(a).to(cuda) for a in (tables, pos, active)))
+    _check_decode(args, dict(block_size=16, max_blocks=5, **scales))
 
 
 # Pool kinds of the prefill tests: (pool dtype, q dtype, the kernel the

@@ -13,10 +13,11 @@ Tolerance: float32 pools at ``atol 2e-5 / rtol 1e-5`` -- the two sides
 sum in different orders (an online softmax page by page against one
 softmax over the whole view), nothing else differs. bf16 pools (the
 serving path's working dtype): ``tpu_hpc_torch/checks/tolerance.py``'s
-bf16 rule, the one the card holds the kernels to -- the Pallas kernel
-rounds P to the pool's bf16 before P.V (paged_attention.py:297-301)
-while the plain version keeps P in fp32, and both round the output to
-bf16.
+bf16 rule, the one the card holds the kernels to -- the Pallas kernels
+round P to the pool's bf16 before P.V (paged_attention.py:152-156,
+:297-301); the plain decode does too (relative to the whole view's max,
+where the Pallas kernel rounds relative to its running max), the plain
+prefill keeps P in fp32, and all round the output to bf16.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_gpu.py. JAX is imported through
@@ -142,6 +143,125 @@ def test_decode_int8_pool_matches_pallas_kernel():
         block_size=4, max_blocks=6, k_scale=_t(ksc), v_scale=_t(vsc),
     ).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_bf16_pool_matches_pallas_kernel(g):
+    """q and pool in bf16: the Pallas kernel's bf16 matmuls (P rounded
+    to bf16 before P.V) against the port's plain version on the same
+    bf16 values, under the bf16 rule of checks/tolerance.py."""
+    rng = np.random.default_rng(90 + g)
+    q, kp, vp, tables, pos, active = _random_case(rng, g=g, d=64,
+                                                  block_size=8)
+    qb, kb, vb = (_t(a).to(torch.bfloat16) for a in (q, kp, vp))
+    want = jax_pa.paged_decode_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (qb, kb, vb)),
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active),
+        block_size=8, max_blocks=6, interpret=True,
+    )
+    assert want.dtype == jnp.bfloat16
+    got = pt_pa.paged_decode_attention(
+        qb, kb, vb, _t(tables), _t(pos), _t(active),
+        block_size=8, max_blocks=6,
+    )
+    assert got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    readings = compare(got, _t(np.asarray(want, np.float32)), torch.bfloat16)
+    assert readings["ok"], readings
+
+
+def _run_boundary_case(rng, pps, *, slots=5, hkv=2, g=2, d=16, bs=4, mb=6,
+                       num_blocks=24):
+    """Slots whose ``pos`` is the last key of run 0, the first key of
+    run 1 (runs of ``pps`` pages), 0, and random; the last slot is
+    inactive. Dead entries point at the NaN last page."""
+    shape = (num_blocks, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    kp[0] = vp[0] = 0.0
+    kp[-1] = vp[-1] = np.nan
+    q = rng.standard_normal((slots, hkv, g, d)).astype(np.float32)
+    pos = np.array([pps * bs - 1, pps * bs, 0, rng.integers(0, mb * bs), 7],
+                   np.int32)
+    active = np.array([1, 1, 1, 1, 0], np.int32)
+    tables = np.full((slots, mb), num_blocks - 1, np.int32)
+    for s in range(slots - 1):
+        n_live = int(pos[s]) // bs + 1
+        tables[s, :n_live] = rng.choice(np.arange(1, num_blocks - 1),
+                                        size=n_live, replace=False)
+    return q, kp, vp, tables, pos, active
+
+
+@pytest.mark.parametrize("pool", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("pps", [1, 2, 3])
+def test_decode_split_then_combine_matches_plain_and_pallas(pps, pool):
+    """The kernel's two passes written plainly: the view cut into runs
+    of ``pps`` pages (6, 3 and 2 runs), each run's partial, then the
+    combine, equal the plain decode and the Pallas decode. Runs past
+    ``pos`` and the inactive slot's runs have lse exactly MASK_VALUE,
+    and their outputs -- never written by the kernel -- are NaN here, so
+    a combine that reads them poisons its output. float32 and int8
+    pools at ``atol 2e-5 / rtol 1e-5`` (summation order only); bf16 under
+    checks/tolerance.py's bf16 rule (P is rounded to bf16 relative to
+    each run's own max, not the whole view's)."""
+    rng = np.random.default_rng(100 + 10 * pps + len(pool))
+    bs, mb = 4, 6
+    n_split = -(-mb // pps)
+    q, kp, vp, tables, pos, active = _run_boundary_case(rng, pps, bs=bs,
+                                                        mb=mb)
+    kw = dict(block_size=bs, max_blocks=mb)
+    jkw = dict(kw)
+    if pool == "int8":
+        kp[-1] = vp[-1] = 0.0
+        kq, ksc, vq, vsc = _quantized(kp, vp)
+        ksc[-1] = vsc[-1] = np.nan
+        kp, vp = kq, vq
+        kw.update(k_scale=_t(ksc), v_scale=_t(vsc))
+        jkw.update(k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+    args = [_t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active)]
+    jargs = [jnp.asarray(a) for a in (q, kp, vp)]
+    if pool == "bfloat16":
+        for i in range(3):
+            args[i] = args[i].to(torch.bfloat16)
+            jargs[i] = jnp.asarray(args[i].float().numpy()).astype(
+                jnp.bfloat16)
+    o_part, lse_part = pt_pa.paged_decode_split_ref(*args, n_split=n_split,
+                                                     **kw)
+    assert o_part.shape == (5, 2, n_split, 2, 16)
+    empty = lse_part <= pt_attention.MASK_VALUE * 0.5
+    assert (lse_part[empty] == pt_attention.MASK_VALUE).all()
+    assert empty[4].all()                      # the inactive slot
+    assert empty[0, :, 1:].all() and not empty[0, :, 0].any()
+    assert empty[1, :, 2:].all() and not empty[1, :, :2].any()
+    assert empty[2, :, 1:].all()               # pos 0: one key, run 0
+    o_part = torch.where(empty[..., None], float("nan"), o_part)
+    got = pt_pa.paged_decode_combine_ref(o_part, lse_part, args[5],
+                                         args[0].dtype)
+    plain = pt_pa.paged_decode_attention_ref(*args, **kw)
+    pallas = jax_pa.paged_decode_attention(
+        *jargs, *(jnp.asarray(a) for a in (tables, pos, active)),
+        interpret=True, **jkw)
+    pallas = _t(np.array(pallas, np.float32))
+    assert torch.isfinite(got).all()
+    assert not got[4].any()                    # inactive: exact zeros
+    if pool == "bfloat16":
+        for want in (plain, pallas):
+            readings = compare(got, want, torch.bfloat16)
+            assert readings["ok"], readings
+        return
+    for want in (plain, pallas):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                   rtol=RTOL)
+    # The combine is lse_merge's rule: folding the live runs pairwise
+    # with it gives the same output.
+    o_fold, lse_fold = o_part[:, :, 0], lse_part[:, :, 0]
+    for run in range(1, n_split):
+        o_run = torch.nan_to_num(o_part[:, :, run])
+        o_fold, lse_fold = pt_attention.lse_merge(
+            torch.nan_to_num(o_fold), lse_fold, o_run, lse_part[:, :, run])
+    np.testing.assert_allclose(got.numpy()[:4], o_fold.numpy()[:4],
+                               atol=1e-6, rtol=1e-6)
 
 
 def test_decode_wider_table_reads_only_max_blocks():

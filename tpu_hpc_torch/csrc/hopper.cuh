@@ -23,7 +23,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -58,12 +61,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory. Above
+// 48 KB that takes an opt-in, made once per kernel and device for the
+// whole 227 KB (the opt-in is a cap; a launch's occupancy follows the
+// bytes it asks for), so later launches skip cudaFuncSetAttribute.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> granted;
+  const std::pair<const void*, int> key{reinterpret_cast<const void*>(kernel), dev};
+  std::lock_guard<std::mutex> lock(mu);
+  if (granted.count(key) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess) granted.insert(key);
+  return err;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -3,8 +3,10 @@
 // Kernels replacing the two Pallas kernels of the JAX package's
 // tpu_hpc/kernels/paged_attention.py:
 //
-//   paged_decode_kernel          replaces _decode_kernel (launched by
-//                                paged_decode_attention).
+//   paged_decode_split_kernel    replace _decode_kernel (launched by
+//   paged_decode_combine_kernel  paged_decode_attention): the first walks
+//                                one run of a slot's pages, the second
+//                                merges the runs (flash-decoding).
 //   paged_prefill_wgmma_kernel   replace _prefill_kernel (launched by
 //   paged_prefill_kernel         paged_prefill_attention): the first for
 //                                16-bit q and pool of one dtype, the
@@ -18,14 +20,14 @@
 // taken from data (pos per slot, start per chunk), inactive slots
 // written as zeros, optional int8 pages dequantized with one f32 scale
 // per page -- but are laid out for the card, not carried over block by
-// block. (The wgmma prefill rounds P to the pool's dtype before P . V,
-// as the Pallas kernel does; the scalar kernels keep P in fp32, which
-// is the Pallas kernel's arithmetic for float32 and int8 pools, and
-// differs from it only by that rounding for a 16-bit pool under a q of
-// another dtype.)
+// block. The decode and the wgmma prefill round P to the pool's dtype
+// before P . V for a 16-bit pool, as the Pallas kernels do; the scalar
+// prefill keeps P in fp32, which is the Pallas kernel's arithmetic for
+// float32 and int8 pools, and differs from it only by that rounding for
+// a 16-bit pool under a q of another dtype.
 //
 //   * the TPU grid's sequential page axis becomes a loop inside one
-//     thread block;
+//     thread block (split into runs of pages for the decode);
 //   * scalar prefetch becomes each block reading its own table row,
 //     pos and active flag;
 //   * a block issues no read of a page past its causal limit, of a
@@ -35,15 +37,49 @@
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16):
 //
-//   decode   bytes. Each live KV page is read once per (slot, kv_head)
-//            block and a query row does 4*d FLOPs per key, so the work
-//            is ~1 FLOP per byte of KV -- far below the card's ~295
-//            FLOP/byte ridge. The bound is the live KV bytes over the
-//            memory rate.
+//   decode   bytes. Each live KV page of a head is read once and a query
+//            row does 4 d FLOPs per key, so the work is g FLOPs per
+//            byte of a 16-bit pool (g query rows per KV head) -- far
+//            below the card's ~295 FLOP/byte ridge. The bound is the
+//            live KV bytes over 3.35 TB/s.
 //   prefill  at the main path's shapes (Llama-2-7B: 32 heads, d 128, a
 //            256-token chunk over up to 512 keys) the causal FLOPs
 //            (~1.6 GFLOP) and the bytes (~10 MB) give bounds of
 //            ~1.6 us and ~3 us: bytes again, by a small margin.
+//
+// The decode is built to keep the memory system busy:
+//
+//   * split over pages. Grid (kv_heads, runs, slots x row groups): a
+//     block walks one run of pages_per_split table entries (at least
+//     kDecodeMinPages), so a long context is spread over many SMs and
+//     the grid fills the card at GQA shapes too; the heads of a run are
+//     neighbours in the grid, so the blocks that read one page run
+//     together. The host picks the number of runs from max_blocks and
+//     slots x kv_heads alone (never from pos, which would synchronise
+//     the stream). A run past pos, or an inactive slot, writes an empty
+//     partial (lse = MASK_VALUE) and returns without a load. A run's
+//     partial is its output normalised by its own sum (fp32) and its
+//     lse; paged_decode_combine_kernel merges a slot's runs in a fixed
+//     order with lse_merge's m_safe and denom_safe rules (no atomics:
+//     two launches give the same bits). With one run the split kernel
+//     writes the output itself.
+//   * pipelined 16-byte loads. A run is streamed as tiles of up to 32
+//     keys of one page (K and V, bs rows of d contiguous elements at a
+//     stride of kv_heads d) by 16-byte cp.async into a ring of
+//     kDecodeStages tiles: the next tiles are in flight while one is
+//     consumed, and a block meets one barrier per tile. Keys past pos
+//     in the last page are zero-filled, never read.
+//   * arithmetic in registers. The block's query rows and their fp32
+//     output live in registers; a key group of kD / 8 lanes (kD: d
+//     rounded up to 64 or 128) owns one key at a time, each lane 8
+//     columns of it, so a score is 8 FMAs and a short shuffle
+//     reduction, and K and V are read from shared memory once for all
+//     g rows. Each key group keeps its own running max and sum (exp2,
+//     with log2 e folded into the scale) over its keys; the groups'
+//     partials are merged once, at the end of the run. int8 pages fold
+//     the page scale into S and P (s = (q . k_int8) k_scale, p
+//     v_scale): the fp32 rounding order differs from the reference's
+//     k.astype(f32) * scale by that reordering only.
 //
 // The 16-bit prefill is built for the tensor cores and the copy engine:
 // one block per (KV head, 64 grouped q rows), whose Q tile arrives by
@@ -51,12 +87,10 @@
 // page into a ring that a producer warp keeps ahead of the consumer
 // warpgroup; scores, probabilities and the output accumulate in
 // registers through the online-softmax walk the training forward uses
-// (hopper.cuh). The decode kernel and the other prefill routes keep the
-// first, simple design: scalar fp32 FMAs over shared memory, K/V pages
-// staged with plain loads, four barriers per page, and (decode) one
-// block per (slot, kv_head) with no split over pages, so a long context
-// is walked by one SM. PERF.md carries the measured times against the
-// bounds.
+// (hopper.cuh). The other prefill routes keep the first, simple design:
+// scalar fp32 FMAs over shared memory, K/V pages staged with plain
+// loads, four barriers per page. PERF.md carries the measured times
+// against the bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
@@ -65,9 +99,12 @@
 
 #include "hopper.cuh"
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
-constexpr int kDecodeThreads = 128;
 constexpr int kPrefillThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -102,101 +139,531 @@ __device__ __forceinline__ void softmax_step(float* s, int bs, float* m,
 }
 
 // ---------------------------------------------------------------------
-// Decode: one query token per slot. Grid (slots, kv_heads); the block
-// holds the slot's g grouped query rows and walks pages 0 .. pos // bs.
+// Decode: one query token per slot, split over runs of pages.
 // ---------------------------------------------------------------------
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
-    const QT* __restrict__ q,          // (slots, hkv, g, d)
-    const KT* __restrict__ k_pages,    // (num_blocks, bs, hkv, d)
-    const KT* __restrict__ v_pages,
-    const int* __restrict__ tables,    // (slots, table_width)
-    const int* __restrict__ pos,       // (slots,)
-    const int* __restrict__ active,    // (slots,)
-    const float* __restrict__ k_scale,  // (num_blocks,) or null
-    const float* __restrict__ v_scale,
-    QT* __restrict__ out,              // (slots, hkv, g, d)
-    int hkv, int g, int d, int bs, int table_width, int max_blocks,
-    float sm_scale) {
-  const int slot = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int kWarps = kDecodeThreads / 32;
-  const int gd = g * d;
-  const size_t qoff = (static_cast<size_t>(slot) * hkv + h) * gd;
+constexpr int kDecodeThreads = 128;       // 4 warps
+constexpr int kDecodeStages = 4;          // tiles in the cp.async ring
+constexpr int kDecodeMaxRows = 4;         // query rows of one block
+constexpr int kDecodeMinPages = 8;        // pages of one run, at least
+constexpr int kDecodeMaxSplits = 32;      // runs of one slot, at most
+constexpr int kDecodeBlocksPerSm = 16;    // grid the split aims for
+constexpr int kDecodeKeysPerGroup = 4;    // keys of a tile per key group
+constexpr int kDecodeTileBytes = 16384;   // K (or V) bytes of a tile
 
-  if (active[slot] == 0) {  // no page is read for an inactive slot
-    for (int i = tid; i < gd; i += kDecodeThreads) out[qoff + i] = from_f<QT>(0.f);
+// Lanes of one key group (8 columns each) and key groups per block, for
+// head dims up to kD.
+template <int kD>
+struct DecodeShape {
+  static constexpr int kLanes = kD / 8;
+  static constexpr int kGroups = kDecodeThreads / kLanes;
+};
+
+// Column of element e (0-7) of lane l's slice of a row: 16-bit and int8
+// rows give a lane 8 neighbouring columns (one 16- or 8-byte shared
+// load), float32 rows two runs of 4, one in each half of a kD-wide row
+// (two 16-byte loads); the group's loads are conflict-free either way.
+template <typename KT, int kD>
+__device__ __forceinline__ int slice_col(int l, int e) {
+  if constexpr (sizeof(KT) == 4) {
+    return (e >> 2) * (kD / 2) + 4 * l + (e & 3);
+  } else {
+    return 8 * l + e;
+  }
+}
+
+__device__ __forceinline__ float2 to_f2(__half2 x) { return __half22float2(x); }
+__device__ __forceinline__ float2 to_f2(__nv_bfloat162 x) {
+  return __bfloat1622float2(x);
+}
+
+// Lane l's 8 elements of a d-element row in shared memory, as floats;
+// columns at or past d read as 0.
+template <typename KT, int kD>
+__device__ __forceinline__ void load_slice(const KT* row, int l, int d,
+                                           float (&x)[8]) {
+  if constexpr (sizeof(KT) == 4) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = half * (kD / 2) + 4 * l;
+      const float4 v = c < d ? *reinterpret_cast<const float4*>(row + c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[4 * half] = v.x;
+      x[4 * half + 1] = v.y;
+      x[4 * half + 2] = v.z;
+      x[4 * half + 3] = v.w;
+    }
+  } else if constexpr (sizeof(KT) == 2) {
+    using KT2 = typename std::conditional<std::is_same<KT, __half>::value,
+                                          __half2, __nv_bfloat162>::type;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (8 * l < d) u = *reinterpret_cast<const uint4*>(row + 8 * l);
+    const KT2* p = reinterpret_cast<const KT2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = to_f2(p[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+    uint2 u = make_uint2(0u, 0u);
+    if (8 * l < d) u = *reinterpret_cast<const uint2*>(row + 8 * l);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
+  }
+}
+
+// P as the P . V product takes it: rounded to a 16-bit pool's dtype (as
+// the Pallas kernel's p.astype(v.dtype)), fp32 otherwise.
+template <typename KT>
+__device__ __forceinline__ float pool_round(float p) {
+  if constexpr (std::is_same<KT, __half>::value) {
+    return __half2float(__float2half_rn(p));
+  } else if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  } else {
+    return p;
+  }
+}
+
+// Element i of a q-dtype array (dtype code of kernels/attention.py).
+__device__ __forceinline__ float load_q(const void* p, size_t i, int dtype) {
+  if (dtype == kF16) return __half2float(static_cast<const __half*>(p)[i]);
+  if (dtype == kBF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  }
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_q(void* p, size_t i, float x, int dtype) {
+  if (dtype == kF16) {
+    static_cast<__half*>(p)[i] = __float2half_rn(x);
+  } else if (dtype == kBF16) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+  } else {
+    static_cast<float*>(p)[i] = x;
+  }
+}
+
+template <int kLanes>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16-byte cp.async; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) & ~15; }
+
+// Bytes of the run's page ids (and int8 scales) ahead of the ring.
+__host__ __device__ inline int decode_table_bytes(int pages, bool quant) {
+  return align16(pages * (quant ? 12 : 4));
+}
+
+// Shared memory of a split block: the run's table, then the ring of
+// kDecodeStages (K, V) tiles, reused at the end for the key groups'
+// partials: o [groups][rows][d], m and l [groups][rows], the merge
+// weights [groups][rows].
+template <int kD, int kRows>
+size_t split_smem_bytes(int pages, bool quant, int tile_keys, int d,
+                         int esize) {
+  constexpr int kGroups = DecodeShape<kD>::kGroups;
+  const size_t ring = static_cast<size_t>(kDecodeStages) * 2 * tile_keys * d * esize;
+  const size_t merge = sizeof(float) * (static_cast<size_t>(kGroups) * kRows * d +
+                                        3 * kGroups * kRows);
+  return decode_table_bytes(pages, quant) + (ring > merge ? ring : merge);
+}
+
+// Keys of one streamed tile: the largest divisor of bs that keeps every
+// key group at kDecodeKeysPerGroup keys or fewer, a tile's K bytes at
+// kDecodeTileBytes or fewer, and 32 keys at most.
+int decode_tile_keys(int d, int bs, int esize, int groups) {
+  int cap = kDecodeKeysPerGroup * groups;
+  cap = cap < 32 ? cap : 32;
+  const int by_bytes = kDecodeTileBytes / (d * esize);
+  cap = cap < by_bytes ? cap : by_bytes;
+  for (int t = cap < bs ? cap : bs; t > 1; --t) {
+    if (bs % t == 0) return t;
+  }
+  return 1;
+}
+
+// Runs per slot: enough blocks for kDecodeBlocksPerSm per SM if every
+// slot's view were full, at least kDecodeMinPages pages a run, at most
+// kDecodeMaxSplits runs; none past max_blocks.
+int decode_splits(int slots, int hkv, int g, int max_blocks, int sms) {
+  const int base = slots * hkv * ((g + kDecodeMaxRows - 1) / kDecodeMaxRows);
+  int most = max_blocks / kDecodeMinPages;
+  most = most < kDecodeMaxSplits ? most : kDecodeMaxSplits;
+  most = most > 1 ? most : 1;
+  int n = (kDecodeBlocksPerSm * sms + base - 1) / (base > 0 ? base : 1);
+  n = n < most ? n : most;
+  n = n > 1 ? n : 1;
+  const int pps = (max_blocks + n - 1) / n;
+  return (max_blocks + pps - 1) / pps;
+}
+
+// Head dims the decode takes: multiples of 16 (one 16-byte load is 16
+// int8 columns) up to 128.
+bool decode_takes(int d) { return d >= 16 && d <= 128 && d % 16 == 0; }
+
+// The split kernel's copies: thread tid moves 16-byte chunk `my_chunk`
+// of rows my_row, my_row + row_step, ... of a tile's K rows then V rows
+// (k and v already point at that chunk of the head), and issue() walks
+// the run's tiles in order -- a page at a time, bs / tile_keys tiles a
+// page -- so no division is left in the loop.
+template <typename KT>
+struct DecodeCopy {
+  const KT* k;
+  const KT* v;
+  const int* tbl;      // the run's page ids, in shared memory
+  size_t tok_stride;   // elements from one key to the next
+  uint32_t ring;       // this thread's chunk of stage 0's first K row
+  int bs, tile_keys, row_bytes, tile_bytes, row_step, my_row, key0, key_end,
+      n_tiles;
+  int page = 0, row = 0;  // the next tile's page (in the run) and row
+
+  // Loads tile `tile` (the next one) into its ring stage; keys past the
+  // run's end are zero-filled. Always one commit group, so the wait
+  // counts of the walk hold at the end of the run too.
+  __device__ __forceinline__ void issue(int tile) {
+    if (tile < n_tiles && my_row < row_step) {
+      const int k_first = key0 + tile * tile_keys;
+      const size_t base = (static_cast<size_t>(tbl[page]) * bs + row) * tok_stride;
+      const uint32_t dst0 = ring + (tile % kDecodeStages) * 2 * tile_bytes;
+      for (int r = my_row; r < 2 * tile_keys; r += row_step) {
+        const int which = r >= tile_keys;
+        const int t = r - which * tile_keys;
+        cp_async16(dst0 + which * tile_bytes + t * row_bytes,
+                   (which ? v : k) + base + t * tok_stride,
+                   k_first + t < key_end ? 16 : 0);
+      }
+    }
+    row += tile_keys;
+    if (row == bs) {
+      row = 0;
+      ++page;
+    }
+    cp_async_commit();
+  }
+};
+
+// Up to 128 registers a thread: left to itself ptxas holds the g-1 and
+// g-2 instantiations at 64-96 and spills a few bytes; the cap lets them
+// grow instead, and keeps the 4-row ones at 128 (4 blocks an SM).
+template <typename KT, int kD, int kRows>
+__global__ void __maxnreg__(128) paged_decode_split_kernel(
+    const void* __restrict__ q,          // (slots, hkv, g, d), q_dtype
+    const KT* __restrict__ k_pages,      // (num_blocks, bs, hkv, d)
+    const KT* __restrict__ v_pages,
+    const int* __restrict__ tables,      // (slots, table_width)
+    const int* __restrict__ pos,         // (slots,)
+    const int* __restrict__ active,      // (slots,)
+    const float* __restrict__ k_scale,   // (num_blocks,): int8 pools
+    const float* __restrict__ v_scale,
+    void* __restrict__ out,              // (slots, hkv, g, d): one run
+    float* __restrict__ o_part,          // (slots, hkv, runs, g, d)
+    float* __restrict__ lse_part,        // (slots, hkv, runs, g)
+    int q_dtype, int hkv, int g, int d, int bs, int table_width,
+    int max_blocks, int pages_per_split, int tile_keys, float scale2) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int kLanes = DecodeShape<kD>::kLanes;
+  constexpr int kGroups = DecodeShape<kD>::kGroups;
+  const int h = blockIdx.x;  // heads first: a run's pages are read together
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int row_groups = (g + kRows - 1) / kRows;
+  const int slot = blockIdx.z / row_groups;
+  const int row0 = (blockIdx.z - slot * row_groups) * kRows;
+  const int n_rows = min(kRows, g - row0);
+  const int tid = threadIdx.x;
+  const int l = tid % kLanes;   // lane within the key group
+  const int kg = tid / kLanes;  // key group
+  const size_t head = static_cast<size_t>(slot) * hkv + h;
+  const size_t part_row = (head * n_split + split) * g + row0;
+
+  extern __shared__ __align__(16) unsigned char decode_smem[];
+  int* tbl = reinterpret_cast<int*>(decode_smem);
+  float* ksc = reinterpret_cast<float*>(tbl + pages_per_split);
+  float* vsc = ksc + pages_per_split;
+  unsigned char* ring = decode_smem + decode_table_bytes(pages_per_split, kQuant);
+
+  // pos, the run's page ids and the query rows load together: a table
+  // entry is read whether or not its page is live (no page is read for
+  // it), so the first page loads wait for one round trip, not two.
+  const int p_pos = pos[slot];
+  const int is_active = active[slot];
+  const int page0 = split * pages_per_split;
+  const int page_end = min(page0 + pages_per_split, max_blocks);
+  const int* trow = tables + static_cast<size_t>(slot) * table_width + page0;
+  for (int i = tid; i < page_end - page0; i += kDecodeThreads) tbl[i] = trow[i];
+  // This lane's 8 columns of the block's query rows.
+  float qr[kRows][8];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = slice_col<KT, kD>(l, e);
+      qr[r][e] = r < n_rows && col < d
+                     ? load_q(q, (head * g + row0 + r) * d + col, q_dtype)
+                     : 0.f;
+    }
+  }
+  if (is_active == 0 || page0 > p_pos / bs) {
+    // The empty partial: no key seen, nothing read.
+    if (n_split == 1) {
+      for (int i = tid; i < n_rows * d; i += kDecodeThreads)
+        store_q(out, (head * g + row0) * d + i, 0.f, q_dtype);
+    } else {
+      for (int r = tid; r < n_rows; r += kDecodeThreads)
+        lse_part[part_row + r] = kMaskValue;
+    }
     return;
   }
+  const int key0 = page0 * bs;
+  const int key_end = min(page_end * bs, p_pos + 1);
+  const int n_pages = (key_end - key0 + bs - 1) / bs;
+  const int n_tiles = (key_end - key0 + tile_keys - 1) / tile_keys;
 
-  extern __shared__ float smem[];
-  float* qs = smem;               // [g][d]
-  float* acc = qs + gd;           // [g][d]
-  float* sc = acc + gd;           // [g][bs]
-  float* m = sc + g * bs;         // [g]
-  float* l = m + g;               // [g]
-  float* alpha = l + g;           // [g]
-
-  for (int i = tid; i < gd; i += kDecodeThreads) {
-    qs[i] = to_f(q[qoff + i]);
-    acc[i] = 0.f;
+  if constexpr (kQuant) {
+    for (int i = tid; i < n_pages; i += kDecodeThreads) {
+      ksc[i] = k_scale[trow[i]];
+      vsc[i] = v_scale[trow[i]];
+    }
   }
-  for (int r = tid; r < g; r += kDecodeThreads) {
+  __syncthreads();  // the table is in shared memory
+  const int row_bytes = d * static_cast<int>(sizeof(KT));
+  const int tile_bytes = tile_keys * row_bytes;
+
+  const int chunks_row = row_bytes / 16;
+  const int my_row = tid / chunks_row;
+  const int my_chunk = tid - my_row * chunks_row;
+  const size_t my_col = static_cast<size_t>(h) * d + my_chunk * (16 / static_cast<int>(sizeof(KT)));
+  DecodeCopy<KT> copy{k_pages + my_col, v_pages + my_col, tbl,
+                      static_cast<size_t>(hkv) * d,
+                      smem_u32(ring) + my_chunk * 16, bs, tile_keys, row_bytes,
+                      tile_bytes, kDecodeThreads / chunks_row, my_row, key0,
+                      key_end, n_tiles};
+
+  float o[kRows][8];
+  float m[kRows], lsum[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
     m[r] = kMaskValue;
-    l[r] = 0.f;
+    lsum[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[r][e] = 0.f;
+  }
+  const int kpg = (tile_keys + kGroups - 1) / kGroups;  // keys per group
+
+#pragma unroll
+  for (int st = 0; st < kDecodeStages - 1; ++st) copy.issue(st);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kDecodeStages - 2>();  // this thread's copies of `tile`
+    __syncthreads();  // everyone's copies; the stage refilled below is free
+    copy.issue(tile + kDecodeStages - 1);
+    const KT* ks = reinterpret_cast<const KT*>(
+        ring + (tile % kDecodeStages) * 2 * tile_bytes);
+    const KT* vs = ks + tile_keys * d;
+    const int k_first = key0 + tile * tile_keys;
+    float k_sc = 1.f, v_sc = 1.f;
+    if constexpr (kQuant) {
+      k_sc = ksc[k_first / bs - page0];
+      v_sc = vsc[k_first / bs - page0];
+    }
+    // Scores of the group's keys, in log2 units.
+    float s[kDecodeKeysPerGroup][kRows];
+#pragma unroll
+    for (int j = 0; j < kDecodeKeysPerGroup; ++j) {
+      if (j >= kpg) break;  // uniform over the block
+      const int t = kg + j * kGroups;
+      const bool seen = t < tile_keys && k_first + t < key_end;
+      float kx[8];
+      if (seen) {
+        load_slice<KT, kD>(ks + t * d, l, d, kx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kx[e] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part = fmaf(qr[r][e], kx[e], part);
+        part = group_sum<kLanes>(part);
+        s[j][r] = seen ? part * k_sc * scale2 : kMaskValue;
+      }
+    }
+    // Online softmax over them, per row.
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < kDecodeKeysPerGroup; ++j)
+        if (j < kpg) mx = fmaxf(mx, s[j][r]);
+      const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
+      const float alpha = exp2f(m[r] - m_safe);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kDecodeKeysPerGroup; ++j) {
+        if (j < kpg) {
+          const float p = s[j][r] > kMaskValue * 0.5f ? exp2f(s[j][r] - m_safe) : 0.f;
+          s[j][r] = p;
+          sum += p;
+        }
+      }
+      lsum[r] = alpha * lsum[r] + sum;
+      m[r] = mx;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[r][e] *= alpha;
+    }
+    // O += P . V, V read once for all rows.
+#pragma unroll
+    for (int j = 0; j < kDecodeKeysPerGroup; ++j) {
+      if (j >= kpg) break;
+      const int t = kg + j * kGroups;
+      if (t < tile_keys && k_first + t < key_end) {
+        float vx[8];
+        load_slice<KT, kD>(vs + t * d, l, d, vx);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float pv = pool_round<KT>(s[j][r]) * v_sc;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[r][e] = fmaf(pv, vx[e], o[r][e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+  __syncthreads();     // every group is done with the ring
+
+  // Merge the key groups' partials: o, m, l through shared memory.
+  float* o_s = reinterpret_cast<float*>(ring);   // [groups][rows][d]
+  float* m_s = o_s + kGroups * kRows * d;        // [groups][rows]
+  float* l_s = m_s + kGroups * kRows;
+  float* w_s = l_s + kGroups * kRows;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < n_rows) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = slice_col<KT, kD>(l, e);
+        if (col < d) o_s[(kg * kRows + r) * d + col] = o[r][e];
+      }
+      if (l == 0) {
+        m_s[kg * kRows + r] = m[r];
+        l_s[kg * kRows + r] = lsum[r];
+      }
+    }
   }
   __syncthreads();
-
-  const int p_pos = pos[slot];
-  const int n_pages = min(p_pos / bs + 1, max_blocks);
-  const int* trow = tables + static_cast<size_t>(slot) * table_width;
-  const size_t tok_stride = static_cast<size_t>(hkv) * d;
-  const size_t page_stride = static_cast<size_t>(bs) * tok_stride;
-
-  for (int j = 0; j < n_pages; ++j) {
-    const int page = trow[j];
-    const float ksc = k_scale != nullptr ? k_scale[page] : 1.f;
-    const float vsc = v_scale != nullptr ? v_scale[page] : 1.f;
-    const KT* kp = k_pages + page * page_stride + static_cast<size_t>(h) * d;
-    const KT* vp = v_pages + page * page_stride + static_cast<size_t>(h) * d;
-    // Keys past pos in the last page are masked and never loaded.
-    const int n_valid = min(bs, p_pos - j * bs + 1);
-
-    // Scores: one warp per (row, key) pair, lanes split head_dim.
-    for (int pair = warp; pair < g * bs; pair += kWarps) {
-      const int r = pair / bs;
-      const int t = pair - r * bs;
-      float s = kMaskValue;
-      if (t < n_valid) {
-        const KT* krow = kp + t * tok_stride;
-        const float* qrow = qs + r * d;
-        float part = 0.f;
-        for (int x = lane; x < d; x += 32) part += qrow[x] * (to_f(krow[x]) * ksc);
-        s = warp_sum(part) * sm_scale;
-      }
-      if (lane == 0) sc[pair] = s;
+  for (int r = tid; r < n_rows; r += kDecodeThreads) {
+    float mx = kMaskValue;
+    for (int i = 0; i < kGroups; ++i) mx = fmaxf(mx, m_s[i * kRows + r]);
+    const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
+    float total = 0.f;
+    for (int i = 0; i < kGroups; ++i) {
+      const float w = exp2f(m_s[i * kRows + r] - m_safe);
+      w_s[i * kRows + r] = w;
+      total += w * l_s[i * kRows + r];
     }
-    __syncthreads();
-    for (int r = tid; r < g; r += kDecodeThreads)
-      softmax_step(sc + r * bs, bs, m + r, l + r, alpha + r);
-    __syncthreads();
-    // acc = alpha * acc + P . V, one (row, column) element per thread.
-    for (int i = tid; i < gd; i += kDecodeThreads) {
-      const int r = i / d;
-      const int x = i - r * d;
-      const float* p = sc + r * bs;
-      float a = acc[i] * alpha[r];
-      for (int t = 0; t < n_valid; ++t) a += p[t] * (to_f(vp[t * tok_stride + x]) * vsc);
-      acc[i] = a;
+    const float l_safe = total == 0.f ? 1.f : total;
+    const float inv = __fdividef(1.f, l_safe);  // l_safe >= 1: no slow path
+    for (int i = 0; i < kGroups; ++i) w_s[i * kRows + r] *= inv;
+    if (n_split > 1) {
+      lse_part[part_row + r] =
+          mx <= kMaskValue * 0.5f ? kMaskValue : mx * kLn2 + logf(l_safe);
     }
-    __syncthreads();
   }
-  for (int i = tid; i < gd; i += kDecodeThreads) {
-    const float lr = l[i / d];
-    out[qoff + i] = from_f<QT>(acc[i] / (lr == 0.f ? 1.f : lr));
+  __syncthreads();
+  for (int i = tid; i < n_rows * d; i += kDecodeThreads) {
+    const int r = i / d;
+    const int x = i - r * d;
+    float acc = 0.f;
+    for (int j = 0; j < kGroups; ++j)
+      acc = fmaf(w_s[j * kRows + r], o_s[(j * kRows + r) * d + x], acc);
+    if (n_split == 1) {
+      store_q(out, (head * g + row0) * d + i, acc, q_dtype);
+    } else {
+      o_part[part_row * d + i] = acc;
+    }
+  }
+}
+
+// Merges a slot's runs: grid (kv_heads, slots). Per row, the runs'
+// weights exp(lse - m_safe) / denom_safe as in kernels/attention.py's
+// lse_merge, summed over the runs in order. The runs that saw a key are
+// a prefix (those that start at or before pos); only they were written,
+// and only they are read. An inactive slot's runs all saw none: its
+// output is zeros, and nothing but its lse is read.
+__global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
+    const float* __restrict__ o_part,    // (slots, hkv, runs, g, d)
+    const float* __restrict__ lse_part,  // (slots, hkv, runs, g)
+    void* __restrict__ out, int q_dtype, int hkv, int g, int d, int n_split) {
+  const int slot = blockIdx.y;
+  const size_t head = static_cast<size_t>(slot) * hkv + blockIdx.x;
+  const int tid = threadIdx.x;
+  extern __shared__ float combine_w[];  // [g][runs], then the live runs
+  int* live_runs = reinterpret_cast<int*>(combine_w + g * n_split);
+  for (int r = tid; r < g; r += kDecodeThreads) {
+    const float* lse = lse_part + head * n_split * g + r;
+    float mx = kMaskValue;
+    int n_live = 0;
+    for (int i = 0; i < n_split; ++i) {
+      const float x = lse[i * g];
+      mx = fmaxf(mx, x);
+      n_live += x > kMaskValue * 0.5f;
+    }
+    const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
+    float denom = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float w = expf(lse[i * g] - m_safe);
+      combine_w[r * n_split + i] = w;
+      denom += w;
+    }
+    // denom_safe; a live run's weight is 1 at the max, so denom >= 1.
+    const float inv = __fdividef(1.f, denom == 0.f ? 1.f : denom);
+    for (int i = 0; i < n_live; ++i) combine_w[r * n_split + i] *= inv;
+    if (r == 0) *live_runs = n_live;
+  }
+  __syncthreads();
+  const int n_live = *live_runs;
+  const int d4 = d / 4;
+  const float4* o4 = reinterpret_cast<const float4*>(o_part);
+  for (int i = tid; i < g * d4; i += kDecodeThreads) {
+    const int r = i / d4;
+    const float4* o = o4 + (head * n_split * g + r) * d4 + (i - r * d4);
+    const float* w = combine_w + r * n_split;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int run = 0; run < n_live; ++run) {
+      const float4 v = o[static_cast<size_t>(run) * g * d4];
+      acc.x = fmaf(w[run], v.x, acc.x);
+      acc.y = fmaf(w[run], v.y, acc.y);
+      acc.z = fmaf(w[run], v.z, acc.z);
+      acc.w = fmaf(w[run], v.w, acc.w);
+    }
+    const size_t at = head * g * d + 4 * static_cast<size_t>(i);
+    store_q(out, at, acc.x, q_dtype);
+    store_q(out, at + 1, acc.y, q_dtype);
+    store_q(out, at + 2, acc.z, q_dtype);
+    store_q(out, at + 3, acc.w, q_dtype);
   }
 }
 
@@ -468,10 +935,6 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
   walk_finish<T, kD>(rows, row_ptr, d, row_lse);
 }
 
-size_t decode_smem_bytes(int g, int d, int bs) {
-  return sizeof(float) * (2 * static_cast<size_t>(g) * d + g * bs + 3 * g);
-}
-
 size_t prefill_smem_bytes(int tq, int d, int bs) {
   const size_t dp = d + 1;
   return sizeof(float) *
@@ -505,23 +968,99 @@ int prefill_tile_rows(int hkv, int bucket, int g, int d, int bs, int route) {
   return tq;
 }
 
-template <typename QT, typename KT>
-int launch_decode(const void* q, const void* k_pages, const void* v_pages,
-                  const void* tables, const void* pos, const void* active,
-                  const void* k_scale, const void* v_scale, void* out, int slots,
-                  int hkv, int g, int d, int bs, int table_width, int max_blocks,
-                  float sm_scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(g, d, bs);
-  auto kernel = paged_decode_kernel<QT, KT>;
+// A decode launch's arguments, as the C entry point takes them.
+struct DecodeArgs {
+  const void *q, *k_pages, *v_pages, *tables, *pos, *active, *k_scale, *v_scale;
+  void* out;
+  float *o_part, *lse_part;
+  int slots, hkv, g, d, bs, table_width, max_blocks, n_split, q_dtype;
+  float sm_scale;
+};
+
+// The split kernel over every run, then (more than one run) the combine.
+template <typename KT, int kD, int kRows>
+int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int esize = sizeof(KT);
+  const int pps = (a.max_blocks + a.n_split - 1) / a.n_split;
+  const int tile = decode_tile_keys(a.d, a.bs, esize, DecodeShape<kD>::kGroups);
+  const size_t smem = split_smem_bytes<kD, kRows>(pps, kQuant, tile, a.d, esize);
+  auto kernel = paged_decode_split_kernel<KT, kD, kRows>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(slots, hkv), kDecodeThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k_pages),
-      static_cast<const KT*>(v_pages), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<const int*>(active),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<QT*>(out), hkv, g, d, bs, table_width, max_blocks, sm_scale);
+  const int row_groups = (a.g + kRows - 1) / kRows;
+  kernel<<<dim3(a.hkv, a.n_split, a.slots * row_groups), kDecodeThreads, smem,
+           stream>>>(
+      a.q, static_cast<const KT*>(a.k_pages), static_cast<const KT*>(a.v_pages),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.active), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), a.out, a.o_part, a.lse_part,
+      a.q_dtype, a.hkv, a.g, a.d, a.bs, a.table_width, a.max_blocks, pps, tile,
+      a.sm_scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return static_cast<int>(err);
+  const size_t combine_smem = sizeof(float) * (a.g * a.n_split + 1);
+  err = allow_smem(paged_decode_combine_kernel, combine_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_decode_combine_kernel<<<dim3(a.hkv, a.slots), kDecodeThreads,
+                                combine_smem, stream>>>(
+      a.o_part, a.lse_part, a.out, a.q_dtype, a.hkv, a.g, a.d, a.n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation for the head dim (64 or 128 columns of registers)
+// and the group (1, 2 or 4 query rows a block; larger groups take row
+// groups of 4).
+template <typename KT, int kD>
+int launch_decode_rows(const DecodeArgs& a, cudaStream_t stream) {
+  if (a.g <= 1) return launch_decode<KT, kD, 1>(a, stream);
+  if (a.g <= 2) return launch_decode<KT, kD, 2>(a, stream);
+  return launch_decode<KT, kD, kDecodeMaxRows>(a, stream);
+}
+
+template <typename KT>
+int launch_decode_shape(const DecodeArgs& a, cudaStream_t stream) {
+  return a.d <= 64 ? launch_decode_rows<KT, 64>(a, stream)
+                   : launch_decode_rows<KT, 128>(a, stream);
+}
+
+// SMs of the current device, read once per device.
+int device_sms() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+    cached[dev] = n;
+  }
+  return cached[dev];
+}
+
+// The pool's tensor map, encoded at the first launch over a pool
+// (pointer, page shape, box; the dtype is T) and reused after: a map
+// holds only those, so the cached map is the one the call would encode.
+constexpr size_t kPoolMapCacheSize = 4096;
+
+template <typename T>
+cudaError_t pool_map(CUtensorMap* map, const void* pool, int bs, int hkv, int d,
+                     int box) {
+  using Key = std::tuple<const void*, int, int, int, int>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> cache;
+  const Key key{pool, bs, hkv, d, box};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = bshd_map<T>(map, pool, kPoolPages, bs, hkv, d, box);
+  if (err != cudaSuccess) return err;
+  if (cache.size() >= kPoolMapCacheSize) cache.clear();
+  cache.emplace(key, *map);
+  return cudaSuccess;
 }
 
 template <typename T, int kD>
@@ -532,8 +1071,8 @@ int launch_prefill_wgmma(const void* q, const void* k_pages, const void* v_pages
   CUtensorMap m[3];
   const int box = bs < kWalkKeys ? bs : kWalkKeys;
   cudaError_t err = bshd_map<T>(&m[0], q, hkv, bucket * g, 1, d, kPrefillRows);
-  if (err == cudaSuccess) err = bshd_map<T>(&m[1], k_pages, kPoolPages, bs, hkv, d, box);
-  if (err == cudaSuccess) err = bshd_map<T>(&m[2], v_pages, kPoolPages, bs, hkv, d, box);
+  if (err == cudaSuccess) err = pool_map<T>(&m[1], k_pages, bs, hkv, d, box);
+  if (err == cudaSuccess) err = pool_map<T>(&m[2], v_pages, bs, hkv, d, box);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = prefill_wgmma_smem_bytes<kD>();
   auto kernel = paged_prefill_wgmma_kernel<T, kD>;
@@ -601,19 +1140,37 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
+// out: (slots, hkv, g, d) in q's dtype. o_part (slots, hkv, n_split, g,
+// d) and lse_part (slots, hkv, n_split, g), fp32, are the runs' partials
+// (null when n_split is 1); n_split comes from tpuhpc_decode_splits.
 int tpuhpc_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                         const void* tables, const void* pos, const void* active,
                         const void* k_scale, const void* v_scale, void* out,
-                        int slots, int hkv, int g, int d, int bs, int table_width,
-                        int max_blocks, float sm_scale, int q_dtype, int kv_dtype,
+                        void* o_part, void* lse_part, int slots, int hkv, int g,
+                        int d, int bs, int table_width, int max_blocks,
+                        int n_split, float sm_scale, int q_dtype, int kv_dtype,
                         void* stream) {
-  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8)
+  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8 ||
+      !decode_takes(d) || bs < 1 || max_blocks < 1 || n_split < 1 ||
+      n_split > max_blocks || (n_split > 1 && (o_part == nullptr || lse_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  TPUHPC_DISPATCH(q_dtype, kv_dtype,
-                  return (launch_decode<QT, KT>(
-                      q, k_pages, v_pages, tables, pos, active, k_scale,
-                      v_scale, out, slots, hkv, g, d, bs, table_width,
-                      max_blocks, sm_scale, static_cast<cudaStream_t>(stream))))
+  const DecodeArgs a{q, k_pages, v_pages, tables, pos, active, k_scale, v_scale,
+                     out, static_cast<float*>(o_part), static_cast<float*>(lse_part),
+                     slots, hkv, g, d, bs, table_width, max_blocks, n_split,
+                     q_dtype, sm_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv_dtype) {
+    case kF32: return launch_decode_shape<float>(a, s);
+    case kF16: return launch_decode_shape<__half>(a, s);
+    case kBF16: return launch_decode_shape<__nv_bfloat16>(a, s);
+    default: return launch_decode_shape<int8_t>(a, s);
+  }
+}
+
+// Runs per slot a decode launch of this shape takes (the workspace the
+// caller allocates has this many partials per (slot, head, row)).
+int tpuhpc_decode_splits(int slots, int hkv, int g, int max_blocks) {
+  return decode_splits(slots, hkv, g, max_blocks, device_sms());
 }
 
 int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages,

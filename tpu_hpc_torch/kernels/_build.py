@@ -124,10 +124,14 @@ def build() -> float:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # 11 pointers, (slots, hkv, g, d, bs, table_width, max_blocks,
+    # n_split), scale, q and pool dtype codes, stream.
     lib.tpuhpc_paged_decode.argtypes = (
-        [p] * 9 + [i] * 7 + [f, i, i, p]
+        [p] * 11 + [i] * 8 + [f, i, i, p]
     )
     lib.tpuhpc_paged_decode.restype = i
+    lib.tpuhpc_decode_splits.argtypes = [i] * 4  # (slots, hkv, g, max_blocks)
+    lib.tpuhpc_decode_splits.restype = i
     lib.tpuhpc_paged_prefill.argtypes = (
         [p] * 7 + [i] * 7 + [f, i, i, p]
     )

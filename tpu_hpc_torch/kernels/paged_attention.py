@@ -13,7 +13,11 @@ gathered copy of the view:
 
 On a CUDA tensor each launches a hand-written Hopper kernel
 (``csrc/paged_attention.cu``, built at first launch by ``_build``) or
-raises; it never falls back. The prefill has two kernels, chosen by a
+raises; it never falls back. The decode splits each slot's pages into
+runs, one block each, and merges the runs in a second small kernel
+(flash-decoding; :func:`paged_decode_splits` reports the runs, and
+:func:`paged_decode_split_ref` / :func:`paged_decode_combine_ref` are
+the two passes written plainly). The prefill has two kernels, chosen by a
 rule of dtypes and shapes written in the C launcher
 (:func:`paged_prefill_route` reports which one a launch takes): the
 wgmma kernel for 16-bit q and pool of one dtype, the scalar kernel for
@@ -107,6 +111,48 @@ def _gather_view(pages, scale, ids):
     return view
 
 
+def _pool_round(p: torch.Tensor, pool_dtype: torch.dtype) -> torch.Tensor:
+    """P as the P.V product takes it: rounded to a 16-bit pool's dtype
+    (the Pallas kernel's ``p.astype(v.dtype)``), fp32 for float32 and
+    int8 pools."""
+    if pool_dtype in (torch.float16, torch.bfloat16):
+        return p.to(pool_dtype).to(torch.float32)
+    return p
+
+
+def _decode_view(q, k_pages, v_pages, tables, pos, active, block_size,
+                 max_blocks, k_scale, v_scale):
+    """Each slot's first ``max_blocks`` pages as f32 (slots, keys, hkv,
+    d) K and V, zero at every key past ``pos`` or of an inactive slot
+    (dead table entries may point at anything, NaN included), and the
+    (slots, keys) mask of the keys each slot sees."""
+    slots, hkv, _, d = q.shape
+    ids = tables[:, :max_blocks].long()
+    n_keys = max_blocks * block_size
+    k = _gather_view(k_pages, k_scale, ids).reshape(slots, n_keys, hkv, d)
+    v = _gather_view(v_pages, v_scale, ids).reshape(slots, n_keys, hkv, d)
+    cols = torch.arange(n_keys, device=q.device)
+    valid = (cols[None, :] <= pos.long()[:, None]) & (active[:, None] > 0)
+    live = valid[:, :, None, None]
+    k = torch.where(live, k, torch.zeros_like(k))
+    v = torch.where(live, v, torch.zeros_like(v))
+    return k, v, valid
+
+
+def _decode_part(q, k, v, valid, sm_scale, pool_dtype):
+    """fp32 attention of the decode rows over the keys ``valid`` marks:
+    the output normalised by its own sum, and the natural-log lse
+    (MASK_VALUE for a row that sees no key, whose output is 0)."""
+    s = torch.einsum("shgd,slhd->shgl", q.to(torch.float32), k) * sm_scale
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
+    p, l_safe = _softmax_rows(s)
+    out = torch.einsum("shgl,slhd->shgd", _pool_round(p, pool_dtype), v) / l_safe
+    m = s.amax(dim=-1)
+    lse = torch.where(m <= MASK_VALUE * 0.5, torch.full_like(m, MASK_VALUE),
+                      m + torch.log(l_safe[..., 0]))
+    return out, lse
+
+
 def paged_decode_attention_ref(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -123,25 +169,79 @@ def paged_decode_attention_ref(
 ) -> torch.Tensor:
     """Plain PyTorch decode attention: gather each slot's first
     ``max_blocks`` pages, zero every key past ``pos`` (dead table
-    entries may point at anything, NaN included), fp32 masked softmax.
-    Same contract as :func:`paged_decode_attention`."""
-    slots, hkv, g, d = q.shape
+    entries may point at anything, NaN included), fp32 masked softmax,
+    P rounded to a 16-bit pool's dtype before P.V. Same contract as
+    :func:`paged_decode_attention`."""
     if sm_scale is None:
-        sm_scale = d ** -0.5
-    ids = tables[:, :max_blocks].long()
-    n_keys = max_blocks * block_size
-    k = _gather_view(k_pages, k_scale, ids).reshape(slots, n_keys, hkv, d)
-    v = _gather_view(v_pages, v_scale, ids).reshape(slots, n_keys, hkv, d)
-    cols = torch.arange(n_keys, device=q.device)
-    valid = (cols[None, :] <= pos.long()[:, None]) & (active[:, None] > 0)
-    live = valid[:, :, None, None]
-    k = torch.where(live, k, torch.zeros_like(k))
-    v = torch.where(live, v, torch.zeros_like(v))
-    s = torch.einsum("shgd,slhd->shgl", q.to(torch.float32), k) * sm_scale
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
-    p, l_safe = _softmax_rows(s)
-    out = torch.einsum("shgl,slhd->shgd", p, v) / l_safe
+        sm_scale = q.shape[-1] ** -0.5
+    k, v, valid = _decode_view(q, k_pages, v_pages, tables, pos, active,
+                               block_size, max_blocks, k_scale, v_scale)
+    out, _ = _decode_part(q, k, v, valid, sm_scale, v_pages.dtype)
     return out.to(q.dtype)
+
+
+def paged_decode_split_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    block_size: int,
+    max_blocks: int,
+    n_split: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode's first pass, plainly: the view cut into ``n_split``
+    runs of ``ceil(max_blocks / n_split)`` pages, and per run and row
+    the fp32 output normalised by the run's own sum, ``(slots, kv_heads,
+    n_split, group, d)``, and its lse, ``(slots, kv_heads, n_split,
+    group)`` -- MASK_VALUE (and a zero output) for a run that sees no
+    key. :func:`paged_decode_combine_ref` merges them."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    k, v, valid = _decode_view(q, k_pages, v_pages, tables, pos, active,
+                               block_size, max_blocks, k_scale, v_scale)
+    pps = -(-max_blocks // n_split)
+    cols = torch.arange(valid.shape[1], device=q.device)
+    outs, lses = [], []
+    for run in range(n_split):
+        mine = (cols >= run * pps * block_size) \
+            & (cols < (run + 1) * pps * block_size)
+        out, lse = _decode_part(q, k, v, valid & mine[None, :], sm_scale,
+                                v_pages.dtype)
+        outs.append(out)
+        lses.append(lse)
+    return torch.stack(outs, dim=2), torch.stack(lses, dim=2)
+
+
+def paged_decode_combine_ref(
+    o_part: torch.Tensor,    # (slots, kv_heads, n_split, group, d) f32
+    lse_part: torch.Tensor,  # (slots, kv_heads, n_split, group) f32
+    active: torch.Tensor,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The decode's combine pass, plainly: per row, run i weighs
+    ``exp(lse_i - m_safe) / denom_safe`` with the rules of
+    :func:`tpu_hpc_torch.kernels.attention.lse_merge` (``m_safe`` 0
+    where no run saw a key, ``denom_safe`` 1 where the weights sum to
+    0); a run of weight 0 is skipped, whatever its output holds, and an
+    inactive slot is zeros. Returns (slots, kv_heads, group, d) in
+    ``dtype``."""
+    m = lse_part.amax(dim=2, keepdim=True)
+    m_safe = torch.where(m <= MASK_VALUE * 0.5, torch.zeros_like(m), m)
+    w = torch.exp(lse_part - m_safe)
+    denom = w.sum(dim=2, keepdim=True)
+    w = w / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    w = w[..., None]
+    terms = torch.where(w > 0, w * o_part, torch.zeros_like(o_part))
+    out = terms.sum(dim=2)
+    out = torch.where(active[:, None, None, None] > 0, out,
+                      torch.zeros_like(out))
+    return out.to(dtype)
 
 
 def paged_prefill_attention_ref(
@@ -246,8 +346,11 @@ def paged_decode_attention(
     """Single-token paged attention: returns (slots, kv_heads, group,
     head_dim) context in q.dtype. Slot s attends to its table row's
     keys at positions ``<= pos[s]`` (first ``max_blocks`` entries);
-    inactive slots output zeros. CUDA tensors launch the decode kernel
-    of ``csrc/paged_attention.cu``; CPU tensors run
+    inactive slots output zeros. CUDA tensors launch the decode kernels
+    of ``csrc/paged_attention.cu`` -- the split kernel over
+    :func:`paged_decode_splits` runs of pages, then the combine when
+    there is more than one run (one launch in ``.launches``); head_dim
+    must be a multiple of 16 up to 128. CPU tensors run
     :func:`paged_decode_attention_ref`."""
     slots, hkv, g, d = q.shape
     _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d)
@@ -277,18 +380,29 @@ def paged_decode_attention(
              active=active, k_scale=k_scale, v_scale=v_scale),
         q.device,
     )
+    if not (16 <= d <= 128 and d % 16 == 0):
+        raise ValueError(
+            f"head_dim {d}: the decode kernel takes multiples of 16 up to 128"
+        )
     from tpu_hpc_torch.kernels import _build
 
     lib = _build.load_library()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
+        n_split = lib.tpuhpc_decode_splits(slots, hkv, g, max_blocks)
+        o_part = lse_part = None
+        if n_split > 1:  # the runs' partials, in one workspace
+            rows = slots * hkv * n_split * g
+            ws = torch.empty(rows * (d + 1), dtype=torch.float32,
+                             device=q.device)
+            o_part, lse_part = ws[:rows * d], ws[rows * d:]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.tpuhpc_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), active.data_ptr(),
-            _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
-            slots, hkv, g, d, block_size, tables.shape[1], max_blocks,
-            float(sm_scale), DTYPE_CODES[q.dtype],
+            _ptr(k_scale), _ptr(v_scale), out.data_ptr(), _ptr(o_part),
+            _ptr(lse_part), slots, hkv, g, d, block_size, tables.shape[1],
+            max_blocks, n_split, float(sm_scale), DTYPE_CODES[q.dtype],
             DTYPE_CODES[k_pages.dtype], stream,
         )
     _build.check(lib, code, "paged_decode_attention")
@@ -376,6 +490,20 @@ def paged_prefill_attention(
 
 paged_prefill_attention.launches = 0
 
+def paged_decode_splits(slots: int, kv_heads: int, group: int,
+                        max_blocks: int) -> int:
+    """Runs of pages a decode launch of this shape is split into on the
+    card (1: the split kernel writes the output, no combine), as the C
+    launcher picks it from the shape and the card's SM count, never
+    from ``pos``; builds the library when needed, so call it only with
+    a card. Run i covers table entries ``[i * pps, (i + 1) * pps)``,
+    ``pps = ceil(max_blocks / runs)``."""
+    from tpu_hpc_torch.kernels import _build
+
+    return _build.load_library().tpuhpc_decode_splits(
+        slots, kv_heads, group, max_blocks)
+
+
 # The prefill kernels, by the C interface's route code.
 PREFILL_ROUTES = ("scalar", "wgmma")
 
@@ -406,6 +534,9 @@ __all__ = [
     "page_scales_int8",
     "paged_decode_attention",
     "paged_decode_attention_ref",
+    "paged_decode_combine_ref",
+    "paged_decode_split_ref",
+    "paged_decode_splits",
     "paged_prefill_attention",
     "paged_prefill_attention_ref",
     "paged_prefill_route",
