@@ -18,20 +18,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     slots, 64-page views, ragged positions, one inactive
                     slot) and at a GQA shape (8 KV heads, group 8: the
                     70B attention dims), with bf16 and int8 pools whose
-                    dead and scratch pages are NaN. Every row names the
-                    kernel the library routed it to (the decode splits
-                    each slot's pages into ``n_split`` runs and merges
-                    them; the prefill has a wgmma route for 16-bit pools
-                    and a scalar one for the rest) and must pass
-                    checks/tolerance.py's bf16 rule; at the 7B shape the
-                    decode output computed without the longest slot's
-                    last live page, and the prefill output computed
-                    without the chunk's last live page, must fail it.
+                    dead and scratch pages are NaN, under a bf16 q; and
+                    the prefill's scalar route at the 7B chunk over a
+                    float32 pool (float32 q) and under a bf16 q over an
+                    f16 pool. Every row names the kernel the library
+                    routed it to (the decode splits each slot's pages
+                    into ``n_split`` runs and merges them; the prefill
+                    has a wgmma route for 16-bit pools, a wgmma_int8
+                    route for int8 pools under a 16-bit q and a scalar
+                    one for the rest) and must pass checks/tolerance.py's
+                    rule for q's dtype. Controls, each of which the bf16
+                    rule must reject, at the 7B shape: the decode output
+                    computed without the longest slot's last live page;
+                    the prefill output computed without the chunk's last
+                    live page; the int8 prefill output computed with each
+                    live page's scales taken from the next live page.
                     Times from CUDA events over back-to-back calls
                     (``ms``, which a short kernel's Python wrapper can
                     set) and the kernels' own device time from
                     torch.profiler (``device_ms``; the decode's split
-                    and combine kernels together).
+                    and combine kernels together); the library call
+                    both ways (``library_ms``, ``library_device_ms``).
+                    Bounds at the peak rate of q's dtype.
   4. flash       -- the flash-attention forward, dq and dk/dv kernels
                     against their plain versions under the per-element,
                     per-row-scaled rule of checks/tolerance.py: the
@@ -43,7 +51,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     key, non-causal cross attention, a ragged GQA case
                     that crosses the backward kernels' 128-row tiles
                     (S 1100, 16 query heads over 2 KV heads, q_offset
-                    300), and a float32 case. Controls at the training
+                    300), and a float32 case (timed too, its bound at
+                    the card's fp32 rate). Controls at the training
                     shape: outputs with their last rows or keys zeroed
                     must be rejected; two forwards that round at the
                     wrong place must be rejected too. dq, dk and dv must
@@ -54,6 +63,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     kernels): 16 requests of 100-500 prompt tokens, 32
                     new tokens each. The paged kernels' launch counts are
                     set to 0 just before and read just after.
+     serve_int8  -- the same replay over an int8 pool (kv_quant="int8"):
+                    its prefill launches take the wgmma_int8 route.
   6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
@@ -93,9 +104,13 @@ import time
 # (see there).
 PAGED_SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
+# The summary line's entry for the prefill's int8 route (an int8 pool
+# under a bf16 q: paged_prefill_int8_kernel), beside the bf16 one.
+INT8_PREFILL = "paged_prefill_attention_int8"
 SOURCES = {
     "paged_decode_attention": PAGED_SOURCE,
     "paged_prefill_attention": PAGED_SOURCE,
+    INT8_PREFILL: PAGED_SOURCE,
     "flash_attention_fwd": FLASH_SOURCE,
     "flash_attention_dq": FLASH_SOURCE,
     "flash_attention_dkv": FLASH_SOURCE,
@@ -105,6 +120,8 @@ REPLACES = {
         "tpu_hpc/kernels/paged_attention.py:101",   # _decode_kernel
     "paged_prefill_attention":
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
+    INT8_PREFILL:
+        "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel, quant
     "flash_attention_fwd":
         "tpu_hpc/kernels/attention.py:148",         # _flash_kernel
     "flash_attention_dq":
@@ -203,9 +220,9 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time (ms) per call of the kernels whose names contain
-    ``kernel``, from torch.profiler over ``iters`` calls after a warm-up
-    call: the kernels' own time, without their wrapper's host time. None
-    if the profiler recorded no such kernel."""
+    ``kernel`` (every kernel for ""), from torch.profiler over ``iters``
+    calls after a warm-up call: the kernels' own time, without their
+    wrapper's host time. None if the profiler recorded no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -242,15 +259,17 @@ def bound(bytes_: int, flops: int, dtype) -> tuple:
 # ---------------------------------------------------------------------
 
 
-def _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, quant):
-    """Random K/V pools; every page outside ``live`` (scratch page 0
-    included) is NaN -- for int8 pools, its scale is NaN."""
+def _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, pool):
+    """Random K/V pools of dtype ``pool`` (a torch dtype name, or
+    "int8": quantized, one f32 scale per page); every page outside
+    ``live`` (scratch page 0 included) is NaN -- for int8 pools, its
+    scale is NaN."""
     shape = (num_blocks, bs, hkv, d)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     dead = torch.ones(num_blocks, dtype=torch.bool, device=dev)
     dead[torch.as_tensor(sorted(live), device=dev, dtype=torch.long)] = False
-    if quant:
+    if pool == "int8":
         from tpu_hpc_torch.kernels.paged_attention import quantize_pages_int8
 
         k, ksc = quantize_pages_int8(k)
@@ -260,7 +279,8 @@ def _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, quant):
         return k, v, dict(k_scale=ksc, v_scale=vsc)
     k[dead] = float("nan")
     v[dead] = float("nan")
-    return k.bfloat16(), v.bfloat16(), {}
+    dtype = getattr(torch, pool)
+    return k.to(dtype), v.to(dtype), {}
 
 
 def decode_case(torch, dev, hkv, g, quant, seed=0):
@@ -287,7 +307,8 @@ def decode_case(torch, dev, hkv, g, quant, seed=0):
         tables[s, n_live:] = torch.tensor(
             [dead_pages[(s + j) % len(dead_pages)]
              for j in range(width - n_live)], dtype=torch.int32)
-    k, v, scales = _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, quant)
+    k, v, scales = _pool(torch, gen, dev, num_blocks, bs, hkv, d, live,
+                         "int8" if quant else "bfloat16")
     q = torch.randn((slots, hkv, g, d), generator=gen, device=dev)
     args = (q.bfloat16(), k, v, tables.to(dev), pos.to(dev), active.to(dev))
     kw = dict(block_size=bs, max_blocks=mb, **scales)
@@ -303,8 +324,9 @@ def decode_case(torch, dev, hkv, g, quant, seed=0):
     return args, kw, (n_bytes, flops)
 
 
-def prefill_case(torch, dev, hkv, g, quant, start, seed=0):
-    """A 256-token chunk at ``start`` over one 96-wide table row."""
+def prefill_case(torch, dev, hkv, g, pool, start, q_dtype, seed=0):
+    """A 256-token chunk at ``start`` over one 96-wide table row, q in
+    ``q_dtype`` over a ``pool`` pool (see _pool)."""
     bucket, d, bs, mb, width, num_blocks = 256, 128, 16, 64, 96, 513
     gen = torch.Generator(device=dev).manual_seed(seed)
     ctx_pages = (start + bucket - 1) // bs + 1
@@ -315,12 +337,13 @@ def prefill_case(torch, dev, hkv, g, quant, start, seed=0):
         live + perm[ctx_pages:ctx_pages + width - ctx_pages],
         dtype=torch.int32,
     )
-    k, v, scales = _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, quant)
+    k, v, scales = _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, pool)
     q = torch.randn((hkv, bucket, g, d), generator=gen, device=dev)
-    args = (q.bfloat16(), k, v, table.to(dev), start)
+    args = (q.to(q_dtype), k, v, table.to(dev), start)
     kw = dict(block_size=bs, max_blocks=mb, **scales)
-    page_bytes = bs * hkv * d * k.element_size() + (4 if quant else 0)
-    n_bytes = 2 * q.numel() * 2 + 2 * ctx_pages * page_bytes + 4 * ctx_pages
+    page_bytes = bs * hkv * d * k.element_size() + (4 if scales else 0)
+    n_bytes = (2 * q.numel() * args[0].element_size()
+               + 2 * ctx_pages * page_bytes + 4 * ctx_pages)
     keys = sum(start + b + 1 for b in range(bucket))
     return args, kw, (n_bytes, 4 * hkv * g * keys * d)
 
@@ -394,6 +417,40 @@ def prefill_control(torch, args, kw, want) -> None:
                          f"output without the last live page ({r})")
 
 
+def next_live_page_scales(torch, kw, table, n_live) -> dict:
+    """``kw`` with each of the first ``n_live`` table entries' K and V
+    scales taken from the next live entry's page (the last from the
+    first's): a kernel that reads the scale of the wrong page."""
+    live = table[:n_live].long()
+    nxt = torch.roll(live, -1)
+    out = dict(kw)
+    for name in ("k_scale", "v_scale"):
+        sc = kw[name].clone()
+        sc[live] = kw[name][nxt]
+        out[name] = sc
+    return out
+
+
+def scale_control(torch, args, kw, want) -> None:
+    """The 7B int8 chunk computed with each live page's scales taken
+    from the next live page, held to the rule the kernel is held to: it
+    must be rejected."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    q, _, _, table, start = args
+    n_live = (start + q.shape[1] - 1) // kw["block_size"] + 1
+    bad = pa.paged_prefill_attention_ref(
+        *args, **next_live_page_scales(torch, kw, table, n_live))
+    r = compare(bad, want, torch.bfloat16)
+    emit("kernels_control", control="prefill_int8_scales_of_next_live_page",
+         start=start, rejected=not r["ok"],
+         **{k: v for k, v in r.items() if k != "ok"})
+    if r["ok"]:
+        raise SystemExit(f"int8 scale control: the tolerance accepts an "
+                         f"output with the wrong pages' scales ({r})")
+
+
 def decode_control(torch, args, kw, want) -> None:
     """The 7B decode output computed without the longest slot's last
     live page (a kernel that stops a run one page short), held to the
@@ -418,28 +475,44 @@ def decode_control(torch, args, kw, want) -> None:
                          f"output without the last live page ({r})")
 
 
+# Kernel cases: (wrapper, shape, (kv heads, group), pool, q dtype,
+# start: None for the decode). The 7B and GQA shapes over bf16 and int8
+# pools, every prefill at chunk 0 and at 256 (timed); and, timed at the
+# 7B chunk at 256, the prefill's scalar route over a float32 pool and
+# under a bf16 q over an f16 pool.
+def kernel_cases() -> list:
+    cases = []
+    for name, shape in (("7b", (32, 1)), ("gqa", (8, 8))):
+        for pool in ("bfloat16", "int8"):
+            cases.append(("paged_decode_attention", name, shape, pool,
+                          "bfloat16", None))
+            for start in (0, 256):
+                cases.append(("paged_prefill_attention", name, shape, pool,
+                              "bfloat16", start))
+    cases.append(("paged_prefill_attention", "7b", (32, 1), "float32",
+                  "float32", 256))
+    cases.append(("paged_prefill_attention", "7b", (32, 1), "float16",
+                  "bfloat16", 256))
+    return cases
+
+
 def kernel_phase(torch, dev, lib) -> dict:
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
 
     main_rows = {}
-    cases = []
-    for name, shape in (("7b", (32, 1)), ("gqa", (8, 8))):
-        for quant in (False, True):
-            cases.append(("paged_decode_attention", name, shape, quant, None))
-            for start in (0, 256):
-                cases.append(
-                    ("paged_prefill_attention", name, shape, quant, start)
-                )
-    for kname, shape_name, (hkv, g), quant, start in cases:
+    for kname, shape_name, (hkv, g), pool, q_name, start in kernel_cases():
+        q_dtype = getattr(torch, q_name)
         if kname == "paged_decode_attention":
-            args, kw, (nb, fl) = decode_case(torch, dev, hkv, g, quant)
+            args, kw, (nb, fl) = decode_case(torch, dev, hkv, g,
+                                             pool == "int8")
             fn, ref = pa.paged_decode_attention, pa.paged_decode_attention_ref
             library, kernel_name = library_decode, "paged_decode"
             route = "split"
         else:
-            args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, quant, start)
+            args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, pool, start,
+                                              q_dtype)
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
             library, kernel_name = library_prefill, "paged_prefill"
             route = pa.paged_prefill_route(args[0].dtype, args[1].dtype,
@@ -449,12 +522,12 @@ def kernel_phase(torch, dev, lib) -> dict:
         want = ref(*args, **kw)
         if not torch.isfinite(out).all():
             raise SystemExit(f"{kname} {shape_name}: non-finite output")
-        readings = compare(out, want, torch.bfloat16)
+        readings = compare(out, want, q_dtype)
         row = {
-            "kernel": kname, "shape": shape_name,
-            "pool": "int8" if quant else "bfloat16", "route": route,
+            "kernel": kname, "shape": shape_name, "pool": pool,
+            "q_dtype": q_name, "route": route,
             "max_abs_err": readings["max_abs_err"],
-            "tolerance": dataclasses.asdict(TOLERANCES[torch.bfloat16]),
+            "tolerance": dataclasses.asdict(TOLERANCES[q_dtype]),
             "readings": readings,
         }
         if start is None:
@@ -469,26 +542,34 @@ def kernel_phase(torch, dev, lib) -> dict:
                     DTYPE_CODES[args[1].dtype])))
         if not readings["ok"]:
             emit("kernels", **row)
-            raise SystemExit(f"{kname} {shape_name} quant={quant} start="
-                             f"{start}: outside the bf16 rule {readings}")
+            raise SystemExit(f"{kname} {shape_name} pool={pool} q={q_name} "
+                             f"start={start}: outside the {q_name} rule "
+                             f"{readings}")
         if kname == "paged_decode_attention" and out[args[5] == 0].any():
             raise SystemExit(f"{kname}: inactive slot not exact zeros")
-        if shape_name == "7b" and not quant and start in (None, 256):
+        if shape_name == "7b" and pool == "bfloat16" and start in (None, 256):
             control = prefill_control if start else decode_control
             control(torch, args, kw, want)
-        timed = start in (None, 256)
-        if timed:
-            bound_ms, bound_by = bound(nb, fl, args[0].dtype)
+        if shape_name == "7b" and pool == "int8" and start == 256:
+            scale_control(torch, args, kw, want)
+        if start in (None, 256):
+            # The peak rate is that of q's dtype, whatever the route
+            # does inside: float32 only when q (and so the pool) is.
+            bound_ms, bound_by = bound(nb, fl, q_dtype)
+            lib_fn = library(torch, args, kw)
             row.update(
                 ms=time_ms(lambda: fn(*args, **kw), iters=50),
                 device_ms=device_ms(lambda: fn(*args, **kw), kernel_name),
                 plain_ms=time_ms(lambda: ref(*args, **kw), iters=5, warmup=1),
-                library_ms=time_ms(library(torch, args, kw), iters=50),
+                library_ms=time_ms(lib_fn, iters=50),
+                library_device_ms=device_ms(lib_fn, ""),
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nb, flops=fl,
             )
-            if shape_name == "7b" and not quant:
+            if shape_name == "7b" and pool == "bfloat16":
                 main_rows[kname] = row
+            if shape_name == "7b" and pool == "int8" and start == 256:
+                main_rows[INT8_PREFILL] = row
         emit("kernels", **row)
         del args, kw, out, want
         torch.cuda.empty_cache()
@@ -514,8 +595,14 @@ FLASH_CASES = (
      False),
     ("ragged_gqa_tiles", 2, 1100, 1100, 16, 2, 128, True, 300, 0, "bfloat16",
      False),
-    ("float32", 1, 1000, 1000, 8, 8, 128, True, 0, 0, "float32", False),
+    ("float32", 1, 1000, 1000, 8, 8, 128, True, 0, 0, "float32", True),
 )
+# The flash kernels' device-time names (torch.profiler), by wrapper.
+FLASH_KERNEL_NAMES = {
+    "flash_attention_fwd": "flash_fwd",
+    "flash_attention_dq": "flash_dq",
+    "flash_attention_dkv": "flash_dkv",
+}
 
 
 def visible_pairs(sq, sk, causal, q_offset, kv_offset) -> int:
@@ -719,20 +806,23 @@ def flash_phase(torch, dev) -> dict:
             if timed:
                 nb, fl = work[kname]
                 bound_ms, bound_by = bound(nb, fl, dtype)
+                lib_fn = lib[0] if kname == "flash_attention_fwd" else lib[1]
                 row.update(
                     ms=time_ms(lambda: fn(*args, **kw), iters=20),
+                    device_ms=device_ms(lambda: fn(*args, **kw),
+                                        FLASH_KERNEL_NAMES[kname]),
                     plain_ms=time_ms(lambda: ref(*args, **kw), iters=3,
                                      warmup=1),
-                    library_ms=time_ms(
-                        lib[0] if kname == "flash_attention_fwd" else lib[1],
-                        iters=20),
+                    library_ms=time_ms(lib_fn, iters=20),
+                    library_device_ms=device_ms(lib_fn, ""),
                     library="sdpa forward" if kname == "flash_attention_fwd"
                     else "sdpa autograd backward (dq, dk, dv together)",
                     bound_ms=bound_ms, bound_by=bound_by,
                     bytes=nb, flops=fl,
                     tile_rows=fa.flash_tile_rows(kname, dtype),
                 )
-                main_rows[kname] = row
+                if name == "train_main":
+                    main_rows[kname] = row
             emit("flash", **row)
             if not all(r["ok"] for r in readings.values()):
                 raise SystemExit(
@@ -940,6 +1030,57 @@ def train_crosscheck_phase(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# The serving phases' request mix: 16 requests of 100-500 prompt tokens,
+# 32 new tokens each.
+SERVE_PROMPT_LENS = (100, 180, 260, 340, 420, 500)
+SERVE_REQUESTS, SERVE_MAX_NEW = 16, 32
+
+
+def serve_phase(torch, dev, phase, cfg, serve_cfg, paged) -> dict:
+    """run_replay on ``cfg`` through the paged kernels, their launch
+    counts set to 0 just before and read just after: every request
+    finishes with all its tokens, nothing is rebuilt, both kernels ran.
+    Names the prefill route the replay's launches take (one dtype pair
+    and shape for the whole replay)."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.serve.server import run_replay
+
+    pool_dtype = torch.int8 if paged.kv_quant == "int8" else cfg.dtype
+    route = pa.paged_prefill_route(cfg.dtype, pool_dtype, cfg.head_dim,
+                                   paged.block_size)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_prefill_attention.launches = 0
+    summary = run_replay(cfg, serve_cfg, SERVE_REQUESTS, SERVE_PROMPT_LENS,
+                         SERVE_MAX_NEW, seed=0, paged=paged, device=dev)
+    launches = {
+        "paged_decode_attention": pa.paged_decode_attention.launches,
+        "paged_prefill_attention": pa.paged_prefill_attention.launches,
+    }
+    emit(phase, model="7b", n_layers=cfg.n_layers, dim=cfg.dim,
+         dtype=str(cfg.dtype)[6:], kv_quant=paged.kv_quant,
+         prefill_route=route, launches=launches,
+         **{k: summary[k] for k in (
+             "requests", "tokens", "wall_s", "tokens_per_s",
+             "ttft_ms_p50", "ttft_ms_p95", "ttft_ms_p99", "itl_ms_p50",
+             "itl_ms_p95", "itl_ms_p99", "recompiles", "compiled_programs",
+             "prefill_chunks", "peak_memory_bytes", "cache_bytes",
+             "serve_mfu", "batcher",
+         ) if k in summary})
+    if summary["requests"] != SERVE_REQUESTS \
+            or summary["tokens"] != SERVE_REQUESTS * SERVE_MAX_NEW:
+        raise SystemExit(f"{phase}: not every request finished: {summary}")
+    if summary["recompiles"] != 0:
+        raise SystemExit(f"{phase}: {summary['recompiles']} rebuilds")
+    if min(launches.values()) < 1 or launches != summary["kernel_launches"]:
+        raise SystemExit(f"{phase}: kernels not on the main path: {launches}")
+    want = "wgmma_int8" if paged.kv_quant == "int8" else "wgmma"
+    if route != want:
+        raise SystemExit(f"{phase}: the prefill takes the {route} route, "
+                         f"not {want}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -950,7 +1091,6 @@ def main() -> int:
     global CHIP
     from tpu_hpc_torch.checks.roofline import chip_for_kind
     from tpu_hpc_torch.kernels import _build
-    from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.models import llama2
     from tpu_hpc_torch.serve import (
         ContinuousBatcher,
@@ -959,7 +1099,6 @@ def main() -> int:
         ServeConfig,
         replay_requests,
     )
-    from tpu_hpc_torch.serve.server import run_replay
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -982,37 +1121,16 @@ def main() -> int:
     main_rows.update(flash_phase(torch, dev))
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
-    prompt_lens = (100, 180, 260, 340, 420, 500)
-    n_req, max_new = 16, 32
     serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
                             prefill_buckets=(256, 512))
     paged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
                         kernel="cuda")
     cfg = llama2.PRESETS["7b"]
-    pa.paged_decode_attention.launches = 0
-    pa.paged_prefill_attention.launches = 0
-    summary = run_replay(cfg, serve_cfg, n_req, prompt_lens, max_new,
-                         seed=0, paged=paged, device=dev)
-    launches = {
-        "paged_decode_attention": pa.paged_decode_attention.launches,
-        "paged_prefill_attention": pa.paged_prefill_attention.launches,
-    }
-    emit("serve", model="7b", n_layers=cfg.n_layers, dim=cfg.dim,
-         dtype="bfloat16", launches=launches,
-         **{k: summary[k] for k in (
-             "requests", "tokens", "wall_s", "tokens_per_s",
-             "ttft_ms_p50", "ttft_ms_p95", "ttft_ms_p99", "itl_ms_p50",
-             "itl_ms_p95", "itl_ms_p99", "recompiles", "compiled_programs",
-             "prefill_chunks", "peak_memory_bytes", "cache_bytes",
-             "serve_mfu", "batcher",
-         ) if k in summary})
-    if summary["requests"] != n_req or summary["tokens"] != n_req * max_new:
-        raise SystemExit(f"serve: not every request finished: {summary}")
-    if summary["recompiles"] != 0:
-        raise SystemExit(f"serve: {summary['recompiles']} rebuilds")
-    if min(launches.values()) < 1 or launches != summary["kernel_launches"]:
-        raise SystemExit(f"serve: kernels not on the main path: {launches}")
-    torch.cuda.empty_cache()
+    launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
+    # -- 5b. the same replay over an int8 pool: the prefill's int8 route
+    int8_launches = serve_phase(torch, dev, "serve_int8", cfg, serve_cfg,
+                                dataclasses.replace(paged, kv_quant="int8"))
+    launches[INT8_PREFILL] = int8_launches["paged_prefill_attention"]
 
     # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
     small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
@@ -1024,8 +1142,8 @@ def main() -> int:
         eng = PagedEngine(params, small, serve_cfg, dev,
                           dataclasses.replace(paged, kernel=kernel))
         eng.warmup()
-        reqs = replay_requests(n_req, small.vocab_size, prompt_lens,
-                               max_new, seed=0)
+        reqs = replay_requests(SERVE_REQUESTS, small.vocab_size,
+                               SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0)
         results[kernel] = ContinuousBatcher(eng).run(reqs)
         del eng
         torch.cuda.empty_cache()
@@ -1034,7 +1152,7 @@ def main() -> int:
     with torch.no_grad():
         for r in reqs[:2]:
             toks = list(r.prompt)
-            for _ in range(max_new):
+            for _ in range(SERVE_MAX_NEW):
                 logits = llama2.apply_llama(
                     params, torch.tensor([toks], device=dev), small
                 )

@@ -64,3 +64,42 @@ def test_flash_work_counts_visible_pairs():
     assert chip_smoke.visible_pairs(4, 6, True, 2, 0) == 3 + 4 + 5 + 6
     assert chip_smoke.visible_pairs(4, 6, False, 2, 0) == 24
 
+
+
+def test_next_live_page_scales_shifts_the_live_pages_only():
+    """The int8 scale control: each live page of the table row takes the
+    next live page's K and V scales (the last takes the first's); dead
+    and unlisted pages keep theirs."""
+    import torch
+
+    k_scale = torch.arange(10, dtype=torch.float32)
+    v_scale = 100 + torch.arange(10, dtype=torch.float32)
+    table = torch.tensor([4, 7, 2, 9, 9], dtype=torch.int32)
+    kw = dict(block_size=16, max_blocks=5, k_scale=k_scale, v_scale=v_scale)
+    bad = chip_smoke.next_live_page_scales(torch, kw, table, 3)
+    assert bad["k_scale"][[4, 7, 2]].tolist() == [7.0, 2.0, 4.0]
+    assert bad["v_scale"][[4, 7, 2]].tolist() == [107.0, 102.0, 104.0]
+    others = [0, 1, 3, 5, 6, 8, 9]
+    assert bad["k_scale"][others].tolist() == k_scale[others].tolist()
+    assert bad["block_size"] == 16 and kw["k_scale"] is k_scale
+
+
+def test_kernel_cases_cover_every_prefill_route():
+    """bf16 and int8 pools at both shapes, every prefill at chunk 0 and
+    at 256, and the scalar route's float32 and mixed-dtype pairs at the
+    7B chunk; the int8 prefill has its own summary entry."""
+    cases = chip_smoke.kernel_cases()
+    prefill = {(shape, pool, q, start)
+               for k, shape, _, pool, q, start in cases
+               if k == "paged_prefill_attention"}
+    for shape in ("7b", "gqa"):
+        for pool in ("bfloat16", "int8"):
+            for start in (0, 256):
+                assert (shape, pool, "bfloat16", start) in prefill
+    assert ("7b", "float32", "float32", 256) in prefill
+    assert ("7b", "float16", "bfloat16", 256) in prefill
+    assert len(cases) == 14
+    name = chip_smoke.INT8_PREFILL
+    assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
+    assert chip_smoke.REPLACES[name] == \
+        chip_smoke.REPLACES["paged_prefill_attention"]

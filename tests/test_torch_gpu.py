@@ -15,10 +15,13 @@ imports no JAX: the card machine need not have it.
 
 Tolerance ``2e-2``: bf16 outputs of O(1) attention values against the
 plain version's fp32 arithmetic on the same inputs -- the output's bf16
-rounding (2^-8 relative) dominates. Prefill outputs whose q and pool
-share a 16-bit dtype must also pass tpu_hpc_torch/checks/tolerance.py's
-rule for that dtype (the flash kernels' rule: the wgmma kernel rounds P
-to the pool's dtype before P.V, as the Pallas kernel does). Decode
+rounding (2^-8 relative) dominates. Prefill outputs under a 16-bit q
+must also pass tpu_hpc_torch/checks/tolerance.py's rule for q's dtype
+(the flash kernels' rule): the wgmma kernel rounds P to the pool's dtype
+before P.V, as the Pallas kernel and the plain version do; the int8
+wgmma kernel rounds P times the page's V scale to q's dtype where the
+plain version keeps fp32; the scalar kernel rounds P to a 16-bit pool's
+dtype as the plain version does. Decode
 outputs are held by that rule for the output's dtype (the decode and
 its plain version both round P to a 16-bit pool's dtype, each relative
 to its own running max). Float32 engines must agree on every greedy
@@ -28,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
+from tpu_hpc_torch.checks.tolerance import compare
 from tpu_hpc_torch.kernels import paged_attention as pa
 from tpu_hpc_torch.models import llama2
 from tpu_hpc_torch.serve import (
@@ -183,7 +186,9 @@ def test_decode_kernel_short_views(cuda):
 PREFILL_POOLS = {
     "bfloat16": ("bfloat16", torch.bfloat16, "wgmma"),
     "float16": ("float16", torch.float16, "wgmma"),
-    "int8": ("int8", torch.bfloat16, "scalar"),
+    "int8": ("int8", torch.bfloat16, "wgmma_int8"),
+    "int8_f16_q": ("int8", torch.float16, "wgmma_int8"),
+    "f32_q_over_int8_pool": ("int8", torch.float32, "scalar"),
     "float32": ("float32", torch.float32, "scalar"),
     "bf16_q_over_f16_pool": ("float16", torch.bfloat16, "scalar"),
 }
@@ -195,7 +200,8 @@ def _prefill(dev, kind, *, hkv=2, bucket=32, g=4, d=128, bs=16, start=0,
     live pages up to the chunk's last row, then dead entries that point
     at a NaN page -- as does every row of the last 64-key tile past the
     live pages, so a kernel that reads a page past the limit, or feeds
-    an unloaded row into P.V, poisons its output."""
+    an unloaded row into P.V, poisons its output (int8 pools: the NaN
+    page's scales are NaN)."""
     rng = np.random.default_rng(seed)
     pool, q_dtype, route = PREFILL_POOLS[kind]
     ctx_pages = (start + bucket - 1) // bs + 1
@@ -228,7 +234,7 @@ def _check_prefill(args, kw, route):
     want = pa.paged_prefill_attention_ref(*args, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
-    if q.dtype == k.dtype and q.dtype in TOLERANCES:
+    if q.dtype in (torch.bfloat16, torch.float16):
         readings = compare(got, want, q.dtype)
         assert readings["ok"], readings
 
@@ -238,31 +244,57 @@ def _check_prefill(args, kw, route):
 @pytest.mark.parametrize("start", [0, 40])
 def test_prefill_kernel_matches_plain(cuda, pool, start):
     """Every pool kind, on the route the library reports: 16-bit q and
-    pool of one dtype take the wgmma kernel; float32, int8 pools and
-    mixed dtypes keep the scalar kernel."""
+    pool of one dtype take the wgmma kernel, an int8 pool under a 16-bit
+    q the int8 wgmma kernel; float32, float32 q over int8 and mixed
+    16-bit dtypes keep the scalar kernel."""
     _check_prefill(*_prefill(cuda, pool, start=start, seed=71 + start))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pool", ["bfloat16", "float16"])
+@pytest.mark.parametrize("pool",
+                         ["bfloat16", "float16", "int8", "int8_f16_q"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("bs", [8, 16, 32, 64])
 def test_prefill_wgmma_kernel_shapes(cuda, bs, g, d, pool):
-    """The wgmma prefill over page sizes that stack 8, 4, 2 or 1 pages
-    into a 64-key tile, query groups, both head-dim variants, at a start
-    that is not page-aligned."""
+    """Both tensor-core prefills (a 16-bit pool; an int8 pool under a
+    bf16 or f16 q) over page sizes that stack 8, 4, 2 or 1 pages into a
+    64-key tile, query groups, both head-dim variants, at a start that
+    is not page-aligned; dead entries point at a page of NaNs (for int8,
+    a page whose scales are NaN)."""
     _check_prefill(*_prefill(cuda, pool, g=g, d=d, bs=bs, start=40,
                              seed=bs + g + d))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d", [48, 80, 112])
+def test_prefill_kernel_narrow_head_dims(cuda, d, pool):
+    """Head dims the tensor-core routes take below their 64- or
+    128-column tiles: the columns past d are zeros, never read."""
+    _check_prefill(*_prefill(cuda, pool, g=2, d=d, bs=16, start=40,
+                             seed=120 + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "int8_f16_q"])
+@pytest.mark.parametrize("bs", [16, 64])
+def test_prefill_kernel_long_chunks(cuda, bs, pool):
+    """A 256-token chunk at start 200: row tiles walk up to 8 key tiles,
+    so the tensor-core routes wrap their 3-stage rings, and every tile
+    after the first is full."""
+    _check_prefill(*_prefill(cuda, pool, bucket=256, g=1, bs=bs, start=200,
+                             seed=110 + bs))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("start", [0, 40])
 @pytest.mark.parametrize("bs", [16, 128])
-def test_prefill_wgmma_kernel_ragged_rows(cuda, bs, start):
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_prefill_wgmma_kernel_ragged_rows(cuda, bs, start, pool):
     """bucket * g = 40 rows: one 64-row tile, partly past the end; pages
     of 128 keys are read as two 64-key tiles."""
-    _check_prefill(*_prefill(cuda, "bfloat16", bucket=40, g=1, bs=bs,
+    _check_prefill(*_prefill(cuda, pool, bucket=40, g=1, bs=bs,
                              start=start, seed=90 + bs))
 
 

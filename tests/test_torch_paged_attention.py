@@ -15,9 +15,11 @@ softmax over the whole view), nothing else differs. bf16 pools (the
 serving path's working dtype): ``tpu_hpc_torch/checks/tolerance.py``'s
 bf16 rule, the one the card holds the kernels to -- the Pallas kernels
 round P to the pool's bf16 before P.V (paged_attention.py:152-156,
-:297-301); the plain decode does too (relative to the whole view's max,
-where the Pallas kernel rounds relative to its running max), the plain
-prefill keeps P in fp32, and all round the output to bf16.
+:297-301); the plain decode and prefill do too (relative to the whole
+view's max, where the Pallas kernel rounds relative to its running
+max), and all round the output to bf16. int8 pools under a 16-bit q:
+the rule for q's dtype -- both sides dequantize in f32 and keep P in
+f32, and differ in summation order and the output's rounding.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_gpu.py. JAX is imported through
@@ -357,6 +359,85 @@ def test_prefill_int8_pool_matches_pallas_kernel():
         k_scale=_t(ksc), v_scale=_t(vsc),
     ).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _prefill_16bit_case(seed, g, start, *, pool_dtype=torch.bfloat16,
+                        q_dtype=torch.bfloat16, hkv=2, bucket=32, d=64, bs=8,
+                        mb=12, num_blocks=24):
+    """One slot's chunk over a 12-page view of 8-token pages. Entries
+    past the chunk's last page point at the last page of the pool, whose
+    values (float pools) or scales (int8 pools) are NaN. Returns the
+    port's arguments, keywords and the Pallas kernel's output (interpret
+    mode) as an f32 tensor."""
+    rng = np.random.default_rng(seed)
+    shape = (num_blocks, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    table = _table_row(rng, num_blocks, mb, -(-(start + bucket) // bs))
+    q = _t(rng.standard_normal((hkv, bucket, g, d)).astype(np.float32))
+    q = q.to(q_dtype)
+    jq = jnp.asarray(q.float().numpy()).astype(
+        jnp.bfloat16 if q_dtype == torch.bfloat16 else jnp.float16)
+    kw = dict(block_size=bs, max_blocks=mb)
+    jkw = dict(kw, interpret=True)
+    if pool_dtype == torch.int8:
+        kq, ksc, vq, vsc = _quantized(kp, vp)
+        ksc[-1] = vsc[-1] = np.nan
+        k, v = _t(kq), _t(vq)
+        jk, jv = jnp.asarray(kq), jnp.asarray(vq)
+        kw.update(k_scale=_t(ksc), v_scale=_t(vsc))
+        jkw.update(k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+    else:
+        kp[-1] = vp[-1] = np.nan
+        k, v = _t(kp).to(pool_dtype), _t(vp).to(pool_dtype)
+        jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (k, v))
+    want = jax_pa.paged_prefill_attention(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(start, jnp.int32),
+        **jkw)
+    assert want.dtype == jq.dtype
+    return (q, k, v, _t(table), start), kw, _t(np.asarray(want, np.float32))
+
+
+# (g, start, pinned relative RMS error of the plain prefill against the
+# Pallas prefill, bf16 q and pool). Measured on the CPU: 0.000833,
+# 0.001263 and 0.001839 with P rounded to bf16 before P.V, as the Pallas
+# kernel rounds it; 0.001736, 0.001921 and 0.002022 with P kept in fp32,
+# as the plain prefill did before. Each pin lies between the two.
+P_ROUNDING_PINS = [(1, 0, 1.2e-3), (2, 5, 1.55e-3), (4, 24, 1.93e-3)]
+
+
+@pytest.mark.parametrize("g, start, pin", P_ROUNDING_PINS)
+def test_prefill_plain_rounds_p_like_pallas(g, start, pin):
+    """The plain prefill rounds P to a bf16 pool's dtype before P.V, as
+    the Pallas kernel does (paged_attention.py:297-298): against the
+    Pallas prefill its relative RMS error stays under a pin that the
+    same arithmetic with P in fp32 exceeds."""
+    args, kw, want = _prefill_16bit_case(200 + g, g, start)
+    got = pt_pa.paged_prefill_attention(*args, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel <= pin, (rel, pin)
+    readings = compare(got, want, torch.bfloat16)
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("start", [0, 13])
+@pytest.mark.parametrize("g", [1, 4])
+def test_prefill_int8_pool_under_16bit_q_matches_pallas_kernel(g, start,
+                                                              q_dtype):
+    """An int8 pool under a bf16 or f16 q (the card's int8 wgmma route):
+    chunk 0 and a chunk that starts inside a page, groups 1 and 4; pages
+    past the chunk and dead entries have NaN scales. Held by
+    checks/tolerance.py's rule for q's dtype."""
+    args, kw, want = _prefill_16bit_case(
+        300 + 10 * g + start, g, start, pool_dtype=torch.int8,
+        q_dtype=q_dtype)
+    got = pt_pa.paged_prefill_attention(*args, **kw)
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    readings = compare(got, want, q_dtype)
+    assert readings["ok"], readings
 
 
 # ---------------------------------------------------------------------

@@ -418,7 +418,9 @@ cudaError_t bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
 // training forward (flash_attention.cu) and the paged chunked prefill
 // (paged_attention.cu): one consumer warpgroup's 64 query rows against
 // a stream of 64-key K and V tiles. The kernels differ only in who
-// loads the tiles (a producer warp each) and in the mask.
+// loads the tiles (a producer warp, or for an int8 pool a converter
+// warpgroup) and in the mask, which may also carry per-key scales
+// (walk_scaled below).
 //
 // Ring: stage st holds a K tile at k + st * walk_tile_bytes<kD>() and a
 // V tile at v + st * walk_tile_bytes<kD>() (64 rows x kD, the panels above),
@@ -485,6 +487,20 @@ __device__ __forceinline__ void walk_skip(const WalkRing& ring, int from,
   }
 }
 
+// Per-key scales of a Mask policy. A mask with members s_scale(kt, key)
+// and p_scale(kt, key) (key: the key's index 0-63 within tile kt) has
+// them applied by the walk: S of that key is multiplied by s_scale
+// before the softmax, and P by p_scale after the row sum l is taken and
+// before P is packed for P . V -- an int8 pool's page scales, with the
+// tiles holding the raw integers. A mask without them (the 16-bit walks)
+// compiles to the walk it had before the hooks existed.
+template <typename Mask, typename = void>
+struct walk_scaled : std::false_type {};
+template <typename Mask>
+struct walk_scaled<Mask, std::void_t<decltype(&Mask::s_scale),
+                                     decltype(&Mask::p_scale)>>
+    : std::true_type {};
+
 // One tile's online-softmax step on S (raw dot products in, P out, in
 // place): updates m and l and returns alpha per row. The mask is
 // applied element by element (mask.sees(r, key): may this thread's row
@@ -494,13 +510,19 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
                                              float scale2, const Mask& mask,
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2]) {
+  constexpr bool kScaled = walk_scaled<Mask>::value;
   const int lane = threadIdx.x & 31;
   const bool edge = mask.edge(kt);
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;
-    float x = s[i] * scale2;
+    float x;
+    if constexpr (kScaled) {
+      x = s[i] * (mask.s_scale(kt, walk_key(i, lane)) * scale2);
+    } else {
+      x = s[i] * scale2;
+    }
     if (edge && !mask.sees(r, kt * kWalkKeys + walk_key(i, lane)))
       x = kMaskValue;
     s[i] = x;
@@ -526,6 +548,10 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
   }
   l[0] = alpha[0] * l[0] + sum[0];
   l[1] = alpha[1] * l[1] + sum[1];
+  if constexpr (kScaled) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= mask.p_scale(kt, walk_key(i, lane));
+  }
 }
 
 // P (fp32, accumulator layout) rounded to T as four k-steps of A

@@ -8,11 +8,13 @@
 //                                one run of a slot's pages, the second
 //                                merges the runs (flash-decoding).
 //   paged_prefill_wgmma_kernel   replace _prefill_kernel (launched by
-//   paged_prefill_kernel         paged_prefill_attention): the first for
-//                                16-bit q and pool of one dtype, the
-//                                second for every other pair (float32,
-//                                int8 pools, mixed dtypes) and page
-//                                sizes outside the first one's rule
+//   paged_prefill_int8_kernel    paged_prefill_attention): the first for
+//   paged_prefill_kernel         16-bit q and pool of one dtype, the
+//                                second for an int8 pool under a 16-bit
+//                                q, the third for every other pair
+//                                (float32, float32 q over int8, mixed
+//                                16-bit dtypes) and for page sizes and
+//                                head dims outside the first two's rule
 //                                (prefill_route below).
 //
 // They compute what the Pallas kernels compute -- online softmax in
@@ -20,11 +22,12 @@
 // taken from data (pos per slot, start per chunk), inactive slots
 // written as zeros, optional int8 pages dequantized with one f32 scale
 // per page -- but are laid out for the card, not carried over block by
-// block. The decode and the wgmma prefill round P to the pool's dtype
-// before P . V for a 16-bit pool, as the Pallas kernels do; the scalar
-// prefill keeps P in fp32, which is the Pallas kernel's arithmetic for
-// float32 and int8 pools, and differs from it only by that rounding for
-// a 16-bit pool under a q of another dtype.
+// block. Every kernel rounds P to a 16-bit pool's dtype before P . V, as
+// the Pallas kernels' p.astype(v.dtype) does (each relative to its own
+// running max, where the plain versions round relative to the whole
+// view's max), and keeps P in fp32 for float32 and int8 pools -- apart
+// from the int8 prefill, whose arithmetic is set out with its design
+// below.
 //
 //   * the TPU grid's sequential page axis becomes a loop inside one
 //     thread block (split into runs of pages for the decode);
@@ -45,7 +48,12 @@
 //   prefill  at the main path's shapes (Llama-2-7B: 32 heads, d 128, a
 //            256-token chunk over up to 512 keys) the causal FLOPs
 //            (~1.6 GFLOP) and the bytes (~10 MB) give bounds of
-//            ~1.6 us and ~3 us: bytes again, by a small margin.
+//            ~1.6 us and ~3 us: bytes again, by a small margin. An int8
+//            pool halves the page bytes: the 7B chunk at start 256 moves
+//            8.39 MB (q and out in bf16, 32 int8 pages of K and V with
+//            their scales), 2.50 us at 3.35 TB/s; with 8 KV heads and
+//            g 8 (the 70B attention dims) the same chunk does 3.23 GFLOP,
+//            3.26 us at the bf16 rate, and operations bound it.
 //
 // The decode is built to keep the memory system busy:
 //
@@ -87,10 +95,49 @@
 // page into a ring that a producer warp keeps ahead of the consumer
 // warpgroup; scores, probabilities and the output accumulate in
 // registers through the online-softmax walk the training forward uses
-// (hopper.cuh). The other prefill routes keep the first, simple design:
-// scalar fp32 FMAs over shared memory, K/V pages staged with plain
-// loads, four barriers per page. PERF.md carries the measured times
-// against the bounds.
+// (hopper.cuh).
+//
+// The int8 prefill runs the same grid, Q tile and walk. What it adds:
+//
+//   * exact int8 tiles. An int8 value (-127..127) is exact in bf16 and
+//     in f16, so the K and V tiles the walk reads hold the raw integers
+//     in q's dtype, no scale applied; wgmma's Q . K_int is exact per
+//     product and summed in fp32.
+//   * page scales folded into S and P, through the walk's key-scale
+//     hooks (walk_scaled in hopper.cuh): S = (q . k_int) * (k_scale *
+//     sm_scale) per key column in fp32 after the wgmma -- the reference
+//     computes q . (k_int * k_scale) in f32, so the two differ only in
+//     the order of fp32 rounding; the row sum l is taken from the
+//     unscaled P, and then P is multiplied by the key's v_scale and
+//     packed to q's dtype as the A operand of the RS wgmma P . V. That
+//     packing rounds P * v_scale to q's dtype (relative 2^-9 in bf16,
+//     2^-11 in f16, the same rounding the 16-bit prefill gives P; in f16
+//     a product below 6.1e-5 loses precision as a subnormal); the Pallas
+//     kernel keeps P in f32 in interpret mode (on a TPU an f32 dot at
+//     default precision passes its inputs through bf16 as well). The
+//     card holds it against the plain version (fp32 throughout) under
+//     checks/tolerance.py's rule for q's dtype.
+//   * a converter warpgroup in place of the producer warp. Its 128
+//     threads each own one 16-byte column chunk of kD / 32 rows of every
+//     tile: they read it with 16-byte global loads (half the 16-bit
+//     route's page bytes; no tensor map for the pool, so none to encode
+//     or cache), convert it to the 16-bit tile in the 128-byte-swizzled
+//     panel layout the walk's descriptors read, fence.proxy.async, and
+//     arrive on the stage's full barrier. The 16-bit ring lets the
+//     converters run up to kPrefillStages tiles ahead of the walk. Rows
+//     no live page fills come out as zeros, as the 16-bit route's
+//     last-tile rule writes them, and their scales as 0, so 0 x NaN
+//     never enters S or P . V. The page scales of a tile's eight 8-key
+//     groups are written to the stage's scale slot before the arrival.
+//     Shared memory at d 128: Q 16 KB, the 16-bit ring 96 KB (3 stages
+//     of K and V), scales and barriers 272 bytes: 115,984 bytes with the
+//     alignment slack; 256 threads at 168 registers make it one block an
+//     SM.
+//
+// The other prefill routes keep the first, simple design: scalar fp32
+// FMAs over shared memory, K/V pages staged with plain loads, four
+// barriers per page. PERF.md carries the measured times against the
+// bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
@@ -114,28 +161,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
-}
-
-// One online-softmax step for row r over the bs scores in s[0:bs]:
-// scores become probabilities in place; m, l and the rescale factor
-// alpha are updated as in the Pallas kernels (m_safe keeps a fully
-// masked row at exp(.) = 0 instead of exp(0) = 1).
-__device__ __forceinline__ void softmax_step(float* s, int bs, float* m,
-                                             float* l, float* alpha) {
-  const float m_prev = *m;
-  float mx = m_prev;
-  for (int t = 0; t < bs; ++t) mx = fmaxf(mx, s[t]);
-  const float m_safe = (mx <= kMaskValue * 0.5f) ? 0.f : mx;
-  float sum = 0.f;
-  for (int t = 0; t < bs; ++t) {
-    const float p = (s[t] > kMaskValue * 0.5f) ? expf(s[t] - m_safe) : 0.f;
-    s[t] = p;
-    sum += p;
-  }
-  const float a = expf(m_prev - m_safe);
-  *l = a * (*l) + sum;
-  *alpha = a;
-  *m = mx;
 }
 
 // ---------------------------------------------------------------------
@@ -224,6 +249,31 @@ __device__ __forceinline__ float pool_round(float p) {
   } else {
     return p;
   }
+}
+
+// One online-softmax step for row r over the bs scores in s[0:bs]:
+// scores become probabilities in place, as P . V takes them (rounded to
+// a 16-bit pool's dtype by pool_round); m, l (the sum of the unrounded
+// probabilities) and the rescale factor alpha are updated as in the
+// Pallas kernels (m_safe keeps a fully masked row at exp(.) = 0 instead
+// of exp(0) = 1).
+template <typename KT>
+__device__ __forceinline__ void softmax_step(float* s, int bs, float* m,
+                                             float* l, float* alpha) {
+  const float m_prev = *m;
+  float mx = m_prev;
+  for (int t = 0; t < bs; ++t) mx = fmaxf(mx, s[t]);
+  const float m_safe = (mx <= kMaskValue * 0.5f) ? 0.f : mx;
+  float sum = 0.f;
+  for (int t = 0; t < bs; ++t) {
+    const float p = (s[t] > kMaskValue * 0.5f) ? expf(s[t] - m_safe) : 0.f;
+    s[t] = pool_round<KT>(p);
+    sum += p;
+  }
+  const float a = expf(m_prev - m_safe);
+  *l = a * (*l) + sum;
+  *alpha = a;
+  *m = mx;
 }
 
 // Element i of a q-dtype array (dtype code of kernels/attention.py).
@@ -751,7 +801,7 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
     }
     __syncthreads();
     for (int r = tid; r < nrows; r += kPrefillThreads)
-      softmax_step(sc + r * bs, bs, m + r, l + r, alpha + r);
+      softmax_step<KT>(sc + r * bs, bs, m + r, l + r, alpha + r);
     __syncthreads();
     for (int i = tid; i < nrows * d; i += kPrefillThreads) {
       const int r = i / d;
@@ -814,6 +864,45 @@ struct PrefillMask {
     return key <= qpos[r] && key < n_keys;
   }
 };
+
+// The mask of a tensor-core prefill thread's two grouped rows, r0 and
+// r0 + 8, in the 64-row tile from row0.
+__device__ __forceinline__ PrefillMask prefill_mask(int r0, int row0, int g,
+                                                    int start, int n_keys) {
+  return PrefillMask{{start + r0 / g, start + (r0 + 8) / g}, start + row0 / g,
+                     n_keys};
+}
+
+// The consumer warpgroup of a tensor-core prefill: rows r0 and r0 + 8
+// through the walk over the ring's n_tiles tiles once the Q tile has
+// arrived on bar_q, then written to out (hkv, bucket, g, d).
+template <typename T, int kD, typename Mask>
+__device__ __forceinline__ void prefill_consume(const Mask& mask, int r0,
+                                                uint32_t s_q, uint32_t bar_q,
+                                                const WalkRing& ring,
+                                                int n_tiles, float sm_scale,
+                                                T* out, int h, int n_rows,
+                                                int d) {
+  WalkRows<kD> rows;
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  rows.m[0] = rows.m[1] = kMaskValue;
+  rows.l[0] = rows.l[1] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  walk<T, kD>(rows, s_q, kPrefillRows, 0, ring, n_tiles, sm_scale * kLog2e,
+              mask);
+  T* row_ptr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    row_ptr[r] = row < n_rows
+                     ? out + (static_cast<size_t>(h) * n_rows + row) * d
+                     : nullptr;
+  }
+  float row_lse[2];  // not an output of the prefill
+  walk_finish<T, kD>(rows, row_ptr, d, row_lse);
+}
 
 template <typename T, int kD>
 __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kernel(
@@ -910,29 +999,194 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
     return;
   }
 
-  // This thread's two grouped rows: r0 and r0 + 8.
   const int r0 = row0 + 16 * warp + (lane >> 2);
-  const PrefillMask mask{{start + r0 / g, start + (r0 + 8) / g},
-                         start + row0 / g, n_keys};
-  WalkRows<kD> rows;
-#pragma unroll
-  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
-  rows.m[0] = rows.m[1] = kMaskValue;
-  rows.l[0] = rows.l[1] = 0.f;
+  prefill_consume<T, kD>(prefill_mask(r0, row0, g, start, n_keys), r0, s_q,
+                         bar_q, ring, n_tiles, sm_scale, out, h, n_rows, d);
+}
 
-  mbar_wait(bar_q, 0);
-  walk<T, kD>(rows, s_q, kPrefillRows, 0, ring, n_tiles, sm_scale * kLog2e,
-              mask);
-  T* row_ptr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    row_ptr[r] = row < n_rows
-                     ? out + (static_cast<size_t>(h) * n_rows + row) * d
-                     : nullptr;
+// ---------------------------------------------------------------------
+// Chunked prefill over an int8 pool under a 16-bit q (prefill_route's
+// kRouteWgmmaInt8): the 16-bit prefill's grid, Q tile, walk and
+// last-tile rule, with a converter warpgroup in place of the producer
+// warp. Each converter thread owns one 16-byte column chunk of kD / 32
+// rows of every 64-key tile: it loads them (K and V) with 16-byte
+// global loads, converts them to the raw integers in T, exact, and
+// writes them where TMA's 128-byte swizzle would have put them; then
+// fences and arrives on the stage's full barrier (128 arrivals). Rows
+// that no live page fills, and columns past d, are never read and are
+// written as zeros. Threads 0-15 also read the K (0-7) or V (8-15)
+// scale of the tile's eight 8-key groups (a page spans whole groups: bs
+// is a multiple of 8) and write it to the stage's scale slot before
+// arriving; PrefillInt8Mask hands the scales to the walk.
+// ---------------------------------------------------------------------
+constexpr int kInt8Threads = 256;  // a consumer warpgroup + a converter warpgroup
+
+// Dynamic shared memory, from a 1024-byte-aligned base: the Q tile, the
+// walk's 16-bit K and V ring, its scales [kPrefillStages][16] (8 K, then
+// 8 V, one per 8-key group), the barriers. d 128: 16 + 96 KB and 272
+// bytes (115,984 with the alignment slack); d 64: half the tiles.
+template <int kD>
+constexpr size_t prefill_int8_smem_bytes() {
+  return kPrefillRows * kD * 2 + 2 * kPrefillStages * walk_tile_bytes<kD>() +
+         kPrefillStages * 16 * sizeof(float) + (1 + 3 * kPrefillStages) * 8 +
+         1024;
+}
+
+// The int8 route's mask: the 16-bit prefill's, plus the page scales of
+// each tile's 8-key groups, which the walk folds into S and P.
+struct PrefillInt8Mask : PrefillMask {
+  const float* scales;  // [kPrefillStages][16] in shared memory
+  __device__ __forceinline__ float s_scale(int kt, int key) const {
+    return scales[(kt % kPrefillStages) * 16 + (key >> 3)];
   }
-  float row_lse[2];  // not an output of the prefill
-  walk_finish<T, kD>(rows, row_ptr, d, row_lse);
+  __device__ __forceinline__ float p_scale(int kt, int key) const {
+    return scales[(kt % kPrefillStages) * 16 + 8 + (key >> 3)];
+  }
+};
+
+// Four int8 values (the bytes of w, lowest first) as floats, exactly:
+// each byte with its sign bit flipped (x + 128) becomes the low mantissa
+// bits of 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+
+// One 16-byte chunk (16 int8 columns of row t) into the 16-bit tile at
+// `tile` (kD columns, 64 rows, the 128-byte-swizzled panels of
+// hopper.cuh): two 16-byte chunks, 2 cc and 2 cc + 1 of the row.
+template <typename T>
+__device__ __forceinline__ void convert_chunk(const uint4& x, uint32_t tile, int t,
+                                              int cc) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+    i8x4_to_f32(w[j], f);
+    o[2 * j] = pack2<T>(f[0], f[1]);
+    o[2 * j + 1] = pack2<T>(f[2], f[3]);
+  }
+  const uint32_t row = tile + (cc >> 2) * kWalkKeys * kPanelRowBytes +
+                       t * kPanelRowBytes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t dst = row + ((((2 * cc + h) & 7) ^ (t & 7)) << 4);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(o[4 * h]), "r"(o[4 * h + 1]), "r"(o[4 * h + 2]),
+                 "r"(o[4 * h + 3])
+                 : "memory");
+  }
+}
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // q as [hkv, bucket g, 1, d]
+    const int8_t* __restrict__ k_pages,        // (num_blocks, bs, hkv, d)
+    const int8_t* __restrict__ v_pages,
+    const int* __restrict__ table,             // (table_width,)
+    const float* __restrict__ k_scale,         // (num_blocks,)
+    const float* __restrict__ v_scale,
+    T* __restrict__ out,                       // (hkv, bucket, g, d)
+    int hkv, int bucket, int g, int d, int bs, int max_blocks, int start,
+    float sm_scale) {
+  constexpr int kQ = kPrefillRows * kD * 2;
+  constexpr int kTile = walk_tile_bytes<kD>();
+  const int h = blockIdx.x;
+  const int n_rows = bucket * g;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kPrefillRows;
+  const int nrows = min(kPrefillRows, n_rows - row0);
+  const int warp = threadIdx.x >> 5;  // 0-3 consumers, 4-7 the converters
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  WalkRing ring;
+  ring.k = s_q + kQ;
+  ring.v = ring.k + kPrefillStages * kTile;
+  const uint32_t s_sc = ring.v + kPrefillStages * kTile;  // 16 floats a stage
+  const uint32_t bar_q = s_sc + 64u * kPrefillStages;
+  ring.full_k = bar_q + 8;
+  ring.full_v = ring.full_k + 8 * kPrefillStages;
+  ring.empty = ring.full_v + 8 * kPrefillStages;
+  ring.stages = kPrefillStages;
+  float* scales = reinterpret_cast<float*>(smem_raw + (s_sc - smem_u32(smem_raw)));
+
+  // Keys the tile's last row can see, the tiles and pages they span.
+  const int n_keys = max_blocks * bs;
+  const int last_pos = start + (row0 + nrows - 1) / g;
+  const int live_keys = min(last_pos + 1, n_keys);
+  const int n_tiles = (live_keys + kWalkKeys - 1) / kWalkKeys;
+  const int n_pages = (live_keys + bs - 1) / bs;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q);
+    for (int st = 0; st < kPrefillStages; ++st) {
+      mbar_init(ring.full_k + 8 * st, 128);
+      mbar_init(ring.full_v + 8 * st, 128);
+      mbar_init(ring.empty + 8 * st, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the converter warpgroup
+    constexpr int kCpr = kD / 16;         // 16-byte int8 chunks of a row
+    constexpr int kRows = kD / 32;        // rows of a tile per thread
+    constexpr int kRowStep = 128 / kCpr;  // between a thread's rows
+    const int c = threadIdx.x - 128;
+    const int cc = c % kCpr;
+    const int t0 = c / kCpr;
+    if (c == 0) {
+      mbar_expect_tx(bar_q, kQ);
+      tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows);
+    }
+    const size_t tok = static_cast<size_t>(hkv) * d;  // bytes between keys
+    const size_t col = static_cast<size_t>(h) * d + cc * 16;
+    const bool col_live = cc * 16 < d;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      uint4 kx[kRows], vx[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int key = kt * kWalkKeys + t0 + r * kRowStep;
+        const int p = key / bs;
+        kx[r] = vx[r] = make_uint4(0u, 0u, 0u, 0u);
+        if (p < n_pages && col_live) {
+          const size_t off =
+              (static_cast<size_t>(__ldg(table + p)) * bs + key - p * bs) * tok + col;
+          kx[r] = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
+          vx[r] = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
+        }
+      }
+      float sc = 0.f;  // a group past the live pages: scale 0
+      if (c < 16) {
+        const int p = (kt * kWalkKeys + 8 * (c & 7)) / bs;
+        if (p < n_pages) sc = __ldg((c < 8 ? k_scale : v_scale) + __ldg(table + p));
+      }
+      const int st = kt % kPrefillStages;
+      if (kt >= kPrefillStages)
+        mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
+      if (c < 16) scales[st * 16 + c] = sc;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        convert_chunk<T>(kx[r], ring.k + st * kTile, t0 + r * kRowStep, cc);
+      fence_proxy_async();
+      mbar_arrive(ring.full_k + 8 * st);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        convert_chunk<T>(vx[r], ring.v + st * kTile, t0 + r * kRowStep, cc);
+      fence_proxy_async();
+      mbar_arrive(ring.full_v + 8 * st);
+    }
+    return;
+  }
+
+  const int r0 = row0 + 16 * warp + (lane >> 2);
+  const PrefillInt8Mask mask{prefill_mask(r0, row0, g, start, n_keys), scales};
+  prefill_consume<T, kD>(mask, r0, s_q, bar_q, ring, n_tiles, sm_scale, out,
+                         h, n_rows, d);
 }
 
 size_t prefill_smem_bytes(int tq, int d, int bs) {
@@ -941,26 +1195,28 @@ size_t prefill_smem_bytes(int tq, int d, int bs) {
          (2 * tq * dp + 2 * bs * dp + static_cast<size_t>(tq) * bs + 3 * tq);
 }
 
-// Which prefill kernel takes a launch: the wgmma kernel for 16-bit q and
-// pool of one dtype, d a multiple of 16 up to 128, and pages that stack
-// into 64-key tiles on 8-row boundaries (bs 8, 16, 32 or 64) or split
-// into them (bs a multiple of 64); paged_prefill_kernel for every other
-// launch (float32, int8 pools dequantized in f32, mixed dtypes, other
-// page sizes).
-enum PrefillRoute { kRouteScalar = 0, kRouteWgmma = 1 };
+// Which prefill kernel takes a launch. Pages must stack into 64-key
+// tiles on 8-row boundaries (bs 8, 16, 32 or 64) or split into them (bs
+// a multiple of 64), and d be a multiple of 16 up to 128, for either
+// tensor-core kernel: paged_prefill_wgmma_kernel takes 16-bit q and pool
+// of one dtype, paged_prefill_int8_kernel an int8 pool under a 16-bit q;
+// paged_prefill_kernel every other launch (float32, float32 q over int8,
+// mixed 16-bit dtypes, other page sizes and head dims).
+enum PrefillRoute { kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2 };
 
 int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
-  const bool same16 = q_dtype == kv_dtype && (q_dtype == kF16 || q_dtype == kBF16);
+  const bool q16 = q_dtype == kF16 || q_dtype == kBF16;
   const bool pages = (bs >= 8 && kWalkKeys % bs == 0) || (bs > 0 && bs % kWalkKeys == 0);
-  return same16 && pages && d >= 16 && d % 16 == 0 && d <= 128 ? kRouteWgmma
-                                                               : kRouteScalar;
+  if (!q16 || !pages || d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
+  if (kv_dtype == q_dtype) return kRouteWgmma;
+  return kv_dtype == kI8 ? kRouteWgmmaInt8 : kRouteScalar;
 }
 
-// Rows per prefill block. The wgmma route: kPrefillRows. The scalar
-// route: 64, halved while the grid would leave SMs of the 132 idle or
-// the tile would not fit shared memory.
+// Rows per prefill block. The tensor-core routes: kPrefillRows. The
+// scalar route: 64, halved while the grid would leave SMs of the 132
+// idle or the tile would not fit shared memory.
 int prefill_tile_rows(int hkv, int bucket, int g, int d, int bs, int route) {
-  if (route == kRouteWgmma) return kPrefillRows;
+  if (route != kRouteScalar) return kPrefillRows;
   const int n_rows = bucket * g;
   int tq = 64;
   while (tq > 16 && hkv * ((n_rows + tq - 1) / tq) < 132) tq >>= 1;
@@ -1085,6 +1341,30 @@ int launch_prefill_wgmma(const void* q, const void* k_pages, const void* v_pages
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kD>
+int launch_prefill_int8(const void* q, const void* k_pages, const void* v_pages,
+                        const void* table, const void* k_scale,
+                        const void* v_scale, void* out, int hkv, int bucket,
+                        int g, int d, int bs, int max_blocks, int start,
+                        float sm_scale, cudaStream_t stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_q;
+  cudaError_t err = bshd_map<T>(&tm_q, q, hkv, bucket * g, 1, d, kPrefillRows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = prefill_int8_smem_bytes<kD>();
+  auto kernel = paged_prefill_int8_kernel<T, kD>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (bucket * g + kPrefillRows - 1) / kPrefillRows;
+  kernel<<<dim3(hkv, tiles), kInt8Threads, smem, stream>>>(
+      tm_q, static_cast<const int8_t*>(k_pages),
+      static_cast<const int8_t*>(v_pages), static_cast<const int*>(table),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<T*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename QT, typename KT>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    const void* table, const void* k_scale, const void* v_scale,
@@ -1101,6 +1381,17 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                                                      out, hkv, bucket, g, d, bs,
                                                      max_blocks, start, sm_scale,
                                                      stream);
+  }
+  if constexpr (std::is_same<KT, int8_t>::value && sizeof(QT) == 2) {
+    if (route == kRouteWgmmaInt8)
+      return d <= 64 ? launch_prefill_int8<QT, 64>(q, k_pages, v_pages, table,
+                                                   k_scale, v_scale, out, hkv,
+                                                   bucket, g, d, bs, max_blocks,
+                                                   start, sm_scale, stream)
+                     : launch_prefill_int8<QT, 128>(q, k_pages, v_pages, table,
+                                                    k_scale, v_scale, out, hkv,
+                                                    bucket, g, d, bs, max_blocks,
+                                                    start, sm_scale, stream);
   }
   const int tq = prefill_tile_rows(hkv, bucket, g, d, bs, kRouteScalar);
   const size_t smem = prefill_smem_bytes(tq, d, bs);
@@ -1188,9 +1479,10 @@ int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages
                       static_cast<cudaStream_t>(stream))))
 }
 
-// The route a prefill launch takes (1 the wgmma kernel, 0 the scalar
-// one; -1 for a dtype code no kernel takes) and the rows of a block on
-// that route: chip_smoke.py reports both beside the kernel's time.
+// The route a prefill launch takes (0 the scalar kernel, 1 the 16-bit
+// wgmma kernel, 2 the int8-pool one; -1 for a dtype code no kernel
+// takes) and the rows of a block on that route: chip_smoke.py reports
+// both beside the kernel's time.
 int tpuhpc_prefill_route(int d, int bs, int q_dtype, int kv_dtype) {
   if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8) return -1;
   return prefill_route(q_dtype, kv_dtype, d, bs);

@@ -17,11 +17,13 @@ raises; it never falls back. The decode splits each slot's pages into
 runs, one block each, and merges the runs in a second small kernel
 (flash-decoding; :func:`paged_decode_splits` reports the runs, and
 :func:`paged_decode_split_ref` / :func:`paged_decode_combine_ref` are
-the two passes written plainly). The prefill has two kernels, chosen by a
-rule of dtypes and shapes written in the C launcher
+the two passes written plainly). The prefill has three kernels, chosen
+by a rule of dtypes and shapes written in the C launcher
 (:func:`paged_prefill_route` reports which one a launch takes): the
-wgmma kernel for 16-bit q and pool of one dtype, the scalar kernel for
-float32, int8 pools and mixed dtypes. On a CPU tensor it runs the plain PyTorch
+wgmma kernel for 16-bit q and pool of one dtype, the int8 wgmma kernel
+for an int8 pool under a 16-bit q (exact integer tiles, the page scales
+folded into S and P), the scalar kernel for float32, float32 q over
+int8 and mixed 16-bit dtypes. On a CPU tensor it runs the plain PyTorch
 version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
@@ -260,7 +262,9 @@ def paged_prefill_attention_ref(
     """Plain PyTorch chunked-prefill attention over one table row:
     query row b of the chunk sits at position ``start + b`` and sees
     keys ``<= start + b``; keys past the chunk's last row are zeroed
-    before any arithmetic. Same contract as
+    before any arithmetic; fp32 masked softmax, P rounded to a 16-bit
+    pool's dtype before P.V (relative to the whole view's max; the
+    kernels round relative to a tile's running max). Same contract as
     :func:`paged_prefill_attention`."""
     hkv, bucket, g, d = q.shape
     if sm_scale is None:
@@ -279,7 +283,8 @@ def paged_prefill_attention_ref(
     s = torch.einsum("hbgd,lhd->hbgl", q.to(torch.float32), k) * sm_scale
     s = torch.where(valid[None, :, None, :], s, torch.full_like(s, MASK_VALUE))
     p, l_safe = _softmax_rows(s)
-    out = torch.einsum("hbgl,lhd->hbgd", p, v) / l_safe
+    out = torch.einsum("hbgl,lhd->hbgd", _pool_round(p, v_pages.dtype),
+                       v) / l_safe
     return out.to(q.dtype)
 
 
@@ -433,7 +438,8 @@ def paged_prefill_attention(
     are never read. ``start`` is a host integer (or a CPU scalar
     tensor) passed to the kernel as an argument, so one kernel serves
     every chunk of every slot. CUDA tensors launch the prefill kernel
-    of ``csrc/paged_attention.cu``; CPU tensors run
+    of ``csrc/paged_attention.cu`` that :func:`paged_prefill_route`
+    names (one launch in ``.launches``); CPU tensors run
     :func:`paged_prefill_attention_ref`."""
     hkv, bucket, g, d = q.shape
     _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d)
@@ -504,8 +510,13 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
         slots, kv_heads, group, max_blocks)
 
 
-# The prefill kernels, by the C interface's route code.
-PREFILL_ROUTES = ("scalar", "wgmma")
+# The prefill kernels, by the C interface's route code:
+# paged_prefill_kernel, paged_prefill_wgmma_kernel (16-bit q and pool of
+# one dtype) and paged_prefill_int8_kernel (an int8 pool under a 16-bit
+# q). The two tensor-core routes take head_dim a multiple of 16 up to
+# 128 and pages that stack into (or split into) 64-key tiles: bs 8, 16,
+# 32, 64 or a multiple of 64.
+PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8")
 
 
 def paged_prefill_route(
