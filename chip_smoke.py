@@ -76,10 +76,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     3 updates (the first is warm-up). The flash kernels'
                     launch counts are set to 0 just before and read just
                     after; each must equal layers x accum x updates.
-  8. train_profile -- one more bench-Llama update under torch.profiler:
+  8. train_hybrid -- the distributed main path on this card: a one-rank
+                    NCCL world in this process, a (data 1, model 1)
+                    mesh, and run_train's hybrid plan (hybrid_pspecs +
+                    SP; params through shard_params: DTensors under
+                    FSDP2 per block and at the root; each block on local
+                    shards under local_map, the flash kernels on local
+                    heads) at train's seed, batch,
+                    accumulation and updates. Losses equal train's
+                    within HYBRID_LOSS_RTOL, each flash kernel launches
+                    layers x accum x updates times (counts set to 0 just
+                    before), update_s, tokens/s and peak memory beside
+                    train's; the process group is destroyed after.
+  9. train_profile -- one more bench-Llama update under torch.profiler:
                     device time by kernel family, the top kernels, the
                     card's idle share. Reports; gates nothing.
-  9. train_crosscheck -- bench width in float32, 2 layers, seq 512,
+ 10. train_crosscheck -- bench width in float32, 2 layers, seq 512,
                     batch 4 with accum 2: 3 updates from the same params
                     and batches through the flash kernels and through
                     the reference attention; the first update's
@@ -878,7 +890,81 @@ def train_phase(torch, dev) -> dict:
         raise SystemExit(
             f"train: flash launches {launches}, expected {expected} each"
         )
-    return launches
+    return launches, summary
+
+
+# train_hybrid's limit on its losses against train's: the same bf16
+# compute on one card, only the machinery (DTensor, FSDP2, local_map)
+# differs.
+HYBRID_LOSS_RTOL = 2e-3
+
+
+def hybrid_failures(train_losses, losses, launches, expected, layout) -> list:
+    """What fails the train_hybrid phase: a loss off train's by more
+    than HYBRID_LOSS_RTOL, a flash kernel launched other than
+    ``expected`` times, or a layout that is not DTensors under FSDP2."""
+    bad = []
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    if len(losses) != len(train_losses) or max(errs) > HYBRID_LOSS_RTOL:
+        bad.append(f"losses {losses} against train's {train_losses}")
+    if any(n != expected for n in launches.values()):
+        bad.append(f"flash launches {launches}, expected {expected} each")
+    if not layout or layout["fsdp_units"] < 2 or "plain" in layout["params"]:
+        bad.append(f"layout {layout}: not DTensor params under FSDP2")
+    return bad
+
+
+def train_hybrid_phase(torch, dev, train) -> None:
+    """The distributed main path on this card: a one-rank NCCL world
+    in this process, a (data 1, model 1) mesh, and run_train's hybrid
+    plan (hybrid_pspecs + SP, params through shard_params: DTensors
+    under FSDP2, each block on local shards under local_map, the flash
+    kernels on local heads) at train's seed,
+    batch, accumulation and updates. Its losses must equal train's
+    within HYBRID_LOSS_RTOL and each flash kernel must launch layers x
+    accum x updates times; the process group is gone after."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, run_train
+
+    cfg = bench_model_cfg()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"data": 1, "model": 1}), "cuda")
+        for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+                   fa.flash_attention_dkv):
+            fn.launches = 0
+        summary = run_train(cfg, steps=TRAIN_STEPS, epochs=TRAIN_EPOCHS,
+                            batch=TRAIN_BATCH, grad_accum_steps=TRAIN_ACCUM,
+                            device=dev, mesh=mesh, plan="hybrid")
+        launches = fa.kernel_launches()
+    finally:
+        dist.destroy_process_group()
+    expected = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS * TRAIN_EPOCHS
+    errs = [abs(a - b) / abs(b)
+            for a, b in zip(summary["losses"], train["losses"])]
+    emit("train_hybrid", model="bench", mesh=summary["mesh"],
+         world_size=summary["world_size"], plan=summary["plan"],
+         layout=summary["layout"], backend="nccl", dtype="bfloat16",
+         microbatch=TRAIN_BATCH // TRAIN_ACCUM, grad_accum=TRAIN_ACCUM,
+         updates=summary["updates"], launches=launches,
+         expected_launches=expected, loss_max_rel_err=max(errs),
+         loss_rtol=HYBRID_LOSS_RTOL,
+         **{k: summary[k] for k in (
+             "tokens_per_s", "update_s", "peak_memory_bytes", "mfu",
+             "losses")},
+         train={k: train[k] for k in (
+             "tokens_per_s", "update_s", "peak_memory_bytes", "mfu")})
+    bad = hybrid_failures(train["losses"], summary["losses"], launches,
+                          expected, summary["layout"])
+    if launches != summary["kernel_launches"]:
+        bad.append("launch counts moved outside the run")
+    if bad:
+        raise SystemExit("train_hybrid: " + "; ".join(bad))
 
 
 def kernel_family(name: str) -> str:
@@ -950,10 +1036,10 @@ class FirstGradients:
     def init(self, params):
         return self.inner.init(params)
 
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, norm=None):
         if self.grads is None:
             self.grads = [g.detach().clone() for g in grads]
-        return self.inner.apply(params, grads, state)
+        return self.inner.apply(params, grads, state, norm)
 
 
 # train_crosscheck limits: about 10x what the flash kernels measured
@@ -1168,11 +1254,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. the training path: the bench Llama through the flash kernels
-    launches.update(train_phase(torch, dev))
+    train_launches, train = train_phase(torch, dev)
+    launches.update(train_launches)
     torch.cuda.empty_cache()
-    # -- 8. where an update's device time goes (reports, never gates)
+    # -- 8. the distributed path on a one-rank NCCL world
+    train_hybrid_phase(torch, dev, train)
+    torch.cuda.empty_cache()
+    # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
-    # -- 9. training cross-check: flash kernels vs reference attention
+    # -- 10. training cross-check: flash kernels vs reference attention
     train_crosscheck_phase(torch, dev)
 
     kernels = []

@@ -103,3 +103,37 @@ def test_kernel_cases_cover_every_prefill_route():
     assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
     assert chip_smoke.REPLACES[name] == \
         chip_smoke.REPLACES["paged_prefill_attention"]
+
+
+def test_phase_list_names_train_hybrid_after_train():
+    """The docstring's phases, in order: train_hybrid follows train and
+    comes before the profile and the crosscheck."""
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(rf"^ *{n}\. {name} ", doc, re.M).start()
+             for n, name in ((7, "train"), (8, "train_hybrid"),
+                             (9, "train_profile"), (10, "train_crosscheck"))]
+    assert order == sorted(order)
+
+
+@pytest.mark.parametrize("losses, launches, layout, failures", [
+    ([2.0, 1.0], 4, {"fsdp_units": 9, "params": {"(Shard(dim=0),)": 3}}, 0),
+    ([2.0 * (1 + 1.9e-3), 1.0], 4,
+     {"fsdp_units": 9, "params": {"(Shard(dim=0),)": 3}}, 0),
+    ([2.0 * (1 + 2.1e-3), 1.0], 4,
+     {"fsdp_units": 9, "params": {"(Shard(dim=0),)": 3}}, 1),
+    ([2.0], 4, {"fsdp_units": 9, "params": {"(Shard(dim=0),)": 3}}, 1),
+    ([2.0, 1.0], 3, {"fsdp_units": 9, "params": {"(Shard(dim=0),)": 3}}, 1),
+    ([2.0, 1.0], 4, {"fsdp_units": 9, "params": {"plain": 3}}, 1),
+    ([2.0, 1.0], 4, None, 1),
+])
+def test_hybrid_failures(losses, launches, layout, failures):
+    """train_hybrid fails on a loss off train's by more than
+    HYBRID_LOSS_RTOL, a missing update, a wrong launch count, or params
+    that are not DTensors under FSDP2."""
+    assert chip_smoke.HYBRID_LOSS_RTOL == 2e-3
+    got = chip_smoke.hybrid_failures(
+        [2.0, 1.0], losses, {"flash_attention_fwd": launches,
+                             "flash_attention_dq": 4}, 4, layout)
+    assert len(got) == failures

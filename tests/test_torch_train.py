@@ -189,13 +189,36 @@ def test_token_stream_contract():
 
 
 def test_tp_factory_is_one_device_only():
+    """Without a DeviceMesh the factory is the one-device closure (None,
+    or sizes of one device; sizes above one device name the missing
+    mesh). With a one-rank gloo world's (data 1, model 1) DeviceMesh it
+    runs the same closure under local_map on the model axis: DTensor
+    heads in and out, the plain closure's values."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+
     fn = ttp.make_tp_flash_attn_fn(None)
     q = torch.randn(1, 8, 2, 16)
     out = fn(q, q, q)
     assert out.shape == q.shape
     assert callable(ttp.make_tp_flash_attn_fn({"data": 1, "model": 1}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         ttp.make_tp_flash_attn_fn({"data": 2, "model": 1})
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"data": 1, "model": 1}), "cpu")
+        heads = DTensor.from_local(q, mesh["model"], [Shard(2)])
+        got = ttp.make_tp_flash_attn_fn(mesh)(heads, heads, heads)
+        assert isinstance(got, DTensor) and got.placements == (Shard(2),)
+        torch.testing.assert_close(got.to_local(), out, rtol=0, atol=0)
+        assert ttp.make_tp_flash_attn_fn(mesh, "data", None)(q, q, q) \
+            .shape == q.shape  # no model axis: the bare closure
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -368,19 +391,28 @@ def test_state_carried_mid_run_continues_like_jax(jax_params, one_device_mesh):
 def test_trainer_refuses_what_is_not_ported(monkeypatch):
     params = {"w": torch.zeros(2, 2)}
     fwd = lambda p, ms, b, rng: ((p["w"] ** 2).sum(), ms, {})  # noqa: E731
-    for kw in (dict(guard_mode="skip"), dict(comm_mode="hierarchical"),
-               dict(profile=True), dict(capture_on_anomaly=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(guard_mode="skip"), 3),
+                     (dict(comm_mode="hierarchical"), 8),
+                     (dict(profile=True), 4),
+                     (dict(capture_on_anomaly=True), 5)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
             ttrainer.Trainer(TrainingConfig(**kw), None, fwd, params,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh of 4"):
+    # A mesh above one device is ported: it must be the DeviceMesh
+    # itself (tests/test_torch_distributed.py trains on one).
+    with pytest.raises(ValueError, match="mesh of 4 devices must be a "
+                       "DeviceMesh"):
         ttrainer.Trainer(TrainingConfig(), {"data": 4}, fwd, params,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint_manager"):
+    with pytest.raises(NotImplementedError,
+                       match="checkpoint_manager .ROADMAP queue 1 item 4"):
         ttrainer.Trainer(TrainingConfig(), None, fwd, params,
                          checkpoint_manager=object(), device="cpu")
     monkeypatch.setenv("TPU_HPC_FAULTS", "kill_at_step=1")
-    with pytest.raises(NotImplementedError, match="TPU_HPC_FAULTS"):
+    with pytest.raises(NotImplementedError,
+                       match="TPU_HPC_FAULTS fault plans .ROADMAP queue 1 "
+                       "item 4"):
         ttrainer.Trainer(TrainingConfig(), None, fwd, params, device="cpu")
     monkeypatch.delenv("TPU_HPC_FAULTS")
     with pytest.raises(ValueError, match="divisible"):
@@ -418,6 +450,12 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.train.trainer, tpu_hpc_torch.train.__main__\n"
         "import tpu_hpc_torch.kernels.attention, tpu_hpc_torch.parallel.tp\n"
         "import tpu_hpc_torch.checks.roofline, tpu_hpc_torch.models.datasets\n"
+        "import tpu_hpc_torch.runtime.distributed, tpu_hpc_torch.runtime.mesh\n"
+        "import tpu_hpc_torch.runtime.topology, tpu_hpc_torch.runtime.sim\n"
+        "import tpu_hpc_torch.parallel.plans, tpu_hpc_torch.parallel.dp\n"
+        "import tpu_hpc_torch.parallel.fsdp, tpu_hpc_torch.parallel.hybrid\n"
+        "import tpu_hpc_torch.parallel.shard, tpu_hpc_torch.config\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"
         "print(bad)\n"

@@ -2,14 +2,14 @@
 
 Port of the JAX package's ``config/config.py``: the same
 ``TrainingConfig`` fields, defaults and validation, so one YAML file
-configures either package. The knobs whose machinery this slice does not
-port yet (checkpointing, the numeric-health guard, the comm modes,
-profiling, anomaly capture, meshes above one device) keep their fields;
-the port's ``Trainer`` raises ``NotImplementedError`` when one is set
-away from its default, and ROADMAP lists them.
+configures either package. The knobs whose machinery is not ported yet
+(checkpointing, the numeric-health guard, the comm modes, profiling,
+anomaly capture) keep their fields; the port's ``Trainer`` raises
+``NotImplementedError`` when one is set away from its default, and
+ROADMAP queue 1 lists them.
 
 ``torch_dtypes`` replaces the JAX ``jax_dtypes``; ``mesh_axes`` and
-``mesh_spec`` wait for the distributed slice.
+``mesh_spec`` give ``runtime.build_mesh`` its axes.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ class TrainingConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
-    # Mesh (one device in this slice; the distributed slice ports it).
+    # Mesh (runtime.build_mesh(cfg.mesh_spec())).
     data_parallel: int = -1  # -1 = all remaining devices
     model_parallel: int = 1
     seq_parallel: int = 1
@@ -152,3 +152,33 @@ class TrainingConfig:
                     f"{sorted(allowed)}"
                 )
         return getattr(torch, self.param_dtype), getattr(torch, self.compute_dtype)
+
+    def mesh_axes(self) -> "dict[str, int]":
+        """Ordered mesh axes, dropping degenerate (size-1) ones except
+        data. Data first = the bandwidth-tolerant axis outermost."""
+        axes: dict[str, int] = {}
+        if self.pipe_parallel > 1:
+            axes["pipe"] = self.pipe_parallel
+        axes["data"] = self.data_parallel
+        if self.seq_parallel > 1:
+            axes["seq"] = self.seq_parallel
+        if self.model_parallel > 1:
+            axes["model"] = self.model_parallel
+        return axes
+
+    def mesh_spec(self) -> Any:
+        """Full ``MeshSpec`` including the across-node extent of the
+        data axis (``dcn_data_parallel``)."""
+        from tpu_hpc_torch.runtime.mesh import MeshSpec
+
+        if self.dcn_data_parallel < 1:
+            raise ValueError(
+                f"dcn_data_parallel must be >= 1, got "
+                f"{self.dcn_data_parallel}"
+            )
+        dcn = (
+            {"data": self.dcn_data_parallel}
+            if self.dcn_data_parallel > 1
+            else {}
+        )
+        return MeshSpec(axes=self.mesh_axes(), dcn_axes=dcn)

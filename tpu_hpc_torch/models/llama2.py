@@ -28,10 +28,14 @@ numerics:
     cross-entropy, ``(loss, model_state, aux)``.
 
 Params are a plain nested dict of tensors -- the flax tree's shape --
-rather than ``nn.Module``s. Training keeps them in ``cfg.param_dtype``
-(fp32) with ``requires_grad``; each matrix is cast to ``cfg.dtype`` at
-use, as flax's ``Dense(dtype=...)`` does, so its gradient flows back to
-the fp32 master copy.
+rather than ``nn.Module``s. On a mesh the trainer hands
+:func:`apply_llama` the same tree as modules
+(``parallel.shard.ParamTree``, one per block and a root), which FSDP2
+hooks; each block's forward is still :func:`_block`, under TP on each
+rank's local shards (:func:`_tp_block`). Training keeps the params in
+``cfg.param_dtype`` (fp32) with ``requires_grad``; each matrix is cast
+to ``cfg.dtype`` at use, as flax's ``Dense(dtype=...)`` does, so its
+gradient flows back to the fp32 master copy.
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from tpu_hpc_torch.parallel.shard import is_dtensor
 
 Constrain = Callable[[torch.Tensor], torch.Tensor]
 # (q [B,S,Hq,D], k [B,S,Hkv,D], v) -> [B,S,Hq,D]; None -> the einsum path.
@@ -300,8 +306,17 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _proj(x: torch.Tensor, kernel: torch.Tensor, dtype) -> torch.Tensor:
-    """Bias-free Dense in the compute dtype, flax [in, out] kernel."""
-    return torch.matmul(x.to(dtype), kernel.to(dtype))
+    """Bias-free Dense in the compute dtype, flax [in, out] kernel. A
+    DTensor input sharded on a leading dim (the sequence, under SP) is
+    all-gathered first, Megatron-SP's gather before a colwise
+    product."""
+    x = x.to(dtype)
+    if is_dtensor(x) and any(p.is_shard() and p.dim < x.ndim - 1
+                             for p in x.placements):
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(placements=[Replicate()] * len(x.placements))
+    return torch.matmul(x, kernel.to(dtype))
 
 
 class _EmbedLookup(torch.autograd.Function):
@@ -355,15 +370,18 @@ def _attention(lp, x, cfg, cos, sin, attn_fn):
     return _proj(out, ap["wo"]["kernel"], dt)
 
 
-def _block(lp, x, cfg, cos, sin, constrain, attn_fn):
-    """Pre-norm residual block: attention then SwiGLU feed-forward."""
+def _block(lp, x, cfg, cos, sin, constrain, attn_fn, enter=_identity):
+    """Pre-norm residual block: attention then SwiGLU feed-forward.
+    ``enter`` takes each normed input into the projections, and
+    ``constrain`` each branch's output back to the residual stream (TP
+    on local shards: Megatron's region operators, ``tp.tp_region``)."""
     dt = cfg.dtype
     h = x + constrain(_attention(
-        lp, _rmsnorm(x, lp["attention_norm"]["scale"], cfg.norm_eps),
+        lp, enter(_rmsnorm(x, lp["attention_norm"]["scale"], cfg.norm_eps)),
         cfg, cos, sin, attn_fn,
     ))
     ff = lp["feed_forward"]
-    y = _rmsnorm(h, lp["ffn_norm"]["scale"], cfg.norm_eps)
+    y = enter(_rmsnorm(h, lp["ffn_norm"]["scale"], cfg.norm_eps))
     gate = _proj(y, ff["w1"]["kernel"], dt)
     up = _proj(y, ff["w3"]["kernel"], dt)
     return h + constrain(_proj(
@@ -371,8 +389,150 @@ def _block(lp, x, cfg, cos, sin, constrain, attn_fn):
     ))
 
 
+def _tp_block(lp, x, cfg, cos, sin, constrain, attn_fn):
+    """:func:`_block` on each TP rank's local shards, under
+    ``local_map`` over the TP mesh -- the counterpart of a JAX
+    ``shard_map`` around the block. The params come in as their TP
+    DTensors and the residual ``x`` as ``Replicate`` or, under SP,
+    ``Shard(1)``; inside, the block sees local heads (``n_heads / tp``
+    query and ``kv_heads / tp`` KV heads of the same head_dim) and
+    local FFN columns, with ``tp.tp_region``'s collectives around its
+    two branches (``constrain`` is the residual's layout, already set).
+    A replicated param's gradient is a partial sum under SP (each rank
+    saw its rows), and FSDP2 adds the ranks up."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from tpu_hpc_torch.parallel.plans import map_with_path
+    from tpu_hpc_torch.parallel.tp import tp_region
+
+    del constrain
+    mesh = x.device_mesh
+    if x.placements[0].is_partial():
+        x = x.redistribute(placements=[Replicate()])
+    (layout,) = x.placements
+    sp = layout.is_shard()
+    tp = mesh.size()
+    local_cfg = dataclasses.replace(
+        cfg, dim=cfg.dim // tp, n_heads=cfg.n_heads // tp,
+        n_kv_heads=cfg.kv_heads // tp)
+    tree = lp.tree() if isinstance(lp, torch.nn.Module) else lp
+    paths, leaves = [], []
+    map_with_path(lambda path, t: (paths.append(path), leaves.append(t)),
+                  tree)
+    enter, exit_ = tp_region(mesh, sp)
+
+    def body(x_local, *shards):
+        local = {}
+        for path, shard in zip(paths, shards):
+            *heads, last = path.split("/")
+            node = local
+            for key in heads:
+                node = node.setdefault(key, {})
+            node[last] = shard
+        return _block(local, x_local, local_cfg, cos, sin, exit_, attn_fn,
+                      enter)
+
+    grads = [[Partial()] if sp and t.placements[0].is_replicate()
+             else list(t.placements) for t in leaves]
+    return local_map(
+        body, out_placements=[layout],
+        in_placements=([layout], *(list(t.placements) for t in leaves)),
+        in_grad_placements=([layout], *grads), device_mesh=mesh,
+    )(x, *leaves)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, iota: bool):
+    """``table[tokens]``; a table sharded on vocab over the TP mesh (a
+    DTensor) takes the vocab-parallel lookup."""
+    if is_dtensor(table):
+        return _vocab_parallel_embed(table, tokens, iota)
+    return _EmbedLookup.apply(table, tokens) if iota else table[tokens]
+
+
+class _ShardLookup(torch.autograd.Function):
+    """Megatron's vocab-parallel lookup on one shard: rows ``[lo, lo +
+    rows)`` of the table, zeros for tokens outside them; summed over the
+    TP ranks it is ``table[tokens]``. The backward is
+    :class:`_EmbedLookup`'s, restricted to the shard's rows: each row's
+    gradient lives on one rank, summed in fp32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, lo):
+        rows = table.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + rows)
+        idx = torch.where(mine, tokens - lo, torch.zeros_like(tokens))
+        ctx.save_for_backward(idx, mine)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[idx] * mine[..., None].to(table.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mine = ctx.saved_tensors
+        g = g.to(torch.float32) * mine[..., None]
+        dtable = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                             device=g.device)
+        dtable.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+        return dtable.to(ctx.table_dtype), None, None
+
+
+def _vocab_parallel_embed(table, tokens, iota: bool):
+    """The lookup of a DTensor table on the TP mesh under ``local_map``:
+    sharded on vocab (``Shard(0)``), each rank looks up its rows and the
+    output is the ``Partial`` sum, which the model's ``constrain`` or
+    the next block settles (an all-reduce, or a reduce-scatter under
+    SP); a replicated table looks up every token."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    (placement,) = table.placements
+    mesh = table.device_mesh
+    lo, out = 0, placement
+    if placement.is_shard():
+        rows = -(-table.shape[0] // mesh.size())  # torch.chunk's shard rows
+        lo, out = mesh.get_local_rank() * rows, Partial()
+
+    def lookup(t, tok):
+        if iota:
+            return _ShardLookup.apply(t, tok, lo)
+        mine = (tok >= lo) & (tok < lo + t.shape[0])
+        idx = torch.where(mine, tok - lo, torch.zeros_like(tok))
+        return t[idx] * mine[..., None].to(t.dtype)
+
+    return local_map(lookup, out_placements=[out],
+                     in_placements=([placement], None),
+                     device_mesh=mesh)(table, tokens)
+
+
+def _call(tree, fn, *args):
+    """``fn(tree, *args)``; a module tree (``parallel.shard.ParamTree``)
+    runs it through its ``__call__``, where FSDP2 gathers its params."""
+    if isinstance(tree, torch.nn.Module):
+        return tree(fn, *args)
+    return fn(tree, *args)
+
+
+def _forward(params, tokens, cfg, constrain, attn_fn, positions):
+    dt = cfg.dtype
+    s = tokens.shape[1]
+    table = params["tok_embeddings"]["embedding"].to(dt)
+    x = constrain(_embed(table, tokens, cfg.iota_embed))
+    cos, sin = rope_cos_sin(s, cfg.head_dim, positions=positions,
+                            device=tokens.device)
+    block = _tp_block if is_dtensor(table) else _block
+    for i in range(cfg.n_layers):
+        lp = params[f"layers_{i}"]
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_call, lp, block, x, cfg, cos, sin, constrain,
+                           attn_fn, use_reentrant=False)
+        else:
+            x = _call(lp, block, x, cfg, cos, sin, constrain, attn_fn)
+    x = _rmsnorm(x, params["norm"]["scale"], cfg.norm_eps)
+    return _proj(x, params["output"]["kernel"], dt)
+
+
 def apply_llama(
-    params: Dict[str, Any],
+    params: Any,
     tokens: torch.Tensor,
     cfg: LlamaConfig,
     constrain: Constrain = _identity,
@@ -383,26 +543,19 @@ def apply_llama(
     upcasts inside its reductions). ``positions`` [S]: global RoPE
     position of each slot; None = 0..S-1. ``attn_fn`` None: the einsum
     attention (scores in the compute dtype, fp32 softmax under a -inf
-    mask, GQA through a grouped query view with no repeated K/V)."""
-    dt = cfg.dtype
-    s = tokens.shape[1]
-    table = params["tok_embeddings"]["embedding"].to(dt)
-    if cfg.iota_embed:
-        x = _EmbedLookup.apply(table, tokens)
-    else:
-        x = table[tokens]
-    x = constrain(x)
-    cos, sin = rope_cos_sin(s, cfg.head_dim, positions=positions,
-                            device=tokens.device)
-    for i in range(cfg.n_layers):
-        lp = params[f"layers_{i}"]
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, lp, x, cfg, cos, sin, constrain, attn_fn,
-                           use_reentrant=False)
-        else:
-            x = _block(lp, x, cfg, cos, sin, constrain, attn_fn)
-    x = _rmsnorm(x, params["norm"]["scale"], cfg.norm_eps)
-    return _proj(x, params["output"]["kernel"], dt)
+    mask, GQA through a grouped query view with no repeated K/V).
+
+    ``params`` is the param dict, or its module view laid out on a mesh
+    (``parallel.shard.shard_params``): then each block runs through its
+    module, FSDP2 gathering the block's params; under TP the residual
+    stream is a DTensor on the TP mesh and each block runs on local
+    shards (:func:`_tp_block`). The logits come
+    back whole on every rank, gathered in the compute dtype, so the
+    loss is the one-device fp32 cross-entropy."""
+    if not isinstance(params, torch.nn.Module):
+        return _forward(params, tokens, cfg, constrain, attn_fn, positions)
+    logits = params(_forward, tokens, cfg, constrain, attn_fn, positions)
+    return logits.full_tensor() if is_dtensor(logits) else logits
 
 
 def make_forward(

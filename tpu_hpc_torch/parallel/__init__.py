@@ -1,4 +1,7 @@
-"""tpu_hpc_torch.parallel: the flash-attention factory of the tensor-
-parallel layer (``tp.make_tp_flash_attn_fn``), one device only. The
-DP/FSDP/TP/hybrid plans over a device mesh are the distributed slice
-(ROADMAP queue 1 item 5)."""
+"""tpu_hpc_torch.parallel: sharding plans and their layout on a mesh.
+
+``plans`` (spec trees from path rules), ``dp``, ``fsdp``, ``tp`` (the
+Megatron rules, SP, flash attention on local heads) and ``hybrid``
+(FSDP x TP) are the JAX package's plan functions; ``shard`` carries a
+plan out on a (data, model) ``DeviceMesh`` with DTensor TP and FSDP2.
+"""

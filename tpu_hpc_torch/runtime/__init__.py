@@ -1,5 +1,28 @@
-"""tpu_hpc_torch.runtime: device resolution. The JAX package's mesh,
-topology and multi-process bring-up are later slices (ROADMAP)."""
-from tpu_hpc_torch.runtime.device import resolve_device  # noqa: F401
+"""tpu_hpc_torch.runtime: the device, the process group and the mesh.
 
-__all__ = ["resolve_device"]
+``resolve_device`` (one explicit ``torch.device``), ``init_distributed``
+and the launcher cascade (``distributed.py``), ``MeshSpec`` /
+``build_mesh`` (a named ``DeviceMesh``, ``mesh.py``) and
+``topology_report`` (``topology.py``)."""
+from tpu_hpc_torch.runtime.device import resolve_device  # noqa: F401
+from tpu_hpc_torch.runtime.distributed import (  # noqa: F401
+    HostInfo,
+    cleanup_distributed,
+    get_host_info,
+    init_distributed,
+    is_main_host,
+    print_host0,
+)
+from tpu_hpc_torch.runtime.mesh import MeshSpec, build_mesh  # noqa: F401
+
+__all__ = [
+    "HostInfo",
+    "MeshSpec",
+    "build_mesh",
+    "cleanup_distributed",
+    "get_host_info",
+    "init_distributed",
+    "is_main_host",
+    "print_host0",
+    "resolve_device",
+]

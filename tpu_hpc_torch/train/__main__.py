@@ -1,23 +1,38 @@
 """`python -m tpu_hpc_torch.train` -- the bench Llama's training run.
 
-Port of the single-device branch of the JAX package's
-``bench.py --workload llama`` (``bench_llama``): the bench architecture
-(``bench_model_cfg``: dim 1024, 8 layers, 8 heads, head_dim 128, vocab
-32000, seq 2048, ~168M params, bf16 compute, fp32 params) trained with
-AdamW (lr 3e-4, weight decay 0.1) on the synthetic ``TokenStream``, with
-bench.py's CLI defaults: microbatch 4 accumulated 8 times (a global
-batch of 32 sequences, 65,536 tokens per update), attention through
+Port of the JAX package's ``bench.py --workload llama``
+(``bench_llama``): the bench architecture (``bench_model_cfg``: dim
+1024, 8 layers, 8 heads, head_dim 128, vocab 32000, seq 2048, ~168M
+params, bf16 compute, fp32 params) trained with AdamW (lr 3e-4, weight
+decay 0.1) on the synthetic ``TokenStream``, with bench.py's CLI
+defaults: microbatch 4 accumulated 8 times (a batch of 32 sequences,
+65,536 tokens per update and data rank), attention through
 ``parallel.tp.make_tp_flash_attn_fn`` -> the flash kernels. Epoch 0
 absorbs the kernel build and warm-up; the last epoch is measured.
 
-Prints one JSON line: the device's name and count, tokens/s, MFU
-against the card's peak from ``checks/roofline.py`` (bench.py's
-formula: tokens/s x ``flops_per_token(seq)`` / peak), the loss of every
+Under ``torchrun`` (or another launcher ``runtime.get_host_info``
+knows) every process joins the job's process group (NCCL on cards,
+gloo with ``--device cpu``) and the run takes a (data, model) mesh:
+``--data`` / ``--model``, or ``tp.auto_mesh_axes(world, heads,
+kv_heads, cap=4)``. The plan follows bench.py (:256-273): hybrid FSDP x
+TP with SP when ``model`` > 1, FSDP when only ``data`` > 1, none at one
+process. For example, a 2 x 2 world on the CPU:
+
+    torchrun --nproc-per-node 4 -m tpu_hpc_torch.train --device cpu \
+        --data 2 --model 2 --dim 64 --n-layers 2 --n-heads 4 --vocab 128 \
+        --multiple-of 16 --seq-len 32 --steps 2 --epochs 1 --batch 4 \
+        --grad-accum-steps 2
+
+Rank 0 prints one JSON line: the device's name and the world size, the
+mesh and plan, tokens/s (the whole job's, and per device), MFU against
+the world's peak from ``checks/roofline.py`` (bench.py's formula:
+tokens/s x ``flops_per_token(seq)`` / (peak x world)), the loss of every
 update, the three flash kernels' launch counts and tile rows (null on
-the CPU, where no kernel runs), and the peak device memory. ``--device cpu`` with the model-size flags rehearses
-the run at a tiny size (the kernels' plain versions; no launches).
-Without ``--device cpu`` on a machine with no card it is an argparse
-error naming the missing device.
+the CPU, where no kernel runs), and the peak device memory.
+``--device cpu`` with the model-size flags rehearses the run at a tiny
+size (the kernels' plain versions; no launches). Without ``--device
+cpu`` on a machine with no card it is an argparse error naming the
+missing device.
 """
 from __future__ import annotations
 
@@ -55,6 +70,24 @@ def resolve_batch_accum(batch, accum, microbatch: int = 4):
 LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
 
 
+PLANS = ("auto", "hybrid", "fsdp", "none")
+
+
+def resolve_plan(plan: str, mesh) -> str:
+    """bench.py's rule (bench.py:256-273) for ``plan="auto"``: hybrid
+    FSDP x TP + SP when the mesh has a ``model`` axis above one device,
+    FSDP when only ``data`` is above one, none at one device."""
+    from tpu_hpc_torch.runtime.mesh import mesh_axis_size
+
+    if plan not in PLANS:
+        raise ValueError(f"unknown plan {plan!r}; one of {PLANS}")
+    if plan != "auto":
+        return plan
+    if mesh_axis_size(mesh, "model") > 1:
+        return "hybrid"
+    return "fsdp" if mesh_axis_size(mesh, "data") > 1 else "none"
+
+
 def build_trainer(
     model_cfg: llama2.LlamaConfig,
     *,
@@ -65,25 +98,56 @@ def build_trainer(
     attn: str = "flash",
     moments_dtype: str = "float32",
     device="cuda",
+    mesh=None,
+    plan: str = "auto",
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
     ``make_tp_flash_attn_fn`` (``attn="flash"``) or the model's einsum
     path (``"reference"``). :func:`run_train` fits it; ``chip_smoke.py``
-    profiles one of its updates."""
+    profiles one of its updates.
+
+    ``mesh``: None (one device) or a ``DeviceMesh`` with ``data`` and/or
+    ``model`` dims. ``plan`` (:func:`resolve_plan`): ``hybrid`` lays the
+    params out by ``hybrid_pspecs(llama_rules)`` with SP on the residual
+    stream and the flash kernels under ``local_map`` on local heads;
+    ``fsdp`` by ``fsdp.param_pspecs``; ``none`` keeps one device.
+    ``batch`` is each data rank's: the global batch is ``batch`` x the
+    data axis, as in bench.py."""
     from tpu_hpc_torch.config import TrainingConfig
     from tpu_hpc_torch.models import datasets
-    from tpu_hpc_torch.parallel import tp
+    from tpu_hpc_torch.parallel import fsdp, hybrid, tp
     from tpu_hpc_torch.runtime import resolve_device
+    from tpu_hpc_torch.runtime.mesh import mesh_axis_size
     from tpu_hpc_torch.train.trainer import Trainer
 
     device = resolve_device(device)
+    plan = resolve_plan(plan, mesh)
+    dp_size = mesh_axis_size(mesh, "data")
     params = llama2.init_llama(
         torch.Generator(device=device).manual_seed(SEED), model_cfg, device
     )
-    attn_fn = tp.make_tp_flash_attn_fn(None) if attn == "flash" else None
+    constrain, specs = llama2._identity, None
+    if plan == "hybrid":
+        if attn != "flash":
+            raise ValueError("the hybrid plan runs attention through the "
+                             "flash kernels only (attn='flash')")
+        tp.validate_tp_degree(model_cfg.n_heads, model_cfg.kv_heads,
+                              mesh_axis_size(mesh, "model"))
+        specs = hybrid.hybrid_pspecs(params, tp.llama_rules(),
+                                     data_size=dp_size)
+        constrain = tp.sp_constrain(mesh, dp_axis="data", sp_axis="model")
+    elif plan == "fsdp":
+        specs = fsdp.param_pspecs(params, axis="data", axis_size=dp_size)
+    else:
+        mesh = None
+    attn_fn = None
+    if attn == "flash":
+        attn_fn = tp.make_tp_flash_attn_fn(
+            mesh, "data", "model" if plan == "hybrid" else None)
     cfg = TrainingConfig(
-        epochs=epochs, steps_per_epoch=steps, global_batch_size=batch,
+        epochs=epochs, steps_per_epoch=steps,
+        global_batch_size=batch * dp_size,
         learning_rate=LEARNING_RATE, weight_decay=WEIGHT_DECAY,
         grad_accum_steps=grad_accum_steps, adam_moments_dtype=moments_dtype,
         seed=SEED,
@@ -91,8 +155,9 @@ def build_trainer(
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
                               seq_len=model_cfg.max_seq_len, seed=SEED)
     # The trainer keeps its own copy of the params.
-    return Trainer(cfg, None, llama2.make_forward(model_cfg, attn_fn=attn_fn),
-                   params, device=device), ds
+    return Trainer(cfg, mesh,
+                   llama2.make_forward(model_cfg, constrain, attn_fn),
+                   params, param_pspecs=specs, device=device), ds
 
 
 def run_train(
@@ -105,18 +170,24 @@ def run_train(
     attn: str = "flash",
     moments_dtype: str = "float32",
     device="cuda",
+    mesh=None,
+    plan: str = "auto",
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
-    ``steps`` updates and return the summary dict (the CLI prints it)."""
+    ``steps`` updates and return the summary dict (the CLI prints it
+    on rank 0)."""
     from tpu_hpc_torch.checks.roofline import peak_flops_for_device
     from tpu_hpc_torch.kernels import attention
+    from tpu_hpc_torch.parallel.shard import layout_summary
+    from tpu_hpc_torch.runtime.mesh import mesh_shape
 
     trainer, ds = build_trainer(
         model_cfg, steps=steps, epochs=epochs, batch=batch,
         grad_accum_steps=grad_accum_steps, attn=attn,
-        moments_dtype=moments_dtype, device=device,
+        moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
     )
     device = trainer.device
+    world = trainer.n_devices
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -131,16 +202,21 @@ def run_train(
     peak = peak_flops_for_device(device)
     out = {
         "metric": "llama2_train_tokens_per_s_per_chip",
-        "value": tokens_per_s,
+        "value": tokens_per_s / world,
         "unit": "tokens/s/chip",
         "device": {
             "type": device.type,
             "name": (torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
-            "count": 1,
+            "count": world,
         },
+        "mesh": mesh_shape(trainer.mesh) or None,
+        "world_size": world,
+        "plan": resolve_plan(plan, mesh),
+        "layout": layout_summary(trainer.module),
         "tokens_per_s": tokens_per_s,
-        "mfu": (tokens_per_s * flops_per_token / peak
+        "tokens_per_s_per_device": tokens_per_s / world,
+        "mfu": (tokens_per_s * flops_per_token / (peak * world)
                 if peak is not None else None),
         "peak_flops": peak,
         "flops_per_token": flops_per_token,
@@ -148,7 +224,7 @@ def run_train(
         "final_loss": result["final_loss"],
         "losses": [loss for e in result["epochs"] for loss in e["losses"]],
         "updates": epochs * steps,
-        "global_batch": batch,
+        "global_batch": trainer.cfg.global_batch_size,
         "grad_accum_steps": grad_accum_steps,
         "seq_len": seq,
         "n_params": llama2.count_params(model_cfg),
@@ -183,7 +259,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="epochs; the first absorbs build and warm-up, "
                     "the last is measured")
     ap.add_argument("--batch", type=int, default=None,
-                    help="global batch (default: microbatch 4 x accum)")
+                    help="batch per data rank (default: microbatch 4 x "
+                    "accum); the global batch is this x the data axis")
     ap.add_argument("--grad-accum-steps", type=int, default=None,
                     help="microbatches per update (default 8 with no "
                     "--batch, else 1)")
@@ -199,12 +276,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train (default cuda; a missing card is "
                     "an error, never a silent CPU run)")
+    ap.add_argument("--data", type=int, default=None,
+                    help="data-axis size (FSDP); default: what "
+                    "tp.auto_mesh_axes leaves after --model")
+    ap.add_argument("--model", type=int, default=None,
+                    help="model-axis size (TP + SP); default: "
+                    "tp.auto_mesh_axes(world, heads, kv_heads, cap=4)")
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
                         help="model-size override (CPU rehearsals)")
     args = ap.parse_args(argv)
 
-    from tpu_hpc_torch.runtime import resolve_device
+    from tpu_hpc_torch.runtime import (
+        MeshSpec,
+        build_mesh,
+        cleanup_distributed,
+        init_distributed,
+        is_main_host,
+        resolve_device,
+    )
 
     try:
         device = resolve_device(args.device)
@@ -219,13 +309,53 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if batch % max(accum, 1):
         ap.error(f"--batch {batch} is not divisible by the accumulation "
                  f"{accum}")
-    summary = run_train(
-        model_cfg, steps=args.steps, epochs=args.epochs, batch=batch,
-        grad_accum_steps=accum, attn=args.attn,
-        moments_dtype=args.moments_dtype, device=device,
-    )
-    print(json.dumps(summary))
+    # Under torchrun (or any launcher get_host_info knows) join the
+    # process group; then the mesh, by bench.py's rule.
+    info = init_distributed(device=device.type, verbose=False)
+    mesh = None
+    if info.num_processes > 1:
+        axes = mesh_axes(info.num_processes, model_cfg, args.data,
+                         args.model)
+        if axes is None:
+            ap.error(f"--data {args.data} x --model {args.model} does not "
+                     f"cover the {info.num_processes} processes")
+        mesh = build_mesh(MeshSpec(axes=axes), device.type)
+    elif (args.data or 1) * (args.model or 1) > 1:
+        ap.error(f"--data/--model ask for {(args.data or 1) * (args.model or 1)}"
+                 " processes; launch them with torchrun --nproc-per-node")
+    try:
+        summary = run_train(
+            model_cfg, steps=args.steps, epochs=args.epochs, batch=batch,
+            grad_accum_steps=accum, attn=args.attn,
+            moments_dtype=args.moments_dtype, device=device, mesh=mesh,
+        )
+        if is_main_host():
+            print(json.dumps(summary))
+    finally:
+        cleanup_distributed()
     return 0
+
+
+def mesh_axes(world: int, model_cfg: llama2.LlamaConfig,
+              data: Optional[int] = None,
+              model: Optional[int] = None) -> Optional[dict]:
+    """``{"data": d, "model": m}`` for ``world`` processes: the explicit
+    sizes (one may be left out and is then the rest), or
+    ``tp.auto_mesh_axes(world, heads, kv_heads, cap=4)``; None when the
+    explicit sizes do not cover the world."""
+    from tpu_hpc_torch.parallel import tp
+
+    if data is None and model is None:
+        axes = tp.auto_mesh_axes(world, model_cfg.n_heads,
+                                 model_cfg.kv_heads, cap=4)
+        return {"data": axes["data"], "model": axes.get("model", 1)}
+    if model is None:
+        model = world // data if world % data == 0 else 0
+    if data is None:
+        data = world // model if world % model == 0 else 0
+    if data * model != world:
+        return None
+    return {"data": data, "model": model}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-"""The Trainer: forward, backward and optimizer update on one device.
+"""The Trainer: forward, backward and optimizer update, on one device
+or over a (data, model) mesh.
 
-Port of the single-device path of the JAX package's
-``train/trainer.py``: ``TrainState``, ``make_lr_schedule``,
+Port of the JAX package's ``train/trainer.py``: ``TrainState``, ``make_lr_schedule``,
 ``make_optimizer`` / ``make_adamw`` (optax's AdamW and SGD written out
 by hand over the param dict), ``make_step_fn`` (gradient accumulation
 as the mean of microbatch gradients and losses, the ``grad_norm``
@@ -26,10 +26,16 @@ step). Float32 matrix products run in full fp32:
 ``torch.backends.cudnn.allow_tf32`` are set False when this module is
 imported, as the JAX package's fp32 reference numerics need.
 
-Not ported yet, and refused by ``Trainer`` when set (ROADMAP): a
-checkpoint manager, ``guard_mode != "off"``, ``comm_mode != "flat"``,
-``profile``, ``capture_on_anomaly``, fault plans from
-``$TPU_HPC_FAULTS``, and any mesh above one device.
+On a ``DeviceMesh`` the params are laid out by a plan
+(``parallel.shard.shard_params``: TP DTensors on ``model``, FSDP2 over
+``data``), each data rank takes its rows of the global batch, and the
+optimizer runs on each rank's shards -- the same optax arithmetic, with
+the clip norm taken over the whole gradient.
+
+Not ported yet, and refused by ``Trainer`` when set (ROADMAP queue 1):
+a checkpoint manager, ``guard_mode != "off"``, ``comm_mode != "flat"``,
+``profile``, ``capture_on_anomaly`` and fault plans from
+``$TPU_HPC_FAULTS``.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +51,14 @@ import torch
 from tpu_hpc_torch import obs
 from tpu_hpc_torch.config import TrainingConfig
 from tpu_hpc_torch.models.datasets import step_seed
-from tpu_hpc_torch.parallel.tp import mesh_size
+from tpu_hpc_torch.parallel import dp
+from tpu_hpc_torch.parallel.plans import P
+from tpu_hpc_torch.parallel.shard import (
+    gather_params,
+    is_dtensor,
+    local,
+    shard_params,
+)
 from tpu_hpc_torch.runtime import resolve_device
 from tpu_hpc_torch.train.metrics import GoodputMeter, ThroughputMeter
 
@@ -153,12 +166,45 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def _copies(t) -> int:
+    """Ranks that hold the same shard of ``t``: the world over the
+    number of distinct shards (a plain tensor is whole on every rank)."""
+    import torch.distributed as dist
+
+    shards = 1
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        for i, p in enumerate(t.placements):
+            if p.is_shard():
+                shards *= mesh.size(i)
+    return dist.get_world_size() // shards
+
+
+def sharded_global_norm(grads: List[torch.Tensor],
+                        copies: List[int]) -> torch.Tensor:
+    """:func:`global_norm` of the WHOLE gradient when ``grads`` are this
+    rank's shards and ``copies[i]`` ranks hold shard i (:func:`_copies`):
+    each rank sums its shards' squares, each divided by its number of
+    copies, and one all-reduce adds the ranks up -- the same norm on
+    every rank, so every rank clips alike."""
+    import torch.distributed as dist
+
+    total = sum(torch.sum(g.to(torch.float32) ** 2) / c
+                for g, c in zip(grads, copies))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: leaves unchanged when the norm is
     below ``max_norm``, else ``g / norm * max_norm`` -- no epsilon, and
-    no host sync (the choice is a ``torch.where`` on the device)."""
-    norm = global_norm(grads)
+    no host sync (the choice is a ``torch.where`` on the device).
+    ``norm`` overrides the norm of ``grads`` (sharded leaves pass the
+    whole gradient's)."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
             for g in grads]
@@ -189,11 +235,13 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-              state: Dict[str, Any]) -> Dict[str, Any]:
+              state: Dict[str, Any],
+              norm: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Update ``params`` in place; returns the new state (its moment
-        tensors are updated in place too)."""
+        tensors are updated in place too). ``norm``: the whole
+        gradient's global norm when ``grads`` are shards."""
         if self.max_grad_norm > 0:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
+            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
         n = state["count"]
         step_size = -float(self.learning_rate(n))
         count = n + 1
@@ -237,9 +285,9 @@ class SGD:
         ]}
 
     @torch.no_grad()
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, norm=None):
         if self.max_grad_norm > 0:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
+            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
         n = state["count"]
         step_size = -float(self.learning_rate(n))
         for p, g, tr in zip(params, grads, state["trace"]):
@@ -292,6 +340,7 @@ def make_step_fn(
     seed: int,
     grad_accum: int = 1,
     log_grad_norm: bool = False,
+    module: Optional[torch.nn.Module] = None,
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict]]:
     """The training step: forward, backward, optimizer update.
 
@@ -302,7 +351,19 @@ def make_step_fn(
     activation memory. ``log_grad_norm`` adds the pre-clip global norm
     of that mean gradient as ``metrics["grad_norm"]``. Metrics stay on
     the device; nothing here waits for the card.
+
+    ``module``: the params laid out on a mesh
+    (``parallel.shard.shard_params``). ``forward`` then gets the module
+    instead of the param dict; FSDP2 reduce-scatters the gradients once,
+    after the last microbatch (gradient sync off before it), averaged
+    over ``data``; the loss metric is averaged over the ranks; the norm
+    is the whole gradient's (:func:`sharded_global_norm`); and the
+    optimizer updates each rank's shards in place, its moments shaped
+    like them.
     """
+    sharded = module is not None
+    need_norm = log_grad_norm or (
+        sharded and getattr(optimizer, "max_grad_norm", 0) > 0)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         leaves = tree_leaves(state.params)
@@ -318,9 +379,12 @@ def make_step_fn(
         ms = state.model_state
         lsum, aux_sum = None, {}
         for i in range(grad_accum):
+            if sharded and hasattr(module, "set_requires_gradient_sync"):
+                module.set_requires_gradient_sync(i == grad_accum - 1)
             mb = tuple(a[i * micro:(i + 1) * micro] for a in batch)
             rng = torch.Generator().manual_seed(step_seed(step_gen, i))
-            loss, ms, aux = forward(state.params, ms, mb, rng)
+            loss, ms, aux = forward(module if sharded else state.params,
+                                    ms, mb, rng)
             loss.backward()
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
@@ -331,25 +395,46 @@ def make_step_fn(
             torch.zeros_like(p) if p.grad is None else p.grad
             for p in leaves
         ]
+        with torch.no_grad():
+            copies = [_copies(g) for g in grads] if sharded else None
+            grads = [local(g) for g in grads]
+            params = [local(p) for p in leaves]
         if grad_accum > 1:
             grads = [g / grad_accum for g in grads]
             lsum = lsum / grad_accum
             aux_sum = {k: v / grad_accum for k, v in aux_sum.items()}
         metrics = {"loss": lsum, **aux_sum}
+        if sharded:
+            metrics = {k: _rank_mean(v) for k, v in metrics.items()}
+        if log_grad_norm and "grad_norm" in aux_sum:
+            raise ValueError(
+                "forward() reports an aux metric named 'grad_norm', "
+                "which collides with the optimizer-level norm logged "
+                "when max_grad_norm > 0 -- rename the aux metric"
+            )
+        norm = None
+        if need_norm:
+            norm = (sharded_global_norm(grads, copies) if sharded
+                    else global_norm(grads))
         if log_grad_norm:
-            if "grad_norm" in aux_sum:
-                raise ValueError(
-                    "forward() reports an aux metric named 'grad_norm', "
-                    "which collides with the optimizer-level norm logged "
-                    "when max_grad_norm > 0 -- rename the aux metric"
-                )
-            metrics["grad_norm"] = global_norm(grads)
-        opt_state = optimizer.apply(leaves, grads, state.opt_state)
+            metrics["grad_norm"] = norm
+        opt_state = optimizer.apply(params, grads, state.opt_state,
+                                    norm=norm)
         for p in leaves:
             p.grad = None
         return TrainState(state.step + 1, state.params, opt_state, ms), metrics
 
     return step
+
+
+def _rank_mean(v: torch.Tensor) -> torch.Tensor:
+    """The mean of a metric over the process group (each data rank's
+    mean over its rows; equal rows per rank make it the global mean)."""
+    import torch.distributed as dist
+
+    v = v.to(torch.float32).clone()
+    dist.all_reduce(v)
+    return v / dist.get_world_size()
 
 
 # ---------------------------------------------------------------------------
@@ -423,27 +508,33 @@ def state_from_numpy(step, params, opt_state, cfg,
 # Trainer
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(cfg: TrainingConfig, mesh, checkpoint_manager) -> None:
+def _refuse_unported(cfg: TrainingConfig, checkpoint_manager) -> None:
     refused = []
-    if mesh_size(mesh) > 1:
-        refused.append(f"a mesh of {mesh_size(mesh)} devices "
-                       "(ROADMAP queue 1 item 5)")
     if checkpoint_manager is not None:
-        refused.append("checkpoint_manager (ROADMAP queue 1 item 7)")
+        refused.append("checkpoint_manager (ROADMAP queue 1 item 4)")
     if cfg.guard_mode != "off":
-        refused.append(f"guard_mode={cfg.guard_mode!r} (ROADMAP queue 1 item 4)")
+        refused.append(f"guard_mode={cfg.guard_mode!r} (ROADMAP queue 1 item 3)")
     if cfg.comm_mode != "flat":
-        refused.append(f"comm_mode={cfg.comm_mode!r} (ROADMAP queue 1 item 11)")
+        refused.append(f"comm_mode={cfg.comm_mode!r} (ROADMAP queue 1 item 8)")
     if cfg.profile:
-        refused.append("profile=True (ROADMAP queue 1 item 7)")
+        refused.append("profile=True (ROADMAP queue 1 item 4)")
     if cfg.capture_on_anomaly:
-        refused.append("capture_on_anomaly=True (ROADMAP queue 1 item 8)")
+        refused.append("capture_on_anomaly=True (ROADMAP queue 1 item 5)")
     if os.environ.get(ENV_FAULTS):
-        refused.append(f"${ENV_FAULTS} fault plans (ROADMAP queue 1 item 7)")
+        refused.append(f"${ENV_FAULTS} fault plans (ROADMAP queue 1 item 4)")
     if refused:
         raise NotImplementedError(
             "not ported yet in tpu_hpc_torch.train: " + "; ".join(refused)
         )
+
+
+@torch.no_grad()
+def _local_tree(params):
+    return tree_map(local, params)
+
+
+def _is_device_mesh(mesh: Any) -> bool:
+    return mesh is not None and not isinstance(mesh, Mapping)
 
 
 class Trainer:
@@ -454,19 +545,37 @@ class Trainer:
         forward: ForwardFn,
         params: Any,
         model_state: Any = None,
+        param_pspecs: Any = None,
+        batch_pspec: P = P("data"),
         optimizer: Any = None,
         checkpoint_manager: Any = None,
         eval_forward: Optional[Callable] = None,
         device: Any = None,
     ):
-        """``mesh``: None (or a one-device mesh) -- the only layout this
-        slice ports. ``params``: a nested dict of tensors; the trainer
-        keeps its own copies on ``device`` (default: the params'
-        device) with ``requires_grad``, so the caller's tensors are
-        never updated in place. ``eval_forward(params, model_state,
-        batch) -> (loss, aux)`` defaults to the training forward with
-        state updates discarded."""
-        _refuse_unported(cfg, mesh, checkpoint_manager)
+        """``mesh``: None (one device), or a ``DeviceMesh`` with named
+        dims (``runtime.build_mesh``) over the whole process group.
+        ``params``: the full nested dict of tensors or numpy arrays, the
+        same on every rank; the trainer keeps its own copies, so the
+        caller's tensors are never updated in place.
+
+        On a ``DeviceMesh`` the params are laid out by ``param_pspecs``
+        (default: replicated, the DDP plan) through
+        ``parallel.shard.shard_params``: TP DTensors on ``model``, FSDP2
+        over ``data``. The global batch is split over
+        ``batch_pspec[0]`` (the data axis): data rank r takes its rows
+        of each microbatch, and the model ranks of one data group see
+        the same rows. ``device`` defaults to the mesh's device type
+        (or the params' device).
+
+        ``eval_forward(params, model_state, batch) -> (loss, aux)``
+        defaults to the training forward with state updates
+        discarded."""
+        _refuse_unported(cfg, checkpoint_manager)
+        if isinstance(mesh, Mapping) and math.prod(mesh.values()) > 1:
+            raise ValueError(
+                f"a mesh of {math.prod(mesh.values())} devices must be a "
+                "DeviceMesh (runtime.build_mesh), not its sizes"
+            )
         if optimizer is not None and cfg.max_grad_norm > 0:
             raise ValueError(
                 f"max_grad_norm={cfg.max_grad_norm} has no effect on an "
@@ -484,16 +593,38 @@ class Trainer:
             )
         self.cfg = cfg
         self.forward = forward
-        first = tree_leaves(params)[0]
-        self.device = resolve_device(device if device is not None
-                                     else first.device)
-        params = tree_map(
-            lambda t: t.detach().to(self.device).clone().requires_grad_(True),
-            params,
-        )
+        self.mesh = mesh if _is_device_mesh(mesh) else None
+        self.module = None
+        self._data_shards, self._data_rank = 1, 0
+        if self.mesh is not None:
+            self.device = resolve_device(
+                device if device is not None else self.mesh.device_type)
+            if param_pspecs is None:
+                param_pspecs = dp.param_pspecs(params)
+            self.module = shard_params(params, self.mesh, param_pspecs,
+                                       device=self.device)
+            params = self.module.tree()
+            axis = batch_pspec[0] if len(batch_pspec) else None
+            if axis is not None and axis in self.mesh.mesh_dim_names:
+                self._data_shards = self.mesh[axis].size()
+                self._data_rank = self.mesh[axis].get_local_rank()
+            if cfg.global_batch_size % (self._data_shards
+                                        * cfg.grad_accum_steps):
+                raise ValueError(
+                    f"global_batch_size {cfg.global_batch_size} not "
+                    f"divisible by {self._data_shards} data shards x "
+                    f"grad_accum_steps {cfg.grad_accum_steps}")
+        else:
+            first = tree_leaves(params)[0]
+            self.device = resolve_device(device if device is not None
+                                         else first.device)
+            params = tree_map(
+                lambda t: t.detach().to(self.device).clone()
+                .requires_grad_(True), params)
         self.optimizer = optimizer or make_optimizer(cfg)
         self.state = TrainState(
-            step=0, params=params, opt_state=self.optimizer.init(params),
+            step=0, params=params,
+            opt_state=self.optimizer.init(_local_tree(params)),
             model_state=model_state if model_state is not None else {},
         )
         if eval_forward is None:
@@ -507,10 +638,18 @@ class Trainer:
             forward, self.optimizer, cfg.seed,
             grad_accum=cfg.grad_accum_steps,
             log_grad_norm=cfg.max_grad_norm > 0,
+            module=self.module,
         )
-        self.meter = ThroughputMeter(n_devices=1, device=self.device)
+        self.n_devices = self.mesh.size() if self.mesh is not None else 1
+        self.meter = ThroughputMeter(n_devices=self.n_devices,
+                                     device=self.device)
         self.goodput = GoodputMeter()
         self._adopted = False
+
+    def gather_params(self) -> Dict[str, Any]:
+        """The whole param tree as numpy arrays, on every rank
+        (collective on a mesh)."""
+        return gather_params(self.state.params)
 
     def adopt_state(self, state: TrainState) -> None:
         """Adopt a live state (e.g. :func:`state_from_numpy`'s): its
@@ -520,6 +659,14 @@ class Trainer:
         self._adopted = True
 
     def _to_device(self, batch):
+        """The global batch -> this rank's rows on the device: of each
+        of the ``grad_accum`` microbatches, the data rank's slice."""
+        n, r = self._data_shards, self._data_rank
+        if n > 1:
+            accum = self.cfg.grad_accum_steps
+            batch = tuple(
+                a.reshape(accum, n, a.shape[0] // (accum * n), *a.shape[1:])
+                [:, r].reshape(-1, *a.shape[1:]) for a in batch)
         return tuple(a.to(self.device, non_blocking=True) for a in batch)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
@@ -536,14 +683,21 @@ class Trainer:
         n_steps = n_steps or self.cfg.steps_per_epoch
         bs = self.cfg.global_batch_size
         sums: Dict[str, torch.Tensor] = {}
+        params = self.module if self.module is not None else self.state.params
         for i in range(n_steps):
             loss, aux = self.eval_forward(
-                self.state.params, self.state.model_state,
+                params, self.state.model_state,
                 self._to_device(dataset.batch_at(i, bs)),
             )
             for k, v in {"loss": loss, **aux}.items():
                 v = torch.as_tensor(v).detach().to(torch.float32)
                 sums[k] = sums[k] + v if k in sums else v
+        if self.module is not None:
+            sums = {k: _rank_mean(v) for k, v in sums.items()}
+            # FSDP2 keeps the root's params whole after a forward with
+            # no backward; shard them again.
+            if hasattr(self.module, "reshard"):
+                self.module.reshard()
         out = {k: float(v) / n_steps for k, v in sums.items()}
         self._append_metrics({
             **out, "event": "eval", "time": time.time(),
@@ -582,7 +736,7 @@ class Trainer:
         self._append_metrics({
             "event": "run_start", "time": time.time(),
             "start_step": start_step, "total_steps": total_steps,
-            "n_devices": 1, "n_processes": 1,
+            "n_devices": self.n_devices, "n_processes": self.n_devices,
             "device_kind": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "jax_version": None, "torch_version": torch.__version__,
