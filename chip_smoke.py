@@ -96,6 +96,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     and batches through the flash kernels and through
                     the reference attention; the first update's
                     gradients, the losses and the params agree.
+ 11. train_resilience -- the bench Llama at full width and depth with
+                    the numeric-health guard and checkpoints
+                    (torch.distributed.checkpoint): (a) guard skip under
+                    nan_loss_at_step=3 gives one poisoned verdict, at
+                    data index 3, and leaves the state bit-identical;
+                    (b) a fresh trainer resumed from the epoch-2
+                    checkpoint ends epoch 3 bit-identical to the
+                    uninterrupted run (and the manager's save, save_now
+                    and restore_latest times and the bytes of a step);
+                    (c) bitflip_ckpt_at_step falls back to the older step
+                    and quarantines the flipped one; (d) the supervised
+                    CLI (2 layers) preempted at step 2 exits 75, resumes
+                    and exits 0; (e) NaN and inf planted in q, k or v:
+                    the flash forward, dq and dk/dv and the 16-bit
+                    prefill give the non-finite rows of their plain
+                    versions. Then the update time with the guard off
+                    and on skip, in turns.
 
 Then the per-kernel summary line, nvidia-smi's line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -104,6 +121,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -1116,6 +1134,421 @@ def train_crosscheck_phase(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# Phase 11: training that survives
+# ---------------------------------------------------------------------
+
+# Non-finite planted in one element: (name, tensor, index, value). The
+# flash indices are [b, s, h, d] of the training shape: q rows in the
+# last q tile (every key tile's dk/dv walk reaches it), keys in the
+# first key tile (every q tile's forward and dq walk reaches it), so the
+# kernels' causal tile skipping cannot hide a row the plain versions
+# (which sum over every key) make non-finite. The prefill indices are
+# q's [kv head, row, group, d] and a key of the first live page.
+NONFINITE_FLASH = (
+    ("q_nan_row", "q", (0, 2040, 3, 5), "nan"),
+    ("q_inf_row", "q", (1, 2000, 6, 9), "inf"),
+    ("k_nan_key", "k", (0, 3, 2, 7), "nan"),
+    ("k_inf_key", "k", (2, 5, 4, 11), "inf"),
+    ("v_nan_key", "v", (3, 1, 1, 2), "nan"),
+)
+NONFINITE_PREFILL = (
+    ("q_nan_row", "q", (5, 100, 0, 7), "nan"),
+    ("q_inf_row", "q", (9, 30, 0, 3), "inf"),
+    ("k_nan_key", "k", (3, 5, 7), "nan"),
+    ("k_inf_key", "k", (6, 20, 9), "inf"),
+)
+TRAIN_SHAPE = (4, 2048, 8, 128)
+
+
+def nonfinite_rows(torch, t):
+    """Which rows (every index but the last) hold a non-finite value."""
+    return ~torch.isfinite(t.float()).all(dim=-1)
+
+
+def nonfinite_reading(torch, got, want, dtype) -> dict:
+    """The kernel's non-finite rows against the plain version's, and the
+    tolerance rule on the rows finite in both."""
+    from tpu_hpc_torch.checks.tolerance import compare
+
+    bad_got, bad_want = nonfinite_rows(torch, got), nonfinite_rows(torch, want)
+    keep = ~(bad_got | bad_want)
+    r = {"rows": int(bad_want.numel()), "nonfinite": int(bad_want.sum()),
+         "same_rows": bool(torch.equal(bad_got, bad_want))}
+    if keep.any():
+        c = compare(got[keep], want[keep], dtype)
+        r.update(finite_rows_ok=c["ok"], tol_used=c["tol_used"])
+    else:
+        r.update(finite_rows_ok=True, tol_used=0.0)
+    r["ok"] = r["same_rows"] and r["finite_rows_ok"]
+    return r
+
+
+def flash_nonfinite(torch, dev, shape=TRAIN_SHAPE, cases=NONFINITE_FLASH):
+    """Each case: bf16 q, k, v, dO and an lse cotangent from a seed (as
+    in the flash phase), one element planted; the forward, dq and dk/dv
+    wrappers against their plain versions (the backward from the plain
+    forward's lse and D). Returns one reading per case."""
+    from tpu_hpc_torch.kernels import attention as fa
+
+    b, s, h, d = shape
+    out = []
+    for name, which, idx, value in cases:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        t = {n: torch.randn(shape, generator=gen, device=dev).bfloat16()
+             for n in ("q", "k", "v", "dout")}
+        t[which][idx] = float(value)
+        q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
+        dlse = torch.randn((b, s, h), generator=gen, device=dev)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        want_o, want_l = fa.flash_attention_fwd_ref(q, k, v)
+        dm = (dout.float() * want_o.float()).sum(-1) - dlse
+        bargs = (q, k, v, dout, want_l, dm)
+        dq = fa.flash_attention_dq(*bargs)
+        dk, dv = fa.flash_attention_dkv(*bargs)
+        want_dq = fa.flash_attention_dq_ref(*bargs)
+        want_dk, want_dv = fa.flash_attention_dkv_ref(*bargs)
+        lse_same = bool(torch.equal(~torch.isfinite(lse),
+                                    ~torch.isfinite(want_l)))
+        readings = {
+            n: nonfinite_reading(torch, g, w, torch.bfloat16)
+            for n, g, w in (("out", o, want_o), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv))}
+        out.append({"case": name, "planted": which, "at": list(idx),
+                    "value": value, "lse_same_rows": lse_same,
+                    "ok": lse_same and all(r["ok"] for r in readings.values()),
+                    **readings})
+    return out
+
+
+def prefill_nonfinite(torch, dev, cases=NONFINITE_PREFILL):
+    """The 16-bit prefill (the 7B chunk of 256 at start 256 over a bf16
+    pool, bf16 q) with one element of q or of a live key planted,
+    against its plain version."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    out = []
+    for name, which, idx, value in cases:
+        args, kw, _ = prefill_case(torch, dev, 32, 1, "bfloat16", 256,
+                                   torch.bfloat16)
+        q, k, v, table, start = args
+        if which == "q":
+            q[idx] = float(value)
+        else:
+            k[(int(table[0]),) + idx] = float(value)
+        got = pa.paged_prefill_attention(q, k, v, table, start, **kw)
+        want = pa.paged_prefill_attention_ref(q, k, v, table, start, **kw)
+        r = nonfinite_reading(torch, got, want, torch.bfloat16)
+        out.append({"case": name, "planted": which, "at": list(idx),
+                    "value": value, **r})
+    return out
+
+
+def snapshot(torch, state) -> list:
+    """Copies of every tensor of a TrainState (params, moments, count)."""
+    from tpu_hpc_torch.train.trainer import tree_leaves
+
+    leaves = list(tree_leaves(state.params))
+    for value in state.opt_state.values():
+        leaves += value if isinstance(value, list) else [value]
+    return [t.detach().clone() if isinstance(t, torch.Tensor) else t
+            for t in leaves]
+
+
+def same_bits(torch, a, b) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def resilient_trainer(torch, dev, cfg, workdir=None, *, steps=2, epochs=3,
+                      metrics=""):
+    """The bench run's trainer (build_trainer: seed, batch, accumulation,
+    AdamW) with guard_mode skip and a checkpoint manager saving every
+    epoch under ``workdir`` (none without one)."""
+    from tpu_hpc_torch.train.__main__ import build_trainer
+
+    return build_trainer(cfg, steps=steps, epochs=epochs, batch=TRAIN_BATCH,
+                         grad_accum_steps=TRAIN_ACCUM, device=dev,
+                         guard_mode="skip", checkpoint_dir=workdir,
+                         save_every=1, metrics_path=metrics)
+
+
+@contextlib.contextmanager
+def armed(faults: str):
+    """``$TPU_HPC_FAULTS=faults`` for the block: the trainer reads the
+    plan when it is built, the checkpoint manager at each save."""
+    import os
+
+    os.environ["TPU_HPC_FAULTS"] = faults
+    try:
+        yield
+    finally:
+        del os.environ["TPU_HPC_FAULTS"]
+
+
+def read_events(path, kind) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("event") == kind]
+
+
+def resilience_skip(torch, dev, cfg, workdir) -> dict:
+    """(a) guard skip under nan_loss_at_step=3: one update per chunk,
+    five chunks; exactly one poisoned verdict, at data index 3, and the
+    state after that update bit-identical to the state before it."""
+    import os
+
+    metrics = os.path.join(workdir, "run.jsonl")
+    with armed("nan_loss_at_step=3"):
+        tr, ds = resilient_trainer(torch, dev, cfg, steps=1, epochs=5,
+                                   metrics=metrics)
+    inner, snaps = tr._step, {}
+
+    def spy(state, batch, off=0):
+        if state.step == 3:
+            snaps["before"] = snapshot(torch, state)
+        new, m = inner(state, batch, off)
+        if state.step == 3:
+            snaps["after"] = snapshot(torch, new)
+        return new, m
+
+    tr._step = spy
+    res = tr.fit(ds)
+    verdicts = [(v["step"], v["verdict"], v["action"], v["data_index"])
+                for v in read_events(metrics, "guard_verdict")]
+    same = same_bits(torch, snaps["before"], snaps["after"])
+    losses = [x for e in res["epochs"] for x in e["losses"]]
+    return {"verdicts": verdicts, "state_bit_identical": same,
+            "losses": [x if x == x else None for x in losses],
+            "ok": verdicts == [(3, "poisoned", "skip", 3)] and same
+            and all(x == x for i, x in enumerate(losses) if i != 3)}
+
+
+def step_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def resilience_resume(torch, dev, cfg, workdir) -> dict:
+    """(b) save every epoch (2 updates each, 3 epochs, guard skip), then
+    a fresh trainer resumes from the epoch-2 step (step 6 held out) and
+    trains epoch 3: params, moments and count equal the uninterrupted
+    run's bit for bit. The uninterrupted run is this slice's main path:
+    the flash kernels' counts are set to 0 just before it and read just
+    after (layers x accum x updates each). Also times the manager on the
+    bench state: save's blocking part (staging to host) and its whole
+    write, save_now, restore_latest, and the bytes of one step."""
+    import os
+    import time as _t
+
+    from tpu_hpc_torch.ckpt import CheckpointManager
+    from tpu_hpc_torch.kernels import attention as fa
+
+    ck = os.path.join(workdir, "ck")
+    a, ds = resilient_trainer(torch, dev, cfg, ck)
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
+        fn.launches = 0
+    a.fit(ds)
+    launches = fa.kernel_launches()  # this slice's main path: 6 updates
+    expected = cfg.n_layers * TRAIN_ACCUM * a.state.step
+    steps = a.checkpoint_manager.all_steps()
+    want = snapshot(torch, a.state)
+    nbytes = step_bytes(os.path.join(ck, "6"))
+    # The manager's times, on a directory of their own.
+    timing = CheckpointManager(os.path.join(workdir, "timing"))
+    torch.cuda.synchronize()
+    t0 = _t.perf_counter()
+    timing.save(a.state)
+    t1 = _t.perf_counter()
+    timing.wait()
+    t2 = _t.perf_counter()
+    timing.save_now(a.state, step=7)
+    t3 = _t.perf_counter()
+    a.checkpoint_manager.quarantine_step(6, reason="held_out")
+    del a
+    torch.cuda.empty_cache()
+    metrics = os.path.join(workdir, "run.jsonl")
+    b, _ = resilient_trainer(torch, dev, cfg, ck, metrics=metrics)
+    torch.cuda.synchronize()
+    t4 = _t.perf_counter()
+    restored = b.checkpoint_manager.restore_latest(b.state)
+    torch.cuda.synchronize()
+    t5 = _t.perf_counter()
+    del restored
+    b.fit(ds)
+    same = same_bits(torch, snapshot(torch, b.state), want)
+    out = {"steps_saved": steps,
+           "resumed_from": read_events(metrics, "run_end")[-1][
+               "resumed_from_step"],
+           "bit_identical": same, "launches": launches,
+           "expected_launches": expected,
+           "embedding_backward_repeats": embedding_backward_repeats(
+               torch, dev, cfg, ds),
+           "checkpoint_bytes": nbytes,
+           "save_blocking_s": t1 - t0, "save_total_s": t2 - t0,
+           "save_now_s": t3 - t2, "restore_latest_s": t5 - t4}
+    out["ok"] = (same and steps == [2, 4, 6] and out["resumed_from"] == 4
+                 and out["embedding_backward_repeats"]["lookup_backward"]
+                 and all(n == expected for n in launches.values()))
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def embedding_backward_repeats(torch, dev, cfg, ds) -> dict:
+    """The embedding lookup's backward twice on one microbatch's tokens
+    and one cotangent: bit-identical (llama2's sorted index_put_), where
+    ``index_add_`` (atomics) is not."""
+    from tpu_hpc_torch.models.llama2 import _EmbedLookup
+
+    tokens = ds.batch_at(0, TRAIN_BATCH // TRAIN_ACCUM)[0].to(dev)
+    table = torch.zeros((cfg.vocab_size, cfg.dim), device=dev,
+                        requires_grad=True)
+    g = torch.randn(tuple(tokens.shape) + (cfg.dim,), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    grads, adds = [], []
+    for _ in range(2):
+        (dt,) = torch.autograd.grad(_EmbedLookup.apply(table, tokens), table,
+                                    g)
+        grads.append(dt)
+        d = torch.zeros_like(table)
+        adds.append(d.index_add_(0, tokens.reshape(-1),
+                                 g.reshape(-1, cfg.dim)))
+    return {"lookup_backward": bool(torch.equal(*grads)),
+            "index_add_": bool(torch.equal(*adds))}
+
+
+def resilience_bitflip(torch, dev, cfg, workdir) -> dict:
+    """(c) bitflip_ckpt_at_step=4: two epochs saved (steps 2, 4; 4 flipped
+    after it landed); a fresh trainer's resume finds step 4's checksums
+    wrong, falls back to step 2 and quarantines step 4."""
+    import os
+
+    ck = os.path.join(workdir, "ck")
+    metrics = os.path.join(workdir, "run.jsonl")
+    with armed("bitflip_ckpt_at_step=4"):
+        a, ds = resilient_trainer(torch, dev, cfg, ck, epochs=2)
+        a.fit(ds)
+    del a
+    torch.cuda.empty_cache()
+    b, _ = resilient_trainer(torch, dev, cfg, ck, metrics=metrics)
+    step = b.maybe_resume()
+    fallbacks = read_events(metrics, "ckpt_fallback")
+    checks = read_events(metrics, "ckpt_integrity")
+    out = {"resumed_from": step,
+           "fallbacks": [(f["step"], f["quarantined"]) for f in fallbacks],
+           "integrity": [(c["step"], c["verdict"]) for c in checks],
+           "listing": sorted(os.listdir(ck))}
+    out["ok"] = (step == 2 and out["fallbacks"] == [(4, "4.corrupt")]
+                 and out["integrity"] == [(4, "mismatch"), (2, "ok")]
+                 and "4.corrupt" in out["listing"])
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilience_preempt(workdir) -> dict:
+    """(d) the supervised CLI, bench width cut to 2 layers, 3 epochs of 2
+    updates, guard skip, a save every epoch, preempt_at_step=2 on
+    attempt 0: attempt 0 snapshots and exits 75 (EXIT_RESUMABLE),
+    attempt 1 resumes from step 2 and exits 0."""
+    import os
+
+    ck, logs = os.path.join(workdir, "ck"), os.path.join(workdir, "logs")
+    cmd = [sys.executable, "-m", "tpu_hpc_torch.resilience.supervisor",
+           "--max-restarts", "2", "--backoff", "0", "--log-dir", logs, "--",
+           sys.executable, "-m", "tpu_hpc_torch.train", "--guard-mode",
+           "skip", "--checkpoint-dir", ck, "--save-every", "1",
+           "--n-layers", "2", "--steps", "2", "--epochs", "3"]
+    env = dict(os.environ, TPU_HPC_FAULTS="preempt_at_step=2")
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    with open(os.path.join(logs, "supervisor.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    ends = [(e["attempt"], e["rc"]) for e in events
+            if e["event"] == "attempt_end"]
+    last = [json.loads(line) for line in
+            open(os.path.join(logs, "run.attempt1.log"))
+            if line.startswith("{")] if len(ends) > 1 else []
+    out = {"rc": proc.returncode, "attempts": ends,
+           "resumed_from": last[-1].get("resumed_from_step") if last else None,
+           "updates_after_resume": len(last[-1]["losses"]) if last else None}
+    out["ok"] = (proc.returncode == 0 and ends == [(0, 75), (1, 0)]
+                 and out["resumed_from"] == 2)
+    return out
+
+
+def guard_update_s(torch, dev, cfg, updates=4) -> dict:
+    """Update time with guard_mode off and skip, built from the same
+    seed and timed in turns (off, skip, skip, off): ``updates`` updates
+    between two synchronizations after one warm-up update each."""
+    import time as _t
+
+    from tpu_hpc_torch.train.__main__ import build_trainer
+
+    times = {"off": [], "skip": []}
+    for mode in ("off", "skip", "skip", "off"):
+        tr, ds = build_trainer(cfg, batch=TRAIN_BATCH,
+                               grad_accum_steps=TRAIN_ACCUM, device=dev,
+                               guard_mode=mode)
+        tr.train_step(ds.batch_at(0, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        t0 = _t.perf_counter()
+        for i in range(updates):
+            tr.train_step(ds.batch_at(1 + i, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        times[mode].append((_t.perf_counter() - t0) / updates)
+        del tr
+        torch.cuda.empty_cache()
+    return {m: sum(v) / len(v) for m, v in times.items()} | {"readings": times}
+
+
+def train_resilience_phase(torch, dev) -> None:
+    """(a)-(e) and the manager's timings; any check that fails exits
+    non-zero. The checkpoints live under build/ in the checkout and are
+    removed after."""
+    import shutil
+    from pathlib import Path
+
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    cfg = bench_model_cfg()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    results = {}
+    try:
+        for name, fn in (("skip", resilience_skip),
+                         ("resume", resilience_resume),
+                         ("bitflip", resilience_bitflip)):
+            work = root / name
+            work.mkdir(parents=True)
+            results[name] = fn(torch, dev, cfg, str(work))
+            emit("train_resilience", check=name, **results[name])
+            shutil.rmtree(work, ignore_errors=True)
+        (root / "preempt").mkdir(parents=True)
+        results["preempt"] = resilience_preempt(str(root / "preempt"))
+        emit("train_resilience", check="preempt", **results["preempt"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results["flash_nonfinite"] = flash_nonfinite(torch, dev)
+    for r in results["flash_nonfinite"]:
+        emit("train_resilience", check="flash_nonfinite", **r)
+    results["prefill_nonfinite"] = prefill_nonfinite(torch, dev)
+    for r in results["prefill_nonfinite"]:
+        emit("train_resilience", check="prefill_nonfinite", **r)
+    upd = guard_update_s(torch, dev, cfg)
+    emit("train_resilience", check="guard_update_s", model="bench",
+         microbatch=TRAIN_BATCH // TRAIN_ACCUM, grad_accum=TRAIN_ACCUM, **upd)
+    bad = [k for k, v in results.items()
+           if not (all(r["ok"] for r in v) if isinstance(v, list)
+                   else v["ok"])]
+    if bad:
+        raise SystemExit(f"train_resilience: {', '.join(bad)} failed")
+
+
 # The serving phases' request mix: 16 requests of 100-500 prompt tokens,
 # 32 new tokens each.
 SERVE_PROMPT_LENS = (100, 180, 260, 340, 420, 500)
@@ -1264,6 +1697,10 @@ def main() -> int:
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
     train_crosscheck_phase(torch, dev)
+    torch.cuda.empty_cache()
+    # -- 11. training that survives: guard, checkpoints, preemption,
+    #        non-finite rows of the kernels
+    train_resilience_phase(torch, dev)
 
     kernels = []
     for name, row in main_rows.items():

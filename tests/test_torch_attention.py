@@ -164,3 +164,59 @@ def test_flash_tile_rows_checks_its_arguments_before_the_library():
         ta.flash_tile_rows("flash_attention_bwd", torch.bfloat16)
     with pytest.raises(TypeError, match="flash kernels take no"):
         ta.flash_tile_rows("flash_attention_dq", torch.float64)
+
+
+# (name, sequence length, tensor, index, value) of a causal [1, S, 2, 64]
+# case under 128-row JAX blocks: at S 128 one causal tile holds every
+# pair; at S 256 the q rows sit in the last q tile and the keys in the
+# first key tile, where every tile the JAX kernels walk reaches them, as
+# every position of the plain versions does.
+NONFINITE = [
+    ("q_nan_row", 128, "q", (0, 5, 1, 5), np.nan),
+    ("k_nan_key", 128, "k", (0, 3, 1, 7), np.nan),
+    ("v_inf_key", 128, "v", (0, 3, 0, 9), np.inf),
+    ("q_nan_row_2tiles", 256, "q", (0, 200, 1, 5), np.nan),
+    ("q_inf_row_2tiles", 256, "q", (0, 200, 1, 5), np.inf),
+    ("k_nan_key_2tiles", 256, "k", (0, 3, 1, 7), np.nan),
+    ("k_inf_key_2tiles", 256, "k", (0, 3, 0, 7), np.inf),
+    ("v_nan_key_2tiles", 256, "v", (0, 3, 1, 7), np.nan),
+]
+
+
+@pytest.mark.parametrize("case", NONFINITE, ids=[c[0] for c in NONFINITE])
+def test_plain_flash_nonfinite_rows_match_jax_pallas(case):
+    """NaN or inf planted in a q row or a key: the plain forward, dq and
+    dk/dv give non-finite exactly in the rows (keys) where the JAX
+    Pallas kernels do -- including a row whose every score is NaN, which
+    the online softmax turns NaN where a one-pass softmax gives 0 -- and
+    agree elsewhere."""
+    _, seq, which, idx, value = case
+    rng, q, k, v = _qkv(6, b=1, sq=seq, sk=seq, hq=2, hkv=2, d=64)
+    {"q": q, "k": k, "v": v}[which][idx] = value
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    dlse = rng.standard_normal(q.shape[:3]).astype(np.float32)
+
+    def fwd(q, k, v):
+        return ja.flash_attention(q, k, v, 0, 0, True, None, 128, 128, True)
+
+    (jo, jl), vjp = jax.vjp(fwd, *map(jnp.asarray, (q, k, v)))
+    jdq, jdk, jdv = vjp((jnp.asarray(dout), jnp.asarray(dlse)))
+
+    tq, tk, tv, tdo = _t(q, k, v, dout)
+    out, lse = ta.flash_attention_fwd_ref(tq, tk, tv)
+    dm = (tdo * out).sum(-1) - torch.from_numpy(dlse)
+    dq = ta.flash_attention_dq_ref(tq, tk, tv, tdo, lse, dm)
+    dk, dv = ta.flash_attention_dkv_ref(tq, tk, tv, tdo, lse, dm)
+    bad_rows = []
+    for name, got, want in (("out", out, jo), ("lse", lse[..., None],
+                                               jnp.asarray(jl)[..., None]),
+                            ("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        got, want = got.numpy(), np.asarray(want)
+        bad = ~np.isfinite(got).all(-1)
+        np.testing.assert_array_equal(bad, ~np.isfinite(want).all(-1),
+                                      err_msg=name)
+        np.testing.assert_allclose(got[~bad], want[~bad], **TOL,
+                                   err_msg=name)
+        bad_rows.append(int(bad.sum()))
+    assert max(bad_rows) > 0

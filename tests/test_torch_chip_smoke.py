@@ -113,7 +113,8 @@ def test_phase_list_names_train_hybrid_after_train():
     doc = chip_smoke.__doc__
     order = [re.search(rf"^ *{n}\. {name} ", doc, re.M).start()
              for n, name in ((7, "train"), (8, "train_hybrid"),
-                             (9, "train_profile"), (10, "train_crosscheck"))]
+                             (9, "train_profile"), (10, "train_crosscheck"),
+                             (11, "train_resilience"))]
     assert order == sorted(order)
 
 
@@ -137,3 +138,88 @@ def test_hybrid_failures(losses, launches, layout, failures):
         [2.0, 1.0], losses, {"flash_attention_fwd": launches,
                              "flash_attention_dq": 4}, 4, layout)
     assert len(got) == failures
+
+
+# ---------------------------------------------------------------------
+# train_resilience's helpers
+# ---------------------------------------------------------------------
+
+def test_nonfinite_rows_and_reading():
+    import torch
+
+    want = torch.zeros(2, 3, 4)
+    want[0, 1, 2] = float("nan")
+    got = want.clone()
+    assert chip_smoke.nonfinite_rows(torch, want).tolist() == [
+        [False, True, False], [False, False, False]]
+    r = chip_smoke.nonfinite_reading(torch, got, want, torch.bfloat16)
+    assert r["same_rows"] and r["ok"] and r["nonfinite"] == 1
+    got[1, 0, 0] = float("inf")  # a row the plain version keeps finite
+    assert not chip_smoke.nonfinite_reading(torch, got, want,
+                                            torch.bfloat16)["ok"]
+    got = want.clone()
+    got[0, 0] += 1.0  # a finite row out of tolerance
+    r = chip_smoke.nonfinite_reading(torch, got, want, torch.bfloat16)
+    assert r["same_rows"] and not r["finite_rows_ok"] and not r["ok"]
+
+
+def test_nonfinite_cases_sit_where_every_tile_reaches_them():
+    """q rows in the last 128-row q tile, keys in the first key tile,
+    inside the training shape; prefill keys in the chunk's first page."""
+    b, s, h, d = chip_smoke.TRAIN_SHAPE
+    for _, which, idx, value in chip_smoke.NONFINITE_FLASH:
+        assert value in ("nan", "inf") and len(idx) == 4
+        assert all(0 <= i < n for i, n in zip(idx, (b, s, h, d)))
+        assert (idx[1] >= s - 128) if which == "q" else (idx[1] < 64)
+    for _, which, idx, _ in chip_smoke.NONFINITE_PREFILL:
+        assert len(idx) == (4 if which == "q" else 3)
+        assert which == "q" or idx[0] < 16  # slot within a 16-token page
+
+
+def test_flash_nonfinite_runs_on_cpu_tensors():
+    """The check's code path at a small shape on the CPU, where each
+    wrapper is its plain version: every planted case reads equal."""
+    import torch
+
+    cases = (("q_nan_row", "q", (0, 60, 1, 5), "nan"),
+             ("k_inf_key", "k", (0, 3, 0, 4), "inf"),
+             ("v_nan_key", "v", (0, 1, 1, 2), "nan"))
+    rows = chip_smoke.flash_nonfinite(torch, torch.device("cpu"),
+                                      shape=(1, 64, 2, 16), cases=cases)
+    assert [r["case"] for r in rows] == [c[0] for c in cases]
+    assert all(r["ok"] and r["lse_same_rows"] for r in rows)
+    assert rows[0]["out"]["nonfinite"] == 1  # the NaN q row itself
+    assert rows[2]["dv"]["nonfinite"] == 0
+
+
+def test_snapshot_and_same_bits():
+    import torch
+
+    from tpu_hpc_torch.train.trainer import TrainState
+
+    state = TrainState(3, {"a": torch.ones(2), "b": {"c": torch.zeros(3)}},
+                       {"count": torch.tensor(2), "mu": [torch.ones(2),
+                                                         torch.ones(3)]}, {})
+    snap = chip_smoke.snapshot(torch, state)
+    assert len(snap) == 5
+    assert chip_smoke.same_bits(torch, snap, chip_smoke.snapshot(torch,
+                                                                 state))
+    state.params["a"].add_(1e-7)
+    assert not chip_smoke.same_bits(torch, snap,
+                                    chip_smoke.snapshot(torch, state))
+
+
+def test_armed_sets_the_fault_plan_for_the_block(monkeypatch, tmp_path):
+    import os
+
+    monkeypatch.delenv("TPU_HPC_FAULTS", raising=False)
+    with chip_smoke.armed("kill_at_step=3"):
+        assert os.environ["TPU_HPC_FAULTS"] == "kill_at_step=3"
+    assert "TPU_HPC_FAULTS" not in os.environ
+    path = tmp_path / "run.jsonl"
+    path.write_text('{"event": "a", "x": 1}\n{"event": "b"}\n'
+                    '{"event": "a", "x": 2}\n')
+    assert [r["x"] for r in chip_smoke.read_events(str(path), "a")] == [1, 2]
+    (tmp_path / "d").mkdir()
+    (tmp_path / "d" / "f").write_bytes(b"12345")
+    assert chip_smoke.step_bytes(str(tmp_path / "d")) == 5

@@ -388,11 +388,10 @@ def test_state_carried_mid_run_continues_like_jax(jax_params, one_device_mesh):
                                    rtol=1e-5)
 
 
-def test_trainer_refuses_what_is_not_ported(monkeypatch):
+def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     params = {"w": torch.zeros(2, 2)}
     fwd = lambda p, ms, b, rng: ((p["w"] ** 2).sum(), ms, {})  # noqa: E731
-    for kw, item in ((dict(guard_mode="skip"), 3),
-                     (dict(comm_mode="hierarchical"), 8),
+    for kw, item in ((dict(comm_mode="hierarchical"), 8),
                      (dict(profile=True), 4),
                      (dict(capture_on_anomaly=True), 5)):
         with pytest.raises(NotImplementedError,
@@ -405,15 +404,28 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch):
                        "DeviceMesh"):
         ttrainer.Trainer(TrainingConfig(), {"data": 4}, fwd, params,
                          device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="checkpoint_manager .ROADMAP queue 1 item 4"):
-        ttrainer.Trainer(TrainingConfig(), None, fwd, params,
-                         checkpoint_manager=object(), device="cpu")
+    # The guard, a checkpoint manager and a fault plan are ported
+    # (tests/test_torch_guard.py, test_torch_ckpt.py): accepted, with the
+    # JAX Trainer's refusals of what they cannot do.
+    from tpu_hpc_torch.ckpt import CheckpointManager
+
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    for kw in (dict(guard_mode="skip"), dict(guard_mode="rollback")):
+        tr = ttrainer.Trainer(TrainingConfig(**kw), None, fwd, params,
+                              checkpoint_manager=mgr, device="cpu")
+        assert tr.guard_policy.mode == kw["guard_mode"]
+    with pytest.raises(ValueError, match="needs a checkpoint_manager"):
+        ttrainer.Trainer(TrainingConfig(guard_mode="rollback"), None, fwd,
+                         params, device="cpu")
     monkeypatch.setenv("TPU_HPC_FAULTS", "kill_at_step=1")
-    with pytest.raises(NotImplementedError,
-                       match="TPU_HPC_FAULTS fault plans .ROADMAP queue 1 "
-                       "item 4"):
-        ttrainer.Trainer(TrainingConfig(), None, fwd, params, device="cpu")
+    tr = ttrainer.Trainer(TrainingConfig(), None, fwd, params, device="cpu")
+    assert tr.fault_plan.kill_at_step == 1
+    for spec, what in (("stage_kill_at=1:2", "stage fault"),
+                       ("slice_down_at_step=2", "slice fault")):
+        monkeypatch.setenv("TPU_HPC_FAULTS", spec)
+        with pytest.raises(ValueError, match=what):
+            ttrainer.Trainer(TrainingConfig(), None, fwd, params,
+                             device="cpu")
     monkeypatch.delenv("TPU_HPC_FAULTS")
     with pytest.raises(ValueError, match="divisible"):
         ttrainer.Trainer(TrainingConfig(global_batch_size=5,
@@ -455,6 +467,8 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.parallel.plans, tpu_hpc_torch.parallel.dp\n"
         "import tpu_hpc_torch.parallel.fsdp, tpu_hpc_torch.parallel.hybrid\n"
         "import tpu_hpc_torch.parallel.shard, tpu_hpc_torch.config\n"
+        "import tpu_hpc_torch.ckpt, tpu_hpc_torch.resilience.supervisor\n"
+        "import tpu_hpc_torch.resilience, tpu_hpc_torch.obs.stall\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"

@@ -6,10 +6,12 @@ module layout and public names so each module's counterpart is easy to
 find; every Pallas kernel on a ported path becomes a hand-written
 Hopper kernel (``csrc/``), with a plain PyTorch version beside it.
 
-Two slices so far: serving Llama-2 through the paged KV cache
-(``python -m tpu_hpc_torch.serve --paged --kv-kernel cuda``) and
-training the bench Llama on one card through the flash-attention
-kernels (``python -m tpu_hpc_torch.train``). ROADMAP lists what comes
-next. Nothing here imports jax or ``tpu_hpc``.
+The slices so far: serving Llama-2 through the paged KV cache
+(``python -m tpu_hpc_torch.serve --paged --kv-kernel cuda``); training
+the bench Llama through the flash-attention kernels (``python -m
+tpu_hpc_torch.train``), on one card or over a (data, model) mesh under
+``torchrun``; and training that survives -- checkpoints (``ckpt``), the
+numeric-health guard, preemption and the restart supervisor
+(``resilience``). ROADMAP lists what comes next. Nothing here imports jax or ``tpu_hpc``.
 Importing this package does not import its subpackages.
 """

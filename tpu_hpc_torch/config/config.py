@@ -3,10 +3,9 @@
 Port of the JAX package's ``config/config.py``: the same
 ``TrainingConfig`` fields, defaults and validation, so one YAML file
 configures either package. The knobs whose machinery is not ported yet
-(checkpointing, the numeric-health guard, the comm modes, profiling,
-anomaly capture) keep their fields; the port's ``Trainer`` raises
-``NotImplementedError`` when one is set away from its default, and
-ROADMAP queue 1 lists them.
+(the comm modes, profiling, anomaly capture) keep their fields; the
+port's ``Trainer`` raises ``NotImplementedError`` when one is set away
+from its default, and ROADMAP queue 1 lists them.
 
 ``torch_dtypes`` replaces the JAX ``jax_dtypes``; ``mesh_axes`` and
 ``mesh_spec`` give ``runtime.build_mesh`` its axes.
@@ -55,13 +54,14 @@ class TrainingConfig:
     pipe_parallel: int = 1
     dcn_data_parallel: int = 1
 
-    # Checkpointing (not ported yet).
+    # Checkpointing (a checkpoint manager saves every save_every epochs
+    # into checkpoint_dir; resume restores its newest readable step).
     save_every: int = 0  # epochs; 0 = off
     checkpoint_dir: str = "checkpoints"
     resume: bool = True
     reshard_max_inflight_mb: int = 0
 
-    # Numeric-health guard (not ported yet): "off", "skip", "rollback".
+    # Numeric-health guard: "off", "skip", "rollback".
     guard_mode: str = "off"
     guard_spike_factor: float = 10.0
     guard_spike_action: str = "event"

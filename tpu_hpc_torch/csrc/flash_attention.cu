@@ -96,7 +96,7 @@ constexpr int kF32Pad = 1;
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = fmax_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -238,12 +238,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
                             ? ss[r * lds + c] * scale
                             : kMaskValue;
         sv[j] = s;
-        mx = fmaxf(mx, s);
+        mx = fmax_nan(mx, s);
       }
       mx = warp_max(mx);
       const float m_prev = m[r];
       const float l_prev = l[r];
-      const float m_new = fmaxf(m_prev, mx);
+      const float m_new = fmax_nan(m_prev, mx);
       const float m_safe = m_new <= kMaskValue * 0.5f ? 0.f : m_new;
       float psum = 0.f;
 #pragma unroll
@@ -616,7 +616,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;  // row0 or row0 + 8
-      float p = exp2f(fmaf(s[i], scale2, -lse2[r]));
+      // A NaN score gives P = 0 (as -inf does): the plain version's
+      // select on S, in one instruction. Where lse is NaN too, P stays
+      // NaN here and not 0 there, but that row's dS is NaN either way
+      // (D is NaN), so dq's non-finite rows are the plain version's.
+      float p = exp2f(fmaf(fmaxf(s[i], -INFINITY), scale2, -lse2[r]));
       if (edge) {
         const int row = row0 + 8 * r;
         const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -761,6 +765,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
   const int wk0 = k0 + 64 * wg;  // the warpgroup's first key
   const int key0 = wk0 + 16 * warp + (lane >> 2);
   const float scale2 = scale * kLog2e;
+  // The plain versions' P = where(S * scale > MASK_VALUE / 2, exp(..), 0)
+  // on every tile, as a bound on the raw score: a NaN score gives P = 0
+  // even in a row whose lse is NaN (dV must stay finite there).
+  const float s_min = kMaskValue * 0.5f / scale;
 
   float dk_acc[kD / 2], dv_acc[kD / 2];
 #pragma unroll
@@ -812,6 +820,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
         const float l = (e & 1) ? l2.y : l2.x;
         const float m = (e & 1) ? m2.y : m2.x;
         float p = exp2f(fmaf(s[i], scale2, -l * kLog2e));
+        if (!(s[i] > s_min)) p = 0.f;
         if (edge) {
           const int q = q0 + c + (e & 1);
           const int key = key0 + 8 * (e >> 1);

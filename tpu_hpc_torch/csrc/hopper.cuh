@@ -42,6 +42,16 @@ constexpr int kPanelRowBytes = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// max(a, b) that keeps a NaN, as jnp.max and jnp.maximum do (fmaxf
+// returns the other operand). A NaN score the mask leaves visible makes
+// its row's running max NaN, so alpha, l, O and lse all turn NaN on any
+// tile, edge or not: the row comes out NaN, as from the JAX kernel.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -526,13 +536,13 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
     if (edge && !mask.sees(r, kt * kWalkKeys + walk_key(i, lane)))
       x = kMaskValue;
     s[i] = x;
-    mx[r] = fmaxf(mx[r], x);
+    mx[r] = fmax_nan(mx[r], x);
   }
   float m_safe[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     m_safe[r] = mx[r] <= kMaskValue * 0.5f ? 0.f : mx[r];
     alpha[r] = exp2f(m[r] - m_safe[r]);
     m[r] = mx[r];

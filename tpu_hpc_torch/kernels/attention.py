@@ -164,10 +164,15 @@ def flash_attention_fwd_ref(
     every step in fp32 -- :func:`attention_reference` on fp32 copies of
     the inputs. (The kernel rounds P to v's dtype before P.V; this
     version does not, so it is the exact value the kernel
-    approximates.)"""
+    approximates.) A row whose lse is NaN comes out NaN, as from the
+    online softmax of the kernels (and of the JAX kernel), where a NaN
+    running max turns l and O NaN; the one-pass softmax would give 0
+    where every score the row sees is NaN."""
     f32 = [t.to(torch.float32) for t in (q, k, v)]
     out, lse = attention_reference(*f32, causal=causal, q_offset=q_offset,
                                    kv_offset=kv_offset, sm_scale=sm_scale)
+    out = torch.where(torch.isnan(lse)[..., None],
+                      torch.full_like(out, float("nan")), out)
     return out.to(q.dtype), lse
 
 

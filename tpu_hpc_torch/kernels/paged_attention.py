@@ -264,8 +264,9 @@ def paged_prefill_attention_ref(
     keys ``<= start + b``; keys past the chunk's last row are zeroed
     before any arithmetic; fp32 masked softmax, P rounded to a 16-bit
     pool's dtype before P.V (relative to the whole view's max; the
-    kernels round relative to a tile's running max). Same contract as
-    :func:`paged_prefill_attention`."""
+    kernels round relative to a tile's running max). A row that sees a
+    NaN score comes out NaN, as from the kernels' online softmax (and
+    the JAX kernel's). Same contract as :func:`paged_prefill_attention`."""
     hkv, bucket, g, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
@@ -285,6 +286,8 @@ def paged_prefill_attention_ref(
     p, l_safe = _softmax_rows(s)
     out = torch.einsum("hbgl,lhd->hbgd", _pool_round(p, v_pages.dtype),
                        v) / l_safe
+    nan_rows = torch.isnan(s.amax(dim=-1, keepdim=True))
+    out = torch.where(nan_rows, torch.full_like(out, float("nan")), out)
     return out.to(q.dtype)
 
 

@@ -324,7 +324,11 @@ class _EmbedLookup(torch.autograd.Function):
     one (llama2.py:62-98): the table gradient is the sum over positions
     with each token, accumulated in fp32 and rounded once to the
     table's dtype (the JAX version contracts a one-hot against the
-    cotangent with an fp32 accumulator; the values are the same)."""
+    cotangent with an fp32 accumulator; the values are the same). The
+    sum is ``index_put_(accumulate=True)``, which on CUDA sorts the
+    tokens and adds each row's in a fixed order: the same bits on every
+    run, so a resumed run repeats the uninterrupted one (``index_add_``
+    adds with atomics, in whatever order they land)."""
 
     @staticmethod
     def forward(ctx, table, tokens):
@@ -338,8 +342,9 @@ class _EmbedLookup(torch.autograd.Function):
         (tokens,) = ctx.saved_tensors
         dtable = torch.zeros(ctx.table_shape, dtype=torch.float32,
                              device=g.device)
-        dtable.index_add_(0, tokens.reshape(-1),
-                          g.reshape(-1, g.shape[-1]).to(torch.float32))
+        dtable.index_put_((tokens.reshape(-1),),
+                          g.reshape(-1, g.shape[-1]).to(torch.float32),
+                          accumulate=True)
         return dtable.to(ctx.table_dtype), None
 
 
@@ -472,7 +477,8 @@ class _ShardLookup(torch.autograd.Function):
         g = g.to(torch.float32) * mine[..., None]
         dtable = torch.zeros(ctx.table_shape, dtype=torch.float32,
                              device=g.device)
-        dtable.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+        dtable.index_put_((idx.reshape(-1),), g.reshape(-1, g.shape[-1]),
+                          accumulate=True)
         return dtable.to(ctx.table_dtype), None, None
 
 

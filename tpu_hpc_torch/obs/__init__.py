@@ -17,10 +17,12 @@ The same schema-stamped JSONL discipline as the JAX package's
   trace.py     run_id-scoped trace contexts stamped into every
                span/event.
   digest.py    the mergeable log-bucket sketch the registry feeds.
+  stall.py     the step-time watermark: flags stragglers and stalls
+               (a ``stall`` event) and enriches the heartbeat.
 
-The rest of the JAX package's obs (live rollup, SLO burn rates, stall
-watermark, report, regress, the trace analyzer and anomaly capture) is
-not ported yet; ROADMAP lists it.
+The rest of the JAX package's obs (live rollup, SLO burn rates, report,
+regress, the trace analyzer and anomaly capture) is not ported yet;
+ROADMAP lists it.
 """
 from tpu_hpc_torch.obs.digest import LogBucketSketch  # noqa: F401
 from tpu_hpc_torch.obs.events import (  # noqa: F401
@@ -47,6 +49,7 @@ from tpu_hpc_torch.obs.schema import (  # noqa: F401
     validate_record,
 )
 from tpu_hpc_torch.obs.spans import emit_span, span  # noqa: F401
+from tpu_hpc_torch.obs.stall import StallDetector  # noqa: F401
 from tpu_hpc_torch.obs.trace import (  # noqa: F401
     TraceContext,
     activate,
@@ -65,6 +68,7 @@ __all__ = [
     "MetricsRegistry",
     "SCHEMA_VERSION",
     "SchemaError",
+    "StallDetector",
     "TraceContext",
     "activate",
     "dump_flight",

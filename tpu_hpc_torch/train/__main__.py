@@ -33,6 +33,21 @@ the CPU, where no kernel runs), and the peak device memory.
 size (the kernels' plain versions; no launches). Without ``--device
 cpu`` on a machine with no card it is an argparse error naming the
 missing device.
+
+Training that survives (the JAX ``bench.py --guard-mode skip
+--supervise N``): ``--checkpoint-dir D --save-every 1`` checkpoints
+every epoch through ``torch.distributed.checkpoint`` and resumes from
+D's newest readable step; ``--guard-mode skip`` drops a poisoned update
+on the device, ``rollback`` (with ``--checkpoint-dir``) exits 77 for a
+relaunch from the last good checkpoint; a SIGTERM snapshots and exits
+75. Under the supervisor a relaunch picks the run up again:
+
+    python -m tpu_hpc_torch.resilience.supervisor --max-restarts 2 -- \
+        python -m tpu_hpc_torch.train --guard-mode skip \
+        --checkpoint-dir D --save-every 1
+
+(``--supervise N`` wraps the one-process run the same way.) The exit
+code is 0, 75 (preempted) or 77 (rolled back).
 """
 from __future__ import annotations
 
@@ -100,12 +115,23 @@ def build_trainer(
     device="cuda",
     mesh=None,
     plan: str = "auto",
+    guard_mode: str = "off",
+    checkpoint_dir: Optional[str] = None,
+    save_every: int = 0,
+    resume: bool = True,
+    metrics_path: str = "",
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
     ``make_tp_flash_attn_fn`` (``attn="flash"``) or the model's einsum
     path (``"reference"``). :func:`run_train` fits it; ``chip_smoke.py``
     profiles one of its updates.
+
+    ``guard_mode`` arms the numeric-health guard; ``checkpoint_dir``
+    gives the trainer a ``CheckpointManager`` there (saves every
+    ``save_every`` epochs, auto-resume unless ``resume`` is False);
+    ``metrics_path`` is the run's JSONL log. A fault plan in
+    ``$TPU_HPC_FAULTS`` is read when the trainer is built.
 
     ``mesh``: None (one device) or a ``DeviceMesh`` with ``data`` and/or
     ``model`` dims. ``plan`` (:func:`resolve_plan`): ``hybrid`` lays the
@@ -150,14 +176,22 @@ def build_trainer(
         global_batch_size=batch * dp_size,
         learning_rate=LEARNING_RATE, weight_decay=WEIGHT_DECAY,
         grad_accum_steps=grad_accum_steps, adam_moments_dtype=moments_dtype,
-        seed=SEED,
+        seed=SEED, guard_mode=guard_mode, save_every=save_every,
+        checkpoint_dir=checkpoint_dir or "", resume=resume,
+        metrics_path=metrics_path,
     )
+    manager = None
+    if checkpoint_dir:
+        from tpu_hpc_torch.ckpt import CheckpointManager
+
+        manager = CheckpointManager(checkpoint_dir)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
                               seq_len=model_cfg.max_seq_len, seed=SEED)
     # The trainer keeps its own copy of the params.
     return Trainer(cfg, mesh,
                    llama2.make_forward(model_cfg, constrain, attn_fn),
-                   params, param_pspecs=specs, device=device), ds
+                   params, param_pspecs=specs, checkpoint_manager=manager,
+                   device=device), ds
 
 
 def run_train(
@@ -172,10 +206,13 @@ def run_train(
     device="cuda",
     mesh=None,
     plan: str = "auto",
+    **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
     ``steps`` updates and return the summary dict (the CLI prints it
-    on rank 0)."""
+    on rank 0). ``resilience``: :func:`build_trainer`'s guard and
+    checkpoint arguments; the summary then says where the run resumed
+    and whether it was preempted or rolled back."""
     from tpu_hpc_torch.checks.roofline import peak_flops_for_device
     from tpu_hpc_torch.kernels import attention
     from tpu_hpc_torch.parallel.shard import layout_summary
@@ -185,6 +222,7 @@ def run_train(
         model_cfg, steps=steps, epochs=epochs, batch=batch,
         grad_accum_steps=grad_accum_steps, attn=attn,
         moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
+        **resilience,
     )
     device = trainer.device
     world = trainer.n_devices
@@ -195,7 +233,10 @@ def run_train(
     result = trainer.fit(ds)
     launches = {k: v - launches0[k]
                 for k, v in attention.kernel_launches().items()}
-    summary = result["epochs"][-1]
+    losses = [loss for e in result["epochs"] for loss in e["losses"]]
+    # The last chunk is the measured one (a resumed run may have none).
+    summary = (result["epochs"][-1] if result["epochs"]
+               else {"items_per_s": 0.0, "total_s": 0.0, "losses": [None]})
     seq = model_cfg.max_seq_len
     tokens_per_s = summary["items_per_s"] * seq
     flops_per_token = model_cfg.flops_per_token(seq)
@@ -220,10 +261,10 @@ def run_train(
                 if peak is not None else None),
         "peak_flops": peak,
         "flops_per_token": flops_per_token,
-        "update_s": summary["total_s"] / steps,
+        "update_s": summary["total_s"] / len(summary["losses"]),
         "final_loss": result["final_loss"],
-        "losses": [loss for e in result["epochs"] for loss in e["losses"]],
-        "updates": epochs * steps,
+        "losses": losses,
+        "updates": len(losses),
         "global_batch": trainer.cfg.global_batch_size,
         "grad_accum_steps": grad_accum_steps,
         "seq_len": seq,
@@ -241,6 +282,10 @@ def run_train(
                             if attn == "flash" and device.type == "cuda"
                             else None),
         "goodput": result["goodput"],
+        "guard_mode": trainer.cfg.guard_mode,
+        "resumed_from_step": result["resumed_from_step"],
+        "preempted": result["preempted"],
+        "rolled_back": result["rolled_back"],
     }
     if device.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -285,8 +330,51 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
                         help="model-size override (CPU rehearsals)")
+    ap.add_argument("--guard-mode", choices=("off", "skip", "rollback"),
+                    default="off",
+                    help="numeric-health guard: skip drops a poisoned "
+                    "update on the device; rollback (needs "
+                    "--checkpoint-dir) exits 77 for the supervisor to "
+                    "relaunch from the last good checkpoint")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint here (torch.distributed.checkpoint); "
+                    "the run resumes from the newest readable step")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="save every N epochs (0: never)")
+    ap.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="resume from --checkpoint-dir's newest step")
+    ap.add_argument("--metrics", default="",
+                    help="append the run's JSONL records here")
+    ap.add_argument("--supervise", type=int, default=None, metavar="N",
+                    help="run under tpu_hpc_torch.resilience.supervisor "
+                    "with N restarts (a preemption or a guard rollback "
+                    "relaunches without spending one)")
     args = ap.parse_args(argv)
+    if args.guard_mode == "rollback" and not args.checkpoint_dir:
+        ap.error("--guard-mode rollback needs --checkpoint-dir: "
+                 "rollback-to-last-good restores a snapshot; without one "
+                 "the guard can only skip or record events")
+    if args.supervise is not None:
+        import os
 
+        from tpu_hpc_torch.resilience.supervisor import (
+            run_supervised,
+            strip_flag,
+        )
+
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            ap.error("--supervise under a multi-process launch would "
+                     "supervise each rank: put the supervisor around the "
+                     "launcher instead (python -m "
+                     "tpu_hpc_torch.resilience.supervisor -- torchrun ...)")
+        child = strip_flag(sys.argv[1:] if argv is None else argv,
+                           "--supervise")
+        return run_supervised(
+            [sys.executable, "-m", "tpu_hpc_torch.train", *child],
+            max_restarts=args.supervise)
+
+    from tpu_hpc_torch.resilience.signals import exit_code_for
     from tpu_hpc_torch.runtime import (
         MeshSpec,
         build_mesh,
@@ -328,12 +416,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             model_cfg, steps=args.steps, epochs=args.epochs, batch=batch,
             grad_accum_steps=accum, attn=args.attn,
             moments_dtype=args.moments_dtype, device=device, mesh=mesh,
+            guard_mode=args.guard_mode, checkpoint_dir=args.checkpoint_dir,
+            save_every=args.save_every, resume=args.resume,
+            metrics_path=args.metrics,
         )
         if is_main_host():
-            print(json.dumps(summary))
+            print(json.dumps(summary), flush=True)
     finally:
         cleanup_distributed()
-    return 0
+    return exit_code_for(summary["preempted"], summary["rolled_back"])
 
 
 def mesh_axes(world: int, model_cfg: llama2.LlamaConfig,

@@ -98,8 +98,8 @@ class GoodputMeter:
     advanced the model. Buckets:
 
     * ``productive_s`` -- time inside training chunks;
-    * ``ckpt_s``       -- checkpoint saves (none in this slice);
-    * ``restore_s``    -- checkpoint restore on resume (none yet);
+    * ``ckpt_s``       -- checkpoint saves (their blocking part);
+    * ``restore_s``    -- checkpoint restore on resume;
     * ``other_s``      -- the remainder (kernel build, data prep, ...).
     """
 

@@ -32,10 +32,16 @@ On a ``DeviceMesh`` the params are laid out by a plan
 optimizer runs on each rank's shards -- the same optax arithmetic, with
 the clip norm taken over the whole gradient.
 
-Not ported yet, and refused by ``Trainer`` when set (ROADMAP queue 1):
-a checkpoint manager, ``guard_mode != "off"``, ``comm_mode != "flat"``,
-``profile``, ``capture_on_anomaly`` and fault plans from
-``$TPU_HPC_FAULTS``.
+The self-defending loop of the JAX Trainer: a checkpoint manager
+(``ckpt.CheckpointManager``) with auto-resume and periodic saves, the
+numeric-health guard (``guard_mode`` skip or rollback, the health
+vector on the chunk's one host fetch, persisted skip windows),
+``PreemptionGuard`` with an emergency snapshot, the hang watchdog, the
+heartbeat, the stall watermark and fault plans from
+``$TPU_HPC_FAULTS``. Not ported yet, and refused by ``Trainer`` when
+set (ROADMAP queue 1): ``comm_mode != "flat"``, ``profile`` and
+``capture_on_anomaly``; stage and slice faults are refused as the JAX
+Trainer refuses them.
 """
 from __future__ import annotations
 
@@ -59,6 +65,19 @@ from tpu_hpc_torch.parallel.shard import (
     local,
     shard_params,
 )
+from tpu_hpc_torch.resilience import guard as guard_lib
+from tpu_hpc_torch.resilience.faults import fault_plan_from_env
+from tpu_hpc_torch.resilience.guard import GuardPolicy
+from tpu_hpc_torch.resilience.heartbeat import (
+    ENV_HANG_TIMEOUT,
+    HangWatchdog,
+    Heartbeat,
+    current_attempt,
+)
+from tpu_hpc_torch.resilience.signals import (
+    ENV_ELASTIC_MANAGED,
+    PreemptionGuard,
+)
 from tpu_hpc_torch.runtime import resolve_device
 from tpu_hpc_torch.train.metrics import GoodputMeter, ThroughputMeter
 
@@ -69,7 +88,6 @@ torch.backends.cudnn.allow_tf32 = False
 ForwardFn = Callable[[Any, Any, Any, torch.Generator],
                      Tuple[torch.Tensor, Any, Dict]]
 Schedule = Callable[[int], float]
-ENV_FAULTS = "TPU_HPC_FAULTS"
 
 
 @dataclasses.dataclass
@@ -210,28 +228,106 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
             for g in grads]
 
 
+class _ScheduleTable:
+    """An optimizer's per-update coefficients for updates 0 .. n-1 as
+    one fp32 device tensor [n, k], rebuilt (doubling) when a longer one
+    is asked for: the guarded update reads its row at the device
+    count, so the schedule never needs the count on the host. Each row
+    comes from the same host arithmetic the unguarded update runs."""
+
+    def __init__(self, row: Callable[[int], Tuple[float, ...]]):
+        self.row, self.table = row, None
+
+    def get(self, n: int, device) -> torch.Tensor:
+        t = self.table
+        if t is None or t.shape[0] < n or t.device != torch.device(device):
+            size = max(n, 2 * (t.shape[0] if t is not None else 8))
+            t = torch.tensor([self.row(i) for i in range(size)],
+                             dtype=torch.float32).to(device)
+            self.table = t
+        return t
+
+    def at(self, n: int, count: torch.Tensor) -> torch.Tensor:
+        """Row ``count`` (a 0-d device tensor) of the table for ``n``
+        updates. ``index_select``, not ``t[count]``: indexing with a 0-d
+        integer tensor reads it to the host, a sync per update."""
+        return torch.index_select(self.get(n, count.device), 0,
+                                  count.view(1))[0]
+
+
+def _commit(ok, olds, news) -> None:
+    """old <- new, or (``ok`` a device bool) old <- where(ok, new, old):
+    a skipped update leaves every tensor bit-identical."""
+    for old, new in zip(olds, news):
+        if ok is None:
+            old.copy_(new)
+        else:
+            old.copy_(torch.where(ok, new.to(old.dtype), old))
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """optax.adamw(lr, b1, b2, eps, weight_decay) with decoupled weight
     decay on every leaf, bias correction, and both moments stored in
     ``moments_dtype``; ``max_grad_norm > 0`` clips first (optax.chain's
     order). State: ``count`` (updates applied), ``mu``, ``nu`` (lists
-    aligned with :func:`tree_leaves` of the params)."""
+    aligned with :func:`tree_leaves` of the params).
+
+    ``count`` is a host int for :meth:`apply`; :meth:`apply_guarded`
+    keeps it as a 0-d device tensor (``init(device=...)``), so a
+    skipped update leaves it where it was without a host sync."""
 
     learning_rate: Schedule
     weight_decay: float
     moments_dtype: torch.dtype = torch.float32
     max_grad_norm: float = 0.0
+    _table: _ScheduleTable = dataclasses.field(
+        default=None, compare=False, repr=False)
+    _decay: Tuple[float, float] = dataclasses.field(
+        default=None, compare=False, repr=False)
     b1 = 0.9     # optax.adamw's defaults, the only values the JAX
     b2 = 0.999   # Trainer uses (class constants, not fields)
     eps = 1e-8
 
-    def init(self, params) -> Dict[str, Any]:
+    def __post_init__(self):
+        object.__setattr__(self, "_table", _ScheduleTable(self.coefficients))
+        # apply_guarded reads them here, not per update: _decays reads
+        # two scalars to the host.
+        object.__setattr__(self, "_decay", self._decays())
+
+    def init(self, params, device=None) -> Dict[str, Any]:
         leaves = tree_leaves(params)
         zeros = lambda p: torch.zeros_like(  # noqa: E731
             p, dtype=self.moments_dtype, requires_grad=False)
-        return {"count": 0, "mu": [zeros(p) for p in leaves],
+        count = 0 if device is None else torch.zeros(
+            (), dtype=torch.int64, device=device)
+        return {"count": count, "mu": [zeros(p) for p in leaves],
                 "nu": [zeros(p) for p in leaves]}
+
+    def coefficients(self, n: int) -> Tuple[float, float, float]:
+        """Update n's step size (-schedule(n)) and the two bias
+        corrections, as optax computes them (fp32)."""
+        count = n + 1
+        one = torch.tensor(1.0, dtype=torch.float32)
+        bc1 = float(one - torch.tensor(self.b1, dtype=torch.float32) ** count)
+        bc2 = float(one - torch.tensor(self.b2, dtype=torch.float32) ** count)
+        return -float(self.learning_rate(n)), bc1, bc2
+
+    def _decays(self) -> Tuple[float, float]:
+        # optax multiplies the stored moment by its decay with the
+        # decay taken in the moment's own dtype (a weak-typed Python
+        # scalar takes the array's dtype); under jit, XLA then keeps the
+        # product and the sum in fp32. With bf16 moments that makes b1
+        # 0.8984375 and b2 exactly 1.0 -- nu never decays. The port keeps
+        # the reference's arithmetic (ROADMAP queue 3).
+        return (float(torch.tensor(self.b1, dtype=self.moments_dtype)),
+                float(torch.tensor(self.b2, dtype=self.moments_dtype)))
+
+    def _moments(self, g, mu, nu, d1, d2):
+        g = g.to(torch.float32)
+        m = (1 - self.b1) * g + d1 * mu.to(torch.float32)
+        v = (1 - self.b2) * (g * g) + d2 * nu.to(torch.float32)
+        return m, v
 
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
@@ -243,43 +339,68 @@ class AdamW:
         if self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
         n = state["count"]
-        step_size = -float(self.learning_rate(n))
-        count = n + 1
-        one = torch.tensor(1.0, dtype=torch.float32)
-        bc1 = float(one - torch.tensor(self.b1, dtype=torch.float32) ** count)
-        bc2 = float(one - torch.tensor(self.b2, dtype=torch.float32) ** count)
-        b1, b2, wd = self.b1, self.b2, self.weight_decay
-        # optax multiplies the stored moment by its decay with the
-        # decay taken in the moment's own dtype (a weak-typed Python
-        # scalar takes the array's dtype); under jit, XLA then keeps the
-        # product and the sum in fp32. With bf16 moments that makes b1
-        # 0.8984375 and b2 exactly 1.0 -- nu never decays. The port keeps
-        # the reference's arithmetic (ROADMAP queue 3).
-        d1 = float(torch.tensor(b1, dtype=self.moments_dtype))
-        d2 = float(torch.tensor(b2, dtype=self.moments_dtype))
+        step_size, bc1, bc2 = self.coefficients(n)
+        d1, d2 = self._decays()
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            g = g.to(torch.float32)
-            m = (1 - b1) * g + d1 * mu.to(torch.float32)
-            v = (1 - b2) * (g * g) + d2 * nu.to(torch.float32)
+            m, v = self._moments(g, mu, nu, d1, d2)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            u = u + wd * p
+            u = u + self.weight_decay * p
             p.add_(step_size * u)
             mu.copy_(m)
             nu.copy_(v)
-        return {**state, "count": count}
+        return {**state, "count": n + 1}
+
+    @torch.no_grad()
+    def apply_guarded(self, params, grads, state, decide, bound: int,
+                      norm=None) -> Dict[str, Any]:
+        """:meth:`apply`'s arithmetic with the count on the device: the
+        update's coefficients are row ``count`` of the schedule table
+        (``bound`` > any count it can hold), the new params and moments
+        are proposed first, ``decide(updates)`` (the per-leaf updates
+        ``step_size * u``) returns None to commit them or a device bool
+        to commit them only where it is true -- params, moments and
+        count alike."""
+        if self.max_grad_norm > 0:
+            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
+        count = state["count"]
+        step_size, bc1, bc2 = self._table.at(bound, count)
+        d1, d2 = self._decay
+        updates, ms, vs = [], [], []
+        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+            m, v = self._moments(g, mu, nu, d1, d2)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            u = u + self.weight_decay * p
+            updates.append(step_size * u)
+            ms.append(m)
+            vs.append(v)
+        ok = decide(updates)
+        _commit(ok, params, [p + u for p, u in zip(params, updates)])
+        _commit(ok, state["mu"], ms)
+        _commit(ok, state["nu"], vs)
+        count.add_(1 if ok is None else ok.to(count.dtype))
+        return state
 
 
 @dataclasses.dataclass(frozen=True)
 class SGD:
     """optax.sgd(lr, momentum): trace = g + momentum * trace, then
-    p -= lr * trace; ``max_grad_norm > 0`` clips first."""
+    p -= lr * trace; ``max_grad_norm > 0`` clips first. ``count`` as
+    in :class:`AdamW`."""
 
     learning_rate: Schedule
     momentum: float = 0.9
     max_grad_norm: float = 0.0
+    _table: _ScheduleTable = dataclasses.field(
+        default=None, compare=False, repr=False)
 
-    def init(self, params) -> Dict[str, Any]:
-        return {"count": 0, "trace": [
+    def __post_init__(self):
+        object.__setattr__(self, "_table", _ScheduleTable(
+            lambda n: (-float(self.learning_rate(n)),)))
+
+    def init(self, params, device=None) -> Dict[str, Any]:
+        count = 0 if device is None else torch.zeros(
+            (), dtype=torch.int64, device=device)
+        return {"count": count, "trace": [
             torch.zeros_like(p, requires_grad=False)
             for p in tree_leaves(params)
         ]}
@@ -294,6 +415,24 @@ class SGD:
             tr.copy_(g + self.momentum * tr)
             p.add_(step_size * tr)
         return {**state, "count": n + 1}
+
+    @torch.no_grad()
+    def apply_guarded(self, params, grads, state, decide, bound: int,
+                      norm=None):
+        """:meth:`apply` with the count on the device; see
+        :meth:`AdamW.apply_guarded`."""
+        if self.max_grad_norm > 0:
+            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
+        count = state["count"]
+        step_size = self._table.at(bound, count)[0]
+        traces = [g + self.momentum * tr
+                  for g, tr in zip(grads, state["trace"])]
+        updates = [step_size * tr for tr in traces]
+        ok = decide(updates)
+        _commit(ok, state["trace"], traces)
+        _commit(ok, params, [p + u for p, u in zip(params, updates)])
+        count.add_(1 if ok is None else ok.to(count.dtype))
+        return state
 
 
 def make_adamw(lr, weight_decay: float, moments_dtype: str = "float32",
@@ -341,8 +480,12 @@ def make_step_fn(
     grad_accum: int = 1,
     log_grad_norm: bool = False,
     module: Optional[torch.nn.Module] = None,
-) -> Callable[[TrainState, Any], Tuple[TrainState, Dict]]:
-    """The training step: forward, backward, optimizer update.
+    health: bool = False,
+    skip_nonfinite: bool = False,
+    numeric_fault: Optional[Callable] = None,
+) -> Callable[..., Tuple[TrainState, Dict]]:
+    """The training step ``step(state, batch, data_offset=0)``: forward,
+    backward, optimizer update.
 
     ``grad_accum > 1`` splits the batch into that many microbatches
     (rows ``[i*m, (i+1)*m)``, as the JAX reshape does), sums their
@@ -360,12 +503,31 @@ def make_step_fn(
     is the whole gradient's (:func:`sharded_global_norm`); and the
     optimizer updates each rank's shards in place, its moments shaped
     like them.
+
+    The numeric-health guard (the JAX ``make_step_fn``'s contract):
+    ``health`` adds the health vector to the metrics --
+    ``health_loss_finite``, ``health_grad_norm`` and
+    ``health_update_norm`` (global norms of the mean gradient and of
+    the optimizer's update) and ``health_nonfinite`` (leaves of the
+    gradient with any non-finite element, by their max-abs norm, which
+    a NaN reaches and an overflowing sum of squares does not) -- and
+    runs the optimizer's guarded update (its count on the device). On a
+    mesh the three reductions ride ONE all-reduce, so every rank sees
+    the same vector. ``skip_nonfinite`` (guard_mode="skip") keeps the
+    old params, moments, count and model state where the update is
+    poisoned (non-finite loss, grad or update), as a ``torch.where`` on
+    the device, and reports ``health_skipped``; the step and the data
+    stream advance either way. ``numeric_fault(data_index, loss,
+    grads)`` perturbs the loss and gradients before the update, keyed
+    on ``state.step + data_offset``. With none of the three, the step
+    issues exactly the ops it did before the guard existed.
     """
     sharded = module is not None
     need_norm = log_grad_norm or (
         sharded and getattr(optimizer, "max_grad_norm", 0) > 0)
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def step(state: TrainState, batch,
+             data_offset: int = 0) -> Tuple[TrainState, Dict]:
         leaves = tree_leaves(state.params)
         for p in leaves:
             p.grad = None
@@ -376,7 +538,7 @@ def make_step_fn(
             )
         micro = rows // grad_accum
         step_gen = step_seed(seed, state.step)
-        ms = state.model_state
+        ms_in = ms = state.model_state
         lsum, aux_sum = None, {}
         for i in range(grad_accum):
             if sharded and hasattr(module, "set_requires_gradient_sync"):
@@ -403,6 +565,12 @@ def make_step_fn(
             grads = [g / grad_accum for g in grads]
             lsum = lsum / grad_accum
             aux_sum = {k: v / grad_accum for k, v in aux_sum.items()}
+        if numeric_fault is not None:
+            # Keyed on the DATA index: after a guard rollback the skip
+            # window shifts the stream past the poisoned index, so the
+            # relaunch never re-hits it.
+            lsum, grads = numeric_fault(state.step + data_offset, lsum,
+                                        grads)
         metrics = {"loss": lsum, **aux_sum}
         if sharded:
             metrics = {k: _rank_mean(v) for k, v in metrics.items()}
@@ -418,13 +586,77 @@ def make_step_fn(
                     else global_norm(grads))
         if log_grad_norm:
             metrics["grad_norm"] = norm
-        opt_state = optimizer.apply(params, grads, state.opt_state,
-                                    norm=norm)
+        if health:
+            def decide(updates):
+                vec = _health(metrics["loss"], grads, updates, copies, norm)
+                metrics.update(vec)
+                if not skip_nonfinite:
+                    return None
+                ok = ((vec["health_loss_finite"] > 0)
+                      & (vec["health_nonfinite"] == 0)
+                      & torch.isfinite(vec["health_grad_norm"])
+                      & torch.isfinite(vec["health_update_norm"]))
+                metrics["health_skipped"] = (~ok).to(torch.float32)
+                return ok
+
+            opt_state = optimizer.apply_guarded(
+                params, grads, state.opt_state, decide,
+                bound=state.step + 1, norm=norm)
+            if skip_nonfinite:
+                ms = _keep(metrics["health_skipped"] == 0, ms, ms_in)
+        else:
+            opt_state = optimizer.apply(params, grads, state.opt_state,
+                                        norm=norm)
         for p in leaves:
             p.grad = None
         return TrainState(state.step + 1, state.params, opt_state, ms), metrics
 
     return step
+
+
+def _health(loss, grads, updates, copies, norm) -> Dict[str, torch.Tensor]:
+    """The health vector (fp32 device scalars): loss finite, global
+    grad norm (``norm`` when the clip already took it), global update
+    norm, and the number of gradient leaves with a non-finite element.
+    With ``copies`` (this rank's shards) the squared norms and the
+    per-leaf flags are summed over the ranks in one all-reduce."""
+    def sq(ts):  # per-leaf squared L2 norms, over copies on a mesh
+        out = torch.stack(torch._foreach_norm(ts)).square()
+        return out if copies is None else out / div
+
+    with torch.no_grad():
+        flags = (~torch.isfinite(torch.stack(
+            torch._foreach_norm(grads, float("inf"))))).to(torch.float32)
+        if copies is not None:
+            div = torch.tensor(copies, dtype=torch.float32,
+                               device=flags.device)
+        # [grad norm^2 (the clip's norm is already whole), update
+        # norm^2, flags]: one all-reduce on a mesh.
+        parts = [sq(updates).sum().view(1), flags]
+        if norm is None:
+            parts.insert(0, sq(grads).sum().view(1))
+        total = torch.cat(parts)
+        if copies is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total)
+        if norm is not None:
+            total = torch.cat([norm.square().view(1), total])
+        return {
+            "health_loss_finite": torch.isfinite(loss).to(torch.float32),
+            "health_grad_norm": torch.sqrt(total[0]),
+            "health_update_norm": torch.sqrt(total[1]),
+            "health_nonfinite": (total[2:] > 0).sum().to(torch.float32),
+        }
+
+
+def _keep(ok, new, old):
+    """Model state: ``new`` where ``ok``, else ``old`` (dict trees)."""
+    if isinstance(new, dict):
+        return {k: _keep(ok, v, old[k]) for k, v in new.items()}
+    if isinstance(new, torch.Tensor):
+        return torch.where(ok, new, old)
+    return new
 
 
 def _rank_mean(v: torch.Tensor) -> torch.Tensor:
@@ -508,24 +740,68 @@ def state_from_numpy(step, params, opt_state, cfg,
 # Trainer
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(cfg: TrainingConfig, checkpoint_manager) -> None:
+def _refuse_unported(cfg: TrainingConfig) -> None:
     refused = []
-    if checkpoint_manager is not None:
-        refused.append("checkpoint_manager (ROADMAP queue 1 item 4)")
-    if cfg.guard_mode != "off":
-        refused.append(f"guard_mode={cfg.guard_mode!r} (ROADMAP queue 1 item 3)")
     if cfg.comm_mode != "flat":
         refused.append(f"comm_mode={cfg.comm_mode!r} (ROADMAP queue 1 item 8)")
     if cfg.profile:
         refused.append("profile=True (ROADMAP queue 1 item 4)")
     if cfg.capture_on_anomaly:
         refused.append("capture_on_anomaly=True (ROADMAP queue 1 item 5)")
-    if os.environ.get(ENV_FAULTS):
-        refused.append(f"${ENV_FAULTS} fault plans (ROADMAP queue 1 item 4)")
     if refused:
         raise NotImplementedError(
             "not ported yet in tpu_hpc_torch.train: " + "; ".join(refused)
         )
+
+
+def _checked_fault_plan():
+    """``$TPU_HPC_FAULTS``'s plan, refusing the stage and slice faults
+    this SPMD Trainer cannot inject (the JAX Trainer's vacuous-pass
+    guards, word for word)."""
+    plan = fault_plan_from_env()
+    if plan is None:
+        return None
+    stage_keys = plan.stage_fault_keys()
+    if stage_keys:
+        raise ValueError(
+            f"TPU_HPC_FAULTS arms stage fault(s) "
+            f"{', '.join(stage_keys)}, but this is an SPMD "
+            "Trainer run -- stage faults are consumed only "
+            "by the MPMD pipeline runtime "
+            "(tpu_hpc.parallel.mpmd / bench.py --workload "
+            "llama-pp --pp-runtime mpmd); refusing to run a "
+            "chaos schedule that cannot inject"
+        )
+    slice_keys = plan.slice_fault_keys()
+    if slice_keys and os.environ.get(ENV_ELASTIC_MANAGED) != "1":
+        raise ValueError(
+            f"TPU_HPC_FAULTS arms slice fault(s) "
+            f"{', '.join(slice_keys)}, but this Trainer is "
+            "not running under the elastic coordinator "
+            "(tpu_hpc.elastic) -- a fixed-topology run "
+            "cannot morph; refusing to run a chaos schedule "
+            "that cannot inject"
+        )
+    return plan
+
+
+def _json_finite(x) -> Optional[float]:
+    """JSON-safe float: a non-finite value becomes None (strict-JSON
+    readers reject a bare NaN token)."""
+    x = float(x)
+    return x if math.isfinite(x) else None
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 @torch.no_grad()
@@ -570,7 +846,7 @@ class Trainer:
         ``eval_forward(params, model_state, batch) -> (loss, aux)``
         defaults to the training forward with state updates
         discarded."""
-        _refuse_unported(cfg, checkpoint_manager)
+        _refuse_unported(cfg)
         if isinstance(mesh, Mapping) and math.prod(mesh.values()) > 1:
             raise ValueError(
                 f"a mesh of {math.prod(mesh.values())} devices must be a "
@@ -593,6 +869,31 @@ class Trainer:
             )
         self.cfg = cfg
         self.forward = forward
+        self.checkpoint_manager = checkpoint_manager
+        # Fault injection is read HERE: the numeric kinds perturb the
+        # step itself, so the plan must exist before the step is built.
+        self.fault_plan = _checked_fault_plan()
+        # Numeric-health guard: None when guard_mode == "off" -- the
+        # step then issues the ops it did before the guard existed.
+        self.guard_policy = GuardPolicy.from_config(cfg)
+        if self.guard_policy is not None and checkpoint_manager is None and (
+                self.guard_policy.mode == "rollback"
+                or self.guard_policy.spike_action == "rollback"):
+            raise ValueError(
+                "guard_mode='rollback' (or guard_spike_action="
+                "'rollback') needs a checkpoint_manager: rollback-to-"
+                "last-good restores a snapshot; without one the guard "
+                "can only skip or record events"
+            )
+        numeric_fault = (self.fault_plan.numeric_fault_fn()
+                         if self.fault_plan is not None else None)
+        self._guard_tracked = (self.guard_policy is not None
+                               or numeric_fault is not None)
+        # Skip windows (persisted guard state): loaded per fit() from
+        # the checkpoint dir; empty until a rollback ever happened.
+        self._skip_windows: list = []
+        self._fit_offset = 0
+        self._rolled_back = False
         self.mesh = mesh if _is_device_mesh(mesh) else None
         self.module = None
         self._data_shards, self._data_rank = 1, 0
@@ -622,9 +923,12 @@ class Trainer:
                 lambda t: t.detach().to(self.device).clone()
                 .requires_grad_(True), params)
         self.optimizer = optimizer or make_optimizer(cfg)
+        # The guarded update keeps the optimizer's count on the device.
+        count_on = ({"device": self.device}
+                    if self.guard_policy is not None else {})
         self.state = TrainState(
             step=0, params=params,
-            opt_state=self.optimizer.init(_local_tree(params)),
+            opt_state=self.optimizer.init(_local_tree(params), **count_on),
             model_state=model_state if model_state is not None else {},
         )
         if eval_forward is None:
@@ -639,12 +943,35 @@ class Trainer:
             grad_accum=cfg.grad_accum_steps,
             log_grad_norm=cfg.max_grad_norm > 0,
             module=self.module,
+            health=self.guard_policy is not None,
+            skip_nonfinite=(self.guard_policy is not None
+                            and self.guard_policy.mode == "skip"),
+            numeric_fault=numeric_fault,
         )
         self.n_devices = self.mesh.size() if self.mesh is not None else 1
         self.meter = ThroughputMeter(n_devices=self.n_devices,
                                      device=self.device)
         self.goodput = GoodputMeter()
         self._adopted = False
+        # Resilience wiring: the heartbeat arms itself from the
+        # supervisor's env contract; the stall watermark flags
+        # stragglers and enriches the heartbeat.
+        self.heartbeat = Heartbeat.from_env()
+        self.stall = obs.StallDetector()
+        self._watchdog: Optional[HangWatchdog] = None
+        if checkpoint_manager is not None and hasattr(
+                checkpoint_manager, "event_sink"):
+            checkpoint_manager.event_sink = self._sink()
+        bus = obs.get_bus()
+        if bus.flight_dir is None and cfg.checkpoint_dir:
+            bus.flight_dir = cfg.checkpoint_dir
+        reg = obs.get_registry()
+        reg.describe("train_steps_total", "Optimizer steps completed")
+        reg.describe("train_items_total",
+                     "Training items consumed (global batch x steps)")
+        reg.describe("train_step", "Current global optimizer step")
+        reg.describe("train_step_s",
+                     "Per-step wall time within the last chunk (s)")
 
     def gather_params(self) -> Dict[str, Any]:
         """The whole param tree as numpy arrays, on every rank
@@ -654,7 +981,13 @@ class Trainer:
     def adopt_state(self, state: TrainState) -> None:
         """Adopt a live state (e.g. :func:`state_from_numpy`'s): its
         params and optimizer state must already lie on this trainer's
-        device. ``fit`` then continues from ``state.step``."""
+        device. ``fit`` then continues from ``state.step`` (a guarded
+        trainer moves a host count to the device)."""
+        count = state.opt_state.get("count")
+        if self.guard_policy is not None and not isinstance(
+                count, torch.Tensor):
+            state.opt_state["count"] = torch.full(
+                (), int(count), dtype=torch.int64, device=self.device)
         self.state = state
         self._adopted = True
 
@@ -672,7 +1005,9 @@ class Trainer:
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer update on a global batch; metrics stay on the
         device."""
-        self.state, metrics = self._step(self.state, self._to_device(batch))
+        extra = (self._fit_offset,) if self._guard_tracked else ()
+        self.state, metrics = self._step(self.state, self._to_device(batch),
+                                         *extra)
         return metrics
 
     @torch.no_grad()
@@ -705,21 +1040,131 @@ class Trainer:
         })
         return out
 
+    def _sink(self) -> Optional[str]:
+        """The metrics JSONL path on rank 0 (which owns the run log);
+        None elsewhere, so the bus keeps records in its ring only."""
+        if self.cfg.metrics_path and _rank() == 0:
+            return self.cfg.metrics_path
+        return None
+
     def _append_metrics(self, record: Dict) -> None:
         """The run log (``cfg.metrics_path``) through the obs bus:
         schema-stamped, held in the flight ring, appended to the file
-        when one is configured."""
-        obs.get_bus().emit_record(record, sink=self.cfg.metrics_path or None)
+        on rank 0 when one is configured."""
+        obs.get_bus().emit_record(record, sink=self._sink())
 
+    # -- checkpoints ---------------------------------------------------
+    @torch.no_grad()
+    def _assign_state(self, restored: TrainState) -> None:
+        """Copy a restored state into the live tensors (the params are
+        the module's on a mesh, so they are written in place)."""
+        live = self.state
+        for dst, src in zip(tree_leaves(live.params),
+                            tree_leaves(restored.params)):
+            dst.copy_(src)
+        opt = dict(live.opt_state)
+        for name, value in restored.opt_state.items():
+            if isinstance(value, list):
+                for dst, src in zip(opt[name], value):
+                    dst.copy_(src)
+            elif isinstance(opt[name], torch.Tensor):
+                opt[name].copy_(value)
+            else:
+                opt[name] = value
+        ms = live.model_state
+        for dst, src in zip(tree_leaves(ms or {}),
+                            tree_leaves(restored.model_state or {})):
+            dst.copy_(src)
+        self.state = TrainState(restored.step, live.params, opt, ms)
+
+    def maybe_resume(self) -> int:
+        """Snapshot auto-resume: continue from the newest readable
+        checkpoint when there is one (and ``cfg.resume``); returns the
+        step resumed from, else 0."""
+        if self.checkpoint_manager is None or not self.cfg.resume:
+            return 0
+        with self.goodput.measure("restore"), obs.span(
+                "restore", sink=self._sink(), hist="train_restore_s"):
+            restored = self.checkpoint_manager.restore_latest(self.state)
+            if restored is None:
+                return 0
+            self._assign_state(restored)
+        step = self.state.step
+        info = getattr(self.checkpoint_manager, "last_restore_info", None)
+        if info and info.get("elastic"):
+            # The checkpoint was written on another mesh: DCP resharded
+            # it into the live layout.
+            self._append_metrics({
+                "event": "elastic_restore", "from_step": step,
+                "src_mesh": info.get("src_mesh"),
+                "tgt_mesh": info.get("tgt_mesh"), "plan": None,
+            })
+        return step
+
+    def _snapshot_config(self) -> None:
+        """config.yaml next to the checkpoints, once per fit, after the
+        first save landed (a run that never saved must not relabel
+        another run's checkpoints)."""
+        ckpt_dir = getattr(self.checkpoint_manager, "directory", None)
+        if ckpt_dir is None or self._config_snapshotted:
+            return
+        self.checkpoint_manager.wait()
+        self._config_snapshotted = True
+        if _rank() == 0:
+            self._effective_cfg.to_yaml(os.path.join(ckpt_dir,
+                                                     "config.yaml"))
+
+    def _save(self, tid: str, done: int, now: bool = False) -> None:
+        with self.goodput.measure("ckpt"), obs.span(
+                "ckpt", sink=self._sink(), step=done, hist="train_ckpt_s",
+                trace_id=tid):
+            mgr = self.checkpoint_manager
+            if not now:
+                mgr.save(self.state)
+            else:
+                # Emergency synchronous snapshot, unless this boundary's
+                # periodic save already holds the state.
+                mgr.wait()
+                if done not in (mgr.all_steps() or []):
+                    mgr.save_now(self.state)
+            self._snapshot_config()
+
+    @staticmethod
+    def _agree(flag: bool, device) -> bool:
+        """Whether ``flag`` holds on any rank: a preemption notice that
+        reached one rank must stop every rank at the same boundary (the
+        emergency save is collective)."""
+        if _world() == 1:
+            return flag
+        import torch.distributed as dist
+
+        t = torch.tensor([float(flag)], device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    # -- the loop --------------------------------------------------------
     def fit(self, dataset, epochs: Optional[int] = None) -> Dict:
         """Epoch loop with throughput instrumentation. Dataset contract:
         ``batch_at(step, global_batch)``. Each epoch is timed from a
         synchronized start to the synchronized fetch of its metrics, so
         an epoch's ``items_per_s`` is the card's rate, host batch
         generation included. Returns the JAX result keys: ``epochs``
-        (one meter summary per epoch, plus the loss of every update
+        (one meter summary per chunk, plus the loss of every update
         under ``losses``), ``final_loss``, ``preempted``,
-        ``rolled_back``, ``quiesced``, ``goodput``."""
+        ``rolled_back``, ``quiesced``, ``goodput``.
+
+        With a checkpoint manager the run resumes from its newest
+        readable checkpoint, saves every ``save_every`` epochs, and a
+        SIGTERM (``PreemptionGuard``) takes a synchronous snapshot at
+        the next chunk boundary and stops (``preempted``: the caller
+        exits ``EXIT_RESUMABLE``). The guard classifies every update at
+        the chunk boundary, before the save; a verdict that wants a
+        rollback quarantines the snapshots that hold it, records a skip
+        window and stops (``rolled_back``: the caller exits
+        ``EXIT_ROLLBACK``, and the relaunch resumes from the last good
+        checkpoint with the stream fast-forwarded past the window).
+        ``$TPU_HPC_HANG_TIMEOUT`` arms the hang watchdog; fault plans
+        fire at chunk boundaries."""
         cfg = self.cfg
         epochs = epochs or cfg.epochs
         if epochs != cfg.epochs and cfg.lr_schedule == "cosine":
@@ -729,68 +1174,275 @@ class Trainer:
                 "cfg.epochs to the intended run length instead"
             )
         self.goodput = GoodputMeter()
-        start_step = self.state.step if self._adopted else 0
+        self._rolled_back = False
+        self._fit_offset = 0
+        self._skip_windows = []
+        if self.guard_policy is not None:
+            self._skip_windows = guard_lib.load_state(
+                self._guard_dir())["skip_windows"]
+        self._effective_cfg = dataclasses.replace(cfg, epochs=epochs)
+        self._config_snapshotted = False
+        start_step = (self.state.step if self._adopted
+                      else self.maybe_resume())
         spe = cfg.steps_per_epoch
         total_steps = epochs * spe
-        bs = cfg.global_batch_size
         self._append_metrics({
             "event": "run_start", "time": time.time(),
             "start_step": start_step, "total_steps": total_steps,
-            "n_devices": self.n_devices, "n_processes": self.n_devices,
+            "n_devices": self.n_devices, "n_processes": _world(),
             "device_kind": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "jax_version": None, "torch_version": torch.__version__,
-            "config": dataclasses.asdict(dataclasses.replace(cfg, epochs=epochs)),
+            "config": dataclasses.asdict(self._effective_cfg),
         })
         run_summaries: List[Dict] = []
+        guard = (PreemptionGuard().install()
+                 if self.checkpoint_manager is not None else None)
+        hang_timeout = float(os.environ.get(ENV_HANG_TIMEOUT, "0") or 0)
+        if hang_timeout > 0:
+            self._watchdog = HangWatchdog(
+                hang_timeout,
+                dump_path=os.path.join(
+                    cfg.checkpoint_dir or ".",
+                    f"hang.attempt{current_attempt()}.dump"),
+            ).start()
+        preempted = False
+        try:
+            last, preempted = self._fit_loop(dataset, start_step,
+                                             total_steps, guard,
+                                             run_summaries)
+            if self.checkpoint_manager is not None:
+                self.checkpoint_manager.wait()
+        finally:
+            if guard is not None:
+                guard.restore()
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+        goodput = self.goodput.summary()
+        self._append_metrics({
+            "event": "run_end", "time": time.time(), "step": self.state.step,
+            "preempted": preempted, "rolled_back": self._rolled_back,
+            "attempt": current_attempt(), "resumed_from_step": start_step,
+            "goodput": goodput,
+        })
+        reg = obs.get_registry()
+        reg.emit_snapshot(sink=self._sink(), step=self.state.step)
+        reg.write_prometheus()
+        return {
+            "epochs": run_summaries,
+            "final_loss": last.get("loss"),
+            "preempted": preempted,
+            "rolled_back": self._rolled_back,
+            "quiesced": False,
+            "goodput": goodput,
+            "resumed_from_step": start_step,
+        }
+
+    def _fit_loop(self, dataset, done: int, total_steps: int, guard,
+                  run_summaries: List[Dict]) -> Tuple[Dict, bool]:
+        cfg = self.cfg
+        spe = cfg.steps_per_epoch
+        bs = cfg.global_batch_size
         last: Dict[str, float] = {}
-        done = start_step
         while done < total_steps:
+            if self._watchdog is not None:
+                self._watchdog.tick()
             epoch = done // spe
             chunk = min(spe - done % spe, total_steps - done)
+            # A chunk never spans a skip-window boundary: steps before
+            # it replay their batches, steps from it on skip the
+            # poisoned span of data indices.
+            off = 0
+            if self._guard_tracked and self._skip_windows:
+                off = guard_lib.offset_at(self._skip_windows, done)
+                nxt = guard_lib.next_boundary(self._skip_windows, done)
+                if nxt is not None:
+                    chunk = min(chunk, nxt - done)
+            self._fit_offset = off
             self.meter.reset()
             self.meter.start_batch()
-            losses, metrics = [], {}
+            losses, metrics, health = [], {}, []
+            data_s = 0.0
             with self.goodput.measure("productive"):
                 for i in range(chunk):
-                    metrics = self.train_step(dataset.batch_at(done + i, bs))
+                    t_data = time.perf_counter()
+                    batch = dataset.batch_at(done + i + off, bs)
+                    data_s += time.perf_counter() - t_data
+                    metrics = self.train_step(batch)
                     losses.append(metrics["loss"])
-                # ONE host fetch per chunk: the losses of every update
-                # and the last update's metrics.
-                fetched = torch.stack(
-                    losses + [torch.as_tensor(v, dtype=torch.float32)
-                              .to(losses[0].device)
-                              for v in metrics.values()]
-                ).tolist()
-            self.meter.end_batch(chunk * bs)
+                    if self.guard_policy is not None:
+                        health.append(torch.stack([
+                            metrics[k].to(torch.float32)
+                            for k in guard_lib.HEALTH_KEYS if k in metrics]))
+                if self.fault_plan is not None:
+                    self.fault_plan.maybe_straggle(done + chunk)
+                # ONE host fetch per chunk: the losses of every update,
+                # the last update's metrics and every update's health
+                # vector.
+                dev = losses[0].device
+                fetched = torch.cat([
+                    torch.stack(losses).to(torch.float32),
+                    torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                                 .to(dev) for v in metrics.values()]),
+                    *health]).tolist()
+            chunk_s = self.meter.end_batch(chunk * bs)
             step_losses = fetched[:chunk]
-            last = dict(zip(metrics, fetched[chunk:]))
+            last = dict(zip(metrics, fetched[chunk:chunk + len(metrics)]))
+            keys = [k for k in guard_lib.HEALTH_KEYS if k in metrics]
+            rows = fetched[chunk + len(metrics):]
+            health_rows = [dict(zip(keys, rows[j:j + len(keys)]))
+                           for j in range(0, len(rows), len(keys) or 1)]
             done += chunk
+            s_per_step = chunk_s / max(chunk, 1)
+            tid = obs.step_trace_id(done)
+            obs.emit_span("compute", max(chunk_s - data_s, 0.0),
+                          sink=self._sink(), step=done, n=chunk,
+                          hist="train_compute_s", trace_id=tid)
+            if data_s > 0:
+                obs.emit_span("data", data_s, sink=self._sink(), step=done,
+                              n=chunk, hist="train_data_s", trace_id=tid)
+            self.stall.observe(done, s_per_step, sink=self._sink(),
+                               trace_id=tid)
+            reg = obs.get_registry()
+            reg.inc("train_steps_total", chunk)
+            reg.inc("train_items_total", chunk * bs)
+            reg.set_gauge("train_step", done)
+            reg.observe("train_step_s", s_per_step)
+            if self._watchdog is not None:
+                self._watchdog.tick()
+            if self.heartbeat is not None:
+                self.heartbeat.tick(done, **self.stall.heartbeat_extra())
             summary = self.meter.epoch_summary(skip_first=0)
             summary["losses"] = step_losses
             run_summaries.append(summary)
             rec = {
                 "event": "epoch", "time": time.time(), "epoch": epoch,
-                "step": done,
-                "loss": last["loss"] if math.isfinite(last["loss"]) else None,
+                "step": done, "loss": _json_finite(last["loss"]),
                 "items_per_s": summary["items_per_s"],
                 "items_per_s_per_device": summary["items_per_s_per_device"],
-                "s_per_step": summary["total_s"] / max(chunk, 1),
+                "s_per_step": s_per_step,
             }
             if "grad_norm" in last:
-                rec["grad_norm"] = last["grad_norm"]
+                rec["grad_norm"] = _json_finite(last["grad_norm"])
             self._append_metrics(rec)
-        goodput = self.goodput.summary()
-        self._append_metrics({
-            "event": "run_end", "time": time.time(), "step": self.state.step,
-            "preempted": False, "rolled_back": False, "attempt": 0,
-            "resumed_from_step": start_step, "goodput": goodput,
-        })
-        return {
-            "epochs": run_summaries,
-            "final_loss": last.get("loss"),
-            "preempted": False,
-            "rolled_back": False,
-            "quiesced": False,
-            "goodput": goodput,
+            reg.set_gauge("train_loss", last["loss"])
+            reg.set_gauge("train_items_per_s", summary["items_per_s"])
+            reg.write_prometheus()
+            # Classify BEFORE the periodic save: a poisoned state must
+            # never become the newest snapshot.
+            if self.guard_policy is not None and health_rows:
+                if self._guard_check(done - chunk, health_rows, off):
+                    break
+            # Faults fire before the save, so a kill at step N leaves
+            # the previous checkpoint as the newest.
+            if self.fault_plan is not None:
+                self.fault_plan.on_step(done)
+            if (self.checkpoint_manager is not None and cfg.save_every
+                    and done % (cfg.save_every * spe) == 0):
+                self._save(tid, done)
+            if guard is not None and self._agree(guard.triggered,
+                                                 self.device):
+                obs.dump_flight("preempt")
+                self._save(tid, done, now=True)
+                return last, True
+        return last, False
+
+    # -- numeric-health guard -------------------------------------------
+    def _guard_dir(self) -> Optional[str]:
+        """Where guard state (skip windows) persists: next to the
+        checkpoints it rolls back to."""
+        return (getattr(self.checkpoint_manager, "directory", None)
+                or self.cfg.checkpoint_dir)
+
+    def _guard_check(self, chunk_start: int, rows: List[Dict],
+                     offset: int) -> bool:
+        """Classify the chunk's health rows; emit ``guard_verdict``
+        events and counters; on a verdict the policy wants rolled back,
+        roll back and return True (the fit loop stops)."""
+        policy = self.guard_policy
+        reg = obs.get_registry()
+        last_bad = rollback_at = None
+        for i, row in enumerate(rows):
+            step = chunk_start + i
+            verdict = policy.classify(step, row)
+            if verdict.skipped:
+                reg.inc("guard_skipped_total")
+            if verdict.healthy:
+                continue
+            reg.inc(f"guard_{verdict.verdict}_total")
+            wants = policy.wants_rollback(verdict)
+            rec = {
+                "event": "guard_verdict", "step": step,
+                "trace_id": obs.step_trace_id(step),
+                "verdict": verdict.verdict,
+                "action": ("rollback" if wants
+                           else "skip" if verdict.skipped else "event"),
+                "grad_norm": _json_finite(verdict.grad_norm),
+                "update_norm": _json_finite(verdict.update_norm),
+                "loss_finite": verdict.loss_finite,
+                "nonfinite": verdict.nonfinite,
+                "data_index": step + offset,
+            }
+            if verdict.watermark is not None:
+                rec["watermark"] = verdict.watermark
+            if verdict.ratio is not None:
+                rec["ratio"] = verdict.ratio
+            self._append_metrics(rec)
+            # The window anchors at the first verdict that DEMANDS a
+            # rollback; an earlier event-only spike was fine to train
+            # through by policy.
+            if rollback_at is None and wants:
+                rollback_at = step
+            if rollback_at is not None:
+                last_bad = step
+        if rollback_at is None:
+            return False
+        self._guard_rollback(rollback_at, last_bad, offset)
+        return True
+
+    def _guard_rollback(self, first_bad: int, last_bad: int,
+                        offset: int) -> None:
+        """Rollback-to-last-good: quarantine any snapshot holding the
+        anomaly, persist the skip window over the poisoned data
+        indices, and mark the fit rolled back (the caller exits
+        EXIT_ROLLBACK; the relaunch resumes from the last good
+        checkpoint)."""
+        mgr = self.checkpoint_manager
+        steps = sorted(mgr.all_steps() or [])
+        good = [s for s in steps if s <= first_bad]
+        if not good:
+            raise guard_lib.GuardError(
+                f"guard rollback needed at step {first_bad} but no "
+                f"checkpoint predates the anomaly (steps on disk: "
+                f"{steps}) -- save more often than anomalies arrive "
+                "(cfg.save_every), or run guard_mode='skip'"
+            )
+        # A snapshot taken at step S holds S updates, so any S >
+        # first_bad contains the poisoned one.
+        quarantined = [s for s in steps if s > first_bad and
+                       mgr.quarantine_step(s, reason="poisoned") is not None]
+        window = {"from_step": int(first_bad),
+                  "data_from": int(first_bad + offset),
+                  "data_to": int(last_bad + offset)}
+        n_rollbacks = None
+        if _rank() == 0:
+            n_rollbacks = guard_lib.record_rollback(self._guard_dir(),
+                                                    window)["rollbacks"]
+        if _world() > 1:
+            import torch.distributed as dist
+
+            dist.barrier()  # rank 0's renames and window file land first
+        obs.get_registry().inc("guard_rollbacks_total")
+        rec = {
+            "event": "guard_rollback", "step": last_bad + 1,
+            "trace_id": obs.step_trace_id(first_bad),
+            "to_step": int(max(good)), "first_bad": int(first_bad),
+            "last_bad": int(last_bad), "data_from": window["data_from"],
+            "data_to": window["data_to"], "quarantined": quarantined,
         }
+        if n_rollbacks is not None:
+            rec["n_rollbacks"] = n_rollbacks
+        self._append_metrics(rec)
+        obs.dump_flight("guard_rollback")
+        self._rolled_back = True
