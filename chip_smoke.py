@@ -65,6 +65,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     set to 0 just before and read just after.
      serve_int8  -- the same replay over an int8 pool (kv_quant="int8"):
                     its prefill launches take the wgmma_int8 route.
+     serve_spec  -- speculative decoding and seeded sampling on the paged
+                    engine, kernel="cuda": (a) at 7B width, 2 layers,
+                    float32, the greedy streams of ngram spec (k 4) and
+                    of draft spec (a 1-layer draft) equal plain greedy
+                    decode on every request, under "cuda" and "gather",
+                    and so does the target drafting for itself (cuda),
+                    which must accept at least half its drafts;
+                    (b) the threefry keys, uniforms and categorical draws
+                    on the card equal the CPU's bit for bit; (c) the
+                    serve mix at temperature 0.8, top-p 0.95 through
+                    ngram spec on the 7B: two replays and a reversed
+                    submission order give the same tokens, the pools
+                    drain, nothing rebuilds; (d) decode_heavy through
+                    run_loadgen without and with ngram spec, twice each:
+                    byte-identical virtual-clock summaries, beside the
+                    acceptance, the virtual TTFT/ITL and the wall-clock
+                    tokens/s; (e) the decode kernel over the verify's
+                    pseudo-slots (row j at pos + j) at the 7B shape
+                    against its plain version, with a control (no + j)
+                    the bf16 rule must reject. The verify and draft
+                    steps' decode launches and the spec prefill's
+                    launches are counted; each part's seconds and peak
+                    memory are printed.
   6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
@@ -313,27 +336,32 @@ def _pool(torch, gen, dev, num_blocks, bs, hkv, d, live, pool):
     return k.to(dtype), v.to(dtype), {}
 
 
-def decode_case(torch, dev, hkv, g, quant, seed=0):
+DECODE_POS = (1023, 517, 64, 15, 300, 811, 0, 700)
+
+
+def decode_case(torch, dev, hkv, g, quant, seed=0, pos=DECODE_POS,
+                extra=0):
     """8 slots over a 513-page pool, 64-page views in 96-wide table rows
-    (the engine's width at max_seq_len 1024 with a 512 bucket)."""
+    (the engine's width at max_seq_len 1024 with a 512 bucket). Each
+    active slot's pages are live up to position ``pos + extra`` (a
+    verify step writes ``extra`` positions past ``pos``)."""
     slots, d, bs, mb, width, num_blocks = 8, 128, 16, 64, 96, 513
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pos = torch.tensor([1023, 517, 64, 15, 300, 811, 0, 700],
-                       dtype=torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32)
     active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.int32)
     perm = torch.randperm(num_blocks - 1, generator=torch.Generator()
                           .manual_seed(seed)) + 1
     tables = torch.empty((slots, width), dtype=torch.int32)
     live, nxt = set(), 0
     for s in range(slots):
-        n_live = int(pos[s]) // bs + 1 if active[s] else 0
+        n_live = (int(pos[s]) + extra) // bs + 1 if active[s] else 0
         row = perm[nxt:nxt + n_live].tolist()
         nxt += n_live
         live.update(row)
         tables[s, :n_live] = torch.tensor(row, dtype=torch.int32)
     dead_pages = [p for p in range(num_blocks) if p not in live]
     for s in range(slots):  # dead entries and inactive rows: NaN pages
-        n_live = int(pos[s]) // bs + 1 if active[s] else 0
+        n_live = (int(pos[s]) + extra) // bs + 1 if active[s] else 0
         tables[s, n_live:] = torch.tensor(
             [dead_pages[(s + j) % len(dead_pages)]
              for j in range(width - n_live)], dtype=torch.int32)
@@ -1600,6 +1628,458 @@ def serve_phase(torch, dev, phase, cfg, serve_cfg, paged) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------
+# Phase 5c: speculative decoding and seeded sampling
+# ---------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_TEMPERATURE, SPEC_TOP_P = 0.8, 0.95
+# The RNG check's (seed, position) pairs, each under streams 0-2.
+RNG_SEEDS = (0, 1, 42, 99, 12345, 2**31 - 1)
+RNG_POSITIONS = (0, 1, 7, 48, 1000, 4095)
+# The target drafting for itself accepts less than every draft: as in
+# the JAX package (spec.py's draft program writes K/V for steps
+# j < n_valid), the last draft of a clean sweep never has its K/V written
+# into the draft pool, so the next draft step reads that position
+# unwritten (docs/port/spec_draft_hole.py measures what that costs, and
+# that one more write closes it). The gate asks
+# only that the accept path ran at scale; the greedy stream is gated
+# apart.
+SELF_DRAFT_MIN_ACCEPTANCE = 0.5
+# Summary keys a virtual-clock loadgen run takes from the host's clock:
+# everything else must repeat byte for byte.
+WALL_CLOCK_KEYS = ("wall_clock_s", "wall_clock_tokens_per_s",
+                   "spec_wall_clock_s", "peak_memory_bytes")
+
+
+def _release(torch) -> None:
+    """Free the card memory of engines just dropped: a spec engine and
+    its runner hold each other (engine.spec, runner.engine), so their
+    pools and weights go only with a collection of the cycle."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _peak_reset(torch, dev) -> None:
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _spec_engine(torch, dev, params, cfg, serve_cfg, paged, mode,
+                 draft=None):
+    """A paged engine with a SpecRunner (``mode`` None: plain), warmed."""
+    from tpu_hpc_torch.serve import PagedEngine, SpecConfig, attach_spec
+
+    eng = PagedEngine(params, cfg, serve_cfg, dev, paged)
+    if mode is not None:
+        attach_spec(eng, SpecConfig(mode=mode, k=SPEC_K),
+                    draft_params=draft[0] if mode == "draft" else None,
+                    draft_cfg=draft[1] if mode == "draft" else None)
+    return eng, eng.warmup()
+
+
+def _launch_counts():
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    return {"paged_decode_attention": pa.paged_decode_attention.launches,
+            "paged_prefill_attention": pa.paged_prefill_attention.launches}
+
+
+def _zero_launches() -> None:
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    pa.paged_decode_attention.launches = 0
+    pa.paged_prefill_attention.launches = 0
+
+
+def _drained(eng) -> bool:
+    """Both pools back to idle with the allocator identity intact."""
+    engines = [eng] + ([eng.spec.draft] if eng.spec is not None
+                       and eng.spec.draft is not None else [])
+    for e in engines:
+        e.allocator.check_invariant()
+        if e._slot_state:
+            return False
+    return True
+
+
+def spec_greedy_failures(rows) -> list:
+    """(a)'s gates over its runs (``"<kernel>/<plain|ngram|draft|
+    self_draft>"`` -> row): no rebuild and both pools drained on every
+    run; every spec run's greedy tokens equal plain decode's; the
+    self-draft accepts at least SELF_DRAFT_MIN_ACCEPTANCE of its drafts;
+    on the cuda route the spec prefill
+    launched the prefill kernel and the verify (and, for a draft model,
+    the draft steps) the decode kernel."""
+    failures = []
+    for key, row in rows.items():
+        kernel, name = key.split("/")
+        if row["rebuilds"] or not row["drained"]:
+            failures.append(f"{key}: rebuilt or not drained")
+        if name == "plain":
+            continue
+        if not row["equals_plain"]:
+            failures.append(f"{key}: greedy tokens differ from plain "
+                            f"decode on {row['differing']}")
+        if name == "self_draft" and not (
+                row["drafted"] > 0 and row["accepted"]
+                >= SELF_DRAFT_MIN_ACCEPTANCE * row["drafted"]):
+            failures.append(f"{key}: the target drafting for itself "
+                            f"accepted {row['accepted']} of "
+                            f"{row['drafted']}")
+        if kernel == "cuda":
+            sl = row["spec_launches"]
+            if row["launches"]["paged_prefill_attention"] < 1 \
+                    or sl["verify"] < 1 \
+                    or (name != "ngram" and sl["draft"] < 1):
+                failures.append(f"{key}: kernels not on the spec path: "
+                                f"{row['launches']} {sl}")
+    return failures
+
+
+def spec_greedy(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """(a) 7B width, 2 layers, float32 (the crosscheck's model), its
+    half-depth draft: under kernel="cuda" and "gather", the greedy
+    streams of ngram spec and of draft spec equal the plain greedy
+    stream on every request. Launches counted per run."""
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import ContinuousBatcher, replay_requests
+    from tpu_hpc_torch.serve.spec import default_draft_config
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    dcfg = default_draft_config(small)
+    params = llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(1), small, dev)
+    draft = (llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(2), dcfg, dev), dcfg)
+    rows = {}
+    for kernel in ("cuda", "gather"):
+        pk = dataclasses.replace(paged, kernel=kernel)
+        base = None
+        # The self-draft (the target drafting for itself) accepts every
+        # greedy draft: the accept path and the bonus draw on the card.
+        for name in ("plain", "ngram", "draft") + (
+                ("self_draft",) if kernel == "cuda" else ()):
+            mode = {"plain": None, "self_draft": "draft"}.get(name, name)
+            eng, n_programs = _spec_engine(
+                torch, dev, params, small, serve_cfg, pk, mode,
+                (params, small) if name == "self_draft" else draft)
+            reqs = replay_requests(SERVE_REQUESTS, small.vocab_size,
+                                   SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0)
+            _zero_launches()
+            got = ContinuousBatcher(eng).run(reqs)
+            launches = _launch_counts()
+            row = {"launches": launches,
+                   "rebuilds": eng.compile_count_total - n_programs,
+                   "drained": _drained(eng),
+                   "tokens": sum(len(t) for t in got.values())}
+            if name == "plain":
+                base = got
+            else:
+                row.update(
+                    equals_plain=got == base,
+                    differing=[r for r in base if got[r] != base[r]],
+                    spec_launches=dict(eng.spec.kernel_launches),
+                    **{k: eng.spec.stats[k] for k in (
+                        "verify_steps", "drafted", "accepted", "emitted")})
+                row["verify_launches_per_decode_token"] = (
+                    row["spec_launches"]["verify"] / row["emitted"])
+            rows[f"{kernel}/{name}"] = row
+            del eng
+            _release(torch)
+    emit("serve_spec", check="a_greedy_exact", model="7b-width-2-layers",
+         draft_layers=dcfg.n_layers, dtype="float32", k=SPEC_K, runs=rows)
+    failures = spec_greedy_failures(rows)
+    if failures:
+        raise SystemExit(f"serve_spec (a): {failures}")
+    del params, draft
+    _release(torch)
+    return rows
+
+
+def spec_rng(torch, dev) -> dict:
+    """(b) The threefry keys, uniforms (plain and the Gumbel's, floored
+    at float32's tiny) and categorical draws on the card equal the same
+    calls on the CPU, bit for bit (the CPU ones are what the CPU tests
+    pin against jax.random)."""
+    import numpy as np
+
+    from tpu_hpc_torch.serve import prng
+
+    tiny = torch.finfo(torch.float32).tiny
+    seeds, positions = torch.tensor(RNG_SEEDS), torch.tensor(RNG_POSITIONS)
+    probs = np.random.default_rng(0).dirichlet(
+        np.full(32000, 0.1), size=len(RNG_SEEDS)).astype(np.float32)
+    probs[:, ::3] = 0.0
+    probs = torch.tensor(probs / probs.sum(-1, keepdims=True))
+    checks = {}
+    for stream in (0, 1, 2):
+        kc = prng.position_keys(seeds, positions, stream)
+        kg = prng.position_keys(seeds.to(dev), positions.to(dev), stream)
+        checks[f"keys_{stream}"] = torch.equal(kc, kg.cpu())
+        checks[f"uniform_{stream}"] = torch.equal(
+            prng.uniform(kc).view(torch.int32),
+            prng.uniform(kg).cpu().view(torch.int32))
+        checks[f"gumbel_uniform_{stream}"] = torch.equal(
+            prng.uniform(kc, 32000, minval=tiny).view(torch.int32),
+            prng.uniform(kg, 32000, minval=tiny).cpu().view(torch.int32))
+        checks[f"categorical_{stream}"] = torch.equal(
+            prng.categorical_probs(kc, probs),
+            prng.categorical_probs(kg, probs.to(dev)).cpu())
+    emit("serve_spec", check="b_rng_card_equals_cpu", seeds=list(RNG_SEEDS),
+         positions=list(RNG_POSITIONS), vocab=32000, equal=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"serve_spec (b): card draws differ from the "
+                         f"CPU's: {checks}")
+    return checks
+
+
+def spec_sampled(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """(c) The serve phase's 16 requests at temperature 0.8, top-p 0.95
+    through ngram spec on Llama-2-7B (bf16, the cuda route): two
+    replays, then the requests submitted in reverse order (other slots,
+    other batch company) -- the same tokens each time; the pools drain,
+    nothing is rebuilt after warmup, the kernels ran."""
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import ContinuousBatcher, replay_requests
+    from tpu_hpc_torch.serve.weights import place_params
+
+    params = place_params(llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev), cfg, dev)
+    runs = []
+    for order in ("submitted", "again", "reversed"):
+        eng, n_programs = _spec_engine(torch, dev, params, cfg, serve_cfg,
+                                       paged, "ngram")
+        reqs = replay_requests(SERVE_REQUESTS, cfg.vocab_size,
+                               SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0,
+                               temperature=SPEC_TEMPERATURE,
+                               top_p=SPEC_TOP_P)
+        if order == "reversed":
+            reqs = reqs[::-1]
+        _peak_reset(torch, dev)
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = ContinuousBatcher(eng).run(reqs)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        tokens = sum(len(t) for t in got.values())
+        st = eng.spec.stats
+        runs.append({
+            "order": order, "streams": got, "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "launches": launches,
+            "spec_launches": dict(eng.spec.kernel_launches),
+            "verify_launches_per_decode_token": (
+                eng.spec.kernel_launches["verify"]
+                / max(1, tokens - len(got))),
+            "rebuilds": eng.compile_count_total - n_programs,
+            "drained": _drained(eng),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            **{k: st[k] for k in ("verify_steps", "drafted", "accepted",
+                                  "emitted")},
+        })
+        del eng
+        _release(torch)
+    del params
+    _release(torch)
+    same = [r["streams"] == runs[0]["streams"] for r in runs[1:]]
+    emit("serve_spec", check="c_sampled", model="7b", dtype="bfloat16",
+         temperature=SPEC_TEMPERATURE, top_p=SPEC_TOP_P, k=SPEC_K,
+         replay_equal=same[0], reversed_equal=same[1],
+         runs=[{k: v for k, v in r.items() if k != "streams"}
+               for r in runs])
+    for r in runs:
+        if r["tokens"] != SERVE_REQUESTS * SERVE_MAX_NEW or r["rebuilds"] \
+                or not r["drained"]:
+            raise SystemExit(f"serve_spec (c) {r['order']}: unfinished, "
+                             f"rebuilt or not drained")
+        if r["launches"]["paged_prefill_attention"] < 1 \
+                or r["spec_launches"]["verify"] < 1:
+            raise SystemExit(f"serve_spec (c): kernels not on the spec "
+                             f"path: {r['launches']}")
+    if not all(same):
+        raise SystemExit(f"serve_spec (c): sampled streams moved with the "
+                         f"replay or the slots: {same}")
+    return runs[0]
+
+
+def spec_loadgen(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """(d) decode_heavy through run_loadgen at the serve phase's shape
+    (16 requests, generation budgets up to 32 tokens after prompts up
+    to a quarter of the 512 bucket), without and with ngram spec, twice
+    each: the virtual-clock summaries repeat byte for byte."""
+    from tpu_hpc_torch.serve import SpecConfig
+    from tpu_hpc_torch.serve.server import run_loadgen
+
+    out = {}
+    for name, spec in (("plain", None),
+                       ("ngram", SpecConfig(mode="ngram", k=SPEC_K))):
+        summaries = []
+        for _ in range(2):
+            _zero_launches()
+            summaries.append(run_loadgen(
+                cfg, serve_cfg, "decode_heavy", SERVE_REQUESTS,
+                SERVE_MAX_NEW, seed=0, paged=paged, device=dev, spec=spec))
+            _release(torch)
+        virtual = [json.dumps({k: v for k, v in sm.items()
+                               if k not in WALL_CLOCK_KEYS}, sort_keys=True)
+                   for sm in summaries]
+        sm = summaries[0]
+        row = {
+            "identical": virtual[0] == virtual[1],
+            "tokens": sm["tokens"], "decode_steps": sm["decode_steps"],
+            "recompiles": sm["recompiles"],
+            "kernel_launches": sm["kernel_launches"],
+            "virtual": {k: sm[k] for k in (
+                "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99")},
+            "wall_clock_tokens_per_s": [
+                x["wall_clock_tokens_per_s"] for x in summaries],
+            "wall_clock_s": [x["wall_clock_s"] for x in summaries],
+            "peak_memory_bytes": sm.get("peak_memory_bytes"),
+        }
+        if spec is not None:
+            row.update(
+                spec_launches=sm["spec_kernel_launches"],
+                **{k: sm[k] for k in ("acceptance_rate", "drafted",
+                                      "accepted", "verify_steps",
+                                      "draft_ms")},
+                emitted=sm["spec_emitted"],
+                wall_clock_draft_verify_s=[
+                    x["spec_wall_clock_s"] for x in summaries],
+            )
+        out[name] = row
+    emit("serve_spec", check="d_loadgen", scenario="decode_heavy",
+         model="7b", requests=SERVE_REQUESTS, max_new=SERVE_MAX_NEW, runs=out)
+    for name, row in out.items():
+        if not row["identical"] or row["recompiles"]:
+            raise SystemExit(f"serve_spec (d) {name}: virtual-clock "
+                             f"summaries differ or rebuilt: {row}")
+        if min(row["kernel_launches"].values()) < 1:
+            raise SystemExit(f"serve_spec (d) {name}: kernels not on the "
+                             f"path: {row['kernel_launches']}")
+    return out
+
+
+def verify_kernel_failures(readings, control, inactive_zero) -> list:
+    """(e)'s gates: the kernel inside the bf16 rule with the inactive
+    slot's rows exact zeros, and the control (no + j) rejected by the
+    same rule."""
+    failures = []
+    if not readings["ok"] or not inactive_zero:
+        failures.append(f"the decode kernel over verify pseudo-slots is "
+                        f"outside the bf16 rule: {readings}")
+    if control["ok"]:
+        failures.append(f"the tolerance accepts the pseudo-slots without "
+                        f"+ j: {control}")
+    return failures
+
+
+def spec_verify_kernel(torch, dev) -> dict:
+    """(e) The decode kernel over verify pseudo-slots (row j of slot s:
+    s's table row at position pos + j) at the 7B shape -- ragged
+    positions, one inactive slot, NaN dead pages -- against
+    paged_decode_attention_ref over the same pseudo-slots under the
+    bf16 rule; the control (every pseudo-slot at its slot's own pos,
+    no + j) must be rejected."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    n = SPEC_K + 1
+    pos = (1019, 517, 64, 15, 300, 811, 0, 700)
+    args, kw, _ = decode_case(torch, dev, 32, 1, False, seed=3, pos=pos,
+                              extra=SPEC_K)
+    _, k_pages, v_pages, tables, pos_t, active = args
+    slots, hkv, g, d = 8, 32, 1, 128
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((slots * n, hkv, g, d), generator=gen,
+                    device=dev).bfloat16()
+    tables_ps = tables.repeat_interleave(n, dim=0).contiguous()
+    pos_ps = (pos_t[:, None] + torch.arange(n, device=dev,
+                                            dtype=torch.int32)).reshape(-1)
+    active_ps = active.repeat_interleave(n).contiguous()
+    ps_args = (q, k_pages, v_pages, tables_ps, pos_ps.contiguous(),
+               active_ps)
+    out = pa.paged_decode_attention(*ps_args, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_decode_attention_ref(*ps_args, **kw)
+    r = compare(out, want, torch.bfloat16)
+    zero_inactive = not out[active_ps == 0].any()
+    bad = pa.paged_decode_attention_ref(
+        q, k_pages, v_pages, tables_ps,
+        pos_t.repeat_interleave(n).contiguous(), active_ps, **kw)
+    rc = compare(bad, want, torch.bfloat16)
+    # Each input read once: a slot's pages (up to pos + k) once for its
+    # k + 1 pseudo-slots, q in and the output out per pseudo-slot; the
+    # operations are every pseudo-slot's own.
+    page_bytes = kw["block_size"] * hkv * d * 2
+    n_bytes = 2 * q.numel() * 2 + 8 * slots * n
+    flops = 0
+    for p, a in zip(pos, active.tolist()):
+        if a:
+            pages = (p + SPEC_K) // kw["block_size"] + 1
+            n_bytes += 2 * pages * page_bytes + 4 * pages
+            flops += sum(4 * hkv * g * (p + j + 1) * d for j in range(n))
+    bound_ms, bound_by = bound(n_bytes, flops, torch.bfloat16)
+    row = {
+        "pseudo_slots": slots * n, "pos": list(pos), "k": SPEC_K,
+        "n_split": pa.paged_decode_splits(slots * n, hkv, g,
+                                          kw["max_blocks"]),
+        "max_abs_err": r["max_abs_err"], "readings": r,
+        "inactive_zero": zero_inactive,
+        "control_without_plus_j": {"rejected": not rc["ok"], **rc},
+        "ms": time_ms(lambda: pa.paged_decode_attention(*ps_args, **kw),
+                      iters=50),
+        "device_ms": device_ms(
+            lambda: pa.paged_decode_attention(*ps_args, **kw),
+            "paged_decode"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("serve_spec", check="e_verify_pseudo_slots", **row)
+    failures = verify_kernel_failures(r, rc, zero_inactive)
+    if failures:
+        raise SystemExit(f"serve_spec (e): {failures}")
+    return row
+
+
+def serve_spec_phase(torch, dev, cfg, serve_cfg, paged, plain) -> dict:
+    """Phase 5c: (a)-(e), each with its card seconds and peak memory;
+    ``plain`` is the serve phase's launches (decode launches per
+    decode-emitted token beside the verify's)."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn, fargs in (
+        ("a", spec_greedy, (cfg, serve_cfg, paged)),
+        ("b", spec_rng, ()),
+        ("c", spec_sampled, (cfg, serve_cfg, paged)),
+        ("d", spec_loadgen, (cfg, serve_cfg, paged)),
+        ("e", spec_verify_kernel, ()),
+    ):
+        _peak_reset(torch, dev)
+        t = time.perf_counter()
+        parts[name] = fn(torch, dev, *fargs)
+        emit("serve_spec", check=f"{name}_cost",
+             seconds=time.perf_counter() - t,
+             max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    sampled = parts["c"]
+    launches = {
+        "draft": sum(r["spec_launches"]["draft"]
+                     for r in parts["a"].values() if "spec_launches" in r),
+        "verify": sampled["spec_launches"]["verify"],
+        "prefill": sampled["launches"]["paged_prefill_attention"],
+    }
+    emit("serve_spec", check="summary", seconds=time.perf_counter() - t0,
+         launches_per_decode_token={
+             "plain_decode": plain["paged_decode_attention"]
+             / (SERVE_REQUESTS * (SERVE_MAX_NEW - 1)),
+             "spec_verify": sampled["verify_launches_per_decode_token"],
+         },
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1650,6 +2130,9 @@ def main() -> int:
     int8_launches = serve_phase(torch, dev, "serve_int8", cfg, serve_cfg,
                                 dataclasses.replace(paged, kv_quant="int8"))
     launches[INT8_PREFILL] = int8_launches["paged_prefill_attention"]
+    # -- 5c. speculative decoding and seeded sampling on the paged engine
+    spec_launches = serve_spec_phase(torch, dev, cfg, serve_cfg, paged,
+                                     launches)
 
     # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
     small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
@@ -1711,6 +2194,13 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # The speculative path's launches of the paged kernels (serve_spec).
+    for entry in kernels:
+        if entry["name"] == "paged_decode_attention":
+            entry["serve_spec_launches"] = {
+                k: spec_launches[k] for k in ("draft", "verify")}
+        if entry["name"] == "paged_prefill_attention":
+            entry["serve_spec_launches"] = spec_launches["prefill"]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

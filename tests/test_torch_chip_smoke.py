@@ -105,6 +105,113 @@ def test_kernel_cases_cover_every_prefill_route():
         chip_smoke.REPLACES["paged_prefill_attention"]
 
 
+def test_phase_list_names_serve_spec_after_serve_int8():
+    """serve_spec follows serve and serve_int8 and comes before the
+    serving crosscheck; main drives it there."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *5\. serve ", r"^ *serve_int8 ", r"^ *serve_spec ",
+        r"^ *6\. crosscheck ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        '"serve_int8"', "serve_spec_phase(", "# -- 6. cross-check")]
+    assert calls == sorted(calls)
+
+
+def test_last_line_contract_is_unchanged():
+    """The last print of main is the fixed result line, after the
+    kernels line and nvidia-smi's line; without a card main prints no
+    result and exits non-zero."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    tail = src[src.index('print(json.dumps({"kernels": kernels}))'):]
+    assert tail.index("print(smi)") < tail.index('print(json.dumps({"ok"')
+    assert 'print(json.dumps({"ok": True, "device": {\n' \
+        '        "platform": "gpu", "kind": kind,\n' \
+        '        "count": torch.cuda.device_count(),\n    }}))\n' \
+        '    return 0\n' in tail
+
+
+def test_chip_smoke_without_a_card_prints_no_result():
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def _greedy_rows(**overrides):
+    launches = {"paged_decode_attention": 0, "paged_prefill_attention": 9}
+    rows = {}
+    for kernel in ("cuda", "gather"):
+        rows[f"{kernel}/plain"] = {"rebuilds": 0, "drained": True,
+                                   "launches": launches}
+        for mode in ("ngram", "draft", "self_draft"):
+            rows[f"{kernel}/{mode}"] = {
+                "rebuilds": 0, "drained": True, "launches": launches,
+                "equals_plain": True, "differing": [],
+                "spec_launches": {"draft": 0 if mode == "ngram" else 4,
+                                  "verify": 8},
+                "drafted": 12, "accepted": 12 if mode == "self_draft" else 0,
+            }
+    for key, fields in overrides.items():
+        rows[key] = dict(rows[key], **fields)
+    return rows
+
+
+@pytest.mark.parametrize("overrides, failures", [
+    ({}, 0),
+    ({"cuda/ngram": {"equals_plain": False, "differing": ["r0003"]}}, 1),
+    ({"gather/draft": {"equals_plain": False, "differing": ["r0000"]}}, 1),
+    ({"cuda/draft": {"spec_launches": {"draft": 0, "verify": 8}}}, 1),
+    ({"cuda/ngram": {"spec_launches": {"draft": 0, "verify": 0}}}, 1),
+    ({"gather/ngram": {"spec_launches": {"draft": 0, "verify": 0}}}, 0),
+    ({"cuda/plain": {"rebuilds": 1}}, 1),
+    ({"cuda/ngram": {"drained": False}}, 1),
+    ({"cuda/self_draft": {"accepted": 6}}, 0),
+    ({"cuda/self_draft": {"accepted": 5}}, 1),
+    ({"cuda/self_draft": {"drafted": 0, "accepted": 0}}, 1),
+    ({"cuda/self_draft": {"spec_launches": {"draft": 0, "verify": 8}}}, 1),
+])
+def test_spec_greedy_failures(overrides, failures):
+    """serve_spec (a) fails on a greedy token that differs from plain
+    decode, a cuda-route spec run that did not launch its kernels, a
+    rebuild, an undrained pool, or a self-draft that rejected more than
+    half its drafts."""
+    got = chip_smoke.spec_greedy_failures(_greedy_rows(**overrides))
+    assert len(got) == failures, got
+
+
+@pytest.mark.parametrize("ok, inactive_zero, control_ok, failures", [
+    (True, True, False, 0),
+    (True, True, True, 1),    # the control passes: the rule is too loose
+    (False, True, False, 1),
+    (True, False, False, 1),
+])
+def test_verify_kernel_failures(ok, inactive_zero, control_ok, failures):
+    got = chip_smoke.verify_kernel_failures(
+        {"ok": ok}, {"ok": control_ok}, inactive_zero)
+    assert len(got) == failures
+
+
+def test_spec_rng_check_runs_on_cpu_tensors():
+    """serve_spec (b)'s code path with the CPU as the "card": every
+    draw equal."""
+    import torch
+
+    checks = chip_smoke.spec_rng(torch, torch.device("cpu"))
+    assert len(checks) == 12 and all(checks.values())
+
+
 def test_phase_list_names_train_hybrid_after_train():
     """The docstring's phases, in order: train_hybrid follows train and
     comes before the profile and the crosscheck."""

@@ -44,6 +44,8 @@ from tpu_hpc_torch.serve import (
     PagedEngine,
     Request,
     ServeConfig,
+    SpecConfig,
+    attach_spec,
     params_from_numpy,
 )
 
@@ -312,12 +314,18 @@ def test_later_slices_refuse_loudly(port_params):
         )
     with pytest.raises(ValueError, match="'gather' or 'cuda'"):
         PagedConfig(kernel="pallas", **PAGED)
+    # Sampling rides speculative decoding (serve/spec.py): refused
+    # without a spec engine, served with one.
     eng = _port_paged(port_params, "gather")
-    eng.spec = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(eng)
-    eng.spec = None
     with pytest.raises(ValueError, match="speculative"):
         ContinuousBatcher(eng).submit(
             Request(rid="s", prompt=[1, 2], temperature=0.7)
         )
+    spec_eng = PagedEngine(port_params, TINY, ServeConfig(**SERVE), "cpu",
+                           PagedConfig(**PAGED))
+    attach_spec(spec_eng, SpecConfig(mode="ngram"))
+    spec_eng.warmup()
+    got = ContinuousBatcher(spec_eng).run(
+        [Request(rid="s", prompt=[1, 2], max_new_tokens=3, temperature=0.7)]
+    )
+    assert len(got["s"]) == 3

@@ -469,6 +469,8 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.parallel.shard, tpu_hpc_torch.config\n"
         "import tpu_hpc_torch.ckpt, tpu_hpc_torch.resilience.supervisor\n"
         "import tpu_hpc_torch.resilience, tpu_hpc_torch.obs.stall\n"
+        "import tpu_hpc_torch.serve.spec, tpu_hpc_torch.serve.prng\n"
+        "import tpu_hpc_torch.loadgen, tpu_hpc_torch.serve.server\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"

@@ -35,10 +35,13 @@ one scalar per page per layer).
 
 JAX's donated pool buffers become IN-PLACE updates: every program
 writes pages (and scales) into the engine's resident tensors by index
-assignment and returns only its result. The host-DRAM page tier
-(``host_blocks``) and speculative decoding are later slices (ROADMAP)
-and raise ``NotImplementedError``; the allocator keeps its host-tier
-accounting unchanged so the tier can land without touching it.
+assignment and returns only its result. Speculative decoding
+(serve/spec.py) attaches to a PagedEngine through ``attach_spec``: its
+verify, draft and sampled-prefill programs live in the same program
+table, under the same build counter. The host-DRAM page tier
+(``host_blocks``) is a later slice (ROADMAP) and raises
+``NotImplementedError``; the allocator keeps its host-tier accounting
+unchanged so the tier can land without touching it.
 """
 from __future__ import annotations
 
@@ -950,6 +953,11 @@ class _PagedSlot:
     n_shared: int              # leading pages resolved from the trie
     plan: List[Tuple[int, int, int]]   # (start, run, bucket) chunks
     next_chunk: int = 0
+    # Per-request sampling contract (serve/spec.py): the seeded
+    # temperature/top-p head of the spec prefill program reads these.
+    seed: int = 0
+    temperature: float = 0.0
+    top_p: float = 1.0
 
 
 class PagedEngine(Engine):
@@ -1025,6 +1033,11 @@ class PagedEngine(Engine):
         self.table_width = per_seq + max(serve_cfg.prefill_buckets) // bs
         super().__init__(params, cfg, serve_cfg, device)
 
+        # Speculative decoding (serve/spec.py): attach_spec sets the
+        # runner + the extra program builders the program table
+        # dispatches to; None means plain greedy single-token decode.
+        self.spec = None
+        self._spec_builders: Dict[str, Any] = {}
         self.allocator = BlockAllocator(paged.num_blocks)
         self.trie: Optional[PrefixTrie] = (
             PrefixTrie(bs) if paged.prefix_cache else None
@@ -1035,6 +1048,12 @@ class PagedEngine(Engine):
         )
         self._tables_dev = None  # rebuilt lazily after table edits
         self._slot_state: Dict[int, _PagedSlot] = {}
+        self.prefill_forwarded_total = 0
+        # Registry gauge names are process-global: a second pool in
+        # the process (the spec draft engine) suffixes them, or the
+        # pools overwrite each other's readings.
+        self.gauge_suffix = ""
+        self._described_suffix: Optional[str] = None
         self.paged_stats = {
             "prefix_lookups": 0, "prefix_hits": 0,
             "prefix_hit_blocks": 0, "prefill_chunks": 0,
@@ -1042,15 +1061,6 @@ class PagedEngine(Engine):
         }
         self._blocks_free_min = self.allocator.free_blocks
         reg = get_registry()
-        reg.describe(
-            "serve_kv_blocks_free",
-            "KV pages on the free list (trie-parked pages are "
-            "reclaimable and not counted free)",
-        )
-        reg.describe(
-            "serve_kv_blocks_used",
-            "KV pages referenced by live requests or the prefix trie",
-        )
         reg.describe(
             "serve_prefix_hit_total",
             "Admissions whose prompt prefix was served from the trie "
@@ -1099,6 +1109,12 @@ class PagedEngine(Engine):
     # -- program table -------------------------------------------------
     def _build(self, key):
         self.compile_count += 1
+        # Speculative programs (spec_verify / spec_draft /
+        # spec_prefill): serve/spec.py's builders, called with THIS
+        # engine -- same table, same counter, so the no-rebuild pins
+        # cover them too.
+        if key[0] in self._spec_builders:
+            return self._spec_builders[key[0]](self, key)
         if key[0] == "prefill":
             return make_chunk_prefill_fn(
                 self.cfg, key[1], self.paged.block_size,
@@ -1117,24 +1133,62 @@ class PagedEngine(Engine):
         """Build every steady-state program (one prefill per bucket,
         decode, copy_block). With ``kernel="cuda"`` on the card this
         also builds and loads the kernel library, so nvcc runs here
-        and not inside the first request's TTFT."""
-        for b in self.serve_cfg.prefill_buckets:
-            self._get_exec(("prefill", b))
-        self._get_exec(("decode",))
-        self._get_exec(("copy_block",))
+        and not inside the first request's TTFT.
+
+        With a SpecRunner attached the steady state is the sampled
+        prefill per bucket, the verify step, copy_block and the draft
+        side's programs; the plain greedy decode program is NOT built
+        (the verify step is the decode step), so a stray call would
+        count as a rebuild. Returns :attr:`compile_count_total`."""
+        if self.spec is not None:
+            for b in self.serve_cfg.prefill_buckets:
+                self._get_exec(("spec_prefill", b))
+            self._get_exec(("spec_verify",))
+            self._get_exec(("copy_block",))
+            self.spec.warmup_draft()
+        else:
+            for b in self.serve_cfg.prefill_buckets:
+                self._get_exec(("prefill", b))
+            self._get_exec(("decode",))
+            self._get_exec(("copy_block",))
         if self.paged.kernel == "cuda" and self.device.type == "cuda":
             from tpu_hpc_torch.kernels import _build
 
             _build.load_library()
-        return self.compile_count
+        return self.compile_count_total
+
+    @property
+    def compile_count_total(self) -> int:
+        """Program builds across the WHOLE serving unit: this engine
+        plus the attached draft engine -- the number the rebuild guards
+        pin (a draft-side rebuild is as much a steady-state violation
+        as a target one)."""
+        n = self.compile_count
+        if self.spec is not None:
+            n += self.spec.draft_compile_count
+        return n
 
     # -- page bookkeeping ----------------------------------------------
     def _set_block_gauges(self) -> None:
         free = self.allocator.free_blocks
         self._blocks_free_min = min(self._blocks_free_min, free)
         reg = get_registry()
-        reg.set_gauge("serve_kv_blocks_free", free)
-        reg.set_gauge("serve_kv_blocks_used", self.allocator.used_blocks)
+        sfx = self.gauge_suffix
+        if self._described_suffix != sfx:
+            self._described_suffix = sfx
+            reg.describe(
+                f"serve_kv_blocks_free{sfx}",
+                "KV pages on the free list (trie-parked pages are "
+                "reclaimable and not counted free)",
+            )
+            reg.describe(
+                f"serve_kv_blocks_used{sfx}",
+                "KV pages referenced by live requests or the prefix trie",
+            )
+        reg.set_gauge(f"serve_kv_blocks_free{sfx}", free)
+        reg.set_gauge(
+            f"serve_kv_blocks_used{sfx}", self.allocator.used_blocks
+        )
 
     @property
     def block_occupancy(self) -> float:
@@ -1202,6 +1256,7 @@ class PagedEngine(Engine):
         slot: int,
         prompt: Sequence[int],
         max_new: int,
+        sampling: Optional[Tuple[int, float, float]] = None,
     ) -> Dict[str, int]:
         """Reserve pages and build the chunk plan for one request.
 
@@ -1209,6 +1264,11 @@ class PagedEngine(Engine):
         pages up front (minus prefix hits), so decode can never hit an
         empty free list mid-request -- admission is the only place the
         pool says no.
+
+        ``sampling`` (``(seed, temperature, top_p)``, spec engines
+        only) is the request's seeded-sampling contract; the spec
+        prefill program's first-token head reads it, and the attached
+        draft pool mirrors the admission one-for-one.
         """
         if slot in self._slot_state:
             raise ValueError(f"slot {slot} already admitted")
@@ -1236,15 +1296,20 @@ class PagedEngine(Engine):
             raise
         start = len(shared) * self.paged.block_size
         plan = self._chunk_plan(start, plen)
+        seed, temperature, top_p = sampling or (0, 0.0, 1.0)
         state = _PagedSlot(
             prompt=list(int(t) for t in prompt),
             max_new=max_new,
             blocks=shared + fresh,
             n_shared=len(shared),
             plan=plan,
+            seed=int(seed), temperature=float(temperature),
+            top_p=float(top_p),
         )
         self._slot_state[slot] = state
         self._write_table(slot, state.blocks)
+        if self.spec is not None:
+            self.spec.on_admit(slot, prompt, max_new)
         bus = get_bus()
         bus.emit("kv_block", action="alloc", n=len(fresh), slot=slot)
         # Hit-rate stats count SEATED admissions only (a block-stalled
@@ -1273,23 +1338,36 @@ class PagedEngine(Engine):
     @torch.no_grad()
     def prefill_step(self, slot: int) -> Optional[int]:
         """Run the next prefill chunk for ``slot``. Returns the first
-        greedy token when the prompt is complete, else ``None``. The
-        final chunk's token fetch rides inside the span, so the span
-        measures dispatch-to-result."""
+        token when the prompt is complete, else ``None``. The final
+        chunk's token fetch rides inside the span, so the span measures
+        dispatch-to-result. With a SpecRunner attached the chunk runs
+        the sampled prefill variant (same layer loop, the request's
+        seeded temperature/top-p head; greedy requests get exactly the
+        argmax token), and a finished prompt runs the draft's prefill
+        too."""
         st = self._slot_state[slot]
         if st.next_chunk >= len(st.plan):
             raise ValueError(f"slot {slot} has no prefill pending")
         start, run, bucket = st.plan[st.next_chunk]
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :run] = st.prompt[start:start + run]
-        exec_ = self._get_exec(("prefill", bucket))
+        args = [
+            self.params, self.ks, self.vs, self.k_scales, self.v_scales,
+            self._rep_arr(padded).long(), start, run,
+            self._rep_arr(self._tables[slot]),
+        ]
+        if self.spec is not None:
+            exec_ = self._get_exec(("spec_prefill", bucket))
+            args += [st.seed, st.temperature, st.top_p]
+        else:
+            exec_ = self._get_exec(("prefill", bucket))
         with span("prefill", hist="serve_prefill_s", n=bucket):
-            tok = exec_(
-                self.params, self.ks, self.vs, self.k_scales,
-                self.v_scales, self._rep_arr(padded).long(), start, run,
-                self._rep_arr(self._tables[slot]),
-            )
+            tok = exec_(*args)
             st.next_chunk += 1
+            # Padded tokens forwarded: the loadgen cost model charges
+            # each chunk by it (a prefix hit's skipped chunks cost
+            # nothing).
+            self.prefill_forwarded_total += bucket
             self.paged_stats["prefill_chunks"] += 1
             if st.next_chunk < len(st.plan):
                 return None
@@ -1300,6 +1378,8 @@ class PagedEngine(Engine):
                 self.trie.insert(
                     st.prompt, st.blocks[:n_full], self.allocator
                 )
+        if self.spec is not None:
+            self.spec.on_prefill_done(slot)
         return first
 
     @torch.no_grad()
@@ -1363,6 +1443,8 @@ class PagedEngine(Engine):
         self._write_table(slot, [])
         get_bus().emit("kv_block", action="free", n=freed, slot=slot)
         self._set_block_gauges()
+        if self.spec is not None:
+            self.spec.on_release(slot)
 
     def reset_pool(self, force: bool = False) -> None:
         """Drop ALL cached KV state: allocator, prefix trie, block
@@ -1377,6 +1459,11 @@ class PagedEngine(Engine):
                 "slot(s) still admitted); drain first, or force=True "
                 "on the dead-replica restart path"
             )
+        if self.spec is not None:
+            raise NotImplementedError(
+                "reset_pool with an attached SpecRunner: the mirrored "
+                "draft pool would desync"
+            )
         self._slot_state = {}
         self.allocator = BlockAllocator(self.paged.num_blocks)
         if self.trie is not None:
@@ -1386,10 +1473,16 @@ class PagedEngine(Engine):
         self._set_block_gauges()
 
     def spec_decode(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative decoding (serve/spec.py) is not ported yet "
-            "(ROADMAP)"
-        )
+        """One speculative decode step (serve/spec.py): draft k
+        candidates per slot, verify all k+1 positions in one batched
+        target forward. A named method (not a bare runner call) so the
+        loadgen cost-model proxy can intercept it and charge the
+        modeled draft + verify costs on the virtual clock."""
+        if self.spec is None:
+            raise ValueError(
+                "spec_decode on an engine with no attached SpecRunner"
+            )
+        return self.spec.decode(*args, **kwargs)
 
     def prefill(self, slot: int, prompt: Sequence[int]) -> int:
         raise NotImplementedError(

@@ -1,9 +1,10 @@
 """Continuous batching: admit/evict requests at decode-step granularity.
 
 Copied from the JAX package's ``serve/scheduler.py`` (it is framework
-free). The speculative-decoding and n-gram branches and the host-tier
-prefetch are left out with the modules they drive (ROADMAP): an engine
-with a speculative runner attached, or a sampled request, is refused.
+free), with its speculative-decoding tick, the seeded-sampling rule and
+the per-request n-gram index (serve/spec.py). The host-tier prefetch
+and the disaggregated engine's transfer stats are left out with the
+modules they drive (ROADMAP).
 
 The engine's decode program has a FIXED batch width (``slots``) -- the
 discipline that keeps it one built shape. The scheduler makes
@@ -53,7 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -98,8 +99,8 @@ class Request:
     (request seed, position) only, so the stream replays identically
     regardless of batch composition or slot reassignment. ``seed``
     None derives a stable seed from ``rid``. Sampling rides the
-    speculative-decode path, which this port has not reached yet, so
-    submit() refuses temperature > 0."""
+    speculative-decode path, so temperature > 0 needs a spec-attached
+    paged engine (submit() enforces it)."""
 
     rid: str
     prompt: List[int]
@@ -211,11 +212,7 @@ class ContinuousBatcher:
         self.policy = policy
         self.stall_signal = stall_signal
         self._paged = bool(getattr(engine, "is_paged", False))
-        if getattr(engine, "spec", None) is not None:
-            raise NotImplementedError(
-                "speculative decoding (serve/spec.py) is not ported yet "
-                "(ROADMAP)"
-            )
+        self._spec = getattr(engine, "spec", None) is not None
         self.slots = [_Slot() for _ in range(engine.serve_cfg.slots)]
         self.pending: List[Request] = []
         self.results: Dict[str, List[int]] = {}
@@ -226,6 +223,22 @@ class ContinuousBatcher:
             self.stats["block_stalls"] = 0
         self._requests: Dict[str, Request] = {}
         self._order: Dict[str, int] = {}  # rid -> submission sequence
+        # Per-tenant acceptance evidence ("per request class" in the
+        # obs registry): the batcher is the one layer that knows both
+        # the tenant and the per-slot verify outcome.
+        self.spec_by_tenant: Dict[str, Dict[str, int]] = {}
+        # rid -> incremental prompt-lookup index (ngram mode only):
+        # the batcher commits every token, so it is the one layer
+        # that can keep proposals O(1) in history length instead of
+        # rescanning prompt+results per slot per tick.
+        self._spec_ngram = (
+            self._spec and engine.spec.cfg.mode == "ngram"
+        )
+        self._ngram_idx: Dict[str, Any] = {}
+        # rid -> derived sampling seed, computed ONCE at submit (the
+        # crc32 derivation would otherwise rerun per slot per tick on
+        # the decode hot path).
+        self._seeds: Dict[str, int] = {}
         # Causal tracing (obs/trace.py): trace ids are a pure
         # function of (run_id, rid), so the batcher derives them on
         # demand (request_trace_id) instead of caching a second copy
@@ -274,15 +287,17 @@ class ContinuousBatcher:
             )
         else:
             self.engine.serve_cfg.bucket_for(len(request.prompt))
-        if request.temperature > 0:
-            # Sampling rides the speculative path (not ported yet);
+        if request.temperature > 0 and not self._spec:
+            # Sampling rides the speculative path (the verify program
+            # with zero drafts IS the sampled single-token decode);
             # silently serving a sampled request greedily would be a
             # correctness lie, so fail at submit like the capacity
             # checks do.
             raise ValueError(
                 f"request {request.rid!r}: temperature "
-                f"{request.temperature} needs speculative decoding, "
-                "which is not ported yet (ROADMAP)"
+                f"{request.temperature} needs a speculative engine "
+                "(serve/spec.py attach_spec; mode 'ngram' works "
+                "without a draft checkpoint)"
             )
         self._requests[request.rid] = request
         self._order[request.rid] = len(self._order)
@@ -291,6 +306,12 @@ class ContinuousBatcher:
         ctx = new_context(KIND_REQUEST, request.rid)
         announce(ctx, tenant=request.tenant, sink=self._sink())
         self.pending.append(request)
+        if self._spec:
+            from tpu_hpc_torch.serve.spec import derive_request_seed
+
+            self._seeds[request.rid] = derive_request_seed(
+                request.rid, request.seed
+            )
         if self.meter is not None:
             self.meter.submitted(request.rid)
 
@@ -454,11 +475,25 @@ class ContinuousBatcher:
         slot.remaining = req.max_new_tokens - 1
         self._set_occupancy()
         self.results[req.rid] = [first]
+        self._track_ngram(req, first)
         if self.meter is not None:
             self.meter.token(req.rid, first=True)
         if slot.remaining == 0 or first == req.eos_id:
             self._evict(idx, slot)
         return True
+
+    def _track_ngram(self, req: Request, first: int) -> None:
+        """Seed the request's incremental prompt-lookup index with
+        prompt + first token (exactly the ``prompt + results`` history
+        the rescan used to rebuild per tick)."""
+        if not self._spec_ngram:
+            return
+        from tpu_hpc_torch.serve.spec import NgramIndex
+
+        spec = self.engine.spec
+        index = NgramIndex(req.prompt, max_n=spec.cfg.ngram)
+        index.append(first)
+        self._ngram_idx[req.rid] = index
 
     def _block_stall(self, req: Request, tid: str, reason: str) -> None:
         """Re-queue a page-short request (FIFO within its class --
@@ -490,14 +525,25 @@ class ContinuousBatcher:
 
         req = self._next_pending()
         tid = request_trace_id(req.rid)
+        sampling = None
+        if self._spec:
+            sampling = (
+                self._seeds[req.rid], req.temperature, req.top_p,
+            )
         t0 = self._clock()
         try:
             # The request's trace is ambient, so page allocations and
             # prefix-hit events inside correlate to it.
             with activate(tid):
-                info = self.engine.admit(
-                    idx, req.prompt, req.max_new_tokens
-                )
+                if sampling is not None:
+                    info = self.engine.admit(
+                        idx, req.prompt, req.max_new_tokens,
+                        sampling=sampling,
+                    )
+                else:
+                    info = self.engine.admit(
+                        idx, req.prompt, req.max_new_tokens
+                    )
         except BlockBudgetError:
             self._block_stall(req, tid, "kv_pool_exhausted")
             return False
@@ -543,6 +589,7 @@ class ContinuousBatcher:
             slot.last_token = first
             slot.remaining = req.max_new_tokens - 1
             self.results[req.rid] = [first]
+            self._track_ngram(req, first)
             if self.meter is not None:
                 self.meter.token(req.rid, first=True)
             if slot.remaining == 0 or first == req.eos_id:
@@ -564,6 +611,9 @@ class ContinuousBatcher:
             self._prefill_tick()
 
         if not any(s.decoding for s in self.slots):
+            return
+        if self._spec:
+            self._spec_tick()
             return
         tokens = [s.last_token for s in self.slots]
         positions = [s.pos for s in self.slots]
@@ -592,9 +642,91 @@ class ContinuousBatcher:
             if slot.remaining == 0 or tok == req.eos_id:
                 self._evict(idx, slot)
 
+    def _spec_tick(self) -> None:
+        """One speculative decode tick (serve/spec.py): every decoding
+        slot drafts up to ``min(k, remaining - 1)`` candidates and the
+        target verifies all of them in ONE batched forward; the
+        accepted prefix plus the corrected/bonus token commit as this
+        tick's emissions. One tick still counts ONE decode step --
+        that is the latency win the ITL quantiles measure."""
+        slots = self.slots
+        spec = self.engine.spec
+        k = spec.cfg.k
+        # Proposals feed the prompt-lookup draft source only; the
+        # draft-model path never reads them (the decode hot path).
+        ngram = self._spec_ngram
+        tokens, positions, active, n_valid = [], [], [], []
+        seeds, temps, top_ps, proposals = [], [], [], []
+        for s in slots:
+            active.append(s.decoding)
+            tokens.append(s.last_token)
+            positions.append(s.pos)
+            if s.decoding:
+                req = self._requests[s.rid]
+                n_valid.append(min(k, s.remaining - 1))
+                seeds.append(self._seeds[req.rid])
+                temps.append(req.temperature)
+                top_ps.append(req.top_p)
+                # Each request's OWN incremental n-gram index (prompt
+                # + emitted) proposes -- per request, so batch
+                # composition cannot leak in, and O(1) in history
+                # length where the rescan was O(T) per slot per tick.
+                proposals.append(
+                    self._ngram_idx[s.rid].propose(k) if ngram
+                    else []
+                )
+            else:
+                n_valid.append(0)
+                seeds.append(0)
+                temps.append(0.0)
+                top_ps.append(1.0)
+                proposals.append([])
+        out, n_acc, drafted = self.engine.spec_decode(
+            tokens, positions, active, n_valid, seeds, temps, top_ps,
+            proposals=proposals if ngram else None,
+        )
+        self.stats["decode_steps"] += 1
+        reg = get_registry()
+        reg.inc("serve_decode_steps_total")
+        for idx, slot in enumerate(slots):
+            if not slot.decoding:
+                continue
+            req = self._requests[slot.rid]
+            t = self.spec_by_tenant.setdefault(
+                req.tenant, {"drafted": 0, "accepted": 0}
+            )
+            t["drafted"] += int(drafted[idx])
+            t["accepted"] += int(n_acc[idx])
+            reg.inc(
+                f"serve_spec_drafted_{req.tenant}_total",
+                int(drafted[idx]),
+            )
+            reg.inc(
+                f"serve_spec_accepted_{req.tenant}_total",
+                int(n_acc[idx]),
+            )
+            index = self._ngram_idx.get(slot.rid)
+            for tok in out[idx, :int(n_acc[idx]) + 1]:
+                tok = int(tok)
+                self.results[slot.rid].append(tok)
+                if index is not None:
+                    index.append(tok)
+                if self.meter is not None:
+                    self.meter.token(slot.rid)
+                slot.pos += 1
+                slot.last_token = tok
+                slot.remaining -= 1
+                if slot.remaining == 0 or tok == req.eos_id:
+                    # EOS inside an accepted run truncates the stream
+                    # exactly where non-speculative decode would have
+                    # stopped -- the tail beyond it is discarded.
+                    self._evict(idx, slot)
+                    break
+
     def _evict(self, idx: int, slot: _Slot) -> None:
         if self.meter is not None:
             self.meter.finished(slot.rid)
+        self._ngram_idx.pop(slot.rid, None)
         if self._paged:
             # Page frees join the request's trace (the ambient stamp
             # covers the engine's ring-only kv_block events).
@@ -656,6 +788,13 @@ class ContinuousBatcher:
         paged = getattr(self.engine, "paged_stats", None)
         if paged:
             self.stats.update(paged)
+        # Speculative engines count drafts/accepts per verify step;
+        # fold the counts (deterministic -- draft wall time stays out
+        # of the batcher stats so virtual-clock replays stay
+        # byte-identical).
+        spec = getattr(self.engine, "spec", None)
+        if spec is not None:
+            self.stats.update(spec.stats)
         return self.results
 
 
