@@ -51,13 +51,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     key, non-causal cross attention, a ragged GQA case
                     that crosses the backward kernels' 128-row tiles
                     (S 1100, 16 query heads over 2 KV heads, q_offset
-                    300), and a float32 case (timed too, its bound at
-                    the card's fp32 rate). Controls at the training
-                    shape: outputs with their last rows or keys zeroed
-                    must be rejected; two forwards that round at the
-                    wrong place must be rejected too. dq, dk and dv must
-                    come out bit-identical from a second launch on the
-                    same inputs (no atomics).
+                    300), a float32 case (timed too, its bound at the
+                    card's fp32 rate), and the (q-chunk, kv-chunk)
+                    pairs train_sp launches at their offsets: the
+                    ring's 512-token chunks wholly visible, on the
+                    diagonal and under GQA, zigzag's 256-token chunks,
+                    and zigzag at context 1. Every case also runs dq
+                    and dk/dv with accumulate= (added, unrounded, into
+                    fp32 buffers, as the ring backward calls them), twice
+                    from zero: the first sum is held against the plain
+                    versions' fp32 result, the second must double it bit
+                    for bit. Controls
+                    at the training shape: outputs with their last rows
+                    or keys zeroed must be rejected; two forwards that
+                    round at the wrong place must be rejected too. dq,
+                    dk and dv must come out bit-identical from a second
+                    launch on the same inputs (no atomics).
   5. serve       -- run_replay on Llama-2-7B at full width and depth
                     (seeded random weights, bf16, paged pool, the CUDA
                     kernels): 16 requests of 100-500 prompt tokens, 32
@@ -84,10 +93,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     tokens/s; (e) the decode kernel over the verify's
                     pseudo-slots (row j at pos + j) at the 7B shape
                     against its plain version, with a control (no + j)
-                    the bf16 rule must reject. The verify and draft
-                    steps' decode launches and the spec prefill's
-                    launches are counted; each part's seconds and peak
-                    memory are printed.
+                    the bf16 rule must reject, timed beside its plain
+                    version and SDPA over the gathered pages. The
+                    verify and draft steps' decode launches and the
+                    spec prefill's launches are counted; each part's
+                    seconds and peak memory are printed.
   6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
@@ -111,6 +121,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     layers x accum x updates times (counts set to 0 just
                     before), update_s, tokens/s and peak memory beside
                     train's; the process group is destroyed after.
+     train_sp    -- sequence parallelism: (a) ring, zigzag and Ulysses
+                    attention at degree 4 on this card through the
+                    in-process transport (every rank's shard here, the
+                    ranks' schedules run step by step), at the training
+                    shape (B 4, S 2048, 8 heads), at llama-long's S 8192
+                    (B 1) and at a GQA shape (16 query heads over 2 KV
+                    heads), bf16, causal: out and dq/dk/dv against the
+                    one-device flash path over the whole sequence under
+                    the bf16 rule, and against the exact values (dq
+                    at the path's own D = rowsum(dO * O), position 0 left
+                    out; the one-device path is held to them the same
+                    way), a ring with every
+                    kv_offset frozen at step 0's value that the rule
+                    must reject, each flash kernel launched as
+                    causal_live_pairs predicts, dq/dk/dv bit-identical
+                    across two runs, forward+backward ms beside the
+                    one-device flash path's; (b) run_train with each
+                    --sp-mode on a one-rank NCCL world, a (data 1,
+                    context 1) mesh (the degenerate ring, still the
+                    SP path: FSDP2 over data x context, the batch split
+                    over both, the flash kernels per live pair), at
+                    train's seed, batch, accumulation and updates:
+                    losses within HYBRID_LOSS_RTOL of train's, each flash
+                    kernel launched layers x accum x updates x live
+                    pairs times, update_s, tokens/s and peak memory
+                    beside train's.
   9. train_profile -- one more bench-Llama update under torch.profiler:
                     device time by kernel family, the top kernels, the
                     card's idle share. Reports; gates nothing.
@@ -137,7 +173,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     versions. Then the update time with the guard off
                     and on skip, in turns.
 
-Then the per-kernel summary line, nvidia-smi's line, and last the
+Then the per-kernel summary line (the flash rows with their launches in
+train_sp (b) by mode), nvidia-smi's line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -203,9 +240,9 @@ MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("6__half", "f16"),
 
 
 def template_args(mangled: str) -> str:
-    """A kernel's mangled template arguments, readable: element types and
-    integers (``13__nv_bfloat16Li128E`` -> ``bf16, 128``); anything else
-    is kept as it stands."""
+    """A kernel's mangled template arguments, readable: element types,
+    integers and booleans (``13__nv_bfloat16Li128ELb1E`` -> ``bf16, 128,
+    true``); anything else is kept as it stands."""
     out = []
     while mangled:
         for code, name in MANGLED_TYPES:
@@ -214,11 +251,13 @@ def template_args(mangled: str) -> str:
                 mangled = mangled[len(code):]
                 break
         else:
-            n = re.match(r"Li(\d+)E", mangled)
+            n = re.match(r"L([ib])(\d+)E", mangled)
             if not n:
                 out.append(mangled)
                 break
-            out.append(n.group(1))
+            kind, value = n.groups()
+            out.append(value if kind == "i" else
+                       ("false", "true")[int(value)])
             mangled = mangled[n.end():]
     return ", ".join(out)
 
@@ -654,6 +693,24 @@ FLASH_CASES = (
     ("ragged_gqa_tiles", 2, 1100, 1100, 16, 2, 128, True, 300, 0, "bfloat16",
      False),
     ("float32", 1, 1000, 1000, 8, 8, 128, True, 0, 0, "float32", True),
+    # The pairs sequence parallelism launches (train_sp): the ring at
+    # degree 4 on the training shape (512-token shards: rank 3's chunk
+    # against rank 0's, wholly visible; rank 1's own chunk, the diagonal
+    # at offset 512; GQA), zigzag's 256-token chunks (chunk 7 against
+    # chunk 3, and its own), and zigzag at context 1 (chunk 1 of 1024
+    # against chunk 0).
+    ("ring_past_chunk", 4, 512, 512, 8, 8, 128, True, 1536, 0, "bfloat16",
+     False),
+    ("ring_diagonal_chunk", 4, 512, 512, 8, 8, 128, True, 512, 512,
+     "bfloat16", False),
+    ("ring_past_chunk_gqa", 2, 512, 512, 16, 2, 128, True, 1536, 0,
+     "bfloat16", False),
+    ("zigzag_past_chunk", 4, 256, 256, 8, 8, 128, True, 1792, 768,
+     "bfloat16", False),
+    ("zigzag_diagonal_chunk", 4, 256, 256, 8, 8, 128, True, 1792, 1792,
+     "bfloat16", False),
+    ("zigzag_context1_chunk", 4, 1024, 1024, 8, 8, 128, True, 1024, 0,
+     "bfloat16", False),
 )
 # The flash kernels' device-time names (torch.profiler), by wrapper.
 FLASH_KERNEL_NAMES = {
@@ -775,6 +832,38 @@ def flash_determinism(torch, fa, bargs, kw, got) -> None:
                          f"launches: {same}")
 
 
+def flash_accumulate(torch, fa, bargs, kw, dtype) -> dict:
+    """The backward kernels adding into fp32 buffers (``accumulate=``, as
+    the ring backward calls them), twice from zero: what the first launch
+    added is held against the plain versions' fp32 result under the rule
+    for ``dtype``, and the second must double it bit for bit (it adds,
+    not overwrites). A random start would hide the small last keys' dk
+    under the start's own fp32 rounding."""
+    from tpu_hpc_torch.checks.tolerance import compare
+
+    q, k, v = bargs[:3]
+    acc = [torch.zeros(x.shape, device=x.device) for x in (q, k, v)]
+
+    def add():
+        fa.flash_attention_dq(*bargs, accumulate=acc[0], **kw)
+        fa.flash_attention_dkv(*bargs, accumulate=(acc[1], acc[2]), **kw)
+        torch.cuda.synchronize()
+        return [a.clone() for a in acc]
+
+    once, twice = add(), add()
+    zeros = [torch.zeros_like(a) for a in acc]
+    want = (fa.flash_attention_dq_ref(*bargs, accumulate=zeros[0], **kw),
+            *fa.flash_attention_dkv_ref(*bargs,
+                                        accumulate=(zeros[1], zeros[2]),
+                                        **kw))
+    out = {}
+    for name, a, b, w in zip(("dq", "dk", "dv"), once, twice, want):
+        out[name] = compare(a, w, dtype)
+        out[name]["adds"] = bool(torch.equal(b, 2 * a))
+        out[name]["ok"] = out[name]["ok"] and out[name]["adds"]
+    return out
+
+
 def library_flash(torch, q, k, v, dout, causal):
     """scaled_dot_product_attention forward, and its autograd backward
     (dq, dk, dv together), on the same inputs in its [B, H, S, D]
@@ -833,6 +922,12 @@ def flash_phase(torch, dev) -> dict:
         if name == "train_main":
             flash_controls(torch, q, k, v, got, want)
             flash_determinism(torch, fa, bargs, kw, got)
+        added = flash_accumulate(torch, fa, bargs, kw, dtype)
+        emit("flash_accumulate", case=name, dtype=dtype_name,
+             q_offset=qo, kv_offset=ko, readings=added)
+        if not all(r["ok"] for r in added.values()):
+            raise SystemExit(f"flash {name}: accumulate= outside the "
+                             f"tolerance {TOLERANCES[dtype]}: {added}")
         work = flash_work(case)
         outputs = {
             "flash_attention_fwd": (
@@ -1011,6 +1106,367 @@ def train_hybrid_phase(torch, dev, train) -> None:
         bad.append("launch counts moved outside the run")
     if bad:
         raise SystemExit("train_hybrid: " + "; ".join(bad))
+
+
+# ---------------------------------------------------------------------
+# Phase 8b: sequence parallelism
+# ---------------------------------------------------------------------
+
+# (name, b, s, hq, hkv, d): the training shape, llama-long's length
+# (bench.py:435) and a GQA shape, bf16, causal, a ring of SP_DEGREE.
+SP_CASES = (
+    ("train_shape", 4, 2048, 8, 8, 128),
+    ("long_context", 1, 8192, 8, 8, 128),
+    ("gqa", 2, 2048, 16, 2, 128),
+)
+SP_DEGREE = 4
+SP_MODES = ("ring", "zigzag", "ulysses")
+
+
+def zero_flash_launches() -> None:
+    from tpu_hpc_torch.kernels import attention as fa
+
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
+        fn.launches = 0
+
+
+def sp_predicted_launches(mode: str, n: int) -> int:
+    """Each flash kernel's launches for one causal attention over all n
+    ranks of a ring: every rank's live pairs (causal_live_pairs), or one
+    call a rank for Ulysses."""
+    from tpu_hpc_torch.parallel.ring_attention import causal_live_pairs
+
+    if mode == "ulysses":
+        return n
+    return sum(causal_live_pairs(n, mode == "zigzag"))
+
+
+def train_sp_expected(cfg, mode: str) -> int:
+    """Each flash kernel's launches in (b)'s run on a context axis of 1:
+    layers x accum x updates x live pairs (zigzag: 3 pairs of half
+    chunks; the ring and Ulysses: 1)."""
+    updates = TRAIN_STEPS * TRAIN_EPOCHS
+    return cfg.n_layers * TRAIN_ACCUM * updates * sp_predicted_launches(
+        mode, 1)
+
+
+def zigzag_copy_bytes(b: int, s: int, hq: int, hkv: int, d: int, n: int,
+                      elem: int = 2) -> int:
+    """Bytes one rank's zigzag attention writes to lay its shard out
+    chunk-major and back, per call (one layer): q, k, v in and the
+    output out in the forward, dO in and dq, dk, dv out in the backward,
+    each read once more. Nothing when B is 1: the chunks are views."""
+    if b == 1:
+        return 0
+    return 2 * (2 * hq + 2 * hkv) * b * (s // n) * d * elem
+
+
+def sp_shards(torch, mode: str, n: int, x) -> list:
+    """A whole [B, S, ...] tensor -> the n ranks' shards in ``mode``'s
+    layout (zigzag: the zigzag order), contiguous."""
+    from tpu_hpc_torch.parallel.ring_attention import zigzag_indices
+
+    if mode == "zigzag":
+        x = x[:, torch.from_numpy(zigzag_indices(n, x.shape[1])[0])
+              .to(x.device)]
+    return [c.contiguous() for c in x.chunk(n, 1)]
+
+
+def sp_whole(torch, mode: str, shards):
+    """The inverse of :func:`sp_shards`."""
+    from tpu_hpc_torch.parallel.ring_attention import zigzag_indices
+
+    x = torch.cat(shards, 1)
+    if mode == "zigzag":
+        inv = zigzag_indices(len(shards), x.shape[1])[1]
+        x = x[:, torch.from_numpy(inv).to(x.device)]
+    return x
+
+
+def sp_step(torch, mode: str, ring, q, k, v, dout):
+    """``mode``'s forward and backward over ``ring`` (an InProcessRing:
+    every rank's shard on this card) as a closure on pre-made shards of
+    the whole tensors; it returns the outputs and the gradients, per
+    rank."""
+    from tpu_hpc_torch.parallel import ring_attention as ra
+    from tpu_hpc_torch.parallel import sp_ulysses
+
+    fn = {"ring": ra.ring_attention, "zigzag": ra.zigzag_ring_attention,
+          "ulysses": sp_ulysses.ulysses_attention}[mode]
+    n = ring.n
+    qs, ks, vs = ([s.requires_grad_(True)
+                   for s in sp_shards(torch, mode, n, x)]
+                  for x in (q, k, v))
+    douts = sp_shards(torch, mode, n, dout)
+
+    def step():
+        outs = fn(qs, ks, vs, ring)
+        grads = torch.autograd.grad(outs, [*qs, *ks, *vs], douts)
+        return [o.detach() for o in outs], grads
+
+    return step
+
+
+def sp_run(torch, mode: str, ring, q, k, v, dout) -> dict:
+    """One forward and backward of ``mode`` over ``ring`` on whole
+    tensors: out, dq, dk, dv, whole and in sequence order."""
+    n = ring.n
+    outs, grads = sp_step(torch, mode, ring, q, k, v, dout)()
+    return {"out": sp_whole(torch, mode, outs),
+            "dq": sp_whole(torch, mode, grads[:n]),
+            "dk": sp_whole(torch, mode, grads[n:2 * n]),
+            "dv": sp_whole(torch, mode, grads[2 * n:])}
+
+
+def sp_readings(torch, got, ref) -> dict:
+    """The bf16 rule's readings of out and dq/dk/dv against ``ref``."""
+    from tpu_hpc_torch.checks.tolerance import compare
+
+    return {g: compare(got[g], ref[g], torch.bfloat16)
+            for g in ("out", "dq", "dk", "dv")}
+
+
+def sp_exact_readings(torch, got, exact, q, k, v, dout) -> dict:
+    """The bf16 rule's readings against the whole sequence's exact
+    values (:func:`sp_reference`): out, dk and dv as they stand. dq
+    against the plain dq over the whole sequence at the exact lse and
+    the path's own D = rowsum(dO * O), O the path's output in the input
+    dtype -- the dm every 16-bit path hands the dq kernel. Against the
+    exact D the rule cannot hold dq: the error of O's rounding enters
+    each row as (D's error) x scale x sum_j P_ij k_j, which does not
+    shrink with the row's dq where P sits on one or two keys. Position
+    0 is left out (one visible key: P = 1, so dq = scale (dP - D) k_0,
+    rounding noise on both sides with no scale to hold it to); it stays
+    held against the one-device flash path. The dq reading names how
+    many rows it left out and the largest |dq| among them."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+
+    out = {g: compare(got[g], exact[g], torch.bfloat16)
+           for g in ("out", "dk", "dv")}
+    wide = [x.float() for x in (q, k, v, dout)]
+    dm = (wide[3] * got["out"].float()).sum(-1)
+    want = fa.flash_attention_dq_ref(*wide, exact["lse"], dm)
+    dq = compare(got["dq"][:, 1:], want[:, 1:], torch.bfloat16)
+    dq["rows_left_out"] = got["dq"].shape[0] * got["dq"].shape[2]
+    dq["left_out_max_abs"] = float(got["dq"][:, 0].float().abs().max())
+    out["dq"] = dq
+    return {g: out[g] for g in ("out", "dq", "dk", "dv")}
+
+
+def frozen_kv_offset(fwd):
+    """The control's forward: ``fwd`` with every launch's kv_offset
+    frozen at ring step 0's value, the rank's own chunk (= its
+    q_offset), so each earlier chunk is masked as if it were the
+    diagonal."""
+    def frozen(q, k, v, q_offset=0, kv_offset=0, **kw):
+        return fwd(q, k, v, q_offset, q_offset, **kw)
+
+    return frozen
+
+
+@contextlib.contextmanager
+def frozen_ring():
+    """The ring's forward launches through :func:`frozen_kv_offset`
+    inside the block (the ring module's name for the wrapper; the
+    wrapper itself, and its launch count, stay as they are)."""
+    from tpu_hpc_torch.parallel import ring_attention as ra
+
+    real = ra.flash_attention_fwd
+    ra.flash_attention_fwd = frozen_kv_offset(real)
+    try:
+        yield
+    finally:
+        ra.flash_attention_fwd = real
+
+
+def sp_reference(torch, q, k, v, dout) -> dict:
+    """The whole sequence's exact values (out, dq, dk, dv, and the lse):
+    the flash kernels' plain versions on the inputs widened to fp32 (so
+    nothing is rounded to the input dtype), dlse 0."""
+    from tpu_hpc_torch.kernels import attention as fa
+
+    q, k, v, dout = (x.float() for x in (q, k, v, dout))
+    out, lse = fa.flash_attention_fwd_ref(q, k, v)
+    dm = (dout.float() * out.float()).sum(-1)
+    args = (q, k, v, dout, lse, dm)
+    dk, dv = fa.flash_attention_dkv_ref(*args)
+    return {"out": out, "dq": fa.flash_attention_dq_ref(*args), "dk": dk,
+            "dv": dv, "lse": lse}
+
+
+def sp_flash(torch, q, k, v, dout) -> dict:
+    """The one-device flash path on the card over the whole sequence:
+    flash_attention forward and its autograd backward (the three
+    kernels)."""
+    from tpu_hpc_torch.kernels import attention as fa
+
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out, _ = fa.flash_attention(qq, kk, vv)
+    dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), dout)
+    return {"out": out.detach(), "dq": dq, "dk": dk, "dv": dv}
+
+
+def sp_failures(readings, control, launches, expected, same_bits) -> list:
+    """What fails (a): a reading (against the one-device flash path or
+    the exact values) outside the bf16 rule, a control the rule accepts,
+    a kernel launched other than ``expected`` times, or a backward that
+    is not bit-identical across runs."""
+    bad = [f"{name}: {r}" for name, r in readings.items() if not r["ok"]]
+    if control is not None and control["ok"]:
+        bad.append(f"the frozen-offset ring passes the rule: {control}")
+    if any(n != expected for n in launches.values()):
+        bad.append(f"launches {launches}, predicted {expected} each")
+    if not same_bits:
+        bad.append("the backward is not bit-identical across runs")
+    return bad
+
+
+def train_sp_phase(torch, dev, train) -> dict:
+    """Phase 8b, sequence parallelism. (a) ring, zigzag and Ulysses at
+    degree SP_DEGREE on this card through the in-process transport, at
+    each SP_CASES shape: out and dq/dk/dv under the bf16 rule against
+    the one-device flash path over the whole sequence and against the
+    exact values (sp_exact_readings; the one-device path is held to
+    the exact values the same way), a frozen-offset control the rule
+    must reject, launches as predicted,
+    the backward bit-identical across runs, and forward+backward ms
+    beside the one-device flash path's (and the device time of all
+    their kernels, torch.profiler). (b) run_train with each
+    --sp-mode on a one-rank NCCL world, (data 1, context 1): losses
+    against train's, launches layers x accum x updates x live pairs,
+    update_s, tokens/s and peak memory beside train's. Returns the
+    flash kernels' launches in (b), by mode."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.parallel.sp_transport import InProcessRing
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, run_train
+
+    t0 = time.perf_counter()
+    ring = InProcessRing(SP_DEGREE)
+    for name, b, s, hq, hkv, d in SP_CASES:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        q, k, v, dout = (
+            torch.randn(shape, generator=gen, device=dev).bfloat16()
+            for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                          (b, s, hq, d)))
+        exact = sp_reference(torch, q, k, v, dout)
+        flash = sp_flash(torch, q, k, v, dout)
+        torch.cuda.synchronize()
+        flash_ms = time_ms(lambda: sp_flash(torch, q, k, v, dout), iters=5)
+        flash_device_ms = device_ms(lambda: sp_flash(torch, q, k, v, dout),
+                                    "", iters=5)
+        flash_exact = sp_exact_readings(torch, flash, exact, q, k, v, dout)
+        emit("train_sp", check="a_flash_vs_exact", case=name,
+             readings=flash_exact)
+        bad = [f"{g}: {r}" for g, r in flash_exact.items() if not r["ok"]]
+        if bad:
+            raise SystemExit(f"train_sp (a) {name}: the one-device flash "
+                             f"path against the exact values: {bad}")
+        for mode in SP_MODES:
+            zero_flash_launches()
+            got = sp_run(torch, mode, ring, q, k, v, dout)
+            torch.cuda.synchronize()
+            launches = fa.kernel_launches()
+            again = sp_run(torch, mode, ring, q, k, v, dout)
+            same = all(torch.equal(got[g], again[g])
+                       for g in ("dq", "dk", "dv"))
+            readings = sp_readings(torch, got, flash)
+            exact_readings = sp_exact_readings(torch, got, exact, q, k, v,
+                                               dout)
+            control = None
+            if mode == "ring":
+                with frozen_ring():
+                    frozen = sp_run(torch, mode, ring, q, k, v, dout)
+                control = compare(frozen["out"], flash["out"],
+                                  torch.bfloat16)
+                del frozen
+            expected = sp_predicted_launches(mode, SP_DEGREE)
+            row = {
+                "case": name, "mode": mode, "degree": SP_DEGREE,
+                "shape": {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d},
+                "launches": launches, "predicted_launches": expected,
+                "chunk_copy_bytes_per_rank": (
+                    zigzag_copy_bytes(b, s, hq, hkv, d, SP_DEGREE)
+                    if mode == "zigzag" else 0),
+                "bit_identical": same,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in readings.values()),
+                "max_tol_used_vs_exact": max(
+                    r["tol_used"] for r in exact_readings.values()),
+                "readings": readings,
+                "readings_vs_exact": exact_readings,
+                "flash_ms": flash_ms, "flash_device_ms": flash_device_ms,
+            }
+            step = sp_step(torch, mode, ring, q, k, v, dout)
+            row.update(ms=time_ms(step, iters=5),
+                       device_ms=device_ms(step, "", iters=5))
+            del step
+            if control is not None:
+                row["control_frozen_kv_offset"] = {
+                    "rejected": not control["ok"], **control}
+            emit("train_sp", check="a_ring_schedules", **row)
+            checked = {**readings, **{f"{g}_vs_exact": r for g, r
+                                      in exact_readings.items()}}
+            bad = sp_failures(checked, control, launches, expected, same)
+            if bad:
+                raise SystemExit(f"train_sp (a) {name} {mode}: "
+                                 + "; ".join(bad))
+            del got, again
+        del q, k, v, dout, exact, flash
+        torch.cuda.empty_cache()
+
+    cfg = bench_model_cfg()
+    runs = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"data": 1, "context": 1}), "cuda")
+        for mode in SP_MODES:
+            # The previous run's trainer may sit in a reference cycle:
+            # collect it, so each run's peak is its own.
+            _release(torch)
+            held = torch.cuda.memory_allocated(dev)
+            zero_flash_launches()
+            summary = run_train(cfg, steps=TRAIN_STEPS, epochs=TRAIN_EPOCHS,
+                                batch=TRAIN_BATCH,
+                                grad_accum_steps=TRAIN_ACCUM, device=dev,
+                                mesh=mesh, sp_mode=mode)
+            runs[mode] = (summary, fa.kernel_launches(), held)
+    finally:
+        dist.destroy_process_group()
+    out = {}
+    for mode, (summary, launches, held) in runs.items():
+        expected = train_sp_expected(cfg, mode)
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(summary["losses"], train["losses"])]
+        emit("train_sp", check="b_run_train", sp_mode=mode,
+             metric=summary["metric"], mesh=summary["mesh"],
+             plan=summary["plan"], layout=summary["layout"],
+             backend="nccl", updates=summary["updates"], launches=launches,
+             expected_launches=expected, loss_max_rel_err=max(errs),
+             loss_rtol=HYBRID_LOSS_RTOL,
+             losses_bit_equal_to_train=summary["losses"] == train["losses"],
+             allocated_at_start_bytes=held,
+             **{k: summary[k] for k in (
+                 "tokens_per_s", "tokens_per_s_per_device", "update_s",
+                 "peak_memory_bytes", "mfu", "losses")},
+             train={k: train[k] for k in (
+                 "tokens_per_s", "update_s", "peak_memory_bytes", "mfu")})
+        bad = hybrid_failures(train["losses"], summary["losses"], launches,
+                              expected, summary["layout"])
+        if launches != summary["kernel_launches"]:
+            bad.append("launch counts moved outside the run")
+        if bad:
+            raise SystemExit(f"train_sp (b) {mode}: " + "; ".join(bad))
+        out[mode] = launches
+    emit("train_sp", check="cost", seconds=time.perf_counter() - t0)
+    return out
 
 
 def kernel_family(name: str) -> str:
@@ -2035,8 +2491,14 @@ def spec_verify_kernel(torch, dev) -> dict:
         "device_ms": device_ms(
             lambda: pa.paged_decode_attention(*ps_args, **kw),
             "paged_decode"),
+        "plain_ms": time_ms(
+            lambda: pa.paged_decode_attention_ref(*ps_args, **kw),
+            iters=3, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    lib = library_decode(torch, ps_args, kw)
+    row.update(library_ms=time_ms(lib, iters=50),
+               library_device_ms=device_ms(lib, ""))
     emit("serve_spec", check="e_verify_pseudo_slots", **row)
     failures = verify_kernel_failures(r, rc, zero_inactive)
     if failures:
@@ -2176,6 +2638,10 @@ def main() -> int:
     # -- 8. the distributed path on a one-rank NCCL world
     train_hybrid_phase(torch, dev, train)
     torch.cuda.empty_cache()
+    # -- 8b. sequence parallelism: the ring schedules on this card, then
+    #        run_train with each --sp-mode on a one-rank NCCL world
+    sp_launches = train_sp_phase(torch, dev, train)
+    torch.cuda.empty_cache()
     # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
@@ -2201,6 +2667,10 @@ def main() -> int:
                 k: spec_launches[k] for k in ("draft", "verify")}
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
+        # The flash kernels' launches in train_sp (b), by --sp-mode.
+        if entry["name"] in FLASH_KERNEL_NAMES:
+            entry["train_sp_launches"] = {
+                mode: n[entry["name"]] for mode, n in sp_launches.items()}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

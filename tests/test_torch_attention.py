@@ -138,6 +138,37 @@ def test_plain_backward_matches_autograd_of_plain_forward():
         np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_backward_accumulate_adds_the_fp32_result(dtype):
+    """``accumulate=`` (how the ring backward sums its pairs): dq and
+    dk/dv are added, in fp32 and unrounded, into the buffers given, which
+    come back; a buffer of another shape or dtype is refused."""
+    rng, q, k, v = _qkv(7, sq=12, sk=20, hq=4, hkv=2)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (t.to(dtype) for t in _t(q, k, v, dout))
+    _, lse = ta.flash_attention_fwd_ref(tq, tk, tv, 8, 0)
+    dm = torch.from_numpy(rng.standard_normal(q.shape[:3])
+                          .astype(np.float32))
+    args = (tq, tk, tv, tdo, lse, dm, 8, 0)
+    wide = (tq.float(), tk.float(), tv.float(), tdo.float(), lse, dm, 8, 0)
+    start = [torch.from_numpy(rng.standard_normal(x.shape)
+                              .astype(np.float32)) for x in (q, k, v)]
+    acc = [x.clone() for x in start]
+    assert ta.flash_attention_dq(*args, accumulate=acc[0]) is acc[0]
+    got = ta.flash_attention_dkv(*args, accumulate=(acc[1], acc[2]))
+    assert got[0] is acc[1] and got[1] is acc[2]
+    want = (ta.flash_attention_dq_ref(*wide),
+            *ta.flash_attention_dkv_ref(*wide))
+    for a, x0, w in zip(acc, start, want):
+        assert w.dtype == torch.float32
+        assert torch.equal(a, x0 + w)
+    with pytest.raises(TypeError, match="float32"):
+        ta.flash_attention_dq(*args, accumulate=acc[0].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="does not match"):
+        ta.flash_attention_dkv(*args, accumulate=(acc[0], acc[2]))
+
+
 def test_dispatch_rules():
     _, q, k, v = _qkv(5, hq=4, hkv=4)
     tq, tk, tv = _t(q, k, v)

@@ -39,6 +39,8 @@ def test_ptxas_summary_names_each_kernel_and_its_spills():
 
 @pytest.mark.parametrize("mangled, readable", [
     ("13__nv_bfloat16Li128E", "bf16, 128"),
+    ("13__nv_bfloat16Li128ELb1E", "bf16, 128, true"),
+    ("6__halfLi64ELb0E", "f16, 64, false"),
     ("6__halfLi64E", "f16, 64"),
     ("f", "f32"),
     ("13__nv_bfloat16S1_", "bf16, S1_"),
@@ -330,3 +332,186 @@ def test_armed_sets_the_fault_plan_for_the_block(monkeypatch, tmp_path):
     (tmp_path / "d").mkdir()
     (tmp_path / "d" / "f").write_bytes(b"12345")
     assert chip_smoke.step_bytes(str(tmp_path / "d")) == 5
+
+
+# ---------------------------------------------------------------------
+# train_sp's helpers
+# ---------------------------------------------------------------------
+
+def test_phase_list_names_train_sp_after_train_hybrid():
+    """train_sp follows train_hybrid and comes before the profile, in
+    the docstring and in main."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *8\. train_hybrid ", r"^ *train_sp ", r"^ *9\. train_profile ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_hybrid_phase(", "train_sp_phase(", "train_profile_phase(")]
+    assert calls == sorted(calls)
+
+
+def test_sp_predicted_launches():
+    """Each flash kernel's launches for one attention over a ring of 4:
+    1 + 2 + 3 + 4 contiguous, 4 x 9 zigzag, one a rank for Ulysses; in
+    (b)'s run on a context axis of 1, zigzag's three half-chunk pairs."""
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    assert [chip_smoke.sp_predicted_launches(m, 4)
+            for m in chip_smoke.SP_MODES] == [10, 36, 4]
+    cfg = bench_model_cfg()
+    per = cfg.n_layers * chip_smoke.TRAIN_ACCUM * chip_smoke.TRAIN_STEPS \
+        * chip_smoke.TRAIN_EPOCHS
+    assert [chip_smoke.train_sp_expected(cfg, m)
+            for m in chip_smoke.SP_MODES] == [per, 3 * per, per]
+
+
+@pytest.mark.parametrize("mode", ["ring", "zigzag", "ulysses"])
+def test_sp_shards_round_trip(mode):
+    import torch
+
+    x = torch.arange(2 * 16 * 3).reshape(2, 16, 3)
+    shards = chip_smoke.sp_shards(torch, mode, 4, x)
+    assert len(shards) == 4 and all(s.shape == (2, 4, 3) for s in shards)
+    assert torch.equal(chip_smoke.sp_whole(torch, mode, shards), x)
+
+
+def _sp_inputs(torch):
+    gen = torch.Generator().manual_seed(0)
+    return [torch.randn(shape, generator=gen) for shape in
+            ((2, 32, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16), (2, 32, 4, 16))]
+
+
+@pytest.mark.parametrize("mode", ["ring", "zigzag", "ulysses"])
+def test_sp_run_matches_the_reference_on_cpu(mode):
+    """(a)'s drive on CPU tensors (the kernels' plain versions, float32):
+    every rank's shard through the in-process ring of 4 equals the whole
+    sequence's exact values and the one-device flash path's."""
+    import torch
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.parallel.sp_transport import InProcessRing
+
+    q, k, v, dout = _sp_inputs(torch)
+    got = chip_smoke.sp_run(torch, mode, InProcessRing(4), q, k, v, dout)
+    for ref in (chip_smoke.sp_reference(torch, q, k, v, dout),
+                chip_smoke.sp_flash(torch, q, k, v, dout)):
+        for name in ("out", "dq", "dk", "dv"):
+            assert compare(got[name], ref[name], torch.float32)["ok"], name
+
+
+def test_frozen_offset_control_is_rejected():
+    """The control: the ring with every kv_offset frozen at step 0's
+    value (the rank's own chunk) masks earlier chunks as diagonals; the
+    bf16 rule rejects its output, and the patch is gone after the
+    block."""
+    import torch
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.parallel import ring_attention as ra
+    from tpu_hpc_torch.parallel.sp_transport import InProcessRing
+
+    q, k, v, dout = _sp_inputs(torch)
+    want = chip_smoke.sp_reference(torch, q, k, v, dout)["out"]
+    real = ra.flash_attention_fwd
+    with chip_smoke.frozen_ring():
+        assert ra.flash_attention_fwd is not real
+        assert fa.flash_attention_fwd is real  # the wrapper is untouched
+        bad = chip_smoke.sp_run(torch, "ring", InProcessRing(4), q, k, v,
+                                dout)["out"]
+    assert ra.flash_attention_fwd is real
+    assert not compare(bad, want, torch.bfloat16)["ok"]
+    # rank 0 holds only its own chunk: its rows are untouched
+    assert compare(bad[:, :8], want[:, :8], torch.float32)["ok"]
+    calls = []
+    frozen = chip_smoke.frozen_kv_offset(lambda *a, **kw: calls.append(a))
+    frozen(q, k, v, 24, 8, causal=True)
+    assert calls[0][3:] == (24, 24)
+
+
+def test_sp_exact_readings_leave_out_only_the_one_key_rows():
+    """Against the exact values: dq is read at the path's own D and
+    leaves out position 0 (one visible key: rounding noise on both
+    sides), and says so; noise there passes, a wrong later row fails;
+    out, dk and dv are read whole. A path whose output is off moves D,
+    and the out reading catches it."""
+    import torch
+
+    q, k, v, dout = (x.to(torch.bfloat16) for x in _sp_inputs(torch))
+    exact = chip_smoke.sp_reference(torch, q, k, v, dout)
+    got = {g: exact[g].clone() for g in ("out", "dq", "dk", "dv")}
+    got["dq"][:, 0] = 1e-3
+    r = chip_smoke.sp_exact_readings(torch, got, exact, q, k, v, dout)
+    assert list(r) == ["out", "dq", "dk", "dv"]
+    assert all(x["ok"] for x in r.values()), r
+    assert r["dq"]["rows_left_out"] == 2 * 4
+    assert r["dq"]["left_out_max_abs"] == pytest.approx(1e-3)
+    got["dq"][:, 1] *= 1.5
+    got["dv"][:, -1] = 0
+    r = chip_smoke.sp_exact_readings(torch, got, exact, q, k, v, dout)
+    assert not r["dq"]["ok"] and not r["dv"]["ok"] and r["dk"]["ok"]
+    got = {g: exact[g].clone() for g in ("out", "dq", "dk", "dv")}
+    got["out"][:, 5:] *= 1.1
+    r = chip_smoke.sp_exact_readings(torch, got, exact, q, k, v, dout)
+    assert not r["out"]["ok"]
+
+
+def test_sp_flash_cases_are_pairs_the_sp_path_launches():
+    """The flash phase's SP cases sit at (q_offset, kv_offset) pairs
+    that train_sp launches: the ring and zigzag at degree 4 over S 2048,
+    and zigzag at context 1."""
+    from tpu_hpc_torch.parallel.ring_attention import live_pairs
+
+    def offsets(layout, n, s):
+        c = s // (n if layout == "ring" else 2 * n)
+        return {(qid * c, kid * c, c) for r in range(n) for st in range(n)
+                for _, _, qid, kid in live_pairs(layout, n, r, st, True)}
+
+    launched = (offsets("ring", 4, 2048) | offsets("zigzag", 4, 2048)
+                | offsets("zigzag", 1, 2048))
+    cases = [c for c in chip_smoke.FLASH_CASES
+             if c[0].startswith(("ring_", "zigzag_"))]
+    assert len(cases) == 6
+    for name, _, sq, sk, _, _, _, causal, qo, ko, _, _ in cases:
+        assert causal and sq == sk and (qo, ko, sq) in launched, name
+    assert {c[8] > c[9] for c in cases} == {True, False}
+
+
+def test_zigzag_copy_bytes_match_the_chunk_layout():
+    """What a zigzag call copies: the chunk-major layout of q, k, v and
+    the output (forward), of dO, dq, dk, dv (backward), per rank; B 1
+    copies nothing, as ring_attention._chunks says."""
+    import torch
+
+    from tpu_hpc_torch.parallel.ring_attention import _chunks
+
+    b, s, hq, hkv, d, n = 4, 2048, 8, 2, 128, 4
+    x = torch.zeros(b, s // n, hq, d, dtype=torch.bfloat16)
+    assert _chunks(x, 2).data_ptr() != x.data_ptr()
+    assert _chunks(x[:1], 2).data_ptr() == x.data_ptr()
+    per_head = b * (s // n) * d * 2
+    assert chip_smoke.zigzag_copy_bytes(b, s, hq, hkv, d, n) == \
+        2 * (2 * hq + 2 * hkv) * per_head
+    assert chip_smoke.zigzag_copy_bytes(1, s, hq, hkv, d, n) == 0
+
+
+@pytest.mark.parametrize("ok, control_ok, launches, same, failures", [
+    (True, False, 10, True, 0),
+    (False, False, 10, True, 1),
+    (True, True, 10, True, 1),
+    (True, None, 10, True, 0),
+    (True, False, 9, True, 1),
+    (True, False, 10, False, 1),
+])
+def test_sp_failures(ok, control_ok, launches, same, failures):
+    readings = {"out": {"ok": True}, "dq": {"ok": True},
+                "dq_vs_exact": {"ok": ok}}
+    control = None if control_ok is None else {"ok": control_ok}
+    got = chip_smoke.sp_failures(
+        readings, control, {"flash_attention_fwd": launches,
+                            "flash_attention_dq": 10}, 10, same)
+    assert len(got) == failures

@@ -128,6 +128,37 @@ def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_accumulate_adds_unrounded(cuda, dtype, case):
+    """``accumulate=``: the backward kernels add dq and dk/dv into fp32
+    buffers. From zero, the first sum is held against the plain
+    versions' fp32 result; a second launch doubles it bit for bit."""
+    causal, qo, ko = case[7:]
+    q, k, v, dout, dlse = _inputs(cuda, dtype, case, seed=3)
+    want_o, lse = ta.flash_attention_fwd_ref(q, k, v, qo, ko, causal=causal)
+    dm = (dout.float() * want_o.float()).sum(-1) - dlse
+    args = (q, k, v, dout, lse, dm, qo, ko)
+    acc = [torch.zeros(x.shape, device=cuda) for x in (q, k, v)]
+    sums = []
+    for _ in range(2):
+        ta.flash_attention_dq(*args, causal=causal, accumulate=acc[0])
+        ta.flash_attention_dkv(*args, causal=causal,
+                               accumulate=(acc[1], acc[2]))
+        torch.cuda.synchronize()
+        sums.append([a.clone() for a in acc])
+    zeros = [torch.zeros_like(a) for a in acc]
+    want = (ta.flash_attention_dq_ref(*args, causal=causal,
+                                      accumulate=zeros[0]),
+            *ta.flash_attention_dkv_ref(*args, causal=causal,
+                                        accumulate=(zeros[1], zeros[2])))
+    for name, once, twice, w in zip(("dq", "dk", "dv"), *sums, want):
+        _close(once, w, dtype, name)
+        assert torch.equal(twice, 2 * once), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_forward_fully_masked_rows_exact_and_repeatable(cuda, dtype):
     """Rows that see no key (kv_offset past them) give out exactly 0 and

@@ -179,8 +179,8 @@ def test_token_stream_contract():
     assert not torch.equal(ds.batch_at(6, 4)[0], x)
     assert not torch.equal(tds.TokenStream(50, 9, seed=4).batch_at(5, 4)[0], x)
     assert int(x.max()) < 50
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tds.TokenStream(zigzag_ring=2)
+    with pytest.raises(ValueError, match=r"divisible by 2\*ring=4"):
+        tds.TokenStream(vocab_size=50, seq_len=9, zigzag_ring=2)
     replay = tds.ArrayBatches([(np.ones((2, 3), np.int32),
                                 np.zeros((2, 3), np.int32))])
     assert replay.batch_at(0, 2)[0].dtype == torch.int64
@@ -471,6 +471,9 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.resilience, tpu_hpc_torch.obs.stall\n"
         "import tpu_hpc_torch.serve.spec, tpu_hpc_torch.serve.prng\n"
         "import tpu_hpc_torch.loadgen, tpu_hpc_torch.serve.server\n"
+        "import tpu_hpc_torch.parallel.ring_attention\n"
+        "import tpu_hpc_torch.parallel.sp_ulysses\n"
+        "import tpu_hpc_torch.parallel.sp_transport\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"

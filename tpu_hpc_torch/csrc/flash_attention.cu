@@ -489,6 +489,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// A backward kernel's output element: T, or with kAcc an fp32 buffer the
+// kernel adds into (a ring's dq and dK/dV accumulators, which then take
+// each partial unrounded). put2 writes a thread's column pair: 8-byte
+// aligned in fp32, as the column is even and the buffer 16-byte aligned;
+// each element is read and written by one thread, so the sum is in
+// launch order.
+template <typename T, bool kAcc>
+using Out = typename std::conditional<kAcc, float, T>::type;
+
+template <typename T, bool kAcc>
+__device__ __forceinline__ void put2(Out<T, kAcc>* at, float lo, float hi) {
+  if constexpr (kAcc) {
+    float2* p = reinterpret_cast<float2*>(at);
+    const float2 was = *p;
+    *p = make_float2(was.x + lo, was.y + hi);
+  } else {
+    *reinterpret_cast<uint32_t*>(at) = pack2<T>(lo, hi);
+  }
+}
+
 // Shared memory of a 16-bit backward kernel: two tiles of the block's
 // own kBwdRows rows, two rings of two streamed kBwdStep-row tiles, the
 // ring's per-row statistics (dk/dv: lse and dm of each stage's q rows),
@@ -508,17 +528,18 @@ constexpr size_t bwd_smem_bytes() {
 //   S = Q . K^T, dP = dO . V^T            (SS wgmma, 64 x 64 each)
 //   dS = P * (dP - dm), P = exp(S - lse)  (in place, then packed to T)
 //   dQ += dS . K                           (RS wgmma, K read MN-major)
-// dQ stays in registers for the whole walk; the epilogue scales it.
+// dQ stays in registers for the whole walk; the epilogue scales it and
+// writes it in T, or with kAcc adds it, unrounded, into an fp32 buffer.
 // ---------------------------------------------------------------------
-template <typename T, int kD>
+template <typename T, int kD, bool kAcc>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,   // boxes of kBwdRows rows
     const __grid_constant__ CUtensorMap tm_k,   // boxes of kBwdStep rows
     const __grid_constant__ CUtensorMap tm_v,   // boxes of kBwdStep rows
     const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdRows rows
     const float* __restrict__ lse, const float* __restrict__ dm,
-    T* __restrict__ dq, int sq, int sk, int hq, int hkv, int d, int q_offset,
-    int kv_offset, int causal, float scale) {
+    Out<T, kAcc>* __restrict__ dq, int sq, int sk, int hq, int hkv, int d,
+    int q_offset, int kv_offset, int causal, float scale) {
   constexpr int kOwn = kBwdRows * kD * 2;      // bytes of the Q (dO) tile
   constexpr int kStream = kBwdStep * kD * 2;   // bytes of a K (V) tile
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -658,8 +679,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
       if (col < d && row < sq) {
         const size_t at =
             ((static_cast<size_t>(b) * sq + row) * hq + h) * d + col;
-        *reinterpret_cast<uint32_t*>(dq + at) =
-            pack2<T>(scale * acc[4 * j + 2 * r], scale * acc[4 * j + 2 * r + 1]);
+        put2<T, kAcc>(dq + at, scale * acc[4 * j + 2 * r],
+                      scale * acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -680,15 +701,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
 // dK and dV stay in registers across every q tile of every head of the
 // group, so the group sum happens in the fp32 accumulators.
 // ---------------------------------------------------------------------
-template <typename T, int kD>
+template <typename T, int kD, bool kAcc>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,   // boxes of kBwdStep rows
     const __grid_constant__ CUtensorMap tm_k,   // boxes of kBwdRows rows
     const __grid_constant__ CUtensorMap tm_v,   // boxes of kBwdRows rows
     const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdStep rows
     const float* __restrict__ lse, const float* __restrict__ dm,
-    T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int hq, int hkv,
-    int d, int q_offset, int kv_offset, int causal, float scale) {
+    Out<T, kAcc>* __restrict__ dk, Out<T, kAcc>* __restrict__ dv, int sq,
+    int sk, int hq, int hkv, int d, int q_offset, int kv_offset, int causal,
+    float scale) {
   constexpr int kOwn = kBwdRows * kD * 2;     // bytes of the K (V) tile
   constexpr int kStream = kBwdStep * kD * 2;  // bytes of a Q (dO) tile
   constexpr int kStats = 2 * kBwdStep * sizeof(float);  // lse, dm of a stage
@@ -868,10 +890,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
       if (col < d && key < sk) {
         const size_t at =
             ((static_cast<size_t>(b) * sk + key) * hkv + kvh) * d + col;
-        *reinterpret_cast<uint32_t*>(dk + at) = pack2<T>(
-            scale * dk_acc[4 * j + 2 * r], scale * dk_acc[4 * j + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at) =
-            pack2<T>(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        put2<T, kAcc>(dk + at, scale * dk_acc[4 * j + 2 * r],
+                      scale * dk_acc[4 * j + 2 * r + 1]);
+        put2<T, kAcc>(dv + at, dv_acc[4 * j + 2 * r],
+                      dv_acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -1055,7 +1077,7 @@ cudaError_t bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
   return err;
 }
 
-template <typename T, int kD>
+template <typename T, int kD, bool kAcc>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dm, void* dq,
                     int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
@@ -1065,17 +1087,18 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
       bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdRows, kBwdStep);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = bwd_smem_bytes<kD>();
-  auto kernel = flash_dq_wgmma_kernel<T, kD>;
+  auto kernel = flash_dq_wgmma_kernel<T, kD, kAcc>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3((sq + kBwdRows - 1) / kBwdRows, hq, b), kBwdThreads, smem,
            stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-                     static_cast<const float*>(dm), static_cast<T*>(dq), sq, sk,
-                     hq, hkv, d, q_offset, kv_offset, causal, scale);
+                     static_cast<const float*>(dm),
+                     static_cast<Out<T, kAcc>*>(dq), sq, sk, hq, hkv, d,
+                     q_offset, kv_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kD>
+template <typename T, int kD, bool kAcc>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dm,
                      void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
@@ -1086,14 +1109,15 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
       bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdStep, kBwdRows);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = bwd_smem_bytes<kD>();
-  auto kernel = flash_dkv_wgmma_kernel<T, kD>;
+  auto kernel = flash_dkv_wgmma_kernel<T, kD, kAcc>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3((sk + kBwdRows - 1) / kBwdRows, hkv, b), kBwdThreads, smem,
            stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-                     static_cast<const float*>(dm), static_cast<T*>(dk),
-                     static_cast<T*>(dv), sq, sk, hq, hkv, d, q_offset,
-                     kv_offset, causal, scale);
+                     static_cast<const float*>(dm),
+                     static_cast<Out<T, kAcc>*>(dk),
+                     static_cast<Out<T, kAcc>*>(dv), sq, sk, hq, hkv, d,
+                     q_offset, kv_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1119,7 +1143,8 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // 16-bit inputs take the wgmma kernels (kD 64 for d <= 64, else 128);
-// float32 inputs the scalar-FMA walk.
+// float32 inputs the scalar-FMA walk. `accumulate` (16-bit backward
+// only) adds the result into an fp32 buffer instead of writing it in T.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
@@ -1145,19 +1170,35 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   }
 }
 
+template <typename T, bool kAcc>
+int launch_dq_16(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* dm, void* dq, int b, int sq,
+                 int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
+                 int causal, float scale, cudaStream_t stream) {
+  return d <= 64 ? launch_dq_wgmma<T, 64, kAcc>(q, k, v, dout, lse, dm, dq, b,
+                                                sq, sk, hq, hkv, d, q_offset,
+                                                kv_offset, causal, scale, stream)
+                 : launch_dq_wgmma<T, 128, kAcc>(q, k, v, dout, lse, dm, dq, b,
+                                                 sq, sk, hq, hkv, d, q_offset,
+                                                 kv_offset, causal, scale,
+                                                 stream);
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dm, void* dq, int b, int sq, int sk,
               int hq, int hkv, int d, int q_offset, int kv_offset, int causal,
-              float scale, cudaStream_t stream) {
+              int accumulate, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return d <= 64 ? launch_dq_wgmma<T, 64>(q, k, v, dout, lse, dm, dq, b, sq,
-                                            sk, hq, hkv, d, q_offset, kv_offset,
-                                            causal, scale, stream)
-                   : launch_dq_wgmma<T, 128>(q, k, v, dout, lse, dm, dq, b, sq,
-                                             sk, hq, hkv, d, q_offset,
-                                             kv_offset, causal, scale, stream);
+    return accumulate
+               ? launch_dq_16<T, true>(q, k, v, dout, lse, dm, dq, b, sq, sk,
+                                       hq, hkv, d, q_offset, kv_offset, causal,
+                                       scale, stream)
+               : launch_dq_16<T, false>(q, k, v, dout, lse, dm, dq, b, sq, sk,
+                                        hq, hkv, d, q_offset, kv_offset, causal,
+                                        scale, stream);
   } else {
+    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
     constexpr int BR = kF32Rows;
     const size_t smem = f32_smem_bytes(1, d);
     auto kernel = flash_dq_kernel<T>;
@@ -1173,19 +1214,38 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+template <typename T, bool kAcc>
+int launch_dkv_16(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* dm, void* dk,
+                  void* dv, int b, int sq, int sk, int hq, int hkv, int d,
+                  int q_offset, int kv_offset, int causal, float scale,
+                  cudaStream_t stream) {
+  return d <= 64 ? launch_dkv_wgmma<T, 64, kAcc>(q, k, v, dout, lse, dm, dk,
+                                                 dv, b, sq, sk, hq, hkv, d,
+                                                 q_offset, kv_offset, causal,
+                                                 scale, stream)
+                 : launch_dkv_wgmma<T, 128, kAcc>(q, k, v, dout, lse, dm, dk,
+                                                  dv, b, sq, sk, hq, hkv, d,
+                                                  q_offset, kv_offset, causal,
+                                                  scale, stream);
+}
+
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dm, void* dk, void* dv, int b,
                int sq, int sk, int hq, int hkv, int d, int q_offset,
-               int kv_offset, int causal, float scale, cudaStream_t stream) {
+               int kv_offset, int causal, int accumulate, float scale,
+               cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return d <= 64 ? launch_dkv_wgmma<T, 64>(q, k, v, dout, lse, dm, dk, dv, b,
-                                             sq, sk, hq, hkv, d, q_offset,
-                                             kv_offset, causal, scale, stream)
-                   : launch_dkv_wgmma<T, 128>(q, k, v, dout, lse, dm, dk, dv, b,
-                                              sq, sk, hq, hkv, d, q_offset,
-                                              kv_offset, causal, scale, stream);
+    return accumulate
+               ? launch_dkv_16<T, true>(q, k, v, dout, lse, dm, dk, dv, b, sq,
+                                        sk, hq, hkv, d, q_offset, kv_offset,
+                                        causal, scale, stream)
+               : launch_dkv_16<T, false>(q, k, v, dout, lse, dm, dk, dv, b, sq,
+                                         sk, hq, hkv, d, q_offset, kv_offset,
+                                         causal, scale, stream);
   } else {
+    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
     constexpr int BR = kF32Rows;
     const size_t smem = f32_smem_bytes(2, d);
     auto kernel = flash_dkv_kernel<T>;
@@ -1224,27 +1284,31 @@ int tpuhpc_flash_fwd(const void* q, const void* k, const void* v, void* out,
                                              static_cast<cudaStream_t>(stream)))
 }
 
+// The backward entries' `accumulate`: 1 adds the result into fp32
+// buffers (16-bit inputs only), 0 writes it in the input dtype.
 int tpuhpc_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* dm, void* dq, int b, int sq,
                     int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-                    int causal, float scale, int dtype, void* stream) {
+                    int causal, int accumulate, float scale, int dtype,
+                    void* stream) {
   if (!shapes_ok(b, sq, sk, hq, hkv, d)) return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_dq<T>(q, k, v, dout, lse, dm, dq, b, sq, sk,
                                             hq, hkv, d, q_offset, kv_offset, causal,
-                                            scale, static_cast<cudaStream_t>(stream)))
+                                            accumulate, scale,
+                                            static_cast<cudaStream_t>(stream)))
 }
 
 int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dm, void* dk,
                      void* dv, int b, int sq, int sk, int hq, int hkv, int d,
-                     int q_offset, int kv_offset, int causal, float scale,
-                     int dtype, void* stream) {
+                     int q_offset, int kv_offset, int causal, int accumulate,
+                     float scale, int dtype, void* stream) {
   if (!shapes_ok(b, sq, sk, hq, hkv, d)) return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_dkv<T>(q, k, v, dout, lse, dm, dk, dv, b, sq,
                                              sk, hq, hkv, d, q_offset, kv_offset,
-                                             causal, scale,
+                                             causal, accumulate, scale,
                                              static_cast<cudaStream_t>(stream)))
 }
 

@@ -142,12 +142,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_prefill_route.argtypes = [i] * 4  # (d, bs, q code, pool code)
     lib.tpuhpc_prefill_route.restype = i
     # flash_attention.cu: pointers, then (b, sq, sk, hq, hkv, d,
-    # q_offset, kv_offset, causal), scale, dtype code, stream.
+    # q_offset, kv_offset, causal[, accumulate]), scale, dtype code,
+    # stream.
     lib.tpuhpc_flash_fwd.argtypes = [p] * 5 + [i] * 9 + [f, i, p]
     lib.tpuhpc_flash_fwd.restype = i
-    lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 9 + [f, i, p]
+    lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
     lib.tpuhpc_flash_dq.restype = i
-    lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 9 + [f, i, p]
+    lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
     lib.tpuhpc_flash_dkv.restype = i
     lib.tpuhpc_flash_tile_rows.argtypes = [i, i]  # (kernel, dtype code)
     lib.tpuhpc_flash_tile_rows.restype = i

@@ -193,25 +193,32 @@ def _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset, causal, scale):
 def flash_attention_dq_ref(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
+    accumulate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the dq kernel: ``dq = scale * dS . K`` with
-    P = exp(S - lse), dS = P * (dO.V^T - dm), in fp32; dq in q.dtype.
-    ``dm`` is the per-row ``rowsum(dO * O) - dlse`` [B, Sq, Hq]."""
+    P = exp(S - lse), dS = P * (dO.V^T - dm), in fp32; dq in q.dtype, or
+    added, in fp32, into ``accumulate`` (returned). ``dm`` is the
+    per-row ``rowsum(dO * O) - dlse`` [B, Sq, Hq]."""
     b, sq, hq, d = q.shape
     scale = sm_scale if sm_scale is not None else d ** -0.5
     _, ds, _ = _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset,
                           causal, scale)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(torch.float32)) * scale
-    return dq.reshape(b, sq, hq, d).to(q.dtype)
+    dq = dq.reshape(b, sq, hq, d)
+    if accumulate is not None:
+        return accumulate.add_(dq)
+    return dq.to(q.dtype)
 
 
 def flash_attention_dkv_ref(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
+    accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dk/dv kernel: ``dV = P^T . dO`` and
     ``dK = scale * dS^T . Q`` in fp32, summed over each KV head's group
-    of query heads; dk/dv in k/v's dtype."""
+    of query heads; dk/dv in k/v's dtype, or added, in fp32, into the
+    pair ``accumulate`` (returned)."""
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else d ** -0.5
     p, ds, dof = _bwd_probs(q, k, v, dout, lse, dm, q_offset, kv_offset,
@@ -219,6 +226,8 @@ def flash_attention_dkv_ref(
     qf = q.to(torch.float32).reshape(dof.shape)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    if accumulate is not None:
+        return accumulate[0].add_(dk), accumulate[1].add_(dv)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -325,32 +334,57 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def _check_accumulate(named) -> None:
+    for name, t, like in named:
+        if t.shape != like.shape:
+            raise ValueError(f"accumulate {name} {tuple(t.shape)} does not "
+                             f"match {tuple(like.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"accumulate {name} must be float32, got "
+                            f"{t.dtype}")
+
+
+def _accumulates_in_kernel(q, acc) -> bool:
+    """True when the backward kernel itself adds into ``acc`` (16-bit
+    inputs); float32 inputs launch into a fresh tensor that is added."""
+    return acc is not None and q.dtype != torch.float32
+
+
 def flash_attention_dq(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
+    accumulate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """dq in q.dtype from the saved lse and ``dm = rowsum(dO*O) - dlse``
-    (both [B, Sq, Hq] fp32). CUDA tensors launch ``flash_dq_wgmma_kernel``
-    (bf16, fp16) or ``flash_dq_kernel`` (float32); CPU tensors run
+    (both [B, Sq, Hq] fp32); with ``accumulate`` (fp32, q's shape) dq is
+    added into it unrounded and it is returned -- how a ring sums its
+    pairs. CUDA tensors launch ``flash_dq_wgmma_kernel`` (bf16, fp16) or
+    ``flash_dq_kernel`` (float32); CPU tensors run
     :func:`flash_attention_dq_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if accumulate is not None:
+        _check_accumulate([("dq", accumulate, q)])
     if q.device.type == "cpu":
         return flash_attention_dq_ref(q, k, v, dout, lse, dm, qo, ko,
-                                      causal=causal, sm_scale=scale)
+                                      causal=causal, sm_scale=scale,
+                                      accumulate=accumulate)
     code = _kernel_dtype(q)
+    in_kernel = _accumulates_in_kernel(q, accumulate)
+    dq = accumulate if in_kernel else torch.empty_like(q)
     _check_cuda(
         [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
-         ("dm", dm)],
-        [q.dtype] * 4 + [torch.float32] * 2,
+         ("dm", dm), ("dq", dq)],
+        [q.dtype] * 4 + [torch.float32] * 2 + [dq.dtype],
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
-    dq = torch.empty_like(q)
     _launch("flash_attention_dq", "tpuhpc_flash_dq", q, k, v, dout, lse, dm,
             dq, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
-            float(scale), code)
+            int(in_kernel), float(scale), code)
     flash_attention_dq.launches += 1
+    if accumulate is not None and not in_kernel:
+        return accumulate.add_(dq)
     return dq
 
 
@@ -360,30 +394,39 @@ flash_attention_dq.launches = 0
 def flash_attention_dkv(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
+    accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) in k/v's dtype, summed over each KV head's query-head
-    group. CUDA tensors launch ``flash_dkv_wgmma_kernel`` (bf16, fp16) or
-    ``flash_dkv_kernel`` (float32); CPU tensors run
-    :func:`flash_attention_dkv_ref`."""
+    group; with ``accumulate`` (a pair of fp32 tensors of k's shape) they
+    are added into it unrounded and it is returned. CUDA tensors launch
+    ``flash_dkv_wgmma_kernel`` (bf16, fp16) or ``flash_dkv_kernel``
+    (float32); CPU tensors run :func:`flash_attention_dkv_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if accumulate is not None:
+        _check_accumulate([("dk", accumulate[0], k),
+                           ("dv", accumulate[1], v)])
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, dout, lse, dm, qo, ko,
-                                       causal=causal, sm_scale=scale)
+                                       causal=causal, sm_scale=scale,
+                                       accumulate=accumulate)
     code = _kernel_dtype(q)
+    in_kernel = _accumulates_in_kernel(q, accumulate)
+    dk, dv = (accumulate if in_kernel
+              else (torch.empty_like(k), torch.empty_like(v)))
     _check_cuda(
         [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
-         ("dm", dm)],
-        [q.dtype] * 4 + [torch.float32] * 2,
+         ("dm", dm), ("dk", dk), ("dv", dv)],
+        [q.dtype] * 4 + [torch.float32] * 2 + [dk.dtype] * 2,
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
     _launch("flash_attention_dkv", "tpuhpc_flash_dkv", q, k, v, dout, lse,
             dm, dk, dv, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
-            float(scale), code)
+            int(in_kernel), float(scale), code)
     flash_attention_dkv.launches += 1
+    if accumulate is not None and not in_kernel:
+        return accumulate[0].add_(dk), accumulate[1].add_(dv)
     return dk, dv
 
 

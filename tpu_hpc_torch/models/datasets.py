@@ -8,9 +8,10 @@ values come from a CPU ``torch.Generator`` seeded from (seed, step);
 ``jax.random`` gives other numbers from the same seed, so parity tests
 replay the JAX stream's own batches through :class:`ArrayBatches`.
 
-``zigzag_ring`` (the ring-attention layout) raises until ring attention
-is ported (ROADMAP queue 1 item 9). The other datasets of the JAX
-module come with their models.
+``zigzag_ring=n`` emits every batch in the zigzag layout of an n-way
+ring (``parallel.ring_attention.zigzag_indices``), the layout the
+zigzag ring takes with ``data_layout="zigzag"``. The other datasets of
+the JAX module come with their models.
 """
 from __future__ import annotations
 
@@ -31,7 +32,14 @@ def step_seed(seed: int, step: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TokenStream:
-    """Random token batches: inputs and next-token targets."""
+    """Random token batches: inputs and next-token targets.
+
+    ``zigzag_ring=n``: slot p of every batch holds the token of global
+    position ``zigzag_indices(n, seq_len)[0][p]``; inputs and targets
+    permute together, so each input keeps its next token. Feed the model
+    the slots' global RoPE positions (:meth:`positions`, or a context
+    rank's slice of them: ``ring_attention.shard_positions``).
+    """
 
     vocab_size: int = 32000
     seq_len: int = 2048
@@ -39,12 +47,21 @@ class TokenStream:
     zigzag_ring: Optional[int] = None
 
     def __post_init__(self) -> None:
-        if self.zigzag_ring is not None:
-            raise NotImplementedError(
-                "TokenStream(zigzag_ring=...): the zigzag ring layout "
-                "belongs to ring attention, which is not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
+        self._perm()  # a seq_len the ring cannot split raises here
+
+    def _perm(self) -> Optional[np.ndarray]:
+        """The zigzag permutation (None in contiguous mode)."""
+        if self.zigzag_ring is None:
+            return None
+        from tpu_hpc_torch.parallel.ring_attention import zigzag_indices
+
+        return zigzag_indices(self.zigzag_ring, self.seq_len)[0]
+
+    def positions(self) -> Optional[torch.Tensor]:
+        """Global RoPE position of each slot ([seq_len] int64); None in
+        contiguous mode, where the model's default ramp is right."""
+        perm = self._perm()
+        return None if perm is None else torch.from_numpy(perm)
 
     def batch_at(
         self, step: int, batch_size: int
@@ -56,7 +73,12 @@ class TokenStream:
             0, self.vocab_size, (batch_size, self.seq_len + 1),
             generator=gen, dtype=torch.int64,
         )
-        return tokens[:, :-1], tokens[:, 1:]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        perm = self._perm()
+        if perm is not None:
+            idx = torch.from_numpy(perm)
+            inputs, targets = inputs[:, idx], targets[:, idx]
+        return inputs, targets
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

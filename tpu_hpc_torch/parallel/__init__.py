@@ -4,4 +4,8 @@
 Megatron rules, SP, flash attention on local heads) and ``hybrid``
 (FSDP x TP) are the JAX package's plan functions; ``shard`` carries a
 plan out on a (data, model) ``DeviceMesh`` with DTensor TP and FSDP2.
+Sequence parallelism over a (data, context) mesh: ``ring_attention``
+(the contiguous and zigzag rings), ``sp_ulysses`` (the all-to-all head
+scatter) and ``sp_transport`` (how their tensors move between context
+ranks: a process group, or every rank in one process).
 """

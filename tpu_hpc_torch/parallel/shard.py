@@ -10,7 +10,12 @@ as the reference's FSDP x TP recipe does (``fsdp_tp_example.py``):
      names, else ``Replicate()`` (TP first);
   3. ``fully_shard`` over the ``data`` sub-mesh, once per block
      (``layers_<i>``) and once at the root, each param sharded on the
-     dim its spec names for ``data`` (``shard_placement_fn``).
+     dim its spec names for ``data`` (``shard_placement_fn``). On a
+     mesh with a ``context`` axis (sequence parallelism) FSDP2 runs over
+     ``data`` and ``context`` flattened into one dim (torchtitan's
+     ``dp_shard x cp``): each context rank computes the gradient of its
+     own tokens, and the reduce-scatter averages over both axes -- with
+     equal tokens per rank, the gradient of the global mean loss.
 
 FSDP2 shards every param of a unit: a leaf the plan keeps whole on
 ``data`` (under ``min_size``, or with no divisible dim) is sharded on
@@ -88,13 +93,14 @@ def shard_params(
     *,
     data_axis: str = "data",
     model_axis: str = "model",
+    context_axis: str = "context",
     device: Any = "cuda",
 ) -> ParamTree:
     """The full tree ``params`` (numpy arrays or tensors) -> a
     :class:`ParamTree` on ``device`` laid out by ``specs`` over
     ``mesh`` (a ``DeviceMesh`` naming ``data_axis`` and/or
     ``model_axis``): TP DTensors on the model sub-mesh, then FSDP2 over
-    the data sub-mesh. Each leaf keeps its dtype."""
+    :func:`fsdp_mesh`. Each leaf keeps its dtype."""
     from torch.distributed.tensor import Shard, distribute_tensor
 
     names = mesh.mesh_dim_names or ()
@@ -102,7 +108,7 @@ def shard_params(
     if model_axis in names and any(_dim_of(spec, model_axis) is not None
                                    for spec in tree_specs(specs)):
         tp_mesh = mesh[model_axis]
-    dp_mesh = mesh[data_axis] if data_axis in names else None
+    dp_mesh = fsdp_mesh(mesh, data_axis, context_axis)
     device = torch.device(device)
     data_dims: Dict[int, Optional[int]] = {}
 
@@ -131,6 +137,19 @@ def shard_params(
                             shard_placement_fn=placement_fn)
         fully_shard(root, mesh=dp_mesh, shard_placement_fn=placement_fn)
     return root
+
+
+def fsdp_mesh(mesh: Any, data_axis: str = "data",
+              context_axis: str = "context") -> Any:
+    """The 1-D mesh FSDP2 shards over: ``data``, ``context``, or the two
+    flattened (``data_context``); None when the mesh has neither."""
+    names = mesh.mesh_dim_names or ()
+    axes = tuple(a for a in (data_axis, context_axis) if a in names)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh[axes[0]]
+    return mesh[axes]._flatten("_".join(axes))
 
 
 def is_dtensor(t: Any) -> bool:

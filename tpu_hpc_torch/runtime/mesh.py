@@ -7,7 +7,10 @@ Earlier axes change slowest across the ranks, so the bandwidth-tolerant
 axis (``data``) goes first and the latency-sensitive one (``model``)
 last: with ranks numbered node by node, TP then stays inside a node on
 NVLink and FSDP crosses nodes (the reference's
-``fsdp_tp_example.py:12-26`` doctrine).
+``fsdp_tp_example.py:12-26`` doctrine). Sequence parallelism takes a
+(data, context) mesh: ``context`` splits each sequence over its ranks
+(``parallel.ring_attention``, ``parallel.sp_ulysses``); it is not the
+Megatron SP that the hybrid plan runs on ``model``.
 
 ``dcn_axes`` keeps the JAX meaning -- the extent of an axis across
 nodes (there: TPU slices) -- for ``resolved_sizes`` and ``ici_sizes``;
@@ -24,6 +27,7 @@ from typing import Any, Mapping, Optional, Tuple
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
+CONTEXT_AXIS = "context"
 SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 

@@ -23,6 +23,22 @@ process. For example, a 2 x 2 world on the CPU:
         --multiple-of 16 --seq-len 32 --steps 2 --epochs 1 --batch 4 \
         --grad-accum-steps 2
 
+Sequence parallelism (bench.py ``--workload llama-sp``,
+``bench_llama_sp``): ``--sp-mode ring|zigzag|ulysses`` trains over a
+(data, context) mesh, by default context = every process and data 1, as
+bench.py does (``--context N`` for another split). Each context rank
+runs the model on its shard of each sequence, RoPE at the shard's global
+positions; attention is the contiguous ring, the zigzag ring (the stream
+laid out in zigzag order, ``TokenStream(zigzag_ring=n)``) or Ulysses,
+each around the flash kernels; FSDP2 runs over data x context. For
+example:
+
+    torchrun --nproc-per-node 4 -m tpu_hpc_torch.train --sp-mode zigzag \
+        --context 4
+
+``--sp-mode`` with ``--model`` above 1 is refused: the JAX bench never
+combines TP and context parallelism, and neither does the port yet.
+
 Rank 0 prints one JSON line: the device's name and the world size, the
 mesh and plan, tokens/s (the whole job's, and per device), MFU against
 the world's peak from ``checks/roofline.py`` (bench.py's formula:
@@ -86,21 +102,65 @@ LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
 
 
 PLANS = ("auto", "hybrid", "fsdp", "none")
+SP_MODES = ("ring", "zigzag", "ulysses")
 
 
-def resolve_plan(plan: str, mesh) -> str:
+def resolve_plan(plan: str, mesh, sp_mode: Optional[str] = None) -> str:
     """bench.py's rule (bench.py:256-273) for ``plan="auto"``: hybrid
     FSDP x TP + SP when the mesh has a ``model`` axis above one device,
-    FSDP when only ``data`` is above one, none at one device."""
+    FSDP when only ``data`` is above one, none at one device. With
+    ``sp_mode``: FSDP over data x context whenever there is a mesh
+    (context ranks must exchange gradients); TP is refused."""
     from tpu_hpc_torch.runtime.mesh import mesh_axis_size
 
     if plan not in PLANS:
         raise ValueError(f"unknown plan {plan!r}; one of {PLANS}")
+    if sp_mode is not None:
+        if sp_mode not in SP_MODES:
+            raise ValueError(
+                f"unknown sp_mode {sp_mode!r} (ring|zigzag|ulysses)")
+        if plan == "hybrid" or mesh_axis_size(mesh, "model") > 1:
+            raise ValueError(
+                "sequence parallelism does not combine with TP (a model "
+                "axis) yet: the JAX bench never combines them")
+        if plan == "none" and mesh_axis_size(mesh, "context") > 1:
+            raise ValueError(
+                "plan 'none' on a context axis would leave each context "
+                "rank with its own gradients; use 'fsdp'")
+        if plan == "auto":
+            return "none" if mesh is None else "fsdp"
+        return plan
     if plan != "auto":
         return plan
     if mesh_axis_size(mesh, "model") > 1:
         return "hybrid"
     return "fsdp" if mesh_axis_size(mesh, "data") > 1 else "none"
+
+
+def sp_attention(sp_mode: str, mesh, model_cfg: llama2.LlamaConfig,
+                 device):
+    """bench.py's llama-sp wiring (bench.py:371-390): the attention hook
+    for ``sp_mode`` over ``mesh``'s context axis, this rank's global
+    RoPE positions, and the stream's ``zigzag_ring`` (zigzag only: the
+    loader lays the tokens out once, no per-layer permute)."""
+    from tpu_hpc_torch.parallel import ring_attention as ra
+    from tpu_hpc_torch.parallel import sp_ulysses
+
+    ring = ra.context_ring(mesh)
+    n, rank = ring.n, ring.ranks[0]
+    zigzag = sp_mode == "zigzag"
+    if sp_mode == "ulysses":
+        sp_ulysses.validate_ulysses_degree(model_cfg.n_heads, n)
+        attn_fn = sp_ulysses.make_ulysses_attn_fn(mesh)
+    elif zigzag:
+        attn_fn = ra.make_zigzag_ring_attn_fn(mesh, data_layout="zigzag")
+    elif sp_mode == "ring":
+        attn_fn = ra.make_ring_attn_fn(mesh)
+    else:
+        raise ValueError(f"unknown sp_mode {sp_mode!r} (ring|zigzag|ulysses)")
+    positions = ra.shard_positions(n, rank, model_cfg.max_seq_len, zigzag,
+                                   device)
+    return attn_fn, positions, (n if zigzag else None)
 
 
 def build_trainer(
@@ -120,6 +180,7 @@ def build_trainer(
     save_every: int = 0,
     resume: bool = True,
     metrics_path: str = "",
+    sp_mode: Optional[str] = None,
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
@@ -139,17 +200,21 @@ def build_trainer(
     stream and the flash kernels under ``local_map`` on local heads;
     ``fsdp`` by ``fsdp.param_pspecs``; ``none`` keeps one device.
     ``batch`` is each data rank's: the global batch is ``batch`` x the
-    data axis, as in bench.py."""
+    data axis, as in bench.py. ``sp_mode`` (ring, zigzag, ulysses):
+    sequence parallelism over ``mesh``'s context axis
+    (:func:`sp_attention`), the batch split ``P("data", "context")``."""
     from tpu_hpc_torch.config import TrainingConfig
     from tpu_hpc_torch.models import datasets
     from tpu_hpc_torch.parallel import fsdp, hybrid, tp
+    from tpu_hpc_torch.parallel.plans import P
     from tpu_hpc_torch.runtime import resolve_device
     from tpu_hpc_torch.runtime.mesh import mesh_axis_size
     from tpu_hpc_torch.train.trainer import Trainer
 
     device = resolve_device(device)
-    plan = resolve_plan(plan, mesh)
+    plan = resolve_plan(plan, mesh, sp_mode)
     dp_size = mesh_axis_size(mesh, "data")
+    cp_size = mesh_axis_size(mesh, "context")
     params = llama2.init_llama(
         torch.Generator(device=device).manual_seed(SEED), model_cfg, device
     )
@@ -164,11 +229,18 @@ def build_trainer(
                                      data_size=dp_size)
         constrain = tp.sp_constrain(mesh, dp_axis="data", sp_axis="model")
     elif plan == "fsdp":
-        specs = fsdp.param_pspecs(params, axis="data", axis_size=dp_size)
+        specs = fsdp.param_pspecs(params, axis="data",
+                                  axis_size=dp_size * cp_size)
     else:
         mesh = None
-    attn_fn = None
-    if attn == "flash":
+    attn_fn, positions, zigzag_ring = None, None, None
+    if sp_mode is not None:
+        if attn != "flash":
+            raise ValueError("sequence parallelism runs attention through "
+                             "the flash kernels only (attn='flash')")
+        attn_fn, positions, zigzag_ring = sp_attention(sp_mode, mesh,
+                                                       model_cfg, device)
+    elif attn == "flash":
         attn_fn = tp.make_tp_flash_attn_fn(
             mesh, "data", "model" if plan == "hybrid" else None)
     cfg = TrainingConfig(
@@ -186,12 +258,15 @@ def build_trainer(
 
         manager = CheckpointManager(checkpoint_dir)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
-                              seq_len=model_cfg.max_seq_len, seed=SEED)
+                              seq_len=model_cfg.max_seq_len, seed=SEED,
+                              zigzag_ring=zigzag_ring)
     # The trainer keeps its own copy of the params.
     return Trainer(cfg, mesh,
-                   llama2.make_forward(model_cfg, constrain, attn_fn),
-                   params, param_pspecs=specs, checkpoint_manager=manager,
-                   device=device), ds
+                   llama2.make_forward(model_cfg, constrain, attn_fn,
+                                       positions),
+                   params, param_pspecs=specs,
+                   batch_pspec=P("data", "context"),
+                   checkpoint_manager=manager, device=device), ds
 
 
 def run_train(
@@ -206,6 +281,7 @@ def run_train(
     device="cuda",
     mesh=None,
     plan: str = "auto",
+    sp_mode: Optional[str] = None,
     **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
@@ -222,7 +298,7 @@ def run_train(
         model_cfg, steps=steps, epochs=epochs, batch=batch,
         grad_accum_steps=grad_accum_steps, attn=attn,
         moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
-        **resilience,
+        sp_mode=sp_mode, **resilience,
     )
     device = trainer.device
     world = trainer.n_devices
@@ -242,7 +318,8 @@ def run_train(
     flops_per_token = model_cfg.flops_per_token(seq)
     peak = peak_flops_for_device(device)
     out = {
-        "metric": "llama2_train_tokens_per_s_per_chip",
+        "metric": (f"llama2_sp_{sp_mode}_tokens_per_s_per_chip" if sp_mode
+                   else "llama2_train_tokens_per_s_per_chip"),
         "value": tokens_per_s / world,
         "unit": "tokens/s/chip",
         "device": {
@@ -253,7 +330,8 @@ def run_train(
         },
         "mesh": mesh_shape(trainer.mesh) or None,
         "world_size": world,
-        "plan": resolve_plan(plan, mesh),
+        "plan": resolve_plan(plan, mesh, sp_mode),
+        "sp_mode": sp_mode,
         "layout": layout_summary(trainer.module),
         "tokens_per_s": tokens_per_s,
         "tokens_per_s_per_device": tokens_per_s / world,
@@ -327,6 +405,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--model", type=int, default=None,
                     help="model-axis size (TP + SP); default: "
                     "tp.auto_mesh_axes(world, heads, kv_heads, cap=4)")
+    ap.add_argument("--sp-mode", choices=SP_MODES, default=None,
+                    help="sequence parallelism over a (data, context) mesh "
+                    "(bench.py --workload llama-sp): the contiguous ring, "
+                    "the zigzag ring or Ulysses, around the flash kernels")
+    ap.add_argument("--context", type=int, default=None,
+                    help="context-axis size (with --sp-mode; default: every "
+                    "process, data 1)")
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
                         help="model-size override (CPU rehearsals)")
@@ -351,6 +436,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "with N restarts (a preemption or a guard rollback "
                     "relaunches without spending one)")
     args = ap.parse_args(argv)
+    if args.sp_mode is not None and (args.model or 1) > 1:
+        ap.error("--sp-mode does not combine with --model > 1: TP x "
+                 "context parallelism is not ported (the JAX bench never "
+                 "combines them)")
+    if args.sp_mode is not None and args.attn != "flash":
+        ap.error("--sp-mode runs attention through the flash kernels only")
+    if args.context is not None and args.sp_mode is None:
+        ap.error("--context needs --sp-mode")
     if args.guard_mode == "rollback" and not args.checkpoint_dir:
         ap.error("--guard-mode rollback needs --checkpoint-dir: "
                  "rollback-to-last-good restores a snapshot; without one "
@@ -401,16 +494,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # process group; then the mesh, by bench.py's rule.
     info = init_distributed(device=device.type, verbose=False)
     mesh = None
+    asked = (args.data or 1) * (args.model or 1) * (args.context or 1)
     if info.num_processes > 1:
-        axes = mesh_axes(info.num_processes, model_cfg, args.data,
-                         args.model)
+        if args.sp_mode is not None:
+            axes = sp_mesh_axes(info.num_processes, args.data, args.context)
+        else:
+            axes = mesh_axes(info.num_processes, model_cfg, args.data,
+                             args.model)
         if axes is None:
-            ap.error(f"--data {args.data} x --model {args.model} does not "
-                     f"cover the {info.num_processes} processes")
+            ap.error(f"--data {args.data} x --model {args.model} x --context "
+                     f"{args.context} does not cover the "
+                     f"{info.num_processes} processes")
         mesh = build_mesh(MeshSpec(axes=axes), device.type)
-    elif (args.data or 1) * (args.model or 1) > 1:
-        ap.error(f"--data/--model ask for {(args.data or 1) * (args.model or 1)}"
-                 " processes; launch them with torchrun --nproc-per-node")
+    elif asked > 1:
+        ap.error(f"--data/--model/--context ask for {asked} processes; "
+                 "launch them with torchrun --nproc-per-node")
     try:
         summary = run_train(
             model_cfg, steps=args.steps, epochs=args.epochs, batch=batch,
@@ -418,7 +516,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             moments_dtype=args.moments_dtype, device=device, mesh=mesh,
             guard_mode=args.guard_mode, checkpoint_dir=args.checkpoint_dir,
             save_every=args.save_every, resume=args.resume,
-            metrics_path=args.metrics,
+            metrics_path=args.metrics, sp_mode=args.sp_mode,
         )
         if is_main_host():
             print(json.dumps(summary), flush=True)
@@ -447,6 +545,22 @@ def mesh_axes(world: int, model_cfg: llama2.LlamaConfig,
     if data * model != world:
         return None
     return {"data": data, "model": model}
+
+
+def sp_mesh_axes(world: int, data: Optional[int] = None,
+                 context: Optional[int] = None) -> Optional[dict]:
+    """``{"data": d, "context": c}`` for ``world`` processes: bench.py's
+    context = world, data 1 by default; one size given, the other is the
+    rest; None when the sizes do not cover the world."""
+    if data is None and context is None:
+        data = 1
+    if context is None:
+        context = world // data if world % data == 0 else 0
+    if data is None:
+        data = world // context if world % context == 0 else 0
+    if data * context != world:
+        return None
+    return {"data": data, "context": context}
 
 
 if __name__ == "__main__":

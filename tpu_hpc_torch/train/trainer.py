@@ -28,9 +28,10 @@ imported, as the JAX package's fp32 reference numerics need.
 
 On a ``DeviceMesh`` the params are laid out by a plan
 (``parallel.shard.shard_params``: TP DTensors on ``model``, FSDP2 over
-``data``), each data rank takes its rows of the global batch, and the
-optimizer runs on each rank's shards -- the same optax arithmetic, with
-the clip norm taken over the whole gradient.
+``data``, or over data x context), each data rank takes its rows of the
+global batch (each context rank its columns of them), and the optimizer
+runs on each rank's shards -- the same optax arithmetic, with the clip
+norm taken over the whole gradient.
 
 The self-defending loop of the JAX Trainer: a checkpoint manager
 (``ckpt.CheckpointManager``) with auto-resume and periodic saves, the
@@ -499,7 +500,7 @@ def make_step_fn(
     (``parallel.shard.shard_params``). ``forward`` then gets the module
     instead of the param dict; FSDP2 reduce-scatters the gradients once,
     after the last microbatch (gradient sync off before it), averaged
-    over ``data``; the loss metric is averaged over the ranks; the norm
+    over ``data`` (and ``context``); the loss metric is averaged over the ranks; the norm
     is the whole gradient's (:func:`sharded_global_norm`); and the
     optimizer updates each rank's shards in place, its moments shaped
     like them.
@@ -840,8 +841,13 @@ class Trainer:
         over ``data``. The global batch is split over
         ``batch_pspec[0]`` (the data axis): data rank r takes its rows
         of each microbatch, and the model ranks of one data group see
-        the same rows. ``device`` defaults to the mesh's device type
-        (or the params' device).
+        the same rows. ``batch_pspec[1]`` (``P("data", "context")``,
+        sequence parallelism) splits the sequence too: context rank c
+        takes columns ``[c*S/n, (c+1)*S/n)`` of its rows -- its
+        contiguous shard, or its zigzag chunk pair when the stream is
+        laid out in zigzag order -- and FSDP2 then runs over data x
+        context (``shard.fsdp_mesh``). ``device`` defaults to the
+        mesh's device type (or the params' device).
 
         ``eval_forward(params, model_state, batch) -> (loss, aux)``
         defaults to the training forward with state updates
@@ -897,6 +903,7 @@ class Trainer:
         self.mesh = mesh if _is_device_mesh(mesh) else None
         self.module = None
         self._data_shards, self._data_rank = 1, 0
+        self._seq_shards, self._seq_rank = 1, 0
         if self.mesh is not None:
             self.device = resolve_device(
                 device if device is not None else self.mesh.device_type)
@@ -909,6 +916,10 @@ class Trainer:
             if axis is not None and axis in self.mesh.mesh_dim_names:
                 self._data_shards = self.mesh[axis].size()
                 self._data_rank = self.mesh[axis].get_local_rank()
+            seq_axis = batch_pspec[1] if len(batch_pspec) > 1 else None
+            if seq_axis is not None and seq_axis in self.mesh.mesh_dim_names:
+                self._seq_shards = self.mesh[seq_axis].size()
+                self._seq_rank = self.mesh[seq_axis].get_local_rank()
             if cfg.global_batch_size % (self._data_shards
                                         * cfg.grad_accum_steps):
                 raise ValueError(
@@ -993,13 +1004,22 @@ class Trainer:
 
     def _to_device(self, batch):
         """The global batch -> this rank's rows on the device: of each
-        of the ``grad_accum`` microbatches, the data rank's slice."""
+        of the ``grad_accum`` microbatches, the data rank's slice; then,
+        over a context axis, the context rank's columns."""
         n, r = self._data_shards, self._data_rank
         if n > 1:
             accum = self.cfg.grad_accum_steps
             batch = tuple(
                 a.reshape(accum, n, a.shape[0] // (accum * n), *a.shape[1:])
                 [:, r].reshape(-1, *a.shape[1:]) for a in batch)
+        n, r = self._seq_shards, self._seq_rank
+        if n > 1:
+            seq = batch[0].shape[1]
+            if seq % n:
+                raise ValueError(f"seq {seq} not divisible by {n} context "
+                                 "shards")
+            s = seq // n
+            batch = tuple(a[:, r * s:(r + 1) * s].contiguous() for a in batch)
         return tuple(a.to(self.device, non_blocking=True) for a in batch)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
