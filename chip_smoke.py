@@ -147,6 +147,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     kernel launched layers x accum x updates x live
                     pairs times, update_s, tokens/s and peak memory
                     beside train's.
+     train_pp    -- pipeline parallelism: (a) bench.py's five llama-pp
+                    rows (1f1b, 1f1b on the flagship Llama, 1f1b-stash,
+                    gpipe, interleaved-1f1b) through run_train at the
+                    bench width (the stack model: vocab 32000, dim 1024,
+                    8 heads, 8 layers, seq 2048, bf16; microbatches 8 x
+                    4) on a one-rank NCCL world, a {"pipe": 1} mesh (one
+                    stage, as bench.py runs on one chip), two epochs of 3
+                    updates: tokens/s, MFU, update_s, peak memory and
+                    bubble_fraction beside train's, each flash kernel
+                    launched as the schedule implies (layers x
+                    microbatches x stage forwards or backwards per
+                    update); (b) each row at 4 stages through the
+                    in-process pipe on this card (2 layers a stage;
+                    interleaved-1f1b at 2 chunks of 1 layer): the first
+                    update's loss against (a)'s (equal bits expected,
+                    PP_LOSS_RTOL), its loss and every gradient under the
+                    bf16 rule against the sequential oracle (microbatch
+                    by microbatch, the flash kernels in it too), launches
+                    as predicted, and a control the rule must reject:
+                    the interleaved params left in sequential order.
   9. train_profile -- one more bench-Llama update under torch.profiler:
                     device time by kernel family, the top kernels, the
                     card's idle share. Reports; gates nothing.
@@ -168,13 +188,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     and quarantines the flipped one; (d) the supervised
                     CLI (2 layers) preempted at step 2 exits 75, resumes
                     and exits 0; (e) NaN and inf planted in q, k or v:
-                    the flash forward, dq and dk/dv and the 16-bit
-                    prefill give the non-finite rows of their plain
-                    versions. Then the update time with the guard off
-                    and on skip, in turns.
+                    the flash forward, dq and dk/dv, the prefill (the
+                    16-bit route, and the scalar route's float32 and
+                    mixed bf16-over-f16 cases) and the decode (bf16 and
+                    int8 pools, whose dead entries and pages past the
+                    last live one are NaN) give the non-finite rows of
+                    their plain versions. Then the update time with the
+                    guard off and on skip, in turns.
 
 Then the per-kernel summary line (the flash rows with their launches in
-train_sp (b) by mode), nvidia-smi's line, and last the
+train_sp (b) by mode and in train_pp (a) by bench row), nvidia-smi's
+line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -1469,6 +1493,311 @@ def train_sp_phase(torch, dev, train) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase 8c: pipeline parallelism
+# ---------------------------------------------------------------------
+
+# bench.py run_all's llama-pp rows (bench.py:1578-1588), in its order:
+# (schedule, model, backward).
+PP_ROWS = (("1f1b", "stack", "remat"), ("1f1b", "llama", "remat"),
+           ("1f1b", "stack", "stash"), ("gpipe", "stack", "remat"),
+           ("interleaved-1f1b", "stack", "remat"))
+PP_MICROBATCHES, PP_MICROBATCH_SIZE, PP_STAGES = 8, 4, 4
+# (b)'s loss at S = 4 against (a)'s first loss of the same row at S = 1:
+# the same per-layer ops on the same rows and the same accumulation
+# order, so equal bits are expected; the limit leaves room for a
+# summation order that would differ.
+PP_LOSS_RTOL = 1e-4
+
+
+def pp_forward_passes(schedule: str, backward: str, remat_stage: bool) -> int:
+    """Stage forwards a microbatch takes in one update: 1F1B (and
+    interleaved 1F1B) 3 with remat -- the forward, the backward
+    program's forward slot and the recompute -- and 2 with stash;
+    GPipe and interleaved 1, or 2 under remat_stage (the checkpoint's
+    recompute)."""
+    if schedule in ("1f1b", "interleaved-1f1b"):
+        return 3 if backward == "remat" else 2
+    return 2 if remat_stage else 1
+
+
+def pp_predicted_launches(schedule: str, backward: str, remat_stage: bool,
+                          n_layers: int, microbatches: int,
+                          updates: int = 1) -> dict:
+    """Each flash kernel's launches: one per layer, microbatch and
+    stage forward (the forward kernel) or backward (dq, dk/dv)."""
+    n = n_layers * microbatches * updates
+    return {"flash_attention_fwd":
+            pp_forward_passes(schedule, backward, remat_stage) * n,
+            "flash_attention_dq": n, "flash_attention_dkv": n}
+
+
+def pp_regroup(torch, stages: dict, n_stages: int, v: int,
+               interleave: bool = True) -> dict:
+    """A stack stage tree of one stage (``[1, ...]`` leaves, layer_0 ..
+    layer_{L-1}) as ``n_stages * v`` stages of ``L / (n_stages * v)``
+    layers, in the interleaved layout when v > 1 (unless ``interleave``
+    is False: the sequential stacking the interleaved schedule must not
+    be given): the same values, in the same global order."""
+    from tpu_hpc_torch.models.pipeline_transformer import _map
+    from tpu_hpc_torch.parallel import pp
+
+    g_all = n_stages * v
+    lps = len(stages) // g_all
+    per = [{f"layer_{j}": _map(lambda a: a[0],
+                               stages[f"layer_{g * lps + j}"])
+            for j in range(lps)} for g in range(g_all)]
+    out = pp.stack_stage_params(per)
+    return pp.interleave_stacked(out, n_stages) if v > 1 and interleave \
+        else out
+
+
+def pp_grad_readings(torch, got: dict, want: dict) -> dict:
+    """Every gradient leaf under the bf16 rule: the worst leaf's
+    reading and whether all pass."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.parallel import pp
+
+    paths, g = pp._flatten(got)
+    _, w = pp._flatten(want)
+    worst, ok = None, True
+    for path, a, b in zip(paths, g, w):
+        r = compare(a, b, torch.bfloat16)
+        ok = ok and r["ok"]
+        if worst is None or r["tol_used"] > worst["tol_used"]:
+            worst = {"leaf": "/".join(path), **r}
+    return {"ok": ok, "leaves": len(paths), "worst": worst}
+
+
+def _pp_in_process(torch, dev, cfg, row, batch, attn_fn, interleave=True):
+    """Row ``row`` at PP_STAGES stages through InProcessPipe: the loss,
+    the gradients (in the stacked layout) and each flash kernel's
+    launches, from the seed-0 init run_train gives the row."""
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.models import llama2, llama_pp
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.parallel.pp_transport import InProcessPipe
+    from tpu_hpc_torch.train.__main__ import SEED, pp_chunks
+
+    schedule, model, backward = row
+    v = pp_chunks(schedule, PP_STAGES, cfg.n_layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kw = dict(schedule=schedule, backward=backward, n_chunks=v,
+              remat_stage=schedule in ("gpipe", "interleaved"),
+              attn_fn=attn_fn)
+    if model == "llama":
+        full = llama2.init_llama(gen, cfg, dev)
+        params = llama_pp.split_params(full, cfg, PP_STAGES)
+        params = ptx._map(lambda a: a.detach().clone().requires_grad_(),
+                          params)
+        fwd = llama_pp.make_forward(cfg, InProcessPipe(PP_STAGES),
+                                    PP_MICROBATCHES, **kw)
+        seq = (full, None)
+    else:
+        one = ptx.PipeConfig(vocab_size=cfg.vocab_size, dim=cfg.dim,
+                             n_heads=cfg.n_heads, n_stages=1,
+                             layers_per_stage=cfg.n_layers,
+                             max_seq_len=cfg.max_seq_len, dtype=cfg.dtype)
+        full = ptx.init_pipeline_transformer(gen, one, dev)
+        params = dict(full, stages=pp_regroup(
+            torch, full["stages"], PP_STAGES, v, interleave))
+        params = ptx._map(lambda a: a.detach().clone().requires_grad_(),
+                          params)
+        pcfg = ptx.PipeConfig(vocab_size=cfg.vocab_size, dim=cfg.dim,
+                              n_heads=cfg.n_heads,
+                              n_stages=PP_STAGES * v,
+                              layers_per_stage=cfg.n_layers
+                              // (PP_STAGES * v),
+                              max_seq_len=cfg.max_seq_len, dtype=cfg.dtype)
+        fwd = ptx.make_forward(pcfg, InProcessPipe(PP_STAGES),
+                               PP_MICROBATCHES, **kw)
+        seq = (full, one)
+    zero_flash_launches()
+    loss, _, _ = fwd(params, {}, batch, None)
+    loss.backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = fa.kernel_launches()
+    grads = ptx._map(lambda a: a.grad, params)
+    return float(loss.detach()), grads, launches, seq, v, kw["remat_stage"]
+
+
+def _pp_oracle(torch, cfg, row, seq, batch, attn_fn, v, interleave=True):
+    """The sequential oracle's loss and gradients, microbatch by
+    microbatch (the mean of their means is the batch's), its
+    gradients in the pipelined run's layout."""
+    from tpu_hpc_torch.models import llama2, llama_pp
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.models.losses import cross_entropy
+
+    _, model, _ = row
+    full, one = seq
+    full = ptx._map(lambda a: a.detach().clone().requires_grad_(), full)
+    total = 0.0
+    rows = batch[0].shape[0] // PP_MICROBATCHES
+    for i in range(PP_MICROBATCHES):
+        tok, tgt = (a[i * rows:(i + 1) * rows] for a in batch)
+        logits = (llama2.apply_llama(full, tok, cfg, attn_fn=attn_fn)
+                  if model == "llama" else
+                  ptx.apply_sequential(full, tok, one, attn_fn))
+        loss = cross_entropy(logits, tgt) / PP_MICROBATCHES
+        loss.backward()
+        total += float(loss.detach())
+        del logits, loss
+    grads = ptx._map(lambda a: a.grad, full)
+    if model == "llama":
+        return total, llama_pp.split_params(grads, cfg, PP_STAGES)
+    return total, dict(grads, stages=pp_regroup(
+        torch, grads["stages"], PP_STAGES, v, interleave))
+
+
+def pp_failures(row_a, launches, expected, summary_launches) -> list:
+    """What fails a train_pp (a) row: a non-finite or missing loss, or a
+    flash kernel launched other than the schedule implies."""
+    import math
+
+    bad = []
+    losses = row_a["losses"]
+    if len(losses) != TRAIN_STEPS * TRAIN_EPOCHS \
+            or not all(math.isfinite(x) for x in losses):
+        bad.append(f"losses {losses}")
+    if launches != expected:
+        bad.append(f"flash launches {launches}, expected {expected}")
+    if launches != summary_launches:
+        bad.append("launch counts moved outside the run")
+    return bad
+
+
+def train_pp_phase(torch, dev, train) -> dict:
+    """Phase 8c, pipeline parallelism. (a) bench.py's five llama-pp
+    rows through run_train at the bench width on a one-rank NCCL world,
+    a {"pipe": 1} mesh (one stage: the degenerate ring bench.py runs on
+    one chip, the real code path): losses, tokens/s, MFU, update_s,
+    peak memory, bubble_fraction and each flash kernel's launches
+    against the schedule's count. (b) each row at PP_STAGES stages
+    through InProcessPipe on this card (the stack model at 2 layers a
+    stage, interleaved 1F1B at 2 chunks of 1 layer): the first update's
+    loss against (a)'s, its loss and gradients under the bf16 rule
+    against the sequential oracle, launches as predicted, and a control
+    the rule must reject: the interleaved params left in sequential
+    order. Returns (a)'s launches by row."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.__main__ import (
+        SEED,
+        PipeArgs,
+        bench_model_cfg,
+        run_train,
+    )
+
+    t0 = time.perf_counter()
+    cfg = bench_model_cfg()
+    runs = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"pipe": 1}), "cuda")
+        for row in PP_ROWS:
+            _release(torch)
+            zero_flash_launches()
+            args = PipeArgs(schedule=row[0], model=row[1], backward=row[2],
+                            microbatches=PP_MICROBATCHES,
+                            microbatch_size=PP_MICROBATCH_SIZE)
+            summary = run_train(cfg, steps=TRAIN_STEPS, epochs=TRAIN_EPOCHS,
+                                grad_accum_steps=1, device=dev, mesh=mesh,
+                                pp=args)
+            runs[row] = (summary, fa.kernel_launches())
+    finally:
+        dist.destroy_process_group()
+    out = {}
+    for row, (summary, launches) in runs.items():
+        expected = pp_predicted_launches(
+            row[0], row[2], summary["pp"]["remat_stage"], cfg.n_layers,
+            PP_MICROBATCHES, TRAIN_STEPS * TRAIN_EPOCHS)
+        emit("train_pp", check="a_bench_row", metric=summary["metric"],
+             schedule=row[0], pp_model=row[1], backward=row[2],
+             remat_stage=summary["pp"]["remat_stage"], mesh=summary["mesh"],
+             plan=summary["plan"], layout=summary["layout"], backend="nccl",
+             microbatches=PP_MICROBATCHES,
+             microbatch_size=PP_MICROBATCH_SIZE, updates=summary["updates"],
+             measured_updates=TRAIN_STEPS, launches=launches,
+             expected_launches=expected,
+             **{k: summary[k] for k in (
+                 "n_chunks", "bubble_fraction", "tokens_per_s",
+                 "tokens_per_s_per_device", "mfu", "update_s",
+                 "peak_memory_bytes", "flops_per_token", "n_params",
+                 "losses")},
+             train={k: train[k] for k in (
+                 "tokens_per_s", "update_s", "peak_memory_bytes", "mfu")})
+        bad = pp_failures(summary, launches, expected,
+                          summary["kernel_launches"])
+        if bad:
+            raise SystemExit(f"train_pp (a) {summary['metric']}: "
+                             + "; ".join(bad))
+        out[summary["metric"]] = launches
+
+    def attn_fn(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)[0]
+
+    ds = datasets.TokenStream(vocab_size=cfg.vocab_size,
+                              seq_len=cfg.max_seq_len, seed=SEED)
+    batch = tuple(a.to(dev) for a in ds.batch_at(
+        0, PP_MICROBATCHES * PP_MICROBATCH_SIZE))
+    for row in PP_ROWS:
+        _release(torch)
+        first = runs[row][0]["losses"][0]
+        loss, grads, launches, seq, v, remat_stage = _pp_in_process(
+            torch, dev, cfg, row, batch, attn_fn)
+        expected = pp_predicted_launches(row[0], row[2], remat_stage,
+                                         cfg.n_layers, PP_MICROBATCHES)
+        want_loss, want_grads = _pp_oracle(torch, cfg, row, seq, batch,
+                                           attn_fn, v)
+        loss_reading = compare(torch.tensor([[loss]]),
+                               torch.tensor([[want_loss]]), torch.bfloat16)
+        readings = pp_grad_readings(torch, grads, want_grads)
+        del grads, want_grads, seq
+        control = None
+        if v > 1:
+            _release(torch)
+            _, cgrads, _, cseq, _, _ = _pp_in_process(
+                torch, dev, cfg, row, batch, attn_fn, interleave=False)
+            _, cwant = _pp_oracle(torch, cfg, row, cseq, batch, attn_fn, v,
+                                  interleave=False)
+            control = pp_grad_readings(torch, cgrads, cwant)
+            del cgrads, cwant, cseq
+        rel = abs(loss - first) / abs(first)
+        emit("train_pp", check="b_in_process", schedule=row[0],
+             pp_model=row[1], backward=row[2], n_stages=PP_STAGES,
+             n_chunks=v, loss=loss, loss_s1=first,
+             loss_bit_equal_to_s1=loss == first, loss_rel_err_to_s1=rel,
+             loss_rtol=PP_LOSS_RTOL, oracle_loss=want_loss,
+             loss_vs_oracle=loss_reading, grads_vs_oracle=readings,
+             launches=launches, expected_launches=expected,
+             **({"control_not_interleaved": {
+                 "rejected": not control["ok"], **control}}
+                if control is not None else {}))
+        bad = []
+        if rel > PP_LOSS_RTOL:
+            bad.append(f"loss {loss} against (a)'s {first}")
+        if not (loss_reading["ok"] and readings["ok"]):
+            bad.append(f"against the oracle: loss {loss_reading}, "
+                       f"grads {readings['worst']}")
+        if launches != expected:
+            bad.append(f"flash launches {launches}, expected {expected}")
+        if control is not None and control["ok"]:
+            bad.append("the control (params not interleaved) passed")
+        if bad:
+            raise SystemExit(f"train_pp (b) {row}: " + "; ".join(bad))
+    emit("train_pp", check="cost", seconds=time.perf_counter() - t0)
+    return out
+
+
 def kernel_family(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
@@ -1642,6 +1971,19 @@ NONFINITE_PREFILL = (
     ("k_nan_key", "k", (3, 5, 7), "nan"),
     ("k_inf_key", "k", (6, 20, 9), "inf"),
 )
+# The prefill's pools and q dtypes: the wgmma route (bf16 over bf16) and
+# the scalar route's float32 and mixed 16-bit cases.
+NONFINITE_PREFILL_ROUTES = (("bfloat16", "bfloat16"), ("float32", "float32"),
+                            ("float16", "bfloat16"))
+# The decode (decode_case's 7B shape): a q row [slot, kv head, group,
+# d], and a live key or value (slot, position <= that slot's pos, kv
+# head, d); over an int8 pool the key's or value's page scale is
+# planted instead (an int8 page holds no NaN or inf).
+NONFINITE_DECODE = (
+    ("q_nan_row", "q", (0, 5, 0, 7), "nan"),
+    ("k_nan_live_key", "k", (1, 300, 11, 3), "nan"),
+    ("v_inf_live_key", "v", (4, 17, 20, 9), "inf"),
+)
 TRAIN_SHAPE = (4, 2048, 8, 128)
 
 
@@ -1705,26 +2047,69 @@ def flash_nonfinite(torch, dev, shape=TRAIN_SHAPE, cases=NONFINITE_FLASH):
     return out
 
 
-def prefill_nonfinite(torch, dev, cases=NONFINITE_PREFILL):
-    """The 16-bit prefill (the 7B chunk of 256 at start 256 over a bf16
-    pool, bf16 q) with one element of q or of a live key planted,
-    against its plain version."""
+def prefill_nonfinite(torch, dev, cases=NONFINITE_PREFILL,
+                      routes=NONFINITE_PREFILL_ROUTES):
+    """The prefill (the 7B chunk of 256 at start 256) over each route's
+    pool and q dtype, with one element of q or of a live key planted,
+    against its plain version (the rule of q's dtype)."""
     from tpu_hpc_torch.kernels import paged_attention as pa
 
     out = []
-    for name, which, idx, value in cases:
-        args, kw, _ = prefill_case(torch, dev, 32, 1, "bfloat16", 256,
-                                   torch.bfloat16)
-        q, k, v, table, start = args
-        if which == "q":
-            q[idx] = float(value)
-        else:
-            k[(int(table[0]),) + idx] = float(value)
-        got = pa.paged_prefill_attention(q, k, v, table, start, **kw)
-        want = pa.paged_prefill_attention_ref(q, k, v, table, start, **kw)
-        r = nonfinite_reading(torch, got, want, torch.bfloat16)
-        out.append({"case": name, "planted": which, "at": list(idx),
-                    "value": value, **r})
+    for pool, q_dtype in routes:
+        dtype = getattr(torch, q_dtype)
+        for name, which, idx, value in cases:
+            args, kw, _ = prefill_case(torch, dev, 32, 1, pool, 256, dtype)
+            q, k, v, table, start = args
+            if which == "q":
+                q[idx] = float(value)
+            else:
+                k[(int(table[0]),) + idx] = float(value)
+            got = pa.paged_prefill_attention(q, k, v, table, start, **kw)
+            want = pa.paged_prefill_attention_ref(q, k, v, table, start,
+                                                  **kw)
+            r = nonfinite_reading(torch, got, want, dtype)
+            route = (pa.paged_prefill_route(q.dtype, k.dtype, q.shape[-1],
+                                            kw["block_size"])
+                     if q.is_cuda else None)
+            out.append({"case": name, "pool": pool, "q_dtype": q_dtype,
+                        "route": route, "planted": which, "at": list(idx), "value": value,
+                        **r})
+    return out
+
+
+def decode_nonfinite(torch, dev, cases=NONFINITE_DECODE,
+                     pools=("bfloat16", "int8")):
+    """The decode (split, in-block merge and combine) at decode_case's 7B
+    shape, whose dead table entries and pages past each slot's last live
+    page are NaN, with one NaN or inf planted in a q row or in a key or
+    value the slot sees (over an int8 pool: that page's scale), against
+    its plain version. Rows of the other slots must stay finite."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    out = []
+    for pool in pools:
+        for name, which, idx, value in cases:
+            args, kw, _ = decode_case(torch, dev, 32, 1, pool == "int8")
+            q, k, v, tables = args[:4]
+            if which == "q":
+                q[idx] = float(value)
+            else:
+                slot, p, h, d = idx
+                page = int(tables[slot, p // kw["block_size"]])
+                if pool == "int8":
+                    kw[f"{which}_scale"][page] = float(value)
+                else:
+                    (k if which == "k" else v)[
+                        page, p % kw["block_size"], h, d] = float(value)
+            got = pa.paged_decode_attention(*args, **kw)
+            want = pa.paged_decode_attention_ref(*args, **kw)
+            r = nonfinite_reading(torch, got, want, torch.bfloat16)
+            n_split = (pa.paged_decode_splits(q.shape[0], q.shape[1],
+                                              q.shape[2], kw["max_blocks"])
+                       if q.is_cuda else None)
+            out.append({"case": name, "pool": pool, "planted": which,
+                        "at": list(idx), "value": value, "n_split": n_split,
+                        **r})
     return out
 
 
@@ -2023,6 +2408,9 @@ def train_resilience_phase(torch, dev) -> None:
     results["prefill_nonfinite"] = prefill_nonfinite(torch, dev)
     for r in results["prefill_nonfinite"]:
         emit("train_resilience", check="prefill_nonfinite", **r)
+    results["decode_nonfinite"] = decode_nonfinite(torch, dev)
+    for r in results["decode_nonfinite"]:
+        emit("train_resilience", check="decode_nonfinite", **r)
     upd = guard_update_s(torch, dev, cfg)
     emit("train_resilience", check="guard_update_s", model="bench",
          microbatch=TRAIN_BATCH // TRAIN_ACCUM, grad_accum=TRAIN_ACCUM, **upd)
@@ -2642,6 +3030,10 @@ def main() -> int:
     #        run_train with each --sp-mode on a one-rank NCCL world
     sp_launches = train_sp_phase(torch, dev, train)
     torch.cuda.empty_cache()
+    # -- 8c. pipeline parallelism: bench.py's five llama-pp rows at S = 1
+    #        on a one-rank NCCL world, then at S = 4 on this card
+    pp_launches = train_pp_phase(torch, dev, train)
+    _release(torch)
     # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
@@ -2667,10 +3059,13 @@ def main() -> int:
                 k: spec_launches[k] for k in ("draft", "verify")}
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
-        # The flash kernels' launches in train_sp (b), by --sp-mode.
+        # The flash kernels' launches in train_sp (b), by --sp-mode, and
+        # in train_pp (a), by bench row.
         if entry["name"] in FLASH_KERNEL_NAMES:
             entry["train_sp_launches"] = {
                 mode: n[entry["name"]] for mode, n in sp_launches.items()}
+            entry["train_pp_launches"] = {
+                row: n[entry["name"]] for row, n in pp_launches.items()}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -515,3 +515,189 @@ def test_sp_failures(ok, control_ok, launches, same, failures):
         readings, control, {"flash_attention_fwd": launches,
                             "flash_attention_dq": 10}, 10, same)
     assert len(got) == failures
+
+
+# ---------------------------------------------------------------------
+# train_pp's helpers, and the decode's non-finite cases
+# ---------------------------------------------------------------------
+
+def test_phase_list_names_train_pp_after_train_sp():
+    """train_pp follows train_sp and comes before the profile, in the
+    docstring and in main."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *train_sp ", r"^ *train_pp ", r"^ *9\. train_profile ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_sp_phase(", "train_pp_phase(", "train_profile_phase(")]
+    assert calls == sorted(calls)
+
+
+def test_pp_rows_are_the_bench_rows():
+    """bench.py run_all's five llama-pp rows, in its order."""
+    assert chip_smoke.PP_ROWS == (
+        ("1f1b", "stack", "remat"), ("1f1b", "llama", "remat"),
+        ("1f1b", "stack", "stash"), ("gpipe", "stack", "remat"),
+        ("interleaved-1f1b", "stack", "remat"))
+
+
+@pytest.mark.parametrize("schedule, backward, remat_stage, fwd", [
+    ("1f1b", "remat", False, 192), ("interleaved-1f1b", "remat", False, 192),
+    ("1f1b", "stash", False, 128), ("interleaved-1f1b", "stash", False, 128),
+    ("gpipe", "remat", True, 128), ("interleaved", "remat", True, 128),
+    ("gpipe", "remat", False, 64),
+])
+def test_pp_predicted_launches_per_bench_update(schedule, backward,
+                                                remat_stage, fwd):
+    """8 layers x 8 microbatches: forward launches 3, 2 or 1 per layer
+    and microbatch, dq and dk/dv one each; six updates are six times."""
+    got = chip_smoke.pp_predicted_launches(schedule, backward, remat_stage,
+                                           8, 8)
+    assert got == {"flash_attention_fwd": fwd, "flash_attention_dq": 64,
+                   "flash_attention_dkv": 64}
+    six = chip_smoke.pp_predicted_launches(schedule, backward, remat_stage,
+                                           8, 8, updates=6)
+    assert six == {k: 6 * n for k, n in got.items()}
+
+
+@pytest.mark.parametrize("row", [
+    ("1f1b", "remat", 1), ("1f1b", "stash", 1), ("gpipe", "remat", 1),
+    ("interleaved", "remat", 2), ("interleaved-1f1b", "remat", 2),
+    ("interleaved-1f1b", "stash", 2)])
+def test_pp_predicted_launches_equal_the_driver(monkeypatch, row):
+    """The stage attention's forward, dq and dk/dv calls of one pipelined
+    update at 4 stages, counted where the wrappers launch their kernels
+    (on the CPU they run the plain versions), equal the prediction."""
+    import torch
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.parallel.pp_transport import InProcessPipe
+
+    calls = {n: 0 for n in fa.FLASH_KERNELS}
+    for name in fa.FLASH_KERNELS:
+        orig = getattr(fa, name)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(fa, name, counted)
+    schedule, backward, v = row
+    remat_stage = schedule in ("gpipe", "interleaved")
+    n_layers, m = 8, 4
+    cfg = ptx.PipeConfig(vocab_size=32, dim=16, n_heads=2, n_stages=4 * v,
+                         layers_per_stage=n_layers // (4 * v),
+                         max_seq_len=8)
+    params = ptx.init_pipeline_transformer(torch.Generator().manual_seed(0),
+                                           cfg)
+    forward = ptx.make_forward(
+        cfg, InProcessPipe(4), m, schedule=schedule, backward=backward,
+        remat_stage=remat_stage, n_chunks=v,
+        attn_fn=lambda q, k, v_: fa.blockwise_attention(
+            q, k, v_, causal=True, impl="cuda")[0])
+    params = ptx._map(lambda a: a.requires_grad_(), params)
+    tok = torch.randint(0, 32, (8, 8))
+    forward(params, {}, (tok, tok), None)[0].backward()
+    assert calls == chip_smoke.pp_predicted_launches(
+        schedule, backward, remat_stage, n_layers, m)
+
+
+def test_pp_regroup_keeps_the_global_layer_order():
+    import torch
+
+    from tpu_hpc_torch.parallel import pp
+
+    stages = {f"layer_{i}": {"w": torch.full((1, 2), float(i))}
+              for i in range(8)}
+    four = chip_smoke.pp_regroup(torch, stages, 4, 1)
+    assert four["layer_1"]["w"][:, 0].tolist() == [1, 3, 5, 7]
+    eight = chip_smoke.pp_regroup(torch, stages, 4, 2)
+    seq = chip_smoke.pp_regroup(torch, stages, 4, 2, interleave=False)
+    assert seq["layer_0"]["w"][:, 0].tolist() == list(range(8))
+    assert eight["layer_0"]["w"][:, 0].tolist() == \
+        pp.interleave_stacked(seq, 4)["layer_0"]["w"][:, 0].tolist() == \
+        [0, 4, 1, 5, 2, 6, 3, 7]
+
+
+def test_train_pp_in_process_checks_run_on_cpu():
+    """(b) at a tiny width on the CPU: the 4-stage loss equals the
+    1-stage run's bit for bit (the same attention path), loss and
+    gradients pass the bf16 rule against the oracle, and the control
+    (interleaved params in sequential order) is rejected."""
+    import torch
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.train.__main__ import (
+        PipeArgs,
+        bench_model_cfg,
+        run_train,
+    )
+
+    cfg = bench_model_cfg(16, dim=32, n_layers=8, n_heads=2, vocab_size=64,
+                          multiple_of=16)
+    dev = torch.device("cpu")
+
+    def attn(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)[0]
+
+    batch = datasets.TokenStream(vocab_size=64, seq_len=16, seed=0
+                                 ).batch_at(0, 32)
+    row = ("interleaved-1f1b", "stack", "remat")
+    first = run_train(cfg, steps=1, epochs=1, grad_accum_steps=1,
+                      device=dev, pp=PipeArgs(*row))["losses"][0]
+    loss, grads, _, seq, v, _ = chip_smoke._pp_in_process(
+        torch, dev, cfg, row, batch, attn)
+    assert v == 2 and loss == first
+    want_loss, want = chip_smoke._pp_oracle(torch, cfg, row, seq, batch,
+                                            attn, v)
+    assert compare(torch.tensor([[loss]]), torch.tensor([[want_loss]]),
+                   torch.bfloat16)["ok"]
+    assert chip_smoke.pp_grad_readings(torch, grads, want)["ok"]
+    _, cgrads, _, cseq, _, _ = chip_smoke._pp_in_process(
+        torch, dev, cfg, row, batch, attn, interleave=False)
+    _, cwant = chip_smoke._pp_oracle(torch, cfg, row, cseq, batch, attn, v,
+                                     interleave=False)
+    assert not chip_smoke.pp_grad_readings(torch, cgrads, cwant)["ok"]
+
+
+@pytest.mark.parametrize("losses, launches, moved, failures", [
+    ([2.0] * 6, 10, False, 0),
+    ([2.0] * 5, 10, False, 1),
+    ([2.0] * 5 + [float("nan")], 10, False, 1),
+    ([2.0] * 6, 9, False, 1),
+    ([2.0] * 6, 10, True, 1),
+])
+def test_pp_failures(losses, launches, moved, failures):
+    want = {"flash_attention_fwd": 10}
+    got = {"flash_attention_fwd": launches}
+    summary = {"flash_attention_fwd": launches + 1 if moved else launches}
+    assert len(chip_smoke.pp_failures({"losses": losses}, got, want,
+                                      summary)) == failures
+
+
+def test_decode_and_scalar_prefill_nonfinite_run_on_cpu_tensors():
+    """The new non-finite cases run end to end on CPU tensors (plain
+    versions on both sides): the planted rows and only they come out
+    non-finite, one per case, a whole slot's heads over an int8 page
+    scale."""
+    import torch
+
+    rows = chip_smoke.decode_nonfinite(torch, torch.device("cpu"))
+    assert [(r["pool"], r["case"]) for r in rows] == [
+        (p, c[0]) for p in ("bfloat16", "int8")
+        for c in chip_smoke.NONFINITE_DECODE]
+    assert all(r["ok"] and r["nonfinite"] >= 1 for r in rows)
+    assert [r["nonfinite"] for r in rows] == [1, 1, 1, 1, 32, 32]
+    rows = chip_smoke.prefill_nonfinite(
+        torch, torch.device("cpu"), cases=chip_smoke.NONFINITE_PREFILL[:1],
+        routes=chip_smoke.NONFINITE_PREFILL_ROUTES[1:])
+    assert [(r["pool"], r["q_dtype"]) for r in rows] == [
+        ("float32", "float32"), ("float16", "bfloat16")]
+    assert all(r["ok"] and r["nonfinite"] == 1 for r in rows)

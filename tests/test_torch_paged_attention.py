@@ -441,6 +441,61 @@ def test_prefill_int8_pool_under_16bit_q_matches_pallas_kernel(g, start,
 
 
 # ---------------------------------------------------------------------
+# Non-finite scores
+# ---------------------------------------------------------------------
+
+
+def _plant(kernel, planted, q, kp, tables, pos):
+    """One NaN in a q row or in a key the row sees (slot 0 is active;
+    for the prefill, a key of the first live page, seen by every row)."""
+    if planted == "q_nan_row":
+        q[(0, 1, 0, 3) if kernel == "decode" else (1, 5, 0, 3)] = np.nan
+    elif kernel == "decode":
+        kp[tables[0, int(pos[0]) // 4], int(pos[0]) % 4, 1, 2] = np.nan
+    else:
+        kp[tables[0], 1, 0, 5] = np.nan
+
+
+@pytest.mark.parametrize("planted", ["k_nan_live_key", "q_nan_row"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_nonfinite_rows_match_pallas_kernel(kernel, planted):
+    """The plain versions the card's kernels are held to keep a NaN
+    score's row NaN, as the Pallas kernels' online softmax does (its
+    running max takes the NaN): the same rows come out non-finite, the
+    others agree at the file's limits, and the poisoned dead page
+    stays out."""
+    rng = np.random.default_rng(70)
+    q, kp, vp, tables, pos, active = _random_case(rng, g=2)
+    if kernel == "prefill":
+        start, bucket, mb = 5, 8, 6
+        tables = _table_row(rng, kp.shape[0], mb, -(-(start + bucket) // 4))
+        q = rng.standard_normal((2, bucket, 2, 16)).astype(np.float32)
+    _plant(kernel, planted, q, kp, tables, pos)
+    if kernel == "decode":
+        want = np.asarray(jax_pa.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active),
+            block_size=4, max_blocks=6, interpret=True))
+        got = pt_pa.paged_decode_attention(
+            _t(q), _t(kp), _t(vp), _t(tables), _t(pos), _t(active),
+            block_size=4, max_blocks=6).numpy()
+    else:
+        want = np.asarray(jax_pa.paged_prefill_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tables), jnp.asarray(start, jnp.int32),
+            block_size=4, max_blocks=mb, interpret=True))
+        got = pt_pa.paged_prefill_attention(
+            _t(q), _t(kp), _t(vp), _t(tables), start,
+            block_size=4, max_blocks=mb).numpy()
+    bad_want = ~np.isfinite(want).all(axis=-1)
+    bad_got = ~np.isfinite(got).all(axis=-1)
+    assert bad_want.any() and not bad_want.all()
+    np.testing.assert_array_equal(bad_got, bad_want)
+    np.testing.assert_allclose(got[~bad_got], want[~bad_want],
+                               atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------
 # int8 quantization
 # ---------------------------------------------------------------------
 

@@ -474,6 +474,9 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.parallel.ring_attention\n"
         "import tpu_hpc_torch.parallel.sp_ulysses\n"
         "import tpu_hpc_torch.parallel.sp_transport\n"
+        "import tpu_hpc_torch.parallel.pp, tpu_hpc_torch.parallel.pp_transport\n"
+        "import tpu_hpc_torch.models.pipeline_transformer\n"
+        "import tpu_hpc_torch.models.llama_pp\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"

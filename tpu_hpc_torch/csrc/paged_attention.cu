@@ -256,17 +256,19 @@ __device__ __forceinline__ float pool_round(float p) {
 // a 16-bit pool's dtype by pool_round); m, l (the sum of the unrounded
 // probabilities) and the rescale factor alpha are updated as in the
 // Pallas kernels (m_safe keeps a fully masked row at exp(.) = 0 instead
-// of exp(0) = 1).
+// of exp(0) = 1). A NaN score keeps its max (fmax_nan, as jnp.max) and
+// its probability: only a masked score is kept out of P, so the row
+// comes out NaN as from the JAX kernel.
 template <typename KT>
 __device__ __forceinline__ void softmax_step(float* s, int bs, float* m,
                                              float* l, float* alpha) {
   const float m_prev = *m;
   float mx = m_prev;
-  for (int t = 0; t < bs; ++t) mx = fmaxf(mx, s[t]);
+  for (int t = 0; t < bs; ++t) mx = fmax_nan(mx, s[t]);
   const float m_safe = (mx <= kMaskValue * 0.5f) ? 0.f : mx;
   float sum = 0.f;
   for (int t = 0; t < bs; ++t) {
-    const float p = (s[t] > kMaskValue * 0.5f) ? expf(s[t] - m_safe) : 0.f;
+    const float p = !(s[t] <= kMaskValue * 0.5f) ? expf(s[t] - m_safe) : 0.f;
     s[t] = pool_round<KT>(p);
     sum += p;
   }
@@ -560,20 +562,21 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
         s[j][r] = seen ? part * k_sc * scale2 : kMaskValue;
       }
     }
-    // Online softmax over them, per row.
+    // Online softmax over them, per row; a NaN score keeps the max and P
+    // (as the JAX kernel, whose row then comes out NaN).
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       float mx = m[r];
 #pragma unroll
       for (int j = 0; j < kDecodeKeysPerGroup; ++j)
-        if (j < kpg) mx = fmaxf(mx, s[j][r]);
+        if (j < kpg) mx = fmax_nan(mx, s[j][r]);
       const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
       const float alpha = exp2f(m[r] - m_safe);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kDecodeKeysPerGroup; ++j) {
         if (j < kpg) {
-          const float p = s[j][r] > kMaskValue * 0.5f ? exp2f(s[j][r] - m_safe) : 0.f;
+          const float p = !(s[j][r] <= kMaskValue * 0.5f) ? exp2f(s[j][r] - m_safe) : 0.f;
           s[j][r] = p;
           sum += p;
         }
@@ -625,7 +628,7 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
   __syncthreads();
   for (int r = tid; r < n_rows; r += kDecodeThreads) {
     float mx = kMaskValue;
-    for (int i = 0; i < kGroups; ++i) mx = fmaxf(mx, m_s[i * kRows + r]);
+    for (int i = 0; i < kGroups; ++i) mx = fmax_nan(mx, m_s[i * kRows + r]);
     const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
     float total = 0.f;
     for (int i = 0; i < kGroups; ++i) {
@@ -661,7 +664,8 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
 // lse_merge, summed over the runs in order. The runs that saw a key are
 // a prefix (those that start at or before pos); only they were written,
 // and only they are read. An inactive slot's runs all saw none: its
-// output is zeros, and nothing but its lse is read.
+// output is zeros, and nothing but its lse is read. A NaN lse (a run
+// that saw a NaN score) counts as live and makes the row NaN.
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
     const float* __restrict__ o_part,    // (slots, hkv, runs, g, d)
     const float* __restrict__ lse_part,  // (slots, hkv, runs, g)
@@ -677,8 +681,8 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
     int n_live = 0;
     for (int i = 0; i < n_split; ++i) {
       const float x = lse[i * g];
-      mx = fmaxf(mx, x);
-      n_live += x > kMaskValue * 0.5f;
+      mx = fmax_nan(mx, x);
+      n_live += !(x <= kMaskValue * 0.5f);
     }
     const float m_safe = mx <= kMaskValue * 0.5f ? 0.f : mx;
     float denom = 0.f;

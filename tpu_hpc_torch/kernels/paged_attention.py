@@ -35,6 +35,16 @@ decode and ``(kv_heads, bucket, group, d)`` for prefill, pages
 or int8; int8 pages carry one f32 scale per page
 (:func:`quantize_pages_int8` is the single write-side definition) and
 are dequantized as they are read.
+
+Non-finite values follow the JAX kernels. Each row max keeps a NaN (as
+``jnp.max``): a row that sees a NaN score -- a NaN in its q row or in a
+key it sees -- comes out NaN, and an inf in a value it sees comes out
+non-finite. That holds for every decode pass (the split, its in-block
+merge and the combine) and every prefill route (wgmma, wgmma_int8 and
+scalar), and for their plain versions. Keys past a row's position are
+masked before the max, an inactive slot gives zeros and reads no page,
+and dead table entries and pages past the last live one are never read:
+a NaN there does not reach the output.
 """
 from __future__ import annotations
 
@@ -144,12 +154,17 @@ def _decode_view(q, k_pages, v_pages, tables, pos, active, block_size,
 def _decode_part(q, k, v, valid, sm_scale, pool_dtype):
     """fp32 attention of the decode rows over the keys ``valid`` marks:
     the output normalised by its own sum, and the natural-log lse
-    (MASK_VALUE for a row that sees no key, whose output is 0)."""
+    (MASK_VALUE for a row that sees no key, whose output is 0). A row
+    that sees a NaN score (a NaN q row, or a NaN key it sees) comes out
+    NaN, lse included, as from the kernels' online softmax and the JAX
+    kernel's."""
     s = torch.einsum("shgd,slhd->shgl", q.to(torch.float32), k) * sm_scale
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
     p, l_safe = _softmax_rows(s)
     out = torch.einsum("shgl,slhd->shgd", _pool_round(p, pool_dtype), v) / l_safe
     m = s.amax(dim=-1)
+    out = torch.where(torch.isnan(m)[..., None],
+                      torch.full_like(out, float("nan")), out)
     lse = torch.where(m <= MASK_VALUE * 0.5, torch.full_like(m, MASK_VALUE),
                       m + torch.log(l_safe[..., 0]))
     return out, lse

@@ -21,6 +21,15 @@ FSDP2 shards every param of a unit: a leaf the plan keeps whole on
 ``data`` (under ``min_size``, or with no divisible dim) is sharded on
 dim 0, padded where uneven. The numerics do not depend on the layout.
 
+On a mesh with a ``pipe`` axis (pipeline parallelism, ``parallel.pp``)
+every leaf becomes a DTensor on the ``pipe`` sub-mesh instead --
+``Shard(0)`` for a stage leaf, whose spec names the axis on its stacked
+dim (``pp.stage_pspecs``), ``Replicate()`` for the edges -- and FSDP2
+is not applied: the pipeline keeps the params whole over ``data``, as
+the JAX bench's ``pp_pspecs`` do, and sums the stage gradients over the
+data ranks itself. The placements tell the trainer's global norm which
+ranks hold the same shard.
+
 :func:`shard_params` takes the full tree (numpy arrays or tensors, the
 same on every rank, e.g. a JAX param tree fetched to the host);
 :func:`gather_params` brings the whole tree back as numpy on every
@@ -94,21 +103,29 @@ def shard_params(
     data_axis: str = "data",
     model_axis: str = "model",
     context_axis: str = "context",
+    pipe_axis: str = "pipe",
     device: Any = "cuda",
 ) -> ParamTree:
     """The full tree ``params`` (numpy arrays or tensors) -> a
     :class:`ParamTree` on ``device`` laid out by ``specs`` over
     ``mesh`` (a ``DeviceMesh`` naming ``data_axis`` and/or
     ``model_axis``): TP DTensors on the model sub-mesh, then FSDP2 over
-    :func:`fsdp_mesh`. Each leaf keeps its dtype."""
+    :func:`fsdp_mesh`; or, on a mesh naming ``pipe_axis``, DTensors on
+    the pipe sub-mesh and no FSDP2. Each leaf keeps its dtype."""
     from torch.distributed.tensor import Shard, distribute_tensor
 
     names = mesh.mesh_dim_names or ()
     tp_mesh = None
-    if model_axis in names and any(_dim_of(spec, model_axis) is not None
-                                   for spec in tree_specs(specs)):
-        tp_mesh = mesh[model_axis]
     dp_mesh = fsdp_mesh(mesh, data_axis, context_axis)
+    if pipe_axis in names:
+        if model_axis in names or context_axis in names:
+            raise ValueError(
+                f"mesh {names}: a pipe axis composes with data only "
+                "(PP x TP and PP x SP are not ported, ROADMAP queue 1)")
+        tp_mesh, dp_mesh = mesh[pipe_axis], None
+    elif model_axis in names and any(_dim_of(spec, model_axis) is not None
+                                     for spec in tree_specs(specs)):
+        tp_mesh = mesh[model_axis]
     device = torch.device(device)
     data_dims: Dict[int, Optional[int]] = {}
 

@@ -39,12 +39,40 @@ example:
 ``--sp-mode`` with ``--model`` above 1 is refused: the JAX bench never
 combines TP and context parallelism, and neither does the port yet.
 
+Pipeline parallelism (bench.py ``--workload llama-pp``,
+``bench_llama_pp``): any ``--pp-*`` flag trains the pipelined model over
+a ``{"pipe": S}`` mesh, or ``{"data": d, "pipe": S}`` with ``--data d``
+(S = the world over d; one process runs one stage). ``--pp-schedule``
+gpipe|1f1b|interleaved|interleaved-1f1b (default 1f1b), ``--pp-model``
+stack (the bench's PipelineTransformer at the bench width: vocab 32000,
+dim 1024, 8 heads, 8 layers, seq 2048, bf16 compute, fp32 params) or
+llama (the bench Llama, stage-split), ``--pp-backward`` remat|stash (the
+1F1B schedules' backward), ``--pp-microbatches`` M (default 8) of
+``--pp-microbatch-size`` rows (default 4): the global batch is M x that,
+each microbatch's rows split over the data ranks. The interleaved
+schedules take 2 chunks a stage when S > 1 and the depth divides into
+2S stages; gpipe and interleaved checkpoint each stage
+(``remat_stage``). The flash kernels run inside every stage. For
+example, on the CPU:
+
+    torchrun --nproc-per-node 4 -m tpu_hpc_torch.train --device cpu \
+        --pp-schedule 1f1b --dim 64 --n-layers 4 --n-heads 4 --vocab 128 \
+        --seq-len 32 --steps 2 --epochs 1 --pp-microbatches 4 \
+        --pp-microbatch-size 2
+
+``--pp-runtime mpmd`` (the MPMD runtime), a pipe axis with ``--model``
+above 1 and ``--pp-*`` with ``--sp-mode`` are refused: the JAX bench
+composes neither, and the MPMD runtime is not ported (ROADMAP queue 1
+item 1).
+
 Rank 0 prints one JSON line: the device's name and the world size, the
 mesh and plan, tokens/s (the whole job's, and per device), MFU against
 the world's peak from ``checks/roofline.py`` (bench.py's formula:
 tokens/s x ``flops_per_token(seq)`` / (peak x world)), the loss of every
 update, the three flash kernels' launch counts and tile rows (null on
-the CPU, where no kernel runs), and the peak device memory.
+the CPU, where no kernel runs), and the peak device memory; a pipeline
+run adds its schedule, ``n_chunks`` and ``bubble_fraction``, under the
+metric ``pp_{schedule}{-stash}{-llama}_tokens_per_s_per_chip``.
 ``--device cpu`` with the model-size flags rehearses the run at a tiny
 size (the kernels' plain versions; no launches). Without ``--device
 cpu`` on a machine with no card it is an argparse error naming the
@@ -68,6 +96,7 @@ code is 0, 75 (preempted) or 77 (rolled back).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from typing import Optional, Sequence
@@ -163,6 +192,100 @@ def sp_attention(sp_mode: str, mesh, model_cfg: llama2.LlamaConfig,
     return attn_fn, positions, (n if zigzag else None)
 
 
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved", "interleaved-1f1b")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeArgs:
+    """bench.py's ``bench_llama_pp`` knobs (its CLI defaults)."""
+
+    schedule: str = "1f1b"
+    model: str = "stack"
+    backward: str = "remat"
+    microbatches: int = 8
+    microbatch_size: int = 4
+
+    def metric(self) -> str:
+        """bench.py's record name (bench.py:639-651)."""
+        tag = (f"-{self.backward}" if self.schedule in (
+            "1f1b", "interleaved-1f1b") and self.backward != "remat"
+            else "") + ("-llama" if self.model == "llama" else "")
+        return f"pp_{self.schedule}{tag}_tokens_per_s_per_chip"
+
+
+def pp_chunks(schedule: str, n_stages: int, depth: int) -> int:
+    """bench.py's rule (bench.py:530-535): 2 chunks a stage on the
+    interleaved schedules when S > 1 and the depth divides into 2S
+    stages, else 1."""
+    if schedule in ("interleaved", "interleaved-1f1b") and n_stages > 1 \
+            and depth % (2 * n_stages) == 0:
+        return 2
+    return 1
+
+
+def pipe_model(model_cfg: llama2.LlamaConfig, args: PipeArgs, mesh, device,
+               attn: str = "flash"):
+    """bench_llama_pp's model (bench.py:521-623) over ``mesh``'s pipe
+    axis (None: one stage in this process): ``(forward, params, specs,
+    flops_cfg, n_chunks)``. ``model_cfg`` gives the width, depth,
+    sequence and compute dtype: ``stack`` builds the PipelineTransformer
+    from them, ``llama`` stage-splits the Llama itself. The stages'
+    attention is the flash kernels (``blockwise_attention``,
+    ``impl="auto"``) or, with ``attn="reference"``, the einsum path."""
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.models import llama_pp
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.parallel import pp
+    from tpu_hpc_torch.parallel.plans import P
+    from tpu_hpc_torch.parallel.pp_transport import InProcessPipe
+    from tpu_hpc_torch.runtime.mesh import mesh_axis_size
+
+    if args.schedule not in PP_SCHEDULES:
+        raise ValueError(f"unknown pp schedule {args.schedule!r}")
+    if args.model not in ("stack", "llama"):
+        raise ValueError(f"unknown pp model {args.model!r} (stack|llama)")
+    n_stages = mesh_axis_size(mesh, "pipe")
+    depth = model_cfg.n_layers
+    v = pp_chunks(args.schedule, n_stages, depth)
+    # bench.py:565-573: the autodiff schedules checkpoint each stage.
+    remat_stage = args.schedule in ("gpipe", "interleaved")
+    names = mesh.mesh_dim_names if mesh is not None else ()
+    kw = dict(schedule=args.schedule, backward=args.backward,
+              batch_spec=P(None, "data") if "data" in names else P(),
+              remat_stage=remat_stage, n_chunks=v)
+    transport = mesh if mesh is not None else InProcessPipe(1)
+    attn_fn = None
+    if attn == "flash":
+        def attn_fn(q, k, v_):
+            return blockwise_attention(q, k, v_, causal=True)[0]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if args.model == "llama":
+        if depth % (n_stages * v):
+            raise ValueError(
+                f"llama pp needs n_layers {depth} divisible by stages "
+                f"{n_stages} x chunks {v}")
+        full = llama2.init_llama(gen, model_cfg, device)
+        params = (llama_pp.split_params_interleaved(full, model_cfg,
+                                                    n_stages, v)
+                  if v > 1 else
+                  llama_pp.split_params(full, model_cfg, n_stages))
+        del full
+        forward = llama_pp.make_forward(
+            model_cfg, transport, args.microbatches, attn_fn=attn_fn, **kw)
+        return (forward, params, llama_pp.pp_pspecs(params), model_cfg, v)
+    pcfg = ptx.PipeConfig(
+        vocab_size=model_cfg.vocab_size, dim=model_cfg.dim,
+        n_heads=model_cfg.n_heads, n_stages=n_stages * v,
+        layers_per_stage=max(depth // (n_stages * v), 1),
+        max_seq_len=model_cfg.max_seq_len, dtype=model_cfg.dtype)
+    params = ptx.init_pipeline_transformer(gen, pcfg, device)
+    if v > 1:
+        params["stages"] = pp.interleave_stacked(params["stages"], n_stages)
+    forward = ptx.make_forward(pcfg, transport, args.microbatches,
+                               attn_fn=attn_fn, **kw)
+    return forward, params, ptx.pp_pspecs(params), pcfg, v
+
+
 def build_trainer(
     model_cfg: llama2.LlamaConfig,
     *,
@@ -181,6 +304,7 @@ def build_trainer(
     resume: bool = True,
     metrics_path: str = "",
     sp_mode: Optional[str] = None,
+    pp: Optional[PipeArgs] = None,
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
@@ -202,8 +326,11 @@ def build_trainer(
     ``batch`` is each data rank's: the global batch is ``batch`` x the
     data axis, as in bench.py. ``sp_mode`` (ring, zigzag, ulysses):
     sequence parallelism over ``mesh``'s context axis
-    (:func:`sp_attention`), the batch split ``P("data", "context")``."""
-    from tpu_hpc_torch.config import TrainingConfig
+    (:func:`sp_attention`), the batch split ``P("data", "context")``.
+    ``pp``: pipeline parallelism over ``mesh``'s pipe axis
+    (:func:`pipe_model`; ``batch`` and ``plan`` are then unused: the
+    global batch is ``pp.microbatches x pp.microbatch_size``, each
+    microbatch's rows split over ``data``)."""
     from tpu_hpc_torch.models import datasets
     from tpu_hpc_torch.parallel import fsdp, hybrid, tp
     from tpu_hpc_torch.parallel.plans import P
@@ -212,6 +339,14 @@ def build_trainer(
     from tpu_hpc_torch.train.trainer import Trainer
 
     device = resolve_device(device)
+    if pp is not None:
+        return _build_pipe_trainer(
+            model_cfg, pp, steps=steps, epochs=epochs,
+            grad_accum_steps=grad_accum_steps, attn=attn,
+            moments_dtype=moments_dtype, device=device, mesh=mesh,
+            sp_mode=sp_mode, guard_mode=guard_mode,
+            checkpoint_dir=checkpoint_dir, save_every=save_every,
+            resume=resume, metrics_path=metrics_path)
     plan = resolve_plan(plan, mesh, sp_mode)
     dp_size = mesh_axis_size(mesh, "data")
     cp_size = mesh_axis_size(mesh, "context")
@@ -243,9 +378,33 @@ def build_trainer(
     elif attn == "flash":
         attn_fn = tp.make_tp_flash_attn_fn(
             mesh, "data", "model" if plan == "hybrid" else None)
+    cfg, manager = _config_and_manager(
+        batch * dp_size, steps=steps, epochs=epochs,
+        grad_accum_steps=grad_accum_steps, moments_dtype=moments_dtype,
+        guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
+        save_every=save_every, resume=resume, metrics_path=metrics_path)
+    ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
+                              seq_len=model_cfg.max_seq_len, seed=SEED,
+                              zigzag_ring=zigzag_ring)
+    # The trainer keeps its own copy of the params.
+    return Trainer(cfg, mesh,
+                   llama2.make_forward(model_cfg, constrain, attn_fn,
+                                       positions),
+                   params, param_pspecs=specs,
+                   batch_pspec=P("data", "context"),
+                   checkpoint_manager=manager, device=device), ds
+
+
+def _config_and_manager(global_batch: int, *, steps, epochs,
+                        grad_accum_steps, moments_dtype, guard_mode,
+                        checkpoint_dir, save_every, resume, metrics_path):
+    """bench.py's TrainingConfig for the run, and its CheckpointManager
+    (None without a checkpoint dir)."""
+    from tpu_hpc_torch.config import TrainingConfig
+
     cfg = TrainingConfig(
         epochs=epochs, steps_per_epoch=steps,
-        global_batch_size=batch * dp_size,
+        global_batch_size=global_batch,
         learning_rate=LEARNING_RATE, weight_decay=WEIGHT_DECAY,
         grad_accum_steps=grad_accum_steps, adam_moments_dtype=moments_dtype,
         seed=SEED, guard_mode=guard_mode, save_every=save_every,
@@ -257,16 +416,42 @@ def build_trainer(
         from tpu_hpc_torch.ckpt import CheckpointManager
 
         manager = CheckpointManager(checkpoint_dir)
+    return cfg, manager
+
+
+def _build_pipe_trainer(model_cfg, pp: PipeArgs, *, steps, epochs,
+                        grad_accum_steps, attn, moments_dtype, device, mesh,
+                        sp_mode, guard_mode, checkpoint_dir, save_every,
+                        resume, metrics_path):
+    """:func:`build_trainer` for a pipeline run (bench_llama_pp)."""
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.parallel.plans import P
+    from tpu_hpc_torch.runtime.mesh import mesh_axis_size
+    from tpu_hpc_torch.train.trainer import Trainer
+
+    if sp_mode is not None or mesh_axis_size(mesh, "model") > 1 \
+            or mesh_axis_size(mesh, "context") > 1:
+        raise ValueError(
+            "pipeline parallelism composes with a data axis only: PP x TP "
+            "and PP x SP are not ported (the JAX bench composes neither; "
+            "ROADMAP queue 1)")
+    if grad_accum_steps > 1 and pp.microbatch_size % grad_accum_steps:
+        raise ValueError(
+            f"--grad-accum-steps {grad_accum_steps} must divide the "
+            f"pipeline microbatch size {pp.microbatch_size}")
+    forward, params, specs, flops_cfg, v = pipe_model(model_cfg, pp, mesh,
+                                                      device, attn)
+    forward.cfg, forward.n_chunks = flops_cfg, v
+    cfg, manager = _config_and_manager(
+        pp.microbatches * pp.microbatch_size, steps=steps, epochs=epochs,
+        grad_accum_steps=grad_accum_steps, moments_dtype=moments_dtype,
+        guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
+        save_every=save_every, resume=resume, metrics_path=metrics_path)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
-                              seq_len=model_cfg.max_seq_len, seed=SEED,
-                              zigzag_ring=zigzag_ring)
-    # The trainer keeps its own copy of the params.
-    return Trainer(cfg, mesh,
-                   llama2.make_forward(model_cfg, constrain, attn_fn,
-                                       positions),
-                   params, param_pspecs=specs,
-                   batch_pspec=P("data", "context"),
-                   checkpoint_manager=manager, device=device), ds
+                              seq_len=model_cfg.max_seq_len, seed=SEED)
+    return Trainer(cfg, mesh, forward, params, param_pspecs=specs,
+                   batch_pspec=P(), checkpoint_manager=manager,
+                   device=device), ds
 
 
 def run_train(
@@ -282,6 +467,7 @@ def run_train(
     mesh=None,
     plan: str = "auto",
     sp_mode: Optional[str] = None,
+    pp: Optional[PipeArgs] = None,
     **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
@@ -293,14 +479,16 @@ def run_train(
     from tpu_hpc_torch.kernels import attention
     from tpu_hpc_torch.parallel.shard import layout_summary
     from tpu_hpc_torch.runtime.mesh import mesh_shape
+    from tpu_hpc_torch.train.trainer import tree_leaves
 
     trainer, ds = build_trainer(
         model_cfg, steps=steps, epochs=epochs, batch=batch,
         grad_accum_steps=grad_accum_steps, attn=attn,
         moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
-        sp_mode=sp_mode, **resilience,
+        sp_mode=sp_mode, pp=pp, **resilience,
     )
     device = trainer.device
+    flops_cfg = model_cfg if pp is None else trainer.forward.cfg
     world = trainer.n_devices
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -315,11 +503,16 @@ def run_train(
                else {"items_per_s": 0.0, "total_s": 0.0, "losses": [None]})
     seq = model_cfg.max_seq_len
     tokens_per_s = summary["items_per_s"] * seq
-    flops_per_token = model_cfg.flops_per_token(seq)
+    flops_per_token = flops_cfg.flops_per_token(seq)
     peak = peak_flops_for_device(device)
+    if pp is not None:
+        metric = pp.metric()
+    elif sp_mode:
+        metric = f"llama2_sp_{sp_mode}_tokens_per_s_per_chip"
+    else:
+        metric = "llama2_train_tokens_per_s_per_chip"
     out = {
-        "metric": (f"llama2_sp_{sp_mode}_tokens_per_s_per_chip" if sp_mode
-                   else "llama2_train_tokens_per_s_per_chip"),
+        "metric": metric,
         "value": tokens_per_s / world,
         "unit": "tokens/s/chip",
         "device": {
@@ -330,7 +523,8 @@ def run_train(
         },
         "mesh": mesh_shape(trainer.mesh) or None,
         "world_size": world,
-        "plan": resolve_plan(plan, mesh, sp_mode),
+        "plan": "pipe" if pp is not None else resolve_plan(plan, mesh,
+                                                          sp_mode),
         "sp_mode": sp_mode,
         "layout": layout_summary(trainer.module),
         "tokens_per_s": tokens_per_s,
@@ -346,7 +540,9 @@ def run_train(
         "global_batch": trainer.cfg.global_batch_size,
         "grad_accum_steps": grad_accum_steps,
         "seq_len": seq,
-        "n_params": llama2.count_params(model_cfg),
+        "n_params": (llama2.count_params(model_cfg) if pp is None else
+                     sum(t.numel() for t in tree_leaves(
+                         trainer.state.params))),
         "model": {"dim": model_cfg.dim, "n_layers": model_cfg.n_layers,
                   "n_heads": model_cfg.n_heads,
                   "kv_heads": model_cfg.kv_heads,
@@ -365,6 +561,18 @@ def run_train(
         "preempted": result["preempted"],
         "rolled_back": result["rolled_back"],
     }
+    if pp is not None:
+        from tpu_hpc_torch.parallel.pp import bubble_fraction
+        from tpu_hpc_torch.runtime.mesh import mesh_axis_size
+
+        v = trainer.forward.n_chunks
+        out["pp"] = {**dataclasses.asdict(pp),
+                     "remat_stage": trainer.forward.pipe.engine.remat_stage,
+                     "n_stages": mesh_axis_size(trainer.mesh, "pipe")}
+        out["model"]["pp_model"] = pp.model
+        out["n_chunks"] = v
+        out["bubble_fraction"] = bubble_fraction(
+            out["pp"]["n_stages"], pp.microbatches, n_chunks=v)
     if device.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
@@ -412,6 +620,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--context", type=int, default=None,
                     help="context-axis size (with --sp-mode; default: every "
                     "process, data 1)")
+    ap.add_argument("--pp-schedule", choices=PP_SCHEDULES, default=None,
+                    help="pipeline parallelism (bench.py --workload "
+                    "llama-pp) over a pipe axis of world / --data stages; "
+                    "default 1f1b when another --pp-* flag is given")
+    ap.add_argument("--pp-model", choices=("stack", "llama"), default=None,
+                    help="stack: the PipelineTransformer at the bench width "
+                    "(default); llama: the bench Llama, stage-split")
+    ap.add_argument("--pp-backward", choices=("remat", "stash"),
+                    default=None,
+                    help="the 1f1b schedules' backward (default remat)")
+    ap.add_argument("--pp-microbatches", type=int, default=None,
+                    help="pipeline microbatches per update (default 8)")
+    ap.add_argument("--pp-microbatch-size", type=int, default=None,
+                    help="rows per microbatch (default 4); the global batch "
+                    "is microbatches x this")
+    ap.add_argument("--pp-runtime", choices=("spmd", "mpmd"), default=None,
+                    help="spmd: the tick-table pipeline; mpmd (per-stage "
+                    "programs) is not ported yet")
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
                         help="model-size override (CPU rehearsals)")
@@ -436,6 +662,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "with N restarts (a preemption or a guard rollback "
                     "relaunches without spending one)")
     args = ap.parse_args(argv)
+    pp_flags = {k[3:]: v for k, v in vars(args).items()
+                if k.startswith("pp_") and v is not None}
+    pp = None
+    if pp_flags:
+        if pp_flags.pop("runtime", "spmd") == "mpmd":
+            ap.error("--pp-runtime mpmd: the MPMD pipeline runtime "
+                     "(parallel/mpmd.py) is not ported yet (ROADMAP queue 1 "
+                     "item 1)")
+        if args.sp_mode is not None or (args.model or 1) > 1:
+            ap.error("--pp-* composes with --data only: PP x TP (--model) "
+                     "and PP x SP (--sp-mode) are not ported (the JAX bench "
+                     "composes neither; ROADMAP queue 1 item 1)")
+        pp = PipeArgs(**pp_flags)
     if args.sp_mode is not None and (args.model or 1) > 1:
         ap.error("--sp-mode does not combine with --model > 1: TP x "
                  "context parallelism is not ported (the JAX bench never "
@@ -482,6 +721,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RuntimeError as e:
         ap.error(str(e))
     batch, accum = resolve_batch_accum(args.batch, args.grad_accum_steps)
+    if pp is not None:
+        # bench.py's llama-pp: the batch is the microbatches' rows, no
+        # accumulation unless asked for.
+        accum = args.grad_accum_steps or 1
+        batch = pp.microbatches * pp.microbatch_size
     model_cfg = bench_model_cfg(
         args.seq_len, args.remat, dim=args.dim, n_layers=args.n_layers,
         n_heads=args.n_heads, vocab_size=args.vocab,
@@ -496,7 +740,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     mesh = None
     asked = (args.data or 1) * (args.model or 1) * (args.context or 1)
     if info.num_processes > 1:
-        if args.sp_mode is not None:
+        if pp is not None:
+            axes = pp_mesh_axes(info.num_processes, args.data)
+        elif args.sp_mode is not None:
             axes = sp_mesh_axes(info.num_processes, args.data, args.context)
         else:
             axes = mesh_axes(info.num_processes, model_cfg, args.data,
@@ -516,7 +762,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             moments_dtype=args.moments_dtype, device=device, mesh=mesh,
             guard_mode=args.guard_mode, checkpoint_dir=args.checkpoint_dir,
             save_every=args.save_every, resume=args.resume,
-            metrics_path=args.metrics, sp_mode=args.sp_mode,
+            metrics_path=args.metrics, sp_mode=args.sp_mode, pp=pp,
         )
         if is_main_host():
             print(json.dumps(summary), flush=True)
@@ -545,6 +791,17 @@ def mesh_axes(world: int, model_cfg: llama2.LlamaConfig,
     if data * model != world:
         return None
     return {"data": data, "model": model}
+
+
+def pp_mesh_axes(world: int, data: Optional[int] = None) -> Optional[dict]:
+    """``{"pipe": S}`` or ``{"data": d, "pipe": S}`` for ``world``
+    processes: one stage a process (bench.py:522-524), S = world / d;
+    None when d does not divide the world."""
+    data = data or 1
+    if world % data:
+        return None
+    return ({"pipe": world} if data == 1
+            else {"data": data, "pipe": world // data})
 
 
 def sp_mesh_axes(world: int, data: Optional[int] = None,

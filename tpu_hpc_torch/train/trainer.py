@@ -28,7 +28,9 @@ imported, as the JAX package's fp32 reference numerics need.
 
 On a ``DeviceMesh`` the params are laid out by a plan
 (``parallel.shard.shard_params``: TP DTensors on ``model``, FSDP2 over
-``data``, or over data x context), each data rank takes its rows of the
+``data``, or over data x context; stage-sharded DTensors on ``pipe``,
+where the pipelined forward splits the batch itself and the trainer
+hands every rank all of it, ``batch_pspec=P()``), each data rank takes its rows of the
 global batch (each context rank its columns of them), and the optimizer
 runs on each rank's shards -- the same optax arithmetic, with the clip
 norm taken over the whole gradient.
