@@ -167,6 +167,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     by microbatch, the flash kernels in it too), launches
                     as predicted, and a control the rule must reject:
                     the interleaved params left in sequential order.
+     train_comm  -- the comm layer, bench.py's "llama dp bucketed-overlap
+                    sync" row: (a) run_train with
+                    comm_mode="bucketed_overlap" on a one-rank NCCL world,
+                    a {"data": 1} mesh (comm_mode_mesh's shape on one card:
+                    replicated params, 25 MB buckets reduced as the
+                    backward produces them, copied in, handed out as
+                    views), at train's seed, batch, accumulation and
+                    updates: losses within HYBRID_LOSS_RTOL of train's
+                    (bit-equality reported), each flash kernel launched
+                    layers x accum x updates times, the port's counter at
+                    updates x (n_buckets + 1) all-reduces, and one more
+                    update under torch.profiler counting its NCCL
+                    all-reduces (n_buckets + 1); update_s, tokens/s, MFU
+                    and peak memory beside train's; (b) comm_mode="auto"
+                    with no cost table: the planner's logged decision
+                    (mode, source, bucket bytes); (c) "hierarchical" on
+                    one card, refused in bench.py's words; (d)
+                    run_comm_bench over the one-rank world, every flat and
+                    overlap op at 10^3..10^8 elements: times, which at one
+                    rank are launch cost (the bus bandwidth of a one-rank
+                    world is 0 by the formula).
   9. train_profile -- one more bench-Llama update under torch.profiler:
                     device time by kernel family, the top kernels, the
                     card's idle share. Reports; gates nothing.
@@ -197,8 +218,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     guard off and on skip, in turns.
 
 Then the per-kernel summary line (the flash rows with their launches in
-train_sp (b) by mode and in train_pp (a) by bench row), nvidia-smi's
-line, and last the
+train_sp (b) by mode, in train_pp (a) by bench row and in train_comm
+(a)), nvidia-smi's line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -1798,6 +1819,206 @@ def train_pp_phase(torch, dev, train) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase 8d: the comm layer
+# ---------------------------------------------------------------------
+
+COMM_BENCH_SIZES = tuple(10 ** k for k in range(3, 9))
+COMM_DIR = "build/chip_smoke_comm"
+
+
+def comm_failures(train_losses, summary, launches, expected,
+                  updates) -> list:
+    """What fails train_comm (a): a loss off train's by more than
+    HYBRID_LOSS_RTOL, a flash kernel launched other than ``expected``
+    times, a resolved mode other than bucketed_overlap, or a run whose
+    all-reduces are not updates x (n_buckets + 1)."""
+    bad = []
+    losses = summary["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    if len(losses) != len(train_losses) or max(errs) > HYBRID_LOSS_RTOL:
+        bad.append(f"losses {losses} against train's {train_losses}")
+    if any(n != expected for n in launches.values()):
+        bad.append(f"flash launches {launches}, expected {expected} each")
+    comm = summary.get("comm") or {}
+    if summary.get("comm_mode_resolved") != "bucketed_overlap":
+        bad.append(f"resolved {summary.get('comm_mode_resolved')!r}")
+    want = updates * (comm.get("n_buckets", -2) + 1)
+    if comm.get("allreduces") != want:
+        bad.append(f"all-reduces {comm.get('allreduces')}, expected {want}")
+    return bad
+
+
+def comm_profile(torch, dev, mesh) -> dict:
+    """One update of the bucketed sync under torch.profiler, after one
+    warm-up update (which fixes the launch order): the port's counter,
+    the profiler's ``nccl:all_reduce`` ranges (one a collective the
+    process group issues) and its NCCL all-reduce kernels on the card.
+    NCCL may run a one-rank world's in-place all-reduce without a
+    kernel, so the kernel count is reported, not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    trainer, ds = build_trainer(bench_model_cfg(), batch=TRAIN_BATCH,
+                                grad_accum_steps=TRAIN_ACCUM, device=dev,
+                                mesh=mesh, comm_mode="bucketed_overlap")
+    sync = trainer.grad_sync
+    trainer.train_step(ds.batch_at(0, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    before = sync.allreduces
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(ds.batch_at(1, TRAIN_BATCH))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = sum(e.count for e in events if e.key == "nccl:all_reduce")
+    kernels = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and "allreduce" in e.key.lower().replace("_", ""))
+    out = {"counter": sync.allreduces - before, "n_buckets": sync.n_buckets,
+           "profiler_nccl_all_reduce": ranges,
+           "profiler_allreduce_kernels": kernels,
+           "launched_in_backward": sum(1 for _, d in sync.launch_log if d)}
+    sync.remove()
+    del trainer
+    _release(torch)
+    return out
+
+
+def train_comm_phase(torch, dev, train) -> dict:
+    """Phase 8d, the comm layer (bench.py's "llama dp bucketed-overlap
+    sync" row) on a one-rank NCCL world: (a) run_train with
+    comm_mode="bucketed_overlap" against train, plus one profiled update;
+    (b) comm_mode="auto"'s logged decision; (c) hierarchical refused on
+    one card; (d) the comm bench's flat and overlap ops at 10^3..10^8
+    elements. Returns (a)'s flash launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.comm import bench as comm_bench
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.obs import schema
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.__main__ import (
+        bench_model_cfg,
+        comm_mode_mesh,
+        run_train,
+    )
+
+    t0 = time.perf_counter()
+    cfg = bench_model_cfg()
+    updates = TRAIN_STEPS * TRAIN_EPOCHS
+    os.makedirs(COMM_DIR, exist_ok=True)
+    # The planner reads its tables here, never from $HOME.
+    os.environ["TPU_HPC_COMM_TABLES"] = os.path.join(COMM_DIR, "tables")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"data": 1}), "cuda")
+        _release(torch)
+        zero_flash_launches()
+        summary = run_train(cfg, steps=TRAIN_STEPS, epochs=TRAIN_EPOCHS,
+                            batch=TRAIN_BATCH, grad_accum_steps=TRAIN_ACCUM,
+                            device=dev, mesh=mesh,
+                            comm_mode="bucketed_overlap")
+        launches = fa.kernel_launches()
+        _release(torch)
+        prof = comm_profile(torch, dev, mesh)
+        # (b) auto, no table: the decision as the run log records it.
+        log = os.path.join(COMM_DIR, "auto.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        auto = run_train(cfg, steps=1, epochs=1, batch=TRAIN_BATCH,
+                         grad_accum_steps=TRAIN_ACCUM, device=dev, mesh=mesh,
+                         comm_mode="auto", metrics_path=log)
+        logged = [r for r in schema.load_records(log)
+                  if r["event"] == "comm_plan"]
+        _release(torch)
+        # (c) hierarchical on one card.
+        try:
+            run_train(cfg, steps=1, epochs=1, batch=TRAIN_BATCH,
+                      grad_accum_steps=TRAIN_ACCUM, device=dev, mesh=mesh,
+                      comm_mode="hierarchical")
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        try:
+            comm_mode_mesh("hierarchical", 1, 1)
+            want_refusal = None
+        except ValueError as e:
+            want_refusal = str(e)
+        # (d) the comm bench over the one-rank world.
+        t_bench = time.perf_counter()
+        records = comm_bench.run_comm_bench(
+            mesh=mesh, sizes=COMM_BENCH_SIZES, warmup=3, iters=10,
+            ops=comm_bench.OPS + comm_bench.OVERLAP_OPS,
+            output=os.path.join(COMM_DIR, "comm_bench.csv"),
+            device_type="cuda")
+        bench_s = time.perf_counter() - t_bench
+    finally:
+        dist.destroy_process_group()
+    expected = cfg.n_layers * TRAIN_ACCUM * updates
+    errs = [abs(a - b) / abs(b)
+            for a, b in zip(summary["losses"], train["losses"])]
+    emit("train_comm", check="a_bucketed_overlap", model="bench",
+         mesh=summary["mesh"], world_size=summary["world_size"],
+         plan=summary["plan"], comm_mode=summary["comm_mode"],
+         comm=summary["comm"], backend="nccl", dtype="bfloat16",
+         microbatch=TRAIN_BATCH // TRAIN_ACCUM, grad_accum=TRAIN_ACCUM,
+         updates=summary["updates"], launches=launches,
+         expected_launches=expected, loss_max_rel_err=max(errs),
+         loss_rtol=HYBRID_LOSS_RTOL,
+         losses_bit_equal_to_train=summary["losses"] == train["losses"],
+         profiled_update=prof,
+         **{k: summary[k] for k in (
+             "tokens_per_s", "update_s", "peak_memory_bytes", "mfu",
+             "losses")},
+         train={k: train[k] for k in (
+             "tokens_per_s", "update_s", "peak_memory_bytes", "mfu")})
+    decision = logged[0] if logged else None
+    emit("train_comm", check="b_auto",
+         decision=None if decision is None else {
+             k: decision.get(k) for k in (
+                 "mode", "source", "bucket_bytes", "payload_bytes",
+                 "predicted_cost_ms", "fingerprint", "candidates",
+                 "reason")},
+         resolved=auto["comm_mode_resolved"], plan=auto["plan"],
+         losses=auto["losses"])
+    emit("train_comm", check="c_hierarchical_refused", refusal=refusal,
+         bench_words=want_refusal)
+    emit("train_comm", check="d_comm_bench", world_size=1,
+         seconds=bench_s, note="one rank: times are launch cost, the "
+         "bus bandwidth of a one-rank world is 0 by the formula",
+         rows=[{k: r[k] for k in ("op", "size_elements", "bytes_per_shard",
+                                  "mean_s", "min_s", "max_s")}
+               for r in records])
+    emit("train_comm", check="cost", seconds=time.perf_counter() - t0)
+    bad = comm_failures(train["losses"], summary, launches, expected,
+                        updates)
+    if launches != summary["kernel_launches"]:
+        bad.append("launch counts moved outside the run")
+    if prof["counter"] != prof["n_buckets"] + 1 or (
+            prof["profiler_nccl_all_reduce"]
+            and prof["profiler_nccl_all_reduce"] != prof["counter"]):
+        bad.append(f"profiled update: {prof}")
+    if decision is None or decision["mode"] != auto["comm_mode_resolved"]:
+        bad.append(f"auto: logged decision {decision}")
+    if refusal is None or refusal != want_refusal:
+        bad.append(f"hierarchical on one card: {refusal!r}")
+    ops = {r["op"] for r in records}
+    want_ops = set(comm_bench.OPS + comm_bench.OVERLAP_OPS)
+    if ops != want_ops or len(records) != len(want_ops) * len(
+            COMM_BENCH_SIZES) or not all(r["mean_s"] > 0 for r in records):
+        bad.append(f"comm bench ran {sorted(ops)} ({len(records)} rows)")
+    if bad:
+        raise SystemExit("train_comm: " + "; ".join(bad))
+    return launches
+
+
 def kernel_family(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
@@ -3034,6 +3255,10 @@ def main() -> int:
     #        on a one-rank NCCL world, then at S = 4 on this card
     pp_launches = train_pp_phase(torch, dev, train)
     _release(torch)
+    # -- 8d. the comm layer: bucketed sync on a one-rank NCCL world,
+    #        auto's decision, hierarchical refused, the comm bench
+    comm_launches = train_comm_phase(torch, dev, train)
+    _release(torch)
     # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
@@ -3059,13 +3284,14 @@ def main() -> int:
                 k: spec_launches[k] for k in ("draft", "verify")}
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
-        # The flash kernels' launches in train_sp (b), by --sp-mode, and
-        # in train_pp (a), by bench row.
+        # The flash kernels' launches in train_sp (b), by --sp-mode, in
+        # train_pp (a), by bench row, and in train_comm (a).
         if entry["name"] in FLASH_KERNEL_NAMES:
             entry["train_sp_launches"] = {
                 mode: n[entry["name"]] for mode, n in sp_launches.items()}
             entry["train_pp_launches"] = {
                 row: n[entry["name"]] for row, n in pp_launches.items()}
+            entry["train_comm_launches"] = comm_launches[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -701,3 +701,45 @@ def test_decode_and_scalar_prefill_nonfinite_run_on_cpu_tensors():
     assert [(r["pool"], r["q_dtype"]) for r in rows] == [
         ("float32", "float32"), ("float16", "bfloat16")]
     assert all(r["ok"] and r["nonfinite"] == 1 for r in rows)
+
+
+# ---------------------------------------------------------------------
+# train_comm's helpers
+# ---------------------------------------------------------------------
+
+def test_phase_list_names_train_comm_after_train_pp():
+    """train_comm follows train_pp and comes before the profile, in the
+    docstring and in main; the kernels line's flash rows carry its
+    launches."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *train_pp ", r"^ *train_comm ", r"^ *9\. train_profile ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_pp_phase(", "train_comm_phase(", "train_profile_phase(")]
+    assert calls == sorted(calls)
+    assert 'entry["train_comm_launches"] = comm_launches[' in src
+    assert chip_smoke.COMM_BENCH_SIZES == tuple(10 ** k for k in range(3, 9))
+
+
+@pytest.mark.parametrize("overrides, failures", [
+    ({}, 0),
+    ({"losses": [2.0] * 5 + [2.1]}, 1),
+    ({"launches": 383}, 1),
+    ({"allreduces": 137}, 1),
+    ({"resolved": "flat"}, 1),
+    ({"losses": [2.0] * 5}, 1),
+])
+def test_comm_failures(overrides, failures):
+    summary = {"losses": overrides.get("losses", [2.0] * 6),
+               "comm_mode_resolved": overrides.get("resolved",
+                                                   "bucketed_overlap"),
+               "comm": {"n_buckets": 22,
+                        "allreduces": overrides.get("allreduces", 138)}}
+    launches = {"flash_attention_fwd": overrides.get("launches", 384)}
+    assert len(chip_smoke.comm_failures(
+        [2.0] * 6, summary, launches, 384, 6)) == failures

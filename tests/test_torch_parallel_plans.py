@@ -239,8 +239,10 @@ def test_mesh_spec_refusals_match_jax():
         tmesh.local_batch_size(30, {"data": 4})
     assert tmesh.mesh_axis_size({"data": 2, "model": 4}, "model") == 4
     assert tmesh.mesh_axis_size({"data": 2}, None) == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        tmesh.build_mesh(tmesh.MeshSpec({"data": 1}, {"data": 1}), "cpu")
+    # A dcn_axes spec is built two-tier, the across-node part slowest
+    # (tests/test_torch_comm.py holds the layout against JAX's).
+    assert tmesh.hybrid_rank_grid(tmesh.MeshSpec({"data": 1}, {"data": 2}),
+                                  [[0], [1]]).tolist() == [0, 1]
 
 
 def test_config_mesh_axes_and_spec_match_jax():

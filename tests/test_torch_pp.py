@@ -429,7 +429,8 @@ def test_cli_refusals_and_bench_record_names(capsys):
     from tpu_hpc_torch.train import __main__ as tmain
 
     for argv, needle in (
-            (["--pp-runtime", "mpmd"], "ROADMAP queue 1 item 1"),
+            (["--pp-runtime", "mpmd"],
+             'ROADMAP: "Pipeline, the MPMD half"'),
             (["--pp-schedule", "1f1b", "--model", "2"], "PP x TP"),
             (["--pp-model", "llama", "--sp-mode", "ring"], "PP x SP")):
         with pytest.raises(SystemExit) as e:

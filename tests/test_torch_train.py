@@ -391,13 +391,18 @@ def test_state_carried_mid_run_continues_like_jax(jax_params, one_device_mesh):
 def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     params = {"w": torch.zeros(2, 2)}
     fwd = lambda p, ms, b, rng: ((p["w"] ** 2).sum(), ms, {})  # noqa: E731
-    for kw, item in ((dict(comm_mode="hierarchical"), 8),
-                     (dict(profile=True), 4),
-                     (dict(capture_on_anomaly=True), 5)):
+    for kw, item in ((dict(profile=True), "The operations modules"),
+                     (dict(capture_on_anomaly=True),
+                      "The rest of serving and obs")):
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
+                           match=f'ROADMAP: "{item}"'):
             ttrainer.Trainer(TrainingConfig(**kw), None, fwd, params,
                              device="cpu")
+    # The comm modes are ported (tests/test_torch_comm_sync.py); a
+    # manual one needs a process group's mesh and never trains unsynced.
+    with pytest.raises(ValueError, match="never trains unsynced"):
+        ttrainer.Trainer(TrainingConfig(comm_mode="hierarchical"), None, fwd,
+                         params, device="cpu")
     # A mesh above one device is ported: it must be the DeviceMesh
     # itself (tests/test_torch_distributed.py trains on one).
     with pytest.raises(ValueError, match="mesh of 4 devices must be a "
@@ -477,6 +482,9 @@ def test_port_modules_import_no_jax():
         "import tpu_hpc_torch.parallel.pp, tpu_hpc_torch.parallel.pp_transport\n"
         "import tpu_hpc_torch.models.pipeline_transformer\n"
         "import tpu_hpc_torch.models.llama_pp\n"
+        "import tpu_hpc_torch.comm.primitives, tpu_hpc_torch.comm.overlap\n"
+        "import tpu_hpc_torch.comm.hierarchical, tpu_hpc_torch.comm.bench\n"
+        "import tpu_hpc_torch.comm.planner\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'tpu_hpc', 'flax', 'optax')]\n"

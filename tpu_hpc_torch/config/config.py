@@ -3,9 +3,9 @@
 Port of the JAX package's ``config/config.py``: the same
 ``TrainingConfig`` fields, defaults and validation, so one YAML file
 configures either package. The knobs whose machinery is not ported yet
-(the comm modes, profiling, anomaly capture) keep their fields; the
-port's ``Trainer`` raises ``NotImplementedError`` when one is set away
-from its default, and ROADMAP queue 1 lists them.
+(profiling, anomaly capture) keep their fields; the port's ``Trainer``
+raises ``NotImplementedError`` when one is set away from its default,
+naming the ROADMAP item that ports it.
 
 ``torch_dtypes`` replaces the JAX ``jax_dtypes``; ``mesh_axes`` and
 ``mesh_spec`` give ``runtime.build_mesh`` its axes.
@@ -75,8 +75,11 @@ class TrainingConfig:
     capture_on_anomaly: bool = False
     capture_steps: int = 2
 
-    # Gradient-sync strategy (not ported yet; "flat" is the one-device
-    # behaviour).
+    # Gradient-sync strategy: "flat" (the plan's own collectives),
+    # "bucketed_overlap" / "hierarchical" (replicated params, bucketed
+    # all-reduces during the backward; comm.overlap) or "auto" (the
+    # collective planner picks; comm.planner). comm_bucket_mb caps a
+    # bucket (and the planner's bucket ladder under "auto").
     comm_mode: str = "flat"
     comm_bucket_mb: int = 25
 

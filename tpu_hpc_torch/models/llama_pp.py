@@ -12,7 +12,7 @@ the pipe axis, applied outside the pipelined body) and ``stages`` (a
 sharded ``P("pipe")``). ``merge_params`` is its exact inverse, so the
 sequential oracle of every pipelined run is ``llama2.apply_llama`` on
 the same values. ``mpmd_bundle`` (the MPMD runtime's cut) is not ported
-yet (ROADMAP queue 1 item 1).
+yet (ROADMAP: "Pipeline, the MPMD half").
 """
 from __future__ import annotations
 

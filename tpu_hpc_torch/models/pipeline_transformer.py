@@ -26,8 +26,8 @@ flax's keys (``layer_0/ln1/{scale,bias}``, ``layer_0/qkv/{kernel,bias}``
     dtype, promoted to float32 by its float32 scale and bias, and a
     float32 head product: ``head`` returns float32 logits.
 
-``mpmd_bundle`` (the MPMD runtime's cut) is not ported yet (ROADMAP
-queue 1 item 1).
+``mpmd_bundle`` (the MPMD runtime's cut) is not ported yet
+(ROADMAP: "Pipeline, the MPMD half").
 """
 from __future__ import annotations
 

@@ -102,7 +102,7 @@ EVENTS: Dict[str, EventSpec] = {
     "run_start": EventSpec((
         "start_step", "total_steps", "n_devices", "n_processes",
         "device_kind", "jax_version", "config",
-    )),
+    ), optional=("torch_version",)),
     "epoch": EventSpec(
         ("epoch", "step", "loss", "items_per_s",
          "items_per_s_per_device", "s_per_step"),

@@ -8,7 +8,7 @@ out with FSDP2 (``parallel/shard.py``), which all-gathers each block's
 params before use and reduce-scatters its gradients.
 
 ``grad_op_pspecs`` (SHARD_GRAD_OP) and ``hybrid_shard_pspecs``
-(HYBRID_SHARD) are not ported yet (ROADMAP queue 1 item 1).
+(HYBRID_SHARD) are not ported yet (ROADMAP: "Distributed leftovers").
 """
 from __future__ import annotations
 

@@ -121,7 +121,8 @@ def shard_params(
         if model_axis in names or context_axis in names:
             raise ValueError(
                 f"mesh {names}: a pipe axis composes with data only "
-                "(PP x TP and PP x SP are not ported, ROADMAP queue 1)")
+                "(PP x TP and PP x SP are not ported, "
+                'ROADMAP: "Pipeline, the MPMD half")')
         tp_mesh, dp_mesh = mesh[pipe_axis], None
     elif model_axis in names and any(_dim_of(spec, model_axis) is not None
                                      for spec in tree_specs(specs)):

@@ -62,8 +62,28 @@ example, on the CPU:
 
 ``--pp-runtime mpmd`` (the MPMD runtime), a pipe axis with ``--model``
 above 1 and ``--pp-*`` with ``--sp-mode`` are refused: the JAX bench
-composes neither, and the MPMD runtime is not ported (ROADMAP queue 1
-item 1).
+composes neither, and the MPMD runtime is not ported yet
+(ROADMAP: "Pipeline, the MPMD half").
+
+Gradient sync (bench.py ``--comm-mode``, its row "llama dp
+bucketed-overlap sync"): ``--comm-mode bucketed_overlap`` trains the
+DDP way -- the whole world is one ``data`` axis (``comm_mode_mesh``),
+params replicated on every rank (``dp.param_pspecs``), the batch split
+over the ranks, and each rank's gradient all-reduced in buckets of
+``comm_bucket_mb`` (25 MB) launched as the backward produces them
+(``comm.overlap.GradSync``). ``hierarchical`` takes a two-tier (dcn x
+data) mesh (``runtime.mesh.two_tier_spec``: dcn the node count, or an
+emulated 2 on one node) and reduces each bucket in two phases; it is
+refused where no such split exists (one card), in bench.py's words.
+``auto`` asks the collective planner (``comm.planner``, the cost table
+of this topology in ``$TPU_HPC_COMM_TABLES`` or ``--comm-table``, else
+the H100 fabric's spec-sheet model) for the mode and bucket size before
+the mesh is built. A manual mode on one process runs on a one-rank
+world (``data: 1``, bench.py's shape on one chip); it never trains
+without a process group. For example, on four cards:
+
+    torchrun --nproc-per-node 4 -m tpu_hpc_torch.train \
+        --comm-mode bucketed_overlap
 
 Rank 0 prints one JSON line: the device's name and the world size, the
 mesh and plan, tokens/s (the whole job's, and per device), MFU against
@@ -130,20 +150,27 @@ def resolve_batch_accum(batch, accum, microbatch: int = 4):
 LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
 
 
-PLANS = ("auto", "hybrid", "fsdp", "none")
+PLANS = ("auto", "hybrid", "fsdp", "dp", "none")
+COMM_MODES = ("flat", "hierarchical", "bucketed_overlap", "auto")
+MANUAL_COMM_MODES = ("hierarchical", "bucketed_overlap")
 SP_MODES = ("ring", "zigzag", "ulysses")
 
 
-def resolve_plan(plan: str, mesh, sp_mode: Optional[str] = None) -> str:
+def resolve_plan(plan: str, mesh, sp_mode: Optional[str] = None,
+                 comm_mode: str = "flat") -> str:
     """bench.py's rule (bench.py:256-273) for ``plan="auto"``: hybrid
     FSDP x TP + SP when the mesh has a ``model`` axis above one device,
     FSDP when only ``data`` is above one, none at one device. With
     ``sp_mode``: FSDP over data x context whenever there is a mesh
-    (context ranks must exchange gradients); TP is refused."""
+    (context ranks must exchange gradients); TP is refused. Under a
+    manual ``comm_mode`` (resolved): "dp", the replicated params of the
+    DDP recipe (another plan is kept, for the trainer to refuse)."""
     from tpu_hpc_torch.runtime.mesh import mesh_axis_size
 
     if plan not in PLANS:
         raise ValueError(f"unknown plan {plan!r}; one of {PLANS}")
+    if comm_mode in MANUAL_COMM_MODES:
+        return "dp" if plan == "auto" else plan
     if sp_mode is not None:
         if sp_mode not in SP_MODES:
             raise ValueError(
@@ -164,6 +191,70 @@ def resolve_plan(plan: str, mesh, sp_mode: Optional[str] = None) -> str:
     if mesh_axis_size(mesh, "model") > 1:
         return "hybrid"
     return "fsdp" if mesh_axis_size(mesh, "data") > 1 else "none"
+
+
+def comm_mode_mesh(comm_mode: str, n_dev: int, n_slices: int = 1):
+    """bench.py's ``comm_mode_mesh`` (bench.py:67-90): the mesh of a
+    manual comm-mode run, ``(mesh_spec, batch_axes, dp_extent)``. The
+    whole mesh is data parallelism; ``hierarchical`` needs the two
+    tiers as separate axes (``runtime.mesh.two_tier_spec``, the shared
+    policy), and a topology with no such split is refused naming the
+    CLI lever."""
+    from tpu_hpc_torch.runtime.mesh import MeshSpec, two_tier_spec
+
+    if comm_mode == "hierarchical":
+        try:
+            spec = two_tier_spec(n_dev, n_slices, inner_axis="data")
+        except ValueError as e:
+            raise ValueError(
+                f"--comm-mode hierarchical: {e} -- use "
+                "bucketed_overlap or flat on this topology"
+            ) from None
+        return spec, ("dcn", "data"), n_dev
+    return MeshSpec(axes={"data": n_dev}), ("data",), n_dev
+
+
+def param_bytes(model_cfg: llama2.LlamaConfig) -> int:
+    """The gradient payload of ``model_cfg``: every param's bytes, from
+    the tree's shapes (no tensor is made)."""
+    return llama2.count_params(model_cfg) * torch.empty(
+        (), dtype=model_cfg.param_dtype).element_size()
+
+
+def resolve_comm_auto(model_cfg: llama2.LlamaConfig,
+                      comm_table: Optional[str] = None,
+                      bucket_cap_bytes: Optional[int] = None,
+                      n_dev: Optional[int] = None,
+                      device_type: Optional[str] = None):
+    """bench.py's ``resolve_comm_auto`` (bench.py:106-154): the
+    planner's gradient-sync decision for the exact gradient payload of
+    ``model_cfg`` on this topology (``n_dev`` cards, default the world),
+    before any mesh exists -- the resolved mode decides the mesh
+    family. ``bucket_cap_bytes`` defaults to the config's
+    comm_bucket_mb."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.comm import planner as comm_planner
+    from tpu_hpc_torch.config import TrainingConfig
+    from tpu_hpc_torch.runtime.mesh import node_groups, two_tier_spec
+
+    if bucket_cap_bytes is None:
+        bucket_cap_bytes = TrainingConfig().comm_bucket_mb * 2 ** 20
+    if n_dev is None:
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    n_slices = len(node_groups())
+    try:
+        two_tier_spec(n_dev, n_slices)
+        two_tier_ok = True
+    except ValueError:
+        two_tier_ok = False
+    table = comm_planner.load_table(comm_table) if comm_table else None
+    return comm_planner.Planner.for_devices(
+        table=table, device_type=device_type, n_devices=n_dev,
+    ).plan_grad_sync(
+        param_bytes(model_cfg), two_tier=two_tier_ok,
+        bucket_cap_bytes=bucket_cap_bytes,
+    )
 
 
 def sp_attention(sp_mode: str, mesh, model_cfg: llama2.LlamaConfig,
@@ -305,6 +396,8 @@ def build_trainer(
     metrics_path: str = "",
     sp_mode: Optional[str] = None,
     pp: Optional[PipeArgs] = None,
+    comm_mode: str = "flat",
+    comm_plan=None,
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
@@ -330,15 +423,30 @@ def build_trainer(
     ``pp``: pipeline parallelism over ``mesh``'s pipe axis
     (:func:`pipe_model`; ``batch`` and ``plan`` are then unused: the
     global batch is ``pp.microbatches x pp.microbatch_size``, each
-    microbatch's rows split over ``data``)."""
+    microbatch's rows split over ``data``). ``comm_mode``: the
+    trainer's gradient sync (``TrainingConfig.comm_mode``); a manual
+    mode (or "auto" whose ``comm_plan`` resolved to one) takes the
+    "dp" plan over ``mesh``, which must be :func:`comm_mode_mesh`'s
+    (checked here: hierarchical on a world with no two-tier split is
+    refused in bench.py's words), the batch split over its data
+    axes."""
     from tpu_hpc_torch.models import datasets
-    from tpu_hpc_torch.parallel import fsdp, hybrid, tp
+    from tpu_hpc_torch.parallel import dp, fsdp, hybrid, tp
     from tpu_hpc_torch.parallel.plans import P
     from tpu_hpc_torch.runtime import resolve_device
     from tpu_hpc_torch.runtime.mesh import mesh_axis_size
     from tpu_hpc_torch.train.trainer import Trainer
 
     device = resolve_device(device)
+    resolved = comm_plan.mode if comm_mode == "auto" and comm_plan \
+        is not None else comm_mode
+    manual = resolved in MANUAL_COMM_MODES
+    if comm_mode != "flat" and (pp is not None or sp_mode is not None):
+        raise ValueError(
+            f"comm_mode {comm_mode!r} is only consumed by the llama "
+            "workload (bench.py's llama/llama-long); "
+            + ("pipeline" if pp is not None else "sequence")
+            + " parallelism would silently run flat")
     if pp is not None:
         return _build_pipe_trainer(
             model_cfg, pp, steps=steps, epochs=epochs,
@@ -347,14 +455,29 @@ def build_trainer(
             sp_mode=sp_mode, guard_mode=guard_mode,
             checkpoint_dir=checkpoint_dir, save_every=save_every,
             resume=resume, metrics_path=metrics_path)
-    plan = resolve_plan(plan, mesh, sp_mode)
+    plan = resolve_plan(plan, mesh, sp_mode, resolved)
     dp_size = mesh_axis_size(mesh, "data")
     cp_size = mesh_axis_size(mesh, "context")
+    batch_pspec = P("data", "context")
+    if manual and mesh is not None:
+        from tpu_hpc_torch.runtime.mesh import mesh_shape, node_groups
+
+        spec, batch_axes, _ = comm_mode_mesh(resolved, mesh.size(),
+                                             len(node_groups()))
+        want = spec.resolved_sizes(mesh.size())
+        if mesh_shape(mesh) != want:
+            raise ValueError(
+                f"comm_mode {resolved!r} trains over the mesh {want} "
+                f"(comm_mode_mesh), not {mesh_shape(mesh)}")
+        dp_size = mesh.size()
+        batch_pspec = P(batch_axes)
     params = llama2.init_llama(
         torch.Generator(device=device).manual_seed(SEED), model_cfg, device
     )
     constrain, specs = llama2._identity, None
-    if plan == "hybrid":
+    if plan == "dp":
+        specs = dp.param_pspecs(params)
+    elif plan == "hybrid":
         if attn != "flash":
             raise ValueError("the hybrid plan runs attention through the "
                              "flash kernels only (attn='flash')")
@@ -382,7 +505,8 @@ def build_trainer(
         batch * dp_size, steps=steps, epochs=epochs,
         grad_accum_steps=grad_accum_steps, moments_dtype=moments_dtype,
         guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
-        save_every=save_every, resume=resume, metrics_path=metrics_path)
+        save_every=save_every, resume=resume, metrics_path=metrics_path,
+        comm_mode=comm_mode)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
                               seq_len=model_cfg.max_seq_len, seed=SEED,
                               zigzag_ring=zigzag_ring)
@@ -390,14 +514,15 @@ def build_trainer(
     return Trainer(cfg, mesh,
                    llama2.make_forward(model_cfg, constrain, attn_fn,
                                        positions),
-                   params, param_pspecs=specs,
-                   batch_pspec=P("data", "context"),
-                   checkpoint_manager=manager, device=device), ds
+                   params, param_pspecs=specs, batch_pspec=batch_pspec,
+                   checkpoint_manager=manager, device=device,
+                   comm_plan=comm_plan), ds
 
 
 def _config_and_manager(global_batch: int, *, steps, epochs,
                         grad_accum_steps, moments_dtype, guard_mode,
-                        checkpoint_dir, save_every, resume, metrics_path):
+                        checkpoint_dir, save_every, resume, metrics_path,
+                        comm_mode: str = "flat"):
     """bench.py's TrainingConfig for the run, and its CheckpointManager
     (None without a checkpoint dir)."""
     from tpu_hpc_torch.config import TrainingConfig
@@ -409,7 +534,7 @@ def _config_and_manager(global_batch: int, *, steps, epochs,
         grad_accum_steps=grad_accum_steps, adam_moments_dtype=moments_dtype,
         seed=SEED, guard_mode=guard_mode, save_every=save_every,
         checkpoint_dir=checkpoint_dir or "", resume=resume,
-        metrics_path=metrics_path,
+        metrics_path=metrics_path, comm_mode=comm_mode,
     )
     manager = None
     if checkpoint_dir:
@@ -434,7 +559,7 @@ def _build_pipe_trainer(model_cfg, pp: PipeArgs, *, steps, epochs,
         raise ValueError(
             "pipeline parallelism composes with a data axis only: PP x TP "
             "and PP x SP are not ported (the JAX bench composes neither; "
-            "ROADMAP queue 1)")
+            'ROADMAP: "Pipeline, the MPMD half")')
     if grad_accum_steps > 1 and pp.microbatch_size % grad_accum_steps:
         raise ValueError(
             f"--grad-accum-steps {grad_accum_steps} must divide the "
@@ -468,24 +593,45 @@ def run_train(
     plan: str = "auto",
     sp_mode: Optional[str] = None,
     pp: Optional[PipeArgs] = None,
+    comm_mode: str = "flat",
+    comm_table: Optional[str] = None,
+    comm_plan=None,
     **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
     ``steps`` updates and return the summary dict (the CLI prints it
     on rank 0). ``resilience``: :func:`build_trainer`'s guard and
     checkpoint arguments; the summary then says where the run resumed
-    and whether it was preempted or rolled back."""
+    and whether it was preempted or rolled back. ``comm_mode`` (with
+    ``comm_table`` or an already made ``comm_plan`` for "auto", which
+    is otherwise resolved here for ``mesh``'s size): the gradient sync;
+    the summary carries the requested and resolved modes, the decision,
+    and under a manual mode the buckets and the all-reduces an update
+    issues (n_buckets + 1) beside the ones counted in the run."""
     from tpu_hpc_torch.checks.roofline import peak_flops_for_device
     from tpu_hpc_torch.kernels import attention
     from tpu_hpc_torch.parallel.shard import layout_summary
     from tpu_hpc_torch.runtime.mesh import mesh_shape
     from tpu_hpc_torch.train.trainer import tree_leaves
 
+    if comm_mode not in COMM_MODES:
+        raise ValueError(f"unknown comm_mode {comm_mode!r}; one of "
+                         f"{COMM_MODES}")
+    if comm_table is not None and comm_mode != "auto":
+        raise ValueError(
+            f"--comm-table {comm_table} is only consumed by --comm-mode "
+            f"auto; --comm-mode {comm_mode} never consults the planner")
+    if comm_mode == "auto" and comm_plan is None:
+        comm_plan = resolve_comm_auto(
+            model_cfg, comm_table,
+            n_dev=mesh.size() if mesh is not None else 1,
+            device_type=torch.device(device).type)
     trainer, ds = build_trainer(
         model_cfg, steps=steps, epochs=epochs, batch=batch,
         grad_accum_steps=grad_accum_steps, attn=attn,
         moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
-        sp_mode=sp_mode, pp=pp, **resilience,
+        sp_mode=sp_mode, pp=pp, comm_mode=comm_mode, comm_plan=comm_plan,
+        **resilience,
     )
     device = trainer.device
     flops_cfg = model_cfg if pp is None else trainer.forward.cfg
@@ -494,6 +640,8 @@ def run_train(
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     launches0 = attention.kernel_launches()
+    sync = trainer.grad_sync
+    allreduces0 = sync.allreduces if sync is not None else 0
     result = trainer.fit(ds)
     launches = {k: v - launches0[k]
                 for k, v in attention.kernel_launches().items()}
@@ -523,8 +671,8 @@ def run_train(
         },
         "mesh": mesh_shape(trainer.mesh) or None,
         "world_size": world,
-        "plan": "pipe" if pp is not None else resolve_plan(plan, mesh,
-                                                          sp_mode),
+        "plan": "pipe" if pp is not None else resolve_plan(
+            plan, mesh, sp_mode, trainer.comm_mode_resolved),
         "sp_mode": sp_mode,
         "layout": layout_summary(trainer.module),
         "tokens_per_s": tokens_per_s,
@@ -560,6 +708,20 @@ def run_train(
         "resumed_from_step": result["resumed_from_step"],
         "preempted": result["preempted"],
         "rolled_back": result["rolled_back"],
+        "comm_mode": comm_mode,
+        "comm_mode_resolved": trainer.comm_mode_resolved,
+        "comm_plan": (trainer.comm_plan.summary()
+                      if trainer.comm_plan is not None else None),
+        "comm": ({
+            "sync_axes": list(sync.sync_axes),
+            "n_buckets": sync.n_buckets,
+            "bucket_bytes": sync.bucket_bytes,
+            "allreduces_per_update": sync.n_buckets + 1,
+            "allreduces": sync.allreduces - allreduces0,
+            "launch_order": sync.order,
+            "launched_in_backward": sum(
+                1 for _, during in sync.launch_log if during),
+        } if sync is not None else None),
     }
     if pp is not None:
         from tpu_hpc_torch.parallel.pp import bubble_fraction
@@ -635,6 +797,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--pp-microbatch-size", type=int, default=None,
                     help="rows per microbatch (default 4); the global batch "
                     "is microbatches x this")
+    ap.add_argument("--comm-mode", choices=COMM_MODES, default="flat",
+                    help="gradient sync (bench.py --comm-mode): flat = the "
+                    "plan's own collectives (FSDP2 over data); "
+                    "bucketed_overlap = replicated params, size-capped "
+                    "bucket all-reduces launched during the backward; "
+                    "hierarchical = the same over a two-tier (dcn x data) "
+                    "mesh, each bucket in two phases; auto = the collective "
+                    "planner picks mode and bucket size. A manual mode "
+                    "makes the whole world data")
+    ap.add_argument("--comm-table", default=None, metavar="PATH",
+                    help="explicit planner cost-table file for --comm-mode "
+                    "auto (default: $TPU_HPC_COMM_TABLES's entry for this "
+                    "topology); requires --comm-mode auto")
     ap.add_argument("--pp-runtime", choices=("spmd", "mpmd"), default=None,
                     help="spmd: the tick-table pipeline; mpmd (per-stage "
                     "programs) is not ported yet")
@@ -668,12 +843,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if pp_flags:
         if pp_flags.pop("runtime", "spmd") == "mpmd":
             ap.error("--pp-runtime mpmd: the MPMD pipeline runtime "
-                     "(parallel/mpmd.py) is not ported yet (ROADMAP queue 1 "
-                     "item 1)")
+                     "(parallel/mpmd.py) is not ported yet "
+                     '(ROADMAP: "Pipeline, the MPMD half")')
         if args.sp_mode is not None or (args.model or 1) > 1:
             ap.error("--pp-* composes with --data only: PP x TP (--model) "
                      "and PP x SP (--sp-mode) are not ported (the JAX bench "
-                     "composes neither; ROADMAP queue 1 item 1)")
+                     "composes neither; "
+                     'ROADMAP: "Pipeline, the MPMD half")')
         pp = PipeArgs(**pp_flags)
     if args.sp_mode is not None and (args.model or 1) > 1:
         ap.error("--sp-mode does not combine with --model > 1: TP x "
@@ -683,6 +859,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--sp-mode runs attention through the flash kernels only")
     if args.context is not None and args.sp_mode is None:
         ap.error("--context needs --sp-mode")
+    if args.comm_table is not None and args.comm_mode != "auto":
+        ap.error(f"--comm-table {args.comm_table} is only consumed by "
+                 f"--comm-mode auto; --comm-mode {args.comm_mode} never "
+                 "consults the planner")
+    if args.comm_mode != "flat":
+        other = ("--sp-mode" if args.sp_mode is not None else
+                 "--pp-*" if pp is not None else None)
+        if other:
+            ap.error(f"--comm-mode {args.comm_mode} is only consumed by the "
+                     f"llama workload; with {other} it would silently run "
+                     "flat")
+        if args.comm_mode != "auto" and any(
+                v is not None for v in (args.data, args.model, args.context)):
+            ap.error(f"--comm-mode {args.comm_mode} makes the whole world "
+                     "data (comm_mode_mesh): drop --data/--model/--context")
     if args.guard_mode == "rollback" and not args.checkpoint_dir:
         ap.error("--guard-mode rollback needs --checkpoint-dir: "
                  "rollback-to-last-good restores a snapshot; without one "
@@ -739,7 +930,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     info = init_distributed(device=device.type, verbose=False)
     mesh = None
     asked = (args.data or 1) * (args.model or 1) * (args.context or 1)
-    if info.num_processes > 1:
+    comm_plan, resolved = None, args.comm_mode
+    if args.comm_mode == "auto":
+        comm_plan = resolve_comm_auto(model_cfg, args.comm_table,
+                                      n_dev=info.num_processes,
+                                      device_type=device.type)
+        resolved = comm_plan.mode
+    if resolved in MANUAL_COMM_MODES:
+        from tpu_hpc_torch.runtime.mesh import node_groups
+
+        _one_rank_world(device)
+        try:
+            spec, _, _ = comm_mode_mesh(resolved, info.num_processes,
+                                        len(node_groups()))
+        except ValueError as e:
+            cleanup_distributed()
+            ap.error(str(e))
+        mesh = build_mesh(spec, device.type)
+    elif info.num_processes > 1:
         if pp is not None:
             axes = pp_mesh_axes(info.num_processes, args.data)
         elif args.sp_mode is not None:
@@ -763,12 +971,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             guard_mode=args.guard_mode, checkpoint_dir=args.checkpoint_dir,
             save_every=args.save_every, resume=args.resume,
             metrics_path=args.metrics, sp_mode=args.sp_mode, pp=pp,
+            comm_mode=args.comm_mode, comm_plan=comm_plan,
         )
         if is_main_host():
             print(json.dumps(summary), flush=True)
     finally:
         cleanup_distributed()
     return exit_code_for(summary["preempted"], summary["rolled_back"])
+
+
+def _one_rank_world(device) -> None:
+    """Join a one-rank world on ``device`` (NCCL on a card, gloo on the
+    CPU) when no process group is up: a manual comm mode on one process
+    runs there, never without a process group."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.runtime.sim import free_port
+
+    if dist.is_initialized():
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
 
 
 def mesh_axes(world: int, model_cfg: llama2.LlamaConfig,

@@ -42,9 +42,19 @@ vector on the chunk's one host fetch, persisted skip windows),
 ``PreemptionGuard`` with an emergency snapshot, the hang watchdog, the
 heartbeat, the stall watermark and fault plans from
 ``$TPU_HPC_FAULTS``. Not ported yet, and refused by ``Trainer`` when
-set (ROADMAP queue 1): ``comm_mode != "flat"``, ``profile`` and
+set (each names its ROADMAP item): ``profile`` and
 ``capture_on_anomaly``; stage and slice faults are refused as the JAX
 Trainer refuses them.
+
+Gradient sync (``cfg.comm_mode``, the JAX Trainer's resolution): "flat"
+leaves it to the plan's own collectives (FSDP2, or none on one device);
+"bucketed_overlap" and "hierarchical" are the DDP recipe -- params
+replicated on every rank of a data mesh, each rank's gradient reduced
+in buckets as the backward produces it (``comm.overlap.GradSync``, once
+per update on the last microbatch), the loss averaged in one more
+all-reduce; "auto" asks the collective planner
+(``comm.planner.plan_trainer_grad_sync``) and logs its decision as a
+``comm_plan`` event.
 """
 from __future__ import annotations
 
@@ -486,6 +496,7 @@ def make_step_fn(
     health: bool = False,
     skip_nonfinite: bool = False,
     numeric_fault: Optional[Callable] = None,
+    grad_sync: Any = None,
 ) -> Callable[..., Tuple[TrainState, Dict]]:
     """The training step ``step(state, batch, data_offset=0)``: forward,
     backward, optimizer update.
@@ -524,7 +535,18 @@ def make_step_fn(
     grads)`` perturbs the loss and gradients before the update, keyed
     on ``state.step + data_offset``. With none of the three, the step
     issues exactly the ops it did before the guard existed.
+
+    ``grad_sync`` (a ``comm.overlap.GradSync``, the manual comm modes):
+    the params are replicated plain tensors; the sync is armed on the
+    last microbatch, whose backward launches the bucket reductions as
+    the gradients land; the mean gradient comes from its buckets, and
+    the loss, aux and model state are averaged over the sync axes in
+    one all-reduce. Each microbatch's rng folds in the rank's shard
+    index (the JAX step's ``fold_in``); integer aux or model-state
+    leaves are refused.
     """
+    from tpu_hpc_torch.comm.overlap import check_inexact
+
     sharded = module is not None
     need_norm = log_grad_norm or (
         sharded and getattr(optimizer, "max_grad_norm", 0) > 0)
@@ -547,19 +569,28 @@ def make_step_fn(
             if sharded and hasattr(module, "set_requires_gradient_sync"):
                 module.set_requires_gradient_sync(i == grad_accum - 1)
             mb = tuple(a[i * micro:(i + 1) * micro] for a in batch)
-            rng = torch.Generator().manual_seed(step_seed(step_gen, i))
+            seed_i = step_seed(step_gen, i)
+            if grad_sync is not None:
+                grad_sync.begin(last=i == grad_accum - 1)
+                seed_i = step_seed(seed_i, grad_sync.shard_index)
+            rng = torch.Generator().manual_seed(seed_i)
             loss, ms, aux = forward(module if sharded else state.params,
                                     ms, mb, rng)
+            if grad_sync is not None:
+                check_inexact((ms, aux))
             loss.backward()
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
             for k, v in aux.items():
                 v = torch.as_tensor(v).detach()
                 aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
-        grads = [
-            torch.zeros_like(p) if p.grad is None else p.grad
-            for p in leaves
-        ]
+        if grad_sync is not None:
+            grads = grad_sync.finish()
+        else:
+            grads = [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in leaves
+            ]
         with torch.no_grad():
             copies = [_copies(g) for g in grads] if sharded else None
             grads = [local(g) for g in grads]
@@ -577,6 +608,8 @@ def make_step_fn(
         metrics = {"loss": lsum, **aux_sum}
         if sharded:
             metrics = {k: _rank_mean(v) for k, v in metrics.items()}
+        elif grad_sync is not None:
+            metrics, ms = grad_sync.mean((metrics, ms))
         if log_grad_norm and "grad_norm" in aux_sum:
             raise ValueError(
                 "forward() reports an aux metric named 'grad_norm', "
@@ -743,14 +776,20 @@ def state_from_numpy(step, params, opt_state, cfg,
 # Trainer
 # ---------------------------------------------------------------------------
 
+# What the Trainer refuses, and the ROADMAP item (by its title) that
+# ports it.
+UNPORTED = {
+    "profile": 'profile=True (ROADMAP: "The operations modules", '
+               'profiling/profiler.py)',
+    "capture_on_anomaly": 'capture_on_anomaly=True ('
+                          'ROADMAP: "The rest of serving and obs", '
+                          'obs/trace.py AnomalyCapture)',
+}
+
+
 def _refuse_unported(cfg: TrainingConfig) -> None:
-    refused = []
-    if cfg.comm_mode != "flat":
-        refused.append(f"comm_mode={cfg.comm_mode!r} (ROADMAP queue 1 item 8)")
-    if cfg.profile:
-        refused.append("profile=True (ROADMAP queue 1 item 4)")
-    if cfg.capture_on_anomaly:
-        refused.append("capture_on_anomaly=True (ROADMAP queue 1 item 5)")
+    refused = [text for knob, text in UNPORTED.items()
+               if getattr(cfg, knob)]
     if refused:
         raise NotImplementedError(
             "not ported yet in tpu_hpc_torch.train: " + "; ".join(refused)
@@ -830,6 +869,7 @@ class Trainer:
         checkpoint_manager: Any = None,
         eval_forward: Optional[Callable] = None,
         device: Any = None,
+        comm_plan: Any = None,
     ):
         """``mesh``: None (one device), or a ``DeviceMesh`` with named
         dims (``runtime.build_mesh``) over the whole process group.
@@ -853,7 +893,17 @@ class Trainer:
 
         ``eval_forward(params, model_state, batch) -> (loss, aux)``
         defaults to the training forward with state updates
-        discarded."""
+        discarded.
+
+        ``cfg.comm_mode`` "bucketed_overlap" or "hierarchical" (or
+        "auto" resolving to one): the DDP recipe on ``mesh``, which must
+        be a ``DeviceMesh`` whose axes other than the batch's sync axes
+        (``batch_pspec[0]``: ``P("data")``, ``P(("dcn", "data"))``) are
+        of size 1; the params stay plain tensors, replicated (checked
+        once, here), and each rank takes its rows of the batch.
+        ``comm_plan``: a decision already made for ``comm_mode="auto"``
+        (``comm.planner.CommDecision``; the CLI resolves before it builds
+        the mesh), used instead of planning again."""
         _refuse_unported(cfg)
         if isinstance(mesh, Mapping) and math.prod(mesh.values()) > 1:
             raise ValueError(
@@ -906,7 +956,13 @@ class Trainer:
         self.module = None
         self._data_shards, self._data_rank = 1, 0
         self._seq_shards, self._seq_rank = 1, 0
-        if self.mesh is not None:
+        self.grad_sync = None
+        comm_mode, bucket_bytes = self._resolve_comm(
+            cfg, params, param_pspecs, batch_pspec, comm_plan)
+        if comm_mode != "flat":
+            params = self._manual_sync(comm_mode, bucket_bytes, params,
+                                       batch_pspec, device)
+        elif self.mesh is not None:
             self.device = resolve_device(
                 device if device is not None else self.mesh.device_type)
             if param_pspecs is None:
@@ -960,6 +1016,7 @@ class Trainer:
             skip_nonfinite=(self.guard_policy is not None
                             and self.guard_policy.mode == "skip"),
             numeric_fault=numeric_fault,
+            grad_sync=self.grad_sync,
         )
         self.n_devices = self.mesh.size() if self.mesh is not None else 1
         self.meter = ThroughputMeter(n_devices=self.n_devices,
@@ -978,6 +1035,14 @@ class Trainer:
         bus = obs.get_bus()
         if bus.flight_dir is None and cfg.checkpoint_dir:
             bus.flight_dir = cfg.checkpoint_dir
+        # The planner's comm_mode="auto" verdict, next to the epoch
+        # records it explains.
+        if self.comm_plan is not None:
+            self._append_metrics({
+                "event": "comm_plan",
+                "resolved_from": "auto",
+                **self.comm_plan.summary(),
+            })
         reg = obs.get_registry()
         reg.describe("train_steps_total", "Optimizer steps completed")
         reg.describe("train_items_total",
@@ -985,6 +1050,82 @@ class Trainer:
         reg.describe("train_step", "Current global optimizer step")
         reg.describe("train_step_s",
                      "Per-step wall time within the last chunk (s)")
+
+    def _resolve_comm(self, cfg, params, param_pspecs, batch_pspec,
+                      comm_plan) -> Tuple[str, int]:
+        """The JAX Trainer's resolution of ``cfg.comm_mode``: "auto"
+        asks the planner (or takes ``comm_plan``), whose bucket size
+        then replaces ``comm_bucket_mb``; the mode is validated against
+        the plan (manual modes need replicated params). Sets
+        ``comm_plan`` and ``comm_mode_resolved``; returns (mode,
+        bucket bytes)."""
+        from tpu_hpc_torch.parallel.fsdp import validate_grad_sync_mode
+
+        mode = cfg.comm_mode
+        bucket_bytes = cfg.comm_bucket_mb * 2 ** 20
+        specs = (param_pspecs if param_pspecs is not None
+                 else dp.param_pspecs(params))
+        self.comm_plan = None
+        if mode == "auto":
+            if comm_plan is not None:
+                self.comm_plan = comm_plan
+            else:
+                from tpu_hpc_torch.comm.planner import plan_trainer_grad_sync
+
+                self.comm_plan = plan_trainer_grad_sync(
+                    self.mesh, batch_pspec, specs, params,
+                    bucket_cap_bytes=bucket_bytes)
+            mode = self.comm_plan.mode
+            if self.comm_plan.bucket_bytes:
+                bucket_bytes = self.comm_plan.bucket_bytes
+        self.comm_mode_resolved = validate_grad_sync_mode(mode, specs)
+        return self.comm_mode_resolved, bucket_bytes
+
+    def _manual_sync(self, mode: str, bucket_bytes: int, params,
+                     batch_pspec, device):
+        """Set up a manual comm mode: replicated plain params on the
+        device (checked equal on every rank), this rank's place in the
+        batch split, and the bucketed sync. Returns the params."""
+        from tpu_hpc_torch.comm import overlap
+
+        if self.mesh is None:
+            raise ValueError(
+                f"comm_mode {mode!r} syncs gradients over the data axes "
+                "of a process group's DeviceMesh, and this trainer has "
+                "none: start a process group (one rank on one card) and "
+                "pass its mesh -- a manual mode never trains unsynced")
+        sync_axes = overlap.sync_axes_from_batch_pspec(batch_pspec)
+        names = tuple(self.mesh.mesh_dim_names)
+        missing = [a for a in sync_axes if a not in names]
+        extra = {a: self.mesh.size(i) for i, a in enumerate(names)
+                 if a not in sync_axes and self.mesh.size(i) > 1}
+        if missing or extra:
+            raise ValueError(
+                f"comm_mode {mode!r} runs pure data parallelism over the "
+                f"batch's sync axes {sync_axes}; the mesh {names} "
+                + (f"lacks {missing}" if missing else
+                   f"also splits {extra}"))
+        self.device = resolve_device(
+            device if device is not None else self.mesh.device_type)
+        params = tree_map(
+            lambda t: torch.as_tensor(np.asarray(t) if not isinstance(
+                t, torch.Tensor) else t).detach().to(self.device).clone()
+            .requires_grad_(True), params)
+        leaves = tree_leaves(params)
+        self.grad_sync = overlap.GradSync(leaves, self.mesh, sync_axes, mode,
+                                          bucket_bytes)
+        overlap.verify_replicated(
+            leaves, self.grad_sync.reducer.group,
+            ["/".join(p) for p in tree_paths(params)])
+        self._data_shards = self.grad_sync.n_total
+        self._data_rank = self.grad_sync.shard_index
+        if self.cfg.global_batch_size % (self._data_shards
+                                         * self.cfg.grad_accum_steps):
+            raise ValueError(
+                f"global_batch_size {self.cfg.global_batch_size} not "
+                f"divisible by {self._data_shards} data shards x "
+                f"grad_accum_steps {self.cfg.grad_accum_steps}")
+        return params
 
     def gather_params(self) -> Dict[str, Any]:
         """The whole param tree as numpy arrays, on every rank
@@ -1049,8 +1190,9 @@ class Trainer:
             for k, v in {"loss": loss, **aux}.items():
                 v = torch.as_tensor(v).detach().to(torch.float32)
                 sums[k] = sums[k] + v if k in sums else v
-        if self.module is not None:
+        if self.module is not None or self.grad_sync is not None:
             sums = {k: _rank_mean(v) for k, v in sums.items()}
+        if self.module is not None:
             # FSDP2 keeps the root's params whole after a forward with
             # no backward; shard them again.
             if hasattr(self.module, "reshard"):
