@@ -188,6 +188,48 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     overlap op at 10^3..10^8 elements: times, which at one
                     rank are launch cost (the bus bandwidth of a one-rank
                     world is 0 by the formula).
+     train_vision -- the vision and weather workloads at full width
+                    (train/vision.py): (a) bench.py's "unet ddp" row on a
+                    one-rank NCCL world ({"data": 1}; ERA5 181 x 360 x
+                    20, base 64, bf16, 8 samples, lr 1e-3, the BatchNorm
+                    moments all-reduced over the data group), two epochs
+                    of 3 updates whose losses must be finite and fall,
+                    and one more update under torch.profiler (device time
+                    by family, the BatchNorm all-reduces, the idle
+                    share); (b) the ViT at examples/03's size (64 x 128,
+                    patch 4, embed 256, depth 6, 8 heads, bf16, batch 8)
+                    through the flash kernels without a causal mask (head
+                    dim 32), each kernel's launches set to 0 just before
+                    and read just after, equal to depth x accum x
+                    updates, plus one profiled update (the kernels'
+                    device ms and share of the update); (c) one ViT
+                    forward and backward through the kernels: every
+                    attention call's output, dq, dk and dv against the
+                    plain versions on that call's inputs under the bf16
+                    rule, and the model's output and gradient as close to
+                    the float32 run as the plain attention's (within
+                    MODEL_VS_REF); the same ViT with the last rows of each
+                    attention output zeroed must be rejected;
+                    (d) ResNet-18 on CIFARSynthetic (batch 32), two epochs
+                    of 3 updates. The batches are drawn on the card. Each
+                    part prints its seconds, peak memory, losses and
+                    samples/s (the second epoch's).
+     train_domain -- domain parallelism: the U-Net (base 64, 20 channels,
+                    bf16) on a 176 x 360 grid (16 x 11 rows, the 1-degree
+                    band that lat % 16 admits) over 4 latitude bands
+                    through the in-process halo transport, one training
+                    forward and backward against the one-device U-Net on
+                    the same grid, batch and trees: in float32 (TF32 off)
+                    output and stats under the float32 rule, gradients
+                    within DOMAIN_GRAD_REL_RMS; in bf16 the loss and every
+                    BatchNorm running stat under the bf16 rule, output and
+                    gradients tracking the float32 values as the
+                    one-device run's do; the same runs with no halos
+                    (naive_split_conv2d) must be rejected by those checks.
+     train_long  -- bench.py's llama-long row through run_train: the bench
+                    Llama at seq 8192, microbatch 1 x accum 8, two epochs
+                    of one update, each flash kernel launched layers x
+                    accum x updates times (counts set to 0 just before).
   9. train_profile -- one more bench-Llama update under torch.profiler:
                     device time by kernel family, the top kernels, the
                     card's idle share. Reports; gates nothing.
@@ -217,9 +259,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     their plain versions. Then the update time with the
                     guard off and on skip, in turns.
 
+The flash phase also holds the ViT's attention: B 8, S 512 (and a
+ragged S 500), 8 heads of head_dim 32, no causal mask, with the
+zeroed-rows controls and the determinism check (the two rounding
+controls are read there, not gated), the S 512 case timed beside SDPA.
+
 Then the per-kernel summary line (the flash rows with their launches in
-train_sp (b) by mode, in train_pp (a) by bench row and in train_comm
-(a)), nvidia-smi's line, and last the
+train_sp (b) by mode, in train_pp (a) by bench row, in train_comm (a), in
+train_vision (b) and in train_long, and the ViT case's times), nvidia-smi's
+line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -756,7 +804,20 @@ FLASH_CASES = (
      "bfloat16", False),
     ("zigzag_context1_chunk", 4, 1024, 1024, 8, 8, 128, True, 1024, 0,
      "bfloat16", False),
+    # The ViT's attention (train_vision): B 8, S 512 (16 x 32 patches), 8
+    # heads of head_dim 32 (embed 256), no causal mask -- head_dim 32
+    # takes each wgmma kernel's kD = 64 template, half of each tile
+    # padded -- timed beside SDPA; and a ragged S 500.
+    ("vit_noncausal", 8, 512, 512, 8, 8, 32, False, 0, 0, "bfloat16", True),
+    ("vit_noncausal_ragged", 8, 500, 500, 8, 8, 32, False, 0, 0, "bfloat16",
+     False),
 )
+# The cases that run the controls and the determinism check, and the row
+# (forward, dq) or key (dk/dv) from which a control zeroes a kernel's
+# output: the last 148 of the training shape's 2048, where causal
+# attention's values are the smallest; any rows without a mask.
+CONTROL_CASES = {"train_main": 1900, "vit_noncausal": 500,
+                 "vit_noncausal_ragged": 488}
 # The flash kernels' device-time names (torch.profiler), by wrapper.
 FLASH_KERNEL_NAMES = {
     "flash_attention_fwd": "flash_fwd",
@@ -789,29 +850,25 @@ def flash_work(case) -> dict:
     }
 
 
-# Rows (forward, dq) and keys (dk/dv) from which the controls below
-# make a kernel's output wrong: the last 148 of the training shape's
-# 2048, where causal attention's values are the smallest.
-CONTROL_FROM = 1900
-
-
-def out_with_rounded_scores(torch, q, k, v):
-    """The causal forward with the scores rounded to the input dtype
-    before the softmax (the kernels round only P, after exp). Equal q
-    and KV heads, no offsets."""
+def out_with_rounded_scores(torch, q, k, v, causal=True):
+    """The forward with the scores rounded to the input dtype before the
+    softmax (the kernels round only P, after exp). Equal q and KV heads,
+    no offsets."""
     d = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
     s = s.to(q.dtype).float()
-    n = s.shape[-1]
-    causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
 
 
-def out_with_narrow_accumulator(torch, q, k, v, tile=64):
-    """The causal forward walked over 64-key tiles as the kernel walks
-    them, but with the running output kept in the input dtype between
-    tiles (the kernels keep it in fp32). Equal heads, no offsets."""
+def out_with_narrow_accumulator(torch, q, k, v, tile=64, causal=True):
+    """The forward walked over 64-key tiles as the kernel walks them, but
+    with the running output kept in the input dtype between tiles (the
+    kernels keep it in fp32). Equal heads, no offsets."""
     b, n, h, d = q.shape
     qf = q.float() * d ** -0.5
     rows = torch.arange(n, device=q.device)[:, None]
@@ -821,8 +878,9 @@ def out_with_narrow_accumulator(torch, q, k, v, tile=64):
     for j0 in range(0, n, tile):
         kt, vt = k[:, j0:j0 + tile].float(), v[:, j0:j0 + tile]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
-        cols = j0 + torch.arange(kt.shape[1], device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, float("-inf"))
+        if causal:
+            cols = j0 + torch.arange(kt.shape[1], device=q.device)[None, :]
+            s = s.masked_fill(cols > rows, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -834,32 +892,38 @@ def out_with_narrow_accumulator(torch, q, k, v, tile=64):
     return (acc.float() / l).permute(0, 2, 1, 3)
 
 
-def flash_controls(torch, q, k, v, got, want) -> None:
-    """Deliberately wrong outputs at the training shape, held to the
-    same rule as the kernels', every one of which must be rejected: each
-    kernel's output with its last rows (forward, dq) or keys (dk/dv) set
-    to zero -- a kernel that misses the end of the causal walk -- and two
-    forwards that round to bf16 at the wrong place (the scores before
-    the softmax; the running output between KV tiles)."""
+def flash_controls(torch, q, k, v, got, want, causal, control_from,
+                   case) -> None:
+    """Deliberately wrong outputs, held to the same rule as the kernels',
+    each of which must be rejected: each kernel's output with its last
+    rows (forward, dq) or keys (dk/dv) from ``control_from`` set to zero
+    -- a kernel that misses the end of its walk. At the causal training
+    shape, two forwards that round to bf16 at the wrong place (the
+    scores before the softmax; the running output between KV tiles)
+    must be rejected too; elsewhere they are read and reported
+    (``gated`` false): how far the rule sits from them there."""
     from tpu_hpc_torch.checks.tolerance import compare
 
     controls = {}
     for name in ("out", "dq", "dk", "dv"):
         bad = got[name].clone()
-        bad[:, CONTROL_FROM:] = 0
-        controls[f"{name}_from_{CONTROL_FROM}_zeroed"] = (bad, want[name])
+        bad[:, control_from:] = 0
+        controls[f"{name}_from_{control_from}_zeroed"] = (bad, want[name],
+                                                          True)
     controls["out_scores_rounded"] = (
-        out_with_rounded_scores(torch, q, k, v), want["out"])
+        out_with_rounded_scores(torch, q, k, v, causal), want["out"],
+        causal)
     controls["out_narrow_accumulator"] = (
-        out_with_narrow_accumulator(torch, q, k, v), want["out"])
-    for name, (bad, ref) in controls.items():
+        out_with_narrow_accumulator(torch, q, k, v, causal=causal),
+        want["out"], causal)
+    for name, (bad, ref, gated) in controls.items():
         r = compare(bad, ref, q.dtype)
-        emit("flash_control", control=name, dtype=str(q.dtype)[6:],
-             rejected=not r["ok"],
+        emit("flash_control", case=case, control=name,
+             dtype=str(q.dtype)[6:], rejected=not r["ok"], gated=gated,
              **{k: v for k, v in r.items() if k != "ok"})
-        if r["ok"]:
-            raise SystemExit(f"flash control {name}: the tolerance "
-                             f"accepts a wrong output ({r})")
+        if r["ok"] and gated:
+            raise SystemExit(f"flash control {name} ({case}): the "
+                             f"tolerance accepts a wrong output ({r})")
 
 
 def flash_determinism(torch, fa, bargs, kw, got) -> None:
@@ -871,7 +935,8 @@ def flash_determinism(torch, fa, bargs, kw, got) -> None:
     torch.cuda.synchronize()
     same = {name: bool(torch.equal(a, got[name]))
             for name, a in (("dq", dq), ("dk", dk), ("dv", dv))}
-    emit("flash_determinism", dtype=str(got["dq"].dtype)[6:], **same)
+    emit("flash_determinism", dtype=str(got["dq"].dtype)[6:],
+         shape=list(got["dq"].shape), **same)
     if not all(same.values()):
         raise SystemExit(f"flash backward not bit-identical across "
                          f"launches: {same}")
@@ -933,7 +998,7 @@ def flash_phase(torch, dev) -> dict:
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
     from tpu_hpc_torch.kernels import attention as fa
 
-    main_rows = {}
+    main_rows, vit_rows = {}, {}
     for case in FLASH_CASES:
         name, b, sq, sk, hq, hkv, d, causal, qo, ko, dtype_name, timed = case
         dtype = getattr(torch, dtype_name)
@@ -964,8 +1029,9 @@ def flash_phase(torch, dev) -> dict:
             raise SystemExit(f"flash {name}: a fully masked row is not zero")
         got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
         want = {"out": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv}
-        if name == "train_main":
-            flash_controls(torch, q, k, v, got, want)
+        if name in CONTROL_CASES:
+            flash_controls(torch, q, k, v, got, want, causal,
+                           CONTROL_CASES[name], name)
             flash_determinism(torch, fa, bargs, kw, got)
         added = flash_accumulate(torch, fa, bargs, kw, dtype)
         emit("flash_accumulate", case=name, dtype=dtype_name,
@@ -1021,6 +1087,8 @@ def flash_phase(torch, dev) -> dict:
                 )
                 if name == "train_main":
                     main_rows[kname] = row
+                if name == "vit_noncausal":
+                    vit_rows[kname] = row
             emit("flash", **row)
             if not all(r["ok"] for r in readings.values()):
                 raise SystemExit(
@@ -1030,7 +1098,7 @@ def flash_phase(torch, dev) -> dict:
         del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
         del lib, outputs, bargs, got, want
         torch.cuda.empty_cache()
-    return main_rows
+    return main_rows, vit_rows
 
 
 # ---------------------------------------------------------------------
@@ -2019,10 +2087,499 @@ def train_comm_phase(torch, dev, train) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------
+# Phases 8e-8g: the vision and weather workloads, domain parallelism,
+# llama-long
+# ---------------------------------------------------------------------
+
+VISION_STEPS, VISION_EPOCHS = 3, 2
+VIT_BATCH = 8          # the vit_noncausal flash case's B
+RESNET_BATCH = 32
+DOMAIN_GRID = (176, 360, 20)  # lat (16 x 11, the 1-degree band), lon, C
+DOMAIN_DEGREE, DOMAIN_BATCH = 4, 2
+LONG_SEQ, LONG_ACCUM, LONG_UPDATES = 8192, 8, 2
+
+
+def vision_failures(name, summary, updates, expected_launches=None) -> list:
+    """What fails a train_vision run: a missing or non-finite loss, a
+    U-Net whose losses do not fall, or a flash kernel launched other
+    than ``expected_launches`` times."""
+    bad = []
+    losses = summary["losses"]
+    if len(losses) != updates or not all(
+            isinstance(x, float) and x == x and abs(x) != float("inf")
+            for x in losses):
+        bad.append(f"{name}: losses {losses}, {updates} finite expected")
+    elif name == "unet" and not losses[-1] < losses[0]:
+        bad.append(f"{name}: losses do not fall {losses}")
+    if expected_launches is not None and any(
+            n != expected_launches
+            for n in summary["kernel_launches"].values()):
+        bad.append(f"{name}: flash launches {summary['kernel_launches']}, "
+                   f"expected {expected_launches} each")
+    return bad
+
+
+def vision_failures(name, summary, updates, expected_launches=None) -> list:
+    """What fails a train_vision run: a missing or non-finite loss, a
+    U-Net whose losses do not fall, or a flash kernel launched other
+    than ``expected_launches`` times."""
+    bad = []
+    losses = summary["losses"]
+    if len(losses) != updates or not all(
+            isinstance(x, float) and x == x and abs(x) != float("inf")
+            for x in losses):
+        bad.append(f"{name}: losses {losses}, {updates} finite expected")
+    elif name == "unet" and not losses[-1] < losses[0]:
+        bad.append(f"{name}: losses do not fall {losses}")
+    if expected_launches is not None and any(
+            n != expected_launches
+            for n in summary["kernel_launches"].values()):
+        bad.append(f"{name}: flash launches {summary['kernel_launches']}, "
+                   f"expected {expected_launches} each")
+    return bad
+
+
+# Model-level checks in bf16 (train_vision (c), train_domain): a whole
+# model's bf16 output sits ~1% from its float32 value, beyond the
+# per-element kernel rule, so each bf16 run is held to the float32 run
+# of the same params and inputs (TF32 off): the run under test may be
+# off it by at most MODEL_VS_REF x what its counterpart (the plain
+# attention, the one-device U-Net) is off it, by relative RMS, plus
+# MODEL_FLOOR. Sound runs read 1.00-1.01 x; the domain's no-halo control
+# about 18 x (PERF.md, train_domain). At the ViT's random init the
+# attention adds little to the output, so a ViT whose attention drops
+# rows still tracks (about 1.05 x): (c) holds each attention call to
+# the kernel rule as well.
+MODEL_VS_REF, MODEL_FLOOR = 2.0, 1e-3
+# train_domain's float32 gradients against the one-device U-Net's, by
+# relative RMS: the sound run reads 5.4e-4 (sums in another order over
+# four bands and the BatchNorm's mean subtraction), the no-halo control
+# far more.
+DOMAIN_GRAD_REL_RMS = 5e-3
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """Float32 convs and matmuls in float32 (cuDNN's and cuBLAS's TF32
+    off) for the duration."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def rel_rms(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def tracks(got, ref, exact) -> dict:
+    """``got`` against the float32 ``exact``, with ``ref``'s distance as
+    the yardstick (MODEL_VS_REF, MODEL_FLOOR)."""
+    err, ref_err = rel_rms(got, exact), rel_rms(ref, exact)
+    return {"rel_rms_vs_float32": err, "ref_rel_rms_vs_float32": ref_err,
+            "vs_ref": err / ref_err if ref_err > 0 else None,
+            "ok": err <= MODEL_VS_REF * ref_err + MODEL_FLOOR}
+
+
+def recording(attn, calls: list):
+    """``attn`` as a ViT attention hook that records, per call, its q, k,
+    v and output, and in the backward the output's gradient and dq, dk,
+    dv (each of q, k, v feeds only the attention)."""
+    def fn(q, k, v):
+        call = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
+        calls.append(call)
+        for name, t in (("dq", q), ("dk", k), ("dv", v)):
+            t.register_hook(lambda g, name=name: call.update({name: g}))
+        out = attn(q, k, v)
+        out.register_hook(lambda g: call.update(dout=g))
+        call["out"] = out.detach()
+        return out
+    return fn
+
+
+def rows_zeroed(torch, attn, start: int):
+    """(c)'s control: ``attn`` with its output's rows from ``start`` set
+    to zero -- an attention that misses the end of its walk."""
+    def fn(q, k, v):
+        out = attn(q, k, v)
+        return torch.cat([out[:, :start], torch.zeros_like(out[:, start:])],
+                         1)
+    return fn
+
+
+def attention_calls_readings(torch, calls) -> dict:
+    """Each recorded non-causal attention call against the kernels' plain
+    versions on the same q, k, v and output gradient (``dm`` from the
+    plain output), under the bf16 rule: per output, the reading of the
+    call that uses the most of its tolerance, and ``ok`` over all."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+
+    out = {}
+    for call in calls:
+        q, k, v, dout = call["q"], call["k"], call["v"], call["dout"]
+        want = dict(zip(("out", "lse"), fa.flash_attention_fwd_ref(
+            q, k, v, causal=False)))
+        dm = (dout.float() * want["out"].float()).sum(-1)
+        bargs = (q, k, v, dout, want["lse"], dm)
+        want["dq"] = fa.flash_attention_dq_ref(*bargs, causal=False)
+        want["dk"], want["dv"] = fa.flash_attention_dkv_ref(*bargs,
+                                                            causal=False)
+        for name in ("out", "dq", "dk", "dv"):
+            r = compare(call[name], want[name], q.dtype)
+            worst = out.setdefault(name, r)
+            if r["tol_used"] > worst["tol_used"]:
+                out[name] = r
+            out[name]["ok"] = worst["ok"] and r["ok"]
+    out["calls"] = len(calls)
+    return out
+
+
+def vit_update_readings(torch, dev, impl="cuda") -> dict:
+    """(c) One ViT forward and backward at the example's size -- the same
+    params and batch -- through the flash kernels (``impl``), and its
+    control, the same with each attention output's rows from
+    CONTROL_CASES["vit_noncausal"] zeroed; each held by two checks: (1)
+    every attention call's output and dq, dk, dv against the kernels'
+    plain versions on that call's inputs, under the bf16 rule
+    (``attention_calls_readings``); (2) the model's output and gradients
+    against the float32 run's, as close as the run through the plain
+    attention in bf16 (``tracks``). The sound run must pass both, the
+    control must fail one."""
+    from tpu_hpc_torch.models import datasets, vit
+    from tpu_hpc_torch.models.losses import lat_weighted_mse
+    from tpu_hpc_torch.train.trainer import tree_leaves, tree_map
+
+    cfg = vit.ViTConfig()
+    params = vit.init_vit(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    x, y = (t.to(dev) for t in datasets.ERA5Synthetic(
+        lat=cfg.lat, lon=cfg.lon, n_vars=cfg.in_channels,
+        n_levels=1).batch_at(0, VIT_BATCH))
+    kernels, plain = vit.flash_attn_fn(impl), vit.flash_attn_fn("reference")
+    calls = {"flash": [], "control": []}
+    runs = {}
+    for name, attn, dtype in (
+            ("flash", recording(kernels, calls["flash"]), torch.bfloat16),
+            ("control", recording(rows_zeroed(
+                torch, kernels, CONTROL_CASES["vit_noncausal"]),
+                calls["control"]),
+             torch.bfloat16),
+            ("plain", plain, torch.bfloat16),
+            ("float32", plain, torch.float32)):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        with no_tf32(torch):
+            pred = vit.apply_vit(p, x, dataclasses.replace(cfg, dtype=dtype),
+                                 attn)
+            loss = lat_weighted_mse(pred, y)
+            loss.backward()
+        grads = torch.cat([t.grad.detach().float().reshape(-1)
+                           for t in tree_leaves(p)])
+        runs[name] = (pred.detach(), float(loss.detach()), grads)
+    out = {}
+    for name in ("flash", "control"):
+        got = runs[name]
+        r = {"attention": attention_calls_readings(torch, calls[name]),
+             "out": tracks(got[0], runs["plain"][0], runs["float32"][0]),
+             "grads": tracks(got[2], runs["plain"][2], runs["float32"][2])}
+        r["ok"] = (r["attention"]["calls"] == cfg.depth
+                   and all(r[k]["ok"] for k in ("out", "grads"))
+                   and all(r["attention"][k]["ok"]
+                           for k in ("out", "dq", "dk", "dv")))
+        out[name] = r
+    out["loss"] = {name: run[1] for name, run in runs.items()}
+    return out
+
+
+def train_vision_phase(torch, dev) -> dict:
+    """Phase 8e, the vision and weather workloads at full width: (a)
+    bench.py's unet row on a one-rank NCCL world ({"data": 1}: FSDP2
+    over data, the BatchNorm moments all-reduced over the group), two
+    epochs of 3 updates, plus one profiled update; (b) the ViT at
+    examples/03's size (64 x 128, patch 4, embed 256, depth 6, 8 heads,
+    bf16, batch 8) through the flash kernels without a causal mask, each
+    kernel's launches set to 0 before and read after, predicted depth x
+    accum x updates, plus one profiled update (the kernels' share of
+    it); (c) one ViT forward and backward through the kernels, each
+    attention call against the plain versions and the whole against the
+    float32 run, and a control with rows of attention dropped that must
+    be rejected (``vit_update_readings``); (d) ResNet-18 (batch 32) on
+    CIFARSynthetic, two epochs of 3 updates. Each part prints its
+    seconds, peak memory, losses and samples/s (the second epoch's).
+    Returns (b)'s launches."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.runtime import MeshSpec, build_mesh
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.vision import (VisionArgs, build_vision_trainer,
+                                            run_vision)
+
+    def profile_one(args, mesh=None):
+        trainer, ds = build_vision_trainer(args, steps=1, epochs=1,
+                                           device=dev, mesh=mesh)
+        batch = trainer.cfg.global_batch_size
+        got = profiled_update(torch, trainer,
+                              lambda i: ds.batch_at(i, batch))
+        del trainer
+        _release(torch)
+        return got
+
+    keys = ("samples_per_s", "update_s", "losses", "final_loss", "n_params",
+            "peak_memory_bytes", "global_batch", "sample_shape", "mesh",
+            "layout")
+    updates = VISION_STEPS * VISION_EPOCHS
+    bad, out = [], {}
+    t0 = time.perf_counter()
+    _peak_reset(torch, dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(axes={"data": 1}), "cuda")
+        unet = run_vision(VisionArgs(workload="unet"), steps=VISION_STEPS,
+                          epochs=VISION_EPOCHS, device=dev, mesh=mesh)
+        _release(torch)
+        prof = profile_one(VisionArgs(workload="unet"), mesh)
+    finally:
+        dist.destroy_process_group()
+    emit("train_vision", check="a_unet", seconds=time.perf_counter() - t0,
+         model={k: unet["model"][k] for k in (
+             "in_channels", "base_features", "dtype", "param_dtype")},
+         profiled_update=prof, **{k: unet.get(k) for k in keys})
+    bad += vision_failures("unet", unet, updates)
+    out["unet"] = unet
+    # (b) the ViT through the flash kernels
+    t0 = time.perf_counter()
+    _peak_reset(torch, dev)
+    zero_flash_launches()
+    vit_args = VisionArgs(workload="vit", batch=VIT_BATCH)
+    vit = run_vision(vit_args, steps=VISION_STEPS, epochs=VISION_EPOCHS,
+                     device=dev)
+    launches = fa.kernel_launches()
+    expected = vit["model"]["depth"] * vit["grad_accum_steps"] * updates
+    _release(torch)
+    prof = profile_one(vit_args)
+    flash_ms = prof["families"].get("flash_attention", {}).get("ms", 0.0)
+    emit("train_vision", check="b_vit", seconds=time.perf_counter() - t0,
+         launches=launches, expected_launches=expected,
+         attention={"b": VIT_BATCH, "s": 512, "heads": 8, "head_dim": 32,
+                    "causal": False},
+         profiled_update=prof, flash_device_ms=flash_ms,
+         flash_share_of_update=flash_ms / (1e3 * vit["update_s"]),
+         **{k: vit.get(k) for k in keys})
+    bad += vision_failures("vit", vit, updates, expected)
+    if launches != vit["kernel_launches"]:
+        bad.append("vit: launch counts moved outside the run")
+    # (c) one ViT update through the kernels against the plain versions
+    t0 = time.perf_counter()
+    _peak_reset(torch, dev)
+    r = vit_update_readings(torch, dev)
+    emit("train_vision", check="c_vit_kernels_vs_plain",
+         seconds=time.perf_counter() - t0,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         control_rejected=not r["control"]["ok"], **r)
+    if not r["flash"]["ok"]:
+        bad.append(f"vit kernels against plain: {r['flash']}")
+    if r["control"]["ok"]:
+        bad.append(f"vit: the checks accept the control with rows of "
+                   f"attention dropped: {r['control']}")
+    _release(torch)
+    # (d) ResNet-18
+    t0 = time.perf_counter()
+    _peak_reset(torch, dev)
+    res = run_vision(VisionArgs(workload="resnet", batch=RESNET_BATCH),
+                     steps=VISION_STEPS, epochs=VISION_EPOCHS, device=dev)
+    emit("train_vision", check="d_resnet", seconds=time.perf_counter() - t0,
+         **{k: res.get(k) for k in keys})
+    bad += vision_failures("resnet", res, updates)
+    _release(torch)
+    if bad:
+        raise SystemExit("train_vision: " + "; ".join(bad))
+    return launches
+
+
+def naive_halo_conv2d(xs, kernel, bias=None, *, ring, **kw):
+    """train_domain's control: the conv with no halo (each band zero-pads
+    its own borders), in halo_conv2d's signature."""
+    from tpu_hpc_torch.parallel import domain
+
+    del ring, kw
+    out = domain.naive_split_conv2d(xs, kernel)
+    return out if bias is None else [o + bias.to(o.dtype) for o in out]
+
+
+def domain_readings(torch, got, one, exact, dtype) -> dict:
+    """A domain run (pred, loss, batch stats, gradients) against the
+    one-device run's: in float32, output and stats under the float32
+    rule and the gradients within DOMAIN_GRAD_REL_RMS; in bf16, the loss
+    and stats under the bf16 rule, output and gradients tracking the
+    float32 one-device values as the bf16 one-device run's do."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.train.trainer import tree_leaves
+
+    r = {}
+    if dtype == torch.float32:
+        r["out"] = compare(got[0], one[0], dtype)
+        err = rel_rms(got[3], one[3])
+        r["grads"] = {"rel_rms": err, "limit": DOMAIN_GRAD_REL_RMS,
+                      "ok": err <= DOMAIN_GRAD_REL_RMS}
+    else:
+        r["out"] = tracks(got[0], one[0], exact[0])
+        r["loss"] = compare(got[1], one[1], dtype)
+        r["grads"] = tracks(got[3], one[3], exact[3])
+    stats = [compare(a[None], b[None], dtype) for a, b in zip(
+        tree_leaves(got[2]), tree_leaves(one[2]))]
+    r["stats"] = {"tol_used": max(s["tol_used"] for s in stats),
+                  "ok": all(s["ok"] for s in stats), "n": len(stats)}
+    return r
+
+
+def domain_failures(readings, controls) -> list:
+    """What fails train_domain: a reading of the sound runs not ok, or a
+    no-halo control whose output and gradients both pass the check that
+    holds the sound run's."""
+    bad = [f"{name}/{k}: {r}" for name, rs in readings.items()
+           for k, r in rs.items() if not r["ok"]]
+    bad += [f"the checks accept the {name} no-halo control: {r}"
+            for name, r in controls.items()
+            if r["out"]["ok"] and r["grads"]["ok"]]
+    return bad
+
+
+def train_domain_phase(torch, dev) -> None:
+    """Phase 8f, domain parallelism: the U-Net (base 64, 20 channels) on
+    a 176 x 360 grid over 4 latitude bands through the in-process halo
+    transport on this card, one training forward and backward, against
+    the one-device U-Net on the same grid, batch and trees, in float32
+    (TF32 off) and in bf16 (``domain_readings``); the same runs with no
+    halos (naive_split_conv2d) must be rejected by the same checks. Step
+    times and peak memory of both."""
+    from unittest import mock
+
+    from tpu_hpc_torch.models import datasets, unet
+    from tpu_hpc_torch.models.losses import lat_weighted_mse
+    from tpu_hpc_torch.parallel import domain, domain_unet
+    from tpu_hpc_torch.train.trainer import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    lat, lon, ch = DOMAIN_GRID
+    cfgs = {name: unet.UNetConfig(in_channels=ch, out_channels=ch,
+                                  base_features=64, dtype=dt)
+            for name, dt in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16))}
+    params, state = unet.init_unet(torch.Generator(device=dev).manual_seed(0),
+                                   cfgs["float32"], dev)
+    x, y = (t.to(dev) for t in datasets.ERA5Synthetic(
+        lat=lat, lon=lon, n_vars=ch, n_levels=1).batch_at(0, DOMAIN_BATCH))
+
+    def step(apply):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        pred, ns = apply(p, state, x)
+        loss = lat_weighted_mse(pred, y)
+        loss.backward()
+        grads = torch.cat([t.grad.float().reshape(-1)
+                           for t in tree_leaves(p)])
+        return pred.detach(), loss.detach().reshape(1, 1), ns, grads
+
+    def timed(apply):
+        _peak_reset(torch, dev)
+        step(apply)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = step(apply)
+        torch.cuda.synchronize()
+        return got, 1e3 * (time.perf_counter() - t), \
+            torch.cuda.max_memory_allocated(dev)
+
+    runs, times, readings, controls = {}, {}, {}, {}
+    for name, cfg in cfgs.items():
+        dtype = getattr(torch, name)
+        dom = domain_unet.make_domain_unet(
+            domain.InProcessHalo(DOMAIN_DEGREE), cfg)
+        with no_tf32(torch):
+            runs[name, "one"], *times[name, "one"] = timed(
+                lambda p, s, t, cfg=cfg: unet.apply_unet(p, s, t, cfg))
+            runs[name, "domain"], *times[name, "domain"] = timed(dom)
+            with mock.patch.object(domain_unet.domain, "halo_conv2d",
+                                   naive_halo_conv2d):
+                no_halo = step(dom)
+        one, exact = runs[name, "one"], runs["float32", "one"]
+        readings[name] = domain_readings(torch, runs[name, "domain"], one,
+                                         exact, dtype)
+        controls[name] = domain_readings(torch, no_halo, one, exact, dtype)
+    emit("train_domain", degree=DOMAIN_DEGREE, transport="in_process",
+         grid=list(DOMAIN_GRID), batch=DOMAIN_BATCH, base_features=64,
+         loss={f"{n}/{k}": float(r[1]) for (n, k), r in runs.items()},
+         readings=readings, control_no_halo=controls,
+         step_ms={f"{n}/{k}": t[0] for (n, k), t in times.items()},
+         peak_memory_bytes={f"{n}/{k}": t[1] for (n, k), t in times.items()},
+         seconds=time.perf_counter() - t0)
+    bad = domain_failures(readings, controls)
+    _release(torch)
+    if bad:
+        raise SystemExit("train_domain: " + "; ".join(bad))
+
+
+def train_long_phase(torch, dev, train) -> dict:
+    """Phase 8g, bench.py's llama-long row: the bench Llama at seq 8192,
+    microbatch 1 accumulated 8 times, through run_train: two epochs of
+    one update (the first is warm-up), each flash kernel's launches set
+    to 0 before and read after (layers x accum x updates); tokens/s,
+    MFU, update_s and peak memory beside train's."""
+    import math
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, run_train
+
+    t0 = time.perf_counter()
+    cfg = bench_model_cfg(seq_len=LONG_SEQ)
+    zero_flash_launches()
+    summary = run_train(cfg, steps=1, epochs=LONG_UPDATES,
+                        batch=LONG_ACCUM, grad_accum_steps=LONG_ACCUM,
+                        device=dev,
+                        metric=f"llama2_seq{LONG_SEQ}_tokens_per_s_per_chip")
+    launches = fa.kernel_launches()
+    expected = cfg.n_layers * LONG_ACCUM * LONG_UPDATES
+    emit("train_long", metric=summary["metric"], seq_len=LONG_SEQ,
+         microbatch=1, grad_accum=LONG_ACCUM, updates=summary["updates"],
+         launches=launches, expected_launches=expected,
+         seconds=time.perf_counter() - t0,
+         train={k: train[k] for k in ("tokens_per_s", "update_s", "mfu",
+                                      "peak_memory_bytes")},
+         **{k: summary[k] for k in ("tokens_per_s", "mfu", "update_s",
+                                    "peak_memory_bytes", "losses",
+                                    "flash_tile_rows")})
+    bad = []
+    if len(summary["losses"]) != LONG_UPDATES or not all(
+            math.isfinite(x) for x in summary["losses"]):
+        bad.append(f"losses {summary['losses']}")
+    if any(n != expected for n in launches.values()) \
+            or launches != summary["kernel_launches"]:
+        bad.append(f"flash launches {launches}, expected {expected} each")
+    _release(torch)
+    if bad:
+        raise SystemExit("train_long: " + "; ".join(bad))
+    return launches
+
+
 def kernel_family(name: str) -> str:
+    """A profiled kernel by what it does."""
     low = name.lower()
     if "flash_" in low:
         return "flash_attention"
+    if "nccl" in low:
+        return "nccl"
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "winograd", "implicit")):
+        return "conv"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "wgmma",
                               "nvjet")):
         return "matmul"
@@ -2033,31 +2590,28 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def train_profile_phase(torch, dev) -> None:
-    """One bench-Llama update under torch.profiler, after one warm-up
-    update: device time by kernel family, the top kernels, and the
-    share of the profiled update's wall time the card sat idle (the
-    profiler's own overhead counts as idle, so that share is an upper
-    bound). A measurement, not a gate: if the profiler records no device
-    time it says so and the run goes on."""
+def profiled_update(torch, trainer, batch_at) -> dict:
+    """One update of ``trainer`` on ``batch_at(1)`` under torch.profiler,
+    after a warm-up update on ``batch_at(0)``: device time by kernel
+    family, the top kernels, the all-reduce ranges (count and host
+    time), and the share of the update's wall time the card sat idle
+    (the profiler's own overhead counts as idle, so that share is an
+    upper bound). A measurement, not a gate: if the profiler records no
+    device time it says so and the run goes on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
-
-    trainer, ds = build_trainer(bench_model_cfg(), batch=TRAIN_BATCH,
-                                grad_accum_steps=TRAIN_ACCUM, device=dev)
-    trainer.train_step(ds.batch_at(0, TRAIN_BATCH))
+    trainer.train_step(batch_at(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(ds.batch_at(1, TRAIN_BATCH))
+        trainer.train_step(batch_at(1))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(ms for _, ms, _ in kernels)
     families: dict = {}
     for name, ms, count in kernels:
@@ -2065,14 +2619,29 @@ def train_profile_phase(torch, dev) -> None:
                                   {"ms": 0.0, "launches": 0})
         fam["ms"] += ms
         fam["launches"] += count
-    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    return {"wall_ms": wall_ms, "device_time_available": busy_ms > 0,
+            "device_busy_ms": busy_ms,
+            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
+            "families": families,
+            "all_reduce": {e.key: {"count": e.count,
+                                   "host_ms": e.cpu_time_total / 1e3}
+                           for e in events if "all_reduce" in e.key
+                           and e.device_type != DeviceType.CUDA},
+            "top": [{"kernel": n[:100], "ms": ms, "launches": c}
+                    for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:12]]}
+
+
+def train_profile_phase(torch, dev) -> None:
+    """One bench-Llama update under torch.profiler
+    (``profiled_update``)."""
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    trainer, ds = build_trainer(bench_model_cfg(), batch=TRAIN_BATCH,
+                                grad_accum_steps=TRAIN_ACCUM, device=dev)
     emit("train_profile", model="bench", updates=1,
-         microbatches=TRAIN_ACCUM, wall_ms=wall_ms,
-         device_time_available=busy_ms > 0, device_busy_ms=busy_ms,
-         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
-         families=families,
-         top=[{"kernel": n[:100], "ms": ms, "launches": c}
-              for n, ms, c in top])
+         microbatches=TRAIN_ACCUM,
+         **profiled_update(torch, trainer,
+                           lambda i: ds.batch_at(i, TRAIN_BATCH)))
     del trainer
     torch.cuda.empty_cache()
 
@@ -3188,7 +3757,8 @@ def main() -> int:
          ptxas=ptxas_summary(_build.PTXAS_LOG.read_text()))
 
     main_rows = kernel_phase(torch, dev, lib)
-    main_rows.update(flash_phase(torch, dev))
+    flash_rows, vit_rows = flash_phase(torch, dev)
+    main_rows.update(flash_rows)
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
     serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
@@ -3259,6 +3829,13 @@ def main() -> int:
     #        auto's decision, hierarchical refused, the comm bench
     comm_launches = train_comm_phase(torch, dev, train)
     _release(torch)
+    # -- 8e. the vision and weather workloads: bench.py's unet row, the
+    #        ViT on the flash kernels without a causal mask, ResNet-18
+    vision_launches = train_vision_phase(torch, dev)
+    # -- 8f. domain parallelism: the U-Net over 4 latitude bands
+    train_domain_phase(torch, dev)
+    # -- 8g. llama-long: seq 8192, microbatch 1
+    long_launches = train_long_phase(torch, dev, train)
     # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
@@ -3292,6 +3869,14 @@ def main() -> int:
             entry["train_pp_launches"] = {
                 row: n[entry["name"]] for row, n in pp_launches.items()}
             entry["train_comm_launches"] = comm_launches[entry["name"]]
+            # The ViT's (train_vision (b)) and llama-long's launches, and
+            # the ViT's attention shape timed (flash case vit_noncausal).
+            entry["train_vision_launches"] = vision_launches[entry["name"]]
+            entry["train_long_launches"] = long_launches[entry["name"]]
+            vit = vit_rows[entry["name"]]
+            entry["vit_noncausal"] = {k: vit[k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -743,3 +743,183 @@ def test_comm_failures(overrides, failures):
     launches = {"flash_attention_fwd": overrides.get("launches", 384)}
     assert len(chip_smoke.comm_failures(
         [2.0] * 6, summary, launches, 384, 6)) == failures
+
+
+# ---------------------------------------------------------------------
+# train_vision, train_domain, train_long and the ViT flash cases
+# ---------------------------------------------------------------------
+
+def test_phase_list_names_the_vision_domain_and_long_phases():
+    """train_vision, train_domain and train_long follow train_comm and
+    come before the profile, in the docstring and in main; the kernels
+    line's flash rows carry their launches and the ViT case's times."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *train_comm ", r"^ *train_vision ", r"^ *train_domain ",
+        r"^ *train_long ", r"^ *9\. train_profile ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_comm_phase(", "train_vision_phase(", "train_domain_phase(",
+        "train_long_phase(", "train_profile_phase(")]
+    assert calls == sorted(calls)
+    for key in ('entry["train_vision_launches"]',
+                'entry["train_long_launches"]', 'entry["vit_noncausal"]'):
+        assert key in src
+
+
+def test_vit_flash_cases_are_the_vits_attention():
+    """The ViT's attention at examples/03's size: S = (64 / 4) x (128 /
+    4) = 512 patches, 8 heads of 256 / 8 = 32, no causal mask; the S 512
+    case timed, a ragged S 500 beside it; both run the controls and the
+    determinism check, their zeroed rows inside the sequence."""
+    cases = {c[0]: c for c in chip_smoke.FLASH_CASES}
+    vit, ragged = cases["vit_noncausal"], cases["vit_noncausal_ragged"]
+    assert vit[1:] == (chip_smoke.VIT_BATCH, 512, 512, 8, 8, 32, False, 0,
+                       0, "bfloat16", True)
+    assert ragged[1:] == (8, 500, 500, 8, 8, 32, False, 0, 0, "bfloat16",
+                          False)
+    for name in ("train_main", "vit_noncausal", "vit_noncausal_ragged"):
+        assert 0 < chip_smoke.CONTROL_CASES[name] < cases[name][2]
+    work = chip_smoke.flash_work(vit)
+    assert work["flash_attention_fwd"][1] == 4 * 32 * 8 * 8 * 512 * 512
+
+
+def test_rounding_controls_without_a_mask_on_cpu():
+    """The rounding controls' non-causal forms are attention without a
+    mask: the narrow accumulator walked in float32 tiles is the exact
+    output, and rounded scores stay close to it."""
+    import torch
+
+    from tpu_hpc_torch.kernels.attention import attention_reference
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 96, 2, 16, generator=gen) for _ in range(3))
+    want = attention_reference(q, k, v, causal=False)[0]
+    got = chip_smoke.out_with_narrow_accumulator(torch, q, k, v, tile=32,
+                                                 causal=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    rounded = chip_smoke.out_with_rounded_scores(torch, q, k, v, causal=False)
+    assert (rounded - want).abs().max() < 0.1
+
+
+def _summary(losses, launches=36):
+    return {"losses": losses,
+            "kernel_launches": {"flash_attention_fwd": launches}}
+
+
+@pytest.mark.parametrize("name, summary, expected, failures", [
+    ("unet", _summary([1.0, 0.9, 0.8, 0.7, 0.6, 0.5]), None, 0),
+    ("unet", _summary([1.0, 0.9, 0.8, 0.7, 0.6, 1.1]), None, 1),
+    ("unet", _summary([1.0, float("nan"), 0.8, 0.7, 0.6, 0.5]), None, 1),
+    ("unet", _summary([1.0, 0.9]), None, 1),
+    ("vit", _summary([1.0, 1.1, 1.2, 1.3, 1.4, 1.5]), 36, 0),
+    ("vit", _summary([1.0] * 6, launches=35), 36, 1),
+    ("resnet", _summary([2.0, 2.5, 2.1, 2.2, 2.0, 1.9]), None, 0),
+])
+def test_vision_failures(name, summary, expected, failures):
+    """Six updates expected: a missing or non-finite loss, a U-Net whose
+    loss does not fall, or a launch count off the prediction fails."""
+    assert len(chip_smoke.vision_failures(name, summary, 6,
+                                          expected)) == failures
+
+
+def _oks(*oks):
+    return {k: {"ok": ok} for k, ok in zip(("out", "grads", "stats"), oks)}
+
+
+@pytest.mark.parametrize("sound, control, failures", [
+    ((True, True, True), (False, False), 0),
+    ((True, False, True), (False, False), 1),
+    ((False, True, False), (False, False), 2),
+    ((True, True, True), (True, False), 0),
+    ((True, True, True), (False, True), 0),
+    ((True, True, True), (True, True), 1),
+])
+def test_domain_failures(sound, control, failures):
+    """Each dtype's sound run fails on any reading not ok (here the
+    float32 one's); each no-halo control must fail its output's or its
+    gradients' check (here the bfloat16 one's)."""
+    readings = {"float32": _oks(*sound), "bfloat16": _oks(True, True, True)}
+    controls = {"float32": _oks(False, False), "bfloat16": _oks(*control)}
+    assert len(chip_smoke.domain_failures(readings, controls)) == failures
+
+
+def test_tracks_holds_a_run_to_its_counterparts_distance():
+    import torch
+
+    exact = torch.linspace(1.0, 2.0, 100)
+    ref = exact * 1.01
+    assert chip_smoke.tracks(exact * 1.015, ref, exact)["ok"]
+    assert not chip_smoke.tracks(exact * 1.05, ref, exact)["ok"]
+    assert chip_smoke.tracks(exact, exact, exact)["ok"]
+
+
+def test_vit_update_checks_run_on_cpu(monkeypatch):
+    """(c) on a small ViT on the CPU, where the kernels' wrappers run
+    their plain versions: every attention call is recorded with its
+    gradients and passes the rule, and the control that drops the last
+    rows of every attention output is rejected by the per-call rule --
+    while the model-level check alone accepts it."""
+    import functools
+
+    import torch
+
+    from tpu_hpc_torch.models import vit
+
+    monkeypatch.setattr(vit, "ViTConfig", functools.partial(
+        vit.ViTConfig, lat=16, lon=32, embed_dim=32, depth=2, n_heads=2))
+    monkeypatch.setattr(chip_smoke, "VIT_BATCH", 2)
+    monkeypatch.setitem(chip_smoke.CONTROL_CASES, "vit_noncausal", 28)
+    r = chip_smoke.vit_update_readings(torch, torch.device("cpu"))
+    assert r["flash"]["ok"] and r["flash"]["attention"]["calls"] == 2
+    assert r["flash"]["attention"]["dq"]["rel_rms_err"] == 0.0
+    assert not r["control"]["ok"]
+    assert not any(r["control"]["attention"][k]["ok"]
+                   for k in ("out", "dq", "dk", "dv"))
+    assert r["control"]["out"]["ok"]
+
+
+@pytest.mark.parametrize("name, family", [
+    ("flash_fwd_wgmma_kernel<__nv_bfloat16, 64>", "flash_attention"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "nccl"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv"),
+    ("cudnn::detail::dgrad2d_alg1_1", "conv"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "matmul"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "matmul"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>",
+     "elementwise"),
+    ("void at::native::reduce_kernel<128, 4, ...>", "reduction"),
+    ("void at::native::index_elementwise_kernel", "elementwise"),
+    ("memcpy", "other"),
+])
+def test_kernel_family(name, family):
+    """One classifier for every profiled update: convolutions before
+    matmuls (cuDNN's implicit-GEMM kernels name both)."""
+    assert chip_smoke.kernel_family(name) == family
+
+
+def test_train_domain_checks_run_on_cpu(monkeypatch):
+    """The phase at a small grid on the CPU (the card's calls made
+    no-ops): the domain U-Net passes every check against the one-device
+    U-Net, and the no-halo control is rejected."""
+    import torch
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "DOMAIN_GRID", (16, 8, 3))
+    chip_smoke.train_domain_phase(torch, torch.device("cpu"))
+
+
+def test_domain_grid_is_a_one_degree_band_the_bands_tile():
+    lat, lon, ch = chip_smoke.DOMAIN_GRID
+    assert lat % (chip_smoke.DOMAIN_DEGREE * 4) == 0 and lat <= 181
+    assert lat + chip_smoke.DOMAIN_DEGREE * 4 > 181  # the largest that does
+    assert (lon, ch) == (360, 20)

@@ -493,3 +493,193 @@ def test_port_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "[]"
+
+
+# ---------------------------------------------------------------------------
+# The vision and weather workloads (train/vision.py) and llama-long
+# ---------------------------------------------------------------------------
+
+VISION_TINY = {
+    "unet": ["--lat", "19", "--lon", "12", "--channels", "3",
+             "--base-features", "4", "--batch", "2", "--eval-steps", "1"],
+    "vit": ["--lat", "16", "--lon", "32", "--channels", "3", "--dim", "32",
+            "--n-layers", "2", "--n-heads", "4", "--batch", "2"],
+    "resnet": ["--batch", "4", "--eval-steps", "1"],
+    "domain-unet": ["--lat", "16", "--lon", "8", "--base-features", "4",
+                    "--batch", "2", "--spatial", "2"],
+}
+
+
+@pytest.mark.parametrize("workload", sorted(VISION_TINY))
+def test_vision_workload_trains_on_cpu(workload, capsys):
+    """Each workload through the CLI at a tiny size on the CPU: its
+    metric in samples/s, finite losses, the unet on a one-rank world's
+    {"data": 1} mesh (FSDP2 over data, BatchNorm summed over the group),
+    the domain U-Net's bands in process, no kernel launch on the CPU,
+    and the evaluation pass on the stored stats where asked."""
+    assert tmain.main(["--device", "cpu", "--workload", workload, "--steps",
+                       "2", "--epochs", "1", *VISION_TINY[workload]]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["workload"] == workload and out["unit"] == "samples/s"
+    assert out["metric"] == {
+        "unet": "unet_dp_train_throughput",
+        "vit": "vit_train_samples_per_s",
+        "resnet": "resnet18_train_samples_per_s",
+        "domain-unet": "domain_unet_train_samples_per_s"}[workload]
+    assert out["value"] == out["samples_per_s"] > 0
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert set(out["kernel_launches"].values()) == {0}
+    assert out["mesh"] == ({"data": 1} if workload == "unet" else None)
+    assert out["batch_stats"] == (workload != "vit")
+    assert out["spatial"] == (2 if workload == "domain-unet" else None)
+    if "--eval-steps" in VISION_TINY[workload]:
+        assert np.isfinite(out["eval"]["loss"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_unet_workload_is_bench_rows_size():
+    """bench.py's unet row (bench_unet): ERA5 181 x 360 x 20, base 64, 8
+    samples per data rank, lr 1e-3, bf16 compute over fp32 params --
+    read off the built trainer's config without training."""
+    from tpu_hpc_torch.train import vision
+
+    args = vision.VisionArgs(workload="unet")
+    ds = vision._dataset(args)
+    assert ds.sample_shape == (181, 360, 20)
+    assert vision.DEFAULT_BATCH["unet"] == 8
+    assert vision.LEARNING_RATE == 1e-3
+    fwd, _, params, state, cfg = vision.build_model(
+        vision.VisionArgs(workload="unet", lat=16, lon=8), ds, "cpu")
+    assert cfg.base_features == 64 and cfg.in_channels == 20
+    assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
+    assert set(state["batch_stats"]) == {"enc1", "enc2", "bottleneck",
+                                         "dec2", "dec1"}
+    vit_cfg = vision.build_model(vision.VisionArgs(workload="vit"),
+                                 vision._dataset(vision.VisionArgs(
+                                     workload="vit")), "cpu")[4]
+    assert (vit_cfg.lat, vit_cfg.lon, vit_cfg.patch_size, vit_cfg.embed_dim,
+            vit_cfg.depth, vit_cfg.n_heads, vit_cfg.head_dim) == (
+        64, 128, 4, 256, 6, 8, 32)
+
+
+def test_vision_trainer_carries_and_evaluates_batch_stats():
+    """model_state carries the BatchNorm running stats from update to
+    update, and the evaluation pass normalises with the stored stats
+    (its loss is the eval forward's on them, not a training forward's)."""
+    from tpu_hpc_torch.train import vision
+
+    trainer, ds = vision.build_vision_trainer(
+        vision.VisionArgs(workload="resnet", batch=4), steps=2, epochs=1,
+        device="cpu")
+    before = trainer.state.model_state["batch_stats"]["bn1"]["mean"].clone()
+    trainer.fit(ds)
+    after = trainer.state.model_state["batch_stats"]["bn1"]["mean"]
+    assert not torch.equal(before, after)
+    got = trainer.evaluate(ds, 1)["loss"]
+    batch = ds.batch_at(0, 4)
+    want, _ = trainer.eval_forward(trainer.state.params,
+                                   trainer.state.model_state, batch)
+    train_loss, _, _ = trainer.forward(trainer.state.params,
+                                       trainer.state.model_state, batch,
+                                       None)
+    assert got == pytest.approx(float(want.detach()), rel=1e-6)
+    assert float(train_loss.detach()) != pytest.approx(got, rel=1e-6)
+
+
+@pytest.mark.parametrize("argv, words", [
+    (["--workload", "unet", "--comm-mode", "bucketed_overlap"],
+     "--comm-mode is only consumed by the llama workloads"),
+    (["--workload", "vit", "--pp-schedule", "1f1b"],
+     "--pp-* is only consumed by the llama workloads"),
+    (["--workload", "resnet", "--sp-mode", "ring"],
+     "--sp-mode is only consumed by the llama workloads"),
+    (["--workload", "resnet", "--model", "2"],
+     "the resnet workload has no tensor parallel plan"),
+    (["--workload", "vit", "--model", "2"],
+     "does not cover the 1 processes"),
+    (["--workload", "domain-unet", "--lat", "30", "--spatial", "4"],
+     "lat(30) % (spatial*4) == 0 is needed"),
+    (["--workload", "unet", "--spatial", "2"],
+     "--spatial needs --workload domain-unet"),
+    (["--workload", "resnet", "--lat", "16"],
+     "size the grids and U-Nets, not --workload resnet"),
+    (["--workload", "unet", "--dim", "64"], "size the ViT"),
+    (["--workload", "llama", "--lat", "16"],
+     "--lat sizes the vision workloads"),
+    (["--workload", "llama-long", "--sp-mode", "ring"],
+     "--pp-* and --sp-mode belong to --workload llama"),
+    (["--workload", "unet", "--checkpoint-dir", "x"],
+     "wired for the llama workloads only"),
+])
+def test_vision_refusals(argv, words, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tmain.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert words in capsys.readouterr().err
+
+
+def test_llama_long_workload(capsys):
+    """bench.py's llama-long row: microbatch 1 accumulated 8 times (a
+    batch of 8) at seq 8192 by default, and its own metric name (here at
+    a tiny size and sequence)."""
+    assert tmain.resolve_batch_accum(None, None, microbatch=1) == (8, 8)
+    tiny = ["--dim", "32", "--n-layers", "1", "--n-heads", "2", "--vocab",
+            "64", "--multiple-of", "16", "--seq-len", "16", "--steps", "1",
+            "--epochs", "1", "--grad-accum-steps", "2"]
+    assert tmain.main(["--device", "cpu", "--workload", "llama-long",
+                       *tiny]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "llama2_seq16_tokens_per_s_per_chip"
+    assert out["global_batch"] == 2 and out["grad_accum_steps"] == 2
+    assert out["seq_len"] == 16 and np.isfinite(out["final_loss"])
+
+
+def test_vision_modules_import_no_jax():
+    code = (
+        "import sys\n"
+        "import tpu_hpc_torch.train.vision, tpu_hpc_torch.models.unet\n"
+        "import tpu_hpc_torch.models.resnet, tpu_hpc_torch.models.vit\n"
+        "import tpu_hpc_torch.parallel.domain\n"
+        "import tpu_hpc_torch.parallel.domain_unet\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'tpu_hpc', 'flax', 'optax')]\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+
+
+def test_batch_stats_ride_the_checkpoint(tmp_path):
+    """The BatchNorm running stats are model_state: a checkpoint carries
+    them, and a fresh trainer resumed from it holds the saved stats bit
+    for bit (not its own init's), then trains on from them."""
+    from tpu_hpc_torch.ckpt import CheckpointManager
+    from tpu_hpc_torch.train import vision
+
+    ck = str(tmp_path / "ck")
+
+    def trainer():
+        args = vision.VisionArgs(workload="resnet", batch=2)
+        ds = vision._dataset(args)
+        fwd, eval_fwd, params, state, _ = vision.build_model(args, ds, "cpu")
+        cfg = TrainingConfig(global_batch_size=2, steps_per_epoch=2,
+                             epochs=1, save_every=1, checkpoint_dir=ck)
+        return ttrainer.Trainer(cfg, None, fwd, params, state,
+                                eval_forward=eval_fwd,
+                                checkpoint_manager=CheckpointManager(ck),
+                                device="cpu"), ds
+
+    first, ds = trainer()
+    first.fit(ds)
+    saved = first.state.model_state["batch_stats"]
+    second, _ = trainer()
+    assert not torch.equal(second.state.model_state["batch_stats"]["bn1"]
+                           ["var"], saved["bn1"]["var"])
+    assert second.maybe_resume() == 2
+    got = second.state.model_state["batch_stats"]
+    for block, stats in (("bn1", None), ("stage4_block1", "bn2")):
+        a = got[block] if stats is None else got[block][stats]
+        b = saved[block] if stats is None else saved[block][stats]
+        assert torch.equal(a["mean"], b["mean"])
+        assert torch.equal(a["var"], b["var"])

@@ -85,6 +85,24 @@ without a process group. For example, on four cards:
     torchrun --nproc-per-node 4 -m tpu_hpc_torch.train \
         --comm-mode bucketed_overlap
 
+Workloads (``--workload``, default ``llama``): ``llama-long`` is
+bench.py's long-context row (``bench_llama_long``: the bench Llama at
+seq 8192, microbatch 1 accumulated 8 times, metric
+``llama2_seq8192_tokens_per_s_per_chip``); ``unet`` (bench.py's "unet
+ddp" row), ``vit``, ``resnet`` and ``domain-unet`` are the vision and
+weather workloads of ``train/vision.py`` (see there), sized by
+``--lat``/``--lon``/``--channels``/``--base-features``/``--spatial``
+(grids and U-Nets) and ``--dim``/``--n-layers``/``--n-heads`` (the
+ViT); they refuse the
+gradient-sync modes, ``--pp-*``, ``--sp-mode``/``--context`` and
+``--model`` (but the ViT's, tensor parallel by ``tp.vit_rules``). For
+example, the U-Net row on one card, or on the CPU at a tiny size:
+
+    python -m tpu_hpc_torch.train --workload unet
+    python -m tpu_hpc_torch.train --workload unet --device cpu --lat 19 \
+        --lon 12 --channels 3 --base-features 4 --batch 2 --steps 2 \
+        --epochs 1
+
 Rank 0 prints one JSON line: the device's name and the world size, the
 mesh and plan, tokens/s (the whole job's, and per device), MFU against
 the world's peak from ``checks/roofline.py`` (bench.py's formula:
@@ -150,6 +168,10 @@ def resolve_batch_accum(batch, accum, microbatch: int = 4):
 LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
 
 
+WORKLOADS = ("llama", "llama-long", "unet", "vit", "resnet", "domain-unet")
+VISION_WORKLOADS = WORKLOADS[2:]
+VISION_FLAGS = ("lat", "lon", "channels", "base_features", "spatial",
+                "eval_steps")
 PLANS = ("auto", "hybrid", "fsdp", "dp", "none")
 COMM_MODES = ("flat", "hierarchical", "bucketed_overlap", "auto")
 MANUAL_COMM_MODES = ("hierarchical", "bucketed_overlap")
@@ -596,6 +618,7 @@ def run_train(
     comm_mode: str = "flat",
     comm_table: Optional[str] = None,
     comm_plan=None,
+    metric: Optional[str] = None,
     **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
@@ -607,7 +630,9 @@ def run_train(
     is otherwise resolved here for ``mesh``'s size): the gradient sync;
     the summary carries the requested and resolved modes, the decision,
     and under a manual mode the buckets and the all-reduces an update
-    issues (n_buckets + 1) beside the ones counted in the run."""
+    issues (n_buckets + 1) beside the ones counted in the run.
+    ``metric`` names the record (default by the run's kind: bench.py's
+    ``llama-long`` row is ``llama2_seq8192_tokens_per_s_per_chip``)."""
     from tpu_hpc_torch.checks.roofline import peak_flops_for_device
     from tpu_hpc_torch.kernels import attention
     from tpu_hpc_torch.parallel.shard import layout_summary
@@ -653,12 +678,10 @@ def run_train(
     tokens_per_s = summary["items_per_s"] * seq
     flops_per_token = flops_cfg.flops_per_token(seq)
     peak = peak_flops_for_device(device)
-    if pp is not None:
-        metric = pp.metric()
-    elif sp_mode:
-        metric = f"llama2_sp_{sp_mode}_tokens_per_s_per_chip"
-    else:
-        metric = "llama2_train_tokens_per_s_per_chip"
+    if metric is None:
+        metric = (pp.metric() if pp is not None else
+                  f"llama2_sp_{sp_mode}_tokens_per_s_per_chip" if sp_mode
+                  else "llama2_train_tokens_per_s_per_chip")
     out = {
         "metric": metric,
         "value": tokens_per_s / world,
@@ -746,6 +769,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         description=__doc__.split("\n")[0],
         allow_abbrev=False,
     )
+    ap.add_argument("--workload", choices=WORKLOADS, default="llama",
+                    help="llama: bench.py's llama row (and its sp, pp and "
+                    "comm rows by flag); llama-long: seq 8192 at microbatch "
+                    "1; unet (bench.py's unet ddp row), vit, resnet, "
+                    "domain-unet: train/vision.py's workloads")
     ap.add_argument("--steps", type=int, default=20,
                     help="optimizer updates per epoch")
     ap.add_argument("--epochs", type=int, default=2,
@@ -757,7 +785,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--grad-accum-steps", type=int, default=None,
                     help="microbatches per update (default 8 with no "
                     "--batch, else 1)")
-    ap.add_argument("--seq-len", type=int, default=2048)
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="default 2048 (llama-long: 8192)")
     ap.add_argument("--attn", choices=("flash", "reference"),
                     default="flash",
                     help="flash: the Hopper kernels through "
@@ -815,7 +844,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "programs) is not ported yet")
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
-                        help="model-size override (CPU rehearsals)")
+                        help="model-size override (CPU rehearsals; the "
+                        "ViT's embed, depth and heads)")
+    for flag, what in (
+            ("lat", "grid latitudes (unet 181, vit 64, domain-unet 32)"),
+            ("lon", "grid longitudes (unet 360, vit 128, domain-unet 64)"),
+            ("channels", "grid channels (unet, vit 20; domain-unet 3)"),
+            ("base-features", "U-Net width (unet 64, domain-unet 16)"),
+            ("spatial", "domain-unet latitude bands (one process: 4, in "
+             "process; a launch: the world over --data)"),
+            ("eval-steps", "vision workloads: batches of the evaluation "
+             "pass after training (BatchNorm on the stored stats)")):
+        ap.add_argument(f"--{flag}", type=int, default=None, help=what)
     ap.add_argument("--guard-mode", choices=("off", "skip", "rollback"),
                     default="off",
                     help="numeric-health guard: skip drops a poisoned "
@@ -837,6 +877,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "with N restarts (a preemption or a guard rollback "
                     "relaunches without spending one)")
     args = ap.parse_args(argv)
+    if args.workload in VISION_WORKLOADS:
+        return _main_vision(ap, args)
+    vision_only = [f for f in VISION_FLAGS if getattr(args, f) is not None]
+    if vision_only:
+        ap.error(f"--{vision_only[0].replace('_', '-')} sizes the vision "
+                 f"workloads, not --workload {args.workload}")
     pp_flags = {k[3:]: v for k, v in vars(args).items()
                 if k.startswith("pp_") and v is not None}
     pp = None
@@ -911,14 +957,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    batch, accum = resolve_batch_accum(args.batch, args.grad_accum_steps)
+    long = args.workload == "llama-long"
+    if long and (pp is not None or args.sp_mode is not None):
+        ap.error("--workload llama-long is bench.py's one-device long-context "
+                 "row: --pp-* and --sp-mode belong to --workload llama")
+    seq_len = args.seq_len or (8192 if long else 2048)
+    batch, accum = resolve_batch_accum(args.batch, args.grad_accum_steps,
+                                       microbatch=1 if long else 4)
     if pp is not None:
         # bench.py's llama-pp: the batch is the microbatches' rows, no
         # accumulation unless asked for.
         accum = args.grad_accum_steps or 1
         batch = pp.microbatches * pp.microbatch_size
     model_cfg = bench_model_cfg(
-        args.seq_len, args.remat, dim=args.dim, n_layers=args.n_layers,
+        seq_len, args.remat, dim=args.dim, n_layers=args.n_layers,
         n_heads=args.n_heads, vocab_size=args.vocab,
         multiple_of=args.multiple_of,
     )
@@ -972,12 +1024,116 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             save_every=args.save_every, resume=args.resume,
             metrics_path=args.metrics, sp_mode=args.sp_mode, pp=pp,
             comm_mode=args.comm_mode, comm_plan=comm_plan,
+            metric=(f"llama2_seq{seq_len}_tokens_per_s_per_chip" if long
+                    else None),
         )
         if is_main_host():
             print(json.dumps(summary), flush=True)
     finally:
         cleanup_distributed()
     return exit_code_for(summary["preempted"], summary["rolled_back"])
+
+
+def _main_vision(ap, args) -> int:
+    """``main`` for the vision workloads (``train/vision.py``)."""
+    from tpu_hpc_torch.runtime import (
+        MeshSpec,
+        build_mesh,
+        cleanup_distributed,
+        init_distributed,
+        is_main_host,
+        resolve_device,
+    )
+    from tpu_hpc_torch.train import vision
+
+    w = args.workload
+    pp_flags = [k for k, v in vars(args).items()
+                if k.startswith("pp_") and v is not None]
+    other = ("--comm-mode" if args.comm_mode != "flat" else
+             "--comm-table" if args.comm_table is not None else
+             "--pp-*" if pp_flags else
+             "--sp-mode" if args.sp_mode is not None else
+             "--context" if args.context is not None else
+             "--seq-len" if args.seq_len is not None else
+             "--vocab/--multiple-of" if args.vocab or args.multiple_of else
+             "--remat" if args.remat else None)
+    if other:
+        ap.error(f"{other} is only consumed by the llama workloads; "
+                 f"--workload {w} would silently ignore it")
+    if (args.model or 1) > 1 and w != "vit":
+        ap.error(f"--model {args.model}: the {w} workload has no tensor "
+                 "parallel plan (the ViT's is tp.vit_rules)")
+    if w != "vit" and (args.dim or args.n_layers or args.n_heads
+                       or args.attn != "flash"):
+        ap.error("--dim/--n-layers/--n-heads/--attn size the ViT, not "
+                 f"--workload {w}")
+    if w == "resnet" and any(getattr(args, f) is not None for f in (
+            "lat", "lon", "channels", "base_features", "spatial")):
+        ap.error("--lat/--lon/--channels/--base-features/--spatial size "
+                 "the grids and U-Nets, not --workload resnet")
+    if w != "domain-unet" and args.spatial is not None:
+        ap.error("--spatial needs --workload domain-unet")
+    if w not in ("unet", "domain-unet") and args.base_features is not None:
+        ap.error("--base-features sizes the U-Nets")
+    if args.guard_mode != "off" or args.checkpoint_dir or args.supervise:
+        ap.error("--guard-mode, --checkpoint-dir and --supervise are wired "
+                 "for the llama workloads only")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    vargs = vision.VisionArgs(
+        workload=w, batch=args.batch,
+        grad_accum_steps=args.grad_accum_steps or 1, attn=args.attn,
+        lat=args.lat, lon=args.lon, channels=args.channels,
+        base_features=args.base_features, spatial=args.spatial,
+        embed_dim=args.dim, depth=args.n_layers, n_heads=args.n_heads,
+        eval_steps=args.eval_steps or 0)
+    batch = vargs.default("batch", vision.DEFAULT_BATCH[w])
+    if batch % vargs.grad_accum_steps:
+        ap.error(f"--batch {batch} is not divisible by the accumulation "
+                 f"{vargs.grad_accum_steps}")
+    info = init_distributed(device=device.type, verbose=False)
+    world = info.num_processes
+    mesh = None
+    try:
+        if w == "domain-unet":
+            spatial = vargs.default("spatial", 4) if world == 1 else (
+                args.spatial or (world // args.data if args.data else world))
+            if world > 1 and (spatial < 1 or world % spatial or (
+                    args.data and args.data * spatial != world)):
+                ap.error(f"--data {args.data} x --spatial {args.spatial} "
+                         f"does not cover the {world} processes")
+            try:
+                vision.check_domain_grid(
+                    vargs.default("lat", vision.GRIDS[w][0]), spatial)
+            except ValueError as e:
+                ap.error(str(e))
+            if world > 1:
+                mesh = build_mesh(MeshSpec(axes={
+                    "data": world // spatial, "spatial": spatial}),
+                    device.type)
+        elif w == "vit" and (args.model or 1) > 1:
+            axes = mesh_axes(world, None, args.data, args.model)
+            if axes is None:
+                ap.error(f"--data {args.data} x --model {args.model} does "
+                         f"not cover the {world} processes")
+            mesh = build_mesh(MeshSpec(axes=axes), device.type)
+        elif args.data is not None and args.data != world:
+            ap.error(f"--data {args.data}: the {w} workload is data parallel "
+                     f"over all {world} processes")
+        elif world > 1 or w == "unet":
+            if world == 1:
+                _one_rank_world(device)
+            mesh = build_mesh(MeshSpec(axes={"data": world}), device.type)
+        summary = vision.run_vision(vargs, steps=args.steps,
+                                    epochs=args.epochs, device=device,
+                                    mesh=mesh, metrics_path=args.metrics)
+        if is_main_host():
+            print(json.dumps(summary), flush=True)
+    finally:
+        cleanup_distributed()
+    return 0
 
 
 def _one_rank_world(device) -> None:

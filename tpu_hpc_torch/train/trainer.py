@@ -967,14 +967,17 @@ class Trainer:
                 device if device is not None else self.mesh.device_type)
             if param_pspecs is None:
                 param_pspecs = dp.param_pspecs(params)
+            # The batch's second axis (context, or a domain's spatial
+            # bands) splits each row: FSDP2 averages over it with data.
+            seq_axis = batch_pspec[1] if len(batch_pspec) > 1 else None
             self.module = shard_params(params, self.mesh, param_pspecs,
-                                       device=self.device)
+                                       device=self.device,
+                                       context_axis=seq_axis or "context")
             params = self.module.tree()
             axis = batch_pspec[0] if len(batch_pspec) else None
             if axis is not None and axis in self.mesh.mesh_dim_names:
                 self._data_shards = self.mesh[axis].size()
                 self._data_rank = self.mesh[axis].get_local_rank()
-            seq_axis = batch_pspec[1] if len(batch_pspec) > 1 else None
             if seq_axis is not None and seq_axis in self.mesh.mesh_dim_names:
                 self._seq_shards = self.mesh[seq_axis].size()
                 self._seq_rank = self.mesh[seq_axis].get_local_rank()
