@@ -167,6 +167,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     by microbatch, the flash kernels in it too), launches
                     as predicted, and a control the rule must reject:
                     the interleaved params left in sequential order.
+     train_mpmd  -- the MPMD pipeline runtime (parallel/mpmd.py): (a)
+                    bench.py's MPMD row through run_mpmd (the stack model
+                    and the flagship Llama at the bench width, one stage
+                    on this card, microbatches 8 x 4), one warm and 2
+                    timed steps: losses, tokens/s, MFU, update_s, peak
+                    memory, 0 programs rebuilt and the kernel library not
+                    loaded again after warmup, each flash kernel launched
+                    as predicted (a step: 128 forwards -- the forward and
+                    the backward program's recompute -- 64 dq, 64 dk/dv);
+                    (b) the stack model at 4 stages of 2 layers on this
+                    card, each gate with a control it must reject: the
+                    per-microbatch losses of loss_and_grads bit-equal to
+                    the SPMD gpipe's (control: stages 1 and 2 swapped),
+                    every stage and edge gradient under the bf16 rule
+                    against the sequential oracle (control: stage 2's
+                    gradient without microbatch 0), a clean run of 3
+                    steps on one batch whose losses fall, and the chaos
+                    runs (stage_kill_at=2:1, stage_nan_at=1:2): loss
+                    stream and final params bit-equal to the clean run,
+                    only the failed stage rebuilt, redispatched equal to
+                    what the dead stage held (control: the killed stage
+                    restored from the step-0 snapshot); launches as
+                    predicted; each clean step's wall time and the share
+                    spent in StageWorker.snapshot (timed from here), and
+                    one step under torch.profiler.
      train_comm  -- the comm layer, bench.py's "llama dp bucketed-overlap
                     sync" row: (a) run_train with
                     comm_mode="bucketed_overlap" on a one-rank NCCL world,
@@ -265,7 +290,8 @@ zeroed-rows controls and the determinism check (the two rounding
 controls are read there, not gated), the S 512 case timed beside SDPA.
 
 Then the per-kernel summary line (the flash rows with their launches in
-train_sp (b) by mode, in train_pp (a) by bench row, in train_comm (a), in
+train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
+model, in train_comm (a), in
 train_vision (b) and in train_long, and the ViT case's times), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -1888,6 +1914,396 @@ def train_pp_phase(torch, dev, train) -> dict:
 
 
 # ---------------------------------------------------------------------
+# Phase 8c': the MPMD pipeline runtime
+# ---------------------------------------------------------------------
+
+# (a): bench.py's MPMD row on one stage, MPMD_STEPS timed steps after the
+# warm one. (b): MPMD_STAGES stages on this card, 2 layers a stage, the
+# chaos runs MPMD_CHAOS_STEPS steps on one repeated batch: (name, spec,
+# the stage the fault hits).
+MPMD_STEPS, MPMD_STAGES, MPMD_CHAOS_STEPS = 2, 4, 3
+MPMD_CHAOS = (("kill", "stage_kill_at=2:1", 2),
+              ("nan", "stage_nan_at=1:2", 1))
+MPMD_DIR = "build/chip_smoke_mpmd"
+
+
+def mpmd_predicted_launches(n_layers: int, microbatches: int,
+                            steps: int = 1) -> dict:
+    """Each flash kernel's launches in ``steps`` MPMD steps: every layer
+    and microbatch runs the forward kernel twice (the no-grad forward
+    and the backward program's recompute) and dq and dk/dv once."""
+    n = n_layers * microbatches * steps
+    return {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+            "flash_attention_dkv": n}
+
+
+def mpmd_a_failures(summary, launches, expected, library_reloaded) -> list:
+    """What fails a train_mpmd (a) row: a missing or non-finite loss, a
+    program rebuilt after warmup, the kernel library loaded or built
+    again, or a flash kernel launched other than predicted."""
+    import math
+
+    bad = []
+    losses = summary["losses"]
+    if len(losses) != summary["measured_updates"] + 1 \
+            or not all(math.isfinite(x) for x in losses):
+        bad.append(f"losses {losses}")
+    if summary["recompiles"] != 0:
+        bad.append(f"{summary['recompiles']} programs rebuilt after warmup")
+    if library_reloaded:
+        bad.append("the kernel library was loaded or built again")
+    if launches != expected:
+        bad.append(f"flash launches {launches}, expected {expected}")
+    if launches != summary["kernel_launches"]:
+        bad.append("launch counts moved outside the run")
+    return bad
+
+
+def mpmd_gate_failures(gates: dict) -> list:
+    """What fails train_mpmd (b): a gate that did not pass, or a control
+    it did not reject. ``gates``: name -> {"ok": ..., "control_ok": ...}
+    (``control_ok`` True when the control PASSED the gate)."""
+    bad = []
+    for name, g in gates.items():
+        if not g["ok"]:
+            bad.append(f"{name} failed: {g.get('why', g)}")
+        if g.get("control_ok", False):
+            bad.append(f"{name}: the control passed")
+    return bad
+
+
+def mpmd_chaos_gate(run: dict, clean: dict, failed: int,
+                    n_stages: int) -> dict:
+    """A chaos run against the clean run: the loss stream and the final
+    params bit-identical, only the failed stage rebuilt (every other
+    stage's worker object and compile count unchanged), the redispatched
+    microbatches equal to what the dead stage held in flight."""
+    why = []
+    if run["losses"] != clean["losses"]:
+        why.append("loss stream differs")
+    if not run["states_equal"]:
+        why.append("final params differ")
+    if sorted(run["rebuilt"]) != [failed]:
+        why.append(f"rebuilt stages {run['rebuilt']}, expected [{failed}]")
+    if run["kept_counts"] != n_stages - 1:
+        why.append("a healthy stage's compile count moved")
+    if run["redispatched"] != run["inflight"] or run["inflight"] < 1:
+        why.append(f"redispatched {run['redispatched']}, in flight "
+                   f"{run['inflight']}")
+    return {"ok": not why, "why": why}
+
+
+def mpmd_row(torch, dev, cfg, model: str) -> tuple:
+    """train_mpmd (a): run_mpmd's row on one stage of ``dev``; returns
+    (summary, launches counted around it, whether the kernel library
+    was loaded or built again)."""
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.kernels import _build
+    from tpu_hpc_torch.train.__main__ import PipeArgs, run_mpmd
+
+    args = PipeArgs(schedule="gpipe", model=model,
+                    microbatches=PP_MICROBATCHES,
+                    microbatch_size=PP_MICROBATCH_SIZE)
+    lib = _build._lib
+    stamp = _build.LIBRARY.stat().st_mtime if _build.LIBRARY.exists() \
+        else None
+    zero_flash_launches()
+    summary = run_mpmd(cfg, args, [dev], steps=MPMD_STEPS)
+    launches = fa.kernel_launches()
+    reloaded = dev.type == "cuda" and (
+        _build._lib is not lib or _build.LIBRARY.stat().st_mtime != stamp)
+    return summary, launches, reloaded
+
+
+def _mpmd_pipeline(dev, bundle, spec=None, events_path=None):
+    from tpu_hpc_torch.parallel import mpmd
+    from tpu_hpc_torch.resilience.faults import fault_plan_from_env
+
+    plan = fault_plan_from_env({"TPU_HPC_FAULTS": spec}) if spec else None
+    return mpmd.MpmdPipeline(
+        bundle, mpmd.MpmdConfig(n_microbatches=PP_MICROBATCHES,
+                                learning_rate=3e-4),
+        devices=[dev] * MPMD_STAGES, fault_plan=plan,
+        events_path=events_path)
+
+
+def mpmd_stages(torch, dev, cfg, mb_size: int = PP_MICROBATCH_SIZE,
+                attn_fn=None, profile: bool = True) -> dict:
+    """train_mpmd (b): the stack model at ``cfg``'s width, MPMD_STAGES
+    stages of cfg.n_layers / MPMD_STAGES layers on ``dev``. Returns the
+    readings of the four gates and the timings."""
+    import os
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.models.losses import cross_entropy
+    from tpu_hpc_torch.parallel import mpmd, pp
+    from tpu_hpc_torch.parallel.pp_transport import InProcessPipe
+    from tpu_hpc_torch.train.__main__ import SEED
+    from tpu_hpc_torch.train.trainer import tree_leaves
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    M, S = PP_MICROBATCHES, MPMD_STAGES
+    pcfg = ptx.PipeConfig(
+        vocab_size=cfg.vocab_size, dim=cfg.dim, n_heads=cfg.n_heads,
+        n_stages=S, layers_per_stage=cfg.n_layers // S,
+        max_seq_len=cfg.max_seq_len, dtype=cfg.dtype)
+    params = ptx.init_pipeline_transformer(
+        torch.Generator(device=dev).manual_seed(SEED), pcfg, dev)
+    bundle = ptx.mpmd_bundle(params, pcfg, attn_fn=attn_fn)
+    ds = datasets.TokenStream(vocab_size=cfg.vocab_size,
+                              seq_len=cfg.max_seq_len, seed=SEED)
+    tok, tgt = ds.batch_at(0, M * mb_size)
+    out = {"n_stages": S, "layers_per_stage": pcfg.layers_per_stage,
+           "microbatches": M, "microbatch_size": mb_size}
+
+    # -- gate 1: the loss vector against the SPMD gpipe engine, bit for bit
+    pipe = _mpmd_pipeline(dev, bundle).build(tok)
+    zero_flash_launches()
+    lv, grads, edge = pipe.loss_and_grads(tok, tgt)
+    sync()
+    out["launches_loss_and_grads"] = fa.kernel_launches()
+    out["expected_launches_loss_and_grads"] = mpmd_predicted_launches(
+        cfg.n_layers, M)
+    del pipe
+
+    def spmd_losses(stages):
+        fn = pp.pipelined(ptx.make_stage_fn(pcfg, attn_fn),
+                          InProcessPipe(S), schedule="gpipe")
+        with torch.no_grad():
+            tm = pp.microbatch(tgt.to(dev), M)
+            ys = fn(stages, ptx.embed(params, pp.microbatch(tok.to(dev), M),
+                                      pcfg))
+            return [float(cross_entropy(ptx.head(params, ys[m], pcfg),
+                                        tm[m])) for m in range(M)]
+
+    spmd = spmd_losses(params["stages"])
+    order = [0, 2, 1, 3]  # the control: stages 1 and 2 swapped
+    swapped = spmd_losses(ptx._map(lambda a: a[order], params["stages"]))
+    out["loss_vs_spmd"] = {
+        "ok": lv == spmd, "mpmd": lv, "spmd": spmd,
+        "max_abs_diff": max(abs(a - b) for a, b in zip(lv, spmd)),
+        "control_stages_swapped": swapped, "control_ok": swapped == lv,
+        "why": "per-microbatch losses differ from the SPMD gpipe's"}
+
+    # -- gate 2: the gradients against the sequential oracle, microbatch
+    #    by microbatch; the control leaves one microbatch out of stage 2
+    full = ptx._map(lambda a: a.detach().clone().requires_grad_(), params)
+    first = None
+    rows = tok.shape[0] // M
+    for m in range(M):
+        t = tok[m * rows:(m + 1) * rows].to(dev)
+        y = tgt[m * rows:(m + 1) * rows].to(dev)
+        loss = cross_entropy(ptx.apply_sequential(full, t, pcfg, attn_fn),
+                             y) / M
+        loss.backward()
+        if m == 0:
+            first = ptx._map(lambda a: a.grad[2].detach().clone(),
+                             full["stages"])
+        del loss
+    want = [ptx._map(lambda a, s=s: a.grad[s].cpu(), full["stages"])
+            for s in range(S)]
+    want_edge = {"embed": ptx._map(lambda a: a.grad.cpu(), full["embed"]),
+                 "head": ptx._map(lambda a: a.grad.cpu(), full["head"])}
+    readings = [pp_grad_readings(torch, grads[s], want[s]) for s in range(S)]
+    readings.append(pp_grad_readings(torch, edge, want_edge))
+    paths, leaves = pp._flatten(grads[2])
+    control = pp_grad_readings(torch, pp._unflatten(paths, [
+        g - f.cpu() for g, f in zip(leaves, pp._flatten(first)[1])]),
+        want[2])
+    out["grads_vs_oracle"] = {
+        "ok": all(r["ok"] for r in readings),
+        "worst": max((r["worst"] for r in readings),
+                     key=lambda w: w["tol_used"]),
+        "control_microbatch_left_out": control["worst"],
+        "control_ok": control["ok"],
+        "why": "a gradient leaf outside the bf16 rule"}
+    del full, first, grads, edge, want, want_edge
+    loss_rule = compare(torch.tensor([lv]), torch.tensor([spmd]),
+                        torch.bfloat16)
+    out["loss_vs_spmd"]["bf16_rule"] = loss_rule
+
+    # -- gate 3: chaos; the clean run first, timed, its snapshots timed
+    #    from outside the runtime
+    batches = [(tok, tgt)] * MPMD_CHAOS_STEPS
+    snap_s = []
+    orig_snapshot = mpmd.StageWorker.snapshot
+
+    def timed_snapshot(self, step):
+        sync()
+        t0 = time.perf_counter()
+        try:
+            return orig_snapshot(self, step)
+        finally:
+            snap_s.append(time.perf_counter() - t0)
+
+    pipe = _mpmd_pipeline(dev, bundle).build(tok)
+    step_s, step_snap = [], []
+    zero_flash_launches()
+    mpmd.StageWorker.snapshot = timed_snapshot
+    try:
+        for step, batch in enumerate(batches):
+            sync()
+            del snap_s[:]
+            t0 = time.perf_counter()
+            pipe.losses.append(pipe.run_step(step, *batch))
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            step_snap.append(sum(snap_s))
+    finally:
+        mpmd.StageWorker.snapshot = orig_snapshot
+    out["launches_clean"] = fa.kernel_launches()
+    out["expected_launches_clean"] = mpmd_predicted_launches(
+        cfg.n_layers, M, MPMD_CHAOS_STEPS)
+    clean = {"losses": pipe.losses,
+             "states": [tree_leaves(pipe.stage_state(s))
+                        for s in range(S)]}
+    flat = [x for step in clean["losses"] for x in step]
+    means = [sum(v) / len(v) for v in clean["losses"]]
+    out["clean"] = {
+        "losses": means, "falls": means[-1] < means[0],
+        "finite": all(x == x and abs(x) != float("inf") for x in flat),
+        "step_s": step_s, "snapshot_s": step_snap,
+        "snapshot_share": [a / b for a, b in zip(step_snap, step_s)],
+        "bubble_fraction": pipe.bubble_fractions[-1],
+        "wire_mb": pipe.wire_bytes / 2**20,
+        "compile_counts": pipe.compile_counts,
+        "snapshot_bytes": sum(
+            t.numel() * t.element_size() for s in range(S)
+            for t in tree_leaves(pipe.snapshots[s]["state"]))}
+    out["clean_run"] = {"ok": out["clean"]["finite"]
+                        and out["clean"]["falls"],
+                        "why": "clean losses not finite or not falling"}
+    if profile:
+        steps = iter(range(MPMD_CHAOS_STEPS, MPMD_CHAOS_STEPS + 2))
+
+        class _Step:
+            @staticmethod
+            def train_step(batch):
+                pipe.run_step(next(steps), *batch)
+
+        out["profile"] = profiled_update(torch, _Step, lambda i: (tok, tgt))
+    del pipe
+    _release(torch) if dev.type == "cuda" else None
+
+    os.makedirs(MPMD_DIR, exist_ok=True)
+
+    def chaos_run(spec, stale=False):
+        events = os.path.join(MPMD_DIR, f"{spec}{'_stale' * stale}.jsonl")
+        if os.path.exists(events):
+            os.remove(events)
+        p = _mpmd_pipeline(dev, bundle, spec, events).build(tok)
+        workers, counts = list(p.workers), list(p.compile_counts)
+        if stale:  # the control: restore the dead stage from step 0
+            first_snaps = dict(p.snapshots)
+            rebuild = p._rebuild
+
+            def from_step0(sid):
+                p.snapshots[sid] = first_snaps[sid]
+                return rebuild(sid)
+
+            p._rebuild = from_step0
+        res = p.train(batches)
+        run = {"losses": res["losses"],
+               "states_equal": all(
+                   same_bits(torch, tree_leaves(p.stage_state(s)),
+                             clean["states"][s]) for s in range(S)),
+               "rebuilt": [s for s in range(S)
+                           if p.workers[s] is not workers[s]],
+               "kept_counts": sum(p.compile_counts[s] == counts[s]
+                                  for s in range(S)
+                                  if p.workers[s] is workers[s]),
+               "redispatched": res["redispatched"],
+               # what the dead stage held, as its stage_down said
+               "inflight": sum(r["inflight"] for r in read_events(
+                   events, "stage_down")),
+               "recoveries": res["recoveries"],
+               "poisoned_windows": res["poisoned_windows"],
+               "bubble_fraction": res["bubble_fraction"],
+               "recovery_mttr_s": res["recovery_mttr_s"]}
+        del p
+        return run
+
+    gates = {}
+    for name, spec, failed in MPMD_CHAOS:
+        run = chaos_run(spec)
+        gate = mpmd_chaos_gate(run, clean, failed, S)
+        if name == "kill":
+            control = chaos_run(spec, stale=True)
+            gate["control_ok"] = mpmd_chaos_gate(control, clean, failed,
+                                                 S)["ok"]
+            gate["control_losses_equal"] = control["losses"] == \
+                clean["losses"]
+        gates[f"chaos_{name}"] = {**gate, **{k: run[k] for k in (
+            "rebuilt", "redispatched", "recoveries", "poisoned_windows",
+            "bubble_fraction", "recovery_mttr_s")}}
+    out.update(gates)
+    out["launches"] = {
+        "ok": out["launches_loss_and_grads"]
+        == out["expected_launches_loss_and_grads"]
+        and out["launches_clean"] == out["expected_launches_clean"],
+        "why": "flash launches other than predicted"}
+    return out
+
+
+def train_mpmd_phase(torch, dev) -> dict:
+    """Phase 8c', the MPMD pipeline runtime. (a) bench.py's MPMD row
+    (run_mpmd: the stack model and the flagship Llama at the bench
+    width, one stage on this card), one warm and MPMD_STEPS timed steps:
+    losses, tokens/s, MFU, update_s, peak memory, no program rebuilt and
+    the kernel library not loaded again after warmup, and each flash
+    kernel launched as predicted (128 forwards, 64 dq and 64 dk/dv a
+    step). (b) the stack model at MPMD_STAGES stages on this card
+    (mpmd_stages): the gates, each with its control. Returns (a)'s
+    launches by model."""
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    t0 = time.perf_counter()
+    cfg = bench_model_cfg()
+    out = {}
+    for model in ("stack", "llama"):
+        _release(torch)
+        summary, launches, reloaded = mpmd_row(torch, dev, cfg, model)
+        expected = mpmd_predicted_launches(cfg.n_layers, PP_MICROBATCHES,
+                                           MPMD_STEPS + 1)
+        emit("train_mpmd", check="a_cli_row", metric=summary["metric"],
+             launches=launches, expected_launches=expected,
+             library_reloaded=reloaded,
+             losses_fall=summary["losses"][-1] < summary["losses"][0],
+             **{k: summary[k] for k in (
+                 "n_stages", "losses", "tokens_per_s", "mfu", "update_s",
+                 "peak_memory_bytes", "recompiles", "bubble_fraction",
+                 "wire_mb", "compile_counts", "flops_per_token",
+                 "n_params", "global_batch", "measured_updates")})
+        bad = mpmd_a_failures(summary, launches, expected, reloaded)
+        if bad:
+            raise SystemExit(f"train_mpmd (a) {summary['metric']}: "
+                             + "; ".join(bad))
+        out[model] = launches
+    _release(torch)
+
+    def attn_fn(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)[0]
+
+    b = mpmd_stages(torch, dev, cfg, attn_fn=attn_fn)
+    gates = {k: b[k] for k in ("loss_vs_spmd", "grads_vs_oracle",
+                               "clean_run", "chaos_kill", "chaos_nan",
+                               "launches")}
+    emit("train_mpmd", check="b_four_stages", model="stack",
+         **{k: v for k, v in b.items() if k not in gates}, gates=gates)
+    bad = mpmd_gate_failures(gates)
+    if bad:
+        raise SystemExit("train_mpmd (b): " + "; ".join(bad))
+    _release(torch)
+    emit("train_mpmd", check="cost", seconds=time.perf_counter() - t0)
+    return out
+
+
+# ---------------------------------------------------------------------
 # Phase 8d: the comm layer
 # ---------------------------------------------------------------------
 
@@ -2098,26 +2514,6 @@ RESNET_BATCH = 32
 DOMAIN_GRID = (176, 360, 20)  # lat (16 x 11, the 1-degree band), lon, C
 DOMAIN_DEGREE, DOMAIN_BATCH = 4, 2
 LONG_SEQ, LONG_ACCUM, LONG_UPDATES = 8192, 8, 2
-
-
-def vision_failures(name, summary, updates, expected_launches=None) -> list:
-    """What fails a train_vision run: a missing or non-finite loss, a
-    U-Net whose losses do not fall, or a flash kernel launched other
-    than ``expected_launches`` times."""
-    bad = []
-    losses = summary["losses"]
-    if len(losses) != updates or not all(
-            isinstance(x, float) and x == x and abs(x) != float("inf")
-            for x in losses):
-        bad.append(f"{name}: losses {losses}, {updates} finite expected")
-    elif name == "unet" and not losses[-1] < losses[0]:
-        bad.append(f"{name}: losses do not fall {losses}")
-    if expected_launches is not None and any(
-            n != expected_launches
-            for n in summary["kernel_launches"].values()):
-        bad.append(f"{name}: flash launches {summary['kernel_launches']}, "
-                   f"expected {expected_launches} each")
-    return bad
 
 
 def vision_failures(name, summary, updates, expected_launches=None) -> list:
@@ -3825,6 +4221,10 @@ def main() -> int:
     #        on a one-rank NCCL world, then at S = 4 on this card
     pp_launches = train_pp_phase(torch, dev, train)
     _release(torch)
+    # -- 8c'. the MPMD pipeline runtime: bench.py's MPMD row on one stage,
+    #        then 4 stages on this card with its gates and chaos runs
+    mpmd_launches = train_mpmd_phase(torch, dev)
+    _release(torch)
     # -- 8d. the comm layer: bucketed sync on a one-rank NCCL world,
     #        auto's decision, hierarchical refused, the comm bench
     comm_launches = train_comm_phase(torch, dev, train)
@@ -3869,6 +4269,8 @@ def main() -> int:
             entry["train_pp_launches"] = {
                 row: n[entry["name"]] for row, n in pp_launches.items()}
             entry["train_comm_launches"] = comm_launches[entry["name"]]
+            entry["train_mpmd_launches"] = {
+                model: n[entry["name"]] for model, n in mpmd_launches.items()}
             # The ViT's (train_vision (b)) and llama-long's launches, and
             # the ViT's attention shape timed (flash case vit_noncausal).
             entry["train_vision_launches"] = vision_launches[entry["name"]]

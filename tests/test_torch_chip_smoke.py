@@ -923,3 +923,162 @@ def test_domain_grid_is_a_one_degree_band_the_bands_tile():
     assert lat % (chip_smoke.DOMAIN_DEGREE * 4) == 0 and lat <= 181
     assert lat + chip_smoke.DOMAIN_DEGREE * 4 > 181  # the largest that does
     assert (lon, ch) == (360, 20)
+
+
+def test_phase_list_names_train_mpmd_after_train_pp():
+    """train_mpmd follows train_pp and comes before train_comm, in the
+    docstring and in main; its launches ride the summary line."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *train_pp ", r"^ *train_mpmd ", r"^ *train_comm ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_pp_phase(", "train_mpmd_phase(", "train_comm_phase(",
+        '"train_mpmd_launches"')]
+    assert calls == sorted(calls)
+
+
+def test_mpmd_predicted_launches_per_step():
+    """8 layers x 8 microbatches: the forward kernel twice per layer and
+    microbatch (the forward and the backward program's recompute), dq
+    and dk/dv once; three steps are three times."""
+    one = chip_smoke.mpmd_predicted_launches(8, 8)
+    assert one == {"flash_attention_fwd": 128, "flash_attention_dq": 64,
+                   "flash_attention_dkv": 64}
+    assert chip_smoke.mpmd_predicted_launches(8, 8, 3) == {
+        k: 3 * n for k, n in one.items()}
+
+
+@pytest.mark.parametrize("n_stages", [1, 4])
+def test_mpmd_predicted_launches_equal_the_runtime(monkeypatch, n_stages):
+    """The stage attention's forward, dq and dk/dv calls of one MPMD step
+    (one stage, and 4 stages of 2 layers), counted where the wrappers
+    launch their kernels (the plain versions here), equal the
+    prediction."""
+    import torch
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+    from tpu_hpc_torch.parallel import mpmd
+
+    calls = {n: 0 for n in fa.FLASH_KERNELS}
+    for name in fa.FLASH_KERNELS:
+        orig = getattr(fa, name)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(fa, name, counted)
+    cfg = ptx.PipeConfig(vocab_size=32, dim=16, n_heads=2,
+                         n_stages=n_stages, layers_per_stage=8 // n_stages,
+                         max_seq_len=8)
+    params = ptx.init_pipeline_transformer(torch.Generator().manual_seed(0),
+                                           cfg)
+    bundle = ptx.mpmd_bundle(params, cfg, attn_fn=lambda q, k, v:
+                             blockwise_attention(q, k, v, impl="cuda")[0])
+    tok = torch.zeros((8, 8), dtype=torch.long)
+    pipe = mpmd.MpmdPipeline(bundle, mpmd.MpmdConfig(n_microbatches=8),
+                             devices=["cpu"] * n_stages).build(tok)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops; leave the cores to other files
+    try:
+        pipe.run_step(0, tok, tok)
+    finally:
+        torch.set_num_threads(threads)
+    assert calls == chip_smoke.mpmd_predicted_launches(8, 8)
+
+
+def _mpmd_summary(**kw):
+    return {"losses": [10.4, 10.3, 10.2], "measured_updates": 2,
+            "recompiles": 0,
+            "kernel_launches": chip_smoke.mpmd_predicted_launches(8, 8, 3),
+            **kw}
+
+
+@pytest.mark.parametrize("summary, launches, reloaded, failures", [
+    ({}, None, False, 0),
+    ({"losses": [10.4, float("nan"), 10.2]}, None, False, 1),
+    ({"losses": [10.4, 10.3]}, None, False, 1),
+    ({"recompiles": 1}, None, False, 1),
+    ({}, None, True, 1),
+    ({}, {"flash_attention_fwd": 0, "flash_attention_dq": 0,
+          "flash_attention_dkv": 0}, False, 2),
+])
+def test_mpmd_a_failures(summary, launches, reloaded, failures):
+    want = chip_smoke.mpmd_predicted_launches(8, 8, 3)
+    got = chip_smoke.mpmd_a_failures(_mpmd_summary(**summary),
+                                     want if launches is None else launches,
+                                     want, reloaded)
+    assert len(got) == failures, got
+
+
+def _chaos_run(**kw):
+    return {"losses": [[1.0, 2.0]], "states_equal": True, "rebuilt": [2],
+            "kept_counts": 3, "redispatched": 8, "inflight": 8, **kw}
+
+
+@pytest.mark.parametrize("run, ok", [
+    ({}, True),
+    ({"losses": [[1.0, 2.5]]}, False),      # the stale-snapshot control
+    ({"states_equal": False}, False),
+    ({"rebuilt": [1, 2]}, False),
+    ({"kept_counts": 2}, False),
+    ({"redispatched": 4}, False),
+    ({"redispatched": 0, "inflight": 0}, False),
+])
+def test_mpmd_chaos_gate(run, ok):
+    clean = {"losses": [[1.0, 2.0]]}
+    assert chip_smoke.mpmd_chaos_gate(_chaos_run(**run), clean, 2,
+                                      4)["ok"] is ok
+
+
+def test_mpmd_gate_failures_count_failed_gates_and_passed_controls():
+    assert chip_smoke.mpmd_gate_failures({
+        "a": {"ok": True, "control_ok": False}, "b": {"ok": True}}) == []
+    bad = chip_smoke.mpmd_gate_failures({
+        "a": {"ok": False, "why": "x"}, "b": {"ok": True,
+                                             "control_ok": True}})
+    assert len(bad) == 2 and "control passed" in bad[1]
+
+
+def test_mpmd_stages_gates_and_controls_on_the_cpu(monkeypatch, tmp_path):
+    """train_mpmd (b) end to end on CPU tensors at a tiny size in float32
+    (the plain versions in every stage): every gate passes and every
+    control is rejected; the launch gate reads 0 launches here, where no
+    kernel runs."""
+    import dataclasses
+
+    import torch
+
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    monkeypatch.chdir(tmp_path)
+    cfg = dataclasses.replace(
+        bench_model_cfg(16, dim=32, n_layers=8, n_heads=2, vocab_size=64,
+                        multiple_of=16), dtype=torch.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops; leave the cores to other files
+    try:
+        b = chip_smoke.mpmd_stages(
+            torch, torch.device("cpu"), cfg, mb_size=1, profile=False,
+            attn_fn=lambda q, k, v: blockwise_attention(q, k, v,
+                                                        impl="cuda")[0])
+    finally:
+        torch.set_num_threads(threads)
+    gates = {k: b[k] for k in ("loss_vs_spmd", "grads_vs_oracle",
+                               "clean_run", "chaos_kill", "chaos_nan")}
+    assert chip_smoke.mpmd_gate_failures(gates) == []
+    assert b["loss_vs_spmd"]["control_ok"] is False
+    assert b["grads_vs_oracle"]["control_ok"] is False
+    assert b["chaos_kill"]["control_ok"] is False
+    assert b["chaos_kill"]["redispatched"] == 8
+    assert b["chaos_nan"]["poisoned_windows"] == [
+        {"stage": 1, "step": 2, "microbatch": 0, "phase": "forward"}]
+    assert b["clean"]["compile_counts"] == [6, 3, 3, 5]

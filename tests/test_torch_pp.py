@@ -423,14 +423,14 @@ def test_sequential_oracles_equal_jax(jax_params):
 
 
 def test_cli_refusals_and_bench_record_names(capsys):
-    """The CLI refuses the MPMD runtime and a pipe axis under TP or SP,
-    naming the ROADMAP item; the metric names are bench.py's; the mesh
-    is one stage a process."""
+    """The CLI refuses the MPMD runtime without an explicit gpipe
+    schedule (bench.py's words) and a pipe axis under TP or SP; the
+    metric names are bench.py's; the mesh is one stage a process."""
     from tpu_hpc_torch.train import __main__ as tmain
 
     for argv, needle in (
             (["--pp-runtime", "mpmd"],
-             'ROADMAP: "Pipeline, the MPMD half"'),
+             "pass --pp-schedule gpipe explicitly"),
             (["--pp-schedule", "1f1b", "--model", "2"], "PP x TP"),
             (["--pp-model", "llama", "--sp-mode", "ring"], "PP x SP")):
         with pytest.raises(SystemExit) as e:

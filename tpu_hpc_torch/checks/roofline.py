@@ -72,6 +72,16 @@ def chip_for_kind(kind: str) -> Optional[ChipSpec]:
     return None
 
 
+def peak_flops_for_kind(kind: str, default=None):
+    """Peak dense bf16 FLOP/s for a device name, by longest-prefix match
+    (the JAX package's signature); ``default`` for names the table does
+    not know. For readers that hold only a recorded name, not a live
+    device: the obs report resolves the ``device_kind`` a run_start
+    record stamped, possibly on a machine with no card."""
+    chip = chip_for_kind(kind)
+    return chip.peak_bf16_flops if chip is not None else default
+
+
 def peak_flops_for_device(device: torch.device) -> Optional[float]:
     """Peak dense bf16 FLOP/s of a torch device; None for the CPU and for
     cards the table does not know (an MFU against a guessed peak would

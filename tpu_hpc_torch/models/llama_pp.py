@@ -11,8 +11,8 @@ the pipe axis, applied outside the pipelined body) and ``stages`` (a
 ``[S, ...]`` stacked tree, stage s = layers ``s*lps .. s*lps+lps-1``,
 sharded ``P("pipe")``). ``merge_params`` is its exact inverse, so the
 sequential oracle of every pipelined run is ``llama2.apply_llama`` on
-the same values. ``mpmd_bundle`` (the MPMD runtime's cut) is not ported
-yet (ROADMAP: "Pipeline, the MPMD half").
+the same values. ``mpmd_bundle`` cuts the split for the MPMD runtime
+(``parallel/mpmd.py``).
 """
 from __future__ import annotations
 
@@ -189,6 +189,41 @@ def make_forward(
     return forward
 
 
+def mpmd_bundle(split: Dict, cfg: LlamaConfig, attn_fn: AttnFn = None,
+                positions: Optional[torch.Tensor] = None):
+    """Cut the flagship Llama for the MPMD pipeline runtime
+    (``tpu_hpc_torch.parallel.mpmd``): ``split_params``' stacked stage
+    tree becomes per-stage trees, and the edges stop being replicated --
+    tok_embeddings lives in stage 0's fault domain, norm+output (and the
+    loss) in stage S-1's. Pair with the sequential layout
+    ``split_params`` produces (the interleaved layouts are an SPMD
+    bubble optimization; MPMD dispatch order is the runtime's own).
+    ``positions``: RoPE positions, as in :func:`make_stage_fn`."""
+    from tpu_hpc_torch.models.losses import cross_entropy
+    from tpu_hpc_torch.parallel.mpmd import StageBundle
+
+    stages = split["stages"]
+    S = pp._flatten(stages)[1][0].shape[0]
+    stage_params = tuple(_map(lambda a: a[s], stages) for s in range(S))
+    edges = split["edges"]
+
+    def embed_fn(ep, tokens):
+        return embed(ep, tokens, cfg)
+
+    def loss_fn(hp, y, targets):
+        return cross_entropy(head(hp, y, cfg), targets)
+
+    return StageBundle(
+        n_stages=S,
+        stage_fn=make_stage_fn(cfg, S, attn_fn, positions),
+        embed_fn=embed_fn,
+        loss_fn=loss_fn,
+        stage_params=stage_params,
+        embed_params={"tok_embeddings": edges["tok_embeddings"]},
+        head_params={"norm": edges["norm"], "output": edges["output"]},
+    )
+
+
 __all__ = [
     "EDGE_KEYS",
     "embed",
@@ -198,6 +233,7 @@ __all__ = [
     "make_stage_fn",
     "merge_params",
     "merge_params_interleaved",
+    "mpmd_bundle",
     "pipe_params_from_numpy",
     "pp_pspecs",
     "split_params",

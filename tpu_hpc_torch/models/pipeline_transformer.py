@@ -26,8 +26,9 @@ flax's keys (``layer_0/ln1/{scale,bias}``, ``layer_0/qkv/{kernel,bias}``
     dtype, promoted to float32 by its float32 scale and bias, and a
     float32 head product: ``head`` returns float32 logits.
 
-``mpmd_bundle`` (the MPMD runtime's cut) is not ported yet
-(ROADMAP: "Pipeline, the MPMD half").
+``mpmd_bundle`` cuts the same params for the MPMD runtime
+(``parallel/mpmd.py``): per-stage trees, embed on the first stage's
+worker, head and loss on the last.
 """
 from __future__ import annotations
 
@@ -297,6 +298,41 @@ def apply_sequential(params: Dict, tokens: torch.Tensor, cfg: PipeConfig,
     return head(params, x, cfg)
 
 
+def mpmd_bundle(params: Dict, cfg: PipeConfig,
+                attn_fn: Optional[AttnFn] = None):
+    """Cut this model for the MPMD pipeline runtime
+    (``tpu_hpc_torch.parallel.mpmd``): per-stage param trees off the
+    stacked dim (views; each worker copies its own onto its device), the
+    shape-preserving stage function, and the edge functions placed on
+    the edge stages' workers (embed on stage 0, head+loss on stage S-1).
+    The loss is the per-microbatch mean cross-entropy; the runtime's
+    total is the mean over microbatches, matching the SPMD engine's
+    per-microbatch loss vector bit for bit."""
+    from tpu_hpc_torch.models.losses import cross_entropy
+    from tpu_hpc_torch.parallel.mpmd import StageBundle
+
+    stage_params = tuple(
+        _map(lambda a: a[s], params["stages"])
+        for s in range(cfg.n_stages)
+    )
+
+    def embed_fn(ep, tokens):
+        return embed({"embed": ep}, tokens, cfg)
+
+    def loss_fn(hp, y, targets):
+        return cross_entropy(head({"head": hp}, y, cfg), targets)
+
+    return StageBundle(
+        n_stages=cfg.n_stages,
+        stage_fn=make_stage_fn(cfg, attn_fn),
+        embed_fn=embed_fn,
+        loss_fn=loss_fn,
+        stage_params=stage_params,
+        embed_params=params["embed"],
+        head_params=params["head"],
+    )
+
+
 __all__ = [
     "PipeConfig",
     "apply_sequential",
@@ -306,6 +342,7 @@ __all__ = [
     "local_tree",
     "make_forward",
     "make_stage_fn",
+    "mpmd_bundle",
     "pipe_params_from_numpy",
     "pp_pspecs",
 ]

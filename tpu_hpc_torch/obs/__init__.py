@@ -16,15 +16,30 @@ The same schema-stamped JSONL discipline as the JAX package's
                from.
   trace.py     run_id-scoped trace contexts stamped into every
                span/event.
-  digest.py    the mergeable log-bucket sketch the registry feeds.
+  digest.py    mergeable per-process health digests: cumulative
+               counters + gauges + log-bucket histogram sketches,
+               appended to per-process channels under
+               $TPU_HPC_DIGEST_DIR.
+  live.py      the fleet rollup over the digest channels: straggler
+               and stale verdicts, ``python -m tpu_hpc_torch.obs.live``
+               and the fleet-merged Prometheus textfile.
   stall.py     the step-time watermark: flags stragglers and stalls
-               (a ``stall`` event) and enriches the heartbeat.
+               (a ``stall`` event) and enriches the heartbeat and the
+               digest.
+  report.py    ``python -m tpu_hpc_torch.obs.report run.jsonl``: goodput,
+               MFU and the step-time breakdown of a run's JSONL.
+  regress.py   ``python -m tpu_hpc_torch.obs.regress base.jsonl
+               cand.jsonl``: the regression gate over report numbers.
 
-The rest of the JAX package's obs (live rollup, SLO burn rates, report,
-regress, the trace analyzer and anomaly capture) is not ported yet;
-ROADMAP lists it.
+The rest of the JAX package's obs (SLO burn rates, the bench bank, the
+trace analyzer and anomaly capture) is not ported yet; ROADMAP lists it.
 """
-from tpu_hpc_torch.obs.digest import LogBucketSketch  # noqa: F401
+from tpu_hpc_torch.obs.digest import (  # noqa: F401
+    ENV_DIGEST_DIR,
+    DigestPublisher,
+    LogBucketSketch,
+    read_digest_dir,
+)
 from tpu_hpc_torch.obs.events import (  # noqa: F401
     ENV_EVENTS,
     ENV_FLIGHT_DIR,
@@ -33,6 +48,14 @@ from tpu_hpc_torch.obs.events import (  # noqa: F401
     dump_flight,
     get_bus,
     set_bus,
+)
+from tpu_hpc_torch.obs.live import (  # noqa: F401
+    ENV_FLEET_PROM_FILE,
+    Rollup,
+    format_scoreboard,
+    rollup_from_dir,
+    stale_entries,
+    write_fleet_prometheus,
 )
 from tpu_hpc_torch.obs.quantiles import quantile, summarize  # noqa: F401
 from tpu_hpc_torch.obs.registry import (  # noqa: F401
@@ -59,13 +82,17 @@ from tpu_hpc_torch.obs.trace import (  # noqa: F401
 )
 
 __all__ = [
+    "DigestPublisher",
+    "ENV_DIGEST_DIR",
     "ENV_EVENTS",
+    "ENV_FLEET_PROM_FILE",
     "ENV_FLIGHT_DIR",
     "ENV_PROM_FILE",
     "ENV_RUN_ID",
     "EventBus",
     "LogBucketSketch",
     "MetricsRegistry",
+    "Rollup",
     "SCHEMA_VERSION",
     "SchemaError",
     "StallDetector",
@@ -73,17 +100,22 @@ __all__ = [
     "activate",
     "dump_flight",
     "emit_span",
+    "format_scoreboard",
     "get_bus",
     "get_registry",
     "quantile",
+    "read_digest_dir",
     "request_trace_id",
+    "rollup_from_dir",
     "set_bus",
     "set_registry",
     "span",
+    "stale_entries",
     "stamp",
     "step_trace_id",
     "summarize",
     "trace_id_for",
     "validate_file",
     "validate_record",
+    "write_fleet_prometheus",
 ]

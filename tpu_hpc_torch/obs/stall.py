@@ -108,3 +108,12 @@ class StallDetector:
         if wm is not None:
             out["watermark_s"] = round(wm, 4)
         return out
+
+    def digest_extra(self) -> Dict[str, float]:
+        """The digest-side twin of :meth:`heartbeat_extra`: the same
+        normalized (step_s, watermark_s) signal exported into the
+        health digest (obs/digest.py), so the fleet rollup's
+        cross-host straggler comparison (obs/live.py) judges on
+        exactly the numbers the supervisor already trusts from the
+        heartbeat file -- one signal, two transports."""
+        return self.heartbeat_extra()

@@ -46,7 +46,7 @@ boundaries, i.e. at the first progress point where ``step >= N``):
                          degraded host; exercises the stall watermark.
 
 Stage-scoped faults (consumed ONLY by the MPMD pipeline runtime,
-``tpu_hpc.parallel.mpmd`` -- the SPMD Trainer hard-rejects them at
+``tpu_hpc_torch.parallel.mpmd`` -- the SPMD Trainer hard-rejects them at
 construction so a stage fault on a non-MPMD run fails loudly instead
 of passing a chaos test vacuously):
 

@@ -183,7 +183,7 @@ class Supervisor:
         })
         if self.max_stage_restarts is not None:
             # The per-stage budget rides DOWN to the child: an MPMD
-            # pipeline run (tpu_hpc.parallel.mpmd) recovers stage
+            # pipeline run (tpu_hpc_torch.parallel.mpmd) recovers stage
             # failures in-process -- those recoveries never exit, so
             # they can never burn --max-restarts/--max-rollbacks; the
             # exported bound caps how long a flapping stage may keep
@@ -248,6 +248,41 @@ class Supervisor:
                 log_f.close()
 
     # -- the loop -----------------------------------------------------
+    def _surface_rollup(self, attempt: int) -> None:
+        """Between attempts, surface what the live digest channels say
+        (obs/live.py): the fleet scoreboard on stderr next to the
+        attempt rows -- which host/stage was the straggler, who went
+        silent -- plus one schema-stamped ``digest_stale`` record per
+        publisher whose feed stopped, so the restart decision's
+        context rides supervisor.jsonl. Diagnostics: every failure is
+        swallowed (the dump_flight contract -- surfacing telemetry
+        must never turn a restart loop into a new crash)."""
+        from tpu_hpc_torch.obs.digest import ENV_DIGEST_DIR
+
+        digest_dir = os.environ.get(ENV_DIGEST_DIR)
+        if not digest_dir:
+            return
+        try:
+            from tpu_hpc_torch.obs.live import (
+                format_scoreboard,
+                rollup_from_dir,
+                stale_entries,
+            )
+
+            view = rollup_from_dir(digest_dir).build()
+            if not view["sources"]:
+                return
+            for line in format_scoreboard(view).splitlines():
+                print(f"supervisor: {line}", file=sys.stderr)
+            sys.stderr.flush()
+            for e in stale_entries(view):
+                self._event(
+                    event="digest_stale", attempt=attempt, **e
+                )
+        except Exception:
+            return
+
+    # -- the loop -----------------------------------------------------
     def run(self) -> int:
         old = {}
         for signum in (signal.SIGTERM, signal.SIGINT):
@@ -281,6 +316,7 @@ class Supervisor:
                     duration_s=round(time.monotonic() - t0, 3),
                     log=log_path,
                 )
+                self._surface_rollup(attempt)
                 if rc == 0:
                     return 0
                 if self._stop_requested:
@@ -470,7 +506,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "--max-stage-restarts", type=int, default=None,
         help="per-STAGE restart budget exported to the child as "
         "TPU_HPC_MAX_STAGE_RESTARTS (MPMD pipeline runs, "
-        "tpu_hpc.parallel.mpmd): stage-local recoveries happen "
+        "tpu_hpc_torch.parallel.mpmd): stage-local recoveries happen "
         "inside the child and never burn --max-restarts/"
         "--max-rollbacks; this bounds how often any ONE stage may "
         "restart before the child gives up with a budget-accounted "

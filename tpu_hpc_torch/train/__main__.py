@@ -60,10 +60,35 @@ example, on the CPU:
         --seq-len 32 --steps 2 --epochs 1 --pp-microbatches 4 \
         --pp-microbatch-size 2
 
-``--pp-runtime mpmd`` (the MPMD runtime), a pipe axis with ``--model``
-above 1 and ``--pp-*`` with ``--sp-mode`` are refused: the JAX bench
-composes neither, and the MPMD runtime is not ported yet
-(ROADMAP: "Pipeline, the MPMD half").
+A pipe axis with ``--model`` above 1 and ``--pp-*`` with ``--sp-mode``
+are refused: the JAX bench composes neither.
+
+``--pp-runtime mpmd --pp-schedule gpipe`` is bench.py's MPMD row
+(``bench_llama_pp_mpmd``): the per-stage runtime of
+``parallel/mpmd.py`` in one process, one stage per visible card (one
+stage on the CPU; ``run_mpmd(devices=...)`` takes any list), the
+stack model or ``--pp-model llama`` cut by ``mpmd_bundle``, SGD with
+momentum at lr 3e-4, ``--steps`` timed steps after one warm step.
+``TPU_HPC_FAULTS`` arms its stage faults (``stage_kill_at=1:2``,
+``stage_nan_at``, ``stage_straggler``, the slice keys), recovered
+stage-locally; a stage that exhausts its budget exits with the code
+the supervisor accounts (1, or 77 for the rollback class). It refuses
+what bench.py refuses, in its words: another workload (a vision
+``--workload``, ``--sp-mode``, ``--comm-mode``), a schedule other than
+an explicit gpipe, and ``--pp-backward stash``; and a launch of more
+than one process and the flags it does not consume: ``--guard-mode``,
+``--checkpoint-dir``, ``--grad-accum-steps``, ``--batch``, ``--epochs``,
+``--moments-dtype``, ``--comm-table`` and ``--supervise``. The record is
+bench.py's (``pp_mpmd[-llama][-chaos]_tokens_per_s_per_chip`` with
+``bubble_fraction``, ``recovery_mttr_s``, ``stage_restarts``,
+``stage_rollbacks``, ``redispatched``, ``recompiles``, ``wire_mb``)
+with the port's losses, ``update_s``, peak memory and flash launches.
+For example, on one card and on the CPU:
+
+    python -m tpu_hpc_torch.train --pp-runtime mpmd --pp-schedule gpipe
+    python -m tpu_hpc_torch.train --device cpu --pp-runtime mpmd \
+        --pp-schedule gpipe --dim 32 --n-layers 2 --n-heads 2 --vocab 64 \
+        --seq-len 16 --steps 2 --pp-microbatches 4 --pp-microbatch-size 2
 
 Gradient sync (bench.py ``--comm-mode``, its row "llama dp
 bucketed-overlap sync"): ``--comm-mode bucketed_overlap`` trains the
@@ -776,9 +801,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "domain-unet: train/vision.py's workloads")
     ap.add_argument("--steps", type=int, default=20,
                     help="optimizer updates per epoch")
-    ap.add_argument("--epochs", type=int, default=2,
-                    help="epochs; the first absorbs build and warm-up, "
-                    "the last is measured")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="epochs (default 2); the first absorbs build and "
+                    "warm-up, the last is measured")
     ap.add_argument("--batch", type=int, default=None,
                     help="batch per data rank (default: microbatch 4 x "
                     "accum); the global batch is this x the data axis")
@@ -794,7 +819,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "attention")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--moments-dtype", choices=("float32", "bfloat16"),
-                    default="float32")
+                    default=None, help="AdamW moments (default float32)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train (default cuda; a missing card is "
                     "an error, never a silent CPU run)")
@@ -840,8 +865,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "auto (default: $TPU_HPC_COMM_TABLES's entry for this "
                     "topology); requires --comm-mode auto")
     ap.add_argument("--pp-runtime", choices=("spmd", "mpmd"), default=None,
-                    help="spmd: the tick-table pipeline; mpmd (per-stage "
-                    "programs) is not ported yet")
+                    help="spmd: the tick-table pipeline; mpmd: per-stage "
+                    "programs and fault domains (parallel/mpmd.py), one "
+                    "stage per visible card, with an explicit "
+                    "--pp-schedule gpipe")
     for flag in ("dim", "n-layers", "n-heads", "vocab", "multiple-of"):
         ap.add_argument(f"--{flag}", type=int, default=None,
                         help="model-size override (CPU rehearsals; the "
@@ -877,6 +904,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "with N restarts (a preemption or a guard rollback "
                     "relaunches without spending one)")
     args = ap.parse_args(argv)
+    if args.pp_runtime == "mpmd":
+        why = mpmd_flag_error(args) or mpmd_unused_flag_error(args)
+        if why is not None:
+            ap.error(why)
+    args.epochs = 2 if args.epochs is None else args.epochs
+    args.moments_dtype = args.moments_dtype or "float32"
     if args.workload in VISION_WORKLOADS:
         return _main_vision(ap, args)
     vision_only = [f for f in VISION_FLAGS if getattr(args, f) is not None]
@@ -886,17 +919,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     pp_flags = {k[3:]: v for k, v in vars(args).items()
                 if k.startswith("pp_") and v is not None}
     pp = None
+    mpmd_run = False
     if pp_flags:
-        if pp_flags.pop("runtime", "spmd") == "mpmd":
-            ap.error("--pp-runtime mpmd: the MPMD pipeline runtime "
-                     "(parallel/mpmd.py) is not ported yet "
-                     '(ROADMAP: "Pipeline, the MPMD half")')
+        mpmd_run = pp_flags.pop("runtime", "spmd") == "mpmd"
         if args.sp_mode is not None or (args.model or 1) > 1:
             ap.error("--pp-* composes with --data only: PP x TP (--model) "
                      "and PP x SP (--sp-mode) are not ported (the JAX bench "
-                     "composes neither; "
-                     'ROADMAP: "Pipeline, the MPMD half")')
+                     "composes neither)")
         pp = PipeArgs(**pp_flags)
+    if mpmd_run:
+        return _main_mpmd(ap, args, pp)
     if args.sp_mode is not None and (args.model or 1) > 1:
         ap.error("--sp-mode does not combine with --model > 1: TP x "
                  "context parallelism is not ported (the JAX bench never "
@@ -1032,6 +1064,261 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     finally:
         cleanup_distributed()
     return exit_code_for(summary["preempted"], summary["rolled_back"])
+
+
+def mpmd_flag_error(args) -> Optional[str]:
+    """bench.py's refusals of ``--pp-runtime mpmd`` (bench.py:1944-1966),
+    word for word, or None. The port's ``--pp-*`` flags select the
+    pipeline, so bench.py's "another workload" is a vision
+    ``--workload``, ``llama-long``, ``--sp-mode`` (bench.py's llama-sp)
+    or ``--comm-mode`` (its llama row); an absent ``--pp-schedule`` is
+    bench.py's default, 1f1b."""
+    workload = (args.workload if args.workload != "llama" else
+                "llama-sp" if args.sp_mode is not None else
+                "llama" if args.comm_mode != "flat" else None)
+    if workload is not None:
+        return ("--pp-runtime mpmd is only consumed by --workload "
+                f"llama-pp/pp; --workload {workload} would "
+                "silently run without it")
+    schedule = args.pp_schedule or PipeArgs.schedule
+    if schedule != "gpipe":
+        return ("--pp-runtime mpmd dispatches its own gpipe-ordered "
+                "schedule; pass --pp-schedule gpipe explicitly "
+                f"(got {schedule!r} -- a 1f1b/interleaved "
+                "row label would misdescribe what ran)")
+    if (args.pp_backward or PipeArgs.backward) != "remat":
+        return ("--pp-runtime mpmd does not consume --pp-backward "
+                "(its per-stage backward is an explicit vjp program)")
+    return None
+
+
+def mpmd_unused_flag_error(args) -> Optional[str]:
+    """The first flag ``--pp-runtime mpmd`` would silently ignore, or
+    None: its batch is --pp-microbatches x --pp-microbatch-size, its
+    steps are one warm and --steps timed ones, its optimizer is SGD with
+    momentum, and it runs unsupervised in one process."""
+    for flag, value in (("--batch", args.batch), ("--epochs", args.epochs),
+                        ("--moments-dtype", args.moments_dtype),
+                        ("--comm-table", args.comm_table),
+                        ("--supervise", args.supervise)):
+        if value is not None:
+            return (f"{flag} is not consumed by --pp-runtime mpmd: a step "
+                    "is one gpipe pass over --pp-microbatches x "
+                    "--pp-microbatch-size rows, one warm step and --steps "
+                    "timed ones, SGD with momentum, in one unsupervised "
+                    "process; it would silently run without it")
+    return None
+
+
+def mpmd_model(model_cfg: llama2.LlamaConfig, args: PipeArgs,
+               n_stages: int, device, attn: str = "flash"):
+    """bench_llama_pp_mpmd's model (bench.py:699-738) cut for
+    ``n_stages`` stages: ``(bundle, flops_cfg)``. ``stack`` is the
+    PipelineTransformer at ``model_cfg``'s width, depth, sequence and
+    compute dtype; ``llama`` stage-splits the Llama itself. Attention is
+    the flash kernels (``blockwise_attention``) or, with
+    ``attn="reference"``, the model's einsum path. Params are made from
+    seed 0 on ``device``; each stage worker copies its own."""
+    from tpu_hpc_torch.kernels.attention import blockwise_attention
+    from tpu_hpc_torch.models import llama_pp
+    from tpu_hpc_torch.models import pipeline_transformer as ptx
+
+    if args.model not in ("stack", "llama"):
+        raise ValueError(f"unknown pp model {args.model!r} (stack|llama)")
+    attn_fn = None
+    if attn == "flash":
+        def attn_fn(q, k, v):
+            return blockwise_attention(q, k, v, causal=True)[0]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if args.model == "llama":
+        if model_cfg.n_layers % n_stages:
+            raise ValueError(
+                f"llama mpmd needs n_layers {model_cfg.n_layers} "
+                f"divisible by {n_stages} stages")
+        full = llama2.init_llama(gen, model_cfg, device)
+        split = llama_pp.split_params(full, model_cfg, n_stages)
+        return (llama_pp.mpmd_bundle(split, model_cfg, attn_fn=attn_fn),
+                model_cfg)
+    pcfg = ptx.PipeConfig(
+        vocab_size=model_cfg.vocab_size, dim=model_cfg.dim,
+        n_heads=model_cfg.n_heads, n_stages=n_stages,
+        layers_per_stage=max(model_cfg.n_layers // n_stages, 1),
+        max_seq_len=model_cfg.max_seq_len, dtype=model_cfg.dtype)
+    params = ptx.init_pipeline_transformer(gen, pcfg, device)
+    return ptx.mpmd_bundle(params, pcfg, attn_fn=attn_fn), pcfg
+
+
+def run_mpmd(model_cfg: llama2.LlamaConfig, pp: PipeArgs, devices, *,
+             steps: int = 20, attn: str = "flash",
+             events_path: Optional[str] = None, fault_plan=None) -> dict:
+    """bench.py's MPMD row: build the pipeline over ``devices``, one
+    stage each, run one warm step, then ``steps`` timed steps, and
+    return bench.py's record with the port's usual fields.
+    ``fault_plan``: as ``MpmdPipeline`` takes it (default:
+    ``$TPU_HPC_FAULTS``)."""
+    import time
+
+    from tpu_hpc_torch.checks.roofline import peak_flops_for_device
+    from tpu_hpc_torch.kernels import attention
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.parallel import mpmd
+    from tpu_hpc_torch.train.trainer import tree_leaves
+
+    devices = [torch.device(d) for d in devices]
+    cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
+    n_stages = len(devices)
+    n_dev = len(set(devices))
+    bundle, flops_cfg = mpmd_model(model_cfg, pp, n_stages, devices[0],
+                                   attn)
+    cfg = mpmd.MpmdConfig(n_microbatches=pp.microbatches,
+                          learning_rate=LEARNING_RATE)
+    ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
+                              seq_len=model_cfg.max_seq_len, seed=SEED)
+    batch = pp.microbatches * pp.microbatch_size
+    batches = [ds.batch_at(i, batch) for i in range(steps + 1)]
+    pipe = mpmd.MpmdPipeline(bundle, cfg, devices=devices,
+                             fault_plan=fault_plan,
+                             events_path=events_path).build(batches[0][0])
+    warm_counts = list(pipe.compile_counts)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    sync()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    launches0 = attention.kernel_launches()
+    step_losses = [pipe.run_step(0, *batches[0])]  # warm, untimed
+    sync()
+    t0 = time.perf_counter()
+    for step in range(1, steps + 1):
+        step_losses.append(pipe.run_step(step, *batches[step]))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: v - launches0[k]
+                for k, v in attention.kernel_launches().items()}
+    seq = model_cfg.max_seq_len
+    tokens_per_s = steps * batch * seq / wall if steps else 0.0
+    flops_per_token = flops_cfg.flops_per_token(seq)
+    peak = peak_flops_for_device(devices[0])
+    mfu = (tokens_per_s * flops_per_token / (peak * n_dev)
+           if peak is not None else None)
+    tag = "-llama" if pp.model == "llama" else ""
+    # A chaos-armed run banks under its own -chaos family: its recovery
+    # MTTR and redispatches must not pollute the clean family's.
+    armed = (pipe.fault_plan.stage_fault_keys()
+             if pipe.fault_plan is not None else [])
+    if armed:
+        tag += "-chaos"
+    mttrs = [r["mttr_s"] for r in pipe.recoveries]
+    losses = [sum(v) / len(v) for v in step_losses]
+    out = {
+        "metric": f"pp_mpmd{tag}_tokens_per_s_per_chip",
+        "value": tokens_per_s / n_dev,
+        "unit": "tokens/s/chip",
+        "vs_baseline": mfu / 0.40 if mfu is not None else None,
+        "pp_runtime": "mpmd",
+        **({"faults": ",".join(armed)} if armed else {}),
+        "bubble_fraction": (sum(pipe.bubble_fractions)
+                            / len(pipe.bubble_fractions)),
+        "recovery_mttr_s": sum(mttrs) / len(mttrs) if mttrs else 0.0,
+        "stage_restarts": sum(pipe.supervisor.restarts.values()),
+        "stage_rollbacks": sum(pipe.supervisor.rollbacks.values()),
+        "redispatched": pipe.redispatched,
+        "recompiles": sum(pipe.compile_counts) - sum(warm_counts),
+        "wire_mb": pipe.wire_bytes / 2**20,
+        "attn": attn,
+        "device": {
+            "type": devices[0].type,
+            "name": (torch.cuda.get_device_name(devices[0])
+                     if devices[0].type == "cuda" else "cpu"),
+            "count": n_dev,
+        },
+        "n_stages": n_stages,
+        "stage_devices": [str(d) for d in devices],
+        "tokens_per_s": tokens_per_s,
+        "tokens_per_s_per_device": tokens_per_s / n_dev,
+        "mfu": mfu,
+        "peak_flops": peak,
+        "flops_per_token": flops_per_token,
+        "update_s": wall / steps if steps else None,
+        "final_loss": losses[-1],
+        "losses": losses,
+        "microbatch_losses": step_losses,
+        "updates": len(losses),
+        "measured_updates": steps,
+        "global_batch": batch,
+        "seq_len": seq,
+        "n_params": sum(t.numel() for tree in (
+            *bundle.stage_params, bundle.embed_params, bundle.head_params)
+            for t in tree_leaves(tree)),
+        "model": {"dim": model_cfg.dim, "n_layers": model_cfg.n_layers,
+                  "n_heads": model_cfg.n_heads,
+                  "vocab_size": model_cfg.vocab_size,
+                  "dtype": str(model_cfg.dtype).replace("torch.", ""),
+                  "pp_model": pp.model},
+        "pp": {**dataclasses.asdict(pp), "runtime": "mpmd"},
+        "compile_counts": pipe.compile_counts,
+        "kernel_launches": launches,
+        "flash_tile_rows": ({k: attention.flash_tile_rows(k, model_cfg.dtype)
+                             for k in attention.FLASH_KERNELS}
+                            if attn == "flash" and devices[0].type == "cuda"
+                            else None),
+        "recoveries": pipe.recoveries,
+        "stage_remaps": pipe.remaps,
+    }
+    if cards:
+        out["peak_memory_bytes"] = max(torch.cuda.max_memory_allocated(d)
+                                       for d in cards)
+    return out
+
+
+def _main_mpmd(ap, args, pp: PipeArgs) -> int:
+    """``main`` for ``--pp-runtime mpmd`` (bench.py's MPMD row)."""
+    import os
+
+    from tpu_hpc_torch.parallel.mpmd import (
+        StageBudgetExhausted,
+        visible_devices,
+    )
+    from tpu_hpc_torch.runtime import resolve_device
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ap.error("--pp-runtime mpmd is one process that drives one card "
+                 "per stage (parallel/mpmd.py): a launch of "
+                 f"{os.environ['WORLD_SIZE']} processes would run that many "
+                 "separate pipelines; run it without torchrun")
+    if args.data is not None or args.context is not None:
+        ap.error("--pp-runtime mpmd places one stage on each visible card; "
+                 "--data/--context split a multi-process launch it does "
+                 "not use")
+    if args.guard_mode != "off" or args.checkpoint_dir:
+        ap.error("--guard-mode and --checkpoint-dir are not consumed by "
+                 "--pp-runtime mpmd: its recovery is stage-local (per-stage "
+                 "snapshots, guards and budgets; TPU_HPC_FAULTS arms its "
+                 "stage faults)")
+    if (args.grad_accum_steps or 1) > 1:
+        ap.error("--pp-runtime mpmd does not accumulate: a step is "
+                 "--pp-microbatches x --pp-microbatch-size rows")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    devices = (visible_devices(torch.cuda.device_count())
+               if device.type == "cuda" else [device])
+    model_cfg = bench_model_cfg(
+        args.seq_len or 2048, args.remat, dim=args.dim,
+        n_layers=args.n_layers, n_heads=args.n_heads,
+        vocab_size=args.vocab, multiple_of=args.multiple_of)
+    try:
+        summary = run_mpmd(model_cfg, pp, devices, steps=args.steps,
+                           attn=args.attn, events_path=args.metrics or None)
+    except StageBudgetExhausted as e:
+        print(f"tpu_hpc_torch.train: {e}", file=sys.stderr)
+        return e.exit_code
+    print(json.dumps(summary), flush=True)
+    return 0
 
 
 def _main_vision(ap, args) -> int:

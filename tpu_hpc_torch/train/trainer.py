@@ -1031,6 +1031,13 @@ class Trainer:
         # stragglers and enriches the heartbeat.
         self.heartbeat = Heartbeat.from_env()
         self.stall = obs.StallDetector()
+        # Live telemetry plane (obs/digest.py): per-HOST health digests
+        # into $TPU_HPC_DIGEST_DIR every chunk boundary, keyed by rank,
+        # so a fleet rollup (python -m tpu_hpc_torch.obs.live) compares
+        # this host's step watermark against its peers while the run
+        # goes on. None (free) unless the env contract arms it.
+        self.digest = obs.DigestPublisher.from_env(role="host",
+                                                   key=str(_rank()))
         self._watchdog: Optional[HangWatchdog] = None
         if checkpoint_manager is not None and hasattr(
                 checkpoint_manager, "event_sink"):
@@ -1480,6 +1487,12 @@ class Trainer:
                 self._watchdog.tick()
             if self.heartbeat is not None:
                 self.heartbeat.tick(done, **self.stall.heartbeat_extra())
+            if self.digest is not None:
+                # The digest twin of the heartbeat enrichment: the
+                # registry's counters, gauges and sketches and the same
+                # (step_s, watermark_s) signal, onto this host's channel.
+                self.digest.publish_registry(
+                    step=done, **self.stall.digest_extra())
             summary = self.meter.epoch_summary(skip_first=0)
             summary["losses"] = step_losses
             run_summaries.append(summary)
