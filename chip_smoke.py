@@ -98,6 +98,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     verify and draft steps' decode launches and the
                     spec prefill's launches are counted; each part's
                     seconds and peak memory are printed.
+     serve_tier_fleet -- serving past one engine. (a) The host-DRAM KV
+                    tier at 7B, full depth: long_idle_sessions through
+                    run_loadgen on a 120-page pool without a tier (the
+                    return wave must shed), with 512 pinned host slots
+                    (no return sheds; pages spill and refill) and on a
+                    513-page pool (the tiered run's greedy tokens equal
+                    it on every request both served); then a 500-token
+                    chain spilled and prefetched back on a bf16 and an
+                    int8 pool: refilled pages (and scales) bit-equal,
+                    a control one page off rejected, the return
+                    request's tokens after the refill equal the chain
+                    that never left, both paged kernels launched over
+                    the refilled pages, the refill's time and GB/s
+                    beside a re-prefill of the prompt. (b) The fleet at
+                    7B width (layers: FLEET_LAYERS): two replicas on
+                    this card through run_fleet_loadgen over diurnal,
+                    clean, with a replica killed (redispatched streams
+                    byte-identical to clean), a clean swap (rolls
+                    through both), a corrupt swap (rolls back, old
+                    weights serve byte-identically); controls: a stream
+                    altered after redispatch and a swap with
+                    verify_tree skipped (the corrupt weights get
+                    through). Each replica's paged-kernel launches, the
+                    swap's place and checksum seconds. (c) The bench
+                    Llama trained 2 updates with a checkpoint, restored
+                    by load_serving_params (bit-equal, the same greedy
+                    replay as the trainer's params), then the draft of
+                    a 7B-width 2-layer float32 target: spec greedy
+                    equals plain greedy.
   6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
@@ -4116,6 +4145,641 @@ def serve_spec_phase(torch, dev, cfg, serve_cfg, paged, plain) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------
+# Phase 5d: serving past one engine -- the host tier, the fleet, restore
+# ---------------------------------------------------------------------
+
+# (a) long_idle_sessions through run_loadgen: a 120-page pool the filler
+# wave overflows, without a tier and with 512 host slots, and a 513-page
+# pool where nothing needs to spill (rehearsed on the CPU at this serve
+# shape: the HBM-only pool sheds 9 of the 16 returns, the tiered pool
+# none).
+TIER_SERVE = dict(slots=4, max_seq_len=1024, prefill_buckets=(256, 512))
+TIER_REQUESTS, TIER_MAX_NEW = 48, 32
+TIER_BLOCKS, TIER_HOST_BLOCKS, TIER_ROOMY_BLOCKS = 120, 512, 513
+# The page round trip's returning prompt: 500 tokens, 31 full pages.
+TIER_PROMPT, TIER_SUFFIX, TIER_RETURN_NEW = 500, 8, 8
+# (b) the fleet: two replicas on one card over diurnal, each fault run
+# against the clean run of the same seed.
+FLEET_REQUESTS, FLEET_MAX_NEW = 16, 16
+FLEET_KILL_AT, FLEET_SWAP_AT = 6, 10
+# The fleet's depth at 7B width. Memory would hold 32 layers (two
+# replicas, the published copy and the rollback copy, 4 x 13.5 GB, and
+# two 513-page pools, ~63 GB), but each swap checksums the published
+# tree and what lands on each replica on the host (ckpt/integrity), so
+# the depth sets the phase's time (PERF.md, PR 15).
+FLEET_LAYERS = 4
+# (c) the bench Llama's updates before the checkpoint is restored, and
+# where the checkpoint goes (under build/ in the checkout).
+RESTORE_UPDATES = 2
+RESTORE_DIR = "build/chip_smoke_restore"
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def captured_harnesses():
+    """The load harnesses (single-engine and fleet) that summarize inside
+    the block, in order: their streams are what the exact-token gates
+    read (run_loadgen and run_fleet_loadgen return only the summary)."""
+    from tpu_hpc_torch.loadgen import harness as lh
+    from tpu_hpc_torch.serve import fleet
+
+    seen = []
+    originals = {cls: cls.summarize
+                 for cls in (lh.LoadHarness, fleet.FleetHarness)}
+
+    def recording(orig):
+        def summarize(self, *args, **kwargs):
+            seen.append(self)
+            return orig(self, *args, **kwargs)
+        return summarize
+
+    for cls, orig in originals.items():
+        cls.summarize = recording(orig)
+    try:
+        yield seen
+    finally:
+        for cls, orig in originals.items():
+            cls.summarize = orig
+
+
+@contextlib.contextmanager
+def launches_by_engine():
+    """The paged kernels' launches inside each batcher tick, by the
+    engine the batcher drives (``id`` of the engine under the cost-model
+    proxy): with two replicas in one process the kernels' own counts are
+    shared, so a replica's launches are the sum over its ticks."""
+    from tpu_hpc_torch.serve.scheduler import ContinuousBatcher
+
+    counts = {}
+    orig = ContinuousBatcher.step
+
+    def step(self, *args, **kwargs):
+        before = _launch_counts()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            after = _launch_counts()
+            eng = getattr(self.engine, "_engine", self.engine)
+            row = counts.setdefault(id(eng), dict.fromkeys(after, 0))
+            for k in after:
+                row[k] += after[k] - before[k]
+
+    ContinuousBatcher.step = step
+    try:
+        yield counts
+    finally:
+        ContinuousBatcher.step = orig
+
+
+@contextlib.contextmanager
+def loadgen_faults(spec: str):
+    """``$TPU_HPC_LOADGEN_FAULTS=spec`` for the block (run_fleet_loadgen
+    reads it when it builds the harness)."""
+    import os
+
+    os.environ["TPU_HPC_LOADGEN_FAULTS"] = spec
+    try:
+        yield
+    finally:
+        del os.environ["TPU_HPC_LOADGEN_FAULTS"]
+
+
+def page_bytes(torch, eng, blocks) -> list:
+    """Pages ``blocks`` of the pool (K, V, and for an int8 pool both
+    scale rows) as raw bytes: equal means bit-equal."""
+    idx = torch.tensor(list(blocks), dtype=torch.long, device=eng.device)
+    parts = [eng.ks, eng.vs] + (
+        [eng.k_scales, eng.v_scales] if eng.k_scales is not None else [])
+    return [p.index_select(1, idx).contiguous().view(torch.uint8)
+            for p in parts]
+
+
+def same_pages(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def page_round_trip(torch, dev, params, cfg, serve_cfg, quant) -> dict:
+    """One tiered engine (16-token pages, 64-page pool, 64 host slots):
+    a 500-token prompt served once parks 31 pages in the trie; they
+    spill to the host tier and prefetch back. Readings: the refilled
+    pages (and an int8 pool's scales) bit-equal to the spilled ones, and
+    a control, the same check against the refilled pages one page off,
+    that must fail; the return request's greedy tokens after the refill
+    equal those of the same request on a chain that never left the card,
+    with the paged kernels' launches reading the refilled pages; the
+    spill's and refill's seconds and wire bytes beside the time to
+    prefill the same prompt again."""
+    import numpy as np
+
+    from tpu_hpc_torch.serve import (
+        ContinuousBatcher,
+        PagedConfig,
+        PagedEngine,
+        Request,
+    )
+
+    eng = PagedEngine(params, cfg, serve_cfg, dev, PagedConfig(
+        block_size=16, num_blocks=64, prefill_chunk=256, host_blocks=64,
+        kernel="cuda", kv_quant=quant))
+    n_programs = eng.warmup()
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, TIER_PROMPT).tolist()
+    ret = prompt + rng.integers(0, cfg.vocab_size, TIER_SUFFIX).tolist()
+
+    def serve(rid, toks, max_new):
+        return ContinuousBatcher(eng).run(
+            [Request(rid=rid, prompt=toks, max_new_tokens=max_new)])[rid]
+
+    # The reference: the return request on a chain that stayed put.
+    serve("first", prompt, 1)
+    want_tokens = serve("return", ret, TIER_RETURN_NEW)
+    eng.reset_pool()
+    serve("first", prompt, 1)
+    blocks = eng.trie.match(prompt)
+    want = page_bytes(torch, eng, blocks)
+    tier = eng.host_tier
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    spilled = tier.spill_parked(len(blocks))
+    _sync(torch, dev)
+    spill_s = time.perf_counter() - t0
+    left = eng.trie.match(prompt)
+    t0 = time.perf_counter()
+    refilled = eng.prefetch_prompt(prompt)
+    _sync(torch, dev)
+    refill_s = time.perf_counter() - t0
+    back = eng.trie.match(prompt)
+    bit_equal = len(back) == len(blocks) and same_pages(
+        torch, page_bytes(torch, eng, back), want)
+    shifted = back[1:] + back[:1]
+    control_equal = same_pages(torch, page_bytes(torch, eng, shifted), want)
+    _zero_launches()
+    got_tokens = serve("return", ret, TIER_RETURN_NEW)
+    launches = _launch_counts()
+    stats = dict(tier.stats)
+    # The same prompt prefilled again from nothing.
+    eng.reset_pool()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    eng.admit(0, prompt, 1)
+    while eng.prefill_step(0) is None:
+        pass
+    _sync(torch, dev)
+    reprefill_s = time.perf_counter() - t0
+    eng.release(0)
+    out = {
+        "kv_quant": quant, "pages": len(blocks), "spilled": spilled,
+        "refilled": refilled, "left_on_card_after_spill": len(left),
+        "bit_equal": bit_equal, "control_one_page_off_equal": control_equal,
+        "tokens_after_refill_equal": got_tokens == want_tokens,
+        "launches_after_refill": launches,
+        "spill_s": spill_s, "refill_s": refill_s,
+        "reprefill_s": reprefill_s,
+        "spill_wire_bytes": stats["kv_spill_wire_bytes"],
+        "refill_wire_bytes": stats["kv_refill_wire_bytes"],
+        "refill_gb_per_s": stats["kv_refill_wire_bytes"] / refill_s / 1e9,
+        "spill_gb_per_s": stats["kv_spill_wire_bytes"] / spill_s / 1e9,
+        "group_pages": tier.group, "inflight_bytes": tier.max_inflight_bytes,
+        "rebuilds": eng.compile_count_total - n_programs,
+        "host_bytes": tier.host_bytes,
+    }
+    del eng
+    return out
+
+
+TIER_KEYS = ("shed", "kv_spill_pages", "kv_refill_pages",
+             "kv_spill_wire_bytes", "kv_refill_wire_bytes", "kv_hop_ms_p50",
+             "kv_hop_ms_p95", "trie_evictions", "prefix_hits", "recompiles",
+             "kernel_launches", "wall_clock_s", "wall_clock_tokens_per_s",
+             "ttft_ms_p50", "ttft_ms_p95", "peak_memory_bytes")
+
+
+def tier_runs(torch, dev, cfg, serve_cfg, n=TIER_REQUESTS,
+              max_new=TIER_MAX_NEW) -> dict:
+    """long_idle_sessions through run_loadgen three times: the small
+    pool without a tier ("hbm"), with one ("tiered"), and a pool where
+    nothing spills ("roomy"). Each row: the summary's tier, shed and
+    timing fields, the return wave's sheds and the greedy streams."""
+    from tpu_hpc_torch.serve import PagedConfig
+    from tpu_hpc_torch.serve.server import run_loadgen
+
+    runs = {}
+    for name, blocks, host in (("hbm", TIER_BLOCKS, 0),
+                               ("tiered", TIER_BLOCKS, TIER_HOST_BLOCKS),
+                               ("roomy", TIER_ROOMY_BLOCKS, 0)):
+        paged = PagedConfig(block_size=16, num_blocks=blocks,
+                            prefill_chunk=256, host_blocks=host,
+                            kernel="cuda")
+        _zero_launches()
+        with captured_harnesses() as seen:
+            s = run_loadgen(cfg, serve_cfg, "long_idle_sessions", n, max_new,
+                            seed=0, paged=paged, device=dev)
+        row = {k: s[k] for k in TIER_KEYS if k in s}
+        row.update(return_shed=s["tenants"]["return"]["shed"],
+                   return_finished=s["tenants"]["return"]["finished"],
+                   launches=_launch_counts(),
+                   streams=dict(seen[-1].batcher.results))
+        tier = seen[-1].engine.host_tier
+        if tier is not None:
+            # Every hop's seconds (dispatch until the bytes landed) over
+            # the wire bytes both ways: the host link as the run used it.
+            hop_s = sum(tier._hop_s)
+            row.update(hop_s_total=hop_s, link_gb_per_s=(
+                s["kv_spill_wire_bytes"] + s["kv_refill_wire_bytes"])
+                / hop_s / 1e9 if hop_s else 0.0)
+        runs[name] = row
+        del seen
+        if dev.type == "cuda":
+            _release(torch)
+    return runs
+
+
+def tier_failures(runs, trips) -> list:
+    """(a)'s gates: the HBM-only pool sheds part of the return wave and
+    the tiered pool none, after spilling and refilling pages; every
+    request the tiered and roomy runs both served has the same greedy
+    tokens; no run rebuilt and every run launched both kernels; each
+    page round trip is bit-equal with its one-page-off control unequal,
+    with both kernels launched after the refill and the return tokens
+    equal to the chain that never left."""
+    failures = []
+    hbm, tiered, roomy = runs["hbm"], runs["tiered"], runs["roomy"]
+    if hbm["return_shed"] < 1:
+        failures.append("hbm: the return wave shed nothing")
+    if tiered["return_shed"] != 0:
+        failures.append(f"tiered: {tiered['return_shed']} returns shed")
+    if tiered.get("kv_spill_pages", 0) < 1 \
+            or tiered.get("kv_refill_pages", 0) < 1:
+        failures.append("tiered: nothing spilled or refilled")
+    common = sorted(set(tiered["streams"]) & set(roomy["streams"]))
+    differ = [r for r in common
+              if tiered["streams"][r] != roomy["streams"][r]]
+    if differ or not common:
+        failures.append(f"tiered vs roomy: tokens differ on {differ}")
+    for name, row in runs.items():
+        if row["recompiles"] or min(row["launches"].values()) < 1:
+            failures.append(f"{name}: rebuilt or a kernel never launched "
+                            f"{row['launches']}")
+    for trip in trips:
+        q = trip["kv_quant"]
+        if not trip["bit_equal"] or trip["refilled"] != trip["pages"] \
+                or trip["left_on_card_after_spill"]:
+            failures.append(f"{q}: refilled pages not bit-equal")
+        if trip["control_one_page_off_equal"]:
+            failures.append(f"{q}: the one-page-off control passed")
+        if not trip["tokens_after_refill_equal"] or trip["rebuilds"] \
+                or min(trip["launches_after_refill"].values()) < 1:
+            failures.append(f"{q}: tokens or kernels after the refill")
+    return failures
+
+
+FLEET_KEYS = ("lost_requests", "shed", "recompiles", "wall_clock_s",
+              "wall_clock_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
+              "itl_ms_p50", "itl_ms_p95", "kernel_launches",
+              "peak_memory_bytes", "tokens")
+
+
+def fleet_run(torch, dev, cfg, serve_cfg, paged, faults="", swap_at=None,
+              n=FLEET_REQUESTS, max_new=FLEET_MAX_NEW) -> dict:
+    """run_fleet_loadgen over diurnal with two replicas on ``dev``
+    (``faults`` in $TPU_HPC_LOADGEN_FAULTS). The row: the summary's
+    fleet block and timing fields, the greedy streams, each replica's
+    paged-kernel launches, and the published update's checksums with
+    each replica's weights verified against them after the run."""
+    from tpu_hpc_torch.ckpt.integrity import leaf_checksums
+    from tpu_hpc_torch.serve.server import run_fleet_loadgen
+    from tpu_hpc_torch.serve.weights import flat_params
+
+    _zero_launches()
+    with loadgen_faults(faults), captured_harnesses() as seen, \
+            launches_by_engine() as by_engine:
+        s = run_fleet_loadgen(
+            cfg, serve_cfg, "diurnal", n, max_new, paged, n_replicas=2,
+            min_replicas=2, initial_replicas=2, swap_at=swap_at, seed=0,
+            devices=[dev, dev])
+    h = seen[-1]
+    row = {k: s[k] for k in FLEET_KEYS if k in s}
+    row.update(
+        fleet=s["fleet"], streams=dict(h.fleet.results),
+        replica_launches=[by_engine.get(id(r.engine._engine))
+                          for r in h.fleet.replicas],
+        launches=_launch_counts())
+    src = h.fleet._weights_src
+    if src is not None:
+        # Leaves off the published checksums, recomputed here (not
+        # through verify_tree, which the control run replaces).
+        row["replicas_off_published"] = []
+        for r in h.fleet.replicas:
+            mine = leaf_checksums(flat_params(r.engine.params))
+            row["replicas_off_published"].append(sum(
+                mine.get(p, {}).get("crc32") != rec["crc32"]
+                for p, rec in src[1].items()))
+    del seen, h
+    return row
+
+
+def fleet_runs(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """(b)'s runs: clean, a replica killed mid-decode, a clean swap, a
+    corrupt swap, and the control: the corrupt swap with verify_tree
+    skipped."""
+    from tpu_hpc_torch.ckpt import integrity
+
+    runs = {}
+    for name, faults, swap in (
+            ("clean", "", None),
+            ("kill", f"replica_kill_at={FLEET_KILL_AT}", None),
+            ("swap", "", FLEET_SWAP_AT),
+            ("corrupt", "swap_corrupt=1", FLEET_SWAP_AT)):
+        runs[name] = fleet_run(torch, dev, cfg, serve_cfg, paged, faults,
+                               swap)
+        if dev.type == "cuda":
+            _release(torch)
+    verify = integrity.verify_tree
+    integrity.verify_tree = lambda restored, sums, shards=False: []
+    try:
+        runs["corrupt_unverified"] = fleet_run(
+            torch, dev, cfg, serve_cfg, paged, "swap_corrupt=1",
+            FLEET_SWAP_AT)
+    finally:
+        integrity.verify_tree = verify
+    if dev.type == "cuda":
+        _release(torch)
+    return runs
+
+
+def altered_after_redispatch(runs) -> dict:
+    """The control for the redispatch gate: the kill run with the last
+    token of one stream changed."""
+    kill = dict(runs["kill"])
+    streams = {k: list(v) for k, v in kill["streams"].items()}
+    rid = sorted(streams)[0]
+    streams[rid][-1] += 1
+    kill["streams"] = streams
+    return {**runs, "kill": kill}
+
+
+def fleet_failures(runs) -> list:
+    """(b)'s gates: no run lost a request or rebuilt, and every run
+    launched both kernels in both replicas; the kill was detected and
+    redispatched with the streams byte-identical to the clean run's; the
+    clean swap rolled through both replicas; the corrupt swap rolled back
+    with the streams of the old weights; and the swap with verify_tree
+    skipped let the corrupt weights through (a replica serves weights
+    off the published checksums) -- the check is what catches them."""
+    failures = []
+    clean = runs["clean"]
+    for name in ("clean", "kill", "swap", "corrupt"):
+        row = runs[name]
+        if row["lost_requests"] or row["recompiles"]:
+            failures.append(f"{name}: lost requests or rebuilt")
+        if any(r is None or min(r.values()) < 1
+               for r in row["replica_launches"]):
+            failures.append(f"{name}: a replica launched no kernel "
+                            f"{row['replica_launches']}")
+    kill = runs["kill"]
+    if kill["fleet"]["replica_down"] != 1 \
+            or kill["fleet"]["redispatched"] < 1:
+        failures.append("kill: no replica down or nothing redispatched")
+    if kill["streams"] != clean["streams"]:
+        failures.append("kill: redispatched streams differ from clean")
+    swap = runs["swap"]["fleet"]
+    if swap["swapped_replicas"] != 2 or swap["weights_version"] != 1 \
+            or swap["swap_rollbacks"]:
+        failures.append(f"swap: did not roll through both replicas {swap}")
+    corrupt = runs["corrupt"]
+    if corrupt["fleet"]["swap_rollbacks"] != 1 \
+            or corrupt["fleet"]["weights_version"] != 0 \
+            or corrupt["streams"] != clean["streams"]:
+        failures.append("corrupt: no rollback or old weights not serving")
+    unverified = runs["corrupt_unverified"]
+    if unverified["fleet"]["swap_rollbacks"] \
+            or not any(unverified.get("replicas_off_published", [])):
+        failures.append("corrupt_unverified: the corrupt weights did not "
+                        "get through without the check")
+    return failures
+
+
+def restore_part(torch, dev, workdir, target_cfg, serve_cfg, paged,
+                 train_cfg=None, batch=TRAIN_BATCH,
+                 accum=TRAIN_ACCUM) -> dict:
+    """(c) The bench Llama trained RESTORE_UPDATES updates with a
+    checkpoint saved, restored by load_serving_params (seconds, bytes):
+    bit-equal to the trainer's params, and the greedy replay from it
+    equal to the replay from the trainer's in-memory params. Then the
+    checkpoint is the draft (build_spec's draft_ckpt, the CLI's
+    --spec-draft-ckpt) of ``target_cfg``: spec greedy equals plain
+    greedy, with its acceptance."""
+    import os
+    import shutil
+
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import (
+        ContinuousBatcher,
+        PagedEngine,
+        SpecConfig,
+        replay_requests,
+    )
+    from tpu_hpc_torch.serve.server import build_spec
+    from tpu_hpc_torch.serve.weights import flat_params, load_serving_params
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    cfg = train_cfg or bench_model_cfg()
+    ck = os.path.join(workdir, "ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    trainer, ds = build_trainer(cfg, steps=RESTORE_UPDATES, epochs=1,
+                                batch=batch, grad_accum_steps=accum,
+                                device=dev, checkpoint_dir=ck,
+                                save_every=1)
+    trainer.fit(ds)
+    step = trainer.checkpoint_manager.all_steps()[-1]
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    restored = load_serving_params(ck, cfg, dev)
+    _sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    live = {k: v.detach() for k, v in flat_params(trainer.state.params).items()}
+    bit_equal = all(torch.equal(v, live[k])
+                    for k, v in flat_params(restored).items())
+
+    def replay(params, c, spec=None):
+        eng = PagedEngine(params, c, serve_cfg, dev, paged)
+        if spec is not None:
+            spec(eng)
+        n_programs = eng.warmup()
+        reqs = replay_requests(SERVE_REQUESTS, c.vocab_size,
+                               SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0)
+        got = ContinuousBatcher(eng).run(reqs)
+        stats = dict(eng.spec.stats) if eng.spec is not None else {}
+        return got, stats, eng.compile_count_total - n_programs
+
+    from_ckpt, _, r0 = replay(restored, cfg)
+    from_live, _, r1 = replay(trainer.state.params, cfg)
+    del trainer, ds, restored, live
+    if dev.type == "cuda":
+        _release(torch)
+    target = llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(1), target_cfg, dev)
+    plain, _, r2 = replay(target, target_cfg)
+    spec, stats, r3 = replay(target, target_cfg, lambda eng: build_spec(
+        eng, target_cfg, SpecConfig(mode="draft", k=SPEC_K), draft_ckpt=ck,
+        draft_cfg=cfg))
+    del target
+    nbytes = step_bytes(os.path.join(ck, str(step)))
+    shutil.rmtree(ck, ignore_errors=True)
+    return {
+        "checkpoint_step": step, "checkpoint_bytes": nbytes,
+        "restore_s": restore_s, "restored_bit_equal": bit_equal,
+        "replay_equal": from_ckpt == from_live,
+        "spec_equals_plain": spec == plain,
+        "differing": [r for r in plain if spec.get(r) != plain[r]],
+        "drafted": stats.get("drafted", 0),
+        "accepted": stats.get("accepted", 0),
+        "acceptance": (stats.get("accepted", 0) / stats["drafted"]
+                       if stats.get("drafted") else 0.0),
+        "rebuilds": r0 + r1 + r2 + r3,
+    }
+
+
+def restore_failures(row) -> list:
+    failures = []
+    for key in ("restored_bit_equal", "replay_equal", "spec_equals_plain"):
+        if not row[key]:
+            failures.append(f"restore: {key} is false")
+    if row["rebuilds"] or row["drafted"] < 1:
+        failures.append("restore: rebuilt, or the draft drafted nothing")
+    return failures
+
+
+def serve_tier_fleet_phase(torch, dev, cfg, workdir, fleet_layers) -> dict:
+    """Phase 5d: (a) the host tier at 7B, (b) the fleet at 7B width and
+    ``fleet_layers`` layers, (c) restore into the serving layout; each
+    part's seconds and peak memory. Returns the paged kernels' launches
+    (the tiered run's, after each refill, and by fleet replica)."""
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import PagedConfig, ServeConfig
+    from tpu_hpc_torch.serve.weights import place_params
+
+    t_phase = time.perf_counter()
+    # (a)
+    _peak_reset(torch, dev)
+    t = time.perf_counter()
+    tier_serve = ServeConfig(**TIER_SERVE)
+    runs = tier_runs(torch, dev, cfg, tier_serve)
+    params = place_params(llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev), cfg, dev)
+    _release(torch)
+    trips = [page_round_trip(torch, dev, params, cfg, tier_serve, q)
+             for q in ("none", "int8")]
+    del params
+    _release(torch)
+    emit("serve_tier_fleet", check="a_tier", model="7b",
+         n_layers=cfg.n_layers, requests=TIER_REQUESTS,
+         pool_blocks=TIER_BLOCKS, host_blocks=TIER_HOST_BLOCKS,
+         roomy_blocks=TIER_ROOMY_BLOCKS,
+         runs={k: {f: v for f, v in r.items() if f != "streams"}
+               for k, r in runs.items()},
+         page_round_trips=trips)
+    failures = tier_failures(runs, trips)
+    emit("serve_tier_fleet", check="a_cost", seconds=time.perf_counter() - t,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    if failures:
+        raise SystemExit(f"serve_tier_fleet (a): {failures}")
+    # (b)
+    _peak_reset(torch, dev)
+    t = time.perf_counter()
+    fcfg = dataclasses.replace(cfg, n_layers=fleet_layers)
+    serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
+                            prefill_buckets=(256, 512))
+    fpaged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
+                         kernel="cuda")
+    fruns = fleet_runs(torch, dev, fcfg, serve_cfg, fpaged)
+    one = one_engine(torch, dev, fcfg, serve_cfg, fpaged)
+    emit("serve_tier_fleet", check="b_fleet", model="7b",
+         n_layers=fleet_layers, replicas=2, requests=FLEET_REQUESTS,
+         kill_at=FLEET_KILL_AT, swap_at=FLEET_SWAP_AT,
+         runs={k: {f: v for f, v in r.items() if f != "streams"}
+               for k, r in fruns.items()},
+         one_engine=one, swap_timing=swap_timing(torch, dev, fcfg))
+    failures = fleet_failures(fruns)
+    control = fleet_failures(altered_after_redispatch(fruns))
+    emit("serve_tier_fleet", check="b_cost", seconds=time.perf_counter() - t,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         altered_stream_rejected=bool(control))
+    if failures or not control:
+        raise SystemExit(f"serve_tier_fleet (b): {failures}, control "
+                         f"{control}")
+    _release(torch)
+    # (c)
+    _peak_reset(torch, dev)
+    t = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    row = restore_part(torch, dev, workdir, small, serve_cfg, fpaged)
+    emit("serve_tier_fleet", check="c_restore", model="bench",
+         target="7b-width-2-layers", target_dtype="float32", **row)
+    failures = restore_failures(row)
+    emit("serve_tier_fleet", check="c_cost", seconds=time.perf_counter() - t,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    if failures:
+        raise SystemExit(f"serve_tier_fleet (c): {failures}")
+    _release(torch)
+    launches = {
+        k: {"tiered": runs["tiered"]["launches"][k],
+            "after_refill": trips[0]["launches_after_refill"][k],
+            "fleet_replicas": [r[k] for r in fruns["clean"]
+                               ["replica_launches"]]}
+        for k in ("paged_decode_attention", "paged_prefill_attention")}
+    launches[INT8_PREFILL] = {"after_refill": trips[1][
+        "launches_after_refill"]["paged_prefill_attention"]}
+    emit("serve_tier_fleet", check="summary",
+         seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+def one_engine(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """The fleet's comparison: the same diurnal mix through run_loadgen
+    on one engine of the same depth (wall seconds and tokens/s)."""
+    from tpu_hpc_torch.serve.server import run_loadgen
+
+    s = run_loadgen(cfg, serve_cfg, "diurnal", FLEET_REQUESTS,
+                    FLEET_MAX_NEW, seed=0, paged=paged, device=dev)
+    if dev.type == "cuda":
+        _release(torch)
+    return {k: s[k] for k in ("wall_clock_s", "wall_clock_tokens_per_s",
+                              "tokens", "ttft_ms_p50", "itl_ms_p50",
+                              "peak_memory_bytes") if k in s}
+
+
+def swap_timing(torch, dev, cfg) -> dict:
+    """The two steps of a swap on one replica's weights, timed: the
+    placement (fresh buffers on the card) and the checksum over what
+    landed (ckpt/integrity, which hashes on the host)."""
+    from tpu_hpc_torch.ckpt.integrity import leaf_checksums, verify_tree
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve.weights import flat_params, place_params
+
+    src = place_params(llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(1), cfg, dev), cfg, dev)
+    sums = leaf_checksums(flat_params(src))
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    placed = place_params(src, cfg, dev)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    bad = verify_tree(flat_params(placed), sums)
+    t2 = time.perf_counter()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in flat_params(placed).values())
+    del src, placed
+    return {"place_s": t1 - t0, "checksum_s": t2 - t1, "bytes": nbytes,
+            "verified": not bad}
+
+
 def main() -> int:
     import torch
 
@@ -4170,6 +4834,14 @@ def main() -> int:
     # -- 5c. speculative decoding and seeded sampling on the paged engine
     spec_launches = serve_spec_phase(torch, dev, cfg, serve_cfg, paged,
                                      launches)
+    _release(torch)
+    # -- 5d. the host tier, the fleet, restore into the serving layout
+    from pathlib import Path
+
+    tier_fleet_launches = serve_tier_fleet_phase(
+        torch, dev, cfg, str(Path(__file__).resolve().parent / RESTORE_DIR),
+        FLEET_LAYERS)
+    _release(torch)
 
     # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
     small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
@@ -4261,6 +4933,11 @@ def main() -> int:
                 k: spec_launches[k] for k in ("draft", "verify")}
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
+        # Their launches in serve_tier_fleet: the tiered run, after each
+        # refill, and by fleet replica.
+        if entry["name"] in tier_fleet_launches:
+            entry["serve_tier_fleet_launches"] = tier_fleet_launches[
+                entry["name"]]
         # The flash kernels' launches in train_sp (b), by --sp-mode, in
         # train_pp (a), by bench row, and in train_comm (a).
         if entry["name"] in FLASH_KERNEL_NAMES:

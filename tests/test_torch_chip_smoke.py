@@ -124,6 +124,25 @@ def test_phase_list_names_serve_spec_after_serve_int8():
     assert calls == sorted(calls)
 
 
+def test_phase_list_names_serve_tier_fleet_after_serve_spec():
+    """serve_tier_fleet follows serve_spec and comes before the serving
+    crosscheck, in the docstring and in main; its launches ride the
+    summary line. (Its gates run on CPU tensors in
+    tests/test_torch_{tier,fleet,serve_weights}.py.)"""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *serve_spec ", r"^ *serve_tier_fleet ", r"^ *6\. crosscheck ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "serve_spec_phase(", "serve_tier_fleet_phase(",
+        "# -- 6. cross-check", '"serve_tier_fleet_launches"')]
+    assert calls == sorted(calls)
+
+
 def test_last_line_contract_is_unchanged():
     """The last print of main is the fixed result line, after the
     kernels line and nvidia-smi's line; without a card main prints no

@@ -307,11 +307,18 @@ def test_resolve_device(monkeypatch):
 
 
 def test_later_slices_refuse_loudly(port_params):
+    from tpu_hpc_torch.loadgen import LoadHarness, build_scenario
+
+    # The host tier is served now (tests/test_torch_tier.py); anomaly
+    # capture is still a later slice and refuses.
+    tiered = PagedEngine(
+        port_params, TINY, ServeConfig(**SERVE), "cpu",
+        PagedConfig(host_blocks=4, **PAGED),
+    )
+    assert tiered.host_tier is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(
-            port_params, TINY, ServeConfig(**SERVE), "cpu",
-            PagedConfig(host_blocks=4, **PAGED),
-        )
+        LoadHarness(tiered, build_scenario("steady", n_requests=2),
+                    capture=object())
     with pytest.raises(ValueError, match="'gather' or 'cuda'"):
         PagedConfig(kernel="pallas", **PAGED)
     # Sampling rides speculative decoding (serve/spec.py): refused

@@ -54,8 +54,7 @@ from tpu_hpc_torch.loadgen.scenarios import Scenario
 
 ENV_FAULTS = "TPU_HPC_LOADGEN_FAULTS"
 
-# Faults only the multi-replica fleet harness (the JAX package's
-# serve/fleet.py, not ported yet) can
+# Faults only the multi-replica fleet harness (serve/fleet.py) can
 # inject: a single-engine LoadHarness has no replica to kill, slow
 # down, or hand a corrupt weight swap. LoadHarness hard-rejects them
 # (below) -- a fleet fault silently doing nothing on a single-engine
@@ -564,8 +563,7 @@ class LoadHarness:
             # unknown-key discipline, applied to misplaced keys).
             raise ValueError(
                 f"fleet fault(s) {armed} need the fleet harness "
-                "(the JAX package's serve/fleet.FleetHarness, not "
-                "ported yet); LoadHarness drives one "
+                "(serve/fleet.FleetHarness); LoadHarness drives one "
                 "engine and cannot inject them"
             )
         self.engine = _CostModelEngine(

@@ -30,9 +30,11 @@ The same schema-stamped JSONL discipline as the JAX package's
                MFU and the step-time breakdown of a run's JSONL.
   regress.py   ``python -m tpu_hpc_torch.obs.regress base.jsonl
                cand.jsonl``: the regression gate over report numbers.
+  slo.py       the two-window error-budget burn-rate monitor the
+               serving fleet feeds its rollup to.
 
-The rest of the JAX package's obs (SLO burn rates, the bench bank, the
-trace analyzer and anomaly capture) is not ported yet; ROADMAP lists it.
+The rest of the JAX package's obs (the bench bank, the trace analyzer
+and anomaly capture) is not ported yet; ROADMAP lists it.
 """
 from tpu_hpc_torch.obs.digest import (  # noqa: F401
     ENV_DIGEST_DIR,
@@ -64,6 +66,7 @@ from tpu_hpc_torch.obs.registry import (  # noqa: F401
     get_registry,
     set_registry,
 )
+from tpu_hpc_torch.obs.slo import BurnRateMonitor  # noqa: F401
 from tpu_hpc_torch.obs.schema import (  # noqa: F401
     SCHEMA_VERSION,
     SchemaError,
@@ -82,6 +85,7 @@ from tpu_hpc_torch.obs.trace import (  # noqa: F401
 )
 
 __all__ = [
+    "BurnRateMonitor",
     "DigestPublisher",
     "ENV_DIGEST_DIR",
     "ENV_EVENTS",

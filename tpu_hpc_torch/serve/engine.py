@@ -349,6 +349,50 @@ class Engine:
         engine IS the unit)."""
         return self.compile_count
 
+    # -- live weight swap ----------------------------------------------
+    def swap_params(self, params: Any) -> None:
+        """Replace the resident weights IN PLACE (live hot-swap,
+        serve/fleet.py). Programs read ``self.params`` at every call,
+        so a tree matching the resident layout (paths, shapes, dtypes,
+        device) swaps with ZERO rebuilds. Anything structurally
+        different is a hard error naming the first mismatch, in the
+        JAX package's words.
+
+        The caller owns the swap DISCIPLINE: cached K/V was computed
+        under the old weights, so a paged engine must be drained and
+        its pool reset (:meth:`PagedEngine.reset_pool`) before serving
+        resumes."""
+        from tpu_hpc_torch.ckpt.integrity import dtype_name
+        from tpu_hpc_torch.serve.weights import flat_params
+
+        def keystr(path):
+            return "".join(f"[{k!r}]" for k in path.split("/"))
+
+        old = list(flat_params(self.params).items())
+        new = list(flat_params(params).items())
+        if len(old) != len(new):
+            raise ValueError(
+                f"swap_params: tree has {len(new)} leaves, "
+                f"resident has {len(old)}"
+            )
+        for (op, ol), (np_, nl) in zip(old, new):
+            if op != np_ or ol.shape != nl.shape or ol.dtype != nl.dtype:
+                raise ValueError(
+                    "swap_params: leaf mismatch at "
+                    f"{keystr(np_)}: got "
+                    f"{tuple(nl.shape)}/{dtype_name(nl)} for "
+                    f"{keystr(op)} "
+                    f"{tuple(ol.shape)}/{dtype_name(ol)}"
+                )
+            if ol.device != nl.device:
+                raise ValueError(
+                    "swap_params: sharding mismatch at "
+                    f"{keystr(np_)} (place the tree through "
+                    "serve/weights.place_params onto this engine's "
+                    "device first)"
+                )
+        self.params = params
+
     # -- serving ops ----------------------------------------------------
     def _rep_arr(self, value) -> torch.Tensor:
         """Host int32 value -> device tensor (the JAX engine's

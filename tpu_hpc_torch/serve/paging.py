@@ -38,10 +38,11 @@ writes pages (and scales) into the engine's resident tensors by index
 assignment and returns only its result. Speculative decoding
 (serve/spec.py) attaches to a PagedEngine through ``attach_spec``: its
 verify, draft and sampled-prefill programs live in the same program
-table, under the same build counter. The host-DRAM page tier
-(``host_blocks``) is a later slice (ROADMAP) and raises
-``NotImplementedError``; the allocator keeps its host-tier accounting
-unchanged so the tier can land without touching it.
+table, under the same build counter. ``host_blocks > 0`` puts the
+host-DRAM page tier (serve/tier.py) behind the pool: admission spills
+parked trie pages there before it evicts any, and a returning prompt's
+spilled chain refills before it is seated; its gather and scatter live
+in the same program table too.
 """
 from __future__ import annotations
 
@@ -99,10 +100,10 @@ class PagedConfig:
     tokens (0 = whole-prompt bucketed prefill); must be block-aligned
     so every chunk starts on a page boundary. ``prefix_cache``: keep
     finished prompts' full pages in the prefix trie for reuse.
-    ``host_blocks``: host-DRAM page slots behind the HBM pool
-    (serve/tier.py; 0 = no tier -- the only value this port serves
-    yet). Like ``num_blocks`` it INCLUDES a reserved scratch slot 0, so
-    a non-zero tier needs >= 2 slots. ``kernel``: how attention reads
+    ``host_blocks``: host-DRAM page slots behind the device pool
+    (serve/tier.py; 0 = no tier). Like ``num_blocks`` it INCLUDES a
+    reserved scratch slot 0, so a non-zero tier needs >= 2 slots.
+    ``kernel``: how attention reads
     the pool -- ``"gather"`` (an index gather into a dense view, the
     reference) or ``"cuda"`` (the JAX package's ``"pallas"``:
     kernels/paged_attention.py, block table walked in-kernel on the
@@ -1017,11 +1018,6 @@ class PagedEngine(Engine):
                 f"cache_dtype={serve_cfg.cache_dtype!r} (the scale "
                 "side arrays are always f32)"
             )
-        if paged.host_blocks:
-            raise NotImplementedError(
-                "host_blocks > 0: the host-DRAM KV page tier "
-                "(serve/tier.py) is not ported yet (ROADMAP)"
-            )
         per_seq = serve_cfg.max_seq_len // bs
         self.paged = paged
         self.kv_kernel = paged.kernel
@@ -1038,10 +1034,22 @@ class PagedEngine(Engine):
         # dispatches to; None means plain greedy single-token decode.
         self.spec = None
         self._spec_builders: Dict[str, Any] = {}
-        self.allocator = BlockAllocator(paged.num_blocks)
+        self._tier_builders: Dict[str, Any] = {}
+        self.allocator = BlockAllocator(
+            paged.num_blocks, host_blocks=paged.host_blocks
+        )
         self.trie: Optional[PrefixTrie] = (
             PrefixTrie(bs) if paged.prefix_cache else None
         )
+        # Host-DRAM page tier (serve/tier.py): parked pages spill to
+        # host buffers under pool pressure and prefetch back on a
+        # returning prompt. None = no tier (host_blocks == 0). The
+        # tier builds its gather/scatter through THIS program table.
+        self.host_tier = None
+        if paged.host_blocks:
+            from tpu_hpc_torch.serve.tier import HostTier
+
+            self.host_tier = HostTier(self)
         self._tables = np.full(
             (serve_cfg.slots, self.table_width), SCRATCH_BLOCK,
             np.int32,
@@ -1115,6 +1123,10 @@ class PagedEngine(Engine):
         # cover them too.
         if key[0] in self._spec_builders:
             return self._spec_builders[key[0]](self, key)
+        # Host-tier programs (serve/tier.py spill gather / refill
+        # scatter): same table, same counter.
+        if key[0] in self._tier_builders:
+            return self._tier_builders[key[0]](key)
         if key[0] == "prefill":
             return make_chunk_prefill_fn(
                 self.cfg, key[1], self.paged.block_size,
@@ -1151,6 +1163,8 @@ class PagedEngine(Engine):
                 self._get_exec(("prefill", b))
             self._get_exec(("decode",))
             self._get_exec(("copy_block",))
+        if self.host_tier is not None:
+            self.host_tier.warmup()
         if self.paged.kernel == "cuda" and self.device.type == "cuda":
             from tpu_hpc_torch.kernels import _build
 
@@ -1285,6 +1299,12 @@ class PagedEngine(Engine):
         self.allocator.retain(shared)
         fresh_needed = need - len(shared)
         short = fresh_needed - self.allocator.free_blocks
+        if short > 0 and self.host_tier is not None:
+            # Spill beats evict: a parked page moved to host DRAM is a
+            # cheap hop on return, an evicted page is a full
+            # re-prefill. Only pages the tier could not place fall
+            # through to the trie eviction below.
+            short -= self.host_tier.spill_parked(short)
         if short > 0 and self.trie is not None:
             self.paged_stats["trie_evictions"] += self.trie.evict(
                 self.allocator, short
@@ -1334,6 +1354,44 @@ class PagedEngine(Engine):
             "chunks": len(plan),
             "planned_prefill_tokens": sum(b for _, _, b in plan),
         }
+
+    def prefetch_prompt(self, prompt: Sequence[int]) -> int:
+        """Refill host-spilled prefix pages for ``prompt`` back into
+        the device pool *before* the request is seated, so the
+        host->device hop hides behind queueing instead of stretching
+        TTFT. No-op (0) without a host tier. Returns pages refilled."""
+        if self.host_tier is None:
+            return 0
+        return self.host_tier.prefetch(prompt)
+
+    def admission_headroom(self, prompt: Sequence[int], max_new: int) -> bool:
+        """Cheap pre-check: could ``admit()`` plausibly succeed for
+        this request right now? Counts free pages, trie-matched pages,
+        and parked pages reclaimable by spill or eviction. Heuristic
+        only -- ``admit()``'s ``BlockBudgetError`` stays the authority
+        -- but it lets the scheduler skip the prefetch hop for a
+        request that is about to block-stall anyway."""
+        need = self.paged.blocks_for(len(prompt) + max_new)
+        matched = 0
+        reclaimable = 0
+        if self.trie is not None:
+            matched = len(self.trie.match(list(int(t) for t in prompt)))
+            # Parked exclusive pages: spillable or evictable on demand.
+            reclaimable = sum(
+                1
+                for b, c in self.allocator._ref.items()
+                if c == 1 and b != SCRATCH_BLOCK
+            ) - self._held_by_live_slots()
+        avail = self.allocator.free_blocks + matched + max(0, reclaimable)
+        return avail >= need
+
+    def _held_by_live_slots(self) -> int:
+        """Pages referenced by seated requests (refcount floor: these
+        can never be spilled or evicted)."""
+        live = set()
+        for st in self._slot_state.values():
+            live.update(st.blocks)
+        return len(live)
 
     @torch.no_grad()
     def prefill_step(self, slot: int) -> Optional[int]:
@@ -1465,9 +1523,14 @@ class PagedEngine(Engine):
                 "draft pool would desync"
             )
         self._slot_state = {}
-        self.allocator = BlockAllocator(self.paged.num_blocks)
+        self.allocator = BlockAllocator(
+            self.paged.num_blocks, host_blocks=self.paged.host_blocks
+        )
         if self.trie is not None:
             self.trie = PrefixTrie(self.paged.block_size)
+        if self.host_tier is not None:
+            # Host pages also encode old-weight K/V: flush them too.
+            self.host_tier.reset()
         self._tables[:] = SCRATCH_BLOCK
         self._tables_dev = None
         self._set_block_gauges()
@@ -1514,4 +1577,8 @@ class PagedEngine(Engine):
             "prefill_chunks": s["prefill_chunks"],
             "cow_copies": s["cow_copies"],
             "trie_evictions": s["trie_evictions"],
+            **(
+                self.host_tier.summary()
+                if self.host_tier is not None else {}
+            ),
         }

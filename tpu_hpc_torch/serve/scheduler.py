@@ -1,10 +1,11 @@
 """Continuous batching: admit/evict requests at decode-step granularity.
 
 Copied from the JAX package's ``serve/scheduler.py`` (it is framework
-free), with its speculative-decoding tick, the seeded-sampling rule and
-the per-request n-gram index (serve/spec.py). The host-tier prefetch
-and the disaggregated engine's transfer stats are left out with the
-modules they drive (ROADMAP).
+free), with its speculative-decoding tick, the seeded-sampling rule,
+the per-request n-gram index (serve/spec.py) and the host-tier
+prefetch-before-seat (serve/tier.py). The disaggregated engine's
+transfer stats are left out with the module they drive
+(ROADMAP: "The rest of serving and obs").
 
 The engine's decode program has a FIXED batch width (``slots``) -- the
 discipline that keeps it one built shape. The scheduler makes
@@ -530,6 +531,20 @@ class ContinuousBatcher:
             sampling = (
                 self._seeds[req.rid], req.temperature, req.top_p,
             )
+        # Host-tier prefetch-before-seat: refill this prompt's spilled
+        # prefix pages WHILE the request is still queued, so the
+        # host->device hop hides behind queueing instead of stretching
+        # TTFT. Gated on a cheap headroom pre-check -- a request that
+        # is about to block-stall anyway must not burn the hop (it
+        # would re-pay it on every stalled tick).
+        if getattr(self.engine, "host_tier", None) is not None:
+            if not self.engine.admission_headroom(
+                req.prompt, req.max_new_tokens
+            ):
+                self._block_stall(req, tid, "kv_pool_exhausted")
+                return False
+            with activate(tid):
+                self.engine.prefetch_prompt(req.prompt)
         t0 = self._clock()
         try:
             # The request's trace is ambient, so page allocations and
@@ -788,6 +803,12 @@ class ContinuousBatcher:
         paged = getattr(self.engine, "paged_stats", None)
         if paged:
             self.stats.update(paged)
+        # Host-tier engines count page spills/refills and the wire
+        # bytes they moved; fold them in so the serve summary carries
+        # the tier's load.
+        tier = getattr(self.engine, "host_tier", None)
+        if tier is not None:
+            self.stats.update(tier.stats)
         # Speculative engines count drafts/accepts per verify step;
         # fold the counts (deterministic -- draft wall time stays out
         # of the batcher stats so virtual-clock replays stay
