@@ -73,7 +73,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     new tokens each. The paged kernels' launch counts are
                     set to 0 just before and read just after.
      serve_int8  -- the same replay over an int8 pool (kv_quant="int8"):
-                    its prefill launches take the wgmma_int8 route.
+                    its prefill launches take the wgmma_int8 route; the
+                    line carries int8_logit_rmse at the 7B's attention
+                    dims and page size (logit_rmse, as bench.py pins it).
      serve_spec  -- speculative decoding and seeded sampling on the paged
                     engine, kernel="cuda": (a) at 7B width, 2 layers,
                     float32, the greedy streams of ngram spec (k 4) and
@@ -312,6 +314,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     last live one are NaN) give the non-finite rows of
                     their plain versions. Then the update time with the
                     guard off and on skip, in turns.
+ 12. obs_capture -- observability on the card. (a) Llama-2-7B at full
+                    width and depth (bf16, 8 slots, 16-token pages, the
+                    cuda kernels) serves the colocate scenario (24
+                    requests) through run_loadgen with the server's
+                    capture (--capture-dir: AnomalyCapture(dir,
+                    n_steps=8)): exactly one capture_triggered record,
+                    reason stall, keyed to a stall record's trace id; the
+                    flight dump; the torch.profiler window closed by
+                    itself, its Chrome trace holding as many
+                    paged_decode_split_kernel (and, when the decode
+                    splits, paged_decode_combine_kernel) device events as
+                    the decode wrapper launched in it; the device_memory
+                    record's hbm_peak_bytes equal to max_memory_allocated
+                    at the trigger and under the card's total; python -m
+                    tpu_hpc_torch.obs.trace --json --chrome over the run
+                    log: every request complete or shed, 0 orphan spans,
+                    >= 95% of TTFT attributed at p50/p95/p99, the Chrome
+                    file loads. Controls it must reject: steady triggers
+                    no capture; a window over kernel="gather" (2 layers)
+                    holds no paged-kernel event. (b) The bench Llama
+                    through Trainer.fit, microbatch 4 x accum 8, one
+                    update an epoch: profile=True over updates 2-3 of 5
+                    (each flash kernel's device events equal its
+                    wrapper's launches in the window; no profiler left
+                    open), then capture_on_anomaly under the straggler
+                    fault straggler_ms=400 at step 7 (9 updates): one
+                    capture keyed to the first stall, a flight dump, the
+                    analyzer's step timelines with 0 orphan spans. The
+                    update time with the profiler on and off, and each
+                    window's stop + export seconds, are readings.
 
 The flash phase also holds the ViT's attention: B 8, S 512 (and a
 ragged S 500), 8 heads of head_dim 32, no causal mask, with the
@@ -321,7 +353,8 @@ controls are read there, not gated), the S 512 case timed beside SDPA.
 Then the per-kernel summary line (the flash rows with their launches in
 train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
 model, in train_comm (a), in
-train_vision (b) and in train_long, and the ViT case's times), nvidia-smi's
+train_vision (b) and in train_long, and the ViT case's times; every row
+with its launches in obs_capture), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
@@ -332,6 +365,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3662,9 +3696,16 @@ def serve_phase(torch, dev, phase, cfg, serve_cfg, paged) -> dict:
         "paged_decode_attention": pa.paged_decode_attention.launches,
         "paged_prefill_attention": pa.paged_prefill_attention.launches,
     }
+    extra = {}
+    if paged.kv_quant == "int8":
+        # The int8 pool's score error at this model's attention dims
+        # and page size, as bench.py pins it onto its int8 rows.
+        extra["logit_rmse"] = round(pa.int8_logit_rmse(
+            head_dim=cfg.head_dim, kv_heads=cfg.kv_heads,
+            n_heads=cfg.n_heads, block_size=paged.block_size), 6)
     emit(phase, model="7b", n_layers=cfg.n_layers, dim=cfg.dim,
          dtype=str(cfg.dtype)[6:], kv_quant=paged.kv_quant,
-         prefill_route=route, launches=launches,
+         prefill_route=route, launches=launches, **extra,
          **{k: summary[k] for k in (
              "requests", "tokens", "wall_s", "tokens_per_s",
              "ttft_ms_p50", "ttft_ms_p95", "ttft_ms_p99", "itl_ms_p50",
@@ -3739,6 +3780,20 @@ def _spec_engine(torch, dev, params, cfg, serve_cfg, paged, mode,
     return eng, eng.warmup()
 
 
+def serve_shape() -> tuple:
+    """The serving phases' shape: Llama-2-7B, 8 slots of 1024 tokens,
+    prefill buckets 256 and 512, a pool of 16-token pages read by the
+    cuda kernels; (model config, ServeConfig, PagedConfig)."""
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import PagedConfig, ServeConfig
+
+    serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
+                            prefill_buckets=(256, 512))
+    paged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
+                        kernel="cuda")
+    return llama2.PRESETS["7b"], serve_cfg, paged
+
+
 def _launch_counts():
     from tpu_hpc_torch.kernels import paged_attention as pa
 
@@ -3751,6 +3806,8 @@ def _zero_launches() -> None:
 
     pa.paged_decode_attention.launches = 0
     pa.paged_prefill_attention.launches = 0
+    pa.paged_prefill_attention.route_launches = dict.fromkeys(
+        pa.PREFILL_ROUTES, 0)
 
 
 def _drained(eng) -> bool:
@@ -4662,7 +4719,7 @@ def serve_tier_fleet_phase(torch, dev, cfg, workdir, fleet_layers) -> dict:
     part's seconds and peak memory. Returns the paged kernels' launches
     (the tiered run's, after each refill, and by fleet replica)."""
     from tpu_hpc_torch.models import llama2
-    from tpu_hpc_torch.serve import PagedConfig, ServeConfig
+    from tpu_hpc_torch.serve import ServeConfig
     from tpu_hpc_torch.serve.weights import place_params
 
     t_phase = time.perf_counter()
@@ -4694,10 +4751,7 @@ def serve_tier_fleet_phase(torch, dev, cfg, workdir, fleet_layers) -> dict:
     _peak_reset(torch, dev)
     t = time.perf_counter()
     fcfg = dataclasses.replace(cfg, n_layers=fleet_layers)
-    serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
-                            prefill_buckets=(256, 512))
-    fpaged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
-                         kernel="cuda")
+    _, serve_cfg, fpaged = serve_shape()
     fruns = fleet_runs(torch, dev, fcfg, serve_cfg, fpaged)
     one = one_engine(torch, dev, fcfg, serve_cfg, fpaged)
     emit("serve_tier_fleet", check="b_fleet", model="7b",
@@ -4780,6 +4834,496 @@ def swap_timing(torch, dev, cfg) -> dict:
             "verified": not bad}
 
 
+# ---------------------------------------------------------------------
+# Phase 12: observability -- anomaly capture, torch.profiler windows and
+# the trace analyzer on the card
+# ---------------------------------------------------------------------
+
+OBS_DIR = "build/chip_smoke_obs"
+OBS_REQUESTS, OBS_MAX_NEW = 24, 32
+# The capture's window on the serving run: the server's own
+# (serve/server.py's run_loadgen builds AnomalyCapture(dir, n_steps=8)).
+OBS_CAPTURE_TICKS = 8
+OBS_CONTROL_LAYERS = 2
+# The bench-Llama profile window and its updates (bench update numbers).
+OBS_PROFILE_START, OBS_PROFILE_STEPS, OBS_PROFILE_UPDATES = 2, 2, 5
+# The JAX test's straggler fault (tests/test_trace.py), at the bench
+# Llama: 400 ms on top of an update of about 0.38 s makes that update
+# about 2x the median, under StallDetector's default watermark of 3x
+# the median (which the JAX test's millisecond steps clear 100-fold),
+# so the capture run watches at OBS_STALL_FACTOR; updates run within a
+# few percent of each other.
+OBS_FAULTS = "straggler_ms=400,straggler_at_step=7,on_attempt=-1"
+OBS_STALL_FACTOR = 1.5
+OBS_CAPTURE_UPDATES = 9
+PAGED_DEVICE_KERNELS = ("paged_decode_split_kernel",
+                        "paged_decode_combine_kernel",
+                        "paged_prefill_wgmma_kernel",
+                        "paged_prefill_int8_kernel", "paged_prefill_kernel")
+FLASH_DEVICE_KERNELS = {"flash_attention_fwd": "flash_fwd_wgmma_kernel",
+                        "flash_attention_dq": "flash_dq_wgmma_kernel",
+                        "flash_attention_dkv": "flash_dkv_wgmma_kernel"}
+
+
+def _all_launches():
+    from tpu_hpc_torch.kernels import attention as fa
+
+    return {**_launch_counts(), **fa.kernel_launches()}
+
+
+@contextlib.contextmanager
+def recorded_windows(torch, dev):
+    """Every profiler window opened in the block, with the kernel
+    wrappers' launch counts when it opened and when it closed, its
+    trace file, its start seconds (the process's first start pays for
+    the CUDA profiling library's set-up) and its stop + export seconds;
+    and every capture
+    trigger, with ``torch.cuda.max_memory_allocated`` read just before
+    it. The counts are the wrappers' own (host side, one per launch);
+    the window synchronizes the card at both ends, so the kernels it
+    records are the ones launched between the two readings."""
+    from tpu_hpc_torch.obs import trace as trace_mod
+    from tpu_hpc_torch.profiling import profiler as prof_mod
+
+    windows, triggers = [], []
+    start, stop = prof_mod.TrainingProfiler._start, \
+        prof_mod.TrainingProfiler.stop
+    trigger = trace_mod.AnomalyCapture.trigger
+
+    def _start(self, step):
+        t0 = time.perf_counter()
+        start(self, step)
+        windows.append({"opened_at": int(step), "open": _all_launches(),
+                        "start_s": time.perf_counter() - t0,
+                        "log_dir": self.log_dir})
+
+    def _stop(self):
+        if not self.active:
+            return stop(self)
+        closing = _all_launches()
+        t0 = time.perf_counter()
+        try:
+            return stop(self)
+        finally:
+            windows[-1].update(close=closing,
+                               stop_export_s=time.perf_counter() - t0,
+                               trace_path=self.trace_path)
+
+    def _trigger(self, reason, *args, **kw):
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        rec = trigger(self, reason, *args, **kw)
+        if rec is not None:
+            triggers.append({"reason": reason, "max_memory_allocated": peak,
+                             "seconds": time.perf_counter() - t0,
+                             "record": rec})
+        return rec
+
+    prof_mod.TrainingProfiler._start = _start
+    prof_mod.TrainingProfiler.stop = _stop
+    trace_mod.AnomalyCapture.trigger = _trigger
+    try:
+        yield windows, triggers
+    finally:
+        prof_mod.TrainingProfiler._start = start
+        prof_mod.TrainingProfiler.stop = stop
+        trace_mod.AnomalyCapture.trigger = trigger
+
+
+def device_kernel_counts(path, names) -> dict:
+    """Kernel events in a Chrome trace, by which of ``names`` they
+    contain, and how many kernel events it holds in all."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {n: sum(1 for k in kernels if n in k) for n in names}
+    counts["all_kernels"] = len(kernels)
+    return counts
+
+
+def window_reading(win, device_names) -> dict:
+    """A closed window: the wrappers' launches inside it and the
+    trace's device events by kernel."""
+    launched = {k: win["close"][k] - win["open"][k] for k in win["open"]}
+    return {"opened_at": win["opened_at"], "start_s": win["start_s"],
+            "stop_export_s": win["stop_export_s"],
+            "trace_mb": os.path.getsize(win["trace_path"]) / 2**20,
+            "launched": launched,
+            "device_events": device_kernel_counts(win["trace_path"],
+                                                  device_names)}
+
+
+@contextlib.contextmanager
+def fresh_obs(run_id: str):
+    """A fresh event bus (no flight dir: a capture's dump lands in its
+    own dir) and registry for the block."""
+    from tpu_hpc_torch import obs
+
+    prev_bus = obs.set_bus(obs.EventBus(path=None, run_id=run_id,
+                                        flight_dir=""))
+    prev_reg = obs.set_registry(obs.MetricsRegistry())
+    try:
+        yield
+    finally:
+        obs.set_bus(prev_bus)
+        obs.set_registry(prev_reg)
+
+
+def analyzer_json(root, run_log, flight_dir, chrome) -> dict:
+    """``python -m tpu_hpc_torch.obs.trace --json --chrome`` over a run
+    log and a flight dir, as a user runs it."""
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_hpc_torch.obs.trace", str(run_log),
+         "--flight-dir", str(flight_dir), "--json", "--chrome",
+         str(chrome)],
+        capture_output=True, text=True, timeout=300, cwd=str(root),
+        check=True)
+    rep = json.loads(out.stdout)
+    with open(chrome) as f:
+        rep["_chrome_events"] = len(json.load(f)["traceEvents"])
+    return rep
+
+
+def complete_trace_failures(records, rep, n_requests) -> list:
+    """tests/test_trace.py's acceptance bundle on a run log and its
+    analysis: every request complete or shed (colocate sheds its
+    background class while the stall lasts, by design), every
+    lifecycle event trace-tagged, 0 orphan spans, >= 95% of TTFT
+    attributed."""
+    failures = []
+    life = [r for r in records if r["event"] in (
+        "trace_ctx", "lg_arrival", "lg_admit", "lg_first_token",
+        "lg_finish", "lg_shed", "request")
+        or (r["event"] == "admission" and "rid" in r)]
+    if not life or any("trace_id" not in r for r in life):
+        failures.append("lifecycle events without trace ids")
+    if rep["orphan_spans"]:
+        failures.append(f"{rep['orphan_spans']} orphan spans")
+    req = rep["requests"] or {}
+    if req.get("count") != n_requests \
+            or req.get("complete", 0) + req.get("shed", 0) != n_requests:
+        failures.append(f"requests {req.get('count')} counted, "
+                        f"{req.get('complete')} complete and "
+                        f"{req.get('shed')} shed of {n_requests}")
+    for q in ("p50", "p95", "p99"):
+        cp = (req.get("ttft_critical_path") or {}).get(q)
+        if cp is None or cp["attributed"] < 0.95:
+            failures.append(f"TTFT {q} attributed {cp and cp['attributed']}")
+    return failures
+
+
+def obs_serve_run(torch, dev, cfg, serve_cfg, paged, scenario, workdir):
+    """run_loadgen with --capture-dir's capture; its summary, run log
+    records, recorded windows and triggers, and the wrappers' launches
+    over the run (set to 0 just before), the prefill's by route too."""
+    import shutil
+
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.obs.schema import load_records
+    from tpu_hpc_torch.serve.server import run_loadgen
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    run_log = os.path.join(workdir, "run.jsonl")
+    cap_dir = os.path.join(workdir, "anomaly")
+    _zero_launches()
+    _peak_reset(torch, dev)
+    with fresh_obs("chip-smoke-obs"), recorded_windows(torch, dev) as (
+            windows, triggers):
+        t0 = time.perf_counter()
+        summary = run_loadgen(cfg, serve_cfg, scenario, OBS_REQUESTS,
+                              OBS_MAX_NEW, metrics_path=run_log, seed=0,
+                              paged=paged, device=dev, capture_dir=cap_dir)
+        seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    routes = dict(pa.paged_prefill_attention.route_launches)
+    _release(torch)
+    return {"summary": summary, "records": load_records(run_log),
+            "run_log": run_log, "cap_dir": cap_dir, "windows": windows,
+            "triggers": triggers, "launches": launches,
+            "prefill_routes": routes, "seconds": seconds}
+
+
+def obs_serve_part(torch, dev, cfg, serve_cfg, paged, root) -> tuple:
+    """(a): the 7B colocate run with its capture, the analyzer over its
+    log, and the two controls. Returns (readings, failures, launches)."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.profiling import profiler_busy
+
+    failures = []
+    work = os.path.join(root, OBS_DIR)
+    run = obs_serve_run(torch, dev, cfg, serve_cfg, paged, "colocate",
+                        os.path.join(work, "serve"))
+    recs = run["records"]
+    caps = [r for r in recs if r["event"] == "capture_triggered"]
+    stall_ids = [r["trace_id"] for r in recs if r["event"] == "stall"]
+    mem = [r for r in recs if r["event"] == "device_memory"]
+    if len(caps) != 1 or run["summary"].get("captures") != 1:
+        failures.append(f"(a) {len(caps)} capture records, summary "
+                        f"captures {run['summary'].get('captures')}")
+    cap = caps[0] if caps else {}
+    if cap.get("reason") != "stall" or cap.get("trace_id") not in stall_ids:
+        failures.append(f"(a) capture {cap.get('reason')} keyed "
+                        f"{cap.get('trace_id')}, not a stall's id")
+    if not cap.get("flight_path") or not os.path.exists(cap["flight_path"]):
+        failures.append("(a) no flight dump")
+    if not cap.get("profile_dir") or cap.get("n_steps") != OBS_CAPTURE_TICKS:
+        failures.append(f"(a) no profiler window: {cap}")
+    if len(run["windows"]) != 1 or "trace_path" not in run["windows"][0] \
+            or profiler_busy():
+        failures.append("(a) the capture window did not close by itself")
+    window = (window_reading(run["windows"][0], PAGED_DEVICE_KERNELS)
+              if run["windows"] and "trace_path" in run["windows"][0]
+              else None)
+    n_split = pa.paged_decode_splits(
+        serve_cfg.slots, cfg.kv_heads, cfg.n_heads // cfg.kv_heads,
+        serve_cfg.max_seq_len // paged.block_size)
+    if window is not None:
+        n = window["launched"]["paged_decode_attention"]
+        ev = window["device_events"]
+        want = {"paged_decode_split_kernel": n,
+                "paged_decode_combine_kernel": n if n_split > 1 else 0}
+        if n < 1 or any(ev[k] != v for k, v in want.items()):
+            failures.append(f"(a) decode kernels in the window {ev}, "
+                            f"the wrapper launched {n} (n_split {n_split})")
+    # Every prefill launch of the bf16 pool takes the bf16 wgmma kernel,
+    # counted by route where the wrapper launches it.
+    routes = run["prefill_routes"]
+    if sum(routes.values()) != run["launches"]["paged_prefill_attention"] \
+            or routes["wgmma"] != run["launches"]["paged_prefill_attention"] \
+            or routes["wgmma"] < 1:
+        failures.append(f"(a) prefill launches by route {routes}, the "
+                        f"wrapper's {run['launches']}")
+    peak = run["triggers"][0]["max_memory_allocated"] \
+        if run["triggers"] else None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if len(mem) != 1 or mem[0]["hbm_peak_bytes"] != peak \
+            or not 0 < mem[0]["hbm_peak_bytes"] < total:
+        failures.append(f"(a) device_memory {mem}, max_memory_allocated at "
+                        f"the trigger {peak}, card {total}")
+    rep = analyzer_json(root, run["run_log"], run["cap_dir"],
+                        os.path.join(work, "serve", "chrome.json"))
+    failures += ["(a) analyzer: " + f for f in complete_trace_failures(
+        recs, rep, OBS_REQUESTS)]
+    if [c["reason"] for c in rep["captures"]] != ["stall"] \
+            or not rep["_chrome_events"]:
+        failures.append(f"(a) analyzer captures {rep['captures']}, chrome "
+                        f"events {rep['_chrome_events']}")
+    readings = {
+        "model": "7b", "n_layers": cfg.n_layers, "scenario": "colocate",
+        "requests": OBS_REQUESTS, "seconds": run["seconds"],
+        "launches": run["launches"], "prefill_routes": routes,
+        "summary": {k: run["summary"].get(k) for k in (
+            "tokens", "shed", "captures", "stall_events", "recompiles",
+            "ttft_ms_p50", "ttft_ms_p99", "wall_clock_s",
+            "wall_clock_tokens_per_s", "peak_memory_bytes")},
+        "capture": {k: cap.get(k) for k in ("reason", "trace_id", "step",
+                                            "n_steps")},
+        "trigger_s": run["triggers"][0]["seconds"] if run["triggers"]
+        else None,
+        "window": window, "decode_n_split": n_split,
+        "device_memory": {k: mem[0][k] for k in (
+            "hbm_peak_bytes", "hbm_in_use_bytes", "hbm_limit_bytes")}
+        if mem else None,
+        "max_memory_allocated_at_trigger": peak,
+        "analyzer": {k: rep[k] for k in ("orphan_spans", "n_records")} | {
+            "complete": rep["requests"]["complete"],
+            "shed": rep["requests"]["shed"],
+            "attributed": {q: cp["attributed"] for q, cp in
+                           rep["requests"]["ttft_critical_path"].items()},
+            "dominant": {q: cp["dominant"] for q, cp in
+                         rep["requests"]["ttft_critical_path"].items()},
+            "chrome_events": rep["_chrome_events"]},
+    }
+    # Controls, each of which the gates above must reject.
+    small = dataclasses.replace(cfg, n_layers=OBS_CONTROL_LAYERS)
+    steady = obs_serve_run(torch, dev, small, serve_cfg, paged, "steady",
+                           os.path.join(work, "steady"))
+    steady_caps = [r for r in steady["records"]
+                   if r["event"] == "capture_triggered"]
+    gather = obs_serve_run(torch, dev, small, serve_cfg,
+                           dataclasses.replace(paged, kernel="gather"),
+                           "colocate", os.path.join(work, "gather"))
+    gather_win = (window_reading(gather["windows"][0], PAGED_DEVICE_KERNELS)
+                  if gather["windows"] and "trace_path" in gather["windows"][0]
+                  else None)
+    paged_events = (sum(gather_win["device_events"][k]
+                        for k in PAGED_DEVICE_KERNELS)
+                    if gather_win else None)
+    controls = {
+        "steady_captures": len(steady_caps),
+        "steady_rejected": not steady_caps
+        and steady["summary"].get("captures") == 0,
+        "gather_window": gather_win,
+        "gather_rejected": gather_win is not None and paged_events == 0
+        and gather_win["device_events"]["all_kernels"] > 0
+        and gather["launches"]["paged_decode_attention"] == 0,
+    }
+    readings["controls"] = controls
+    if not (controls["steady_rejected"] and controls["gather_rejected"]):
+        failures.append(f"(a) a control was not rejected: {controls}")
+    launches = {**run["launches"], INT8_PREFILL: routes["wgmma_int8"]}
+    return readings, failures, launches
+
+
+def obs_train_run(torch, dev, updates, *, profile=False, capture=False,
+                  workdir):
+    """The bench Llama through ``Trainer.fit`` (one update an epoch,
+    microbatch 4 x accum 8) with ``profile`` or ``capture_on_anomaly``
+    set; its records, windows, triggers and the flash launches over
+    the run (set to 0 just before)."""
+    import shutil
+
+    from tpu_hpc_torch import obs
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.obs.schema import load_records
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    run_log = os.path.join(workdir, "run.jsonl")
+    trainer, ds = build_trainer(
+        bench_model_cfg(), steps=1, epochs=updates, batch=TRAIN_BATCH,
+        grad_accum_steps=TRAIN_ACCUM, device=dev, metrics_path=run_log,
+        train_overrides=dict(
+            profile=profile, profile_dir=workdir,
+            profile_start_step=OBS_PROFILE_START,
+            profile_num_steps=OBS_PROFILE_STEPS,
+            capture_on_anomaly=capture))
+    if capture:
+        trainer.stall = obs.StallDetector(factor=OBS_STALL_FACTOR)
+    zero_flash_launches()
+    with fresh_obs(f"chip-smoke-train-{'capture' if capture else 'prof'}"), \
+            recorded_windows(torch, dev) as (windows, triggers):
+        trainer.fit(ds)
+    launches = fa.kernel_launches()
+    records = load_records(run_log)
+    capture_obj = trainer.capture
+    del trainer
+    _release(torch)
+    return {"records": records, "windows": windows, "triggers": triggers,
+            "launches": launches, "capture": capture_obj}
+
+
+def update_seconds(records) -> dict:
+    """Each update's seconds from the run log's epoch records, by the
+    step it ended at."""
+    return {r["step"]: r["s_per_step"] for r in records
+            if r["event"] == "epoch"}
+
+
+def obs_train_part(torch, dev, root) -> tuple:
+    """(b): the profiled bench-Llama updates and the straggler capture.
+    Returns (readings, failures, launches)."""
+    from tpu_hpc_torch.obs import trace as trace_mod
+    from tpu_hpc_torch.profiling import profiler_busy
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    failures = []
+    work = os.path.join(root, OBS_DIR)
+    prof = obs_train_run(torch, dev, OBS_PROFILE_UPDATES, profile=True,
+                         workdir=os.path.join(work, "profile"))
+    window = (window_reading(prof["windows"][0],
+                             tuple(FLASH_DEVICE_KERNELS.values()))
+              if len(prof["windows"]) == 1
+              and "trace_path" in prof["windows"][0] else None)
+    expected = OBS_PROFILE_STEPS * TRAIN_ACCUM * bench_model_cfg().n_layers
+    if window is None or profiler_busy():
+        failures.append(f"(b) profile windows {prof['windows']}, "
+                        f"busy {profiler_busy()}")
+    else:
+        for wrapper, kernel in FLASH_DEVICE_KERNELS.items():
+            n = window["launched"][wrapper]
+            if n != window["device_events"][kernel] or n < 1:
+                failures.append(
+                    f"(b) {kernel}: {window['device_events'][kernel]} "
+                    f"device events, the wrapper launched {n}")
+    secs = update_seconds(prof["records"])
+    inside = [secs[s + 1] for s in range(
+        OBS_PROFILE_START, OBS_PROFILE_START + OBS_PROFILE_STEPS)]
+    outside = [secs[s] for s in secs
+               if s > 1 and s - 1 not in range(
+                   OBS_PROFILE_START, OBS_PROFILE_START + OBS_PROFILE_STEPS)]
+    readings = {
+        "model": "bench", "updates": OBS_PROFILE_UPDATES,
+        "window_steps": [OBS_PROFILE_START,
+                         OBS_PROFILE_START + OBS_PROFILE_STEPS],
+        "expected_launches_per_kernel": expected,
+        "window": window, "launches": prof["launches"],
+        "update_s": secs,
+        "update_s_profiled": inside, "update_s_unprofiled": outside,
+    }
+    # The straggler capture.
+    with armed(OBS_FAULTS):
+        cap = obs_train_run(torch, dev, OBS_CAPTURE_UPDATES, capture=True,
+                            workdir=os.path.join(work, "capture"))
+    recs = cap["records"]
+    stalls = [r for r in recs if r["event"] == "stall"]
+    caps = [r for r in recs if r["event"] == "capture_triggered"]
+    rep = trace_mod.analyze(recs)
+    cap_rec = caps[0] if caps else {}
+    if len(caps) != 1 or not stalls \
+            or cap_rec.get("trace_id") != stalls[0].get("trace_id"):
+        failures.append(f"(b) {len(caps)} captures keyed "
+                        f"{cap_rec.get('trace_id')}, stalls "
+                        f"{[s.get('trace_id') for s in stalls]}")
+    if not cap_rec.get("flight_path") \
+            or not os.path.exists(cap_rec["flight_path"]):
+        failures.append("(b) no flight dump")
+    if rep["orphan_spans"] or (rep["steps"] or {}).get("count", 0) \
+            < OBS_CAPTURE_UPDATES:
+        failures.append(f"(b) step timelines: {rep['orphan_spans']} orphan "
+                        f"spans, {(rep['steps'] or {}).get('count')} steps")
+    if cap["capture"] is None or cap["capture"]._prof is not None \
+            or profiler_busy():
+        failures.append("(b) the capture window was left open")
+    cap_window = (window_reading(cap["windows"][0],
+                                 tuple(FLASH_DEVICE_KERNELS.values()))
+                  if cap["windows"] and "trace_path" in cap["windows"][0]
+                  else None)
+    readings["capture"] = {
+        "faults": OBS_FAULTS, "stall_factor": OBS_STALL_FACTOR,
+        "updates": OBS_CAPTURE_UPDATES, "stalls": len(stalls),
+        "first_stall": stalls[0]["trace_id"] if stalls else None,
+        "record": {k: cap_rec.get(k) for k in (
+            "reason", "trace_id", "step", "n_steps")},
+        "trigger_s": cap["triggers"][0]["seconds"] if cap["triggers"]
+        else None,
+        "window": cap_window, "launches": cap["launches"],
+        "update_s": update_seconds(recs),
+        "steps": {k: rep["steps"][k] for k in ("count", "stalls")},
+        "critical_path_p99": rep["steps"]["critical_path"]["p99"],
+    }
+    launches = {k: {"profile": prof["launches"][k],
+                    "profile_window": window["launched"][k]
+                    if window else None,
+                    "capture": cap["launches"][k]}
+                for k in FLASH_DEVICE_KERNELS}
+    return readings, failures, launches
+
+
+def obs_capture_phase(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """Phase 12 (``obs_capture``): (a) then (b); every gate's failures
+    gathered, the phase line printed, then the phase fails if any gate
+    did. Returns the phase's launches by kernel wrapper."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    serve, serve_failures, serve_launches = obs_serve_part(
+        torch, dev, cfg, serve_cfg, paged, root)
+    train, train_failures, train_launches = obs_train_part(torch, dev, root)
+    failures = serve_failures + train_failures
+    emit("obs_capture", seconds=time.perf_counter() - t0, serve=serve,
+         train=train, failures=failures)
+    shutil.rmtree(root / OBS_DIR, ignore_errors=True)
+    if failures:
+        raise SystemExit(f"obs_capture: {failures}")
+    return {**{k: {"serve": n} for k, n in serve_launches.items()},
+            **train_launches}
+
+
 def main() -> int:
     import torch
 
@@ -4793,9 +5337,7 @@ def main() -> int:
     from tpu_hpc_torch.models import llama2
     from tpu_hpc_torch.serve import (
         ContinuousBatcher,
-        PagedConfig,
         PagedEngine,
-        ServeConfig,
         replay_requests,
     )
 
@@ -4821,11 +5363,7 @@ def main() -> int:
     main_rows.update(flash_rows)
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
-    serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
-                            prefill_buckets=(256, 512))
-    paged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
-                        kernel="cuda")
-    cfg = llama2.PRESETS["7b"]
+    cfg, serve_cfg, paged = serve_shape()
     launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
     # -- 5b. the same replay over an int8 pool: the prefill's int8 route
     int8_launches = serve_phase(torch, dev, "serve_int8", cfg, serve_cfg,
@@ -4916,6 +5454,10 @@ def main() -> int:
     # -- 11. training that survives: guard, checkpoints, preemption,
     #        non-finite rows of the kernels
     train_resilience_phase(torch, dev)
+    _release(torch)
+    # -- 12. observability: capture on a stall, torch.profiler windows
+    #        that see the kernels by name, the trace analyzer
+    obs_launches = obs_capture_phase(torch, dev, cfg, serve_cfg, paged)
 
     kernels = []
     for name, row in main_rows.items():
@@ -4956,6 +5498,10 @@ def main() -> int:
             entry["vit_noncausal"] = {k: vit[k] for k in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}
+        # Their launches in obs_capture: the serving run's (paged, the
+        # prefill's by route) and the profiled and capture training
+        # runs' and the profile window's (flash).
+        entry["obs_capture_launches"] = obs_launches[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -27,8 +27,6 @@ def main() -> int:
     import chip_smoke as cs
     from tpu_hpc_torch.checks.roofline import chip_for_kind
     from tpu_hpc_torch.kernels import _build
-    from tpu_hpc_torch.models import llama2
-    from tpu_hpc_torch.serve import PagedConfig, ServeConfig
 
     t0 = time.perf_counter()
     smi = cs.nvidia_smi_line()
@@ -38,11 +36,7 @@ def main() -> int:
     cs.emit("build", seconds=_build.build())
     _build.load_library()
     dev = torch.device("cuda", 0)
-    serve_cfg = ServeConfig(slots=8, max_seq_len=1024,
-                            prefill_buckets=(256, 512))
-    paged = PagedConfig(block_size=16, num_blocks=513, prefill_chunk=256,
-                        kernel="cuda")
-    cfg = llama2.PRESETS["7b"]
+    cfg, serve_cfg, paged = cs.serve_shape()
     plain = cs.serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
     cs.serve_spec_phase(torch, dev, cfg, serve_cfg, paged, plain)
     cs.emit("done", seconds=time.perf_counter() - t0)

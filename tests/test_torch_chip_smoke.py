@@ -1101,3 +1101,98 @@ def test_mpmd_stages_gates_and_controls_on_the_cpu(monkeypatch, tmp_path):
     assert b["chaos_nan"]["poisoned_windows"] == [
         {"stage": 1, "step": 2, "microbatch": 0, "phase": "forward"}]
     assert b["clean"]["compile_counts"] == [6, 3, 3, 5]
+
+
+def test_phase_list_names_obs_capture_last():
+    """obs_capture follows train_resilience in the docstring and in main,
+    and its launches ride the summary line."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *11\. train_resilience ", r"^ *12\. obs_capture ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_resilience_phase(", "obs_capture_phase(",
+        '"obs_capture_launches"', 'print(json.dumps({"kernels"')]
+    assert calls == sorted(calls)
+
+
+def test_device_kernel_counts_and_window_reading(tmp_path):
+    """Kernel events of a Chrome trace counted by name (host ops and
+    other categories are not kernels); a window's launches are the
+    wrappers' counts at its close less those at its open."""
+    import json
+
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel",
+         "name": "void paged_decode_split_kernel<__nv_bfloat16, 128, 1>()"},
+        {"ph": "X", "cat": "kernel",
+         "name": "void paged_decode_split_kernel<__nv_bfloat16, 128, 1>()"},
+        {"ph": "X", "cat": "kernel", "name": "paged_decode_combine_kernel"},
+        {"ph": "X", "cat": "kernel", "name": "elementwise_kernel"},
+        {"ph": "X", "cat": "cpu_op", "name": "paged_decode_split_kernel"},
+        {"ph": "M", "name": "process_name"},
+    ]}
+    path = tmp_path / "rank0.step3.pt.trace.json"
+    path.write_text(json.dumps(trace))
+    names = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
+             "paged_prefill_wgmma_kernel")
+    assert chip_smoke.device_kernel_counts(str(path), names) == {
+        "paged_decode_split_kernel": 2, "paged_decode_combine_kernel": 1,
+        "paged_prefill_wgmma_kernel": 0, "all_kernels": 4}
+    win = {"opened_at": 3, "open": {"paged_decode_attention": 5},
+           "close": {"paged_decode_attention": 7}, "start_s": 0.1,
+           "stop_export_s": 0.5,
+           "trace_path": str(path)}
+    reading = chip_smoke.window_reading(win, names)
+    assert reading["launched"] == {"paged_decode_attention": 2}
+    assert reading["device_events"]["paged_decode_split_kernel"] == 2
+
+
+def test_complete_trace_failures():
+    base = [{"event": "lg_arrival", "trace_id": "r:req:a"},
+            {"event": "admission", "trace_id": "r:req:a", "rid": "a"},
+            {"event": "admission"}]  # a batch-level record names none
+    cp = {"attributed": 0.99}
+    rep = {"orphan_spans": 0, "requests": {
+        "count": 3, "complete": 2, "shed": 1,
+        "ttft_critical_path": {q: cp for q in ("p50", "p95", "p99")}}}
+    assert chip_smoke.complete_trace_failures(base, rep, 3) == []
+    bad = {"orphan_spans": 2, "requests": {
+        "count": 3, "complete": 1, "shed": 1,
+        "ttft_critical_path": {"p50": {"attributed": 0.9}}}}
+    fails = chip_smoke.complete_trace_failures(
+        base + [{"event": "lg_finish"}], bad, 3)
+    assert len(fails) == 6  # tags, orphans, requests, p50, p95, p99
+
+
+def test_recorded_windows_restore_the_classes(tmp_path, monkeypatch):
+    """The recorder wraps the profiler window and the capture trigger
+    for its block only, reading the wrappers' counts at each end."""
+    import torch
+
+    from tpu_hpc_torch import obs
+    from tpu_hpc_torch.obs import trace
+    from tpu_hpc_torch.profiling import TrainingProfiler, profiler
+
+    originals = (profiler.TrainingProfiler._start,
+                 profiler.TrainingProfiler.stop, trace.AnomalyCapture.trigger)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda d: 123)
+    with chip_smoke.fresh_obs("rec"), \
+            chip_smoke.recorded_windows(torch, "cpu") as (windows, triggers):
+        cap = obs.AnomalyCapture(str(tmp_path / "cap"), n_steps=1)
+        cap.trigger("stall", trace_id="rec:step:4", step=4)
+        cap.step(5)
+        TrainingProfiler(str(tmp_path / "p"), start_step=0,
+                         device="cpu").stop()  # never opened: no window
+    assert (profiler.TrainingProfiler._start, profiler.TrainingProfiler.stop,
+            trace.AnomalyCapture.trigger) == originals
+    (win,) = windows
+    assert win["opened_at"] == 4 and win["open"] == win["close"]
+    assert win["trace_path"].endswith("rank0.step4.pt.trace.json")
+    (trig,) = triggers
+    assert trig["reason"] == "stall" and trig["max_memory_allocated"] == 123
+    assert trig["record"]["flight_path"].startswith(str(tmp_path / "cap"))

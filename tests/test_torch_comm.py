@@ -397,8 +397,8 @@ def test_bench_formulas_equal_jax(n):
 def test_refusals_name_roadmap_items_by_title():
     """Each "not ported" text in the port names its ROADMAP item by a
     title that ROADMAP.md carries, never by a queue number a re-anchor
-    renumbers; the Trainer's remaining refusals fire with those texts,
-    and comm_mode is no longer among them."""
+    renumbers; and the Trainer keeps no list of unported knobs (the
+    last two, profile and capture_on_anomaly, are served now)."""
     from tpu_hpc_torch.config import TrainingConfig
     from tpu_hpc_torch.train import trainer
 
@@ -414,13 +414,12 @@ def test_refusals_name_roadmap_items_by_title():
                 numbered += re.findall(r"queue \d+\s+item \d+", text)
     assert numbered == []
     assert titles and all(t in roadmap for t in titles), titles
-    for knob, text in trainer.UNPORTED.items():
-        with pytest.raises(NotImplementedError) as e:
-            trainer._refuse_unported(TrainingConfig(**{knob: True}))
-        assert text in str(e.value)
-        (title,) = re.findall(r'ROADMAP: "([^"]+)"', text)
-        assert title in roadmap
-    trainer._refuse_unported(TrainingConfig(comm_mode="bucketed_overlap"))
+    # The Trainer refuses no knob of TrainingConfig as unported any
+    # more: comm_mode, profile and capture_on_anomaly are all served.
+    assert not hasattr(trainer, "UNPORTED")
+    assert not hasattr(trainer, "_refuse_unported")
+    TrainingConfig(comm_mode="bucketed_overlap", profile=True,
+                   capture_on_anomaly=True)
 
 
 if __name__ == "__main__":

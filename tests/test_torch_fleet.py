@@ -118,9 +118,11 @@ SIDES = {"jax": (jfleet, jlg, jobs), "port": (tfleet, tlg, tobs)}
 
 
 def _run(fleets, side, scenario, cfg, faults="", swap=None, live=None,
-         digest_dir=None, monkeypatch=None):
+         digest_dir=None, monkeypatch=None, capture_dir=None):
     """One FleetHarness run on ``side`` under a fresh event bus and
-    registry; returns (summary, streams, events, harness)."""
+    registry (``capture_dir``: an AnomalyCapture there, its flight dump
+    path given relative to it); returns (summary, streams, events,
+    harness)."""
     fleet_mod, lg, obs = SIDES[side]
     engines, p1, p2 = fleets[side]
     cfg_obj = fleet_mod.FleetConfig(**cfg)
@@ -133,6 +135,9 @@ def _run(fleets, side, scenario, cfg, faults="", swap=None, live=None,
     if live is not None:
         monkeypatch.setenv(obs.ENV_DIGEST_DIR, os.path.join(digest_dir, side))
         kw["live_cfg"] = fleet_mod.LiveConfig(**live)
+    if capture_dir is not None:
+        capture_dir = os.path.join(capture_dir, side)
+        kw["capture"] = obs.AnomalyCapture(capture_dir)
     try:
         harness = fleet_mod.FleetHarness(
             engines[:cfg_obj.max_replicas or len(engines)],
@@ -151,6 +156,10 @@ def _run(fleets, side, scenario, cfg, faults="", swap=None, live=None,
         {k: v for k, v in rec.items() if k not in UNSTAMPED}
         for rec in bus.ring() if rec["event"] not in SKIPPED_KINDS
     ]
+    for e in events:
+        if e["event"] == "capture_triggered":
+            assert os.path.exists(e["flight_path"])
+            e["flight_path"] = os.path.relpath(e["flight_path"], capture_dir)
     return summary, dict(harness.fleet.results), events, harness
 
 
@@ -248,8 +257,10 @@ def test_chaos_matrix_matches_jax(case, engines, clean_streams):
 def test_live_plane_and_burn_monitor_match_jax(engines, tmp_path,
                                                monkeypatch):
     """The live telemetry plane on a slowed replica: per-replica
-    digests, the rollup's straggler verdict and one SLO burn page --
-    the same ``live`` block and events on both sides."""
+    digests, the rollup's straggler verdict and one SLO burn page that
+    fires the fleet's AnomalyCapture (``fleet_itl_slo``: a flight dump,
+    no profiler window) -- the same ``live`` block and events on both
+    sides."""
     live = dict(period_s=0.02, itl_slo_ms=16.0, slo_target=0.99,
                 fast_window_s=0.1, slow_window_s=0.4, burn_threshold=5.0,
                 stale_after_s=30.0, straggler_factor=3.0)
@@ -258,15 +269,24 @@ def test_live_plane_and_burn_monitor_match_jax(engines, tmp_path,
                                              min_replicas=3),
             "slow_replica=1:4")
     got = _run(engines, "port", *args, live=live,
-               digest_dir=str(tmp_path), monkeypatch=monkeypatch)
+               digest_dir=str(tmp_path), monkeypatch=monkeypatch,
+               capture_dir=str(tmp_path / "capture"))
     want = _run(engines, "jax", *args, live=live,
-                digest_dir=str(tmp_path), monkeypatch=monkeypatch)
+                digest_dir=str(tmp_path), monkeypatch=monkeypatch,
+                capture_dir=str(tmp_path / "capture"))
     assert got[1] == want[1]
     assert got[0] == want[0]
     assert got[2] == want[2]
     lv = got[0]["live"]
     assert lv["stragglers"] == ["replica:1"] and lv["slo_burns"] == 1
     assert [e["event"] for e in got[2]].count("slo_burn") == 1
+    (burn,) = [e for e in got[2] if e["event"] == "slo_burn"]
+    (cap,) = [e for e in got[2] if e["event"] == "capture_triggered"]
+    assert burn["reason"] == "fleet_itl_slo"
+    assert (cap["reason"], cap["trace_id"], cap["n_steps"]) == (
+        "slo_burn", burn["trace_id"], 0)
+    assert cap.get("profile_dir") is None
+    assert got[3].telemetry.capture.captures == 1
 
 
 def test_burn_rate_monitor_verdicts_match_jax():

@@ -235,9 +235,12 @@ def test_harness_refuses_fleet_faults_and_capture(engines):
     with pytest.raises(ValueError, match="fleet fault"):
         tlg.LoadHarness(engine, sc,
                         faults=tlg.parse_faults("replica_kill_at=0"))
-    with pytest.raises(NotImplementedError, match="capture="):
-        tlg.LoadHarness(engine, sc, faults=tlg.parse_faults(""),
-                        capture=object())
+    # Anomaly capture is ported (tests/test_torch_trace.py): accepted.
+    from tpu_hpc_torch.obs import AnomalyCapture
+
+    cap = AnomalyCapture("unused", n_steps=2)
+    assert tlg.LoadHarness(engine, sc, faults=tlg.parse_faults(""),
+                           capture=cap).capture is cap
 
 
 def test_cli_runs_decode_heavy_with_ngram_spec():

@@ -593,3 +593,54 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         pt_pa.paged_prefill_attention(
             _t(q[:2]), _t(kp), _t(vp), _t(tables[0]), 24, **kw
         )
+
+
+# ---------------------------------------------------------------------
+# int8 divergence probe
+# ---------------------------------------------------------------------
+# TINY's attention dims (tests/test_paged_kernels.py's probe case) and
+# the 7B's at its 16-token pages (bench.py's logit_rmse pin).
+PROBE_DIMS = [
+    dict(head_dim=16, kv_heads=2, n_heads=4, seq_len=48, block_size=4),
+    dict(head_dim=128, kv_heads=32, n_heads=32, block_size=16),
+]
+INT8_LOGIT_TOL = 0.02  # tests/test_paged_kernels.py's pin at TINY
+
+
+@pytest.mark.parametrize("dims", PROBE_DIMS, ids=["tiny", "7b"])
+def test_int8_logit_rmse_equals_jax_on_its_arrays(dims):
+    """Fed the JAX function's own jax.random q and k, the port's score
+    arithmetic gives the JAX value."""
+    want = jax_pa.int8_logit_rmse(**dims)
+    n_heads = dims.get("n_heads") or dims["kv_heads"]
+    kq, kk = jax.random.split(jax.random.PRNGKey(0))
+    q = jax.random.normal(kq, (n_heads, dims["head_dim"]), jnp.float32)
+    k = jax.random.normal(
+        kk, (dims.get("seq_len", 256), dims["kv_heads"], dims["head_dim"]),
+        jnp.float32)
+    got = pt_pa.int8_logit_rmse_of(torch.from_numpy(np.array(q)),
+                                   torch.from_numpy(np.array(k)),
+                                   dims["block_size"])
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+def test_int8_logit_rmse_pins_the_tolerance():
+    """The port's probe draws its own q and k from a seeded CPU
+    generator: deterministic, and under the JAX pin at TINY's dims."""
+    r = pt_pa.int8_logit_rmse(**PROBE_DIMS[0])
+    assert r == pt_pa.int8_logit_rmse(**PROBE_DIMS[0])
+    assert 0.0 < r < INT8_LOGIT_TOL
+    assert pt_pa.int8_logit_rmse(**PROBE_DIMS[0], seed=1) != r
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(head_dim=16, kv_heads=2, seq_len=50, block_size=4),
+     "multiple of block_size"),
+    (dict(head_dim=16, kv_heads=2, n_heads=3), "multiple of kv_heads"),
+], ids=["seq_len", "n_heads"])
+def test_int8_logit_rmse_validates_shapes_like_jax(bad, match):
+    with pytest.raises(ValueError, match=match) as got:
+        pt_pa.int8_logit_rmse(**bad)
+    with pytest.raises(ValueError) as want:
+        jax_pa.int8_logit_rmse(**bad)
+    assert str(got.value) == str(want.value)

@@ -309,16 +309,18 @@ def test_resolve_device(monkeypatch):
 def test_later_slices_refuse_loudly(port_params):
     from tpu_hpc_torch.loadgen import LoadHarness, build_scenario
 
-    # The host tier is served now (tests/test_torch_tier.py); anomaly
-    # capture is still a later slice and refuses.
+    # The host tier is served now (tests/test_torch_tier.py), and so is
+    # anomaly capture on its harness (tests/test_torch_trace.py).
+    from tpu_hpc_torch.obs import AnomalyCapture
+
     tiered = PagedEngine(
         port_params, TINY, ServeConfig(**SERVE), "cpu",
         PagedConfig(host_blocks=4, **PAGED),
     )
     assert tiered.host_tier is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoadHarness(tiered, build_scenario("steady", n_requests=2),
-                    capture=object())
+    cap = AnomalyCapture("unused", n_steps=2)
+    assert LoadHarness(tiered, build_scenario("steady", n_requests=2),
+                       capture=cap).capture is cap
     with pytest.raises(ValueError, match="'gather' or 'cuda'"):
         PagedConfig(kernel="pallas", **PAGED)
     # Sampling rides speculative decoding (serve/spec.py): refused

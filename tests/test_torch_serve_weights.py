@@ -258,6 +258,8 @@ SHARED_GUARDS = [
     ["--disagg-max-inflight-mb", "8"],
     ["--disagg", "--disagg-max-inflight-mb", "0"],
     ["--capture-dir", "x"],
+    ["--fleet", "2", "--loadgen", "steady", "--paged", "--prefill-chunk",
+     "16", "--capture-dir", "x"],
     ["--paged", "--spec", "ngram", "--disagg"],
     ["--paged", "--spec-draft-ckpt", "x"],
 ]
@@ -282,8 +284,9 @@ def test_cli_guards_match_jax(args, capsys):
     (["--disagg"], 'reshard plan, and the reshard engine is not ported '
      'yet (ROADMAP: "The operations modules")'),
     (["--disagg", "--disagg-max-inflight-mb", "auto"], "--disagg:"),
-    (["--loadgen", "steady", "--capture-dir", "x"],
-     '(ROADMAP: "The rest of serving and obs")'),
+    (["--fleet", "2", "--loadgen", "steady", "--paged", "--prefill-chunk",
+      "16", "--capture-dir", "x"],
+     "--capture-dir is only consumed by the single-engine"),
     (["--checkpoint-dir", "/nonexistent/ck"], "is not a directory"),
     (["--paged", "--spec", "draft", "--spec-draft-ckpt", "/nonexistent"],
      "checkpoint restore into the serving layout"),

@@ -13,6 +13,8 @@ tpu_hpc_torch.train``), on one card, over a (data, model) mesh under
 ``torchrun``, or sequence-parallel over a (data, context) mesh
 (``--sp-mode ring|zigzag|ulysses``); and training that survives -- checkpoints (``ckpt``), the
 numeric-health guard, preemption and the restart supervisor
-(``resilience``). ROADMAP lists what comes next. Nothing here imports jax or ``tpu_hpc``.
+(``resilience``); observability -- the trace analyzer and anomaly
+capture (``obs``), ``torch.profiler`` windows (``profiling``) and
+host-aware logging (``logging_``). ROADMAP lists what comes next. Nothing here imports jax or ``tpu_hpc``.
 Importing this package does not import its subpackages.
 """

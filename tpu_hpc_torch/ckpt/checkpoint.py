@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from tpu_hpc_torch.ckpt import integrity
+from tpu_hpc_torch.logging_ import get_logger
 from tpu_hpc_torch.resilience.faults import fault_plan_from_env
 from tpu_hpc_torch.resilience.retry import retry_call
 
@@ -77,9 +78,7 @@ class TopologyMismatchError(ValueError):
 
 
 def _warn(msg: str, *args) -> None:
-    import logging
-
-    logging.getLogger("tpu_hpc_torch.ckpt").warning(msg, *args)
+    get_logger("tpu_hpc_torch.ckpt").warning(msg, *args)
 
 
 # ---------------------------------------------------------------------

@@ -41,10 +41,11 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import logging
 import math
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from tpu_hpc_torch.logging_ import get_logger
 
 ENV_TABLE_DIR = "TPU_HPC_COMM_TABLES"
 TABLE_VERSION = 1
@@ -450,7 +451,7 @@ def load_cached(
     try:
         return load_table(path)
     except CostTableError as e:
-        logging.getLogger("tpu_hpc_torch.comm.planner").warning(
+        get_logger("tpu_hpc_torch.comm.planner").warning(
             "ignoring corrupt cost table %s (%s); planner falls back "
             "to the alpha-beta model -- delete or re-emit the table",
             path, e,

@@ -2,10 +2,7 @@
 
 Port of the JAX package's ``config/config.py``: the same
 ``TrainingConfig`` fields, defaults and validation, so one YAML file
-configures either package. The knobs whose machinery is not ported yet
-(profiling, anomaly capture) keep their fields; the port's ``Trainer``
-raises ``NotImplementedError`` when one is set away from its default,
-naming the ROADMAP item that ports it.
+configures either package.
 
 ``torch_dtypes`` replaces the JAX ``jax_dtypes``; ``mesh_axes`` and
 ``mesh_spec`` give ``runtime.build_mesh`` its axes.
@@ -67,7 +64,10 @@ class TrainingConfig:
     guard_spike_action: str = "event"
     guard_window: int = 8
 
-    # Profiling and anomaly capture (not ported yet).
+    # Profiling (profiling.TrainingProfiler: one torch.profiler window
+    # over steps [profile_start_step, +profile_num_steps), a Chrome
+    # trace under profile_dir) and anomaly capture (obs.AnomalyCapture
+    # under <checkpoint_dir or profile_dir>/anomaly).
     profile: bool = False
     profile_dir: str = "profiles"
     profile_start_step: int = 3

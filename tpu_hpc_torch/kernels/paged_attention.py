@@ -27,7 +27,9 @@ int8 and mixed 16-bit dtypes. On a CPU tensor it runs the plain PyTorch
 version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
-show that the main path went through the kernel.
+show that the main path went through the kernel; the prefill also
+counts them by route (``.route_launches``, keyed by
+:data:`PREFILL_ROUTES`).
 
 Layouts are the JAX package's: q ``(slots, kv_heads, group, d)`` for
 decode and ``(kv_heads, bucket, group, d)`` for prefill, pages
@@ -48,6 +50,7 @@ a NaN there does not reach the output.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -95,6 +98,62 @@ def quantize_pages_int8(
 def dequantize_pages_int8(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_pages_int8` (f32 out)."""
     return q.to(torch.float32) * sc[..., None, None, None]
+
+
+# ---------------------------------------------------------------------------
+# int8 divergence probe (pins the bounded-divergence tolerance)
+# ---------------------------------------------------------------------------
+
+def int8_logit_rmse_of(q: torch.Tensor, k: torch.Tensor,
+                       block_size: int) -> float:
+    """The probe's arithmetic on given scores' operands: q
+    ``(n_heads, head_dim)``, k ``(seq_len, kv_heads, head_dim)``; RMSE
+    between the exact-fp scores of q against k and the same scores from
+    per-page quantize->dequantize K (pages of ``block_size`` keys), in
+    float32."""
+    q = q.to(torch.float32)
+    k = k.to(torch.float32)
+    seq_len, kv_heads, head_dim = k.shape
+    pages = k.reshape(seq_len // block_size, block_size, kv_heads, head_dim)
+    kq8, ksc = quantize_pages_int8(pages)
+    k_hat = dequantize_pages_int8(kq8, ksc).reshape(k.shape)
+    g = q.shape[0] // kv_heads
+    qg = q.reshape(kv_heads, g, head_dim)
+    scale = head_dim ** -0.5
+    exact = torch.einsum("hgd,shd->hgs", qg, k) * scale
+    approx = torch.einsum("hgd,shd->hgs", qg, k_hat) * scale
+    return float(torch.sqrt(torch.mean((exact - approx) ** 2)))
+
+
+def int8_logit_rmse(
+    *,
+    head_dim: int,
+    kv_heads: int,
+    n_heads: Optional[int] = None,
+    seq_len: int = 256,
+    block_size: int = 16,
+    seed: int = 0,
+) -> float:
+    """Deterministic measure of the int8 page representational error at
+    a model's attention dims: RMSE between exact-fp decode attention
+    logits (pre-softmax scores of the last query against the full
+    context) and the same scores computed from per-page
+    quantize->dequantize K. This is what the bounded-divergence oracle
+    tolerance is pinned from -- it needs no engine, no weights, and no
+    clock: q and k are drawn on the CPU from a ``torch.Generator``
+    seeded with ``seed``, so the value does not depend on the machine
+    (the JAX function draws them with ``jax.random``; fed those arrays,
+    :func:`int8_logit_rmse_of` gives its value)."""
+    if seq_len % block_size:
+        raise ValueError("seq_len must be a multiple of block_size")
+    n_heads = n_heads or kv_heads
+    if n_heads % kv_heads:
+        raise ValueError("n_heads must be a multiple of kv_heads")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((n_heads, head_dim), generator=gen, dtype=torch.float32)
+    k = torch.randn((seq_len, kv_heads, head_dim), generator=gen,
+                    dtype=torch.float32)
+    return int8_logit_rmse_of(q, k, block_size)
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +568,8 @@ def paged_prefill_attention(
         )
     _build.check(lib, code, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.route_launches[_prefill_route_of(
+        q.dtype, k_pages.dtype, d, block_size)] += 1
     return out
 
 
@@ -535,6 +596,7 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
 # 128 and pages that stack into (or split into) 64-key tiles: bs 8, 16,
 # 32, 64 or a multiple of 64.
 PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8")
+paged_prefill_attention.route_launches = dict.fromkeys(PREFILL_ROUTES, 0)
 
 
 def paged_prefill_route(
@@ -555,11 +617,21 @@ def paged_prefill_route(
     return PREFILL_ROUTES[code]
 
 
+@functools.lru_cache(maxsize=None)
+def _prefill_route_of(q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                      head_dim: int, block_size: int) -> str:
+    """:func:`paged_prefill_route`, asked of the C launcher once per
+    shape and dtypes (the wrapper's by-route count)."""
+    return paged_prefill_route(q_dtype, pool_dtype, head_dim, block_size)
+
+
 __all__ = [
     "INT8_SCALE_FLOOR",
     "PREFILL_ROUTES",
     "SCRATCH_PAGE",
     "dequantize_pages_int8",
+    "int8_logit_rmse",
+    "int8_logit_rmse_of",
     "page_scales_int8",
     "paged_decode_attention",
     "paged_decode_attention_ref",

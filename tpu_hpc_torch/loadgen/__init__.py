@@ -4,8 +4,9 @@ package's ``tpu_hpc.loadgen``).
 Seeded, scenario-diverse traffic for the serve engine (scenarios.py)
 driven on a virtual clock so latency quantiles replay bit-identically
 (harness.py), every request lifecycle emitted as schema-stamped
-``obs`` records -- the JSONL the JAX package's regression gate
-(``obs/regress.py``, not ported yet) reads.
+``obs`` records -- the JSONL the regression gate
+(``python -m tpu_hpc_torch.obs.regress``) and the trace analyzer
+(``python -m tpu_hpc_torch.obs.trace``) read.
 """
 from tpu_hpc_torch.loadgen.harness import (  # noqa: F401
     ENV_FAULTS,

@@ -4,9 +4,11 @@ emit every request's lifecycle as schema-stamped ``obs`` records.
 Port of the JAX package's ``loadgen/harness.py``. The virtual clock,
 the cost model, the meter and the per-tenant SLO aggregation are the
 JAX package's, so a scenario run on the port's engine gives the JAX
-harness's summary. Anomaly-triggered capture (``capture=``, the JAX
-package's ``obs.AnomalyCapture``) is not ported yet (ROADMAP) and is
-refused.
+harness's summary. Anomaly-triggered capture (``capture=``, an
+``obs.AnomalyCapture``): a stall-watermark trip files one bounded
+profiler window over the next ticks plus a flight dump, keyed by the
+tick's trace id; an SLO breach at summary time files the flight dump
+and memory snapshot only.
 
 Timing runs on a **virtual clock**: each engine call charges a modeled
 cost (``decode_step_ms`` per decode tick, ``prefill_ms_per_token`` x
@@ -40,6 +42,7 @@ import os
 from typing import Callable, Dict, List, Optional
 
 from tpu_hpc_torch.obs import (
+    AnomalyCapture,
     StallDetector,
     emit_span,
     get_bus,
@@ -539,21 +542,16 @@ class LoadHarness:
         policy: Optional[AdmissionPolicy] = None,
         stall_factor: float = 3.0,
         faults: Optional[Dict[str, float]] = None,
-        capture=None,
+        capture: Optional[AnomalyCapture] = None,
         hop_ms_per_page: float = 0.5,
     ):
-        if capture is not None:
-            # The JAX harness's capture (obs/trace.AnomalyCapture)
-            # files a bounded profiler trace on a stall or an SLO
-            # breach; accepting one here and filing nothing would make
-            # the anomaly evidence silently missing.
-            raise NotImplementedError(
-                "capture= (anomaly-triggered capture, obs/trace."
-                "AnomalyCapture) is not ported yet (ROADMAP)"
-            )
         self.scenario = scenario
         self.metrics_path = metrics_path
         self.clock = VirtualClock()
+        # Anomaly-triggered capture (obs/trace.py): a stall-watermark
+        # trip or an SLO breach fires ONE bounded profiler trace +
+        # flight dump keyed by the triggering trace id. None = off.
+        self.capture = capture
         faults = faults if faults is not None else parse_faults()
         armed = fleet_faults_set(faults)
         if armed:
@@ -634,7 +632,14 @@ class LoadHarness:
                 from tpu_hpc_torch.serve.scheduler import paged_drain_bound
 
                 budget += paged_drain_bound(self.engine, arrivals)
-        self._drive_loop(arrivals, budget, tick_cb)
+        try:
+            self._drive_loop(arrivals, budget, tick_cb)
+        finally:
+            if self.capture is not None:
+                # A capture window still open when the drive ends (or
+                # aborts on the budget) must not leak its profiler
+                # trace.
+                self.capture.close()
 
     def _drive_loop(self, arrivals, budget, tick_cb) -> None:
         sc = self.scenario
@@ -703,6 +708,14 @@ class LoadHarness:
                     trace_id=tick_tid,
                 )
                 self._stalled = info is not None
+                if self._stalled and self.capture is not None:
+                    # Symptom -> evidence, keyed by the tick trace
+                    # that breached the watermark. One-shot: a stall
+                    # storm yields one clean bundle.
+                    self.capture.trigger(
+                        "stall", trace_id=tick_tid, step=tick,
+                        sink=self.metrics_path,
+                    )
             else:
                 # A tick with NO decode step (chunked prefill still
                 # filling every active slot, or an admission-only
@@ -714,6 +727,10 @@ class LoadHarness:
                 # tick only; clear it.
                 self._stalled = False
             self._occupancy.append(self.batcher.occupancy)
+            if self.capture is not None:
+                # Advance (and eventually close) the bounded capture
+                # window on the tick axis.
+                self.capture.step(tick)
             if tick_cb is not None:
                 tick_cb(tick)
             tick += 1
@@ -731,7 +748,7 @@ class LoadHarness:
             peak_flops_per_device=peak_flops_per_device,
         )
         m = self.meter
-        tenants, slo_violations, _ = tenant_summary(
+        tenants, slo_violations, violated_tenants = tenant_summary(
             self.scenario, m, self.batcher.spec_by_tenant
         )
         occ = sorted(self._occupancy)
@@ -773,6 +790,24 @@ class LoadHarness:
         )
         if extra:
             summary.update(extra)
+        if slo_violations and self.capture is not None:
+            # SLO breach is the third capture trigger: the run is
+            # over (drive()'s finally already closed the bounded
+            # window), so no profiler is armed -- there are no future
+            # steps to bound or ever close one. The flight dump +
+            # device-memory snapshot still preserve the evidence
+            # trail, keyed by the first violated tenant's class.
+            self.capture.trigger(
+                "slo_breach",
+                trace_id=trace_id_for("tenant", violated_tenants[0]),
+                sink=self.metrics_path,
+                arm_profiler=False,
+            )
+        if self.capture is not None:
+            # AFTER the SLO trigger above, so an SLO-breach-only
+            # capture is counted -- the summary is the join point the
+            # banked rows and the on-disk evidence must agree on.
+            summary["captures"] = self.capture.captures
         self.meter.write_summary(summary)
         get_registry().emit_snapshot(sink=self.metrics_path)
         return summary

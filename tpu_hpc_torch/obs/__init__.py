@@ -14,8 +14,13 @@ The same schema-stamped JSONL discipline as the JAX package's
                Prometheus text exposition.
   quantiles.py the one quantile estimator every latency number comes
                from.
-  trace.py     run_id-scoped trace contexts stamped into every
-               span/event.
+  trace.py     end-to-end causal tracing: run_id-scoped trace
+               contexts stamped into every span/event, the
+               ``python -m tpu_hpc_torch.obs.trace`` critical-path
+               analyzer (TTFT/step decomposition + Chrome-trace
+               export), and AnomalyCapture (symptom -> one bounded
+               torch.profiler window + flight dump, keyed by
+               trace_id).
   digest.py    mergeable per-process health digests: cumulative
                counters + gauges + log-bucket histogram sketches,
                appended to per-process channels under
@@ -32,9 +37,9 @@ The same schema-stamped JSONL discipline as the JAX package's
                cand.jsonl``: the regression gate over report numbers.
   slo.py       the two-window error-budget burn-rate monitor the
                serving fleet feeds its rollup to.
-
-The rest of the JAX package's obs (the bench bank, the trace analyzer
-and anomaly capture) is not ported yet; ROADMAP lists it.
+  bank.py      ``python -m tpu_hpc_torch.obs.bank BENCH_r*.json`` --
+               lifts the bench captures into the validated bench
+               history JSONL for regress --bank.
 """
 from tpu_hpc_torch.obs.digest import (  # noqa: F401
     ENV_DIGEST_DIR,
@@ -76,15 +81,34 @@ from tpu_hpc_torch.obs.schema import (  # noqa: F401
 )
 from tpu_hpc_torch.obs.spans import emit_span, span  # noqa: F401
 from tpu_hpc_torch.obs.stall import StallDetector  # noqa: F401
-from tpu_hpc_torch.obs.trace import (  # noqa: F401
-    TraceContext,
-    activate,
-    request_trace_id,
-    step_trace_id,
-    trace_id_for,
+
+# trace.py exports are lazy (PEP 562): eagerly importing the module
+# here would make ``python -m tpu_hpc_torch.obs.trace`` re-execute it
+# under runpy with a sys.modules warning. ``from tpu_hpc_torch.obs
+# import activate`` etc. still work -- module __getattr__ covers
+# from-imports.
+_TRACE_EXPORTS = (
+    "AnomalyCapture",
+    "TraceContext",
+    "activate",
+    "request_trace_id",
+    "step_trace_id",
+    "trace_id_for",
 )
 
+
+def __getattr__(name):
+    if name in _TRACE_EXPORTS:
+        from tpu_hpc_torch.obs import trace
+
+        return getattr(trace, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}"
+    )
+
+
 __all__ = [
+    "AnomalyCapture",
     "BurnRateMonitor",
     "DigestPublisher",
     "ENV_DIGEST_DIR",

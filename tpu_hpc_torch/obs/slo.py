@@ -1,7 +1,6 @@
 """Multi-window error-budget burn-rate alerting over the fleet rollup.
 
-A framework-free copy of the JAX package's ``obs/slo.py``; the port
-has no ``AnomalyCapture`` yet, so the fleet passes ``capture=None``.
+A framework-free copy of the JAX package's ``obs/slo.py``.
 
 One bad minute must not page, and a slow leak must not hide: the
 standard SRE construction is to alert on the *burn rate* of the error

@@ -11,7 +11,7 @@ behind the paged pool (tier), the multi-replica fleet -- router,
 redispatch, autoscale, weight hot-swap -- and its load harness (fleet),
 and a local request-replay, load-scenario and fleet CLI
 (``python -m tpu_hpc_torch.serve``, server). Disaggregated serving is a
-later slice (ROADMAP: "The rest of serving and obs").
+later slice (ROADMAP: "The operations modules").
 """
 from tpu_hpc_torch.serve.engine import Engine, ServeConfig
 from tpu_hpc_torch.serve.metrics import ServeMeter

@@ -1195,8 +1195,8 @@ class FleetTelemetry:
     an external ``python -m tpu_hpc_torch.obs.live`` reader of the same
     channel directory would see, byte-for-byte, and feeds the fleet
     SLO totals to the :class:`~tpu_hpc_torch.obs.slo.BurnRateMonitor`
-    (paging would arm the AnomalyCapture for one correlated evidence
-    bundle). A replica that stops ticking (killed, wedged) stops
+    (paging arms ``capture``, an ``obs.AnomalyCapture``, for one
+    correlated evidence bundle). A replica that stops ticking (killed, wedged) stops
     publishing, and the aggregation step surfaces it as a first-class
     ``digest_stale`` event exactly once."""
 
@@ -1211,15 +1211,6 @@ class FleetTelemetry:
     ):
         from tpu_hpc_torch.obs import trace_id_for
 
-        if capture is not None:
-            # The JAX package's AnomalyCapture files one evidence
-            # bundle when the SLO pages; accepting one here and filing
-            # nothing would make that evidence silently missing.
-            raise NotImplementedError(
-                "capture= (anomaly-triggered capture, obs/trace."
-                "AnomalyCapture) is not ported yet "
-                '(ROADMAP: "The rest of serving and obs")'
-            )
         self.dir = dir
         self.cfg = cfg or LiveConfig()
         self.metrics_path = metrics_path
@@ -1402,12 +1393,6 @@ class FleetHarness:
         live_cfg: Optional[LiveConfig] = None,
         capture=None,
     ):
-        if capture is not None:
-            raise NotImplementedError(
-                "capture= (anomaly-triggered capture, obs/trace."
-                "AnomalyCapture) is not ported yet "
-                '(ROADMAP: "The rest of serving and obs")'
-            )
         if scenario.colocate_every:
             raise ValueError(
                 "colocation scenarios drive the single-engine "

@@ -5,7 +5,8 @@ free), with its speculative-decoding tick, the seeded-sampling rule,
 the per-request n-gram index (serve/spec.py) and the host-tier
 prefetch-before-seat (serve/tier.py). The disaggregated engine's
 transfer stats are left out with the module they drive
-(ROADMAP: "The rest of serving and obs").
+(``serve/disagg.py``, which waits on the reshard engine;
+ROADMAP: "The operations modules").
 
 The engine's decode program has a FIXED batch width (``slots``) -- the
 discipline that keeps it one built shape. The scheduler makes

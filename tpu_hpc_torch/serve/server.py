@@ -23,11 +23,15 @@ batcher ticks the supervisor's heartbeat file at decode-step
 granularity, so a wedged decode step is detected and the run restarted
 instead of hanging the card.
 
+Anomaly-triggered capture: ``--loadgen ... --capture-dir DIR`` arms an
+``obs.AnomalyCapture`` on the harness (a stall or an SLO breach files
+one bounded torch.profiler window over the next 8 ticks, a flight dump
+and a ``device_memory`` record under DIR); ``python -m
+tpu_hpc_torch.obs.trace`` reads the run's ``--metrics`` log.
+
 Not ported yet, and refused: ``--disagg`` and
 ``--disagg-max-inflight-mb`` (the KV hop is a reshard plan;
-ROADMAP: "The operations modules") and ``--capture-dir`` (the
-``obs/trace.py`` analyzer and anomaly capture;
-ROADMAP: "The rest of serving and obs").
+ROADMAP: "The operations modules").
 """
 from __future__ import annotations
 
@@ -271,6 +275,7 @@ def run_loadgen(
     spec_draft_cfg: Optional[llama2.LlamaConfig] = None,
     checkpoint_dir: Optional[str] = None,
     spec_draft_ckpt: Optional[str] = None,
+    capture_dir: Optional[str] = None,
 ) -> dict:
     """Engine bring-up + a ``tpu_hpc_torch.loadgen`` scenario run;
     returns the harness summary (per-tenant quantiles on the virtual
@@ -283,9 +288,12 @@ def run_loadgen(
     any serve shape. ``spec`` (a spec.SpecConfig; needs ``paged``)
     drives the scenario through speculative decoding -- the virtual
     clock charges one target forward per verify step plus the modeled
-    draft cost."""
+    draft cost. ``capture_dir`` arms anomaly-triggered capture
+    (``obs.AnomalyCapture(capture_dir, n_steps=8)`` on the engine's
+    device) on the harness."""
     import time
 
+    from tpu_hpc_torch import obs
     from tpu_hpc_torch.loadgen import LoadHarness, build_scenario
     from tpu_hpc_torch.runtime import resolve_device
 
@@ -304,7 +312,16 @@ def run_loadgen(
         cfg, serve_cfg, seed, paged, spec, spec_draft_cfg, device,
         metrics_path, checkpoint_dir, spec_draft_ckpt,
     )
-    harness = LoadHarness(engine, scenario, metrics_path=metrics_path)
+    capture = None
+    if capture_dir:
+        # Anomaly-triggered capture (obs/trace.py): a stall-watermark
+        # trip or SLO breach files one bounded profiler trace +
+        # flight dump under capture_dir, keyed by the triggering
+        # trace id.
+        capture = obs.AnomalyCapture(capture_dir, n_steps=8,
+                                     device=device)
+    harness = LoadHarness(engine, scenario, metrics_path=metrics_path,
+                          capture=capture)
     launches0 = _kernel_launches()
     t0 = time.perf_counter()
     harness.drive(tick_cb=_heartbeat_tick())
@@ -539,9 +556,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--capture-dir", type=str, default=None, metavar="DIR",
-        help="anomaly-triggered capture for the --loadgen run: not "
-        "ported yet (the obs/trace.py analyzer and AnomalyCapture), so "
-        "the flag is refused",
+        help="arm anomaly-triggered capture for the --loadgen run: a "
+        "stall-watermark trip or SLO breach files one bounded "
+        "profiler trace + flight dump under DIR, keyed by the "
+        "triggering trace id (obs/trace.py)",
     )
     ap.add_argument(
         "--loadgen", type=str, default=None, metavar="SCENARIO",
@@ -886,12 +904,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "reshard plan, and the reshard engine is not ported yet "
             '(ROADMAP: "The operations modules")'
         )
-    if args.capture_dir:
-        ap.error(
-            "--capture-dir: anomaly-triggered capture (the obs/trace.py "
-            "analyzer and AnomalyCapture) is not ported yet "
-            '(ROADMAP: "The rest of serving and obs")'
-        )
     if args.top_p is not None and args.temperature is None:
         ap.error(
             "--top-p is only consumed together with --temperature"
@@ -1018,6 +1030,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 spec_draft_cfg=spec_draft_cfg,
                 checkpoint_dir=args.checkpoint_dir,
                 spec_draft_ckpt=args.spec_draft_ckpt,
+                capture_dir=args.capture_dir,
             )
     else:
         summary = run_replay(

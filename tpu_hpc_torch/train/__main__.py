@@ -445,6 +445,7 @@ def build_trainer(
     pp: Optional[PipeArgs] = None,
     comm_mode: str = "flat",
     comm_plan=None,
+    train_overrides: Optional[dict] = None,
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
@@ -476,7 +477,9 @@ def build_trainer(
     "dp" plan over ``mesh``, which must be :func:`comm_mode_mesh`'s
     (checked here: hierarchical on a world with no two-tier split is
     refused in bench.py's words), the batch split over its data
-    axes."""
+    axes. ``train_overrides``: ``TrainingConfig`` fields set over
+    bench.py's before the Trainer is built (``profile`` and its window,
+    ``capture_on_anomaly``), so its constructor checks them."""
     from tpu_hpc_torch.models import datasets
     from tpu_hpc_torch.parallel import dp, fsdp, hybrid, tp
     from tpu_hpc_torch.parallel.plans import P
@@ -501,7 +504,8 @@ def build_trainer(
             moments_dtype=moments_dtype, device=device, mesh=mesh,
             sp_mode=sp_mode, guard_mode=guard_mode,
             checkpoint_dir=checkpoint_dir, save_every=save_every,
-            resume=resume, metrics_path=metrics_path)
+            resume=resume, metrics_path=metrics_path,
+            train_overrides=train_overrides)
     plan = resolve_plan(plan, mesh, sp_mode, resolved)
     dp_size = mesh_axis_size(mesh, "data")
     cp_size = mesh_axis_size(mesh, "context")
@@ -553,7 +557,7 @@ def build_trainer(
         grad_accum_steps=grad_accum_steps, moments_dtype=moments_dtype,
         guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
         save_every=save_every, resume=resume, metrics_path=metrics_path,
-        comm_mode=comm_mode)
+        comm_mode=comm_mode, overrides=train_overrides)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
                               seq_len=model_cfg.max_seq_len, seed=SEED,
                               zigzag_ring=zigzag_ring)
@@ -569,9 +573,11 @@ def build_trainer(
 def _config_and_manager(global_batch: int, *, steps, epochs,
                         grad_accum_steps, moments_dtype, guard_mode,
                         checkpoint_dir, save_every, resume, metrics_path,
-                        comm_mode: str = "flat"):
-    """bench.py's TrainingConfig for the run, and its CheckpointManager
-    (None without a checkpoint dir)."""
+                        comm_mode: str = "flat",
+                        overrides: Optional[dict] = None):
+    """bench.py's TrainingConfig for the run with ``overrides`` set
+    over it, and its CheckpointManager (None without a checkpoint
+    dir)."""
     from tpu_hpc_torch.config import TrainingConfig
 
     cfg = TrainingConfig(
@@ -583,6 +589,8 @@ def _config_and_manager(global_batch: int, *, steps, epochs,
         checkpoint_dir=checkpoint_dir or "", resume=resume,
         metrics_path=metrics_path, comm_mode=comm_mode,
     )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     manager = None
     if checkpoint_dir:
         from tpu_hpc_torch.ckpt import CheckpointManager
@@ -594,7 +602,7 @@ def _config_and_manager(global_batch: int, *, steps, epochs,
 def _build_pipe_trainer(model_cfg, pp: PipeArgs, *, steps, epochs,
                         grad_accum_steps, attn, moments_dtype, device, mesh,
                         sp_mode, guard_mode, checkpoint_dir, save_every,
-                        resume, metrics_path):
+                        resume, metrics_path, train_overrides=None):
     """:func:`build_trainer` for a pipeline run (bench_llama_pp)."""
     from tpu_hpc_torch.models import datasets
     from tpu_hpc_torch.parallel.plans import P
@@ -618,7 +626,8 @@ def _build_pipe_trainer(model_cfg, pp: PipeArgs, *, steps, epochs,
         pp.microbatches * pp.microbatch_size, steps=steps, epochs=epochs,
         grad_accum_steps=grad_accum_steps, moments_dtype=moments_dtype,
         guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
-        save_every=save_every, resume=resume, metrics_path=metrics_path)
+        save_every=save_every, resume=resume, metrics_path=metrics_path,
+        overrides=train_overrides)
     ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
                               seq_len=model_cfg.max_seq_len, seed=SEED)
     return Trainer(cfg, mesh, forward, params, param_pspecs=specs,

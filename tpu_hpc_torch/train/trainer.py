@@ -41,10 +41,14 @@ numeric-health guard (``guard_mode`` skip or rollback, the health
 vector on the chunk's one host fetch, persisted skip windows),
 ``PreemptionGuard`` with an emergency snapshot, the hang watchdog, the
 heartbeat, the stall watermark and fault plans from
-``$TPU_HPC_FAULTS``. Not ported yet, and refused by ``Trainer`` when
-set (each names its ROADMAP item): ``profile`` and
-``capture_on_anomaly``; stage and slice faults are refused as the JAX
-Trainer refuses them.
+``$TPU_HPC_FAULTS``; stage and slice faults are refused as the JAX
+Trainer refuses them. ``profile`` opens one ``torch.profiler`` window
+over the configured steps (``profiling.TrainingProfiler``, a Chrome
+trace under ``profile_dir``); ``capture_on_anomaly`` arms an
+``obs.AnomalyCapture`` under ``<checkpoint_dir or profile_dir>/anomaly``
+that a stall or a poisoned guard verdict fires: a flight dump, a
+device-memory record and a profiler window over the next
+``capture_steps`` steps, keyed by the step's trace id.
 
 Gradient sync (``cfg.comm_mode``, the JAX Trainer's resolution): "flat"
 leaves it to the plan's own collectives (FSDP2, or none on one device);
@@ -58,6 +62,7 @@ all-reduce; "auto" asks the collective planner
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -78,6 +83,7 @@ from tpu_hpc_torch.parallel.shard import (
     local,
     shard_params,
 )
+from tpu_hpc_torch.profiling import TrainingProfiler
 from tpu_hpc_torch.resilience import guard as guard_lib
 from tpu_hpc_torch.resilience.faults import fault_plan_from_env
 from tpu_hpc_torch.resilience.guard import GuardPolicy
@@ -776,26 +782,6 @@ def state_from_numpy(step, params, opt_state, cfg,
 # Trainer
 # ---------------------------------------------------------------------------
 
-# What the Trainer refuses, and the ROADMAP item (by its title) that
-# ports it.
-UNPORTED = {
-    "profile": 'profile=True (ROADMAP: "The operations modules", '
-               'profiling/profiler.py)',
-    "capture_on_anomaly": 'capture_on_anomaly=True ('
-                          'ROADMAP: "The rest of serving and obs", '
-                          'obs/trace.py AnomalyCapture)',
-}
-
-
-def _refuse_unported(cfg: TrainingConfig) -> None:
-    refused = [text for knob, text in UNPORTED.items()
-               if getattr(cfg, knob)]
-    if refused:
-        raise NotImplementedError(
-            "not ported yet in tpu_hpc_torch.train: " + "; ".join(refused)
-        )
-
-
 def _checked_fault_plan():
     """``$TPU_HPC_FAULTS``'s plan, refusing the stage and slice faults
     this SPMD Trainer cannot inject (the JAX Trainer's vacuous-pass
@@ -904,7 +890,6 @@ class Trainer:
         ``comm_plan``: a decision already made for ``comm_mode="auto"``
         (``comm.planner.CommDecision``; the CLI resolves before it builds
         the mesh), used instead of planning again."""
-        _refuse_unported(cfg)
         if isinstance(mesh, Mapping) and math.prod(mesh.values()) > 1:
             raise ValueError(
                 f"a mesh of {math.prod(mesh.values())} devices must be a "
@@ -1031,6 +1016,19 @@ class Trainer:
         # stragglers and enriches the heartbeat.
         self.heartbeat = Heartbeat.from_env()
         self.stall = obs.StallDetector()
+        # Anomaly-triggered capture (obs/trace.py): a stall-watermark
+        # breach or a poisoned guard verdict fires ONE bounded
+        # torch.profiler window + flight dump, keyed by the triggering
+        # step's trace id, with zero operator intervention. Built per
+        # fit() (cfg.capture_on_anomaly), but the knob is validated
+        # HERE: a bad capture_steps must fail at construction, not
+        # after a full bring-up.
+        if cfg.capture_on_anomaly and cfg.capture_steps < 1:
+            raise ValueError(
+                f"capture_steps {cfg.capture_steps} must be >= 1 "
+                "when capture_on_anomaly is set"
+            )
+        self.capture: Optional[obs.AnomalyCapture] = None
         # Live telemetry plane (obs/digest.py): per-HOST health digests
         # into $TPU_HPC_DIGEST_DIR every chunk boundary, keyed by rank,
         # so a fleet rollup (python -m tpu_hpc_torch.obs.live) compares
@@ -1370,6 +1368,19 @@ class Trainer:
             "config": dataclasses.asdict(self._effective_cfg),
         })
         run_summaries: List[Dict] = []
+        prof = None
+        if cfg.profile:
+            prof = TrainingProfiler(
+                cfg.profile_dir, cfg.profile_start_step,
+                cfg.profile_num_steps, device=self.device,
+            )
+        if cfg.capture_on_anomaly:
+            self.capture = obs.AnomalyCapture(
+                profile_dir=os.path.join(
+                    cfg.checkpoint_dir or cfg.profile_dir, "anomaly"
+                ),
+                n_steps=cfg.capture_steps, device=self.device,
+            )
         guard = (PreemptionGuard().install()
                  if self.checkpoint_manager is not None else None)
         hang_timeout = float(os.environ.get(ENV_HANG_TIMEOUT, "0") or 0)
@@ -1383,7 +1394,7 @@ class Trainer:
         preempted = False
         try:
             last, preempted = self._fit_loop(dataset, start_step,
-                                             total_steps, guard,
+                                             total_steps, prof, guard,
                                              run_summaries)
             if self.checkpoint_manager is not None:
                 self.checkpoint_manager.wait()
@@ -1393,6 +1404,12 @@ class Trainer:
             if self._watchdog is not None:
                 self._watchdog.stop()
                 self._watchdog = None
+            if prof is not None:
+                prof.stop()
+            if self.capture is not None:
+                # A capture window still open at teardown must not
+                # leak its profiler.
+                self.capture.close()
         goodput = self.goodput.summary()
         self._append_metrics({
             "event": "run_end", "time": time.time(), "step": self.state.step,
@@ -1413,7 +1430,7 @@ class Trainer:
             "resumed_from_step": start_step,
         }
 
-    def _fit_loop(self, dataset, done: int, total_steps: int, guard,
+    def _fit_loop(self, dataset, done: int, total_steps: int, prof, guard,
                   run_summaries: List[Dict]) -> Tuple[Dict, bool]:
         cfg = self.cfg
         spe = cfg.steps_per_epoch
@@ -1434,11 +1451,18 @@ class Trainer:
                 if nxt is not None:
                     chunk = min(chunk, nxt - done)
             self._fit_offset = off
+            if prof is not None:
+                # The window opens and closes at chunk boundaries, on
+                # the Trainer's step numbers.
+                prof.step(done)
             self.meter.reset()
             self.meter.start_batch()
             losses, metrics, health = [], {}, []
             data_s = 0.0
-            with self.goodput.measure("productive"):
+            # Step-boundary range in the profile: one per chunk.
+            ann = (prof.annotate(done) if prof is not None
+                   else contextlib.nullcontext())
+            with self.goodput.measure("productive"), ann:
                 for i in range(chunk):
                     t_data = time.perf_counter()
                     batch = dataset.batch_at(done + i + off, bs)
@@ -1476,8 +1500,15 @@ class Trainer:
             if data_s > 0:
                 obs.emit_span("data", data_s, sink=self._sink(), step=done,
                               n=chunk, hist="train_data_s", trace_id=tid)
-            self.stall.observe(done, s_per_step, sink=self._sink(),
-                               trace_id=tid)
+            stall_info = self.stall.observe(done, s_per_step,
+                                            sink=self._sink(), trace_id=tid)
+            if stall_info is not None and self.capture is not None:
+                # Stall -> evidence: one bounded profiler capture +
+                # flight dump keyed by this chunk's trace id.
+                self.capture.trigger("stall", trace_id=tid, step=done,
+                                     sink=self._sink())
+            if self.capture is not None:
+                self.capture.step(done)
             reg = obs.get_registry()
             reg.inc("train_steps_total", chunk)
             reg.inc("train_items_total", chunk * bs)
@@ -1569,6 +1600,14 @@ class Trainer:
             if verdict.ratio is not None:
                 rec["ratio"] = verdict.ratio
             self._append_metrics(rec)
+            if self.capture is not None and verdict.verdict == "poisoned":
+                # Poisoned step -> evidence bundle keyed by the
+                # poisoned step's trace id (the rollback also dumps the
+                # ring; the bundle adds the memory state and, when the
+                # run goes on in skip mode, a bounded profiler window).
+                self.capture.trigger("guard_poisoned",
+                                     trace_id=obs.step_trace_id(step),
+                                     step=step, sink=self._sink())
             # The window anchors at the first verdict that DEMANDS a
             # rollback; an earlier event-only spike was fine to train
             # through by policy.
