@@ -344,6 +344,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     analyzer's step timelines with 0 orphan spans. The
                     update time with the profiler on and off, and each
                     window's stop + export seconds, are readings.
+ 13. ops         -- the operations path. (a) The serve phase's replay
+                    (Llama-2-7B, full width and depth, the same requests)
+                    through run_replay(disagg=True) with both tiers on
+                    this card: the prefill tier's paged prefill kernel
+                    and the decode tier's split/combine kernels, the KV
+                    hop a reshard plan per bucket, bounded by the
+                    planner's "auto" chunk. Gates: the greedy
+                    tokens equal the serve phase's on every request;
+                    nothing made after warmup (no plan, buffer or
+                    program); kv_transfers equal the requests' hop
+                    pieces and kv_transfer_bytes the plans' measured and
+                    modeled wire bytes; after each prompt's hop the
+                    decode tier's pages at its own page ids equal the
+                    prefill tier's bit for bit; each tier launched only its
+                    kernel, as many times as the wrappers count (the
+                    prefill on its wgmma route). Control the gates must
+                    reject: every hop scattering at the prefill tier's
+                    page ids. Then the serve_int8 replay the same way
+                    over an int8 pool (its pages' scales hop with them;
+                    the prefill tier on the wgmma_int8 route), held to
+                    serve_int8's tokens. TTFT/ITL, the hop's ms and peak
+                    memory are readings. (b) The bench Llama's TrainState (FSDP2
+                    params on a one-rank NCCL mesh, fp32 params and
+                    AdamW moments, about 2.02 GB) moved by the reshard
+                    engine to plain tensors on this card and back, under
+                    max_inflight_bytes = total / 4: bit-equal both ways,
+                    the rise in max_memory_allocated within the plan's
+                    modeled peak, and a replay of the held plan making
+                    no allocation; plan ms, execute ms and GB/s. (c) The
+                    TopologyCoordinator drives the bench Llama (FSDP2,
+                    the flash kernels) through slice_down_at_step=2,
+                    slice_up_at_step=4 over 6 updates on the one-rank
+                    world (both morphs 1 -> 1): 2 morphs, 3 segments, 0
+                    restarts, the loss stream bit-identical to a
+                    fixed-topology run, each flash kernel launched
+                    layers x accum x updates times (384).
 
 The flash phase also holds the ViT's attention: B 8, S 512 (and a
 ragged S 500), 8 heads of head_dim 32, no causal mask, with the
@@ -354,7 +390,7 @@ Then the per-kernel summary line (the flash rows with their launches in
 train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
 model, in train_comm (a), in
 train_vision (b) and in train_long, and the ViT case's times; every row
-with its launches in obs_capture), nvidia-smi's
+with its launches in obs_capture and in ops), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
@@ -5324,6 +5360,496 @@ def obs_capture_phase(torch, dev, cfg, serve_cfg, paged) -> dict:
             **train_launches}
 
 
+# ---------------------------------------------------------------------
+# Phase 13: the operations path -- disaggregated serving, the reshard
+# engine, the elastic coordinator
+# ---------------------------------------------------------------------
+
+OPS_DIR = "build/chip_smoke_ops"
+# (c)'s storm: shrink at update 2, grow back at 4, over 6 updates (one
+# update an epoch); on one card both morphs are 1 -> 1.
+OPS_STORM = "slice_down_at_step=2,slice_up_at_step=4"
+OPS_UPDATES = 6
+
+
+@contextlib.contextmanager
+def recorded_runs():
+    """The token streams of every ContinuousBatcher.run inside the
+    block, in order (run_replay returns only its summary)."""
+    from tpu_hpc_torch.serve.scheduler import ContinuousBatcher
+
+    runs = []
+    orig = ContinuousBatcher.run
+
+    def run(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        runs.append(dict(out))
+        return out
+
+    ContinuousBatcher.run = run
+    try:
+        yield runs
+    finally:
+        ContinuousBatcher.run = orig
+
+
+@contextlib.contextmanager
+def recorded_disagg(scatter_at_prefill_ids=False):
+    """The DisaggEngines warmed inside the block, each with its tiers'
+    paged-kernel launches counted apart (the prefill tier's chunks, the
+    decode tier's ticks; counted from the end of warmup) and the bus
+    ring's length at that point. ``scatter_at_prefill_ids``: the
+    control -- every hop scatters at the PREFILL tier's page ids
+    instead of the decode tier's."""
+    from tpu_hpc_torch.obs import get_bus
+    from tpu_hpc_torch.serve.disagg import DisaggEngine
+
+    engines = []
+    orig_warmup, orig_table = DisaggEngine.warmup, DisaggEngine._hop_table
+    orig_step = DisaggEngine.prefill_step
+
+    def prefill_step(self, slot):
+        """After a prompt's last chunk: the decode tier's pages at ITS
+        table's ids hold the prefill tier's pages bit for bit."""
+        pe, de = self.prefill_engine, self.decode_engine
+        src = pe.slot_table(slot)
+        n_pages = -(-len(pe.slot_state(slot).prompt)
+                    // self.paged.block_size)
+        tok = orig_step(self, slot)
+        if tok is not None:
+            dst = de.slot_table(slot)
+            rec = engines[-1]["hops"]
+            rec["checked"] += 1
+            s_ids = list(map(int, src[:n_pages]))
+            d_ids = list(map(int, dst[:n_pages]))
+            pairs = [(pe.ks, de.ks), (pe.vs, de.vs)]
+            if pe.k_scales is not None:
+                pairs += [(pe.k_scales, de.k_scales),
+                          (pe.v_scales, de.v_scales)]
+            if not all(a[:, s_ids].equal(b[:, d_ids]) for a, b in pairs):
+                rec["mismatched"] += 1
+        return tok
+
+    def counted(fn, row):
+        def call(*args, **kwargs):
+            before = _launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                after = _launch_counts()
+                for k in after:
+                    row[k] += after[k] - before[k]
+        return call
+
+    def warmup(self):
+        n = orig_warmup(self)
+        rec = {"engine": self, "events_from": len(get_bus().ring()),
+               "hops": {"checked": 0, "mismatched": 0},
+               "tiers": {"prefill": dict.fromkeys(_launch_counts(), 0),
+                         "decode": dict.fromkeys(_launch_counts(), 0)}}
+        pe, de = self.prefill_engine, self.decode_engine
+        tier_fns = (("prefill", pe, "prefill_step"), ("prefill", pe,
+                                                      "prefill"),
+                    ("decode", de, "decode"))
+        for tier, eng, name in tier_fns:
+            setattr(eng, name, counted(getattr(eng, name),
+                                       rec["tiers"][tier]))
+        engines.append(rec)
+        return n
+
+    DisaggEngine.warmup = warmup
+    DisaggEngine.prefill_step = prefill_step
+    if scatter_at_prefill_ids:
+        DisaggEngine._hop_table = (
+            lambda self, slot: self.prefill_engine.slot_table(slot))
+    try:
+        yield engines
+    finally:
+        DisaggEngine.warmup = orig_warmup
+        DisaggEngine.prefill_step = orig_step
+        DisaggEngine._hop_table = orig_table
+
+
+def ops_disagg_run(torch, dev, cfg, serve_cfg, paged, n_requests,
+                   control=False, prompt_lens=SERVE_PROMPT_LENS,
+                   max_new=SERVE_MAX_NEW) -> dict:
+    """run_replay with ``disagg=True``, both tiers on ``dev``: its
+    summary, tokens, the engine's hop plans and expected hop pieces, the
+    reshard_plan events after warmup and the launches by tier."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.obs import get_bus
+    from tpu_hpc_torch.serve import replay_requests
+    from tpu_hpc_torch.serve.server import run_replay
+
+    _zero_launches()
+    with fresh_obs("chip-smoke-ops-disagg"), recorded_runs() as runs, \
+            recorded_disagg(scatter_at_prefill_ids=control) as engines:
+        summary = run_replay(cfg, serve_cfg, n_requests, prompt_lens,
+                             max_new, seed=0, paged=paged, device=dev,
+                             disagg=True, disagg_max_inflight_mb="auto",
+                             disagg_devices=(dev, dev))
+        (rec,) = engines
+        events = [r for r in get_bus().ring()[rec["events_from"]:]
+                  if r["event"] == "reshard_plan"]
+    eng = rec["engine"]
+    reqs = replay_requests(n_requests, cfg.vocab_size, prompt_lens,
+                           max_new, seed=0)
+    out = {
+        "summary": summary, "tokens": runs[-1],
+        "hop_pieces": sum(len(eng._hop_pieces(len(r.prompt)))
+                          for r in reqs),
+        "plan_wire_bytes": {b: p.wire_bytes for b, p in eng._plans.items()},
+        "events": events, "tiers": rec["tiers"], "hops": rec["hops"],
+        "requests": n_requests, "kv_quant": paged.kv_quant,
+        "launches": _launch_counts(),
+        "prefill_routes": dict(pa.paged_prefill_attention.route_launches),
+    }
+    del eng, rec, engines
+    _release(torch)
+    return out
+
+
+def ops_disagg_failures(run, single_tokens, on_card: bool) -> list:
+    """(a)'s gates: tokens equal the single-tier replay's; after each
+    prompt's hop the decode tier's pages (and an int8 pool's scales) at
+    its own page ids equal the prefill tier's bit for bit; nothing
+    rebuilt after warmup; kv_transfers equal the requests' hop pieces;
+    kv_transfer_bytes equal the plans' measured bytes and their modeled
+    wire bytes; on the card, each tier launched only its kernel and the
+    tiers' counts equal the wrappers' (the prefill on its pool's route:
+    wgmma, or wgmma_int8 over an int8 pool)."""
+    fails = []
+    s = run["summary"]
+    d = s["disagg"]
+    if run["tokens"] != single_tokens:
+        differ = sorted(r for r in single_tokens
+                        if run["tokens"].get(r) != single_tokens[r])
+        fails.append(f"tokens differ from the single tier on {differ}")
+    hops = run["hops"]
+    if hops["mismatched"] or hops["checked"] != run["requests"]:
+        fails.append(f"{hops['mismatched']} of {hops['checked']} hops left "
+                     "the decode tier's pages unequal to the prefill "
+                     "tier's")
+    if s["recompiles"] != 0:
+        fails.append(f"{s['recompiles']} plans/buffers/programs made after "
+                     "warmup")
+    if d["kv_transfers"] != run["hop_pieces"] \
+            or len(run["events"]) != run["hop_pieces"]:
+        fails.append(f"kv_transfers {d['kv_transfers']}, hop pieces "
+                     f"{run['hop_pieces']}, plan executions "
+                     f"{len(run['events'])}")
+    measured = sum(e["measured_bytes"] for e in run["events"])
+    modeled = sum(e["wire_bytes"] for e in run["events"])
+    if not d["kv_transfer_bytes"] == measured == modeled:
+        fails.append(f"kv_transfer_bytes {d['kv_transfer_bytes']}, measured "
+                     f"{measured}, modeled wire {modeled}")
+    if on_card:
+        pre, dec = run["tiers"]["prefill"], run["tiers"]["decode"]
+        total = run["launches"]
+        if pre["paged_decode_attention"] or dec["paged_prefill_attention"]:
+            fails.append(f"a tier launched the other's kernel: {run['tiers']}")
+        if pre["paged_prefill_attention"] < 1 \
+                or dec["paged_decode_attention"] < 1:
+            fails.append(f"a tier's kernel never launched: {run['tiers']}")
+        if pre["paged_prefill_attention"] != total[
+                "paged_prefill_attention"] or dec["paged_decode_attention"] \
+                != total["paged_decode_attention"] \
+                or total != s["kernel_launches"]:
+            fails.append(f"tier launches {run['tiers']} vs the wrappers' "
+                         f"{total} and the summary's "
+                         f"{s['kernel_launches']}")
+        route = "wgmma_int8" if run["kv_quant"] == "int8" else "wgmma"
+        if run["prefill_routes"].get(route) != \
+                total["paged_prefill_attention"]:
+            fails.append(f"prefill routes {run['prefill_routes']}, not all "
+                         f"{route}")
+    return fails
+
+
+def ops_reshard_part(torch, dev, model_cfg=None) -> tuple:
+    """(b): the bench Llama's TrainState (FSDP2 params on a one-rank
+    mesh + AdamW moments) moved to plain tensors on a tier of this card
+    and back, under max_inflight_bytes = total / 4. Returns (readings,
+    failures). A process group must be up."""
+    from tpu_hpc_torch import reshard
+    from tpu_hpc_torch.elastic.coordinator import (
+        build_rank_mesh,
+        state_layout,
+        state_targets,
+    )
+    from tpu_hpc_torch.parallel.shard import local
+    from tpu_hpc_torch.reshard.execute import _stages
+    from tpu_hpc_torch.reshard.plan import (
+        TensorSpec,
+        tree_flatten_with_path,
+        tree_unflatten,
+    )
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    import math
+
+    cuda = dev.type == "cuda"
+    mesh = build_rank_mesh({"data": 1}, [0], dev.type)
+    trainer, _ = build_trainer(model_cfg or bench_model_cfg(), steps=1,
+                               epochs=1, batch=TRAIN_BATCH,
+                               grad_accum_steps=TRAIN_ACCUM, device=dev,
+                               mesh=mesh, plan="fsdp")
+    abstract, local_state = state_layout(trainer)
+    leaves, treedef = tree_flatten_with_path(abstract)
+    total = sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+                for _, leaf in leaves if isinstance(leaf, TensorSpec))
+    plain = reshard.Sharding(reshard.Mesh.of_device(dev, "plain"))
+    to_plain = reshard.plan_reshard(
+        abstract, tree_unflatten(treedef, [plain] * len(leaves)),
+        max_inflight_bytes=total // 4, label="state_to_plain")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def allocs():
+        return torch.cuda.memory_stats(dev)["allocation.all.allocated"] \
+            if cuda else 0
+
+    def flat(tree):
+        return [v for _, v in tree_flatten_with_path(tree)[0]]
+
+    src = [local(t).detach() if isinstance(t, torch.Tensor) else t
+           for t in flat(local_state)]
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    out = to_plain.execute(local_state)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rise = (torch.cuda.max_memory_allocated(dev) - before) if cuda else 0
+    n_buffers, n_allocs = to_plain.compiled_program_count, allocs()
+    t0 = time.perf_counter()
+    again = to_plain.execute(local_state)
+    sync()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    replay_allocs = allocs() - n_allocs
+    # And back: the plain tensors onto the trainer's FSDP2 layout.
+    back_abstract = tree_unflatten(treedef, [
+        TensorSpec(leaf.shape, leaf.dtype, plain)
+        if isinstance(leaf, TensorSpec) else leaf for _, leaf in leaves])
+    to_fsdp = reshard.plan_reshard(
+        back_abstract, state_targets(abstract),
+        max_inflight_bytes=total // 4, label="plain_to_state")
+    t0 = time.perf_counter()
+    home = to_fsdp.execute(again)
+    sync()
+    back_ms = (time.perf_counter() - t0) * 1e3
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            return torch.equal(torch.as_tensor(a).to(dev),
+                               torch.as_tensor(b).to(dev))
+        return a == b
+
+    fails = []
+    if not all(same(a, b) for a, b in zip(src, flat(out))):
+        fails.append("(b) the plain copy is not bit-equal to the state")
+    if not all(same(a, b) for a, b in zip(src, flat(home))):
+        fails.append("(b) the round trip is not bit-equal to the state")
+    modeled = to_plain.peak_device_bytes(dev)
+    if cuda and rise > modeled:
+        fails.append(f"(b) memory rose {rise} B over the modeled peak "
+                     f"{modeled} B")
+    if to_plain.compiled_program_count != n_buffers or replay_allocs:
+        fails.append(f"(b) the held plan's replay made "
+                     f"{to_plain.compiled_program_count - n_buffers} "
+                     f"buffers and {replay_allocs} allocations")
+    if not to_plain.bound_met:
+        fails.append("(b) a step is over the bound")
+    readings = {
+        "state_bytes": total, "leaves": len(leaves),
+        "max_inflight_bytes": total // 4,
+        "plan": to_plain.summary(), "stages": len(_stages(to_plain)),
+        "plan_ms": None, "execute_ms": first_ms, "replay_ms": replay_ms,
+        "back_ms": back_ms,
+        "gb_per_s": total / (replay_ms / 1e3) / 1e9 if replay_ms else None,
+        "memory_rise_bytes": rise, "modeled_peak_bytes": modeled,
+        "replay_allocations": replay_allocs,
+    }
+    t0 = time.perf_counter()
+    reshard.plan_reshard(abstract, tree_unflatten(treedef, [plain]
+                                                  * len(leaves)),
+                         max_inflight_bytes=total // 4)
+    readings["plan_ms"] = (time.perf_counter() - t0) * 1e3
+    del trainer, out, again, home, local_state, src
+    if cuda:
+        _release(torch)
+    return readings, fails
+
+
+def ops_elastic_part(torch, dev, model_cfg=None,
+                     updates=OPS_UPDATES) -> tuple:
+    """(c): the bench Llama (FSDP2 on a one-rank mesh, the flash
+    kernels) through the TopologyCoordinator under OPS_STORM, beside a
+    fixed-topology run of the same updates; the flash launches of the
+    coordinator's run (set to 0 just before). Returns (readings,
+    failures, launches). A process group must be up."""
+    import shutil
+
+    from tpu_hpc_torch.elastic import TopologyCoordinator, choose_layout
+    from tpu_hpc_torch.elastic.coordinator import build_rank_mesh
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.models import datasets
+    from tpu_hpc_torch.obs.schema import load_records
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, build_trainer
+
+    model_cfg = model_cfg or bench_model_cfg()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), OPS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def factory_for(path):
+        def factory(mesh):
+            return build_trainer(model_cfg, steps=1, epochs=updates,
+                                 batch=TRAIN_BATCH,
+                                 grad_accum_steps=TRAIN_ACCUM, device=dev,
+                                 mesh=mesh, plan="fsdp",
+                                 metrics_path=path)[0]
+        return factory
+
+    def losses(path):
+        return [(r["step"], r["loss"]) for r in load_records(path)
+                if r["event"] == "epoch"]
+
+    from tpu_hpc_torch.train.__main__ import SEED
+
+    ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
+                              seq_len=model_cfg.max_seq_len, seed=SEED)
+    fixed_path, storm_path = (os.path.join(root, f"{n}.jsonl")
+                              for n in ("fixed", "storm"))
+    decision = choose_layout([0], global_batch=TRAIN_BATCH,
+                             current_data_extent=1, device_type=dev.type)
+    t0 = time.perf_counter()
+    factory_for(fixed_path)(build_rank_mesh(decision.axes, [0],
+                                            dev.type)).fit(ds)
+    fixed_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        _release(torch)
+    zero_flash_launches()
+    t0 = time.perf_counter()
+    with armed(OPS_STORM):
+        summary = TopologyCoordinator(
+            factory_for(storm_path), global_batch=TRAIN_BATCH,
+            data_extent=1, device_type=dev.type).run(ds)
+    storm_s = time.perf_counter() - t0
+    launches = fa.kernel_launches()
+    fixed, storm = losses(fixed_path), losses(storm_path)
+    expected = model_cfg.n_layers * TRAIN_ACCUM * updates
+    fails = []
+    if summary["morph_count"] != 2 or len(summary["segments"]) != 3 \
+            or summary["restarts"] != 0 or summary["pid"] != os.getpid():
+        fails.append(f"(c) {summary['morph_count']} morphs, "
+                     f"{len(summary['segments'])} segments, restarts "
+                     f"{summary['restarts']}")
+    if storm != fixed or len(storm) != updates:
+        fails.append(f"(c) loss stream {storm} vs the fixed run's {fixed}")
+    if dev.type == "cuda" and any(n != expected for n in launches.values()):
+        fails.append(f"(c) flash launches {launches}, expected {expected}")
+    readings = {
+        "model": "bench", "updates": updates, "faults": OPS_STORM,
+        "segments": [s["n_devices"] for s in summary["segments"]],
+        "morphs": [{k: m[k] for k in ("step", "kind", "wire_bytes",
+                                      "stall_s")}
+                   for m in summary["morphs"]],
+        "stall_s": summary["stall_s"], "restarts": summary["restarts"],
+        "losses": [v for _, v in storm], "loss_bit_identical":
+        storm == fixed, "launches": launches,
+        "expected_launches": expected, "fixed_s": fixed_s,
+        "storm_s": storm_s,
+    }
+    shutil.rmtree(root, ignore_errors=True)
+    return readings, fails, launches
+
+
+def ops_serve_reading(run, control=None) -> dict:
+    """(a)'s readings of one disaggregated run (and its control)."""
+    s, d = run["summary"], run["summary"]["disagg"]
+    out = {
+        "kv_quant": run["kv_quant"], "requests": s["requests"],
+        "tokens": s["tokens"],
+        **{k: s[k] for k in ("ttft_ms_p50", "ttft_ms_p95", "itl_ms_p50",
+                             "itl_ms_p95", "tokens_per_s", "wall_s",
+                             "peak_memory_bytes", "recompiles") if k in s},
+        **{k: d[k] for k in ("kv_transfers", "kv_transfer_bytes",
+                             "kv_transfer_ms_p50", "kv_transfer_ms_p95",
+                             "max_inflight_bytes")},
+        "kv_plans": d["kv_plans"], "tier_launches": run["tiers"],
+        "prefill_routes": run["prefill_routes"], "hop_checks": run["hops"],
+    }
+    if control is not None:
+        out["control"] = control
+    return out
+
+
+def ops_phase(torch, dev, cfg, serve_cfg, paged, single_tokens,
+              int8_tokens) -> dict:
+    """Phase 13 (``ops``): (a) disaggregated serving of the 7B, both
+    tiers on this card, over the bf16 pool with its control and over
+    the int8 pool; (b) the reshard engine on the bench Llama's state;
+    (c) the coordinator's storm. Every gate's failures gathered, the
+    phase line printed, then the phase fails if any gate did (or the
+    control passed). Returns the phase's launches by kernel wrapper."""
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.runtime.sim import free_port
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    run = ops_disagg_run(torch, dev, cfg, serve_cfg, paged, SERVE_REQUESTS)
+    failures = ops_disagg_failures(run, single_tokens, on_card)
+    control = ops_disagg_run(torch, dev, cfg, serve_cfg, paged,
+                             SERVE_REQUESTS, control=True)
+    control_fails = ops_disagg_failures(control, single_tokens, False)
+    if not control_fails:
+        failures.append("(a) the control (scatter at the prefill tier's "
+                        "page ids) passed the gates")
+    int8 = ops_disagg_run(torch, dev, cfg, serve_cfg,
+                          dataclasses.replace(paged, kv_quant="int8"),
+                          SERVE_REQUESTS)
+    failures += [f"(a int8) {f}" for f in ops_disagg_failures(
+        int8, int8_tokens, on_card)]
+    serve = {
+        "model": "7b", "n_layers": cfg.n_layers, "tiers": [str(dev)] * 2,
+        "bf16": ops_serve_reading(run, {
+            "rejected": bool(control_fails),
+            "tokens_changed": control["tokens"] != single_tokens,
+            "failures": control_fails}),
+        "int8": ops_serve_reading(int8),
+    }
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        state, state_fails = ops_reshard_part(torch, dev)
+        storm, storm_fails, flash = ops_elastic_part(torch, dev)
+    finally:
+        dist.destroy_process_group()
+    failures += state_fails + storm_fails
+    emit("ops", seconds=time.perf_counter() - t0, disagg=serve,
+         reshard=state, elastic=storm, failures=failures)
+    if failures:
+        raise SystemExit(f"ops: {failures}")
+    return {
+        "paged_decode_attention": {
+            "decode_tier": run["tiers"]["decode"]["paged_decode_attention"],
+            "decode_tier_int8": int8["tiers"]["decode"][
+                "paged_decode_attention"]},
+        "paged_prefill_attention": {"prefill_tier": run["tiers"]["prefill"][
+            "paged_prefill_attention"]},
+        INT8_PREFILL: {"prefill_tier": int8["tiers"]["prefill"][
+            "paged_prefill_attention"]},
+        **{k: {"elastic": n} for k, n in flash.items()},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -5364,10 +5890,13 @@ def main() -> int:
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
     cfg, serve_cfg, paged = serve_shape()
-    launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
-    # -- 5b. the same replay over an int8 pool: the prefill's int8 route
-    int8_launches = serve_phase(torch, dev, "serve_int8", cfg, serve_cfg,
-                                dataclasses.replace(paged, kv_quant="int8"))
+    with recorded_runs() as serve_runs:
+        launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
+        # -- 5b. the same replay over an int8 pool: the prefill's int8
+        #        route
+        int8_launches = serve_phase(
+            torch, dev, "serve_int8", cfg, serve_cfg,
+            dataclasses.replace(paged, kv_quant="int8"))
     launches[INT8_PREFILL] = int8_launches["paged_prefill_attention"]
     # -- 5c. speculative decoding and seeded sampling on the paged engine
     spec_launches = serve_spec_phase(torch, dev, cfg, serve_cfg, paged,
@@ -5458,6 +5987,11 @@ def main() -> int:
     # -- 12. observability: capture on a stall, torch.profiler windows
     #        that see the kernels by name, the trace analyzer
     obs_launches = obs_capture_phase(torch, dev, cfg, serve_cfg, paged)
+    _release(torch)
+    # -- 13. the operations path: disaggregated serving (both tiers on
+    #        this card), the reshard engine, the elastic coordinator
+    ops_launches = ops_phase(torch, dev, cfg, serve_cfg, paged,
+                             serve_runs[0], serve_runs[1])
 
     kernels = []
     for name, row in main_rows.items():
@@ -5502,6 +6036,9 @@ def main() -> int:
         # prefill's by route) and the profiled and capture training
         # runs' and the profile window's (flash).
         entry["obs_capture_launches"] = obs_launches[entry["name"]]
+        # Their launches in ops: the disaggregated tiers' (paged, by
+        # tier) and the coordinator's storm (flash).
+        entry["ops_launches"] = ops_launches[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

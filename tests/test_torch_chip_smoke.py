@@ -1196,3 +1196,115 @@ def test_recorded_windows_restore_the_classes(tmp_path, monkeypatch):
     (trig,) = triggers
     assert trig["reason"] == "stall" and trig["max_memory_allocated"] == 123
     assert trig["record"]["flight_path"].startswith(str(tmp_path / "cap"))
+
+
+def test_phase_list_names_ops_after_obs_capture():
+    """ops follows obs_capture in the docstring and in main, and its
+    launches ride the summary line."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *12\. obs_capture ", r"^ *13\. ops ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "recorded_runs()", "obs_capture_phase(", "ops_phase(",
+        '"ops_launches"', 'print(json.dumps({"kernels"')]
+    assert calls == sorted(calls)
+
+
+OPS_TINY = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=128,
+                multiple_of=16, max_seq_len=64)
+
+
+def test_ops_disagg_gates_pass_and_reject_the_control_on_cpu():
+    """(a) at a tiny size on the CPU (both tiers on the CPU, the paged
+    kernels' plain versions): the gates pass against the single tier's
+    tokens, bf16 and int8 pools, and the wrong-page-id control is
+    rejected."""
+    import dataclasses
+
+    import torch
+
+    from tpu_hpc_torch.models import llama2 as tl
+    from tpu_hpc_torch.serve import PagedConfig, ServeConfig
+    from tpu_hpc_torch.serve.server import run_replay
+
+    torch.set_num_threads(1)
+    cfg = tl.LlamaConfig(dtype=torch.float32, **OPS_TINY)
+    serve_cfg = ServeConfig(slots=4, max_seq_len=48,
+                            prefill_buckets=(8, 16))
+    paged = PagedConfig(block_size=4, num_blocks=48, prefill_chunk=8,
+                        kernel="cuda")
+    dev = torch.device("cpu")
+    lens, n, max_new = (5, 11, 20, 7), 8, 6
+    with chip_smoke.recorded_runs() as runs:
+        run_replay(cfg, serve_cfg, n, lens, max_new, seed=0, paged=paged,
+                   device=dev)
+    single = runs[-1]
+    got = chip_smoke.ops_disagg_run(torch, dev, cfg, serve_cfg, paged, n,
+                                    prompt_lens=lens, max_new=max_new)
+    assert chip_smoke.ops_disagg_failures(got, single, False) == []
+    assert got["hop_pieces"] > n  # the 20-token prompts hop in two
+    control = chip_smoke.ops_disagg_run(torch, dev, cfg, serve_cfg, paged, n,
+                                        control=True, prompt_lens=lens,
+                                        max_new=max_new)
+    fails = chip_smoke.ops_disagg_failures(control, single, False)
+    # The page check rejects it (on a tiny random model the greedy
+    # tokens barely read the prompt's K/V, so they may not change).
+    assert any("hops left the decode tier's pages unequal" in f
+               for f in fails)
+    assert control["hops"]["mismatched"] == control["hops"]["checked"] - 1
+    # The int8 pool: pages and their scales hop, held to its own single
+    # tier.
+    int8 = dataclasses.replace(paged, kv_quant="int8")
+    with chip_smoke.recorded_runs() as runs:
+        run_replay(cfg, serve_cfg, n, lens, max_new, seed=0, paged=int8,
+                   device=dev)
+    got8 = chip_smoke.ops_disagg_run(torch, dev, cfg, serve_cfg, int8, n,
+                                     prompt_lens=lens, max_new=max_new)
+    assert chip_smoke.ops_disagg_failures(got8, runs[-1], False) == []
+    assert got8["summary"]["disagg"]["kv_plans"][16]["steps"] == 4
+    # A launch gate reads the tiers' counts: a decode launch on the
+    # prefill tier fails it.
+    bad = dict(got, tiers={"prefill": {"paged_decode_attention": 1,
+                                       "paged_prefill_attention": 3},
+                           "decode": {"paged_decode_attention": 5,
+                                      "paged_prefill_attention": 0}})
+    assert any("the other's kernel" in f for f in
+               chip_smoke.ops_disagg_failures(bad, single, True))
+
+
+def test_ops_reshard_and_elastic_parts_on_cpu(monkeypatch, tmp_path):
+    """(b) and (c) at a tiny width on a one-rank gloo world: the state
+    round trip is bit-equal and the held plan replays without new
+    buffers; the storm gives 2 morphs, 3 segments and the fixed run's
+    loss stream."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_hpc_torch.runtime.sim import free_port
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TRAIN_ACCUM", 2)
+    monkeypatch.setattr(chip_smoke, "OPS_DIR", str(tmp_path / "ops"))
+    cfg = bench_model_cfg(16, False, **{k: v for k, v in OPS_TINY.items()
+                                        if k not in ("n_kv_heads",
+                                                     "max_seq_len")})
+    dev = torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        state, state_fails = chip_smoke.ops_reshard_part(torch, dev, cfg)
+        storm, storm_fails, _ = chip_smoke.ops_elastic_part(torch, dev, cfg)
+    finally:
+        dist.destroy_process_group()
+    assert state_fails == [] and storm_fails == []
+    assert state["plan"]["kinds"]["transfer"] > 0
+    assert state["stages"] > 1  # the bound splits the move into stages
+    assert storm["segments"] == [1, 1, 1]
+    assert storm["loss_bit_identical"]

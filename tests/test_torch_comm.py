@@ -120,12 +120,10 @@ def _world_main(workdir):
         ops=bench.OPS + bench.HIER_OPS + bench.OVERLAP_OPS,
         output=stem + ".csv", device_type="cpu")
     out["bench_records"] = records
-    try:
-        bench.run_comm_bench(sizes=BENCH_SIZES, ops=("reshard_exchange",),
-                             device_type="cpu")
-        out["reshard_refusal"] = None
-    except NotImplementedError as e:
-        out["reshard_refusal"] = str(e)
+    # The reshard rows (the reshard engine's plan + execute).
+    out["reshard_records"] = bench.run_comm_bench(
+        sizes=BENCH_SIZES, warmup=1, iters=2, ops=bench.RESHARD_OPS,
+        output=os.path.join(workdir, "reshard.csv"), device_type="cpu")
     dist.barrier()
     with open(os.path.join(workdir, f"rank{r}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -360,14 +358,34 @@ def test_bench_writes_csv_and_jsonl_with_jax_fields(world):
 
 
 def test_bench_refuses_the_reshard_ops(world):
-    from tpu_hpc_torch.comm import bench
+    """The reshard ops are served now: their rows have the JAX rows'
+    keys, and the modeled fields (bytes per shard, wire bytes, bytes,
+    transient, chunks, bound) equal the JAX bench's over 4 of the
+    simulated devices."""
+    jax = pytest.importorskip("jax", reason="the JAX reference package")
+    from jax.sharding import Mesh
 
+    from tpu_hpc.comm import bench as jb
+
+    want = jb.run_reshard_bench(
+        Mesh(np.array(jax.devices()[:WORLD]), ("data",)), sizes=BENCH_SIZES,
+        warmup=0, iters=1, ops=jb.RESHARD_OPS)
+    fields = ("metric", "unit", "op", "size_elements", "bytes_per_shard",
+              "dtype", "world_size", "max_inflight_bytes",
+              "wire_bytes_modeled", "bytes_moved", "peak_inflight_bytes",
+              "chunks")
     for r in world["ranks"]:
-        assert r["reshard_refusal"] == bench.RESHARD_REFUSAL.format(
-            ops=["reshard_exchange"])
-    assert "The operations modules" in r["reshard_refusal"]
-    with pytest.raises(SystemExit):
-        bench.main(["--op", "reshard_replicate", "--device", "cpu"])
+        got = r["reshard_records"]
+        assert [list(g) for g in got] == [list(w) for w in want]
+        assert [{k: g.get(k) for k in fields} for g in got] == \
+            [{k: w.get(k) for k in fields} for w in want]
+        for g in got:
+            if g["unit"] == "ms":
+                assert g["mean_s"] > 0 and g["plan_ms"] > 0
+    assert {g["op"] for g in got} == {
+        "reshard_exchange", "reshard_exchange_bounded", "reshard_replicate"}
+    with open(os.path.join(world["workdir"], "reshard.jsonl")) as f:
+        assert len(f.readlines()) == len(want)
 
 
 @pytest.mark.parametrize("n", range(1, 17))

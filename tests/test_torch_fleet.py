@@ -55,13 +55,13 @@ SERVE = dict(slots=4, max_seq_len=48, prefill_buckets=(8, 16))
 PAGED = dict(block_size=4, num_blocks=48, prefill_chunk=8)
 MAX_PROMPT, MAX_NEW = 16, 6
 N_REPLICAS = 3
-# Record keys that carry wall-clock or process provenance; the record
+# Record keys that carry wall-clock or process provenance, and the record
 # kinds that carry wall-clock durations (spans, the registry snapshot's
-# histograms); and the JAX reshard engine's plan record, which its
-# place_params emits and the port (no reshard engine) does not.
+# histograms). The reshard engine's plan record, which both sides'
+# place_params emit, is compared like every other record.
 UNSTAMPED = ("time", "run_id", "host", "pid", "schema_version", "t_wall",
              "t_mono")
-SKIPPED_KINDS = ("span", "metrics", "reshard_plan")
+SKIPPED_KINDS = ("span", "metrics")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -7,8 +7,8 @@ bit, and a directory with nothing to restore raises the JAX package's
 ``FileNotFoundError``. ``PagedEngine.swap_params`` refuses a shape
 mismatch in the JAX words. The CLI serves from ``--checkpoint-dir``,
 drafts from ``--spec-draft-ckpt``, runs the tier and the fleet, keeps
-the JAX package's misplaced-flag guards word for word, refuses the
-flags of later slices, and re-emits its summary under ``--supervise``.
+the JAX package's misplaced-flag guards word for word, serves
+``--disagg``, and re-emits its summary under ``--supervise``.
 Then ``chip_smoke.py``'s ``serve_tier_fleet`` (c) at a tiny width.
 """
 import json
@@ -281,9 +281,11 @@ def test_cli_guards_match_jax(args, capsys):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--disagg"], 'reshard plan, and the reshard engine is not ported '
-     'yet (ROADMAP: "The operations modules")'),
-    (["--disagg", "--disagg-max-inflight-mb", "auto"], "--disagg:"),
+    # --disagg is served now (serve/disagg.py): these two cases run it.
+    (["--disagg", "--requests", "2", "--max-new", "2", "--vocab", "64",
+      "--prompt-lens", "5,9"], None),
+    (["--disagg", "--disagg-max-inflight-mb", "auto", "--requests", "2",
+      "--max-new", "2", "--vocab", "64", "--prompt-lens", "5,9"], None),
     (["--fleet", "2", "--loadgen", "steady", "--paged", "--prefill-chunk",
       "16", "--capture-dir", "x"],
      "--capture-dir is only consumed by the single-engine"),
@@ -293,6 +295,11 @@ def test_cli_guards_match_jax(args, capsys):
 ])
 def test_cli_refuses_later_slices_and_missing_checkpoints(args, message,
                                                           capsys):
+    if message is None:
+        summary = _cli(args, capsys)
+        assert summary["disagg"]["kv_transfers"] == 2
+        assert summary["recompiles"] == 0
+        return
     assert message in _error(server.main, ["--device", "cpu", *args], capsys)
 
 

@@ -24,8 +24,12 @@ Port of the JAX package's ``comm/bench.py``:
 Every record has the JAX package's fields (``op``, ``size_elements``,
 ``bytes_per_shard``, ``dtype``, ``fingerprint``, ``world_size``,
 ``mean_s`` ... ``busbw_GB_s``). The reshard ops (``RESHARD_OPS``) time
-the reshard engine, which the port does not have yet: they are
-refused.
+the reshard engine (``tpu_hpc_torch.reshard``): plan and execute of an
+axis swap (``reshard_exchange``, and ``reshard_exchange_bounded`` under
+``max_inflight_bytes = total / 4``) and of sharded -> replicated
+(``reshard_replicate``), in the JAX rows' format (``plan_ms``,
+``mean_s``, ``wire_bytes_modeled`` beside ``bytes_moved``, ``chunks``,
+``peak_inflight_bytes``).
 
 Run it under torchrun, one process a card:
 
@@ -62,15 +66,11 @@ OPS = (
 HIER_OPS = ("hier_all_reduce", "hier_all_gather", "hier_reduce_scatter")
 # Comm/compute-overlap building blocks (comm.overlap), on the flat axis.
 OVERLAP_OPS = ("ppermute_all_gather", "gather_matmul")
-# Reshard-engine ops of the JAX bench: not ported (the reshard engine).
+# Reshard-engine ops (tpu_hpc_torch.reshard): plan + execute timings
+# with modeled vs. moved bytes; the exchange also runs a ``_bounded``
+# flavor, the chunked decomposition under max_inflight_bytes = total/4.
 RESHARD_OPS = ("reshard_exchange", "reshard_replicate")
 ALL_OPS = OPS + HIER_OPS + OVERLAP_OPS + RESHARD_OPS
-
-RESHARD_REFUSAL = (
-    "the reshard ops ({ops}) time the reshard engine (tpu_hpc.reshard), "
-    "which is not ported yet (ROADMAP: \"The operations modules\", "
-    "reshard/)"
-)
 
 # gather_matmul's fixed output width: the benched payload is the
 # sharded weight [K/n, N]; K scales with the requested element count.
@@ -312,6 +312,127 @@ class CommBenchmark:
         return records
 
 
+def run_reshard_bench(
+    mesh: Any,
+    axis: str = "data",
+    sizes: Sequence[int] = DEFAULT_SIZES,
+    warmup: int = 5,
+    iters: int = 20,
+    ops: Sequence[str] = RESHARD_OPS,
+    dtype: str = "float32",
+) -> List[Dict]:
+    """The reshard engine's plan + execute over ``axis`` of ``mesh`` (a
+    ``DeviceMesh`` over the job), as schema-stamped ``bench`` rows with
+    the size in the metric name, as the JAX bench writes them:
+
+    * ``reshard_exchange``  -- ``[n, inner]`` sharded dim 0 -> dim 1
+      (the Ulysses-style axis swap: one batched P2P exchange);
+    * ``reshard_replicate`` -- sharded -> fully replicated (the
+      required-residency case; never bounded);
+    * ``*_bounded``         -- the exchange under ``max_inflight_bytes
+      = total_bytes / 4``: the chunked decomposition's time next to the
+      transient it saves (``plan_ms``, ``mean_s``,
+      ``wire_bytes_modeled`` vs ``bytes_moved``, ``chunks``,
+      ``peak_inflight_bytes``).
+    """
+    from tpu_hpc_torch import reshard
+    from tpu_hpc_torch.comm.planner import fingerprint_mesh
+    from tpu_hpc_torch.obs.schema import stamp
+    from tpu_hpc_torch.parallel.plans import P
+
+    fp = fingerprint_mesh(mesh).digest
+    n = _mesh_size(mesh, axis)
+    if n < 2:
+        if _rank() == 0:
+            print(f"comm.bench: skipping reshard ops -- axis {axis!r} has "
+                  f"size {n} (< 2): nothing to redistribute",
+                  file=sys.stderr)
+        return []
+    rmesh = reshard.Mesh.from_device_mesh(mesh)
+    dev = CommBenchmark(mesh=mesh).device
+    dt = getattr(torch, dtype)
+    me = mesh.get_local_rank(axis)
+    records: List[Dict] = []
+    for op in ops:
+        if op not in RESHARD_OPS:
+            raise ValueError(f"not a reshard op: {op}")
+        flavors = (False, True) if op == "reshard_exchange" else (False,)
+        for bounded in flavors:
+            for size in sizes:
+                if op == "reshard_exchange":
+                    inner = -(-size // n) * n
+                    shape, src, tgt = (n, inner), P(axis), P(None, axis)
+                    x = torch.arange(me * inner, (me + 1) * inner, dtype=dt,
+                                     device=dev).reshape(1, inner)
+                else:
+                    shape, src, tgt = (n * size,), P(axis), P()
+                    x = torch.arange(me * size, (me + 1) * size, dtype=dt,
+                                     device=dev)
+                total = x.numel() * x.element_size() * n
+                bound = total // 4 if bounded else None
+                t0 = time.perf_counter()
+                plan = reshard.plan_reshard(
+                    {"x": reshard.TensorSpec(
+                        shape, dt, reshard.Sharding(rmesh, src))},
+                    {"x": reshard.Sharding(rmesh, tgt)},
+                    max_inflight_bytes=bound,
+                )
+                plan_ms = (time.perf_counter() - t0) * 1e3
+                for _ in range(warmup):
+                    plan.execute({"x": x}, device=dev)
+                _synchronize(dev)
+                times = []
+                for _ in range(iters):
+                    _barrier(dev)
+                    t0 = time.perf_counter()
+                    plan.execute({"x": x}, device=dev)
+                    _synchronize(dev)
+                    _barrier(dev)
+                    times.append(time.perf_counter() - t0)
+                times = np.asarray(times)
+                mean = float(times.mean())
+                name = op + ("_bounded" if bounded else "")
+                step = plan.steps[0]
+                common = {
+                    "op": name,
+                    "size_elements": size,
+                    "bytes_per_shard": total // n,
+                    "dtype": dtype,
+                    "fingerprint": fp,
+                    "world_size": n,
+                    "max_inflight_bytes": bound,
+                }
+                # The size rides IN the metric name: the bank gate
+                # reduces per metric, and one name for every size would
+                # diff min-across-sizes against the last size measured.
+                records.append(stamp({
+                    "event": "bench",
+                    "metric": f"{name}_n{size}_ms",
+                    "value": round(mean * 1e3, 6),
+                    "unit": "ms",
+                    **common,
+                    "mean_s": mean,
+                    "std_s": float(times.std()),
+                    "min_s": float(times.min()),
+                    "max_s": float(times.max()),
+                    "plan_ms": round(plan_ms, 6),
+                    "wire_bytes_modeled": plan.wire_bytes,
+                    "bytes_moved": plan.bytes,
+                    "peak_inflight_bytes": plan.peak_inflight_bytes,
+                    "chunks": step.chunk.count if step.chunk else 1,
+                    "busbw_GB_s": (plan.wire_bytes / mean / 1e9
+                                   if mean > 0 else float("inf")),
+                }))
+                records.append(stamp({
+                    "event": "bench",
+                    "metric": f"{name}_n{size}_wire_bytes",
+                    "value": plan.wire_bytes,
+                    "unit": "bytes",
+                    **common,
+                }))
+    return records
+
+
 def _rank() -> int:
     import torch.distributed as dist
 
@@ -406,22 +527,26 @@ def run_comm_bench(
     unknown = [op for op in ops if op not in ALL_OPS]
     if unknown:
         raise ValueError(f"unknown ops {unknown}; choose from {ALL_OPS}")
-    reshard = [op for op in ops if op in RESHARD_OPS]
-    if reshard:
-        raise NotImplementedError(RESHARD_REFUSAL.format(ops=reshard))
     if device_type is None:
         device_type = (mesh.device_type if mesh is not None else
                        "cuda" if torch.cuda.is_available() else "cpu")
-    flat_ops = [op for op in ops if op not in HIER_OPS]
+    flat_ops = [op for op in ops
+                if op not in HIER_OPS and op not in RESHARD_OPS]
     hier_ops = [op for op in ops if op in HIER_OPS]
+    reshard_ops = [op for op in ops if op in RESHARD_OPS]
     records: List[Dict] = []
+    if (flat_ops or reshard_ops) and mesh is None:
+        mesh = build_mesh(MeshSpec(axes={axis: -1}), device_type)
     if flat_ops:
-        if mesh is None:
-            mesh = build_mesh(MeshSpec(axes={axis: -1}), device_type)
         records += CommBenchmark(
             mesh=mesh, axis=axis, sizes=sizes, warmup=warmup,
             iters=iters, ops=flat_ops,
         ).run()
+    if reshard_ops:
+        records += run_reshard_bench(
+            mesh, axis=axis, sizes=sizes, warmup=warmup, iters=iters,
+            ops=reshard_ops,
+        )
     if hier_ops and hier_mesh is None:
         n_dev = dist.get_world_size() if mesh is None else mesh.size()
         try:
@@ -501,9 +626,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                    help="cuda (NCCL, default) or cpu (gloo)")
     args = p.parse_args(argv)
     ops = tuple(args.op) if args.op else tuple(args.ops)
-    reshard = [op for op in ops if op in RESHARD_OPS]
-    if reshard:
-        p.error(RESHARD_REFUSAL.format(ops=reshard))
 
     from tpu_hpc_torch.runtime import (
         cleanup_distributed,

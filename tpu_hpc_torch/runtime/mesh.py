@@ -276,3 +276,35 @@ def mesh_axis_size(mesh: Any, axis: Optional[str]) -> int:
     if axis is None:
         return 1
     return mesh_shape(mesh).get(axis, 1)
+
+
+_MESH_GROUPS: dict = {}
+
+
+def register_mesh_group(ranks, group: Any) -> None:
+    """Record ``group`` as the process group over ``ranks`` (made by
+    ``dist.new_group`` on every rank, where all of them can call it),
+    for :func:`mesh_group` to find."""
+    _MESH_GROUPS[tuple(int(r) for r in ranks)] = group
+
+
+def mesh_group(mesh: Any) -> Any:
+    """The process group over a ``DeviceMesh``'s ranks: None when the
+    mesh spans the whole job (the default group) or there is no mesh;
+    the mesh's own group when it is 1-D; else the group registered for
+    its ranks (:func:`register_mesh_group`)."""
+    import torch.distributed as dist
+
+    if mesh is None or not dist.is_initialized():
+        return None
+    ranks = tuple(int(r) for r in mesh.mesh.flatten().tolist())
+    if len(ranks) == dist.get_world_size():
+        return None
+    if mesh.mesh.ndim == 1:
+        return mesh.get_group()
+    if ranks in _MESH_GROUPS:
+        return _MESH_GROUPS[ranks]
+    raise ValueError(
+        f"a {mesh.mesh.ndim}-D mesh over ranks {list(ranks)} of "
+        f"{dist.get_world_size()}: register the process group over its "
+        "ranks first (runtime.mesh.register_mesh_group)")

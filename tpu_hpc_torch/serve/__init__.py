@@ -9,10 +9,11 @@ key chain in prng), weights into the serving layout (weights),
 TTFT/ITL/throughput accounting (metrics), the host-DRAM KV page tier
 behind the paged pool (tier), the multi-replica fleet -- router,
 redispatch, autoscale, weight hot-swap -- and its load harness (fleet),
-and a local request-replay, load-scenario and fleet CLI
-(``python -m tpu_hpc_torch.serve``, server). Disaggregated serving is a
-later slice (ROADMAP: "The operations modules").
+disaggregated prefill/decode tiers whose KV hop is a reshard plan
+(disagg), and a local request-replay, load-scenario and fleet CLI
+(``python -m tpu_hpc_torch.serve``, server).
 """
+from tpu_hpc_torch.serve.disagg import DisaggEngine, split_serving_meshes
 from tpu_hpc_torch.serve.engine import Engine, ServeConfig
 from tpu_hpc_torch.serve.metrics import ServeMeter
 from tpu_hpc_torch.serve.paging import (
@@ -69,6 +70,7 @@ __all__ = [
     "BlockAllocator",
     "BlockBudgetError",
     "ContinuousBatcher",
+    "DisaggEngine",
     "Engine",
     "FleetConfig",
     "FleetHarness",
@@ -91,4 +93,5 @@ __all__ = [
     "replay_requests",
     "serving_pspecs",
     "split_fleet_devices",
+    "split_serving_meshes",
 ]

@@ -1216,6 +1216,11 @@ class PagedEngine(Engine):
             live.update(st.blocks)
         return len(live) / usable
 
+    def slot_table(self, slot: int) -> np.ndarray:
+        """Host copy of one slot's block-table row (the disaggregated
+        hop reads it to ship exactly the referenced pages)."""
+        return self._tables[slot].copy()
+
     def slot_state(self, slot: int) -> _PagedSlot:
         return self._slot_state[slot]
 
@@ -1270,6 +1275,7 @@ class PagedEngine(Engine):
         slot: int,
         prompt: Sequence[int],
         max_new: int,
+        run_prefill: bool = True,
         sampling: Optional[Tuple[int, float, float]] = None,
     ) -> Dict[str, int]:
         """Reserve pages and build the chunk plan for one request.
@@ -1277,7 +1283,9 @@ class PagedEngine(Engine):
         Conservative reservation: ``ceil((prompt + max_new) / bs)``
         pages up front (minus prefix hits), so decode can never hit an
         empty free list mid-request -- admission is the only place the
-        pool says no.
+        pool says no. ``run_prefill=False`` (the disaggregated decode
+        tier) reserves the same pages but skips the trie and the chunk
+        plan: the page contents arrive by the cross-tier hop.
 
         ``sampling`` (``(seed, temperature, top_p)``, spec engines
         only) is the request's seeded-sampling contract; the spec
@@ -1289,7 +1297,7 @@ class PagedEngine(Engine):
         plen = len(prompt)
         need = self.paged.blocks_for(plen + max_new)
         shared: List[int] = []
-        if self.trie is not None:
+        if run_prefill and self.trie is not None:
             shared = self.trie.match(prompt)
             # Keep at least one prompt token to (re-)prefill: the
             # first greedy token comes from the last prompt position's
@@ -1315,7 +1323,7 @@ class PagedEngine(Engine):
             self.allocator.release(shared)
             raise
         start = len(shared) * self.paged.block_size
-        plan = self._chunk_plan(start, plen)
+        plan = self._chunk_plan(start, plen) if run_prefill else []
         seed, temperature, top_p = sampling or (0, 0.0, 1.0)
         state = _PagedSlot(
             prompt=list(int(t) for t in prompt),
@@ -1334,7 +1342,7 @@ class PagedEngine(Engine):
         bus.emit("kv_block", action="alloc", n=len(fresh), slot=slot)
         # Hit-rate stats count SEATED admissions only (a block-stalled
         # request is re-queued and retried every tick).
-        if self.trie is not None:
+        if run_prefill and self.trie is not None:
             self.paged_stats["prefix_lookups"] += 1
         if shared:
             self.paged_stats["prefix_hits"] += 1

@@ -3,10 +3,8 @@
 Copied from the JAX package's ``serve/scheduler.py`` (it is framework
 free), with its speculative-decoding tick, the seeded-sampling rule,
 the per-request n-gram index (serve/spec.py) and the host-tier
-prefetch-before-seat (serve/tier.py). The disaggregated engine's
-transfer stats are left out with the module they drive
-(``serve/disagg.py``, which waits on the reshard engine;
-ROADMAP: "The operations modules").
+prefetch-before-seat (serve/tier.py), and the disaggregated engine's
+transfer stats (serve/disagg.py).
 
 The engine's decode program has a FIXED batch width (``slots``) -- the
 discipline that keeps it one built shape. The scheduler makes
@@ -799,6 +797,12 @@ class ContinuousBatcher:
         # even if the last transition was shed-from-pending (which
         # never touches a slot).
         self._set_occupancy()
+        # Disaggregated engines count their cross-tier KV hops; fold
+        # them into the batcher stats so the replay summary sees the
+        # transfer load next to admissions/evictions.
+        transfer = getattr(self.engine, "transfer_stats", None)
+        if transfer:
+            self.stats.update(transfer)
         # Paged engines count prefix hits, prefill chunks and CoW
         # copies; fold them in so the replay summary carries them.
         paged = getattr(self.engine, "paged_stats", None)

@@ -29,9 +29,13 @@ one bounded torch.profiler window over the next 8 ticks, a flight dump
 and a ``device_memory`` record under DIR); ``python -m
 tpu_hpc_torch.obs.trace`` reads the run's ``--metrics`` log.
 
-Not ported yet, and refused: ``--disagg`` and
-``--disagg-max-inflight-mb`` (the KV hop is a reshard plan;
-ROADMAP: "The operations modules").
+Disaggregated serving: ``--disagg`` runs the replay on two tiers
+(serve/disagg.py) -- prefill on the first card, decode on the first
+card of the second half (``--device cpu``: both tiers on the CPU) --
+the KV hop a bounded
+reshard plan per bucket (``--disagg-max-inflight-mb N|auto``); the
+summary carries a ``disagg`` block (tier meshes, kv_transfers,
+kv_transfer_bytes, kv_transfer_ms_p50/p95, per-bucket kv_plans).
 """
 from __future__ import annotations
 
@@ -116,16 +120,25 @@ def serving_weights(cfg, seed, device, checkpoint_dir=None) -> dict:
 
 
 def _bring_up(cfg, serve_cfg, seed, paged, spec, spec_draft_cfg, device,
-              metrics_path, checkpoint_dir=None, spec_draft_ckpt=None):
+              metrics_path, checkpoint_dir=None, spec_draft_ckpt=None,
+              disagg=None):
     """Weights (restored or seeded) -> engine (+ spec runner) ->
-    warmup. Returns ``(engine, n_programs)``."""
+    warmup. ``disagg`` ``(prefill device, decode device, max inflight
+    bytes)`` builds the two-tier engine. Returns ``(engine,
+    n_programs)``."""
     from tpu_hpc_torch import obs
     from tpu_hpc_torch.serve.engine import Engine
     from tpu_hpc_torch.serve.paging import PagedEngine
 
     with obs.span("restore", sink=metrics_path, hist="serve_restore_s"):
         params = serving_weights(cfg, seed, device, checkpoint_dir)
-        if paged is not None:
+        if disagg is not None:
+            from tpu_hpc_torch.serve.disagg import DisaggEngine
+
+            engine = DisaggEngine(params, cfg, serve_cfg, disagg[0],
+                                  disagg[1], max_inflight_bytes=disagg[2],
+                                  paged=paged)
+        elif paged is not None:
             engine = PagedEngine(params, cfg, serve_cfg, device, paged)
         else:
             engine = Engine(params, cfg, serve_cfg, device)
@@ -137,9 +150,10 @@ def _bring_up(cfg, serve_cfg, seed, paged, spec, spec_draft_cfg, device,
                    draft_cfg=spec_draft_cfg, seed=seed)
     with obs.span("warmup", sink=metrics_path, hist="serve_warmup_s"):
         n_programs = engine.warmup()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    for dev in {device, getattr(engine, "prefill_device", device)}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
     return engine, n_programs
 
 
@@ -193,6 +207,9 @@ def run_replay(
     top_p: float = 1.0,
     checkpoint_dir: Optional[str] = None,
     spec_draft_ckpt: Optional[str] = None,
+    disagg: bool = False,
+    disagg_max_inflight_mb: "Optional[int | str]" = None,
+    disagg_devices: Optional[Sequence] = None,
 ) -> dict:
     """Engine bring-up + warmup + replay; returns the summary dict.
     ``paged`` (a paging.PagedConfig) swaps the slab KV cache for the
@@ -200,7 +217,13 @@ def run_replay(
     spec.SpecConfig, paged only) turns on speculative decoding;
     ``temperature``/``top_p`` sample the replay mix under per-request
     seeds instead of greedy. Weights come from :func:`serving_weights`
-    (``checkpoint_dir``, else a seeded random init)."""
+    (``checkpoint_dir``, else a seeded random init). ``disagg=True``
+    splits prefill and decode into two tiers (serve/disagg.py), the KV
+    crossing by bounded reshard plans (``disagg_max_inflight_mb``: MB
+    or "auto"); ``disagg_devices`` ``(prefill, decode)`` places them
+    (default: split_serving_meshes over the visible cards on cuda, the
+    CPU twice on cpu). Composes with ``paged`` (the hop then ships the
+    referenced pages)."""
     from tpu_hpc_torch import obs
     from tpu_hpc_torch.runtime import resolve_device
     from tpu_hpc_torch.serve.metrics import ServeMeter
@@ -210,9 +233,24 @@ def run_replay(
     )
 
     device = resolve_device(device)
+    tiers = None
+    if disagg:
+        if disagg_devices is None:
+            if device.type == "cuda":
+                from tpu_hpc_torch.serve.disagg import split_serving_meshes
+
+                disagg_devices = split_serving_meshes(
+                    torch.cuda.device_count(), cfg)
+            else:
+                disagg_devices = (device, device)
+        prefill_dev, device = (resolve_device(d) for d in disagg_devices)
+        tiers = (prefill_dev, device,
+                 "auto" if disagg_max_inflight_mb == "auto"
+                 else disagg_max_inflight_mb * (1 << 20)
+                 if disagg_max_inflight_mb else None)
     engine, n_programs = _bring_up(
         cfg, serve_cfg, seed, paged, spec, spec_draft_cfg, device,
-        metrics_path, checkpoint_dir, spec_draft_ckpt,
+        metrics_path, checkpoint_dir, spec_draft_ckpt, disagg=tiers,
     )
 
     meter = ServeMeter(metrics_path=metrics_path)
@@ -243,9 +281,9 @@ def run_replay(
         kernel_launches=launches,
     )
     if device.type == "cuda":
-        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
-            device
-        )
+        summary["peak_memory_bytes"] = max(
+            torch.cuda.max_memory_allocated(d)
+            for d in {device, getattr(engine, "prefill_device", device)})
     # The cache layout is part of every serving record's identity.
     if paged is not None:
         summary.update(engine.paged_summary())
@@ -256,6 +294,11 @@ def run_replay(
     if getattr(engine, "spec", None) is not None:
         summary.update(engine.spec.spec_summary())
         summary["spec_kernel_launches"] = dict(engine.spec.kernel_launches)
+    if disagg:
+        # Per-tier attribution: tier meshes, the cross-tier KV load and
+        # THIS run's hop quantiles -- TTFT decomposes into prefill tier
+        # + hop on this record.
+        summary["disagg"] = engine.describe()
     meter.write_summary(summary)
     obs.get_registry().emit_snapshot(sink=metrics_path)
     return summary
@@ -572,15 +615,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     ap.add_argument(
         "--disagg", action="store_true",
-        help="disaggregated prefill/decode serving: not ported yet (its "
-        "KV hop is a reshard plan, and the reshard engine is a later "
-        "slice), so the flag is refused",
+        help="disaggregated serving: prefill on one tier, decode on "
+        "another (the first card of each half of the visible cards; "
+        "the CPU twice with --device cpu), KV blocks moved by bounded "
+        "reshard plans",
     )
     ap.add_argument(
         "--disagg-max-inflight-mb", type=_inflight_mb, default=None,
         metavar="MB|auto",
-        help="peak transient of a cross-tier KV move; consumed only "
-        "with --disagg (refused)",
+        help="peak transient of a cross-tier KV move (chunked above "
+        "it); 'auto' sizes it from the collective planner's cost "
+        "model; requires --disagg",
     )
     ap.add_argument(
         "--paged", action="store_true",
@@ -895,15 +940,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 ap.error(
                     f"{flag} is only consumed together with --fleet"
                 )
-    # The flags whose machinery is a later slice: refused after the
-    # misplaced-flag guards, so a misplaced one still gets its own
-    # message.
-    if args.disagg:
-        ap.error(
-            "--disagg: disaggregated serving moves its KV blocks as a "
-            "reshard plan, and the reshard engine is not ported yet "
-            '(ROADMAP: "The operations modules")'
-        )
     if args.top_p is not None and args.temperature is None:
         ap.error(
             "--top-p is only consumed together with --temperature"
@@ -1033,8 +1069,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 capture_dir=args.capture_dir,
             )
     else:
+        if args.disagg and device.type == "cuda" \
+                and torch.cuda.device_count() < 2:
+            ap.error(
+                "--disagg needs >= 2 devices (one per tier); only "
+                f"{torch.cuda.device_count()} visible -- use "
+                "--device cpu for development"
+            )
         summary = run_replay(
             cfg, serve_cfg, args.requests, prompt_lens, args.max_new,
+            disagg=args.disagg,
+            disagg_max_inflight_mb=args.disagg_max_inflight_mb,
             metrics_path=args.metrics, seed=args.seed, paged=paged,
             device=device, spec=spec_cfg, spec_draft_cfg=spec_draft_cfg,
             temperature=args.temperature or 0.0,

@@ -10,7 +10,8 @@ device, in the compute dtype":
     ``model`` when a mesh has that axis, everything replicated
     otherwise (the only case a one-device engine meets);
   * :func:`place_params` -- a torch param tree onto one device as FRESH
-    buffers, moved in groups of at most ``max_inflight_bytes``;
+    buffers, through the reshard engine (``reshard.apply``, as the JAX
+    ``place_params`` does), copies bounded by ``max_inflight_bytes``;
   * :func:`abstract_train_state` / :func:`load_serving_params` -- the
     newest trainer checkpoint (``ckpt.CheckpointManager.restore_latest``:
     torn-snapshot fallback, integrity check and quarantine included)
@@ -24,8 +25,7 @@ engine's ``_dense`` does. Matrices (Dense kernels, the embedding) are
 cast to ``cfg.dtype`` once, in :func:`place_params` -- the JAX engine
 casts them at every use, to the same values. The 1-D RMSNorm scales
 stay float32, since RMSNorm reads them in float32; casting them to bf16
-would change their values. The general reshard engine behind the JAX
-``place_params`` is not ported (ROADMAP: "The operations modules").
+would change their values.
 """
 from __future__ import annotations
 
@@ -83,39 +83,33 @@ def place_params(
     max_inflight_bytes: Optional[int] = None,
 ) -> dict:
     """A torch param tree on ``device`` as fresh buffers: matrices in
-    ``cfg.dtype``, norm scales in float32. A leaf already placed is
-    copied all the same (the JAX ``copy_noop`` contract: callers may
-    free or overwrite their source tree after placement, and the fleet
-    swaps a placed tree in while the resident one stays intact for a
-    rollback). Leaves move in groups of at most ``max_inflight_bytes``
-    of destination bytes (one leaf larger than the bound moves alone),
-    each group complete before the next starts, so restoring a big
-    tree transits a bounded transient; None moves them all at once."""
+    ``cfg.dtype``, norm scales in float32, moved and cast in one copy
+    per leaf by the reshard engine (``reshard.apply`` onto the device,
+    ``copy_noop=True``; one ``reshard_plan`` event labelled
+    ``serving_params``, as the JAX ``place_params`` emits). A leaf
+    already placed is copied all the same (callers may free or
+    overwrite their source tree after placement, and the fleet swaps a
+    placed tree in while the resident one stays intact for a rollback).
+    ``max_inflight_bytes`` bounds the plan's steps and the in-process
+    copies: at most that many destination bytes are in flight before
+    the device catches up (one leaf larger than the bound moves alone);
+    None moves them all at once."""
+    from tpu_hpc_torch import reshard
+
     device = resolve_device(device)
     if max_inflight_bytes is not None and max_inflight_bytes < 1:
         raise ValueError(
             f"max_inflight_bytes {max_inflight_bytes} must be >= 1"
         )
     flat = flat_params(params)
-    placed: Dict[str, torch.Tensor] = {}
-    group = 0
-    for path, leaf in flat.items():
-        dtype = serving_dtype(leaf, cfg)
-        nbytes = leaf.numel() * dtype.itemsize
-        if max_inflight_bytes is not None and group \
-                and group + nbytes > max_inflight_bytes:
-            _group_done(device)
-            group = 0
-        placed[path] = leaf.detach().to(device=device, dtype=dtype,
-                                        copy=True)
-        group += nbytes
-    _group_done(device)
+    tree = {k: v.detach() for k, v in flat.items()}
+    dtypes = {k: serving_dtype(v, cfg) for k, v in flat.items()}
+    placed = reshard.apply(
+        tree, device, max_inflight_bytes=max_inflight_bytes,
+        copy_noop=True, label="serving_params", dtypes=dtypes,
+        device=device,
+    )
     return _unflatten(placed)
-
-
-def _group_done(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _unflatten(flat: Mapping[str, Any]) -> dict:

@@ -110,7 +110,11 @@ without a process group. For example, on four cards:
     torchrun --nproc-per-node 4 -m tpu_hpc_torch.train \
         --comm-mode bucketed_overlap
 
-Workloads (``--workload``, default ``llama``): ``llama-long`` is
+Workloads (``--workload``, default ``llama``): ``elastic`` is bench.py's
+preemption-storm row (``train/elastic.py``: the topology coordinator
+shrinks the rank pool at ``--elastic-shrink-at`` and grows it back at
+``--elastic-grow-at``, no process restarting; ``--steps`` updates);
+``llama-long`` is
 bench.py's long-context row (``bench_llama_long``: the bench Llama at
 seq 8192, microbatch 1 accumulated 8 times, metric
 ``llama2_seq8192_tokens_per_s_per_chip``); ``unet`` (bench.py's "unet
@@ -193,8 +197,9 @@ def resolve_batch_accum(batch, accum, microbatch: int = 4):
 LEARNING_RATE, WEIGHT_DECAY, SEED = 3e-4, 0.1, 0
 
 
-WORKLOADS = ("llama", "llama-long", "unet", "vit", "resnet", "domain-unet")
-VISION_WORKLOADS = WORKLOADS[2:]
+WORKLOADS = ("llama", "llama-long", "unet", "vit", "resnet", "domain-unet",
+             "elastic")
+VISION_WORKLOADS = ("unet", "vit", "resnet", "domain-unet")
 VISION_FLAGS = ("lat", "lon", "channels", "base_features", "spatial",
                 "eval_steps")
 PLANS = ("auto", "hybrid", "fsdp", "dp", "none")
@@ -807,7 +812,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="llama: bench.py's llama row (and its sp, pp and "
                     "comm rows by flag); llama-long: seq 8192 at microbatch "
                     "1; unet (bench.py's unet ddp row), vit, resnet, "
-                    "domain-unet: train/vision.py's workloads")
+                    "domain-unet: train/vision.py's workloads; elastic: "
+                    "bench.py's preemption-storm row (train/elastic.py)")
     ap.add_argument("--steps", type=int, default=20,
                     help="optimizer updates per epoch")
     ap.add_argument("--epochs", type=int, default=None,
@@ -912,7 +918,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="run under tpu_hpc_torch.resilience.supervisor "
                     "with N restarts (a preemption or a guard rollback "
                     "relaunches without spending one)")
+    ap.add_argument("--elastic-shrink-at", type=int, default=None,
+                    metavar="N",
+                    help="topology coordinator chaos: lose half the rank "
+                    "pool at step N (live shrink, no restart; --workload "
+                    "elastic only; default 2)")
+    ap.add_argument("--elastic-grow-at", type=int, default=None,
+                    metavar="N",
+                    help="topology coordinator chaos: the lost ranks "
+                    "return at step N (live grow back to the full pool; "
+                    "--workload elastic only; default 4)")
     args = ap.parse_args(argv)
+    from tpu_hpc_torch.train.elastic import elastic_flag_error
+
+    why = elastic_flag_error(args)
+    if why is not None:
+        ap.error(why)
+    if args.workload == "elastic":
+        return _main_elastic(ap, args)
     if args.pp_runtime == "mpmd":
         why = mpmd_flag_error(args) or mpmd_unused_flag_error(args)
         if why is not None:
@@ -1427,6 +1450,50 @@ def _main_vision(ap, args) -> int:
                                     mesh=mesh, metrics_path=args.metrics)
         if is_main_host():
             print(json.dumps(summary), flush=True)
+    finally:
+        cleanup_distributed()
+    return 0
+
+
+def _main_elastic(ap, args) -> int:
+    """``main`` for ``--workload elastic`` (train/elastic.py): every rank
+    of the launch (or a one-rank world) runs the storm; rank 0 prints
+    bench.py's record."""
+    from tpu_hpc_torch.runtime import (
+        cleanup_distributed,
+        init_distributed,
+        resolve_device,
+    )
+    from tpu_hpc_torch.train.elastic import run_elastic
+
+    llama_only = [flag for flag, set_ in (
+        ("--sp-mode", args.sp_mode is not None),
+        ("--pp-*", any(v is not None for k, v in vars(args).items()
+                       if k.startswith("pp_"))),
+        ("--comm-mode", args.comm_mode != "flat"),
+        ("--data/--model/--context", any(
+            v is not None for v in (args.data, args.model, args.context))),
+        ("--checkpoint-dir", args.checkpoint_dir is not None),
+        ("--guard-mode", args.guard_mode != "off"),
+        ("--supervise", args.supervise is not None),
+    ) if set_]
+    if llama_only:
+        ap.error(f"{llama_only[0]} is not consumed by --workload elastic "
+                 "(the storm row trains bench.py's MLP on the "
+                 "coordinator's layouts)")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    init_distributed(device=device.type, verbose=False)
+    _one_rank_world(device)
+    try:
+        rec = run_elastic(args.steps, shrink_at=args.elastic_shrink_at,
+                          grow_at=args.elastic_grow_at, device=device)
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            print(json.dumps(rec), flush=True)
     finally:
         cleanup_distributed()
     return 0

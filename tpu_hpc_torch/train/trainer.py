@@ -98,6 +98,7 @@ from tpu_hpc_torch.resilience.signals import (
     PreemptionGuard,
 )
 from tpu_hpc_torch.runtime import resolve_device
+from tpu_hpc_torch.runtime.mesh import mesh_group
 from tpu_hpc_torch.train.metrics import GoodputMeter, ThroughputMeter
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,9 +204,10 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
 
 
-def _copies(t) -> int:
-    """Ranks that hold the same shard of ``t``: the world over the
-    number of distinct shards (a plain tensor is whole on every rank)."""
+def _copies(t, group=None) -> int:
+    """Ranks that hold the same shard of ``t``: the trainer's ranks
+    (``group``, default the world) over the number of distinct shards
+    (a plain tensor is whole on every rank)."""
     import torch.distributed as dist
 
     shards = 1
@@ -214,11 +216,11 @@ def _copies(t) -> int:
         for i, p in enumerate(t.placements):
             if p.is_shard():
                 shards *= mesh.size(i)
-    return dist.get_world_size() // shards
+    return dist.get_world_size(group) // shards
 
 
 def sharded_global_norm(grads: List[torch.Tensor],
-                        copies: List[int]) -> torch.Tensor:
+                        copies: List[int], group=None) -> torch.Tensor:
     """:func:`global_norm` of the WHOLE gradient when ``grads`` are this
     rank's shards and ``copies[i]`` ranks hold shard i (:func:`_copies`):
     each rank sums its shards' squares, each divided by its number of
@@ -228,7 +230,7 @@ def sharded_global_norm(grads: List[torch.Tensor],
 
     total = sum(torch.sum(g.to(torch.float32) ** 2) / c
                 for g, c in zip(grads, copies))
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=group)
     return torch.sqrt(total)
 
 
@@ -503,9 +505,14 @@ def make_step_fn(
     skip_nonfinite: bool = False,
     numeric_fault: Optional[Callable] = None,
     grad_sync: Any = None,
+    group: Any = None,
+    metric_group: Any = None,
 ) -> Callable[..., Tuple[TrainState, Dict]]:
     """The training step ``step(state, batch, data_offset=0)``: forward,
-    backward, optimizer update.
+    backward, optimizer update. ``group``: the process group over the
+    trainer's mesh, where the step's norms run; None is the whole
+    process group. ``metric_group``: where the loss and aux metrics are
+    averaged (default ``group``).
 
     ``grad_accum > 1`` splits the batch into that many microbatches
     (rows ``[i*m, (i+1)*m)``, as the JAX reshape does), sums their
@@ -598,7 +605,8 @@ def make_step_fn(
                 for p in leaves
             ]
         with torch.no_grad():
-            copies = [_copies(g) for g in grads] if sharded else None
+            copies = [_copies(g, group) for g in grads] if sharded \
+                else None
             grads = [local(g) for g in grads]
             params = [local(p) for p in leaves]
         if grad_accum > 1:
@@ -613,7 +621,8 @@ def make_step_fn(
                                         grads)
         metrics = {"loss": lsum, **aux_sum}
         if sharded:
-            metrics = {k: _rank_mean(v) for k, v in metrics.items()}
+            metrics = {k: _rank_mean(v, metric_group or group)
+                       for k, v in metrics.items()}
         elif grad_sync is not None:
             metrics, ms = grad_sync.mean((metrics, ms))
         if log_grad_norm and "grad_norm" in aux_sum:
@@ -624,13 +633,14 @@ def make_step_fn(
             )
         norm = None
         if need_norm:
-            norm = (sharded_global_norm(grads, copies) if sharded
+            norm = (sharded_global_norm(grads, copies, group) if sharded
                     else global_norm(grads))
         if log_grad_norm:
             metrics["grad_norm"] = norm
         if health:
             def decide(updates):
-                vec = _health(metrics["loss"], grads, updates, copies, norm)
+                vec = _health(metrics["loss"], grads, updates, copies, norm,
+                              group)
                 metrics.update(vec)
                 if not skip_nonfinite:
                     return None
@@ -656,7 +666,8 @@ def make_step_fn(
     return step
 
 
-def _health(loss, grads, updates, copies, norm) -> Dict[str, torch.Tensor]:
+def _health(loss, grads, updates, copies, norm,
+            group=None) -> Dict[str, torch.Tensor]:
     """The health vector (fp32 device scalars): loss finite, global
     grad norm (``norm`` when the clip already took it), global update
     norm, and the number of gradient leaves with a non-finite element.
@@ -681,7 +692,7 @@ def _health(loss, grads, updates, copies, norm) -> Dict[str, torch.Tensor]:
         if copies is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(total)
+            dist.all_reduce(total, group=group)
         if norm is not None:
             total = torch.cat([norm.square().view(1), total])
         return {
@@ -701,14 +712,15 @@ def _keep(ok, new, old):
     return new
 
 
-def _rank_mean(v: torch.Tensor) -> torch.Tensor:
-    """The mean of a metric over the process group (each data rank's
-    mean over its rows; equal rows per rank make it the global mean)."""
+def _rank_mean(v: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of a metric over the trainer's ranks (``group``, default
+    the process group; each data rank's mean over its rows, equal rows
+    per rank make it the global mean)."""
     import torch.distributed as dist
 
     v = v.to(torch.float32).clone()
-    dist.all_reduce(v)
-    return v / dist.get_world_size()
+    dist.all_reduce(v, group=group)
+    return v / dist.get_world_size(group)
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +950,20 @@ class Trainer:
         self._fit_offset = 0
         self._rolled_back = False
         self.mesh = mesh if _is_device_mesh(mesh) else None
+        # The process group over the mesh's ranks: None when the mesh
+        # spans the job (the elastic coordinator builds meshes over a
+        # subset of the ranks).
+        self.group = mesh_group(self.mesh)
+        # Where the step's metrics are averaged: the trainer's ranks,
+        # but over a ``replica`` axis (the elastic layouts') the rows
+        # repeat, so only over the data ranks -- the mean then rounds
+        # exactly as on the mesh without the replicas.
+        self._metric_group = self.group
+        if self.mesh is not None and "replica" in (
+                self.mesh.mesh_dim_names or ()):
+            from tpu_hpc_torch.parallel.shard import fsdp_mesh
+
+            self._metric_group = fsdp_mesh(self.mesh).get_group()
         self.module = None
         self._data_shards, self._data_rank = 1, 0
         self._seq_shards, self._seq_rank = 1, 0
@@ -1005,12 +1031,22 @@ class Trainer:
                             and self.guard_policy.mode == "skip"),
             numeric_fault=numeric_fault,
             grad_sync=self.grad_sync,
+            group=self.group,
+            metric_group=self._metric_group,
         )
         self.n_devices = self.mesh.size() if self.mesh is not None else 1
         self.meter = ThroughputMeter(n_devices=self.n_devices,
                                      device=self.device)
         self.goodput = GoodputMeter()
         self._adopted = False
+        # Elastic quiesce hook (elastic/coordinator.py):
+        # callable(done_step) -> Optional[target_step], polled at every
+        # chunk boundary. A target caps the next chunk so the loop lands
+        # EXACTLY on it; reaching it stops fit() cleanly with
+        # result["quiesced"]=True -- state live, nothing saved, nothing
+        # exited -- so the coordinator can morph and resume.
+        self.quiesce_check: Optional[Callable[[int], Optional[int]]] = None
+        self._quiesced = False
         # Resilience wiring: the heartbeat arms itself from the
         # supervisor's env contract; the stall watermark flags
         # stragglers and enriches the heartbeat.
@@ -1141,17 +1177,63 @@ class Trainer:
         return gather_params(self.state.params)
 
     def adopt_state(self, state: TrainState) -> None:
-        """Adopt a live state (e.g. :func:`state_from_numpy`'s): its
-        params and optimizer state must already lie on this trainer's
-        device. ``fit`` then continues from ``state.step`` (a guarded
-        trainer moves a host count to the device)."""
-        count = state.opt_state.get("count")
+        """Adopt a live state: :func:`state_from_numpy`'s on one device,
+        or one laid out on this trainer's mesh -- the elastic
+        coordinator's morphed state, whose params and moments are this
+        rank's shards of the trainer's own layout (plain tensors or
+        DTensors). On a mesh the values are copied into the trainer's
+        own tensors (the params stay the module's, FSDP2's hooks on
+        them); on one device the state's tensors are taken as they are
+        and must already lie on this trainer's device. ``fit`` then
+        continues from ``state.step``, trusting the in-memory step over
+        any checkpoint on disk (a morph writes none; a snapshot
+        predates it). A guarded trainer moves a host count to the
+        device."""
+        if self.module is not None or self.grad_sync is not None:
+            self._adopt_laid_out(state)
+        else:
+            self.state = state
+        count = self.state.opt_state.get("count")
         if self.guard_policy is not None and not isinstance(
                 count, torch.Tensor):
-            state.opt_state["count"] = torch.full(
+            self.state.opt_state["count"] = torch.full(
                 (), int(count), dtype=torch.int64, device=self.device)
-        self.state = state
         self._adopted = True
+
+    @torch.no_grad()
+    def _adopt_laid_out(self, state: TrainState) -> None:
+        """Copy ``state``'s shards into the live tensors of a trainer on
+        a mesh, checking each against this rank's shard."""
+        live = self.state
+
+        def copy(dst, src, what):
+            dst_l, src_l = local(dst), local(torch.as_tensor(src))
+            if tuple(dst_l.shape) != tuple(src_l.shape):
+                raise ValueError(
+                    f"adopt_state: {what} holds {tuple(src_l.shape)} on "
+                    f"this rank, the trainer's shard is "
+                    f"{tuple(dst_l.shape)}")
+            dst_l.copy_(src_l)
+
+        for path, dst, src in zip(tree_paths(live.params),
+                                  tree_leaves(live.params),
+                                  tree_leaves(state.params)):
+            copy(dst, src, "/".join(path))
+        opt = dict(live.opt_state)
+        for name, value in state.opt_state.items():
+            if isinstance(value, list):
+                for j, (dst, src) in enumerate(zip(opt[name], value)):
+                    copy(dst, src, f"opt_state/{name}/{j}")
+            elif isinstance(opt.get(name), torch.Tensor):
+                copy(opt[name], value, f"opt_state/{name}")
+            else:
+                opt[name] = int(value) if isinstance(
+                    value, (int, torch.Tensor)) else value
+        for dst, src in zip(tree_leaves(live.model_state or {}),
+                            tree_leaves(state.model_state or {})):
+            copy(dst, src, "model_state")
+        self.state = TrainState(int(state.step), live.params, opt,
+                                live.model_state)
 
     def _to_device(self, batch):
         """The global batch -> this rank's rows on the device: of each
@@ -1199,7 +1281,8 @@ class Trainer:
                 v = torch.as_tensor(v).detach().to(torch.float32)
                 sums[k] = sums[k] + v if k in sums else v
         if self.module is not None or self.grad_sync is not None:
-            sums = {k: _rank_mean(v) for k, v in sums.items()}
+            sums = {k: _rank_mean(v, self._metric_group)
+                    for k, v in sums.items()}
         if self.module is not None:
             # FSDP2 keeps the root's params whole after a forward with
             # no backward; shard them again.
@@ -1301,17 +1384,16 @@ class Trainer:
                     mgr.save_now(self.state)
             self._snapshot_config()
 
-    @staticmethod
-    def _agree(flag: bool, device) -> bool:
-        """Whether ``flag`` holds on any rank: a preemption notice that
-        reached one rank must stop every rank at the same boundary (the
-        emergency save is collective)."""
+    def _agree(self, flag: bool, device) -> bool:
+        """Whether ``flag`` holds on any of the trainer's ranks: a
+        preemption notice that reached one rank must stop every rank at
+        the same boundary (the emergency save is collective)."""
         if _world() == 1:
             return flag
         import torch.distributed as dist
 
         t = torch.tensor([float(flag)], device=device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())
 
     # -- the loop --------------------------------------------------------
@@ -1347,6 +1429,7 @@ class Trainer:
             )
         self.goodput = GoodputMeter()
         self._rolled_back = False
+        self._quiesced = False
         self._fit_offset = 0
         self._skip_windows = []
         if self.guard_policy is not None:
@@ -1425,7 +1508,7 @@ class Trainer:
             "final_loss": last.get("loss"),
             "preempted": preempted,
             "rolled_back": self._rolled_back,
-            "quiesced": False,
+            "quiesced": self._quiesced,
             "goodput": goodput,
             "resumed_from_step": start_step,
         }
@@ -1439,8 +1522,20 @@ class Trainer:
         while done < total_steps:
             if self._watchdog is not None:
                 self._watchdog.tick()
+            # Elastic quiesce: the coordinator's hook names the step
+            # boundary it wants the run stopped at. Reaching it stops
+            # the loop with everything live (no save, no exit); a future
+            # target caps the chunk so the loop lands exactly on it.
+            quiesce_at = None
+            if self.quiesce_check is not None:
+                quiesce_at = self.quiesce_check(done)
+                if quiesce_at is not None and quiesce_at <= done:
+                    self._quiesced = True
+                    break
             epoch = done // spe
             chunk = min(spe - done % spe, total_steps - done)
+            if quiesce_at is not None:
+                chunk = min(chunk, quiesce_at - done)
             # A chunk never spans a skip-window boundary: steps before
             # it replay their batches, steps from it on skip the
             # poisoned span of data indices.
