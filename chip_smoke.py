@@ -380,6 +380,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     restarts, the loss stream bit-identical to a
                     fixed-topology run, each flash kernel launched
                     layers x accum x updates times (384).
+ 14. native_tools -- the last modules of the port. (a) The repo's own
+                    Markdown (*.md at the root and under docs/) through
+                    native.prepare's byte tokenizer into a corpus, then
+                    run_train --tokens-file on the bench Llama (microbatch
+                    4 x accum 8, 6 updates: 192 windows of 2,049 tokens,
+                    no epoch wrap): each flash kernel launched 384 times,
+                    the first update's loss within 0.5 of ln(32000) and
+                    the sixth below it, and the CRC of every batch served
+                    (recorded here, around the reader) equal to a fresh
+                    reader's batch_at at that step;
+                    tokens/s and update seconds beside the train phase's
+                    TokenStream run. (b) checks.fit for the bench Llama
+                    on this card: param + grad + AdamW bytes equal, to
+                    the byte, the tensors (a)'s optimizer received at its
+                    first update; with do_compile=True it runs one
+                    update and reports its own peak (max_memory_allocated
+                    less what the process held before it) beside its
+                    analytic total (a reading). (c) check_environment()
+                    on the card: versions, the one-rank NCCL all-reduce
+                    exact, the microbenchmark's TFLOP/s and GB/s beside
+                    the h100-sxm row (above 105% of it fails); then
+                    doctor.diagnose("7b", chips=8). (d) kernels.autotune:
+                    decode over n_split 1-16 and auto at the 7B decode
+                    shape, fwd and grad over the kFwdStages builds at the
+                    bench attention shape (grad also records kBwdStep,
+                    refused by its wgmma layout), every candidate held to
+                    the plain versions; the tables ranked by the
+                    candidates' kernels' device time (torch.profiler,
+                    the wall time beside it) and the library pick's
+                    place in them.
 
 The flash phase also holds the ViT's attention: B 8, S 512 (and a
 ragged S 500), 8 heads of head_dim 32, no causal mask, with the
@@ -390,7 +420,8 @@ Then the per-kernel summary line (the flash rows with their launches in
 train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
 model, in train_comm (a), in
 train_vision (b) and in train_long, and the ViT case's times; every row
-with its launches in obs_capture and in ops), nvidia-smi's
+with its launches in obs_capture and in ops; the flash and decode rows
+with theirs in native_tools), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
@@ -5850,6 +5881,272 @@ def ops_phase(torch, dev, cfg, serve_cfg, paged, single_tokens,
     }
 
 
+NATIVE_DIR = "build/chip_smoke_native"
+NATIVE_STEPS, NATIVE_EPOCHS = 3, 2  # 6 updates, the last 3 measured
+NATIVE_LOSS_ATOL = 0.5              # the first loss against ln(vocab)
+
+
+def corpus_files(root) -> list:
+    """The repo's own Markdown: *.md at the root, then under docs/."""
+    from pathlib import Path
+
+    root = Path(root)
+    return [str(p) for p in sorted(root.glob("*.md"))
+            + sorted((root / "docs").rglob("*.md"))]
+
+
+def state_bytes(params, grads, opt_state) -> dict:
+    """numel x element_size over an update's params, gradients and
+    AdamW state (the moments; the count is a host int or a 0-d tensor)."""
+    def total(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if hasattr(t, "numel"))
+
+    opt = [*opt_state["mu"], *opt_state["nu"], opt_state.get("count")]
+    return {"params": total(params), "grads": total(grads),
+            "opt": total(opt)}
+
+
+def batch_crc(x, y) -> int:
+    """CRC-32 of a CPU batch's bytes, inputs then targets."""
+    import zlib
+
+    return zlib.crc32(y.numpy().tobytes(), zlib.crc32(x.numpy().tobytes()))
+
+
+@contextlib.contextmanager
+def served_batches():
+    """Records [step, batch_crc] of every batch a NativeTokenDataset
+    hands out inside the block (the token-file run's reader)."""
+    from tpu_hpc_torch.native import NativeTokenDataset
+
+    served = []
+    own = vars(NativeTokenDataset).get("batch_at")
+    batch_at = NativeTokenDataset.batch_at
+
+    def recording(self, step, batch_size):
+        x, y = batch_at(self, step, batch_size)
+        served.append([int(step), batch_crc(x, y)])
+        return x, y
+
+    NativeTokenDataset.batch_at = recording
+    try:
+        yield served
+    finally:
+        if own is None:
+            del NativeTokenDataset.batch_at  # the inherited method again
+        else:
+            NativeTokenDataset.batch_at = own
+
+
+@contextlib.contextmanager
+def first_update_state():
+    """Records state_bytes of the tensors AdamW.apply receives at the
+    first update inside the block (the Trainer's own params, grads and
+    moments)."""
+    from tpu_hpc_torch.train.trainer import AdamW
+
+    seen = []
+    apply = AdamW.apply
+
+    def recording(self, params, grads, state, norm=None):
+        if not seen:
+            seen.append(state_bytes(params, grads, state))
+        return apply(self, params, grads, state, norm)
+
+    AdamW.apply = recording
+    try:
+        yield seen
+    finally:
+        AdamW.apply = apply
+
+
+def native_train_part(torch, dev, train, root, model_cfg=None) -> tuple:
+    """(a): the corpus and the token-file run (the bench Llama, or
+    ``model_cfg``); returns (row, failures, the state the optimizer
+    received)."""
+    import math
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.native import NativeTokenDataset, prepare_corpus
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg, run_train
+
+    os.makedirs(root, exist_ok=True)
+    corpus = os.path.join(root, "corpus.bin")
+    t0 = time.perf_counter()
+    files = corpus_files(os.path.dirname(os.path.abspath(__file__)))
+    info = prepare_corpus(corpus, files)
+    prepare_s = time.perf_counter() - t0
+    cfg = model_cfg or bench_model_cfg()
+    zero_flash_launches()
+    with first_update_state() as seen, served_batches() as served:
+        summary = run_train(cfg, steps=NATIVE_STEPS, epochs=NATIVE_EPOCHS,
+                            batch=TRAIN_BATCH, grad_accum_steps=TRAIN_ACCUM,
+                            device=dev, tokens_file=corpus)
+    launches = fa.kernel_launches()
+    updates = NATIVE_STEPS * NATIVE_EPOCHS
+    # CPU tensors run the kernels' plain versions: no launch.
+    expected = (cfg.n_layers * TRAIN_ACCUM * updates
+                if dev.type == "cuda" else 0)
+    fresh = NativeTokenDataset(corpus, TRAIN_BATCH, cfg.max_seq_len)
+    mismatched = [step for step, crc in served
+                  if crc != batch_crc(*fresh.batch_at(step, TRAIN_BATCH))]
+    fresh.close()
+    losses = summary["losses"]
+    ln_v = math.log(cfg.vocab_size)
+    failures = []
+    if any(n != expected for n in launches.values()) \
+            or launches != summary["kernel_launches"]:
+        failures.append(f"(a) flash launches {launches}, expected {expected}")
+    if len(losses) != updates or not all(map(math.isfinite, losses)):
+        failures.append(f"(a) losses {losses}")
+    elif abs(losses[0] - ln_v) > NATIVE_LOSS_ATOL or losses[-1] >= losses[0]:
+        failures.append(f"(a) losses {losses}: the first not within "
+                        f"{NATIVE_LOSS_ATOL} of ln({cfg.vocab_size}) = "
+                        f"{ln_v:.4f}, or the last not below it")
+    if summary["corpus"]["n_windows"] < updates * TRAIN_BATCH:
+        failures.append(f"(a) {summary['corpus']['n_windows']} windows: the "
+                        f"run wraps an epoch")
+    if mismatched or [s for s, _ in served] != list(range(updates)):
+        failures.append(f"(a) served batches unlike batch_at at steps "
+                        f"{mismatched}")
+    if not seen:
+        failures.append("(a) no update reached the optimizer")
+    row = {
+        "corpus": {"files": len(files), "bytes_in": sum(
+            os.path.getsize(f) for f in files), "prepare_s": prepare_s,
+            **{k: info[k] for k in ("n_tokens", "dtype", "bytes")},
+            **{k: summary["corpus"][k] for k in (
+                "n_windows", "max_token_id", "windows_served")}},
+        "launches": launches, "expected_launches": expected,
+        "losses": losses, "ln_vocab": ln_v,
+        "tokens_per_s": summary["tokens_per_s"],
+        "update_s": summary["update_s"], "mfu": summary["mfu"],
+        "token_stream": {k: train[k] for k in ("tokens_per_s", "update_s")},
+        "peak_memory_bytes": summary.get("peak_memory_bytes"),
+        "state_bytes": seen[0] if seen else None,
+    }
+    return row, failures, (seen[0] if seen else None)
+
+
+def native_fit_part(torch, dev, live, model_cfg=None) -> tuple:
+    """(b): the fit analyzer for (a)'s configuration on this card."""
+    from tpu_hpc_torch.checks import fit
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    cfg = model_cfg or bench_model_cfg()
+    r = fit.analyze(cfg, dp=1, tp_size=1, global_batch=TRAIN_BATCH,
+                    seq_len=cfg.max_seq_len, grad_accum=TRAIN_ACCUM,
+                    do_compile=True, device=dev.type)
+    static = {"params": r.param_bytes, "grads": r.grad_bytes,
+              "opt": r.opt_bytes}
+    failures = []
+    if live is None or static != live:
+        failures.append(f"(b) fit's static bytes {static} != the live "
+                        f"state's {live}")
+    row = {"static_bytes": static, "live_state_bytes": live,
+           "act_bytes": r.act_bytes, "total_bytes": r.total_bytes,
+           "measured_peak_bytes": r.measured_peak_bytes,
+           "measured_baseline_bytes": r.measured_baseline_bytes,
+           "update_s": r.compile_seconds, "backend": r.compile_backend,
+           "collectives": r.collectives, "fits": r.fits,
+           "hbm_gib": r.hbm_gib}
+    return row, failures
+
+
+def native_env_part(torch) -> tuple:
+    """(c): the environment checks and the doctor."""
+    from tpu_hpc_torch.checks import doctor
+    from tpu_hpc_torch.checks.env_check import check_environment
+
+    rep = check_environment(verbose=False, device="cuda")
+    failures = [f"(c) {c['name']}: {c['detail']}" for c in rep["checks"]
+                if not c["passed"]]
+    of_spec = rep.get("microbench_of_spec") or {}
+    if not of_spec or max(of_spec.values()) > 1.05:
+        failures.append(f"(c) microbench against the data sheet: {of_spec}")
+    t0 = time.perf_counter()
+    plans = doctor.diagnose("7b", chips=8, chip="h100-sxm")
+    row = {"versions": rep["versions"], "checks": rep["checks"],
+           "microbench": rep.get("microbench"), "of_spec": of_spec,
+           "doctor": {"seconds": time.perf_counter() - t0, "plans": [
+               {"mesh": p.mesh, "accum": p.grad_accum, "fits": p.fits,
+                "hbm_gib": p.hbm_used_gib, "bound": p.roofline.bound,
+                "mfu_upper_bound": p.roofline.mfu_upper_bound,
+                "tokens_per_s_per_card_bound":
+                    p.roofline.tokens_per_s_per_chip_bound}
+               for p in plans]}}
+    if not plans or not plans[0].fits:
+        failures.append("(c) the doctor found no fitting plan for 7b on 8")
+    return row, failures
+
+
+def native_autotune_part(torch) -> dict:
+    """(d): the autotuner's three sweeps; a candidate that disagrees with
+    its plain version raises inside autotune."""
+    from tpu_hpc_torch.kernels import autotune
+
+    name = torch.cuda.get_device_name()
+    out = {}
+    for mode, kw in (("decode", dict(iters=50)), ("fwd", dict(iters=20)),
+                     ("grad", dict(iters=10, sweep_bwd=True))):
+        t0 = time.perf_counter()
+        records = autotune.autotune(mode=mode, **kw)
+        table = autotune.to_markdown(records, seq_len=2048, batch=4,
+                                     n_heads=8, kv_heads=8, head_dim=128,
+                                     device_kind=name)
+        print(table, file=sys.stderr, flush=True)
+        out[mode] = {
+            "seconds": time.perf_counter() - t0,
+            "library_place": [r.library_pick for r in records].index(True),
+            "records": [{"candidate": r.blocks(), "ms": r.ms_per_call,
+                         "wall_ms": r.wall_ms,
+                         "max_abs_err": r.max_abs_err,
+                         "refused": r.reason()}
+                        for r in records],
+        }
+    return out
+
+
+def native_tools_phase(torch, dev, train) -> dict:
+    """Phase 14 (``native_tools``): (a) the token-file run, (b) the fit
+    against its live state, (c) the environment and the doctor, (d) the
+    autotuner. Every gate's failures gathered, the phase line printed,
+    then the phase fails if any gate did. Returns each part's launches
+    by kernel wrapper."""
+    from pathlib import Path
+
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    t0 = time.perf_counter()
+    root = str(Path(__file__).resolve().parent / NATIVE_DIR)
+    trained, failures, live = native_train_part(torch, dev, train, root)
+    launched = {"tokens_file": fa.kernel_launches()}
+    zero_flash_launches()
+    fitted, fails = native_fit_part(torch, dev, live)
+    failures += fails
+    launched["fit_update"] = fa.kernel_launches()
+    _release(torch)
+    env, fails = native_env_part(torch)
+    failures += fails
+    zero_flash_launches()
+    pa.paged_decode_attention.launches = 0
+    tuned = native_autotune_part(torch)
+    launched["autotune"] = {**fa.kernel_launches(),
+                            "paged_decode_attention":
+                                pa.paged_decode_attention.launches}
+    emit("native_tools", seconds=time.perf_counter() - t0, train=trained,
+         fit=fitted, env=env, autotune=tuned, failures=failures)
+    if failures:
+        raise SystemExit(f"native_tools: {failures}")
+    out = {k: {part: n[k] for part, n in launched.items() if k in n}
+           for k in fa.FLASH_KERNELS}
+    out["paged_decode_attention"] = {
+        "autotune": launched["autotune"]["paged_decode_attention"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5992,6 +6289,11 @@ def main() -> int:
     #        this card), the reshard engine, the elastic coordinator
     ops_launches = ops_phase(torch, dev, cfg, serve_cfg, paged,
                              serve_runs[0], serve_runs[1])
+    _release(torch)
+    # -- 14. the last modules: the token-file run, the fit against its
+    #        live state, the environment checks and the doctor, the
+    #        autotuner over the Hopper kernels
+    native_launches = native_tools_phase(torch, dev, train)
 
     kernels = []
     for name, row in main_rows.items():
@@ -6039,6 +6341,10 @@ def main() -> int:
         # Their launches in ops: the disaggregated tiers' (paged, by
         # tier) and the coordinator's storm (flash).
         entry["ops_launches"] = ops_launches[entry["name"]]
+        # The flash and decode kernels' launches in native_tools: the
+        # token-file run, the fit's update, the autotuner's sweeps.
+        if entry["name"] in native_launches:
+            entry["native_tools_launches"] = native_launches[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1308,3 +1308,91 @@ def test_ops_reshard_and_elastic_parts_on_cpu(monkeypatch, tmp_path):
     assert state["stages"] > 1  # the bound splits the move into stages
     assert storm["segments"] == [1, 1, 1]
     assert storm["loss_bit_identical"]
+
+
+def test_native_tools_corpus_is_the_repos_markdown(tmp_path):
+    """(a)'s corpus: every *.md at the root and under docs/, through the
+    byte tokenizer; at seq 2048 it holds more windows than the run's 6
+    updates of 32 read, so the run never wraps an epoch."""
+    import os
+
+    from tpu_hpc_torch.native import NativeTokenDataset, prepare_corpus
+
+    root = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    files = chip_smoke.corpus_files(root)
+    assert os.path.join(root, "README.md") in files
+    assert any("/docs/" in f for f in files)
+    assert all(f.endswith(".md") for f in files)
+    info = prepare_corpus(str(tmp_path / "c.bin"), files)
+    ds = NativeTokenDataset(str(tmp_path / "c.bin"), chip_smoke.TRAIN_BATCH,
+                            2048)
+    updates = chip_smoke.NATIVE_STEPS * chip_smoke.NATIVE_EPOCHS
+    assert ds.n_windows >= updates * chip_smoke.TRAIN_BATCH
+    assert info["n_tokens"] == ds.n_tokens and ds.max_token_id == 256
+    ds.close()
+
+
+def test_native_tools_train_and_fit_parts_on_the_cpu(tmp_path, monkeypatch):
+    """(a) and (b) at a tiny width on the CPU: the token-file run passes
+    its gates, and the fit's static bytes equal, to the byte, the
+    tensors the optimizer received at the first update."""
+    import torch
+
+    from tpu_hpc_torch.train.__main__ import bench_model_cfg
+
+    from tpu_hpc_torch.train import __main__ as tmain
+
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TRAIN_ACCUM", 2)
+    # The bench's 3e-4 barely moves a 64-wide model in 6 updates (its
+    # losses sit in the noise around ln(300), whatever the repo's
+    # Markdown holds); at 1e-2 the sixth is clearly below the first.
+    monkeypatch.setattr(tmain, "LEARNING_RATE", 1e-2)
+    cfg = bench_model_cfg(32, False, dim=64, n_layers=2, n_heads=4,
+                          vocab_size=300, multiple_of=16)
+    dev = torch.device("cpu")
+    train = {"tokens_per_s": 1.0, "update_s": 1.0}
+    row, fails, live = chip_smoke.native_train_part(
+        torch, dev, train, str(tmp_path), cfg)
+    assert fails == []
+    assert row["launches"] == {k: 0 for k in row["launches"]}  # CPU
+    assert row["corpus"]["windows_served"] == 6 * 4
+    fit_row, fit_fails = chip_smoke.native_fit_part(torch, dev, live, cfg)
+    assert fit_fails == []
+    assert fit_row["static_bytes"] == live
+    from tpu_hpc_torch.models import llama2
+
+    assert live["params"] == live["grads"] == 4 * llama2.count_params(cfg)
+    assert fit_row["backend"] == "gloo-cpu x 1"
+
+
+def test_served_batches_records_and_restores(tmp_path):
+    """The token-file gate's recorder: [step, CRC] of each batch the
+    reader hands out inside the block, the reader's own method after."""
+    import numpy as np
+
+    from tpu_hpc_torch.native import NativeTokenDataset, write_token_dataset
+
+    path = write_token_dataset(str(tmp_path / "c.bin"), np.arange(500) % 97)
+    ds = NativeTokenDataset(path, 2, 16)
+    with chip_smoke.served_batches() as served:
+        x, y = ds.batch_at(3, 2)
+        ds.batch_at(4, 2)
+    ds.batch_at(5, 2)
+    ds.close()
+    assert [s for s, _ in served] == [3, 4]
+    assert served[0][1] == chip_smoke.batch_crc(x, y)
+    assert "batch_at" not in vars(NativeTokenDataset)
+
+
+def test_state_bytes_counts_tensors_only():
+    import torch
+
+    params = [torch.zeros(3, 4), torch.zeros(5, dtype=torch.bfloat16)]
+    state = {"count": 0, "mu": [torch.zeros(3, 4), torch.zeros(5)],
+             "nu": [torch.zeros(3, 4), torch.zeros(5)]}
+    assert chip_smoke.state_bytes(params, params, state) == {
+        "params": 58, "grads": 58, "opt": 136}
+    state["count"] = torch.zeros((), dtype=torch.int64)
+    assert chip_smoke.state_bytes(params, params, state)["opt"] == 144

@@ -15,6 +15,11 @@ tpu_hpc_torch.train``), on one card, over a (data, model) mesh under
 numeric-health guard, preemption and the restart supervisor
 (``resilience``); observability -- the trace analyzer and anomaly
 capture (``obs``), ``torch.profiler`` windows (``profiling``) and
-host-aware logging (``logging_``). ROADMAP lists what comes next. Nothing here imports jax or ``tpu_hpc``.
+host-aware logging (``logging_``); the native data path (``native``:
+the C++ token and record readers, ``python -m tpu_hpc_torch.train
+--tokens-file``) and the operator tools (``checks``: fit, doctor,
+roofline, env_check, collectives; ``runtime.tuning``;
+``kernels.autotune``). With them the port holds every module of the
+JAX package. Nothing here imports jax or ``tpu_hpc``.
 Importing this package does not import its subpackages.
 """

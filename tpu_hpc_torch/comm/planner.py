@@ -53,21 +53,26 @@ TABLE_VERSION = 1
 # -- the alpha-beta fabric model ---------------------------------------
 # Per-tier (launch latency s, bandwidth B/s) of an H100 SXM job; the
 # tier keys keep the JAX names: "ici" is the inside of a node, "dcn" the
-# network between nodes. These are SPEC-SHEET figures, not
-# measurements: NVLink 4 gives an H100 SXM 900 GB/s both ways together,
-# 450 GB/s a direction; the inter-node link is one 400 Gb/s NIC
-# (ConnectX-7, NDR InfiniBand) a GPU, 50 GB/s a direction. The launch
-# latencies are order-of-magnitude assumptions (a few us for an NVLink
-# collective, tens of us across nodes), not read from any card. The
-# planner's *decisions* rest on the asymmetry (alpha_dcn > alpha_ici,
-# bw_dcn < bw_ici), which gives NCCL's crossover shape: flat wins small
-# payloads (one launch), hierarchical wins large ones (1/n_ici of the
-# bytes cross nodes). A measured table (comm.bench --emit-table)
-# overrides all of this per topology.
-TIER_MODEL: Dict[str, Tuple[float, float]] = {
-    "ici": (5e-6, 4.5e11),
-    "dcn": (2e-5, 5.0e10),
-}
+# network between nodes. The bandwidths are the card table's
+# (checks/roofline.py, row "h100-sxm": SPEC-SHEET figures, not
+# measurements -- NVLink 4 a direction, one 400 Gb/s NIC a card), the
+# one table the roofline estimator reads too. The launch latencies are
+# order-of-magnitude assumptions (a few us for an NVLink collective,
+# tens of us across nodes), not read from any card. The planner's
+# *decisions* rest on the asymmetry (alpha_dcn > alpha_ici, bw_dcn <
+# bw_ici), which gives NCCL's crossover shape: flat wins small payloads
+# (one launch), hierarchical wins large ones (1/n_ici of the bytes cross
+# nodes). A measured table (comm.bench --emit-table) overrides all of
+# this per topology.
+def _tier_model() -> Dict[str, Tuple[float, float]]:
+    from tpu_hpc_torch.checks.roofline import CHIPS
+
+    card = CHIPS["h100-sxm"]
+    return {"ici": (5e-6, card.ici_gbps * 1e9),
+            "dcn": (2e-5, card.dcn_gbps * 1e9)}
+
+
+TIER_MODEL: Dict[str, Tuple[float, float]] = _tier_model()
 
 # Fraction of a bucket pipeline's collective time the latency-hiding
 # scheduler is modeled to hide behind backward compute (buckets after

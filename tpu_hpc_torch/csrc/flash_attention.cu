@@ -472,6 +472,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 constexpr int kBwdThreads = 256;  // two warpgroups
 constexpr int kBwdRows = 128;     // q rows (dq) or keys (dk/dv) a block owns
 constexpr int kBwdStep = 64;      // keys (dq) or q rows (dk/dv) per streamed tile
+// Each warpgroup's score tile against a streamed tile is one wgmma
+// m64n64k16 product (wgmma_ss_n64) and its P / dS fragments feed the
+// m64nDk16 products kBwdStep / 16 at a time, so the step is the n64
+// shape itself: another step needs another tile layout.
+static_assert(kBwdStep == 64,
+              "kBwdStep: the backward's score tiles are wgmma m64n64 "
+              "(wgmma_ss_n64); a step other than 64 needs a new layout");
 
 // 4-byte cp.async; `valid` false writes a zero instead of reading.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
@@ -912,13 +919,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
 // ---------------------------------------------------------------------
 constexpr int kFwdRows = 128;
 constexpr int kFwdThreads = 288;  // two consumer warpgroups + a producer warp
-constexpr int kFwdStages = 4;
+// Stages of the K/V ring. Overridable with -D (kernels/autotune.py builds
+// such variants); the default build takes 4.
+#ifndef TPUHPC_FWD_STAGES
+#define TPUHPC_FWD_STAGES 4
+#endif
+constexpr int kFwdStages = TPUHPC_FWD_STAGES;
 
 template <int kD>
 constexpr size_t fwd_smem_bytes() {
   return kFwdRows * kD * 2 + 2 * kFwdStages * walk_tile_bytes<kD>() +
          (1 + 3 * kFwdStages) * 8 + 1024;
 }
+// The producer refills a stage while the consumers read the other: one
+// stage would serialize the load and the products.
+static_assert(kFwdStages >= 2, "kFwdStages: the ring needs two stages");
+static_assert(fwd_smem_bytes<128>() <= static_cast<size_t>(kMaxSmem),
+              "kFwdStages: the Q tile and the K/V ring exceed 227 KB of "
+              "shared memory at head_dim 128");
 
 // The forward's mask for one thread: its two rows at global positions
 // row[0], row[1]; the warpgroup's first row at `first`.

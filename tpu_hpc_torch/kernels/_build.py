@@ -16,6 +16,7 @@ loudly, never quietly take the plain PyTorch path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -24,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
@@ -40,8 +41,14 @@ COMPILE_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# Variants of one source built with -D overrides of its tile constants
+# (kernels/autotune.py), each in its own directory.
+VARIANT_DIR = BUILD_DIR / "autotune"
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# A variant library the wrappers launch from while use_library is open.
+_active: Optional[ctypes.CDLL] = None
 
 
 def sources() -> List[Path]:
@@ -124,6 +131,7 @@ def build() -> float:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _declare_flash(lib)
     # 11 pointers, (slots, hkv, g, d, bs, table_width, max_blocks,
     # n_split), scale, q and pool dtype codes, stream.
     lib.tpuhpc_paged_decode.argtypes = (
@@ -141,6 +149,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_prefill_tile_rows.restype = i
     lib.tpuhpc_prefill_route.argtypes = [i] * 4  # (d, bs, q code, pool code)
     lib.tpuhpc_prefill_route.restype = i
+    lib.tpuhpc_error_string.argtypes = [i]
+    lib.tpuhpc_error_string.restype = ctypes.c_char_p
+
+
+def _declare_flash(lib: ctypes.CDLL) -> None:
+    """The entry points of csrc/flash_attention.cu."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # flash_attention.cu: pointers, then (b, sq, sk, hq, hkv, d,
     # q_offset, kv_offset, causal[, accumulate]), scale, dtype code,
     # stream.
@@ -152,12 +167,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_flash_dkv.restype = i
     lib.tpuhpc_flash_tile_rows.argtypes = [i, i]  # (kernel, dtype code)
     lib.tpuhpc_flash_tile_rows.restype = i
-    lib.tpuhpc_error_string.argtypes = [i]
-    lib.tpuhpc_error_string.restype = ctypes.c_char_p
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first when needed."""
+def _default_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
@@ -168,8 +180,76 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first when needed; inside
+    :func:`use_library`, the variant it was given."""
+    if _active is not None:
+        return _active
+    return _default_library()
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a CUDA error (the message from
+    the default library when ``lib`` is a variant without it)."""
     if code != 0:
-        msg = lib.tpuhpc_error_string(code).decode()
+        src = lib if hasattr(lib, "tpuhpc_error_string") \
+            else _default_library()
+        msg = src.tpuhpc_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def build_variants(variants: Dict[str, Dict[str, int]],
+                   source: str = "flash_attention.cu") -> Dict[str, object]:
+    """Compile ``source`` once per variant, each with its ``-D NAME=value``
+    overrides, into ``VARIANT_DIR/<name>/lib.so`` -- all nvcc processes
+    started together. Returns, per variant, the library's path or, when
+    nvcc refused it, ``RuntimeError`` with nvcc's output (a constant the
+    source's static_asserts reject fails here, at compile time)."""
+    nvcc = _nvcc()
+    src = SOURCE_DIR / source
+    newest = max(p.stat().st_mtime
+                 for p in (src, *SOURCE_DIR.glob("*.cuh")))
+    jobs, built = {}, {}
+    for name, defines in variants.items():
+        out_dir = VARIANT_DIR / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib = out_dir / "lib.so"
+        if lib.exists() and lib.stat().st_mtime > newest:
+            built[name] = lib  # built before from the same sources
+            continue
+        cmd = [nvcc, *COMPILE_FLAGS,
+               *(f"-D{k}={v}" for k, v in sorted(defines.items())),
+               "-shared", "-o", str(lib), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (cmd, proc, lib)
+    for name, (cmd, proc, lib) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            built[name] = _fail(cmd, subprocess.CompletedProcess(
+                cmd, proc.returncode, out, err))
+        else:
+            built[name] = lib
+    return built
+
+
+def load_variant(path) -> ctypes.CDLL:
+    """A variant library of flash_attention.cu (:func:`build_variants`)
+    with its entry points declared."""
+    lib = ctypes.CDLL(str(path))
+    _declare_flash(lib)
+    return lib
+
+
+@contextlib.contextmanager
+def use_library(lib: ctypes.CDLL):
+    """Launch the wrappers' kernels from ``lib`` inside the block (the
+    autotuner's candidates); the default library again after it."""
+    global _active
+    if _active is not None:
+        raise RuntimeError("use_library blocks do not nest")
+    _active = lib
+    try:
+        yield lib
+    finally:
+        _active = None

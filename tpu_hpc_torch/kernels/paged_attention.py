@@ -424,6 +424,7 @@ def paged_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # (num_blocks,) f32 (int8 pools)
     v_scale: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
+    n_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Single-token paged attention: returns (slots, kv_heads, group,
     head_dim) context in q.dtype. Slot s attends to its table row's
@@ -433,7 +434,13 @@ def paged_decode_attention(
     :func:`paged_decode_splits` runs of pages, then the combine when
     there is more than one run (one launch in ``.launches``); head_dim
     must be a multiple of 16 up to 128. CPU tensors run
-    :func:`paged_decode_attention_ref`."""
+    :func:`paged_decode_attention_ref`.
+
+    ``n_split`` (1 .. max_blocks) overrides the library's run count --
+    the autotuner's sweep (kernels/autotune.py); None, what every
+    caller on the serving path passes, keeps the library's pick. On CPU
+    tensors a given ``n_split`` runs the two-pass plain version
+    (:func:`paged_decode_split_ref` + :func:`paged_decode_combine_ref`)."""
     slots, hkv, g, d = q.shape
     _check_pool(q, k_pages, v_pages, k_scale, v_scale, block_size, hkv, d)
     if tables.dim() != 2 or tables.shape[0] != slots \
@@ -449,12 +456,18 @@ def paged_decode_attention(
         raise ValueError(f"pos and active must be ({slots},)")
     if sm_scale is None:
         sm_scale = d ** -0.5
+    if n_split is not None and not 1 <= n_split <= max_blocks:
+        raise ValueError(
+            f"n_split {n_split} must be in [1, max_blocks={max_blocks}]")
     if q.device.type == "cpu":
-        return paged_decode_attention_ref(
-            q, k_pages, v_pages, tables, pos, active,
-            block_size=block_size, max_blocks=max_blocks,
-            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
-        )
+        kw = dict(block_size=block_size, max_blocks=max_blocks,
+                  k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
+        if n_split is None:
+            return paged_decode_attention_ref(
+                q, k_pages, v_pages, tables, pos, active, **kw)
+        o_part, lse_part = paged_decode_split_ref(
+            q, k_pages, v_pages, tables, pos, active, n_split=n_split, **kw)
+        return paged_decode_combine_ref(o_part, lse_part, active, q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(
@@ -471,7 +484,8 @@ def paged_decode_attention(
     lib = _build.load_library()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        n_split = lib.tpuhpc_decode_splits(slots, hkv, g, max_blocks)
+        if n_split is None:
+            n_split = lib.tpuhpc_decode_splits(slots, hkv, g, max_blocks)
         o_part = lse_part = None
         if n_split > 1:  # the runs' partials, in one workspace
             rows = slots * hkv * n_split * g

@@ -163,15 +163,53 @@ def _leaves(tree):
             yield v
 
 
-def count_params(cfg: LlamaConfig) -> int:
-    """Total trainable parameters for ``cfg``, from the tree's shapes."""
+def _size(tree) -> int:
+    """Elements in a tree of shapes."""
     total = 0
-    for shape in _leaves(param_shapes(cfg)):
+    for shape in _leaves(tree):
         n = 1
         for s in shape:
             n *= s
         total += n
     return total
+
+
+def count_params(cfg: LlamaConfig) -> int:
+    """Total trainable parameters for ``cfg``, from the tree's shapes."""
+    return _size(param_shapes(cfg))
+
+
+def count_params_by_part(cfg: LlamaConfig) -> Dict[str, int]:
+    """Param counts split by pipeline role: one transformer layer
+    (``per_layer``), the token embedding (``embed``), the LM head
+    (``head``) and everything else (``other``, the final norm); so
+    ``per_layer * n_layers + embed + head + other == count_params``.
+    The source of the pipeline stage-shard accounting in
+    ``checks/fit.py`` and ``checks/roofline.py``."""
+    shapes = param_shapes(cfg)
+    rest = {k: v for k, v in shapes.items()
+            if not k.startswith("layers_") and k not in ("tok_embeddings",
+                                                         "output")}
+    return {"per_layer": _size(shapes["layers_0"]) if cfg.n_layers else 0,
+            "embed": _size(shapes["tok_embeddings"]),
+            "head": _size(shapes["output"]), "other": _size(rest)}
+
+
+def pp_worst_stage_params(cfg: LlamaConfig, stages: int) -> int:
+    """Params the fullest pipeline stage holds: its share of the layers
+    plus the embed/head edge weights (both on one card when ``stages``
+    is 1; otherwise the bigger of the two, since embed and head live on
+    opposite ends of the pipe)."""
+    if stages < 1 or cfg.n_layers % stages:
+        raise ValueError(
+            f"pipeline needs n_layers {cfg.n_layers} divisible by "
+            f"the stage count {stages}"
+        )
+    parts = count_params_by_part(cfg)
+    edge = (parts["embed"] + parts["head"] if stages == 1
+            else max(parts["embed"], parts["head"]))
+    return (parts["per_layer"] * (cfg.n_layers // stages) + edge
+            + parts["other"])
 
 
 def rope_cos_sin(

@@ -790,6 +790,39 @@ def chrome_trace(records: Sequence[dict]) -> dict:
     return {"traceEvents": ev, "displayTimeUnit": "ms"}
 
 
+def load_chrome_events(source) -> List[dict]:
+    """The events of a Chrome trace -- a path to one (what
+    ``chrome_trace`` and ``torch.profiler``'s ``export_chrome_trace``
+    write), its parsed dict, or a ``torch.profiler.profile`` that has
+    run (its events read in place, in the trace's own shape: ``name``,
+    ``ts`` in microseconds, ``args`` with an allocation's ``Bytes`` and
+    the metadata a backend recorded) -- timed events sorted by start
+    (``ts``), metadata rows dropped. The one reader of Chrome traces in
+    the package (``checks/collectives.py`` counts collectives and
+    allocations from it)."""
+    if hasattr(source, "export_chrome_trace"):
+        events = []
+        for e in source.profiler.kineto_results.events():
+            args = {}
+            if e.name() == "[memory]":
+                args["Bytes"] = e.nbytes()
+            meta = e.metadata_json() if hasattr(e, "metadata_json") else ""
+            if meta:
+                try:
+                    args.update(json.loads("{" + meta + "}"))
+                except ValueError:
+                    pass
+            events.append({"name": e.name(), "ts": e.start_ns() / 1e3,
+                           "args": args})
+        return sorted(events, key=lambda e: e["ts"])
+    if isinstance(source, (str, os.PathLike)):
+        with open(source) as f:
+            source = json.load(f)
+    events = source["traceEvents"] if isinstance(source, dict) else source
+    timed = [e for e in events if e.get("ph") != "M"]
+    return sorted(timed, key=lambda e: float(e.get("ts") or 0.0))
+
+
 # -- rendering ---------------------------------------------------------
 def format_analysis(rep: dict) -> str:
     lines = [

@@ -3,8 +3,9 @@
 ``resolve_device`` (one explicit ``torch.device``), ``init_distributed``
 and the launcher cascade (``distributed.py``), ``MeshSpec`` /
 ``build_mesh`` (a named ``DeviceMesh``, ``mesh.py``; two tiers through
-``two_tier_spec`` / ``build_hybrid_mesh`` over ``node_groups``) and
-``topology_report`` (``topology.py``)."""
+``two_tier_spec`` / ``build_hybrid_mesh`` over ``node_groups``),
+``topology_report`` (``topology.py``) and the NCCL / CUDA knob presets
+(``tuning.py``, imported on its own: it must run before CUDA does)."""
 from tpu_hpc_torch.runtime.device import resolve_device  # noqa: F401
 from tpu_hpc_torch.runtime.distributed import (  # noqa: F401
     HostInfo,

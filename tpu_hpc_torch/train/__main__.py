@@ -159,6 +159,19 @@ relaunch from the last good checkpoint; a SIGTERM snapshots and exits
 
 (``--supervise N`` wraps the one-process run the same way.) The exit
 code is 0, 75 (preempted) or 77 (rolled back).
+
+A real corpus (the JAX package's ``train_llama_hybrid.py --tokens-file``):
+``--tokens-file PATH`` trains the llama workloads from a pretokenized
+corpus through the C++ reader (``native.NativeTokenDataset``: mmap'd,
+epoch-shuffled windows of seq_len + 1 tokens, prefetched by native
+threads) in place of the synthetic ``TokenStream``. A corpus whose
+largest id does not fit the vocabulary is refused. The JSON line then
+carries ``corpus``: its tokens, windows, largest id, and the windows
+the run took from it. For example:
+
+    python -m tpu_hpc_torch.native.prepare README.md docs/*.md \
+        --out build/corpus.bin
+    python -m tpu_hpc_torch.train --tokens-file build/corpus.bin
 """
 from __future__ import annotations
 
@@ -206,6 +219,30 @@ PLANS = ("auto", "hybrid", "fsdp", "dp", "none")
 COMM_MODES = ("flat", "hierarchical", "bucketed_overlap", "auto")
 MANUAL_COMM_MODES = ("hierarchical", "bucketed_overlap")
 SP_MODES = ("ring", "zigzag", "ulysses")
+
+
+class CorpusRefused(ValueError):
+    """A ``--tokens-file`` the run cannot train from."""
+
+
+def token_corpus(path: str, model_cfg: llama2.LlamaConfig,
+                 global_batch: int):
+    """The run's ``NativeTokenDataset`` over ``path`` (seed 0, windows of
+    ``model_cfg.max_seq_len``); :class:`CorpusRefused` when it cannot be
+    read or holds an id the model's vocabulary does not (the JAX
+    example's check of the header's largest id)."""
+    from tpu_hpc_torch.native import NativeTokenDataset
+    try:
+        ds = NativeTokenDataset(path, global_batch, model_cfg.max_seq_len,
+                                seed=SEED)
+    except (OSError, ValueError) as e:
+        raise CorpusRefused(f"corpus {path}: {e}") from e
+    if ds.max_token_id >= model_cfg.vocab_size:
+        ds.close()
+        raise CorpusRefused(
+            f"corpus {path} has token id {ds.max_token_id} >= vocab_size "
+            f"{model_cfg.vocab_size}: the model cannot embed it")
+    return ds
 
 
 def resolve_plan(plan: str, mesh, sp_mode: Optional[str] = None,
@@ -451,6 +488,7 @@ def build_trainer(
     comm_mode: str = "flat",
     comm_plan=None,
     train_overrides: Optional[dict] = None,
+    tokens_file: Optional[str] = None,
 ):
     """The bench run's ``(Trainer, TokenStream)``: ``model_cfg`` from a
     seeded random init, bench.py's AdamW, attention through
@@ -484,7 +522,10 @@ def build_trainer(
     refused in bench.py's words), the batch split over its data
     axes. ``train_overrides``: ``TrainingConfig`` fields set over
     bench.py's before the Trainer is built (``profile`` and its window,
-    ``capture_on_anomaly``), so its constructor checks them."""
+    ``capture_on_anomaly``), so its constructor checks them.
+    ``tokens_file``: the batches come from that corpus
+    (:func:`token_corpus`) instead of the ``TokenStream``; llama only
+    (no ``pp``, no ``sp_mode``)."""
     from tpu_hpc_torch.models import datasets
     from tpu_hpc_torch.parallel import dp, fsdp, hybrid, tp
     from tpu_hpc_torch.parallel.plans import P
@@ -502,6 +543,10 @@ def build_trainer(
             "workload (bench.py's llama/llama-long); "
             + ("pipeline" if pp is not None else "sequence")
             + " parallelism would silently run flat")
+    if tokens_file is not None and (pp is not None or sp_mode is not None):
+        raise ValueError(
+            "--tokens-file feeds the llama workload's plain batches; "
+            "pipeline and sequence parallelism read the TokenStream")
     if pp is not None:
         return _build_pipe_trainer(
             model_cfg, pp, steps=steps, epochs=epochs,
@@ -527,6 +572,9 @@ def build_trainer(
                 f"(comm_mode_mesh), not {mesh_shape(mesh)}")
         dp_size = mesh.size()
         batch_pspec = P(batch_axes)
+    # The corpus is refused before the model is built.
+    ds = (token_corpus(tokens_file, model_cfg, batch * dp_size)
+          if tokens_file is not None else None)
     params = llama2.init_llama(
         torch.Generator(device=device).manual_seed(SEED), model_cfg, device
     )
@@ -563,9 +611,10 @@ def build_trainer(
         guard_mode=guard_mode, checkpoint_dir=checkpoint_dir,
         save_every=save_every, resume=resume, metrics_path=metrics_path,
         comm_mode=comm_mode, overrides=train_overrides)
-    ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
-                              seq_len=model_cfg.max_seq_len, seed=SEED,
-                              zigzag_ring=zigzag_ring)
+    if ds is None:
+        ds = datasets.TokenStream(vocab_size=model_cfg.vocab_size,
+                                  seq_len=model_cfg.max_seq_len, seed=SEED,
+                                  zigzag_ring=zigzag_ring)
     # The trainer keeps its own copy of the params.
     return Trainer(cfg, mesh,
                    llama2.make_forward(model_cfg, constrain, attn_fn,
@@ -658,6 +707,7 @@ def run_train(
     comm_table: Optional[str] = None,
     comm_plan=None,
     metric: Optional[str] = None,
+    tokens_file: Optional[str] = None,
     **resilience,
 ) -> dict:
     """Train ``model_cfg`` from a seeded random init for ``epochs`` x
@@ -671,7 +721,9 @@ def run_train(
     and under a manual mode the buckets and the all-reduces an update
     issues (n_buckets + 1) beside the ones counted in the run.
     ``metric`` names the record (default by the run's kind: bench.py's
-    ``llama-long`` row is ``llama2_seq8192_tokens_per_s_per_chip``)."""
+    ``llama-long`` row is ``llama2_seq8192_tokens_per_s_per_chip``).
+    ``tokens_file``: train from that corpus (:func:`token_corpus`); the
+    summary's ``corpus`` says what the reader held and served."""
     from tpu_hpc_torch.checks.roofline import peak_flops_for_device
     from tpu_hpc_torch.kernels import attention
     from tpu_hpc_torch.parallel.shard import layout_summary
@@ -695,7 +747,7 @@ def run_train(
         grad_accum_steps=grad_accum_steps, attn=attn,
         moments_dtype=moments_dtype, device=device, mesh=mesh, plan=plan,
         sp_mode=sp_mode, pp=pp, comm_mode=comm_mode, comm_plan=comm_plan,
-        **resilience,
+        tokens_file=tokens_file, **resilience,
     )
     device = trainer.device
     flops_cfg = model_cfg if pp is None else trainer.forward.cfg
@@ -797,6 +849,16 @@ def run_train(
         out["n_chunks"] = v
         out["bubble_fraction"] = bubble_fraction(
             out["pp"]["n_stages"], pp.microbatches, n_chunks=v)
+    if tokens_file is not None:
+        out["corpus"] = {
+            "path": tokens_file,
+            "n_tokens": ds.n_tokens,
+            "n_windows": ds.n_windows,
+            "max_token_id": ds.max_token_id,
+            # One batch_at of the global batch an update.
+            "windows_served": len(losses) * trainer.cfg.global_batch_size,
+        }
+        ds.close()
     if device.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
@@ -879,6 +941,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="explicit planner cost-table file for --comm-mode "
                     "auto (default: $TPU_HPC_COMM_TABLES's entry for this "
                     "topology); requires --comm-mode auto")
+    ap.add_argument("--tokens-file", default=None, metavar="PATH",
+                    help="train the llama workload from this pretokenized "
+                    "corpus (python -m tpu_hpc_torch.native.prepare) "
+                    "through the C++ reader instead of the synthetic "
+                    "TokenStream; refused when its largest id does not fit "
+                    "the vocabulary")
     ap.add_argument("--pp-runtime", choices=("spmd", "mpmd"), default=None,
                     help="spmd: the tick-table pipeline; mpmd: per-stage "
                     "programs and fault domains (parallel/mpmd.py), one "
@@ -934,6 +1002,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     why = elastic_flag_error(args)
     if why is not None:
         ap.error(why)
+    if args.tokens_file is not None and (
+            args.workload not in ("llama", "llama-long")
+            or args.sp_mode is not None or args.pp_schedule is not None
+            or args.pp_runtime is not None or args.pp_model is not None
+            or args.pp_backward is not None
+            or args.pp_microbatches is not None
+            or args.pp_microbatch_size is not None):
+        ap.error("--tokens-file feeds the llama workload's plain batches: "
+                 "not --sp-mode, --pp-* or another --workload")
     if args.workload == "elastic":
         return _main_elastic(ap, args)
     if args.pp_runtime == "mpmd":
@@ -1090,9 +1167,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             comm_mode=args.comm_mode, comm_plan=comm_plan,
             metric=(f"llama2_seq{seq_len}_tokens_per_s_per_chip" if long
                     else None),
+            tokens_file=args.tokens_file,
         )
         if is_main_host():
             print(json.dumps(summary), flush=True)
+    except CorpusRefused as e:
+        ap.error(f"--tokens-file: {e}")
     finally:
         cleanup_distributed()
     return exit_code_for(summary["preempted"], summary["rolled_back"])
