@@ -18,28 +18,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     slots, 64-page views, ragged positions, one inactive
                     slot) and at a GQA shape (8 KV heads, group 8: the
                     70B attention dims), with bf16 and int8 pools whose
-                    dead and scratch pages are NaN, under a bf16 q; and
-                    the prefill's scalar route at the 7B chunk over a
-                    float32 pool (float32 q) and under a bf16 q over an
-                    f16 pool. Every row names the kernel the library
-                    routed it to (the decode splits each slot's pages
-                    into ``n_split`` runs and merges them; the prefill
-                    has a wgmma route for 16-bit pools, a wgmma_int8
-                    route for int8 pools under a 16-bit q and a scalar
-                    one for the rest) and must pass checks/tolerance.py's
-                    rule for q's dtype. Controls, each of which the bf16
-                    rule must reject, at the 7B shape: the decode output
-                    computed without the longest slot's last live page;
-                    the prefill output computed without the chunk's last
-                    live page; the int8 prefill output computed with each
-                    live page's scales taken from the next live page.
+                    dead and scratch pages are NaN, under a bf16 q; the
+                    prefill's TF32 route at the 7B chunk over a float32
+                    pool (float32 q), under a bf16 q over an f16 pool,
+                    and under a float32 q over an int8 and a bf16 pool;
+                    and its scalar route once, at 12-token pages. Every
+                    row names the kernel the library routed it to (the
+                    decode splits each slot's pages into ``n_split``
+                    runs and merges them; the prefill has a wgmma route
+                    for 16-bit pools, a wgmma_int8 route for int8 pools
+                    under a 16-bit q, a wgmma_tf32 route for every other
+                    pair and a scalar one for pages outside the
+                    tensor-core rule) and must pass checks/tolerance.py's
+                    rule for q's dtype (a coarser 16-bit pool's where P
+                    is rounded to it: rule_dtype; q's reading beside
+                    it). Controls, each of which the bf16 rule must
+                    reject, at the 7B shape: the decode output computed
+                    without the longest slot's last live page; the
+                    prefill output computed without the chunk's last
+                    live page; the int8 prefill output computed with
+                    each live page's scales taken from the next live
+                    page; and one the float32 rule must reject: the
+                    plain prefill on inputs rounded once to TF32.
                     Times from CUDA events over back-to-back calls
                     (``ms``, which a short kernel's Python wrapper can
                     set) and the kernels' own device time from
                     torch.profiler (``device_ms``; the decode's split
                     and combine kernels together); the library call
                     both ways (``library_ms``, ``library_device_ms``).
-                    Bounds at the peak rate of q's dtype.
+                    Bounds at the peak rate of q's dtype; the TF32
+                    route's at the TF32 rate for its split passes
+                    (bound_tf32), the fp32 FMA one beside it.
   4. flash       -- the flash-attention forward, dq and dk/dv kernels
                     against their plain versions under the per-element,
                     per-row-scaled rule of checks/tolerance.py: the
@@ -51,8 +60,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     key, non-causal cross attention, a ragged GQA case
                     that crosses the backward kernels' 128-row tiles
                     (S 1100, 16 query heads over 2 KV heads, q_offset
-                    300), a float32 case (timed too, its bound at the
-                    card's fp32 rate), and the (q-chunk, kv-chunk)
+                    300), a float32 case (timed too; the forward on the
+                    TF32 route, its bound at the TF32 rate beside the
+                    fp32 FMA one, and the plain forward on inputs
+                    rounded once to TF32 must be rejected by the float32
+                    rule; dq and dk/dv at the card's fp32 rate), and
+                    the (q-chunk, kv-chunk)
                     pairs train_sp launches at their offsets: the
                     ring's 512-token chunks wholly visible, on the
                     diagonal and under GQA, zigzag's 256-token chunks,
@@ -308,7 +321,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     CLI (2 layers) preempted at step 2 exits 75, resumes
                     and exits 0; (e) NaN and inf planted in q, k or v:
                     the flash forward, dq and dk/dv, the prefill (the
-                    16-bit route, and the scalar route's float32 and
+                    16-bit route, and the TF32 route's float32 and
                     mixed bf16-over-f16 cases) and the decode (bf16 and
                     int8 pools, whose dead entries and pages past the
                     last live one are NaN) give the non-finite rows of
@@ -421,8 +434,10 @@ train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
 model, in train_comm (a), in
 train_vision (b) and in train_long, and the ViT case's times; every row
 with its launches in obs_capture and in ops; the flash and decode rows
-with theirs in native_tools), nvidia-smi's
-line, and last the
+with theirs in native_tools; the prefill and forward rows with their
+split-TF32 kernel under ``tf32_route``: its registers and spills, the
+timed TF32-route rows, and for the prefill its launches in the float32
+crosscheck), nvidia-smi's line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -468,6 +483,15 @@ REPLACES = {
     "flash_attention_dkv":
         "tpu_hpc/kernels/attention.py:455",         # _flash_dkv_kernel
 }
+
+
+# The split-TF32 kernels, by the wrapper whose summary entry carries
+# them, and the keys of each timed row the entry repeats.
+TF32_KERNELS = {"paged_prefill_attention": "paged_prefill_tf32_kernel",
+                "flash_attention_fwd": "flash_fwd_tf32_kernel"}
+TF32_ROW_KEYS = ("route", "rule", "max_abs_err", "ms", "device_ms",
+                 "plain_ms", "bound_ms", "bound_by", "bound_fp32_fma_ms",
+                 "library_ms", "library_device_ms")
 
 
 def emit(phase: str, **fields) -> None:
@@ -670,10 +694,12 @@ def decode_case(torch, dev, hkv, g, quant, seed=0, pos=DECODE_POS,
     return args, kw, (n_bytes, flops)
 
 
-def prefill_case(torch, dev, hkv, g, pool, start, q_dtype, seed=0):
-    """A 256-token chunk at ``start`` over one 96-wide table row, q in
-    ``q_dtype`` over a ``pool`` pool (see _pool)."""
-    bucket, d, bs, mb, width, num_blocks = 256, 128, 16, 64, 96, 513
+def prefill_case(torch, dev, hkv, g, pool, start, q_dtype, seed=0, bs=16,
+                 bucket=256):
+    """A ``bucket``-token chunk (256) at ``start`` over one 96-wide
+    table row of 64 live-or-dead entries, pages of ``bs`` tokens (16), q
+    in ``q_dtype`` over a ``pool`` pool (see _pool)."""
+    d, mb, width, num_blocks = 128, 64, 96, 513
     gen = torch.Generator(device=dev).manual_seed(seed)
     ctx_pages = (start + bucket - 1) // bs + 1
     perm = (torch.randperm(num_blocks - 1, generator=torch.Generator()
@@ -823,9 +849,14 @@ def decode_control(torch, args, kw, want) -> None:
 
 # Kernel cases: (wrapper, shape, (kv heads, group), pool, q dtype,
 # start: None for the decode). The 7B and GQA shapes over bf16 and int8
-# pools, every prefill at chunk 0 and at 256 (timed); and, timed at the
-# 7B chunk at 256, the prefill's scalar route over a float32 pool and
-# under a bf16 q over an f16 pool.
+# pools, every prefill at chunk 0 and at 256 (timed); timed at the 7B
+# chunk at 256, the prefill's TF32 route over a float32 pool, under a
+# bf16 q over an f16 pool, and under a float32 q over an int8 and a bf16
+# pool; and, untimed, the scalar route at pages of 12 tokens (outside
+# the tensor-core routes' rule: SCALAR_PAGES), float32 over float32.
+SCALAR_PAGES = dict(bs=12, bucket=64)
+
+
 def kernel_cases() -> list:
     cases = []
     for name, shape in (("7b", (32, 1)), ("gqa", (8, 8))):
@@ -839,15 +870,69 @@ def kernel_cases() -> list:
                   "float32", 256))
     cases.append(("paged_prefill_attention", "7b", (32, 1), "float16",
                   "bfloat16", 256))
+    for pool in ("int8", "bfloat16"):
+        cases.append(("paged_prefill_attention", "7b", (32, 1), pool,
+                      "float32", 256))
+    cases.append(("paged_prefill_attention", "pages_of_12", (8, 1),
+                  "float32", "float32", 40))
     return cases
 
 
-def kernel_phase(torch, dev, lib) -> dict:
-    from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
+# TF32 passes of the TF32 route's products: (S = Q . K^T, P . V), and
+# the dtype whose peak rate P . V runs at (a 16-bit pool: P rounded to
+# it, the 16-bit wgmma; else TF32). An fp32 operand is split into hi +
+# lo: three passes for two fp32 operands, two for one, one for none.
+def tf32_passes(q_dtype: str, pool: str) -> tuple:
+    s = 1 + (q_dtype == "float32") + (pool == "float32")
+    if pool in ("bfloat16", "float16"):
+        return s, 1, pool
+    return s, 2 + (pool == "float32"), "tf32"
+
+
+def bound_tf32(bytes_: int, flops: int, q_dtype: str, pool: str) -> tuple:
+    """Least time (ms) for the TF32 route's work on this card: half the
+    FLOPs (Q . K^T) in ``tf32_passes`` TF32 passes, half (P . V) in its
+    passes at its rate, against the bytes; and which bound sets it."""
+    import torch
+
+    s, pv, pv_rate = tf32_passes(q_dtype, pool)
+    rate = CHIP.peak_tf32_flops if pv_rate == "tf32" else \
+        CHIP.peak_flops(getattr(torch, pv_rate))
+    t_flops = flops / 2 * s / CHIP.peak_tf32_flops + flops / 2 * pv / rate
+    t_bytes = bytes_ / CHIP.hbm_bytes_per_s
+    return 1e3 * max(t_bytes, t_flops), (
+        "bytes" if t_bytes >= t_flops else "operations")
+
+
+def tf32_control(torch, ref, args, kw, want, case) -> dict:
+    """The plain version on q, k and v rounded once to TF32 (one pass,
+    no split), held to the float32 rule the kernel is held to: it must
+    be rejected -- the rule tells split TF32 from one rounding."""
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels.attention import tf32_round
+
+    rounded = [tf32_round(a) if isinstance(a, torch.Tensor)
+               and a.dtype == torch.float32 and a.dim() == 4 else a
+               for a in args]
+    r = compare(ref(*rounded, **kw), want, torch.float32)
+    emit("kernels_control", control="plain_on_tf32_rounded_inputs",
+         case=case, rejected=not r["ok"],
+         **{k: v for k, v in r.items() if k != "ok"})
+    if r["ok"]:
+        raise SystemExit(f"TF32 control ({case}): the float32 rule accepts "
+                         f"one TF32 rounding of the inputs ({r})")
+    return r
+
+
+def kernel_phase(torch, dev, lib) -> tuple:
+    """Every kernel case against its plain version; returns the main
+    path's rows (the 7B shape under a bf16 q) and the TF32 route's timed
+    rows, by (q dtype, pool)."""
+    from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare, rule_dtype
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
 
-    main_rows = {}
+    main_rows, tf32_rows = {}, {}
     for kname, shape_name, (hkv, g), pool, q_name, start in kernel_cases():
         q_dtype = getattr(torch, q_name)
         if kname == "paged_decode_attention":
@@ -857,8 +942,9 @@ def kernel_phase(torch, dev, lib) -> dict:
             library, kernel_name = library_decode, "paged_decode"
             route = "split"
         else:
+            extra = SCALAR_PAGES if shape_name == "pages_of_12" else {}
             args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, pool, start,
-                                              q_dtype)
+                                              q_dtype, **extra)
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
             library, kernel_name = library_prefill, "paged_prefill"
             route = pa.paged_prefill_route(args[0].dtype, args[1].dtype,
@@ -868,20 +954,27 @@ def kernel_phase(torch, dev, lib) -> dict:
         want = ref(*args, **kw)
         if not torch.isfinite(out).all():
             raise SystemExit(f"{kname} {shape_name}: non-finite output")
-        readings = compare(out, want, q_dtype)
+        # q's rule, or a coarser 16-bit pool's where P is rounded to it
+        # (checks/tolerance.py::rule_dtype); q's reading beside it.
+        gate = rule_dtype(q_dtype, None if pool == "int8" else
+                          getattr(torch, pool))
+        readings = compare(out, want, gate)
         row = {
             "kernel": kname, "shape": shape_name, "pool": pool,
             "q_dtype": q_name, "route": route,
             "max_abs_err": readings["max_abs_err"],
-            "tolerance": dataclasses.asdict(TOLERANCES[q_dtype]),
+            "rule": str(gate)[6:],
+            "tolerance": dataclasses.asdict(TOLERANCES[gate]),
             "readings": readings,
         }
+        if gate != q_dtype:
+            row["q_rule_readings"] = compare(out, want, q_dtype)
         if start is None:
             q = args[0]
             row["n_split"] = pa.paged_decode_splits(
                 q.shape[0], q.shape[1], q.shape[2], kw["max_blocks"])
         else:
-            row.update(start=start, tile_rows=(
+            row.update(start=start, block_size=kw["block_size"], tile_rows=(
                 lib.tpuhpc_prefill_tile_rows(
                     hkv, args[0].shape[1], g, args[0].shape[3],
                     kw["block_size"], DTYPE_CODES[args[0].dtype],
@@ -889,19 +982,31 @@ def kernel_phase(torch, dev, lib) -> dict:
         if not readings["ok"]:
             emit("kernels", **row)
             raise SystemExit(f"{kname} {shape_name} pool={pool} q={q_name} "
-                             f"start={start}: outside the {q_name} rule "
+                             f"start={start}: outside the {row['rule']} rule "
                              f"{readings}")
         if kname == "paged_decode_attention" and out[args[5] == 0].any():
             raise SystemExit(f"{kname}: inactive slot not exact zeros")
-        if shape_name == "7b" and pool == "bfloat16" and start in (None, 256):
+        main = shape_name == "7b" and q_name == "bfloat16"
+        if main and pool == "bfloat16" and start in (None, 256):
             control = prefill_control if start else decode_control
             control(torch, args, kw, want)
-        if shape_name == "7b" and pool == "int8" and start == 256:
+        if main and pool == "int8" and start == 256:
             scale_control(torch, args, kw, want)
+        tf32 = route == "wgmma_tf32"
+        if tf32 and q_name == pool == "float32" and start == 256:
+            row["tf32_control"] = tf32_control(torch, ref, args, kw, want,
+                                               "prefill_7b_float32")
         if start in (None, 256):
-            # The peak rate is that of q's dtype, whatever the route
-            # does inside: float32 only when q (and so the pool) is.
-            bound_ms, bound_by = bound(nb, fl, q_dtype)
+            if tf32:
+                # Split TF32: the route's passes at the TF32 rate (P . V
+                # over a 16-bit pool at its rate); beside it the bound at
+                # the fp32 FMA rate the scalar route was held to.
+                bound_ms, bound_by = bound_tf32(nb, fl, q_name, pool)
+                row["bound_fp32_fma_ms"], row["bound_fp32_fma_by"] = bound(
+                    nb, fl, torch.float32)
+            else:
+                # The peak rate of q's dtype.
+                bound_ms, bound_by = bound(nb, fl, q_dtype)
             lib_fn = library(torch, args, kw)
             row.update(
                 ms=time_ms(lambda: fn(*args, **kw), iters=50),
@@ -912,14 +1017,16 @@ def kernel_phase(torch, dev, lib) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nb, flops=fl,
             )
-            if shape_name == "7b" and pool == "bfloat16":
+            if main and pool == "bfloat16":
                 main_rows[kname] = row
-            if shape_name == "7b" and pool == "int8" and start == 256:
+            if main and pool == "int8" and start == 256:
                 main_rows[INT8_PREFILL] = row
+            if tf32:
+                tf32_rows[f"{q_name} q over {pool}"] = row
         emit("kernels", **row)
         del args, kw, out, want
         torch.cuda.empty_cache()
-    return main_rows
+    return main_rows, tf32_rows
 
 
 # ---------------------------------------------------------------------
@@ -1154,7 +1261,7 @@ def flash_phase(torch, dev) -> dict:
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
     from tpu_hpc_torch.kernels import attention as fa
 
-    main_rows, vit_rows = {}, {}
+    main_rows, vit_rows, f32_rows = {}, {}, {}
     for case in FLASH_CASES:
         name, b, sq, sk, hq, hkv, d, causal, qo, ko, dtype_name, timed = case
         dtype = getattr(torch, dtype_name)
@@ -1189,6 +1296,11 @@ def flash_phase(torch, dev) -> dict:
             flash_controls(torch, q, k, v, got, want, causal,
                            CONTROL_CASES[name], name)
             flash_determinism(torch, fa, bargs, kw, got)
+        tf32_read = None
+        if dtype == torch.float32:  # the forward's split-TF32 route
+            tf32_read = tf32_control(
+                torch, lambda *a, **k_: fa.flash_attention_fwd_ref(*a, **k_)[0],
+                (q, k, v, qo, ko), kw, want_o, f"flash_{name}")
         added = flash_accumulate(torch, fa, bargs, kw, dtype)
         emit("flash_accumulate", case=name, dtype=dtype_name,
              q_offset=qo, kv_offset=ko, readings=added)
@@ -1223,9 +1335,20 @@ def flash_phase(torch, dev) -> dict:
             }
             if kname == "flash_attention_fwd":
                 row["lse_max_abs_err"] = lse_err
+            tf32 = kname == "flash_attention_fwd" and dtype == torch.float32
+            if tf32:
+                row.update(route="wgmma_tf32", tf32_control=tf32_read)
             if timed:
                 nb, fl = work[kname]
-                bound_ms, bound_by = bound(nb, fl, dtype)
+                if tf32:
+                    # Three TF32 passes a product; the fp32 FMA bound
+                    # the scalar forward was held to beside it.
+                    bound_ms, bound_by = bound_tf32(nb, fl, "float32",
+                                                    "float32")
+                    row["bound_fp32_fma_ms"], row["bound_fp32_fma_by"] = \
+                        bound(nb, fl, dtype)
+                else:
+                    bound_ms, bound_by = bound(nb, fl, dtype)
                 lib_fn = lib[0] if kname == "flash_attention_fwd" else lib[1]
                 row.update(
                     ms=time_ms(lambda: fn(*args, **kw), iters=20),
@@ -1245,6 +1368,8 @@ def flash_phase(torch, dev) -> dict:
                     main_rows[kname] = row
                 if name == "vit_noncausal":
                     vit_rows[kname] = row
+                if dtype == torch.float32:
+                    f32_rows[kname] = row
             emit("flash", **row)
             if not all(r["ok"] for r in readings.values()):
                 raise SystemExit(
@@ -1254,7 +1379,7 @@ def flash_phase(torch, dev) -> dict:
         del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
         del lib, outputs, bargs, got, want
         torch.cuda.empty_cache()
-    return main_rows, vit_rows
+    return main_rows, vit_rows, f32_rows
 
 
 # ---------------------------------------------------------------------
@@ -3288,7 +3413,7 @@ NONFINITE_PREFILL = (
     ("k_inf_key", "k", (6, 20, 9), "inf"),
 )
 # The prefill's pools and q dtypes: the wgmma route (bf16 over bf16) and
-# the scalar route's float32 and mixed 16-bit cases.
+# the TF32 route's float32 and mixed 16-bit cases.
 NONFINITE_PREFILL_ROUTES = (("bfloat16", "bfloat16"), ("float32", "float32"),
                             ("float16", "bfloat16"))
 # The decode (decode_case's 7B shape): a q row [slot, kv head, group,
@@ -4926,7 +5051,8 @@ OBS_CAPTURE_UPDATES = 9
 PAGED_DEVICE_KERNELS = ("paged_decode_split_kernel",
                         "paged_decode_combine_kernel",
                         "paged_prefill_wgmma_kernel",
-                        "paged_prefill_int8_kernel", "paged_prefill_kernel")
+                        "paged_prefill_int8_kernel",
+                        "paged_prefill_tf32_kernel", "paged_prefill_kernel")
 FLASH_DEVICE_KERNELS = {"flash_attention_fwd": "flash_fwd_wgmma_kernel",
                         "flash_attention_dq": "flash_dq_wgmma_kernel",
                         "flash_attention_dkv": "flash_dkv_wgmma_kernel"}
@@ -6147,6 +6273,58 @@ def native_tools_phase(torch, dev, train) -> dict:
     return out
 
 
+def crosscheck_phase(torch, dev, cfg, serve_cfg, paged) -> dict:
+    """The serving path in float32 at 7B width, 2 layers: greedy tokens
+    through the cuda kernels equal to the gather path's and to the
+    no-cache forward's. Returns the prefill's launches by route (the
+    TF32 route's float32 pair)."""
+    from tpu_hpc_torch.kernels import paged_attention as pa
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import (
+        ContinuousBatcher,
+        PagedEngine,
+        replay_requests,
+    )
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = llama2.init_llama(
+        torch.Generator(device=dev).manual_seed(1), small, dev
+    )
+    results = {}
+    _zero_launches()
+    for kernel in ("cuda", "gather"):
+        eng = PagedEngine(params, small, serve_cfg, dev,
+                          dataclasses.replace(paged, kernel=kernel))
+        eng.warmup()
+        reqs = replay_requests(SERVE_REQUESTS, small.vocab_size,
+                               SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0)
+        results[kernel] = ContinuousBatcher(eng).run(reqs)
+        del eng
+        torch.cuda.empty_cache()
+    same = results["cuda"] == results["gather"]
+    oracle_ok = []
+    with torch.no_grad():
+        for r in reqs[:2]:
+            toks = list(r.prompt)
+            for _ in range(SERVE_MAX_NEW):
+                logits = llama2.apply_llama(
+                    params, torch.tensor([toks], device=dev), small
+                )
+                toks.append(int(logits[0, -1].argmax()))
+            oracle_ok.append(toks[len(r.prompt):] == results["cuda"][r.rid])
+    routes = dict(pa.paged_prefill_attention.route_launches)
+    emit("crosscheck", model="7b-width-2-layers", dtype="float32",
+         requests=len(results["cuda"]),
+         tokens=sum(len(t) for t in results["cuda"].values()),
+         prefill_routes=routes,
+         cuda_equals_gather=same, cuda_equals_no_cache_forward=oracle_ok)
+    if not same or not all(oracle_ok):
+        raise SystemExit("crosscheck: greedy tokens differ")
+    del params
+    torch.cuda.empty_cache()
+    return routes
+
+
 def main() -> int:
     import torch
 
@@ -6157,12 +6335,6 @@ def main() -> int:
     global CHIP
     from tpu_hpc_torch.checks.roofline import chip_for_kind
     from tpu_hpc_torch.kernels import _build
-    from tpu_hpc_torch.models import llama2
-    from tpu_hpc_torch.serve import (
-        ContinuousBatcher,
-        PagedEngine,
-        replay_requests,
-    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -6178,11 +6350,11 @@ def main() -> int:
 
     build_s = _build.build()
     lib = _build.load_library()
-    emit("build", seconds=build_s, library=str(_build.LIBRARY),
-         ptxas=ptxas_summary(_build.PTXAS_LOG.read_text()))
+    ptxas = ptxas_summary(_build.PTXAS_LOG.read_text())
+    emit("build", seconds=build_s, library=str(_build.LIBRARY), ptxas=ptxas)
 
-    main_rows = kernel_phase(torch, dev, lib)
-    flash_rows, vit_rows = flash_phase(torch, dev)
+    main_rows, tf32_rows = kernel_phase(torch, dev, lib)
+    flash_rows, vit_rows, flash_f32_rows = flash_phase(torch, dev)
     main_rows.update(flash_rows)
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
@@ -6208,39 +6380,7 @@ def main() -> int:
     _release(torch)
 
     # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
-    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
-    params = llama2.init_llama(
-        torch.Generator(device=dev).manual_seed(1), small, dev
-    )
-    results = {}
-    for kernel in ("cuda", "gather"):
-        eng = PagedEngine(params, small, serve_cfg, dev,
-                          dataclasses.replace(paged, kernel=kernel))
-        eng.warmup()
-        reqs = replay_requests(SERVE_REQUESTS, small.vocab_size,
-                               SERVE_PROMPT_LENS, SERVE_MAX_NEW, seed=0)
-        results[kernel] = ContinuousBatcher(eng).run(reqs)
-        del eng
-        torch.cuda.empty_cache()
-    same = results["cuda"] == results["gather"]
-    oracle_ok = []
-    with torch.no_grad():
-        for r in reqs[:2]:
-            toks = list(r.prompt)
-            for _ in range(SERVE_MAX_NEW):
-                logits = llama2.apply_llama(
-                    params, torch.tensor([toks], device=dev), small
-                )
-                toks.append(int(logits[0, -1].argmax()))
-            oracle_ok.append(toks[len(r.prompt):] == results["cuda"][r.rid])
-    emit("crosscheck", model="7b-width-2-layers", dtype="float32",
-         requests=len(results["cuda"]),
-         tokens=sum(len(t) for t in results["cuda"].values()),
-         cuda_equals_gather=same, cuda_equals_no_cache_forward=oracle_ok)
-    if not same or not all(oracle_ok):
-        raise SystemExit("crosscheck: greedy tokens differ")
-    del params
-    torch.cuda.empty_cache()
+    crosscheck_routes = crosscheck_phase(torch, dev, cfg, serve_cfg, paged)
 
     # -- 7. the training path: the bench Llama through the flash kernels
     train_launches, train = train_phase(torch, dev)
@@ -6345,6 +6485,24 @@ def main() -> int:
         # token-file run, the fit's update, the autotuner's sweeps.
         if entry["name"] in native_launches:
             entry["native_tools_launches"] = native_launches[entry["name"]]
+        # The split-TF32 kernels beside their wrapper's entry: the
+        # prefill's float32 and mixed pairs and the float32 forward,
+        # off the main paths (the float32 crosscheck's launches by
+        # route), with their registers and spills.
+        tf32 = TF32_KERNELS.get(entry["name"])
+        if tf32 is not None:
+            paged = entry["name"] == "paged_prefill_attention"
+            rows = tf32_rows if paged else {
+                "float32": flash_f32_rows[entry["name"]]}
+            entry["tf32_route"] = {
+                "kernel": tf32,
+                "ptxas": [r for r in ptxas if r["kernel"].startswith(tf32)],
+                "rows": {case: {k: row.get(k) for k in TF32_ROW_KEYS}
+                         for case, row in rows.items()},
+            }
+            if paged:
+                entry["tf32_route"]["crosscheck_launches"] = \
+                    crosscheck_routes["wgmma_tf32"]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -88,8 +88,10 @@ def test_next_live_page_scales_shifts_the_live_pages_only():
 
 def test_kernel_cases_cover_every_prefill_route():
     """bf16 and int8 pools at both shapes, every prefill at chunk 0 and
-    at 256, and the scalar route's float32 and mixed-dtype pairs at the
-    7B chunk; the int8 prefill has its own summary entry."""
+    at 256; the TF32 route's float32, mixed-16-bit, float32-over-int8
+    and float32-over-bf16 pairs at the 7B chunk at 256 (timed); the
+    scalar route once, at pages outside the tensor-core rule; the int8
+    prefill has its own summary entry."""
     cases = chip_smoke.kernel_cases()
     prefill = {(shape, pool, q, start)
                for k, shape, _, pool, q, start in cases
@@ -98,13 +100,50 @@ def test_kernel_cases_cover_every_prefill_route():
         for pool in ("bfloat16", "int8"):
             for start in (0, 256):
                 assert (shape, pool, "bfloat16", start) in prefill
-    assert ("7b", "float32", "float32", 256) in prefill
-    assert ("7b", "float16", "bfloat16", 256) in prefill
-    assert len(cases) == 14
+    for pool, q in (("float32", "float32"), ("float16", "bfloat16"),
+                    ("int8", "float32"), ("bfloat16", "float32")):
+        assert ("7b", pool, q, 256) in prefill
+    assert ("pages_of_12", "float32", "float32", 40) in prefill
+    bs = chip_smoke.SCALAR_PAGES["bs"]
+    assert 64 % bs and bs % 64  # neither stacks into nor splits a tile
+    assert len(cases) == 17
     name = chip_smoke.INT8_PREFILL
     assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
     assert chip_smoke.REPLACES[name] == \
         chip_smoke.REPLACES["paged_prefill_attention"]
+
+
+@pytest.mark.parametrize("q, pool, passes", [
+    ("float32", "float32", (3, 3, "tf32")),
+    ("float32", "int8", (2, 2, "tf32")),
+    ("float32", "bfloat16", (2, 1, "bfloat16")),
+    ("bfloat16", "float32", (2, 3, "tf32")),
+    ("bfloat16", "float16", (1, 1, "float16")),
+])
+def test_tf32_bound_counts_the_split_passes(q, pool, passes):
+    """The TF32 route's bound: an fp32 operand split in two makes three
+    TF32 passes of a product of two, two of one, one of none; P . V over
+    a 16-bit pool runs at that pool's rate. Against the bytes, at the
+    H100 SXM's published rates."""
+    import torch
+
+    from tpu_hpc_torch.checks.roofline import CHIPS
+
+    assert chip_smoke.tf32_passes(q, pool) == passes
+    chip = CHIPS["h100-sxm"]
+    assert chip.peak_tf32_flops == 495e12
+    old, chip_smoke.CHIP = chip_smoke.CHIP, chip
+    try:
+        flops = 10 ** 12
+        ms, by = chip_smoke.bound_tf32(1, flops, q, pool)
+        s, pv, rate = passes
+        pv_rate = chip.peak_tf32_flops if rate == "tf32" else \
+            chip.peak_flops(getattr(torch, rate))
+        want = 1e3 * (flops / 2 * s / 495e12 + flops / 2 * pv / pv_rate)
+        assert by == "operations" and ms == pytest.approx(want)
+        assert chip_smoke.bound_tf32(10 ** 15, 1, q, pool)[1] == "bytes"
+    finally:
+        chip_smoke.CHIP = old
 
 
 def test_phase_list_names_serve_spec_after_serve_int8():

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_hpc_torch.checks.tolerance import compare
+from tpu_hpc_torch.checks.tolerance import compare, rule_dtype
 from tpu_hpc_torch.kernels import paged_attention as pa
 from tpu_hpc_torch.models import llama2
 from tpu_hpc_torch.serve import (
@@ -188,10 +188,19 @@ PREFILL_POOLS = {
     "float16": ("float16", torch.float16, "wgmma"),
     "int8": ("int8", torch.bfloat16, "wgmma_int8"),
     "int8_f16_q": ("int8", torch.float16, "wgmma_int8"),
-    "f32_q_over_int8_pool": ("int8", torch.float32, "scalar"),
-    "float32": ("float32", torch.float32, "scalar"),
-    "bf16_q_over_f16_pool": ("float16", torch.bfloat16, "scalar"),
+    "f32_q_over_int8_pool": ("int8", torch.float32, "wgmma_tf32"),
+    "float32": ("float32", torch.float32, "wgmma_tf32"),
+    "bf16_q_over_f16_pool": ("float16", torch.bfloat16, "wgmma_tf32"),
+    "f16_q_over_bf16_pool": ("bfloat16", torch.float16, "wgmma_tf32"),
+    "f32_q_over_bf16_pool": ("bfloat16", torch.float32, "wgmma_tf32"),
+    "f32_q_over_f16_pool": ("float16", torch.float32, "wgmma_tf32"),
+    "bf16_q_over_f32_pool": ("float32", torch.bfloat16, "wgmma_tf32"),
+    "f16_q_over_f32_pool": ("float32", torch.float16, "wgmma_tf32"),
 }
+# The pool kinds the TF32 route takes (every pair but 16-bit q over its
+# own dtype or over int8).
+TF32_POOLS = [k for k, (_, _, route) in PREFILL_POOLS.items()
+              if route == "wgmma_tf32"]
 
 
 def _prefill(dev, kind, *, hkv=2, bucket=32, g=4, d=128, bs=16, start=0,
@@ -228,15 +237,17 @@ def _check_prefill(args, kw, route):
     assert pa.paged_prefill_route(q.dtype, k.dtype, q.shape[-1],
                                   kw["block_size"]) == route
     n0 = pa.paged_prefill_attention.launches
+    r0 = pa.paged_prefill_attention.route_launches[route]
     got = pa.paged_prefill_attention(*args, **kw)
     torch.cuda.synchronize()
     assert pa.paged_prefill_attention.launches == n0 + 1
+    assert pa.paged_prefill_attention.route_launches[route] == r0 + 1
     want = pa.paged_prefill_attention_ref(*args, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
-    if q.dtype in (torch.bfloat16, torch.float16):
-        readings = compare(got, want, q.dtype)
-        assert readings["ok"], readings
+    readings = compare(got, want, rule_dtype(
+        q.dtype, None if k.dtype == torch.int8 else k.dtype))
+    assert readings["ok"], readings
 
 
 @pytest.mark.gpu
@@ -245,8 +256,8 @@ def _check_prefill(args, kw, route):
 def test_prefill_kernel_matches_plain(cuda, pool, start):
     """Every pool kind, on the route the library reports: 16-bit q and
     pool of one dtype take the wgmma kernel, an int8 pool under a 16-bit
-    q the int8 wgmma kernel; float32, float32 q over int8 and mixed
-    16-bit dtypes keep the scalar kernel."""
+    q the int8 wgmma kernel, every other pair (float32 q or pool, mixed
+    16-bit dtypes) the TF32 wgmma kernel."""
     _check_prefill(*_prefill(cuda, pool, start=start, seed=71 + start))
 
 
@@ -299,6 +310,81 @@ def test_prefill_wgmma_kernel_ragged_rows(cuda, bs, start, pool):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pool", TF32_POOLS)
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+def test_prefill_tf32_kernel_shapes(cuda, bs, d, pool):
+    """The TF32 route for every pair it takes, over pages that stack 8,
+    4 or 2 into a 64-key tile or split into them, both head-dim variants
+    and d 96 (columns past d read as zeros), 40 grouped rows (one
+    ragged 64-row tile) at a start inside a page; dead entries point at
+    a NaN page. Held by the rule for q's dtype, or a coarser 16-bit
+    pool's (rule_dtype)."""
+    _check_prefill(*_prefill(cuda, pool, bucket=20, g=2, d=d, bs=bs,
+                             start=37, seed=bs + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "f32_q_over_int8_pool",
+                                  "bf16_q_over_f32_pool"])
+def test_prefill_tf32_kernel_long_chunk(cuda, pool):
+    """A 256-token chunk at start 200: the TF32 route's rings wrap many
+    times (2 stages over a float32 pool, 4 over an int8 one)."""
+    _check_prefill(*_prefill(cuda, pool, bucket=256, g=1, bs=16, start=200,
+                             seed=140))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f16_pool"])
+def test_prefill_scalar_route_outside_the_page_rule(cuda, pool):
+    """Pages of 12 tokens neither stack into nor split a 64-key tile:
+    the scalar kernel takes them, for any pair."""
+    args, kw, _ = _prefill(cuda, pool, g=2, bs=12, start=30, seed=150)
+    _check_prefill(args, kw, "scalar")
+
+
+# Non-finite values planted for the TF32 route: (tensor, index, value),
+# q's [kv head, row, group, d] and (key, kv head, d) of the first live
+# page.
+TF32_NONFINITE = [("q", (1, 5, 0, 3), "nan"), ("q", (0, 9, 1, 7), "inf"),
+                  ("k", (2, 0, 5), "nan"), ("k", (3, 1, 9), "inf"),
+                  ("k", (4, 0, 2), "-inf"), ("v", (1, 1, 4), "inf")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f32_pool",
+                                  "f32_q_over_bf16_pool"])
+@pytest.mark.parametrize("planted", TF32_NONFINITE,
+                         ids=lambda p: f"{p[0]}_{p[2]}")
+def test_prefill_tf32_kernel_nonfinite_rows(cuda, planted, pool):
+    """One NaN or inf in q or in a live key or value: the TF32 route's
+    non-finite rows are the plain version's (an inf in q or K gives the
+    row the plain fp32 product's +-inf or NaN, never a NaN from a split
+    term), and every other row is within the rule."""
+    args, kw, route = _prefill(cuda, pool, bucket=32, g=2, start=20,
+                               seed=160)
+    q, k, v, table, start = args
+    which, idx, value = planted
+    if which == "q":
+        q[idx] = float(value)
+    else:
+        (k if which == "k" else v)[(int(table[0]),) + idx] = float(value)
+    assert pa.paged_prefill_route(q.dtype, k.dtype, q.shape[-1],
+                                  kw["block_size"]) == route
+    got = pa.paged_prefill_attention(*args, **kw)
+    want = pa.paged_prefill_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    bad_got = ~torch.isfinite(got.float()).all(dim=-1)
+    bad_want = ~torch.isfinite(want.float()).all(dim=-1)
+    assert torch.equal(bad_got, bad_want)
+    keep = ~bad_want
+    if keep.any():
+        readings = compare(got[keep], want[keep],
+                           rule_dtype(q.dtype, k.dtype))
+        assert readings["ok"], readings
+
+
+@pytest.mark.gpu
 def test_float32_kernels_match_plain_tightly(cuda):
     """Float32 in and out: only the summation order differs."""
     rng = np.random.default_rng(72)
@@ -326,6 +412,19 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
             args[0].transpose(2, 3).contiguous().transpose(2, 3), *args[1:],
             block_size=16, max_blocks=5,
         )
+    # The prefill's TF32 route (float32 q and pool) raises the same way,
+    # and counts no launch.
+    pargs, pkw, route = _prefill(cuda, "float32")
+    assert route == "wgmma_tf32"
+    n0 = pa.paged_prefill_attention.route_launches[route]
+    with pytest.raises(ValueError, match="table is on cpu"):
+        pa.paged_prefill_attention(*pargs[:3], pargs[3].cpu(), pargs[4],
+                                   **pkw)
+    q = pargs[0]
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_prefill_attention(
+            q.transpose(2, 3).contiguous().transpose(2, 3), *pargs[1:], **pkw)
+    assert pa.paged_prefill_attention.route_launches[route] == n0
 
 
 @pytest.mark.gpu

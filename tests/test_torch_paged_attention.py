@@ -36,7 +36,7 @@ jnp = jax.numpy
 from tpu_hpc.kernels import attention as jax_attention
 from tpu_hpc.kernels import paged_attention as jax_pa
 from tpu_hpc.serve.paging import SCRATCH_BLOCK as JAX_SCRATCH_BLOCK
-from tpu_hpc_torch.checks.tolerance import compare
+from tpu_hpc_torch.checks.tolerance import compare, rule_dtype
 from tpu_hpc_torch.kernels import attention as pt_attention
 from tpu_hpc_torch.kernels import paged_attention as pt_pa
 from tpu_hpc_torch.serve.paging import SCRATCH_BLOCK
@@ -437,6 +437,63 @@ def test_prefill_int8_pool_under_16bit_q_matches_pallas_kernel(g, start,
     got = pt_pa.paged_prefill_attention(*args, **kw)
     assert got.dtype == q_dtype and torch.isfinite(got).all()
     readings = compare(got, want, q_dtype)
+    assert readings["ok"], readings
+
+
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+        torch.float16: jnp.float16}
+
+# (q dtype, pool dtype): the pairs the card's TF32 prefill route takes
+# (float32 q or pool, mixed 16-bit dtypes).
+TF32_PAIRS = [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float16),
+    (torch.float16, torch.bfloat16), (torch.float32, torch.int8),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+]
+
+
+@pytest.mark.parametrize("g, start", [(1, 0), (2, 5)])
+@pytest.mark.parametrize("q_dtype, pool_dtype", TF32_PAIRS,
+                         ids=lambda t: str(t)[6:])
+def test_prefill_tf32_route_pairs_match_pallas_kernel(q_dtype, pool_dtype, g,
+                                                     start):
+    """The pairs the card's TF32 route takes: the plain prefill against
+    the Pallas prefill (interpret mode) on the same values -- 16-bit q
+    and pools cast once, int8 pools through the port's quantizer -- over
+    4-token pages whose dead entries point at a NaN page (NaN scales for
+    int8), held by checks/tolerance.py's rule for q's dtype; a float32 q
+    over a 16-bit pool by the pool's rule (``rule_dtype``: both sides
+    round P to the pool's dtype, each relative to another max)."""
+    rng = np.random.default_rng(500 + 10 * g + start)
+    hkv, bucket, d, bs, mb, nb = 2, 16, 32, 4, 10, 24
+    shape = (nb, bs, hkv, d)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    table = _table_row(rng, nb, mb, -(-(start + bucket) // bs))
+    q = _t(rng.standard_normal((hkv, bucket, g, d)).astype(np.float32))
+    q = q.to(q_dtype)
+    kw = dict(block_size=bs, max_blocks=mb)
+    jkw = dict(kw, interpret=True)
+    if pool_dtype == torch.int8:
+        kq, ksc, vq, vsc = _quantized(kp, vp)
+        ksc[-1] = vsc[-1] = np.nan
+        k, v = _t(kq), _t(vq)
+        jk, jv = jnp.asarray(kq), jnp.asarray(vq)
+        kw.update(k_scale=_t(ksc), v_scale=_t(vsc))
+        jkw.update(k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+    else:
+        kp[-1] = vp[-1] = np.nan
+        k, v = _t(kp).to(pool_dtype), _t(vp).to(pool_dtype)
+        jk, jv = (jnp.asarray(t.float().numpy()).astype(_JNP[pool_dtype])
+                  for t in (k, v))
+    jq = jnp.asarray(q.float().numpy()).astype(_JNP[q_dtype])
+    want = jax_pa.paged_prefill_attention(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(start, jnp.int32),
+        **jkw)
+    got = pt_pa.paged_prefill_attention(q, k, v, _t(table), start, **kw)
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    readings = compare(got, _t(np.array(want, np.float32)),
+                       rule_dtype(q_dtype, pool_dtype))
     assert readings["ok"], readings
 
 

@@ -66,3 +66,22 @@ def test_float32_is_absolute_and_relative_1e4():
         got = want + scale * noise
         assert compare(got, want, torch.float32)["ok"] == torch.allclose(
             got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("q, pool, rule", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.float32, None, torch.float32),          # an int8 pool: P in fp32
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float16, torch.float16),
+    (torch.float16, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float16, torch.float32, torch.float16),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+], ids=str)
+def test_rule_dtype_is_q_unless_p_is_rounded_coarser(q, pool, rule):
+    """q's rule, unless the pool is a 16-bit dtype coarser than q's, to
+    which P is rounded before P.V: then the pool's."""
+    from tpu_hpc_torch.checks.tolerance import rule_dtype
+
+    assert rule_dtype(q, pool) == rule

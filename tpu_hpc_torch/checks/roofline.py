@@ -55,7 +55,10 @@ GIB = 1024 ** 3
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
     """Published per-card numbers. ``peak_fp32_flops`` is the rate
-    outside the tensor cores (plain fp32 FMAs). ``ici_gbps`` is ONE
+    outside the tensor cores (plain fp32 FMAs), ``peak_tf32_flops`` the
+    tensor cores' TF32 rate (dense), which the split-TF32 kernels run
+    at (three TF32 products for one fp32 product of two split
+    operands: chip_smoke.py's ``bound_tf32``). ``ici_gbps`` is ONE
     direction of the card's link inside a node, ``dcn_gbps`` its share
     of the network between nodes (one NIC per card), both GB/s;
     ``hbm_gib`` is capacity (the fit analyzer owns does-it-fit, this
@@ -68,6 +71,7 @@ class ChipSpec:
     hbm_gib: float = 80.0
     ici_gbps: float = 450.0
     dcn_gbps: float = 50.0
+    peak_tf32_flops: float = 495e12
 
     @property
     def hbm_bytes_per_s(self) -> float:
@@ -84,8 +88,10 @@ class ChipSpec:
 
 
 CHIPS: Dict[str, ChipSpec] = {
-    "h100-sxm": ChipSpec("h100-sxm", 989e12, 67e12, 3350, 80.0, 450.0, 50.0),
-    "h100-pcie": ChipSpec("h100-pcie", 756e12, 51e12, 2000, 80.0, 64.0, 50.0),
+    "h100-sxm": ChipSpec("h100-sxm", 989e12, 67e12, 3350, 80.0, 450.0, 50.0,
+                         495e12),
+    "h100-pcie": ChipSpec("h100-pcie", 756e12, 51e12, 2000, 80.0, 64.0, 50.0,
+                          378e12),
 }
 
 

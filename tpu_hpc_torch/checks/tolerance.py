@@ -33,8 +33,24 @@ range, as in the JAX kernel), 0.0025 or less elsewhere, and a relative
 RMS error of at most 0.00033, so ``rel_rms`` is the tight check there.
 
 Float32 keeps the absolute and relative 1e-4 of the first card tests:
-its kernels take scalar FMAs in another order than the plain versions'
-matrix products, with no rounding to a narrower type.
+its kernels take their products in another order than the plain
+versions' (scalar FMAs, or split-TF32 passes whose hi + lo carries each
+operand to 2^-22), with no rounding to a narrower type.
+
+An output of q over a 16-bit KV pool of a coarser dtype than q's -- a
+float32 q over a bf16 or f16 pool, an f16 q over a bf16 pool -- does
+carry such a rounding: P is rounded to the pool's dtype before P.V (the
+Pallas kernel's ``p.astype(v.dtype)``), by a blocked kernel relative to
+its running max, by the plain version relative to the whole row's. Two
+roundings of one P at different scales differ by up to an ulp of the
+pool's dtype, so no blocked kernel meets q's rule there: not the JAX
+Pallas prefill either, which rounds P page by page
+(tests/test_torch_paged_attention.py holds it to the pool's rule
+against the plain version). On an H100, the TF32 prefill kernel at the
+7B chunk of 256 at start 256: float32 q over bf16 8.96x the float32
+bound; f16 q over bf16 a relative RMS error of 0.00135 against f16's
+0.001 (PERF.md, the kernel table). :func:`rule_dtype` names the rule
+such an output is held to: the pool's.
 """
 from __future__ import annotations
 
@@ -60,6 +76,18 @@ TOLERANCES: Dict[torch.dtype, Tolerance] = {
     torch.float32: Tolerance(rtol=1e-4, row_atol=0.0, atol=1e-4,
                              rel_rms=None),
 }
+
+
+def rule_dtype(q_dtype: torch.dtype,
+               pool_dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The dtype whose rule holds an attention output of q in
+    ``q_dtype`` over K/V in ``pool_dtype``: q's, unless the pool is a
+    16-bit dtype coarser than q's, to which P is rounded before P.V (see
+    above) -- then the pool's."""
+    if pool_dtype in (torch.bfloat16, torch.float16) and \
+            torch.finfo(pool_dtype).eps > torch.finfo(q_dtype).eps:
+        return pool_dtype
+    return q_dtype
 
 
 def compare(got: torch.Tensor, want: torch.Tensor,
@@ -95,4 +123,4 @@ def compare(got: torch.Tensor, want: torch.Tensor,
             "ok": ok}
 
 
-__all__ = ["TOLERANCES", "Tolerance", "compare"]
+__all__ = ["TOLERANCES", "Tolerance", "compare", "rule_dtype"]

@@ -6,7 +6,7 @@
 //   forward           replaces _flash_kernel (launched by _flash_forward):
 //                     out and the per-row log-sum-exp, online softmax.
 //                     flash_fwd_wgmma_kernel for bf16 / fp16,
-//                     flash_fwd_kernel for float32.
+//                     flash_fwd_tf32_kernel for float32.
 //   dq                replaces _flash_dq_kernel (launched by
 //                     _flash_backward): dq = scale * dS . K.
 //                     flash_dq_wgmma_kernel for bf16 / fp16,
@@ -69,9 +69,12 @@
 // before each softmax; dk/dv's 240 registers leave no room for a second
 // S / dP pair.
 //
-// Float32 inputs keep the first, simple design (the same walks on
-// scalar fp32 FMAs over shared memory, 32-row tiles: wgmma has no fp32
-// operand).
+// The float32 forward runs the TF32 walk of hopper.cuh: wgmma's TF32
+// form on split operands (hi + lo, three passes a product), so it keeps
+// the float32 rule of checks/tolerance.py; its design is set out above
+// flash_fwd_tf32_kernel. The float32 dq and dk/dv keep the first, simple
+// design (the same walks on scalar fp32 FMAs over shared memory, 32-row
+// tiles).
 //
 // Plain C interface, loaded with ctypes by tpu_hpc_torch/kernels/_build.py
 // (tpuhpc_error_string lives in paged_attention.cu, in the same
@@ -83,7 +86,6 @@
 namespace {
 
 constexpr int kThreads = 256;  // float32 kernels
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeadDim = 128;
 constexpr int kFPad = 4;  // fp32 accumulator rows padded to d + 4
 
@@ -92,13 +94,6 @@ constexpr int kFPad = 4;  // fp32 accumulator rows padded to d + 4
 // column walks hit distinct banks.
 constexpr int kF32Rows = 32;
 constexpr int kF32Pad = 1;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmax_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Whether query row `row` (global position) sees key `col` (local index
 // into this KV chunk): inside the chunk, and not in the row's future
@@ -163,120 +158,9 @@ __device__ __forceinline__ int kv_tiles(int sk, int br, int last_row,
 }
 
 // ---------------------------------------------------------------------
-// Forward, float32 inputs. Grid (q tiles, hq, b); the heaviest causal
-// tiles launch first. (16-bit inputs: flash_fwd_wgmma_kernel below.)
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q,   // (b, sq, hq, d)
-    const T* __restrict__ k,   // (b, sk, hkv, d)
-    const T* __restrict__ v,
-    T* __restrict__ out,       // (b, sq, hq, d)
-    float* __restrict__ lse,   // (b, sq, hq)
-    int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-    int causal, float scale) {
-  static_assert(std::is_same<T, float>::value,
-                "16-bit forward runs flash_fwd_wgmma_kernel");
-  constexpr int BR = kF32Rows;
-  constexpr int ldp = BR + kF32Pad;
-  constexpr int lds = BR + kFPad;
-  const int ld = d + kF32Pad;
-  const int lda = d + kFPad;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (hq / hkv);
-  const int q0 = qt * BR;
-  const int q_rows = min(BR, sq - q0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);        // [BR][ld]
-  T* ks = qs + BR * ld;                           // [BR][ld]
-  T* vs = ks + BR * ld;                           // [BR][ld]
-  T* ps = vs + BR * ld;                           // [BR][ldp]
-  float* ss = reinterpret_cast<float*>(ps + BR * ldp);  // [BR][lds]
-  float* acc = ss + BR * lds;                     // [BR][lda]
-  float* m = acc + BR * lda;                      // [BR]
-  float* l = m + BR;                              // [BR]
-
-  const size_t q_stride = static_cast<size_t>(hq) * d;
-  const size_t kv_stride = static_cast<size_t>(hkv) * d;
-  const size_t q_base = (static_cast<size_t>(b) * sq + q0) * q_stride +
-                        static_cast<size_t>(h) * d;
-  const size_t kv_base = static_cast<size_t>(b) * sk * kv_stride +
-                         static_cast<size_t>(kvh) * d;
-
-  load_rows(qs, ld, q + q_base, q_stride, BR, q_rows, d);
-  for (int i = threadIdx.x; i < BR * lda; i += kThreads) acc[i] = 0.f;
-  for (int r = threadIdx.x; r < BR; r += kThreads) {
-    m[r] = kMaskValue;
-    l[r] = 0.f;
-  }
-
-  const int n_kt = kv_tiles(sk, BR, q_offset + q0 + q_rows - 1, kv_offset, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BR;
-    const int k_rows = min(BR, sk - k0);
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_rows(ks, ld, k + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    load_rows(vs, ld, v + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    __syncthreads();
-    block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
-    __syncthreads();
-    // Online softmax, one warp per row; the warp also rescales its
-    // row of the accumulator, so no barrier separates the two.
-    for (int r = warp; r < BR; r += kWarps) {
-      const int row = q_offset + q0 + r;
-      float sv[BR / 32];
-      float mx = kMaskValue;
-#pragma unroll
-      for (int j = 0; j < BR / 32; ++j) {
-        const int c = lane + 32 * j;
-        const float s = visible(row, k0 + c, sk, kv_offset, causal)
-                            ? ss[r * lds + c] * scale
-                            : kMaskValue;
-        sv[j] = s;
-        mx = fmax_nan(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m[r];
-      const float l_prev = l[r];
-      const float m_new = fmax_nan(m_prev, mx);
-      const float m_safe = m_new <= kMaskValue * 0.5f ? 0.f : m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BR / 32; ++j) {
-        const float p = sv[j] > kMaskValue * 0.5f ? expf(sv[j] - m_safe) : 0.f;
-        psum += p;
-        ps[r * ldp + lane + 32 * j] = from_f<T>(p);
-      }
-      psum = warp_sum(psum);
-      const float alpha = expf(m_prev - m_safe);
-      for (int x = lane; x < d; x += 32) acc[r * lda + x] *= alpha;
-      if (lane == 0) {
-        l[r] = alpha * l_prev + psum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
-    block_gemm<true, true>(ps, ldp, vs, ld, acc, lda, BR, d, BR, true);
-  }
-  __syncthreads();
-  for (int r = warp; r < q_rows; r += kWarps) {
-    const float lr = l[r];
-    const float l_safe = lr == 0.f ? 1.f : lr;
-    T* orow = out + q_base + r * q_stride;
-    for (int x = lane; x < d; x += 32) orow[x] = from_f<T>(acc[r * lda + x] / l_safe);
-    if (lane == 0)
-      lse[(static_cast<size_t>(b) * sq + q0 + r) * hq + h] = m[r] + logf(l_safe);
-  }
-}
-
-// ---------------------------------------------------------------------
-// dq, float32 inputs. Grid (q tiles, hq, b); the same walk as the
-// forward. (16-bit inputs: flash_dq_wgmma_kernel below.)
+// dq, float32 inputs. Grid (q tiles, hq, b); a block walks the KV tiles
+// its last row can see, scalar FMAs over shared memory. (16-bit
+// inputs: flash_dq_wgmma_kernel below.)
 // ---------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
@@ -944,8 +828,7 @@ struct FwdMask {
   int row[2];
   int first;
   int sk, kv_offset, causal;
-  __device__ __forceinline__ bool edge(int kt) const {
-    const int k_last = kt * kWalkKeys + kWalkKeys - 1;
+  __device__ __forceinline__ bool edge(int k_last) const {
     return k_last >= sk || (causal && kv_offset + k_last > first);
   }
   __device__ __forceinline__ bool sees(int r, int key) const {
@@ -1051,8 +934,95 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma_kernel(
   walk_skip(ring, n_wg, n_kt);
 }
 
-// Dynamic shared memory of each float32 kernel, in bytes: the input
-// tiles first, then the fp32 buffers.
+// ---------------------------------------------------------------------
+// Forward, float32 inputs, on the TF32 tensor cores (hopper.cuh, the
+// TF32 walk). Grid (q tiles of kTf32Rows, hq, b), heaviest causal tiles
+// first. Two converter warpgroups read the block's 64 q rows once, then
+// one each 32-key tile of K and the other of V of the query head's KV
+// head (GQA: no repeated copy) with coalesced 16-byte loads, split every
+// value into TF32 hi and lo and write them into the ring (V transposed,
+// as TF32 P . V reads it); keys past sk come out as zeros. The consumer warpgroup walks the
+// tiles its last row can see: S in three TF32 passes (Q hi K hi, then
+// the cross terms), P kept in fp32 -- the Pallas kernel's
+// p.astype(v.dtype) is the identity here -- and split, P . V in three.
+// Shared memory at d 128: Q hi and lo 64 KB, two stages of K and V hi
+// and lo, 128 KB (Tf32Layout). The epilogue writes out and the lse from
+// registers, with the 16-bit forward's m_safe / l_safe rules.
+// ---------------------------------------------------------------------
+template <int kD>
+__global__ void __launch_bounds__(kTf32Threads, 1) flash_fwd_tf32_kernel(
+    const float* __restrict__ q,  // (b, sq, hq, d)
+    const float* __restrict__ k,  // (b, sk, hkv, d)
+    const float* __restrict__ v,
+    float* __restrict__ out,      // (b, sq, hq, d)
+    float* __restrict__ lse,      // (b, sq, hq)
+    int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
+    int causal, float scale) {
+  using L = Tf32Layout<float, float, kD>;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * kTf32Rows;
+  const int q_rows = min(kTf32Rows, sq - q0);
+  const int warp = threadIdx.x >> 5;  // 0-3 the consumers, 4-11 the converters
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Tf32Ring ring = Tf32Ring::at<L>(base);
+  const int n_kt = kv_tiles(sk, kTf32Keys, q_offset + q0 + q_rows - 1,
+                            kv_offset, causal);
+
+  if (threadIdx.x == 0) tf32_ring_init<L>(ring);
+  __syncthreads();
+
+  if (warp >= 4) {  // the converter warpgroups
+    const auto q_row = [&](int r) {
+      return q0 + r < sq ? q + ((static_cast<size_t>(b) * sq + q0 + r) * hq + h) * d
+                         : nullptr;
+    };
+    const auto src_of = [&](int key) {
+      const size_t off = ((static_cast<size_t>(b) * sk + key) * hkv + kvh) * d;
+      return key < sk ? Tf32Src<float>{k + off, v + off, 0.f, 0.f}
+                      : Tf32Src<float>{nullptr, nullptr, 0.f, 0.f};
+    };
+    tf32_converters<float, float, L, kD>(ring, threadIdx.x - 128, n_kt, d, q_row,
+                                         src_of);
+    return;
+  }
+
+  tf32_regs_consumer();
+  // This thread's two q rows (index into sq): row0 and row0 + 8.
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const FwdMask mask{{q_offset + row0, q_offset + row0 + 8}, q_offset + q0, sk,
+                     kv_offset, causal};
+  WalkRows<kD> rows;
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  rows.m[0] = rows.m[1] = kMaskValue;
+  rows.l[0] = rows.l[1] = 0.f;
+  tf32_walk<float, float, kD>(rows, ring, n_kt, scale * kLog2e, mask);
+
+  float* row_ptr[2];
+  float row_lse[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + 8 * rr;
+    row_ptr[rr] = row < sq ? out + ((static_cast<size_t>(b) * sq + row) * hq + h) * d
+                           : nullptr;
+  }
+  walk_finish<float, kD>(rows, row_ptr, d, row_lse);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + 8 * rr;
+    if ((lane & 3) == 0 && row < sq)
+      lse[(static_cast<size_t>(b) * sq + row) * hq + h] = row_lse[rr];
+  }
+}
+
+// Dynamic shared memory of each scalar float32 kernel (1 dq, 2 dk/dv),
+// in bytes: the input tiles first, then the fp32 buffers.
 size_t f32_smem_bytes(int which, int d) {
   constexpr int BR = kF32Rows;
   const size_t ld = d + kF32Pad;
@@ -1061,10 +1031,6 @@ size_t f32_smem_bytes(int which, int d) {
   const size_t lda = d + kFPad;
   size_t t_elems = 0, f_elems = 0;
   switch (which) {
-    case 0:  // forward: Q K V, P | S, acc, m, l
-      t_elems = BR * (3 * ld + ldp);
-      f_elems = BR * (lds + lda + 2);
-      break;
     case 1:  // dq: Q dO K V, dS | S, dP, acc, lse, dm
       t_elems = BR * (4 * ld + ldp);
       f_elems = BR * (2 * lds + lda + 2);
@@ -1160,9 +1126,27 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int b, int sq, int sk, int hq, int hkv, int d,
+                    int q_offset, int kv_offset, int causal, float scale,
+                    cudaStream_t stream) {
+  using L = Tf32Layout<float, float, kD>;
+  auto kernel = flash_fwd_tf32_kernel<kD>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((sq + kTf32Rows - 1) / kTf32Rows, hq, b), kTf32Threads, L::kSmem,
+           stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(out),
+                     static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset,
+                     kv_offset, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // 16-bit inputs take the wgmma kernels (kD 64 for d <= 64, else 128);
-// float32 inputs the scalar-FMA walk. `accumulate` (16-bit backward
-// only) adds the result into an fp32 buffer instead of writing it in T.
+// float32 inputs the TF32 forward and the scalar-FMA dq and dk/dv walks.
+// `accumulate` (16-bit backward only) adds the result into an fp32
+// buffer instead of writing it in T.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
@@ -1175,16 +1159,12 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
                                               hkv, d, q_offset, kv_offset,
                                               causal, scale, stream);
   } else {
-    constexpr int BR = kF32Rows;
-    const size_t smem = f32_smem_bytes(0, d);
-    auto kernel = flash_fwd_kernel<T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3((sq + BR - 1) / BR, hq, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
-        sq, sk, hq, hkv, d, q_offset, kv_offset, causal, scale);
-    return static_cast<int>(cudaGetLastError());
+    return d <= 64 ? launch_fwd_tf32<64>(q, k, v, out, lse, b, sq, sk, hq, hkv,
+                                         d, q_offset, kv_offset, causal, scale,
+                                         stream)
+                   : launch_fwd_tf32<128>(q, k, v, out, lse, b, sq, sk, hq, hkv,
+                                          d, q_offset, kv_offset, causal, scale,
+                                          stream);
   }
 }
 
@@ -1336,7 +1316,7 @@ int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
 int tpuhpc_flash_tile_rows(int kernel, int dtype) {
   if (kernel < 0 || kernel > 2) return 0;
   switch (dtype) {
-    case kF32: return kF32Rows;
+    case kF32: return kernel == 0 ? kTf32Rows : kF32Rows;
     case kF16:
     case kBF16: return kernel == 0 ? kFwdRows : kBwdRows;
     default: return 0;

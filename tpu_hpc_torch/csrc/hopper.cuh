@@ -3,14 +3,15 @@
 // descriptors and instructions, mbarriers, TMA tile loads and the
 // tensor-map encoder.
 //
-// Shared-memory tiles hold 16-bit [rows][kD] operands as kD / 64
-// "panels" of 64 columns (128 bytes a row), each panel laid out as TMA's
-// 128-byte swizzle writes it and as wgmma's 128-byte-swizzle descriptors
-// read it: row r at r * 128 bytes, its 16-byte chunk c at chunk
-// c ^ (r % 8). A tile of R rows keeps panel p at p * R * 128. The
-// swizzle is a function of the address, so any box that starts on an
-// 8-row (1024-byte) boundary of a tile lands exactly where one box of
-// the whole tile would have put its rows.
+// Shared-memory tiles hold [rows][kD] operands as "panels" of 128 bytes
+// a row -- 64 columns of a 16-bit tile (kD / 64 panels), 32 of an fp32
+// (TF32) tile (kD / 32 panels) -- each panel laid out as TMA's 128-byte
+// swizzle writes it and as wgmma's 128-byte-swizzle descriptors read
+// it: row r at r * 128 bytes, its 16-byte chunk c at chunk c ^ (r % 8).
+// A tile of R rows keeps panel p at p * R * 128. The swizzle is a
+// function of the address, so any box that starts on an 8-row
+// (1024-byte) boundary of a tile lands exactly where one box of the
+// whole tile would have put its rows.
 //
 // Everything here sits in an unnamed namespace: each source that
 // includes it gets its own internal copy, and the library exports only
@@ -65,12 +66,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Lets `kernel` launch with `smem` bytes of dynamic shared memory. Above
 // 48 KB that takes an opt-in, made once per kernel and device for the
 // whole 227 KB (the opt-in is a cap; a launch's occupancy follows the
@@ -106,9 +101,12 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// Rows [r0, r0 + 64) of a tile of `rows` rows, k-step kk (columns
-// 16 kk .. 16 kk + 15) read K-major: the operand's k dimension is the
-// tile's column. 8-row groups 1024 bytes apart; the k-step moves 32
+// Rows [r0, r0 + 64) of a tile of `rows` rows, k-step kk read K-major:
+// the operand's k dimension is the tile's column. A k-step is 32 bytes
+// whatever the element: 16 columns of a 16-bit tile (k16), 8 of a TF32
+// one (k8), so four k-steps fill a panel row either way and the same
+// byte offsets serve both (kD / 16 k-steps of a 16-bit tile, kD / 8 of
+// an fp32 one). 8-row groups 1024 bytes apart; the k-step moves 32
 // bytes inside the swizzled row (or to the next panel).
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
                                                 int r0, int kk) {
@@ -237,6 +235,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     out = *reinterpret_cast<const uint32_t*>(&v);
   }
   return out;
+}
+
+// Two neighbouring outputs (lo first) in T: one 4-byte store of a packed
+// 16-bit pair, or one 8-byte store of a float pair.
+template <typename T>
+__device__ __forceinline__ void store2(T* at, float lo, float hi) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(at) = make_float2(lo, hi);
+  } else {
+    *reinterpret_cast<uint32_t*>(at) = pack2<T>(lo, hi);
+  }
 }
 
 // The wgmma instructions the kernels issue. Accumulator layout of
@@ -474,7 +483,8 @@ struct WalkRows {
   float l[2];
 };
 
-// Key index, within its 64-key tile, of accumulator element i of lane.
+// Key index, within its tile, of accumulator element i of lane (a
+// 64-key tile's 32 elements, a 32-key tile's 16).
 __device__ __forceinline__ int walk_key(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
 }
@@ -503,7 +513,9 @@ __device__ __forceinline__ void walk_skip(const WalkRing& ring, int from,
 // before the softmax, and P by p_scale after the row sum l is taken and
 // before P is packed for P . V -- an int8 pool's page scales, with the
 // tiles holding the raw integers. A mask without them (the 16-bit walks)
-// compiles to the walk it had before the hooks existed.
+// compiles to the walk it had before the hooks existed. Every mask also
+// has edge(k_last): whether the tile whose last key is k_last needs the
+// element-wise mask at all.
 template <typename Mask, typename = void>
 struct walk_scaled : std::false_type {};
 template <typename Mask>
@@ -512,20 +524,22 @@ struct walk_scaled<Mask, std::void_t<decltype(&Mask::s_scale),
     : std::true_type {};
 
 // One tile's online-softmax step on S (raw dot products in, P out, in
-// place): updates m and l and returns alpha per row. The mask is
-// applied element by element (mask.sees(r, key): may this thread's row
-// r see key?) only where mask.edge(kt) says tile kt needs it.
-template <typename Mask>
-__device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
+// place) for tiles of 2 N keys (N accumulator elements a thread):
+// updates m and l and returns alpha per row. The mask is applied element
+// by element (mask.sees(r, key): may this thread's row r see key?) only
+// where mask.edge says tile kt needs it.
+template <int N, typename Mask>
+__device__ __forceinline__ void walk_softmax(float (&s)[N], int kt,
                                              float scale2, const Mask& mask,
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2]) {
   constexpr bool kScaled = walk_scaled<Mask>::value;
+  constexpr int kKeys = 2 * N;
   const int lane = threadIdx.x & 31;
-  const bool edge = mask.edge(kt);
+  const bool edge = mask.edge(kt * kKeys + kKeys - 1);
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     float x;
     if constexpr (kScaled) {
@@ -533,7 +547,7 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
     } else {
       x = s[i] * scale2;
     }
-    if (edge && !mask.sees(r, kt * kWalkKeys + walk_key(i, lane)))
+    if (edge && !mask.sees(r, kt * kKeys + walk_key(i, lane)))
       x = kMaskValue;
     s[i] = x;
     mx[r] = fmax_nan(mx[r], x);
@@ -549,7 +563,7 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     float p = exp2f(s[i] - m_safe[r]);
     if (edge) p = s[i] > kMaskValue * 0.5f ? p : 0.f;
@@ -560,17 +574,17 @@ __device__ __forceinline__ void walk_softmax(float (&s)[32], int kt,
   l[1] = alpha[1] * l[1] + sum[1];
   if constexpr (kScaled) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= mask.p_scale(kt, walk_key(i, lane));
+    for (int i = 0; i < N; ++i) s[i] *= mask.p_scale(kt, walk_key(i, lane));
   }
 }
 
-// P (fp32, accumulator layout) rounded to T as four k-steps of A
-// fragments.
-template <typename T>
-__device__ __forceinline__ void walk_pack(uint32_t (&pf)[4][4],
-                                          const float (&s)[32]) {
+// P (fp32, accumulator layout) rounded to T as N / 8 k-steps (16 keys
+// each) of A fragments.
+template <typename T, int N>
+__device__ __forceinline__ void walk_pack(uint32_t (&pf)[N / 8][4],
+                                          const float (&s)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 8; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       pf[kk][j] = pack2<T>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
@@ -673,10 +687,728 @@ __device__ __forceinline__ void walk_finish(WalkRows<kD>& rows, T* const (&row_p
     for (int j = 0; j < kD / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       if (col < d)
-        *reinterpret_cast<uint32_t*>(row_ptr[r] + col) =
-            pack2<T>(rows.o[4 * j + 2 * r] * inv, rows.o[4 * j + 2 * r + 1] * inv);
+        store2<T>(row_ptr[r] + col, rows.o[4 * j + 2 * r] * inv,
+                  rows.o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
+
+// =====================================================================
+// Split TF32: float32 and mixed-dtype attention on the tensor cores.
+//
+// wgmma has a TF32 form (m64nNk8, fp32 accumulator, 495 dense TFLOP/s
+// on an H100 SXM against 67 for fp32 FMAs). TF32 keeps 10 explicit
+// mantissa bits, so one pass would round every fp32 operand to 2^-11;
+// instead each fp32 operand x is split as hi = tf32(x), lo = tf32(x -
+// hi), and a product of two fp32 operands takes three passes (hi hi, hi
+// lo, lo hi: the lo lo term is below 2^-22), two where one side is exact
+// in TF32, one where both are. Every bf16, f16 and int8 value is exact
+// in TF32, so those operands are never split. The rounding
+// (tf32_rna_bits) is to nearest, ties away from zero (cvt.rna), written
+// with integer operations: the same bits as
+// kernels/attention.py::tf32_round, which the CPU tests and
+// chip_smoke.py's controls use.
+//
+// Non-finite operands. A non-finite x splits as (x, 0), so inf - inf
+// never puts a NaN in lo, and a finite x near FLT_MAX whose rounding
+// would overflow is truncated instead. The cross terms of S = Q . K^T go
+// to an accumulator of their own, added to the main term's only where
+// that is finite: a row whose main term saw an inf or a NaN keeps it
+// as is, as the plain version's fp32 product does (inf times a lo of 0
+// or of the other sign would otherwise make a NaN where it has +-inf).
+// P (>= 0, or NaN) splits with hi truncated and lo >= 2^-126 wherever hi
+// > 0 (tf32_split_p), so P . V's three terms of a key agree in sign and
+// an inf in V gives +-inf, as p * inf does, never inf - inf.
+// =====================================================================
+
+// TF32 rounding of the bits of a finite float (ties away from zero; a
+// rounding that would overflow to inf truncates instead).
+__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t u) {
+  const uint32_t r = (u + 0x1000u) & 0xFFFFE000u;
+  return (r & 0x7F800000u) == 0x7F800000u ? (u & 0xFFFFE000u) : r;
+}
+
+__device__ __forceinline__ bool finite_bits(uint32_t u) {
+  return (u & 0x7F800000u) != 0x7F800000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, both exact in TF32; (x, 0) for a
+// non-finite x. Selects, not a branch: a branch per value would keep the
+// compiler from interleaving the values' dependent integer chains.
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  const uint32_t u = __float_as_uint(x);
+  const bool finite = finite_bits(u);
+  const float h = __uint_as_float(tf32_rna_bits(u));
+  // |x - h| <= 2^-11 |x|: its rounding cannot overflow.
+  const float l =
+      __uint_as_float((__float_as_uint(x - h) + 0x1000u) & 0xFFFFE000u);
+  hi = finite ? h : x;
+  lo = finite ? l : 0.f;
+}
+
+// A probability p (>= 0, or NaN) as TF32 bits hi + lo: hi truncated, so
+// lo = p - hi >= 0 (rounded: within 2^-21 p), and lo at least 2^-126
+// wherever hi > 0; (0, 0) for p = 0.
+__device__ __forceinline__ void tf32_split_p(float p, uint32_t& hi,
+                                             uint32_t& lo) {
+  const float h = __uint_as_float(__float_as_uint(p) & 0xFFFFE000u);
+  const float l = __uint_as_float(tf32_rna_bits(__float_as_uint(p - h)));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(h > 0.f ? fmaxf(l, 1.17549435e-38f) : 0.f);
+}
+
+// Four int8 values (the bytes of w, lowest first) as floats, exactly:
+// each byte with its sign bit flipped (x + 128) becomes the low mantissa
+// bits of 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+
+// The 16 / sizeof(T) values of a 16-byte chunk of T as floats (exact).
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& x, float (&f)[16 / sizeof(T)]) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[j] = __uint_as_float(w[j]);
+    } else if constexpr (std::is_same<T, int8_t>::value) {
+      float g[4];
+      i8x4_to_f32(w[j], g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[4 * j + i] = g[i];
+    } else if constexpr (std::is_same<T, __half>::value) {
+      const float2 g = __half22float2(*reinterpret_cast<const __half2*>(&w[j]));
+      f[2 * j] = g.x;
+      f[2 * j + 1] = g.y;
+    } else {
+      const float2 g =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      f[2 * j] = g.x;
+      f[2 * j + 1] = g.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// Columns c .. c + 3 (c % 4 == 0) of row r of a K-major fp32 tile of
+// `rows` rows (kD / 32 panels): one 16-byte chunk.
+__device__ __forceinline__ uint32_t kmajor_f32_at(uint32_t tile, int rows,
+                                                  int r, int c) {
+  return tile + (c >> 5) * rows * kPanelRowBytes + r * kPanelRowBytes +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4);
+}
+
+// The 16 / sizeof(T) columns from cc * 16 / sizeof(T) of row r, from one
+// 16-byte chunk of T, into a K-major fp32 tile of `rows` rows: split
+// into hi and lo tiles where T is float and kSplit, else exact in hi.
+template <typename T, bool kSplit>
+__device__ __forceinline__ void put_kmajor(uint32_t hi, uint32_t lo, int rows,
+                                           int r, int cc, const uint4& x) {
+  constexpr int kE = 16 / sizeof(T);
+  float f[kE];
+  unpack16<T>(x, f);
+#pragma unroll
+  for (int i = 0; i < kE; i += 4) {
+    const uint32_t at = kmajor_f32_at(0, rows, r, cc * kE + i);
+    if constexpr (kSplit) {
+      float h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32_split(f[i + e], h[e], l[e]);
+      st_shared4(hi + at, h[0], h[1], h[2], h[3]);
+      st_shared4(lo + at, l[0], l[1], l[2], l[3]);
+    } else {
+      st_shared4(hi + at, f[i], f[i + 1], f[i + 2], f[i + 3]);
+    }
+  }
+}
+
+// Key t (0-31) of a 32-key tile, column c, in the transposed V tile
+// [kD rows][32 keys] that TF32 P . V reads K-major (one panel: 32 fp32
+// keys a row). Within each 8-key group, key j sits at k slot j / 2 + 4
+// (j % 2): the slots a lane's P fragment gives keys 2 l and 2 l + 1 (see
+// tf32_pv), so P leaves its accumulator with no shuffle.
+__device__ __forceinline__ uint32_t vt_at(int t, int c) {
+  const int slot = (t & ~7) + ((t & 7) >> 1) + 4 * (t & 1);
+  return c * kPanelRowBytes + ((((slot >> 2)) ^ (c & 7)) << 4) + (slot & 3) * 4;
+}
+
+// One 16-byte chunk (8 16-bit columns from 8 cc) of row t into a 16-bit
+// tile of `rows` rows in the TMA panel layout (64 columns a panel).
+__device__ __forceinline__ void put_panel16(uint32_t tile, int rows, int t,
+                                            int cc, const uint4& x) {
+  const uint32_t at = tile + (cc >> 3) * rows * kPanelRowBytes +
+                      t * kPanelRowBytes + (((cc & 7) ^ (t & 7)) << 4);
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+
+// wgmma TF32 products. SS: S (64 x 32) += A . B^T, both K-major in
+// shared memory. RS: O (64 x N) += A . B with A from registers (the
+// m64k8 fragment: a[0] row l / 4, k l % 4; a[1] row + 8; a[2] k + 4;
+// a[3] both) and B K-major ([N rows][k]). TF32 has no transposed form.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1;\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <int kD>
+__device__ __forceinline__ void wgmma_tf32_rs_nd(float (&d)[kD / 2],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  if constexpr (kD == 64) {
+    wgmma_tf32_rs_n64(d, a, db);
+  } else {
+    wgmma_tf32_rs_n128(d, a, db);
+  }
+}
+
+// ---------------------------------------------------------------------
+// The TF32 walk: one consumer warpgroup's 64 query rows of QT against a
+// stream of 32-key tiles of a KT pool, written into shared memory by two
+// converter warpgroups (tf32_converters; each kernel says where its
+// rows live).
+//
+// Shared memory, from a 1024-byte-aligned base (Tf32Layout): Q as a
+// K-major fp32 tile of 64 rows (hi, and lo where QT is float); then
+// kStages stages, each a K tile [32 keys][kD] (hi, lo where KT is float)
+// and a V tile -- for a 16-bit pool the 16-bit [32 keys][kD] panels TMA
+// would write (P . V on the 16-bit wgmma, V MN-major), else the
+// transposed fp32 [kD][32 keys] tile (hi, lo where KT is float) of
+// vt_at; then, for an int8 pool, the K and V page scale of each key of
+// each stage; then the barriers: bar_q, and per stage full_k, full_v
+// (128 arrivals each, from the K or the V converters), empty_k and
+// empty_v (one consumer arrival each). K and V of a stage are freed
+// apart, K once S and the softmax have read it, V once P . V has, so
+// each converter waits only for the half it writes.
+//
+// Per tile:
+//   S = Q . K^T      SS m64n32k8 TF32: 1-3 passes (the cross terms into
+//                    an accumulator of their own, see above)
+//   softmax          walk_softmax (the 16-bit walk's, on 32-key tiles)
+//   O += P . V       a 16-bit pool: P rounded to KT (walk_pack), RS
+//                    m64nDk16; else P split (tf32_split_p), RS m64nDk8
+//                    TF32 over V^T: 2 passes, 3 where KT is float
+// with the next tile's S issued before this tile's P . V, as in walk.
+// ---------------------------------------------------------------------
+
+constexpr int kTf32Keys = 32;      // keys per streamed tile
+constexpr int kTf32Rows = 64;      // query rows of a block
+// A consumer warpgroup, then two converter warpgroups: one writes the K
+// tiles (and Q, with the other), one the V tiles. The consumer's
+// accumulators take up to 232 registers a thread, the converters 136
+// (setmaxnreg: tf32_regs_*).
+constexpr int kTf32Threads = 384;
+
+template <typename QT, typename KT, int kD>
+struct Tf32Layout {
+  static constexpr bool kQSplit = std::is_same<QT, float>::value;
+  static constexpr bool kKSplit = std::is_same<KT, float>::value;
+  static constexpr bool kPV16 = sizeof(KT) == 2;
+  static constexpr bool kScaled = std::is_same<KT, int8_t>::value;
+  static constexpr int kQTile = kTf32Rows * kD * 4;
+  static constexpr int kKTile = kTf32Keys * kD * 4;
+  static constexpr int kVTile = kPV16 ? kTf32Keys * kD * 2 : kD * kTf32Keys * 4;
+  static constexpr int kQ = kQTile * (kQSplit ? 2 : 1);
+  static constexpr int kStage = (kKTile + kVTile) * (kKSplit ? 2 : 1);
+  static constexpr int kScales = kScaled ? 2 * kTf32Keys * 4 : 0;  // a stage's
+  // As many stages as fit beside Q (at most 4): 2 for float32 q and
+  // pool at d 128 (197.7 KB), 3 for a 16-bit q over a float32 pool.
+  static constexpr int kFit = (kMaxSmem - 1024 - kQ - 256) / (kStage + kScales);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem =
+      1024 + kQ + kStages * (kStage + kScales) + (1 + 4 * kStages) * 8;
+  static_assert(kStages >= 2, "the TF32 ring needs two stages");
+};
+
+// Addresses of a TF32 walk's shared memory (Tf32Layout), from its
+// 1024-byte-aligned base.
+struct Tf32Ring {
+  uint32_t q;                      // Q hi (lo one tile on)
+  uint32_t stage;                  // stage 0: K hi, K lo, V hi, V lo
+  uint32_t scales;                 // int8 pools: [stages][2][32] floats
+  uint32_t bar_q, full_k, full_v, empty_k, empty_v;  // per stage, 8 bytes apart
+
+  template <typename L>
+  __device__ __forceinline__ static Tf32Ring at(uint32_t base) {
+    Tf32Ring r;
+    r.q = base;
+    r.stage = base + L::kQ;
+    r.scales = r.stage + L::kStages * L::kStage;
+    r.bar_q = r.scales + L::kStages * L::kScales;
+    r.full_k = r.bar_q + 8;
+    r.full_v = r.full_k + 8 * L::kStages;
+    r.empty_k = r.full_v + 8 * L::kStages;
+    r.empty_v = r.empty_k + 8 * L::kStages;
+    return r;
+  }
+  template <typename L>
+  __device__ __forceinline__ uint32_t k(int st) const {
+    return stage + st * L::kStage;
+  }
+  template <typename L>
+  __device__ __forceinline__ uint32_t v(int st) const {
+    return stage + st * L::kStage + L::kKTile * (L::kKSplit ? 2 : 1);
+  }
+};
+
+// Initialises a TF32 walk's barriers (call from one thread, then a
+// block barrier).
+template <typename L>
+__device__ __forceinline__ void tf32_ring_init(const Tf32Ring& ring) {
+  mbar_init(ring.bar_q, 256);
+  for (int st = 0; st < L::kStages; ++st) {
+    mbar_init(ring.full_k + 8 * st, 128);
+    mbar_init(ring.full_v + 8 * st, 128);
+    mbar_init(ring.empty_k + 8 * st, 1);
+    mbar_init(ring.empty_v + 8 * st, 1);
+  }
+  mbar_fence_init();
+}
+
+// Register reallocation between the roles (all four warps of a
+// warpgroup together): a converter warpgroup drops to 136 registers a
+// thread, the consumer takes 232.
+__device__ __forceinline__ void tf32_regs_converter() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 136;\n" ::: "memory");
+}
+__device__ __forceinline__ void tf32_regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+// Converter thread c (0-255, both warpgroups) writing its share of the
+// 64-row Q tile: row r = c % 64, 16-byte chunks c / 64, c / 64 + 4, ...
+// of the row at `row` (null past the end: zeros), kD columns of which d
+// are real.
+template <typename QT, typename L, int kD>
+__device__ __forceinline__ void tf32_put_q(const Tf32Ring& ring, int c,
+                                           const QT* row, int d) {
+  constexpr int kE = 16 / sizeof(QT);
+  const int r = c & 63;
+#pragma unroll
+  for (int j = c >> 6; j < kD / kE; j += 4) {
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row != nullptr && j * kE < d)
+      x = __ldg(reinterpret_cast<const uint4*>(row + j * kE));
+    put_kmajor<QT, L::kQSplit>(ring.q, ring.q + L::kQTile, kTf32Rows, r, j, x);
+  }
+  fence_proxy_async();
+  mbar_arrive(ring.bar_q);
+}
+
+// Where a key of a tile lives: its K and V rows (null past the live
+// keys: zeros) and, for an int8 pool, its page's scales (0 past the live
+// keys).
+template <typename KT>
+struct Tf32Src {
+  const KT* k;
+  const KT* v;
+  float ksc, vsc;
+};
+
+// A converter thread's share of one K or V tile, in registers. Thread c
+// (0-127 of its warpgroup: warp w = c / 32, lane l) takes kPer 16-byte
+// chunks; its i-th covers, across the warp, 4 keys x 8 neighbouring
+// chunks (128 contiguous bytes of each key's row, so a load touches 4
+// lines), or 8 keys x 4 chunks where a row has only 4. The 4 keys t0,
+// t0 + 2, t0 + 4, t0 + 6 of a load fill the four words of a
+// transposed-V chunk (vt_at), and each lane stores its columns in an
+// order rotated by its chunk (rot), so neither a float32 K tile nor the
+// transposed V tile sees a bank conflict. A thread touches two keys of
+// a tile (one where a row has 4 chunks): key(c, 0) and key(c, 1).
+template <typename KT, int kD>
+struct Tf32Share {
+  static constexpr int kE = 16 / sizeof(KT);  // elements of a chunk
+  static constexpr int kC = kD / kE;          // chunks of a row
+  static constexpr int kPer = kC / 4;         // chunks a thread takes
+  uint4 x[kPer];
+
+  __device__ __forceinline__ static int key(int c, int i) {
+    const int l = c & 31, w = c >> 5;
+    if constexpr (kC >= 8) {
+      const int ks = (4 * i + w) & 7;  // w for an even i, w + 4 for an odd
+      return (ks >> 1) * 8 + (ks & 1) + 2 * (l & 3);
+    } else {
+      return 8 * w + (l & 7);
+    }
+  }
+  __device__ __forceinline__ static int chunk(int c, int i) {
+    const int l = c & 31, w = c >> 5;
+    if constexpr (kC >= 8) {
+      return ((4 * i + w) >> 3) * 8 + (l >> 2);
+    } else {
+      return l >> 3;
+    }
+  }
+  // Which of the thread's two keys its i-th chunk belongs to.
+  __device__ __forceinline__ static int which(int i) {
+    return kC >= 8 ? (i & 1) : 0;
+  }
+  // The rotation of a lane's store order into the transposed V tile.
+  __device__ __forceinline__ static int rot(int c) {
+    const int l = c & 31;
+    if constexpr (kC < 8) return 2 * (l >> 3);
+    return kE == 4 ? (l >> 3) : (l >> 2);
+  }
+};
+
+// Loads the thread's chunks of the rows (K or V) of its two keys
+// (rows[j]: null past the live keys, zeros).
+template <typename KT, int kD>
+__device__ __forceinline__ void tf32_load(Tf32Share<KT, kD>& x, int c,
+                                          const KT* const (&rows)[2], int d) {
+  using X = Tf32Share<KT, kD>;
+#pragma unroll
+  for (int i = 0; i < X::kPer; ++i) {
+    const KT* row = rows[X::which(i)];
+    const int cc = X::chunk(c, i);
+    x.x[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (row != nullptr && cc * X::kE < d)
+      x.x[i] = __ldg(reinterpret_cast<const uint4*>(row + cc * X::kE));
+  }
+}
+
+// Column cc * kE + (e + rot) % kE of key t (0-31) into the transposed V
+// tile, for e = 0 .. kE - 1: the chunk's values rotated by rot first (one
+// select a value a bit of rot), so the store order is a lane's own.
+template <typename T, bool kSplit>
+__device__ __forceinline__ void put_vt(uint32_t hi, uint32_t lo, int t, int cc,
+                                       const uint4& x, int rot) {
+  constexpr int kE = 16 / sizeof(T);
+  float f[kE];
+  unpack16<T>(x, f);
+#pragma unroll
+  for (int b = 1; b < kE; b <<= 1) {
+    float g[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) g[e] = (rot & b) ? f[(e + b) % kE] : f[e];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) f[e] = g[e];
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const uint32_t at = vt_at(t, cc * kE + ((e + rot) & (kE - 1)));
+    if constexpr (kSplit) {
+      float h, l;
+      tf32_split(f[e], h, l);
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hi + at), "f"(h) : "memory");
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(lo + at), "f"(l) : "memory");
+    } else {
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hi + at), "f"(f[e]) : "memory");
+    }
+  }
+}
+
+// Waits until the consumer freed this stage's half (empty: empty_k or
+// empty_v) from its use kt - kStages.
+template <typename L>
+__device__ __forceinline__ void tf32_acquire(uint32_t empty, int kt) {
+  if (kt >= L::kStages)
+    mbar_wait(empty + 8 * (kt % L::kStages), (kt / L::kStages - 1) & 1);
+}
+
+// One converter warpgroup's part of every tile [0, n_tiles): the K tiles
+// (kV false; with an int8 pool's K and V scales, which the softmax
+// reads, written before the K tile's arrival) or the V tiles. Thread c
+// (0-127). src_of(key) names where key `key` of the walk lives. The
+// loads of tile kt + 1 are issued before tile kt is converted, so their
+// latency hides behind that work; a tile is written once the consumer
+// has freed its half of the stage, and arrives on full_k or full_v.
+template <bool kV, typename KT, typename L, int kD, typename SrcOf>
+__device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
+                                             int n_tiles, int d,
+                                             const SrcOf& src_of) {
+  using X = Tf32Share<KT, kD>;
+  if (n_tiles <= 0) return;
+  const int rot = X::rot(c);
+  const auto rows = [&](int kt, const KT* (&r)[2]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const Tf32Src<KT> src = src_of(kt * kTf32Keys + X::key(c, j));
+      r[j] = kV ? src.v : src.k;
+    }
+  };
+  const KT* r0[2];
+  rows(0, r0);
+  X x;
+  tf32_load(x, c, r0, d);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt % L::kStages;
+    const KT* rn[2] = {nullptr, nullptr};
+    if (kt + 1 < n_tiles) rows(kt + 1, rn);
+    X next;
+    tf32_load(next, c, rn, d);
+    tf32_acquire<L>(kV ? ring.empty_v : ring.empty_k, kt);
+    if constexpr (kV) {
+      const uint32_t v = ring.v<L>(st);
+#pragma unroll
+      for (int i = 0; i < X::kPer; ++i) {
+        if constexpr (L::kPV16) {
+          put_panel16(v, kTf32Keys, X::key(c, i), X::chunk(c, i), x.x[i]);
+        } else {
+          put_vt<KT, L::kKSplit>(v, v + L::kVTile, X::key(c, i), X::chunk(c, i),
+                                 x.x[i], rot);
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(ring.full_v + 8 * st);
+    } else {
+      if constexpr (L::kScaled) {
+        if (c < kTf32Keys) {
+          const Tf32Src<KT> mine = src_of(kt * kTf32Keys + c);
+          const uint32_t slot = ring.scales + (st * 64 + c) * 4;
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(slot), "f"(mine.ksc)
+                       : "memory");
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(slot + 128), "f"(mine.vsc)
+                       : "memory");
+        }
+      }
+      const uint32_t k = ring.k<L>(st);
+#pragma unroll
+      for (int i = 0; i < X::kPer; ++i)
+        put_kmajor<KT, L::kKSplit>(k, k + L::kKTile, kTf32Keys, X::key(c, i),
+                                   X::chunk(c, i), x.x[i]);
+      fence_proxy_async();
+      mbar_arrive(ring.full_k + 8 * st);
+    }
+    x = next;
+  }
+}
+
+// The converters' side of a TF32 kernel: both warpgroups write Q (its
+// rows: q_row(r), null past the end), then the first the K tiles and the
+// second the V tiles. ct: the thread's index among the 256 converters.
+template <typename QT, typename KT, typename L, int kD, typename QRow,
+          typename SrcOf>
+__device__ __forceinline__ void tf32_converters(const Tf32Ring& ring, int ct,
+                                                int n_tiles, int d,
+                                                const QRow& q_row,
+                                                const SrcOf& src_of) {
+  tf32_regs_converter();
+  tf32_put_q<QT, L, kD>(ring, ct, q_row(ct & 63), d);
+  if (ct < 128) {
+    tf32_convert<false, KT, L, kD>(ring, ct, n_tiles, d, src_of);
+  } else {
+    tf32_convert<true, KT, L, kD>(ring, ct - 128, n_tiles, d, src_of);
+  }
+}
+
+// S (and its cross terms, S2) of the consumer's 64 rows against stage
+// st's K tile.
+template <typename L, int kD>
+__device__ __forceinline__ void tf32_scores(float (&s)[16], float (&s2)[16],
+                                            const Tf32Ring& ring, int st) {
+  const uint32_t kh = ring.k<L>(st);
+  const uint32_t kl = kh + L::kKTile;
+  const uint32_t qh = ring.q;
+  const uint32_t ql = ring.q + L::kQTile;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk)
+    wgmma_tf32_ss_n32(s, kmajor_desc(qh, kTf32Rows, 0, kk),
+                      kmajor_desc(kh, kTf32Keys, 0, kk), kk > 0);
+  if constexpr (L::kKSplit) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk)
+      wgmma_tf32_ss_n32(s2, kmajor_desc(qh, kTf32Rows, 0, kk),
+                        kmajor_desc(kl, kTf32Keys, 0, kk), kk > 0);
+  }
+  if constexpr (L::kQSplit) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk)
+      wgmma_tf32_ss_n32(s2, kmajor_desc(ql, kTf32Rows, 0, kk),
+                        kmajor_desc(kh, kTf32Keys, 0, kk), L::kKSplit || kk > 0);
+  }
+}
+
+// S = S + S2 where S is finite; S as it is where it is not.
+template <typename L>
+__device__ __forceinline__ void tf32_combine(float (&s)[16], const float (&s2)[16]) {
+  if constexpr (L::kQSplit || L::kKSplit) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = isfinite(s[i]) ? s[i] + s2[i] : s[i];
+  }
+}
+
+// P as the A operand of P . V: for a 16-bit pool, rounded to KT (two
+// k16 steps, p16); else split (four k8 steps of hi and lo), a lane's
+// keys 2 l and 2 l + 1 of each 8-key group in its k slots l and l + 4.
+template <typename L>
+struct Tf32P {
+  uint32_t p16[2][4];
+  uint32_t hi[4][4], lo[4][4];
+};
+
+template <typename KT, typename L>
+__device__ __forceinline__ void tf32_pack(Tf32P<L>& p, const float (&s)[16]) {
+  if constexpr (L::kPV16) {
+    walk_pack<KT>(p.p16, s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      tf32_split_p(s[4 * j], p.hi[j][0], p.lo[j][0]);
+      tf32_split_p(s[4 * j + 2], p.hi[j][1], p.lo[j][1]);
+      tf32_split_p(s[4 * j + 1], p.hi[j][2], p.lo[j][2]);
+      tf32_split_p(s[4 * j + 3], p.hi[j][3], p.lo[j][3]);
+    }
+  }
+}
+
+template <typename L>
+__device__ __forceinline__ void tf32_fence_p(Tf32P<L>& p) {
+  if constexpr (L::kPV16) {
+    reg_fence(p.p16);
+  } else {
+    reg_fence(p.hi);
+    reg_fence(p.lo);
+  }
+}
+
+template <typename KT, typename L, int kD>
+__device__ __forceinline__ void tf32_pv(float (&o)[kD / 2], const Tf32P<L>& p,
+                                        uint32_t v) {
+  if constexpr (L::kPV16) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_rs_nd<KT, kD>(o, p.p16[kk], mnmajor_desc(v, kTf32Keys, kk));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t vh = kmajor_desc(v, kD, 0, j);
+      wgmma_tf32_rs_nd<kD>(o, p.hi[j], vh);
+      wgmma_tf32_rs_nd<kD>(o, p.lo[j], vh);
+      if constexpr (L::kKSplit)
+        wgmma_tf32_rs_nd<kD>(o, p.hi[j], kmajor_desc(v + L::kVTile, kD, 0, j));
+    }
+  }
+}
+
+// Tiles [0, n_tiles) of the ring through the online softmax into rows
+// (o = 0, m = kMaskValue, l = 0 on entry), once Q has arrived. Every
+// tile's K is freed after its softmax, its V after its P . V.
+template <typename QT, typename KT, int kD, typename Mask>
+__device__ __forceinline__ void tf32_walk(WalkRows<kD>& rows,
+                                          const Tf32Ring& ring, int n_tiles,
+                                          float scale2, const Mask& mask) {
+  using L = Tf32Layout<QT, KT, kD>;
+  constexpr int kS = L::kStages;
+  mbar_wait(ring.bar_q, 0);
+  if (n_tiles <= 0) return;
+  const bool lead = (threadIdx.x & 127) == 0;  // frees stages for the warpgroup
+  float s[16], s2[16], alpha[2];
+  Tf32P<L> p;
+
+  mbar_wait(ring.full_k, 0);
+  wgmma_fence();
+  tf32_scores<L, kD>(s, s2, ring, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  reg_fence(s2);
+  tf32_combine<L>(s, s2);
+  walk_softmax(s, 0, scale2, mask, rows.m, rows.l, alpha);  // O is still 0
+  if (lead) mbar_arrive(ring.empty_k);
+  tf32_pack<KT>(p, s);
+
+  for (int kt = 1; kt < n_tiles; ++kt) {
+    const int st = kt % kS;
+    const int pst = (kt - 1) % kS;
+    mbar_wait(ring.full_k + 8 * st, (kt / kS) & 1);
+    wgmma_fence();
+    tf32_scores<L, kD>(s, s2, ring, st);
+    wgmma_commit();
+    mbar_wait(ring.full_v + 8 * pst, ((kt - 1) / kS) & 1);
+    tf32_pv<KT, L, kD>(rows.o, p, ring.v<L>(pst));
+    wgmma_commit();
+    wgmma_wait<1>();  // S of tile kt; P . V of tile kt - 1 may still run
+    reg_fence(s);
+    reg_fence(s2);
+    tf32_combine<L>(s, s2);
+    walk_softmax(s, kt, scale2, mask, rows.m, rows.l, alpha);
+    if (lead) mbar_arrive(ring.empty_k + 8 * st);  // S and the scales read
+    wgmma_wait<0>();
+    reg_fence(rows.o);
+    tf32_fence_p(p);
+    if (lead) mbar_arrive(ring.empty_v + 8 * pst);
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) rows.o[i] *= alpha[(i >> 1) & 1];
+    tf32_pack<KT>(p, s);
+  }
+  const int last = n_tiles - 1;
+  const int lst = last % kS;
+  mbar_wait(ring.full_v + 8 * lst, (last / kS) & 1);
+  wgmma_fence();
+  tf32_pv<KT, L, kD>(rows.o, p, ring.v<L>(lst));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(rows.o);
+  tf32_fence_p(p);
+  if (lead) mbar_arrive(ring.empty_v + 8 * lst);
+}
+
+// The int8 pool's scale hooks on a TF32 walk (walk_scaled): each key's
+// page scales from the stage's slots.
+template <typename Mask>
+struct Tf32ScaledMask : Mask {
+  const float* scales;  // [stages][2][32] in shared memory
+  int stages;
+  __device__ __forceinline__ float s_scale(int kt, int key) const {
+    return scales[(kt % stages) * 64 + key];
+  }
+  __device__ __forceinline__ float p_scale(int kt, int key) const {
+    return scales[(kt % stages) * 64 + 32 + key];
+  }
+};
 
 }  // namespace

@@ -9,13 +9,14 @@
 //                                merges the runs (flash-decoding).
 //   paged_prefill_wgmma_kernel   replace _prefill_kernel (launched by
 //   paged_prefill_int8_kernel    paged_prefill_attention): the first for
-//   paged_prefill_kernel         16-bit q and pool of one dtype, the
-//                                second for an int8 pool under a 16-bit
+//   paged_prefill_tf32_kernel    16-bit q and pool of one dtype, the
+//   paged_prefill_kernel         second for an int8 pool under a 16-bit
 //                                q, the third for every other pair
-//                                (float32, float32 q over int8, mixed
-//                                16-bit dtypes) and for page sizes and
-//                                head dims outside the first two's rule
-//                                (prefill_route below).
+//                                (float32 q or pool, float32 q over
+//                                int8, mixed 16-bit dtypes) on split
+//                                TF32, the fourth (scalar) only for page
+//                                sizes and head dims outside the first
+//                                three's rule (prefill_route below).
 //
 // They compute what the Pallas kernels compute -- online softmax in
 // fp32 with the MASK_VALUE / m_safe / l_safe rules, the causal limit
@@ -134,10 +135,13 @@
 //     alignment slack; 256 threads at 168 registers make it one block an
 //     SM.
 //
-// The other prefill routes keep the first, simple design: scalar fp32
-// FMAs over shared memory, K/V pages staged with plain loads, four
-// barriers per page. PERF.md carries the measured times against the
-// bounds.
+// The TF32 prefill (float32 and mixed pairs) runs the same grid on the
+// TF32 walk of hopper.cuh, with converter warpgroups as in the int8
+// route; its design is set out above the kernel. Only page sizes and
+// head dims outside the tensor-core rule keep the first, simple design:
+// scalar fp32 FMAs over shared memory, K/V pages staged with plain
+// loads, four barriers per page. PERF.md carries the measured times
+// against the bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
@@ -722,8 +726,9 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill, every pair of dtypes the wgmma route below does not
-// take: grid (kv_heads, row tiles). Grouped query row r of head h sits
+// Chunked prefill, any pair of dtypes, at the page sizes and head dims
+// the tensor-core routes below do not take (prefill_route): grid
+// (kv_heads, row tiles). Grouped query row r of head h sits
 // at position start + r / g; a block owns tq consecutive rows and walks
 // the pages up to its last row's causal limit. Shared-memory rows are
 // padded to d + 1 floats so the per-key dot products hit distinct banks.
@@ -860,8 +865,7 @@ struct PrefillMask {
   int qpos[2];
   int first;
   int n_keys;
-  __device__ __forceinline__ bool edge(int kt) const {
-    const int k_last = kt * kWalkKeys + kWalkKeys - 1;
+  __device__ __forceinline__ bool edge(int k_last) const {
     return k_last > first || k_last >= n_keys;
   }
   __device__ __forceinline__ bool sees(int r, int key) const {
@@ -1048,16 +1052,6 @@ struct PrefillInt8Mask : PrefillMask {
   }
 };
 
-// Four int8 values (the bytes of w, lowest first) as floats, exactly:
-// each byte with its sign bit flipped (x + 128) becomes the low mantissa
-// bits of 2^23, and 2^23 + 128 is subtracted.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-}
-
 // One 16-byte chunk (16 int8 columns of row t) into the 16-bit tile at
 // `tile` (kD columns, 64 rows, the 128-byte-swizzled panels of
 // hopper.cuh): two 16-byte chunks, 2 cc and 2 cc + 1 of the row.
@@ -1193,6 +1187,125 @@ __global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
                          h, n_rows, d);
 }
 
+// ---------------------------------------------------------------------
+// Chunked prefill, every pair the two kernels above do not take
+// (prefill_route's kRouteTf32): float32 q or pool, and mixed 16-bit
+// dtypes, on the TF32 tensor cores (hopper.cuh, the TF32 walk). The
+// 16-bit route's grid: one block per (KV head, 64 grouped q rows), the
+// last (heaviest) row tiles first. Two converter warpgroups stand where
+// the TMA producer is: together they read Q once, then one each 32-key
+// tile of K and the other of V -- keys past the tile's last row's
+// position are never read and come out as zeros, as do columns past d
+// -- with coalesced 16-byte global loads through the block's own table
+// row, split the fp32 values into TF32 hi and lo (16-bit and int8
+// values are exact), write them in the panels the walk's descriptors
+// read, and arrive on the stage's barriers. The consumer warpgroup runs
+// the walk:
+//
+//   q / pool      S = Q . K^T          P . V
+//   f32 / f32     3 TF32 passes        P split, V split: 3 passes
+//   f32 / int8    2 (q split; k_scale  P * v_scale split, V exact: 2
+//                 folded into S)
+//   f32 / 16-bit  2 (q split)          P rounded to the pool's dtype,
+//                                      16-bit wgmma (as the Pallas
+//                                      kernel's p.astype(v.dtype))
+//   16-bit / f32  2 (k split)          P split, V split: 3
+//   f16 / bf16,   1 (both exact)       P rounded to the pool's dtype,
+//   bf16 / f16                         16-bit wgmma
+//
+// Shared memory at d 128 (Tf32Layout): float32 q and pool, Q 64 KB and
+// two stages of 64 KB; a 16-bit q over a float32 pool, Q 32 KB and three
+// stages; the others four stages. The converters' work, not the tensor
+// cores, sets the time over a float32 pool (PERF.md).
+// ---------------------------------------------------------------------
+template <typename QT, typename KT, int kD>
+__global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
+    const QT* __restrict__ q,           // (hkv, bucket, g, d)
+    const KT* __restrict__ k_pages,     // (num_blocks, bs, hkv, d)
+    const KT* __restrict__ v_pages,
+    const int* __restrict__ table,      // (table_width,)
+    const float* __restrict__ k_scale,  // (num_blocks,): int8 pools
+    const float* __restrict__ v_scale,
+    QT* __restrict__ out,               // (hkv, bucket, g, d)
+    int hkv, int bucket, int g, int d, int bs, int max_blocks, int start,
+    float sm_scale) {
+  using L = Tf32Layout<QT, KT, kD>;
+  const int h = blockIdx.x;
+  const int n_rows = bucket * g;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kTf32Rows;
+  const int nrows = min(kTf32Rows, n_rows - row0);
+  const int warp = threadIdx.x >> 5;  // 0-3 the consumers, 4-11 the converters
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Tf32Ring ring = Tf32Ring::at<L>(base);
+
+  // Keys the tile's last row can see, and the tiles they span.
+  const int n_keys = max_blocks * bs;
+  const int last_pos = start + (row0 + nrows - 1) / g;
+  const int live_keys = min(last_pos + 1, n_keys);
+  const int n_tiles = (live_keys + kTf32Keys - 1) / kTf32Keys;
+
+  if (threadIdx.x == 0) tf32_ring_init<L>(ring);
+  __syncthreads();
+
+  if (warp >= 4) {  // the converter warpgroups
+    const size_t tok = static_cast<size_t>(hkv) * d;  // elements between keys
+    const auto q_row = [&](int r) {
+      return row0 + r < n_rows ? q + (static_cast<size_t>(h) * n_rows + row0 + r) * d
+                               : nullptr;
+    };
+    const auto src_of = [&](int key) {
+      Tf32Src<KT> src{nullptr, nullptr, 0.f, 0.f};  // past the live keys
+      if (key < live_keys) {
+        const int p = key / bs;
+        const int page = __ldg(table + p);
+        const size_t off = (static_cast<size_t>(page) * bs + key - p * bs) * tok +
+                           static_cast<size_t>(h) * d;
+        src.k = k_pages + off;
+        src.v = v_pages + off;
+        if constexpr (L::kScaled) {
+          src.ksc = __ldg(k_scale + page);
+          src.vsc = __ldg(v_scale + page);
+        }
+      }
+      return src;
+    };
+    tf32_converters<QT, KT, L, kD>(ring, threadIdx.x - 128, n_tiles, d, q_row,
+                                   src_of);
+    return;
+  }
+
+  tf32_regs_consumer();
+  const int r0 = row0 + 16 * warp + (lane >> 2);
+  WalkRows<kD> rows;
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  rows.m[0] = rows.m[1] = kMaskValue;
+  rows.l[0] = rows.l[1] = 0.f;
+  const PrefillMask mask = prefill_mask(r0, row0, g, start, n_keys);
+  const float scale2 = sm_scale * kLog2e;
+  if constexpr (L::kScaled) {
+    const Tf32ScaledMask<PrefillMask> scaled{
+        mask,
+        reinterpret_cast<const float*>(smem_raw + (ring.scales - smem_u32(smem_raw))),
+        L::kStages};
+    tf32_walk<QT, KT, kD>(rows, ring, n_tiles, scale2, scaled);
+  } else {
+    tf32_walk<QT, KT, kD>(rows, ring, n_tiles, scale2, mask);
+  }
+  QT* row_ptr[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = r0 + 8 * rr;
+    row_ptr[rr] = row < n_rows ? out + (static_cast<size_t>(h) * n_rows + row) * d
+                               : nullptr;
+  }
+  float row_lse[2];  // not an output of the prefill
+  walk_finish<QT, kD>(rows, row_ptr, d, row_lse);
+}
+
 size_t prefill_smem_bytes(int tq, int d, int bs) {
   const size_t dp = d + 1;
   return sizeof(float) *
@@ -1201,19 +1314,23 @@ size_t prefill_smem_bytes(int tq, int d, int bs) {
 
 // Which prefill kernel takes a launch. Pages must stack into 64-key
 // tiles on 8-row boundaries (bs 8, 16, 32 or 64) or split into them (bs
-// a multiple of 64), and d be a multiple of 16 up to 128, for either
+// a multiple of 64), and d be a multiple of 16 up to 128, for any
 // tensor-core kernel: paged_prefill_wgmma_kernel takes 16-bit q and pool
-// of one dtype, paged_prefill_int8_kernel an int8 pool under a 16-bit q;
-// paged_prefill_kernel every other launch (float32, float32 q over int8,
-// mixed 16-bit dtypes, other page sizes and head dims).
-enum PrefillRoute { kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2 };
+// of one dtype, paged_prefill_int8_kernel an int8 pool under a 16-bit q,
+// paged_prefill_tf32_kernel every other pair (float32 q or pool, mixed
+// 16-bit dtypes); paged_prefill_kernel only the page sizes and head dims
+// outside that rule.
+enum PrefillRoute {
+  kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2, kRouteTf32 = 3
+};
 
 int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
   const bool q16 = q_dtype == kF16 || q_dtype == kBF16;
   const bool pages = (bs >= 8 && kWalkKeys % bs == 0) || (bs > 0 && bs % kWalkKeys == 0);
-  if (!q16 || !pages || d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
-  if (kv_dtype == q_dtype) return kRouteWgmma;
-  return kv_dtype == kI8 ? kRouteWgmmaInt8 : kRouteScalar;
+  if (!pages || d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
+  if (q16 && kv_dtype == q_dtype) return kRouteWgmma;
+  if (q16 && kv_dtype == kI8) return kRouteWgmmaInt8;
+  return kRouteTf32;
 }
 
 // Rows per prefill block. The tensor-core routes: kPrefillRows. The
@@ -1369,6 +1486,27 @@ int launch_prefill_int8(const void* q, const void* k_pages, const void* v_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename QT, typename KT, int kD>
+int launch_prefill_tf32(const void* q, const void* k_pages, const void* v_pages,
+                        const void* table, const void* k_scale,
+                        const void* v_scale, void* out, int hkv, int bucket,
+                        int g, int d, int bs, int max_blocks, int start,
+                        float sm_scale, cudaStream_t stream) {
+  using L = Tf32Layout<QT, KT, kD>;
+  if (L::kScaled && (k_scale == nullptr || v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_prefill_tf32_kernel<QT, KT, kD>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (bucket * g + kTf32Rows - 1) / kTf32Rows;
+  kernel<<<dim3(hkv, tiles), kTf32Threads, L::kSmem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const KT*>(v_pages), static_cast<const int*>(table),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<QT*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename QT, typename KT>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    const void* table, const void* k_scale, const void* v_scale,
@@ -1396,6 +1534,20 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                                                     k_scale, v_scale, out, hkv,
                                                     bucket, g, d, bs, max_blocks,
                                                     start, sm_scale, stream);
+  }
+  // The TF32 route's pairs: every pair but the two above.
+  constexpr bool kSame16 = std::is_same<QT, KT>::value && sizeof(QT) == 2;
+  constexpr bool kInt8Under16 = std::is_same<KT, int8_t>::value && sizeof(QT) == 2;
+  if constexpr (!kSame16 && !kInt8Under16) {
+    if (route == kRouteTf32)
+      return d <= 64 ? launch_prefill_tf32<QT, KT, 64>(q, k_pages, v_pages, table,
+                                                       k_scale, v_scale, out, hkv,
+                                                       bucket, g, d, bs, max_blocks,
+                                                       start, sm_scale, stream)
+                     : launch_prefill_tf32<QT, KT, 128>(q, k_pages, v_pages, table,
+                                                        k_scale, v_scale, out, hkv,
+                                                        bucket, g, d, bs, max_blocks,
+                                                        start, sm_scale, stream);
   }
   const int tq = prefill_tile_rows(hkv, bucket, g, d, bs, kRouteScalar);
   const size_t smem = prefill_smem_bytes(tq, d, bs);
@@ -1484,8 +1636,8 @@ int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages
 }
 
 // The route a prefill launch takes (0 the scalar kernel, 1 the 16-bit
-// wgmma kernel, 2 the int8-pool one; -1 for a dtype code no kernel
-// takes) and the rows of a block on that route: chip_smoke.py reports
+// wgmma kernel, 2 the int8-pool one, 3 the TF32 one; -1 for a dtype
+// code no kernel takes) and the rows of a block on that route: chip_smoke.py reports
 // both beside the kernel's time.
 int tpuhpc_prefill_route(int d, int bs, int q_dtype, int kv_dtype) {
   if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8) return -1;

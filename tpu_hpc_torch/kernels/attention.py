@@ -232,6 +232,42 @@ def flash_attention_dkv_ref(
 
 
 # ---------------------------------------------------------------------------
+# TF32, emulated: what the float32 kernels' tensor-core passes see
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits; to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32``), bit for bit
+    as ``csrc/hopper.cuh::tf32_rna_bits`` computes it: a rounding that
+    would overflow to inf truncates instead, and inf and NaN pass
+    through. For the tests and ``chip_smoke.py``'s controls; no path of
+    the port calls it."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    u = x.contiguous().view(torch.int32)
+    exp = torch.bitwise_and(u, 0x7F800000)
+    finite = exp != 0x7F800000
+    keep = torch.tensor(-8192, dtype=torch.int32)  # 0xFFFFE000
+    r = torch.bitwise_and(u + 0x1000, keep)
+    r = torch.where(torch.bitwise_and(r, 0x7F800000) == 0x7F800000,
+                    torch.bitwise_and(u, keep), r)
+    return torch.where(finite, r, u).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``x`` as ``(hi, lo)``, both exact in TF32, ``hi + lo``
+    within 2^-22 |x| of ``x``: ``hi = tf32_round(x)``, ``lo =
+    tf32_round(x - hi)``; a non-finite ``x`` gives ``(x, 0)``. The
+    float32 kernels multiply two split operands in three TF32 passes
+    (hi hi, hi lo, lo hi), as ``csrc/hopper.cuh::tf32_split`` splits
+    them."""
+    hi = tf32_round(x)
+    lo = tf32_round(torch.where(torch.isfinite(x), x - hi,
+                                torch.zeros_like(x)))
+    return hi, lo
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: the kernel on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
@@ -311,8 +347,8 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: (out [B, Sq, Hq, D] in q.dtype, lse [B, Sq, Hq] fp32).
     CUDA tensors launch ``flash_fwd_wgmma_kernel`` (bf16, fp16) or
-    ``flash_fwd_kernel`` (float32); CPU tensors run
-    :func:`flash_attention_fwd_ref`."""
+    ``flash_fwd_tf32_kernel`` (float32: split TF32, see
+    :func:`tf32_split`); CPU tensors run :func:`flash_attention_fwd_ref`."""
     _check_inputs(q, k, v)
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -563,4 +599,6 @@ __all__ = [
     "flash_tile_rows",
     "kernel_launches",
     "lse_merge",
+    "tf32_round",
+    "tf32_split",
 ]

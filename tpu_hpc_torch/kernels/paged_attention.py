@@ -22,8 +22,11 @@ by a rule of dtypes and shapes written in the C launcher
 (:func:`paged_prefill_route` reports which one a launch takes): the
 wgmma kernel for 16-bit q and pool of one dtype, the int8 wgmma kernel
 for an int8 pool under a 16-bit q (exact integer tiles, the page scales
-folded into S and P), the scalar kernel for float32, float32 q over
-int8 and mixed 16-bit dtypes. On a CPU tensor it runs the plain PyTorch
+folded into S and P), the TF32 wgmma kernel for every other pair --
+float32 q or pool, mixed 16-bit dtypes -- on split TF32 (each fp32
+operand as hi + lo, so float32 keeps its rule), and the scalar kernel
+only for page sizes and head dims outside the tensor-core rule. On a
+CPU tensor it runs the plain PyTorch
 version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
@@ -42,11 +45,11 @@ Non-finite values follow the JAX kernels. Each row max keeps a NaN (as
 ``jnp.max``): a row that sees a NaN score -- a NaN in its q row or in a
 key it sees -- comes out NaN, and an inf in a value it sees comes out
 non-finite. That holds for every decode pass (the split, its in-block
-merge and the combine) and every prefill route (wgmma, wgmma_int8 and
-scalar), and for their plain versions. Keys past a row's position are
-masked before the max, an inactive slot gives zeros and reads no page,
-and dead table entries and pages past the last live one are never read:
-a NaN there does not reach the output.
+merge and the combine) and every prefill route (wgmma, wgmma_int8,
+wgmma_tf32 and scalar), and for their plain versions. Keys past a row's
+position are masked before the max, an inactive slot gives zeros and
+reads no page, and dead table entries and pages past the last live one
+are never read: a NaN there does not reach the output.
 """
 from __future__ import annotations
 
@@ -604,12 +607,13 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
 
 
 # The prefill kernels, by the C interface's route code:
-# paged_prefill_kernel, paged_prefill_wgmma_kernel (16-bit q and pool of
-# one dtype) and paged_prefill_int8_kernel (an int8 pool under a 16-bit
-# q). The two tensor-core routes take head_dim a multiple of 16 up to
-# 128 and pages that stack into (or split into) 64-key tiles: bs 8, 16,
-# 32, 64 or a multiple of 64.
-PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8")
+# paged_prefill_kernel (scalar), paged_prefill_wgmma_kernel (16-bit q
+# and pool of one dtype), paged_prefill_int8_kernel (an int8 pool under
+# a 16-bit q) and paged_prefill_tf32_kernel (every other pair, on split
+# TF32). The three tensor-core routes take head_dim a multiple of 16 up
+# to 128 and pages that stack into (or split into) 64-key tiles: bs 8,
+# 16, 32, 64 or a multiple of 64; the scalar route takes the rest.
+PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8", "wgmma_tf32")
 paged_prefill_attention.route_launches = dict.fromkeys(PREFILL_ROUTES, 0)
 
 
