@@ -22,7 +22,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     prefill's TF32 route at the 7B chunk over a float32
                     pool (float32 q), under a bf16 q over an f16 pool,
                     and under a float32 q over an int8 and a bf16 pool;
-                    and its scalar route once, at 12-token pages. Every
+                    and its scalar route at the 7B chunk on 12-token
+                    pages (timed, bound at the fp32 FMA rate). Every
                     row names the kernel the library routed it to (the
                     decode splits each slot's pages into ``n_split``
                     runs and merges them; the prefill has a wgmma route
@@ -60,11 +61,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     key, non-causal cross attention, a ragged GQA case
                     that crosses the backward kernels' 128-row tiles
                     (S 1100, 16 query heads over 2 KV heads, q_offset
-                    300), a float32 case (timed too; the forward on the
-                    TF32 route, its bound at the TF32 rate beside the
-                    fp32 FMA one, and the plain forward on inputs
-                    rounded once to TF32 must be rejected by the float32
-                    rule; dq and dk/dv at the card's fp32 rate), and
+                    300), a float32 case (timed too; the forward, dq and
+                    dk/dv on the TF32 route, their bounds at the TF32
+                    rate for three passes a product beside the fp32 FMA
+                    one, and each plain version on inputs rounded once
+                    to TF32 must be rejected by the float32 rule), and
                     the (q-chunk, kv-chunk)
                     pairs train_sp launches at their offsets: the
                     ring's 512-token chunks wholly visible, on the
@@ -304,9 +305,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     card's idle share. Reports; gates nothing.
  10. train_crosscheck -- bench width in float32, 2 layers, seq 512,
                     batch 4 with accum 2: 3 updates from the same params
-                    and batches through the flash kernels and through
-                    the reference attention; the first update's
-                    gradients, the losses and the params agree.
+                    and batches through the flash kernels (the split-
+                    TF32 forward, dq and dk/dv, each launched layers x
+                    accum x updates times, counts set to 0 just before)
+                    and through the reference attention; the first
+                    update's gradients, the losses and the params agree.
  11. train_resilience -- the bench Llama at full width and depth with
                     the numeric-health guard and checkpoints
                     (torch.distributed.checkpoint): (a) guard skip under
@@ -325,7 +328,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     mixed bf16-over-f16 cases) and the decode (bf16 and
                     int8 pools, whose dead entries and pages past the
                     last live one are NaN) give the non-finite rows of
-                    their plain versions. Then the update time with the
+                    their plain versions, the flash kernels in bf16 and
+                    in float32 (the split-TF32 forward, dq and dk/dv).
+                    Then the update time with the
                     guard off and on skip, in turns.
  12. obs_capture -- observability on the card. (a) Llama-2-7B at full
                     width and depth (bf16, 8 slots, 16-token pages, the
@@ -434,10 +439,11 @@ train_sp (b) by mode, in train_pp (a) by bench row, in train_mpmd (a) by
 model, in train_comm (a), in
 train_vision (b) and in train_long, and the ViT case's times; every row
 with its launches in obs_capture and in ops; the flash and decode rows
-with theirs in native_tools; the prefill and forward rows with their
-split-TF32 kernel under ``tf32_route``: its registers and spills, the
-timed TF32-route rows, and for the prefill its launches in the float32
-crosscheck), nvidia-smi's line, and last the
+with theirs in native_tools; the prefill, forward, dq and dk/dv rows
+with their split-TF32 kernel under ``tf32_route``: its registers and
+spills, the timed TF32-route rows, and its launches in the float32
+crosscheck (the prefill) or in train_crosscheck (flash)), nvidia-smi's
+line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
 before printing any result.
@@ -488,7 +494,9 @@ REPLACES = {
 # The split-TF32 kernels, by the wrapper whose summary entry carries
 # them, and the keys of each timed row the entry repeats.
 TF32_KERNELS = {"paged_prefill_attention": "paged_prefill_tf32_kernel",
-                "flash_attention_fwd": "flash_fwd_tf32_kernel"}
+                "flash_attention_fwd": "flash_fwd_tf32_kernel",
+                "flash_attention_dq": "flash_dq_tf32_kernel",
+                "flash_attention_dkv": "flash_dkv_tf32_kernel"}
 TF32_ROW_KEYS = ("route", "rule", "max_abs_err", "ms", "device_ms",
                  "plain_ms", "bound_ms", "bound_by", "bound_fp32_fma_ms",
                  "library_ms", "library_device_ms")
@@ -852,9 +860,10 @@ def decode_control(torch, args, kw, want) -> None:
 # pools, every prefill at chunk 0 and at 256 (timed); timed at the 7B
 # chunk at 256, the prefill's TF32 route over a float32 pool, under a
 # bf16 q over an f16 pool, and under a float32 q over an int8 and a bf16
-# pool; and, untimed, the scalar route at pages of 12 tokens (outside
-# the tensor-core routes' rule: SCALAR_PAGES), float32 over float32.
-SCALAR_PAGES = dict(bs=12, bucket=64)
+# pool; and the scalar route, timed too, at the 7B chunk on pages of 12
+# tokens (outside the tensor-core routes' rule: SCALAR_PAGES), float32
+# over float32, its bound at the fp32 FMA rate its scalar products run at.
+SCALAR_PAGES = dict(bs=12)
 
 
 def kernel_cases() -> list:
@@ -873,8 +882,8 @@ def kernel_cases() -> list:
     for pool in ("int8", "bfloat16"):
         cases.append(("paged_prefill_attention", "7b", (32, 1), pool,
                       "float32", 256))
-    cases.append(("paged_prefill_attention", "pages_of_12", (8, 1),
-                  "float32", "float32", 40))
+    cases.append(("paged_prefill_attention", "7b_pages_of_12", (32, 1),
+                  "float32", "float32", 256))
     return cases
 
 
@@ -942,7 +951,7 @@ def kernel_phase(torch, dev, lib) -> tuple:
             library, kernel_name = library_decode, "paged_decode"
             route = "split"
         else:
-            extra = SCALAR_PAGES if shape_name == "pages_of_12" else {}
+            extra = SCALAR_PAGES if shape_name == "7b_pages_of_12" else {}
             args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, pool, start,
                                               q_dtype, **extra)
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
@@ -1296,11 +1305,24 @@ def flash_phase(torch, dev) -> dict:
             flash_controls(torch, q, k, v, got, want, causal,
                            CONTROL_CASES[name], name)
             flash_determinism(torch, fa, bargs, kw, got)
-        tf32_read = None
-        if dtype == torch.float32:  # the forward's split-TF32 route
-            tf32_read = tf32_control(
-                torch, lambda *a, **k_: fa.flash_attention_fwd_ref(*a, **k_)[0],
-                (q, k, v, qo, ko), kw, want_o, f"flash_{name}")
+        tf32_read = {}
+        if dtype == torch.float32:  # the split-TF32 route of all three
+            tf32_read = {
+                "flash_attention_fwd": tf32_control(
+                    torch, lambda *a, **k_: fa.flash_attention_fwd_ref(
+                        *a, **k_)[0],
+                    (q, k, v, qo, ko), kw, want_o, f"flash_{name}"),
+                "flash_attention_dq": tf32_control(
+                    torch, fa.flash_attention_dq_ref, bargs, kw, want_dq,
+                    f"flash_dq_{name}"),
+                "flash_attention_dkv": {
+                    part: tf32_control(
+                        torch, lambda *a, i=i, **k_:
+                        fa.flash_attention_dkv_ref(*a, **k_)[i],
+                        bargs, kw, w, f"flash_{part}_{name}")
+                    for i, (part, w) in enumerate((("dk", want_dk),
+                                                   ("dv", want_dv)))},
+            }
         added = flash_accumulate(torch, fa, bargs, kw, dtype)
         emit("flash_accumulate", case=name, dtype=dtype_name,
              q_offset=qo, kv_offset=ko, readings=added)
@@ -1335,14 +1357,14 @@ def flash_phase(torch, dev) -> dict:
             }
             if kname == "flash_attention_fwd":
                 row["lse_max_abs_err"] = lse_err
-            tf32 = kname == "flash_attention_fwd" and dtype == torch.float32
+            tf32 = dtype == torch.float32
             if tf32:
-                row.update(route="wgmma_tf32", tf32_control=tf32_read)
+                row.update(route="wgmma_tf32", tf32_control=tf32_read[kname])
             if timed:
                 nb, fl = work[kname]
                 if tf32:
                     # Three TF32 passes a product; the fp32 FMA bound
-                    # the scalar forward was held to beside it.
+                    # the scalar kernels were held to beside it.
                     bound_ms, bound_by = bound_tf32(nb, fl, "float32",
                                                     "float32")
                     row["bound_fp32_fma_ms"], row["bound_fp32_fma_by"] = \
@@ -3325,7 +3347,7 @@ CROSS_GRAD_REL_NORM = 1e-5
 CROSS_PARAM_ATOL = 3e-5
 
 
-def train_crosscheck_phase(torch, dev) -> None:
+def train_crosscheck_phase(torch, dev) -> dict:
     """Bench width in float32, 2 layers, seq 512: 3 updates through the
     flash kernels and through the reference attention, from the same
     params and batches. The first update's gradients (taken before the
@@ -3333,7 +3355,12 @@ def train_crosscheck_phase(torch, dev) -> None:
     by a factor) agree per element to CROSS_GRAD_RTOL of the element
     plus CROSS_GRAD_RTOL of its tensor's RMS, and per tensor to
     CROSS_GRAD_REL_NORM in norm; losses to CROSS_LOSS_RTOL; every
-    parameter after 3 updates to CROSS_PARAM_ATOL."""
+    parameter after 3 updates to CROSS_PARAM_ATOL. Returns the flash
+    kernels' launches (the split-TF32 kernels: float32), counted from 0
+    over both runs: layers x accum x updates each, all in the flash
+    run."""
+    from tpu_hpc_torch.kernels import attention as fa
+
     from tpu_hpc_torch.config import TrainingConfig
     from tpu_hpc_torch.models import datasets, llama2
     from tpu_hpc_torch.parallel import tp
@@ -3348,6 +3375,7 @@ def train_crosscheck_phase(torch, dev) -> None:
                                cfg, dev)
     ds = datasets.TokenStream(vocab_size=cfg.vocab_size, seq_len=512, seed=1)
     results = {}
+    zero_flash_launches()
     for impl in ("cuda", "reference"):
         opt = FirstGradients(make_optimizer(tcfg))
         trainer = Trainer(tcfg, None, llama2.make_forward(
@@ -3369,8 +3397,12 @@ def train_crosscheck_phase(torch, dev) -> None:
         grad_rel = max(grad_rel, float(torch.linalg.vector_norm(gc - gr))
                        / float(torch.linalg.vector_norm(gr)))
     max_diff = float((p_cuda - p_ref).abs().max())
+    launches = fa.kernel_launches()
+    expected = cfg.n_layers * tcfg.grad_accum_steps * tcfg.steps_per_epoch
     emit("train_crosscheck", model="bench-width-2-layers", dtype="float32",
-         seq_len=512, updates=3, losses_cuda=l_cuda, losses_reference=l_ref,
+         seq_len=512, updates=3, launches=launches,
+         expected_launches=expected,
+         losses_cuda=l_cuda, losses_reference=l_ref,
          loss_max_rel_err=loss_err, grad_tol_used=grad_used,
          grad_max_rel_norm_err=grad_rel, grad_tensors=len(g_ref),
          param_max_abs_diff=max_diff, params=int(p_ref.numel()),
@@ -3384,8 +3416,12 @@ def train_crosscheck_phase(torch, dev) -> None:
             f"their bound and {grad_rel} in norm, params {max_diff} -- "
             "over the limits"
         )
+    if any(n != expected for n in launches.values()):
+        raise SystemExit(f"train_crosscheck: flash launches {launches}, "
+                         f"expected {expected} each")
     del params, results
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------
@@ -3451,18 +3487,22 @@ def nonfinite_reading(torch, got, want, dtype) -> dict:
     return r
 
 
-def flash_nonfinite(torch, dev, shape=TRAIN_SHAPE, cases=NONFINITE_FLASH):
-    """Each case: bf16 q, k, v, dO and an lse cotangent from a seed (as
-    in the flash phase), one element planted; the forward, dq and dk/dv
+def flash_nonfinite(torch, dev, dtype=None, shape=TRAIN_SHAPE,
+                    cases=NONFINITE_FLASH):
+    """Each case: q, k, v, dO in ``dtype`` (bf16 by default, or float32:
+    the split-TF32 kernels) and an lse cotangent from a seed (as in the
+    flash phase), one element planted; the forward, dq and dk/dv
     wrappers against their plain versions (the backward from the plain
-    forward's lse and D). Returns one reading per case."""
+    forward's lse and D), the finite rows under ``dtype``'s rule.
+    Returns one reading per case."""
     from tpu_hpc_torch.kernels import attention as fa
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     b, s, h, d = shape
     out = []
     for name, which, idx, value in cases:
         gen = torch.Generator(device=dev).manual_seed(11)
-        t = {n: torch.randn(shape, generator=gen, device=dev).bfloat16()
+        t = {n: torch.randn(shape, generator=gen, device=dev).to(dtype)
              for n in ("q", "k", "v", "dout")}
         t[which][idx] = float(value)
         q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
@@ -3478,10 +3518,11 @@ def flash_nonfinite(torch, dev, shape=TRAIN_SHAPE, cases=NONFINITE_FLASH):
         lse_same = bool(torch.equal(~torch.isfinite(lse),
                                     ~torch.isfinite(want_l)))
         readings = {
-            n: nonfinite_reading(torch, g, w, torch.bfloat16)
+            n: nonfinite_reading(torch, g, w, dtype)
             for n, g, w in (("out", o, want_o), ("dq", dq, want_dq),
                             ("dk", dk, want_dk), ("dv", dv, want_dv))}
-        out.append({"case": name, "planted": which, "at": list(idx),
+        out.append({"case": name, "dtype": str(dtype)[6:], "planted": which,
+                    "at": list(idx),
                     "value": value, "lse_same_rows": lse_same,
                     "ok": lse_same and all(r["ok"] for r in readings.values()),
                     **readings})
@@ -3843,7 +3884,9 @@ def train_resilience_phase(torch, dev) -> None:
         emit("train_resilience", check="preempt", **results["preempt"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    results["flash_nonfinite"] = flash_nonfinite(torch, dev)
+    results["flash_nonfinite"] = [
+        r for dtype in (torch.bfloat16, torch.float32)
+        for r in flash_nonfinite(torch, dev, dtype)]
     for r in results["flash_nonfinite"]:
         emit("train_resilience", check="flash_nonfinite", **r)
     results["prefill_nonfinite"] = prefill_nonfinite(torch, dev)
@@ -6415,7 +6458,7 @@ def main() -> int:
     # -- 9. where an update's device time goes (reports, never gates)
     train_profile_phase(torch, dev)
     # -- 10. training cross-check: flash kernels vs reference attention
-    train_crosscheck_phase(torch, dev)
+    cross_launches = train_crosscheck_phase(torch, dev)
     torch.cuda.empty_cache()
     # -- 11. training that survives: guard, checkpoints, preemption,
     #        non-finite rows of the kernels
@@ -6503,6 +6546,9 @@ def main() -> int:
             if paged:
                 entry["tf32_route"]["crosscheck_launches"] = \
                     crosscheck_routes["wgmma_tf32"]
+            else:
+                entry["tf32_route"]["train_crosscheck_launches"] = \
+                    cross_launches[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The split-TF32 routes on the card: the prefill's float32 and mixed
-pairs (``paged_prefill_tf32_kernel``) and the float32 flash forward
-(``flash_fwd_tf32_kernel``), each held against its plain version.
+pairs (``paged_prefill_tf32_kernel``) and the float32 flash forward,
+dq and dk/dv (``flash_fwd_tf32_kernel``, ``flash_dq_tf32_kernel``,
+``flash_dkv_tf32_kernel``), each held against its plain version.
 
     python3 docs/port/tf32_routes.py [--time]
 
@@ -10,14 +11,17 @@ with each TF32 kernel's registers and spills from nvcc's ``-Xptxas
 -v``), then, for every pair of the TF32 route, a small ragged prefill
 (bs 16, d 64 and 128, groups 1 and 4, a chunk that starts inside a
 page) and the 7B chunk of 256 at start 256 (32 heads, d 128, bs 16),
-and the float32 forward at a small GQA shape and at B 1, S 1000, 8
-heads, d 128, causal. Each reading: ``checks/tolerance.py``'s rule for
-q's dtype and, where P is rounded to a coarser 16-bit pool's dtype, the
-pool's (``rule_dtype``), which gates. ``--time`` adds, at the large
-shapes, ms (CUDA events over back-to-back calls), device ms
-(torch.profiler) and the device ms of one PyTorch call on the same
-inputs (scaled_dot_product_attention; never called by the port). One JSON line a case; the last line says whether
-every gated reading passed.
+and the float32 forward, dq and dk/dv (from the plain forward's lse
+and D) at a small GQA shape and at B 1, S 1000, 8 heads, d 128,
+causal, each at kv_offset 0 and 100. Each reading:
+``checks/tolerance.py``'s rule for q's dtype and, where P is rounded to
+a coarser 16-bit pool's dtype, the pool's (``rule_dtype``), which
+gates. ``--time`` adds, at the large shapes, ms (CUDA events over
+back-to-back calls), device ms (torch.profiler), the plain version's ms
+(flash) and the device ms of one PyTorch call on the same inputs
+(scaled_dot_product_attention: its forward, or its autograd backward,
+dq, dk and dv together; never called by the port). One JSON line a
+case; the last line says whether every gated reading passed.
 """
 from __future__ import annotations
 
@@ -154,6 +158,35 @@ def main() -> int:
             report(name, out, want_o, torch.float32, torch.float32, extra)
             ok = ok and extra["masked_rows_zero"] and \
                 extra["lse_max_abs_err"] < 1e-3
+            # The backward kernels on the plain forward's lse and D.
+            dout = torch.randn(q.shape, generator=gen, device=dev)
+            dlse = torch.randn(want_l.shape, generator=gen, device=dev)
+            dm = (dout * want_o).sum(-1) - dlse
+            bargs = (q, k, v, dout, want_l, dm, qo, ko)
+            for kname, fn, ref, outs in (
+                    ("dq", fa.flash_attention_dq, fa.flash_attention_dq_ref,
+                     ("dq",)),
+                    ("dkv", fa.flash_attention_dkv,
+                     fa.flash_attention_dkv_ref, ("dk", "dv"))):
+                got = fn(*bargs)
+                want = ref(*bargs)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                extra = dict(b=b, s=s, hq=hq, hkv=hkv, q_offset=qo,
+                             kv_offset=ko)
+                if timed and name == "flash_1f" and ko == 0:
+                    _, lib_bwd = chip_smoke.library_flash(torch, q, k, v,
+                                                          dout, True)
+                    extra.update(
+                        ms=chip_smoke.time_ms(lambda: fn(*bargs), iters=20),
+                        device_ms=chip_smoke.device_ms(
+                            lambda: fn(*bargs), f"flash_{kname}"),
+                        plain_ms=chip_smoke.time_ms(lambda: ref(*bargs),
+                                                    iters=3, warmup=1),
+                        library_device_ms=chip_smoke.device_ms(lib_bwd, ""))
+                for part, g_, w_ in zip(outs, got, want):
+                    report(f"{name}_{part}", g_, w_, torch.float32,
+                           torch.float32, extra)
     print(json.dumps({"ok": ok, "seconds": time.perf_counter() - t0}))
     return 0 if ok else 1
 

@@ -90,8 +90,8 @@ def test_kernel_cases_cover_every_prefill_route():
     """bf16 and int8 pools at both shapes, every prefill at chunk 0 and
     at 256; the TF32 route's float32, mixed-16-bit, float32-over-int8
     and float32-over-bf16 pairs at the 7B chunk at 256 (timed); the
-    scalar route once, at pages outside the tensor-core rule; the int8
-    prefill has its own summary entry."""
+    scalar route at the 7B chunk at 256 too (timed), on pages outside the
+    tensor-core rule; the int8 prefill has its own summary entry."""
     cases = chip_smoke.kernel_cases()
     prefill = {(shape, pool, q, start)
                for k, shape, _, pool, q, start in cases
@@ -103,7 +103,7 @@ def test_kernel_cases_cover_every_prefill_route():
     for pool, q in (("float32", "float32"), ("float16", "bfloat16"),
                     ("int8", "float32"), ("bfloat16", "float32")):
         assert ("7b", pool, q, 256) in prefill
-    assert ("pages_of_12", "float32", "float32", 40) in prefill
+    assert ("7b_pages_of_12", "float32", "float32", 256) in prefill
     bs = chip_smoke.SCALAR_PAGES["bs"]
     assert 64 % bs and bs % 64  # neither stacks into nor splits a tile
     assert len(cases) == 17
@@ -357,6 +357,22 @@ def test_flash_nonfinite_runs_on_cpu_tensors():
     assert all(r["ok"] and r["lse_same_rows"] for r in rows)
     assert rows[0]["out"]["nonfinite"] == 1  # the NaN q row itself
     assert rows[2]["dv"]["nonfinite"] == 0
+
+
+def test_flash_nonfinite_runs_in_float32_on_cpu_tensors():
+    """The float32 reading (the split-TF32 kernels' check on the card):
+    float32 inputs, the float32 rule on the finite rows; every planted
+    case reads equal on the CPU, where each wrapper is its plain version."""
+    import torch
+
+    cases = (("q_inf_row", "q", (0, 60, 1, 5), "inf"),
+             ("k_nan_key", "k", (0, 3, 0, 4), "nan"))
+    rows = chip_smoke.flash_nonfinite(torch, torch.device("cpu"),
+                                      torch.float32, shape=(1, 64, 2, 16),
+                                      cases=cases)
+    assert [r["dtype"] for r in rows] == ["float32", "float32"]
+    assert all(r["ok"] and r["lse_same_rows"] for r in rows)
+    assert rows[1]["dq"]["nonfinite"] == 64  # 0 x NaN K reaches every row
 
 
 def test_snapshot_and_same_bits():

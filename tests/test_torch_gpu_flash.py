@@ -10,8 +10,8 @@ kernels (csrc/flash_attention.cu) are held against their plain PyTorch
 versions on the same inputs, every case through all three: ragged lengths that cross tiles, q/kv
 offsets, GQA, rows with no visible key, non-causal cross attention,
 sequences just under and over the backward kernels' 128-row tiles, head
-dims 32, 64, 80 and 128; bf16, fp16 and float32. This file imports no
-JAX.
+dims 32, 64, 80 and 128; bf16, fp16 and float32 (the float32 forward,
+dq and dk/dv on split TF32). This file imports no JAX.
 
 Tolerances: ``tpu_hpc_torch/checks/tolerance.py``, the rule
 ``chip_smoke.py`` holds the kernels to. Every element is bounded by a
@@ -19,8 +19,10 @@ share of its own value and of its row's RMS (the kernels round P and dS
 to a 16-bit input dtype before their products, as the JAX kernels do, so
 the error scales with each row's terms), and 16-bit outputs also bound
 the relative RMS error of the whole tensor. Float32: ``atol = rtol =
-1e-4`` -- the kernels' scalar fp32 sums run in another order than the
-plain versions' matrix products.
+1e-4`` -- the kernels take each product of two fp32 operands in three
+TF32 passes over split operands (hi + lo carries each to 2^-22), summed
+in another order than the plain versions' fp32 matrix products; TF32 is
+off for the plain versions (the ``cuda`` fixture).
 """
 import pytest
 import torch
@@ -111,7 +113,8 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
 def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
     """No atomics: dq, dk and dv from two launches on the same inputs are
     equal bit for bit (GQA, ragged, offsets)."""
@@ -156,6 +159,33 @@ def test_backward_accumulate_adds_unrounded(cuda, dtype, case):
     for name, once, twice, w in zip(("dq", "dk", "dv"), *sums, want):
         _close(once, w, dtype, name)
         assert torch.equal(twice, 2 * once), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
+    "offsets", "fully_masked_rows", "head_dim_80", "gqa_group8",
+    "odd_offsets", "head_dim_32")], ids=lambda c: c[0])
+def test_float32_accumulate_adds_the_written_result(cuda, case):
+    """Float32 ``accumulate=``: the TF32 backward kernels add into the
+    buffers, bit for bit what adding a fresh result to them gives (the
+    wrappers added it after the launch before the kernels did)."""
+    causal, qo, ko = case[7:]
+    q, k, v, dout, dlse = _inputs(cuda, torch.float32, case, seed=4)
+    want_o, lse = ta.flash_attention_fwd_ref(q, k, v, qo, ko, causal=causal)
+    dm = (dout * want_o).sum(-1) - dlse
+    args = (q, k, v, dout, lse, dm, qo, ko)
+    start = [torch.randn(x.shape, device=cuda) for x in (q, k, v)]
+    acc = [a.clone() for a in start]
+    ta.flash_attention_dq(*args, causal=causal, accumulate=acc[0])
+    ta.flash_attention_dkv(*args, causal=causal, accumulate=(acc[1], acc[2]))
+    fresh = (ta.flash_attention_dq(*args, causal=causal),
+             *ta.flash_attention_dkv(*args, causal=causal))
+    torch.cuda.synchronize()
+    for name, got, s0, f in zip(("dq", "dk", "dv"), acc, start, fresh):
+        assert torch.equal(got, s0 + f), name
+    rows = {kernel: ta.flash_tile_rows(kernel, torch.float32)
+            for kernel in ta.FLASH_KERNELS}
+    assert rows == dict.fromkeys(ta.FLASH_KERNELS, 64), rows
 
 
 @pytest.mark.gpu

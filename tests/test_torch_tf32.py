@@ -1,15 +1,17 @@
 """Split TF32, emulated on the CPU: what the float32 kernels' tensor-core
 passes see (tpu_hpc_torch/kernels/attention.py: ``tf32_round``,
-``tf32_split``; csrc/hopper.cuh computes the same bits).
+``tf32_split``, ``tf32_split_p``; csrc/hopper.cuh computes the same
+bits).
 
 TF32 keeps 10 explicit mantissa bits, so one pass rounds each fp32
 operand to 2^-11. The float32 kernels split each fp32 operand into hi +
 lo, both exact in TF32, and take a product of two fp32 operands in three
 passes. These tests hold the emulation to that: 16-bit and int8 values
 are exact in TF32 (never split), hi + lo reproduces x to 2^-22, the
-split of inf, NaN and FLT_MAX, and a three-pass forward that meets
+split of inf, NaN and FLT_MAX, the sign-coherent split of a
+probability, and a three-pass forward and backward that meet
 ``checks/tolerance.py``'s float32 rule against the JAX flash forward
-where one pass does not. One thread, a few seconds.
+and backward where one pass does not. One thread, a few seconds.
 """
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ jnp = jax.numpy
 from tpu_hpc.kernels import attention as ja
 from tpu_hpc_torch.checks.tolerance import compare
 from tpu_hpc_torch.kernels import attention as ta
-from tpu_hpc_torch.kernels.attention import tf32_round, tf32_split
+from tpu_hpc_torch.kernels.attention import (tf32_round, tf32_split,
+                                             tf32_split_p)
 
 LOW13 = 0x1FFF
 FLT_MAX = float(np.finfo(np.float32).max)
@@ -169,3 +172,89 @@ def test_three_pass_forward_meets_the_float32_rule_and_one_pass_does_not():
     assert three["tol_used"] < 0.2, three
     assert not one["ok"], one
     assert one["tol_used"] > 2.0, one
+
+
+def test_split_p_truncates_and_keeps_sign():
+    """A probability's split, as the float32 kernels take P before P . V
+    and P^T . dO: hi is p truncated to TF32, lo >= 0 is exact in TF32
+    and at least 2^-126 wherever hi > 0, hi + lo within 2^-21 p for p >=
+    2^-100 (below about 2^-105 the 2^-126 floor of lo is larger than
+    that); 0 gives (0, 0), inf (inf, 2^-126), NaN (NaN, 0)."""
+    p = _wide_floats().abs()
+    hi, lo = tf32_split_p(p)
+    assert torch.equal(_bits(hi), torch.bitwise_and(_bits(p), ~LOW13))
+    assert not torch.bitwise_and(_bits(lo), LOW13).any()
+    assert (lo >= 0).all() and (lo[hi > 0] >= 2.0 ** -126).all()
+    err = (p.double() - hi.double() - lo.double()).abs()
+    normal = p >= 2.0 ** -100
+    assert normal.sum() > 190000
+    assert (err[normal] <= 2.0 ** -21 * p.double()[normal]).all()
+    edge = torch.tensor([0.0, float("inf"), float("nan")])
+    hi, lo = tf32_split_p(edge)
+    assert hi[0] == 0 and lo[0] == 0
+    assert hi[1] == float("inf") and lo[1] == 2.0 ** -126
+    assert torch.isnan(hi[2]) and lo[2] == 0
+    with pytest.raises(TypeError, match="float32"):
+        tf32_split_p(torch.ones(2, dtype=torch.float64))
+
+
+def _product_p(eq, p, b, passes):
+    """einsum(eq, p, b) with the probability p split as the kernels split
+    it (tf32_split_p) in three passes, or both rounded once in one."""
+    if passes == 1:
+        return torch.einsum(eq, tf32_round(p), tf32_round(b))
+    ph, pl = tf32_split_p(p)
+    bh, bl = tf32_split(b)
+    return torch.einsum(eq, ph, bh) + (torch.einsum(eq, pl, bh)
+                                       + torch.einsum(eq, ph, bl))
+
+
+def emulated_backward(q, k, v, dout, dlse, passes, causal=True):
+    """dq, dk and dv as the float32 backward kernels take them, each of
+    the five products -- S = Q . K^T, dP = dO . V^T, dq = dS . K, dk =
+    dS^T . Q, dv = P^T . dO -- in ``passes`` TF32 passes (P split as the
+    kernel splits it); P rebuilt from the saved lse and dS = P * (dP -
+    D), D = rowsum(dO * O) - dlse, in fp32 as the kernels' registers
+    hold them. Equal q and KV heads."""
+    b, sq, h, d = q.shape
+    scale = d ** -0.5
+    out, lse = ta.attention_reference(q, k, v, causal=causal)
+    dm = ((dout * out).sum(-1) - dlse).permute(0, 2, 1)[..., None]
+    s = _product("bqhd,bkhd->bhqk", q, k, passes) * scale
+    keep = torch.ones(sq, k.shape[1], dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    p = torch.where(keep, torch.exp(s - lse.permute(0, 2, 1)[..., None]),
+                    torch.zeros_like(s))
+    ds = p * (_product("bqhd,bkhd->bhqk", dout, v, passes) - dm)
+    dq = _product("bhqk,bkhd->bqhd", ds, k, passes) * scale
+    dk = _product("bhqk,bqhd->bkhd", ds, q, passes) * scale
+    dv = _product_p("bhqk,bqhd->bkhd", p, dout, passes)
+    return dq, dk, dv
+
+
+def test_three_pass_backward_meets_the_float32_rule_and_one_pass_does_not():
+    """B 1, S 128, 2 heads, d 128, causal, with an lse cotangent: against
+    the JAX flash backward (jax.vjp through its Pallas kernels in
+    interpret mode), the three-pass dq, dk and dv pass the float32 rule
+    of checks/tolerance.py and the one-pass ones are rejected."""
+    rng = np.random.default_rng(20)
+    q, k, v, dout = (rng.standard_normal((1, 128, 2, 128)).astype(np.float32)
+                     for _ in range(4))
+    dlse = rng.standard_normal((1, 128, 2)).astype(np.float32)
+
+    def fwd(q, k, v):
+        return ja.blockwise_attention(q, k, v, causal=True,
+                                      impl="pallas_interpret", block_q=64,
+                                      block_k=64)
+
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+    want = [torch.from_numpy(np.array(g))
+            for g in vjp((jnp.asarray(dout), jnp.asarray(dlse)))]
+    t = [torch.from_numpy(a) for a in (q, k, v, dout, dlse)]
+    three, one = emulated_backward(*t, 3), emulated_backward(*t, 1)
+    for name, got3, got1, w in zip(("dq", "dk", "dv"), three, one, want):
+        r3 = compare(got3, w, torch.float32)
+        r1 = compare(got1, w, torch.float32)
+        assert r3["ok"] and r3["tol_used"] < 0.2, (name, r3)
+        assert not r1["ok"] and r1["tol_used"] > 2.0, (name, r1)

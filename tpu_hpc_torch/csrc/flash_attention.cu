@@ -10,11 +10,11 @@
 //   dq                replaces _flash_dq_kernel (launched by
 //                     _flash_backward): dq = scale * dS . K.
 //                     flash_dq_wgmma_kernel for bf16 / fp16,
-//                     flash_dq_kernel for float32.
+//                     flash_dq_tf32_kernel for float32.
 //   dk/dv             replaces _flash_dkv_kernel (launched by
 //                     _flash_backward): dV = P^T . dO, dK = scale * dS^T . Q.
 //                     flash_dkv_wgmma_kernel for bf16 / fp16,
-//                     flash_dkv_kernel for float32.
+//                     flash_dkv_tf32_kernel for float32.
 //
 // with P = exp(S - lse) rebuilt from the saved lse and
 // dS = P * (dO . V^T - D), D = rowsum(dO * O) - dlse computed by the
@@ -69,12 +69,17 @@
 // before each softmax; dk/dv's 240 registers leave no room for a second
 // S / dP pair.
 //
-// The float32 forward runs the TF32 walk of hopper.cuh: wgmma's TF32
-// form on split operands (hi + lo, three passes a product), so it keeps
-// the float32 rule of checks/tolerance.py; its design is set out above
-// flash_fwd_tf32_kernel. The float32 dq and dk/dv keep the first, simple
-// design (the same walks on scalar fp32 FMAs over shared memory, 32-row
-// tiles).
+// The float32 kernels run wgmma's TF32 form on split operands (hi + lo,
+// three passes a product; hopper.cuh), so they keep the float32 rule of
+// checks/tolerance.py. The forward is the TF32 walk of hopper.cuh (its
+// design above flash_fwd_tf32_kernel); dq and dk/dv share its roles -- a
+// consumer warpgroup that owns 64 rows and issues the products, two
+// converter warpgroups that split the streamed float32 tiles into TF32
+// hi and lo, K-major or transposed as each product reads them -- with
+// the shared memory at d 128 set out above each kernel's layout
+// (DqTf32Layout, DkvTf32Layout). Bounds at the timed float32 case (B 1, S
+// 1000, 8 heads, d 128, causal): three TF32 passes a product, dq 0.0186
+// ms and dk/dv 0.0249 ms; their times beside those are in PERF.md.
 //
 // Plain C interface, loaded with ctypes by tpu_hpc_torch/kernels/_build.py
 // (tpuhpc_error_string lives in paged_attention.cu, in the same
@@ -85,15 +90,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // float32 kernels
 constexpr int kMaxHeadDim = 128;
-constexpr int kFPad = 4;  // fp32 accumulator rows padded to d + 4
-
-// Float32 kernels: tile rows (q rows and k rows alike) and the row
-// padding of the input tiles, one element so the scalar products'
-// column walks hit distinct banks.
-constexpr int kF32Rows = 32;
-constexpr int kF32Pad = 1;
 
 // Whether query row `row` (global position) sees key `col` (local index
 // into this KV chunk): inside the chunk, and not in the row's future
@@ -101,49 +98,6 @@ constexpr int kF32Pad = 1;
 __device__ __forceinline__ bool visible(int row, int col, int sk,
                                         int kv_offset, int causal) {
   return col < sk && (!causal || row >= kv_offset + col);
-}
-
-// dst[r][0:d] = src[r * stride + 0:d] for r < valid; zeros for the
-// rows valid <= r < rows, so a ragged tail never feeds garbage (or a
-// NaN times a zero probability) into a product.
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
-                                          size_t stride, int rows, int valid,
-                                          int d) {
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
-    const int r = i / d;
-    const int c = i - r * d;
-    dst[r * ld + c] = r < valid ? src[r * stride + c] : 0.f;
-  }
-}
-
-// Per-row fp32 values of one head: dst[r] = src[(row0 + r) * hq] for
-// r < valid, else 0.
-__device__ __forceinline__ void load_row_scalars(float* dst, const float* src,
-                                                 int hq, int rows, int valid) {
-  for (int r = threadIdx.x; r < rows; r += kThreads)
-    dst[r] = r < valid ? src[static_cast<size_t>(r) * hq] : 0.f;
-}
-
-// C[m][n] (fp32, row-major, ldc) = (accumulate ? C : 0) + A . B over kdim,
-// all in shared memory, where A(i, x) = a[i * lda + x] (kARow) or
-// a[x * lda + i], and B(x, j) = b[x * ldb + j] (kBRow) or b[j * ldb + x];
-// one output element per thread.
-template <bool kARow, bool kBRow>
-__device__ __forceinline__ void block_gemm(const float* a, int lda,
-                                           const float* b, int ldb, float* c,
-                                           int ldc, int m, int n, int kdim,
-                                           bool accumulate) {
-  for (int idx = threadIdx.x; idx < m * n; idx += kThreads) {
-    const int i = idx / n;
-    const int j = idx - i * n;
-    float s = accumulate ? c[i * ldc + j] : 0.f;
-    for (int x = 0; x < kdim; ++x) {
-      const float av = kARow ? a[i * lda + x] : a[x * lda + i];
-      const float bv = kBRow ? b[x * ldb + j] : b[j * ldb + x];
-      s = fmaf(av, bv, s);
-    }
-    c[i * ldc + j] = s;
-  }
 }
 
 // Number of KV tiles a q tile whose last real row sits at global
@@ -155,197 +109,6 @@ __device__ __forceinline__ int kv_tiles(int sk, int br, int last_row,
   if (!causal) return total;
   const int lim = last_row - kv_offset;
   return lim < 0 ? 0 : min(total, lim / br + 1);
-}
-
-// ---------------------------------------------------------------------
-// dq, float32 inputs. Grid (q tiles, hq, b); a block walks the KV tiles
-// its last row can see, scalar FMAs over shared memory. (16-bit
-// inputs: flash_dq_wgmma_kernel below.)
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout,     // (b, sq, hq, d)
-    const float* __restrict__ lse,  // (b, sq, hq)
-    const float* __restrict__ dm,   // (b, sq, hq): rowsum(dO*O) - dlse
-    T* __restrict__ dq,             // (b, sq, hq, d)
-    int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-    int causal, float scale) {
-  static_assert(std::is_same<T, float>::value,
-                "16-bit dq runs flash_dq_wgmma_kernel");
-  constexpr int BR = kF32Rows;
-  constexpr int ldp = BR + kF32Pad;
-  constexpr int lds = BR + kFPad;
-  const int ld = d + kF32Pad;
-  const int lda = d + kFPad;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (hq / hkv);
-  const int q0 = qt * BR;
-  const int q_rows = min(BR, sq - q0);
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);        // [BR][ld]
-  T* dos = qs + BR * ld;                          // [BR][ld]
-  T* ks = dos + BR * ld;                          // [BR][ld]
-  T* vs = ks + BR * ld;                           // [BR][ld]
-  T* dss = vs + BR * ld;                          // [BR][ldp]
-  float* ss = reinterpret_cast<float*>(dss + BR * ldp);  // [BR][lds]
-  float* dps = ss + BR * lds;                     // [BR][lds]
-  float* acc = dps + BR * lds;                    // [BR][lda]
-  float* lse_s = acc + BR * lda;                  // [BR]
-  float* dm_s = lse_s + BR;                       // [BR]
-
-  const size_t q_stride = static_cast<size_t>(hq) * d;
-  const size_t kv_stride = static_cast<size_t>(hkv) * d;
-  const size_t q_base = (static_cast<size_t>(b) * sq + q0) * q_stride +
-                        static_cast<size_t>(h) * d;
-  const size_t kv_base = static_cast<size_t>(b) * sk * kv_stride +
-                         static_cast<size_t>(kvh) * d;
-  const size_t r_base = (static_cast<size_t>(b) * sq + q0) * hq + h;
-
-  load_rows(qs, ld, q + q_base, q_stride, BR, q_rows, d);
-  load_rows(dos, ld, dout + q_base, q_stride, BR, q_rows, d);
-  load_row_scalars(lse_s, lse + r_base, hq, BR, q_rows);
-  load_row_scalars(dm_s, dm + r_base, hq, BR, q_rows);
-  for (int i = threadIdx.x; i < BR * lda; i += kThreads) acc[i] = 0.f;
-
-  const int n_kt = kv_tiles(sk, BR, q_offset + q0 + q_rows - 1, kv_offset, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BR;
-    const int k_rows = min(BR, sk - k0);
-    __syncthreads();
-    load_rows(ks, ld, k + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    load_rows(vs, ld, v + kv_base + k0 * kv_stride, kv_stride, BR, k_rows, d);
-    __syncthreads();
-    block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
-    block_gemm<true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BR * BR; i += kThreads) {
-      const int r = i / BR;
-      const int c = i - r * BR;
-      const bool ok = r < q_rows &&
-                      visible(q_offset + q0 + r, k0 + c, sk, kv_offset, causal);
-      const float s = ok ? ss[r * lds + c] * scale : kMaskValue;
-      const float p = s > kMaskValue * 0.5f ? expf(s - lse_s[r]) : 0.f;
-      dss[r * ldp + c] = from_f<T>(p * (dps[r * lds + c] - dm_s[r]));
-    }
-    __syncthreads();
-    block_gemm<true, true>(dss, ldp, ks, ld, acc, lda, BR, d, BR, true);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < q_rows * d; i += kThreads) {
-    const int r = i / d;
-    const int x = i - r * d;
-    dq[q_base + r * q_stride + x] = from_f<T>(scale * acc[r * lda + x]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// dk/dv, float32 inputs. Grid (k tiles, hkv, b): the block holds its K
-// and V tile and walks, for each of the g query heads of its group, the
-// q tiles from the first one the causal mask lets see the tile to the
-// last. (16-bit inputs: flash_dkv_wgmma_kernel below.)
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dm,
-    T* __restrict__ dk,  // (b, sk, hkv, d)
-    T* __restrict__ dv,
-    int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-    int causal, float scale) {
-  static_assert(std::is_same<T, float>::value,
-                "16-bit dk/dv runs flash_dkv_wgmma_kernel");
-  constexpr int BR = kF32Rows;
-  constexpr int ldp = BR + kF32Pad;
-  constexpr int lds = BR + kFPad;
-  const int ld = d + kF32Pad;
-  const int lda = d + kFPad;
-  const int kt = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = hq / hkv;
-  const int k0 = kt * BR;
-  const int k_rows = min(BR, sk - k0);
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);        // [BR][ld]
-  T* vs = ks + BR * ld;                           // [BR][ld]
-  T* qs = vs + BR * ld;                           // [BR][ld]
-  T* dos = qs + BR * ld;                          // [BR][ld]
-  T* ps = dos + BR * ld;                          // [BR][ldp]
-  T* dss = ps + BR * ldp;                         // [BR][ldp]
-  float* ss = reinterpret_cast<float*>(dss + BR * ldp);  // [BR][lds]
-  float* dps = ss + BR * lds;                     // [BR][lds]
-  float* dk_acc = dps + BR * lds;                 // [BR][lda]
-  float* dv_acc = dk_acc + BR * lda;              // [BR][lda]
-  float* lse_s = dv_acc + BR * lda;               // [BR]
-  float* dm_s = lse_s + BR;                       // [BR]
-
-  const size_t q_stride = static_cast<size_t>(hq) * d;
-  const size_t kv_stride = static_cast<size_t>(hkv) * d;
-  const size_t kv_base = (static_cast<size_t>(b) * sk + k0) * kv_stride +
-                         static_cast<size_t>(kvh) * d;
-
-  load_rows(ks, ld, k + kv_base, kv_stride, BR, k_rows, d);
-  load_rows(vs, ld, v + kv_base, kv_stride, BR, k_rows, d);
-  for (int i = threadIdx.x; i < BR * lda; i += kThreads) {
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-
-  // First q tile whose last row can see this tile's first key.
-  const int n_qt = (sq + BR - 1) / BR;
-  int qt0 = 0;
-  if (causal) {
-    const int need = kv_offset + k0 - q_offset - (BR - 1);
-    qt0 = need <= 0 ? 0 : (need + BR - 1) / BR;
-  }
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = kvh * g + hh;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BR;
-      const int q_rows = min(BR, sq - q0);
-      const size_t q_base = (static_cast<size_t>(b) * sq + q0) * q_stride +
-                            static_cast<size_t>(h) * d;
-      const size_t r_base = (static_cast<size_t>(b) * sq + q0) * hq + h;
-      __syncthreads();  // the previous q tile's operands are no longer read
-      load_rows(qs, ld, q + q_base, q_stride, BR, q_rows, d);
-      load_rows(dos, ld, dout + q_base, q_stride, BR, q_rows, d);
-      load_row_scalars(lse_s, lse + r_base, hq, BR, q_rows);
-      load_row_scalars(dm_s, dm + r_base, hq, BR, q_rows);
-      __syncthreads();
-      // S [q rows][k cols] and dP = dO . V^T, as in dq.
-      block_gemm<true, false>(qs, ld, ks, ld, ss, lds, BR, BR, d, false);
-      block_gemm<true, false>(dos, ld, vs, ld, dps, lds, BR, BR, d, false);
-      __syncthreads();
-      for (int i = threadIdx.x; i < BR * BR; i += kThreads) {
-        const int r = i / BR;
-        const int c = i - r * BR;
-        const bool ok = r < q_rows &&
-                        visible(q_offset + q0 + r, k0 + c, sk, kv_offset, causal);
-        const float s = ok ? ss[r * lds + c] * scale : kMaskValue;
-        const float p = s > kMaskValue * 0.5f ? expf(s - lse_s[r]) : 0.f;
-        ps[r * ldp + c] = from_f<T>(p);
-        dss[r * ldp + c] = from_f<T>(p * (dps[r * lds + c] - dm_s[r]));
-      }
-      __syncthreads();
-      // dV += P^T . dO and dK += dS^T . Q: P and dS are read transposed
-      // (column-major A operands), so no transposed copy is made.
-      block_gemm<false, true>(ps, ldp, dos, ld, dv_acc, lda, BR, d, BR, true);
-      block_gemm<false, true>(dss, ldp, qs, ld, dk_acc, lda, BR, d, BR, true);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < k_rows * d; i += kThreads) {
-    const int r = i / d;
-    const int x = i - r * d;
-    dk[kv_base + r * kv_stride + x] = from_f<T>(scale * dk_acc[r * lda + x]);
-    dv[kv_base + r * kv_stride + x] = from_f<T>(dv_acc[r * lda + x]);
-  }
 }
 
 // =====================================================================
@@ -1021,26 +784,603 @@ __global__ void __launch_bounds__(kTf32Threads, 1) flash_fwd_tf32_kernel(
   }
 }
 
-// Dynamic shared memory of each scalar float32 kernel (1 dq, 2 dk/dv),
-// in bytes: the input tiles first, then the fp32 buffers.
-size_t f32_smem_bytes(int which, int d) {
-  constexpr int BR = kF32Rows;
-  const size_t ld = d + kF32Pad;
-  const size_t ldp = BR + kF32Pad;
-  const size_t lds = BR + kFPad;
-  const size_t lda = d + kFPad;
-  size_t t_elems = 0, f_elems = 0;
-  switch (which) {
-    case 1:  // dq: Q dO K V, dS | S, dP, acc, lse, dm
-      t_elems = BR * (4 * ld + ldp);
-      f_elems = BR * (2 * lds + lda + 2);
-      break;
-    default:  // dk/dv: K V Q dO, P dS | S, dP, dk, dv, lse, dm
-      t_elems = BR * (4 * ld + 2 * ldp);
-      f_elems = BR * (2 * lds + 2 * lda + 2);
-      break;
+// =====================================================================
+// Backward, float32 inputs, on the TF32 tensor cores: dq and dk/dv in
+// the roles of the TF32 walk (hopper.cuh). One consumer warpgroup owns a
+// block's 64 rows (q rows in dq, keys in dk/dv) and issues every product;
+// two converter warpgroups read the float32 inputs with coalesced 16-byte
+// loads, split each value into TF32 hi and lo, and write the tiles the
+// products read: K-major, or transposed ([kD][32] with vt_at's row order)
+// where a product's k runs over a streamed tile's rows, since TF32 wgmma
+// has no transposed operand. Each converter warpgroup takes half of
+// every streamed tile's columns (BwdHalf), so both walk the same tiles in
+// the same order, each tile's loads issued before the previous tile is
+// converted (dk/dv: as soon as the previous tile of the same tensor is).
+// Every product of two fp32 operands takes three passes; the cross terms
+// of S and dP go to accumulators of their own, added where the main term
+// is finite (tf32_add_finite), so an inf in Q, K, V or dO reaches S or dP
+// as it does the plain version's. dS, which takes either sign, splits
+// with tf32_split; P with tf32_split_p (P . dO's terms agree in sign).
+// The element-wise rules of P and dS are the 16-bit kernels'. The
+// consumer takes up to 232 registers a thread, the converters 136 (dk/dv:
+// 248 and 128). An `accumulate` launch adds its result into the output
+// instead of writing it: bit for bit a fresh result added afterwards.
+// =====================================================================
+
+// A converter thread's half of a 32-row streamed tile: warpgroup
+// ct / 128 takes columns [col0, col0 + kD / 2) with Tf32Share's mapping
+// over that half (coalesced loads, conflict-free stores into K-major and
+// transposed tiles alike), so each thread holds kD / 8 values of two
+// rows, row(0) and row(1).
+template <int kD>
+struct BwdHalf {
+  using X = Tf32Share<float, kD / 2>;
+  int c, col0, rot;
+
+  __device__ __forceinline__ explicit BwdHalf(int ct)
+      : c(ct & 127), col0((ct >> 7) * (kD / 2)), rot(X::rot(ct & 127)) {}
+  __device__ __forceinline__ int row(int j) const { return X::key(c, j); }
+  // This thread's chunks of rows row(0) and row(1), from the start of each
+  // (null past the end: zeros).
+  __device__ __forceinline__ void load(X& x, const float* const (&rows)[2],
+                                       int d) const {
+    const float* const mine[2] = {rows[0] ? rows[0] + col0 : nullptr,
+                                  rows[1] ? rows[1] + col0 : nullptr};
+    tf32_load<float, kD / 2>(x, c, mine, d - col0);
   }
-  return (t_elems + f_elems) * sizeof(float);
+  // x split into a K-major tile of 32 rows (hi, lo).
+  __device__ __forceinline__ void put_rows(uint32_t hi, uint32_t lo,
+                                           const X& x) const {
+#pragma unroll
+    for (int i = 0; i < X::kPer; ++i)
+      put_kmajor<float, true>(hi, lo, kTf32Keys, X::key(c, i),
+                              col0 / 4 + X::chunk(c, i), x.x[i]);
+    fence_proxy_async();
+  }
+  // x split into the transposed tile [kD][32] (hi, lo).
+  __device__ __forceinline__ void put_cols(uint32_t hi, uint32_t lo,
+                                           const X& x) const {
+#pragma unroll
+    for (int i = 0; i < X::kPer; ++i)
+      put_vt<float, true>(hi, lo, X::key(c, i), col0 / 4 + X::chunk(c, i),
+                          x.x[i], rot);
+    fence_proxy_async();
+  }
+};
+
+// The block's own 64 rows of two [B, S, H, D] float32 arrays (Q and dO,
+// or K and V) from row `first` of head h, split into the K-major tiles
+// hi at a and b (lo one `tile` bytes on), then the converters' arrival
+// on `bar`.
+template <int kD>
+__device__ __forceinline__ void bwd_put_own(uint32_t a, uint32_t b_tile,
+                                            int tile, uint32_t bar, int ct,
+                                            const float* x, const float* y,
+                                            int batch, int s, int heads, int h,
+                                            int first, int d) {
+  const int row = first + (ct & 63);
+  const size_t at = ((static_cast<size_t>(batch) * s + row) * heads + h) * d;
+  const bool live = row < s;
+  tf32_put_rows64<float, true, kD>(a, a + tile, ct, live ? x + at : nullptr, d);
+  tf32_put_rows64<float, true, kD>(b_tile, b_tile + tile, ct,
+                                   live ? y + at : nullptr, d);
+  fence_proxy_async();
+  mbar_arrive(bar);
+}
+
+// This thread's column pairs of its two rows of a 64 x kD accumulator,
+// times `scale`, into an fp32 [B, S, H, D] output at row0 and row0 + 8
+// of head h (added into it where `accumulate`).
+template <int kD>
+__device__ __forceinline__ void bwd_store(float* out, const float (&acc)[kD / 2],
+                                          float scale, int batch, int s,
+                                          int heads, int h, int row0, int d,
+                                          int accumulate) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (col < d && row < s) {
+        float2* at = reinterpret_cast<float2*>(
+            out + ((static_cast<size_t>(batch) * s + row) * heads + h) * d + col);
+        // Rounded multiply and add, never fused into one FMA: an added
+        // result has the bits of the written one added afterwards.
+        float2 o = make_float2(__fmul_rn(scale, acc[4 * j + 2 * r]),
+                               __fmul_rn(scale, acc[4 * j + 2 * r + 1]));
+        if (accumulate) {
+          const float2 was = *at;
+          o = make_float2(__fadd_rn(was.x, o.x), __fadd_rn(was.y, o.y));
+        }
+        *at = o;
+      }
+    }
+  }
+}
+
+// Shared memory of flash_dq_tf32_kernel, from a 1024-byte-aligned base:
+// the block's Q and dO (64 rows, hi and lo: 128 KB at kD 128), then
+// kStages stages of three streamed tiles of 32 keys, each hi and lo --
+// K, V (K-major, for S = Q . K^T and dP = dO . V^T) and K^T (for dQ +=
+// dS . K): 96 KB a stage at kD 128, so one stage there, three at kD 64 --
+// then the barriers: bar_own (256 converter arrivals), then per stage a
+// full (256 arrivals) and an empty (one consumer arrival) barrier for
+// each of K, V and K^T. The three are freed apart: K and V once S and dP
+// have read them, K^T once dQ has, so the next K and V are written while
+// the consumer runs this tile's softmax and dQ.
+template <int kD>
+struct DqTf32Layout {
+  static constexpr int kOwnTile = kTf32Rows * kD * 4;  // Q or dO, hi or lo
+  static constexpr int kTile = kTf32Keys * kD * 4;     // K, V or K^T, hi or lo
+  static constexpr int kOwn = 4 * kOwnTile;
+  static constexpr int kStage = 6 * kTile;
+  static constexpr int kFit = (kMaxSmem - 1024 - kOwn - 8) / (kStage + 48);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem = 1024 + kOwn + kStages * kStage + (1 + 6 * kStages) * 8;
+  static_assert(kStages >= 1, "dq: Q, dO and one K, V, K^T stage exceed 227 KB");
+};
+
+// ---------------------------------------------------------------------
+// dq, float32 inputs. Grid (q tiles of kTf32Rows, hq, b), heaviest causal
+// tiles first; the consumer walks the 32-key tiles its last row can see:
+//   S = Q . K^T, dP = dO . V^T    SS m64n32k8, three passes each
+//   P = exp(S - lse), dS = P * (dP - dm)         (in registers)
+//   dQ += dS . K                  RS m64nDk8 over K^T, three passes
+// dQ stays in registers for the walk; the epilogue writes scale * dQ.
+// ---------------------------------------------------------------------
+template <int kD>
+__global__ void __launch_bounds__(kTf32Threads, 1) flash_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v,
+    const float* __restrict__ dout,  // (b, sq, hq, d)
+    const float* __restrict__ lse,   // (b, sq, hq)
+    const float* __restrict__ dm,    // (b, sq, hq): rowsum(dO*O) - dlse
+    float* __restrict__ dq,          // (b, sq, hq, d)
+    int sq, int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
+    int causal, int accumulate, float scale) {
+  using L = DqTf32Layout<kD>;
+  constexpr int kS = L::kStages;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * kTf32Rows;
+  const int q_rows = min(kTf32Rows, sq - q0);
+  const int warp = threadIdx.x >> 5;  // 0-3 the consumer, 4-11 the converters
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_do = s_q + 2 * L::kOwnTile;
+  const uint32_t s_stage = s_q + L::kOwn;
+  const uint32_t bar_own = s_stage + kS * L::kStage;
+  const uint32_t full = bar_own + 8;
+  const uint32_t empty = full + 24 * kS;
+  // Part p (0 K, 1 V, 2 K^T) of stage st: its hi tile (lo kTile on), and
+  // its barrier in a set (full or empty: one array of kS a part).
+  const auto tile = [&](int st, int p) {
+    return s_stage + st * L::kStage + 2 * p * L::kTile;
+  };
+  const auto bar = [&](uint32_t set, int st, int p) {
+    return set + 8 * (p * kS + st);
+  };
+
+  const int n_kt = kv_tiles(sk, kTf32Keys, q_offset + q0 + q_rows - 1,
+                            kv_offset, causal);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 256);
+    for (int st = 0; st < kS; ++st)
+      for (int p = 0; p < 3; ++p) {
+        mbar_init(bar(full, st, p), 256);
+        mbar_init(bar(empty, st, p), 1);
+      }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the converters
+    tf32_regs_converter();
+    const int ct = threadIdx.x - 128;
+    bwd_put_own<kD>(s_q, s_do, L::kOwnTile, bar_own, ct, q, dout, b, sq, hq, h,
+                    q0, d);
+    const BwdHalf<kD> me(ct);
+    using X = typename BwdHalf<kD>::X;
+    // Rows row(0), row(1) of key tile kt of K or V (null past sk).
+    const auto rows_of = [&](const float* src, int kt, const float* (&r)[2]) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = kt * kTf32Keys + me.row(j);
+        r[j] = key < sk ? src + ((static_cast<size_t>(b) * sk + key) * hkv + kvh) * d
+                        : nullptr;
+      }
+    };
+    if (n_kt <= 0) return;
+    X xk, xv;
+    {
+      const float* rk[2];
+      const float* rv[2];
+      rows_of(k, 0, rk);
+      rows_of(v, 0, rv);
+      me.load(xk, rk, d);
+      me.load(xv, rv, d);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kS;
+      const float* rk[2] = {nullptr, nullptr};
+      const float* rv[2] = {nullptr, nullptr};
+      if (kt + 1 < n_kt) {
+        rows_of(k, kt + 1, rk);
+        rows_of(v, kt + 1, rv);
+      }
+      X nk, nv;
+      me.load(nk, rk, d);
+      me.load(nv, rv, d);
+      tf32_acquire(bar(empty, 0, 0), kt, kS);
+      me.put_rows(tile(st, 0), tile(st, 0) + L::kTile, xk);
+      mbar_arrive(bar(full, st, 0));
+      tf32_acquire(bar(empty, 0, 1), kt, kS);
+      me.put_rows(tile(st, 1), tile(st, 1) + L::kTile, xv);
+      mbar_arrive(bar(full, st, 1));
+      tf32_acquire(bar(empty, 0, 2), kt, kS);
+      me.put_cols(tile(st, 2), tile(st, 2) + L::kTile, xk);
+      mbar_arrive(bar(full, st, 2));
+      xk = nk;
+      xv = nv;
+    }
+    return;
+  }
+
+  tf32_regs_consumer();
+  // This thread's two q rows (index into sq): row0 and row0 + 8.
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dmr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const size_t at = (static_cast<size_t>(b) * sq + row) * hq + h;
+    lse2[i] = row < sq ? lse[at] * kLog2e : 0.f;
+    dmr[i] = row < sq ? dm[at] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  const bool lead = (threadIdx.x & 127) == 0;  // frees tiles for the warpgroup
+
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_own, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kS;
+    const uint32_t par = (kt / kS) & 1;
+    float s[16], s2[16], dp[16], dp2[16];
+    mbar_wait(bar(full, st, 0), par);
+    mbar_wait(bar(full, st, 1), par);
+    wgmma_fence();
+    tf32_ss_passes<true, true, kD>(s, s2, s_q, s_q + L::kOwnTile, tile(st, 0),
+                                   tile(st, 0) + L::kTile);
+    tf32_ss_passes<true, true, kD>(dp, dp2, s_do, s_do + L::kOwnTile, tile(st, 1),
+                                   tile(st, 1) + L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(s2);
+    reg_fence(dp);
+    reg_fence(dp2);
+    if (lead) {
+      mbar_arrive(bar(empty, st, 0));
+      mbar_arrive(bar(empty, st, 1));
+    }
+    tf32_add_finite(s, s2);
+    tf32_add_finite(dp, dp2);
+
+    // dS in place of dP. Only a tile that crosses the causal diagonal or
+    // a ragged end is masked element by element.
+    const int k0 = kt * kTf32Keys;
+    const int k_last = k0 + kTf32Keys - 1;
+    const bool edge = q0 + kTf32Rows - 1 >= sq || k_last >= sk ||
+                      (causal && kv_offset + k_last > q_offset + q0);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;  // row0 or row0 + 8
+      // A NaN score gives P = 0, as the plain version's select on S.
+      float p = exp2f(fmaf(fmaxf(s[i], -INFINITY), scale2, -lse2[r]));
+      if (edge) {
+        const int row = row0 + 8 * r;
+        const bool ok = row < sq && visible(q_offset + row, k0 + walk_key(i, lane),
+                                            sk, kv_offset, causal);
+        p = ok ? p : 0.f;
+      }
+      dp[i] = p * (dp[i] - dmr[r]);
+    }
+    uint32_t dsh[4][4], dsl[4][4];
+    tf32_frags<false>(dsh, dsl, dp);
+
+    mbar_wait(bar(full, st, 2), par);
+    wgmma_fence();
+    tf32_rs_passes<true, kD>(acc, dsh, dsl, tile(st, 2), tile(st, 2) + L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(dsh);
+    reg_fence(dsl);
+    if (lead) mbar_arrive(bar(empty, st, 2));
+  }
+  bwd_store<kD>(dq, acc, scale, b, sq, hq, h, row0, d, accumulate);
+}
+
+// Shared memory of flash_dkv_tf32_kernel, from a 1024-byte-aligned base:
+// the block's K and V (64 keys, hi and lo: 128 KB at kD 128), then a ring
+// of kSlots slots, each one streamed tile of 32 q rows (hi and lo, 32 KB
+// at kD 128: three slots there, four at kD 64), then each slot's lse and
+// dm of those rows (when it holds Q), then bar_own and a full and an
+// empty barrier per slot. Step n (a q tile of one query head) takes Q
+// into slot 2n % kSlots and dO into slot (2n + 1) % kSlots. A slot holds
+// its tile first K-major (for S^T = K . Q^T and dP^T = V . dO^T), then,
+// once those products have read it, transposed (for dK += dS^T . Q and
+// dV += P^T . dO): its barriers complete twice a use, first at even and
+// then at odd parity. Q, dO, Q^T and dO^T of one 32-row tile at once
+// would take 128 KB, which does not fit beside K and V at kD 128.
+template <int kD>
+struct DkvTf32Layout {
+  static constexpr int kOwnTile = kTf32Rows * kD * 4;  // K or V, hi or lo
+  static constexpr int kTile = kTf32Keys * kD * 4;     // a slot's hi or lo
+  static constexpr int kOwn = 4 * kOwnTile;
+  static constexpr int kStats = 2 * kTf32Keys * 4;     // lse, dm of a slot
+  static constexpr int kFit = (kMaxSmem - 1024 - kOwn - 8) / (2 * kTile + kStats + 16);
+  static constexpr int kSlots = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem =
+      1024 + kOwn + kSlots * (2 * kTile + kStats) + (1 + 2 * kSlots) * 8;
+  static_assert(kSlots >= 2, "dk/dv: K, V and two slots exceed 227 KB");
+};
+
+// dk/dv's consumer holds dK and dV (kD fp32 a thread) beside S^T, dP^T and
+// their cross terms: its converters drop to 128 registers, so it takes 248.
+constexpr int kDkvConvRegs = 128;
+
+// The walk of a dk/dv block, kept by each role on its own (nothing of it
+// lives across the roles' register reallocation): for each of the g
+// query heads of KV head kvh, the 32-row q tiles from qt0, the first
+// whose last row can see the block's first key k0, to the last.
+struct DkvWalk {
+  int qt0, n_qt, h, qt;  // h, qt: the current step's head and q tile
+
+  __device__ __forceinline__ DkvWalk(int k0, int kvh, int g, int sq,
+                                     int q_offset, int kv_offset, int causal)
+      : qt0(0), n_qt((sq + kTf32Keys - 1) / kTf32Keys), h(kvh * g) {
+    if (causal) {
+      const int need = kv_offset + k0 - q_offset - (kTf32Keys - 1);
+      qt0 = need <= 0 ? 0 : min(n_qt, (need + kTf32Keys - 1) / kTf32Keys);
+    }
+    qt = qt0;
+  }
+  __device__ __forceinline__ int steps(int g) const { return g * (n_qt - qt0); }
+  __device__ __forceinline__ int q0() const { return qt * kTf32Keys; }
+  __device__ __forceinline__ void next() {
+    if (++qt == n_qt) {
+      qt = qt0;
+      ++h;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------
+// dk/dv, float32 inputs. Grid (k tiles of kTf32Rows keys, hkv, b), the
+// longest causal walks first. The consumer walks, for each of the g query
+// heads of the group, the 32-row q tiles from the first one the mask lets
+// see the block's keys, with keys as rows as in the Pallas kernel:
+//   S^T = K . Q^T, dP^T = V . dO^T      SS m64n32k8, three passes each
+//   P^T = exp(S^T - lse), dS^T = P^T * (dP^T - dm)   (lse, dm per column)
+//   dV += P^T . dO, dK += dS^T . Q      RS m64nDk8 over dO^T and Q^T
+// dK and dV stay in registers across every q tile of every head of the
+// group, so the group sum happens in the fp32 accumulators.
+// ---------------------------------------------------------------------
+template <int kD>
+__global__ void __launch_bounds__(kTf32Threads, 1) flash_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dm,
+    float* __restrict__ dk,  // (b, sk, hkv, d)
+    float* __restrict__ dv, int sq, int sk, int hq, int hkv, int d,
+    int q_offset, int kv_offset, int causal, int accumulate, float scale) {
+  using L = DkvTf32Layout<kD>;
+  constexpr int kN = L::kSlots;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = hq / hkv;
+  const int k0 = blockIdx.x * kTf32Rows;
+  const int warp = threadIdx.x >> 5;  // 0-3 the consumer, 4-11 the converters
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_k = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + 2 * L::kOwnTile;
+  const uint32_t s_slot = s_k + L::kOwn;  // slot i: hi at + 2 kTile i, lo kTile on
+  const uint32_t s_stats = s_slot + 2 * kN * L::kTile;  // slot i: lse, dm at + kStats i
+  const uint32_t bar_own = s_stats + kN * L::kStats;
+  const uint32_t full = bar_own + 8;  // slot i's at + 8 i
+  const uint32_t empty = full + 8 * kN;
+  const float* stats = reinterpret_cast<const float*>(
+      smem_raw + (s_stats - smem_u32(smem_raw)));
+  const auto slot = [&](int i) { return s_slot + 2 * i * L::kTile; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 256);
+    for (int i = 0; i < kN; ++i) {
+      mbar_init(full + 8 * i, 256);
+      mbar_init(empty + 8 * i, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the converters
+    tf32_regs_converter<kDkvConvRegs>();
+    const int ct = threadIdx.x - 128;
+    bwd_put_own<kD>(s_k, s_v, L::kOwnTile, bar_own, ct, k, v, b, sk, hkv, kvh,
+                    k0, d);
+    DkvWalk at(k0, kvh, g, sq, q_offset, kv_offset, causal);  // a step ahead
+    const int n_steps = at.steps(g);
+    if (n_steps <= 0) return;
+    const BwdHalf<kD> me(ct);
+    using X = typename BwdHalf<kD>::X;
+    // Rows row(0), row(1) of the tile of Q or dO at the walk's step
+    // (null past sq), and the lse (threads 0-31) or dm (32-63) of its row
+    // ct % 32.
+    const auto rows_of = [&](const float* (&rq)[2], const float* (&ro)[2]) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = at.q0() + me.row(j);
+        const size_t off = ((static_cast<size_t>(b) * sq + row) * hq + at.h) * d;
+        rq[j] = row < sq ? q + off : nullptr;
+        ro[j] = row < sq ? dout + off : nullptr;
+      }
+    };
+    const auto stat_of = [&]() {
+      const int row = at.q0() + (ct & 31);
+      if (ct >= 64 || row >= sq) return 0.f;
+      return (ct < 32 ? lse : dm)[(static_cast<size_t>(b) * sq + row) * hq + at.h];
+    };
+    // One step's Q and dO in registers, and one of the next step's: its Q
+    // is loaded once this step's Q^T is written, its dO once dO^T is.
+    X xq, xo;
+    const float* rq[2];
+    const float* ro[2];
+    rows_of(rq, ro);
+    me.load(xq, rq, d);
+    me.load(xo, ro, d);
+    float xs = stat_of();
+    at.next();
+    for (int n = 0; n < n_steps; ++n) {
+      rq[0] = rq[1] = ro[0] = ro[1] = nullptr;
+      if (n + 1 < n_steps) rows_of(rq, ro);
+      const int iq = 2 * n, io = 2 * n + 1;
+      const int sq_ = iq % kN, so = io % kN;
+      // K-major: each slot's previous use must be done (its odd phase).
+      if (iq >= kN) mbar_wait(empty + 8 * sq_, 1);
+      me.put_rows(slot(sq_), slot(sq_) + L::kTile, xq);
+      if (ct < 64)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_stats + sq_ * L::kStats +
+                                                        4 * ct),
+                     "f"(xs)
+                     : "memory");
+      mbar_arrive(full + 8 * sq_);
+      if (io >= kN) mbar_wait(empty + 8 * so, 1);
+      me.put_rows(slot(so), slot(so) + L::kTile, xo);
+      mbar_arrive(full + 8 * so);
+      // Transposed, once S^T and dP^T have read the K-major tiles.
+      mbar_wait(empty + 8 * sq_, 0);
+      me.put_cols(slot(sq_), slot(sq_) + L::kTile, xq);
+      mbar_arrive(full + 8 * sq_);
+      me.load(xq, rq, d);
+      if (n + 1 < n_steps) xs = stat_of();
+      mbar_wait(empty + 8 * so, 0);
+      me.put_cols(slot(so), slot(so) + L::kTile, xo);
+      mbar_arrive(full + 8 * so);
+      me.load(xo, ro, d);
+      at.next();
+    }
+    return;
+  }
+
+  tf32_regs_consumer<kDkvConvRegs>();
+  // This thread's two keys (index into sk): key0 and key0 + 8.
+  const int key0 = k0 + 16 * warp + (lane >> 2);
+  const float scale2 = scale * kLog2e;
+  // The plain versions' P = where(S * scale > MASK_VALUE / 2, exp(..), 0)
+  // on every tile, as a bound on the raw score: a NaN score gives P = 0
+  // even in a row whose lse is NaN (dV must stay finite there).
+  const float s_min = kMaskValue * 0.5f / scale;
+  const bool lead = (threadIdx.x & 127) == 0;  // frees slots for the warpgroup
+
+  float dk_acc[kD / 2], dv_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+
+  DkvWalk at(k0, kvh, g, sq, q_offset, kv_offset, causal);
+  const int n_steps = at.steps(g);
+  mbar_wait(bar_own, 0);
+  for (int n = 0; n < n_steps; ++n, at.next()) {
+    const int q0 = at.q0();
+    const int sq_ = (2 * n) % kN, so = (2 * n + 1) % kN;
+    const uint32_t qs = slot(sq_), os = slot(so);
+    float s[16], s2[16], dp[16], dp2[16];
+    mbar_wait(full + 8 * sq_, 0);
+    mbar_wait(full + 8 * so, 0);
+    wgmma_fence();
+    tf32_ss_passes<true, true, kD>(s, s2, s_k, s_k + L::kOwnTile, qs, qs + L::kTile);
+    tf32_ss_passes<true, true, kD>(dp, dp2, s_v, s_v + L::kOwnTile, os,
+                                   os + L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(s2);
+    reg_fence(dp);
+    reg_fence(dp2);
+    if (lead) {
+      mbar_arrive(empty + 8 * sq_);
+      mbar_arrive(empty + 8 * so);
+    }
+    tf32_add_finite(s, s2);
+    tf32_add_finite(dp, dp2);
+
+    // P^T and dS^T, lse and dm per column, each column group split into
+    // its k8 step of A fragments as soon as it is done.
+    const float* lse_s = stats + sq_ * (L::kStats / 4);
+    const float* dm_s = lse_s + kTf32Keys;
+    const bool edge = q0 + kTf32Keys - 1 >= sq || k0 + kTf32Rows - 1 >= sk ||
+                      (causal && kv_offset + k0 + kTf32Rows - 1 > q_offset + q0);
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 m2 = *reinterpret_cast<const float2*>(dm_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float l = (e & 1) ? l2.y : l2.x;
+        const float m = (e & 1) ? m2.y : m2.x;
+        float p = exp2f(fmaf(s[i], scale2, -l * kLog2e));
+        if (!(s[i] > s_min)) p = 0.f;
+        if (edge) {
+          const int qr = q0 + c + (e & 1);
+          const int key = key0 + 8 * (e >> 1);
+          const bool ok = qr < sq && visible(q_offset + qr, key, sk, kv_offset,
+                                             causal);
+          p = ok ? p : 0.f;
+        }
+        s[i] = p;
+        dp[i] = p * (dp[i] - m);
+      }
+      tf32_frag_step<true>(ph[j], pl[j], s, j);
+      tf32_frag_step<false>(dh[j], dl[j], dp, j);
+    }
+
+    mbar_wait(full + 8 * sq_, 1);
+    mbar_wait(full + 8 * so, 1);
+    wgmma_fence();
+    tf32_rs_passes<true, kD>(dv_acc, ph, pl, os, os + L::kTile);
+    tf32_rs_passes<true, kD>(dk_acc, dh, dl, qs, qs + L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(dh);
+    reg_fence(dl);
+    if (lead) {
+      mbar_arrive(empty + 8 * sq_);
+      mbar_arrive(empty + 8 * so);
+    }
+  }
+  bwd_store<kD>(dk, dk_acc, scale, b, sk, hkv, kvh, key0, d, accumulate);
+  bwd_store<kD>(dv, dv_acc, 1.f, b, sk, hkv, kvh, key0, d, accumulate);
 }
 
 bool shapes_ok(int b, int sq, int sk, int hq, int hkv, int d) {
@@ -1143,10 +1483,46 @@ int launch_fwd_tf32(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-bit inputs take the wgmma kernels (kD 64 for d <= 64, else 128);
-// float32 inputs the TF32 forward and the scalar-FMA dq and dk/dv walks.
-// `accumulate` (16-bit backward only) adds the result into an fp32
-// buffer instead of writing it in T.
+template <int kD>
+int launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* dm, void* dq, int b, int sq,
+                   int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
+                   int causal, int accumulate, float scale, cudaStream_t stream) {
+  using L = DqTf32Layout<kD>;
+  auto kernel = flash_dq_tf32_kernel<kD>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((sq + kTf32Rows - 1) / kTf32Rows, hq, b), kTf32Threads, L::kSmem,
+           stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const float*>(dout),
+                     static_cast<const float*>(lse), static_cast<const float*>(dm),
+                     static_cast<float*>(dq), sq, sk, hq, hkv, d, q_offset,
+                     kv_offset, causal, accumulate, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* dm, void* dk, void* dv, int b,
+                    int sq, int sk, int hq, int hkv, int d, int q_offset,
+                    int kv_offset, int causal, int accumulate, float scale,
+                    cudaStream_t stream) {
+  using L = DkvTf32Layout<kD>;
+  auto kernel = flash_dkv_tf32_kernel<kD>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((sk + kTf32Rows - 1) / kTf32Rows, hkv, b), kTf32Threads, L::kSmem,
+           stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const float*>(dout),
+                     static_cast<const float*>(lse), static_cast<const float*>(dm),
+                     static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, hq,
+                     hkv, d, q_offset, kv_offset, causal, accumulate, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-bit inputs take the wgmma kernels, float32 inputs the TF32 ones (kD
+// 64 for d <= 64, else 128). `accumulate` adds the backward's result
+// into fp32 buffers instead of writing it in the input dtype.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
@@ -1196,19 +1572,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                         hq, hkv, d, q_offset, kv_offset, causal,
                                         scale, stream);
   } else {
-    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int BR = kF32Rows;
-    const size_t smem = f32_smem_bytes(1, d);
-    auto kernel = flash_dq_kernel<T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3((sq + BR - 1) / BR, hq, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dm),
-        static_cast<T*>(dq), sq, sk, hq, hkv, d, q_offset, kv_offset, causal,
-        scale);
-    return static_cast<int>(cudaGetLastError());
+    return d <= 64 ? launch_dq_tf32<64>(q, k, v, dout, lse, dm, dq, b, sq, sk,
+                                        hq, hkv, d, q_offset, kv_offset, causal,
+                                        accumulate, scale, stream)
+                   : launch_dq_tf32<128>(q, k, v, dout, lse, dm, dq, b, sq, sk,
+                                         hq, hkv, d, q_offset, kv_offset, causal,
+                                         accumulate, scale, stream);
   }
 }
 
@@ -1243,19 +1612,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                                          sk, hq, hkv, d, q_offset, kv_offset,
                                          causal, scale, stream);
   } else {
-    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int BR = kF32Rows;
-    const size_t smem = f32_smem_bytes(2, d);
-    auto kernel = flash_dkv_kernel<T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3((sk + BR - 1) / BR, hkv, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dm),
-        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, hq, hkv, d, q_offset,
-        kv_offset, causal, scale);
-    return static_cast<int>(cudaGetLastError());
+    return d <= 64 ? launch_dkv_tf32<64>(q, k, v, dout, lse, dm, dk, dv, b, sq,
+                                         sk, hq, hkv, d, q_offset, kv_offset,
+                                         causal, accumulate, scale, stream)
+                   : launch_dkv_tf32<128>(q, k, v, dout, lse, dm, dk, dv, b, sq,
+                                          sk, hq, hkv, d, q_offset, kv_offset,
+                                          causal, accumulate, scale, stream);
   }
 }
 
@@ -1283,7 +1645,7 @@ int tpuhpc_flash_fwd(const void* q, const void* k, const void* v, void* out,
 }
 
 // The backward entries' `accumulate`: 1 adds the result into fp32
-// buffers (16-bit inputs only), 0 writes it in the input dtype.
+// buffers, 0 writes it in the input dtype.
 int tpuhpc_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* dm, void* dq, int b, int sq,
                     int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
@@ -1316,7 +1678,7 @@ int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
 int tpuhpc_flash_tile_rows(int kernel, int dtype) {
   if (kernel < 0 || kernel > 2) return 0;
   switch (dtype) {
-    case kF32: return kernel == 0 ? kTf32Rows : kF32Rows;
+    case kF32: return kTf32Rows;
     case kF16:
     case kBF16: return kernel == 0 ? kFwdRows : kBwdRows;
     default: return 0;

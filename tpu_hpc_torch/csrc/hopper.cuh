@@ -949,7 +949,7 @@ constexpr int kTf32Rows = 64;      // query rows of a block
 // A consumer warpgroup, then two converter warpgroups: one writes the K
 // tiles (and Q, with the other), one the V tiles. The consumer's
 // accumulators take up to 232 registers a thread, the converters 136
-// (setmaxnreg: tf32_regs_*).
+// (setmaxnreg: tf32_regs_*; 168 each at launch, __launch_bounds__).
 constexpr int kTf32Threads = 384;
 
 template <typename QT, typename KT, int kD>
@@ -1019,31 +1019,44 @@ __device__ __forceinline__ void tf32_ring_init(const Tf32Ring& ring) {
 }
 
 // Register reallocation between the roles (all four warps of a
-// warpgroup together): a converter warpgroup drops to 136 registers a
-// thread, the consumer takes 232.
+// warpgroup together): a converter warpgroup drops to kConv registers a
+// thread, the consumer takes what they free, 3 x 168 - 2 kConv (232 for
+// 136; a kernel whose consumer holds more, as dk/dv's, takes 248 for
+// 128).
+template <int kConv = 136>
 __device__ __forceinline__ void tf32_regs_converter() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 136;\n" ::: "memory");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kConv) : "memory");
 }
+template <int kConv = 136>
 __device__ __forceinline__ void tf32_regs_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  static_assert(kConv % 8 == 0 && kConv >= 24, "setmaxnreg: a multiple of 8");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(3 * 168 - 2 * kConv)
+               : "memory");
 }
 
-// Converter thread c (0-255, both warpgroups) writing its share of the
-// 64-row Q tile: row r = c % 64, 16-byte chunks c / 64, c / 64 + 4, ...
-// of the row at `row` (null past the end: zeros), kD columns of which d
-// are real.
-template <typename QT, typename L, int kD>
-__device__ __forceinline__ void tf32_put_q(const Tf32Ring& ring, int c,
-                                           const QT* row, int d) {
-  constexpr int kE = 16 / sizeof(QT);
+// Converter thread c (0-255, both warpgroups) writing its share of a
+// 64-row K-major tile (hi, and lo where kSplit): row r = c % 64, 16-byte
+// chunks c / 64, c / 64 + 4, ... of the row at `row` (null past the end:
+// zeros), kD columns of which d are real.
+template <typename T, bool kSplit, int kD>
+__device__ __forceinline__ void tf32_put_rows64(uint32_t hi, uint32_t lo, int c,
+                                                const T* row, int d) {
+  constexpr int kE = 16 / sizeof(T);
   const int r = c & 63;
 #pragma unroll
   for (int j = c >> 6; j < kD / kE; j += 4) {
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (row != nullptr && j * kE < d)
       x = __ldg(reinterpret_cast<const uint4*>(row + j * kE));
-    put_kmajor<QT, L::kQSplit>(ring.q, ring.q + L::kQTile, kTf32Rows, r, j, x);
+    put_kmajor<T, kSplit>(hi, lo, kTf32Rows, r, j, x);
   }
+}
+
+// The converters' share of the 64-row Q tile, then their arrival on bar_q.
+template <typename QT, typename L, int kD>
+__device__ __forceinline__ void tf32_put_q(const Tf32Ring& ring, int c,
+                                           const QT* row, int d) {
+  tf32_put_rows64<QT, L::kQSplit, kD>(ring.q, ring.q + L::kQTile, c, row, d);
   fence_proxy_async();
   mbar_arrive(ring.bar_q);
 }
@@ -1151,12 +1164,12 @@ __device__ __forceinline__ void put_vt(uint32_t hi, uint32_t lo, int t, int cc,
   }
 }
 
-// Waits until the consumer freed this stage's half (empty: empty_k or
-// empty_v) from its use kt - kStages.
-template <typename L>
-__device__ __forceinline__ void tf32_acquire(uint32_t empty, int kt) {
-  if (kt >= L::kStages)
-    mbar_wait(empty + 8 * (kt % L::kStages), (kt / L::kStages - 1) & 1);
+// Waits until use `use` of a ring of `stages` stages may write its
+// stage: the consumer has freed that stage's use use - stages (empty:
+// the ring's stage-0 barrier, 8 bytes a stage).
+__device__ __forceinline__ void tf32_acquire(uint32_t empty, int use, int stages) {
+  if (use >= stages)
+    mbar_wait(empty + 8 * (use % stages), (use / stages - 1) & 1);
 }
 
 // One converter warpgroup's part of every tile [0, n_tiles): the K tiles
@@ -1190,7 +1203,7 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
     if (kt + 1 < n_tiles) rows(kt + 1, rn);
     X next;
     tf32_load(next, c, rn, d);
-    tf32_acquire<L>(kV ? ring.empty_v : ring.empty_k, kt);
+    tf32_acquire(kV ? ring.empty_v : ring.empty_k, kt, L::kStages);
     if constexpr (kV) {
       const uint32_t v = ring.v<L>(st);
 #pragma unroll
@@ -1245,39 +1258,100 @@ __device__ __forceinline__ void tf32_converters(const Tf32Ring& ring, int ct,
   }
 }
 
+// A (64 rows) . B^T (32 rows), both K-major tiles of kD fp32 columns, in
+// the passes their splits need: A hi . B hi into s, the cross terms (A hi
+// . B lo where B is split, A lo . B hi where A is) into s2.
+template <bool kASplit, bool kBSplit, int kD>
+__device__ __forceinline__ void tf32_ss_passes(float (&s)[16], float (&s2)[16],
+                                               uint32_t ah, uint32_t al,
+                                               uint32_t bh, uint32_t bl) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk)
+    wgmma_tf32_ss_n32(s, kmajor_desc(ah, kTf32Rows, 0, kk),
+                      kmajor_desc(bh, kTf32Keys, 0, kk), kk > 0);
+  if constexpr (kBSplit) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk)
+      wgmma_tf32_ss_n32(s2, kmajor_desc(ah, kTf32Rows, 0, kk),
+                        kmajor_desc(bl, kTf32Keys, 0, kk), kk > 0);
+  }
+  if constexpr (kASplit) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk)
+      wgmma_tf32_ss_n32(s2, kmajor_desc(al, kTf32Rows, 0, kk),
+                        kmajor_desc(bh, kTf32Keys, 0, kk), kBSplit || kk > 0);
+  }
+}
+
 // S (and its cross terms, S2) of the consumer's 64 rows against stage
 // st's K tile.
 template <typename L, int kD>
 __device__ __forceinline__ void tf32_scores(float (&s)[16], float (&s2)[16],
                                             const Tf32Ring& ring, int st) {
   const uint32_t kh = ring.k<L>(st);
-  const uint32_t kl = kh + L::kKTile;
-  const uint32_t qh = ring.q;
-  const uint32_t ql = ring.q + L::kQTile;
-#pragma unroll
-  for (int kk = 0; kk < kD / 8; ++kk)
-    wgmma_tf32_ss_n32(s, kmajor_desc(qh, kTf32Rows, 0, kk),
-                      kmajor_desc(kh, kTf32Keys, 0, kk), kk > 0);
-  if constexpr (L::kKSplit) {
-#pragma unroll
-    for (int kk = 0; kk < kD / 8; ++kk)
-      wgmma_tf32_ss_n32(s2, kmajor_desc(qh, kTf32Rows, 0, kk),
-                        kmajor_desc(kl, kTf32Keys, 0, kk), kk > 0);
-  }
-  if constexpr (L::kQSplit) {
-#pragma unroll
-    for (int kk = 0; kk < kD / 8; ++kk)
-      wgmma_tf32_ss_n32(s2, kmajor_desc(ql, kTf32Rows, 0, kk),
-                        kmajor_desc(kh, kTf32Keys, 0, kk), L::kKSplit || kk > 0);
-  }
+  tf32_ss_passes<L::kQSplit, L::kKSplit, kD>(s, s2, ring.q, ring.q + L::kQTile,
+                                             kh, kh + L::kKTile);
 }
 
 // S = S + S2 where S is finite; S as it is where it is not.
+__device__ __forceinline__ void tf32_add_finite(float (&s)[16],
+                                                const float (&s2)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = isfinite(s[i]) ? s[i] + s2[i] : s[i];
+}
+
 template <typename L>
 __device__ __forceinline__ void tf32_combine(float (&s)[16], const float (&s2)[16]) {
-  if constexpr (L::kQSplit || L::kKSplit) {
+  if constexpr (L::kQSplit || L::kKSplit) tf32_add_finite(s, s2);
+}
+
+// A 64 x 32 fp32 accumulator (S's layout) as the split A operand of an RS
+// TF32 product over its 32 columns (tf32_frag_step: one of them, from
+// columns 8 j .. 8 j + 7): four k8 steps of hi and lo, a lane's
+// columns 2 l and 2 l + 1 of each 8-column group in its k slots l and
+// l + 4 (the B tile's rows permuted to match: vt_at). kProb: the values
+// are probabilities, split sign-coherently (tf32_split_p); else any
+// value (tf32_split).
+template <bool kProb>
+__device__ __forceinline__ void tf32_frag_step(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                               const float (&s)[16], int j) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = isfinite(s[i]) ? s[i] + s2[i] : s[i];
+  for (int x = 0; x < 4; ++x) {
+    // Fragment x of step j: s[4 j], s[4 j + 2], s[4 j + 1], s[4 j + 3].
+    const float v = s[4 * j + (((x & 1) << 1) | (x >> 1))];
+    if constexpr (kProb) {
+      tf32_split_p(v, hi[x], lo[x]);
+    } else {
+      float h, l;
+      tf32_split(v, h, l);
+      hi[x] = __float_as_uint(h);
+      lo[x] = __float_as_uint(l);
+    }
+  }
+}
+
+template <bool kProb>
+__device__ __forceinline__ void tf32_frags(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                           const float (&s)[16]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tf32_frag_step<kProb>(hi[j], lo[j], s, j);
+}
+
+// O (64 x kD) += A . B over 32 k, A split in registers (tf32_frags), B a
+// transposed fp32 tile [kD rows][32] (vt_at): A hi . B hi, A lo . B hi,
+// and A hi . B lo where B is split.
+template <bool kBSplit, int kD>
+__device__ __forceinline__ void tf32_rs_passes(float (&o)[kD / 2],
+                                               const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4],
+                                               uint32_t bh, uint32_t bl) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t b = kmajor_desc(bh, kD, 0, j);
+    wgmma_tf32_rs_nd<kD>(o, hi[j], b);
+    wgmma_tf32_rs_nd<kD>(o, lo[j], b);
+    if constexpr (kBSplit)
+      wgmma_tf32_rs_nd<kD>(o, hi[j], kmajor_desc(bl, kD, 0, j));
   }
 }
 
@@ -1295,13 +1369,7 @@ __device__ __forceinline__ void tf32_pack(Tf32P<L>& p, const float (&s)[16]) {
   if constexpr (L::kPV16) {
     walk_pack<KT>(p.p16, s);
   } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      tf32_split_p(s[4 * j], p.hi[j][0], p.lo[j][0]);
-      tf32_split_p(s[4 * j + 2], p.hi[j][1], p.lo[j][1]);
-      tf32_split_p(s[4 * j + 1], p.hi[j][2], p.lo[j][2]);
-      tf32_split_p(s[4 * j + 3], p.hi[j][3], p.lo[j][3]);
-    }
+    tf32_frags<true>(p.hi, p.lo, s);
   }
 }
 
@@ -1323,14 +1391,7 @@ __device__ __forceinline__ void tf32_pv(float (&o)[kD / 2], const Tf32P<L>& p,
     for (int kk = 0; kk < 2; ++kk)
       wgmma_rs_nd<KT, kD>(o, p.p16[kk], mnmajor_desc(v, kTf32Keys, kk));
   } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint64_t vh = kmajor_desc(v, kD, 0, j);
-      wgmma_tf32_rs_nd<kD>(o, p.hi[j], vh);
-      wgmma_tf32_rs_nd<kD>(o, p.lo[j], vh);
-      if constexpr (L::kKSplit)
-        wgmma_tf32_rs_nd<kD>(o, p.hi[j], kmajor_desc(v + L::kVTile, kD, 0, j));
-    }
+    tf32_rs_passes<L::kKSplit, kD>(o, p.hi, p.lo, v, v + L::kVTile);
   }
 }
 

@@ -267,6 +267,25 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def tf32_split_p(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 probability ``p`` (>= 0, or NaN) as ``(hi, lo)``, both
+    exact in TF32, as ``csrc/hopper.cuh::tf32_split_p`` splits P before
+    P . V and P^T . dO: ``hi`` truncated, so ``lo = tf32_round(p - hi)``
+    is >= 0 and within 2^-21 p of it, and at least 2^-126 wherever ``hi
+    > 0`` -- so the products' three passes of a key agree in sign and an
+    inf in V or dO gives +-inf, never inf - inf; ``(0, 0)`` for ``p =
+    0``."""
+    if p.dtype != torch.float32:
+        raise TypeError(f"tf32_split_p takes float32, got {p.dtype}")
+    keep = torch.tensor(-8192, dtype=torch.int32)  # 0xFFFFE000
+    hi = torch.bitwise_and(p.contiguous().view(torch.int32), keep) \
+        .view(torch.float32).reshape(p.shape)
+    tiny = torch.tensor(2.0 ** -126, dtype=torch.float32)
+    lo = torch.where(hi > 0, torch.fmax(tf32_round(p - hi), tiny),
+                     torch.zeros_like(p))
+    return hi, lo
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the kernel on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -380,23 +399,17 @@ def _check_accumulate(named) -> None:
                             f"{t.dtype}")
 
 
-def _accumulates_in_kernel(q, acc) -> bool:
-    """True when the backward kernel itself adds into ``acc`` (16-bit
-    inputs); float32 inputs launch into a fresh tensor that is added."""
-    return acc is not None and q.dtype != torch.float32
-
-
 def flash_attention_dq(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
     accumulate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """dq in q.dtype from the saved lse and ``dm = rowsum(dO*O) - dlse``
-    (both [B, Sq, Hq] fp32); with ``accumulate`` (fp32, q's shape) dq is
-    added into it unrounded and it is returned -- how a ring sums its
-    pairs. CUDA tensors launch ``flash_dq_wgmma_kernel`` (bf16, fp16) or
-    ``flash_dq_kernel`` (float32); CPU tensors run
-    :func:`flash_attention_dq_ref`."""
+    (both [B, Sq, Hq] fp32); with ``accumulate`` (fp32, q's shape) the
+    kernel adds dq into it unrounded and it is returned -- how a ring sums
+    its pairs. CUDA tensors launch ``flash_dq_wgmma_kernel`` (bf16, fp16)
+    or ``flash_dq_tf32_kernel`` (float32: split TF32, see
+    :func:`tf32_split`); CPU tensors run :func:`flash_attention_dq_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -407,8 +420,7 @@ def flash_attention_dq(
                                       causal=causal, sm_scale=scale,
                                       accumulate=accumulate)
     code = _kernel_dtype(q)
-    in_kernel = _accumulates_in_kernel(q, accumulate)
-    dq = accumulate if in_kernel else torch.empty_like(q)
+    dq = accumulate if accumulate is not None else torch.empty_like(q)
     _check_cuda(
         [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
          ("dm", dm), ("dq", dq)],
@@ -417,10 +429,8 @@ def flash_attention_dq(
     b, sq, sk, hq, hkv, d = _dims(q, k)
     _launch("flash_attention_dq", "tpuhpc_flash_dq", q, k, v, dout, lse, dm,
             dq, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
-            int(in_kernel), float(scale), code)
+            int(accumulate is not None), float(scale), code)
     flash_attention_dq.launches += 1
-    if accumulate is not None and not in_kernel:
-        return accumulate.add_(dq)
     return dq
 
 
@@ -433,10 +443,11 @@ def flash_attention_dkv(
     accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) in k/v's dtype, summed over each KV head's query-head
-    group; with ``accumulate`` (a pair of fp32 tensors of k's shape) they
-    are added into it unrounded and it is returned. CUDA tensors launch
-    ``flash_dkv_wgmma_kernel`` (bf16, fp16) or ``flash_dkv_kernel``
-    (float32); CPU tensors run :func:`flash_attention_dkv_ref`."""
+    group; with ``accumulate`` (a pair of fp32 tensors of k's shape) the
+    kernel adds them into it unrounded and it is returned. CUDA tensors
+    launch ``flash_dkv_wgmma_kernel`` (bf16, fp16) or
+    ``flash_dkv_tf32_kernel`` (float32: split TF32, P split by
+    :func:`tf32_split_p`); CPU tensors run :func:`flash_attention_dkv_ref`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -448,8 +459,7 @@ def flash_attention_dkv(
                                        causal=causal, sm_scale=scale,
                                        accumulate=accumulate)
     code = _kernel_dtype(q)
-    in_kernel = _accumulates_in_kernel(q, accumulate)
-    dk, dv = (accumulate if in_kernel
+    dk, dv = (accumulate if accumulate is not None
               else (torch.empty_like(k), torch.empty_like(v)))
     _check_cuda(
         [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
@@ -459,10 +469,8 @@ def flash_attention_dkv(
     b, sq, sk, hq, hkv, d = _dims(q, k)
     _launch("flash_attention_dkv", "tpuhpc_flash_dkv", q, k, v, dout, lse,
             dm, dk, dv, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
-            int(in_kernel), float(scale), code)
+            int(accumulate is not None), float(scale), code)
     flash_attention_dkv.launches += 1
-    if accumulate is not None and not in_kernel:
-        return accumulate[0].add_(dk), accumulate[1].add_(dv)
     return dk, dv
 
 
@@ -601,4 +609,5 @@ __all__ = [
     "lse_merge",
     "tf32_round",
     "tf32_split",
+    "tf32_split_p",
 ]
