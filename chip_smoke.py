@@ -22,15 +22,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     prefill's TF32 route at the 7B chunk over a float32
                     pool (float32 q), under a bf16 q over an f16 pool,
                     and under a float32 q over an int8 and a bf16 pool;
-                    and its scalar route at the 7B chunk on 12-token
-                    pages (timed, bound at the fp32 FMA rate). Every
-                    row names the kernel the library routed it to (the
-                    decode splits each slot's pages into ``n_split``
-                    runs and merges them; the prefill has a wgmma route
-                    for 16-bit pools, a wgmma_int8 route for int8 pools
-                    under a 16-bit q, a wgmma_tf32 route for every other
-                    pair and a scalar one for pages outside the
-                    tensor-core rule) and must pass checks/tolerance.py's
+                    the 7B chunk over pages TMA boxes cannot tile (12
+                    tokens: float32, bf16 and an int8 pool under bf16;
+                    250 tokens, bf16), each 16-bit and float32 one also
+                    equal bit for bit to the same keys through 16-token
+                    pages; and the scalar route at head_dim 72 (bound
+                    at the fp32 FMA rate). Every row names the kernel
+                    the library routed it to (the decode splits each
+                    slot's pages into ``n_split`` runs and merges them;
+                    the prefill has a wgmma route for 16-bit pools on
+                    pages TMA boxes tile, a wgmma_gather route for them
+                    at every other page size, a wgmma_int8 route for
+                    int8 pools under a 16-bit q, a wgmma_tf32 route for
+                    every other pair and a scalar one for head dims
+                    outside the tensor-core rule) and must pass checks/tolerance.py's
                     rule for q's dtype (a coarser 16-bit pool's where P
                     is rounded to it: rule_dtype; q's reading beside
                     it). Controls, each of which the bf16 rule must
@@ -90,6 +95,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     its prefill launches take the wgmma_int8 route; the
                     line carries int8_logit_rmse at the 7B's attention
                     dims and page size (logit_rmse, as bench.py pins it).
+     serve_pages_of_12 -- the same replay (serve's weights, from its
+                    seed) on 12-token pages: 1020-token slots, buckets
+                    252 and 504, chunks of 252, 685 pages; in bf16, every
+                    prefill launch on wgmma_gather, then over an int8
+                    pool, every one on wgmma_int8, none on scalar;
+                    tokens/s, TTFT and ITL beside serve's.
      serve_spec  -- speculative decoding and seeded sampling on the paged
                     engine, kernel="cuda": (a) at 7B width, 2 layers,
                     float32, the greedy streams of ngram spec (k 4) and
@@ -146,7 +157,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   6. crosscheck  -- the same request mix at 7B width with 2 layers in
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
-                    tokens identical.
+                    tokens identical; again on serve_pages_of_12's
+                    12-token pages, every prefill launch on wgmma_tf32.
   7. train       -- python -m tpu_hpc_torch.train's run_train on the
                     bench Llama at full width and depth (dim 1024, 8
                     layers, seq 2048, vocab 32000, bf16 compute, fp32
@@ -442,7 +454,11 @@ with its launches in obs_capture and in ops; the flash and decode rows
 with theirs in native_tools; the prefill, forward, dq and dk/dv rows
 with their split-TF32 kernel under ``tf32_route``: its registers and
 spills, the timed TF32-route rows, and its launches in the float32
-crosscheck (the prefill) or in train_crosscheck (flash)), nvidia-smi's
+crosscheck (the prefill) or in train_crosscheck (flash); the prefill's
+gathering route over a bf16 pool with its launches in serve_pages_of_12,
+the int8 route's there beside it, the timed rows of the odd pages and
+of head_dim 72 under ``odd_shapes`` and the scalar kernel's registers
+under ``scalar_route``), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
@@ -464,13 +480,16 @@ import time
 # (see there).
 PAGED_SOURCE = "tpu_hpc_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
-# The summary line's entry for the prefill's int8 route (an int8 pool
-# under a bf16 q: paged_prefill_int8_kernel), beside the bf16 one.
+# The summary line's entries for the prefill's int8 route (an int8 pool
+# under a bf16 q) and its gathering route over a bf16 pool (12-token
+# pages), both paged_prefill_gather_kernel, beside the bf16 one.
 INT8_PREFILL = "paged_prefill_attention_int8"
+GATHER_PREFILL = "paged_prefill_attention_gather"
 SOURCES = {
     "paged_decode_attention": PAGED_SOURCE,
     "paged_prefill_attention": PAGED_SOURCE,
     INT8_PREFILL: PAGED_SOURCE,
+    GATHER_PREFILL: PAGED_SOURCE,
     "flash_attention_fwd": FLASH_SOURCE,
     "flash_attention_dq": FLASH_SOURCE,
     "flash_attention_dkv": FLASH_SOURCE,
@@ -482,6 +501,8 @@ REPLACES = {
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
     INT8_PREFILL:
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel, quant
+    GATHER_PREFILL:
+        "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
     "flash_attention_fwd":
         "tpu_hpc/kernels/attention.py:148",         # _flash_kernel
     "flash_attention_dq":
@@ -500,6 +521,11 @@ TF32_KERNELS = {"paged_prefill_attention": "paged_prefill_tf32_kernel",
 TF32_ROW_KEYS = ("route", "rule", "max_abs_err", "ms", "device_ms",
                  "plain_ms", "bound_ms", "bound_by", "bound_fp32_fma_ms",
                  "library_ms", "library_device_ms")
+# The keys of each other-shape prefill row (odd pages, the scalar
+# head_dim) the prefill's summary entry repeats.
+ODD_ROW_KEYS = ("route", "block_size", "rule", "max_abs_err",
+                "bit_equal_to_pages_of_16", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms")
 
 
 def emit(phase: str, **fields) -> None:
@@ -523,7 +549,8 @@ MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("6__half", "f16"),
 def template_args(mangled: str) -> str:
     """A kernel's mangled template arguments, readable: element types,
     integers and booleans (``13__nv_bfloat16Li128ELb1E`` -> ``bf16, 128,
-    true``); anything else is kept as it stands."""
+    true``), a repeated type as its substitution (``S1_``); anything else
+    is kept as it stands."""
     out = []
     while mangled:
         for code, name in MANGLED_TYPES:
@@ -532,13 +559,13 @@ def template_args(mangled: str) -> str:
                 mangled = mangled[len(code):]
                 break
         else:
-            n = re.match(r"L([ib])(\d+)E", mangled)
+            n = re.match(r"L([ib])(\d+)E|S[0-9A-Z]*_", mangled)
             if not n:
                 out.append(mangled)
                 break
             kind, value = n.groups()
-            out.append(value if kind == "i" else
-                       ("false", "true")[int(value)])
+            out.append(n.group() if kind is None else value if kind == "i"
+                       else ("false", "true")[int(value)])
             mangled = mangled[n.end():]
     return ", ".join(out)
 
@@ -703,11 +730,12 @@ def decode_case(torch, dev, hkv, g, quant, seed=0, pos=DECODE_POS,
 
 
 def prefill_case(torch, dev, hkv, g, pool, start, q_dtype, seed=0, bs=16,
-                 bucket=256):
+                 bucket=256, d=128):
     """A ``bucket``-token chunk (256) at ``start`` over one 96-wide
-    table row of 64 live-or-dead entries, pages of ``bs`` tokens (16), q
-    in ``q_dtype`` over a ``pool`` pool (see _pool)."""
-    d, mb, width, num_blocks = 128, 64, 96, 513
+    table row of 64 live-or-dead entries, pages of ``bs`` tokens (16),
+    head_dim ``d`` (128), q in ``q_dtype`` over a ``pool`` pool (see
+    _pool)."""
+    mb, width, num_blocks = 64, 96, 513
     gen = torch.Generator(device=dev).manual_seed(seed)
     ctx_pages = (start + bucket - 1) // bs + 1
     perm = (torch.randperm(num_blocks - 1, generator=torch.Generator()
@@ -721,11 +749,45 @@ def prefill_case(torch, dev, hkv, g, pool, start, q_dtype, seed=0, bs=16,
     q = torch.randn((hkv, bucket, g, d), generator=gen, device=dev)
     args = (q.to(q_dtype), k, v, table.to(dev), start)
     kw = dict(block_size=bs, max_blocks=mb, **scales)
-    page_bytes = bs * hkv * d * k.element_size() + (4 if scales else 0)
+    # K and V of the keys the chunk reads (up to its last row, not the
+    # rest of its last page), the live pages' table entries and scales.
+    n_keys = min(ctx_pages * bs, start + bucket)
     n_bytes = (2 * q.numel() * args[0].element_size()
-               + 2 * ctx_pages * page_bytes + 4 * ctx_pages)
+               + 2 * n_keys * hkv * d * k.element_size()
+               + (4 + (8 if scales else 0)) * ctx_pages)
     keys = sum(start + b + 1 for b in range(bucket))
     return args, kw, (n_bytes, 4 * hkv * g * keys * d)
+
+
+def repaged(torch, args, kw, bs):
+    """A prefill case's chunk over the same keys and values laid out in
+    pages of ``bs`` tokens (a 16-bit or float32 pool): the view's keys up
+    to the chunk's last row in pages 1 .. n of a new pool, in order, the
+    rest of the last page zeros (past the chunk: masked), page 0 and the
+    dead entries' page NaN; two dead entries past the live ones."""
+    q, k, v, table, start = args
+    old = kw["block_size"]
+    ctx = start + q.shape[1]
+    n_old, n = (ctx - 1) // old + 1, (ctx - 1) // bs + 1
+    ids = table[:n_old].long()
+
+    def pool(x):
+        keys = x[ids].reshape(n_old * old, *x.shape[2:])
+        flat = torch.zeros((n * bs, *x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+        m = min(n * bs, n_old * old)
+        flat[:m] = keys[:m]
+        out = torch.full((n + 2, bs, *x.shape[2:]), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        out[1:n + 1] = flat.reshape(n, bs, *x.shape[2:])
+        return out
+
+    new_table = torch.full((n + 2,), n + 1, dtype=torch.int32,
+                           device=table.device)
+    new_table[:n] = torch.arange(1, n + 1, dtype=torch.int32,
+                                 device=table.device)
+    return ((q, pool(k), pool(v), new_table, start),
+            dict(block_size=bs, max_blocks=n + 2))
 
 
 def library_decode(torch, args, kw):
@@ -860,10 +922,44 @@ def decode_control(torch, args, kw, want) -> None:
 # pools, every prefill at chunk 0 and at 256 (timed); timed at the 7B
 # chunk at 256, the prefill's TF32 route over a float32 pool, under a
 # bf16 q over an f16 pool, and under a float32 q over an int8 and a bf16
-# pool; and the scalar route, timed too, at the 7B chunk on pages of 12
-# tokens (outside the tensor-core routes' rule: SCALAR_PAGES), float32
-# over float32, its bound at the fp32 FMA rate its scalar products run at.
-SCALAR_PAGES = dict(bs=12)
+# pool; over pages TMA boxes cannot tile (ODD_PAGES: 12 tokens for
+# float32, bf16 and an int8 pool under bf16 -- the page size of the
+# serve_pages_of_12 phase -- and 250 tokens for bf16, which the scalar
+# kernel could not fit at head_dim 128), each on its tensor-core route,
+# timed; and the scalar route at a head_dim outside the tensor-core rule
+# (SCALAR_HEAD_DIM), float32 over float32, its bound at the fp32 FMA
+# rate its scalar products run at. Not timed, the chunks the
+# serve_pages_of_12 phase launches (SERVE_CHUNKS, pages_of_12_shape):
+# 252 rows at start 252 for bf16 and an int8 pool under bf16, 504 at
+# start 0 for bf16, whose last 64-row tiles are partial (60 and 56
+# rows).
+ODD_PAGES = {"7b_pages_of_12": 12, "7b_pages_of_250": 250}
+SERVE_CHUNKS = {"7b_pages_of_12_chunk_252": dict(bs=12, bucket=252),
+                "7b_pages_of_12_chunk_504": dict(bs=12, bucket=504)}
+SCALAR_HEAD_DIM = 72
+
+
+def case_shape(shape_name: str) -> dict:
+    """prefill_case's page size, chunk or head_dim for a kernel case's
+    shape."""
+    if shape_name in ODD_PAGES:
+        return dict(bs=ODD_PAGES[shape_name])
+    if shape_name in SERVE_CHUNKS:
+        return dict(SERVE_CHUNKS[shape_name])
+    if shape_name == f"7b_head_dim_{SCALAR_HEAD_DIM}":
+        return dict(d=SCALAR_HEAD_DIM)
+    return {}
+
+
+def tensor_core_route(bs: int, int8: bool) -> str:
+    """The route a 16-bit q takes over its own dtype (int8 False) or an
+    int8 pool at pages of ``bs`` tokens and head_dim 128: the int8 pool
+    gathers at every page size; a pool of q's dtype takes TMA boxes on
+    pages that stack into or split 64-key tiles, and gathers otherwise."""
+    if int8:
+        return "wgmma_int8"
+    return "wgmma" if (bs >= 8 and 64 % bs == 0) or bs % 64 == 0 \
+        else "wgmma_gather"
 
 
 def kernel_cases() -> list:
@@ -882,8 +978,19 @@ def kernel_cases() -> list:
     for pool in ("int8", "bfloat16"):
         cases.append(("paged_prefill_attention", "7b", (32, 1), pool,
                       "float32", 256))
-    cases.append(("paged_prefill_attention", "7b_pages_of_12", (32, 1),
-                  "float32", "float32", 256))
+    for pool, q in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("int8", "bfloat16")):
+        cases.append(("paged_prefill_attention", "7b_pages_of_12", (32, 1),
+                      pool, q, 256))
+    cases.append(("paged_prefill_attention", "7b_pages_of_250", (32, 1),
+                  "bfloat16", "bfloat16", 256))
+    for pool in ("bfloat16", "int8"):
+        cases.append(("paged_prefill_attention", "7b_pages_of_12_chunk_252",
+                      (32, 1), pool, "bfloat16", 252))
+    cases.append(("paged_prefill_attention", "7b_pages_of_12_chunk_504",
+                  (32, 1), "bfloat16", "bfloat16", 0))
+    cases.append(("paged_prefill_attention", f"7b_head_dim_{SCALAR_HEAD_DIM}",
+                  (32, 1), "float32", "float32", 256))
     return cases
 
 
@@ -935,13 +1042,15 @@ def tf32_control(torch, ref, args, kw, want, case) -> dict:
 
 def kernel_phase(torch, dev, lib) -> tuple:
     """Every kernel case against its plain version; returns the main
-    path's rows (the 7B shape under a bf16 q) and the TF32 route's timed
-    rows, by (q dtype, pool)."""
+    path's rows (the 7B shape under a bf16 q, and the gathering route's
+    12-token bf16 case), the TF32 route's timed rows, by (q dtype, pool,
+    and shape where not the 7B's), and the other shapes' timed prefill
+    rows (odd pages, the scalar head_dim), by case."""
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare, rule_dtype
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
 
-    main_rows, tf32_rows = {}, {}
+    main_rows, tf32_rows, odd_rows = {}, {}, {}
     for kname, shape_name, (hkv, g), pool, q_name, start in kernel_cases():
         q_dtype = getattr(torch, q_name)
         if kname == "paged_decode_attention":
@@ -951,9 +1060,8 @@ def kernel_phase(torch, dev, lib) -> tuple:
             library, kernel_name = library_decode, "paged_decode"
             route = "split"
         else:
-            extra = SCALAR_PAGES if shape_name == "7b_pages_of_12" else {}
             args, kw, (nb, fl) = prefill_case(torch, dev, hkv, g, pool, start,
-                                              q_dtype, **extra)
+                                              q_dtype, **case_shape(shape_name))
             fn, ref = pa.paged_prefill_attention, pa.paged_prefill_attention_ref
             library, kernel_name = library_prefill, "paged_prefill"
             route = pa.paged_prefill_route(args[0].dtype, args[1].dtype,
@@ -995,6 +1103,17 @@ def kernel_phase(torch, dev, lib) -> tuple:
                              f"{readings}")
         if kname == "paged_decode_attention" and out[args[5] == 0].any():
             raise SystemExit(f"{kname}: inactive slot not exact zeros")
+        if kw["block_size"] != 16 and pool != "int8":
+            # The same keys through 16-token pages (the TMA-tiled or TF32
+            # route): the walk reads the same tiles, so the same bits.
+            a16, kw16 = repaged(torch, args, kw, 16)
+            same = bool(torch.equal(out, fn(*a16, **kw16)))
+            row["bit_equal_to_pages_of_16"] = same
+            del a16, kw16
+            if not same:
+                emit("kernels", **row)
+                raise SystemExit(f"{kname} {shape_name} {q_name} over {pool}:"
+                                 " not bit-equal to 16-token pages")
         main = shape_name == "7b" and q_name == "bfloat16"
         if main and pool == "bfloat16" and start in (None, 256):
             control = prefill_control if start else decode_control
@@ -1004,7 +1123,7 @@ def kernel_phase(torch, dev, lib) -> tuple:
         tf32 = route == "wgmma_tf32"
         if tf32 and q_name == pool == "float32" and start == 256:
             row["tf32_control"] = tf32_control(torch, ref, args, kw, want,
-                                               "prefill_7b_float32")
+                                               f"prefill_{shape_name}_float32")
         if start in (None, 256):
             if tf32:
                 # Split TF32: the route's passes at the TF32 rate (P . V
@@ -1030,12 +1149,17 @@ def kernel_phase(torch, dev, lib) -> tuple:
                 main_rows[kname] = row
             if main and pool == "int8" and start == 256:
                 main_rows[INT8_PREFILL] = row
+            if shape_name == "7b_pages_of_12" and pool == "bfloat16":
+                main_rows[GATHER_PREFILL] = row
             if tf32:
-                tf32_rows[f"{q_name} q over {pool}"] = row
+                tf32_rows[f"{q_name} q over {pool}" + (
+                    "" if shape_name == "7b" else f" ({shape_name})")] = row
+            if kname == "paged_prefill_attention" and shape_name.startswith("7b_"):
+                odd_rows[f"{q_name} q over {pool} ({shape_name})"] = row
         emit("kernels", **row)
         del args, kw, out, want
         torch.cuda.empty_cache()
-    return main_rows, tf32_rows
+    return main_rows, tf32_rows, odd_rows
 
 
 # ---------------------------------------------------------------------
@@ -3911,36 +4035,42 @@ SERVE_PROMPT_LENS = (100, 180, 260, 340, 420, 500)
 SERVE_REQUESTS, SERVE_MAX_NEW = 16, 32
 
 
-def serve_phase(torch, dev, phase, cfg, serve_cfg, paged) -> dict:
+def serve_phase(torch, dev, phase, cfg, serve_cfg, paged,
+                summaries=None) -> dict:
     """run_replay on ``cfg`` through the paged kernels, their launch
-    counts set to 0 just before and read just after: every request
-    finishes with all its tokens, nothing is rebuilt, both kernels ran.
-    Names the prefill route the replay's launches take (one dtype pair
-    and shape for the whole replay)."""
+    counts (the prefill's by route too) set to 0 just before and read
+    just after: every request finishes with all its tokens, nothing is
+    rebuilt, both kernels ran, every prefill launch took the tensor-core
+    route of the pool and page size (tensor_core_route), none the scalar
+    one. ``summaries``: a dict that takes the run's summary, with its
+    launches by route, under ``phase``."""
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.serve.server import run_replay
 
     pool_dtype = torch.int8 if paged.kv_quant == "int8" else cfg.dtype
     route = pa.paged_prefill_route(cfg.dtype, pool_dtype, cfg.head_dim,
                                    paged.block_size)
-    pa.paged_decode_attention.launches = 0
-    pa.paged_prefill_attention.launches = 0
+    _zero_launches()
     summary = run_replay(cfg, serve_cfg, SERVE_REQUESTS, SERVE_PROMPT_LENS,
                          SERVE_MAX_NEW, seed=0, paged=paged, device=dev)
     launches = {
         "paged_decode_attention": pa.paged_decode_attention.launches,
         "paged_prefill_attention": pa.paged_prefill_attention.launches,
     }
+    routes = dict(pa.paged_prefill_attention.route_launches)
     extra = {}
     if paged.kv_quant == "int8":
         # The int8 pool's score error at this model's attention dims
         # and page size, as bench.py pins it onto its int8 rows.
+        # (256 keys, or the most whole pages under 256.)
         extra["logit_rmse"] = round(pa.int8_logit_rmse(
             head_dim=cfg.head_dim, kv_heads=cfg.kv_heads,
-            n_heads=cfg.n_heads, block_size=paged.block_size), 6)
+            n_heads=cfg.n_heads, block_size=paged.block_size,
+            seq_len=256 // paged.block_size * paged.block_size), 6)
     emit(phase, model="7b", n_layers=cfg.n_layers, dim=cfg.dim,
          dtype=str(cfg.dtype)[6:], kv_quant=paged.kv_quant,
-         prefill_route=route, launches=launches, **extra,
+         block_size=paged.block_size, prefill_route=route,
+         prefill_routes=routes, launches=launches, **extra,
          **{k: summary[k] for k in (
              "requests", "tokens", "wall_s", "tokens_per_s",
              "ttft_ms_p50", "ttft_ms_p95", "ttft_ms_p99", "itl_ms_p50",
@@ -3955,11 +4085,55 @@ def serve_phase(torch, dev, phase, cfg, serve_cfg, paged) -> dict:
         raise SystemExit(f"{phase}: {summary['recompiles']} rebuilds")
     if min(launches.values()) < 1 or launches != summary["kernel_launches"]:
         raise SystemExit(f"{phase}: kernels not on the main path: {launches}")
-    want = "wgmma_int8" if paged.kv_quant == "int8" else "wgmma"
-    if route != want:
-        raise SystemExit(f"{phase}: the prefill takes the {route} route, "
-                         f"not {want}")
+    want = tensor_core_route(paged.block_size, paged.kv_quant == "int8")
+    if route != want or routes[want] != launches["paged_prefill_attention"] \
+            or routes["scalar"]:
+        raise SystemExit(f"{phase}: the prefill takes the {route} route "
+                         f"(launches by route {routes}), not {want}")
+    if summaries is not None:
+        summaries[phase] = dict(summary, prefill_routes=routes)
     torch.cuda.empty_cache()
+    return launches
+
+
+def pages_of_12_shape(serve_cfg, paged) -> tuple:
+    """serve_shape's engine on 12-token pages: 1020-token slots (85
+    pages), prefill buckets 252 and 504 and chunks of 252 (page-aligned,
+    as serve's 256 and 512), a pool of 685 pages (8 slots x 85 and 5
+    more, as serve's 513 hold 8 x 64 and 1); (ServeConfig,
+    PagedConfig)."""
+    return (dataclasses.replace(serve_cfg, max_seq_len=1020,
+                                prefill_buckets=(252, 504)),
+            dataclasses.replace(paged, block_size=12, num_blocks=685,
+                                prefill_chunk=252))
+
+
+# serve's summary keys serve_pages_of_12 prints beside its own.
+PAGES_OF_12_KEYS = ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
+                    "itl_ms_p50", "itl_ms_p95", "prefill_chunks",
+                    "prefill_routes")
+
+
+def serve_pages_of_12_phase(torch, dev, cfg, serve_cfg, paged,
+                            summaries) -> dict:
+    """serve's replay (its weights, from the same seed) on 12-token pages
+    (pages_of_12_shape), in bf16 and then over an int8 pool, each gated
+    by serve_phase: every request finishes, nothing is rebuilt, every
+    prefill launch on the gathering kernel (wgmma_gather, wgmma_int8),
+    none on scalar. Prints tokens/s, TTFT and ITL beside serve's and
+    serve_int8's; returns each run's launches."""
+    sc12, p12 = pages_of_12_shape(serve_cfg, paged)
+    launches = {}
+    for phase, p in (("serve_pages_of_12", p12),
+                     ("serve_pages_of_12_int8",
+                      dataclasses.replace(p12, kv_quant="int8"))):
+        launches[phase] = serve_phase(torch, dev, phase, cfg, sc12, p,
+                                      summaries)
+        _release(torch)
+    emit("serve_pages_of_12_beside_serve", **{
+        phase: {k: summaries[phase].get(k) for k in PAGES_OF_12_KEYS}
+        for phase in ("serve", "serve_int8", "serve_pages_of_12",
+                      "serve_pages_of_12_int8") if phase in summaries})
     return launches
 
 
@@ -5094,7 +5268,7 @@ OBS_CAPTURE_UPDATES = 9
 PAGED_DEVICE_KERNELS = ("paged_decode_split_kernel",
                         "paged_decode_combine_kernel",
                         "paged_prefill_wgmma_kernel",
-                        "paged_prefill_int8_kernel",
+                        "paged_prefill_gather_kernel",
                         "paged_prefill_tf32_kernel", "paged_prefill_kernel")
 FLASH_DEVICE_KERNELS = {"flash_attention_fwd": "flash_fwd_wgmma_kernel",
                         "flash_attention_dq": "flash_dq_wgmma_kernel",
@@ -6316,11 +6490,12 @@ def native_tools_phase(torch, dev, train) -> dict:
     return out
 
 
-def crosscheck_phase(torch, dev, cfg, serve_cfg, paged) -> dict:
+def crosscheck_phase(torch, dev, cfg, serve_cfg, paged,
+                     phase="crosscheck") -> dict:
     """The serving path in float32 at 7B width, 2 layers: greedy tokens
     through the cuda kernels equal to the gather path's and to the
-    no-cache forward's. Returns the prefill's launches by route (the
-    TF32 route's float32 pair)."""
+    no-cache forward's, every prefill launch on the TF32 route at the
+    pool's page size. Returns the prefill's launches by route."""
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.models import llama2
     from tpu_hpc_torch.serve import (
@@ -6356,13 +6531,16 @@ def crosscheck_phase(torch, dev, cfg, serve_cfg, paged) -> dict:
                 toks.append(int(logits[0, -1].argmax()))
             oracle_ok.append(toks[len(r.prompt):] == results["cuda"][r.rid])
     routes = dict(pa.paged_prefill_attention.route_launches)
-    emit("crosscheck", model="7b-width-2-layers", dtype="float32",
-         requests=len(results["cuda"]),
+    emit(phase, model="7b-width-2-layers", dtype="float32",
+         block_size=paged.block_size, requests=len(results["cuda"]),
          tokens=sum(len(t) for t in results["cuda"].values()),
          prefill_routes=routes,
          cuda_equals_gather=same, cuda_equals_no_cache_forward=oracle_ok)
     if not same or not all(oracle_ok):
-        raise SystemExit("crosscheck: greedy tokens differ")
+        raise SystemExit(f"{phase}: greedy tokens differ")
+    if routes["wgmma_tf32"] < 1 or sum(routes.values()) != routes["wgmma_tf32"]:
+        raise SystemExit(f"{phase}: prefill launches by route {routes}, not "
+                         "all on wgmma_tf32")
     del params
     torch.cuda.empty_cache()
     return routes
@@ -6396,20 +6574,29 @@ def main() -> int:
     ptxas = ptxas_summary(_build.PTXAS_LOG.read_text())
     emit("build", seconds=build_s, library=str(_build.LIBRARY), ptxas=ptxas)
 
-    main_rows, tf32_rows = kernel_phase(torch, dev, lib)
+    main_rows, tf32_rows, odd_rows = kernel_phase(torch, dev, lib)
     flash_rows, vit_rows, flash_f32_rows = flash_phase(torch, dev)
     main_rows.update(flash_rows)
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
     cfg, serve_cfg, paged = serve_shape()
+    serve_lines = {}
     with recorded_runs() as serve_runs:
-        launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged)
+        launches = serve_phase(torch, dev, "serve", cfg, serve_cfg, paged,
+                               serve_lines)
         # -- 5b. the same replay over an int8 pool: the prefill's int8
         #        route
         int8_launches = serve_phase(
             torch, dev, "serve_int8", cfg, serve_cfg,
-            dataclasses.replace(paged, kv_quant="int8"))
+            dataclasses.replace(paged, kv_quant="int8"), serve_lines)
     launches[INT8_PREFILL] = int8_launches["paged_prefill_attention"]
+    _release(torch)
+    # -- 5b'. the same replay on 12-token pages: the gathering route, in
+    #         bf16 and over an int8 pool
+    pages_of_12 = serve_pages_of_12_phase(torch, dev, cfg, serve_cfg, paged,
+                                          serve_lines)
+    launches[GATHER_PREFILL] = serve_lines["serve_pages_of_12"][
+        "prefill_routes"]["wgmma_gather"]
     # -- 5c. speculative decoding and seeded sampling on the paged engine
     spec_launches = serve_spec_phase(torch, dev, cfg, serve_cfg, paged,
                                      launches)
@@ -6424,6 +6611,9 @@ def main() -> int:
 
     # -- 6. cross-check: f32, cuda vs gather vs the no-cache forward
     crosscheck_routes = crosscheck_phase(torch, dev, cfg, serve_cfg, paged)
+    crosscheck_12_routes = crosscheck_phase(
+        torch, dev, cfg, *pages_of_12_shape(serve_cfg, paged),
+        phase="crosscheck_pages_of_12")
 
     # -- 7. the training path: the bench Llama through the flash kernels
     train_launches, train = train_phase(torch, dev)
@@ -6494,6 +6684,24 @@ def main() -> int:
                 k: spec_launches[k] for k in ("draft", "verify")}
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
+            # The timed rows of the other prefill shapes (odd pages, the
+            # scalar head_dim), and the scalar kernel with its registers.
+            entry["odd_shapes"] = {case: {k: row.get(k) for k in ODD_ROW_KEYS}
+                                   for case, row in odd_rows.items()}
+            entry["scalar_route"] = {
+                "kernel": "paged_prefill_kernel",
+                "ptxas": [r for r in ptxas
+                          if r["kernel"].startswith("paged_prefill_kernel")],
+                "launches": 0}
+        # The gathering kernel's launches in serve_pages_of_12: over a bf16
+        # pool (the gather entry's own count) and over an int8 pool.
+        if entry["name"] == INT8_PREFILL:
+            entry["serve_pages_of_12_int8_launches"] = pages_of_12[
+                "serve_pages_of_12_int8"]["paged_prefill_attention"]
+        if entry["name"] in (INT8_PREFILL, GATHER_PREFILL):
+            int8 = entry["name"] == INT8_PREFILL
+            entry["ptxas"] = [r for r in ptxas if r["kernel"].startswith(
+                "paged_prefill_gather_kernel") and ("int8" in r["kernel"]) == int8]
         # Their launches in serve_tier_fleet: the tiered run, after each
         # refill, and by fleet replica.
         if entry["name"] in tier_fleet_launches:
@@ -6520,10 +6728,12 @@ def main() -> int:
         # Their launches in obs_capture: the serving run's (paged, the
         # prefill's by route) and the profiled and capture training
         # runs' and the profile window's (flash).
-        entry["obs_capture_launches"] = obs_launches[entry["name"]]
+        if entry["name"] in obs_launches:
+            entry["obs_capture_launches"] = obs_launches[entry["name"]]
         # Their launches in ops: the disaggregated tiers' (paged, by
         # tier) and the coordinator's storm (flash).
-        entry["ops_launches"] = ops_launches[entry["name"]]
+        if entry["name"] in ops_launches:
+            entry["ops_launches"] = ops_launches[entry["name"]]
         # The flash and decode kernels' launches in native_tools: the
         # token-file run, the fit's update, the autotuner's sweeps.
         if entry["name"] in native_launches:
@@ -6546,6 +6756,8 @@ def main() -> int:
             if paged:
                 entry["tf32_route"]["crosscheck_launches"] = \
                     crosscheck_routes["wgmma_tf32"]
+                entry["tf32_route"]["crosscheck_pages_of_12_launches"] = \
+                    crosscheck_12_routes["wgmma_tf32"]
             else:
                 entry["tf32_route"]["train_crosscheck_launches"] = \
                     cross_launches[entry["name"]]

@@ -44,6 +44,8 @@ def test_ptxas_summary_names_each_kernel_and_its_spills():
     ("6__halfLi64E", "f16, 64"),
     ("f", "f32"),
     ("13__nv_bfloat16S1_", "bf16, S1_"),
+    ("13__nv_bfloat16S1_Li128ELi8E", "bf16, S1_, 128, 8"),
+    ("6__halfaLi64ELi1E", "f16, int8, 64, 1"),
 ])
 def test_template_args(mangled, readable):
     assert chip_smoke.template_args(mangled) == readable
@@ -89,9 +91,14 @@ def test_next_live_page_scales_shifts_the_live_pages_only():
 def test_kernel_cases_cover_every_prefill_route():
     """bf16 and int8 pools at both shapes, every prefill at chunk 0 and
     at 256; the TF32 route's float32, mixed-16-bit, float32-over-int8
-    and float32-over-bf16 pairs at the 7B chunk at 256 (timed); the
-    scalar route at the 7B chunk at 256 too (timed), on pages outside the
-    tensor-core rule; the int8 prefill has its own summary entry."""
+    and float32-over-bf16 pairs at the 7B chunk at 256 (timed); the 7B
+    chunk over 12-token pages for float32, bf16 and an int8 pool under
+    bf16, and over 250-token pages for bf16 (pages TMA boxes cannot
+    tile); the serve_pages_of_12 phase's chunks over 12-token pages
+    (252 rows for bf16 and int8 under bf16, 504 for bf16), whose last
+    row tiles are partial; the scalar route at a head_dim outside the
+    tensor-core rule; the int8 and the gathering prefill have their own
+    summary entries."""
     cases = chip_smoke.kernel_cases()
     prefill = {(shape, pool, q, start)
                for k, shape, _, pool, q, start in cases
@@ -103,14 +110,133 @@ def test_kernel_cases_cover_every_prefill_route():
     for pool, q in (("float32", "float32"), ("float16", "bfloat16"),
                     ("int8", "float32"), ("bfloat16", "float32")):
         assert ("7b", pool, q, 256) in prefill
-    assert ("7b_pages_of_12", "float32", "float32", 256) in prefill
-    bs = chip_smoke.SCALAR_PAGES["bs"]
-    assert 64 % bs and bs % 64  # neither stacks into nor splits a tile
-    assert len(cases) == 17
-    name = chip_smoke.INT8_PREFILL
-    assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
-    assert chip_smoke.REPLACES[name] == \
-        chip_smoke.REPLACES["paged_prefill_attention"]
+    for pool, q in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("int8", "bfloat16")):
+        assert ("7b_pages_of_12", pool, q, 256) in prefill
+    assert ("7b_pages_of_250", "bfloat16", "bfloat16", 256) in prefill
+    for shape, bs in chip_smoke.ODD_PAGES.items():
+        assert 64 % bs and bs % 64  # neither stacks into nor splits a tile
+        assert chip_smoke.case_shape(shape) == {"bs": bs}
+    for pool in ("bfloat16", "int8"):
+        assert ("7b_pages_of_12_chunk_252", pool, "bfloat16", 252) in prefill
+    assert ("7b_pages_of_12_chunk_504", "bfloat16", "bfloat16", 0) in prefill
+    for shape, shp in chip_smoke.SERVE_CHUNKS.items():
+        assert shp["bucket"] % 64  # a partial last row tile
+        assert shp["bucket"] in (252, 504) and shp["bs"] == 12
+        assert chip_smoke.case_shape(shape) == shp
+    d = chip_smoke.SCALAR_HEAD_DIM
+    assert d % 16 or d > 128  # outside the tensor-core rule
+    assert (f"7b_head_dim_{d}", "float32", "float32", 256) in prefill
+    assert chip_smoke.case_shape(f"7b_head_dim_{d}") == {"d": d}
+    assert chip_smoke.case_shape("7b") == {}
+    assert len(cases) == 24
+    for name in (chip_smoke.INT8_PREFILL, chip_smoke.GATHER_PREFILL):
+        assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
+        assert chip_smoke.REPLACES[name] == \
+            chip_smoke.REPLACES["paged_prefill_attention"]
+
+
+@pytest.mark.parametrize("bs, int8, route", [
+    (16, False, "wgmma"), (8, False, "wgmma"), (128, False, "wgmma"),
+    (12, False, "wgmma_gather"), (4, False, "wgmma_gather"),
+    (250, False, "wgmma_gather"), (1, False, "wgmma_gather"),
+    (16, True, "wgmma_int8"), (12, True, "wgmma_int8"),
+])
+def test_tensor_core_route_names_the_library_routes(bs, int8, route):
+    """The route serve_phase holds a replay's prefill launches to, by
+    page size and pool: a name of the wrapper's PREFILL_ROUTES, never
+    scalar at head_dim 128."""
+    from tpu_hpc_torch.kernels.paged_attention import PREFILL_ROUTES
+
+    assert chip_smoke.tensor_core_route(bs, int8) == route
+    assert route in PREFILL_ROUTES and route != "scalar"
+
+
+def test_pages_of_12_shape_builds_an_engine_on_cpu():
+    """serve_pages_of_12's configuration is one the paged engine takes:
+    12-token pages, page-aligned buckets and chunks, 8 slots of 85 pages
+    in the pool, and room for serve's longest request."""
+    import dataclasses
+
+    import torch
+
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import PagedEngine
+
+    _, serve_cfg, paged = chip_smoke.serve_shape()
+    sc, p = chip_smoke.pages_of_12_shape(serve_cfg, paged)
+    assert p.block_size == 12 and p.prefill_chunk == 252
+    assert sc.prefill_buckets == (252, 504) and sc.max_seq_len == 1020
+    assert p.num_blocks >= sc.slots * sc.max_seq_len // 12 + 1
+    assert max(chip_smoke.SERVE_PROMPT_LENS) + chip_smoke.SERVE_MAX_NEW \
+        <= sc.max_seq_len
+    assert p.kernel == paged.kernel == "cuda"
+    tiny = llama2.LlamaConfig(dim=32, n_layers=1, n_heads=2, n_kv_heads=2,
+                              vocab_size=64, multiple_of=16,
+                              max_seq_len=1024, dtype=torch.float32)
+    params = llama2.init_llama(torch.Generator().manual_seed(0), tiny, "cpu")
+    eng = PagedEngine(params, tiny, sc, "cpu",
+                      dataclasses.replace(p, num_blocks=20))
+    assert eng.paged.block_size == 12
+
+
+@pytest.mark.parametrize("bs, live_pages", [(16, 32), (12, 43), (250, 3)])
+def test_prefill_case_bytes_count_the_keys_the_chunk_reads(bs, live_pages):
+    """The prefill bound's bytes: q and the output, K and V of the 512
+    keys the chunk of 256 at start 256 reads, whatever the page size
+    (not the rest of its last page), and one table entry (and over int8
+    a K and a V scale) per live page; the FLOPs do not depend on it."""
+    import torch
+
+    dev = torch.device("cpu")
+    q_out = 2 * (1 * 256 * 2 * 16) * 2
+    for pool, esize, per_page in (("bfloat16", 2, 4), ("int8", 1, 12)):
+        _, _, (nb, fl) = chip_smoke.prefill_case(
+            torch, dev, 1, 2, pool, 256, torch.bfloat16, bs=bs, d=16)
+        assert nb == q_out + 2 * 512 * 16 * esize + per_page * live_pages
+        assert fl == 4 * 2 * sum(range(257, 513)) * 16
+
+
+@pytest.mark.parametrize("bs", [12, 24, 250])
+def test_repaged_keeps_the_chunks_keys(bs):
+    """The bit-equality check's other side: the same keys and values in
+    pages of 16 give the plain prefill's output over the original pages
+    (on CPU tensors), and the new view covers the chunk."""
+    import torch
+
+    from tpu_hpc_torch.checks.tolerance import compare
+    from tpu_hpc_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cpu")
+    args, kw, _ = chip_smoke.prefill_case(torch, dev, 2, 1, "float32", 256,
+                                          torch.float32, bs=bs)
+    a16, kw16 = chip_smoke.repaged(torch, args, kw, 16)
+    assert kw16["block_size"] == 16
+    assert kw16["max_blocks"] * 16 >= args[4] + args[0].shape[1]
+    got = pa.paged_prefill_attention(*a16, **kw16)
+    want = pa.paged_prefill_attention(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert compare(got, want, torch.float32)["ok"]
+
+
+def test_phase_list_names_serve_pages_of_12_after_serve_int8():
+    """serve_pages_of_12 follows serve_int8 and comes before serve_spec,
+    and the 12-token crosscheck follows the crosscheck, in the docstring
+    and in main; the gathering prefill's entry takes its launches."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *serve_int8 ", r"^ *serve_pages_of_12 ", r"^ *serve_spec ",
+        r"^ *6\. crosscheck ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        '"serve_int8"', "serve_pages_of_12_phase(",
+        "launches[GATHER_PREFILL]", "serve_spec_phase(",
+        "# -- 6. cross-check", '"crosscheck_pages_of_12"')]
+    assert calls == sorted(calls)
 
 
 @pytest.mark.parametrize("q, pool, passes", [

@@ -8,7 +8,7 @@ Each test decides inside the ``cuda`` fixture whether a card is
 present, and skips with a reason where there is none. The kernels are
 built from tpu_hpc_torch/csrc at the first launch and held against
 their plain PyTorch versions at small shapes (head_dim 64 and 128, pages
-of 8 to 128 tokens, GQA groups 1 to 8); dead table entries point at NaN
+of 1 to 250 tokens, GQA groups 1 to 8); dead table entries point at NaN
 pages, so a read of a dead page poisons the output. The prefill tests
 also assert which kernel the library routes each launch to. This file
 imports no JAX: the card machine need not have it.
@@ -19,7 +19,7 @@ rounding (2^-8 relative) dominates. Prefill outputs under a 16-bit q
 must also pass tpu_hpc_torch/checks/tolerance.py's rule for q's dtype
 (the flash kernels' rule): the wgmma kernel rounds P to the pool's dtype
 before P.V, as the Pallas kernel and the plain version do; the int8
-wgmma kernel rounds P times the page's V scale to q's dtype where the
+wgmma kernel rounds P times the key's V scale to q's dtype where the
 plain version keeps fp32; the scalar kernel rounds P to a 16-bit pool's
 dtype as the plain version does. Decode
 outputs are held by that rule for the output's dtype (the decode and
@@ -204,13 +204,16 @@ TF32_POOLS = [k for k, (_, _, route) in PREFILL_POOLS.items()
 
 
 def _prefill(dev, kind, *, hkv=2, bucket=32, g=4, d=128, bs=16, start=0,
-             seed=0):
+             seed=0, spread=False):
     """A chunk of ``bucket`` positions at ``start`` over one table row:
     live pages up to the chunk's last row, then dead entries that point
     at a NaN page -- as does every row of the last 64-key tile past the
     live pages, so a kernel that reads a page past the limit, or feeds
     an unloaded row into P.V, poisons its output (int8 pools: the NaN
-    page's scales are NaN)."""
+    page's scales are NaN). ``spread``: the live pages' keys and values
+    scaled by 1/4 and 4 in turns along the table row, so neighbouring
+    pages' int8 scales differ 16-fold. The route is the pair's on pages TMA boxes tile
+    (:func:`_route_at` gives it at ``bs``)."""
     rng = np.random.default_rng(seed)
     pool, q_dtype, route = PREFILL_POOLS[kind]
     ctx_pages = (start + bucket - 1) // bs + 1
@@ -224,6 +227,10 @@ def _prefill(dev, kind, *, hkv=2, bucket=32, g=4, d=128, bs=16, start=0,
     table[:ctx_pages] = rng.choice(
         np.arange(1, num_blocks - 1), size=ctx_pages, replace=False
     )
+    if spread:
+        for i, page in enumerate(table[:ctx_pages]):
+            kp[page] *= 4.0 if i % 2 else 0.25
+            vp[page] *= 0.25 if i % 2 else 4.0
     k, v, scales = _pool(dev, kp, vp, pool)
     q = torch.from_numpy(
         rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
@@ -300,13 +307,15 @@ def test_prefill_kernel_long_chunks(cuda, bs, pool):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("start", [0, 40])
-@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("bs", [12, 16, 128])
 @pytest.mark.parametrize("pool", ["bfloat16", "int8"])
 def test_prefill_wgmma_kernel_ragged_rows(cuda, bs, start, pool):
     """bucket * g = 40 rows: one 64-row tile, partly past the end; pages
-    of 128 keys are read as two 64-key tiles."""
-    _check_prefill(*_prefill(cuda, pool, bucket=40, g=1, bs=bs,
-                             start=start, seed=90 + bs))
+    of 128 keys are read as two 64-key tiles; pages of 12 are gathered
+    (bf16 on the gathering route)."""
+    args, kw, route = _prefill(cuda, pool, bucket=40, g=1, bs=bs,
+                               start=start, seed=90 + bs)
+    _check_prefill(args, kw, _route_at(route, bs))
 
 
 @pytest.mark.gpu
@@ -334,13 +343,160 @@ def test_prefill_tf32_kernel_long_chunk(cuda, pool):
                              seed=140))
 
 
+# Page sizes TMA boxes cannot tile (neither a divisor of 64 from 8 up
+# nor a multiple of 64), up to a 250-token page at head_dim 128.
+ODD_PAGES = [1, 4, 12, 24, 48, 100, 250]
+
+
+def _route_at(route, bs):
+    """The route of a pair whose route on TMA-tiled pages is ``route``,
+    at pages of ``bs`` tokens: 16-bit q over its own dtype gathers on
+    pages TMA boxes cannot tile; every other route takes any page."""
+    boxes = (bs >= 8 and 64 % bs == 0) or bs % 64 == 0
+    return "wgmma_gather" if route == "wgmma" and not boxes else route
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f16_pool"])
-def test_prefill_scalar_route_outside_the_page_rule(cuda, pool):
-    """Pages of 12 tokens neither stack into nor split a 64-key tile:
-    the scalar kernel takes them, for any pair."""
-    args, kw, _ = _prefill(cuda, pool, g=2, bs=12, start=30, seed=150)
+@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f16_pool",
+                                  "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [72, 200])
+def test_prefill_scalar_route_outside_the_page_rule(cuda, d, pool):
+    """Head dims that are not a multiple of 16 up to 128 (the tensor-core
+    routes' rule at any page size): the scalar kernel takes them, for
+    any pair, on pages of 12 tokens too."""
+    args, kw, _ = _prefill(cuda, pool, g=2, d=d, bs=12, start=30, seed=150)
     _check_prefill(args, kw, "scalar")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", list(PREFILL_POOLS))
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("bs", ODD_PAGES)
+def test_prefill_kernel_at_any_page_size(cuda, bs, d, pool):
+    """Every pair over pages TMA boxes cannot tile, on a tensor-core
+    route: 16-bit q over its own dtype on the gathering kernel, an int8
+    pool under a 16-bit q on the gathering kernel with per-key scales,
+    every other pair on the TF32 kernel. Both head-dim variants and d 96
+    (columns past d written as zeros); a start inside a page; 20 rows
+    of group 2 (one ragged 64-row tile); dead entries point at a NaN
+    page."""
+    args, kw, route = _prefill(cuda, pool, bucket=20, g=2, d=d, bs=bs,
+                               start=37, seed=170 + bs + d)
+    _check_prefill(args, kw, _route_at(route, bs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("bs", [12, 100])
+def test_prefill_gather_kernel_long_chunks(cuda, bs, pool):
+    """A 256-token chunk at start 200 over odd pages: the gathering
+    kernel's 3-stage ring wraps, and tiles span up to six pages or part
+    of one."""
+    args, kw, route = _prefill(cuda, pool, bucket=256, g=1, bs=bs,
+                               start=200, seed=180 + bs)
+    _check_prefill(args, kw, _route_at(route, bs))
+
+
+def _same_keys(dev, kind, bs, *, hkv=2, bucket=32, g=2, d=128, start=37,
+               seed=0):
+    """One sequence of keys and values (the same for every ``bs``: 512
+    positions from ``seed``) laid out in pages of ``bs`` tokens in a
+    shuffled order, whole pages up to the chunk's last row, and dead
+    entries that point at a NaN page; q from ``seed``. Keys past the
+    chunk in its last page are the sequence's, finite, whatever
+    ``bs``."""
+    rng = np.random.default_rng(seed)
+    pool, q_dtype, _ = PREFILL_POOLS[kind]
+    seq = rng.standard_normal((2, 512, hkv, d)).astype(np.float32)
+    q = torch.from_numpy(
+        rng.standard_normal((hkv, bucket, g, d)).astype(np.float32)
+    ).to(dev, q_dtype)
+    n_pages = -(-(start + bucket) // bs)
+    mb = n_pages + 2
+    num_blocks = mb + 4
+    pages = np.full((2, num_blocks, bs, hkv, d), np.nan, np.float32)
+    ids = np.random.default_rng(bs).permutation(
+        np.arange(1, num_blocks - 1))[:n_pages]
+    pages[:, ids] = seq[:, :n_pages * bs].reshape(2, n_pages, bs, hkv, d)
+    table = np.full(mb + 2, num_blocks - 1, np.int32)
+    table[:n_pages] = ids
+    k, v = (torch.from_numpy(p).to(dev, getattr(torch, pool))
+            for p in pages)
+    args = (q, k, v, torch.from_numpy(table).to(dev), start)
+    return args, dict(block_size=bs, max_blocks=mb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "float32",
+                                  "bf16_q_over_f16_pool",
+                                  "f32_q_over_bf16_pool"])
+@pytest.mark.parametrize("bs", ODD_PAGES)
+def test_prefill_is_bit_identical_across_page_sizes(cuda, bs, pool):
+    """The same keys through pages of ``bs`` tokens and of 16: the tiles
+    the walk reads hold the same values wherever the mask lets a key
+    through (the gathering producer writes zeros where the TMA route may
+    hold a hidden key), so the outputs are equal bit for bit -- for
+    16-bit q over its own dtype (gathering against TMA) and for the
+    TF32 route's pairs. int8 pools are quantized per page, so another
+    page size holds other values."""
+    route = PREFILL_POOLS[pool][2]
+    outs = []
+    for size in (bs, 16):
+        args, kw = _same_keys(cuda, pool, size, seed=195)
+        _check_prefill(args, kw, _route_at(route, size))
+        outs.append(pa.paged_prefill_attention(*args, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["int8", "int8_f16_q"])
+@pytest.mark.parametrize("bs", [4, 12, 100])
+def test_prefill_int8_scales_straddle_groups(cuda, bs, pool):
+    """Pages of 4, 12 or 100 tokens: an 8-key group of a tile straddles
+    two pages whose scales differ up to 16-fold. The gathering kernel
+    reads each key's own page scales, within the rule; the same chunk
+    with each key dequantized by the scale of its 8-key group's first
+    key (what one scale a group would give) must be rejected by it."""
+    args, kw, route = _prefill(cuda, pool, g=2, bs=bs, start=90, seed=200,
+                               spread=True)
+    _check_prefill(args, kw, route)
+    got = pa.paged_prefill_attention(*args, **kw)
+    q, k, v, table, start = args
+    mb = kw["max_blocks"]
+    ids = table[:mb].long()
+    keys = torch.arange(mb * bs, device=cuda)
+    page_of_group = ids[(keys // 8 * 8) // bs]
+    wrong = [(x[ids].float().reshape(mb * bs, *x.shape[2:])
+              * kw[sc][page_of_group][:, None, None])
+             .reshape(mb, bs, *x.shape[2:])
+             for x, sc in ((k, "k_scale"), (v, "v_scale"))]
+    pool_f = [torch.zeros((k.shape[0],) + k.shape[1:], device=cuda)
+              for _ in range(2)]
+    for pf, w in zip(pool_f, wrong):
+        pf[ids] = w
+    bad = pa.paged_prefill_attention_ref(q, *pool_f, table, start,
+                                         block_size=bs, max_blocks=mb)
+    assert not compare(bad, got, q.dtype)["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [12, 250])
+def test_prefill_tf32_odd_pages_reject_one_rounding(cuda, bs):
+    """A float32 chunk over odd pages: within the float32 rule, and the
+    plain version on q, K and V rounded once to TF32 (one pass, no
+    split) is rejected by it -- the rule still tells split TF32 from
+    one rounding on these pages."""
+    from tpu_hpc_torch.kernels.attention import tf32_round
+
+    args, kw, route = _prefill(cuda, "float32", hkv=4, bucket=256, g=1,
+                               bs=bs, start=200, seed=210)
+    _check_prefill(args, kw, route)
+    got = pa.paged_prefill_attention(*args, **kw)
+    q, k, v, table, start = args
+    bad = pa.paged_prefill_attention_ref(
+        tf32_round(q), tf32_round(k), tf32_round(v), table, start, **kw)
+    assert not compare(bad, got, torch.float32)["ok"]
 
 
 # Non-finite values planted for the TF32 route: (tensor, index, value),

@@ -629,6 +629,29 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert pt_pa.paged_prefill_attention.launches == n_pre
 
 
+def test_prefill_route_is_asked_of_the_library_in_use():
+    """paged_prefill_route names the route of the library the wrappers
+    launch from: a variant under ``_build.use_library`` (such as a build
+    with -DTPUHPC_PREFILL_BOXES=0) is asked on its own, never answered
+    from what another library said for the same shape."""
+    from tpu_hpc_torch.kernels import _build
+
+    class Lib:
+        def __init__(self, code):
+            self.code = code
+
+        def tpuhpc_prefill_route(self, d, bs, q_code, kv_code):
+            return self.code
+
+    args = (torch.bfloat16, torch.bfloat16, 128, 16)
+    for code, name in ((1, "wgmma"), (4, "wgmma_gather"), (1, "wgmma")):
+        with _build.use_library(Lib(code)):
+            assert pt_pa.paged_prefill_route(*args) == name
+    with _build.use_library(Lib(-1)):
+        with pytest.raises(TypeError, match="no prefill kernel"):
+            pt_pa.paged_prefill_route(*args)
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take():
     rng = np.random.default_rng(61)
     q, kp, vp, tables, pos, active = _random_case(rng)

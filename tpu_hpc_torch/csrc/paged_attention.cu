@@ -8,14 +8,16 @@
 //                                one run of a slot's pages, the second
 //                                merges the runs (flash-decoding).
 //   paged_prefill_wgmma_kernel   replace _prefill_kernel (launched by
-//   paged_prefill_int8_kernel    paged_prefill_attention): the first for
-//   paged_prefill_tf32_kernel    16-bit q and pool of one dtype, the
-//   paged_prefill_kernel         second for an int8 pool under a 16-bit
-//                                q, the third for every other pair
-//                                (float32 q or pool, float32 q over
-//                                int8, mixed 16-bit dtypes) on split
-//                                TF32, the fourth (scalar) only for page
-//                                sizes and head dims outside the first
+//   paged_prefill_gather_kernel  paged_prefill_attention): the first for
+//   paged_prefill_tf32_kernel    16-bit q and pool of one dtype on pages
+//   paged_prefill_kernel         that TMA boxes tile, the second for the
+//                                same pair at every other page size and
+//                                for an int8 pool under a 16-bit q, the
+//                                third for every other pair (float32 q
+//                                or pool, float32 q over int8, mixed
+//                                16-bit dtypes) on split TF32, all three
+//                                at any page size; the fourth (scalar)
+//                                only for head dims outside the first
 //                                three's rule (prefill_route below).
 //
 // They compute what the Pallas kernels compute -- online softmax in
@@ -98,7 +100,11 @@
 // registers through the online-softmax walk the training forward uses
 // (hopper.cuh).
 //
-// The int8 prefill runs the same grid, Q tile and walk. What it adds:
+// The gathering prefill runs the same grid, Q tile and walk, with a
+// producer warpgroup that reads each tile key by key through the table
+// row, so pages of any size (12 tokens, 250) fill the 64-key tiles; over
+// a pool of q's dtype its tiles are the TMA route's. Over an int8 pool
+// it adds:
 //
 //   * exact int8 tiles. An int8 value (-127..127) is exact in bf16 and
 //     in f16, so the K and V tiles the walk reads hold the raw integers
@@ -118,30 +124,29 @@
 //     default precision passes its inputs through bf16 as well). The
 //     card holds it against the plain version (fp32 throughout) under
 //     checks/tolerance.py's rule for q's dtype.
-//   * a converter warpgroup in place of the producer warp. Its 128
-//     threads each own one 16-byte column chunk of kD / 32 rows of every
-//     tile: they read it with 16-byte global loads (half the 16-bit
-//     route's page bytes; no tensor map for the pool, so none to encode
-//     or cache), convert it to the 16-bit tile in the 128-byte-swizzled
-//     panel layout the walk's descriptors read, fence.proxy.async, and
-//     arrive on the stage's full barrier. The 16-bit ring lets the
-//     converters run up to kPrefillStages tiles ahead of the walk. Rows
-//     no live page fills come out as zeros, as the 16-bit route's
-//     last-tile rule writes them, and their scales as 0, so 0 x NaN
-//     never enters S or P . V. The page scales of a tile's eight 8-key
-//     groups are written to the stage's scale slot before the arrival.
-//     Shared memory at d 128: Q 16 KB, the 16-bit ring 96 KB (3 stages
-//     of K and V), scales and barriers 272 bytes: 115,984 bytes with the
-//     alignment slack; 256 threads at 168 registers make it one block an
-//     SM.
+//   * conversion in the producer warpgroup. Its 128 threads each own
+//     one 16-byte column chunk of kD / 32 rows of every tile: they read
+//     it with 16-byte global loads (half the 16-bit route's page bytes;
+//     no tensor map for the pool, so none to encode or cache), convert
+//     it to the 16-bit tile in the 128-byte-swizzled panel layout the
+//     walk's descriptors read, fence.proxy.async, and arrive on the
+//     stage's full barrier. The 16-bit ring lets the producers run up
+//     to kPrefillStages tiles ahead of the walk. Keys past the tile's
+//     last row come out as zeros and their scales as 0, so 0 x NaN
+//     never enters S or P . V. Each key's page scales are written to
+//     the stage's scale slot before the arrival (a tile's keys, and an
+//     8-key group of them, may come from two pages). Shared memory at d
+//     128: Q 16 KB, the 16-bit ring 96 KB (3 stages of K and V), scales
+//     1,536 bytes and barriers 80: 117,328 bytes with the alignment
+//     slack; one block an SM.
 //
 // The TF32 prefill (float32 and mixed pairs) runs the same grid on the
-// TF32 walk of hopper.cuh, with converter warpgroups as in the int8
-// route; its design is set out above the kernel. Only page sizes and
-// head dims outside the tensor-core rule keep the first, simple design:
-// scalar fp32 FMAs over shared memory, K/V pages staged with plain
-// loads, four barriers per page. PERF.md carries the measured times
-// against the bounds.
+// TF32 walk of hopper.cuh, with converter warpgroups that gather key by
+// key as the gathering route does; its design is set out above the
+// kernel. Only head dims outside the tensor-core rule keep the first,
+// simple design: scalar fp32 FMAs over shared memory, K/V pages staged
+// with plain loads, four barriers per page. PERF.md carries the
+// measured times against the bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
@@ -726,9 +731,9 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill, any pair of dtypes, at the page sizes and head dims
-// the tensor-core routes below do not take (prefill_route): grid
-// (kv_heads, row tiles). Grouped query row r of head h sits
+// Chunked prefill, any pair of dtypes, at the head dims the tensor-core
+// routes below do not take (prefill_route): grid (kv_heads, row tiles).
+// Grouped query row r of head h sits
 // at position start + r / g; a block owns tq consecutive rows and walks
 // the pages up to its last row's causal limit. Shared-memory rows are
 // padded to d + 1 floats so the per-key dot products hit distinct banks.
@@ -831,7 +836,8 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill, 16-bit q and pool of one dtype (prefill_route). Grid
+// Chunked prefill, 16-bit q and pool of one dtype on pages TMA boxes
+// tile (prefill_route's kRouteWgmma). Grid
 // (kv_heads, row tiles of kPrefillRows), the last (heaviest) row tiles
 // first. One consumer warpgroup owns the tile's 64 grouped q rows; a
 // producer warp loads the Q tile by TMA and assembles each 64-key K or V
@@ -1013,90 +1019,117 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill over an int8 pool under a 16-bit q (prefill_route's
-// kRouteWgmmaInt8): the 16-bit prefill's grid, Q tile, walk and
-// last-tile rule, with a converter warpgroup in place of the producer
-// warp. Each converter thread owns one 16-byte column chunk of kD / 32
-// rows of every 64-key tile: it loads them (K and V) with 16-byte
-// global loads, converts them to the raw integers in T, exact, and
-// writes them where TMA's 128-byte swizzle would have put them; then
-// fences and arrives on the stage's full barrier (128 arrivals). Rows
-// that no live page fills, and columns past d, are never read and are
-// written as zeros. Threads 0-15 also read the K (0-7) or V (8-15)
-// scale of the tile's eight 8-key groups (a page spans whole groups: bs
-// is a multiple of 8) and write it to the stage's scale slot before
-// arriving; PrefillInt8Mask hands the scales to the walk.
+// Chunked prefill through a gathering producer, at any page size
+// (prefill_route's kRouteWgmmaGather: 16-bit q and pool of one dtype on
+// pages TMA boxes cannot tile; kRouteWgmmaInt8: an int8 pool under a
+// 16-bit q, every page size): the 16-bit prefill's grid, Q tile (TMA),
+// walk and consumer, with a producer warpgroup in place of the TMA
+// warp. Its 128 threads gather each 64-key K and V tile key by key
+// through the block's own table row (table[key / bs]), so a tile may
+// span any number of pages or part of one. Each thread owns one 16-byte
+// column chunk of kCpr / 2 rows of every tile (kD / 16 rows over a 16-bit
+// pool, kD / 32 over int8; the chunks of one key's row are neighbouring
+// threads, so the loads coalesce), loads them (K and V) with 16-byte
+// global loads, and writes them where TMA's 128-byte swizzle would have
+// put them: as they are over a pool of q's dtype, as their raw integers
+// in T (exact) over int8. Then it fences and arrives on the stage's full
+// barrier (128 arrivals). Keys past the tile's last row (live_keys) and
+// columns past d are never read and are written as zeros, so a masked P
+// of 0 never meets stale bytes. Over a pool of q's dtype the tiles hold
+// what the TMA route's boxes hold at every key the mask lets through, and
+// zeros where the TMA route may hold a key it hides, so a chunk's output
+// is the TMA route's over the same keys, bit for bit. Over an int8 pool
+// thread c also reads the page scale of key c (K, threads 0-63) or key c
+// - 64 (V, 64-127) of the tile -- one a key, since a tile's keys, and an
+// 8-key group of them, may come from two pages -- and writes it to the
+// stage's scale slot before arriving (0 past live_keys, so 0 x NaN never
+// enters S or P . V); PrefillInt8Mask hands the scales to the walk.
+// Each thread reads the table entries of all its rows of tile kt + 1,
+// then their data, before it writes tile kt: one table read's latency
+// a tile, hidden behind the wait for the stage and the stores (read row
+// by row, that latency set the kernel's time: PERF.md).
 // ---------------------------------------------------------------------
-constexpr int kInt8Threads = 256;  // a consumer warpgroup + a converter warpgroup
+constexpr int kGatherThreads = 256;  // a consumer warpgroup + a producer warpgroup
 
 // Dynamic shared memory, from a 1024-byte-aligned base: the Q tile, the
-// walk's 16-bit K and V ring, its scales [kPrefillStages][16] (8 K, then
-// 8 V, one per 8-key group), the barriers. d 128: 16 + 96 KB and 272
-// bytes (115,984 with the alignment slack); d 64: half the tiles.
-template <int kD>
-constexpr size_t prefill_int8_smem_bytes() {
+// walk's 16-bit K and V ring, an int8 pool's per-key scales
+// [kPrefillStages][128] (64 K, then 64 V), the barriers. d 128: 16 + 96
+// KB, 1,536 bytes of scales over int8 and 80 of barriers; d 64: half
+// the tiles.
+template <int kD, bool kScaled>
+constexpr size_t prefill_gather_smem_bytes() {
   return kPrefillRows * kD * 2 + 2 * kPrefillStages * walk_tile_bytes<kD>() +
-         kPrefillStages * 16 * sizeof(float) + (1 + 3 * kPrefillStages) * 8 +
-         1024;
+         (kScaled ? kPrefillStages * 2 * kWalkKeys * sizeof(float) : 0) +
+         (1 + 3 * kPrefillStages) * 8 + 1024;
 }
 
-// The int8 route's mask: the 16-bit prefill's, plus the page scales of
-// each tile's 8-key groups, which the walk folds into S and P.
+// The int8 pool's mask: the 16-bit prefill's, plus each key's page
+// scales, which the walk folds into S and P.
 struct PrefillInt8Mask : PrefillMask {
-  const float* scales;  // [kPrefillStages][16] in shared memory
+  const float* scales;  // [kPrefillStages][2][kWalkKeys] in shared memory
   __device__ __forceinline__ float s_scale(int kt, int key) const {
-    return scales[(kt % kPrefillStages) * 16 + (key >> 3)];
+    return scales[(kt % kPrefillStages) * 2 * kWalkKeys + key];
   }
   __device__ __forceinline__ float p_scale(int kt, int key) const {
-    return scales[(kt % kPrefillStages) * 16 + 8 + (key >> 3)];
+    return scales[(kt % kPrefillStages) * 2 * kWalkKeys + kWalkKeys + key];
   }
 };
 
-// One 16-byte chunk (16 int8 columns of row t) into the 16-bit tile at
+// 16-byte chunk c (8 columns of 16 bits) of row t into the tile at
 // `tile` (kD columns, 64 rows, the 128-byte-swizzled panels of
-// hopper.cuh): two 16-byte chunks, 2 cc and 2 cc + 1 of the row.
-template <typename T>
-__device__ __forceinline__ void convert_chunk(const uint4& x, uint32_t tile, int t,
-                                              int cc) {
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-  uint32_t o[8];
+// hopper.cuh).
+__device__ __forceinline__ void put_chunk16(uint32_t tile, int t, int c,
+                                            const uint4& x) {
+  const uint32_t dst = tile + (c >> 3) * kWalkKeys * kPanelRowBytes +
+                       t * kPanelRowBytes + (((c & 7) ^ (t & 7)) << 4);
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+
+// Chunk cc of row t of a KT pool into the 16-bit tile: a 16-bit chunk as
+// it is; an int8 chunk (16 columns) as the 16-bit chunks 2 cc and 2 cc +
+// 1 of its raw integers in T.
+template <typename T, typename KT>
+__device__ __forceinline__ void put_pool_chunk(const uint4& x, uint32_t tile,
+                                               int t, int cc) {
+  if constexpr (std::is_same<KT, int8_t>::value) {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    uint32_t o[8];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float f[4];
-    i8x4_to_f32(w[j], f);
-    o[2 * j] = pack2<T>(f[0], f[1]);
-    o[2 * j + 1] = pack2<T>(f[2], f[3]);
-  }
-  const uint32_t row = tile + (cc >> 2) * kWalkKeys * kPanelRowBytes +
-                       t * kPanelRowBytes;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t dst = row + ((((2 * cc + h) & 7) ^ (t & 7)) << 4);
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
-                 "r"(o[4 * h]), "r"(o[4 * h + 1]), "r"(o[4 * h + 2]),
-                 "r"(o[4 * h + 3])
-                 : "memory");
+    for (int j = 0; j < 4; ++j) {
+      float f[4];
+      i8x4_to_f32(w[j], f);
+      o[2 * j] = pack2<T>(f[0], f[1]);
+      o[2 * j + 1] = pack2<T>(f[2], f[3]);
+    }
+    put_chunk16(tile, t, 2 * cc, make_uint4(o[0], o[1], o[2], o[3]));
+    put_chunk16(tile, t, 2 * cc + 1, make_uint4(o[4], o[5], o[6], o[7]));
+  } else {
+    put_chunk16(tile, t, cc, x);
   }
 }
 
-template <typename T, int kD>
-__global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
+template <typename T, typename KT, int kD>
+__global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel(
     const __grid_constant__ CUtensorMap tm_q,  // q as [hkv, bucket g, 1, d]
-    const int8_t* __restrict__ k_pages,        // (num_blocks, bs, hkv, d)
-    const int8_t* __restrict__ v_pages,
+    const KT* __restrict__ k_pages,            // (num_blocks, bs, hkv, d)
+    const KT* __restrict__ v_pages,
     const int* __restrict__ table,             // (table_width,)
-    const float* __restrict__ k_scale,         // (num_blocks,)
+    const float* __restrict__ k_scale,         // (num_blocks,): int8 pools
     const float* __restrict__ v_scale,
     T* __restrict__ out,                       // (hkv, bucket, g, d)
     int hkv, int bucket, int g, int d, int bs, int max_blocks, int start,
     float sm_scale) {
+  constexpr bool kScaled = std::is_same<KT, int8_t>::value;
   constexpr int kQ = kPrefillRows * kD * 2;
   constexpr int kTile = walk_tile_bytes<kD>();
+  constexpr int kScaleBytes = kScaled ? 2 * kWalkKeys * 4 : 0;  // a stage's
   const int h = blockIdx.x;
   const int n_rows = bucket * g;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * kPrefillRows;
   const int nrows = min(kPrefillRows, n_rows - row0);
-  const int warp = threadIdx.x >> 5;  // 0-3 consumers, 4-7 the converters
+  const int warp = threadIdx.x >> 5;  // 0-3 consumers, 4-7 the producers
   const int lane = threadIdx.x & 31;
 
   extern __shared__ unsigned char smem_raw[];
@@ -1104,20 +1137,19 @@ __global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
   WalkRing ring;
   ring.k = s_q + kQ;
   ring.v = ring.k + kPrefillStages * kTile;
-  const uint32_t s_sc = ring.v + kPrefillStages * kTile;  // 16 floats a stage
-  const uint32_t bar_q = s_sc + 64u * kPrefillStages;
+  const uint32_t s_sc = ring.v + kPrefillStages * kTile;
+  const uint32_t bar_q = s_sc + kScaleBytes * kPrefillStages;
   ring.full_k = bar_q + 8;
   ring.full_v = ring.full_k + 8 * kPrefillStages;
   ring.empty = ring.full_v + 8 * kPrefillStages;
   ring.stages = kPrefillStages;
   float* scales = reinterpret_cast<float*>(smem_raw + (s_sc - smem_u32(smem_raw)));
 
-  // Keys the tile's last row can see, the tiles and pages they span.
+  // Keys the tile's last row can see, and the tiles they span.
   const int n_keys = max_blocks * bs;
   const int last_pos = start + (row0 + nrows - 1) / g;
   const int live_keys = min(last_pos + 1, n_keys);
   const int n_tiles = (live_keys + kWalkKeys - 1) / kWalkKeys;
-  const int n_pages = (live_keys + bs - 1) / bs;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q);
@@ -1130,10 +1162,11 @@ __global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
   }
   __syncthreads();
 
-  if (warp >= 4) {  // the converter warpgroup
-    constexpr int kCpr = kD / 16;         // 16-byte int8 chunks of a row
-    constexpr int kRows = kD / 32;        // rows of a tile per thread
-    constexpr int kRowStep = 128 / kCpr;  // between a thread's rows
+  if (warp >= 4) {  // the producer warpgroup
+    constexpr int kE = 16 / sizeof(KT);           // pool columns of a chunk
+    constexpr int kCpr = kD / kE;                 // chunks of a row
+    constexpr int kRowStep = 128 / kCpr;          // between a thread's rows
+    constexpr int kRows = kWalkKeys / kRowStep;   // rows of a tile per thread
     const int c = threadIdx.x - 128;
     const int cc = c % kCpr;
     const int t0 = c / kCpr;
@@ -1141,56 +1174,85 @@ __global__ void __launch_bounds__(kInt8Threads, 1) paged_prefill_int8_kernel(
       mbar_expect_tx(bar_q, kQ);
       tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows);
     }
-    const size_t tok = static_cast<size_t>(hkv) * d;  // bytes between keys
-    const size_t col = static_cast<size_t>(h) * d + cc * 16;
-    const bool col_live = cc * 16 < d;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      uint4 kx[kRows], vx[kRows];
+    const size_t tok = static_cast<size_t>(hkv) * d;  // elements between keys
+    const size_t col = static_cast<size_t>(h) * d + cc * kE;
+    const bool col_live = cc * kE < d;
+    // Tile kt's chunks of this thread and its scale (a key past the live
+    // keys: 0), into registers; past the last tile, nothing.
+    struct Chunks {
+      uint4 k[kRows], v[kRows];
+      float sc;
+    };
+    const auto load = [&](int kt, Chunks& x) {
+      // Every row's table entry first (-1: not read), then the rows, so
+      // one table read's latency covers them all.
+      int page[kRows], at[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int key = kt * kWalkKeys + t0 + r * kRowStep;
         const int p = key / bs;
-        kx[r] = vx[r] = make_uint4(0u, 0u, 0u, 0u);
-        if (p < n_pages && col_live) {
+        at[r] = key - p * bs;
+        page[r] = kt < n_tiles && key < live_keys && col_live ? __ldg(table + p) : -1;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        x.k[r] = x.v[r] = make_uint4(0u, 0u, 0u, 0u);
+        if (page[r] >= 0) {
           const size_t off =
-              (static_cast<size_t>(__ldg(table + p)) * bs + key - p * bs) * tok + col;
-          kx[r] = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
-          vx[r] = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
+              (static_cast<size_t>(page[r]) * bs + at[r]) * tok + col;
+          x.k[r] = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
+          x.v[r] = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
         }
       }
-      float sc = 0.f;  // a group past the live pages: scale 0
-      if (c < 16) {
-        const int p = (kt * kWalkKeys + 8 * (c & 7)) / bs;
-        if (p < n_pages) sc = __ldg((c < 8 ? k_scale : v_scale) + __ldg(table + p));
+      x.sc = 0.f;
+      if constexpr (kScaled) {
+        const int key = kt * kWalkKeys + (c & (kWalkKeys - 1));
+        if (kt < n_tiles && key < live_keys)
+          x.sc = __ldg((c < kWalkKeys ? k_scale : v_scale) + __ldg(table + key / bs));
       }
+    };
+    // The loads of tile kt + 1 are issued before tile kt is written, so
+    // their latency hides behind the wait for its stage and its stores.
+    Chunks x;
+    load(0, x);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      Chunks next;
+      load(kt + 1, next);
       const int st = kt % kPrefillStages;
       if (kt >= kPrefillStages)
         mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
-      if (c < 16) scales[st * 16 + c] = sc;
+      if constexpr (kScaled) scales[st * 2 * kWalkKeys + c] = x.sc;
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        convert_chunk<T>(kx[r], ring.k + st * kTile, t0 + r * kRowStep, cc);
+        put_pool_chunk<T, KT>(x.k[r], ring.k + st * kTile, t0 + r * kRowStep, cc);
       fence_proxy_async();
       mbar_arrive(ring.full_k + 8 * st);
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        convert_chunk<T>(vx[r], ring.v + st * kTile, t0 + r * kRowStep, cc);
+        put_pool_chunk<T, KT>(x.v[r], ring.v + st * kTile, t0 + r * kRowStep, cc);
       fence_proxy_async();
       mbar_arrive(ring.full_v + 8 * st);
+      x = next;
     }
     return;
   }
 
   const int r0 = row0 + 16 * warp + (lane >> 2);
-  const PrefillInt8Mask mask{prefill_mask(r0, row0, g, start, n_keys), scales};
-  prefill_consume<T, kD>(mask, r0, s_q, bar_q, ring, n_tiles, sm_scale, out,
-                         h, n_rows, d);
+  const PrefillMask mask = prefill_mask(r0, row0, g, start, n_keys);
+  if constexpr (kScaled) {
+    prefill_consume<T, kD>(PrefillInt8Mask{mask, scales}, r0, s_q, bar_q, ring,
+                           n_tiles, sm_scale, out, h, n_rows, d);
+  } else {
+    prefill_consume<T, kD>(mask, r0, s_q, bar_q, ring, n_tiles, sm_scale, out,
+                           h, n_rows, d);
+  }
 }
 
 // ---------------------------------------------------------------------
-// Chunked prefill, every pair the two kernels above do not take
-// (prefill_route's kRouteTf32): float32 q or pool, and mixed 16-bit
-// dtypes, on the TF32 tensor cores (hopper.cuh, the TF32 walk). The
+// Chunked prefill, every pair the kernels above do not take
+// (prefill_route's kRouteTf32), at any page size: float32 q or pool,
+// and mixed 16-bit dtypes, on the TF32 tensor cores (hopper.cuh, the
+// TF32 walk). The
 // 16-bit route's grid: one block per (KV head, 64 grouped q rows), the
 // last (heaviest) row tiles first. Two converter warpgroups stand where
 // the TMA producer is: together they read Q once, then one each 32-key
@@ -1312,23 +1374,35 @@ size_t prefill_smem_bytes(int tq, int d, int bs) {
          (2 * tq * dp + 2 * bs * dp + static_cast<size_t>(tq) * bs + 3 * tq);
 }
 
-// Which prefill kernel takes a launch. Pages must stack into 64-key
-// tiles on 8-row boundaries (bs 8, 16, 32 or 64) or split into them (bs
-// a multiple of 64), and d be a multiple of 16 up to 128, for any
-// tensor-core kernel: paged_prefill_wgmma_kernel takes 16-bit q and pool
-// of one dtype, paged_prefill_int8_kernel an int8 pool under a 16-bit q,
+// Which prefill kernel takes a launch. Every tensor-core kernel takes d
+// a multiple of 16 up to 128, at any page size: paged_prefill_wgmma_kernel
+// 16-bit q and pool of one dtype on pages that stack into 64-key tiles on
+// 8-row boundaries (bs 8, 16, 32 or 64) or split into them (bs a multiple
+// of 64), whose TMA boxes it issues a page at a time;
+// paged_prefill_gather_kernel the same pair at every other page size
+// (kRouteWgmmaGather) and an int8 pool under a 16-bit q at every page size
+// (kRouteWgmmaInt8), its producer gathering key by key;
 // paged_prefill_tf32_kernel every other pair (float32 q or pool, mixed
-// 16-bit dtypes); paged_prefill_kernel only the page sizes and head dims
+// 16-bit dtypes). paged_prefill_kernel (scalar) takes only the head dims
 // outside that rule.
 enum PrefillRoute {
-  kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2, kRouteTf32 = 3
+  kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2, kRouteTf32 = 3,
+  kRouteWgmmaGather = 4
 };
 
+// A build with -DTPUHPC_PREFILL_BOXES=0 gathers 16-bit pools at every
+// page size (docs/port/gather_vs_boxes.py times it against the TMA
+// boxes); the default library takes the boxes wherever they tile.
+#ifndef TPUHPC_PREFILL_BOXES
+#define TPUHPC_PREFILL_BOXES 1
+#endif
+
 int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
+  if (d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
   const bool q16 = q_dtype == kF16 || q_dtype == kBF16;
-  const bool pages = (bs >= 8 && kWalkKeys % bs == 0) || (bs > 0 && bs % kWalkKeys == 0);
-  if (!pages || d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
-  if (q16 && kv_dtype == q_dtype) return kRouteWgmma;
+  const bool boxes = TPUHPC_PREFILL_BOXES &&
+      ((bs >= 8 && kWalkKeys % bs == 0) || bs % kWalkKeys == 0);
+  if (q16 && kv_dtype == q_dtype) return boxes ? kRouteWgmma : kRouteWgmmaGather;
   if (q16 && kv_dtype == kI8) return kRouteWgmmaInt8;
   return kRouteTf32;
 }
@@ -1462,27 +1536,28 @@ int launch_prefill_wgmma(const void* q, const void* k_pages, const void* v_pages
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kD>
-int launch_prefill_int8(const void* q, const void* k_pages, const void* v_pages,
-                        const void* table, const void* k_scale,
-                        const void* v_scale, void* out, int hkv, int bucket,
-                        int g, int d, int bs, int max_blocks, int start,
-                        float sm_scale, cudaStream_t stream) {
-  if (k_scale == nullptr || v_scale == nullptr)
+template <typename T, typename KT, int kD>
+int launch_prefill_gather(const void* q, const void* k_pages, const void* v_pages,
+                          const void* table, const void* k_scale,
+                          const void* v_scale, void* out, int hkv, int bucket,
+                          int g, int d, int bs, int max_blocks, int start,
+                          float sm_scale, cudaStream_t stream) {
+  constexpr bool kScaled = std::is_same<KT, int8_t>::value;
+  if (kScaled && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q;
   cudaError_t err = bshd_map<T>(&tm_q, q, hkv, bucket * g, 1, d, kPrefillRows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = prefill_int8_smem_bytes<kD>();
-  auto kernel = paged_prefill_int8_kernel<T, kD>;
+  const size_t smem = prefill_gather_smem_bytes<kD, kScaled>();
+  auto kernel = paged_prefill_gather_kernel<T, KT, kD>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (bucket * g + kPrefillRows - 1) / kPrefillRows;
-  kernel<<<dim3(hkv, tiles), kInt8Threads, smem, stream>>>(
-      tm_q, static_cast<const int8_t*>(k_pages),
-      static_cast<const int8_t*>(v_pages), static_cast<const int*>(table),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<T*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
+  kernel<<<dim3(hkv, tiles), kGatherThreads, smem, stream>>>(
+      tm_q, static_cast<const KT*>(k_pages), static_cast<const KT*>(v_pages),
+      static_cast<const int*>(table), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<T*>(out), hkv, bucket, g,
+      d, bs, max_blocks, start, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1513,7 +1588,9 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    void* out, int hkv, int bucket, int g, int d, int bs,
                    int max_blocks, int start, float sm_scale, int route,
                    cudaStream_t stream) {
-  if constexpr (std::is_same<QT, KT>::value && sizeof(QT) == 2) {
+  constexpr bool kSame16 = std::is_same<QT, KT>::value && sizeof(QT) == 2;
+  constexpr bool kInt8Under16 = std::is_same<KT, int8_t>::value && sizeof(QT) == 2;
+  if constexpr (kSame16) {
     if (route == kRouteWgmma)
       return d <= 64 ? launch_prefill_wgmma<QT, 64>(q, k_pages, v_pages, table,
                                                     out, hkv, bucket, g, d, bs,
@@ -1524,20 +1601,18 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                                                      max_blocks, start, sm_scale,
                                                      stream);
   }
-  if constexpr (std::is_same<KT, int8_t>::value && sizeof(QT) == 2) {
-    if (route == kRouteWgmmaInt8)
-      return d <= 64 ? launch_prefill_int8<QT, 64>(q, k_pages, v_pages, table,
-                                                   k_scale, v_scale, out, hkv,
-                                                   bucket, g, d, bs, max_blocks,
-                                                   start, sm_scale, stream)
-                     : launch_prefill_int8<QT, 128>(q, k_pages, v_pages, table,
-                                                    k_scale, v_scale, out, hkv,
-                                                    bucket, g, d, bs, max_blocks,
-                                                    start, sm_scale, stream);
+  if constexpr (kSame16 || kInt8Under16) {
+    if (route == kRouteWgmmaGather || route == kRouteWgmmaInt8)
+      return d <= 64 ? launch_prefill_gather<QT, KT, 64>(
+                           q, k_pages, v_pages, table, k_scale, v_scale, out,
+                           hkv, bucket, g, d, bs, max_blocks, start, sm_scale,
+                           stream)
+                     : launch_prefill_gather<QT, KT, 128>(
+                           q, k_pages, v_pages, table, k_scale, v_scale, out,
+                           hkv, bucket, g, d, bs, max_blocks, start, sm_scale,
+                           stream);
   }
   // The TF32 route's pairs: every pair but the two above.
-  constexpr bool kSame16 = std::is_same<QT, KT>::value && sizeof(QT) == 2;
-  constexpr bool kInt8Under16 = std::is_same<KT, int8_t>::value && sizeof(QT) == 2;
   if constexpr (!kSame16 && !kInt8Under16) {
     if (route == kRouteTf32)
       return d <= 64 ? launch_prefill_tf32<QT, KT, 64>(q, k_pages, v_pages, table,
@@ -1625,7 +1700,8 @@ int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages
                          const void* v_scale, void* out, int hkv, int bucket,
                          int g, int d, int bs, int max_blocks, int start,
                          float sm_scale, int q_dtype, int kv_dtype, void* stream) {
-  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8)
+  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8 ||
+      bs < 1 || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int route = prefill_route(q_dtype, kv_dtype, d, bs);
   TPUHPC_DISPATCH(q_dtype, kv_dtype,
@@ -1636,11 +1712,13 @@ int tpuhpc_paged_prefill(const void* q, const void* k_pages, const void* v_pages
 }
 
 // The route a prefill launch takes (0 the scalar kernel, 1 the 16-bit
-// wgmma kernel, 2 the int8-pool one, 3 the TF32 one; -1 for a dtype
-// code no kernel takes) and the rows of a block on that route: chip_smoke.py reports
-// both beside the kernel's time.
+// wgmma kernel, 2 the gathering kernel over an int8 pool, 3 the TF32 one,
+// 4 the gathering kernel over a 16-bit pool; -1 for a dtype code or page
+// size no kernel takes) and the rows of a block on that route:
+// chip_smoke.py reports both beside the kernel's time.
 int tpuhpc_prefill_route(int d, int bs, int q_dtype, int kv_dtype) {
-  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8) return -1;
+  if (q_dtype < 0 || q_dtype > kBF16 || kv_dtype < 0 || kv_dtype > kI8 || bs < 1)
+    return -1;
   return prefill_route(q_dtype, kv_dtype, d, bs);
 }
 

@@ -130,8 +130,13 @@ def build() -> float:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _declare_flash(lib)
+    _declare_paged(lib)
+
+
+def _declare_paged(lib: ctypes.CDLL) -> None:
+    """The entry points of csrc/paged_attention.cu."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # 11 pointers, (slots, hkv, g, d, bs, table_width, max_blocks,
     # n_split), scale, q and pool dtype codes, stream.
     lib.tpuhpc_paged_decode.argtypes = (
@@ -233,11 +238,12 @@ def build_variants(variants: Dict[str, Dict[str, int]],
     return built
 
 
-def load_variant(path) -> ctypes.CDLL:
-    """A variant library of flash_attention.cu (:func:`build_variants`)
-    with its entry points declared."""
+def load_variant(path, source: str = "flash_attention.cu") -> ctypes.CDLL:
+    """A variant library of ``source`` (:func:`build_variants`) with its
+    entry points declared."""
     lib = ctypes.CDLL(str(path))
-    _declare_flash(lib)
+    {"flash_attention.cu": _declare_flash,
+     "paged_attention.cu": _declare_paged}[source](lib)
     return lib
 
 

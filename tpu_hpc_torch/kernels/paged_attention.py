@@ -17,17 +17,20 @@ raises; it never falls back. The decode splits each slot's pages into
 runs, one block each, and merges the runs in a second small kernel
 (flash-decoding; :func:`paged_decode_splits` reports the runs, and
 :func:`paged_decode_split_ref` / :func:`paged_decode_combine_ref` are
-the two passes written plainly). The prefill has three kernels, chosen
+the two passes written plainly). The prefill has four kernels, chosen
 by a rule of dtypes and shapes written in the C launcher
 (:func:`paged_prefill_route` reports which one a launch takes): the
-wgmma kernel for 16-bit q and pool of one dtype, the int8 wgmma kernel
-for an int8 pool under a 16-bit q (exact integer tiles, the page scales
-folded into S and P), the TF32 wgmma kernel for every other pair --
-float32 q or pool, mixed 16-bit dtypes -- on split TF32 (each fp32
-operand as hi + lo, so float32 keeps its rule), and the scalar kernel
-only for page sizes and head dims outside the tensor-core rule. On a
-CPU tensor it runs the plain PyTorch
-version beside it (``*_ref``), which is also what ``chip_smoke.py``
+wgmma kernel for 16-bit q and pool of one dtype on pages that TMA boxes
+tile (8, 16, 32, 64 tokens or a multiple of 64), the gathering wgmma
+kernel for that pair at every other page size (its producer reads the
+tiles key by key through the table row) and for an int8 pool under a
+16-bit q at every page size (exact integer tiles, each key's page
+scales folded into S and P), the TF32 wgmma kernel for every other
+pair -- float32 q or pool, mixed 16-bit dtypes -- on split TF32 (each
+fp32 operand as hi + lo, so float32 keeps its rule) at every page
+size, and the scalar kernel only for head dims outside the tensor-core
+rule (a multiple of 16 up to 128). On a CPU tensor it runs the plain
+PyTorch version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
 show that the main path went through the kernel; the prefill also
@@ -45,8 +48,8 @@ Non-finite values follow the JAX kernels. Each row max keeps a NaN (as
 ``jnp.max``): a row that sees a NaN score -- a NaN in its q row or in a
 key it sees -- comes out NaN, and an inf in a value it sees comes out
 non-finite. That holds for every decode pass (the split, its in-block
-merge and the combine) and every prefill route (wgmma, wgmma_int8,
-wgmma_tf32 and scalar), and for their plain versions. Keys past a row's
+merge and the combine) and every prefill route (wgmma, wgmma_gather,
+wgmma_int8, wgmma_tf32 and scalar), and for their plain versions. Keys past a row's
 position are masked before the max, an inactive slot gives zeros and
 reads no page, and dead table entries and pages past the last live one
 are never read: a NaN there does not reach the output.
@@ -586,7 +589,7 @@ def paged_prefill_attention(
     _build.check(lib, code, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
     paged_prefill_attention.route_launches[_prefill_route_of(
-        q.dtype, k_pages.dtype, d, block_size)] += 1
+        lib, q.dtype, k_pages.dtype, d, block_size)] += 1
     return out
 
 
@@ -608,12 +611,15 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
 
 # The prefill kernels, by the C interface's route code:
 # paged_prefill_kernel (scalar), paged_prefill_wgmma_kernel (16-bit q
-# and pool of one dtype), paged_prefill_int8_kernel (an int8 pool under
-# a 16-bit q) and paged_prefill_tf32_kernel (every other pair, on split
-# TF32). The three tensor-core routes take head_dim a multiple of 16 up
-# to 128 and pages that stack into (or split into) 64-key tiles: bs 8,
-# 16, 32, 64 or a multiple of 64; the scalar route takes the rest.
-PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8", "wgmma_tf32")
+# and pool of one dtype on pages TMA boxes tile: bs 8, 16, 32, 64 or a
+# multiple of 64), paged_prefill_gather_kernel over an int8 pool under
+# a 16-bit q (wgmma_int8), paged_prefill_tf32_kernel (every other pair,
+# on split TF32) and paged_prefill_gather_kernel over a pool of q's
+# 16-bit dtype at every other page size (wgmma_gather). The tensor-core
+# routes take head_dim a multiple of 16 up to 128 at any page size; the
+# scalar route takes the other head dims.
+PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8", "wgmma_tf32",
+                  "wgmma_gather")
 paged_prefill_attention.route_launches = dict.fromkeys(PREFILL_ROUTES, 0)
 
 
@@ -627,20 +633,23 @@ def paged_prefill_route(
     card."""
     from tpu_hpc_torch.kernels import _build
 
-    code = _build.load_library().tpuhpc_prefill_route(
-        head_dim, block_size, DTYPE_CODES[q_dtype], DTYPE_CODES[pool_dtype])
-    if code < 0:
-        raise TypeError(f"no prefill kernel takes q {q_dtype} over a "
-                        f"{pool_dtype} pool")
-    return PREFILL_ROUTES[code]
+    return _prefill_route_of(_build.load_library(), q_dtype, pool_dtype,
+                             head_dim, block_size)
 
 
 @functools.lru_cache(maxsize=None)
-def _prefill_route_of(q_dtype: torch.dtype, pool_dtype: torch.dtype,
+def _prefill_route_of(lib, q_dtype: torch.dtype, pool_dtype: torch.dtype,
                       head_dim: int, block_size: int) -> str:
-    """:func:`paged_prefill_route`, asked of the C launcher once per
-    shape and dtypes (the wrapper's by-route count)."""
-    return paged_prefill_route(q_dtype, pool_dtype, head_dim, block_size)
+    """:func:`paged_prefill_route` as the library ``lib`` decides it,
+    asked of it once per shape and dtypes (the wrapper's by-route
+    count; a variant library of ``_build.use_library`` is asked on its
+    own)."""
+    code = lib.tpuhpc_prefill_route(
+        head_dim, block_size, DTYPE_CODES[q_dtype], DTYPE_CODES[pool_dtype])
+    if code < 0:
+        raise TypeError(f"no prefill kernel takes q {q_dtype} over a "
+                        f"{pool_dtype} pool at pages of {block_size}")
+    return PREFILL_ROUTES[code]
 
 
 __all__ = [
