@@ -26,16 +26,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     tokens: float32, bf16 and an int8 pool under bf16;
                     250 tokens, bf16), each 16-bit and float32 one also
                     equal bit for bit to the same keys through 16-token
-                    pages; and the scalar route at head_dim 72 (bound
-                    at the fp32 FMA rate). Every row names the kernel
+                    pages; head dims off the 128-column kernels, padded:
+                    72 at the 7B chunk (float32 on the TF32 route, bf16,
+                    int8 under bf16), 36 over bf16 (rows no tensor map
+                    strides: gathered), and Gemma-2B's attention (1 KV
+                    head, group 8, head_dim 256) on the kD 256 kernels:
+                    the prefill over bf16 (and on 12-token pages, bit
+                    for bit), int8 and float32 (scalar, bound at the
+                    fp32 FMA rate), the decode over bf16 and int8 (and
+                    on 12-token pages); not timed, the chunks that the
+                    head_dim-256 replay launches (240 rows at starts 240
+                    and 480, the causal edge inside a key tile: bf16 on
+                    16- and 12-token pages, int8 under bf16); each
+                    with its kernels' registers and spills. Every row
+                    names the kernel
                     the library routed it to (the decode splits each
                     slot's pages into ``n_split`` runs and merges them;
                     the prefill has a wgmma route for 16-bit pools on
                     pages TMA boxes tile, a wgmma_gather route for them
-                    at every other page size, a wgmma_int8 route for
-                    int8 pools under a 16-bit q, a wgmma_tf32 route for
-                    every other pair and a scalar one for head dims
-                    outside the tensor-core rule) and must pass checks/tolerance.py's
+                    at every other page size and head dim, a wgmma_int8
+                    route for int8 pools under a 16-bit q, all three up
+                    to head_dim 256, a wgmma_tf32 route for every other
+                    pair up to 128 and a scalar one past it) and must
+                    pass checks/tolerance.py's
                     rule for q's dtype (a coarser 16-bit pool's where P
                     is rounded to it: rule_dtype; q's reading beside
                     it). Controls, each of which the bf16 rule must
@@ -101,6 +114,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     prefill launch on wgmma_gather, then over an int8
                     pool, every one on wgmma_int8, none on scalar;
                     tokens/s, TTFT and ITL beside serve's.
+     serve_head_dim_256 -- serve's request mix on the Llama block at
+                    Gemma-2B's widths (dim 2048, 18 layers, 8 heads over
+                    1 KV head: head_dim 256, feed-forward 16384, vocab
+                    256000, 3.03B parameters; seeded random weights
+                    stored in float32, run in bf16), 960-token slots,
+                    buckets 240 and 480, chunks of 240:
+                    on 16-token pages (every prefill launch on wgmma),
+                    on 12-token pages (wgmma_gather) and over an int8
+                    pool (wgmma_int8), each gated as serve (none on
+                    scalar, the kD 256 decode launched); the two bf16
+                    runs' first tokens (the prefill's) equal on every
+                    request, and where a stream differs after it, both
+                    runs' tokens within NEAR_TIE_ULPS bf16 ulps of the
+                    largest float32 logit of the no-cache forward on
+                    the prefix they share (a near tie, not a fault).
      serve_spec  -- speculative decoding and seeded sampling on the paged
                     engine, kernel="cuda": (a) at 7B width, 2 layers,
                     float32, the greedy streams of ngram spec (k 4) and
@@ -158,7 +186,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     float32, through kernel="cuda" and kernel="gather",
                     and the no-cache forward for two requests: greedy
                     tokens identical; again on serve_pages_of_12's
-                    12-token pages, every prefill launch on wgmma_tf32.
+                    12-token pages, every prefill launch on wgmma_tf32;
+                    and crosscheck_head_dim_256: serve_head_dim_256's
+                    widths at 2 layers in float32, every prefill launch
+                    on the scalar route (the TF32 tiles do not fit at
+                    256), the decode on kD 256.
   7. train       -- python -m tpu_hpc_torch.train's run_train on the
                     bench Llama at full width and depth (dim 1024, 8
                     layers, seq 2048, vocab 32000, bf16 compute, fp32
@@ -457,8 +489,10 @@ spills, the timed TF32-route rows, and its launches in the float32
 crosscheck (the prefill) or in train_crosscheck (flash); the prefill's
 gathering route over a bf16 pool with its launches in serve_pages_of_12,
 the int8 route's there beside it, the timed rows of the odd pages and
-of head_dim 72 under ``odd_shapes`` and the scalar kernel's registers
-under ``scalar_route``), nvidia-smi's
+of the other head dims under ``odd_shapes`` and the scalar kernel's
+registers and launches in crosscheck_head_dim_256 under
+``scalar_route``; the kD 256 prefill (TMA, gathered, int8) and decode
+(bf16, int8) entries with their launches in serve_head_dim_256), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
 (or without the rest of the repository beside it) it exits non-zero
@@ -469,6 +503,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -485,11 +520,25 @@ FLASH_SOURCE = "tpu_hpc_torch/csrc/flash_attention.cu"
 # pages), both paged_prefill_gather_kernel, beside the bf16 one.
 INT8_PREFILL = "paged_prefill_attention_int8"
 GATHER_PREFILL = "paged_prefill_attention_gather"
+# The summary line's entries for the kD 256 instantiations the
+# serve_head_dim_256 phase launches (head_dim 256): the prefill on
+# 16-token pages (TMA boxes), on 12-token pages (gathered) and over an
+# int8 pool, and the decode over a bf16 and an int8 pool.
+HD256_PREFILL = "paged_prefill_attention_head_dim_256"
+HD256_GATHER = "paged_prefill_attention_head_dim_256_gather"
+HD256_INT8 = "paged_prefill_attention_head_dim_256_int8"
+HD256_DECODE = "paged_decode_attention_head_dim_256"
+HD256_DECODE_INT8 = "paged_decode_attention_head_dim_256_int8"
 SOURCES = {
     "paged_decode_attention": PAGED_SOURCE,
     "paged_prefill_attention": PAGED_SOURCE,
     INT8_PREFILL: PAGED_SOURCE,
     GATHER_PREFILL: PAGED_SOURCE,
+    HD256_PREFILL: PAGED_SOURCE,
+    HD256_GATHER: PAGED_SOURCE,
+    HD256_INT8: PAGED_SOURCE,
+    HD256_DECODE: PAGED_SOURCE,
+    HD256_DECODE_INT8: PAGED_SOURCE,
     "flash_attention_fwd": FLASH_SOURCE,
     "flash_attention_dq": FLASH_SOURCE,
     "flash_attention_dkv": FLASH_SOURCE,
@@ -503,6 +552,16 @@ REPLACES = {
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel, quant
     GATHER_PREFILL:
         "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
+    HD256_PREFILL:
+        "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
+    HD256_GATHER:
+        "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel
+    HD256_INT8:
+        "tpu_hpc/kernels/paged_attention.py:237",   # _prefill_kernel, quant
+    HD256_DECODE:
+        "tpu_hpc/kernels/paged_attention.py:101",   # _decode_kernel
+    HD256_DECODE_INT8:
+        "tpu_hpc/kernels/paged_attention.py:101",   # _decode_kernel, quant
     "flash_attention_fwd":
         "tpu_hpc/kernels/attention.py:148",         # _flash_kernel
     "flash_attention_dq":
@@ -521,11 +580,12 @@ TF32_KERNELS = {"paged_prefill_attention": "paged_prefill_tf32_kernel",
 TF32_ROW_KEYS = ("route", "rule", "max_abs_err", "ms", "device_ms",
                  "plain_ms", "bound_ms", "bound_by", "bound_fp32_fma_ms",
                  "library_ms", "library_device_ms")
-# The keys of each other-shape prefill row (odd pages, the scalar
-# head_dim) the prefill's summary entry repeats.
-ODD_ROW_KEYS = ("route", "block_size", "rule", "max_abs_err",
+# The keys of each other-shape prefill row (odd pages, the head dims
+# off the 128-column kernels) the prefill's summary entry repeats.
+ODD_ROW_KEYS = ("route", "block_size", "head_dim", "rule", "max_abs_err",
                 "bit_equal_to_pages_of_16", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "library_device_ms")
+                "bound_ms", "bound_by", "bound_fp32_fma_ms", "library_ms",
+                "library_device_ms", "ptxas")
 
 
 def emit(phase: str, **fields) -> None:
@@ -599,6 +659,44 @@ def ptxas_summary(log: str) -> list:
             s = re.search(r"(\d+) bytes smem", line)
             cur["smem_static"] = int(s.group(1)) if s else 0
     return rows
+
+
+SHORT_TYPES = {"bfloat16": "bf16", "float16": "f16", "float32": "f32",
+               "int8": "int8"}
+ELEMENT_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
+
+
+def instance_of(kname: str, route: str, q_name: str, pool: str, d: int,
+                g: int) -> list:
+    """The compiled kernels (as ptxas_summary names them) a launch of
+    wrapper ``kname`` on ``route`` runs: the instantiation that holds
+    head_dim ``d`` (64, 128 or 256 columns; the scalar kernel has none)
+    for q's and the pool's dtypes, the gathering and TF32 kernels' by
+    whether q's and the pool's rows are a whole number of 16 bytes (the
+    inputs' bases are 16-byte aligned), the decode's by its rows a block
+    (group ``g``: 1, 2 or 4) with its combine kernel. A second template
+    type equal to the first 16-bit one is mangled as a substitution."""
+    kd = 64 if d <= 64 else 128 if d <= 128 else 256
+    q, p = SHORT_TYPES[q_name], SHORT_TYPES[pool]
+    whole = str(all(d * ELEMENT_BYTES[t] % 16 == 0
+                    for t in (q_name, pool))).lower()
+    if kname.startswith("paged_decode"):
+        rows = 1 if g <= 1 else 2 if g <= 2 else 4
+        return [f"paged_decode_split_kernel<{p}, {kd}, {rows}>",
+                "paged_decode_combine_kernel"]
+    second = "S1_" if p == q and q in ("bf16", "f16") else p
+    if route == "wgmma":
+        return [f"paged_prefill_wgmma_kernel<{q}, {kd}>"]
+    if route in ("wgmma_gather", "wgmma_int8"):
+        return [f"paged_prefill_gather_kernel<{q}, {second}, {kd}, {whole}>"]
+    if route == "wgmma_tf32":
+        return [f"paged_prefill_tf32_kernel<{q}, {second}, {kd}, {whole}>"]
+    return [f"paged_prefill_kernel<{q}, {second}>"]
+
+
+def ptxas_of(ptxas, names) -> list:
+    """The ptxas_summary rows (registers, spills) of the kernels named."""
+    return [r for r in ptxas if r["kernel"] in names]
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -687,12 +785,14 @@ DECODE_POS = (1023, 517, 64, 15, 300, 811, 0, 700)
 
 
 def decode_case(torch, dev, hkv, g, quant, seed=0, pos=DECODE_POS,
-                extra=0):
-    """8 slots over a 513-page pool, 64-page views in 96-wide table rows
-    (the engine's width at max_seq_len 1024 with a 512 bucket). Each
-    active slot's pages are live up to position ``pos + extra`` (a
+                extra=0, d=128, bs=16):
+    """8 slots over a 513-page pool of ``bs``-token pages (16), views of
+    1024 tokens (64 pages of 16) in 96-wide table rows (the engine's
+    width at max_seq_len 1024 with a 512 bucket), head_dim ``d`` (128).
+    Each active slot's pages are live up to position ``pos + extra`` (a
     verify step writes ``extra`` positions past ``pos``)."""
-    slots, d, bs, mb, width, num_blocks = 8, 128, 16, 64, 96, 513
+    slots, width, num_blocks = 8, 96, 513
+    mb = -(-1024 // bs)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pos = torch.tensor(pos, dtype=torch.int32)
     active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.int32)
@@ -926,40 +1026,70 @@ def decode_control(torch, args, kw, want) -> None:
 # float32, bf16 and an int8 pool under bf16 -- the page size of the
 # serve_pages_of_12 phase -- and 250 tokens for bf16, which the scalar
 # kernel could not fit at head_dim 128), each on its tensor-core route,
-# timed; and the scalar route at a head_dim outside the tensor-core rule
-# (SCALAR_HEAD_DIM), float32 over float32, its bound at the fp32 FMA
-# rate its scalar products run at. Not timed, the chunks the
-# serve_pages_of_12 phase launches (SERVE_CHUNKS, pages_of_12_shape):
-# 252 rows at start 252 for bf16 and an int8 pool under bf16, 504 at
-# start 0 for bf16, whose last 64-row tiles are partial (60 and 56
-# rows).
+# timed. Not timed, the chunks the serve_pages_of_12 phase launches
+# (SERVE_CHUNKS, pages_of_12_shape): 252 rows at start 252 for bf16 and
+# an int8 pool under bf16, 504 at start 0 for bf16, whose last 64-row
+# tiles are partial (60 and 56 rows). Timed, the head dims off the 64-
+# and 128-column kernels (HEAD_DIM_SHAPES): 72 at the 7B chunk, padded
+# to 128, for float32 (the TF32 route; PERF.md row 5d), bf16 (TMA boxes)
+# and an int8 pool under bf16; 36 over bf16, whose 72-byte rows no
+# tensor map can stride (the gathering producer, Q loaded by it too);
+# and Gemma-2B's attention (GEMMA: 1 KV head, group 8, head_dim 256,
+# chunk 256 at start 256) on the kD 256 kernels -- the prefill over bf16
+# (TMA; and on 12-token pages, gathered, bit-equal to 16), over an int8
+# pool under bf16, and float32 over float32 (scalar: the TF32 tiles do
+# not fit at 256; bound at the fp32 FMA rate its products run at), the
+# decode over bf16 and int8 pools and over bf16 on 12-token pages. Not
+# timed, the chunks serve_head_dim_256 launches (SERVE_CHUNKS,
+# head_dim_256_shape): 240 rows at starts 240 and 480, where a row
+# tile's causal edge falls inside a 64-key tile, over bf16 on 16- and
+# 12-token pages (the 12-token ones bit-equal to 16) and over int8.
 ODD_PAGES = {"7b_pages_of_12": 12, "7b_pages_of_250": 250}
+GEMMA = "gemma_2b"           # the attention of google/gemma-2b
+GEMMA_HEADS = (1, 8)         # KV heads, group (8 query heads)
+GEMMA_HEAD_DIM = 256
+GEMMA_CHUNK = 240            # head_dim_256_shape's chunk
 SERVE_CHUNKS = {"7b_pages_of_12_chunk_252": dict(bs=12, bucket=252),
-                "7b_pages_of_12_chunk_504": dict(bs=12, bucket=504)}
-SCALAR_HEAD_DIM = 72
+                "7b_pages_of_12_chunk_504": dict(bs=12, bucket=504),
+                f"{GEMMA}_chunk_{GEMMA_CHUNK}": dict(
+                    bucket=GEMMA_CHUNK, d=GEMMA_HEAD_DIM),
+                f"{GEMMA}_pages_of_12_chunk_{GEMMA_CHUNK}": dict(
+                    bs=12, bucket=GEMMA_CHUNK, d=GEMMA_HEAD_DIM)}
+PADDED_HEAD_DIM = 72
+NARROW_HEAD_DIM = 36
+HEAD_DIM_SHAPES = {
+    f"7b_head_dim_{PADDED_HEAD_DIM}": dict(d=PADDED_HEAD_DIM),
+    f"7b_head_dim_{NARROW_HEAD_DIM}": dict(d=NARROW_HEAD_DIM),
+    GEMMA: dict(d=GEMMA_HEAD_DIM),
+    f"{GEMMA}_pages_of_12": dict(d=GEMMA_HEAD_DIM, bs=12),
+}
 
 
 def case_shape(shape_name: str) -> dict:
-    """prefill_case's page size, chunk or head_dim for a kernel case's
-    shape."""
+    """prefill_case's (or decode_case's) page size, chunk or head_dim for
+    a kernel case's shape."""
     if shape_name in ODD_PAGES:
         return dict(bs=ODD_PAGES[shape_name])
     if shape_name in SERVE_CHUNKS:
         return dict(SERVE_CHUNKS[shape_name])
-    if shape_name == f"7b_head_dim_{SCALAR_HEAD_DIM}":
-        return dict(d=SCALAR_HEAD_DIM)
-    return {}
+    return dict(HEAD_DIM_SHAPES.get(shape_name, {}))
 
 
-def tensor_core_route(bs: int, int8: bool) -> str:
+def tensor_core_route(bs: int, int8: bool, head_dim: int = 128) -> str:
     """The route a 16-bit q takes over its own dtype (int8 False) or an
-    int8 pool at pages of ``bs`` tokens and head_dim 128: the int8 pool
+    int8 pool at pages of ``bs`` tokens and ``head_dim``: the int8 pool
     gathers at every page size; a pool of q's dtype takes TMA boxes on
-    pages that stack into or split 64-key tiles, and gathers otherwise."""
+    pages that stack into or split 64-key tiles where a tensor map can
+    stride its rows (head_dim a multiple of 8), and gathers otherwise.
+    Past MAX_HEAD_DIM no tensor-core route exists (ValueError)."""
+    from tpu_hpc_torch.kernels.paged_attention import MAX_HEAD_DIM
+
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {head_dim}: no tensor-core route")
     if int8:
         return "wgmma_int8"
-    return "wgmma" if (bs >= 8 and 64 % bs == 0) or bs % 64 == 0 \
-        else "wgmma_gather"
+    boxes = (bs >= 8 and 64 % bs == 0) or bs % 64 == 0
+    return "wgmma" if boxes and head_dim % 8 == 0 else "wgmma_gather"
 
 
 def kernel_cases() -> list:
@@ -989,8 +1119,30 @@ def kernel_cases() -> list:
                       (32, 1), pool, "bfloat16", 252))
     cases.append(("paged_prefill_attention", "7b_pages_of_12_chunk_504",
                   (32, 1), "bfloat16", "bfloat16", 0))
-    cases.append(("paged_prefill_attention", f"7b_head_dim_{SCALAR_HEAD_DIM}",
-                  (32, 1), "float32", "float32", 256))
+    for pool, q in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("int8", "bfloat16")):
+        cases.append(("paged_prefill_attention",
+                      f"7b_head_dim_{PADDED_HEAD_DIM}", (32, 1), pool, q, 256))
+    cases.append(("paged_prefill_attention", f"7b_head_dim_{NARROW_HEAD_DIM}",
+                  (32, 1), "bfloat16", "bfloat16", 256))
+    for pool, q in (("bfloat16", "bfloat16"), ("int8", "bfloat16"),
+                    ("float32", "float32")):
+        cases.append(("paged_prefill_attention", GEMMA, GEMMA_HEADS, pool, q,
+                      256))
+    cases.append(("paged_prefill_attention", f"{GEMMA}_pages_of_12",
+                  GEMMA_HEADS, "bfloat16", "bfloat16", 256))
+    for pool in ("bfloat16", "int8"):
+        cases.append(("paged_decode_attention", GEMMA, GEMMA_HEADS, pool,
+                      "bfloat16", None))
+    cases.append(("paged_decode_attention", f"{GEMMA}_pages_of_12",
+                  GEMMA_HEADS, "bfloat16", "bfloat16", None))
+    for start in (GEMMA_CHUNK, 2 * GEMMA_CHUNK):
+        for shape, pool in (("chunk", "bfloat16"),
+                            ("pages_of_12_chunk", "bfloat16"),
+                            ("chunk", "int8")):
+            cases.append(("paged_prefill_attention",
+                          f"{GEMMA}_{shape}_{GEMMA_CHUNK}", GEMMA_HEADS,
+                          pool, "bfloat16", start))
     return cases
 
 
@@ -1040,12 +1192,26 @@ def tf32_control(torch, ref, args, kw, want, case) -> dict:
     return r
 
 
-def kernel_phase(torch, dev, lib) -> tuple:
+# The kernel cases whose rows are the summary's entries for the kD 256
+# kernels: (wrapper, shape, pool) -> entry.
+HD256_ROWS = {
+    ("paged_prefill_attention", GEMMA, "bfloat16"): HD256_PREFILL,
+    ("paged_prefill_attention", f"{GEMMA}_pages_of_12", "bfloat16"):
+        HD256_GATHER,
+    ("paged_prefill_attention", GEMMA, "int8"): HD256_INT8,
+    ("paged_decode_attention", GEMMA, "bfloat16"): HD256_DECODE,
+    ("paged_decode_attention", GEMMA, "int8"): HD256_DECODE_INT8,
+}
+
+
+def kernel_phase(torch, dev, lib, ptxas=()) -> tuple:
     """Every kernel case against its plain version; returns the main
-    path's rows (the 7B shape under a bf16 q, and the gathering route's
-    12-token bf16 case), the TF32 route's timed rows, by (q dtype, pool,
-    and shape where not the 7B's), and the other shapes' timed prefill
-    rows (odd pages, the scalar head_dim), by case."""
+    path's rows (the 7B shape under a bf16 q, the gathering route's
+    12-token bf16 case, and the kD 256 kernels at Gemma-2B's attention:
+    HD256_ROWS), the TF32 route's timed rows, by (q dtype, pool, and
+    shape where not the 7B's), and the other shapes' timed prefill rows
+    (odd pages, the head dims off the 128-column kernels), by case. Each
+    row carries its kernels' ptxas rows (registers, spills)."""
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare, rule_dtype
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
@@ -1055,7 +1221,8 @@ def kernel_phase(torch, dev, lib) -> tuple:
         q_dtype = getattr(torch, q_name)
         if kname == "paged_decode_attention":
             args, kw, (nb, fl) = decode_case(torch, dev, hkv, g,
-                                             pool == "int8")
+                                             pool == "int8",
+                                             **case_shape(shape_name))
             fn, ref = pa.paged_decode_attention, pa.paged_decode_attention_ref
             library, kernel_name = library_decode, "paged_decode"
             route = "split"
@@ -1076,9 +1243,12 @@ def kernel_phase(torch, dev, lib) -> tuple:
         gate = rule_dtype(q_dtype, None if pool == "int8" else
                           getattr(torch, pool))
         readings = compare(out, want, gate)
+        head_dim = args[0].shape[3]
         row = {
             "kernel": kname, "shape": shape_name, "pool": pool,
-            "q_dtype": q_name, "route": route,
+            "q_dtype": q_name, "route": route, "head_dim": head_dim,
+            "ptxas": ptxas_of(ptxas, instance_of(kname, route, q_name, pool,
+                                                 head_dim, g)),
             "max_abs_err": readings["max_abs_err"],
             "rule": str(gate)[6:],
             "tolerance": dataclasses.asdict(TOLERANCES[gate]),
@@ -1103,7 +1273,7 @@ def kernel_phase(torch, dev, lib) -> tuple:
                              f"{readings}")
         if kname == "paged_decode_attention" and out[args[5] == 0].any():
             raise SystemExit(f"{kname}: inactive slot not exact zeros")
-        if kw["block_size"] != 16 and pool != "int8":
+        if kw["block_size"] != 16 and pool != "int8" and start is not None:
             # The same keys through 16-token pages (the TMA-tiled or TF32
             # route): the walk reads the same tiles, so the same bits.
             a16, kw16 = repaged(torch, args, kw, 16)
@@ -1151,10 +1321,13 @@ def kernel_phase(torch, dev, lib) -> tuple:
                 main_rows[INT8_PREFILL] = row
             if shape_name == "7b_pages_of_12" and pool == "bfloat16":
                 main_rows[GATHER_PREFILL] = row
+            if (kname, shape_name, pool) in HD256_ROWS:
+                main_rows[HD256_ROWS[kname, shape_name, pool]] = row
             if tf32:
                 tf32_rows[f"{q_name} q over {pool}" + (
                     "" if shape_name == "7b" else f" ({shape_name})")] = row
-            if kname == "paged_prefill_attention" and shape_name.startswith("7b_"):
+            if kname == "paged_prefill_attention" \
+                    and shape_name not in ("7b", "gqa"):
                 odd_rows[f"{q_name} q over {pool} ({shape_name})"] = row
         emit("kernels", **row)
         del args, kw, out, want
@@ -4036,14 +4209,14 @@ SERVE_REQUESTS, SERVE_MAX_NEW = 16, 32
 
 
 def serve_phase(torch, dev, phase, cfg, serve_cfg, paged,
-                summaries=None) -> dict:
+                summaries=None, model="7b") -> dict:
     """run_replay on ``cfg`` through the paged kernels, their launch
     counts (the prefill's by route too) set to 0 just before and read
     just after: every request finishes with all its tokens, nothing is
     rebuilt, both kernels ran, every prefill launch took the tensor-core
-    route of the pool and page size (tensor_core_route), none the scalar
-    one. ``summaries``: a dict that takes the run's summary, with its
-    launches by route, under ``phase``."""
+    route of the pool, page size and head dim (tensor_core_route), none
+    the scalar one. ``summaries``: a dict that takes the run's summary,
+    with its launches by route, under ``phase``."""
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.serve.server import run_replay
 
@@ -4067,7 +4240,8 @@ def serve_phase(torch, dev, phase, cfg, serve_cfg, paged,
             head_dim=cfg.head_dim, kv_heads=cfg.kv_heads,
             n_heads=cfg.n_heads, block_size=paged.block_size,
             seq_len=256 // paged.block_size * paged.block_size), 6)
-    emit(phase, model="7b", n_layers=cfg.n_layers, dim=cfg.dim,
+    emit(phase, model=model, n_layers=cfg.n_layers, dim=cfg.dim,
+         head_dim=cfg.head_dim, kv_heads=cfg.kv_heads,
          dtype=str(cfg.dtype)[6:], kv_quant=paged.kv_quant,
          block_size=paged.block_size, prefill_route=route,
          prefill_routes=routes, launches=launches, **extra,
@@ -4085,7 +4259,8 @@ def serve_phase(torch, dev, phase, cfg, serve_cfg, paged,
         raise SystemExit(f"{phase}: {summary['recompiles']} rebuilds")
     if min(launches.values()) < 1 or launches != summary["kernel_launches"]:
         raise SystemExit(f"{phase}: kernels not on the main path: {launches}")
-    want = tensor_core_route(paged.block_size, paged.kv_quant == "int8")
+    want = tensor_core_route(paged.block_size, paged.kv_quant == "int8",
+                             cfg.head_dim)
     if route != want or routes[want] != launches["paged_prefill_attention"] \
             or routes["scalar"]:
         raise SystemExit(f"{phase}: the prefill takes the {route} route "
@@ -4135,6 +4310,160 @@ def serve_pages_of_12_phase(torch, dev, cfg, serve_cfg, paged,
         for phase in ("serve", "serve_int8", "serve_pages_of_12",
                       "serve_pages_of_12_int8") if phase in summaries})
     return launches
+
+
+def gemma_2b_widths(torch, n_layers: int = 18, dtype=None):
+    """The repo's Llama block (SwiGLU, an untied head) at Gemma-2B's
+    published widths (google/gemma-2b config.json; the Gemma paper's
+    Table 1): d_model 2048, 8 heads over 1 KV head of head size 256 (=
+    dim / n_heads, as LlamaConfig.head_dim takes it), feed-forward 16384
+    (ffn_dim_multiplier 3.0 on the 2/3 rule, rounded to 256), vocabulary
+    256000, 8192 positions; 18 layers. Not Gemma's block: no GeGLU, no
+    tied embedding, no sqrt(d) scaling -- the widths, not the model."""
+    from tpu_hpc_torch.models import llama2
+
+    return llama2.LlamaConfig(
+        dim=2048, n_layers=n_layers, n_heads=8, n_kv_heads=1,
+        vocab_size=256000, multiple_of=256, ffn_dim_multiplier=3.0,
+        max_seq_len=8192, dtype=torch.bfloat16 if dtype is None else dtype)
+
+
+def head_dim_256_shape(serve_cfg, paged, block_size: int) -> tuple:
+    """serve_shape's engine for the head_dim-256 phases at pages of
+    ``block_size`` (16 or 12): 8 slots of 960 tokens, prefill buckets
+    240 and 480 and chunks of 240. A chunk must be a whole number of
+    pages, and 240 is the widest under serve's 256 that both page sizes
+    divide, so the 16- and 12-token runs cut every prompt at the same
+    places and their prefill products have the same shapes; the pool
+    holds 8 full slots and one page more. (ServeConfig, PagedConfig)."""
+    pages = 960 // block_size
+    return (dataclasses.replace(serve_cfg, max_seq_len=960,
+                                prefill_buckets=(240, 480)),
+            dataclasses.replace(paged, block_size=block_size,
+                                num_blocks=8 * pages + 1, prefill_chunk=240))
+
+
+# The head_dim-256 phase's runs: (phase, page size, kv_quant).
+HD256_RUNS = (("serve_head_dim_256", 16, "none"),
+              ("serve_head_dim_256_pages_of_12", 12, "none"),
+              ("serve_head_dim_256_int8", 16, "int8"))
+
+
+def serve_head_dim_256_phase(torch, dev, serve_cfg, paged, summaries) -> dict:
+    """serve's replay (16 requests of 100-500 prompt tokens x 32 new)
+    on the Llama block at Gemma-2B's widths (gemma_2b_widths: head_dim
+    256, one KV head, group 8; seeded random bf16 weights), through
+    run_replay three times (HD256_RUNS, head_dim_256_shape): on 16-token
+    pages (the prefill on wgmma, TMA boxes), on 12-token pages
+    (wgmma_gather) and over an int8 pool (wgmma_int8), each gated by
+    serve_phase (every request finishes, nothing rebuilt, every prefill
+    launch on that route, none on scalar, both kernels launched: the kD
+    256 prefill and decode). The two bf16 runs cut every prompt at the
+    same chunks into products of the same shapes, and the prefill gives
+    the same bits on 12- and 16-token pages, so every request's first
+    token -- the argmax of its last prefill chunk, before any decode --
+    must be equal. After it the decode walks a slot's pages in runs and
+    tiles of the page size, so its fp32 sums round apart on the two page
+    sizes, and a difference of one rounding may flip an argmax that is
+    a near tie. So where a stream differs, both runs' tokens at its
+    first difference must lie within NEAR_TIE_ULPS bf16 ulps of the
+    largest logit of the float32 no-cache forward on the prefix the two
+    runs share (divergence_margins): a fault on one page size would pick
+    a token far below it. How many streams stay equal, and each
+    reading, are on the line. Returns each run's launches, the
+    prefill's by route too."""
+    cfg = gemma_2b_widths(torch)
+    launches = {}
+    with recorded_runs() as runs:
+        for phase, bs, quant in HD256_RUNS:
+            sc, p = head_dim_256_shape(serve_cfg, paged, bs)
+            launches[phase] = serve_phase(
+                torch, dev, phase, cfg, sc,
+                dataclasses.replace(p, kv_quant=quant), summaries,
+                model="gemma-2b-widths-llama")
+            launches[phase]["prefill_routes"] = summaries[phase][
+                "prefill_routes"]
+            _release(torch)
+    a, b = runs[0], runs[1]
+    first = {r: a[r][:1] == b.get(r, [])[:1] for r in a}
+    if sorted(a) != sorted(b) or not all(first.values()):
+        raise SystemExit("serve_head_dim_256: the first greedy token on "
+                         "12-token pages differs from 16-token pages on "
+                         f"{sorted(r for r, ok in first.items() if not ok)}")
+    margins = divergence_margins(torch, dev, cfg, a, b)
+    _release(torch)
+    far = {r: m for r, m in margins.items()
+           if max(m["below_max_ulps"]) > NEAR_TIE_ULPS}
+    emit("serve_head_dim_256_tokens", requests=len(a),
+         first_tokens_equal=sum(first.values()),
+         streams_equal=len(a) - len(margins), near_tie_ulps=NEAR_TIE_ULPS,
+         divergences=margins, n_params=gemma_2b_param_count(cfg),
+         kv_bytes_per_token=2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * 2)
+    if far:
+        raise SystemExit("serve_head_dim_256: where the 16- and 12-token "
+                         "streams part, a token lies more than "
+                         f"{NEAR_TIE_ULPS} bf16 ulps below the float32 "
+                         f"forward's largest logit: {far}")
+    return launches
+
+
+# How far below the float32 forward's largest logit (in bf16 ulps of
+# it) a token where two page sizes' greedy streams part may lie: the
+# bf16 run's own rounding of the logits is half an ulp, the rest its
+# bf16 products.
+NEAR_TIE_ULPS = 4
+
+
+def divergence_margins(torch, dev, cfg, a, b) -> dict:
+    """Where two greedy runs ``a`` and ``b`` ({rid: tokens}) of ``cfg``
+    on serve's seeded weights and requests first differ, the no-cache
+    forward's logits on the prefix they share (the prompt and the
+    tokens before the difference): in float32 (the weights are stored
+    in float32) the reference, each run's token's distance below its
+    largest logit and the gap between its two largest, in bf16 ulps of
+    the largest; and the bf16 forward's own pick. {rid: reading}, only
+    for streams that differ."""
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import replay_requests
+    from tpu_hpc_torch.serve.server import serving_weights
+
+    prompts = {r.rid: list(r.prompt) for r in replay_requests(
+        SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT_LENS, SERVE_MAX_NEW,
+        seed=0)}
+    params = serving_weights(cfg, 0, dev)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = {}
+    with torch.no_grad():
+        for rid in sorted(a):
+            at = next((i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                       if x != y), None)
+            if at is None:
+                continue
+            toks = torch.tensor([prompts[rid] + a[rid][:at]], device=dev)
+            ref = llama2.apply_llama(params, toks, f32)[0, -1].float()
+            low = llama2.apply_llama(params, toks, cfg)[0, -1]
+            top2 = ref.topk(2).values.tolist()
+            ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
+            picks = [a[rid][at], b[rid][at]]
+            out[rid] = dict(
+                at=at, tokens=picks, ulp=ulp,
+                below_max_ulps=[(top2[0] - float(ref[t])) / ulp
+                                for t in picks],
+                top2_gap_ulps=(top2[0] - top2[1]) / ulp,
+                reference_argmax=int(ref.argmax()),
+                bf16_argmax=int(low.argmax()))
+    del params
+    return out
+
+
+def gemma_2b_param_count(cfg) -> int:
+    """Parameters of the Llama block at ``cfg``'s widths: the embedding
+    and the untied head, and per layer q, k, v, o, the three SwiGLU
+    matrices and two norms; the final norm."""
+    d, hd = cfg.dim, cfg.head_dim
+    layer = (d * cfg.n_heads * hd + 2 * d * cfg.kv_heads * hd
+             + cfg.n_heads * hd * d + 3 * d * cfg.ffn_hidden + 2 * d)
+    return 2 * cfg.vocab_size * d + cfg.n_layers * layer + d
 
 
 # ---------------------------------------------------------------------
@@ -6491,11 +6820,14 @@ def native_tools_phase(torch, dev, train) -> dict:
 
 
 def crosscheck_phase(torch, dev, cfg, serve_cfg, paged,
-                     phase="crosscheck") -> dict:
-    """The serving path in float32 at 7B width, 2 layers: greedy tokens
-    through the cuda kernels equal to the gather path's and to the
-    no-cache forward's, every prefill launch on the TF32 route at the
-    pool's page size. Returns the prefill's launches by route."""
+                     phase="crosscheck", route="wgmma_tf32",
+                     model="7b-width-2-layers") -> dict:
+    """The serving path in float32 at ``cfg``'s width (7B), 2 layers:
+    greedy tokens through the cuda kernels equal to the gather path's
+    and to the no-cache forward's, every prefill launch on ``route`` (the
+    TF32 route at the pool's page size; at head_dim 256, scalar), the
+    decode launched. Returns the prefill's launches by route, and the
+    decode's under "decode"."""
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.models import llama2
     from tpu_hpc_torch.serve import (
@@ -6531,19 +6863,20 @@ def crosscheck_phase(torch, dev, cfg, serve_cfg, paged,
                 toks.append(int(logits[0, -1].argmax()))
             oracle_ok.append(toks[len(r.prompt):] == results["cuda"][r.rid])
     routes = dict(pa.paged_prefill_attention.route_launches)
-    emit(phase, model="7b-width-2-layers", dtype="float32",
+    decode = pa.paged_decode_attention.launches
+    emit(phase, model=model, dtype="float32", head_dim=small.head_dim,
          block_size=paged.block_size, requests=len(results["cuda"]),
          tokens=sum(len(t) for t in results["cuda"].values()),
-         prefill_routes=routes,
+         prefill_routes=routes, decode_launches=decode,
          cuda_equals_gather=same, cuda_equals_no_cache_forward=oracle_ok)
     if not same or not all(oracle_ok):
         raise SystemExit(f"{phase}: greedy tokens differ")
-    if routes["wgmma_tf32"] < 1 or sum(routes.values()) != routes["wgmma_tf32"]:
+    if routes[route] < 1 or sum(routes.values()) != routes[route] or decode < 1:
         raise SystemExit(f"{phase}: prefill launches by route {routes}, not "
-                         "all on wgmma_tf32")
+                         f"all on {route}, or no decode launch ({decode})")
     del params
     torch.cuda.empty_cache()
-    return routes
+    return dict(routes, decode=decode)
 
 
 def main() -> int:
@@ -6574,7 +6907,7 @@ def main() -> int:
     ptxas = ptxas_summary(_build.PTXAS_LOG.read_text())
     emit("build", seconds=build_s, library=str(_build.LIBRARY), ptxas=ptxas)
 
-    main_rows, tf32_rows, odd_rows = kernel_phase(torch, dev, lib)
+    main_rows, tf32_rows, odd_rows = kernel_phase(torch, dev, lib, ptxas)
     flash_rows, vit_rows, flash_f32_rows = flash_phase(torch, dev)
     main_rows.update(flash_rows)
 
@@ -6597,6 +6930,21 @@ def main() -> int:
                                           serve_lines)
     launches[GATHER_PREFILL] = serve_lines["serve_pages_of_12"][
         "prefill_routes"]["wgmma_gather"]
+    # -- 5b''. head_dim 256: the Llama block at Gemma-2B's widths on
+    #          16- and 12-token pages and over an int8 pool (the kD 256
+    #          prefill and decode kernels)
+    hd256 = serve_head_dim_256_phase(torch, dev, serve_cfg, paged,
+                                     serve_lines)
+    launches[HD256_PREFILL] = hd256["serve_head_dim_256"]["prefill_routes"][
+        "wgmma"]
+    launches[HD256_GATHER] = hd256["serve_head_dim_256_pages_of_12"][
+        "prefill_routes"]["wgmma_gather"]
+    launches[HD256_INT8] = hd256["serve_head_dim_256_int8"]["prefill_routes"][
+        "wgmma_int8"]
+    launches[HD256_DECODE] = hd256["serve_head_dim_256"][
+        "paged_decode_attention"]
+    launches[HD256_DECODE_INT8] = hd256["serve_head_dim_256_int8"][
+        "paged_decode_attention"]
     # -- 5c. speculative decoding and seeded sampling on the paged engine
     spec_launches = serve_spec_phase(torch, dev, cfg, serve_cfg, paged,
                                      launches)
@@ -6614,6 +6962,13 @@ def main() -> int:
     crosscheck_12_routes = crosscheck_phase(
         torch, dev, cfg, *pages_of_12_shape(serve_cfg, paged),
         phase="crosscheck_pages_of_12")
+    # -- 6b. head_dim 256 in float32: the prefill on its scalar route, the
+    #        decode on kD 256
+    crosscheck_256 = crosscheck_phase(
+        torch, dev, gemma_2b_widths(torch),
+        *head_dim_256_shape(serve_cfg, paged, 16),
+        phase="crosscheck_head_dim_256", route="scalar",
+        model="gemma-2b-widths-llama-2-layers")
 
     # -- 7. the training path: the bench Llama through the flash kernels
     train_launches, train = train_phase(torch, dev)
@@ -6688,11 +7043,13 @@ def main() -> int:
             # scalar head_dim), and the scalar kernel with its registers.
             entry["odd_shapes"] = {case: {k: row.get(k) for k in ODD_ROW_KEYS}
                                    for case, row in odd_rows.items()}
+            # The scalar kernel: float32 and mixed pairs past head_dim 128
+            # (its launches in the head_dim-256 crosscheck).
             entry["scalar_route"] = {
                 "kernel": "paged_prefill_kernel",
                 "ptxas": [r for r in ptxas
                           if r["kernel"].startswith("paged_prefill_kernel")],
-                "launches": 0}
+                "crosscheck_head_dim_256_launches": crosscheck_256["scalar"]}
         # The gathering kernel's launches in serve_pages_of_12: over a bf16
         # pool (the gather entry's own count) and over an int8 pool.
         if entry["name"] == INT8_PREFILL:
@@ -6702,6 +7059,20 @@ def main() -> int:
             int8 = entry["name"] == INT8_PREFILL
             entry["ptxas"] = [r for r in ptxas if r["kernel"].startswith(
                 "paged_prefill_gather_kernel") and ("int8" in r["kernel"]) == int8]
+        # The kD 256 kernels: their instantiation's registers and spills,
+        # their launches in serve_head_dim_256's other runs, and the
+        # decode's in the float32 crosscheck at head_dim 256.
+        if entry["name"] in HD256_ROWS.values():
+            row = main_rows[entry["name"]]
+            entry["ptxas"] = row["ptxas"]
+            entry["device_ms"] = row["device_ms"]
+            entry["library_device_ms"] = row["library_device_ms"]
+            entry["serve_head_dim_256_launches"] = {
+                phase: {k: v for k, v in n.items() if k != "prefill_routes"}
+                for phase, n in hd256.items()}
+        if entry["name"] == HD256_DECODE:
+            entry["crosscheck_head_dim_256_float32_launches"] = \
+                crosscheck_256["decode"]
         # Their launches in serve_tier_fleet: the tiered run, after each
         # refill, and by fleet replica.
         if entry["name"] in tier_fleet_launches:

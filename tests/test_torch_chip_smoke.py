@@ -96,8 +96,15 @@ def test_kernel_cases_cover_every_prefill_route():
     bf16, and over 250-token pages for bf16 (pages TMA boxes cannot
     tile); the serve_pages_of_12 phase's chunks over 12-token pages
     (252 rows for bf16 and int8 under bf16, 504 for bf16), whose last
-    row tiles are partial; the scalar route at a head_dim outside the
-    tensor-core rule; the int8 and the gathering prefill have their own
+    row tiles are partial; head dims off the 64- and 128-column kernels:
+    72 at the 7B chunk for float32 (row 5d), bf16 and int8, 36 over bf16
+    (rows no tensor map can stride), Gemma-2B's attention (1 KV head,
+    group 8, head_dim 256) for the prefill over bf16 (and on 12-token
+    pages), int8 and float32 and the decode over bf16 and int8 (and bf16
+    on 12-token pages); the serve_head_dim_256 phase's chunks (240 rows
+    at starts 240 and 480, where the causal edge falls inside a 64-key
+    tile) over bf16 on 16- and 12-token pages and over int8; the int8
+    and the gathering prefill and the kD 256 kernels have their own
     summary entries."""
     cases = chip_smoke.kernel_cases()
     prefill = {(shape, pool, q, start)
@@ -122,34 +129,87 @@ def test_kernel_cases_cover_every_prefill_route():
     assert ("7b_pages_of_12_chunk_504", "bfloat16", "bfloat16", 0) in prefill
     for shape, shp in chip_smoke.SERVE_CHUNKS.items():
         assert shp["bucket"] % 64  # a partial last row tile
-        assert shp["bucket"] in (252, 504) and shp["bs"] == 12
         assert chip_smoke.case_shape(shape) == shp
-    d = chip_smoke.SCALAR_HEAD_DIM
-    assert d % 16 or d > 128  # outside the tensor-core rule
-    assert (f"7b_head_dim_{d}", "float32", "float32", 256) in prefill
+        if shape.startswith("7b"):
+            assert shp["bucket"] in (252, 504) and shp["bs"] == 12
+    d = chip_smoke.PADDED_HEAD_DIM
+    assert d % 16 and d % 8 == 0 and d < 128  # padded, TMA boxes stride it
+    for pool, q in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("int8", "bfloat16")):
+        assert (f"7b_head_dim_{d}", pool, q, 256) in prefill
     assert chip_smoke.case_shape(f"7b_head_dim_{d}") == {"d": d}
+    n = chip_smoke.NARROW_HEAD_DIM
+    assert (2 * n) % 16  # bf16 rows no tensor map can stride
+    assert (f"7b_head_dim_{n}", "bfloat16", "bfloat16", 256) in prefill
+    gemma = chip_smoke.GEMMA
+    assert chip_smoke.case_shape(gemma) == {"d": 256}
+    assert chip_smoke.case_shape(f"{gemma}_pages_of_12") == {"d": 256,
+                                                             "bs": 12}
+    for pool, q in (("bfloat16", "bfloat16"), ("int8", "bfloat16"),
+                    ("float32", "float32")):
+        assert (gemma, pool, q, 256) in prefill
+    assert (f"{gemma}_pages_of_12", "bfloat16", "bfloat16", 256) in prefill
+    decode = {(shape, heads, pool) for k, shape, heads, pool, _, _ in cases
+              if k == "paged_decode_attention"}
+    for pool in ("bfloat16", "int8"):
+        assert (gemma, chip_smoke.GEMMA_HEADS, pool) in decode
+    assert (f"{gemma}_pages_of_12", chip_smoke.GEMMA_HEADS,
+            "bfloat16") in decode
+    # serve_head_dim_256's chunks, at every start its prompts reach past
+    # 0; each start puts the causal edge inside a 64-key tile.
+    _, serve_cfg, paged = chip_smoke.serve_shape()
+    c = chip_smoke.head_dim_256_shape(serve_cfg, paged, 16)[1].prefill_chunk
+    assert c == chip_smoke.GEMMA_CHUNK
+    assert 2 * c < max(chip_smoke.SERVE_PROMPT_LENS) <= 3 * c
+    for start in (c, 2 * c):
+        assert start % 64
+        for shape, pool in ((f"{gemma}_chunk_{c}", "bfloat16"),
+                            (f"{gemma}_pages_of_12_chunk_{c}", "bfloat16"),
+                            (f"{gemma}_chunk_{c}", "int8")):
+            assert (shape, pool, "bfloat16", start) in prefill
+            assert chip_smoke.case_shape(shape)["d"] == 256
+            assert chip_smoke.case_shape(shape)["bucket"] == c
+    assert chip_smoke.case_shape(f"{gemma}_pages_of_12_chunk_{c}")["bs"] == 12
     assert chip_smoke.case_shape("7b") == {}
-    assert len(cases) == 24
-    for name in (chip_smoke.INT8_PREFILL, chip_smoke.GATHER_PREFILL):
+    assert len(cases) == 40
+    for name in (chip_smoke.INT8_PREFILL, chip_smoke.GATHER_PREFILL,
+                 chip_smoke.HD256_PREFILL, chip_smoke.HD256_GATHER,
+                 chip_smoke.HD256_INT8):
         assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
         assert chip_smoke.REPLACES[name] == \
             chip_smoke.REPLACES["paged_prefill_attention"]
+    for name in (chip_smoke.HD256_DECODE, chip_smoke.HD256_DECODE_INT8):
+        assert chip_smoke.SOURCES[name] == chip_smoke.PAGED_SOURCE
+        assert chip_smoke.REPLACES[name] == \
+            chip_smoke.REPLACES["paged_decode_attention"]
+    # Every kD 256 entry is one timed case's row.
+    rows = {(k, shape, pool) for k, shape, _, pool, _, start in cases
+            if start in (None, 256)}
+    assert set(chip_smoke.HD256_ROWS) <= rows
 
 
-@pytest.mark.parametrize("bs, int8, route", [
-    (16, False, "wgmma"), (8, False, "wgmma"), (128, False, "wgmma"),
-    (12, False, "wgmma_gather"), (4, False, "wgmma_gather"),
-    (250, False, "wgmma_gather"), (1, False, "wgmma_gather"),
-    (16, True, "wgmma_int8"), (12, True, "wgmma_int8"),
+@pytest.mark.parametrize("bs, int8, head_dim, route", [
+    (16, False, 128, "wgmma"), (8, False, 128, "wgmma"),
+    (128, False, 128, "wgmma"), (12, False, 128, "wgmma_gather"),
+    (4, False, 128, "wgmma_gather"), (250, False, 128, "wgmma_gather"),
+    (1, False, 128, "wgmma_gather"), (16, True, 128, "wgmma_int8"),
+    (12, True, 128, "wgmma_int8"), (16, False, 256, "wgmma"),
+    (12, False, 256, "wgmma_gather"), (16, True, 256, "wgmma_int8"),
+    (16, False, 72, "wgmma"), (16, False, 36, "wgmma_gather"),
+    (16, True, 36, "wgmma_int8"), (64, False, 100, "wgmma_gather"),
 ])
-def test_tensor_core_route_names_the_library_routes(bs, int8, route):
+def test_tensor_core_route_names_the_library_routes(bs, int8, head_dim,
+                                                    route):
     """The route serve_phase holds a replay's prefill launches to, by
-    page size and pool: a name of the wrapper's PREFILL_ROUTES, never
-    scalar at head_dim 128."""
+    page size, pool and head dim: a name of the wrapper's PREFILL_ROUTES,
+    never scalar up to head_dim 256 (TMA boxes only where a tensor map
+    strides the rows: head_dim a multiple of 8); past 256 none."""
     from tpu_hpc_torch.kernels.paged_attention import PREFILL_ROUTES
 
-    assert chip_smoke.tensor_core_route(bs, int8) == route
+    assert chip_smoke.tensor_core_route(bs, int8, head_dim) == route
     assert route in PREFILL_ROUTES and route != "scalar"
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        chip_smoke.tensor_core_route(bs, int8, 300)
 
 
 def test_pages_of_12_shape_builds_an_engine_on_cpu():
@@ -220,23 +280,178 @@ def test_repaged_keeps_the_chunks_keys(bs):
 
 
 def test_phase_list_names_serve_pages_of_12_after_serve_int8():
-    """serve_pages_of_12 follows serve_int8 and comes before serve_spec,
-    and the 12-token crosscheck follows the crosscheck, in the docstring
-    and in main; the gathering prefill's entry takes its launches."""
+    """serve_pages_of_12 follows serve_int8 and serve_head_dim_256
+    follows it, both before serve_spec, and the 12-token and head_dim-256
+    crosschecks follow the crosscheck, in the docstring and in main; the
+    gathering prefill's and the kD 256 entries take their launches."""
     import inspect
     import re
 
     doc = chip_smoke.__doc__
     order = [re.search(pat, doc, re.M).start() for pat in (
-        r"^ *serve_int8 ", r"^ *serve_pages_of_12 ", r"^ *serve_spec ",
-        r"^ *6\. crosscheck ")]
+        r"^ *serve_int8 ", r"^ *serve_pages_of_12 ",
+        r"^ *serve_head_dim_256 ", r"^ *serve_spec ",
+        r"^ *6\. crosscheck ", r"crosscheck_head_dim_256")]
     assert order == sorted(order)
     src = inspect.getsource(chip_smoke.main)
     calls = [src.index(f) for f in (
         '"serve_int8"', "serve_pages_of_12_phase(",
-        "launches[GATHER_PREFILL]", "serve_spec_phase(",
-        "# -- 6. cross-check", '"crosscheck_pages_of_12"')]
+        "launches[GATHER_PREFILL]", "serve_head_dim_256_phase(",
+        "launches[HD256_DECODE_INT8]", "serve_spec_phase(",
+        "# -- 6. cross-check", '"crosscheck_pages_of_12"',
+        '"crosscheck_head_dim_256"')]
     assert calls == sorted(calls)
+
+
+@pytest.mark.parametrize("bs", [16, 12])
+def test_decode_case_covers_every_live_position(bs):
+    """decode_case's views hold 1024 tokens whatever the page size, each
+    active slot's table reaching its position through live pages, and
+    the plain decode over them is finite (dead pages are NaN)."""
+    import torch
+
+    from tpu_hpc_torch.kernels.paged_attention import (
+        paged_decode_attention_ref,
+    )
+
+    args, kw, (nb, fl) = chip_smoke.decode_case(torch, "cpu", 1, 8, False,
+                                                d=256, bs=bs)
+    q, k, v, tables, pos, active = args
+    assert kw["block_size"] == bs and kw["max_blocks"] * bs >= 1024
+    assert kw["max_blocks"] <= tables.shape[1]
+    for s in range(q.shape[0]):
+        if active[s]:
+            live = tables[s, :int(pos[s]) // bs + 1].long()
+            assert not k[live].isnan().any()
+    out = paged_decode_attention_ref(*args, **kw)
+    assert torch.isfinite(out[active > 0]).all()
+    assert nb > 0 and fl > 0
+
+
+def test_divergence_margins_tell_a_near_tie_from_a_far_token():
+    """Where two greedy streams part, divergence_margins reads each run's
+    token against the float32 no-cache forward on the shared prefix: the
+    forward's own argmax lies 0 ulps below its largest logit and its
+    argmin far more than NEAR_TIE_ULPS; streams that never part are not
+    read."""
+    import torch
+
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import replay_requests
+    from tpu_hpc_torch.serve.server import serving_weights
+
+    cfg = llama2.LlamaConfig(dim=32, n_layers=1, n_heads=2, n_kv_heads=1,
+                             vocab_size=64, multiple_of=16, max_seq_len=1024,
+                             dtype=torch.float32)
+    reqs = replay_requests(chip_smoke.SERVE_REQUESTS, cfg.vocab_size,
+                           chip_smoke.SERVE_PROMPT_LENS,
+                           chip_smoke.SERVE_MAX_NEW, seed=0)
+    r, same = reqs[0], reqs[1]
+    params = serving_weights(cfg, 0, "cpu")
+    with torch.no_grad():
+        logits = llama2.apply_llama(params, torch.tensor([list(r.prompt)]),
+                                    cfg)[0, -1]
+    best, worst = int(logits.argmax()), int(logits.argmin())
+    a = {r.rid: [best, 5], same.rid: [3, 4]}
+    b = {r.rid: [worst, 5], same.rid: [3, 4]}
+    got = chip_smoke.divergence_margins(torch, "cpu", cfg, a, b)
+    assert list(got) == [r.rid]
+    m = got[r.rid]
+    assert m["at"] == 0 and m["tokens"] == [best, worst]
+    assert m["below_max_ulps"][0] == 0
+    assert m["below_max_ulps"][1] > chip_smoke.NEAR_TIE_ULPS
+    assert m["reference_argmax"] == m["bf16_argmax"] == best
+    assert m["top2_gap_ulps"] >= 0
+
+
+def test_gemma_2b_widths_are_the_published_ones():
+    """The head_dim-256 phases' model: d_model 2048, 8 heads over 1 KV
+    head of head size 256, feed-forward 16384, vocabulary 256000, 18
+    layers; about 3.03B parameters (an untied head) and 18,432 bytes of
+    bf16 KV a token."""
+    import torch
+
+    cfg = chip_smoke.gemma_2b_widths(torch)
+    assert (cfg.dim, cfg.n_heads, cfg.kv_heads, cfg.head_dim) == \
+        (2048, 8, 1, 256)
+    assert (cfg.ffn_hidden, cfg.vocab_size, cfg.n_layers) == \
+        (16384, 256000, 18)
+    assert cfg.dtype == torch.bfloat16
+    n = chip_smoke.gemma_2b_param_count(cfg)
+    assert 3.02e9 < n < 3.04e9
+    assert 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * 2 == 18432
+    small = chip_smoke.gemma_2b_widths(torch, n_layers=2,
+                                       dtype=torch.float32)
+    assert small.n_layers == 2 and small.head_dim == 256
+
+
+def test_head_dim_256_shape_cuts_both_page_sizes_alike():
+    """The head_dim-256 runs' engines: 16- and 12-token pages with the
+    same slots, buckets and chunks (240 divides into whole pages of
+    both), room for serve's longest request, a pool of 8 full slots and
+    one page more; each builds an engine on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from tpu_hpc_torch.models import llama2
+    from tpu_hpc_torch.serve import PagedEngine
+
+    _, serve_cfg, paged = chip_smoke.serve_shape()
+    shapes = [chip_smoke.head_dim_256_shape(serve_cfg, paged, bs)
+              for bs in (16, 12)]
+    for (sc, p), bs in zip(shapes, (16, 12)):
+        assert p.block_size == bs and p.prefill_chunk == 240
+        assert p.prefill_chunk % bs == 0 and sc.max_seq_len % bs == 0
+        assert all(b % bs == 0 for b in sc.prefill_buckets)
+        assert p.num_blocks == sc.slots * sc.max_seq_len // bs + 1
+        assert max(chip_smoke.SERVE_PROMPT_LENS) + chip_smoke.SERVE_MAX_NEW \
+            <= sc.max_seq_len
+        assert p.kernel == "cuda"
+        tiny = llama2.LlamaConfig(dim=64, n_layers=1, n_heads=1, n_kv_heads=1,
+                                  vocab_size=64, multiple_of=16,
+                                  max_seq_len=1024, dtype=torch.float32)
+        assert tiny.head_dim == 64
+        params = llama2.init_llama(torch.Generator().manual_seed(0), tiny,
+                                   "cpu")
+        PagedEngine(params, tiny, sc, "cpu",
+                    dataclasses.replace(p, num_blocks=20))
+    assert shapes[0][0] == shapes[1][0]
+    assert [run[1] for run in chip_smoke.HD256_RUNS] == [16, 12, 16]
+    assert [run[2] for run in chip_smoke.HD256_RUNS] == ["none", "none",
+                                                         "int8"]
+
+
+@pytest.mark.parametrize("kname, route, q, pool, d, g, names", [
+    ("paged_prefill_attention", "wgmma", "bfloat16", "bfloat16", 256, 8,
+     ["paged_prefill_wgmma_kernel<bf16, 256>"]),
+    ("paged_prefill_attention", "wgmma_gather", "bfloat16", "bfloat16", 36,
+     1, ["paged_prefill_gather_kernel<bf16, S1_, 64, false>"]),
+    ("paged_prefill_attention", "wgmma_gather", "bfloat16", "bfloat16", 256,
+     8, ["paged_prefill_gather_kernel<bf16, S1_, 256, true>"]),
+    ("paged_prefill_attention", "wgmma_int8", "bfloat16", "int8", 72, 1,
+     ["paged_prefill_gather_kernel<bf16, int8, 128, false>"]),
+    ("paged_prefill_attention", "wgmma_int8", "bfloat16", "int8", 256, 8,
+     ["paged_prefill_gather_kernel<bf16, int8, 256, true>"]),
+    ("paged_prefill_attention", "wgmma_tf32", "float32", "float32", 72, 1,
+     ["paged_prefill_tf32_kernel<f32, f32, 128, true>"]),
+    ("paged_prefill_attention", "scalar", "float32", "float32", 256, 8,
+     ["paged_prefill_kernel<f32, f32>"]),
+    ("paged_decode_attention", "split", "bfloat16", "int8", 256, 8,
+     ["paged_decode_split_kernel<int8, 256, 4>",
+      "paged_decode_combine_kernel"]),
+])
+def test_instance_of_names_the_ptxas_rows(kname, route, q, pool, d, g,
+                                          names):
+    """The compiled kernels a kernel row's launch runs, named as the
+    ptxas summary names them (the instantiation holding the head dim),
+    and picked out of a summary: each the name a card build's ptxas
+    report gives that kernel (the gathering and TF32 kernels carry
+    whether the rows are whole 16-byte chunks)."""
+    assert chip_smoke.instance_of(kname, route, q, pool, d, g) == names
+    rows = [{"kernel": n, "registers": 1} for n in names] + [
+        {"kernel": "paged_decode_split_kernel<bf16, 128, 1>"}]
+    assert chip_smoke.ptxas_of(rows, names) == rows[:len(names)]
 
 
 @pytest.mark.parametrize("q, pool, passes", [

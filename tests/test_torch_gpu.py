@@ -356,16 +356,117 @@ def _route_at(route, bs):
     return "wgmma_gather" if route == "wgmma" and not boxes else route
 
 
+def _route_for(route, bs, d):
+    """The route of a pair whose route at head_dim 128 on TMA-tiled pages
+    is ``route``, at pages of ``bs`` tokens and head_dim ``d``: TMA boxes
+    only where they tile the pages and stride the rows (d % 8 == 0),
+    else the gathering kernel; the TF32 route up to d 128, the scalar one
+    past it; every pair past 256 on the scalar route."""
+    if d > pa.MAX_HEAD_DIM:
+        return "scalar"
+    if route == "wgmma_tf32":
+        return route if d <= 128 else "scalar"
+    if route == "wgmma" and d % 8:
+        return "wgmma_gather"
+    return _route_at(route, bs)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f16_pool",
                                   "bfloat16", "int8"])
-@pytest.mark.parametrize("d", [72, 200])
+@pytest.mark.parametrize("d", [72, 200, 300])
 def test_prefill_scalar_route_outside_the_page_rule(cuda, d, pool):
-    """Head dims that are not a multiple of 16 up to 128 (the tensor-core
-    routes' rule at any page size): the scalar kernel takes them, for
-    any pair, on pages of 12 tokens too."""
-    args, kw, _ = _prefill(cuda, pool, g=2, d=d, bs=12, start=30, seed=150)
-    _check_prefill(args, kw, "scalar")
+    """The route rule by head dim on pages of 12 tokens: at d 72 every
+    pair is on a tensor-core route (padded to 128); at d 200 the 16-bit
+    pairs still are (kD 256) and the float32 and mixed pairs take the
+    scalar kernel; at d 300 every pair does."""
+    args, kw, route = _prefill(cuda, pool, g=2, d=d, bs=12, start=30,
+                               seed=150)
+    want = _route_for(route, 12, d)
+    assert (want == "scalar") == (d > 256 or (
+        d > 128 and route == "wgmma_tf32"))
+    _check_prefill(args, kw, want)
+
+
+@pytest.mark.gpu
+def test_decode_refuses_head_dims_past_256(cuda):
+    """The decode takes every head dim up to 256 and raises past it,
+    naming its ROADMAP item, with no launch."""
+    args, kw = _decode_long(cuda, "bfloat16", g=2, d=264, bs=16, mb=8)
+    n0 = pa.paged_decode_attention.launches
+    with pytest.raises(ValueError, match="Paged attention past head_dim 256"):
+        pa.paged_decode_attention(*args, **kw)
+    assert pa.paged_decode_attention.launches == n0
+
+
+# Head dims around and between the 64-, 128- and 256-column
+# instantiations: 8 (a sliver of a 64-column tile), 24, 36 (72-byte bf16
+# rows on 8-byte boundaries, 36-byte int8 rows on 4: no tensor map, a
+# partial last chunk), 37 (odd: 74-byte bf16 rows on 2-byte boundaries,
+# 37-byte int8 rows on 1, 148-byte float32 rows on 4; the decode's
+# combine by element), 50 (d % 4 == 2: 100-byte bf16 rows on 4, 50-byte
+# int8 rows on 2), 72, 100 (200-byte bf16 rows), 136 (kD 256 with two
+# of its four panels past d), 192, 256; pages that TMA boxes stack (8,
+# 16), split (64) and gather (12, 250).
+HEAD_DIMS = [8, 24, 36, 37, 50, 72, 100, 136, 192, 256]
+HEAD_DIM_PAGES = [8, 12, 16, 64, 250]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", list(PREFILL_POOLS))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("bs", HEAD_DIM_PAGES)
+def test_prefill_kernel_at_every_head_dim(cuda, bs, d, pool):
+    """Every pair at every head dim up to 256 on its route (_route_for):
+    the 16-bit routes padded to 64, 128 or 256 columns (TMA boxes where
+    they tile the pages and stride the rows, the gathering producer
+    elsewhere, Q loaded by it where no tensor map can stride q), the
+    TF32 route up to 128, the scalar one past it; a chunk of 20 rows of
+    group 2 at a start inside a page, dead entries pointing at a NaN
+    page, so a load past a row's end or a page's shows."""
+    args, kw, route = _prefill(cuda, pool, bucket=20, g=2, d=d, bs=bs,
+                               start=37, seed=300 + bs + d)
+    _check_prefill(args, kw, _route_for(route, bs, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_prefill_head_dims_bit_identical_across_page_sizes(cuda, d, pool):
+    """The same keys through 12- and 16-token pages on the 16-bit routes
+    (gathered against TMA boxes where d % 8 == 0, gathered both ways
+    elsewhere) at every head dim: equal bit for bit."""
+    outs = []
+    for size in (12, 16):
+        args, kw = _same_keys(cuda, pool, size, d=d, seed=320 + d)
+        _check_prefill(args, kw, _route_for("wgmma", size, d))
+        outs.append(pa.paged_prefill_attention(*args, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [None, 1])
+@pytest.mark.parametrize("pool", list(DECODE_POOLS))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("bs", HEAD_DIM_PAGES)
+def test_decode_kernel_at_every_head_dim(cuda, bs, d, pool, n_split):
+    """Every pool kind at every head dim up to 256 (group 8 over 2 KV
+    heads: two 4-row blocks a head), rows staged 16-byte aligned whatever
+    d, on contexts that cross the runs (the library's count), and in one
+    run (n_split 1: the split kernel writes the output); held by the rule
+    for the output's dtype."""
+    args, kw = _decode_long(cuda, pool, g=8, d=d, bs=bs, mb=8 if bs == 250
+                            else 64, seed=340 + bs + d)
+    n0 = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(*args, **kw, n_split=n_split)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 1
+    want = pa.paged_decode_attention_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert not got[args[5] == 0].any()
+    readings = compare(got, want, got.dtype)
+    assert readings["ok"], readings
 
 
 @pytest.mark.gpu

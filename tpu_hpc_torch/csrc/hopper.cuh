@@ -172,13 +172,16 @@ __device__ __forceinline__ void fence_proxy_async() {
 // `dst` (panel p at dst + p * tile_rows * 128). For a [B, S, H, D]
 // array (bshd_map below) the coordinates are (column, head, row,
 // batch). Rows past the array and columns past D arrive as zeros;
-// completion of the box bytes is counted on `bar`.
+// completion of the box bytes is counted on `bar`. `panels` (at most
+// kD / 64): only the first panels load -- a padded head dim's panels
+// wholly past D are left to the caller, which zeroes them once.
 template <int kD>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c1, int c2, int c3,
-                                         int tile_rows) {
+                                         int tile_rows, int panels = kD / 64) {
 #pragma unroll
   for (int p = 0; p < kD / 64; ++p) {
+    if (p >= panels) break;
     asm volatile(
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
         "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
@@ -363,16 +366,100 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
   }
 }
 
-// dQ / dK / dV / O += A . B with N = kD (the head-dim variant).
+// dQ / dK / dV / O += A . B with N = kD (the head-dim variant). kD 256
+// is two N 128 products: columns 128-255 of B start `half_bytes` past
+// its first column (two 64-column panels on), and their accumulators
+// are d[64 ..], which is where an N 256 product keeps them.
 template <typename T, int kD>
 __device__ __forceinline__ void wgmma_rs_nd(float (&d)[kD / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t db) {
+                                            uint64_t db,
+                                            uint32_t half_bytes = 0) {
   if constexpr (kD == 64) {
     wgmma_rs_n64<T>(d, a, db, 1);
-  } else {
+  } else if constexpr (kD == 128) {
     wgmma_rs_n128<T>(d, a, db, 1);
+  } else {
+    static_assert(kD == 256, "head-dim variants: 64, 128, 256");
+    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&d[0]), a, db, 1);
+    // The descriptor's start address is bits 0-13 (address / 16); a
+    // shared-memory address stays below 2^18, so adding cannot carry.
+    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                     db + (half_bytes >> 4), 1);
   }
+}
+
+// The widest load, in bytes (16, 8, 4, 2 or 1), that every row of an
+// array at `base` whose rows (of any head) are `row_bytes` apart allows
+// at each 16-byte column chunk: a head dim whose rows are not a whole
+// number of 16 bytes (a bf16 row of 36 columns is 72 bytes) puts its
+// rows, and so its chunks, on 8-, 4-, 2- or 1-byte boundaries.
+__host__ __device__ __forceinline__ int vec_bytes(const void* base,
+                                                  long long row_bytes) {
+  const uint32_t x = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(base)) |
+                     static_cast<uint32_t>(row_bytes) | 16u;
+  return static_cast<int>(x & (0u - x));
+}
+
+// `bytes` bytes (at most 16, a multiple of vw, which divides p's
+// address) from global memory at p, as the low bytes of a 16-byte chunk
+// whose other bytes are zeros, in vw-byte loads: a row's last chunk
+// never reads past the row, and a misaligned row is read at the width
+// its address allows. Callers keep their 16-byte loads for rows of a
+// whole number of 16 bytes (vw 16: every chunk whole) and take this
+// only for the others, a branch uniform over the kernel -- kept apart,
+// the loop of 16-byte loads compiles as it did without it.
+__device__ __forceinline__ uint4 ld_chunk(const void* p, int bytes, int vw) {
+  const unsigned char* b = static_cast<const unsigned char*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (vw >= 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (8 * i < bytes) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(b + 8 * i));
+        w[2 * i] = v.x;
+        w[2 * i + 1] = v.y;
+      }
+    }
+  } else if (vw == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * i < bytes) w[i] = __ldg(reinterpret_cast<const unsigned int*>(b + 4 * i));
+  } else if (vw == 2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (2 * i < bytes)
+        w[i >> 1] |= static_cast<uint32_t>(__ldg(
+                         reinterpret_cast<const unsigned short*>(b + 2 * i)))
+                     << (16 * (i & 1));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < bytes) w[i >> 2] |= static_cast<uint32_t>(__ldg(b + i)) << (8 * (i & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Bytes of 16-byte column chunk cc of a row of d elements of `esize`
+// bytes that lie inside the row (0 past its end).
+__host__ __device__ __forceinline__ int chunk_bytes(int cc, int d, int esize) {
+  const int left = (d * esize) - 16 * cc;
+  return left <= 0 ? 0 : left < 16 ? left : 16;
+}
+
+// Zeroes the 64-column panels [from, to) of a tile of `rows` rows
+// (panel p at tile + p * rows * 128), each of `threads` threads from
+// thread t on: a padded head dim's panels wholly past d, which no load
+// writes. The caller fences (fence_proxy_async) before a wgmma reads
+// them.
+__device__ __forceinline__ void zero_panels(uint32_t tile, int rows, int from,
+                                            int to, int t, int threads) {
+  const int n = (to - from) * rows * kPanelRowBytes / 16;
+  const uint32_t at = tile + from * rows * kPanelRowBytes;
+  for (int i = t; i < n; i += threads)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at + 16 * i),
+                 "r"(0u)
+                 : "memory");
 }
 
 // 16-bit tensor-map element type of T.
@@ -607,7 +694,8 @@ __device__ __forceinline__ void walk_pv(float (&o)[kD / 2],
                                         uint32_t v) {
 #pragma unroll
   for (int kk = 0; kk < kWalkKeys / 16; ++kk)
-    wgmma_rs_nd<T, kD>(o, pf[kk], mnmajor_desc(v, kWalkKeys, kk));
+    wgmma_rs_nd<T, kD>(o, pf[kk], mnmajor_desc(v, kWalkKeys, kk),
+                       2 * kWalkKeys * kPanelRowBytes);
 }
 
 // Tiles [0, n_tiles) of the ring through the online softmax into rows
@@ -668,8 +756,10 @@ __device__ __forceinline__ void walk(WalkRows<kD>& rows, uint32_t q_tile,
 // The finished rows: l summed over the quad, the l_safe rule, and the
 // natural-log lse (exactly kMaskValue for a row that saw no key).
 // Writes out[row][col] for this thread's column pairs of its two rows
-// (row_ptr[r] null for a row past the end) and returns lse per row.
-template <typename T, int kD>
+// (row_ptr[r] null for a row past the end), never a column at or past
+// d: a pair as one store where d is even (kEven: the pair is then whole
+// and aligned), element by element otherwise; returns lse per row.
+template <typename T, int kD, bool kEven = true>
 __device__ __forceinline__ void walk_finish(WalkRows<kD>& rows, T* const (&row_ptr)[2],
                                             int d, float (&lse)[2]) {
   const int lane = threadIdx.x & 31;
@@ -686,9 +776,15 @@ __device__ __forceinline__ void walk_finish(WalkRows<kD>& rows, T* const (&row_p
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
-      if (col < d)
-        store2<T>(row_ptr[r] + col, rows.o[4 * j + 2 * r] * inv,
-                  rows.o[4 * j + 2 * r + 1] * inv);
+      if constexpr (kEven) {
+        if (col < d)
+          store2<T>(row_ptr[r] + col, rows.o[4 * j + 2 * r] * inv,
+                    rows.o[4 * j + 2 * r + 1] * inv);
+      } else {
+        if (col < d) row_ptr[r][col] = from_f<T>(rows.o[4 * j + 2 * r] * inv);
+        if (col + 1 < d)
+          row_ptr[r][col + 1] = from_f<T>(rows.o[4 * j + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -1037,26 +1133,34 @@ __device__ __forceinline__ void tf32_regs_consumer() {
 // Converter thread c (0-255, both warpgroups) writing its share of a
 // 64-row K-major tile (hi, and lo where kSplit): row r = c % 64, 16-byte
 // chunks c / 64, c / 64 + 4, ... of the row at `row` (null past the end:
-// zeros), kD columns of which d are real.
-template <typename T, bool kSplit, int kD>
+// zeros), kD columns of which d are real, read at vw bytes a load
+// (vec_bytes; the last chunk only up to the row's end).
+template <typename T, bool kSplit, int kD, bool kWhole = true>
 __device__ __forceinline__ void tf32_put_rows64(uint32_t hi, uint32_t lo, int c,
-                                                const T* row, int d) {
+                                                const T* row, int d,
+                                                int vw = 16) {
   constexpr int kE = 16 / sizeof(T);
   const int r = c & 63;
 #pragma unroll
   for (int j = c >> 6; j < kD / kE; j += 4) {
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row != nullptr && j * kE < d)
-      x = __ldg(reinterpret_cast<const uint4*>(row + j * kE));
+    if (row != nullptr && j * kE < d) {
+      if constexpr (kWhole) {
+        x = __ldg(reinterpret_cast<const uint4*>(row + j * kE));
+      } else {
+        x = ld_chunk(row + j * kE, chunk_bytes(j, d, sizeof(T)), vw);
+      }
+    }
     put_kmajor<T, kSplit>(hi, lo, kTf32Rows, r, j, x);
   }
 }
 
 // The converters' share of the 64-row Q tile, then their arrival on bar_q.
-template <typename QT, typename L, int kD>
+template <typename QT, typename L, int kD, bool kWhole>
 __device__ __forceinline__ void tf32_put_q(const Tf32Ring& ring, int c,
-                                           const QT* row, int d) {
-  tf32_put_rows64<QT, L::kQSplit, kD>(ring.q, ring.q + L::kQTile, c, row, d);
+                                           const QT* row, int d, int vw) {
+  tf32_put_rows64<QT, L::kQSplit, kD, kWhole>(ring.q, ring.q + L::kQTile, c,
+                                              row, d, vw);
   fence_proxy_async();
   mbar_arrive(ring.bar_q);
 }
@@ -1118,18 +1222,26 @@ struct Tf32Share {
 };
 
 // Loads the thread's chunks of the rows (K or V) of its two keys
-// (rows[j]: null past the live keys, zeros).
-template <typename KT, int kD>
+// (rows[j]: null past the live keys, zeros): 16-byte loads where every
+// row is a whole number of 16 bytes (kWhole), else vw bytes a load
+// (vec_bytes; a row's last chunk only up to its end).
+template <typename KT, int kD, bool kWhole = true>
 __device__ __forceinline__ void tf32_load(Tf32Share<KT, kD>& x, int c,
-                                          const KT* const (&rows)[2], int d) {
+                                          const KT* const (&rows)[2], int d,
+                                          int vw = 16) {
   using X = Tf32Share<KT, kD>;
 #pragma unroll
   for (int i = 0; i < X::kPer; ++i) {
     const KT* row = rows[X::which(i)];
     const int cc = X::chunk(c, i);
     x.x[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (row != nullptr && cc * X::kE < d)
-      x.x[i] = __ldg(reinterpret_cast<const uint4*>(row + cc * X::kE));
+    if (row != nullptr && cc * X::kE < d) {
+      if constexpr (kWhole) {
+        x.x[i] = __ldg(reinterpret_cast<const uint4*>(row + cc * X::kE));
+      } else {
+        x.x[i] = ld_chunk(row + cc * X::kE, chunk_bytes(cc, d, sizeof(KT)), vw);
+      }
+    }
   }
 }
 
@@ -1179,10 +1291,10 @@ __device__ __forceinline__ void tf32_acquire(uint32_t empty, int use, int stages
 // loads of tile kt + 1 are issued before tile kt is converted, so their
 // latency hides behind that work; a tile is written once the consumer
 // has freed its half of the stage, and arrives on full_k or full_v.
-template <bool kV, typename KT, typename L, int kD, typename SrcOf>
+template <bool kV, typename KT, typename L, int kD, bool kWhole, typename SrcOf>
 __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
                                              int n_tiles, int d,
-                                             const SrcOf& src_of) {
+                                             const SrcOf& src_of, int vw) {
   using X = Tf32Share<KT, kD>;
   if (n_tiles <= 0) return;
   const int rot = X::rot(c);
@@ -1196,13 +1308,13 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
   const KT* r0[2];
   rows(0, r0);
   X x;
-  tf32_load(x, c, r0, d);
+  tf32_load<KT, kD, kWhole>(x, c, r0, d, vw);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt % L::kStages;
     const KT* rn[2] = {nullptr, nullptr};
     if (kt + 1 < n_tiles) rows(kt + 1, rn);
     X next;
-    tf32_load(next, c, rn, d);
+    tf32_load<KT, kD, kWhole>(next, c, rn, d, vw);
     tf32_acquire(kV ? ring.empty_v : ring.empty_k, kt, L::kStages);
     if constexpr (kV) {
       const uint32_t v = ring.v<L>(st);
@@ -1243,18 +1355,24 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
 // The converters' side of a TF32 kernel: both warpgroups write Q (its
 // rows: q_row(r), null past the end), then the first the K tiles and the
 // second the V tiles. ct: the thread's index among the 256 converters.
-template <typename QT, typename KT, typename L, int kD, typename QRow,
-          typename SrcOf>
+// kWhole: every row of q and of the pool is a whole number of 16 bytes
+// (16-byte loads); else vq, vk are the widest loads q's rows and the K
+// and V rows allow (vec_bytes). A kernel instantiates one or the other:
+// the narrow loads' code, compiled beside the 16-byte path, slowed it.
+template <typename QT, typename KT, typename L, int kD, bool kWhole = true,
+          typename QRow, typename SrcOf>
 __device__ __forceinline__ void tf32_converters(const Tf32Ring& ring, int ct,
                                                 int n_tiles, int d,
                                                 const QRow& q_row,
-                                                const SrcOf& src_of) {
+                                                const SrcOf& src_of,
+                                                int vq = 16, int vk = 16) {
   tf32_regs_converter();
-  tf32_put_q<QT, L, kD>(ring, ct, q_row(ct & 63), d);
+  tf32_put_q<QT, L, kD, kWhole>(ring, ct, q_row(ct & 63), d, vq);
   if (ct < 128) {
-    tf32_convert<false, KT, L, kD>(ring, ct, n_tiles, d, src_of);
+    tf32_convert<false, KT, L, kD, kWhole>(ring, ct, n_tiles, d, src_of, vk);
   } else {
-    tf32_convert<true, KT, L, kD>(ring, ct - 128, n_tiles, d, src_of);
+    tf32_convert<true, KT, L, kD, kWhole>(ring, ct - 128, n_tiles, d, src_of,
+                                          vk);
   }
 }
 

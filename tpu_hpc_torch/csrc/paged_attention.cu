@@ -17,8 +17,21 @@
 //                                or pool, float32 q over int8, mixed
 //                                16-bit dtypes) on split TF32, all three
 //                                at any page size; the fourth (scalar)
-//                                only for head dims outside the first
-//                                three's rule (prefill_route below).
+//                                only for the float32 and mixed pairs
+//                                past head_dim 128 and every pair past
+//                                256 (prefill_route below).
+//
+// Head dims. Every kernel but the scalar one is instantiated at kD 64,
+// 128 and (the decode and the 16-bit prefill) 256 columns, and pads a
+// head dim to the instantiation that holds it: columns d .. kD - 1 of Q, K and V are zeros in shared
+// memory (a TMA box zero-fills past the tensor map's d, panels wholly
+// past it are zeroed once; the gathering and converting producers
+// write zeros), the output stores d columns, the scale stays d^-0.5.
+// Rows that are not a whole number of 16 bytes (a bf16 row of 36
+// columns is 72 bytes) are read at the width their address allows,
+// never past their end (vec_bytes, ld_chunk in hopper.cuh), and staged
+// 16-byte aligned; a tensor map cannot stride them, so the 16-bit
+// prefill gathers them, Q included.
 //
 // They compute what the Pallas kernels compute -- online softmax in
 // fp32 with the MASK_VALUE / m_safe / l_safe rules, the causal limit
@@ -82,7 +95,7 @@
 //     in the last page are zero-filled, never read.
 //   * arithmetic in registers. The block's query rows and their fp32
 //     output live in registers; a key group of kD / 8 lanes (kD: d
-//     rounded up to 64 or 128) owns one key at a time, each lane 8
+//     rounded up to 64, 128 or 256) owns one key at a time, each lane 8
 //     columns of it, so a score is 8 FMAs and a short shuffle
 //     reduction, and K and V are read from shared memory once for all
 //     g rows. Each key group keeps its own running max and sum (exp2,
@@ -138,15 +151,18 @@
 //     8-key group of them, may come from two pages). Shared memory at d
 //     128: Q 16 KB, the 16-bit ring 96 KB (3 stages of K and V), scales
 //     1,536 bytes and barriers 80: 117,328 bytes with the alignment
-//     slack; one block an SM.
+//     slack; one block an SM. At kD 256: Q 32 KB and the ring 192 KB,
+//     232,016 bytes with the scales, under the 232,448 a block may take,
+//     so all three stages stay.
 //
 // The TF32 prefill (float32 and mixed pairs) runs the same grid on the
 // TF32 walk of hopper.cuh, with converter warpgroups that gather key by
 // key as the gathering route does; its design is set out above the
-// kernel. Only head dims outside the tensor-core rule keep the first,
+// kernel. Only the float32 and mixed pairs past head_dim 128 (whose TF32
+// tiles do not fit at kD 256) and every pair past 256 keep the first,
 // simple design: scalar fp32 FMAs over shared memory, K/V pages staged
-// with plain loads, four barriers per page. PERF.md carries the
-// measured times against the bounds.
+// with plain loads a step of keys at a time, four barriers a step.
+// PERF.md carries the measured times against the bounds.
 //
 // Plain C interface, loaded with ctypes by
 // tpu_hpc_torch/kernels/_build.py. Every entry point launches on the
@@ -211,7 +227,9 @@ __device__ __forceinline__ float2 to_f2(__nv_bfloat162 x) {
 }
 
 // Lane l's 8 elements of a d-element row in shared memory, as floats;
-// columns at or past d read as 0.
+// columns at or past d read as 0. The row is staged 16-byte aligned and
+// zero-filled up to its next 16 bytes (DecodeCopy), so a load that
+// starts before d and runs past it reads zeros there.
 template <typename KT, int kD>
 __device__ __forceinline__ void load_slice(const KT* row, int l, int d,
                                            float (&x)[8]) {
@@ -337,6 +355,13 @@ __host__ __device__ inline int decode_table_bytes(int pages, bool quant) {
   return align16(pages * (quant ? 12 : 4));
 }
 
+// Bytes of a K or V row staged in shared memory: the row rounded up to
+// whole 16-byte chunks, so every staged row starts 16-byte aligned
+// whatever d (a bf16 row of 36 columns is 72 bytes, staged in 80).
+__host__ __device__ constexpr int staged_row_bytes(int d, int esize) {
+  return align16(d * esize);
+}
+
 // Shared memory of a split block: the run's table, then the ring of
 // kDecodeStages (K, V) tiles, reused at the end for the key groups'
 // partials: o [groups][rows][d], m and l [groups][rows], the merge
@@ -345,7 +370,8 @@ template <int kD, int kRows>
 size_t split_smem_bytes(int pages, bool quant, int tile_keys, int d,
                          int esize) {
   constexpr int kGroups = DecodeShape<kD>::kGroups;
-  const size_t ring = static_cast<size_t>(kDecodeStages) * 2 * tile_keys * d * esize;
+  const size_t ring = static_cast<size_t>(kDecodeStages) * 2 * tile_keys *
+                      staged_row_bytes(d, esize);
   const size_t merge = sizeof(float) * (static_cast<size_t>(kGroups) * kRows * d +
                                         3 * kGroups * kRows);
   return decode_table_bytes(pages, quant) + (ring > merge ? ring : merge);
@@ -357,7 +383,7 @@ size_t split_smem_bytes(int pages, bool quant, int tile_keys, int d,
 int decode_tile_keys(int d, int bs, int esize, int groups) {
   int cap = kDecodeKeysPerGroup * groups;
   cap = cap < 32 ? cap : 32;
-  const int by_bytes = kDecodeTileBytes / (d * esize);
+  const int by_bytes = kDecodeTileBytes / staged_row_bytes(d, esize);
   cap = cap < by_bytes ? cap : by_bytes;
   for (int t = cap < bs ? cap : bs; t > 1; --t) {
     if (bs % t == 0) return t;
@@ -380,15 +406,67 @@ int decode_splits(int slots, int hkv, int g, int max_blocks, int sms) {
   return (max_blocks + pps - 1) / pps;
 }
 
-// Head dims the decode takes: multiples of 16 (one 16-byte load is 16
-// int8 columns) up to 128.
-bool decode_takes(int d) { return d >= 16 && d <= 128 && d % 16 == 0; }
+// cp.async of n (4 or 8) bytes; src_bytes 0 writes zeros and reads
+// nothing.
+template <int N>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(N), "r"(src_bytes)
+               : "memory");
+}
+
+// The largest head dim the decode and the 16-bit prefill take on the
+// card (the kD 256 instantiations).
+constexpr int kMaxHeadDim = 256;
+
+// Head dims the decode takes: every d from 1 to kMaxHeadDim, in the
+// instantiation of 64, 128 or 256 columns (DecodeShape) that holds it.
+bool decode_takes(int d) { return d >= 1 && d <= kMaxHeadDim; }
+
+// One chunk of a staged decode row (DecodeCopy) from a row that is not a
+// whole number of 16 bytes (vw < 16): its c_bytes as cp.async pieces of
+// vw bytes (8 or 4), or through registers (ld_chunk) on 2- and 1-byte
+// boundaries; the rest of the chunk, and all of it where !live, zeros.
+// Not inlined, and free of the copier's state: its temporaries stay out
+// of the register budget of the 16-byte path, which the 4-row blocks
+// fill to their cap.
+__device__ __noinline__ void decode_copy_part(uint32_t dst, const void* src,
+                                              bool live, int vw, int c_bytes) {
+  const unsigned char* b = static_cast<const unsigned char*>(src);
+  if (vw == 8) {
+#pragma unroll
+    for (int off = 0; off < 16; off += 8) {
+      // A piece past the row's end reads nothing (its source: the
+      // chunk's own first byte).
+      const bool in = live && off < c_bytes;
+      cp_async_ca<8>(dst + off, b + (in ? off : 0), in ? 8 : 0);
+    }
+  } else if (vw == 4) {
+#pragma unroll
+    for (int off = 0; off < 16; off += 4) {
+      const bool in = live && off < c_bytes;
+      cp_async_ca<4>(dst + off, b + (in ? off : 0), in ? 4 : 0);
+    }
+  } else {
+    const uint4 x = live ? ld_chunk(b, c_bytes, vw) : make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+                 : "memory");
+  }
+}
 
 // The split kernel's copies: thread tid moves 16-byte chunk `my_chunk`
 // of rows my_row, my_row + row_step, ... of a tile's K rows then V rows
 // (k and v already point at that chunk of the head), and issue() walks
 // the run's tiles in order -- a page at a time, bs / tile_keys tiles a
-// page -- so no division is left in the loop.
+// page -- so no division is left in the loop. A row is staged at
+// row_bytes (staged_row_bytes: 16-byte aligned) whatever d. Where the
+// rows in global memory are a whole number of 16 bytes (vw 16) a chunk
+// is one 16-byte cp.async; else the chunk's c_bytes (a row's last chunk
+// stops at its end) go as cp.async pieces of vw bytes (8 or 4), or, on
+// 2- and 1-byte boundaries, through registers (ld_chunk, then a shared
+// store); the rest of the chunk is zero-filled either way.
 template <typename KT>
 struct DecodeCopy {
   const KT* k;
@@ -397,7 +475,7 @@ struct DecodeCopy {
   size_t tok_stride;   // elements from one key to the next
   uint32_t ring;       // this thread's chunk of stage 0's first K row
   int bs, tile_keys, row_bytes, tile_bytes, row_step, my_row, key0, key_end,
-      n_tiles;
+      n_tiles, vw, c_bytes;
   int page = 0, row = 0;  // the next tile's page (in the run) and row
 
   // Loads tile `tile` (the next one) into its ring stage; keys past the
@@ -408,12 +486,22 @@ struct DecodeCopy {
       const int k_first = key0 + tile * tile_keys;
       const size_t base = (static_cast<size_t>(tbl[page]) * bs + row) * tok_stride;
       const uint32_t dst0 = ring + (tile % kDecodeStages) * 2 * tile_bytes;
-      for (int r = my_row; r < 2 * tile_keys; r += row_step) {
-        const int which = r >= tile_keys;
-        const int t = r - which * tile_keys;
-        cp_async16(dst0 + which * tile_bytes + t * row_bytes,
-                   (which ? v : k) + base + t * tok_stride,
-                   k_first + t < key_end ? 16 : 0);
+      if (vw == 16) {  // whole 16-byte chunks (a branch uniform over the kernel)
+        for (int r = my_row; r < 2 * tile_keys; r += row_step) {
+          const int which = r >= tile_keys;
+          const int t = r - which * tile_keys;
+          cp_async16(dst0 + which * tile_bytes + t * row_bytes,
+                     (which ? v : k) + base + t * tok_stride,
+                     k_first + t < key_end ? 16 : 0);
+        }
+      } else {
+        for (int r = my_row; r < 2 * tile_keys; r += row_step) {
+          const int which = r >= tile_keys;
+          const int t = r - which * tile_keys;
+          decode_copy_part(dst0 + which * tile_bytes + t * row_bytes,
+                           (which ? v : k) + base + t * tok_stride,
+                           k_first + t < key_end, vw, c_bytes);
+        }
       }
     }
     row += tile_keys;
@@ -509,18 +597,23 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
     }
   }
   __syncthreads();  // the table is in shared memory
-  const int row_bytes = d * static_cast<int>(sizeof(KT));
+  constexpr int kEsize = static_cast<int>(sizeof(KT));
+  const int row_bytes = staged_row_bytes(d, kEsize);
+  const int ds = row_bytes / kEsize;  // elements between staged rows
   const int tile_bytes = tile_keys * row_bytes;
 
   const int chunks_row = row_bytes / 16;
   const int my_row = tid / chunks_row;
   const int my_chunk = tid - my_row * chunks_row;
-  const size_t my_col = static_cast<size_t>(h) * d + my_chunk * (16 / static_cast<int>(sizeof(KT)));
+  const size_t my_col = static_cast<size_t>(h) * d + my_chunk * (16 / kEsize);
   DecodeCopy<KT> copy{k_pages + my_col, v_pages + my_col, tbl,
                       static_cast<size_t>(hkv) * d,
                       smem_u32(ring) + my_chunk * 16, bs, tile_keys, row_bytes,
                       tile_bytes, kDecodeThreads / chunks_row, my_row, key0,
-                      key_end, n_tiles};
+                      key_end, n_tiles,
+                      min(vec_bytes(k_pages, d * kEsize),
+                          vec_bytes(v_pages, d * kEsize)),
+                      chunk_bytes(my_chunk, d, kEsize)};
 
   float o[kRows][8];
   float m[kRows], lsum[kRows];
@@ -541,7 +634,7 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
     copy.issue(tile + kDecodeStages - 1);
     const KT* ks = reinterpret_cast<const KT*>(
         ring + (tile % kDecodeStages) * 2 * tile_bytes);
-    const KT* vs = ks + tile_keys * d;
+    const KT* vs = ks + tile_keys * ds;
     const int k_first = key0 + tile * tile_keys;
     float k_sc = 1.f, v_sc = 1.f;
     if constexpr (kQuant) {
@@ -557,7 +650,7 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
       const bool seen = t < tile_keys && k_first + t < key_end;
       float kx[8];
       if (seen) {
-        load_slice<KT, kD>(ks + t * d, l, d, kx);
+        load_slice<KT, kD>(ks + t * ds, l, d, kx);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kx[e] = 0.f;
@@ -602,7 +695,7 @@ __global__ void __maxnreg__(128) paged_decode_split_kernel(
       const int t = kg + j * kGroups;
       if (t < tile_keys && k_first + t < key_end) {
         float vx[8];
-        load_slice<KT, kD>(vs + t * d, l, d, vx);
+        load_slice<KT, kD>(vs + t * ds, l, d, vx);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const float pv = pool_round<KT>(s[j][r]) * v_sc;
@@ -707,6 +800,18 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
   }
   __syncthreads();
   const int n_live = *live_runs;
+  if (d % 4 != 0) {  // rows of the partials not 16-byte aligned: by element
+    for (int i = tid; i < g * d; i += kDecodeThreads) {
+      const int r = i / d;
+      const float* o = o_part + (head * n_split * g + r) * d + (i - r * d);
+      const float* w = combine_w + r * n_split;
+      float acc = 0.f;
+      for (int run = 0; run < n_live; ++run)
+        acc = fmaf(w[run], o[static_cast<size_t>(run) * g * d], acc);
+      store_q(out, head * g * d + i, acc, q_dtype);
+    }
+    return;
+  }
   const int d4 = d / 4;
   const float4* o4 = reinterpret_cast<const float4*>(o_part);
   for (int i = tid; i < g * d4; i += kDecodeThreads) {
@@ -732,11 +837,13 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
 
 // ---------------------------------------------------------------------
 // Chunked prefill, any pair of dtypes, at the head dims the tensor-core
-// routes below do not take (prefill_route): grid (kv_heads, row tiles).
-// Grouped query row r of head h sits
-// at position start + r / g; a block owns tq consecutive rows and walks
-// the pages up to its last row's causal limit. Shared-memory rows are
-// padded to d + 1 floats so the per-key dot products hit distinct banks.
+// routes below do not take (prefill_route: float32 and mixed pairs past
+// 128, every pair past kMaxHeadDim): grid (kv_heads, row tiles).
+// Grouped query row r of head h sits at position start + r / g; a block
+// owns tq consecutive rows and walks the pages up to its last row's
+// causal limit, tk keys of a page at a time (scalar_tile: a whole page
+// where it fits). Shared-memory rows are padded to d + 1 floats so the
+// per-key dot products hit distinct banks.
 // ---------------------------------------------------------------------
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
@@ -748,7 +855,7 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
     const float* __restrict__ v_scale,
     QT* __restrict__ out,               // (hkv, bucket, g, d)
     int hkv, int bucket, int g, int d, int bs, int max_blocks, int start,
-    int tq, float sm_scale) {
+    int tq, int tk, float sm_scale) {
   const int h = blockIdx.x;
   const int tid = threadIdx.x;
   const int n_rows_total = bucket * g;
@@ -759,10 +866,10 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
   extern __shared__ float smem[];
   float* qs = smem;                 // [tq][dp]
   float* acc = qs + tq * dp;        // [tq][dp]
-  float* kt = acc + tq * dp;        // [bs][dp]
-  float* vt = kt + bs * dp;         // [bs][dp]
-  float* sc = vt + bs * dp;         // [tq][bs]
-  float* m = sc + tq * bs;          // [tq]
+  float* kt = acc + tq * dp;        // [tk][dp]
+  float* vt = kt + tk * dp;         // [tk][dp]
+  float* sc = vt + tk * dp;         // [tq][tk]
+  float* m = sc + tq * tk;          // [tq]
   float* l = m + tq;                // [tq]
   float* alpha = l + tq;            // [tq]
 
@@ -789,41 +896,46 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
     const int page = table[j];
     const float ksc = k_scale != nullptr ? k_scale[page] : 1.f;
     const float vsc = v_scale != nullptr ? v_scale[page] : 1.f;
-    const KT* kp = k_pages + page * page_stride + static_cast<size_t>(h) * d;
-    const KT* vp = v_pages + page * page_stride + static_cast<size_t>(h) * d;
-    __syncthreads();  // the previous page's tiles are no longer read
-    for (int i = tid; i < bs * d; i += kPrefillThreads) {
-      const int t = i / d;
-      const int x = i - t * d;
-      kt[t * dp + x] = to_f(kp[t * tok_stride + x]) * ksc;
-      vt[t * dp + x] = to_f(vp[t * tok_stride + x]) * vsc;
-    }
-    __syncthreads();
-    for (int i = tid; i < nrows * bs; i += kPrefillThreads) {
-      const int r = i / bs;
-      const int t = i - r * bs;
-      const int qpos = start + (row0 + r) / g;
-      float s = kMaskValue;
-      if (j * bs + t <= qpos) {
-        const float* qrow = qs + r * dp;
-        const float* krow = kt + t * dp;
-        float dot = 0.f;
-        for (int x = 0; x < d; ++x) dot += qrow[x] * krow[x];
-        s = dot * sm_scale;
+    for (int t0 = 0; t0 < bs; t0 += tk) {  // keys t0 .. t0 + nk - 1 of the page
+      const int nk = min(tk, bs - t0);
+      const KT* kp = k_pages + page * page_stride + t0 * tok_stride +
+                     static_cast<size_t>(h) * d;
+      const KT* vp = v_pages + page * page_stride + t0 * tok_stride +
+                     static_cast<size_t>(h) * d;
+      __syncthreads();  // the previous keys' tiles are no longer read
+      for (int i = tid; i < nk * d; i += kPrefillThreads) {
+        const int t = i / d;
+        const int x = i - t * d;
+        kt[t * dp + x] = to_f(kp[t * tok_stride + x]) * ksc;
+        vt[t * dp + x] = to_f(vp[t * tok_stride + x]) * vsc;
       }
-      sc[i] = s;
-    }
-    __syncthreads();
-    for (int r = tid; r < nrows; r += kPrefillThreads)
-      softmax_step<KT>(sc + r * bs, bs, m + r, l + r, alpha + r);
-    __syncthreads();
-    for (int i = tid; i < nrows * d; i += kPrefillThreads) {
-      const int r = i / d;
-      const int x = i - r * d;
-      const float* p = sc + r * bs;
-      float a = acc[r * dp + x] * alpha[r];
-      for (int t = 0; t < bs; ++t) a += p[t] * vt[t * dp + x];
-      acc[r * dp + x] = a;
+      __syncthreads();
+      for (int i = tid; i < nrows * nk; i += kPrefillThreads) {
+        const int r = i / nk;
+        const int t = i - r * nk;
+        const int qpos = start + (row0 + r) / g;
+        float s = kMaskValue;
+        if (j * bs + t0 + t <= qpos) {
+          const float* qrow = qs + r * dp;
+          const float* krow = kt + t * dp;
+          float dot = 0.f;
+          for (int x = 0; x < d; ++x) dot += qrow[x] * krow[x];
+          s = dot * sm_scale;
+        }
+        sc[i] = s;
+      }
+      __syncthreads();
+      for (int r = tid; r < nrows; r += kPrefillThreads)
+        softmax_step<KT>(sc + r * nk, nk, m + r, l + r, alpha + r);
+      __syncthreads();
+      for (int i = tid; i < nrows * d; i += kPrefillThreads) {
+        const int r = i / d;
+        const int x = i - r * d;
+        const float* p = sc + r * nk;
+        float a = acc[r * dp + x] * alpha[r];
+        for (int t = 0; t < nk; ++t) a += p[t] * vt[t * dp + x];
+        acc[r * dp + x] = a;
+      }
     }
   }
   __syncthreads();
@@ -889,8 +1001,9 @@ __device__ __forceinline__ PrefillMask prefill_mask(int r0, int row0, int g,
 
 // The consumer warpgroup of a tensor-core prefill: rows r0 and r0 + 8
 // through the walk over the ring's n_tiles tiles once the Q tile has
-// arrived on bar_q, then written to out (hkv, bucket, g, d).
-template <typename T, int kD, typename Mask>
+// arrived on bar_q, then written to out (hkv, bucket, g, d) -- in column
+// pairs where d is even (kEven), by element otherwise.
+template <typename T, int kD, bool kEven = true, typename Mask>
 __device__ __forceinline__ void prefill_consume(const Mask& mask, int r0,
                                                 uint32_t s_q, uint32_t bar_q,
                                                 const WalkRing& ring,
@@ -915,7 +1028,7 @@ __device__ __forceinline__ void prefill_consume(const Mask& mask, int r0,
                      : nullptr;
   }
   float row_lse[2];  // not an output of the prefill
-  walk_finish<T, kD>(rows, row_ptr, d, row_lse);
+  walk_finish<T, kD, kEven>(rows, row_ptr, d, row_lse);
 }
 
 template <typename T, int kD>
@@ -953,6 +1066,20 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
   const int live_keys = min(last_pos + 1, n_keys);
   const int n_tiles = (live_keys + kWalkKeys - 1) / kWalkKeys;
   const int n_pages = (live_keys + bs - 1) / bs;
+  // Panels holding a column below d: the boxes load only these; the
+  // rest of a padded head dim (e.g. 192-255 at d 136) is zeroed here,
+  // once, in Q and in every stage, and no box ever writes it. (Only kD
+  // 256 has such panels: a d the 64- or 128-column kernel takes is past
+  // its last panel's first column.)
+  const int panels = kD == 256 ? (d + 63) / 64 : kD / 64;
+  if (panels < kD / 64) {
+    zero_panels(s_q, kPrefillRows, panels, kD / 64, threadIdx.x,
+                kPrefillWgmmaThreads);
+    for (int st = 0; st < 2 * kPrefillStages; ++st)
+      zero_panels(ring.k + st * kTile, kWalkKeys, panels, kD / 64, threadIdx.x,
+                  kPrefillWgmmaThreads);
+    fence_proxy_async();
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q);
@@ -967,8 +1094,8 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
 
   if (warp == 4) {  // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(bar_q, kQ);
-      tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows);
+      mbar_expect_tx(bar_q, kPrefillRows * kPanelRowBytes * panels);
+      tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows, panels);
     }
     const int box = min(bs, kWalkKeys);  // rows of one box
     const int per = kWalkKeys / box;     // boxes (pages) per tile
@@ -996,18 +1123,18 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
       }
       __syncwarp();
       if (lane == 0) {
-        const uint32_t bytes = n_live * box * kD * 2;
+        const uint32_t bytes = n_live * box * kPanelRowBytes * panels;
         const int t0 = bs > kWalkKeys ? kt * kWalkKeys % bs : 0;
         mbar_expect_tx(ring.full_k + 8 * st, bytes);
         for (int i = 0; i < n_live; ++i)
           tma_tile<kD>(k_tile + i * box * kPanelRowBytes, &tm_k,
                        ring.full_k + 8 * st, h, t0, table[first_page + i],
-                       kWalkKeys);
+                       kWalkKeys, panels);
         mbar_expect_tx(ring.full_v + 8 * st, bytes);
         for (int i = 0; i < n_live; ++i)
           tma_tile<kD>(v_tile + i * box * kPanelRowBytes, &tm_v,
                        ring.full_v + 8 * st, h, t0, table[first_page + i],
-                       kWalkKeys);
+                       kWalkKeys, panels);
       }
     }
     return;
@@ -1047,7 +1174,12 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
 // Each thread reads the table entries of all its rows of tile kt + 1,
 // then their data, before it writes tile kt: one table read's latency
 // a tile, hidden behind the wait for the stage and the stores (read row
-// by row, that latency set the kernel's time: PERF.md).
+// by row, that latency set the kernel's time: PERF.md). At kD 256 a
+// 16-bit pool's chunks of a tile would take 256 registers a thread, so
+// the thread loads K and V as halves, one half ahead. kWhole: the rows
+// of q and the pool are a whole number of 16 bytes (Q by TMA, 16-byte
+// loads, output in column pairs); the other instantiation reads rows on
+// the boundaries they have (ld_chunk), Q too, and stores by element.
 // ---------------------------------------------------------------------
 constexpr int kGatherThreads = 256;  // a consumer warpgroup + a producer warpgroup
 
@@ -1055,13 +1187,17 @@ constexpr int kGatherThreads = 256;  // a consumer warpgroup + a producer warpgr
 // walk's 16-bit K and V ring, an int8 pool's per-key scales
 // [kPrefillStages][128] (64 K, then 64 V), the barriers. d 128: 16 + 96
 // KB, 1,536 bytes of scales over int8 and 80 of barriers; d 64: half
-// the tiles.
+// the tiles; d 256: twice (32 + 192 KB; 232,016 bytes over int8, with
+// the 1,024 of alignment slack).
 template <int kD, bool kScaled>
 constexpr size_t prefill_gather_smem_bytes() {
   return kPrefillRows * kD * 2 + 2 * kPrefillStages * walk_tile_bytes<kD>() +
          (kScaled ? kPrefillStages * 2 * kWalkKeys * sizeof(float) : 0) +
          (1 + 3 * kPrefillStages) * 8 + 1024;
 }
+static_assert(prefill_gather_smem_bytes<256, true>() <= kMaxSmem &&
+                  prefill_wgmma_smem_bytes<256>() <= kMaxSmem,
+              "kD 256 keeps three stages of K and V");
 
 // The int8 pool's mask: the 16-bit prefill's, plus each key's page
 // scales, which the walk folds into S and P.
@@ -1110,9 +1246,10 @@ __device__ __forceinline__ void put_pool_chunk(const uint4& x, uint32_t tile,
   }
 }
 
-template <typename T, typename KT, int kD>
+template <typename T, typename KT, int kD, bool kWhole>
 __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel(
     const __grid_constant__ CUtensorMap tm_q,  // q as [hkv, bucket g, 1, d]
+    const T* __restrict__ q,                   // (hkv, bucket, g, d)
     const KT* __restrict__ k_pages,            // (num_blocks, bs, hkv, d)
     const KT* __restrict__ v_pages,
     const int* __restrict__ table,             // (table_width,)
@@ -1150,9 +1287,17 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
   const int last_pos = start + (row0 + nrows - 1) / g;
   const int live_keys = min(last_pos + 1, n_keys);
   const int n_tiles = (live_keys + kWalkKeys - 1) / kWalkKeys;
+  // Q's panels holding a column below d; a TMA load of Q fills only
+  // those, and the rest of a padded head dim is zeroed here, once (kD
+  // 256 only, as in the TMA kernel).
+  const int panels = kD == 256 ? (d + 63) / 64 : kD / 64;
+  if (kWhole && panels < kD / 64) {
+    zero_panels(s_q, kPrefillRows, panels, kD / 64, threadIdx.x, kGatherThreads);
+    fence_proxy_async();
+  }
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q);
+    mbar_init(bar_q, kWhole ? 1 : 128);
     for (int st = 0; st < kPrefillStages; ++st) {
       mbar_init(ring.full_k + 8 * st, 128);
       mbar_init(ring.full_v + 8 * st, 128);
@@ -1167,72 +1312,174 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
     constexpr int kCpr = kD / kE;                 // chunks of a row
     constexpr int kRowStep = 128 / kCpr;          // between a thread's rows
     constexpr int kRows = kWalkKeys / kRowStep;   // rows of a tile per thread
+    // Loaded one tile ahead, a thread's K and V chunks of a tile take
+    // 4 kRows registers twice over: 128 up to kD 128 (and for int8 at
+    // 256). A 16-bit pool at kD 256 (16 rows a thread) would take 256,
+    // so there the thread loads K and V as two halves, each one half
+    // ahead of the one it writes.
+    constexpr bool kHalves = kRows > 8;
     const int c = threadIdx.x - 128;
     const int cc = c % kCpr;
     const int t0 = c / kCpr;
-    if (c == 0) {
-      mbar_expect_tx(bar_q, kQ);
-      tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows);
+    if constexpr (kWhole) {
+      if (c == 0) {
+        mbar_expect_tx(bar_q, kPrefillRows * kPanelRowBytes * panels);
+        tma_tile<kD>(s_q, &tm_q, bar_q, 0, row0, h, kPrefillRows, panels);
+      }
+    } else {
+      // Rows not a whole number of 16 bytes (q's or the pool's): q's may
+      // be ones a tensor map cannot stride, so the producers load the Q
+      // tile, every column (zeros past d and past the last row), then
+      // each arrives.
+      const int vq = vec_bytes(q, static_cast<long long>(d) * 2);
+      for (int i = c; i < kPrefillRows * (kD / 8); i += 128) {
+        const int r = i / (kD / 8);
+        const int qc = i - r * (kD / 8);
+        const int bytes = chunk_bytes(qc, d, 2);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nrows && bytes > 0)
+          x = ld_chunk(q + (static_cast<size_t>(h) * n_rows + row0 + r) * d + qc * 8,
+                       bytes, vq);
+        put_chunk16(s_q, r, qc, x);
+      }
+      fence_proxy_async();
+      mbar_arrive(bar_q);
     }
     const size_t tok = static_cast<size_t>(hkv) * d;  // elements between keys
     const size_t col = static_cast<size_t>(h) * d + cc * kE;
-    const bool col_live = cc * kE < d;
-    // Tile kt's chunks of this thread and its scale (a key past the live
-    // keys: 0), into registers; past the last tile, nothing.
-    struct Chunks {
-      uint4 k[kRows], v[kRows];
-      float sc;
-    };
-    const auto load = [&](int kt, Chunks& x) {
-      // Every row's table entry first (-1: not read), then the rows, so
-      // one table read's latency covers them all.
-      int page[kRows], at[kRows];
+    // This thread's chunk: its bytes inside the row (0: wholly past d,
+    // written as zeros and never read) and, for rows not a whole number
+    // of 16 bytes, the widest load they allow.
+    const int c_bytes = chunk_bytes(cc, d, sizeof(KT));
+    const int vw = kWhole ? 16
+                          : min(vec_bytes(k_pages, static_cast<long long>(d) * sizeof(KT)),
+                                vec_bytes(v_pages, static_cast<long long>(d) * sizeof(KT)));
+    // This thread's rows of tile kt: their page (-1: not read -- past the
+    // live keys, past the last tile, or a chunk past d) and row in it.
+    // Every row's table entry is read first, then the rows, so one table
+    // read's latency covers them all.
+    const auto rows_of = [&](int kt, int (&page)[kRows], int (&at)[kRows]) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int key = kt * kWalkKeys + t0 + r * kRowStep;
         const int p = key / bs;
         at[r] = key - p * bs;
-        page[r] = kt < n_tiles && key < live_keys && col_live ? __ldg(table + p) : -1;
+        page[r] = kt < n_tiles && key < live_keys && c_bytes > 0
+                      ? __ldg(table + p) : -1;
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        x.k[r] = x.v[r] = make_uint4(0u, 0u, 0u, 0u);
-        if (page[r] >= 0) {
-          const size_t off =
-              (static_cast<size_t>(page[r]) * bs + at[r]) * tok + col;
-          x.k[r] = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
-          x.v[r] = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
-        }
-      }
-      x.sc = 0.f;
+    };
+    // This thread's scale of tile kt (a key past the live keys: 0).
+    const auto scale_of = [&](int kt) {
+      float sc = 0.f;
       if constexpr (kScaled) {
         const int key = kt * kWalkKeys + (c & (kWalkKeys - 1));
         if (kt < n_tiles && key < live_keys)
-          x.sc = __ldg((c < kWalkKeys ? k_scale : v_scale) + __ldg(table + key / bs));
+          sc = __ldg((c < kWalkKeys ? k_scale : v_scale) + __ldg(table + key / bs));
+      }
+      return sc;
+    };
+    const auto put_rows = [&](const uint4 (&x)[kRows], uint32_t tile) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        put_pool_chunk<T, KT>(x[r], tile, t0 + r * kRowStep, cc);
+    };
+    // The producer's loop: 16-byte loads where every row is a whole
+    // number of 16 bytes (kWhole), else ld_chunk's narrower ones, in a
+    // kernel of its own -- compiled into one kernel, the narrow path
+    // slowed the 16-byte one by a tenth at 12-token pages (NVIDIA H100
+    // 80GB HBM3, 700.00 W; PERF.md).
+    const auto chunk = [&](const KT* p) {
+      if constexpr (kWhole) {
+        return __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        return ld_chunk(p, c_bytes, vw);
       }
     };
-    // The loads of tile kt + 1 are issued before tile kt is written, so
-    // their latency hides behind the wait for its stage and its stores.
-    Chunks x;
-    load(0, x);
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      Chunks next;
-      load(kt + 1, next);
-      const int st = kt % kPrefillStages;
-      if (kt >= kPrefillStages)
-        mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
-      if constexpr (kScaled) scales[st * 2 * kWalkKeys + c] = x.sc;
+    if constexpr (!kHalves) {
+      // Tile kt's chunks of this thread and its scale, in registers.
+      struct Chunks {
+        uint4 k[kRows], v[kRows];
+        float sc;
+      };
+      const auto load = [&](int kt, Chunks& x) {
+        int page[kRows], at[kRows];
+        rows_of(kt, page, at);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        put_pool_chunk<T, KT>(x.k[r], ring.k + st * kTile, t0 + r * kRowStep, cc);
-      fence_proxy_async();
-      mbar_arrive(ring.full_k + 8 * st);
+        for (int r = 0; r < kRows; ++r) {
+          x.k[r] = x.v[r] = make_uint4(0u, 0u, 0u, 0u);
+          if (page[r] >= 0) {
+            const size_t off =
+                (static_cast<size_t>(page[r]) * bs + at[r]) * tok + col;
+            x.k[r] = chunk(k_pages + off);
+            x.v[r] = chunk(v_pages + off);
+          }
+        }
+        x.sc = scale_of(kt);
+      };
+      // The loads of tile kt + 1 are issued before tile kt is written,
+      // so their latency hides behind the wait for its stage and its
+      // stores.
+      Chunks x;
+      load(0, x);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        Chunks next;
+        load(kt + 1, next);
+        const int st = kt % kPrefillStages;
+        if (kt >= kPrefillStages)
+          mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
+        if constexpr (kScaled) scales[st * 2 * kWalkKeys + c] = x.sc;
+        put_rows(x.k, ring.k + st * kTile);
+        fence_proxy_async();
+        mbar_arrive(ring.full_k + 8 * st);
+        put_rows(x.v, ring.v + st * kTile);
+        fence_proxy_async();
+        mbar_arrive(ring.full_v + 8 * st);
+        x = next;
+      }
+    } else {
+      // Half p of the walk: K (p even) or V (p odd) of tile p / 2; the
+      // thread's scale rides with the K half (both a stage's K and V
+      // scales must be in place when its K tile arrives: the softmax
+      // reads them).
+      struct Half {
+        uint4 x[kRows];
+        float sc;
+      };
+      const auto load = [&](int p, Half& x) {
+        const int kt = p >> 1;
+        const KT* pool = (p & 1) ? v_pages : k_pages;
+        int page[kRows], at[kRows];
+        rows_of(kt, page, at);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        put_pool_chunk<T, KT>(x.v[r], ring.v + st * kTile, t0 + r * kRowStep, cc);
-      fence_proxy_async();
-      mbar_arrive(ring.full_v + 8 * st);
-      x = next;
+        for (int r = 0; r < kRows; ++r) {
+          x.x[r] = make_uint4(0u, 0u, 0u, 0u);
+          if (page[r] >= 0)
+            x.x[r] = chunk(pool + (static_cast<size_t>(page[r]) * bs + at[r]) *
+                                      tok + col);
+        }
+        x.sc = (p & 1) ? 0.f : scale_of(kt);
+      };
+      Half x;
+      load(0, x);
+      for (int p = 0; p < 2 * n_tiles; ++p) {
+        Half next;
+        load(p + 1, next);
+        const int kt = p >> 1;
+        const int st = kt % kPrefillStages;
+        if ((p & 1) == 0) {
+          if (kt >= kPrefillStages)
+            mbar_wait(ring.empty + 8 * st, (kt / kPrefillStages - 1) & 1);
+          if constexpr (kScaled) scales[st * 2 * kWalkKeys + c] = x.sc;
+          put_rows(x.x, ring.k + st * kTile);
+          fence_proxy_async();
+          mbar_arrive(ring.full_k + 8 * st);
+        } else {
+          put_rows(x.x, ring.v + st * kTile);
+          fence_proxy_async();
+          mbar_arrive(ring.full_v + 8 * st);
+        }
+        x = next;
+      }
     }
     return;
   }
@@ -1240,11 +1487,12 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
   const int r0 = row0 + 16 * warp + (lane >> 2);
   const PrefillMask mask = prefill_mask(r0, row0, g, start, n_keys);
   if constexpr (kScaled) {
-    prefill_consume<T, kD>(PrefillInt8Mask{mask, scales}, r0, s_q, bar_q, ring,
-                           n_tiles, sm_scale, out, h, n_rows, d);
+    prefill_consume<T, kD, kWhole>(PrefillInt8Mask{mask, scales}, r0, s_q,
+                                   bar_q, ring, n_tiles, sm_scale, out, h,
+                                   n_rows, d);
   } else {
-    prefill_consume<T, kD>(mask, r0, s_q, bar_q, ring, n_tiles, sm_scale, out,
-                           h, n_rows, d);
+    prefill_consume<T, kD, kWhole>(mask, r0, s_q, bar_q, ring, n_tiles,
+                                   sm_scale, out, h, n_rows, d);
   }
 }
 
@@ -1278,9 +1526,12 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
 // Shared memory at d 128 (Tf32Layout): float32 q and pool, Q 64 KB and
 // two stages of 64 KB; a 16-bit q over a float32 pool, Q 32 KB and three
 // stages; the others four stages. The converters' work, not the tensor
-// cores, sets the time over a float32 pool (PERF.md).
+// cores, sets the time over a float32 pool (PERF.md). Head dims up to
+// 128 only (at 256 the fp32 Q tile and one stage would take 256 KB);
+// kWhole as in the gathering kernel (the narrow instantiation's
+// converters spill over a float32 pool at kD 128: ptxas, PERF.md).
 // ---------------------------------------------------------------------
-template <typename QT, typename KT, int kD>
+template <typename QT, typename KT, int kD, bool kWhole>
 __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
     const QT* __restrict__ q,           // (hkv, bucket, g, d)
     const KT* __restrict__ k_pages,     // (num_blocks, bs, hkv, d)
@@ -1334,8 +1585,14 @@ __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
       }
       return src;
     };
-    tf32_converters<QT, KT, L, kD>(ring, threadIdx.x - 128, n_tiles, d, q_row,
-                                   src_of);
+    // The widest loads q's rows and the pool's rows allow, where they
+    // are not all a whole number of 16 bytes (!kWhole).
+    const int vq = kWhole ? 16 : vec_bytes(q, static_cast<long long>(d) * sizeof(QT));
+    const int vk = kWhole ? 16
+                          : min(vec_bytes(k_pages, static_cast<long long>(d) * sizeof(KT)),
+                                vec_bytes(v_pages, static_cast<long long>(d) * sizeof(KT)));
+    tf32_converters<QT, KT, L, kD, kWhole>(ring, threadIdx.x - 128, n_tiles, d,
+                                           q_row, src_of, vq, vk);
     return;
   }
 
@@ -1365,26 +1622,40 @@ __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
                                : nullptr;
   }
   float row_lse[2];  // not an output of the prefill
-  walk_finish<QT, kD>(rows, row_ptr, d, row_lse);
+  walk_finish<QT, kD, kWhole>(rows, row_ptr, d, row_lse);
 }
 
-size_t prefill_smem_bytes(int tq, int d, int bs) {
+size_t prefill_smem_bytes(int tq, int d, int tk) {
   const size_t dp = d + 1;
   return sizeof(float) *
-         (2 * tq * dp + 2 * bs * dp + static_cast<size_t>(tq) * bs + 3 * tq);
+         (2 * tq * dp + 2 * tk * dp + static_cast<size_t>(tq) * tk + 3 * tq);
 }
 
-// Which prefill kernel takes a launch. Every tensor-core kernel takes d
-// a multiple of 16 up to 128, at any page size: paged_prefill_wgmma_kernel
-// 16-bit q and pool of one dtype on pages that stack into 64-key tiles on
-// 8-row boundaries (bs 8, 16, 32 or 64) or split into them (bs a multiple
-// of 64), whose TMA boxes it issues a page at a time;
-// paged_prefill_gather_kernel the same pair at every other page size
-// (kRouteWgmmaGather) and an int8 pool under a 16-bit q at every page size
-// (kRouteWgmmaInt8), its producer gathering key by key;
-// paged_prefill_tf32_kernel every other pair (float32 q or pool, mixed
-// 16-bit dtypes). paged_prefill_kernel (scalar) takes only the head dims
-// outside that rule.
+// Which prefill kernel takes a launch, by dtypes, head dim and page
+// size. Every page size >= 1 takes a tensor-core route at every head dim
+// up to kMaxHeadDim for a 16-bit q (over its own dtype or int8) and up
+// to 128 for the other pairs; a head dim below the instantiation's kD
+// (64, 128, 256) is padded: columns d .. kD - 1 of Q, K and V are zeros
+// in shared memory, the output stores d columns, and the scale stays
+// d^-0.5.
+//   paged_prefill_wgmma_kernel   16-bit q and pool of one dtype on pages
+//                                that stack into 64-key tiles on 8-row
+//                                boundaries (bs 8, 16, 32 or 64) or
+//                                split into them (bs a multiple of 64),
+//                                whose TMA boxes it issues a page at a
+//                                time, at a d whose rows a tensor map can
+//                                stride (a whole number of 16 bytes:
+//                                d % 8 == 0);
+//   paged_prefill_gather_kernel  the same pair at every other page size
+//                                and d (kRouteWgmmaGather), and an int8
+//                                pool under a 16-bit q (kRouteWgmmaInt8),
+//                                its producer gathering key by key;
+//   paged_prefill_tf32_kernel    every other pair (float32 q or pool,
+//                                mixed 16-bit dtypes) up to d 128 (at 256
+//                                its fp32 Q tile and one stage would take
+//                                256 KB);
+//   paged_prefill_kernel         (scalar) those pairs from d 129 on, and
+//                                every pair past kMaxHeadDim.
 enum PrefillRoute {
   kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2, kRouteTf32 = 3,
   kRouteWgmmaGather = 4
@@ -1397,25 +1668,48 @@ enum PrefillRoute {
 #define TPUHPC_PREFILL_BOXES 1
 #endif
 
+constexpr int kMaxTf32HeadDim = 128;
+
 int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
-  if (d < 16 || d % 16 != 0 || d > 128) return kRouteScalar;
+  if (d < 1 || d > kMaxHeadDim) return kRouteScalar;
   const bool q16 = q_dtype == kF16 || q_dtype == kBF16;
-  const bool boxes = TPUHPC_PREFILL_BOXES &&
+  const bool boxes = TPUHPC_PREFILL_BOXES && d % 8 == 0 &&
       ((bs >= 8 && kWalkKeys % bs == 0) || bs % kWalkKeys == 0);
   if (q16 && kv_dtype == q_dtype) return boxes ? kRouteWgmma : kRouteWgmmaGather;
   if (q16 && kv_dtype == kI8) return kRouteWgmmaInt8;
-  return kRouteTf32;
+  return d <= kMaxTf32HeadDim ? kRouteTf32 : kRouteScalar;
+}
+
+// The scalar route's tile: tq rows (64, halved while the grid would
+// leave SMs of the 132 idle, down to 16) over steps of tk keys (a whole
+// page), tk halved (down to 16) and then tq while the tile would not fit
+// shared memory -- a 250-token page at d 256 does not at any tq.
+void scalar_tile(int hkv, int bucket, int g, int d, int bs, int* tq_out,
+                 int* tk_out) {
+  const int n_rows = bucket * g;
+  int tq = 64, tk = bs;
+  while (tq > 16 && hkv * ((n_rows + tq - 1) / tq) < 132) tq >>= 1;
+  while (prefill_smem_bytes(tq, d, tk) > static_cast<size_t>(kMaxSmem)) {
+    if (tk > 16) {
+      tk = (tk + 1) / 2;
+    } else if (tq > 1) {
+      tq >>= 1;
+    } else if (tk > 1) {
+      tk = (tk + 1) / 2;
+    } else {
+      break;
+    }
+  }
+  *tq_out = tq;
+  *tk_out = tk;
 }
 
 // Rows per prefill block. The tensor-core routes: kPrefillRows. The
-// scalar route: 64, halved while the grid would leave SMs of the 132
-// idle or the tile would not fit shared memory.
+// scalar route: scalar_tile's.
 int prefill_tile_rows(int hkv, int bucket, int g, int d, int bs, int route) {
   if (route != kRouteScalar) return kPrefillRows;
-  const int n_rows = bucket * g;
-  int tq = 64;
-  while (tq > 16 && hkv * ((n_rows + tq - 1) / tq) < 132) tq >>= 1;
-  while (tq > 1 && prefill_smem_bytes(tq, d, bs) > static_cast<size_t>(kMaxSmem)) tq >>= 1;
+  int tq, tk;
+  scalar_tile(hkv, bucket, g, d, bs, &tq, &tk);
   return tq;
 }
 
@@ -1459,7 +1753,7 @@ int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation for the head dim (64 or 128 columns of registers)
+// The instantiation for the head dim (64, 128 or 256 columns a key group)
 // and the group (1, 2 or 4 query rows a block; larger groups take row
 // groups of 4).
 template <typename KT, int kD>
@@ -1471,8 +1765,9 @@ int launch_decode_rows(const DecodeArgs& a, cudaStream_t stream) {
 
 template <typename KT>
 int launch_decode_shape(const DecodeArgs& a, cudaStream_t stream) {
-  return a.d <= 64 ? launch_decode_rows<KT, 64>(a, stream)
-                   : launch_decode_rows<KT, 128>(a, stream);
+  if (a.d <= 64) return launch_decode_rows<KT, 64>(a, stream);
+  if (a.d <= 128) return launch_decode_rows<KT, 128>(a, stream);
+  return launch_decode_rows<KT, 256>(a, stream);  // d 129-256
 }
 
 // SMs of the current device, read once per device.
@@ -1514,6 +1809,18 @@ cudaError_t pool_map(CUtensorMap* map, const void* pool, int bs, int hkv, int d,
   return cudaSuccess;
 }
 
+// Whether q's rows (q_esize bytes an element) and the pool's (kv_esize)
+// are all a whole number of 16 bytes from 16-byte-aligned bases: the
+// gathering and TF32 kernels' 16-byte path (and q by TMA), else their
+// narrow-row instantiation.
+bool rows_whole(const void* q, const void* k_pages, const void* v_pages, int d,
+                int q_esize, int kv_esize) {
+  const long long qb = static_cast<long long>(d) * q_esize;
+  const long long kb = static_cast<long long>(d) * kv_esize;
+  return vec_bytes(q, qb) == 16 && vec_bytes(k_pages, kb) == 16 &&
+         vec_bytes(v_pages, kb) == 16;
+}
+
 template <typename T, int kD>
 int launch_prefill_wgmma(const void* q, const void* k_pages, const void* v_pages,
                          const void* table, void* out, int hkv, int bucket, int g,
@@ -1545,19 +1852,25 @@ int launch_prefill_gather(const void* q, const void* k_pages, const void* v_page
   constexpr bool kScaled = std::is_same<KT, int8_t>::value;
   if (kScaled && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tm_q;
-  cudaError_t err = bshd_map<T>(&tm_q, q, hkv, bucket * g, 1, d, kPrefillRows);
+  // The kernel for rows that are all a whole number of 16 bytes (q's
+  // by TMA, the pool's in 16-byte loads), or the one for the others
+  // (rows_whole).
+  const bool whole = rows_whole(q, k_pages, v_pages, d, 2, sizeof(KT));
+  CUtensorMap tm_q = {};
+  cudaError_t err = whole ? bshd_map<T>(&tm_q, q, hkv, bucket * g, 1, d, kPrefillRows)
+                          : cudaSuccess;
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = prefill_gather_smem_bytes<kD, kScaled>();
-  auto kernel = paged_prefill_gather_kernel<T, KT, kD>;
+  auto kernel = whole ? paged_prefill_gather_kernel<T, KT, kD, true>
+                      : paged_prefill_gather_kernel<T, KT, kD, false>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (bucket * g + kPrefillRows - 1) / kPrefillRows;
   kernel<<<dim3(hkv, tiles), kGatherThreads, smem, stream>>>(
-      tm_q, static_cast<const KT*>(k_pages), static_cast<const KT*>(v_pages),
-      static_cast<const int*>(table), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<T*>(out), hkv, bucket, g,
-      d, bs, max_blocks, start, sm_scale);
+      tm_q, static_cast<const T*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const KT*>(v_pages), static_cast<const int*>(table),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<T*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1570,7 +1883,9 @@ int launch_prefill_tf32(const void* q, const void* k_pages, const void* v_pages,
   using L = Tf32Layout<QT, KT, kD>;
   if (L::kScaled && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = paged_prefill_tf32_kernel<QT, KT, kD>;
+  auto kernel = rows_whole(q, k_pages, v_pages, d, sizeof(QT), sizeof(KT))
+                    ? paged_prefill_tf32_kernel<QT, KT, kD, true>
+                    : paged_prefill_tf32_kernel<QT, KT, kD, false>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (bucket * g + kTf32Rows - 1) / kTf32Rows;
@@ -1580,6 +1895,17 @@ int launch_prefill_tf32(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<QT*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f with the instantiation (std::integral_constant kD) that holds
+// head dim d: 64, 128 or 256 columns, none wider than kMaxD.
+template <int kMaxD = 256, typename F>
+int by_head_dim(int d, F&& f) {
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if constexpr (kMaxD > 128) {
+    if (d > 128) return f(std::integral_constant<int, 256>{});
+  }
+  return f(std::integral_constant<int, 128>{});
 }
 
 template <typename QT, typename KT>
@@ -1592,40 +1918,32 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
   constexpr bool kInt8Under16 = std::is_same<KT, int8_t>::value && sizeof(QT) == 2;
   if constexpr (kSame16) {
     if (route == kRouteWgmma)
-      return d <= 64 ? launch_prefill_wgmma<QT, 64>(q, k_pages, v_pages, table,
-                                                    out, hkv, bucket, g, d, bs,
-                                                    max_blocks, start, sm_scale,
-                                                    stream)
-                     : launch_prefill_wgmma<QT, 128>(q, k_pages, v_pages, table,
-                                                     out, hkv, bucket, g, d, bs,
-                                                     max_blocks, start, sm_scale,
-                                                     stream);
+      return by_head_dim(d, [&](auto kd) {
+        return launch_prefill_wgmma<QT, decltype(kd)::value>(
+            q, k_pages, v_pages, table, out, hkv, bucket, g, d, bs, max_blocks,
+            start, sm_scale, stream);
+      });
   }
   if constexpr (kSame16 || kInt8Under16) {
     if (route == kRouteWgmmaGather || route == kRouteWgmmaInt8)
-      return d <= 64 ? launch_prefill_gather<QT, KT, 64>(
-                           q, k_pages, v_pages, table, k_scale, v_scale, out,
-                           hkv, bucket, g, d, bs, max_blocks, start, sm_scale,
-                           stream)
-                     : launch_prefill_gather<QT, KT, 128>(
-                           q, k_pages, v_pages, table, k_scale, v_scale, out,
-                           hkv, bucket, g, d, bs, max_blocks, start, sm_scale,
-                           stream);
+      return by_head_dim(d, [&](auto kd) {
+        return launch_prefill_gather<QT, KT, decltype(kd)::value>(
+            q, k_pages, v_pages, table, k_scale, v_scale, out, hkv, bucket, g,
+            d, bs, max_blocks, start, sm_scale, stream);
+      });
   }
-  // The TF32 route's pairs: every pair but the two above.
+  // The TF32 route's pairs: every pair but the two above, up to d 128.
   if constexpr (!kSame16 && !kInt8Under16) {
     if (route == kRouteTf32)
-      return d <= 64 ? launch_prefill_tf32<QT, KT, 64>(q, k_pages, v_pages, table,
-                                                       k_scale, v_scale, out, hkv,
-                                                       bucket, g, d, bs, max_blocks,
-                                                       start, sm_scale, stream)
-                     : launch_prefill_tf32<QT, KT, 128>(q, k_pages, v_pages, table,
-                                                        k_scale, v_scale, out, hkv,
-                                                        bucket, g, d, bs, max_blocks,
-                                                        start, sm_scale, stream);
+      return by_head_dim<128>(d, [&](auto kd) {
+        return launch_prefill_tf32<QT, KT, decltype(kd)::value>(
+            q, k_pages, v_pages, table, k_scale, v_scale, out, hkv, bucket, g,
+            d, bs, max_blocks, start, sm_scale, stream);
+      });
   }
-  const int tq = prefill_tile_rows(hkv, bucket, g, d, bs, kRouteScalar);
-  const size_t smem = prefill_smem_bytes(tq, d, bs);
+  int tq, tk;
+  scalar_tile(hkv, bucket, g, d, bs, &tq, &tk);
+  const size_t smem = prefill_smem_bytes(tq, d, tk);
   auto kernel = paged_prefill_kernel<QT, KT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1634,7 +1952,7 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const QT*>(q), static_cast<const KT*>(k_pages),
       static_cast<const KT*>(v_pages), static_cast<const int*>(table),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<QT*>(out), hkv, bucket, g, d, bs, max_blocks, start, tq,
+      static_cast<QT*>(out), hkv, bucket, g, d, bs, max_blocks, start, tq, tk,
       sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,9 +36,12 @@ LIBRARY = BUILD_DIR / "libtpuhpc_kernels.so"
 PTXAS_LOG = BUILD_DIR / "kernels.ptxas.txt"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -split-compile=0: nvcc runs its optimiser on as many threads as the
+# host has, so the paged kernels' many instantiations (kD 64, 128, 256)
+# do not keep one core busy while the others idle.
 COMPILE_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-split-compile=0",
 )
 
 # Variants of one source built with -D overrides of its tile constants

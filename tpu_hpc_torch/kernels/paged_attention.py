@@ -17,19 +17,24 @@ raises; it never falls back. The decode splits each slot's pages into
 runs, one block each, and merges the runs in a second small kernel
 (flash-decoding; :func:`paged_decode_splits` reports the runs, and
 :func:`paged_decode_split_ref` / :func:`paged_decode_combine_ref` are
-the two passes written plainly). The prefill has four kernels, chosen
-by a rule of dtypes and shapes written in the C launcher
+the two passes written plainly); it takes every head dim from 1 to
+:data:`MAX_HEAD_DIM` (256). The prefill has four kernels, chosen by a
+rule of dtypes and shapes written in the C launcher
 (:func:`paged_prefill_route` reports which one a launch takes): the
 wgmma kernel for 16-bit q and pool of one dtype on pages that TMA boxes
-tile (8, 16, 32, 64 tokens or a multiple of 64), the gathering wgmma
-kernel for that pair at every other page size (its producer reads the
-tiles key by key through the table row) and for an int8 pool under a
-16-bit q at every page size (exact integer tiles, each key's page
-scales folded into S and P), the TF32 wgmma kernel for every other
-pair -- float32 q or pool, mixed 16-bit dtypes -- on split TF32 (each
-fp32 operand as hi + lo, so float32 keeps its rule) at every page
-size, and the scalar kernel only for head dims outside the tensor-core
-rule (a multiple of 16 up to 128). On a CPU tensor it runs the plain
+tile (8, 16, 32, 64 tokens or a multiple of 64) at a head dim whose
+rows a tensor map can stride (a multiple of 8), the gathering wgmma
+kernel for that pair at every other page size and head dim (its
+producer reads the tiles key by key through the table row) and for an
+int8 pool under a 16-bit q (exact integer tiles, each key's page scales
+folded into S and P), all three at every head dim up to 256; the TF32
+wgmma kernel for every other pair -- float32 q or pool, mixed 16-bit
+dtypes -- on split TF32 (each fp32 operand as hi + lo, so float32 keeps
+its rule) at every head dim up to 128; and the scalar kernel for those
+pairs past 128 and every pair past 256. Every tensor-core kernel pads a
+head dim to its 64-, 128- or 256-column instantiation: the columns past
+d are zeros in shared memory, the output holds d columns, and the scale
+stays ``d ** -0.5``. On a CPU tensor it runs the plain
 PyTorch version beside it (``*_ref``), which is also what ``chip_smoke.py``
 holds the kernels against on the card. Each wrapper counts its kernel
 launches in a plain integer attribute (``.launches``), so a run can
@@ -73,6 +78,10 @@ SCRATCH_PAGE = 0
 INT8_SCALE_FLOOR = 1e-8
 
 _Q_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+# The widest head dim the decode and the 16-bit prefill take on the card
+# (csrc/paged_attention.cu's kMaxHeadDim: their kD 256 instantiations).
+MAX_HEAD_DIM = 256
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +448,8 @@ def paged_decode_attention(
     of ``csrc/paged_attention.cu`` -- the split kernel over
     :func:`paged_decode_splits` runs of pages, then the combine when
     there is more than one run (one launch in ``.launches``); head_dim
-    must be a multiple of 16 up to 128. CPU tensors run
+    may be anything from 1 to :data:`MAX_HEAD_DIM`, padded to the
+    kernel's 64, 128 or 256 columns. CPU tensors run
     :func:`paged_decode_attention_ref`.
 
     ``n_split`` (1 .. max_blocks) overrides the library's run count --
@@ -481,10 +491,11 @@ def paged_decode_attention(
              active=active, k_scale=k_scale, v_scale=v_scale),
         q.device,
     )
-    if not (16 <= d <= 128 and d % 16 == 0):
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"head_dim {d}: the decode kernel takes multiples of 16 up to 128"
-        )
+            f"head_dim {d}: the decode kernel takes head dims up to "
+            f"{MAX_HEAD_DIM} "
+            '(ROADMAP: "Paged attention past head_dim 256")')
     from tpu_hpc_torch.kernels import _build
 
     lib = _build.load_library()
@@ -612,12 +623,14 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
 # The prefill kernels, by the C interface's route code:
 # paged_prefill_kernel (scalar), paged_prefill_wgmma_kernel (16-bit q
 # and pool of one dtype on pages TMA boxes tile: bs 8, 16, 32, 64 or a
-# multiple of 64), paged_prefill_gather_kernel over an int8 pool under
-# a 16-bit q (wgmma_int8), paged_prefill_tf32_kernel (every other pair,
-# on split TF32) and paged_prefill_gather_kernel over a pool of q's
-# 16-bit dtype at every other page size (wgmma_gather). The tensor-core
-# routes take head_dim a multiple of 16 up to 128 at any page size; the
-# scalar route takes the other head dims.
+# multiple of 64, at a head dim that is a multiple of 8),
+# paged_prefill_gather_kernel over an int8 pool under a 16-bit q
+# (wgmma_int8), paged_prefill_tf32_kernel (every other pair, on split
+# TF32) and paged_prefill_gather_kernel over a pool of q's 16-bit dtype
+# at every other page size and head dim (wgmma_gather). At any page
+# size the 16-bit routes take every head dim up to MAX_HEAD_DIM and the
+# TF32 route every one up to 128; the scalar route takes the float32 and
+# mixed pairs past 128 and every pair past MAX_HEAD_DIM.
 PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8", "wgmma_tf32",
                   "wgmma_gather")
 paged_prefill_attention.route_launches = dict.fromkeys(PREFILL_ROUTES, 0)
@@ -654,6 +667,7 @@ def _prefill_route_of(lib, q_dtype: torch.dtype, pool_dtype: torch.dtype,
 
 __all__ = [
     "INT8_SCALE_FLOOR",
+    "MAX_HEAD_DIM",
     "PREFILL_ROUTES",
     "SCRATCH_PAGE",
     "dequantize_pages_int8",
