@@ -88,7 +88,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     pairs train_sp launches at their offsets: the
                     ring's 512-token chunks wholly visible, on the
                     diagonal and under GQA, zigzag's 256-token chunks,
-                    and zigzag at context 1. Every case also runs dq
+                    and zigzag at context 1; head dims off the kernels'
+                    widths: Gemma-2B's training attention (B 1, S 2048,
+                    8 query heads over 1 KV head of 256: the kD 256
+                    kernels, timed beside SDPA over K and V repeated to
+                    the heads; its backward bit-identical across
+                    launches), in fp16, a ring pair and rows that see no
+                    key at 256; head_dim 72 at the training shape (bf16,
+                    padded to 128) and at the float32 case's, and 36
+                    (72-byte rows, through the wrappers' zero-padded
+                    copies, timed alone as pad_copy_ms), each timed with
+                    its instantiation's registers. Every case also runs dq
                     and dk/dv with accumulate= (added, unrounded, into
                     fp32 buffers, as the ring backward calls them), twice
                     from zero: the first sum is held against the plain
@@ -198,6 +208,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     3 updates (the first is warm-up). The flash kernels'
                     launch counts are set to 0 just before and read just
                     after; each must equal layers x accum x updates.
+     train_head_dim_256 -- run_train on the Llama block at Gemma-2B's
+                    widths (gemma_2b_widths: dim 2048, 8 heads over 1 KV
+                    head of 256, feed-forward 16384, vocab 256000, 18
+                    layers, 3.03B parameters) at seq 2048, bf16 compute,
+                    fp32 params, AdamW, microbatch 1 x accum 2, two
+                    epochs of 3 updates: the kD 256 flash kernels on the
+                    training path. Tokens/s, MFU, update s, peak memory
+                    beside the state's 16 bytes a parameter, the losses
+                    (finite), flash_tile_rows, and each flash kernel's
+                    launches (counts set to 0 just before): layers x
+                    accum x updates.
+     train_crosscheck_head_dim_256 -- the same widths at 2 layers, bf16:
+                    3 updates through the flash kernels and through the
+                    reference attention from the same seeded params and
+                    batches; losses within HYBRID_LOSS_RTOL relative
+                    (the margin on the line), the losses moved by twice
+                    that must be rejected, each flash kernel launched
+                    layers x accum x updates times.
   8. train_hybrid -- the distributed main path on this card: a one-rank
                     NCCL world in this process, a (data 1, model 1)
                     mesh, and run_train's hybrid plan (hybrid_pspecs +
@@ -529,6 +557,14 @@ HD256_GATHER = "paged_prefill_attention_head_dim_256_gather"
 HD256_INT8 = "paged_prefill_attention_head_dim_256_int8"
 HD256_DECODE = "paged_decode_attention_head_dim_256"
 HD256_DECODE_INT8 = "paged_decode_attention_head_dim_256_int8"
+# The summary line's entries for the flash kernels' kD 256 instantiations
+# (one warpgroup a block; dk/dv in column halves), which
+# train_head_dim_256 launches, by wrapper.
+HD256_FLASH = {
+    "flash_attention_fwd": "flash_attention_fwd_head_dim_256",
+    "flash_attention_dq": "flash_attention_dq_head_dim_256",
+    "flash_attention_dkv": "flash_attention_dkv_head_dim_256",
+}
 SOURCES = {
     "paged_decode_attention": PAGED_SOURCE,
     "paged_prefill_attention": PAGED_SOURCE,
@@ -542,6 +578,7 @@ SOURCES = {
     "flash_attention_fwd": FLASH_SOURCE,
     "flash_attention_dq": FLASH_SOURCE,
     "flash_attention_dkv": FLASH_SOURCE,
+    **{name: FLASH_SOURCE for name in HD256_FLASH.values()},
 }
 REPLACES = {
     "paged_decode_attention":
@@ -569,6 +606,7 @@ REPLACES = {
     "flash_attention_dkv":
         "tpu_hpc/kernels/attention.py:455",         # _flash_dkv_kernel
 }
+REPLACES.update({hd: REPLACES[k] for k, hd in HD256_FLASH.items()})
 
 
 # The split-TF32 kernels, by the wrapper whose summary entry carries
@@ -692,6 +730,24 @@ def instance_of(kname: str, route: str, q_name: str, pool: str, d: int,
     if route == "wgmma_tf32":
         return [f"paged_prefill_tf32_kernel<{q}, {second}, {kd}, {whole}>"]
     return [f"paged_prefill_kernel<{q}, {second}>"]
+
+
+def flash_instance(kname: str, dtype_name: str, d: int,
+                   acc: bool = False) -> str:
+    """The compiled flash kernel (as ptxas_summary names it) a launch of
+    wrapper ``kname`` runs for ``dtype_name`` at head dim ``d``: the
+    instantiation (64, 128 or 256 columns) that holds d's padded width,
+    the backward's with or without ``accumulate=`` (``acc``)."""
+    per = 4 if dtype_name == "float32" else 8
+    w = -(-d // per) * per
+    kd = 64 if w <= 64 else 128 if w <= 128 else 256
+    kind = kname.rsplit("_", 1)[1]  # fwd, dq, dkv
+    if dtype_name == "float32":
+        return f"flash_{kind}_tf32_kernel<{kd}>"
+    t = SHORT_TYPES[dtype_name]
+    if kind == "fwd":
+        return f"flash_fwd_wgmma_kernel<{t}, {kd}>"
+    return f"flash_{kind}_wgmma_kernel<{t}, {kd}, {str(acc).lower()}>"
 
 
 def ptxas_of(ptxas, names) -> list:
@@ -1339,6 +1395,8 @@ def kernel_phase(torch, dev, lib, ptxas=()) -> tuple:
 # Phase 4: flash-attention kernels
 # ---------------------------------------------------------------------
 
+# The flash case at Gemma-2B's training attention (the kD 256 kernels).
+GEMMA_TRAIN = "gemma_2b_train"
 # (name, b, sq, sk, hq, hkv, d, causal, q_offset, kv_offset, dtype, timed)
 FLASH_CASES = (
     ("train_main", 4, 2048, 2048, 8, 8, 128, True, 0, 0, "bfloat16", True),
@@ -1380,13 +1438,38 @@ FLASH_CASES = (
     ("vit_noncausal", 8, 512, 512, 8, 8, 32, False, 0, 0, "bfloat16", True),
     ("vit_noncausal_ragged", 8, 500, 500, 8, 8, 32, False, 0, 0, "bfloat16",
      False),
+    # Head dims off the 128-column kernels. Gemma-2B's training attention
+    # (train_head_dim_256: B 1, S 2048, 8 query heads over 1 KV head of
+    # 256; the kD 256 kernels -- one warpgroup a block, dk/dv in column
+    # halves), timed, then in fp16, the ring's pair of rank 3's chunk
+    # against rank 0's at degree 4 (its accumulate= launches) and rows
+    # that see no key; head_dim 72 at the training shape (bf16, padded to
+    # the 128-column kernels) and at the float32 case's (the TF32
+    # kernels), and 36 (72-byte rows: the wrappers' zero-padded copies),
+    # each timed.
+    (GEMMA_TRAIN, 1, 2048, 2048, 8, 1, 256, True, 0, 0, "bfloat16", True),
+    ("gemma_2b_train_fp16", 1, 2048, 2048, 8, 1, 256, True, 0, 0, "float16",
+     False),
+    ("gemma_2b_ring_past_chunk", 1, 512, 512, 8, 1, 256, True, 1536, 0,
+     "bfloat16", False),
+    ("gemma_2b_masked_rows", 1, 1000, 1000, 8, 1, 256, True, 0, 512,
+     "bfloat16", False),
+    ("head_dim_72", 4, 2048, 2048, 8, 8, 72, True, 0, 0, "bfloat16", True),
+    ("head_dim_72_float32", 1, 1000, 1000, 8, 8, 72, True, 0, 0, "float32",
+     True),
+    ("head_dim_36", 2, 1000, 1000, 8, 8, 36, True, 0, 0, "bfloat16", True),
 )
+# The cases whose backward also runs twice and must agree bit for bit
+# (flash_determinism), beside CONTROL_CASES.
+DETERMINISM_CASES = (GEMMA_TRAIN,)
 # The cases that run the controls and the determinism check, and the row
 # (forward, dq) or key (dk/dv) from which a control zeroes a kernel's
 # output: the last 148 of the training shape's 2048, where causal
 # attention's values are the smallest; any rows without a mask.
 CONTROL_CASES = {"train_main": 1900, "vit_noncausal": 500,
                  "vit_noncausal_ragged": 488}
+# The timed head-dim cases the flash entries of the summary line repeat.
+FLASH_HEAD_DIM_CASES = ("head_dim_72", "head_dim_72_float32", "head_dim_36")
 # The flash kernels' device-time names (torch.profiler), by wrapper.
 FLASH_KERNEL_NAMES = {
     "flash_attention_fwd": "flash_fwd",
@@ -1546,8 +1629,12 @@ def flash_accumulate(torch, fa, bargs, kw, dtype) -> dict:
 def library_flash(torch, q, k, v, dout, causal):
     """scaled_dot_product_attention forward, and its autograd backward
     (dq, dk, dv together), on the same inputs in its [B, H, S, D]
-    layout -- the yardstick; the port never calls it."""
+    layout, K and V repeated to the query heads under GQA (made before
+    the timed calls) -- the yardstick; the port never calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
     qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     do = dout.transpose(1, 2).contiguous()
@@ -1563,11 +1650,22 @@ def library_flash(torch, q, k, v, dout, causal):
     return fwd, bwd
 
 
-def flash_phase(torch, dev) -> dict:
+def pad_copy_ms(torch, fa, tensors) -> float:
+    """ms of the zero-padded copies a wrapper makes of ``tensors`` where
+    their rows are not a whole number of 16 bytes (CUDA events): what
+    the padding adds to a launch, beside the kernel's own time."""
+    w = fa.padded_head_dim(tensors[0].shape[-1], tensors[0].dtype)
+    return time_ms(lambda: [fa._pad(t, w) for t in tensors], iters=20)
+
+
+def flash_phase(torch, dev) -> tuple:
+    """Every FLASH_CASES case through the three kernels and their plain
+    versions. Returns the training shape's rows by kernel and every timed
+    case's rows ({case: {kernel: row}})."""
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare
     from tpu_hpc_torch.kernels import attention as fa
 
-    main_rows, vit_rows, f32_rows = {}, {}, {}
+    main_rows, timed_rows = {}, {}
     for case in FLASH_CASES:
         name, b, sq, sk, hq, hkv, d, causal, qo, ko, dtype_name, timed = case
         dtype = getattr(torch, dtype_name)
@@ -1601,6 +1699,7 @@ def flash_phase(torch, dev) -> dict:
         if name in CONTROL_CASES:
             flash_controls(torch, q, k, v, got, want, causal,
                            CONTROL_CASES[name], name)
+        if name in CONTROL_CASES or name in DETERMINISM_CASES:
             flash_determinism(torch, fa, bargs, kw, got)
         tf32_read = {}
         if dtype == torch.float32:  # the split-TF32 route of all three
@@ -1681,14 +1780,16 @@ def flash_phase(torch, dev) -> dict:
                     else "sdpa autograd backward (dq, dk, dv together)",
                     bound_ms=bound_ms, bound_by=bound_by,
                     bytes=nb, flops=fl,
-                    tile_rows=fa.flash_tile_rows(kname, dtype),
+                    tile_rows=fa.flash_tile_rows(kname, dtype, d),
                 )
+                width = fa.padded_head_dim(d, dtype)
+                if width != d:  # the wrapper's padded copies, timed alone
+                    row.update(padded_to=width, pad_copy_ms=pad_copy_ms(
+                        torch, fa, args[:3] if kname == "flash_attention_fwd"
+                        else args[:4]))
                 if name == "train_main":
                     main_rows[kname] = row
-                if name == "vit_noncausal":
-                    vit_rows[kname] = row
-                if dtype == torch.float32:
-                    f32_rows[kname] = row
+                timed_rows.setdefault(name, {})[kname] = row
             emit("flash", **row)
             if not all(r["ok"] for r in readings.values()):
                 raise SystemExit(
@@ -1698,7 +1799,7 @@ def flash_phase(torch, dev) -> dict:
         del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
         del lib, outputs, bargs, got, want
         torch.cuda.empty_cache()
-    return main_rows, vit_rows, f32_rows
+    return main_rows, timed_rows
 
 
 # ---------------------------------------------------------------------
@@ -1753,16 +1854,149 @@ def train_phase(torch, dev) -> dict:
 HYBRID_LOSS_RTOL = 2e-3
 
 
+# ---------------------------------------------------------------------
+# Phase 7b: training at head_dim 256 (the Llama block at Gemma-2B's widths)
+# ---------------------------------------------------------------------
+
+# train_head_dim_256: microbatch 1 x accum 2 at seq 2048 (4096 tokens an
+# update), two epochs of 3 updates (the first is warm-up).
+HD256_STEPS, HD256_EPOCHS, HD256_BATCH, HD256_ACCUM = 3, 2, 2, 2
+HD256_SEQ = 2048
+# Its crosscheck: 2 layers, 3 updates, flash against reference attention.
+HD256_CROSS_LAYERS, HD256_CROSS_STEPS = 2, 3
+
+
+def gemma_train_cfg(torch, n_layers: int = 18):
+    """gemma_2b_widths at the training sequence length (its 8192
+    positions are the serving config's; the widths are untouched)."""
+    return dataclasses.replace(gemma_2b_widths(torch, n_layers),
+                               max_seq_len=HD256_SEQ)
+
+
+def train_state_bytes(n_params: int) -> int:
+    """What a run keeps of its parameters whatever the batch: fp32
+    params and grads and AdamW's two fp32 moments, 16 bytes each."""
+    return 16 * n_params
+
+
+def train_head_dim_256_phase(torch, dev) -> dict:
+    """run_train on the Llama block at Gemma-2B's widths, 18 layers
+    (gemma_train_cfg: head_dim 256 over one KV head, the kD 256 flash
+    kernels), bf16 compute, fp32 params, AdamW, microbatch 1 x accum 2 at
+    seq 2048, two epochs of 3 updates; the flash kernels' counts set to
+    0 just before and read just after. Fails on a non-finite loss or
+    launches other than layers x accum x updates each. Returns the
+    launches."""
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.train.__main__ import run_train
+
+    cfg = gemma_train_cfg(torch)
+    zero_flash_launches()
+    summary = run_train(cfg, steps=HD256_STEPS, epochs=HD256_EPOCHS,
+                        batch=HD256_BATCH, grad_accum_steps=HD256_ACCUM,
+                        device=dev)
+    launches = fa.kernel_launches()
+    updates = HD256_STEPS * HD256_EPOCHS
+    expected = cfg.n_layers * HD256_ACCUM * updates
+    emit("train_head_dim_256", model="gemma-2b-widths-llama",
+         dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+         kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+         ffn_hidden=cfg.ffn_hidden, seq_len=cfg.max_seq_len,
+         vocab_size=cfg.vocab_size, dtype="bfloat16", param_dtype="float32",
+         microbatch=HD256_BATCH // HD256_ACCUM, grad_accum=HD256_ACCUM,
+         updates=summary["updates"], measured_updates=HD256_STEPS,
+         launches=launches, expected_launches=expected,
+         state_bytes=train_state_bytes(summary["n_params"]),
+         **{k: summary.get(k) for k in (
+             "tokens_per_s", "mfu", "update_s", "peak_memory_bytes",
+             "losses", "final_loss", "n_params", "flops_per_token",
+             "peak_flops", "flash_tile_rows")})
+    bad = (loss_failures("train_head_dim_256", summary["losses"], updates)
+           + flash_launch_failures("train_head_dim_256", launches, expected))
+    if launches != summary["kernel_launches"]:
+        bad.append(f"train_head_dim_256: launches {launches} against the "
+                   f"summary's {summary['kernel_launches']}")
+    if bad:
+        raise SystemExit("; ".join(bad))
+    return launches
+
+
+def train_crosscheck_head_dim_256_phase(torch, dev) -> dict:
+    """The Llama block at Gemma-2B's widths with 2 layers, bf16: 3
+    updates through run_train with the flash kernels and again with the
+    reference attention, from the same seeded params and batches. Losses
+    agree within HYBRID_LOSS_RTOL relative (the margin is on the line);
+    a control (the flash losses moved by twice that) must be rejected;
+    each flash kernel launches layers x accum x updates times, all in the
+    flash run. Returns those launches."""
+    from tpu_hpc_torch.kernels import attention as fa
+    from tpu_hpc_torch.train.__main__ import run_train
+
+    cfg = gemma_train_cfg(torch, HD256_CROSS_LAYERS)
+    losses = {}
+    zero_flash_launches()
+    for attn in ("flash", "reference"):
+        losses[attn] = run_train(
+            cfg, steps=HD256_CROSS_STEPS, epochs=1, batch=HD256_BATCH,
+            grad_accum_steps=HD256_ACCUM, attn=attn, device=dev)["losses"]
+        _release(torch)
+    launches = fa.kernel_launches()
+    expected = cfg.n_layers * HD256_ACCUM * HD256_CROSS_STEPS
+    flash, ref = losses["flash"], losses["reference"]
+    margin = max(abs(a - b) / abs(b) for a, b in zip(flash, ref))
+    control = [x * (1 + 2 * HYBRID_LOSS_RTOL) for x in flash]
+    rejected = bool(loss_failures("control", control, HD256_CROSS_STEPS,
+                                  ref))
+    emit("train_crosscheck_head_dim_256", model="gemma-2b-widths-llama",
+         n_layers=cfg.n_layers, dtype="bfloat16", seq_len=cfg.max_seq_len,
+         updates=HD256_CROSS_STEPS, losses_flash=flash, losses_reference=ref,
+         loss_max_rel_err=margin, loss_rtol=HYBRID_LOSS_RTOL,
+         control_rejected=rejected, launches=launches,
+         expected_launches=expected)
+    bad = (loss_failures("train_crosscheck_head_dim_256", flash,
+                         HD256_CROSS_STEPS, ref)
+           + flash_launch_failures("train_crosscheck_head_dim_256", launches,
+                                   expected))
+    if not rejected:
+        bad.append("train_crosscheck_head_dim_256: the gate accepts losses "
+                   f"moved by {2 * HYBRID_LOSS_RTOL}")
+    if bad:
+        raise SystemExit("; ".join(bad))
+    return launches
+
+
+def flash_launch_failures(phase, launches, expected) -> list:
+    """A flash kernel launched other than ``expected`` times (layers x
+    accum x updates)."""
+    if any(n != expected for n in launches.values()):
+        return [f"{phase}: flash launches {launches}, expected {expected} "
+                "each"]
+    return []
+
+
+def loss_failures(phase, losses, updates, want=None,
+                  rtol=HYBRID_LOSS_RTOL) -> list:
+    """A missing or non-finite loss, or (``want``: another run's losses
+    over the same updates) one off by more than ``rtol`` relative."""
+    if len(losses) != updates:
+        return [f"{phase}: {len(losses)} losses for {updates} updates"]
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"{phase}: non-finite loss {losses}")
+    if want is not None and (len(want) != updates or any(
+            abs(a - b) > rtol * abs(b) for a, b in zip(losses, want))):
+        bad.append(f"{phase}: losses {losses} against {want}, over "
+                   f"{rtol} relative")
+    return bad
+
+
 def hybrid_failures(train_losses, losses, launches, expected, layout) -> list:
     """What fails the train_hybrid phase: a loss off train's by more
     than HYBRID_LOSS_RTOL, a flash kernel launched other than
     ``expected`` times, or a layout that is not DTensors under FSDP2."""
-    bad = []
-    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
-    if len(losses) != len(train_losses) or max(errs) > HYBRID_LOSS_RTOL:
-        bad.append(f"losses {losses} against train's {train_losses}")
-    if any(n != expected for n in launches.values()):
-        bad.append(f"flash launches {launches}, expected {expected} each")
+    bad = (loss_failures("train_hybrid", losses, len(train_losses),
+                         train_losses)
+           + flash_launch_failures("train_hybrid", launches, expected))
     if not layout or layout["fsdp_units"] < 2 or "plain" in layout["params"]:
         bad.append(f"layout {layout}: not DTensor params under FSDP2")
     return bad
@@ -2891,13 +3125,9 @@ def comm_failures(train_losses, summary, launches, expected,
     HYBRID_LOSS_RTOL, a flash kernel launched other than ``expected``
     times, a resolved mode other than bucketed_overlap, or a run whose
     all-reduces are not updates x (n_buckets + 1)."""
-    bad = []
-    losses = summary["losses"]
-    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
-    if len(losses) != len(train_losses) or max(errs) > HYBRID_LOSS_RTOL:
-        bad.append(f"losses {losses} against train's {train_losses}")
-    if any(n != expected for n in launches.values()):
-        bad.append(f"flash launches {launches}, expected {expected} each")
+    bad = (loss_failures("train_comm", summary["losses"], len(train_losses),
+                         train_losses)
+           + flash_launch_failures("train_comm", launches, expected))
     comm = summary.get("comm") or {}
     if summary.get("comm_mode_resolved") != "bucketed_overlap":
         bad.append(f"resolved {summary.get('comm_mode_resolved')!r}")
@@ -6908,8 +7138,10 @@ def main() -> int:
     emit("build", seconds=build_s, library=str(_build.LIBRARY), ptxas=ptxas)
 
     main_rows, tf32_rows, odd_rows = kernel_phase(torch, dev, lib, ptxas)
-    flash_rows, vit_rows, flash_f32_rows = flash_phase(torch, dev)
+    flash_rows, flash_timed = flash_phase(torch, dev)
     main_rows.update(flash_rows)
+    main_rows.update({HD256_FLASH[k]: row
+                      for k, row in flash_timed[GEMMA_TRAIN].items()})
 
     # -- 5. the serving path: Llama-2-7B paged replay through the kernels
     cfg, serve_cfg, paged = serve_shape()
@@ -6974,6 +7206,15 @@ def main() -> int:
     train_launches, train = train_phase(torch, dev)
     launches.update(train_launches)
     torch.cuda.empty_cache()
+    # -- 7b. training at head_dim 256: the Llama block at Gemma-2B's
+    #        widths, 18 layers, through the kD 256 flash kernels, then its
+    #        2-layer crosscheck against the reference attention
+    _release(torch)  # 3.03B parameters: their state alone takes 48.5 GB
+    hd256_train = train_head_dim_256_phase(torch, dev)
+    launches.update({HD256_FLASH[k]: n for k, n in hd256_train.items()})
+    _release(torch)
+    hd256_cross = train_crosscheck_head_dim_256_phase(torch, dev)
+    _release(torch)
     # -- 8. the distributed path on a one-rank NCCL world
     train_hybrid_phase(torch, dev, train)
     torch.cuda.empty_cache()
@@ -7092,10 +7333,36 @@ def main() -> int:
             # the ViT's attention shape timed (flash case vit_noncausal).
             entry["train_vision_launches"] = vision_launches[entry["name"]]
             entry["train_long_launches"] = long_launches[entry["name"]]
-            vit = vit_rows[entry["name"]]
+            vit = flash_timed["vit_noncausal"][entry["name"]]
             entry["vit_noncausal"] = {k: vit[k] for k in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}
+            # The timed head dims off the kernels' own widths (padded),
+            # each with its instantiation's registers and spills.
+            entry["head_dims"] = {}
+            for case in FLASH_HEAD_DIM_CASES:
+                row = flash_timed[case][entry["name"]]
+                entry["head_dims"][case] = {
+                    **{k: row.get(k) for k in (
+                        "dtype", "shape", "max_abs_err", "ms", "device_ms",
+                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_device_ms", "padded_to", "pad_copy_ms",
+                        "tile_rows")},
+                    "ptxas": ptxas_of(ptxas, [flash_instance(
+                        entry["name"], row["dtype"], row["shape"]["d"])])}
+        # The kD 256 flash kernels: their registers and spills (and their
+        # accumulate= variants'), device times, tile rows, and launches in
+        # the 2-layer crosscheck.
+        hd_kernel = {v: k for k, v in HD256_FLASH.items()}.get(entry["name"])
+        if hd_kernel is not None:
+            row = main_rows[entry["name"]]
+            entry["ptxas"] = ptxas_of(ptxas, [
+                flash_instance(hd_kernel, dt, 256, acc)
+                for dt in ("bfloat16", "float16") for acc in (False, True)])
+            entry.update({k: row[k] for k in (
+                "device_ms", "library_device_ms", "tile_rows")})
+            entry["train_crosscheck_head_dim_256_launches"] = hd256_cross[
+                hd_kernel]
         # Their launches in obs_capture: the serving run's (paged, the
         # prefill's by route) and the profiled and capture training
         # runs' and the profile window's (flash).
@@ -7117,7 +7384,8 @@ def main() -> int:
         if tf32 is not None:
             paged = entry["name"] == "paged_prefill_attention"
             rows = tf32_rows if paged else {
-                "float32": flash_f32_rows[entry["name"]]}
+                case: flash_timed[case][entry["name"]]
+                for case in ("float32", "head_dim_72_float32")}
             entry["tf32_route"] = {
                 "kernel": tf32,
                 "ptxas": [r for r in ptxas if r["kernel"].startswith(tf32)],

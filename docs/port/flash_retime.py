@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times the three 16-bit flash kernels of two checkouts in one call.
+"""Times the three flash kernels of two checkouts in one call.
 
 The training path's shape (B 4, S 2048, 8 heads, head_dim 128, causal,
-bf16). Each checkout builds its own library (``<root>/build``) and is
+bf16) and chip_smoke.py's float32 case (B 1, S 1000, 8 heads, head_dim
+128, causal: the split-TF32 kernels, keys ending ``_float32``). Each
+checkout builds its own library (``<root>/build``) and is
 timed in its own process, in turns A, B, B, A, so a drift of the card
 over the call reads as a drift and not as a difference:
 
@@ -23,6 +25,7 @@ import sys
 
 ITERS = 50
 SHAPE = (4, 2048, 8, 128)
+SHAPE_F32 = (1, 1000, 8, 128)
 
 CHILD = r"""
 import json, sys
@@ -34,20 +37,24 @@ from tpu_hpc_torch.kernels import _build, attention as fa
 
 build_s = _build.build()
 dev = torch.device("cuda", 0)
-b, s, h, d = SHAPE
-gen = torch.Generator(device=dev).manual_seed(7)
-q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
-               .bfloat16() for _ in range(4))
-out, lse = fa.flash_attention_fwd(q, k, v)
-dm = (do.float() * out.float()).sum(-1)
-bargs = (q, k, v, do, lse, dm)
-calls = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v),
-         "flash_attention_dq": lambda: fa.flash_attention_dq(*bargs),
-         "flash_attention_dkv": lambda: fa.flash_attention_dkv(*bargs)}
-names = {"flash_attention_fwd": "flash_fwd", "flash_attention_dq": "flash_dq",
-         "flash_attention_dkv": "flash_dkv"}
+calls = {}
+for suffix, shape, dtype in (("", SHAPE, torch.bfloat16),
+                             ("_float32", SHAPE_F32, torch.float32)):
+    b, s, h, d = shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dm = (do.float() * out.float()).sum(-1)
+    bargs = (q, k, v, do, lse, dm)
+    calls["flash_attention_fwd" + suffix] = (
+        "flash_fwd", lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v))
+    calls["flash_attention_dq" + suffix] = (
+        "flash_dq", lambda a=bargs: fa.flash_attention_dq(*a))
+    calls["flash_attention_dkv" + suffix] = (
+        "flash_dkv", lambda a=bargs: fa.flash_attention_dkv(*a))
 row = {"root": sys.argv[1], "build_s": build_s}
-for name, fn in calls.items():
+for name, (kernel, fn) in calls.items():
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -62,7 +69,7 @@ for name, fn in calls.items():
             fn()
         torch.cuda.synchronize()
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and names[name] in e.key)
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
     row[name] = {"ms": e0.elapsed_time(e1) / ITERS,
                  "device_ms": dev_us / 1e3 / ITERS}
 print(json.dumps(row))
@@ -74,7 +81,8 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = (os.path.abspath(r) for r in argv)
-    code = f"SHAPE = {SHAPE}\nITERS = {ITERS}\n" + CHILD
+    code = (f"SHAPE = {SHAPE}\nSHAPE_F32 = {SHAPE_F32}\nITERS = {ITERS}\n"
+            + CHILD)
     readings = []
     for root in (a, b, b, a):
         out = subprocess.run([sys.executable, "-c", code, root],
@@ -92,7 +100,8 @@ def main(argv) -> int:
             k: {m: sum(r[k][m] for r in rows) / len(rows)
                 for m in ("ms", "device_ms")}
             for k in rows[0] if k.startswith("flash_")}
-    print(json.dumps({"summary": summary, "shape": SHAPE, "iters": ITERS}))
+    print(json.dumps({"summary": summary, "shape": SHAPE,
+                      "shape_float32": SHAPE_F32, "iters": ITERS}))
     return 0
 
 

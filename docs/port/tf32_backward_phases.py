@@ -47,8 +47,8 @@ def main() -> int:
     if "kernels" in phases:
         cs.kernel_phase(torch, dev, lib)
     if "flash" in phases:
-        _, _, f32 = cs.flash_phase(torch, dev)
-        for name, row in f32.items():
+        _, timed = cs.flash_phase(torch, dev)
+        for name, row in timed["float32"].items():
             print(json.dumps({"f32_row": name, **{
                 k: row.get(k) for k in cs.TF32_ROW_KEYS}}), flush=True)
     if "crosscheck" in phases:

@@ -188,13 +188,18 @@ def test_dispatch_rules():
 
 def test_flash_tile_rows_checks_its_arguments_before_the_library():
     """The per-kernel tile-rows query names one of the three wrappers
-    (in the C interface's kernel order) and a flash dtype; both are
-    checked before the library is built, so a bad call fails on CPU."""
+    (in the C interface's kernel order), a flash dtype and a head dim
+    that dtype's kernels take; all are checked before the library is
+    built, so a bad call fails on CPU."""
     assert ta.FLASH_KERNELS == tuple(ta.kernel_launches())
     with pytest.raises(ValueError, match="no flash kernel"):
-        ta.flash_tile_rows("flash_attention_bwd", torch.bfloat16)
+        ta.flash_tile_rows("flash_attention_bwd", torch.bfloat16, 128)
     with pytest.raises(TypeError, match="flash kernels take no"):
-        ta.flash_tile_rows("flash_attention_dq", torch.float64)
+        ta.flash_tile_rows("flash_attention_dq", torch.float64, 128)
+    for dtype, d in ((torch.bfloat16, 264), (torch.float32, 136),
+                     (torch.bfloat16, 0)):
+        with pytest.raises(ValueError, match=f"takes head_dim {d}"):
+            ta.flash_tile_rows("flash_attention_fwd", dtype, d)
 
 
 # (name, sequence length, tensor, index, value) of a causal [1, S, 2, 64]

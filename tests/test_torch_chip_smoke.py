@@ -649,6 +649,141 @@ def test_hybrid_failures(losses, launches, layout, failures):
 
 
 # ---------------------------------------------------------------------
+# train_head_dim_256, its crosscheck and the head-dim flash cases
+# ---------------------------------------------------------------------
+
+def test_phase_list_names_train_head_dim_256_after_train():
+    """train_head_dim_256 and its crosscheck follow train and come before
+    train_hybrid, in the docstring and in main; their launches reach the
+    kD 256 flash entries of the kernels line."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    order = [re.search(pat, doc, re.M).start() for pat in (
+        r"^ *7\. train ", r"^ *train_head_dim_256 ",
+        r"^ *train_crosscheck_head_dim_256 ", r"^ *8\. train_hybrid ")]
+    assert order == sorted(order)
+    src = inspect.getsource(chip_smoke.main)
+    calls = [src.index(f) for f in (
+        "train_phase(", "train_head_dim_256_phase(",
+        "train_crosscheck_head_dim_256_phase(", "train_hybrid_phase(")]
+    assert calls == sorted(calls)
+    assert "launches.update({HD256_FLASH[k]" in src
+    assert set(chip_smoke.HD256_FLASH) == set(chip_smoke.FLASH_KERNEL_NAMES)
+    for name in chip_smoke.HD256_FLASH.values():
+        assert chip_smoke.SOURCES[name] == chip_smoke.FLASH_SOURCE
+        assert chip_smoke.REPLACES[name].startswith(
+            "tpu_hpc/kernels/attention.py:")
+
+
+def test_train_head_dim_256_config_and_expected_launches():
+    """Gemma-2B's published widths at the training length, 18 layers;
+    each flash kernel launches once per layer, microbatch and update;
+    the state takes 16 bytes a parameter (48.5 GB at 3.03B)."""
+    import torch
+
+    cfg = chip_smoke.gemma_train_cfg(torch)
+    assert (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
+            cfg.ffn_hidden, cfg.vocab_size, cfg.max_seq_len) == (
+        2048, 18, 8, 1, 256, 16384, 256000, 2048)
+    assert cfg.dtype == torch.bfloat16
+    assert chip_smoke.gemma_train_cfg(torch, 2).n_layers == 2
+    n = chip_smoke.gemma_2b_param_count(cfg)
+    assert 3.0e9 < n < 3.1e9
+    assert chip_smoke.train_state_bytes(n) == 16 * n
+    assert 48e9 < chip_smoke.train_state_bytes(n) < 49.5e9
+    updates = chip_smoke.HD256_STEPS * chip_smoke.HD256_EPOCHS
+    expected = cfg.n_layers * chip_smoke.HD256_ACCUM * updates
+    assert expected == 216
+    assert chip_smoke.HD256_BATCH // chip_smoke.HD256_ACCUM == 1
+    ok = dict.fromkeys(chip_smoke.FLASH_KERNEL_NAMES, expected)
+    assert chip_smoke.flash_launch_failures("p", ok, expected) == []
+    for name in ok:
+        assert len(chip_smoke.flash_launch_failures(
+            "p", {**ok, name: expected - 1}, expected)) == 1
+
+
+@pytest.mark.parametrize("losses, want, failures", [
+    ([2.0, 1.5, 1.2], None, 0),
+    ([2.0, float("nan"), 1.2], None, 1),
+    ([2.0, 1.5], None, 1),
+    ([2.0, 1.5, 1.2], [2.0, 1.5, 1.2], 0),
+    ([2.0 * (1 + 1.9e-3), 1.5, 1.2], [2.0, 1.5, 1.2], 0),
+    ([2.0 * (1 + 2.1e-3), 1.5, 1.2], [2.0, 1.5, 1.2], 1),
+    ([2.0, 1.5, 1.2], [2.0, 1.5], 1),
+])
+def test_loss_failures_gate_and_its_control(losses, want, failures):
+    """The head_dim-256 phases' loss gate: every update's loss present
+    and finite, and against the reference attention's within
+    HYBRID_LOSS_RTOL relative; the crosscheck's control (its losses moved
+    by twice the limit) is rejected."""
+    got = chip_smoke.loss_failures("p", losses, 3, want)
+    assert len(got) == failures
+    control = [x * (1 + 2 * chip_smoke.HYBRID_LOSS_RTOL)
+               for x in [2.0, 1.5, 1.2]]
+    assert chip_smoke.loss_failures("p", control, 3, [2.0, 1.5, 1.2])
+
+
+def test_head_dim_flash_cases_shapes():
+    """Gemma-2B's training attention (B 1, S 2048, 8 query heads over 1
+    KV head of 256, causal, bf16) is timed, its forward bound 0.01737 ms
+    at the H100's 989 TFLOP/s; fp16, a ring pair and masked rows at 256
+    run untimed; head_dim 72 at the training shape and at the float32
+    case's, and 36, are timed; 36's rows are not whole 16-byte chunks."""
+    cases = {c[0]: c for c in chip_smoke.FLASH_CASES}
+    gemma = cases[chip_smoke.GEMMA_TRAIN]
+    assert gemma[1:] == (1, 2048, 2048, 8, 1, 256, True, 0, 0, "bfloat16",
+                         True)
+    assert chip_smoke.GEMMA_TRAIN in chip_smoke.DETERMINISM_CASES
+    fl = chip_smoke.flash_work(gemma)["flash_attention_fwd"][1]
+    assert abs(fl / 989e12 * 1e3 - 0.01737) < 2e-5
+    for name, dtype, qo, ko in (("gemma_2b_train_fp16", "float16", 0, 0),
+                                ("gemma_2b_ring_past_chunk", "bfloat16", 1536,
+                                 0),
+                                ("gemma_2b_masked_rows", "bfloat16", 0, 512)):
+        c = cases[name]
+        assert c[4:7] == (8, 1, 256) and c[8:12] == (qo, ko, dtype, False)
+    train = cases["train_main"]
+    assert cases["head_dim_72"][1:] == train[1:6] + (72,) + train[7:]
+    f32 = cases["float32"]
+    assert cases["head_dim_72_float32"][1:] == f32[1:6] + (72,) + f32[7:]
+    assert cases["head_dim_36"][6] == 36 and cases["head_dim_36"][11]
+    assert 36 * 2 % 16 and 72 * 2 % 16 == 0
+    for name in chip_smoke.FLASH_HEAD_DIM_CASES:
+        assert cases[name][11], name
+
+
+@pytest.mark.parametrize("kname, dtype, d, acc, name", [
+    ("flash_attention_fwd", "bfloat16", 256, False,
+     "flash_fwd_wgmma_kernel<bf16, 256>"),
+    ("flash_attention_dq", "float16", 200, True,
+     "flash_dq_wgmma_kernel<f16, 256, true>"),
+    ("flash_attention_dkv", "bfloat16", 72, False,
+     "flash_dkv_wgmma_kernel<bf16, 128, false>"),
+    ("flash_attention_fwd", "bfloat16", 36, False,
+     "flash_fwd_wgmma_kernel<bf16, 64>"),
+    ("flash_attention_dq", "bfloat16", 61, False,
+     "flash_dq_wgmma_kernel<bf16, 64, false>"),
+    ("flash_attention_dq", "bfloat16", 125, False,
+     "flash_dq_wgmma_kernel<bf16, 128, false>"),
+    ("flash_attention_dkv", "float32", 72, False, "flash_dkv_tf32_kernel<128>"),
+    ("flash_attention_fwd", "float32", 37, False, "flash_fwd_tf32_kernel<64>"),
+])
+def test_flash_instance_names_the_ptxas_rows(kname, dtype, d, acc, name):
+    """The flash instantiation a head dim reaches, after the wrappers'
+    padding (bf16 61 pads to 64 columns, 125 to 128; float32 37 to 40),
+    in ptxas_summary's naming."""
+    assert chip_smoke.flash_instance(kname, dtype, d, acc) == name
+    mangled = {"flash_fwd_wgmma_kernel<bf16, 256>":
+               "13__nv_bfloat16Li256E",
+               "flash_dq_wgmma_kernel<f16, 256, true>":
+               "6__halfLi256ELb1E"}.get(name)
+    if mangled is not None:
+        assert name.endswith(f"<{chip_smoke.template_args(mangled)}>")
+
+
+# ---------------------------------------------------------------------
 # train_resilience's helpers
 # ---------------------------------------------------------------------
 

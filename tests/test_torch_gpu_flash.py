@@ -10,8 +10,12 @@ kernels (csrc/flash_attention.cu) are held against their plain PyTorch
 versions on the same inputs, every case through all three: ragged lengths that cross tiles, q/kv
 offsets, GQA, rows with no visible key, non-causal cross attention,
 sequences just under and over the backward kernels' 128-row tiles, head
-dims 32, 64, 80 and 128; bf16, fp16 and float32 (the float32 forward,
-dq and dk/dv on split TF32). This file imports no JAX.
+dims 32, 37, 64, 72, 80, 100 and 128 in every dtype, and 136, 200 and
+256 (the 256-column kernels, one warpgroup a block, dk/dv in column
+halves) in bf16 and fp16; bf16, fp16 and float32 (the float32 forward,
+dq and dk/dv on split TF32). Head dims whose rows are not a whole number
+of 16 bytes (37 in every dtype, 100 in 16 bits) reach the kernels
+through the wrappers' zero-padded copies. This file imports no JAX.
 
 Tolerances: ``tpu_hpc_torch/checks/tolerance.py``, the rule
 ``chip_smoke.py`` holds the kernels to. Every element is bounded by a
@@ -58,6 +62,25 @@ CASES = [
     ("head_dim_32", 1, 200, 200, 4, 4, 32, True, 0, 0),
     ("gqa_group8", 1, 300, 300, 16, 2, 64, True, 0, 0),
     ("odd_offsets", 1, 150, 260, 4, 2, 64, True, 100, 37),
+    # Head dims padded inside the 64- and 128-column kernels: rows of
+    # 74 bytes (bf16 37) and 200 bytes (bf16 100) are copied into padded
+    # tensors by the wrappers; 72 is whole in every dtype.
+    ("head_dim_37", 1, 200, 200, 4, 2, 37, True, 0, 0),
+    ("head_dim_72", 2, 150, 150, 8, 2, 72, True, 30, 0),
+    ("head_dim_100", 1, 260, 260, 4, 4, 100, True, 0, 0),
+]
+# Past head_dim 128: the 16-bit kernels' 256-column instantiations (the
+# float32 kernels refuse these; test_wrappers_raise_instead_of_falling_back).
+# d 136 leaves the last 64-column panel wholly past d (zeroed, never
+# loaded); 256 at Gemma-2B's grouping (8 query heads over 1 KV head),
+# with offsets and rows that see no key.
+WIDE_CASES = [
+    ("head_dim_136", 1, 200, 200, 4, 2, 136, True, 0, 0),
+    ("head_dim_200", 1, 150, 190, 4, 4, 200, True, 64, 0),
+    ("head_dim_256_gqa8", 1, 300, 300, 8, 1, 256, True, 0, 0),
+    ("head_dim_256_offsets", 2, 130, 260, 8, 1, 256, True, 100, 37),
+    ("head_dim_256_masked_rows", 1, 200, 200, 8, 1, 256, True, 0, 70),
+    ("head_dim_256_non_causal", 1, 70, 150, 4, 2, 256, False, 0, 0),
 ]
 
 
@@ -78,13 +101,9 @@ def _close(got, want, dtype, what):
     assert readings["ok"], f"{what}: {readings}"
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
-                                   torch.float32], ids=str)
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_flash_kernels_match_plain(cuda, dtype, case):
+def _check_kernels(dev, dtype, case):
     causal, qo, ko = case[7:]
-    q, k, v, dout, dlse = _inputs(cuda, dtype, case)
+    q, k, v, dout, dlse = _inputs(dev, dtype, case)
     kw = dict(causal=causal)
     n0 = ta.kernel_launches()
     out, lse = ta.flash_attention_fwd(q, k, v, qo, ko, **kw)
@@ -94,7 +113,7 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     live = want_l > ta.MASK_VALUE * 0.5
     torch.testing.assert_close(lse[live], want_l[live], atol=2e-3, rtol=1e-4)
     assert (lse[~live] == ta.MASK_VALUE).all()
-    if case[0] == "fully_masked_rows":
+    if "masked" in case[0]:
         assert (~live).any() and not out[~live].any()
     # The backward kernels on the plain forward's lse and D.
     dm = (dout.float() * want_o.float()).sum(-1) - dlse
@@ -106,7 +125,7 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     want_dk, want_dv = ta.flash_attention_dkv_ref(*args, **kw)
     _close(dk, want_dk, dtype, "dk")
     _close(dv, want_dv, dtype, "dv")
-    if case[0] == "fully_masked_rows":
+    if "masked" in case[0]:
         assert not dq[~live].any()
     n1 = ta.kernel_launches()
     assert all(n1[name] == n0[name] + 1 for name in n1), (n0, n1)
@@ -115,11 +134,20 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32], ids=str)
-def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
-    """No atomics: dq, dk and dv from two launches on the same inputs are
-    equal bit for bit (GQA, ragged, offsets)."""
-    case = ("repeat", 2, 300, 300, 8, 2, 128, True, 37, 0)
-    q, k, v, dout, dlse = _inputs(cuda, dtype, case, seed=2)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    _check_kernels(cuda, dtype, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_flash_kernels_match_plain_past_head_dim_128(cuda, dtype, case):
+    _check_kernels(cuda, dtype, case)
+
+
+def _bit_identical(dev, dtype, case):
+    q, k, v, dout, dlse = _inputs(dev, dtype, case, seed=2)
     out, lse = ta.flash_attention_fwd_ref(q, k, v, 37, 0)
     dm = (dout.float() * out.float()).sum(-1) - dlse
     args = (q, k, v, dout, lse, dm, 37, 0)
@@ -133,17 +161,29 @@ def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32], ids=str)
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_backward_accumulate_adds_unrounded(cuda, dtype, case):
-    """``accumulate=``: the backward kernels add dq and dk/dv into fp32
-    buffers. From zero, the first sum is held against the plain
-    versions' fp32 result; a second launch doubles it bit for bit."""
+def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
+    """No atomics: dq, dk and dv from two launches on the same inputs are
+    equal bit for bit (GQA, ragged, offsets)."""
+    _bit_identical(cuda, dtype, ("repeat", 2, 300, 300, 8, 2, 128, True, 37,
+                                 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_backward_kernels_are_bit_identical_at_head_dim_256(cuda, dtype):
+    """The 256-column kernels too (dk/dv's two column halves each sum
+    the group in its own block): GQA 8 over 1, ragged, offsets."""
+    _bit_identical(cuda, dtype, ("repeat", 2, 300, 300, 8, 1, 256, True, 37,
+                                 0))
+
+
+def _accumulates(dev, dtype, case):
     causal, qo, ko = case[7:]
-    q, k, v, dout, dlse = _inputs(cuda, dtype, case, seed=3)
+    q, k, v, dout, dlse = _inputs(dev, dtype, case, seed=3)
     want_o, lse = ta.flash_attention_fwd_ref(q, k, v, qo, ko, causal=causal)
     dm = (dout.float() * want_o.float()).sum(-1) - dlse
     args = (q, k, v, dout, lse, dm, qo, ko)
-    acc = [torch.zeros(x.shape, device=cuda) for x in (q, k, v)]
+    acc = [torch.zeros(x.shape, device=dev) for x in (q, k, v)]
     sums = []
     for _ in range(2):
         ta.flash_attention_dq(*args, causal=causal, accumulate=acc[0])
@@ -159,6 +199,27 @@ def test_backward_accumulate_adds_unrounded(cuda, dtype, case):
     for name, once, twice, w in zip(("dq", "dk", "dv"), *sums, want):
         _close(once, w, dtype, name)
         assert torch.equal(twice, 2 * once), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_accumulate_adds_unrounded(cuda, dtype, case):
+    """``accumulate=``: the backward kernels add dq and dk/dv into fp32
+    buffers. From zero, the first sum is held against the plain
+    versions' fp32 result; a second launch doubles it bit for bit."""
+    _accumulates(cuda, dtype, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_backward_accumulate_adds_unrounded_past_head_dim_128(cuda, dtype,
+                                                              case):
+    """``accumulate=`` in the 256-column kernels (the ring's kAcc
+    variants): as above."""
+    _accumulates(cuda, dtype, case)
 
 
 @pytest.mark.gpu
@@ -183,7 +244,7 @@ def test_float32_accumulate_adds_the_written_result(cuda, case):
     torch.cuda.synchronize()
     for name, got, s0, f in zip(("dq", "dk", "dv"), acc, start, fresh):
         assert torch.equal(got, s0 + f), name
-    rows = {kernel: ta.flash_tile_rows(kernel, torch.float32)
+    rows = {kernel: ta.flash_tile_rows(kernel, torch.float32, case[6])
             for kernel in ta.FLASH_KERNELS}
     assert rows == dict.fromkeys(ta.FLASH_KERNELS, 64), rows
 
@@ -238,10 +299,15 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ta.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        ta.flash_attention_fwd(q[..., :24].contiguous(),
-                               k[..., :24].contiguous(),
-                               v[..., :24].contiguous())
+    wide = [torch.randn(1, 40, 2, 264, device=cuda).bfloat16()
+            for _ in range(3)]
+    with pytest.raises(ValueError, match='"Flash attention past head_dim '
+                       '256"'):
+        ta.flash_attention_fwd(*wide)
+    with pytest.raises(ValueError, match='"The TF32 walk at head dims '
+                       '129-256"'):
+        ta.flash_attention_fwd(*(t[..., :136].float().contiguous()
+                                 for t in wide))
     out, lse = ta.flash_attention_fwd(q, k, v)
     dm = torch.zeros_like(lse)
     with pytest.raises(ValueError, match="dm is on cpu"):

@@ -56,8 +56,11 @@
 // and dq; Q, dO in dk/dv) come by TMA, 128-byte swizzled as wgmma's
 // descriptors read them, through a ring of stages; the helpers and the
 // forward's online-softmax walk live in hopper.cuh, shared with the
-// paged prefill. The head dim is a compile-time 64 or 128; a smaller d
-// reads TMA's zero fill past its columns.
+// paged prefill. The head dim is a compile-time 64, 128 or 256 (kD); a
+// smaller d reads TMA's zero fill past its columns (kMaxHeadDim16 below).
+// At kD 256 a block has one warpgroup of 64 rows (FwdShape, BwdShape):
+// O, dQ and the Q / K / V tiles double there, and dk/dv's blocks each
+// hold half of dK's and dV's columns.
 //
 // The forward goes furthest: a producer warp keeps a four-stage K/V
 // ring in flight behind per-stage full / empty mbarriers, so the two
@@ -90,7 +93,16 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+// Head dims the kernels take: every d up to 256 in 16 bits, up to 128
+// in float32, each in the 64-, 128- or 256-column instantiation that
+// holds it (by_head_dim), padded with zero columns in shared memory --
+// TMA's zero fill past the tensor map's d, a 256-column tile's panels
+// wholly past d zeroed once (live_panels) -- and only d columns stored.
+// A row must be a whole number of 16 bytes (tensor maps stride whole
+// chunks; the TF32 kernels load 16 bytes a chunk): the wrapper pads any
+// other d to such a width.
+constexpr int kMaxHeadDim16 = 256;
+constexpr int kMaxHeadDimF32 = 128;
 
 // Whether query row `row` (global position) sees key `col` (local index
 // into this KV chunk): inside the chunk, and not in the row's future
@@ -116,8 +128,6 @@ __device__ __forceinline__ int kv_tiles(int sk, int br, int last_row,
 // registers, TMA tile loads (hopper.cuh).
 // =====================================================================
 
-constexpr int kBwdThreads = 256;  // two warpgroups
-constexpr int kBwdRows = 128;     // q rows (dq) or keys (dk/dv) a block owns
 constexpr int kBwdStep = 64;      // keys (dq) or q rows (dk/dv) per streamed tile
 // Each warpgroup's score tile against a streamed tile is one wgmma
 // m64n64k16 product (wgmma_ss_n64) and its P / dS fragments feed the
@@ -163,22 +173,36 @@ __device__ __forceinline__ void put2(Out<T, kAcc>* at, float lo, float hi) {
   }
 }
 
-// Shared memory of a 16-bit backward kernel: two tiles of the block's
-// own kBwdRows rows, two rings of two streamed kBwdStep-row tiles, the
-// ring's per-row statistics (dk/dv: lse and dm of each stage's q rows),
-// three mbarriers, and slack to align the tiles to 1024 bytes.
+// A 16-bit backward kernel's shape at head dim kD. Up to kD 128 two
+// warpgroups own a block of kRows = 128 rows (q rows in dq, keys in
+// dk/dv); at kD 256 one warpgroup owns 64: two own tiles of 128 rows and
+// two stages of the two streamed tiles would take 264 KB, and dQ alone is
+// 128 fp32 a thread. dk/dv at kD 256 would hold dK and dV, 256 fp32 a
+// thread: a block holds kN = 128 of their columns (kHalves blocks a key
+// tile, each recomputing S^T and dP^T over all kD columns: 1.5x the
+// products of one block holding all). Shared memory: the two own tiles,
+// two rings of two streamed kBwdStep-row tiles, the ring's per-row
+// statistics (dk/dv: lse and dm of each stage's q rows), three mbarriers,
+// and slack to align the tiles to 1024 bytes.
 template <int kD>
-constexpr size_t bwd_smem_bytes() {
-  return 2 * kBwdRows * kD * 2 + 4 * kBwdStep * kD * 2 +
-         2 * 2 * kBwdStep * sizeof(float) + 3 * 8 + 1024;
-}
+struct BwdShape {
+  static constexpr int kWgs = kD == 256 ? 1 : 2;
+  static constexpr int kRows = 64 * kWgs;
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kHalves = kD == 256 ? 2 : 1;
+  static constexpr int kN = kD / kHalves;
+  static constexpr size_t kSmem = 2 * kRows * kD * 2 + 4 * kBwdStep * kD * 2 +
+                                  2 * 2 * kBwdStep * sizeof(float) + 3 * 8 + 1024;
+};
+static_assert(BwdShape<256>::kSmem <= static_cast<size_t>(kMaxSmem),
+              "the backward's tiles exceed 227 KB at head_dim 256");
 
 // ---------------------------------------------------------------------
-// dq, 16-bit inputs. Grid (q tiles of kBwdRows, hq, b), heaviest causal
-// tiles first. The block's Q and dO tiles stay in shared memory; K and
-// V tiles of kBwdStep keys stream through a two-stage TMA ring, the next
-// one loading while this one's products run. Warpgroup w owns q rows
-// [64 w, 64 w + 64) of the tile and keeps in registers, per tile:
+// dq, 16-bit inputs. Grid (q tiles of BwdShape::kRows, hq, b), heaviest
+// causal tiles first. The block's Q and dO tiles stay in shared memory;
+// K and V tiles of kBwdStep keys stream through a two-stage TMA ring, the
+// next one loading while this one's products run. Warpgroup w owns q
+// rows [64 w, 64 w + 64) of the tile and keeps in registers, per tile:
 //   S = Q . K^T, dP = dO . V^T            (SS wgmma, 64 x 64 each)
 //   dS = P * (dP - dm), P = exp(S - lse)  (in place, then packed to T)
 //   dQ += dS . K                           (RS wgmma, K read MN-major)
@@ -186,22 +210,23 @@ constexpr size_t bwd_smem_bytes() {
 // writes it in T, or with kAcc adds it, unrounded, into an fp32 buffer.
 // ---------------------------------------------------------------------
 template <typename T, int kD, bool kAcc>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q,   // boxes of kBwdRows rows
+__global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // boxes of kRows rows
     const __grid_constant__ CUtensorMap tm_k,   // boxes of kBwdStep rows
     const __grid_constant__ CUtensorMap tm_v,   // boxes of kBwdStep rows
-    const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdRows rows
+    const __grid_constant__ CUtensorMap tm_do,  // boxes of kRows rows
     const float* __restrict__ lse, const float* __restrict__ dm,
     Out<T, kAcc>* __restrict__ dq, int sq, int sk, int hq, int hkv, int d,
     int q_offset, int kv_offset, int causal, float scale) {
-  constexpr int kOwn = kBwdRows * kD * 2;      // bytes of the Q (dO) tile
+  using S = BwdShape<kD>;
+  constexpr int kOwn = S::kRows * kD * 2;      // bytes of the Q (dO) tile
   constexpr int kStream = kBwdStep * kD * 2;   // bytes of a K (V) tile
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (hq / hkv);
-  const int q0 = qt * kBwdRows;
-  const int q_rows = min(kBwdRows, sq - q0);
+  const int q0 = qt * S::kRows;
+  const int q_rows = min(S::kRows, sq - q0);
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -217,6 +242,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
 
   const int n_kt = kv_tiles(sk, kBwdStep, q_offset + q0 + q_rows - 1,
                             kv_offset, causal);
+  // Only the panels holding a column below d load (the bytes each barrier
+  // expects scale with them); the rest are zeros from here on.
+  const int panels = live_panels<kD>(d);
+  const int own_bytes = S::kRows * kPanelRowBytes * panels;
+  const int stream_bytes = kBwdStep * kPanelRowBytes * panels;
+  zero_dead_panels<kD>(s_q, S::kRows, 2, d, S::kThreads);
+  zero_dead_panels<kD>(s_k, kBwdStep, 4, d, S::kThreads);
+  fence_proxy_async();
   if (threadIdx.x == 0) {
     mbar_init(bar_own);
     mbar_init(bar_ring);
@@ -225,13 +258,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_own, 2 * kOwn);
-    tma_tile<kD>(s_q, &tm_q, bar_own, h, q0, b, kBwdRows);
-    tma_tile<kD>(s_do, &tm_do, bar_own, h, q0, b, kBwdRows);
+    mbar_expect_tx(bar_own, 2 * own_bytes);
+    tma_tile<kD>(s_q, &tm_q, bar_own, h, q0, b, S::kRows, panels);
+    tma_tile<kD>(s_do, &tm_do, bar_own, h, q0, b, S::kRows, panels);
     if (n_kt > 0) {
-      mbar_expect_tx(bar_ring, 2 * kStream);
-      tma_tile<kD>(s_k, &tm_k, bar_ring, kvh, 0, b, kBwdStep);
-      tma_tile<kD>(s_v, &tm_v, bar_ring, kvh, 0, b, kBwdStep);
+      mbar_expect_tx(bar_ring, 2 * stream_bytes);
+      tma_tile<kD>(s_k, &tm_k, bar_ring, kvh, 0, b, kBwdStep, panels);
+      tma_tile<kD>(s_v, &tm_v, bar_ring, kvh, 0, b, kBwdStep, panels);
     }
   }
 
@@ -257,11 +290,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
     const int st = kt & 1;
     if (threadIdx.x == 0 && kt + 1 < n_kt) {
       const uint32_t bar = bar_ring + 8 * (st ^ 1);
-      mbar_expect_tx(bar, 2 * kStream);
+      mbar_expect_tx(bar, 2 * stream_bytes);
       tma_tile<kD>(s_k + (st ^ 1) * kStream, &tm_k, bar, kvh,
-                   (kt + 1) * kBwdStep, b, kBwdStep);
+                   (kt + 1) * kBwdStep, b, kBwdStep, panels);
       tma_tile<kD>(s_v + (st ^ 1) * kStream, &tm_v, bar, kvh,
-                   (kt + 1) * kBwdStep, b, kBwdStep);
+                   (kt + 1) * kBwdStep, b, kBwdStep, panels);
     }
     mbar_wait(bar_ring + 8 * st, (kt >> 1) & 1);
     const uint32_t k_tile = s_k + st * kStream;
@@ -271,11 +304,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64<T>(s, kmajor_desc(s_q, kBwdRows, 64 * wg, kk),
+      wgmma_ss_n64<T>(s, kmajor_desc(s_q, S::kRows, 64 * wg, kk),
                       kmajor_desc(k_tile, kBwdStep, 0, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64<T>(dp, kmajor_desc(s_do, kBwdRows, 64 * wg, kk),
+      wgmma_ss_n64<T>(dp, kmajor_desc(s_do, S::kRows, 64 * wg, kk),
                       kmajor_desc(v_tile, kBwdStep, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
@@ -315,7 +348,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdStep / 16; ++kk)
-      wgmma_rs_nd<T, kD>(acc, ds[kk], mnmajor_desc(k_tile, kBwdStep, kk));
+      wgmma_rs_nd<T, kD>(acc, ds[kk], mnmajor_desc(k_tile, kBwdStep, kk),
+                         2 * kBwdStep * kPanelRowBytes);  // kD 256: N halves
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(acc);
@@ -341,38 +375,43 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------
-// dk/dv, 16-bit inputs. Grid (k tiles of kBwdRows keys, hkv, b), the
-// first key tiles (the longest causal walks) first. The block's K and V
-// tiles stay in shared memory; for each of the g query heads of the
-// group, the Q and dO tiles of kBwdStep rows from the first the causal
-// mask lets see the block's keys stream through a two-stage TMA ring
-// (their lse and dm rows beside them by cp.async). Warpgroup w owns keys
-// [64 w, 64 w + 64); with keys as rows, as in the Pallas kernel, it
-// keeps in registers, per tile:
+// dk/dv, 16-bit inputs. Grid (k tiles of BwdShape::kRows keys x kHalves,
+// hkv, b), the first key tiles (the longest causal walks) first. The
+// block's K and V tiles stay in shared memory; for each of the g query
+// heads of the group, the Q and dO tiles of kBwdStep rows from the first
+// the causal mask lets see the block's keys stream through a two-stage
+// TMA ring (their lse and dm rows beside them by cp.async). Warpgroup w
+// owns keys [64 w, 64 w + 64); with keys as rows, as in the Pallas
+// kernel, it keeps in registers, per tile:
 //   S^T = K . Q^T, dP^T = V . dO^T            (SS wgmma, 64 x 64 each)
 //   P^T = exp(S^T - lse), dS^T = P^T * (dP^T - dm)  (lse, dm per column)
 //   dV += P^T . dO, dK += dS^T . Q            (RS wgmma, B MN-major)
 // dK and dV stay in registers across every q tile of every head of the
-// group, so the group sum happens in the fp32 accumulators.
+// group, so the group sum happens in the fp32 accumulators. At kD 256 a
+// block keeps kN = 128 of their columns, from col0: its dV and dK
+// products read the streamed tiles' panels from col0 / 64 on.
 // ---------------------------------------------------------------------
 template <typename T, int kD, bool kAcc>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
+__global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,   // boxes of kBwdStep rows
-    const __grid_constant__ CUtensorMap tm_k,   // boxes of kBwdRows rows
-    const __grid_constant__ CUtensorMap tm_v,   // boxes of kBwdRows rows
+    const __grid_constant__ CUtensorMap tm_k,   // boxes of kRows rows
+    const __grid_constant__ CUtensorMap tm_v,   // boxes of kRows rows
     const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdStep rows
     const float* __restrict__ lse, const float* __restrict__ dm,
     Out<T, kAcc>* __restrict__ dk, Out<T, kAcc>* __restrict__ dv, int sq,
     int sk, int hq, int hkv, int d, int q_offset, int kv_offset, int causal,
     float scale) {
-  constexpr int kOwn = kBwdRows * kD * 2;     // bytes of the K (V) tile
+  using S = BwdShape<kD>;
+  constexpr int kN = S::kN;                   // dK (dV) columns of the block
+  constexpr int kOwn = S::kRows * kD * 2;     // bytes of the K (V) tile
   constexpr int kStream = kBwdStep * kD * 2;  // bytes of a Q (dO) tile
   constexpr int kStats = 2 * kBwdStep * sizeof(float);  // lse, dm of a stage
-  const int kt = blockIdx.x;
+  const int kt = blockIdx.x / S::kHalves;
+  const int col0 = (blockIdx.x % S::kHalves) * kN;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int g = hq / hkv;
-  const int k0 = kt * kBwdRows;
+  const int k0 = kt * S::kRows;
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -398,6 +437,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
   }
   const int per_head = n_qt - qt0;
   const int n_steps = g * per_head;
+  const int panels = live_panels<kD>(d);
+  const int stream_bytes = kBwdStep * kPanelRowBytes * panels;
 
   // Step n's Q and dO tiles (TMA, thread 0) and lse / dm rows (cp.async,
   // threads 0-127) into stage st.
@@ -407,9 +448,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     const int q0 = (qt0 + n - hh * per_head) * kBwdStep;
     if (threadIdx.x == 0) {
       const uint32_t bar = bar_ring + 8 * st;
-      mbar_expect_tx(bar, 2 * kStream);
-      tma_tile<kD>(s_q + st * kStream, &tm_q, bar, h, q0, b, kBwdStep);
-      tma_tile<kD>(s_do + st * kStream, &tm_do, bar, h, q0, b, kBwdStep);
+      mbar_expect_tx(bar, 2 * stream_bytes);
+      tma_tile<kD>(s_q + st * kStream, &tm_q, bar, h, q0, b, kBwdStep, panels);
+      tma_tile<kD>(s_do + st * kStream, &tm_do, bar, h, q0, b, kBwdStep,
+                   panels);
     }
     if (threadIdx.x < 2 * kBwdStep) {
       const int r = threadIdx.x & (kBwdStep - 1);
@@ -423,6 +465,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     cp_async_commit();
   };
 
+  zero_dead_panels<kD>(s_k, S::kRows, 2, d, S::kThreads);
+  zero_dead_panels<kD>(s_q, kBwdStep, 4, d, S::kThreads);
+  fence_proxy_async();
   if (threadIdx.x == 0) {
     mbar_init(bar_own);
     mbar_init(bar_ring);
@@ -431,9 +476,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_own, 2 * kOwn);
-    tma_tile<kD>(s_k, &tm_k, bar_own, kvh, k0, b, kBwdRows);
-    tma_tile<kD>(s_v, &tm_v, bar_own, kvh, k0, b, kBwdRows);
+    mbar_expect_tx(bar_own, 2 * S::kRows * kPanelRowBytes * panels);
+    tma_tile<kD>(s_k, &tm_k, bar_own, kvh, k0, b, S::kRows, panels);
+    tma_tile<kD>(s_v, &tm_v, bar_own, kvh, k0, b, S::kRows, panels);
   }
   if (n_steps > 0) issue(0, 0);
 
@@ -446,12 +491,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
   // even in a row whose lse is NaN (dV must stay finite there).
   const float s_min = kMaskValue * 0.5f / scale;
 
-  float dk_acc[kD / 2], dv_acc[kD / 2];
+  float dk_acc[kN / 2], dv_acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) {
+  for (int i = 0; i < kN / 2; ++i) {
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
+  // The streamed tiles' panel of column col0.
+  const uint32_t cols = (col0 / 64) * kBwdStep * kPanelRowBytes;
 
   mbar_wait(bar_own, 0);
   cp_async_wait_all();
@@ -469,11 +516,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64<T>(s, kmajor_desc(s_k, kBwdRows, 64 * wg, kk),
+      wgmma_ss_n64<T>(s, kmajor_desc(s_k, S::kRows, 64 * wg, kk),
                       kmajor_desc(q_tile, kBwdStep, 0, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64<T>(dp, kmajor_desc(s_v, kBwdRows, 64 * wg, kk),
+      wgmma_ss_n64<T>(dp, kmajor_desc(s_v, S::kRows, 64 * wg, kk),
                       kmajor_desc(do_tile, kBwdStep, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
@@ -520,10 +567,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdStep / 16; ++kk)
-      wgmma_rs_nd<T, kD>(dv_acc, pf[kk], mnmajor_desc(do_tile, kBwdStep, kk));
+      wgmma_rs_nd<T, kN>(dv_acc, pf[kk],
+                         mnmajor_desc(do_tile + cols, kBwdStep, kk));
 #pragma unroll
     for (int kk = 0; kk < kBwdStep / 16; ++kk)
-      wgmma_rs_nd<T, kD>(dk_acc, dsf[kk], mnmajor_desc(q_tile, kBwdStep, kk));
+      wgmma_rs_nd<T, kN>(dk_acc, dsf[kk],
+                         mnmajor_desc(q_tile + cols, kBwdStep, kk));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(dv_acc);
@@ -536,8 +585,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
 
   // dk = scale * dK and dv = dV, this thread's column pairs of its keys.
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
+  for (int j = 0; j < kN / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
@@ -554,18 +603,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Forward, 16-bit inputs. Grid (q tiles of kFwdRows, hq, b), heaviest
-// causal tiles first. Two consumer warpgroups own rows [64 w, 64 w + 64)
-// of the tile; a producer warp loads the Q tile once and streams K and
-// V tiles of kWalkKeys keys through a kFwdStages-stage ring, refilling
-// a stage as soon as both warpgroups have freed it. Each warpgroup walks
-// the tiles its own last row can see (hopper.cuh, walk) and frees the
-// rest (walk_skip): the one below the diagonal walks one tile fewer and
-// never waits for the other. The epilogue writes out and lse straight
-// from registers.
+// Forward, 16-bit inputs. Grid (q tiles of FwdShape::kRows, hq, b),
+// heaviest causal tiles first. The consumer warpgroups (two up to kD 128,
+// one at 256) own rows [64 w, 64 w + 64) of the tile; a producer warp
+// loads the Q tile once and streams K and V tiles of kWalkKeys keys
+// through the ring, refilling a stage as soon as every warpgroup has
+// freed it. Each warpgroup walks the tiles its own last row can see
+// (hopper.cuh, walk) and frees the rest (walk_skip): the one below the
+// diagonal walks one tile fewer and never waits for the other. The
+// epilogue writes out and lse straight from registers.
 // ---------------------------------------------------------------------
-constexpr int kFwdRows = 128;
-constexpr int kFwdThreads = 288;  // two consumer warpgroups + a producer warp
 // Stages of the K/V ring. Overridable with -D (kernels/autotune.py builds
 // such variants); the default build takes 4.
 #ifndef TPUHPC_FWD_STAGES
@@ -573,17 +620,34 @@ constexpr int kFwdThreads = 288;  // two consumer warpgroups + a producer warp
 #endif
 constexpr int kFwdStages = TPUHPC_FWD_STAGES;
 
+// The forward's shape at head dim kD: up to kD 128, two consumer
+// warpgroups on a 128-row q tile and kFwdStages stages; at kD 256 one
+// warpgroup on 64 rows (O alone is 128 fp32 a thread: two warpgroups and
+// the producer would leave each thread 224 registers) and at most three
+// stages (Q 32 KB, a stage 64 KB: 230,480 bytes), the paged prefill's
+// shape at that width.
 template <int kD>
-constexpr size_t fwd_smem_bytes() {
-  return kFwdRows * kD * 2 + 2 * kFwdStages * walk_tile_bytes<kD>() +
-         (1 + 3 * kFwdStages) * 8 + 1024;
-}
+struct FwdShape {
+  static constexpr int kWgs = kD == 256 ? 1 : 2;
+  static constexpr int kRows = 64 * kWgs;
+  static constexpr int kThreads = 128 * kWgs + 32;  // + the producer warp
+  static constexpr int kStages = kD == 256 && kFwdStages > 3 ? 3 : kFwdStages;
+  static constexpr size_t kSmem = kRows * kD * 2 +
+                                  2 * kStages * walk_tile_bytes<kD>() +
+                                  (1 + 3 * kStages) * 8 + 1024;
+};
 // The producer refills a stage while the consumers read the other: one
 // stage would serialize the load and the products.
 static_assert(kFwdStages >= 2, "kFwdStages: the ring needs two stages");
-static_assert(fwd_smem_bytes<128>() <= static_cast<size_t>(kMaxSmem),
+static_assert(FwdShape<64>::kSmem <= static_cast<size_t>(kMaxSmem),
+              "kFwdStages: the Q tile and the K/V ring exceed 227 KB of "
+              "shared memory at head_dim 64");
+static_assert(FwdShape<128>::kSmem <= static_cast<size_t>(kMaxSmem),
               "kFwdStages: the Q tile and the K/V ring exceed 227 KB of "
               "shared memory at head_dim 128");
+static_assert(FwdShape<256>::kSmem <= static_cast<size_t>(kMaxSmem),
+              "kFwdStages: the Q tile and the K/V ring exceed 227 KB of "
+              "shared memory at head_dim 256");
 
 // The forward's mask for one thread: its two rows at global positions
 // row[0], row[1]; the warpgroup's first row at `first`.
@@ -600,20 +664,22 @@ struct FwdMask {
 };
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q,  // boxes of kFwdRows rows
+__global__ void __launch_bounds__(FwdShape<kD>::kThreads, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // boxes of kRows rows
     const __grid_constant__ CUtensorMap tm_k,  // boxes of kWalkKeys rows
     const __grid_constant__ CUtensorMap tm_v,
     T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int hq,
     int hkv, int d, int q_offset, int kv_offset, int causal, float scale) {
-  constexpr int kQ = kFwdRows * kD * 2;  // bytes of the Q tile
+  using S = FwdShape<kD>;
+  constexpr int kStages = S::kStages;
+  constexpr int kQ = S::kRows * kD * 2;  // bytes of the Q tile
   constexpr int kTile = walk_tile_bytes<kD>();
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (hq / hkv);
-  const int q0 = qt * kFwdRows;
-  const int q_rows = min(kFwdRows, sq - q0);
+  const int q0 = qt * S::kRows;
+  const int q_rows = min(S::kRows, sq - q0);
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -622,40 +688,47 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma_kernel(
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
   WalkRing ring;
   ring.k = s_q + kQ;
-  ring.v = ring.k + kFwdStages * kTile;
-  const uint32_t bar_q = ring.v + kFwdStages * kTile;
+  ring.v = ring.k + kStages * kTile;
+  const uint32_t bar_q = ring.v + kStages * kTile;
   ring.full_k = bar_q + 8;
-  ring.full_v = ring.full_k + 8 * kFwdStages;
-  ring.empty = ring.full_v + 8 * kFwdStages;
-  ring.stages = kFwdStages;
+  ring.full_v = ring.full_k + 8 * kStages;
+  ring.empty = ring.full_v + 8 * kStages;
+  ring.stages = kStages;
 
   const int n_kt = kv_tiles(sk, kWalkKeys, q_offset + q0 + q_rows - 1,
                             kv_offset, causal);
+  // Only the panels holding a column below d load; the rest of Q and of
+  // every K and V stage are zeros from here on.
+  const int panels = live_panels<kD>(d);
+  zero_dead_panels<kD>(s_q, S::kRows, 1, d, S::kThreads);
+  zero_dead_panels<kD>(ring.k, kWalkKeys, 2 * kStages, d, S::kThreads);
+  fence_proxy_async();
   if (threadIdx.x == 0) {
     mbar_init(bar_q);
-    for (int st = 0; st < kFwdStages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(ring.full_k + 8 * st);
       mbar_init(ring.full_v + 8 * st);
-      mbar_init(ring.empty + 8 * st, 2);
+      mbar_init(ring.empty + 8 * st, S::kWgs);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {  // the producer warp
+  if (wg == S::kWgs) {  // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(bar_q, kQ);
-      tma_tile<kD>(s_q, &tm_q, bar_q, h, q0, b, kFwdRows);
+      const uint32_t tile_bytes = kWalkKeys * kPanelRowBytes * panels;
+      mbar_expect_tx(bar_q, S::kRows * kPanelRowBytes * panels);
+      tma_tile<kD>(s_q, &tm_q, bar_q, h, q0, b, S::kRows, panels);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % kFwdStages;
-        if (kt >= kFwdStages)
-          mbar_wait(ring.empty + 8 * st, (kt / kFwdStages - 1) & 1);
-        mbar_expect_tx(ring.full_k + 8 * st, kTile);
+        const int st = kt % kStages;
+        if (kt >= kStages)
+          mbar_wait(ring.empty + 8 * st, (kt / kStages - 1) & 1);
+        mbar_expect_tx(ring.full_k + 8 * st, tile_bytes);
         tma_tile<kD>(ring.k + st * kTile, &tm_k, ring.full_k + 8 * st, kvh,
-                     kt * kWalkKeys, b, kWalkKeys);
-        mbar_expect_tx(ring.full_v + 8 * st, kTile);
+                     kt * kWalkKeys, b, kWalkKeys, panels);
+        mbar_expect_tx(ring.full_v + 8 * st, tile_bytes);
         tma_tile<kD>(ring.v + st * kTile, &tm_v, ring.full_v + 8 * st, kvh,
-                     kt * kWalkKeys, b, kWalkKeys);
+                     kt * kWalkKeys, b, kWalkKeys, panels);
       }
     }
     return;
@@ -677,7 +750,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma_kernel(
   rows.l[0] = rows.l[1] = 0.f;
 
   mbar_wait(bar_q, 0);
-  walk<T, kD>(rows, s_q, kFwdRows, 64 * wg, ring, n_wg, scale * kLog2e, mask);
+  walk<T, kD>(rows, s_q, S::kRows, 64 * wg, ring, n_wg, scale * kLog2e, mask);
 
   T* row_ptr[2];
   float row_lse[2];
@@ -1383,9 +1456,17 @@ __global__ void __launch_bounds__(kTf32Threads, 1) flash_dkv_tf32_kernel(
   bwd_store<kD>(dv, dv_acc, 1.f, b, sk, hkv, kvh, key0, d, accumulate);
 }
 
-bool shapes_ok(int b, int sq, int sk, int hq, int hkv, int d) {
-  return b > 0 && sq > 0 && sk > 0 && hkv > 0 && hq % hkv == 0 && d > 0 &&
-         d % 16 == 0 && d <= kMaxHeadDim && b <= 65535 && hq <= 65535;
+// The head dims a dtype's kernels take (kMaxHeadDim16, kMaxHeadDimF32),
+// rows a whole number of 16 bytes.
+bool head_dim_ok(int d, int dtype) {
+  const bool f32 = dtype == kF32;
+  return d > 0 && d * (f32 ? 4 : 2) % 16 == 0 &&
+         d <= (f32 ? kMaxHeadDimF32 : kMaxHeadDim16);
+}
+
+bool shapes_ok(int b, int sq, int sk, int hq, int hkv, int d, int dtype) {
+  return b > 0 && sq > 0 && sk > 0 && hkv > 0 && hq % hkv == 0 &&
+         head_dim_ok(d, dtype) && b <= 65535 && hq <= 65535;
 }
 
 // The four maps of a backward launch: q and dO in boxes of `q_rows`
@@ -1406,15 +1487,15 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dm, void* dq,
                     int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
                     int kv_offset, int causal, float scale, cudaStream_t stream) {
+  using S = BwdShape<kD>;
   CUtensorMap m[4];
   cudaError_t err =
-      bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdRows, kBwdStep);
+      bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, S::kRows, kBwdStep);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = bwd_smem_bytes<kD>();
   auto kernel = flash_dq_wgmma_kernel<T, kD, kAcc>;
-  err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sq + kBwdRows - 1) / kBwdRows, hq, b), kBwdThreads, smem,
+  kernel<<<dim3((sq + S::kRows - 1) / S::kRows, hq, b), S::kThreads, S::kSmem,
            stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
                      static_cast<const float*>(dm),
                      static_cast<Out<T, kAcc>*>(dq), sq, sk, hq, hkv, d,
@@ -1428,16 +1509,16 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
                      int d, int q_offset, int kv_offset, int causal,
                      float scale, cudaStream_t stream) {
+  using S = BwdShape<kD>;
   CUtensorMap m[4];
   cudaError_t err =
-      bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdStep, kBwdRows);
+      bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdStep, S::kRows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = bwd_smem_bytes<kD>();
   auto kernel = flash_dkv_wgmma_kernel<T, kD, kAcc>;
-  err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sk + kBwdRows - 1) / kBwdRows, hkv, b), kBwdThreads, smem,
-           stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+  kernel<<<dim3((sk + S::kRows - 1) / S::kRows * S::kHalves, hkv, b),
+           S::kThreads, S::kSmem, stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
                      static_cast<const float*>(dm),
                      static_cast<Out<T, kAcc>*>(dk),
                      static_cast<Out<T, kAcc>*>(dv), sq, sk, hq, hkv, d,
@@ -1450,16 +1531,16 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int sq, int sk, int hq, int hkv, int d,
                      int q_offset, int kv_offset, int causal, float scale,
                      cudaStream_t stream) {
+  using S = FwdShape<kD>;
   CUtensorMap m[3];
-  cudaError_t err = bshd_map<T>(&m[0], q, b, sq, hq, d, kFwdRows);
+  cudaError_t err = bshd_map<T>(&m[0], q, b, sq, hq, d, S::kRows);
   if (err == cudaSuccess) err = bshd_map<T>(&m[1], k, b, sk, hkv, d, kWalkKeys);
   if (err == cudaSuccess) err = bshd_map<T>(&m[2], v, b, sk, hkv, d, kWalkKeys);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = fwd_smem_bytes<kD>();
   auto kernel = flash_fwd_wgmma_kernel<T, kD>;
-  err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sq + kFwdRows - 1) / kFwdRows, hq, b), kFwdThreads, smem,
+  kernel<<<dim3((sq + S::kRows - 1) / S::kRows, hq, b), S::kThreads, S::kSmem,
            stream>>>(m[0], m[1], m[2], static_cast<T*>(out),
                      static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset,
                      kv_offset, causal, scale);
@@ -1520,27 +1601,26 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dou
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-bit inputs take the wgmma kernels, float32 inputs the TF32 ones (kD
-// 64 for d <= 64, else 128). `accumulate` adds the backward's result
-// into fp32 buffers instead of writing it in the input dtype.
+// 16-bit inputs take the wgmma kernels at kD 64, 128 or 256, float32
+// inputs the TF32 ones at kD 64 or 128 (by_head_dim). `accumulate` adds
+// the backward's result into fp32 buffers instead of writing it in the
+// input dtype.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
                int kv_offset, int causal, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return d <= 64 ? launch_fwd_wgmma<T, 64>(q, k, v, out, lse, b, sq, sk, hq,
-                                             hkv, d, q_offset, kv_offset,
-                                             causal, scale, stream)
-                   : launch_fwd_wgmma<T, 128>(q, k, v, out, lse, b, sq, sk, hq,
-                                              hkv, d, q_offset, kv_offset,
-                                              causal, scale, stream);
+    return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
+      return launch_fwd_wgmma<T, decltype(kd)::value>(
+          q, k, v, out, lse, b, sq, sk, hq, hkv, d, q_offset, kv_offset, causal,
+          scale, stream);
+    });
   } else {
-    return d <= 64 ? launch_fwd_tf32<64>(q, k, v, out, lse, b, sq, sk, hq, hkv,
-                                         d, q_offset, kv_offset, causal, scale,
-                                         stream)
-                   : launch_fwd_tf32<128>(q, k, v, out, lse, b, sq, sk, hq, hkv,
-                                          d, q_offset, kv_offset, causal, scale,
-                                          stream);
+    return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
+      return launch_fwd_tf32<decltype(kd)::value>(
+          q, k, v, out, lse, b, sq, sk, hq, hkv, d, q_offset, kv_offset, causal,
+          scale, stream);
+    });
   }
 }
 
@@ -1549,13 +1629,11 @@ int launch_dq_16(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* dm, void* dq, int b, int sq,
                  int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
                  int causal, float scale, cudaStream_t stream) {
-  return d <= 64 ? launch_dq_wgmma<T, 64, kAcc>(q, k, v, dout, lse, dm, dq, b,
-                                                sq, sk, hq, hkv, d, q_offset,
-                                                kv_offset, causal, scale, stream)
-                 : launch_dq_wgmma<T, 128, kAcc>(q, k, v, dout, lse, dm, dq, b,
-                                                 sq, sk, hq, hkv, d, q_offset,
-                                                 kv_offset, causal, scale,
-                                                 stream);
+  return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
+    return launch_dq_wgmma<T, decltype(kd)::value, kAcc>(
+        q, k, v, dout, lse, dm, dq, b, sq, sk, hq, hkv, d, q_offset, kv_offset,
+        causal, scale, stream);
+  });
 }
 
 template <typename T>
@@ -1572,12 +1650,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                         hq, hkv, d, q_offset, kv_offset, causal,
                                         scale, stream);
   } else {
-    return d <= 64 ? launch_dq_tf32<64>(q, k, v, dout, lse, dm, dq, b, sq, sk,
-                                        hq, hkv, d, q_offset, kv_offset, causal,
-                                        accumulate, scale, stream)
-                   : launch_dq_tf32<128>(q, k, v, dout, lse, dm, dq, b, sq, sk,
-                                         hq, hkv, d, q_offset, kv_offset, causal,
-                                         accumulate, scale, stream);
+    return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
+      return launch_dq_tf32<decltype(kd)::value>(
+          q, k, v, dout, lse, dm, dq, b, sq, sk, hq, hkv, d, q_offset, kv_offset,
+          causal, accumulate, scale, stream);
+    });
   }
 }
 
@@ -1587,14 +1664,11 @@ int launch_dkv_16(const void* q, const void* k, const void* v,
                   void* dv, int b, int sq, int sk, int hq, int hkv, int d,
                   int q_offset, int kv_offset, int causal, float scale,
                   cudaStream_t stream) {
-  return d <= 64 ? launch_dkv_wgmma<T, 64, kAcc>(q, k, v, dout, lse, dm, dk,
-                                                 dv, b, sq, sk, hq, hkv, d,
-                                                 q_offset, kv_offset, causal,
-                                                 scale, stream)
-                 : launch_dkv_wgmma<T, 128, kAcc>(q, k, v, dout, lse, dm, dk,
-                                                  dv, b, sq, sk, hq, hkv, d,
-                                                  q_offset, kv_offset, causal,
-                                                  scale, stream);
+  return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
+    return launch_dkv_wgmma<T, decltype(kd)::value, kAcc>(
+        q, k, v, dout, lse, dm, dk, dv, b, sq, sk, hq, hkv, d, q_offset,
+        kv_offset, causal, scale, stream);
+  });
 }
 
 template <typename T>
@@ -1612,12 +1686,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                                          sk, hq, hkv, d, q_offset, kv_offset,
                                          causal, scale, stream);
   } else {
-    return d <= 64 ? launch_dkv_tf32<64>(q, k, v, dout, lse, dm, dk, dv, b, sq,
-                                         sk, hq, hkv, d, q_offset, kv_offset,
-                                         causal, accumulate, scale, stream)
-                   : launch_dkv_tf32<128>(q, k, v, dout, lse, dm, dk, dv, b, sq,
-                                          sk, hq, hkv, d, q_offset, kv_offset,
-                                          causal, accumulate, scale, stream);
+    return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
+      return launch_dkv_tf32<decltype(kd)::value>(
+          q, k, v, dout, lse, dm, dk, dv, b, sq, sk, hq, hkv, d, q_offset,
+          kv_offset, causal, accumulate, scale, stream);
+    });
   }
 }
 
@@ -1637,7 +1710,8 @@ int tpuhpc_flash_fwd(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int sq, int sk, int hq, int hkv, int d,
                      int q_offset, int kv_offset, int causal, float scale,
                      int dtype, void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_fwd<T>(q, k, v, out, lse, b, sq, sk, hq, hkv,
                                              d, q_offset, kv_offset, causal, scale,
@@ -1651,7 +1725,8 @@ int tpuhpc_flash_dq(const void* q, const void* k, const void* v, const void* dou
                     int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
                     int causal, int accumulate, float scale, int dtype,
                     void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_dq<T>(q, k, v, dout, lse, dm, dq, b, sq, sk,
                                             hq, hkv, d, q_offset, kv_offset, causal,
@@ -1664,7 +1739,8 @@ int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
                      void* dv, int b, int sq, int sk, int hq, int hkv, int d,
                      int q_offset, int kv_offset, int causal, int accumulate,
                      float scale, int dtype, void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_dkv<T>(q, k, v, dout, lse, dm, dk, dv, b, sq,
                                              sk, hq, hkv, d, q_offset, kv_offset,
@@ -1673,16 +1749,19 @@ int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // Rows a block of `kernel` (0 forward, 1 dq, 2 dk/dv) owns for a dtype
-// code -- q rows for the forward and dq, keys for dk/dv -- or 0 for an
-// unknown code; kernels/attention.py::flash_tile_rows reads it.
-int tpuhpc_flash_tile_rows(int kernel, int dtype) {
-  if (kernel < 0 || kernel > 2) return 0;
-  switch (dtype) {
-    case kF32: return kTf32Rows;
-    case kF16:
-    case kBF16: return kernel == 0 ? kFwdRows : kBwdRows;
-    default: return 0;
-  }
+// code at head dim d -- q rows for the forward and dq, keys for dk/dv --
+// or 0 for an unknown code or a head dim the kernels do not take (one a
+// whole number of 16 bytes: the wrapper's padded width);
+// kernels/attention.py::flash_tile_rows reads it.
+int tpuhpc_flash_tile_rows(int kernel, int dtype, int d) {
+  if (kernel < 0 || kernel > 2 || dtype < kF32 || dtype > kBF16 ||
+      !head_dim_ok(d, dtype))
+    return 0;
+  if (dtype == kF32) return kTf32Rows;
+  return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
+    constexpr int kD = decltype(kd)::value;
+    return kernel == 0 ? FwdShape<kD>::kRows : BwdShape<kD>::kRows;
+  });
 }
 
 }  // extern "C"

@@ -88,6 +88,18 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return err;
 }
 
+// Calls f with the instantiation (std::integral_constant kD) that holds
+// head dim d: 64, 128 or 256 columns, none wider than kMaxD. A d below
+// kD is padded: its columns past d are zeros in shared memory.
+template <int kMaxD = 256, typename F>
+int by_head_dim(int d, F&& f) {
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if constexpr (kMaxD > 128) {
+    if (d > 128) return f(std::integral_constant<int, 256>{});
+  }
+  return f(std::integral_constant<int, 128>{});
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -460,6 +472,30 @@ __device__ __forceinline__ void zero_panels(uint32_t tile, int rows, int from,
     asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at + 16 * i),
                  "r"(0u)
                  : "memory");
+}
+
+// 64-column panels of a 16-bit kD-column tile that hold a column below
+// d: a padded head dim's boxes load only these. Only kD 256 has a panel
+// wholly past d (its last, at d 129-192): it is zeroed once
+// (zero_dead_panels) and never loaded. A d the 64- or 128-column kernels
+// take reaches their last panel.
+template <int kD>
+__device__ __forceinline__ int live_panels(int d) {
+  return kD == 256 ? (d + 63) / 64 : kD / 64;
+}
+
+// Zeroes the panels past live_panels(d) of `n` 16-bit tiles of `rows`
+// rows each, laid out back to back from `tile`, each of `threads`
+// threads from threadIdx.x on; the caller fences (fence_proxy_async)
+// before a wgmma reads them. Only kD 256 has any.
+template <int kD>
+__device__ __forceinline__ void zero_dead_panels(uint32_t tile, int rows, int n,
+                                                 int d, int threads) {
+  const int panels = live_panels<kD>(d);
+  if (panels >= kD / 64) return;
+  for (int i = 0; i < n; ++i)
+    zero_panels(tile + i * rows * kD * 2, rows, panels, kD / 64, threadIdx.x,
+                threads);
 }
 
 // 16-bit tensor-map element type of T.

@@ -1068,16 +1068,12 @@ __global__ void __launch_bounds__(kPrefillWgmmaThreads) paged_prefill_wgmma_kern
   const int n_pages = (live_keys + bs - 1) / bs;
   // Panels holding a column below d: the boxes load only these; the
   // rest of a padded head dim (e.g. 192-255 at d 136) is zeroed here,
-  // once, in Q and in every stage, and no box ever writes it. (Only kD
-  // 256 has such panels: a d the 64- or 128-column kernel takes is past
-  // its last panel's first column.)
-  const int panels = kD == 256 ? (d + 63) / 64 : kD / 64;
+  // once, in Q and in every stage, and no box ever writes it.
+  const int panels = live_panels<kD>(d);
   if (panels < kD / 64) {
-    zero_panels(s_q, kPrefillRows, panels, kD / 64, threadIdx.x,
-                kPrefillWgmmaThreads);
-    for (int st = 0; st < 2 * kPrefillStages; ++st)
-      zero_panels(ring.k + st * kTile, kWalkKeys, panels, kD / 64, threadIdx.x,
-                  kPrefillWgmmaThreads);
+    zero_dead_panels<kD>(s_q, kPrefillRows, 1, d, kPrefillWgmmaThreads);
+    zero_dead_panels<kD>(ring.k, kWalkKeys, 2 * kPrefillStages, d,
+                         kPrefillWgmmaThreads);
     fence_proxy_async();
   }
 
@@ -1290,9 +1286,9 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
   // Q's panels holding a column below d; a TMA load of Q fills only
   // those, and the rest of a padded head dim is zeroed here, once (kD
   // 256 only, as in the TMA kernel).
-  const int panels = kD == 256 ? (d + 63) / 64 : kD / 64;
+  const int panels = live_panels<kD>(d);
   if (kWhole && panels < kD / 64) {
-    zero_panels(s_q, kPrefillRows, panels, kD / 64, threadIdx.x, kGatherThreads);
+    zero_dead_panels<kD>(s_q, kPrefillRows, 1, d, kGatherThreads);
     fence_proxy_async();
   }
 
@@ -1895,17 +1891,6 @@ int launch_prefill_tf32(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<QT*>(out), hkv, bucket, g, d, bs, max_blocks, start, sm_scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Calls f with the instantiation (std::integral_constant kD) that holds
-// head dim d: 64, 128 or 256 columns, none wider than kMaxD.
-template <int kMaxD = 256, typename F>
-int by_head_dim(int d, F&& f) {
-  if (d <= 64) return f(std::integral_constant<int, 64>{});
-  if constexpr (kMaxD > 128) {
-    if (d > 128) return f(std::integral_constant<int, 256>{});
-  }
-  return f(std::integral_constant<int, 128>{});
 }
 
 template <typename QT, typename KT>

@@ -173,7 +173,8 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_flash_dq.restype = i
     lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
     lib.tpuhpc_flash_dkv.restype = i
-    lib.tpuhpc_flash_tile_rows.argtypes = [i, i]  # (kernel, dtype code)
+    # (kernel, dtype code, head dim)
+    lib.tpuhpc_flash_tile_rows.argtypes = [i, i, i]
     lib.tpuhpc_flash_tile_rows.restype = i
 
 

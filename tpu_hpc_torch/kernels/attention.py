@@ -26,8 +26,20 @@ row gives out = 0, lse = MASK_VALUE and zero, NaN-free gradients.
 ``q_offset`` / ``kv_offset`` are runtime integers handed to the
 kernels, so one build serves every ring step. The TPU's ``block_q`` /
 ``block_k`` arguments and ``pick_block_sizes``' 128-lane rule are not
-ported: the Hopper kernels pick their own tiles, per kernel and dtype
-(:func:`flash_tile_rows` reads them from the built library).
+ported: the Hopper kernels pick their own tiles, per kernel, dtype and
+head dim (:func:`flash_tile_rows` reads them from the built library).
+
+Head dims: the JAX kernel's blocks span the whole head, so it takes any
+d; on the card the 16-bit kernels take every d from 1 to
+:data:`MAX_HEAD_DIM` (256) and the float32 ones every d up to
+:data:`MAX_HEAD_DIM_F32` (128), each in a 64-, 128- or 256-column
+instantiation with zero columns past d. A row that is not a whole number
+of 16 bytes (bf16 d 36, float32 d 37) cannot be strided by a tensor map
+or read 16 bytes a chunk, so the wrappers copy q, k, v (and dout) into
+zero-padded tensors of the next such width (:func:`padded_head_dim`),
+launch on those and slice the results: only the copy is extra, and the
+softmax scale stays ``d ** -0.5`` of the caller's d. Past those limits
+the wrappers raise, naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,7 +57,9 @@ FLASH_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 DTYPE_CODES = {
     torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3,
 }
-MAX_HEAD_DIM = 128
+# Head dims the kernels take: 16-bit inputs, float32 inputs.
+MAX_HEAD_DIM = 256
+MAX_HEAD_DIM_F32 = 128
 
 Offset = Union[int, torch.Tensor]
 
@@ -332,12 +346,34 @@ def _kernel_dtype(q: torch.Tensor) -> int:
             f"{q.dtype}"
         )
     d = q.shape[-1]
-    if d % 16 or d > MAX_HEAD_DIM:
+    if d > MAX_HEAD_DIM:
         raise ValueError(
-            f"flash kernels take head_dim a multiple of 16 up to "
-            f"{MAX_HEAD_DIM}, got {d}"
-        )
+            f"head_dim {d}: the flash kernels take head dims up to "
+            f"{MAX_HEAD_DIM} "
+            '(ROADMAP: "Flash attention past head_dim 256")')
+    if q.dtype == torch.float32 and d > MAX_HEAD_DIM_F32:
+        raise ValueError(
+            f"head_dim {d}: the float32 flash kernels take head dims up to "
+            f"{MAX_HEAD_DIM_F32} "
+            '(ROADMAP: "The TF32 walk at head dims 129-256")')
     return DTYPE_CODES[q.dtype]
+
+
+def padded_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The width the kernels see for head dim ``d`` of ``dtype``: d
+    itself where its rows are a whole number of 16 bytes, else the next
+    such width (the wrappers zero-pad to it and slice the results)."""
+    per = 16 // dtype.itemsize
+    return -(-d // per) * per
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns up to ``width`` in its last dim (``x``
+    itself at that width already)."""
+    d = x.shape[-1]
+    if d == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - d))
 
 
 def _dims(q, k):
@@ -377,13 +413,15 @@ def flash_attention_fwd(
     code = _kernel_dtype(q)
     _check_cuda([("q", q), ("k", k), ("v", v)], [q.dtype] * 3)
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    w = padded_head_dim(d, q.dtype)
+    q, k, v = (_pad(t, w) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "tpuhpc_flash_fwd", q, k, v, out, lse,
-            b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)), float(scale),
+            b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)), float(scale),
             code)
     flash_attention_fwd.launches += 1
-    return out, lse
+    return (out if w == d else out[..., :d].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0
@@ -427,10 +465,14 @@ def flash_attention_dq(
         [q.dtype] * 4 + [torch.float32] * 2 + [dq.dtype],
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    w = padded_head_dim(d, q.dtype)
+    q, k, v, dout, out = (_pad(t, w) for t in (q, k, v, dout, dq))
     _launch("flash_attention_dq", "tpuhpc_flash_dq", q, k, v, dout, lse, dm,
-            dq, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
+            out, b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)),
             int(accumulate is not None), float(scale), code)
     flash_attention_dq.launches += 1
+    if out is not dq:  # a padded copy: its first d columns
+        dq.copy_(out[..., :d])
     return dq
 
 
@@ -467,10 +509,15 @@ def flash_attention_dkv(
         [q.dtype] * 4 + [torch.float32] * 2 + [dk.dtype] * 2,
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    w = padded_head_dim(d, q.dtype)
+    q, k, v, dout, pk, pv = (_pad(t, w) for t in (q, k, v, dout, dk, dv))
     _launch("flash_attention_dkv", "tpuhpc_flash_dkv", q, k, v, dout, lse,
-            dm, dk, dv, b, sq, sk, hq, hkv, d, qo, ko, int(bool(causal)),
+            dm, pk, pv, b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)),
             int(accumulate is not None), float(scale), code)
     flash_attention_dkv.launches += 1
+    if pk is not dk:  # padded copies: their first d columns
+        dk.copy_(pk[..., :d])
+        dv.copy_(pv[..., :d])
     return dk, dv
 
 
@@ -566,11 +613,12 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def flash_tile_rows(kernel: str, dtype: torch.dtype) -> int:
+def flash_tile_rows(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
     """Rows a block of ``kernel`` (a name of :data:`FLASH_KERNELS`) owns
-    for ``dtype`` -- q rows for the forward and dq, keys for dk/dv -- read
-    from the library (csrc/flash_attention.cu); builds it when needed, so
-    call it only with a card."""
+    for ``dtype`` at ``head_dim`` -- q rows for the forward and dq, keys
+    for dk/dv (128 in 16 bits up to head_dim 128, 64 past it; 64 in
+    float32) -- read from the library (csrc/flash_attention.cu); builds
+    it when needed, so call it only with a card."""
     from tpu_hpc_torch.kernels import _build
 
     if kernel not in FLASH_KERNELS:
@@ -578,8 +626,13 @@ def flash_tile_rows(kernel: str, dtype: torch.dtype) -> int:
             f"no flash kernel {kernel!r}; one of {FLASH_KERNELS}")
     if dtype not in FLASH_DTYPES:
         raise TypeError(f"flash kernels take no {dtype}")
+    limit = MAX_HEAD_DIM_F32 if dtype == torch.float32 else MAX_HEAD_DIM
+    if not 1 <= head_dim <= limit:
+        raise ValueError(f"no {dtype} flash kernel takes head_dim "
+                         f"{head_dim}")
     return _build.load_library().tpuhpc_flash_tile_rows(
-        FLASH_KERNELS.index(kernel), DTYPE_CODES[dtype])
+        FLASH_KERNELS.index(kernel), DTYPE_CODES[dtype],
+        padded_head_dim(head_dim, dtype))
 
 
 def kernel_launches() -> dict:
@@ -595,6 +648,8 @@ __all__ = [
     "FLASH_DTYPES",
     "FLASH_KERNELS",
     "MASK_VALUE",
+    "MAX_HEAD_DIM",
+    "MAX_HEAD_DIM_F32",
     "attention_reference",
     "blockwise_attention",
     "flash_attention",
@@ -607,6 +662,7 @@ __all__ = [
     "flash_tile_rows",
     "kernel_launches",
     "lse_merge",
+    "padded_head_dim",
     "tf32_round",
     "tf32_split",
     "tf32_split_p",

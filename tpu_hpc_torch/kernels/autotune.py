@@ -18,7 +18,9 @@ the Hopper kernels can vary without a new layout:
   static_assert pins it to 64), so ``sweep_bwd=True`` adds one record,
   refused for that layout reason with the forward pinned to the best
   forward candidate, and builds nothing. The row/warpgroup layout
-  (``kFwdRows`` 128 = two consumer warpgroups x 64) is not a candidate.
+  (``FwdShape``: 128 rows = two consumer warpgroups x 64, one warpgroup
+  at head_dim 256, whose ring takes at most three stages) is not a
+  candidate.
 * ``mode="decode"`` (the paged decode): the run count ``n_split`` the C
   entry takes at runtime, over ``DECODE_SPLITS`` and "auto" (the
   library's pick), at ``chip_smoke.py``'s 7B decode shape (8 slots, 32

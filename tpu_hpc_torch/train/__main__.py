@@ -813,7 +813,8 @@ def run_train(
                   "remat": model_cfg.remat},
         "attn": attn,
         "kernel_launches": launches,
-        "flash_tile_rows": ({k: attention.flash_tile_rows(k, model_cfg.dtype)
+        "flash_tile_rows": ({k: attention.flash_tile_rows(
+                                 k, model_cfg.dtype, model_cfg.head_dim)
                              for k in attention.FLASH_KERNELS}
                             if attn == "flash" and device.type == "cuda"
                             else None),
@@ -1373,7 +1374,8 @@ def run_mpmd(model_cfg: llama2.LlamaConfig, pp: PipeArgs, devices, *,
         "pp": {**dataclasses.asdict(pp), "runtime": "mpmd"},
         "compile_counts": pipe.compile_counts,
         "kernel_launches": launches,
-        "flash_tile_rows": ({k: attention.flash_tile_rows(k, model_cfg.dtype)
+        "flash_tile_rows": ({k: attention.flash_tile_rows(
+                                 k, model_cfg.dtype, model_cfg.head_dim)
                              for k in attention.FLASH_KERNELS}
                             if attn == "flash" and devices[0].type == "cuda"
                             else None),
