@@ -32,8 +32,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     strides: gathered), and Gemma-2B's attention (1 KV
                     head, group 8, head_dim 256) on the kD 256 kernels:
                     the prefill over bf16 (and on 12-token pages, bit
-                    for bit), int8 and float32 (scalar, bound at the
-                    fp32 FMA rate), the decode over bf16 and int8 (and
+                    for bit), int8 and float32 (the TF32 route's column
+                    halves, bound at the TF32 rate of its split passes),
+                    the decode over bf16 and int8 (and
                     on 12-token pages); not timed, the chunks that the
                     head_dim-256 replay launches (240 rows at starts 240
                     and 480, the causal edge inside a key tile: bf16 on
@@ -45,9 +46,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     the prefill has a wgmma route for 16-bit pools on
                     pages TMA boxes tile, a wgmma_gather route for them
                     at every other page size and head dim, a wgmma_int8
-                    route for int8 pools under a 16-bit q, all three up
-                    to head_dim 256, a wgmma_tf32 route for every other
-                    pair up to 128 and a scalar one past it) and must
+                    route for int8 pools under a 16-bit q, a wgmma_tf32
+                    route for every other pair, all four up to head_dim
+                    256, and a scalar one past it) and must
                     pass checks/tolerance.py's
                     rule for q's dtype (a coarser 16-bit pool's where P
                     is rounded to it: rule_dtype; q's reading beside
@@ -199,8 +200,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     12-token pages, every prefill launch on wgmma_tf32;
                     and crosscheck_head_dim_256: serve_head_dim_256's
                     widths at 2 layers in float32, every prefill launch
-                    on the scalar route (the TF32 tiles do not fit at
-                    256), the decode on kD 256.
+                    on wgmma_tf32 (kD 256: two blocks a row tile, each
+                    half of the output's columns), the decode on kD 256.
   7. train       -- python -m tpu_hpc_torch.train's run_train on the
                     bench Llama at full width and depth (dim 1024, 8
                     layers, seq 2048, vocab 32000, bf16 compute, fp32
@@ -218,7 +219,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     beside the state's 16 bytes a parameter, the losses
                     (finite), flash_tile_rows, and each flash kernel's
                     launches (counts set to 0 just before): layers x
-                    accum x updates.
+                    accum x updates -- dk/dv's sum pass as many (the
+                    group of 8 split over blocks, dkv_splits).
      train_crosscheck_head_dim_256 -- the same widths at 2 layers, bf16:
                     3 updates through the flash kernels and through the
                     reference attention from the same seeded params and
@@ -518,8 +520,9 @@ crosscheck (the prefill) or in train_crosscheck (flash); the prefill's
 gathering route over a bf16 pool with its launches in serve_pages_of_12,
 the int8 route's there beside it, the timed rows of the odd pages and
 of the other head dims under ``odd_shapes`` and the scalar kernel's
-registers and launches in crosscheck_head_dim_256 under
-``scalar_route``; the kD 256 prefill (TMA, gathered, int8) and decode
+registers under ``scalar_route`` (it takes head dims past 256 only);
+the split dk/dv's sum pass (``flash_attention_dkv_sum``) with its
+launches in train_head_dim_256; the kD 256 prefill (TMA, gathered, int8) and decode
 (bf16, int8) entries with their launches in serve_head_dim_256), nvidia-smi's
 line, and last the
 one-line result ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -558,13 +561,18 @@ HD256_INT8 = "paged_prefill_attention_head_dim_256_int8"
 HD256_DECODE = "paged_decode_attention_head_dim_256"
 HD256_DECODE_INT8 = "paged_decode_attention_head_dim_256_int8"
 # The summary line's entries for the flash kernels' kD 256 instantiations
-# (one warpgroup a block; dk/dv in column halves), which
-# train_head_dim_256 launches, by wrapper.
+# (one warpgroup a block; dk/dv two over 64 keys, the query-head group
+# split over blocks), which train_head_dim_256 launches, by wrapper.
 HD256_FLASH = {
     "flash_attention_fwd": "flash_attention_fwd_head_dim_256",
     "flash_attention_dq": "flash_attention_dq_head_dim_256",
     "flash_attention_dkv": "flash_attention_dkv_head_dim_256",
 }
+# The summary line's entry for the second pass of the split dk/dv (the
+# query-head group over several blocks a key tile at Gemma-2B's 8 over 1:
+# attention.dkv_splits), which train_head_dim_256 launches after each
+# dk/dv launch; the wrapper's name.
+DKV_SUM = "flash_attention_dkv_sum"
 SOURCES = {
     "paged_decode_attention": PAGED_SOURCE,
     "paged_prefill_attention": PAGED_SOURCE,
@@ -579,6 +587,7 @@ SOURCES = {
     "flash_attention_dq": FLASH_SOURCE,
     "flash_attention_dkv": FLASH_SOURCE,
     **{name: FLASH_SOURCE for name in HD256_FLASH.values()},
+    DKV_SUM: FLASH_SOURCE,
 }
 REPLACES = {
     "paged_decode_attention":
@@ -607,6 +616,9 @@ REPLACES = {
         "tpu_hpc/kernels/attention.py:455",         # _flash_dkv_kernel
 }
 REPLACES.update({hd: REPLACES[k] for k, hd in HD256_FLASH.items()})
+# The sum pass finishes the dk/dv kernel's group sum (attention.py's
+# _flash_dkv_kernel and the sum over the group after it).
+REPLACES[DKV_SUM] = REPLACES["flash_attention_dkv"]
 
 
 # The split-TF32 kernels, by the wrapper whose summary entry carries
@@ -747,6 +759,8 @@ def flash_instance(kname: str, dtype_name: str, d: int,
     t = SHORT_TYPES[dtype_name]
     if kind == "fwd":
         return f"flash_fwd_wgmma_kernel<{t}, {kd}>"
+    if kind == "dkv" and kd == 256:  # two warpgroups over 64 keys
+        return f"flash_dkv_wg2_kernel<{t}, {str(acc).lower()}>"
     return f"flash_{kind}_wgmma_kernel<{t}, {kd}, {str(acc).lower()}>"
 
 
@@ -1093,13 +1107,17 @@ def decode_control(torch, args, kw, want) -> None:
 # and Gemma-2B's attention (GEMMA: 1 KV head, group 8, head_dim 256,
 # chunk 256 at start 256) on the kD 256 kernels -- the prefill over bf16
 # (TMA; and on 12-token pages, gathered, bit-equal to 16), over an int8
-# pool under bf16, and float32 over float32 (scalar: the TF32 tiles do
-# not fit at 256; bound at the fp32 FMA rate its products run at), the
-# decode over bf16 and int8 pools and over bf16 on 12-token pages. Not
+# pool under bf16, and float32 over float32 (the TF32 route in column
+# halves of the output: two blocks a row tile), the decode over bf16
+# and int8 pools and over bf16 on 12-token pages. Not
 # timed, the chunks serve_head_dim_256 launches (SERVE_CHUNKS,
 # head_dim_256_shape): 240 rows at starts 240 and 480, where a row
 # tile's causal edge falls inside a 64-key tile, over bf16 on 16- and
-# 12-token pages (the 12-token ones bit-equal to 16) and over int8.
+# 12-token pages (the 12-token ones bit-equal to 16) and over int8. Not
+# timed, the scalar kernel, which takes every pair past head_dim 256
+# and no path of the smoke runs (PAST_MAX_HEAD_DIM): one 16-token chunk
+# at Gemma's grouping and head_dim 300, float32 and bf16, each held to
+# the plain version and to the scalar route.
 ODD_PAGES = {"7b_pages_of_12": 12, "7b_pages_of_250": 250}
 GEMMA = "gemma_2b"           # the attention of google/gemma-2b
 GEMMA_HEADS = (1, 8)         # KV heads, group (8 query heads)
@@ -1113,11 +1131,14 @@ SERVE_CHUNKS = {"7b_pages_of_12_chunk_252": dict(bs=12, bucket=252),
                     bs=12, bucket=GEMMA_CHUNK, d=GEMMA_HEAD_DIM)}
 PADDED_HEAD_DIM = 72
 NARROW_HEAD_DIM = 36
+PAST_MAX_HEAD_DIM = 300      # the scalar kernel's case
 HEAD_DIM_SHAPES = {
     f"7b_head_dim_{PADDED_HEAD_DIM}": dict(d=PADDED_HEAD_DIM),
     f"7b_head_dim_{NARROW_HEAD_DIM}": dict(d=NARROW_HEAD_DIM),
     GEMMA: dict(d=GEMMA_HEAD_DIM),
     f"{GEMMA}_pages_of_12": dict(d=GEMMA_HEAD_DIM, bs=12),
+    f"head_dim_{PAST_MAX_HEAD_DIM}_chunk_16": dict(d=PAST_MAX_HEAD_DIM,
+                                                    bucket=16),
 }
 
 
@@ -1131,17 +1152,22 @@ def case_shape(shape_name: str) -> dict:
     return dict(HEAD_DIM_SHAPES.get(shape_name, {}))
 
 
-def tensor_core_route(bs: int, int8: bool, head_dim: int = 128) -> str:
+def tensor_core_route(bs: int, int8: bool, head_dim: int = 128,
+                      tf32: bool = False) -> str:
     """The route a 16-bit q takes over its own dtype (int8 False) or an
     int8 pool at pages of ``bs`` tokens and ``head_dim``: the int8 pool
     gathers at every page size; a pool of q's dtype takes TMA boxes on
     pages that stack into or split 64-key tiles where a tensor map can
     stride its rows (head_dim a multiple of 8), and gathers otherwise.
-    Past MAX_HEAD_DIM no tensor-core route exists (ValueError)."""
+    ``tf32``: a float32 or mixed pair, on wgmma_tf32 at every page size
+    and head dim. Past MAX_HEAD_DIM no tensor-core route exists
+    (ValueError)."""
     from tpu_hpc_torch.kernels.paged_attention import MAX_HEAD_DIM
 
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {head_dim}: no tensor-core route")
+    if tf32:
+        return "wgmma_tf32"
     if int8:
         return "wgmma_int8"
     boxes = (bs >= 8 and 64 % bs == 0) or bs % 64 == 0
@@ -1199,6 +1225,10 @@ def kernel_cases() -> list:
             cases.append(("paged_prefill_attention",
                           f"{GEMMA}_{shape}_{GEMMA_CHUNK}", GEMMA_HEADS,
                           pool, "bfloat16", start))
+    for dtype in ("float32", "bfloat16"):
+        cases.append(("paged_prefill_attention",
+                      f"head_dim_{PAST_MAX_HEAD_DIM}_chunk_16", GEMMA_HEADS,
+                      dtype, dtype, 100))
     return cases
 
 
@@ -1265,9 +1295,10 @@ def kernel_phase(torch, dev, lib, ptxas=()) -> tuple:
     path's rows (the 7B shape under a bf16 q, the gathering route's
     12-token bf16 case, and the kD 256 kernels at Gemma-2B's attention:
     HD256_ROWS), the TF32 route's timed rows, by (q dtype, pool, and
-    shape where not the 7B's), and the other shapes' timed prefill rows
-    (odd pages, the head dims off the 128-column kernels), by case. Each
-    row carries its kernels' ptxas rows (registers, spills)."""
+    shape where not the 7B's), and the other shapes' prefill rows (odd
+    pages, the head dims off the 128-column kernels, timed; the scalar
+    kernel's past MAX_HEAD_DIM, untimed), by case. Each row carries its
+    kernels' ptxas rows (registers, spills)."""
     from tpu_hpc_torch.checks.tolerance import TOLERANCES, compare, rule_dtype
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.kernels.attention import DTYPE_CODES
@@ -1289,6 +1320,10 @@ def kernel_phase(torch, dev, lib, ptxas=()) -> tuple:
             library, kernel_name = library_prefill, "paged_prefill"
             route = pa.paged_prefill_route(args[0].dtype, args[1].dtype,
                                            args[0].shape[3], kw["block_size"])
+            if (route == "scalar") != (args[0].shape[3] > pa.MAX_HEAD_DIM):
+                raise SystemExit(f"{kname} {shape_name} {q_name} over {pool}:"
+                                 f" route {route} at head_dim "
+                                 f"{args[0].shape[3]}")
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         want = ref(*args, **kw)
@@ -1385,6 +1420,8 @@ def kernel_phase(torch, dev, lib, ptxas=()) -> tuple:
             if kname == "paged_prefill_attention" \
                     and shape_name not in ("7b", "gqa"):
                 odd_rows[f"{q_name} q over {pool} ({shape_name})"] = row
+        if route == "scalar":
+            odd_rows[f"{q_name} q over {pool} ({shape_name})"] = row
         emit("kernels", **row)
         del args, kw, out, want
         torch.cuda.empty_cache()
@@ -1440,8 +1477,8 @@ FLASH_CASES = (
      False),
     # Head dims off the 128-column kernels. Gemma-2B's training attention
     # (train_head_dim_256: B 1, S 2048, 8 query heads over 1 KV head of
-    # 256; the kD 256 kernels -- one warpgroup a block, dk/dv in column
-    # halves), timed, then in fp16, the ring's pair of rank 3's chunk
+    # 256; the kD 256 kernels -- one warpgroup a block, dk/dv two over 64
+    # keys and split 8 ways), timed, then in fp16, the ring's pair of rank 3's chunk
     # against rank 0's at degree 4 (its accumulate= launches) and rows
     # that see no key; head_dim 72 at the training shape (bf16, padded to
     # the 128-column kernels) and at the float32 case's (the TF32
@@ -1796,10 +1833,66 @@ def flash_phase(torch, dev) -> tuple:
                     f"flash {name} {kname}: outside the tolerance "
                     f"{TOLERANCES[dtype]}: {readings}"
                 )
+        if name == GEMMA_TRAIN:
+            main_rows[DKV_SUM] = dkv_sum_row(torch, fa, case)
         del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
         del lib, outputs, bargs, got, want
         torch.cuda.empty_cache()
     return main_rows, timed_rows
+
+
+def dkv_sum_row(torch, fa, case) -> dict:
+    """The split dk/dv's sum pass at ``case``'s shape and the split the
+    rule gives it there, on seeded fp32 partials: against its plain
+    version (the ordered fp32 sum rounded to the dtype; the same bits
+    expected), timed beside the plain version, one torch.sum over the
+    splits and its bound (the partials read once, dk and dv written
+    once)."""
+    from tpu_hpc_torch.checks.tolerance import compare
+
+    name, b, sq, sk, hq, hkv, d, _, _, _, dtype_name, _ = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda", 0)
+    n = fa.dkv_splits(b, sk, hq, hkv, d, dtype,
+                      torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    parts = torch.randn((n, 2, b, sk, hkv, d), generator=gen, device=dev)
+    dk, dv = (torch.empty((b, sk, hkv, d), device=dev, dtype=dtype)
+              for _ in range(2))
+    fa.flash_attention_dkv_sum(parts, dk, dv)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_dkv_sum_ref(parts, dtype)
+    readings = {n_: compare(g, w, dtype)
+                for n_, g, w in (("dk", dk, want[0]), ("dv", dv, want[1]))}
+    nb = parts.numel() * 4 + 2 * dk.numel() * dk.element_size()
+    bound_ms, bound_by = bound(nb, (n - 1) * 2 * dk.numel(), torch.float32)
+
+    def run():
+        fa.flash_attention_dkv_sum(parts, dk, dv)
+
+    def lib_fn():
+        torch.sum(parts, dim=0)
+
+    row = {
+        "kernel": DKV_SUM, "case": name, "dtype": dtype_name, "n_split": n,
+        "max_abs_err": max(r["max_abs_err"] for r in readings.values()),
+        "bit_equal": all(torch.equal(g, w) for g, w in zip((dk, dv), want)),
+        "readings": readings,
+        "ms": time_ms(run, iters=50),
+        "device_ms": device_ms(run, "flash_dkv_sum"),
+        "plain_ms": time_ms(lambda: fa.flash_attention_dkv_sum_ref(
+            parts, dtype), iters=5, warmup=1),
+        "library_ms": time_ms(lib_fn, iters=50),
+        "library_device_ms": device_ms(lib_fn, ""),
+        "library": "torch.sum over the splits (fp32 out)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nb,
+    }
+    emit("flash", **row)
+    if not all(r["ok"] for r in readings.values()):
+        raise SystemExit(f"flash {name} {DKV_SUM}: outside the {dtype_name} "
+                         f"rule: {readings}")
+    return row
 
 
 # ---------------------------------------------------------------------
@@ -1896,8 +1989,13 @@ def train_head_dim_256_phase(torch, dev) -> dict:
                         batch=HD256_BATCH, grad_accum_steps=HD256_ACCUM,
                         device=dev)
     launches = fa.kernel_launches()
+    sums = fa.flash_attention_dkv_sum.launches
     updates = HD256_STEPS * HD256_EPOCHS
     expected = cfg.n_layers * HD256_ACCUM * updates
+    n_split = fa.dkv_splits(
+        HD256_BATCH // HD256_ACCUM, HD256_SEQ, cfg.n_heads, cfg.kv_heads,
+        cfg.head_dim, torch.bfloat16,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     emit("train_head_dim_256", model="gemma-2b-widths-llama",
          dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
          kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
@@ -1906,6 +2004,7 @@ def train_head_dim_256_phase(torch, dev) -> dict:
          microbatch=HD256_BATCH // HD256_ACCUM, grad_accum=HD256_ACCUM,
          updates=summary["updates"], measured_updates=HD256_STEPS,
          launches=launches, expected_launches=expected,
+         dkv_n_split=n_split, dkv_sum_launches=sums,
          state_bytes=train_state_bytes(summary["n_params"]),
          **{k: summary.get(k) for k in (
              "tokens_per_s", "mfu", "update_s", "peak_memory_bytes",
@@ -1916,9 +2015,12 @@ def train_head_dim_256_phase(torch, dev) -> dict:
     if launches != summary["kernel_launches"]:
         bad.append(f"train_head_dim_256: launches {launches} against the "
                    f"summary's {summary['kernel_launches']}")
+    if sums != (expected if n_split > 1 else 0):
+        bad.append(f"train_head_dim_256: {sums} dk/dv sum launches at "
+                   f"n_split {n_split}, expected one a dk/dv launch")
     if bad:
         raise SystemExit("; ".join(bad))
-    return launches
+    return {**launches, DKV_SUM: sums}
 
 
 def train_crosscheck_head_dim_256_phase(torch, dev) -> dict:
@@ -2074,7 +2176,7 @@ def zero_flash_launches() -> None:
     from tpu_hpc_torch.kernels import attention as fa
 
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
-               fa.flash_attention_dkv):
+               fa.flash_attention_dkv, fa.flash_attention_dkv_sum):
         fn.launches = 0
 
 
@@ -7050,14 +7152,13 @@ def native_tools_phase(torch, dev, train) -> dict:
 
 
 def crosscheck_phase(torch, dev, cfg, serve_cfg, paged,
-                     phase="crosscheck", route="wgmma_tf32",
-                     model="7b-width-2-layers") -> dict:
+                     phase="crosscheck", model="7b-width-2-layers") -> dict:
     """The serving path in float32 at ``cfg``'s width (7B), 2 layers:
     greedy tokens through the cuda kernels equal to the gather path's
-    and to the no-cache forward's, every prefill launch on ``route`` (the
-    TF32 route at the pool's page size; at head_dim 256, scalar), the
-    decode launched. Returns the prefill's launches by route, and the
-    decode's under "decode"."""
+    and to the no-cache forward's, every prefill launch on the TF32
+    route (tensor_core_route: at every page size and head dim up to
+    256), the decode launched. Returns the prefill's launches by route,
+    and the decode's under "decode"."""
     from tpu_hpc_torch.kernels import paged_attention as pa
     from tpu_hpc_torch.models import llama2
     from tpu_hpc_torch.serve import (
@@ -7094,6 +7195,8 @@ def crosscheck_phase(torch, dev, cfg, serve_cfg, paged,
             oracle_ok.append(toks[len(r.prompt):] == results["cuda"][r.rid])
     routes = dict(pa.paged_prefill_attention.route_launches)
     decode = pa.paged_decode_attention.launches
+    route = tensor_core_route(paged.block_size, False, small.head_dim,
+                              tf32=True)
     emit(phase, model=model, dtype="float32", head_dim=small.head_dim,
          block_size=paged.block_size, requests=len(results["cuda"]),
          tokens=sum(len(t) for t in results["cuda"].values()),
@@ -7194,12 +7297,12 @@ def main() -> int:
     crosscheck_12_routes = crosscheck_phase(
         torch, dev, cfg, *pages_of_12_shape(serve_cfg, paged),
         phase="crosscheck_pages_of_12")
-    # -- 6b. head_dim 256 in float32: the prefill on its scalar route, the
-    #        decode on kD 256
+    # -- 6b. head_dim 256 in float32: the prefill on the TF32 route's
+    #        column halves, the decode on kD 256
     crosscheck_256 = crosscheck_phase(
         torch, dev, gemma_2b_widths(torch),
         *head_dim_256_shape(serve_cfg, paged, 16),
-        phase="crosscheck_head_dim_256", route="scalar",
+        phase="crosscheck_head_dim_256",
         model="gemma-2b-widths-llama-2-layers")
 
     # -- 7. the training path: the bench Llama through the flash kernels
@@ -7211,6 +7314,7 @@ def main() -> int:
     #        2-layer crosscheck against the reference attention
     _release(torch)  # 3.03B parameters: their state alone takes 48.5 GB
     hd256_train = train_head_dim_256_phase(torch, dev)
+    launches[DKV_SUM] = hd256_train.pop(DKV_SUM)
     launches.update({HD256_FLASH[k]: n for k, n in hd256_train.items()})
     _release(torch)
     hd256_cross = train_crosscheck_head_dim_256_phase(torch, dev)
@@ -7281,16 +7385,22 @@ def main() -> int:
         if entry["name"] == "paged_prefill_attention":
             entry["serve_spec_launches"] = spec_launches["prefill"]
             # The timed rows of the other prefill shapes (odd pages, the
-            # scalar head_dim), and the scalar kernel with its registers.
+            # other head dims), and the scalar kernel with its registers.
             entry["odd_shapes"] = {case: {k: row.get(k) for k in ODD_ROW_KEYS}
-                                   for case, row in odd_rows.items()}
-            # The scalar kernel: float32 and mixed pairs past head_dim 128
-            # (its launches in the head_dim-256 crosscheck).
+                                   for case, row in odd_rows.items()
+                                   if row["route"] != "scalar"}
+            # The scalar kernel: every pair past head_dim 256 (none of the
+            # smoke's paths; the head_dim-256 crosscheck's launches, all on
+            # the TF32 route, are under tf32_route), held to its plain
+            # version in its kernel cases.
             entry["scalar_route"] = {
                 "kernel": "paged_prefill_kernel",
                 "ptxas": [r for r in ptxas
                           if r["kernel"].startswith("paged_prefill_kernel")],
-                "crosscheck_head_dim_256_launches": crosscheck_256["scalar"]}
+                "takes": "every pair past head_dim 256",
+                "cases": {case: {k: row.get(k) for k in ODD_ROW_KEYS}
+                          for case, row in odd_rows.items()
+                          if row["route"] == "scalar"}}
         # The gathering kernel's launches in serve_pages_of_12: over a bf16
         # pool (the gather entry's own count) and over an int8 pool.
         if entry["name"] == INT8_PREFILL:
@@ -7314,6 +7424,14 @@ def main() -> int:
         if entry["name"] == HD256_DECODE:
             entry["crosscheck_head_dim_256_float32_launches"] = \
                 crosscheck_256["decode"]
+        # The split dk/dv's sum pass: its registers, device times and
+        # split, at Gemma-2B's training shape.
+        if entry["name"] == DKV_SUM:
+            row = main_rows[DKV_SUM]
+            entry["ptxas"] = [r for r in ptxas
+                              if r["kernel"].startswith("flash_dkv_sum")]
+            entry.update({k: row[k] for k in (
+                "device_ms", "library_device_ms", "n_split", "bit_equal")})
         # Their launches in serve_tier_fleet: the tiered run, after each
         # refill, and by fleet replica.
         if entry["name"] in tier_fleet_launches:
@@ -7397,6 +7515,8 @@ def main() -> int:
                     crosscheck_routes["wgmma_tf32"]
                 entry["tf32_route"]["crosscheck_pages_of_12_launches"] = \
                     crosscheck_12_routes["wgmma_tf32"]
+                entry["tf32_route"]["crosscheck_head_dim_256_launches"] = \
+                    crosscheck_256["wgmma_tf32"]
             else:
                 entry["tf32_route"]["train_crosscheck_launches"] = \
                     cross_launches[entry["name"]]

@@ -103,9 +103,10 @@ def test_kernel_cases_cover_every_prefill_route():
     pages), int8 and float32 and the decode over bf16 and int8 (and bf16
     on 12-token pages); the serve_head_dim_256 phase's chunks (240 rows
     at starts 240 and 480, where the causal edge falls inside a 64-key
-    tile) over bf16 on 16- and 12-token pages and over int8; the int8
-    and the gathering prefill and the kD 256 kernels have their own
-    summary entries."""
+    tile) over bf16 on 16- and 12-token pages and over int8; the scalar
+    kernel past head_dim 256 (one 16-token chunk at d 300, float32 and
+    bf16); the int8 and the gathering prefill and the kD 256 kernels
+    have their own summary entries."""
     cases = chip_smoke.kernel_cases()
     prefill = {(shape, pool, q, start)
                for k, shape, _, pool, q, start in cases
@@ -171,7 +172,15 @@ def test_kernel_cases_cover_every_prefill_route():
             assert chip_smoke.case_shape(shape)["bucket"] == c
     assert chip_smoke.case_shape(f"{gemma}_pages_of_12_chunk_{c}")["bs"] == 12
     assert chip_smoke.case_shape("7b") == {}
-    assert len(cases) == 40
+    from tpu_hpc_torch.kernels.paged_attention import MAX_HEAD_DIM
+
+    d = chip_smoke.PAST_MAX_HEAD_DIM
+    assert d > MAX_HEAD_DIM  # only the scalar kernel takes it
+    assert chip_smoke.case_shape(f"head_dim_{d}_chunk_16") == {
+        "d": d, "bucket": 16}
+    for dtype in ("float32", "bfloat16"):
+        assert (f"head_dim_{d}_chunk_16", dtype, dtype, 100) in prefill
+    assert len(cases) == 42
     for name in (chip_smoke.INT8_PREFILL, chip_smoke.GATHER_PREFILL,
                  chip_smoke.HD256_PREFILL, chip_smoke.HD256_GATHER,
                  chip_smoke.HD256_INT8):
@@ -210,6 +219,39 @@ def test_tensor_core_route_names_the_library_routes(bs, int8, head_dim,
     assert route in PREFILL_ROUTES and route != "scalar"
     with pytest.raises(ValueError, match="no tensor-core route"):
         chip_smoke.tensor_core_route(bs, int8, 300)
+
+
+@pytest.mark.parametrize("bs", [16, 12, 250, 1])
+@pytest.mark.parametrize("head_dim", [72, 128, 136, 200, 256])
+def test_tensor_core_route_takes_tf32_pairs_up_to_256(bs, head_dim):
+    """A float32 or mixed pair (tf32) is on wgmma_tf32 at every page size
+    and every head dim up to 256 -- the head_dim-256 crosscheck holds its
+    prefill launches to it -- and on no tensor-core route past 256."""
+    assert chip_smoke.tensor_core_route(bs, False, head_dim,
+                                        tf32=True) == "wgmma_tf32"
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        chip_smoke.tensor_core_route(bs, False, 300, tf32=True)
+
+
+def test_dkv_sum_entry_is_registered():
+    """The split dk/dv's sum pass has a summary entry: its wrapper's name,
+    flash_attention.cu as its source, the dk/dv Pallas kernel as what it
+    replaces (with the kernel, the group sum), and a zeroed count beside
+    the flash kernels' -- but not among kernel_launches(), which every
+    training phase holds to layers x accum x updates."""
+    from tpu_hpc_torch.kernels import attention as fa
+
+    assert chip_smoke.DKV_SUM == "flash_attention_dkv_sum"
+    assert chip_smoke.SOURCES[chip_smoke.DKV_SUM] == chip_smoke.FLASH_SOURCE
+    assert chip_smoke.REPLACES[chip_smoke.DKV_SUM] == \
+        chip_smoke.REPLACES["flash_attention_dkv"]
+    assert chip_smoke.DKV_SUM not in fa.kernel_launches()
+    fa.flash_attention_dkv_sum.launches = 5
+    chip_smoke.zero_flash_launches()
+    assert fa.flash_attention_dkv_sum.launches == 0
+    assert chip_smoke.flash_instance(
+        "flash_attention_dkv", "bfloat16", 256, True) == \
+        "flash_dkv_wg2_kernel<bf16, true>"
 
 
 def test_pages_of_12_shape_builds_an_engine_on_cpu():

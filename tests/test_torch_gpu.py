@@ -343,6 +343,41 @@ def test_prefill_tf32_kernel_long_chunk(cuda, pool):
                              seed=140))
 
 
+# Head dims past 128 on the TF32 route (kD 256: two blocks a row tile,
+# each holding half of the output's columns and streaming every K tile
+# but only its half of V): 136 (the second half 8 columns wide), 200 and
+# 256, on pages TMA boxes would tile (16) and two they could not (12,
+# 250).
+TF32_WIDE_DIMS = [136, 200, 256]
+TF32_WIDE_PAGES = [16, 12, 250]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", TF32_POOLS)
+@pytest.mark.parametrize("d", TF32_WIDE_DIMS)
+@pytest.mark.parametrize("bs", TF32_WIDE_PAGES)
+def test_prefill_tf32_kernel_past_head_dim_128(cuda, bs, d, pool):
+    """Every pair the TF32 route takes at head dims 129-256, on its route
+    (never the scalar one), at Gemma-2B's grouping (1 KV head, group 8):
+    a 40-row chunk at a start inside a page (five 64-row tiles, the last
+    ragged), dead entries on a NaN page; held by the rule for q's dtype
+    (float32: 1e-4), or a coarser 16-bit pool's."""
+    _check_prefill(*_prefill(cuda, pool, hkv=1, bucket=40, g=8, d=d, bs=bs,
+                             start=37, seed=400 + bs + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "f32_q_over_int8_pool",
+                                  "bf16_q_over_f32_pool",
+                                  "f32_q_over_bf16_pool"])
+def test_prefill_tf32_kernel_long_chunk_at_head_dim_256(cuda, pool):
+    """Gemma's serving chunk (240 rows of group 8 at start 240, 30 row
+    tiles, 60 blocks): a float32 pool's one-stage ring and the two-stage
+    ones wrap 15 times."""
+    _check_prefill(*_prefill(cuda, pool, hkv=1, bucket=240, g=8, d=256,
+                             bs=16, start=240, seed=440))
+
+
 # Page sizes TMA boxes cannot tile (neither a divisor of 64 from 8 up
 # nor a multiple of 64), up to a 250-token page at head_dim 128.
 ODD_PAGES = [1, 4, 12, 24, 48, 100, 250]
@@ -360,12 +395,12 @@ def _route_for(route, bs, d):
     """The route of a pair whose route at head_dim 128 on TMA-tiled pages
     is ``route``, at pages of ``bs`` tokens and head_dim ``d``: TMA boxes
     only where they tile the pages and stride the rows (d % 8 == 0),
-    else the gathering kernel; the TF32 route up to d 128, the scalar one
-    past it; every pair past 256 on the scalar route."""
+    else the gathering kernel; the TF32 route at every d up to 256;
+    every pair past 256 on the scalar route."""
     if d > pa.MAX_HEAD_DIM:
         return "scalar"
     if route == "wgmma_tf32":
-        return route if d <= 128 else "scalar"
+        return route
     if route == "wgmma" and d % 8:
         return "wgmma_gather"
     return _route_at(route, bs)
@@ -377,14 +412,13 @@ def _route_for(route, bs, d):
 @pytest.mark.parametrize("d", [72, 200, 300])
 def test_prefill_scalar_route_outside_the_page_rule(cuda, d, pool):
     """The route rule by head dim on pages of 12 tokens: at d 72 every
-    pair is on a tensor-core route (padded to 128); at d 200 the 16-bit
-    pairs still are (kD 256) and the float32 and mixed pairs take the
-    scalar kernel; at d 300 every pair does."""
+    pair is on a tensor-core route (padded to 128); at d 200 every pair
+    still is (kD 256: the float32 and mixed pairs on the TF32 route's
+    column halves); at d 300 every pair takes the scalar kernel."""
     args, kw, route = _prefill(cuda, pool, g=2, d=d, bs=12, start=30,
                                seed=150)
     want = _route_for(route, 12, d)
-    assert (want == "scalar") == (d > 256 or (
-        d > 128 and route == "wgmma_tf32"))
+    assert (want == "scalar") == (d > 256)
     _check_prefill(args, kw, want)
 
 
@@ -421,7 +455,7 @@ def test_prefill_kernel_at_every_head_dim(cuda, bs, d, pool):
     the 16-bit routes padded to 64, 128 or 256 columns (TMA boxes where
     they tile the pages and stride the rows, the gathering producer
     elsewhere, Q loaded by it where no tensor map can stride q), the
-    TF32 route up to 128, the scalar one past it; a chunk of 20 rows of
+    TF32 route up to 256 (column halves past 128); a chunk of 20 rows of
     group 2 at a start inside a page, dead entries pointing at a NaN
     page, so a load past a row's end or a page's shows."""
     args, kw, route = _prefill(cuda, pool, bucket=20, g=2, d=d, bs=bs,
@@ -581,6 +615,17 @@ def test_prefill_int8_scales_straddle_groups(cuda, bs, pool):
     assert not compare(bad, got, q.dtype)["ok"]
 
 
+def _rejects_one_rounding(args, kw, route):
+    from tpu_hpc_torch.kernels.attention import tf32_round
+
+    _check_prefill(args, kw, route)
+    got = pa.paged_prefill_attention(*args, **kw)
+    q, k, v, table, start = args
+    bad = pa.paged_prefill_attention_ref(
+        tf32_round(q), tf32_round(k), tf32_round(v), table, start, **kw)
+    assert not compare(bad, got, torch.float32)["ok"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bs", [12, 250])
 def test_prefill_tf32_odd_pages_reject_one_rounding(cuda, bs):
@@ -588,16 +633,18 @@ def test_prefill_tf32_odd_pages_reject_one_rounding(cuda, bs):
     plain version on q, K and V rounded once to TF32 (one pass, no
     split) is rejected by it -- the rule still tells split TF32 from
     one rounding on these pages."""
-    from tpu_hpc_torch.kernels.attention import tf32_round
+    _rejects_one_rounding(*_prefill(cuda, "float32", hkv=4, bucket=256, g=1,
+                                    bs=bs, start=200, seed=210))
 
-    args, kw, route = _prefill(cuda, "float32", hkv=4, bucket=256, g=1,
-                               bs=bs, start=200, seed=210)
-    _check_prefill(args, kw, route)
-    got = pa.paged_prefill_attention(*args, **kw)
-    q, k, v, table, start = args
-    bad = pa.paged_prefill_attention_ref(
-        tf32_round(q), tf32_round(k), tf32_round(v), table, start, **kw)
-    assert not compare(bad, got, torch.float32)["ok"]
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 12])
+def test_prefill_tf32_rejects_one_rounding_at_head_dim_256(cuda, bs):
+    """The same control at Gemma's chunk and head_dim 256: the column
+    halves keep split TF32's float32 rule, which one TF32 rounding of the
+    inputs fails."""
+    _rejects_one_rounding(*_prefill(cuda, "float32", hkv=1, bucket=240, g=8,
+                                    d=256, bs=bs, start=240, seed=450))
 
 
 # Non-finite values planted for the TF32 route: (tensor, index, value),
@@ -608,18 +655,7 @@ TF32_NONFINITE = [("q", (1, 5, 0, 3), "nan"), ("q", (0, 9, 1, 7), "inf"),
                   ("k", (4, 0, 2), "-inf"), ("v", (1, 1, 4), "inf")]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f32_pool",
-                                  "f32_q_over_bf16_pool"])
-@pytest.mark.parametrize("planted", TF32_NONFINITE,
-                         ids=lambda p: f"{p[0]}_{p[2]}")
-def test_prefill_tf32_kernel_nonfinite_rows(cuda, planted, pool):
-    """One NaN or inf in q or in a live key or value: the TF32 route's
-    non-finite rows are the plain version's (an inf in q or K gives the
-    row the plain fp32 product's +-inf or NaN, never a NaN from a split
-    term), and every other row is within the rule."""
-    args, kw, route = _prefill(cuda, pool, bucket=32, g=2, start=20,
-                               seed=160)
+def _nonfinite_rows(args, kw, route, planted):
     q, k, v, table, start = args
     which, idx, value = planted
     if which == "q":
@@ -639,6 +675,39 @@ def test_prefill_tf32_kernel_nonfinite_rows(cuda, planted, pool):
         readings = compare(got[keep], want[keep],
                            rule_dtype(q.dtype, k.dtype))
         assert readings["ok"], readings
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f32_pool",
+                                  "f32_q_over_bf16_pool"])
+@pytest.mark.parametrize("planted", TF32_NONFINITE,
+                         ids=lambda p: f"{p[0]}_{p[2]}")
+def test_prefill_tf32_kernel_nonfinite_rows(cuda, planted, pool):
+    """One NaN or inf in q or in a live key or value: the TF32 route's
+    non-finite rows are the plain version's (an inf in q or K gives the
+    row the plain fp32 product's +-inf or NaN, never a NaN from a split
+    term), and every other row is within the rule."""
+    _nonfinite_rows(*_prefill(cuda, pool, bucket=32, g=2, start=20,
+                              seed=160), planted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bf16_q_over_f32_pool",
+                                  "f32_q_over_bf16_pool"])
+@pytest.mark.parametrize("planted", TF32_NONFINITE,
+                         ids=lambda p: f"{p[0]}_{p[2]}")
+def test_prefill_tf32_kernel_nonfinite_rows_at_head_dim_256(cuda, planted,
+                                                             pool):
+    """The same at head_dim 256 (column halves; group 8 over 1 KV head):
+    a non-finite value in q or K reaches both blocks of a row tile (each
+    computes the whole S), one in V the block holding its column (here
+    the second half's: column 132) -- the rows come out non-finite where
+    the plain version's do."""
+    which, idx, value = planted
+    idx = ((0,) + idx[1:] if which == "q" else
+           (idx[0], 0, idx[2] + (128 if which == "v" else 0)))
+    _nonfinite_rows(*_prefill(cuda, pool, hkv=1, bucket=32, g=8, d=256,
+                              start=20, seed=170), (which, idx, value))
 
 
 @pytest.mark.gpu

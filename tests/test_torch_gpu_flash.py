@@ -11,8 +11,9 @@ versions on the same inputs, every case through all three: ragged lengths that c
 offsets, GQA, rows with no visible key, non-causal cross attention,
 sequences just under and over the backward kernels' 128-row tiles, head
 dims 32, 37, 64, 72, 80, 100 and 128 in every dtype, and 136, 200 and
-256 (the 256-column kernels, one warpgroup a block, dk/dv in column
-halves) in bf16 and fp16; bf16, fp16 and float32 (the float32 forward,
+256 (the 256-column kernels: one warpgroup a block in the forward and
+dq, dk/dv two warpgroups over 64 keys with the query-head group split
+over blocks, n_split 1-8) in bf16 and fp16; bf16, fp16 and float32 (the float32 forward,
 dq and dk/dv on split TF32). Head dims whose rows are not a whole number
 of 16 bytes (37 in every dtype, 100 in 16 bits) reach the kernels
 through the wrappers' zero-padded copies. This file imports no JAX.
@@ -171,8 +172,9 @@ def test_backward_kernels_are_bit_identical_across_launches(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_backward_kernels_are_bit_identical_at_head_dim_256(cuda, dtype):
-    """The 256-column kernels too (dk/dv's two column halves each sum
-    the group in its own block): GQA 8 over 1, ragged, offsets."""
+    """The 256-column kernels too (dk/dv's split blocks each sum their
+    heads, a second kernel the splits in order): GQA 8 over 1, ragged,
+    offsets."""
     _bit_identical(cuda, dtype, ("repeat", 2, 300, 300, 8, 1, 256, True, 37,
                                  0))
 
@@ -220,6 +222,117 @@ def test_backward_accumulate_adds_unrounded_past_head_dim_128(cuda, dtype,
     """``accumulate=`` in the 256-column kernels (the ring's kAcc
     variants): as above."""
     _accumulates(cuda, dtype, case)
+
+
+# The 16-bit dk/dv with the query-head group split over blocks
+# (``n_split``: each block walks group / n_split heads into fp32
+# partials, a second kernel sums them in split order): head dims 256,
+# 200 and 136 at groups 1, 2 and 8 (8 query heads), causal with
+# offsets, every split that divides the group and the rule's (None).
+SPLIT_CASES = [(f"head_dim_{d}_group{g}", 1, 300, 300, 8, 8 // g, d, True,
+                37, 0, n)
+               for d in (256, 200, 136) for g in (1, 2, 8)
+               for n in (None, 1, 2, 4, 8) if n is None or g % n == 0]
+# chip_smoke.py's Gemma-2B cases the ring and the masked rows launch:
+# the rule splits both 8 ways.
+GEMMA_CASES = [
+    ("gemma_2b_ring_past_chunk", 1, 512, 512, 8, 1, 256, True, 1536, 0),
+    ("gemma_2b_masked_rows", 1, 1000, 1000, 8, 1, 256, True, 0, 512),
+]
+
+
+def _split_args(dev, dtype, case, seed):
+    causal, qo, ko = case[7:10]
+    q, k, v, dout, dlse = _inputs(dev, dtype, case[:10], seed=seed)
+    out, lse = ta.flash_attention_fwd_ref(q, k, v, qo, ko, causal=causal)
+    dm = (dout.float() * out.float()).sum(-1) - dlse
+    return (q, k, v, dout, lse, dm, qo, ko), dict(causal=causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"{c[0]}_split{c[10]}" for c in SPLIT_CASES])
+def test_dkv_split_matches_plain_and_repeats(cuda, dtype, case):
+    """dk/dv at each ``n_split``: within the dtype's rule of the unsplit
+    plain version, bit-identical across two launches, the sum kernel
+    launched once a call where the group is split and never where it is
+    not; from zero with ``accumulate=``, within the rule, and a second
+    launch doubles it bit for bit."""
+    n_split = case[10]
+    args, kw = _split_args(cuda, dtype, case, seed=5)
+    b, sq, hq, d = args[0].shape
+    n = n_split or ta.dkv_splits(
+        b, args[1].shape[1], hq, args[1].shape[2], d, dtype,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    s0 = ta.flash_attention_dkv_sum.launches
+    first = ta.flash_attention_dkv(*args, n_split=n_split, **kw)
+    second = ta.flash_attention_dkv(*args, n_split=n_split, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention_dkv_sum.launches == s0 + (2 if n > 1 else 0)
+    want = ta.flash_attention_dkv_ref(*args, **kw)
+    for name, a, b_, w in zip(("dk", "dv"), first, second, want):
+        _close(a, w, dtype, name)
+        assert torch.equal(a, b_), name
+    k = args[1]
+    acc = [torch.zeros(k.shape, device=cuda) for _ in range(2)]
+    sums = []
+    for _ in range(2):
+        ta.flash_attention_dkv(*args, n_split=n_split, accumulate=acc, **kw)
+        torch.cuda.synchronize()
+        sums.append([a.clone() for a in acc])
+    want = ta.flash_attention_dkv_ref(
+        *args, accumulate=[torch.zeros_like(a) for a in acc], **kw)
+    for name, once, twice, w in zip(("dk", "dv"), *sums, want):
+        _close(once, w, dtype, name)
+        assert torch.equal(twice, 2 * once), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("case", GEMMA_CASES, ids=[c[0] for c in GEMMA_CASES])
+def test_gemma_cases_split_dkv(cuda, dtype, case):
+    """chip_smoke.py's ring and masked-rows cases at Gemma-2B's attention:
+    all three kernels against their plain versions (dk/dv split 8 ways by
+    the rule), ``accumulate=``, and dk/dv bit-identical across launches."""
+    b, sq, sk, hq, hkv, d = case[1:7]
+    assert ta.dkv_splits(
+        b, sk, hq, hkv, d, dtype,
+        torch.cuda.get_device_properties(cuda).multi_processor_count) == 8
+    _check_kernels(cuda, dtype, case)
+    _accumulates(cuda, dtype, case)
+    args, kw = _split_args(cuda, dtype, case, seed=6)
+    first = ta.flash_attention_dkv(*args, **kw)
+    second = ta.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("n_split", [2, 8])
+def test_dkv_sum_kernel_matches_plain(cuda, n_split, accumulate):
+    """The sum kernel alone on random partials: the ordered fp32 sum
+    (flash_attention_dkv_sum_ref), written in bf16 to the bit, or added
+    into fp32 buffers to the bit."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    parts = torch.randn((n_split, 2, 1, 300, 2, 200), generator=g,
+                        device=cuda)
+    if accumulate:
+        start = [torch.randn(parts.shape[2:], generator=g, device=cuda)
+                 for _ in range(2)]
+        got = [a.clone() for a in start]
+        ta.flash_attention_dkv_sum(parts, *got, accumulate=True)
+        want = ta.flash_attention_dkv_sum_ref(parts, torch.float32,
+                                              [a.clone() for a in start])
+    else:
+        got = [torch.empty(parts.shape[2:], device=cuda,
+                           dtype=torch.bfloat16) for _ in range(2)]
+        ta.flash_attention_dkv_sum(parts, *got)
+        want = ta.flash_attention_dkv_sum_ref(parts, torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.gpu
@@ -314,6 +427,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         ta.flash_attention_dq(q, k, v, dout, lse, dm.cpu())
     with pytest.raises(TypeError, match="lse must be"):
         ta.flash_attention_dkv(q, k, v, dout, lse.double(), dm)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ta.flash_attention_dkv(q, k, v, dout, lse, dm, n_split=3)
     n1 = ta.kernel_launches()
     assert n1["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
     assert n1["flash_attention_dq"] == n0["flash_attention_dq"]

@@ -13,8 +13,11 @@
 //                     flash_dq_tf32_kernel for float32.
 //   dk/dv             replaces _flash_dkv_kernel (launched by
 //                     _flash_backward): dV = P^T . dO, dK = scale * dS^T . Q.
-//                     flash_dkv_wgmma_kernel for bf16 / fp16,
-//                     flash_dkv_tf32_kernel for float32.
+//                     flash_dkv_wgmma_kernel for bf16 / fp16 up to
+//                     kD 128, flash_dkv_wg2_kernel at kD 256,
+//                     flash_dkv_tf32_kernel for float32; where the
+//                     query-head group is split over blocks,
+//                     flash_dkv_sum_kernel adds their partials.
 //
 // with P = exp(S - lse) rebuilt from the saved lse and
 // dS = P * (dO . V^T - D), D = rowsum(dO * O) - dlse computed by the
@@ -36,8 +39,11 @@
 //     h reads KV head h / g, never a repeated copy;
 //   * dk/dv loops over the g query heads of its group inside the block,
 //     so the group sum (attention.py:640-644) happens in the fp32
-//     accumulator: no g-times buffer, no atomics, and dq, dk, dv come
-//     out bit-identical from launch to launch.
+//     accumulator -- or, where a grid of one block a key tile would
+//     leave the card idle (Gemma-2B's 8 query heads over 1 KV head),
+//     over g / n_split heads in each of n_split blocks, whose fp32
+//     partials a second kernel adds in split order: no atomics either
+//     way, and dq, dk, dv come out bit-identical from launch to launch.
 //
 // What bounds them on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
 // training path's shape (B 4, S 2048, 8 heads, d 128, causal) the
@@ -58,9 +64,10 @@
 // forward's online-softmax walk live in hopper.cuh, shared with the
 // paged prefill. The head dim is a compile-time 64, 128 or 256 (kD); a
 // smaller d reads TMA's zero fill past its columns (kMaxHeadDim16 below).
-// At kD 256 a block has one warpgroup of 64 rows (FwdShape, BwdShape):
-// O, dQ and the Q / K / V tiles double there, and dk/dv's blocks each
-// hold half of dK's and dV's columns.
+// At kD 256 a block has 64 rows (FwdShape, BwdShape): O, dQ and the Q /
+// K / V tiles double there; the forward and dq have one warpgroup, and
+// dk/dv two over the same 64 keys, each computing half of S^T and dP^T
+// and holding half of dK's and dV's columns (flash_dkv_wg2_kernel).
 //
 // The forward goes furthest: a producer warp keeps a four-stage K/V
 // ring in flight behind per-stage full / empty mbarriers, so the two
@@ -69,8 +76,8 @@
 // while its own products do. The backward kernels still load from a
 // thread of the consumers through a two-stage ring with one block
 // barrier per tile, and wait for their own products (wgmma.wait_group 0)
-// before each softmax; dk/dv's 240 registers leave no room for a second
-// S / dP pair.
+// before each softmax; dk/dv's 240 registers (kD 128) leave no room for
+// a second S / dP pair.
 //
 // The float32 kernels run wgmma's TF32 form on split operands (hi + lo,
 // three passes a product; hopper.cuh), so they keep the float32 rule of
@@ -175,22 +182,19 @@ __device__ __forceinline__ void put2(Out<T, kAcc>* at, float lo, float hi) {
 
 // A 16-bit backward kernel's shape at head dim kD. Up to kD 128 two
 // warpgroups own a block of kRows = 128 rows (q rows in dq, keys in
-// dk/dv); at kD 256 one warpgroup owns 64: two own tiles of 128 rows and
-// two stages of the two streamed tiles would take 264 KB, and dQ alone is
-// 128 fp32 a thread. dk/dv at kD 256 would hold dK and dV, 256 fp32 a
-// thread: a block holds kN = 128 of their columns (kHalves blocks a key
-// tile, each recomputing S^T and dP^T over all kD columns: 1.5x the
-// products of one block holding all). Shared memory: the two own tiles,
-// two rings of two streamed kBwdStep-row tiles, the ring's per-row
-// statistics (dk/dv: lse and dm of each stage's q rows), three mbarriers,
-// and slack to align the tiles to 1024 bytes.
+// dk/dv); at kD 256 the block owns 64: two own tiles of 128 rows and
+// two stages of the two streamed tiles would take 264 KB. dq there has
+// one warpgroup (dQ alone is 128 fp32 a thread); dk/dv, which would hold
+// dK and dV, 256 fp32 a thread, has two warpgroups over the same 64 keys
+// (flash_dkv_wg2_kernel, Dkv256 below). Shared memory: the two own
+// tiles, two rings of two streamed kBwdStep-row tiles, the ring's
+// per-row statistics (dk/dv: lse and dm of each stage's q rows), three
+// mbarriers, and slack to align the tiles to 1024 bytes.
 template <int kD>
 struct BwdShape {
   static constexpr int kWgs = kD == 256 ? 1 : 2;
   static constexpr int kRows = 64 * kWgs;
   static constexpr int kThreads = 128 * kWgs;
-  static constexpr int kHalves = kD == 256 ? 2 : 1;
-  static constexpr int kN = kD / kHalves;
   static constexpr size_t kSmem = 2 * kRows * kD * 2 + 4 * kBwdStep * kD * 2 +
                                   2 * 2 * kBwdStep * sizeof(float) + 3 * 8 + 1024;
 };
@@ -374,22 +378,64 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dq_wgmma_kern
   }
 }
 
+// A dk/dv block's epilogue: dk = scale * dK and dv = dV, this thread's
+// column pairs (kN accumulator columns from col0) of its keys key0 and
+// key0 + 8 -- into dk and dv, or with n_split > 1 as fp32 into the
+// block's split of `part` (dk's partial, then dv's one output further
+// on).
+template <typename T, bool kAcc, int kN>
+__device__ __forceinline__ void dkv_store(
+    const float (&dk_acc)[kN / 2], const float (&dv_acc)[kN / 2],
+    Out<T, kAcc>* dk, Out<T, kAcc>* dv, float* part, int n_split, int split,
+    int col0, int key0, int b, int sk, int hkv, int kvh, int d, float scale) {
+  const int lane = threadIdx.x & 31;
+  const size_t n_out = static_cast<size_t>(gridDim.z / n_split) * sk * hkv * d;
+  float* const part_k = part + 2 * static_cast<size_t>(split) * n_out;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (col < d && key < sk) {
+        const size_t at =
+            ((static_cast<size_t>(b) * sk + key) * hkv + kvh) * d + col;
+        if (n_split > 1) {
+          *reinterpret_cast<float2*>(part_k + at) = make_float2(
+              scale * dk_acc[4 * j + 2 * r], scale * dk_acc[4 * j + 2 * r + 1]);
+          *reinterpret_cast<float2*>(part_k + n_out + at) = make_float2(
+              dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        } else {
+          put2<T, kAcc>(dk + at, scale * dk_acc[4 * j + 2 * r],
+                        scale * dk_acc[4 * j + 2 * r + 1]);
+          put2<T, kAcc>(dv + at, dv_acc[4 * j + 2 * r],
+                        dv_acc[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------
-// dk/dv, 16-bit inputs. Grid (k tiles of BwdShape::kRows keys x kHalves,
-// hkv, b), the first key tiles (the longest causal walks) first. The
-// block's K and V tiles stay in shared memory; for each of the g query
-// heads of the group, the Q and dO tiles of kBwdStep rows from the first
-// the causal mask lets see the block's keys stream through a two-stage
-// TMA ring (their lse and dm rows beside them by cp.async). Warpgroup w
-// owns keys [64 w, 64 w + 64); with keys as rows, as in the Pallas
-// kernel, it keeps in registers, per tile:
+// dk/dv, 16-bit inputs, kD 64 and 128. Grid (k tiles of BwdShape::kRows
+// keys, hkv, b x n_split), the first key tiles (the longest causal
+// walks) first. The block's K and V tiles stay in shared memory; for
+// each of its query heads -- the whole group, or with n_split > 1 the
+// split's g / n_split of them (kernels/attention.py::dkv_split_heads) --
+// the Q and dO tiles of kBwdStep rows from the first the causal mask
+// lets see the block's keys stream through a two-stage TMA ring (their
+// lse and dm rows beside them by cp.async). Warpgroup w owns keys
+// [64 w, 64 w + 64); with keys as rows, as in the Pallas kernel, it
+// keeps in registers, per tile:
 //   S^T = K . Q^T, dP^T = V . dO^T            (SS wgmma, 64 x 64 each)
 //   P^T = exp(S^T - lse), dS^T = P^T * (dP^T - dm)  (lse, dm per column)
 //   dV += P^T . dO, dK += dS^T . Q            (RS wgmma, B MN-major)
-// dK and dV stay in registers across every q tile of every head of the
-// group, so the group sum happens in the fp32 accumulators. At kD 256 a
-// block keeps kN = 128 of their columns, from col0: its dV and dK
-// products read the streamed tiles' panels from col0 / 64 on.
+// dK and dV stay in registers across every q tile of every head the
+// block walks, so the sum over those heads happens in the fp32
+// accumulators. With n_split > 1 a block writes its fp32 partials
+// (scale * dK and dV) to `part`, [n_split][2][b][sk][hkv][d], and
+// flash_dkv_sum_kernel adds them up in split order: a block walks g /
+// n_split heads, not g (kernels/attention.py::dkv_splits).
 // ---------------------------------------------------------------------
 template <typename T, int kD, bool kAcc>
 __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_kernel(
@@ -398,19 +444,21 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
     const __grid_constant__ CUtensorMap tm_v,   // boxes of kRows rows
     const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdStep rows
     const float* __restrict__ lse, const float* __restrict__ dm,
-    Out<T, kAcc>* __restrict__ dk, Out<T, kAcc>* __restrict__ dv, int sq,
-    int sk, int hq, int hkv, int d, int q_offset, int kv_offset, int causal,
-    float scale) {
+    Out<T, kAcc>* __restrict__ dk, Out<T, kAcc>* __restrict__ dv,
+    float* __restrict__ part, int n_split, int sq, int sk, int hq, int hkv,
+    int d, int q_offset, int kv_offset, int causal, float scale) {
+  static_assert(kD <= 128, "kD 256 takes flash_dkv_wg2_kernel");
   using S = BwdShape<kD>;
-  constexpr int kN = S::kN;                   // dK (dV) columns of the block
   constexpr int kOwn = S::kRows * kD * 2;     // bytes of the K (V) tile
   constexpr int kStream = kBwdStep * kD * 2;  // bytes of a Q (dO) tile
   constexpr int kStats = 2 * kBwdStep * sizeof(float);  // lse, dm of a stage
-  const int kt = blockIdx.x / S::kHalves;
-  const int col0 = (blockIdx.x % S::kHalves) * kN;
+  const int kt = blockIdx.x;
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / n_split;
+  const int split = blockIdx.z - b * n_split;
   const int g = hq / hkv;
+  const int heads = g / n_split;             // the query heads it walks
+  const int h_first = kvh * g + split * heads;
   const int k0 = kt * S::kRows;
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -436,7 +484,7 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
     qt0 = need <= 0 ? 0 : min(n_qt, (need + kBwdStep - 1) / kBwdStep);
   }
   const int per_head = n_qt - qt0;
-  const int n_steps = g * per_head;
+  const int n_steps = heads * per_head;
   const int panels = live_panels<kD>(d);
   const int stream_bytes = kBwdStep * kPanelRowBytes * panels;
 
@@ -444,7 +492,7 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
   // threads 0-127) into stage st.
   auto issue = [&](int n, int st) {
     const int hh = n / per_head;
-    const int h = kvh * g + hh;
+    const int h = h_first + hh;
     const int q0 = (qt0 + n - hh * per_head) * kBwdStep;
     if (threadIdx.x == 0) {
       const uint32_t bar = bar_ring + 8 * st;
@@ -491,14 +539,12 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
   // even in a row whose lse is NaN (dV must stay finite there).
   const float s_min = kMaskValue * 0.5f / scale;
 
-  float dk_acc[kN / 2], dv_acc[kN / 2];
+  float dk_acc[kD / 2], dv_acc[kD / 2];
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) {
+  for (int i = 0; i < kD / 2; ++i) {
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
-  // The streamed tiles' panel of column col0.
-  const uint32_t cols = (col0 / 64) * kBwdStep * kPanelRowBytes;
 
   mbar_wait(bar_own, 0);
   cp_async_wait_all();
@@ -567,12 +613,10 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdStep / 16; ++kk)
-      wgmma_rs_nd<T, kN>(dv_acc, pf[kk],
-                         mnmajor_desc(do_tile + cols, kBwdStep, kk));
+      wgmma_rs_nd<T, kD>(dv_acc, pf[kk], mnmajor_desc(do_tile, kBwdStep, kk));
 #pragma unroll
     for (int kk = 0; kk < kBwdStep / 16; ++kk)
-      wgmma_rs_nd<T, kN>(dk_acc, dsf[kk],
-                         mnmajor_desc(q_tile + cols, kBwdStep, kk));
+      wgmma_rs_nd<T, kD>(dk_acc, dsf[kk], mnmajor_desc(q_tile, kBwdStep, kk));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(dv_acc);
@@ -583,22 +627,305 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dkv_wgmma_ker
     __syncthreads();      // stage st is read by no one: it may be refilled
   }
 
-  // dk = scale * dK and dv = dV, this thread's column pairs of its keys.
+  dkv_store<T, kAcc, kD>(dk_acc, dv_acc, dk, dv, part, n_split, split, 0,
+                         key0, b, sk, hkv, kvh, d, scale);
+}
+
+// ---------------------------------------------------------------------
+// dk/dv, 16-bit inputs, kD 256. dK and dV of 64 keys at 256 columns are
+// 256 fp32 a thread of one warpgroup, so two warpgroups share the 64
+// keys, splitting both kinds of product in two with nothing computed
+// twice. Per streamed (Q, dO) tile of 64 q rows, warpgroup w:
+//   S^T, dP^T for the tile's q columns [32 w, 32 w + 32)
+//                        (SS wgmma m64n32, K and V against Q and dO rows)
+//   P^T, dS^T there      (fp32, as the kD 64 / 128 kernel: lse and dm per
+//                        column, the mask, s_min), packed to T as the A
+//                        fragments of their two k16 steps, which go to
+//                        the swap buffer in shared memory: each thread's
+//                        are the other warpgroup's same thread's other
+//                        two k16 steps, so it reads them back whole
+//   dV, dK for columns [128 w, 128 w + 128) over all 64 q rows
+//                        (RS wgmma m64n128, the four k16 steps of P^T
+//                        and dS^T against dO and Q, MN-major)
+// -- the products of one warpgroup holding everything, halved, where the
+// kD 64 / 128 kernel's shape at 256 (a block a column half, each
+// recomputing S^T and dP^T over all 256 columns) took 1.5x. Grid (key
+// tiles of 64, hkv, b x n_split), the ring, the statistics and the
+// split as in flash_dkv_wgmma_kernel; a block barrier after the swap
+// and one after the products.
+// ---------------------------------------------------------------------
+struct Dkv256 {
+  static constexpr int kD = 256;
+  static constexpr int kRows = 64;        // keys of a block (both warpgroups)
+  static constexpr int kThreads = 256;
+  static constexpr int kOwn = kRows * kD * 2;         // the K (V) tile
+  static constexpr int kStream = kBwdStep * kD * 2;   // a Q (dO) tile
+  static constexpr int kStats = 2 * kBwdStep * sizeof(float);
+  static constexpr int kSwap = 2 * 2 * 8 * 128 * 4;   // [wg][P, dS][8][thread]
+  static constexpr size_t kSmem =
+      2 * kOwn + 4 * kStream + 2 * kStats + kSwap + 3 * 8 + 1024;
+};
+static_assert(Dkv256::kSmem <= static_cast<size_t>(kMaxSmem),
+              "the kD 256 dk/dv tiles exceed 227 KB");
+static_assert(Dkv256::kRows == BwdShape<256>::kRows,
+              "flash_tile_rows reports BwdShape's rows for dk/dv");
+
+template <typename T, bool kAcc>
+__global__ void __launch_bounds__(Dkv256::kThreads, 1) flash_dkv_wg2_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // boxes of kBwdStep rows
+    const __grid_constant__ CUtensorMap tm_k,   // boxes of 64 rows
+    const __grid_constant__ CUtensorMap tm_v,   // boxes of 64 rows
+    const __grid_constant__ CUtensorMap tm_do,  // boxes of kBwdStep rows
+    const float* __restrict__ lse, const float* __restrict__ dm,
+    Out<T, kAcc>* __restrict__ dk, Out<T, kAcc>* __restrict__ dv,
+    float* __restrict__ part, int n_split, int sq, int sk, int hq, int hkv,
+    int d, int q_offset, int kv_offset, int causal, float scale) {
+  using S = Dkv256;
+  constexpr int kD = S::kD;
+  const int kt = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z / n_split;
+  const int split = blockIdx.z - b * n_split;
+  const int g = hq / hkv;
+  const int heads = g / n_split;             // the query heads it walks
+  const int h_first = kvh * g + split * heads;
+  const int k0 = kt * S::kRows;
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + S::kOwn;
+  const uint32_t s_q = s_v + S::kOwn;              // stage st at + st * kStream
+  const uint32_t s_do = s_q + 2 * S::kStream;
+  const uint32_t s_stats = s_do + 2 * S::kStream;  // stage st at + st * kStats
+  const uint32_t s_swap = s_stats + 2 * S::kStats;
+  const uint32_t bars = s_swap + S::kSwap;
+  const uint32_t bar_own = bars, bar_ring = bars + 8;
+  const float* stats = reinterpret_cast<const float*>(
+      smem_raw + (s_stats - smem_u32(smem_raw)));
+  uint32_t* swap = reinterpret_cast<uint32_t*>(
+      smem_raw + (s_swap - smem_u32(smem_raw)));
+
+  // q tiles from the first whose last row can see key k0.
+  const int n_qt = (sq + kBwdStep - 1) / kBwdStep;
+  int qt0 = 0;
+  if (causal) {
+    const int need = kv_offset + k0 - q_offset - (kBwdStep - 1);
+    qt0 = need <= 0 ? 0 : min(n_qt, (need + kBwdStep - 1) / kBwdStep);
+  }
+  const int per_head = n_qt - qt0;
+  const int n_steps = heads * per_head;
+  const int panels = live_panels<kD>(d);
+  const int stream_bytes = kBwdStep * kPanelRowBytes * panels;
+
+  // Step n's Q and dO tiles (TMA, thread 0) and lse / dm rows (cp.async,
+  // threads 0-127) into stage st.
+  auto issue = [&](int n, int st) {
+    const int hh = n / per_head;
+    const int h = h_first + hh;
+    const int q0 = (qt0 + n - hh * per_head) * kBwdStep;
+    if (threadIdx.x == 0) {
+      const uint32_t bar = bar_ring + 8 * st;
+      mbar_expect_tx(bar, 2 * stream_bytes);
+      tma_tile<kD>(s_q + st * S::kStream, &tm_q, bar, h, q0, b, kBwdStep,
+                   panels);
+      tma_tile<kD>(s_do + st * S::kStream, &tm_do, bar, h, q0, b, kBwdStep,
+                   panels);
+    }
+    if (threadIdx.x < 2 * kBwdStep) {
+      const int r = threadIdx.x & (kBwdStep - 1);
+      const float* src = threadIdx.x < kBwdStep ? lse : dm;
+      const bool valid = q0 + r < sq;
+      cp_async4(s_stats + st * S::kStats + threadIdx.x * sizeof(float),
+                valid ? src + (static_cast<size_t>(b) * sq + q0 + r) * hq + h
+                      : src,
+                valid);
+    }
+    cp_async_commit();
+  };
+
+  zero_dead_panels<kD>(s_k, S::kRows, 2, d, S::kThreads);
+  zero_dead_panels<kD>(s_q, kBwdStep, 4, d, S::kThreads);
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own);
+    mbar_init(bar_ring);
+    mbar_init(bar_ring + 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_own, 2 * S::kRows * kPanelRowBytes * panels);
+    tma_tile<kD>(s_k, &tm_k, bar_own, kvh, k0, b, S::kRows, panels);
+    tma_tile<kD>(s_v, &tm_v, bar_own, kvh, k0, b, S::kRows, panels);
+  }
+  if (n_steps > 0) issue(0, 0);
+
+  // Both warpgroups hold all 64 keys: this thread's key0 and key0 + 8.
+  const int key0 = k0 + 16 * warp + (lane >> 2);
+  const int qc0 = 32 * wg;    // its q columns of a tile's S^T and dP^T
+  const int col0 = 128 * wg;  // its columns of dK and dV
+  const float scale2 = scale * kLog2e;
+  const float s_min = kMaskValue * 0.5f / scale;  // as in the kD 64 / 128 kernel
+  // The streamed tiles' panel of column col0.
+  const uint32_t cols = (col0 / 64) * kBwdStep * kPanelRowBytes;
+  // Swap slots: [warpgroup][P^T 0, dS^T 1][k16 step of its two][reg].
+  const auto slot = [&](int w, int which, int kk, int j) {
+    return ((w * 2 + which) * 8 + kk * 4 + j) * 128 + t;
+  };
+
+  float dk_acc[64], dv_acc[64];
 #pragma unroll
-  for (int j = 0; j < kN / 8; ++j) {
-    const int col = col0 + 8 * j + 2 * (lane & 3);
+  for (int i = 0; i < 64; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+
+  mbar_wait(bar_own, 0);
+  cp_async_wait_all();
+  __syncthreads();  // step 0's lse / dm are visible
+  for (int n = 0; n < n_steps; ++n) {
+    const int st = n & 1;
+    if (n + 1 < n_steps) issue(n + 1, st ^ 1);
+    mbar_wait(bar_ring + 8 * st, (n >> 1) & 1);
+    const int hh = n / per_head;
+    const int q0 = (qt0 + n - hh * per_head) * kBwdStep;
+    const uint32_t q_tile = s_q + st * S::kStream;
+    const uint32_t do_tile = s_do + st * S::kStream;
+
+    float s[16], dp[16];
+    wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (col < d && key < sk) {
-        const size_t at =
-            ((static_cast<size_t>(b) * sk + key) * hkv + kvh) * d + col;
-        put2<T, kAcc>(dk + at, scale * dk_acc[4 * j + 2 * r],
-                      scale * dk_acc[4 * j + 2 * r + 1]);
-        put2<T, kAcc>(dv + at, dv_acc[4 * j + 2 * r],
-                      dv_acc[4 * j + 2 * r + 1]);
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss_n32<T>(s, kmajor_desc(s_k, S::kRows, 0, kk),
+                      kmajor_desc(q_tile, kBwdStep, qc0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss_n32<T>(dp, kmajor_desc(s_v, S::kRows, 0, kk),
+                      kmajor_desc(do_tile, kBwdStep, qc0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // P^T in place of S^T, dS^T in place of dP^T on this warpgroup's 32
+    // q columns; lse and dm per column.
+    const float* lse_s = stats + st * (S::kStats / sizeof(float));
+    const float* dm_s = lse_s + kBwdStep;
+    const bool edge = q0 + kBwdStep - 1 >= sq || k0 + S::kRows - 1 >= sk ||
+                      (causal && kv_offset + k0 + S::kRows - 1 > q_offset + q0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = qc0 + 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 m2 = *reinterpret_cast<const float2*>(dm_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float l = (e & 1) ? l2.y : l2.x;
+        const float m = (e & 1) ? m2.y : m2.x;
+        float p = exp2f(fmaf(s[i], scale2, -l * kLog2e));
+        if (!(s[i] > s_min)) p = 0.f;
+        if (edge) {
+          const int q = q0 + c + (e & 1);
+          const int key = key0 + 8 * (e >> 1);
+          const bool ok = q < sq && visible(q_offset + q, key, sk, kv_offset,
+                                            causal);
+          p = ok ? p : 0.f;
+        }
+        s[i] = p;
+        dp[i] = p * (dp[i] - m);
       }
     }
+    // This warpgroup's two k16 steps of P^T and dS^T (k = q rows 32 wg
+    // ..): to the swap buffer, then the other warpgroup's two back.
+    uint32_t mine_p[2][4], mine_ds[2][4], other_p[2][4], other_ds[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mine_p[kk][j] = pack2<T>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+        mine_ds[kk][j] = pack2<T>(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+        swap[slot(wg, 0, kk, j)] = mine_p[kk][j];
+        swap[slot(wg, 1, kk, j)] = mine_ds[kk][j];
+      }
+    __syncthreads();  // both warpgroups' steps are in the swap buffer
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        other_p[kk][j] = swap[slot(wg ^ 1, 0, kk, j)];
+        other_ds[kk][j] = swap[slot(wg ^ 1, 1, kk, j)];
+      }
+    // The four k16 steps in q order: warpgroup 0's two, then 1's.
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pf[kk][j] = wg ? other_p[kk][j] : mine_p[kk][j];
+        pf[2 + kk][j] = wg ? mine_p[kk][j] : other_p[kk][j];
+        dsf[kk][j] = wg ? other_ds[kk][j] : mine_ds[kk][j];
+        dsf[2 + kk][j] = wg ? mine_ds[kk][j] : other_ds[kk][j];
+      }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdStep / 16; ++kk)
+      wgmma_rs_nd<T, 128>(dv_acc, pf[kk],
+                          mnmajor_desc(do_tile + cols, kBwdStep, kk));
+#pragma unroll
+    for (int kk = 0; kk < kBwdStep / 16; ++kk)
+      wgmma_rs_nd<T, 128>(dk_acc, dsf[kk],
+                          mnmajor_desc(q_tile + cols, kBwdStep, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    reg_fence(pf);
+    reg_fence(dsf);
+    cp_async_wait_all();  // step n + 1's lse / dm
+    __syncthreads();      // stage st and the swap buffer are free
+  }
+  dkv_store<T, kAcc, 128>(dk_acc, dv_acc, dk, dv, part, n_split, split, col0,
+                          key0, b, sk, hkv, kvh, d, scale);
+}
+
+// ---------------------------------------------------------------------
+// The split dk/dv's sum: dk = sum over s of part[s][0], dv of
+// part[s][1], added in split order s = 0, 1, ... (no atomics: the same
+// bits from launch to launch), written in T or, with kAcc, added
+// unrounded into the fp32 buffers. n elements an output, a multiple of
+// 4 (d is, at the widths the wrapper pads to): one float4 of dk or dv a
+// thread a step, grid-strided.
+// ---------------------------------------------------------------------
+constexpr int kSumThreads = 256;
+
+template <typename T, bool kAcc>
+__global__ void __launch_bounds__(kSumThreads) flash_dkv_sum_kernel(
+    const float* __restrict__ part, Out<T, kAcc>* __restrict__ dk,
+    Out<T, kAcc>* __restrict__ dv, int n_split, size_t n) {
+  const size_t quads = n / 4;
+  for (size_t i = blockIdx.x * static_cast<size_t>(kSumThreads) + threadIdx.x;
+       i < 2 * quads; i += static_cast<size_t>(gridDim.x) * kSumThreads) {
+    const int which = i >= quads;  // 0 dk, 1 dv
+    const size_t at = 4 * (i - which * quads);
+    const float* src = part + which * n + at;
+    float4 acc = __ldg(reinterpret_cast<const float4*>(src));
+    for (int s = 1; s < n_split; ++s) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(src + 2 * s * n));
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    Out<T, kAcc>* out = (which ? dv : dk) + at;
+    put2<T, kAcc>(out, acc.x, acc.y);
+    put2<T, kAcc>(out + 2, acc.z, acc.w);
   }
 }
 
@@ -1506,23 +1833,47 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 template <typename T, int kD, bool kAcc>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dm,
-                     void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-                     int d, int q_offset, int kv_offset, int causal,
-                     float scale, cudaStream_t stream) {
+                     void* dk, void* dv, void* part, int n_split, int b, int sq,
+                     int sk, int hq, int hkv, int d, int q_offset,
+                     int kv_offset, int causal, float scale,
+                     cudaStream_t stream) {
   using S = BwdShape<kD>;
   CUtensorMap m[4];
   cudaError_t err =
       bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, kBwdStep, S::kRows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = flash_dkv_wgmma_kernel<T, kD, kAcc>;
-  err = allow_smem(kernel, S::kSmem);
+  // kD 256: two warpgroups over 64 keys; else BwdShape's block.
+  auto kernel = [] {
+    if constexpr (kD == 256) {
+      return flash_dkv_wg2_kernel<T, kAcc>;
+    } else {
+      return flash_dkv_wgmma_kernel<T, kD, kAcc>;
+    }
+  }();
+  constexpr size_t kSmem = kD == 256 ? Dkv256::kSmem : S::kSmem;
+  constexpr int kThreads = kD == 256 ? Dkv256::kThreads : S::kThreads;
+  err = allow_smem(kernel, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sk + S::kRows - 1) / S::kRows * S::kHalves, hkv, b),
-           S::kThreads, S::kSmem, stream>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-                     static_cast<const float*>(dm),
-                     static_cast<Out<T, kAcc>*>(dk),
-                     static_cast<Out<T, kAcc>*>(dv), sq, sk, hq, hkv, d,
-                     q_offset, kv_offset, causal, scale);
+  kernel<<<dim3((sk + S::kRows - 1) / S::kRows, hkv, b * n_split), kThreads,
+           kSmem, stream>>>(m[0], m[1], m[2], m[3],
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(dm),
+                            static_cast<Out<T, kAcc>*>(dk),
+                            static_cast<Out<T, kAcc>*>(dv),
+                            static_cast<float*>(part), n_split, sq, sk, hq,
+                            hkv, d, q_offset, kv_offset, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kAcc>
+int launch_dkv_sum(const void* part, void* dk, void* dv, int n_split, size_t n,
+                   cudaStream_t stream) {
+  // A float4 of dk or dv a thread.
+  const int blocks =
+      static_cast<int>((2 * (n / 4) + kSumThreads - 1) / kSumThreads);
+  flash_dkv_sum_kernel<T, kAcc><<<blocks, kSumThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<Out<T, kAcc>*>(dk),
+      static_cast<Out<T, kAcc>*>(dv), n_split, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1661,30 +2012,32 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 template <typename T, bool kAcc>
 int launch_dkv_16(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* dm, void* dk,
-                  void* dv, int b, int sq, int sk, int hq, int hkv, int d,
-                  int q_offset, int kv_offset, int causal, float scale,
-                  cudaStream_t stream) {
+                  void* dv, void* part, int n_split, int b, int sq, int sk,
+                  int hq, int hkv, int d, int q_offset, int kv_offset,
+                  int causal, float scale, cudaStream_t stream) {
   return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
     return launch_dkv_wgmma<T, decltype(kd)::value, kAcc>(
-        q, k, v, dout, lse, dm, dk, dv, b, sq, sk, hq, hkv, d, q_offset,
-        kv_offset, causal, scale, stream);
+        q, k, v, dout, lse, dm, dk, dv, part, n_split, b, sq, sk, hq, hkv, d,
+        q_offset, kv_offset, causal, scale, stream);
   });
 }
 
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* dm, void* dk, void* dv, int b,
-               int sq, int sk, int hq, int hkv, int d, int q_offset,
-               int kv_offset, int causal, int accumulate, float scale,
-               cudaStream_t stream) {
+               const void* lse, const void* dm, void* dk, void* dv, void* part,
+               int n_split, int b, int sq, int sk, int hq, int hkv, int d,
+               int q_offset, int kv_offset, int causal, int accumulate,
+               float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return accumulate
-               ? launch_dkv_16<T, true>(q, k, v, dout, lse, dm, dk, dv, b, sq,
-                                        sk, hq, hkv, d, q_offset, kv_offset,
-                                        causal, scale, stream)
-               : launch_dkv_16<T, false>(q, k, v, dout, lse, dm, dk, dv, b, sq,
-                                         sk, hq, hkv, d, q_offset, kv_offset,
-                                         causal, scale, stream);
+               ? launch_dkv_16<T, true>(q, k, v, dout, lse, dm, dk, dv, part,
+                                        n_split, b, sq, sk, hq, hkv, d,
+                                        q_offset, kv_offset, causal, scale,
+                                        stream)
+               : launch_dkv_16<T, false>(q, k, v, dout, lse, dm, dk, dv, part,
+                                         n_split, b, sq, sk, hq, hkv, d,
+                                         q_offset, kv_offset, causal, scale,
+                                         stream);
   } else {
     return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
       return launch_dkv_tf32<decltype(kd)::value>(
@@ -1734,18 +2087,45 @@ int tpuhpc_flash_dq(const void* q, const void* k, const void* v, const void* dou
                                             static_cast<cudaStream_t>(stream)))
 }
 
+// n_split: blocks a key tile's query-head group is split over (1, or a
+// divisor of the group with a 16-bit dtype; the wrapper's dkv_splits),
+// each writing its fp32 partials into part, [n_split][2][b][sk][hkv][d]
+// (null when n_split is 1); tpuhpc_flash_dkv_sum then adds them into dk
+// and dv.
 int tpuhpc_flash_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dm, void* dk,
-                     void* dv, int b, int sq, int sk, int hq, int hkv, int d,
-                     int q_offset, int kv_offset, int causal, int accumulate,
-                     float scale, int dtype, void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+                     void* dv, void* part, int b, int sq, int sk, int hq,
+                     int hkv, int d, int q_offset, int kv_offset, int causal,
+                     int accumulate, int n_split, float scale, int dtype,
+                     void* stream) {
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype) || n_split < 1 ||
+      (hq / hkv) % n_split != 0 ||
+      (n_split > 1 && (part == nullptr || dtype == kF32 ||
+                       static_cast<long long>(b) * n_split > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
-                        return launch_dkv<T>(q, k, v, dout, lse, dm, dk, dv, b, sq,
-                                             sk, hq, hkv, d, q_offset, kv_offset,
-                                             causal, accumulate, scale,
+                        return launch_dkv<T>(q, k, v, dout, lse, dm, dk, dv, part,
+                                             n_split, b, sq, sk, hq, hkv, d,
+                                             q_offset, kv_offset, causal,
+                                             accumulate, scale,
                                              static_cast<cudaStream_t>(stream)))
+}
+
+// dk = sum of part[s][0], dv = sum of part[s][1] over s < n_split, in
+// order, n elements each (a multiple of 4): written in dtype (f16 or
+// bf16), or with accumulate added into fp32 buffers (dtype unread).
+int tpuhpc_flash_dkv_sum(const void* part, void* dk, void* dv, int n_split,
+                         long long n, int accumulate, int dtype, void* stream) {
+  if (n_split < 1 || n < 4 || n % 4 != 0 ||
+      (!accumulate && dtype != kF16 && dtype != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t un = static_cast<size_t>(n);
+  if (accumulate)  // fp32 out: the element type plays no part
+    return launch_dkv_sum<__nv_bfloat16, true>(part, dk, dv, n_split, un, s);
+  return dtype == kF16
+             ? launch_dkv_sum<__half, false>(part, dk, dv, n_split, un, s)
+             : launch_dkv_sum<__nv_bfloat16, false>(part, dk, dv, n_split, un, s);
 }
 
 // Rows a block of `kernel` (0 forward, 1 dq, 2 dk/dv) owns for a dtype

@@ -304,6 +304,34 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
   }
 }
 
+// SS m64n32k16: the split dk/dv's half of a score tile (hopper.cuh's
+// accumulator layout, N 32).
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+          "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+          "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                                const uint32_t (&a)[4], uint64_t db,
@@ -1040,6 +1068,7 @@ template <int kD>
 __device__ __forceinline__ void wgmma_tf32_rs_nd(float (&d)[kD / 2],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db) {
+  static_assert(kD == 64 || kD == 128, "TF32 RS products are N 64 or 128");
   if constexpr (kD == 64) {
     wgmma_tf32_rs_n64(d, a, db);
   } else {
@@ -1056,15 +1085,29 @@ __device__ __forceinline__ void wgmma_tf32_rs_nd(float (&d)[kD / 2],
 // Shared memory, from a 1024-byte-aligned base (Tf32Layout): Q as a
 // K-major fp32 tile of 64 rows (hi, and lo where QT is float); then
 // kStages stages, each a K tile [32 keys][kD] (hi, lo where KT is float)
-// and a V tile -- for a 16-bit pool the 16-bit [32 keys][kD] panels TMA
-// would write (P . V on the 16-bit wgmma, V MN-major), else the
-// transposed fp32 [kD][32 keys] tile (hi, lo where KT is float) of
-// vt_at; then, for an int8 pool, the K and V page scale of each key of
-// each stage; then the barriers: bar_q, and per stage full_k, full_v
-// (128 arrivals each, from the K or the V converters), empty_k and
-// empty_v (one consumer arrival each). K and V of a stage are freed
-// apart, K once S and the softmax have read it, V once P . V has, so
-// each converter waits only for the half it writes.
+// and a V tile of the kDV columns of O the block holds -- for a 16-bit
+// pool the 16-bit [32 keys][kDV] panels TMA would write (P . V on the
+// 16-bit wgmma, V MN-major), else the transposed fp32 [kDV][32 keys]
+// tile (hi, lo where KT is float) of vt_at; then, for an int8 pool, the
+// K and V page scale of each key of each stage; then the barriers:
+// bar_q, and per stage full_k, full_v (128 arrivals each, from the K or
+// the V converters), empty_k and empty_v (one consumer arrival each). K
+// and V of a stage are freed apart, K once S and the softmax have read
+// it, V once P . V has, so each converter waits only for the half it
+// writes -- a one-stage ring still overlaps the conversion of tile kt +
+// 1's K with P . V of tile kt - 1.
+//
+// Column halves (kD 256). A float32 Q tile split in hi and lo is 128 KB
+// there, and one stage of K and V^T split likewise another 128 KB: more
+// than a block's 227 KB. So at kD 256 a block holds kDV = 128 of O's
+// columns (kHalves = 2 blocks a row tile): it streams every K tile whole
+// (S needs all kD columns) but only its half of V, and O takes 64 fp32 a
+// thread, as at kD 128. S is computed by both halves: 1.5x the products
+// of one block holding all of O, and twice the blocks -- at Gemma-2B's
+// chunk (one KV head, group 8: 30 row tiles) 60 instead of 30 on 132
+// SMs. A float32 q and pool then fit one stage (230,440 bytes), a 16-bit
+// q over a float32 pool one, a float32 q over int8 or a 16-bit pool two,
+// mixed 16-bit pairs four.
 //
 // Per tile:
 //   S = Q . K^T      SS m64n32k8 TF32: 1-3 passes (the cross terms into
@@ -1090,19 +1133,24 @@ struct Tf32Layout {
   static constexpr bool kKSplit = std::is_same<KT, float>::value;
   static constexpr bool kPV16 = sizeof(KT) == 2;
   static constexpr bool kScaled = std::is_same<KT, int8_t>::value;
+  static constexpr int kHalves = kD > 128 ? 2 : 1;  // blocks a row tile
+  static constexpr int kDV = kD / kHalves;          // O's columns a block
   static constexpr int kQTile = kTf32Rows * kD * 4;
   static constexpr int kKTile = kTf32Keys * kD * 4;
-  static constexpr int kVTile = kPV16 ? kTf32Keys * kD * 2 : kD * kTf32Keys * 4;
+  static constexpr int kVTile = kPV16 ? kTf32Keys * kDV * 2 : kDV * kTf32Keys * 4;
   static constexpr int kQ = kQTile * (kQSplit ? 2 : 1);
   static constexpr int kStage = (kKTile + kVTile) * (kKSplit ? 2 : 1);
   static constexpr int kScales = kScaled ? 2 * kTf32Keys * 4 : 0;  // a stage's
   // As many stages as fit beside Q (at most 4): 2 for float32 q and
-  // pool at d 128 (197.7 KB), 3 for a 16-bit q over a float32 pool.
+  // pool at d 128 (197.7 KB), 3 for a 16-bit q over a float32 pool; at
+  // kD 256 (column halves) 1 for a float32 pool, 2 for a float32 q over
+  // int8 or 16 bits, 4 for mixed 16-bit pairs.
   static constexpr int kFit = (kMaxSmem - 1024 - kQ - 256) / (kStage + kScales);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr size_t kSmem =
       1024 + kQ + kStages * (kStage + kScales) + (1 + 4 * kStages) * 8;
-  static_assert(kStages >= 2, "the TF32 ring needs two stages");
+  static_assert(kStages >= 1 && kSmem <= static_cast<size_t>(kMaxSmem),
+                "the TF32 ring's tiles exceed 227 KB");
 };
 
 // Addresses of a TF32 walk's shared memory (Tf32Layout), from its
@@ -1322,36 +1370,50 @@ __device__ __forceinline__ void tf32_acquire(uint32_t empty, int use, int stages
 
 // One converter warpgroup's part of every tile [0, n_tiles): the K tiles
 // (kV false; with an int8 pool's K and V scales, which the softmax
-// reads, written before the K tile's arrival) or the V tiles. Thread c
-// (0-127). src_of(key) names where key `key` of the walk lives. The
-// loads of tile kt + 1 are issued before tile kt is converted, so their
-// latency hides behind that work; a tile is written once the consumer
-// has freed its half of the stage, and arrives on full_k or full_v.
+// reads, written before the K tile's arrival) or the V tiles (kD: the
+// block's L::kDV columns from col0). Thread c (0-127). src_of(key) names
+// where key `key` of the walk lives. A tile goes in kPieces pieces of kW
+// columns -- one, but two of 128 for a float32 K tile at kD 256, whose
+// share would take 128 registers a thread twice over (the loads in
+// flight beside the ones being written) -- and the loads of the next
+// piece are issued before this one is converted, so their latency hides
+// behind that work; a tile is written once the consumer has freed its
+// half of the stage, and arrives on full_k or full_v after its last
+// piece.
 template <bool kV, typename KT, typename L, int kD, bool kWhole, typename SrcOf>
 __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
                                              int n_tiles, int d,
-                                             const SrcOf& src_of, int vw) {
-  using X = Tf32Share<KT, kD>;
+                                             const SrcOf& src_of, int vw,
+                                             int col0 = 0) {
+  constexpr int kW = kD > 128 && sizeof(KT) == 4 ? 128 : kD;
+  constexpr int kPieces = kD / kW;
+  using X = Tf32Share<KT, kW>;
   if (n_tiles <= 0) return;
   const int rot = X::rot(c);
-  const auto rows = [&](int kt, const KT* (&r)[2]) {
+  // Piece u's rows (tile u / kPieces, columns from (u % kPieces) kW).
+  const auto rows = [&](int u, const KT* (&r)[2]) {
+    const int kt = u / kPieces, off = col0 + (u - kt * kPieces) * kW;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const Tf32Src<KT> src = src_of(kt * kTf32Keys + X::key(c, j));
-      r[j] = kV ? src.v : src.k;
+      const KT* row = kV ? src.v : src.k;
+      r[j] = row == nullptr ? nullptr : row + off;
     }
   };
+  const auto width = [&](int u) { return d - col0 - (u % kPieces) * kW; };
+  const int n_units = n_tiles * kPieces;
   const KT* r0[2];
   rows(0, r0);
   X x;
-  tf32_load<KT, kD, kWhole>(x, c, r0, d, vw);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  tf32_load<KT, kW, kWhole>(x, c, r0, width(0), vw);
+  for (int u = 0; u < n_units; ++u) {
+    const int kt = u / kPieces, piece = u - kt * kPieces;
     const int st = kt % L::kStages;
     const KT* rn[2] = {nullptr, nullptr};
-    if (kt + 1 < n_tiles) rows(kt + 1, rn);
+    if (u + 1 < n_units) rows(u + 1, rn);
     X next;
-    tf32_load<KT, kD, kWhole>(next, c, rn, d, vw);
-    tf32_acquire(kV ? ring.empty_v : ring.empty_k, kt, L::kStages);
+    tf32_load<KT, kW, kWhole>(next, c, rn, width(u + 1), vw);
+    if (piece == 0) tf32_acquire(kV ? ring.empty_v : ring.empty_k, kt, L::kStages);
     if constexpr (kV) {
       const uint32_t v = ring.v<L>(st);
 #pragma unroll
@@ -1363,8 +1425,6 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
                                  x.x[i], rot);
         }
       }
-      fence_proxy_async();
-      mbar_arrive(ring.full_v + 8 * st);
     } else {
       if constexpr (L::kScaled) {
         if (c < kTf32Keys) {
@@ -1380,9 +1440,11 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
 #pragma unroll
       for (int i = 0; i < X::kPer; ++i)
         put_kmajor<KT, L::kKSplit>(k, k + L::kKTile, kTf32Keys, X::key(c, i),
-                                   X::chunk(c, i), x.x[i]);
+                                   piece * X::kC + X::chunk(c, i), x.x[i]);
+    }
+    if (piece == kPieces - 1) {
       fence_proxy_async();
-      mbar_arrive(ring.full_k + 8 * st);
+      mbar_arrive((kV ? ring.full_v : ring.full_k) + 8 * st);
     }
     x = next;
   }
@@ -1390,25 +1452,27 @@ __device__ __forceinline__ void tf32_convert(const Tf32Ring& ring, int c,
 
 // The converters' side of a TF32 kernel: both warpgroups write Q (its
 // rows: q_row(r), null past the end), then the first the K tiles and the
-// second the V tiles. ct: the thread's index among the 256 converters.
-// kWhole: every row of q and of the pool is a whole number of 16 bytes
-// (16-byte loads); else vq, vk are the widest loads q's rows and the K
-// and V rows allow (vec_bytes). A kernel instantiates one or the other:
-// the narrow loads' code, compiled beside the 16-byte path, slowed it.
+// second the V tiles (the block's L::kDV columns from col0). ct: the
+// thread's index among the 256 converters. kWhole: every row of q and of
+// the pool is a whole number of 16 bytes (16-byte loads); else vq, vk
+// are the widest loads q's rows and the K and V rows allow (vec_bytes).
+// A kernel instantiates one or the other: the narrow loads' code,
+// compiled beside the 16-byte path, slowed it.
 template <typename QT, typename KT, typename L, int kD, bool kWhole = true,
           typename QRow, typename SrcOf>
 __device__ __forceinline__ void tf32_converters(const Tf32Ring& ring, int ct,
                                                 int n_tiles, int d,
                                                 const QRow& q_row,
                                                 const SrcOf& src_of,
-                                                int vq = 16, int vk = 16) {
+                                                int vq = 16, int vk = 16,
+                                                int col0 = 0) {
   tf32_regs_converter();
   tf32_put_q<QT, L, kD, kWhole>(ring, ct, q_row(ct & 63), d, vq);
   if (ct < 128) {
     tf32_convert<false, KT, L, kD, kWhole>(ring, ct, n_tiles, d, src_of, vk);
   } else {
-    tf32_convert<true, KT, L, kD, kWhole>(ring, ct - 128, n_tiles, d, src_of,
-                                          vk);
+    tf32_convert<true, KT, L, L::kDV, kWhole>(ring, ct - 128, n_tiles, d,
+                                              src_of, vk, col0);
   }
 }
 
@@ -1437,14 +1501,29 @@ __device__ __forceinline__ void tf32_ss_passes(float (&s)[16], float (&s2)[16],
   }
 }
 
+// x, as a value the compiler cannot see through where kOn. The column
+// halves' walk (kD 256) launders its tile addresses here each tile, so
+// the wgmma descriptors built from them (up to 96 a tile) are built
+// where they are issued and not hoisted out of the tile loop as
+// loop-invariant: a one-stage ring's would all be, and held across the
+// loop they take more registers than the consumer has (888 bytes of
+// spills over a float32 pool, ptxas).
+template <bool kOn>
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  if constexpr (kOn) asm volatile("" : "+r"(x));
+  return x;
+}
+
 // S (and its cross terms, S2) of the consumer's 64 rows against stage
 // st's K tile.
 template <typename L, int kD>
 __device__ __forceinline__ void tf32_scores(float (&s)[16], float (&s2)[16],
                                             const Tf32Ring& ring, int st) {
-  const uint32_t kh = ring.k<L>(st);
-  tf32_ss_passes<L::kQSplit, L::kKSplit, kD>(s, s2, ring.q, ring.q + L::kQTile,
-                                             kh, kh + L::kKTile);
+  constexpr bool kOpaque = L::kHalves > 1;
+  const uint32_t q = opaque<kOpaque>(ring.q);
+  const uint32_t kh = opaque<kOpaque>(ring.k<L>(st));
+  tf32_ss_passes<L::kQSplit, L::kKSplit, kD>(s, s2, q, q + L::kQTile, kh,
+                                             kh + L::kKTile);
 }
 
 // S = S + S2 where S is finite; S as it is where it is not.
@@ -1540,6 +1619,7 @@ __device__ __forceinline__ void tf32_fence_p(Tf32P<L>& p) {
 template <typename KT, typename L, int kD>
 __device__ __forceinline__ void tf32_pv(float (&o)[kD / 2], const Tf32P<L>& p,
                                         uint32_t v) {
+  v = opaque<(L::kHalves > 1)>(v);
   if constexpr (L::kPV16) {
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
@@ -1550,20 +1630,30 @@ __device__ __forceinline__ void tf32_pv(float (&o)[kD / 2], const Tf32P<L>& p,
 }
 
 // Tiles [0, n_tiles) of the ring through the online softmax into rows
-// (o = 0, m = kMaskValue, l = 0 on entry), once Q has arrived. Every
-// tile's K is freed after its softmax, its V after its P . V.
+// (o = 0, m = kMaskValue, l = 0 on entry; O the block's L::kDV columns),
+// once Q has arrived. Every tile's K is freed after its softmax, its V
+// after its P . V.
 template <typename QT, typename KT, int kD, typename Mask>
-__device__ __forceinline__ void tf32_walk(WalkRows<kD>& rows,
-                                          const Tf32Ring& ring, int n_tiles,
-                                          float scale2, const Mask& mask) {
+__device__ __forceinline__ void tf32_walk(
+    WalkRows<Tf32Layout<QT, KT, kD>::kDV>& rows, const Tf32Ring& ring,
+    int n_tiles, float scale2, const Mask& mask) {
   using L = Tf32Layout<QT, KT, kD>;
   constexpr int kS = L::kStages;
+  constexpr int kDV = L::kDV;
   mbar_wait(ring.bar_q, 0);
   if (n_tiles <= 0) return;
   const bool lead = (threadIdx.x & 127) == 0;  // frees stages for the warpgroup
   float s[16], s2[16], alpha[2];
   Tf32P<L> p;
 
+  // A stage's K is freed once the softmax has read it -- in the column
+  // halves (kD 256) over a pool without scales as soon as S has, so the
+  // K converter starts on the next tile while the softmax runs (the
+  // narrower walks keep the order they were measured with).
+  constexpr bool kEarlyK = L::kHalves > 1 && !L::kScaled;
+  const auto free_k = [&](int st) {
+    if (lead) mbar_arrive(ring.empty_k + 8 * st);
+  };
   mbar_wait(ring.full_k, 0);
   wgmma_fence();
   tf32_scores<L, kD>(s, s2, ring, 0);
@@ -1571,9 +1661,10 @@ __device__ __forceinline__ void tf32_walk(WalkRows<kD>& rows,
   wgmma_wait<0>();
   reg_fence(s);
   reg_fence(s2);
+  if constexpr (kEarlyK) free_k(0);
   tf32_combine<L>(s, s2);
   walk_softmax(s, 0, scale2, mask, rows.m, rows.l, alpha);  // O is still 0
-  if (lead) mbar_arrive(ring.empty_k);
+  if constexpr (!kEarlyK) free_k(0);
   tf32_pack<KT>(p, s);
 
   for (int kt = 1; kt < n_tiles; ++kt) {
@@ -1584,27 +1675,28 @@ __device__ __forceinline__ void tf32_walk(WalkRows<kD>& rows,
     tf32_scores<L, kD>(s, s2, ring, st);
     wgmma_commit();
     mbar_wait(ring.full_v + 8 * pst, ((kt - 1) / kS) & 1);
-    tf32_pv<KT, L, kD>(rows.o, p, ring.v<L>(pst));
+    tf32_pv<KT, L, kDV>(rows.o, p, ring.v<L>(pst));
     wgmma_commit();
     wgmma_wait<1>();  // S of tile kt; P . V of tile kt - 1 may still run
     reg_fence(s);
     reg_fence(s2);
+    if constexpr (kEarlyK) free_k(st);
     tf32_combine<L>(s, s2);
     walk_softmax(s, kt, scale2, mask, rows.m, rows.l, alpha);
-    if (lead) mbar_arrive(ring.empty_k + 8 * st);  // S and the scales read
+    if constexpr (!kEarlyK) free_k(st);
     wgmma_wait<0>();
     reg_fence(rows.o);
     tf32_fence_p(p);
     if (lead) mbar_arrive(ring.empty_v + 8 * pst);
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) rows.o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kDV / 2; ++i) rows.o[i] *= alpha[(i >> 1) & 1];
     tf32_pack<KT>(p, s);
   }
   const int last = n_tiles - 1;
   const int lst = last % kS;
   mbar_wait(ring.full_v + 8 * lst, (last / kS) & 1);
   wgmma_fence();
-  tf32_pv<KT, L, kD>(rows.o, p, ring.v<L>(lst));
+  tf32_pv<KT, L, kDV>(rows.o, p, ring.v<L>(lst));
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(rows.o);

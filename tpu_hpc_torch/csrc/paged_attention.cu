@@ -16,13 +16,14 @@
 //                                third for every other pair (float32 q
 //                                or pool, float32 q over int8, mixed
 //                                16-bit dtypes) on split TF32, all three
-//                                at any page size; the fourth (scalar)
-//                                only for the float32 and mixed pairs
-//                                past head_dim 128 and every pair past
-//                                256 (prefill_route below).
+//                                at any page size and head dim up to
+//                                256; the fourth (scalar) only for
+//                                every pair past 256 (prefill_route
+//                                below).
 //
 // Head dims. Every kernel but the scalar one is instantiated at kD 64,
-// 128 and (the decode and the 16-bit prefill) 256 columns, and pads a
+// 128 and 256 columns (the TF32 prefill's kD 256 blocks each holding
+// half of the output's columns), and pads a
 // head dim to the instantiation that holds it: columns d .. kD - 1 of Q, K and V are zeros in shared
 // memory (a TMA box zero-fills past the tensor map's d, panels wholly
 // past it are zeroed once; the gathering and converting producers
@@ -158,10 +159,11 @@
 // The TF32 prefill (float32 and mixed pairs) runs the same grid on the
 // TF32 walk of hopper.cuh, with converter warpgroups that gather key by
 // key as the gathering route does; its design is set out above the
-// kernel. Only the float32 and mixed pairs past head_dim 128 (whose TF32
-// tiles do not fit at kD 256) and every pair past 256 keep the first,
-// simple design: scalar fp32 FMAs over shared memory, K/V pages staged
-// with plain loads a step of keys at a time, four barriers a step.
+// kernel; at kD 256, where its float32 tiles would not fit one block,
+// two blocks a row tile each hold half of the output's columns. Only
+// the pairs past head_dim 256 keep the first, simple design: scalar fp32
+// FMAs over shared memory, K/V pages staged with plain loads a step of
+// keys at a time, four barriers a step.
 // PERF.md carries the measured times against the bounds.
 //
 // Plain C interface, loaded with ctypes by
@@ -837,8 +839,8 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_combine_kernel(
 
 // ---------------------------------------------------------------------
 // Chunked prefill, any pair of dtypes, at the head dims the tensor-core
-// routes below do not take (prefill_route: float32 and mixed pairs past
-// 128, every pair past kMaxHeadDim): grid (kv_heads, row tiles).
+// routes below do not take (prefill_route: every pair past
+// kMaxHeadDim): grid (kv_heads, row tiles).
 // Grouped query row r of head h sits at position start + r / g; a block
 // owns tq consecutive rows and walks the pages up to its last row's
 // causal limit, tk keys of a page at a time (scalar_tile: a whole page
@@ -1522,8 +1524,12 @@ __global__ void __launch_bounds__(kGatherThreads, 1) paged_prefill_gather_kernel
 // Shared memory at d 128 (Tf32Layout): float32 q and pool, Q 64 KB and
 // two stages of 64 KB; a 16-bit q over a float32 pool, Q 32 KB and three
 // stages; the others four stages. The converters' work, not the tensor
-// cores, sets the time over a float32 pool (PERF.md). Head dims up to
-// 128 only (at 256 the fp32 Q tile and one stage would take 256 KB);
+// cores, sets the time over a float32 pool (PERF.md). Every head dim up
+// to 256: at kD 256 (d 129-256) a float32 Q tile and one stage would
+// take 256 KB, so there the grid is (KV heads, row tiles x 2) and each
+// block of a row tile's pair holds one half of O's columns (col0:
+// Tf32Layout's column halves): both walk every K tile, each converts
+// and multiplies only its half of V, and each writes its own columns.
 // kWhole as in the gathering kernel (the narrow instantiation's
 // converters spill over a float32 pool at kD 128: ptxas, PERF.md).
 // ---------------------------------------------------------------------
@@ -1539,9 +1545,12 @@ __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
     int hkv, int bucket, int g, int d, int bs, int max_blocks, int start,
     float sm_scale) {
   using L = Tf32Layout<QT, KT, kD>;
+  constexpr int kDV = L::kDV;  // O's columns this block holds
   const int h = blockIdx.x;
   const int n_rows = bucket * g;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * kTf32Rows;
+  const int tile = blockIdx.y / L::kHalves;
+  const int col0 = (blockIdx.y - tile * L::kHalves) * kDV;
+  const int row0 = (gridDim.y / L::kHalves - 1 - tile) * kTf32Rows;
   const int nrows = min(kTf32Rows, n_rows - row0);
   const int warp = threadIdx.x >> 5;  // 0-3 the consumers, 4-11 the converters
   const int lane = threadIdx.x & 31;
@@ -1588,15 +1597,15 @@ __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
                           : min(vec_bytes(k_pages, static_cast<long long>(d) * sizeof(KT)),
                                 vec_bytes(v_pages, static_cast<long long>(d) * sizeof(KT)));
     tf32_converters<QT, KT, L, kD, kWhole>(ring, threadIdx.x - 128, n_tiles, d,
-                                           q_row, src_of, vq, vk);
+                                           q_row, src_of, vq, vk, col0);
     return;
   }
 
   tf32_regs_consumer();
   const int r0 = row0 + 16 * warp + (lane >> 2);
-  WalkRows<kD> rows;
+  WalkRows<kDV> rows;
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) rows.o[i] = 0.f;
+  for (int i = 0; i < kDV / 2; ++i) rows.o[i] = 0.f;
   rows.m[0] = rows.m[1] = kMaskValue;
   rows.l[0] = rows.l[1] = 0.f;
   const PrefillMask mask = prefill_mask(r0, row0, g, start, n_keys);
@@ -1610,15 +1619,16 @@ __global__ void __launch_bounds__(kTf32Threads, 1) paged_prefill_tf32_kernel(
   } else {
     tf32_walk<QT, KT, kD>(rows, ring, n_tiles, scale2, mask);
   }
-  QT* row_ptr[2];
+  QT* row_ptr[2];  // from the block's first column
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = r0 + 8 * rr;
-    row_ptr[rr] = row < n_rows ? out + (static_cast<size_t>(h) * n_rows + row) * d
-                               : nullptr;
+    row_ptr[rr] = row < n_rows
+                      ? out + (static_cast<size_t>(h) * n_rows + row) * d + col0
+                      : nullptr;
   }
   float row_lse[2];  // not an output of the prefill
-  walk_finish<QT, kD, kWhole>(rows, row_ptr, d, row_lse);
+  walk_finish<QT, kDV, kWhole>(rows, row_ptr, min(d - col0, kDV), row_lse);
 }
 
 size_t prefill_smem_bytes(int tq, int d, int tk) {
@@ -1629,8 +1639,7 @@ size_t prefill_smem_bytes(int tq, int d, int tk) {
 
 // Which prefill kernel takes a launch, by dtypes, head dim and page
 // size. Every page size >= 1 takes a tensor-core route at every head dim
-// up to kMaxHeadDim for a 16-bit q (over its own dtype or int8) and up
-// to 128 for the other pairs; a head dim below the instantiation's kD
+// up to kMaxHeadDim for every pair; a head dim below the instantiation's kD
 // (64, 128, 256) is padded: columns d .. kD - 1 of Q, K and V are zeros
 // in shared memory, the output stores d columns, and the scale stays
 // d^-0.5.
@@ -1647,11 +1656,9 @@ size_t prefill_smem_bytes(int tq, int d, int tk) {
 //                                pool under a 16-bit q (kRouteWgmmaInt8),
 //                                its producer gathering key by key;
 //   paged_prefill_tf32_kernel    every other pair (float32 q or pool,
-//                                mixed 16-bit dtypes) up to d 128 (at 256
-//                                its fp32 Q tile and one stage would take
-//                                256 KB);
-//   paged_prefill_kernel         (scalar) those pairs from d 129 on, and
-//                                every pair past kMaxHeadDim.
+//                                mixed 16-bit dtypes), at d 129-256 in
+//                                column halves of O (Tf32Layout);
+//   paged_prefill_kernel         (scalar) every pair past kMaxHeadDim.
 enum PrefillRoute {
   kRouteScalar = 0, kRouteWgmma = 1, kRouteWgmmaInt8 = 2, kRouteTf32 = 3,
   kRouteWgmmaGather = 4
@@ -1664,8 +1671,6 @@ enum PrefillRoute {
 #define TPUHPC_PREFILL_BOXES 1
 #endif
 
-constexpr int kMaxTf32HeadDim = 128;
-
 int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
   if (d < 1 || d > kMaxHeadDim) return kRouteScalar;
   const bool q16 = q_dtype == kF16 || q_dtype == kBF16;
@@ -1673,7 +1678,7 @@ int prefill_route(int q_dtype, int kv_dtype, int d, int bs) {
       ((bs >= 8 && kWalkKeys % bs == 0) || bs % kWalkKeys == 0);
   if (q16 && kv_dtype == q_dtype) return boxes ? kRouteWgmma : kRouteWgmmaGather;
   if (q16 && kv_dtype == kI8) return kRouteWgmmaInt8;
-  return d <= kMaxTf32HeadDim ? kRouteTf32 : kRouteScalar;
+  return kRouteTf32;
 }
 
 // The scalar route's tile: tq rows (64, halved while the grid would
@@ -1885,7 +1890,7 @@ int launch_prefill_tf32(const void* q, const void* k_pages, const void* v_pages,
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (bucket * g + kTf32Rows - 1) / kTf32Rows;
-  kernel<<<dim3(hkv, tiles), kTf32Threads, L::kSmem, stream>>>(
+  kernel<<<dim3(hkv, tiles * L::kHalves), kTf32Threads, L::kSmem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k_pages),
       static_cast<const KT*>(v_pages), static_cast<const int*>(table),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
@@ -1917,10 +1922,10 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
             d, bs, max_blocks, start, sm_scale, stream);
       });
   }
-  // The TF32 route's pairs: every pair but the two above, up to d 128.
+  // The TF32 route's pairs: every pair but the two above.
   if constexpr (!kSame16 && !kInt8Under16) {
     if (route == kRouteTf32)
-      return by_head_dim<128>(d, [&](auto kd) {
+      return by_head_dim(d, [&](auto kd) {
         return launch_prefill_tf32<QT, KT, decltype(kd)::value>(
             q, k_pages, v_pages, table, k_scale, v_scale, out, hkv, bucket, g,
             d, bs, max_blocks, start, sm_scale, stream);

@@ -171,8 +171,15 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     lib.tpuhpc_flash_fwd.restype = i
     lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
     lib.tpuhpc_flash_dq.restype = i
-    lib.tpuhpc_flash_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
+    # dk/dv: 9 pointers (the last the split partials), the ints above,
+    # n_split, scale, dtype code, stream.
+    lib.tpuhpc_flash_dkv.argtypes = [p] * 9 + [i] * 11 + [f, i, p]
     lib.tpuhpc_flash_dkv.restype = i
+    # (part, dk, dv, n_split, elements an output, accumulate, dtype code,
+    # stream)
+    lib.tpuhpc_flash_dkv_sum.argtypes = [p] * 3 + [i, ctypes.c_longlong,
+                                                   i, i, p]
+    lib.tpuhpc_flash_dkv_sum.restype = i
     # (kernel, dtype code, head dim)
     lib.tpuhpc_flash_tile_rows.argtypes = [i, i, i]
     lib.tpuhpc_flash_tile_rows.restype = i

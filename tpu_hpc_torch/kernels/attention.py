@@ -245,6 +245,77 @@ def flash_attention_dkv_ref(
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dkv_split_heads(group: int, n_split: int, split: int) -> range:
+    """The query heads, by index within a KV head's group of ``group``,
+    that split ``split`` of ``n_split`` walks (``csrc/flash_attention.cu``'s
+    dk/dv blocks: ``group // n_split`` heads from ``split * group //
+    n_split``); ``n_split`` must divide the group."""
+    if n_split < 1 or group % n_split or not 0 <= split < n_split:
+        raise ValueError(f"split {split} of {n_split} over a group of "
+                         f"{group}")
+    per = group // n_split
+    return range(split * per, (split + 1) * per)
+
+
+def flash_attention_dkv_parts_ref(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None, n_split: int = 1,
+) -> torch.Tensor:
+    """Plain version of what the split dk/dv blocks write: the fp32
+    partials ``[n_split, 2, B, Sk, Hkv, D]`` -- ``scale * dS^T . Q`` then
+    ``P^T . dO`` -- of each split's query heads (:func:`dkv_split_heads`)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    parts = torch.empty((n_split, 2, b, sk, hkv, d), dtype=torch.float32,
+                        device=q.device)
+
+    def heads(x, idx):  # [B, S, Hq, ...] -> the split's heads of each group
+        y = x.reshape(b, sq, hkv, g, *x.shape[3:])[:, :, :, idx]
+        return y.reshape(b, sq, hkv * len(idx), *x.shape[3:]).contiguous()
+
+    for s in range(n_split):
+        idx = list(dkv_split_heads(g, n_split, s))
+        zeros = (torch.zeros_like(parts[s, 0]), torch.zeros_like(parts[s, 1]))
+        flash_attention_dkv_ref(
+            heads(q, idx), k, v, heads(dout, idx), heads(lse, idx),
+            heads(dm, idx), q_offset, kv_offset, causal=causal,
+            sm_scale=sm_scale, accumulate=zeros)
+        parts[s, 0], parts[s, 1] = zeros
+    return parts
+
+
+def flash_attention_dkv_sum_ref(
+    parts: torch.Tensor, dtype: torch.dtype,
+    accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split dk/dv's sum: ``parts[s, 0]`` and
+    ``parts[s, 1]`` added in split order s = 0, 1, ... in fp32, as (dk,
+    dv) in ``dtype`` or added into the pair ``accumulate`` (returned)."""
+    dk, dv = parts[0, 0].clone(), parts[0, 1].clone()
+    for s in range(1, parts.shape[0]):
+        dk += parts[s, 0]
+        dv += parts[s, 1]
+    if accumulate is not None:
+        return accumulate[0].add_(dk), accumulate[1].add_(dv)
+    return dk.to(dtype), dv.to(dtype)
+
+
+def flash_attention_dkv_split_ref(
+    q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
+    causal: bool = True, sm_scale: Optional[float] = None, n_split: int = 1,
+    accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_dkv_ref` the way the split kernel sums it:
+    each split's partials (:func:`flash_attention_dkv_parts_ref`), then
+    their sum in split order (:func:`flash_attention_dkv_sum_ref`). For
+    the tests; no path of the port calls it."""
+    parts = flash_attention_dkv_parts_ref(
+        q, k, v, dout, lse, dm, q_offset, kv_offset, causal=causal,
+        sm_scale=sm_scale, n_split=n_split)
+    return flash_attention_dkv_sum_ref(parts, k.dtype, accumulate)
+
+
 # ---------------------------------------------------------------------------
 # TF32, emulated: what the float32 kernels' tensor-core passes see
 # ---------------------------------------------------------------------------
@@ -479,17 +550,83 @@ def flash_attention_dq(
 flash_attention_dq.launches = 0
 
 
+def dkv_splits(b: int, sk: int, hq: int, hkv: int, d: int,
+               dtype: torch.dtype, sms: int) -> int:
+    """Blocks a key tile's query-head group is split over in the 16-bit
+    dk/dv kernel: doubled from 1 while the group divides evenly and the
+    grid -- ``b x hkv x`` key tiles (128 keys up to a padded head dim of
+    128, 64 past it) ``x`` splits -- would give the ``sms`` SMs fewer
+    than two blocks each: causal walks differ in length, and a second
+    wave of shorter blocks fills in behind the longest. 1 for float32
+    (the TF32 kernel walks whole groups) and wherever the grid already
+    fills the card, as at the training shape (B 4, 8 KV heads). A pure
+    function of the shape: the same split, and so the same bits, on
+    every launch."""
+    if dtype == torch.float32:
+        return 1
+    g = hq // hkv
+    rows = 64 if padded_head_dim(d, dtype) > 128 else 128
+    blocks = b * hkv * -(-sk // rows)
+    n = 1
+    while g % (2 * n) == 0 and blocks * n < 2 * sms:
+        n *= 2
+    return n
+
+
+def flash_attention_dkv_sum(
+    parts: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+    accumulate: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split dk/dv's second pass: ``parts`` (fp32 ``[n_split, 2,
+    ...]``, what the split kernel wrote) summed in split order into dk
+    and dv (16-bit, or with ``accumulate`` fp32 buffers the sum is added
+    into). CUDA tensors launch ``flash_dkv_sum_kernel``; CPU tensors run
+    :func:`flash_attention_dkv_sum_ref`. Returns (dk, dv)."""
+    if parts.shape[2:] != dk.shape or dk.shape != dv.shape \
+            or parts.shape[1] != 2:
+        raise ValueError(f"parts {tuple(parts.shape)} do not match dk "
+                         f"{tuple(dk.shape)} and dv {tuple(dv.shape)}")
+    if parts.device.type == "cpu":
+        if accumulate:
+            return flash_attention_dkv_sum_ref(parts, dk.dtype, (dk, dv))
+        got = flash_attention_dkv_sum_ref(parts, dk.dtype)
+        dk.copy_(got[0])
+        dv.copy_(got[1])
+        return dk, dv
+    if dk.dtype not in ((torch.float32,) if accumulate
+                        else (torch.float16, torch.bfloat16)):
+        raise TypeError(f"dk/dv sum: outputs of {dk.dtype} (accumulate="
+                        f"{accumulate})")
+    _check_cuda([("parts", parts), ("dk", dk), ("dv", dv)],
+                [torch.float32, dk.dtype, dk.dtype])
+    _launch("flash_attention_dkv_sum", "tpuhpc_flash_dkv_sum", parts, dk, dv,
+            parts.shape[0], dk.numel(), int(bool(accumulate)),
+            DTYPE_CODES[dk.dtype])
+    flash_attention_dkv_sum.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv_sum.launches = 0
+
+
 def flash_attention_dkv(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
     accumulate: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    n_split: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) in k/v's dtype, summed over each KV head's query-head
     group; with ``accumulate`` (a pair of fp32 tensors of k's shape) the
     kernel adds them into it unrounded and it is returned. CUDA tensors
     launch ``flash_dkv_wgmma_kernel`` (bf16, fp16) or
     ``flash_dkv_tf32_kernel`` (float32: split TF32, P split by
-    :func:`tf32_split_p`); CPU tensors run :func:`flash_attention_dkv_ref`."""
+    :func:`tf32_split_p`); CPU tensors run :func:`flash_attention_dkv_ref`.
+    ``n_split`` (card only; default :func:`dkv_splits`, a divisor of the
+    group, 1 in float32): the 16-bit kernel's blocks each walk ``group /
+    n_split`` heads into fp32 partials, which
+    :func:`flash_attention_dkv_sum` adds up in split order
+    (:func:`flash_attention_dkv_split_ref` is that computation written
+    plainly)."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -509,12 +646,23 @@ def flash_attention_dkv(
         [q.dtype] * 4 + [torch.float32] * 2 + [dk.dtype] * 2,
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    if n_split is None:
+        n_split = dkv_splits(
+            b, sk, hq, hkv, d, q.dtype,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
     w = padded_head_dim(d, q.dtype)
     q, k, v, dout, pk, pv = (_pad(t, w) for t in (q, k, v, dout, dk, dv))
+    parts = None
+    if n_split > 1:  # the kernels allocate nothing: the partials' room
+        parts = torch.empty((n_split, 2, b, sk, hkv, w), dtype=torch.float32,
+                            device=q.device)
     _launch("flash_attention_dkv", "tpuhpc_flash_dkv", q, k, v, dout, lse,
-            dm, pk, pv, b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)),
-            int(accumulate is not None), float(scale), code)
+            dm, pk, pv, 0 if parts is None else parts.data_ptr(), b, sq, sk,
+            hq, hkv, w, qo, ko, int(bool(causal)),
+            int(accumulate is not None), n_split, float(scale), code)
     flash_attention_dkv.launches += 1
+    if parts is not None:
+        flash_attention_dkv_sum(parts, pk, pv, accumulate is not None)
     if pk is not dk:  # padded copies: their first d columns
         dk.copy_(pk[..., :d])
         dv.copy_(pv[..., :d])
@@ -652,9 +800,15 @@ __all__ = [
     "MAX_HEAD_DIM_F32",
     "attention_reference",
     "blockwise_attention",
+    "dkv_split_heads",
+    "dkv_splits",
     "flash_attention",
     "flash_attention_dkv",
+    "flash_attention_dkv_parts_ref",
     "flash_attention_dkv_ref",
+    "flash_attention_dkv_split_ref",
+    "flash_attention_dkv_sum",
+    "flash_attention_dkv_sum_ref",
     "flash_attention_dq",
     "flash_attention_dq_ref",
     "flash_attention_fwd",

@@ -30,8 +30,9 @@ int8 pool under a 16-bit q (exact integer tiles, each key's page scales
 folded into S and P), all three at every head dim up to 256; the TF32
 wgmma kernel for every other pair -- float32 q or pool, mixed 16-bit
 dtypes -- on split TF32 (each fp32 operand as hi + lo, so float32 keeps
-its rule) at every head dim up to 128; and the scalar kernel for those
-pairs past 128 and every pair past 256. Every tensor-core kernel pads a
+its rule) at every head dim up to 256 (past 128 in column halves of the
+output, two blocks a row tile); and the scalar kernel for every pair
+past 256. Every tensor-core kernel pads a
 head dim to its 64-, 128- or 256-column instantiation: the columns past
 d are zeros in shared memory, the output holds d columns, and the scale
 stays ``d ** -0.5``. On a CPU tensor it runs the plain
@@ -628,9 +629,8 @@ def paged_decode_splits(slots: int, kv_heads: int, group: int,
 # (wgmma_int8), paged_prefill_tf32_kernel (every other pair, on split
 # TF32) and paged_prefill_gather_kernel over a pool of q's 16-bit dtype
 # at every other page size and head dim (wgmma_gather). At any page
-# size the 16-bit routes take every head dim up to MAX_HEAD_DIM and the
-# TF32 route every one up to 128; the scalar route takes the float32 and
-# mixed pairs past 128 and every pair past MAX_HEAD_DIM.
+# size the tensor-core routes take every head dim up to MAX_HEAD_DIM;
+# the scalar route takes every pair past it.
 PREFILL_ROUTES = ("scalar", "wgmma", "wgmma_int8", "wgmma_tf32",
                   "wgmma_gather")
 paged_prefill_attention.route_launches = dict.fromkeys(PREFILL_ROUTES, 0)
