@@ -215,7 +215,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     layers, 3.03B parameters) at seq 2048, bf16 compute,
                     fp32 params, AdamW, microbatch 1 x accum 2, two
                     epochs of 3 updates: the kD 256 flash kernels on the
-                    training path. Tokens/s, MFU, update s, peak memory
+                    training path (the forward and dq in clusters of the
+                    group's 8 query heads sharing each K/V tile,
+                    gqa_cluster). Tokens/s, MFU, update s, peak memory
                     beside the state's 16 bytes a parameter, the losses
                     (finite), flash_tile_rows, and each flash kernel's
                     launches (counts set to 0 just before): layers x
@@ -761,6 +763,8 @@ def flash_instance(kname: str, dtype_name: str, d: int,
         return f"flash_fwd_wgmma_kernel<{t}, {kd}>"
     if kind == "dkv" and kd == 256:  # two warpgroups over 64 keys
         return f"flash_dkv_wg2_kernel<{t}, {str(acc).lower()}>"
+    if kind == "dq" and kd == 256:  # a producer warp, clusters of heads
+        return f"flash_dq_gqa_kernel<{t}, {str(acc).lower()}>"
     return f"flash_{kind}_wgmma_kernel<{t}, {kd}, {str(acc).lower()}>"
 
 
@@ -1819,6 +1823,8 @@ def flash_phase(torch, dev) -> tuple:
                     bytes=nb, flops=fl,
                     tile_rows=fa.flash_tile_rows(kname, dtype, d),
                 )
+                if kname in GQA_CLUSTER_KERNELS:
+                    row.update(gqa_cluster_route(fa, kname, q, k))
                 width = fa.padded_head_dim(d, dtype)
                 if width != d:  # the wrapper's padded copies, timed alone
                     row.update(padded_to=width, pad_copy_ms=pad_copy_ms(
@@ -1835,10 +1841,49 @@ def flash_phase(torch, dev) -> tuple:
                 )
         if name == GEMMA_TRAIN:
             main_rows[DKV_SUM] = dkv_sum_row(torch, fa, case)
+            cluster_refusals(torch, fa, q, k, v, bargs, kw)
         del q, k, v, dout, out, dq, dk, dv, want_o, want_dq, want_dk, want_dv
         del lib, outputs, bargs, got, want
         torch.cuda.empty_cache()
     return main_rows, timed_rows
+
+
+# The flash kernels whose kD 256 instantiation runs in clusters of
+# query heads sharing each K/V tile (attention.gqa_cluster).
+GQA_CLUSTER_KERNELS = ("flash_attention_fwd", "flash_attention_dq")
+
+
+def gqa_cluster_route(fa, kname, q, k) -> dict:
+    """A forward or dq launch's cluster (the rule's, capped by what the
+    card schedules) and how its K/V tiles arrive (``gqa_share``):
+    ``cluster_multicast`` where the group's heads share each tile,
+    ``one_block`` where each block streams its own."""
+    c = fa._cluster(kname, q, k, None)
+    return {"gqa_cluster": c,
+            "gqa_share": "cluster_multicast" if c > 1 else "one_block"}
+
+
+def cluster_refusals(torch, fa, q, k, v, bargs, kw) -> None:
+    """A cluster the kD 256 kernels cannot take (16 blocks: past the
+    card's portable 8; 3: not a power of two) must raise, naming the
+    shape, for the forward and dq alike -- never run unclustered."""
+    refused = {}
+    for c in (16, 3):
+        for kname, call in (
+                ("flash_attention_fwd",
+                 lambda: fa.flash_attention_fwd(q, k, v, **kw, cluster=c)),
+                ("flash_attention_dq",
+                 lambda: fa.flash_attention_dq(*bargs, **kw, cluster=c))):
+            try:
+                call()
+                torch.cuda.synchronize()
+                refused[f"{kname}_cluster_{c}"] = None
+            except RuntimeError as e:
+                refused[f"{kname}_cluster_{c}"] = str(e)[:160]
+    emit("flash_cluster_refused", readings=refused)
+    if not all(refused.values()):
+        raise SystemExit(f"flash: a cluster the kernels cannot take ran: "
+                         f"{refused}")
 
 
 def dkv_sum_row(torch, fa, case) -> dict:
@@ -1996,7 +2041,12 @@ def train_head_dim_256_phase(torch, dev) -> dict:
         HD256_BATCH // HD256_ACCUM, HD256_SEQ, cfg.n_heads, cfg.kv_heads,
         cfg.head_dim, torch.bfloat16,
         torch.cuda.get_device_properties(dev).multi_processor_count)
+    clusters = {kname: fa.gqa_cluster(
+        HD256_BATCH // HD256_ACCUM, HD256_SEQ, cfg.n_heads, cfg.kv_heads,
+        cfg.head_dim, torch.bfloat16, fa.max_gqa_cluster(kname))
+        for kname in GQA_CLUSTER_KERNELS}
     emit("train_head_dim_256", model="gemma-2b-widths-llama",
+         gqa_cluster=clusters,
          dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
          kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
          ffn_hidden=cfg.ffn_hidden, seq_len=cfg.max_seq_len,
@@ -7479,6 +7529,9 @@ def main() -> int:
                 for dt in ("bfloat16", "float16") for acc in (False, True)])
             entry.update({k: row[k] for k in (
                 "device_ms", "library_device_ms", "tile_rows")})
+            if hd_kernel in GQA_CLUSTER_KERNELS:  # its cluster, its sharing
+                entry.update({k: row[k] for k in ("gqa_cluster",
+                                                  "gqa_share")})
             entry["train_crosscheck_head_dim_256_launches"] = hd256_cross[
                 hd_kernel]
         # Their launches in obs_capture: the serving run's (paged, the

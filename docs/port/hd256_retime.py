@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Times the dk/dv and TF32 prefill kernels of several checkouts in one
+"""Times the flash and TF32 prefill kernels of several checkouts in one
 call: the head_dim-256 redesigns beside the rows they must not move.
 
-Cases (``CASES``, PERF.md's rows): dk/dv at the training shape (3: B 4,
+Cases (``CASES``, PERF.md's rows): the forward and dq at Gemma-2B's
+training attention (1G, 2G: B 1, S 2048, 8 query heads over 1 KV head of
+256, causal, bf16), at the training shape (1, 2), at head_dim 72 (1e,
+2e) and at the ViT's shape (1v, 2v); the prefill at Gemma's attention
+over bf16 pages (5G, its walk shared with the forward); dk/dv at the training shape (3: B 4,
 S 2048, 8 heads, head_dim 128, causal, bf16), at head_dim 72 (3e,
 padded to 128), at the ViT's shape (3v: B 8, S 512, head_dim 32, no
 mask) and at Gemma-2B's training attention (3G: B 1, S 2048, 8 query
@@ -25,14 +29,18 @@ over the 4 its KV heads are repeated to: a group of 1, never split). With
 ``--dkv-splits 1,2,4,8`` a root whose ``flash_attention_dkv`` takes
 ``n_split=`` also times each dk/dv case of a grouped shape at each of
 those splits that divides its group (``<case>_split_<n>``); with
-``--cases 3G,gqa_70b,...`` only the cases named run (and their splits).
+``--cases 3G,gqa_70b,...`` only the cases named run (and their splits);
+with ``--clusters 1,2,4,8`` a root whose forward and dq take
+``cluster=`` also times each of their cases past head_dim 128 at each of
+those cluster sizes that divides its group (``<case>_cluster_<n>``; the
+case itself runs the rule's, ``gqa_cluster`` in its reading).
 
 Each checkout builds its own library (``<root>/build``) and is timed in
 its own process, in turns A, B, ..., B, A, so a drift of the card over
 the call reads as a drift and not as a difference:
 
     python3 docs/port/hd256_retime.py [--dkv-splits 1,2,4,8] [--cases A,B]
-        ROOT_A ROOT_B [...]
+        [--clusters 1,2,4,8] ROOT_A ROOT_B [...]
 
 where each root holds a ``tpu_hpc_torch`` package (e.g. an older
 commit unpacked with ``git archive`` into a directory ``.gitignore``
@@ -44,7 +52,8 @@ pass included -- ``flash_fwd`` or ``paged_prefill``), the largest error
 against the plain version and whether ``checks/tolerance.py``'s rule
 holds, the route (prefill), the bound and SDPA's time (3G: its autograd
 backward, dq, dk and dv together; the prefill: over the gathered pages)
-in the first root's first turn. One JSON line per reading (with
+in the first root's first turn; the forward's out and dq's crc32 (their
+bits, to compare across roots). One JSON line per reading (with
 ``nvidia-smi``'s name and power limit), then a summary line with each
 root's device ms per case.
 """
@@ -60,6 +69,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 # Flash: (name, kernel, b, s, hq, hkv, d, causal, q_offset, kv_offset,
 # dtype)
 FLASH = (
+    ("1G", "fwd", 1, 2048, 8, 1, 256, True, 0, 0, "bfloat16"),
+    ("2G", "dq", 1, 2048, 8, 1, 256, True, 0, 0, "bfloat16"),
+    ("1", "fwd", 4, 2048, 8, 8, 128, True, 0, 0, "bfloat16"),
+    ("2", "dq", 4, 2048, 8, 8, 128, True, 0, 0, "bfloat16"),
+    ("1e", "fwd", 4, 2048, 8, 8, 72, True, 0, 0, "bfloat16"),
+    ("2e", "dq", 4, 2048, 8, 8, 72, True, 0, 0, "bfloat16"),
+    ("1v", "fwd", 8, 512, 8, 8, 32, False, 0, 0, "bfloat16"),
+    ("2v", "dq", 8, 512, 8, 8, 32, False, 0, 0, "bfloat16"),
     ("3", "dkv", 4, 2048, 8, 8, 128, True, 0, 0, "bfloat16"),
     ("3e", "dkv", 4, 2048, 8, 8, 72, True, 0, 0, "bfloat16"),
     ("3v", "dkv", 8, 512, 8, 8, 32, False, 0, 0, "bfloat16"),
@@ -79,6 +96,7 @@ FLASH = (
 )
 # Prefill: (name, (kv heads, group), pool, q dtype, page tokens, head_dim)
 PREFILL = (
+    ("5G", (1, 8), "bfloat16", "bfloat16", 16, 256),
     ("5s", (32, 1), "float32", "float32", 16, 128),
     ("5p", (32, 1), "float32", "float32", 12, 128),
     ("5d", (32, 1), "float32", "float32", 16, 72),
@@ -89,7 +107,7 @@ PREFILL = (
 )
 
 CHILD = r"""
-import importlib.util, inspect, json, sys
+import importlib.util, inspect, json, sys, zlib
 sys.path.insert(0, sys.argv[1])
 FIRST = sys.argv[2] == "1"
 import torch
@@ -109,21 +127,25 @@ lib = _build.load_library()
 dev = torch.device("cuda", 0)
 cs.CHIP = chip_for_kind(torch.cuda.get_device_name(0))
 ptxas = [r for r in cs.ptxas_summary(_build.PTXAS_LOG.read_text())
-         if ("256" in r["kernel"] and ("tf32" in r["kernel"]
-                                       or "dkv" in r["kernel"]))
-         or "dkv_sum" in r["kernel"]]
+         if ("256" in r["kernel"] and "flash" in r["kernel"])
+         or "tf32_kernel<f32, f32, 256" in r["kernel"]
+         or "dkv_sum" in r["kernel"] or "gqa" in r["kernel"]]
 row = {"root": sys.argv[1], "build_s": build_s, "ptxas": ptxas,
        "nvidia_smi": cs.nvidia_smi_line()}
 splits = "n_split" in inspect.signature(fa.flash_attention_dkv).parameters
+share = hasattr(fa, "gqa_cluster")
 cases = []
 for c in FLASH:
     if ONLY and c[0] not in ONLY:
         continue
     cases.append(c + (None,))
+    g = c[4] // c[5]
     if splits and c[1] == "dkv":
-        g = c[4] // c[5]
         cases += [("%s_split_%d" % (c[0], n),) + c[1:] + (n,)
                   for n in DKV_SPLITS if g % n == 0 and g > 1]
+    if share and c[1] in ("fwd", "dq") and c[6] > 128:
+        cases += [("%s_cluster_%d" % (c[0], n),) + c[1:] + (n,)
+                  for n in CLUSTERS if g % n == 0]
 
 
 def timed(r, fn, kname):
@@ -141,13 +163,46 @@ for name, kernel, b, s, hq, hkv, d, causal, qo, ko, dt, n_split in cases:
     kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
     case = (name, b, s, s, hq, hkv, d, causal, qo, ko, dt, True)
     nb, fl = cs.flash_work(case)["flash_attention_" + kernel]
-    r = {}
+    r, ck = {}, {}
+    if share and kernel in ("fwd", "dq"):  # where the root has the rule
+        # n_split names the case's cluster here (None: the rule's).
+        r["gqa_cluster"] = fa._cluster("flash_attention_" + kernel, q, k,
+                                       n_split)
+        ck["cluster"] = r["gqa_cluster"]
     if kernel == "fwd":
-        fn = lambda: fa.flash_attention_fwd(q, k, v, **kw)
+        fn = lambda: fa.flash_attention_fwd(q, k, v, **kw, **ck)
         got, want = fn()[0], fa.flash_attention_fwd_ref(q, k, v, **kw)[0]
         c = [compare(got, want, dtype)]
-        r["bound_ms"], r["bound_by"] = cs.bound_tf32(nb, fl, dt, dt)
+        r["crc32"] = zlib.crc32(
+            got.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        if dtype == torch.float32:
+            r["bound_ms"], r["bound_by"] = cs.bound_tf32(nb, fl, dt, dt)
+        else:
+            r["bound_ms"], r["bound_by"] = cs.bound(nb, fl, dtype)
         timed(r, fn, "flash_fwd")
+        if FIRST and name == "1G":  # the library once, at the rule's case
+            fwd = cs.library_flash(torch, q, k, v, dout, causal)[0]
+            r.update(library_ms=cs.time_ms(fwd, iters=20),
+                     library_device_ms=cs.device_ms(fwd, ""),
+                     library="sdpa forward")
+    elif kernel == "dq":
+        # chip_smoke.py's flash case: D less a random dlse.
+        dlse = torch.randn((b, s, hq), generator=gen, device=dev)
+        o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        dm = (dout.float() * o.float()).sum(-1) - dlse
+        bargs = (q, k, v, dout, lse, dm)
+        fn = lambda: fa.flash_attention_dq(*bargs, **kw, **ck)
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        want = fa.flash_attention_dq_ref(*bargs, **kw)
+        c = [compare(got, want, dtype)]
+        r["bit_identical"] = bool(torch.equal(got, again))
+        r["crc32"] = zlib.crc32(
+            got.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        r["bound_ms"], r["bound_by"] = cs.bound(nb, fl, dtype)
+        timed(r, fn, "flash_dq")
+        del o, lse, dm, bargs, got, again
     else:
         o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
         dm = (dout.float() * o.float()).sum(-1)
@@ -212,10 +267,12 @@ print(json.dumps(row))
 
 
 def main(argv) -> int:
-    splits, only = (), ()
-    while argv[:1] in (["--dkv-splits"], ["--cases"]):
+    splits, only, clusters = (), (), ()
+    while argv[:1] in (["--dkv-splits"], ["--cases"], ["--clusters"]):
         if argv[0] == "--dkv-splits":
             splits = tuple(int(x) for x in argv[1].split(","))
+        elif argv[0] == "--clusters":
+            clusters = tuple(int(x) for x in argv[1].split(","))
         else:
             only = tuple(argv[1].split(","))
         argv = argv[2:]
@@ -224,7 +281,8 @@ def main(argv) -> int:
         return 2
     roots = [os.path.abspath(r) for r in argv]
     code = (f"REPO = {REPO!r}\nFLASH = {FLASH!r}\nPREFILL = {PREFILL!r}\n"
-            f"DKV_SPLITS = {splits!r}\nONLY = {only!r}\n" + CHILD)
+            f"DKV_SPLITS = {splits!r}\nCLUSTERS = {clusters!r}\n"
+            f"ONLY = {only!r}\n" + CHILD)
     readings = []
     for i, root in enumerate(roots + roots[::-1]):
         out = subprocess.run([sys.executable, "-c", code, root,

@@ -800,7 +800,7 @@ def test_head_dim_flash_cases_shapes():
     ("flash_attention_fwd", "bfloat16", 256, False,
      "flash_fwd_wgmma_kernel<bf16, 256>"),
     ("flash_attention_dq", "float16", 200, True,
-     "flash_dq_wgmma_kernel<f16, 256, true>"),
+     "flash_dq_gqa_kernel<f16, true>"),
     ("flash_attention_dkv", "bfloat16", 72, False,
      "flash_dkv_wgmma_kernel<bf16, 128, false>"),
     ("flash_attention_fwd", "bfloat16", 36, False,
@@ -819,8 +819,8 @@ def test_flash_instance_names_the_ptxas_rows(kname, dtype, d, acc, name):
     assert chip_smoke.flash_instance(kname, dtype, d, acc) == name
     mangled = {"flash_fwd_wgmma_kernel<bf16, 256>":
                "13__nv_bfloat16Li256E",
-               "flash_dq_wgmma_kernel<f16, 256, true>":
-               "6__halfLi256ELb1E"}.get(name)
+               "flash_dq_gqa_kernel<f16, true>":
+               "6__halfLb1E"}.get(name)
     if mangled is not None:
         assert name.endswith(f"<{chip_smoke.template_args(mangled)}>")
 

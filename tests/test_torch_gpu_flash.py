@@ -11,9 +11,12 @@ versions on the same inputs, every case through all three: ragged lengths that c
 offsets, GQA, rows with no visible key, non-causal cross attention,
 sequences just under and over the backward kernels' 128-row tiles, head
 dims 32, 37, 64, 72, 80, 100 and 128 in every dtype, and 136, 200 and
-256 (the 256-column kernels: one warpgroup a block in the forward and
-dq, dk/dv two warpgroups over 64 keys with the query-head group split
-over blocks, n_split 1-8) in bf16 and fp16; bf16, fp16 and float32 (the float32 forward,
+256 (the 256-column kernels: the forward's two warpgroups splitting one
+64-row walk, dq's producer warp and pipelined step, both in clusters of
+a KV group's query heads sharing each K/V tile at every cluster size
+that divides the group; dk/dv two warpgroups over 64 keys with the
+query-head group split over blocks, n_split 1-8) in bf16 and fp16;
+bf16, fp16 and float32 (the float32 forward,
 dq and dk/dv on split TF32). Head dims whose rows are not a whole number
 of 16 bytes (37 in every dtype, 100 in 16 bits) reach the kernels
 through the wrappers' zero-padded copies. This file imports no JAX.
@@ -433,3 +436,110 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     assert n1["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
     assert n1["flash_attention_dq"] == n0["flash_attention_dq"]
     assert n1["flash_attention_dkv"] == n0["flash_attention_dkv"]
+
+
+# The kD 256 forward and dq with the blocks of one q tile whose query
+# heads share a KV head run as a cluster, each K/V tile loaded once and
+# multicast into all of them (attention.gqa_cluster): groups of 2, 3 and
+# 8 over 1 and 2 KV heads at head dims 256 and 200, a ragged S, causal
+# with offsets (rows 0-15 see no key), at every cluster that divides the
+# group and the rule's (None).
+CLUSTER_CASES = [(f"head_dim_{d}_group{g}_over{hkv}", 1, 200, 200, g * hkv,
+                  hkv, d, True, 5, 21, c)
+                 for d in (256, 200) for g in (2, 3, 8) for hkv in (1, 2)
+                 for c in (None, 1, 2, 4, 8) if c is None or g % c == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("case", CLUSTER_CASES,
+                         ids=[f"{c[0]}_cluster{c[10]}" for c in CLUSTER_CASES])
+def test_clustered_forward_and_dq_match_plain(cuda, dtype, case):
+    """The forward and dq at each cluster: within the dtype's rule of the
+    plain versions, the same bits as one block a head (sharing a tile
+    changes no arithmetic), dq the same bits across launches, rows that
+    see no key exact; with ``accumulate=`` dq adds unrounded (a second
+    launch doubles the first bit for bit)."""
+    cluster = case[10]
+    causal, qo, ko = case[7:10]
+    q, k, v, dout, dlse = _inputs(cuda, dtype, case[:10], seed=9)
+    kw = dict(causal=causal)
+    out, lse = ta.flash_attention_fwd(q, k, v, qo, ko, cluster=cluster, **kw)
+    alone = ta.flash_attention_fwd(q, k, v, qo, ko, cluster=1, **kw)
+    torch.cuda.synchronize()
+    want_o, want_l = ta.flash_attention_fwd_ref(q, k, v, qo, ko, **kw)
+    _close(out, want_o, dtype, "out")
+    assert torch.equal(out, alone[0]) and torch.equal(lse, alone[1])
+    live = want_l > ta.MASK_VALUE * 0.5
+    assert (~live).any() and (lse[~live] == ta.MASK_VALUE).all()
+    assert not out[~live].any()
+    dm = (dout.float() * want_o.float()).sum(-1) - dlse
+    args = (q, k, v, dout, want_l, dm, qo, ko)
+    dq = ta.flash_attention_dq(*args, cluster=cluster, **kw)
+    again = ta.flash_attention_dq(*args, cluster=cluster, **kw)
+    dq1 = ta.flash_attention_dq(*args, cluster=1, **kw)
+    torch.cuda.synchronize()
+    _close(dq, ta.flash_attention_dq_ref(*args, **kw), dtype, "dq")
+    assert torch.equal(dq, again) and torch.equal(dq, dq1)
+    assert not dq[~live].any()
+    acc = torch.zeros(q.shape, device=cuda)
+    sums = []
+    for _ in range(2):
+        ta.flash_attention_dq(*args, cluster=cluster, accumulate=acc, **kw)
+        torch.cuda.synchronize()
+        sums.append(acc.clone())
+    _close(sums[0], ta.flash_attention_dq_ref(
+        *args, accumulate=torch.zeros_like(acc), **kw), dtype, "dq acc")
+    assert torch.equal(sums[1], 2 * sums[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_gemma_training_shape_clustered(cuda, dtype):
+    """Gemma-2B's training attention (B 1, S 2048, 8 query heads over 1 KV
+    head of 256, causal): the rule's cluster is the largest the card
+    schedules (8 on an H100), the forward and dq within the rule of
+    their plain versions, dq bit-identical across launches and equal to
+    one block a head."""
+    case = ("gemma", 1, 2048, 2048, 8, 1, 256, True, 0, 0)
+    fwd_max = ta.max_gqa_cluster("flash_attention_fwd", dtype)
+    dq_max = ta.max_gqa_cluster("flash_attention_dq", dtype)
+    assert fwd_max in (1, 2, 4, 8) and dq_max in (1, 2, 4, 8)
+    assert ta.gqa_cluster(1, 2048, 8, 1, 256, dtype, fwd_max) == fwd_max
+    assert fwd_max >= 2 and dq_max >= 2, (fwd_max, dq_max)
+    q, k, v, dout, dlse = _inputs(cuda, dtype, case, seed=11)
+    out, lse = ta.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    want_o, want_l = ta.flash_attention_fwd_ref(q, k, v)
+    _close(out, want_o, dtype, "out")
+    torch.testing.assert_close(lse, want_l, atol=2e-3, rtol=1e-4)
+    dm = (dout.float() * want_o.float()).sum(-1) - dlse
+    args = (q, k, v, dout, want_l, dm)
+    dq = ta.flash_attention_dq(*args)
+    again = ta.flash_attention_dq(*args)
+    dq1 = ta.flash_attention_dq(*args, cluster=1)
+    torch.cuda.synchronize()
+    _close(dq, ta.flash_attention_dq_ref(*args), dtype, "dq")
+    assert torch.equal(dq, again) and torch.equal(dq, dq1)
+
+
+@pytest.mark.gpu
+def test_refused_cluster_raises(cuda):
+    """A cluster the kernels cannot take raises, naming the shape and the
+    cluster, and launches nothing: past the portable 8, not a power of
+    two, not dividing the group, or below the 256-column kernels."""
+    n0 = ta.kernel_launches()
+    for case, cluster in (
+            (("wide", 1, 100, 100, 8, 1, 256, True, 0, 0), 16),
+            (("wide", 1, 100, 100, 8, 1, 256, True, 0, 0), 3),
+            (("group3", 1, 100, 100, 3, 1, 256, True, 0, 0), 2),
+            (("narrow", 1, 100, 100, 8, 1, 128, True, 0, 0), 2)):
+        q, k, v, dout, dlse = _inputs(cuda, torch.bfloat16, case)
+        lse = torch.zeros(dlse.shape, device=cuda)
+        with pytest.raises(RuntimeError, match=f"cluster {cluster}.*launch "
+                           "failed"):
+            ta.flash_attention_fwd(q, k, v, cluster=cluster)
+        with pytest.raises(RuntimeError, match=f"cluster {cluster}.*launch "
+                           "failed"):
+            ta.flash_attention_dq(q, k, v, dout, lse, lse, cluster=cluster)
+    assert ta.kernel_launches() == n0

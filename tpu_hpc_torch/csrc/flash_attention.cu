@@ -9,7 +9,8 @@
 //                     flash_fwd_tf32_kernel for float32.
 //   dq                replaces _flash_dq_kernel (launched by
 //                     _flash_backward): dq = scale * dS . K.
-//                     flash_dq_wgmma_kernel for bf16 / fp16,
+//                     flash_dq_wgmma_kernel for bf16 / fp16 up to
+//                     kD 128, flash_dq_gqa_kernel at kD 256,
 //                     flash_dq_tf32_kernel for float32.
 //   dk/dv             replaces _flash_dkv_kernel (launched by
 //                     _flash_backward): dV = P^T . dO, dK = scale * dS^T . Q.
@@ -64,20 +65,27 @@
 // forward's online-softmax walk live in hopper.cuh, shared with the
 // paged prefill. The head dim is a compile-time 64, 128 or 256 (kD); a
 // smaller d reads TMA's zero fill past its columns (kMaxHeadDim16 below).
-// At kD 256 a block has 64 rows (FwdShape, BwdShape): O, dQ and the Q /
-// K / V tiles double there; the forward and dq have one warpgroup, and
-// dk/dv two over the same 64 keys, each computing half of S^T and dP^T
-// and holding half of dK's and dV's columns (flash_dkv_wg2_kernel).
+// At kD 256 a block has 64 rows (FwdShape, BwdShape, DqGqa): O, dQ and
+// the Q / K / V tiles double there; the forward and dq have one consumer
+// warpgroup, and dk/dv two over the same 64 keys, each computing half of
+// S^T and dP^T and holding half of dK's and dV's columns
+// (flash_dkv_wg2_kernel).
 //
 // The forward goes furthest: a producer warp keeps a four-stage K/V
 // ring in flight behind per-stage full / empty mbarriers, so the two
 // consumer warpgroups never meet at a block barrier, and each issues
 // the next tile's Q . K^T before this tile's P . V, so its softmax runs
-// while its own products do. The backward kernels still load from a
-// thread of the consumers through a two-stage ring with one block
-// barrier per tile, and wait for their own products (wgmma.wait_group 0)
-// before each softmax; dk/dv's 240 registers (kD 128) leave no room for
-// a second S / dP pair.
+// while its own products do. The backward kernels up to kD 128 still
+// load from a thread of the consumers through a two-stage ring with one
+// block barrier per tile, and wait for their own products
+// (wgmma.wait_group 0) before each softmax; dk/dv's 240 registers (kD
+// 128) leave no room for a second S / dP pair. At kD 256 dq has the
+// forward's shape (flash_dq_gqa_kernel: a producer warp, full / empty
+// barriers, the next tile's S and dP issued before this tile's dQ
+// product), and the forward and dq run the query heads of one KV group
+// at one q tile as a thread block cluster that shares each K/V tile:
+// one TMA load from L2, multicast into every block of the cluster
+// (attention.py's gqa_cluster picks its size).
 //
 // The float32 kernels run wgmma's TF32 form on split operands (hi + lo,
 // three passes a product; hopper.cuh), so they keep the float32 rule of
@@ -184,7 +192,8 @@ __device__ __forceinline__ void put2(Out<T, kAcc>* at, float lo, float hi) {
 // warpgroups own a block of kRows = 128 rows (q rows in dq, keys in
 // dk/dv); at kD 256 the block owns 64: two own tiles of 128 rows and
 // two stages of the two streamed tiles would take 264 KB. dq there has
-// one warpgroup (dQ alone is 128 fp32 a thread); dk/dv, which would hold
+// one consumer warpgroup (dQ alone is 128 fp32 a thread) and a layout
+// of its own (flash_dq_gqa_kernel, DqGqa below); dk/dv, which would hold
 // dK and dV, 256 fp32 a thread, has two warpgroups over the same 64 keys
 // (flash_dkv_wg2_kernel, Dkv256 below). Shared memory: the two own
 // tiles, two rings of two streamed kBwdStep-row tiles, the ring's
@@ -222,6 +231,7 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dq_wgmma_kern
     const float* __restrict__ lse, const float* __restrict__ dm,
     Out<T, kAcc>* __restrict__ dq, int sq, int sk, int hq, int hkv, int d,
     int q_offset, int kv_offset, int causal, float scale) {
+  static_assert(kD <= 128, "kD 256 takes flash_dq_gqa_kernel");
   using S = BwdShape<kD>;
   constexpr int kOwn = S::kRows * kD * 2;      // bytes of the Q (dO) tile
   constexpr int kStream = kBwdStep * kD * 2;   // bytes of a K (V) tile
@@ -376,6 +386,283 @@ __global__ void __launch_bounds__(BwdShape<kD>::kThreads, 1) flash_dq_wgmma_kern
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// dq at kD 256, 16-bit inputs. Grid (q tiles of 64 rows, hq, b),
+// heaviest causal tiles first; as in the forward, the blocks of one q
+// tile whose query heads share a KV head run as a cluster of `cluster`
+// blocks along the head axis. One consumer warpgroup owns the block's
+// 64 q rows; a producer warp loads the block's Q and dO tiles once and
+// streams the KV head's K and V tiles of kBwdStep keys through two
+// rings -- K in three stages and V in two, since a V tile is read by
+// one product and a K tile again by the next step's dQ product -- each
+// box loaded once from L2 and multicast into every block of the cluster
+// (tma_tile_shared: at Gemma-2B's 8 query heads over 1 KV head, eight
+// times fewer K/V bytes into shared memory), each stage refilled once
+// every block's consumer has freed it. Per tile, in registers:
+//   S = Q . K^T, dP = dO . V^T            (SS wgmma, 64 x 64 each)
+//   dS = P * (dP - dm), P = exp(S - lse)  (fp32, in place of dP)
+//   dQ += dS . K                           (RS wgmma, K read MN-major)
+// pipelined: tile kt's S and dP are issued before tile kt - 1's dS . K
+// and waited with wgmma.wait_group 1, so tile kt's exp and dS run while
+// the tensor cores do the previous tile's dQ product; dS is packed to T
+// only once that product has read the previous one. dQ takes the same
+// products in the same order as a step-by-step walk: dq is the same
+// bits on every launch, with no atomics. Shared memory: Q and dO 64 KB,
+// the K stages 96 KB, the V stages 64 KB; registers: dQ 128 fp32 a
+// thread, S and dP 32 each, the packed dS 16.
+// ---------------------------------------------------------------------
+// What dq_grads needs of a thread's two q rows: the first's index into
+// sq (the other is 8 further), the block's first row, and the mask.
+struct DqMask {
+  int row0, q0, sq, sk, q_offset, kv_offset, causal;
+};
+
+// S = Q . K^T and dP = dO . V^T of one 64-key tile for the 64 q rows of
+// a Q (dO) tile of 64 rows, committed as one wgmma group.
+template <typename T>
+__device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32],
+                                          uint32_t s_q, uint32_t s_do,
+                                          uint32_t k_tile, uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 256 / 16; ++kk)
+    wgmma_ss_n64<T>(s, kmajor_desc(s_q, 64, 0, kk),
+                    kmajor_desc(k_tile, kBwdStep, 0, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 256 / 16; ++kk)
+    wgmma_ss_n64<T>(dp, kmajor_desc(s_do, 64, 0, kk),
+                    kmajor_desc(v_tile, kBwdStep, 0, kk), kk > 0);
+  wgmma_commit();
+}
+
+// dQ += dS . K for one 64-key tile (K read MN-major, in N halves),
+// committed as one wgmma group.
+template <typename T>
+__device__ __forceinline__ void dq_product(float (&acc)[128],
+                                           const uint32_t (&ds)[4][4],
+                                           uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBwdStep / 16; ++kk)
+    wgmma_rs_nd<T, 256>(acc, ds[kk], mnmajor_desc(k_tile, kBwdStep, kk),
+                        2 * kBwdStep * kPanelRowBytes);
+  wgmma_commit();
+}
+
+// dS = P * (dP - dm), P = exp(S - lse), in place of dP for tile kt. Only
+// a tile that crosses the causal diagonal or a ragged end is masked
+// element by element.
+__device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
+                                         int kt, const DqMask& m,
+                                         const float (&lse2)[2],
+                                         const float (&dmr)[2], float scale2) {
+  const int lane = threadIdx.x & 31;
+  const int k0 = kt * kBwdStep;
+  const int k_last = k0 + kBwdStep - 1;
+  const bool edge = m.q0 + 63 >= m.sq || k_last >= m.sk ||
+                    (m.causal && m.kv_offset + k_last > m.q_offset + m.q0);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;  // row0 or row0 + 8
+    // A NaN score gives P = 0 (as -inf does): the plain version's
+    // select on S, in one instruction. Where lse is NaN too, P stays
+    // NaN here and not 0 there, but that row's dS is NaN either way
+    // (D is NaN), so dq's non-finite rows are the plain version's.
+    float p = exp2f(fmaf(fmaxf(s[i], -INFINITY), scale2, -lse2[r]));
+    if (edge) {
+      const int row = m.row0 + 8 * r;
+      const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const bool ok = row < m.sq && visible(m.q_offset + row, key, m.sk,
+                                            m.kv_offset, m.causal);
+      p = ok ? p : 0.f;
+    }
+    dp[i] = p * (dp[i] - dmr[r]);
+  }
+}
+
+struct DqGqa {
+  static constexpr int kD = 256;
+  static constexpr int kRows = 64;                 // q rows of a block
+  static constexpr int kThreads = 128 + 32;        // + the producer warp
+  static constexpr int kKStages = 3;
+  static constexpr int kVStages = 2;
+  static constexpr int kTile = kBwdStep * kD * 2;  // Q, dO, a K or V tile
+  static constexpr size_t kSmem =
+      static_cast<size_t>(2 + kKStages + kVStages) * kTile +
+      (1 + 2 * kKStages + 2 * kVStages) * 8 + 1024;
+};
+static_assert(DqGqa::kRows == kBwdStep && DqGqa::kRows == BwdShape<256>::kRows,
+              "kD 256 dq: a block's q rows are one streamed tile's keys");
+static_assert(DqGqa::kSmem <= static_cast<size_t>(kMaxSmem),
+              "kD 256 dq: Q, dO and the K / V stages exceed 227 KB");
+
+template <typename T, bool kAcc>
+__global__ void __launch_bounds__(DqGqa::kThreads, 1) flash_dq_gqa_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // boxes of 64 rows
+    const __grid_constant__ CUtensorMap tm_k,   // boxes of kBwdStep rows
+    const __grid_constant__ CUtensorMap tm_v,   // boxes of kBwdStep rows
+    const __grid_constant__ CUtensorMap tm_do,  // boxes of 64 rows
+    const float* __restrict__ lse, const float* __restrict__ dm,
+    Out<T, kAcc>* __restrict__ dq, int sq, int sk, int hq, int hkv, int d,
+    int q_offset, int kv_offset, int causal, float scale, int cluster) {
+  using L = DqGqa;
+  constexpr int kD = L::kD;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * L::kRows;
+  const int q_rows = min(L::kRows, sq - q0);
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_do = s_q + L::kTile;
+  const uint32_t s_k = s_do + L::kTile;                 // stage st at + st * kTile
+  const uint32_t s_v = s_k + L::kKStages * L::kTile;
+  const uint32_t bar_own = s_v + L::kVStages * L::kTile;
+  const uint32_t full_k = bar_own + 8;                  // + 8 st each
+  const uint32_t empty_k = full_k + 8 * L::kKStages;
+  const uint32_t full_v = empty_k + 8 * L::kKStages;
+  const uint32_t empty_v = full_v + 8 * L::kVStages;
+
+  const int n_kt = kv_tiles(sk, kBwdStep, q_offset + q0 + q_rows - 1,
+                            kv_offset, causal);
+  // Only the panels holding a column below d load; the rest of Q, dO and
+  // every stage are zeros from here on.
+  const int panels = live_panels<kD>(d);
+  zero_dead_panels<kD>(s_q, L::kRows, 2 + L::kKStages + L::kVStages, d,
+                       L::kThreads);
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own);
+    for (int st = 0; st < L::kKStages; ++st) {
+      mbar_init(full_k + 8 * st);
+      mbar_init(empty_k + 8 * st, cluster);  // each block's consumer
+    }
+    for (int st = 0; st < L::kVStages; ++st) {
+      mbar_init(full_v + 8 * st);
+      mbar_init(empty_v + 8 * st, cluster);
+    }
+    mbar_fence_init();
+  }
+  if (cluster > 1) {
+    cluster_sync();  // the peers' barriers are set before any load
+  } else {
+    __syncthreads();
+  }
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (lane == 0) {
+      const uint32_t tile_bytes = kBwdStep * kPanelRowBytes * panels;
+      const uint32_t rank = cluster > 1 ? cluster_rank() : 0;
+      mbar_expect_tx(bar_own, 2 * L::kRows * kPanelRowBytes * panels);
+      tma_tile<kD>(s_q, &tm_q, bar_own, h, q0, b, L::kRows, panels);
+      tma_tile<kD>(s_do, &tm_do, bar_own, h, q0, b, L::kRows, panels);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int sk_ = kt % L::kKStages;
+        const int sv = kt % L::kVStages;
+        if (kt >= L::kKStages) {
+          const uint32_t parity = (kt / L::kKStages - 1) & 1;
+          mbar_wait(empty_k + 8 * sk_, parity);
+        }
+        mbar_expect_tx(full_k + 8 * sk_, tile_bytes);
+        tma_tile_shared<kD>(s_k + sk_ * L::kTile, &tm_k, full_k + 8 * sk_, kvh,
+                            kt * kBwdStep, b, kBwdStep, panels, cluster, rank, 0);
+        if (kt >= L::kVStages) {
+          const uint32_t parity = (kt / L::kVStages - 1) & 1;
+          mbar_wait(empty_v + 8 * sv, parity);
+        }
+        mbar_expect_tx(full_v + 8 * sv, tile_bytes);
+        tma_tile_shared<kD>(s_v + sv * L::kTile, &tm_v, full_v + 8 * sv, kvh,
+                            kt * kBwdStep, b, kBwdStep, panels, cluster, rank,
+                            panels);
+      }
+    }
+    if (cluster > 1) cluster_sync();  // no block leaves while peers arrive
+    return;
+  }
+
+  // This thread's two q rows (global index into sq): row0 and row0 + 8.
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dmr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const size_t at = (static_cast<size_t>(b) * sq + row) * hq + h;
+    lse2[i] = row < sq ? lse[at] * kLog2e : 0.f;
+    dmr[i] = row < sq ? dm[at] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  const DqMask mask{row0, q0, sq, sk, q_offset, kv_offset, causal};
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t ds[4][4];
+
+  mbar_wait(bar_own, 0);
+  if (n_kt > 0) {
+    // Tile kt's K and V stages, once full.
+    auto k_tile = [&](int kt) { return s_k + (kt % L::kKStages) * L::kTile; };
+    auto v_tile = [&](int kt) { return s_v + (kt % L::kVStages) * L::kTile; };
+    auto wait_full = [&](int kt) {
+      mbar_wait(full_k + 8 * (kt % L::kKStages), (kt / L::kKStages) & 1);
+      mbar_wait(full_v + 8 * (kt % L::kVStages), (kt / L::kVStages) & 1);
+    };
+    wait_full(0);
+    wgmma_fence();
+    dq_scores<T>(s, dp, s_q, s_do, k_tile(0), v_tile(0));
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    free_stage(empty_v, cluster);
+    dq_grads(s, dp, 0, mask, lse2, dmr, scale2);
+    walk_pack<T>(ds, dp);
+    for (int kt = 1; kt < n_kt; ++kt) {
+      wait_full(kt);
+      wgmma_fence();
+      // Q's and dO's descriptors recomputed each step (opaque): hoisted,
+      // 32 k-steps of them stay live beside dQ, S, dP and dS and spill.
+      dq_scores<T>(s, dp, opaque<true>(s_q), opaque<true>(s_do), k_tile(kt),
+                   v_tile(kt));
+      dq_product<T>(acc, ds, k_tile(kt - 1));
+      wgmma_wait<1>();  // S and dP of tile kt; dQ of tile kt - 1 may still run
+      reg_fence(s);
+      reg_fence(dp);
+      free_stage(empty_v + 8 * (kt % L::kVStages), cluster);
+      dq_grads(s, dp, kt, mask, lse2, dmr, scale2);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(ds);
+      free_stage(empty_k + 8 * ((kt - 1) % L::kKStages), cluster);
+      walk_pack<T>(ds, dp);
+    }
+    wgmma_fence();
+    dq_product<T>(acc, ds, k_tile(n_kt - 1));
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(ds);
+  }
+
+  // dq = scale * dQ, this thread's column pairs of its two rows.
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (col < d && row < sq) {
+        const size_t at =
+            ((static_cast<size_t>(b) * sq + row) * hq + h) * d + col;
+        put2<T, kAcc>(dq + at, scale * acc[4 * j + 2 * r],
+                      scale * acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+  if (cluster > 1) cluster_sync();
 }
 
 // A dk/dv block's epilogue: dk = scale * dK and dv = dV, this thread's
@@ -939,6 +1226,20 @@ __global__ void __launch_bounds__(kSumThreads) flash_dkv_sum_kernel(
 // (hopper.cuh, walk) and frees the rest (walk_skip): the one below the
 // diagonal walks one tile fewer and never waits for the other. The
 // epilogue writes out and lse straight from registers.
+//
+// At kD 256 the blocks of one q tile whose query heads share a KV head
+// run as a cluster of `cluster` blocks along the grid's head axis
+// (gqa_cluster_ok; kernels/attention.py::gqa_cluster picks it): they
+// walk the same K and V tiles, so each stage's boxes are split among
+// them and each box is loaded once from L2 and multicast into every
+// block's ring (tma_tile_shared), and a stage is refilled once every block's
+// consumers have freed it (walk_release arrives on each block's empty
+// barrier). Every block of a cluster has the same q tile, so they all
+// walk the same number of tiles. At Gemma-2B's 8 query heads over one
+// KV head that cuts the K/V bytes moved from L2 into shared memory
+// eight-fold (276.8 MB to 34.6 MB a call at S 2048). Every score and
+// product is computed as without the cluster: out and lse are the same
+// bits.
 // ---------------------------------------------------------------------
 // Stages of the K/V ring. Overridable with -D (kernels/autotune.py builds
 // such variants); the default build takes 4.
@@ -950,7 +1251,8 @@ constexpr int kFwdStages = TPUHPC_FWD_STAGES;
 // The forward's shape at head dim kD: up to kD 128, two consumer
 // warpgroups on a 128-row q tile and kFwdStages stages; at kD 256 one
 // warpgroup on 64 rows (O alone is 128 fp32 a thread: two warpgroups and
-// the producer would leave each thread 224 registers) and at most three
+// the producer would leave each thread 168 registers, one of an SM's
+// four register banks holding three of the nine warps) and at most three
 // stages (Q 32 KB, a stage 64 KB: 230,480 bytes), the paged prefill's
 // shape at that width.
 template <int kD>
@@ -996,8 +1298,11 @@ __global__ void __launch_bounds__(FwdShape<kD>::kThreads, 1) flash_fwd_wgmma_ker
     const __grid_constant__ CUtensorMap tm_k,  // boxes of kWalkKeys rows
     const __grid_constant__ CUtensorMap tm_v,
     T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int hq,
-    int hkv, int d, int q_offset, int kv_offset, int causal, float scale) {
+    int hkv, int d, int q_offset, int kv_offset, int causal, float scale,
+    int cluster) {
   using S = FwdShape<kD>;
+  // Blocks sharing the K/V stream (1 below kD 256: no cluster there).
+  const int peers = kD == 256 ? cluster : 1;
   constexpr int kStages = S::kStages;
   constexpr int kQ = S::kRows * kD * 2;  // bytes of the Q tile
   constexpr int kTile = walk_tile_bytes<kD>();
@@ -1021,6 +1326,7 @@ __global__ void __launch_bounds__(FwdShape<kD>::kThreads, 1) flash_fwd_wgmma_ker
   ring.full_v = ring.full_k + 8 * kStages;
   ring.empty = ring.full_v + 8 * kStages;
   ring.stages = kStages;
+  ring.peers = peers;
 
   const int n_kt = kv_tiles(sk, kWalkKeys, q_offset + q0 + q_rows - 1,
                             kv_offset, causal);
@@ -1035,29 +1341,41 @@ __global__ void __launch_bounds__(FwdShape<kD>::kThreads, 1) flash_fwd_wgmma_ker
     for (int st = 0; st < kStages; ++st) {
       mbar_init(ring.full_k + 8 * st);
       mbar_init(ring.full_v + 8 * st);
-      mbar_init(ring.empty + 8 * st, S::kWgs);
+      // Every consumer warpgroup of every block sharing the ring.
+      mbar_init(ring.empty + 8 * st, S::kWgs * peers);
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  if (peers > 1) {
+    cluster_sync();  // the peers' barriers are set before any load
+  } else {
+    __syncthreads();
+  }
 
   if (wg == S::kWgs) {  // the producer warp
     if (lane == 0) {
       const uint32_t tile_bytes = kWalkKeys * kPanelRowBytes * panels;
+      const uint32_t rank = peers > 1 ? cluster_rank() : 0;
       mbar_expect_tx(bar_q, S::kRows * kPanelRowBytes * panels);
       tma_tile<kD>(s_q, &tm_q, bar_q, h, q0, b, S::kRows, panels);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % kStages;
-        if (kt >= kStages)
+        if (kt >= kStages) {
           mbar_wait(ring.empty + 8 * st, (kt / kStages - 1) & 1);
+        }
+        // The whole tiles' bytes, whoever of the cluster loads them; the
+        // V tile's boxes from block `panels` on, so they spread over it.
         mbar_expect_tx(ring.full_k + 8 * st, tile_bytes);
-        tma_tile<kD>(ring.k + st * kTile, &tm_k, ring.full_k + 8 * st, kvh,
-                     kt * kWalkKeys, b, kWalkKeys, panels);
+        tma_tile_shared<kD>(ring.k + st * kTile, &tm_k, ring.full_k + 8 * st,
+                            kvh, kt * kWalkKeys, b, kWalkKeys, panels, peers,
+                            rank, 0);
         mbar_expect_tx(ring.full_v + 8 * st, tile_bytes);
-        tma_tile<kD>(ring.v + st * kTile, &tm_v, ring.full_v + 8 * st, kvh,
-                     kt * kWalkKeys, b, kWalkKeys, panels);
+        tma_tile_shared<kD>(ring.v + st * kTile, &tm_v, ring.full_v + 8 * st,
+                            kvh, kt * kWalkKeys, b, kWalkKeys, panels, peers,
+                            rank, panels);
       }
     }
+    if (peers > 1) cluster_sync();  // no block leaves while peers arrive
     return;
   }
 
@@ -1095,6 +1413,7 @@ __global__ void __launch_bounds__(FwdShape<kD>::kThreads, 1) flash_fwd_wgmma_ker
       lse[(static_cast<size_t>(b) * sq + row) * hq + h] = row_lse[r];
   }
   walk_skip(ring, n_wg, n_kt);
+  if (peers > 1) cluster_sync();
 }
 
 // ---------------------------------------------------------------------
@@ -1796,6 +2115,15 @@ bool shapes_ok(int b, int sq, int sk, int hq, int hkv, int d, int dtype) {
          head_dim_ok(d, dtype) && b <= 65535 && hq <= 65535;
 }
 
+// A cluster the forward and dq take: 1, or 2, 4 or 8 blocks of query
+// heads of one KV group (the size divides the group) on the kD 256
+// 16-bit kernels (kernels/attention.py::gqa_cluster picks it).
+bool gqa_cluster_ok(int cluster, int hq, int hkv, int d, int dtype) {
+  if (cluster == 1) return true;
+  return (cluster == 2 || cluster == 4 || cluster == 8) && dtype != kF32 &&
+         d > 128 && (hq / hkv) % cluster == 0;
+}
+
 // The four maps of a backward launch: q and dO in boxes of `q_rows`
 // rows, k and v in boxes of `k_rows`.
 template <typename T>
@@ -1807,6 +2135,89 @@ cudaError_t bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
   if (err == cudaSuccess) err = bshd_map<T>(&m[2], v, b, sk, hkv, d, k_rows);
   if (err == cudaSuccess) err = bshd_map<T>(&m[3], dout, b, sq, hq, d, q_rows);
   return err;
+}
+
+// Launches `kernel` on `grid` with clusters of `cluster` blocks along
+// the grid's head axis (y), after asking the card whether such a
+// cluster fits at all (cudaOccupancyMaxActiveClusters): one that does
+// not is refused with cudaErrorLaunchOutOfResources, never run without
+// the cluster.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                           size_t smem, int cluster, cudaStream_t stream,
+                           Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fits = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (fits < 1) return cudaErrorLaunchOutOfResources;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// The largest cluster of 8, 4 or 2 blocks of `kernel` (a kD 256 forward
+// or dq) the card can schedule at once, else 1.
+template <typename... Params>
+int max_cluster(void (*kernel)(Params...), int threads, size_t smem) {
+  if (allow_smem(kernel, smem) != cudaSuccess) return 1;
+  for (int c = 8; c > 1; c /= 2) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = c;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, c, 1);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int fits = 0;
+    if (cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg) != cudaSuccess)
+      cudaGetLastError();  // a refused query leaves no error behind
+    else if (fits >= 1)
+      return c;
+  }
+  return 1;
+}
+
+template <typename T, bool kAcc>
+int launch_dq_gqa(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* dm, void* dq,
+                  int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
+                  int kv_offset, int causal, float scale, int cluster,
+                  cudaStream_t stream) {
+  using L = DqGqa;
+  CUtensorMap m[4];
+  cudaError_t err =
+      bwd_maps<T>(m, q, k, v, dout, b, sq, sk, hq, hkv, d, L::kRows, kBwdStep);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_dq_gqa_kernel<T, kAcc>;
+  err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + L::kRows - 1) / L::kRows, hq, b);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* dm_f = static_cast<const float*>(dm);
+  Out<T, kAcc>* out = static_cast<Out<T, kAcc>*>(dq);
+  if (cluster > 1)
+    return static_cast<int>(launch_cluster(
+        kernel, grid, L::kThreads, L::kSmem, cluster, stream, m[0], m[1], m[2],
+        m[3], lse_f, dm_f, out, sq, sk, hq, hkv, d, q_offset, kv_offset,
+        causal, scale, cluster));
+  kernel<<<grid, L::kThreads, L::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], lse_f, dm_f, out, sq, sk, hq, hkv, d, q_offset,
+      kv_offset, causal, scale, 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kD, bool kAcc>
@@ -1877,11 +2288,13 @@ int launch_dkv_sum(const void* part, void* dk, void* dv, int n_split, size_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `cluster` (1 below kD 256): blocks of one q tile sharing the K/V
+// stream (gqa_cluster_ok).
 template <typename T, int kD>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int sq, int sk, int hq, int hkv, int d,
                      int q_offset, int kv_offset, int causal, float scale,
-                     cudaStream_t stream) {
+                     int cluster, cudaStream_t stream) {
   using S = FwdShape<kD>;
   CUtensorMap m[3];
   cudaError_t err = bshd_map<T>(&m[0], q, b, sq, hq, d, S::kRows);
@@ -1891,10 +2304,19 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   auto kernel = flash_fwd_wgmma_kernel<T, kD>;
   err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((sq + S::kRows - 1) / S::kRows, hq, b), S::kThreads, S::kSmem,
-           stream>>>(m[0], m[1], m[2], static_cast<T*>(out),
-                     static_cast<float*>(lse), sq, sk, hq, hkv, d, q_offset,
-                     kv_offset, causal, scale);
+  const dim3 grid((sq + S::kRows - 1) / S::kRows, hq, b);
+  T* o = static_cast<T*>(out);
+  float* l = static_cast<float*>(lse);
+  if constexpr (kD == 256) {
+    if (cluster > 1)
+      return static_cast<int>(launch_cluster(
+          kernel, grid, S::kThreads, S::kSmem, cluster, stream, m[0], m[1],
+          m[2], o, l, sq, sk, hq, hkv, d, q_offset, kv_offset, causal, scale,
+          cluster));
+  }
+  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
+      m[0], m[1], m[2], o, l, sq, sk, hq, hkv, d, q_offset, kv_offset, causal,
+      scale, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1959,12 +2381,13 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dou
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                int b, int sq, int sk, int hq, int hkv, int d, int q_offset,
-               int kv_offset, int causal, float scale, cudaStream_t stream) {
+               int kv_offset, int causal, float scale, int cluster,
+               cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
       return launch_fwd_wgmma<T, decltype(kd)::value>(
           q, k, v, out, lse, b, sq, sk, hq, hkv, d, q_offset, kv_offset, causal,
-          scale, stream);
+          scale, cluster, stream);
     });
   } else {
     return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
@@ -1975,15 +2398,23 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   }
 }
 
+// kD 256 takes flash_dq_gqa_kernel (its cluster: gqa_cluster_ok), the
+// others flash_dq_wgmma_kernel.
 template <typename T, bool kAcc>
 int launch_dq_16(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* dm, void* dq, int b, int sq,
                  int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-                 int causal, float scale, cudaStream_t stream) {
+                 int causal, float scale, int cluster, cudaStream_t stream) {
   return by_head_dim<kMaxHeadDim16>(d, [&](auto kd) {
-    return launch_dq_wgmma<T, decltype(kd)::value, kAcc>(
-        q, k, v, dout, lse, dm, dq, b, sq, sk, hq, hkv, d, q_offset, kv_offset,
-        causal, scale, stream);
+    if constexpr (decltype(kd)::value == 256) {
+      return launch_dq_gqa<T, kAcc>(q, k, v, dout, lse, dm, dq, b, sq, sk, hq,
+                                    hkv, d, q_offset, kv_offset, causal, scale,
+                                    cluster, stream);
+    } else {
+      return launch_dq_wgmma<T, decltype(kd)::value, kAcc>(
+          q, k, v, dout, lse, dm, dq, b, sq, sk, hq, hkv, d, q_offset,
+          kv_offset, causal, scale, stream);
+    }
   });
 }
 
@@ -1991,15 +2422,15 @@ template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dm, void* dq, int b, int sq, int sk,
               int hq, int hkv, int d, int q_offset, int kv_offset, int causal,
-              int accumulate, float scale, cudaStream_t stream) {
+              int accumulate, float scale, int cluster, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return accumulate
                ? launch_dq_16<T, true>(q, k, v, dout, lse, dm, dq, b, sq, sk,
                                        hq, hkv, d, q_offset, kv_offset, causal,
-                                       scale, stream)
+                                       scale, cluster, stream)
                : launch_dq_16<T, false>(q, k, v, dout, lse, dm, dq, b, sq, sk,
                                         hq, hkv, d, q_offset, kv_offset, causal,
-                                        scale, stream);
+                                        scale, cluster, stream);
   } else {
     return by_head_dim<kMaxHeadDimF32>(d, [&](auto kd) {
       return launch_dq_tf32<decltype(kd)::value>(
@@ -2059,15 +2490,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
+// The forward and dq entries' `cluster`: the blocks of one q tile whose
+// query heads share a KV head that run as one cluster, sharing each K/V
+// tile (gqa_cluster_ok; 1 for none). A cluster the card cannot schedule
+// is refused (cudaErrorLaunchOutOfResources), never run without it.
 int tpuhpc_flash_fwd(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int sq, int sk, int hq, int hkv, int d,
-                     int q_offset, int kv_offset, int causal, float scale,
-                     int dtype, void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+                     int q_offset, int kv_offset, int causal, int cluster,
+                     float scale, int dtype, void* stream) {
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype) ||
+      !gqa_cluster_ok(cluster, hq, hkv, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_fwd<T>(q, k, v, out, lse, b, sq, sk, hq, hkv,
                                              d, q_offset, kv_offset, causal, scale,
+                                             cluster,
                                              static_cast<cudaStream_t>(stream)))
 }
 
@@ -2076,15 +2513,38 @@ int tpuhpc_flash_fwd(const void* q, const void* k, const void* v, void* out,
 int tpuhpc_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* dm, void* dq, int b, int sq,
                     int sk, int hq, int hkv, int d, int q_offset, int kv_offset,
-                    int causal, int accumulate, float scale, int dtype,
-                    void* stream) {
-  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype))
+                    int causal, int accumulate, int cluster, float scale,
+                    int dtype, void* stream) {
+  if (!shapes_ok(b, sq, sk, hq, hkv, d, dtype) ||
+      !gqa_cluster_ok(cluster, hq, hkv, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   TPUHPC_FLASH_DISPATCH(dtype,
                         return launch_dq<T>(q, k, v, dout, lse, dm, dq, b, sq, sk,
                                             hq, hkv, d, q_offset, kv_offset, causal,
-                                            accumulate, scale,
+                                            accumulate, scale, cluster,
                                             static_cast<cudaStream_t>(stream)))
+}
+
+// The largest cluster (8, 4, 2, else 1) of the kD 256 `kernel` (0 the
+// forward, 1 dq) in 16-bit `dtype` the card can schedule at once;
+// kernels/attention.py::max_gqa_cluster reads it, gqa_cluster caps its
+// pick by it. 0 for an unknown kernel or dtype.
+int tpuhpc_flash_max_cluster(int kernel, int dtype) {
+  if ((kernel != 0 && kernel != 1) || (dtype != kF16 && dtype != kBF16))
+    return 0;
+  if (kernel == 0) {
+    using S = FwdShape<256>;
+    return dtype == kF16
+               ? max_cluster(flash_fwd_wgmma_kernel<__half, 256>, S::kThreads,
+                             S::kSmem)
+               : max_cluster(flash_fwd_wgmma_kernel<__nv_bfloat16, 256>,
+                             S::kThreads, S::kSmem);
+  }
+  return dtype == kF16
+             ? max_cluster(flash_dq_gqa_kernel<__half, false>, DqGqa::kThreads,
+                           DqGqa::kSmem)
+             : max_cluster(flash_dq_gqa_kernel<__nv_bfloat16, false>,
+                           DqGqa::kThreads, DqGqa::kSmem);
 }
 
 // n_split: blocks a key tile's query-head group is split over (1, or a

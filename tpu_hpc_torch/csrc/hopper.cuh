@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by flash_attention.cu and
 // paged_attention.cu: the common constants and conversions, wgmma
-// descriptors and instructions, mbarriers, TMA tile loads and the
-// tensor-map encoder.
+// descriptors and instructions, mbarriers, thread block clusters, TMA
+// tile loads (multicast into a cluster too) and the tensor-map encoder.
 //
 // Shared-memory tiles hold [rows][kD] operands as "panels" of 128 bytes
 // a row -- 64 columns of a 16-bit tile (kD / 64 panels), 32 of an fp32
@@ -173,10 +173,74 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// Thread block clusters. A kernel launched with clusters of c blocks
+// (flash_attention.cu's kD 256 forward and dq: the query heads of one KV
+// group) reaches the shared memory of every block of its cluster: the
+// same CTA-relative address names the same bytes in each. cluster_rank
+// is this block's index in its cluster (0 .. c - 1).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// One arrival on the mbarrier at CTA-relative address `bar` of block
+// `rank` of this block's cluster (this block's own where rank is its
+// own): a ring stage this thread's warpgroup has finished reading --
+// its wgmma reads complete (wgmma.wait_group) -- is free for the TMA
+// loads of that block's producer, which only its barrier orders.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(rank)
+      : "memory");
+}
+
+// Every thread of every block of the cluster meets here: after the
+// barriers' initialisation (before any block multicasts into another's
+// ring or arrives on its barriers), and before a block exits (while a
+// peer may still arrive on its barriers).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // Orders this thread's plain shared-memory writes before later reads by
 // the async proxy (wgmma operands, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One 64-column box (panel) of a 4-D tensor map at coordinates (c0,
+// c1, c2, c3), written at `dst` in every block of the cluster that
+// `mask` names (bit r: block r), each block's mbarrier at `bar`
+// counting the box's bytes: one read from L2 feeds them all.
+__device__ __forceinline__ void tma_box_multicast(uint32_t dst,
+                                                  const CUtensorMap* map,
+                                                  uint32_t bar, int c0, int c1,
+                                                  int c2, int c3,
+                                                  uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// One warpgroup's arrival on the empty barrier `bar` of a ring stage it
+// has finished reading (after the products that read it completed), in
+// each of the `peers` blocks of the cluster that share the ring (peers
+// 1: this block's own).
+__device__ __forceinline__ void free_stage(uint32_t bar, int peers) {
+  const int t = threadIdx.x & 127;
+  if (peers == 1) {
+    if (t == 0) mbar_arrive(bar);
+    return;
+  }
+  if (t < peers) mbar_arrive_remote(bar, t);  // one thread a block, at once
 }
 
 // Loads one box per 64-column panel from a 4-D tensor map at
@@ -201,6 +265,32 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
            "l"(reinterpret_cast<uint64_t>(map)), "r"(64 * p), "r"(c1), "r"(c2),
            "r"(c3), "r"(bar)
         : "memory");
+  }
+}
+
+// tma_tile into the tile at `dst` of every block of a cluster of
+// `peers` that share it: panel p's box is loaded by block (first + p) %
+// peers alone and multicast into all of them, each block's barrier
+// `bar` counting its bytes -- one read from L2 for the cluster. The
+// caller offsets `first` between the tiles of one stage so the boxes
+// spread over the blocks. peers 1: tma_tile.
+template <int kD>
+__device__ __forceinline__ void tma_tile_shared(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int c1, int c2,
+                                                int c3, int tile_rows,
+                                                int panels, int peers,
+                                                uint32_t rank, int first) {
+  if (peers == 1) {
+    tma_tile<kD>(dst, map, bar, c1, c2, c3, tile_rows, panels);
+    return;
+  }
+  const uint16_t all = static_cast<uint16_t>((1u << peers) - 1u);
+#pragma unroll
+  for (int p = 0; p < kD / 64; ++p) {
+    if (p >= panels) break;
+    if ((first + p) % peers == static_cast<int>(rank))
+      tma_box_multicast(dst + p * tile_rows * kPanelRowBytes, map, bar, 64 * p,
+                        c1, c2, c3, all);
   }
 }
 
@@ -622,6 +712,9 @@ struct WalkRing {
   uint32_t k, v;                  // stage 0's K and V tiles
   uint32_t full_k, full_v, empty;  // stage 0's barriers (+ 8 st)
   int stages;
+  // Blocks of the cluster that share the stream (tma_tile_shared): a
+  // stage is freed in each of them. 1: the block's own ring alone.
+  int peers = 1;
 };
 
 // This thread's two rows of one warpgroup's 64: the running max m (log2
@@ -641,9 +734,10 @@ __device__ __forceinline__ int walk_key(int i, int lane) {
 }
 
 // Frees stage st of the ring for the producer: one arrival per
-// warpgroup, after the warpgroup's products that read it completed.
+// warpgroup, after the warpgroup's products that read it completed --
+// on the stage's empty barrier of every block that shares the ring.
 __device__ __forceinline__ void walk_release(const WalkRing& ring, int st) {
-  if ((threadIdx.x & 127) == 0) mbar_arrive(ring.empty + 8 * st);
+  free_stage(ring.empty + 8 * st, ring.peers);
 }
 
 // A warpgroup that needs no more tiles still frees tiles [from, to) in

@@ -165,12 +165,15 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     """The entry points of csrc/flash_attention.cu."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # flash_attention.cu: pointers, then (b, sq, sk, hq, hkv, d,
-    # q_offset, kv_offset, causal[, accumulate]), scale, dtype code,
-    # stream.
-    lib.tpuhpc_flash_fwd.argtypes = [p] * 5 + [i] * 9 + [f, i, p]
+    # q_offset, kv_offset, causal[, accumulate], cluster), scale, dtype
+    # code, stream.
+    lib.tpuhpc_flash_fwd.argtypes = [p] * 5 + [i] * 10 + [f, i, p]
     lib.tpuhpc_flash_fwd.restype = i
-    lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
+    lib.tpuhpc_flash_dq.argtypes = [p] * 7 + [i] * 11 + [f, i, p]
     lib.tpuhpc_flash_dq.restype = i
+    # (kernel: 0 forward, 1 dq; dtype code)
+    lib.tpuhpc_flash_max_cluster.argtypes = [i, i]
+    lib.tpuhpc_flash_max_cluster.restype = i
     # dk/dv: 9 pointers (the last the split partials), the ints above,
     # n_split, scale, dtype code, stream.
     lib.tpuhpc_flash_dkv.argtypes = [p] * 9 + [i] * 11 + [f, i, p]

@@ -467,14 +467,83 @@ def _launch(name, fn, *args):
     _build.check(lib, code, name)
 
 
+def gqa_cluster(b: int, sq: int, hq: int, hkv: int, d: int,
+                dtype: torch.dtype, max_cluster: int = 8) -> int:
+    """Blocks of one q tile that run as a cluster in the 16-bit kD 256
+    forward and dq kernels (``csrc/flash_attention.cu``): query heads of
+    one KV head's group, side by side on the grid's head axis, each K/V
+    tile loaded once from L2 and multicast into all of them. The largest
+    of 8, 4, 2 and 1 that divides the group ``hq // hkv`` and is at most
+    ``max_cluster`` (what the card can schedule:
+    :func:`max_gqa_cluster`); 1 for float32 and wherever the padded head
+    dim is 128 or less (those kernels share nothing). A pure function of
+    the shape: the same cluster, and the same bits, on every launch.
+    ``b`` and ``sq`` do not change it: every block of a cluster walks
+    the same q tile, so the grid keeps its blocks and its balance."""
+    del b, sq  # the grid's other axes: any cluster along heads fits them
+    if dtype == torch.float32 or padded_head_dim(d, dtype) <= 128:
+        return 1
+    g = hq // hkv
+    for c in (8, 4, 2):
+        if c <= max_cluster and g % c == 0:
+            return c
+    return 1
+
+
+_MAX_CLUSTER: dict = {}
+
+
+def max_gqa_cluster(kernel: str, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The largest cluster (8, 4, 2, else 1) of ``kernel``'s kD 256
+    instantiation (``flash_attention_fwd`` or ``flash_attention_dq``, in
+    a 16-bit ``dtype``) the card can schedule at once, read once from
+    the library (``cudaOccupancyMaxActiveClusters``); call it only with
+    a card."""
+    from tpu_hpc_torch.kernels import _build
+
+    if kernel not in FLASH_KERNELS[:2] or dtype not in (torch.float16,
+                                                         torch.bfloat16):
+        raise ValueError(f"no clustered {kernel} in {dtype}")
+    key = (kernel, dtype, torch.cuda.current_device())
+    if key not in _MAX_CLUSTER:
+        _MAX_CLUSTER[key] = _build.load_library().tpuhpc_flash_max_cluster(
+            FLASH_KERNELS.index(kernel), DTYPE_CODES[dtype])
+    return _MAX_CLUSTER[key]
+
+
+def _cluster(kernel, q, k, cluster: Optional[int]) -> int:
+    """The cluster a forward or dq launch takes: ``cluster`` where the
+    caller names one (the kernel refuses one it cannot take), else the
+    rule's (:func:`gqa_cluster`)."""
+    if cluster is not None:
+        return int(cluster)
+    b, sq, _, hq, hkv, d = _dims(q, k)
+    c = gqa_cluster(b, sq, hq, hkv, d, q.dtype)
+    if c == 1:  # no card query for the kernels that share nothing
+        return 1
+    return gqa_cluster(b, sq, hq, hkv, d, q.dtype,
+                       max_gqa_cluster(kernel, q.dtype))
+
+
+def _shape_name(name, q, k, cluster) -> str:
+    b, sq, sk, hq, hkv, d = _dims(q, k)
+    return (f"{name} (b {b}, sq {sq}, sk {sk}, hq {hq}, hkv {hkv}, d {d}, "
+            f"{str(q.dtype)[6:]}, cluster {cluster})")
+
+
 def flash_attention_fwd(
     q, k, v, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
+    cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: (out [B, Sq, Hq, D] in q.dtype, lse [B, Sq, Hq] fp32).
-    CUDA tensors launch ``flash_fwd_wgmma_kernel`` (bf16, fp16) or
-    ``flash_fwd_tf32_kernel`` (float32: split TF32, see
-    :func:`tf32_split`); CPU tensors run :func:`flash_attention_fwd_ref`."""
+    CUDA tensors launch ``flash_fwd_wgmma_kernel`` (bf16, fp16; at a
+    padded head dim past 128 in clusters of :func:`gqa_cluster` blocks
+    sharing each K/V tile) or ``flash_fwd_tf32_kernel`` (float32: split
+    TF32, see :func:`tf32_split`); CPU tensors run
+    :func:`flash_attention_fwd_ref`. ``cluster`` (card only) overrides
+    the rule; one the kernel cannot take, or the card cannot schedule,
+    raises."""
     _check_inputs(q, k, v)
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -484,13 +553,14 @@ def flash_attention_fwd(
     code = _kernel_dtype(q)
     _check_cuda([("q", q), ("k", k), ("v", v)], [q.dtype] * 3)
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    c = _cluster("flash_attention_fwd", q, k, cluster)
+    name = _shape_name("flash_attention_fwd", q, k, c)
     w = padded_head_dim(d, q.dtype)
     q, k, v = (_pad(t, w) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", "tpuhpc_flash_fwd", q, k, v, out, lse,
-            b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)), float(scale),
-            code)
+    _launch(name, "tpuhpc_flash_fwd", q, k, v, out, lse, b, sq, sk, hq, hkv,
+            w, qo, ko, int(bool(causal)), c, float(scale), code)
     flash_attention_fwd.launches += 1
     return (out if w == d else out[..., :d].contiguous()), lse
 
@@ -512,13 +582,19 @@ def flash_attention_dq(
     q, k, v, dout, lse, dm, q_offset: Offset = 0, kv_offset: Offset = 0, *,
     causal: bool = True, sm_scale: Optional[float] = None,
     accumulate: Optional[torch.Tensor] = None,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
     """dq in q.dtype from the saved lse and ``dm = rowsum(dO*O) - dlse``
     (both [B, Sq, Hq] fp32); with ``accumulate`` (fp32, q's shape) the
     kernel adds dq into it unrounded and it is returned -- how a ring sums
-    its pairs. CUDA tensors launch ``flash_dq_wgmma_kernel`` (bf16, fp16)
-    or ``flash_dq_tf32_kernel`` (float32: split TF32, see
-    :func:`tf32_split`); CPU tensors run :func:`flash_attention_dq_ref`."""
+    its pairs. CUDA tensors launch ``flash_dq_wgmma_kernel`` (bf16, fp16
+    up to a padded head dim of 128), ``flash_dq_gqa_kernel`` (bf16, fp16
+    past it: a producer warp, a pipelined step, and clusters of
+    :func:`gqa_cluster` blocks sharing each K/V tile) or
+    ``flash_dq_tf32_kernel`` (float32: split TF32, see
+    :func:`tf32_split`); CPU tensors run :func:`flash_attention_dq_ref`.
+    ``cluster`` (card only) overrides the rule, as in
+    :func:`flash_attention_fwd`."""
     _check_inputs(q, k, v, (("lse", lse), ("dm", dm)))
     qo, ko = _offset(q_offset), _offset(kv_offset)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -536,11 +612,13 @@ def flash_attention_dq(
         [q.dtype] * 4 + [torch.float32] * 2 + [dq.dtype],
     )
     b, sq, sk, hq, hkv, d = _dims(q, k)
+    c = _cluster("flash_attention_dq", q, k, cluster)
+    name = _shape_name("flash_attention_dq", q, k, c)
     w = padded_head_dim(d, q.dtype)
     q, k, v, dout, out = (_pad(t, w) for t in (q, k, v, dout, dq))
-    _launch("flash_attention_dq", "tpuhpc_flash_dq", q, k, v, dout, lse, dm,
-            out, b, sq, sk, hq, hkv, w, qo, ko, int(bool(causal)),
-            int(accumulate is not None), float(scale), code)
+    _launch(name, "tpuhpc_flash_dq", q, k, v, dout, lse, dm, out, b, sq, sk,
+            hq, hkv, w, qo, ko, int(bool(causal)),
+            int(accumulate is not None), c, float(scale), code)
     flash_attention_dq.launches += 1
     if out is not dq:  # a padded copy: its first d columns
         dq.copy_(out[..., :d])
@@ -814,8 +892,10 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_ref",
     "flash_tile_rows",
+    "gqa_cluster",
     "kernel_launches",
     "lse_merge",
+    "max_gqa_cluster",
     "padded_head_dim",
     "tf32_round",
     "tf32_split",

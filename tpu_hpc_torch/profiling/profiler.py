@@ -44,6 +44,18 @@ from tpu_hpc_torch.logging_ import get_logger
 from tpu_hpc_torch.logging_.logging import process_rank
 
 
+# torch.profiler on the card (torch 2.11) drops the device events of the
+# first kernels launched after a window opens -- their launch records
+# stay in the trace -- 0 to 11 of them in one process, more in an older
+# one (docs/port/profiler_repeat.py; the count is of kernels, not of
+# time: the first launch came 3-11 ms after the start); late in
+# chip_smoke.py's process the bench-Llama window lost its first flash
+# forward that way. So a CUDA window opens with this many one-element
+# fills and waits for them: the kernels the profiler drops are these,
+# never the owner's.
+SENTINEL_KERNELS = 256
+
+
 def profiler_busy() -> bool:
     """True while a torch profiler (autograd or Kineto) runs in this
     process."""
@@ -123,6 +135,8 @@ class TrainingProfiler:
             torch.cuda.synchronize(self.device)
         prof = profile(activities=activities)
         prof.start()
+        if self._cuda:
+            _absorb_first_kernels(self.device)
         self._prof = prof
         self._opened_at = int(step)
         self.active = True
@@ -175,6 +189,15 @@ class TrainingProfiler:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def _absorb_first_kernels(device) -> None:
+    """SENTINEL_KERNELS one-element fills on ``device``, then a wait for
+    them: the first kernels of a window, which the profiler may drop."""
+    one = torch.empty(1, device=device)
+    for _ in range(SENTINEL_KERNELS):
+        one.fill_(0.0)
+    torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
